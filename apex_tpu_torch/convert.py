@@ -1,0 +1,98 @@
+"""Parameter conversion between the JAX package's GPT tree and the port.
+
+The caller hands over apex_tpu's parameter pytree already turned into
+numpy (``jax.tree.map(np.asarray, params)``), so the port never sees a
+JAX array. :func:`params_from_jax` maps it onto
+:class:`~apex_tpu_torch.models.GPTModel` ``state_dict`` keys:
+
+- the stacked ``params["transformer"]["layers"]`` leaves ``[L, ...]``
+  split into the per-layer modules ``transformer.layers.{i}.…``;
+- every other leaf maps one to one, its path joined with dots
+  (``embedding/word_embeddings/weight`` — the tied LM head —
+  ``embedding/position_embeddings``, ``transformer/final_layernorm/…``);
+- weights stay ``[out, in]``, as both packages keep them.
+
+:func:`params_to_jax` is the inverse (numpy leaves, layers restacked;
+bf16 leaves come back widened to float32, which is exact).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+__all__ = ["params_from_jax", "params_to_jax", "load_jax_params"]
+
+_LAYERS = ("transformer", "layers")
+
+
+def _to_tensor(a) -> torch.Tensor:
+    a = np.ascontiguousarray(np.asarray(a))
+    if a.dtype.name == "bfloat16":          # ml_dtypes bf16: reinterpret
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:           # numpy has no bf16: widen, exactly
+        t = t.float()
+    return t.numpy()
+
+
+def _walk(tree: Mapping[str, Any], prefix=()):
+    for key, value in tree.items():
+        path = prefix + (str(key),)
+        if isinstance(value, Mapping):
+            yield from _walk(value, path)
+        else:
+            yield path, value
+
+
+def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """apex_tpu GPT params (numpy leaves) -> a ``GPTModel`` state dict
+    of CPU tensors in the leaves' dtypes."""
+    state: Dict[str, torch.Tensor] = {}
+    for path, leaf in _walk(tree):
+        if path[:2] == _LAYERS:
+            stacked = _to_tensor(leaf)
+            for i in range(stacked.shape[0]):
+                key = ".".join(path[:2] + (str(i),) + path[2:])
+                state[key] = stacked[i].clone()
+        else:
+            state[".".join(path)] = _to_tensor(leaf)
+    return state
+
+
+def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_jax`: a nested dict of numpy
+    leaves with the per-layer tensors restacked to ``[L, ...]``."""
+    tree: Dict[str, Any] = {}
+    layers: Dict[tuple, Dict[int, np.ndarray]] = {}
+    for key, tensor in state.items():
+        path = tuple(key.split("."))
+        if path[:2] == _LAYERS:
+            layers.setdefault(path[3:], {})[int(path[2])] = _to_numpy(tensor)
+            continue
+        _put(tree, path, _to_numpy(tensor))
+    for rest, per_layer in layers.items():
+        stacked = np.stack([per_layer[i] for i in sorted(per_layer)])
+        _put(tree, _LAYERS + rest, stacked)
+    return tree
+
+
+def _put(tree: Dict[str, Any], path, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+@torch.no_grad()
+def load_jax_params(model: torch.nn.Module, tree: Mapping[str, Any]):
+    """Copy apex_tpu GPT params (numpy leaves) into ``model`` in place,
+    cast to each parameter's dtype and device; every key must match.
+    Returns the model."""
+    model.load_state_dict(params_from_jax(tree), strict=True)
+    return model

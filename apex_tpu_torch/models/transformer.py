@@ -1,0 +1,300 @@
+"""Megatron-style transformer blocks (inference forward) in PyTorch.
+
+Counterpart of ``apex_tpu/models/transformer.py`` at tensor-parallel size
+1, for the serving path: ``TransformerConfig``, ``ParallelMLP``,
+``ParallelAttention``, ``ParallelTransformerLayer`` and
+``ParallelTransformer`` with the per-layer LIST cache loop. Layout is
+Megatron's ``[seq, batch, hidden]``. Module and parameter names follow the
+JAX parameter tree, so ``state_dict`` keys read like its paths
+(:mod:`apex_tpu_torch.convert`).
+
+What runs here:
+
+- no cache: causal flash attention over the whole sequence;
+- a 4D ``[b, kv_heads, S, head_dim]`` cache at ``cache_index == 0``: the
+  prefill fast path — K/V written into the cache in place, then causal
+  flash over the filled prefix;
+- ``paged_state`` (a page table) with a ``[b]`` position vector: the paged
+  decode step through :func:`~apex_tpu_torch.ops.fused_paged_decode_attention`.
+
+Other cache forms (mid-cache 4D offsets, the flat cache), dropout,
+sequence/context parallelism and MoE are later slices and raise
+``NotImplementedError``. The forward is inference only.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from apex_tpu_torch.normalization import FusedLayerNorm, FusedRMSNorm
+from apex_tpu_torch.ops import (
+    flash_attention,
+    fused_paged_decode_attention,
+    fused_rope,
+    rope_freqs,
+)
+from apex_tpu_torch.transformer.enums import AttnMaskType
+from apex_tpu_torch.transformer.tensor_parallel import (
+    ColumnParallelLinear,
+    RowParallelLinear,
+)
+from apex_tpu_torch.utils.activations import (
+    apply_activation,
+    is_gated,
+    validate_activation,
+)
+
+__all__ = ["TransformerConfig", "ParallelMLP", "ParallelAttention",
+           "ParallelTransformerLayer", "ParallelTransformer"]
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    """The model-shaping subset of the JAX package's ``TransformerConfig``
+    (same names and defaults; dtypes are torch dtypes)."""
+
+    num_layers: int
+    hidden_size: int
+    num_attention_heads: int
+    num_query_groups: Optional[int] = None
+    ffn_hidden_size: Optional[int] = None
+    vocab_size: int = 32000
+    max_position_embeddings: int = 2048
+    layernorm_epsilon: float = 1e-5
+    position_embedding_type: str = "learned"
+    rotary_percent: float = 1.0
+    rope_theta: float = 10000.0
+    activation: str = "gelu"
+    normalization: str = "layernorm"
+    attn_mask_type: AttnMaskType = AttnMaskType.causal
+    sliding_window: Optional[int] = None
+    params_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.float32
+    init_method_std: float = 0.02
+
+    def __post_init__(self):
+        if self.position_embedding_type not in ("learned", "rope", "none"):
+            raise ValueError(
+                f"position_embedding_type must be 'learned', 'rope', or "
+                f"'none', got {self.position_embedding_type!r}")
+        if not 0.0 < self.rotary_percent <= 1.0:
+            raise ValueError(f"rotary_percent must be in (0, 1], got "
+                             f"{self.rotary_percent}")
+        validate_activation(self.activation)
+        if self.normalization not in ("layernorm", "rmsnorm"):
+            raise ValueError(f"normalization must be 'layernorm' or "
+                             f"'rmsnorm', got {self.normalization!r}")
+        if self.sliding_window is not None:
+            if self.sliding_window < 1:
+                raise ValueError(f"sliding_window must be >= 1, got "
+                                 f"{self.sliding_window}")
+            if self.attn_mask_type != AttnMaskType.causal:
+                raise ValueError("sliding_window requires causal attention")
+        if self.hidden_size % self.num_attention_heads:
+            raise ValueError(f"hidden_size ({self.hidden_size}) must be "
+                             f"divisible by num_attention_heads "
+                             f"({self.num_attention_heads})")
+        if self.num_attention_heads % self.kv_heads:
+            raise ValueError(f"num_query_groups ({self.kv_heads}) must "
+                             f"divide num_attention_heads "
+                             f"({self.num_attention_heads})")
+
+    @property
+    def ffn_size(self) -> int:
+        return self.ffn_hidden_size or 4 * self.hidden_size
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def kv_heads(self) -> int:
+        return (self.num_attention_heads if self.num_query_groups is None
+                else self.num_query_groups)
+
+    @property
+    def rotary_dim(self) -> int:
+        rot = int(self.head_dim * self.rotary_percent)
+        rot -= rot % 2
+        if rot < 2:
+            raise ValueError(
+                f"rotary_percent ({self.rotary_percent}) rotates fewer than "
+                f"2 of {self.head_dim} head-dim channels")
+        return rot
+
+    @property
+    def output_init_std(self) -> float:
+        """Megatron's residual-output init scale, std / sqrt(2 L)."""
+        return self.init_method_std / math.sqrt(2.0 * self.num_layers)
+
+
+def _norm(config: TransformerConfig, device) -> nn.Module:
+    cls = FusedRMSNorm if config.normalization == "rmsnorm" \
+        else FusedLayerNorm
+    return cls(config.hidden_size, config.layernorm_epsilon,
+               params_dtype=config.params_dtype, device=device)
+
+
+class ParallelMLP(nn.Module):
+    """h -> ffn (column) -> activation -> h (row); gated activations widen
+    the column projection to ``2*ffn``, unit-interleaved and bias-free."""
+
+    def __init__(self, config: TransformerConfig, device=None):
+        super().__init__()
+        c = config
+        self.config = c
+        gated = is_gated(c.activation)
+        kw = dict(params_dtype=c.params_dtype, device=device)
+        self.dense_h_to_4h = ColumnParallelLinear(
+            c.hidden_size, (2 if gated else 1) * c.ffn_size, bias=not gated,
+            **kw)
+        self.dense_4h_to_h = RowParallelLinear(c.ffn_size, c.hidden_size,
+                                               **kw)
+
+    def forward(self, hidden: torch.Tensor) -> torch.Tensor:
+        x = apply_activation(self.dense_h_to_4h(hidden),
+                             self.config.activation)
+        return self.dense_4h_to_h(x)
+
+
+class ParallelAttention(nn.Module):
+    """Self-attention with the fused, grouped QKV projection
+    ``[g0: qpg*dh q | dh k | dh v | g1: ...]`` and an output projection."""
+
+    def __init__(self, config: TransformerConfig, device=None):
+        super().__init__()
+        c = config
+        self.config = c
+        qpg = c.num_attention_heads // c.kv_heads
+        kw = dict(params_dtype=c.params_dtype, device=device)
+        self.query_key_value = ColumnParallelLinear(
+            c.hidden_size, c.kv_heads * (qpg + 2) * c.head_dim, **kw)
+        self.dense = RowParallelLinear(c.hidden_size, c.hidden_size, **kw)
+
+    def forward(self, hidden: torch.Tensor, *,
+                kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                cache_index=None,
+                paged_state: Optional[torch.Tensor] = None):
+        """``hidden [s, b, h] -> [s, b, h]``, or ``(out, cache)`` with a
+        ``kv_cache``. The cache is updated in place and returned."""
+        c = self.config
+        dh = c.head_dim
+        qpg = c.num_attention_heads // c.kv_heads
+        qkv = self.query_key_value(hidden)
+        s, b = qkv.shape[0], qkv.shape[1]
+        qkv = qkv.reshape(s, b, c.kv_heads, qpg + 2, dh)
+        q = qkv[:, :, :, :qpg].reshape(s, b, c.num_attention_heads, dh)
+        k = qkv[:, :, :, qpg]
+        v = qkv[:, :, :, qpg + 1]
+        if c.position_embedding_type == "rope":
+            start = 0 if cache_index is None else cache_index
+            freqs = rope_freqs(start, s, c.rotary_dim, c.rope_theta,
+                               device=hidden.device)
+            q = fused_rope(q, freqs)
+            k = fused_rope(k, freqs)
+        causal = c.attn_mask_type == AttnMaskType.causal
+        if paged_state is not None:
+            # paged decode: append this step's K/V rows at each slot's
+            # position and attend over its mapped pages (one kernel)
+            if kv_cache is None or s != 1:
+                raise NotImplementedError(
+                    "paged decode takes the page-pool kv_cache pair and one "
+                    "token per slot (verify windows are a later slice)")
+            ck, cv = kv_cache
+            ctx, ck, cv = fused_paged_decode_attention(
+                q[0], k[0].reshape(b, -1), v[0].reshape(b, -1), ck, cv,
+                paged_state, cache_index, queries_per_group=qpg,
+                sliding_window=c.sliding_window)
+            return self.dense(ctx[None]), (ck, cv)
+        # [s, b, heads, dh] -> [b, heads, s, dh]
+        q, k, v = (t.permute(1, 2, 0, 3) for t in (q, k, v))
+        if kv_cache is not None:
+            ck, cv = kv_cache
+            if ck.dim() != 4 or not (isinstance(cache_index, int)
+                                     and cache_index == 0):
+                raise NotImplementedError(
+                    "only the prefill cache path (4D cache, cache_index 0) "
+                    "and paged decode are ported; mid-cache and flat-cache "
+                    "decode are a later slice")
+            ck[:, :, :s] = k.to(ck.dtype)
+            cv[:, :, :s] = v.to(cv.dtype)
+            ctx = flash_attention(q, ck[:, :, :s].to(q.dtype),
+                                  cv[:, :, :s].to(q.dtype), causal=True,
+                                  sliding_window=c.sliding_window)
+        else:
+            ctx = flash_attention(q, k, v, causal=causal,
+                                  sliding_window=c.sliding_window)
+        out = self.dense(ctx.permute(2, 0, 1, 3).reshape(s, b, -1))
+        return out if kv_cache is None else (out, (ck, cv))
+
+
+class ParallelTransformerLayer(nn.Module):
+    """Pre-LN block: ln -> attention -> add -> ln -> mlp -> add."""
+
+    def __init__(self, config: TransformerConfig, device=None):
+        super().__init__()
+        self.config = config
+        self.input_layernorm = _norm(config, device)
+        self.self_attention = ParallelAttention(config, device)
+        self.post_attention_layernorm = _norm(config, device)
+        self.mlp = ParallelMLP(config, device)
+
+    def forward(self, hidden: torch.Tensor, *, kv_cache=None,
+                cache_index=None, paged_state=None):
+        c = self.config
+        # out_dtype=x.dtype: the consumers run in the compute dtype
+        x = self.input_layernorm(hidden, out_dtype=hidden.dtype)
+        attn = self.self_attention(x.to(c.compute_dtype), kv_cache=kv_cache,
+                                   cache_index=cache_index,
+                                   paged_state=paged_state)
+        new_cache = None
+        if kv_cache is not None:
+            attn, new_cache = attn
+        hidden = hidden + attn
+        x = self.post_attention_layernorm(hidden, out_dtype=hidden.dtype)
+        out = hidden + self.mlp(x.to(c.compute_dtype))
+        return out if kv_cache is None else (out, new_cache)
+
+
+class ParallelTransformer(nn.Module):
+    """The layer stack plus the final norm. Layers are a
+    :class:`~torch.nn.ModuleList`, so the JAX package's stacked ``[L, ...]``
+    parameters map onto per-layer modules."""
+
+    def __init__(self, config: TransformerConfig, device=None):
+        super().__init__()
+        self.config = config
+        self.layers = nn.ModuleList(
+            ParallelTransformerLayer(config, device)
+            for _ in range(config.num_layers))
+        self.final_layernorm = _norm(config, device)
+
+    def forward(self, hidden: torch.Tensor, *,
+                kv_caches: Optional[List] = None, cache_index=None,
+                paged_state=None, final_norm: bool = True):
+        """``hidden``, or ``(hidden, new_caches)`` with ``kv_caches`` — a
+        LIST of per-layer ``(k, v)`` pairs (4D caches or page pools),
+        updated in place."""
+        if kv_caches is not None and (
+                not isinstance(kv_caches, list)
+                or len(kv_caches) != len(self.layers)):
+            raise ValueError(
+                f"kv_caches must be a list of {len(self.layers)} per-layer "
+                f"(k, v) pairs")
+        new_caches = []
+        for idx, layer in enumerate(self.layers):
+            if kv_caches is None:
+                hidden = layer(hidden)
+                continue
+            hidden, cache = layer(hidden, kv_cache=kv_caches[idx],
+                                  cache_index=cache_index,
+                                  paged_state=paged_state)
+            new_caches.append(cache)
+        if final_norm:
+            hidden = self.final_layernorm(hidden, out_dtype=hidden.dtype)
+        return hidden if kv_caches is None else (hidden, new_caches)

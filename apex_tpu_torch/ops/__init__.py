@@ -1,0 +1,22 @@
+"""Kernel-backed ops: a CUDA tensor launches the hand-written Hopper
+kernel, a CPU tensor runs the plain PyTorch version
+(:mod:`apex_tpu_torch.ops._support`)."""
+
+from apex_tpu_torch.ops._support import LAUNCHES, reset_launches
+from apex_tpu_torch.ops.attention import flash_attention
+from apex_tpu_torch.ops.decode_attention import (
+    fused_paged_decode_attention,
+    paged_pages_for,
+)
+from apex_tpu_torch.ops.layer_norm import (
+    fused_layer_norm,
+    fused_layer_norm_affine,
+    fused_rms_norm,
+    fused_rms_norm_affine,
+)
+from apex_tpu_torch.ops.rope import fused_rope, rope_freqs
+
+__all__ = ["LAUNCHES", "reset_launches", "flash_attention",
+           "fused_paged_decode_attention", "paged_pages_for",
+           "fused_layer_norm", "fused_layer_norm_affine", "fused_rms_norm",
+           "fused_rms_norm_affine", "fused_rope", "rope_freqs"]

@@ -1,0 +1,143 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under ``apex_tpu_torch/csrc/*.cu`` have a plain C interface
+(no PyTorch headers), so each compiles in seconds. On first use
+:func:`library` runs one ``nvcc`` per source, all started together, links
+the objects into ``build/apex_tpu_torch/libapex_tpu_torch_kernels.so``
+and loads it with :mod:`ctypes`. A content stamp over the sources and
+flags skips the build when nothing changed. Pointer and stream arguments
+are ``c_void_p``; every entry point returns ``cudaGetLastError()``, which
+:func:`check` turns into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import List, Optional
+
+__all__ = ["library", "check", "build_seconds", "SOURCE_DIR", "BUILD_DIR"]
+
+SOURCE_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "apex_tpu_torch"
+LIB_NAME = "libapex_tpu_torch_kernels.so"
+_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+          "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+#: C signature of every entry point (see the ``extern "C"`` blocks)
+_SIGNATURES = {
+    # x, w, b, y, mean, invvar, stream, m, h, eps, is_rms, x/w/y dtypes
+    "apex_layer_norm_fwd": [_P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _F, _I, _I, _I, _I],
+    # q, k, v, o, lse, kv_lengths, stream, b, h, kvh, sq, sk, d, scale,
+    # causal, window, dtype
+    "apex_flash_fwd": [_P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _F, _I, _I, _I],
+    # q, k_pages, v_pages, page_table, positions, ctx, stream, b, hl, kvh,
+    # dh, n_pages, page_size, pages_per_slot, window, dtype
+    "apex_paged_decode": [_P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _I, _I, _I],
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+#: wall seconds the last build took (0.0 when the stamp matched)
+build_seconds = 0.0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError(
+        "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernels "
+        "are built from source on first use")
+
+
+def _sources() -> List[Path]:
+    return sorted(SOURCE_DIR.glob("*.cu"))
+
+
+def _stamp() -> str:
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for path in sorted(SOURCE_DIR.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()
+
+
+def _build(lib_path: Path, stamp_path: Path, stamp: str) -> None:
+    global build_seconds
+    t0 = time.perf_counter()
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for src in _sources():
+        obj = BUILD_DIR / (src.stem + ".o")
+        cmd = [nvcc, *_FLAGS, "-Xptxas=-v", "-I", str(SOURCE_DIR), "-c",
+               str(src), "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    errors, logs = [], []
+    for src, _, proc in procs:
+        out, _ = proc.communicate()
+        text = f"{src.name}:\n{out.decode(errors='replace')}"
+        logs.append(text)
+        if proc.returncode:
+            errors.append(text)
+    # ptxas registers / shared memory / spills of every kernel
+    (BUILD_DIR / "build.log").write_text("\n".join(logs))
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    link = subprocess.run(
+        [nvcc, *_FLAGS, "-shared", *(str(o) for _, o, _ in procs),
+         "-o", str(tmp)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    if link.returncode:
+        raise RuntimeError(
+            "nvcc link failed:\n" + link.stdout.decode(errors="replace"))
+    os.replace(tmp, lib_path)
+    stamp_path.write_text(stamp)
+    build_seconds = time.perf_counter() - t0
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if its sources changed."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        lib_path = BUILD_DIR / LIB_NAME
+        stamp_path = BUILD_DIR / (LIB_NAME + ".stamp")
+        stamp = _stamp()
+        if not (lib_path.exists() and stamp_path.exists()
+                and stamp_path.read_text() == stamp):
+            _build(lib_path, stamp_path, stamp)
+        lib = ctypes.CDLL(str(lib_path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.apex_error_string.argtypes = [ctypes.c_int]
+        lib.apex_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
+
+
+def check(name: str, status: int) -> None:
+    """Raise when a C entry point reported a CUDA error."""
+    if status != 0:
+        text = library().apex_error_string(status).decode()
+        raise RuntimeError(f"{name}: CUDA error {status} at launch: {text}")

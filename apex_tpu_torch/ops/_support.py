@@ -1,0 +1,101 @@
+"""Kernel dispatch support for the PyTorch port.
+
+Counterpart of ``apex_tpu/ops/_support.py``. The JAX package picks Pallas
+or a plain ``jnp`` path from the backend (or ``APEX_TPU_FORCE_PALLAS``);
+here the choice follows the tensors alone:
+
+- a tensor on the CPU takes the op's plain PyTorch version;
+- a tensor on a CUDA device launches the hand-written Hopper kernel, or
+  the wrapper raises. There is no fallback from a failed launch and no
+  switch that forces the plain path on the card.
+
+Every kernel wrapper counts its launches in :data:`LAUNCHES`, so a run
+can show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Union
+
+import torch
+
+__all__ = ["LAUNCHES", "reset_launches", "count_launch", "resolve_device",
+           "is_cpu", "forward_only", "cdiv", "round_up", "dtype_code"]
+
+#: launches per kernel since the last :func:`reset_launches` — a wrapper
+#: adds one where it launches its kernel, and nowhere else
+LAUNCHES: Dict[str, int] = {"layer_norm_fwd": 0, "flash_fwd": 0,
+                            "paged_decode": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def count_launch(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def resolve_device(device: Union[str, torch.device, None] = "cuda"
+                   ) -> torch.device:
+    """``device`` as a :class:`torch.device`; ``None`` means ``"cuda"``.
+    A CUDA device on a machine without one raises instead of quietly
+    running on the CPU — pass ``device="cpu"`` to ask for the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev} requested but torch.cuda.is_available() is "
+            f"False; pass device='cpu' to run the plain PyTorch path")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}: expected cpu or cuda")
+    if dev.type == "cuda" and dev.index is None:
+        # "cuda" means the current card: name it, so a tensor's device
+        # (always indexed) compares equal to the one asked for
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def is_cpu(*tensors: Optional[torch.Tensor]) -> bool:
+    """True when every given tensor lies on the CPU, False when every one
+    lies on one CUDA device; raises on a mix or on another device type."""
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"tensors must share one device, got {devices}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type == "cuda":
+        return False
+    raise ValueError(f"unsupported device {dev}: expected cpu or cuda")
+
+
+def forward_only(op: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise when autograd would need a backward this slice does not
+    have: the kernels and their plain versions are forward-only."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{op} is forward-only in apex_tpu_torch (its backward is not "
+            f"ported yet); call it under torch.no_grad()")
+
+
+def round_up(x: int, multiple: int) -> int:
+    return ((x + multiple - 1) // multiple) * multiple
+
+
+def cdiv(a: int, b: int) -> int:
+    return (a + b - 1) // b
+
+
+#: dtype codes shared with the C entry points in ``csrc/common.cuh``
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def dtype_code(dtype: torch.dtype) -> int:
+    try:
+        return _DTYPE_CODES[dtype]
+    except KeyError:
+        raise TypeError(
+            f"the CUDA kernels take float32 or bfloat16, got {dtype}") \
+            from None

@@ -1,0 +1,34 @@
+"""Continuous-batching serving over the paged KV layout (counterpart of
+``apex_tpu.serving``)."""
+
+from apex_tpu_torch.serving.engine import EngineConfig, InferenceEngine
+from apex_tpu_torch.serving.request import (
+    FINISH_CANCELLED,
+    FINISH_EOS,
+    FINISH_ERROR,
+    FINISH_LENGTH,
+    FINISH_REASONS,
+    FINISH_REJECTED,
+    FINISH_TIMEOUT,
+    Request,
+    RequestResult,
+    SamplingParams,
+)
+from apex_tpu_torch.serving.scheduler import (
+    DeadlineExpiredError,
+    FCFSScheduler,
+    QueueFullError,
+    SchedulerConfig,
+    bucket_for,
+    prefill_buckets,
+)
+from apex_tpu_torch.serving.slots import PageError, PagePool, SlotError, \
+    SlotPool
+
+__all__ = ["EngineConfig", "InferenceEngine", "Request", "RequestResult",
+           "SamplingParams", "FINISH_CANCELLED", "FINISH_EOS", "FINISH_ERROR",
+           "FINISH_LENGTH", "FINISH_REASONS", "FINISH_REJECTED",
+           "FINISH_TIMEOUT", "DeadlineExpiredError", "FCFSScheduler",
+           "QueueFullError", "SchedulerConfig", "bucket_for",
+           "prefill_buckets", "PageError", "PagePool", "SlotError",
+           "SlotPool"]
