@@ -13,7 +13,9 @@ JAX array. :func:`params_from_jax` maps it onto
 - weights stay ``[out, in]``, as both packages keep them.
 
 :func:`params_to_jax` is the inverse (numpy leaves, layers restacked;
-bf16 leaves come back widened to float32, which is exact).
+bf16 leaves come back widened to float32, which is exact), and
+:func:`grads_to_jax` lays a model's ``.grad`` tensors out the same way, so
+they compare leaf by leaf with the JAX gradient tree.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "params_to_jax", "load_jax_params"]
+__all__ = ["params_from_jax", "params_to_jax", "grads_to_jax",
+           "load_jax_params"]
 
 _LAYERS = ("transformer", "layers")
 
@@ -81,6 +84,16 @@ def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         stacked = np.stack([per_layer[i] for i in sorted(per_layer)])
         _put(tree, _LAYERS + rest, stacked)
     return tree
+
+
+def grads_to_jax(model: torch.nn.Module) -> Dict[str, Any]:
+    """The model's parameter grads as the JAX gradient tree (numpy leaves,
+    per-layer grads restacked). A parameter without a grad gives zeros.
+    The tied word embedding is one parameter, so its leaf holds the sum
+    of the lookup's and the LM head's gradients, as in JAX."""
+    return params_to_jax({
+        name: p.grad if p.grad is not None else torch.zeros_like(p)
+        for name, p in model.named_parameters()})
 
 
 def _put(tree: Dict[str, Any], path, value) -> None:

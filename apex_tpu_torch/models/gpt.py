@@ -1,10 +1,13 @@
-"""GPT: embeddings -> transformer stack -> weight-tied LM head.
+"""GPT: embeddings -> transformer stack -> weight-tied LM head and loss.
 
-Counterpart of ``apex_tpu/models/gpt.py`` at tensor-parallel size 1 for
-inference (``labels=None``: the model returns logits; the loss comes with
-the training slice). The model owns its parameters, initialised from a
-``torch.Generator`` the way the JAX package's ``init`` draws them: normal
-with ``init_method_std`` (residual-output projections scaled by
+Counterpart of ``apex_tpu/models/gpt.py`` at tensor-parallel size 1:
+``GPTModel.forward(tokens)`` returns logits, and with ``labels`` the
+scalar (optionally loss-masked) mean LM loss through
+:func:`lm_head_loss`, differentiable for training. The word embedding is
+tied to the LM head, so its gradient sums the lookup's and the head's.
+The model owns its parameters, initialised from a ``torch.Generator`` the
+way the JAX package's ``init`` draws them: normal with
+``init_method_std`` (residual-output projections scaled by
 ``1/sqrt(2 L)``), norms at one / zero, biases at zero.
 """
 
@@ -23,9 +26,10 @@ from apex_tpu_torch.ops._support import resolve_device
 from apex_tpu_torch.transformer.tensor_parallel import (
     VocabParallelEmbedding,
     linear,
+    vocab_parallel_cross_entropy,
 )
 
-__all__ = ["GPTModel", "lm_head", "init_weights"]
+__all__ = ["GPTModel", "lm_head", "lm_head_loss", "init_weights"]
 
 
 class _Embedding(nn.Module):
@@ -43,10 +47,33 @@ class _Embedding(nn.Module):
             if config.position_embedding_type == "learned" else None)
 
 
+def lm_head_loss(embedding_weight: torch.Tensor, hidden: torch.Tensor,
+                 labels: Optional[torch.Tensor],
+                 loss_mask: Optional[torch.Tensor],
+                 config: TransformerConfig) -> torch.Tensor:
+    """Weight-tied LM head + vocab-parallel loss (the JAX package's
+    ``lm_head_loss``): the head matmul runs in the compute dtype (the
+    weight is cast to it), the cross entropy in fp32. Returns logits
+    ``[s, b, V]`` when ``labels`` is None, else the scalar mean loss over
+    ``labels [b, s]`` — masked by ``loss_mask [b, s]`` when given."""
+    logits = linear(hidden.to(config.compute_dtype), embedding_weight, None)
+    if labels is None:
+        return logits
+    if config.loss_seq_chunks > 1:
+        raise NotImplementedError(
+            f"loss_seq_chunks={config.loss_seq_chunks} (the chunked, "
+            f"recomputed LM-head loss) is not ported yet; use 1")
+    losses = vocab_parallel_cross_entropy(logits, labels.t())   # [s, b]
+    if loss_mask is None:
+        return losses.mean()
+    mask = loss_mask.t().to(losses.dtype)
+    return (losses * mask).sum() / mask.sum().clamp_min(1.0)
+
+
 def lm_head(model: "GPTModel", hidden: torch.Tensor) -> torch.Tensor:
     """Weight-tied LM head in the compute dtype: ``[s, b, V]`` logits."""
-    return linear(hidden.to(model.config.compute_dtype),
-                  model.embedding.word_embeddings.weight, None)
+    return lm_head_loss(model.embedding.word_embeddings.weight, hidden, None,
+                        None, model.config)
 
 
 @torch.no_grad()
@@ -87,12 +114,20 @@ class GPTModel(nn.Module):
     def device(self) -> torch.device:
         return self.embedding.word_embeddings.weight.device
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """``tokens [b, s]`` -> logits ``[s, b, V]`` (cache-free causal
-        forward; inference only)."""
+    def forward(self, tokens: torch.Tensor,
+                labels: Optional[torch.Tensor] = None, *,
+                loss_mask: Optional[torch.Tensor] = None,
+                deterministic: bool = True) -> torch.Tensor:
+        """``tokens [b, s]`` -> logits ``[s, b, V]``, or with ``labels
+        [b, s]`` the scalar mean loss (masked by ``loss_mask``). Active
+        dropout (``deterministic=False`` with a rate > 0) raises
+        ``NotImplementedError``: not ported yet."""
         c = self.config
+        c.check_dropout(deterministic)
         emb = self.embedding.word_embeddings(tokens)
         if c.position_embedding_type == "learned":
             emb = emb + self.embedding.position_embeddings[:tokens.shape[1]]
         hidden = emb.transpose(0, 1).to(c.compute_dtype)
-        return lm_head(self, self.transformer(hidden))
+        hidden = self.transformer(hidden, deterministic=deterministic)
+        return lm_head_loss(self.embedding.word_embeddings.weight, hidden,
+                            labels, loss_mask, c)

@@ -1,32 +1,38 @@
-"""Megatron-style transformer blocks (inference forward) in PyTorch.
+"""Megatron-style transformer blocks in PyTorch, for training and serving.
 
 Counterpart of ``apex_tpu/models/transformer.py`` at tensor-parallel size
-1, for the serving path: ``TransformerConfig``, ``ParallelMLP``,
-``ParallelAttention``, ``ParallelTransformerLayer`` and
-``ParallelTransformer`` with the per-layer LIST cache loop. Layout is
-Megatron's ``[seq, batch, hidden]``. Module and parameter names follow the
-JAX parameter tree, so ``state_dict`` keys read like its paths
+1: ``TransformerConfig``, ``ParallelMLP``, ``ParallelAttention``,
+``ParallelTransformerLayer`` and ``ParallelTransformer`` (a layer loop;
+the per-layer LIST cache loop when decoding). Layout is Megatron's
+``[seq, batch, hidden]``. Module and parameter names follow the JAX
+parameter tree, so ``state_dict`` keys read like its paths
 (:mod:`apex_tpu_torch.convert`).
 
 What runs here:
 
-- no cache: causal flash attention over the whole sequence;
+- no cache (training, and the cache-free forward): the packed-QKV
+  attention :func:`~apex_tpu_torch.ops.attention.flash_attention_packed`
+  on the fused projection, differentiable, with RoPE in-kernel — the JAX
+  package's packed path;
 - a 4D ``[b, kv_heads, S, head_dim]`` cache at ``cache_index == 0``: the
   prefill fast path — K/V written into the cache in place, then causal
-  flash over the filled prefix;
+  flash over the filled prefix (inference);
 - ``paged_state`` (a page table) with a ``[b]`` position vector: the paged
   decode step through :func:`~apex_tpu_torch.ops.fused_paged_decode_attention`.
 
-Other cache forms (mid-cache 4D offsets, the flat cache), dropout,
-sequence/context parallelism and MoE are later slices and raise
-``NotImplementedError``. The forward is inference only.
+Raising ``NotImplementedError`` until their slice: other cache forms
+(mid-cache 4D offsets, the flat cache), active dropout
+(``deterministic=False`` with a rate > 0: the JAX masks come from
+``jax.random``), a truthy ``recompute``, sequence/context parallelism and
+MoE. ``scan_unroll`` is accepted and has no effect (the layers run as a
+Python loop).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -37,6 +43,10 @@ from apex_tpu_torch.ops import (
     fused_paged_decode_attention,
     fused_rope,
     rope_freqs,
+)
+from apex_tpu_torch.ops.attention import (
+    flash_attention_packed,
+    packed_attention_supported,
 )
 from apex_tpu_torch.transformer.enums import AttnMaskType
 from apex_tpu_torch.transformer.tensor_parallel import (
@@ -65,6 +75,8 @@ class TransformerConfig:
     ffn_hidden_size: Optional[int] = None
     vocab_size: int = 32000
     max_position_embeddings: int = 2048
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
     layernorm_epsilon: float = 1e-5
     position_embedding_type: str = "learned"
     rotary_percent: float = 1.0
@@ -73,6 +85,12 @@ class TransformerConfig:
     normalization: str = "layernorm"
     attn_mask_type: AttnMaskType = AttnMaskType.causal
     sliding_window: Optional[int] = None
+    # False, or True/'full'/'selective' (not ported: raises at forward)
+    recompute: Any = False
+    # the JAX layer scan's unroll factor: no effect on the Python loop
+    scan_unroll: int = 1
+    # LM-head loss in sequence chunks (not ported: > 1 raises at the loss)
+    loss_seq_chunks: int = 1
     params_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
     init_method_std: float = 0.02
@@ -103,6 +121,17 @@ class TransformerConfig:
             raise ValueError(f"num_query_groups ({self.kv_heads}) must "
                              f"divide num_attention_heads "
                              f"({self.num_attention_heads})")
+
+    def check_dropout(self, deterministic: bool) -> None:
+        """Raise when dropout would be active: its masks come from
+        ``jax.random`` (threefry) in the JAX package, not ported yet."""
+        if not deterministic and (self.hidden_dropout > 0.0
+                                  or self.attention_dropout > 0.0):
+            raise NotImplementedError(
+                "dropout (deterministic=False with hidden_dropout or "
+                "attention_dropout > 0) is not ported yet: its masks come "
+                "from jax.random threefry; set the rates to 0 or pass "
+                "deterministic=True")
 
     @property
     def ffn_size(self) -> int:
@@ -187,6 +216,19 @@ class ParallelAttention(nn.Module):
         qpg = c.num_attention_heads // c.kv_heads
         qkv = self.query_key_value(hidden)
         s, b = qkv.shape[0], qkv.shape[1]
+        causal = c.attn_mask_type == AttnMaskType.causal
+        if (kv_cache is None and cache_index is None and paged_state is None
+                and packed_attention_supported(s, c.kv_heads, qpg, dh)):
+            # layout-native: the fused projection goes straight to the
+            # kernel and the context comes back in [s, b, h*dh]
+            freqs = None
+            if c.position_embedding_type == "rope":
+                freqs = rope_freqs(0, s, c.rotary_dim, c.rope_theta,
+                                   device=hidden.device)
+            ctx = flash_attention_packed(
+                qkv, queries_per_group=qpg, head_dim=dh, causal=causal,
+                sliding_window=c.sliding_window, rope_freqs=freqs)
+            return self.dense(ctx)
         qkv = qkv.reshape(s, b, c.kv_heads, qpg + 2, dh)
         q = qkv[:, :, :, :qpg].reshape(s, b, c.num_attention_heads, dh)
         k = qkv[:, :, :, qpg]
@@ -197,7 +239,6 @@ class ParallelAttention(nn.Module):
                                device=hidden.device)
             q = fused_rope(q, freqs)
             k = fused_rope(k, freqs)
-        causal = c.attn_mask_type == AttnMaskType.causal
         if paged_state is not None:
             # paged decode: append this step's K/V rows at each slot's
             # position and attend over its mapped pages (one kernel)
@@ -276,10 +317,16 @@ class ParallelTransformer(nn.Module):
 
     def forward(self, hidden: torch.Tensor, *,
                 kv_caches: Optional[List] = None, cache_index=None,
-                paged_state=None, final_norm: bool = True):
+                paged_state=None, final_norm: bool = True,
+                deterministic: bool = True):
         """``hidden``, or ``(hidden, new_caches)`` with ``kv_caches`` — a
         LIST of per-layer ``(k, v)`` pairs (4D caches or page pools),
         updated in place."""
+        self.config.check_dropout(deterministic)
+        if kv_caches is None and self.config.recompute:
+            raise NotImplementedError(
+                f"recompute={self.config.recompute!r} (activation "
+                f"recompute) is not ported yet; use recompute=False")
         if kv_caches is not None and (
                 not isinstance(kv_caches, list)
                 or len(kv_caches) != len(self.layers)):

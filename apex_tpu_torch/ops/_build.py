@@ -33,11 +33,15 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint
 #: C signature of every entry point (see the ``extern "C"`` blocks)
 _SIGNATURES = {
     # x, w, b, y, mean, invvar, stream, m, h, eps, is_rms, x/w/y dtypes
     "apex_layer_norm_fwd": [_P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _F, _I, _I, _I, _I],
+    # dy, x, mean, invvar, w, dx, partial, dw, db, stream, m, h, is_rms,
+    # dy/x/w dtypes
+    "apex_layer_norm_bwd": [_P] * 10 + [_I] * 6,
     # q, k, v, o, lse, kv_lengths, stream, b, h, kvh, sq, sk, d, scale,
     # causal, window, dtype
     "apex_flash_fwd": [_P, _P, _P, _P, _P, _P, _P,
@@ -46,6 +50,14 @@ _SIGNATURES = {
     # dh, n_pages, page_size, pages_per_slot, window, dtype
     "apex_paged_decode": [_P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _I, _I],
+    # qkv, o, lse, kv_lengths, cos, sin, seed, stream, s, b, groups, qpg,
+    # d, scale, causal, window, rot, keep_thresh, inv_keep, dtype
+    "apex_flash_packed_fwd": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _I, _U, _F,
+                                                    _I],
+    # qkv, do, o, lse, delta, dqkv, kv_lengths, cos, sin, seed, stream,
+    # then as the forward
+    "apex_flash_packed_bwd": [_P] * 11 + [_I] * 5 + [_F, _I, _I, _I, _U, _F,
+                                                     _I],
 }
 
 _lock = threading.Lock()

@@ -24,8 +24,9 @@ __all__ = ["LAUNCHES", "reset_launches", "count_launch", "resolve_device",
 
 #: launches per kernel since the last :func:`reset_launches` — a wrapper
 #: adds one where it launches its kernel, and nowhere else
-LAUNCHES: Dict[str, int] = {"layer_norm_fwd": 0, "flash_fwd": 0,
-                            "paged_decode": 0}
+LAUNCHES: Dict[str, int] = {"layer_norm_fwd": 0, "layer_norm_bwd": 0,
+                            "flash_fwd": 0, "flash_packed_fwd": 0,
+                            "flash_packed_bwd": 0, "paged_decode": 0}
 
 
 def reset_launches() -> None:
@@ -70,14 +71,16 @@ def is_cpu(*tensors: Optional[torch.Tensor]) -> bool:
     raise ValueError(f"unsupported device {dev}: expected cpu or cuda")
 
 
-def forward_only(op: str, *tensors: Optional[torch.Tensor]) -> None:
-    """Raise when autograd would need a backward this slice does not
-    have: the kernels and their plain versions are forward-only."""
+def forward_only(op: str, why: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise when autograd would need a backward the port does not have:
+    the 4D flash forward (its backward kernels are not ported yet) and
+    paged decode (inference only). ``why`` says which, and names the
+    slice that lifts it."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{op} is forward-only in apex_tpu_torch (its backward is not "
-            f"ported yet); call it under torch.no_grad()")
+            f"{op} is forward-only in apex_tpu_torch ({why}); call it under "
+            f"torch.no_grad()")
 
 
 def round_up(x: int, multiple: int) -> int:

@@ -1,27 +1,36 @@
-"""Flash attention forward.
+"""Flash attention: the 4D forward and the packed-QKV forward/backward.
 
-Counterpart of ``apex_tpu/ops/attention.py`` :func:`flash_attention`
-(forward only; the backward kernels come with the training slice). A
-CUDA tensor runs the hand-written kernel in ``csrc/flash_fwd.cu``, which
-covers both TPU forward kernels (multi-block ``_fwd_kernel`` and
-single-block ``_fwd_single_kernel``); a CPU tensor runs
-:func:`mha_plain`, which mirrors the JAX package's ``_mha_reference``.
+Counterpart of ``apex_tpu/ops/attention.py``:
 
-Layout ``[batch, heads, seq, head_dim]``; ``kv_heads`` may divide
-``heads`` (GQA/MQA). Masks: ``causal`` with the ``seq_k - seq_q`` offset,
-``kv_lengths`` per batch, ``sliding_window`` (causal only).
+- :func:`flash_attention` over ``[batch, heads, seq, head_dim]`` is
+  forward only (its backward kernels, TPU rows 5-7, are not ported yet).
+  A CUDA tensor runs ``csrc/flash_fwd.cu`` (Kernel B, both TPU forward
+  kernels); a CPU tensor runs :func:`mha_plain` (``_mha_reference``).
+  ``kv_heads`` may divide ``heads`` (GQA/MQA); masks: ``causal`` with the
+  ``seq_k - seq_q`` offset, ``kv_lengths`` per batch, ``sliding_window``.
+- :func:`flash_attention_packed` takes the fused QKV projection
+  ``[s, b, G*(qpg+2)*d]`` as it comes out of ``ParallelAttention`` and is
+  differentiable: the forward is ``csrc/flash_packed_fwd.cu`` (Kernel E),
+  the backward ``csrc/flash_packed_bwd.cu`` (Kernel F), with RoPE and the
+  hash dropout in-kernel; their plain versions are
+  :func:`flash_packed_fwd_plain` and :func:`flash_packed_bwd_plain`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from apex_tpu_torch.ops import _build, _support
+from apex_tpu_torch.ops.rope import rope_tables
 
-__all__ = ["flash_attention", "flash_fwd", "mha_plain", "flash_fwd_cuda"]
+__all__ = ["flash_attention", "flash_fwd", "mha_plain", "flash_fwd_cuda",
+           "flash_attention_packed", "packed_attention_supported",
+           "packed_geometry", "drop_combo", "hash_keep",
+           "flash_packed_fwd_plain", "flash_packed_bwd_plain",
+           "flash_packed_fwd_cuda", "flash_packed_bwd_cuda"]
 
 _NEG_INF = -1e30
 #: lse of a query row that sees no key (attention.py ``_LSE_PAD``)
@@ -121,8 +130,402 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if sliding_window < 1:
             raise ValueError(f"sliding_window must be >= 1, got "
                              f"{sliding_window}")
-    _support.forward_only("flash_attention", q, k, v)
+    _support.forward_only(
+        "flash_attention", "its backward kernels, TPU rows 5-7, come with "
+        "the masked and cross-attention training slice",
+        q, k, v)
     scale = float(softmax_scale if softmax_scale is not None
                   else 1.0 / math.sqrt(q.shape[-1]))
     return flash_fwd(q, k, v, kv_lengths, scale=scale, causal=causal,
                      window=sliding_window)[0]
+
+
+# ---------------------------------------------------------------------------
+# packed-QKV path (``flash_attention_packed``)
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def packed_geometry(num_groups: int, qpg: int, head_dim: int):
+    """The JAX package's 128-lane cell geometry ``(gpc, in_w, out_w)``, or
+    None. The port's kernels do not need it (they address heads directly);
+    it is kept so the tests can hold the two gates side by side."""
+    for gpc in (1, 2):
+        if num_groups % gpc:
+            continue
+        in_w = gpc * (qpg + 2) * head_dim
+        out_w = gpc * qpg * head_dim
+        if in_w % 128 == 0 and out_w % 128 == 0:
+            return gpc, in_w, out_w
+    return None
+
+
+def packed_attention_supported(s: int, num_groups: int,
+                               queries_per_group: int,
+                               head_dim: int) -> bool:
+    """Whether :func:`flash_attention_packed` takes this shape: True for
+    every shape the port's kernels take (head_dim up to 128, any length,
+    any group count), on any device — as the JAX package's plain path
+    takes any shape."""
+    return 0 < head_dim <= 128 and s > 0 and num_groups > 0 \
+        and queries_per_group > 0
+
+
+def drop_combo(b, head):
+    """The (batch, global head) -> hash key every dropout mask shares
+    (the JAX package's ``_drop_combo``): kernels and plain versions."""
+    return b * 4096 + head
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``(x * c) mod 2**32`` for int64 ``x`` in ``[0, 2**32)`` without
+    overflowing int64: split x into 16-bit halves."""
+    lo, hi = x & 0xFFFF, x >> 16
+    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _M32
+
+
+def hash_keep(seed, combo, shape, rate: float) -> torch.Tensor:
+    """Dropout keep mask of ``shape`` (``[..., rows, cols]``): the JAX
+    package's ``_hash_keep`` bit for bit. A murmur3-style hash of (seed,
+    combo, row, col) in uint32 arithmetic, done here in int64 masked to
+    32 bits (torch has no full uint32 math on the CPU). ``seed`` is an
+    int32 (it wraps to uint32), ``combo`` an int or an int tensor
+    broadcastable against ``shape[:-2]`` (see :func:`drop_combo`); rows and
+    cols are absolute positions. Keeps with probability ``1 - rate``."""
+    seed = torch.as_tensor(seed, dtype=torch.int64)
+    combo = torch.as_tensor(combo, dtype=torch.int64, device=seed.device)
+    dev = seed.device
+    lead = (1,) * (len(shape) - 2)
+    r = torch.arange(shape[-2], dtype=torch.int64, device=dev).reshape(
+        lead + (shape[-2], 1))
+    c = torch.arange(shape[-1], dtype=torch.int64, device=dev).reshape(
+        lead + (1, shape[-1]))
+    k = ((seed & _M32) + _mul32(combo & _M32, 0x27D4EB2F)) & _M32
+    x = ((_mul32(r, 0x9E3779B1) + k) & _M32) ^ _mul32(c, 0x85EBCA77)
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    x = x ^ (x >> 16)
+    return x >= _keep_threshold(rate)
+
+
+def _keep_threshold(rate: float) -> int:
+    return min(int(rate * 2.0 ** 32), 2 ** 32 - 1)
+
+
+def _unpack(t: torch.Tensor, qpg: int, d: int):
+    """``[s, b, G*(qpg+2)*d]`` -> q ``[b, G*qpg, s, d]``, k and v
+    ``[b, G, s, d]`` (views)."""
+    s, b, w = t.shape
+    g = w // ((qpg + 2) * d)
+    t5 = t.reshape(s, b, g, qpg + 2, d)
+    q = t5[:, :, :, :qpg].reshape(s, b, g * qpg, d).permute(1, 2, 0, 3)
+    return q, t5[:, :, :, qpg].permute(1, 2, 0, 3), \
+        t5[:, :, :, qpg + 1].permute(1, 2, 0, 3)
+
+
+def _rotate(t: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+            rot: int) -> torch.Tensor:
+    """``_rope_block`` over ``t [..., s, d]`` with fp32 ``cos``/``sin``
+    ``[s, d]`` (1 and 0 past ``rot``): fp32 math, result in fp32 (the
+    caller rounds). ``sin`` negated gives the inverse rotation."""
+    tf = t.float()
+    half = torch.cat([-tf[..., rot // 2:rot], tf[..., :rot // 2],
+                      torch.zeros_like(tf[..., rot:])], dim=-1)
+    return tf * cos + half * sin
+
+
+def _packed_valid(s: int, kv_lengths, causal: bool, window, device):
+    """``[b or 1, 1, s, s]`` visibility of (query row, key col)."""
+    row = torch.arange(s, device=device)[:, None]
+    col = torch.arange(s, device=device)[None, :]
+    valid = torch.ones((1, 1, s, s), dtype=torch.bool, device=device)
+    if kv_lengths is not None:
+        valid = valid & (col < kv_lengths.to(device)[:, None, None, None])
+    if causal:
+        valid = valid & (col <= row)
+    if window is not None:
+        valid = valid & (col > row - window)
+    return valid
+
+
+def _packed_keep(seed, b: int, h: int, s: int, rate: float, device):
+    combo = drop_combo(torch.arange(b, device=device)[:, None, None, None],
+                       torch.arange(h, device=device)[None, :, None, None])
+    return hash_keep(torch.as_tensor(seed, device=device).reshape(()), combo,
+                     (b, h, s, s), rate)
+
+
+def _qk(qkv, qpg, d, rope):
+    """Unpacked q, k (rotated and rounded to qkv's dtype when ``rope``)
+    and v, with k and v repeated over each group's query heads."""
+    q, k, v = _unpack(qkv, qpg, d)
+    if rope is not None:
+        cos, sin, rot = rope
+        q = _rotate(q, cos, sin, rot).to(qkv.dtype)
+        k = _rotate(k, cos, sin, rot).to(qkv.dtype)
+    return q, k.repeat_interleave(qpg, dim=1), v.repeat_interleave(qpg, dim=1)
+
+
+def flash_packed_fwd_plain(qkv, kv_lengths, rope, seed, rate: float,
+                           scale: float, causal: bool, window, qpg: int,
+                           d: int):
+    """Plain PyTorch forward: unpack, rotate, then ``_mha_reference`` with
+    the hash dropout. Returns ``(o [s, b, H*d], lse [b, H, s])``; lse is
+    taken from the undropped probabilities and is 1e30 on a row that sees
+    no key. ``rope`` is None or ``(cos, sin, rot)`` from
+    :func:`~apex_tpu_torch.ops.rope.rope_tables`."""
+    s, b, _ = qkv.shape
+    q, k, v = _qk(qkv, qpg, d, rope)
+    h = q.shape[1]
+    sc = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    valid = _packed_valid(s, kv_lengths, causal, window, qkv.device)
+    sc = torch.where(valid, sc, torch.full_like(sc, _NEG_INF))
+    any_valid = valid.any(dim=-1, keepdim=True)
+    lse = torch.where(any_valid, torch.logsumexp(sc, dim=-1, keepdim=True),
+                      torch.full_like(sc[..., :1], _LSE_PAD))
+    p = torch.softmax(sc, dim=-1)
+    p = torch.where(any_valid, p, torch.zeros_like(p))
+    if rate > 0.0:
+        keep = _packed_keep(seed, b, h, s, rate, qkv.device)
+        p = torch.where(keep, p / (1.0 - rate), torch.zeros_like(p))
+    o = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(qkv.dtype)
+    return o.permute(2, 0, 1, 3).reshape(s, b, h * d), lse[..., 0]
+
+
+def flash_packed_bwd_plain(qkv, do, o, lse, kv_lengths, rope, seed,
+                           rate: float, scale: float, causal: bool, window,
+                           qpg: int, d: int):
+    """Plain PyTorch backward, the algebra of ``_dqkv_packed_kernel``:
+    p recomputed from lse, ``delta = rowsum(do * o)``, dp masked and
+    rescaled by the dropout keep mask, ``ds = p * (dp - delta)``; dq and dk
+    un-rotated in fp32 with -sin; ``dqkv`` written in the packed layout in
+    qkv's dtype."""
+    s, b, w = qkv.shape
+    q, k, v = _qk(qkv, qpg, d, rope)
+    h = q.shape[1]
+    g = h // qpg
+    dof = do.reshape(s, b, h, d).permute(1, 2, 0, 3).float()
+    of = o.reshape(s, b, h, d).permute(1, 2, 0, 3).float()
+    sc = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    valid = _packed_valid(s, kv_lengths, causal, window, qkv.device)
+    sc = torch.where(valid, sc, torch.full_like(sc, _NEG_INF))
+    p = torch.exp(sc - lse[..., None])
+    delta = (dof * of).sum(dim=-1, keepdim=True)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, v.float())
+    pd = p
+    if rate > 0.0:
+        keep = _packed_keep(seed, b, h, s, rate, qkv.device)
+        inv_keep = 1.0 / (1.0 - rate)
+        dp = torch.where(keep, dp * inv_keep, torch.zeros_like(dp))
+        pd = torch.where(keep, p * inv_keep, torch.zeros_like(p))
+    ds = p * (dp - delta)
+    dq = scale * torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
+    dk = scale * torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    dv = torch.einsum("bhqk,bhqd->bhkd", pd, dof)
+    dk = dk.reshape(b, g, qpg, s, d).sum(dim=2)
+    dv = dv.reshape(b, g, qpg, s, d).sum(dim=2)
+    if rope is not None:
+        cos, sin, rot = rope
+        dq = _rotate(dq, cos, -sin, rot)
+        dk = _rotate(dk, cos, -sin, rot)
+    dqkv = torch.empty((s, b, g, qpg + 2, d), dtype=qkv.dtype,
+                       device=qkv.device)
+    dqkv[:, :, :, :qpg] = dq.permute(2, 0, 1, 3).reshape(s, b, g, qpg, d)
+    dqkv[:, :, :, qpg] = dk.permute(2, 0, 1, 3)
+    dqkv[:, :, :, qpg + 1] = dv.permute(2, 0, 1, 3)
+    return dqkv.reshape(s, b, w)
+
+
+def _packed_args(qkv, kv_lengths, rope, seed, rate):
+    """Device pointers and scalars shared by the Kernel E/F launches."""
+    if qkv.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the packed kernels take float32 or bfloat16, "
+                        f"got {qkv.dtype}")
+    dev = qkv.device
+    kvl = (None if kv_lengths is None else kv_lengths.to(
+        device=dev, dtype=torch.int32).contiguous())
+    cos = sin = None
+    rot = 0
+    if rope is not None:
+        cos, sin, rot = rope
+        cos = cos.to(device=dev, dtype=torch.float32).contiguous()
+        sin = sin.to(device=dev, dtype=torch.float32).contiguous()
+    seed_t = None
+    if rate > 0.0:
+        seed_t = torch.as_tensor(seed, dtype=torch.int32).reshape(1).to(
+            dev).contiguous()
+    held = (kvl, cos, sin, seed_t)       # the caller keeps these alive
+    ptrs = tuple(None if t is None else t.data_ptr() for t in held)
+    return ptrs, rot, _keep_threshold(rate), float(1.0 / (1.0 - rate)), held
+
+
+def flash_packed_fwd_cuda(qkv, kv_lengths, rope, seed, rate: float,
+                          scale: float, causal: bool, window, qpg: int,
+                          d: int):
+    """Launch Kernel E; returns ``(o [s, b, H*d], lse [b, H, s])``."""
+    s, b, w = qkv.shape
+    g = w // ((qpg + 2) * d)
+    if d > 128:
+        raise ValueError(f"head_dim {d} > 128 is not supported by the kernel")
+    qkv = qkv.contiguous()
+    o = torch.empty((s, b, g * qpg * d), dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty((b, g * qpg, s), dtype=torch.float32,
+                      device=qkv.device)
+    if o.numel() == 0:
+        return o, lse
+    ptrs, rot, thresh, inv_keep, _held = _packed_args(qkv, kv_lengths, rope,
+                                                      seed, rate)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    status = lib.apex_flash_packed_fwd(
+        qkv.data_ptr(), o.data_ptr(), lse.data_ptr(), *ptrs, stream, s, b, g,
+        qpg, d, float(scale), int(causal), int(window or 0), rot, thresh,
+        inv_keep, _support.dtype_code(qkv.dtype))
+    _build.check("apex_flash_packed_fwd", status)
+    _support.count_launch("flash_packed_fwd")
+    return o, lse
+
+
+def flash_packed_bwd_cuda(qkv, do, o, lse, kv_lengths, rope, seed,
+                          rate: float, scale: float, causal: bool, window,
+                          qpg: int, d: int):
+    """Launch Kernel F (dq pass, then dk/dv pass); returns ``dqkv``."""
+    s, b, w = qkv.shape
+    g = w // ((qpg + 2) * d)
+    if d > 128:
+        raise ValueError(f"head_dim {d} > 128 is not supported by the kernel")
+    qkv, do, o = qkv.contiguous(), do.contiguous().to(qkv.dtype), \
+        o.contiguous()
+    lse = lse.contiguous()
+    dqkv = torch.empty_like(qkv)
+    if dqkv.numel() == 0:
+        return dqkv
+    delta = torch.empty((b, g * qpg, s), dtype=torch.float32,
+                        device=qkv.device)
+    ptrs, rot, thresh, inv_keep, _held = _packed_args(qkv, kv_lengths, rope,
+                                                      seed, rate)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    status = lib.apex_flash_packed_bwd(
+        qkv.data_ptr(), do.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dqkv.data_ptr(), *ptrs, stream, s, b, g, qpg, d,
+        float(scale), int(causal), int(window or 0), rot, thresh, inv_keep,
+        _support.dtype_code(qkv.dtype))
+    _build.check("apex_flash_packed_bwd", status)
+    _support.count_launch("flash_packed_bwd")
+    return dqkv
+
+
+class _FlashPacked(torch.autograd.Function):
+    """The JAX package's ``_flash_packed`` custom VJP: o from Kernel E (or
+    its plain version), dqkv from Kernel F (or its plain version)."""
+
+    @staticmethod
+    def forward(ctx, qkv, kv_lengths, cos, sin, rot, seed, rate, scale,
+                causal, window, qpg, d):
+        rope = None if rot == 0 else (cos, sin, rot)
+        cpu = _support.is_cpu(qkv, kv_lengths, cos, sin)
+        fwd = flash_packed_fwd_plain if cpu else flash_packed_fwd_cuda
+        o, lse = fwd(qkv, kv_lengths, rope, seed, rate, scale, causal,
+                     window, qpg, d)
+        ctx.save_for_backward(qkv, kv_lengths, cos, sin, o, lse)
+        ctx.args = (rot, seed, rate, scale, causal, window, qpg, d)
+        ctx.cpu = cpu
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        qkv, kv_lengths, cos, sin, o, lse = ctx.saved_tensors
+        rot, seed, rate, scale, causal, window, qpg, d = ctx.args
+        rope = None if rot == 0 else (cos, sin, rot)
+        bwd = flash_packed_bwd_plain if ctx.cpu else flash_packed_bwd_cuda
+        dqkv = bwd(qkv, do, o, lse, kv_lengths, rope, seed, rate, scale,
+                   causal, window, qpg, d)
+        return (dqkv,) + (None,) * 11
+
+
+def flash_attention_packed(
+    qkv: torch.Tensor, *,
+    queries_per_group: int,
+    head_dim: int,
+    causal: bool = False,
+    softmax_scale: Optional[float] = None,
+    kv_lengths: Optional[torch.Tensor] = None,
+    sliding_window: Optional[int] = None,
+    rope_freqs: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed=None,
+) -> torch.Tensor:
+    """Self-attention over a packed QKV projection, layout-native.
+
+    Args:
+      qkv: ``[s, b, G*(qpg+2)*head_dim]`` — the fused QKV projection
+        output, each group's columns ordered ``q_0..q_{qpg-1} | k | v``.
+      queries_per_group: query heads per K/V group (``qpg``).
+      rope_freqs: optional RoPE angles for positions ``0..s-1``
+        (``[s, rot]`` or ``[s, 1, 1, rot]``, Megatron ``concat(f, f)``):
+        q and k rotate in-kernel and the backward un-rotates dq/dk.
+      dropout_rate / dropout_seed: attention dropout on the softmax
+        probabilities from the position-deterministic hash mask
+        (:func:`hash_keep`), regenerated in the backward; the seed is an
+        int32 (a Python int or a one-element integer tensor, which stays on
+        its device).
+
+    Returns ``[s, b, G*qpg*head_dim]`` context in model layout;
+    differentiable in ``qkv``.
+    """
+    s, b, w = qkv.shape
+    qpg, d = queries_per_group, head_dim
+    g = w // ((qpg + 2) * d)
+    if w != g * (qpg + 2) * d:
+        raise ValueError(f"packed width {w} is not a multiple of the group "
+                         f"block {(qpg + 2) * d}")
+    if sliding_window is not None:
+        if not causal:
+            raise ValueError("sliding_window requires causal attention")
+        if sliding_window < 1:
+            raise ValueError(f"sliding_window must be >= 1, got "
+                             f"{sliding_window}")
+    if not packed_attention_supported(s, g, qpg, d):
+        raise ValueError(f"packed attention unsupported for s={s}, "
+                         f"groups={g}, qpg={qpg}, d={d} — gate on "
+                         f"packed_attention_supported()")
+    if dropout_rate < 0.0 or dropout_rate >= 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got "
+                         f"{dropout_rate}")
+    if dropout_rate > 0.0 and dropout_seed is None:
+        raise ValueError("dropout_rate > 0 needs a dropout_seed")
+    scale = float(softmax_scale if softmax_scale is not None
+                  else 1.0 / math.sqrt(d))
+    cos = sin = None
+    rot = 0
+    if rope_freqs is not None:
+        cos, sin, rot = rope_tables(rope_freqs.to(qkv.device), s, d)
+    seed = None if dropout_rate == 0.0 else _seed_value(dropout_seed)
+    return _FlashPacked.apply(qkv, kv_lengths, cos, sin, rot, seed,
+                              float(dropout_rate), scale, causal,
+                              sliding_window, qpg, d)
+
+
+def _seed_value(seed):
+    """The dropout seed as the kernels and plain versions take it: a Python
+    int in the int32 range (a 32-bit value wraps, as the JAX package's
+    int32 seed does), or, for a tensor seed, a one-element int32 tensor on
+    the seed's own device, so a seed on the card never syncs with the host
+    (an int64 value keeps its low 32 bits). The kernels read it from a
+    one-element device buffer as uint32."""
+    if isinstance(seed, torch.Tensor):
+        if seed.numel() != 1:
+            raise ValueError(f"dropout_seed must hold one value, got shape "
+                             f"{tuple(seed.shape)}")
+        if seed.is_floating_point() or seed.is_complex():
+            raise TypeError(f"dropout_seed must be an integer tensor, got "
+                            f"{seed.dtype}")
+        return seed.reshape(1).to(torch.int32)
+    seed = int(seed)
+    if not -2 ** 31 <= seed < 2 ** 32:
+        raise ValueError(f"dropout_seed {seed} is not a 32-bit value")
+    return (seed + 2 ** 31) % 2 ** 32 - 2 ** 31

@@ -202,7 +202,10 @@ def fused_paged_decode_attention(q, k_new, v_new, k_pages, v_pages,
     if k_pages.shape[-1] != kvh * dh:
         raise ValueError(f"pool minor dim {k_pages.shape[-1]} != kv_heads * "
                          f"head_dim ({kvh} * {dh})")
-    _support.forward_only("fused_paged_decode_attention", q, k_new, v_new)
+    _support.forward_only(
+        "fused_paged_decode_attention",
+        "decode is inference only, as in apex_tpu: no slice adds a backward",
+        q, k_new, v_new)
     cpu = _support.is_cpu(q, k_new, v_new, k_pages, v_pages, page_table,
                           positions)
     page_size = k_pages.shape[1]

@@ -1,10 +1,16 @@
-"""Fused LayerNorm / RMSNorm forward.
+"""Fused LayerNorm / RMSNorm, forward and backward.
 
-Counterpart of ``apex_tpu/ops/layer_norm.py`` (forward only; the backward
-comes with the training slice, so these functions raise if autograd would
-need it). A CUDA tensor runs the hand-written kernel in
-``csrc/layer_norm_fwd.cu``; a CPU tensor runs :func:`layer_norm_fwd_plain`,
-which mirrors the JAX package's ``_fwd_jnp``.
+Counterpart of ``apex_tpu/ops/layer_norm.py``. Every public function is a
+:class:`torch.autograd.Function` mirroring the JAX package's ``_norm``
+custom VJP: the forward saves the fp32 row statistics, the backward turns
+them into ``dx`` (in x's dtype) and fp32 ``dw``/``db`` cast to the
+parameters' dtypes. A CUDA tensor runs the hand-written kernels,
+``csrc/layer_norm_fwd.cu`` (Kernel A) and ``csrc/layer_norm_bwd.cu``
+(Kernel D); a CPU tensor runs :func:`layer_norm_fwd_plain` and
+:func:`layer_norm_bwd_plain`, which mirror ``_fwd_jnp`` and ``_bwd_jnp``.
+``memory_efficient=True`` saves the output instead of the input and
+rebuilds x from it in plain PyTorch before the backward kernel, as
+``_norm_vjp_bwd`` does outside its Pallas kernel.
 """
 
 from __future__ import annotations
@@ -17,9 +23,11 @@ from apex_tpu_torch.ops import _build, _support
 
 __all__ = ["fused_layer_norm", "fused_layer_norm_affine", "fused_rms_norm",
            "fused_rms_norm_affine", "layer_norm_fwd", "layer_norm_fwd_plain",
-           "layer_norm_fwd_cuda"]
+           "layer_norm_fwd_cuda", "layer_norm_bwd_plain", "layer_norm_bwd_cuda"]
 
 Shape = Union[int, Sequence[int]]
+#: rows per pass-1 block of Kernel D (``kRows`` in csrc/layer_norm_bwd.cu)
+_BWD_ROWS = 32
 
 
 def _as_shape(s: Shape) -> Tuple[int, ...]:
@@ -80,12 +88,127 @@ def layer_norm_fwd_cuda(x2, w, b, eps: float, is_rms: bool,
     return y, mean, invvar
 
 
+def layer_norm_bwd_plain(dy2, x2, mean, invvar, w, is_rms: bool,
+                         has_bias: bool):
+    """Plain PyTorch backward over ``[m, h]`` rows: ``(dx, dw, db)`` with
+    dx in x's dtype and dw/db fp32 (None where absent) — the JAX
+    package's ``_bwd_jnp``."""
+    dy = dy2.float()
+    xhat = (x2.float() - mean[:, None]) * invvar[:, None]
+    dyw = dy * w.reshape(1, -1).float() if w is not None else dy
+    c2 = (dyw * xhat).mean(dim=1, keepdim=True)
+    if is_rms:
+        dx = invvar[:, None] * (dyw - xhat * c2)
+    else:
+        c1 = dyw.mean(dim=1, keepdim=True)
+        dx = invvar[:, None] * (dyw - c1 - xhat * c2)
+    dw = (dy * xhat).sum(dim=0) if w is not None else None
+    db = dy.sum(dim=0) if (w is not None and has_bias) else None
+    return dx.to(x2.dtype), dw, db
+
+
+def layer_norm_bwd_cuda(dy2, x2, mean, invvar, w, is_rms: bool,
+                        has_bias: bool):
+    """Launch Kernel D on ``[m, h]`` rows (one CUDA device): dx, then the
+    fp32 per-block dw/db partials and their column sums."""
+    m, h = x2.shape
+    dy2, x2 = dy2.contiguous(), x2.contiguous()
+    mean, invvar = mean.contiguous(), invvar.contiguous()
+    dev = x2.device
+    dx = torch.empty((m, h), dtype=x2.dtype, device=dev)
+    partial = dw = db = None
+    if w is not None:
+        w = w.reshape(-1).contiguous()
+        if w.numel() != h:
+            raise ValueError(f"weight has {w.numel()} elements, expected {h}")
+        partial = torch.empty((_support.cdiv(m, _BWD_ROWS), 2, h),
+                              dtype=torch.float32, device=dev)
+        dw = torch.empty(h, dtype=torch.float32, device=dev)
+        db = (torch.empty(h, dtype=torch.float32, device=dev) if has_bias
+              else None)
+    if m == 0:
+        return dx, None if dw is None else dw.zero_(), \
+            None if db is None else db.zero_()
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    status = lib.apex_layer_norm_bwd(
+        dy2.data_ptr(), x2.data_ptr(), mean.data_ptr(), invvar.data_ptr(),
+        ptr(w), dx.data_ptr(), ptr(partial), ptr(dw), ptr(db), stream, m, h,
+        int(is_rms), _support.dtype_code(dy2.dtype),
+        _support.dtype_code(x2.dtype),
+        _support.dtype_code(w.dtype) if w is not None else 0)
+    _build.check("apex_layer_norm_bwd", status)
+    _support.count_launch("layer_norm_bwd")
+    return dx, dw, db
+
+
+def _out_dtype(x, weight, out_dtype):
+    if out_dtype is not None:
+        return out_dtype
+    # promote semantics: bf16 x with fp32 weight gives fp32 y
+    out = x.dtype if weight is None else torch.promote_types(x.dtype,
+                                                             weight.dtype)
+    return torch.float32 if out == torch.float64 else out
+
+
+class _Norm(torch.autograd.Function):
+    """``(y, mean, invvar)``; mean and invvar carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, h: int, eps: float, is_rms: bool,
+                memory_efficient: bool, out_dtype: torch.dtype):
+        x2 = x.reshape(-1, h)
+        fwd = (layer_norm_fwd_plain if _support.is_cpu(x, weight, bias)
+               else layer_norm_fwd_cuda)
+        y, mean, invvar = fwd(x2, weight, bias, eps, is_rms, out_dtype)
+        y = y.reshape(x.shape)
+        ctx.mark_non_differentiable(mean, invvar)
+        ctx.h, ctx.is_rms, ctx.x_dtype = h, is_rms, x.dtype
+        ctx.memory_efficient = memory_efficient
+        ctx.has_bias = bias is not None
+        # y saved instead of x: x is rebuilt from it in the backward
+        ctx.save_for_backward(y if memory_efficient else x, mean, invvar,
+                              weight, bias)
+        return y, mean, invvar
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dinvvar):
+        saved, mean, invvar, weight, bias = ctx.saved_tensors
+        h = ctx.h
+        if ctx.memory_efficient:
+            # _norm_vjp_bwd: xhat = (y - b) / w (w guarded near 0), then
+            # x = xhat / invvar + mean, in y's dtype
+            y2 = saved.reshape(-1, h).float()
+            if weight is not None:
+                wf = weight.reshape(1, -1).float()
+                safe_w = torch.where(wf.abs() < 1e-12,
+                                     torch.ones_like(wf), wf)
+                if bias is not None:
+                    y2 = y2 - bias.reshape(1, -1).float()
+                y2 = y2 / safe_w
+            x2 = (y2 / invvar[:, None] + mean[:, None]).to(saved.dtype)
+        else:
+            x2 = saved.reshape(-1, h)
+        dy2 = dy.reshape(-1, h)
+        bwd = (layer_norm_bwd_plain if _support.is_cpu(dy2, x2, weight)
+               else layer_norm_bwd_cuda)
+        dx, dw, db = bwd(dy2, x2, mean, invvar, weight, ctx.is_rms,
+                         ctx.has_bias)
+        dx = dx.reshape(dy.shape).to(ctx.x_dtype)
+        dw = None if weight is None else dw.reshape(weight.shape).to(
+            weight.dtype)
+        db = None if bias is None else db.reshape(bias.shape).to(bias.dtype)
+        return dx, dw, db, None, None, None, None, None
+
+
 def layer_norm_fwd(x, weight, bias, normalized_shape: Shape, eps: float,
-                   is_rms: bool, out_dtype: Optional[torch.dtype] = None):
+                   is_rms: bool, out_dtype: Optional[torch.dtype] = None,
+                   memory_efficient: bool = False):
     """``(y, mean, invvar)`` over the trailing ``normalized_shape`` dims —
-    the counterpart of ``_norm_fwd_impl``. ``out_dtype=None`` keeps the
-    promote semantics (bf16 x with fp32 weight gives fp32 y)."""
-    _support.forward_only("layer_norm_fwd", x, weight, bias)
+    the counterpart of ``_norm_fwd_impl``, differentiable in ``y`` (the
+    JAX ``_norm`` custom VJP). ``out_dtype=None`` keeps the promote
+    semantics (bf16 x with fp32 weight gives fp32 y)."""
     shape = _as_shape(normalized_shape)
     h = 1
     for n in shape:
@@ -93,43 +216,41 @@ def layer_norm_fwd(x, weight, bias, normalized_shape: Shape, eps: float,
     if tuple(x.shape[x.dim() - len(shape):]) != shape:
         raise ValueError(f"input {tuple(x.shape)} does not end in "
                          f"normalized_shape {shape}")
-    if out_dtype is None:
-        out_dtype = (x.dtype if weight is None
-                     else torch.promote_types(x.dtype, weight.dtype))
-        if out_dtype == torch.float64:
-            out_dtype = torch.float32
-    x2 = x.reshape(-1, h)
-    fwd = (layer_norm_fwd_plain if _support.is_cpu(x, weight, bias)
-           else layer_norm_fwd_cuda)
-    y, mean, invvar = fwd(x2, weight, bias, eps, is_rms, out_dtype)
-    return y.reshape(x.shape), mean, invvar
+    if weight is not None and weight.numel() != h:
+        raise ValueError(f"weight has {weight.numel()} elements, expected "
+                         f"{h}")
+    return _Norm.apply(x, weight, bias, h, float(eps), bool(is_rms),
+                       bool(memory_efficient),
+                       _out_dtype(x, weight, out_dtype))
 
 
 def fused_layer_norm_affine(x, weight, bias, normalized_shape: Shape,
-                            eps: float = 1e-5, out_dtype=None):
+                            eps: float = 1e-5, memory_efficient: bool = False,
+                            out_dtype=None):
     """Reference: ``fused_layer_norm_affine``. ``out_dtype=None`` keeps
     promote semantics; pass ``x.dtype`` when the consumer runs in the
     compute dtype anyway."""
     return layer_norm_fwd(x, weight, bias, normalized_shape, eps, False,
-                          out_dtype)[0]
+                          out_dtype, memory_efficient)[0]
 
 
 def fused_layer_norm(x, normalized_shape: Shape, eps: float = 1e-5,
-                     out_dtype=None):
+                     memory_efficient: bool = False, out_dtype=None):
     """Non-affine LayerNorm."""
     return layer_norm_fwd(x, None, None, normalized_shape, eps, False,
-                          out_dtype)[0]
+                          out_dtype, memory_efficient)[0]
 
 
 def fused_rms_norm_affine(x, weight, normalized_shape: Shape,
-                          eps: float = 1e-5, out_dtype=None):
+                          eps: float = 1e-5, memory_efficient: bool = False,
+                          out_dtype=None):
     """Reference: ``fused_rms_norm_affine``."""
     return layer_norm_fwd(x, weight, None, normalized_shape, eps, True,
-                          out_dtype)[0]
+                          out_dtype, memory_efficient)[0]
 
 
 def fused_rms_norm(x, normalized_shape: Shape, eps: float = 1e-5,
-                   out_dtype=None):
+                   memory_efficient: bool = False, out_dtype=None):
     """Non-affine RMSNorm."""
     return layer_norm_fwd(x, None, None, normalized_shape, eps, True,
-                          out_dtype)[0]
+                          out_dtype, memory_efficient)[0]

@@ -3,15 +3,17 @@
 RoPE has no Pallas kernel in the JAX package (XLA fuses it), so this is
 plain PyTorch: :func:`rope_freqs` builds the angles in the Megatron
 ``concat(f, f)`` layout and :func:`fused_rope` applies them.
+:func:`rope_tables` builds the fp32 ``(cos, sin)`` tables that the packed
+attention kernels rotate q and k with in-kernel.
 """
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Tuple, Union
 
 import torch
 
-__all__ = ["rope_freqs", "fused_rope"]
+__all__ = ["rope_freqs", "fused_rope", "rope_tables"]
 
 
 def rope_freqs(start: Union[int, torch.Tensor], length: int, rot_dim: int,
@@ -49,3 +51,21 @@ def fused_rope(t: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
     if t_pass.shape[-1]:
         out = torch.cat([out, t_pass], dim=-1)
     return out.to(t.dtype)
+
+
+def rope_tables(freqs: torch.Tensor, s: int, head_dim: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """``(cos, sin, rot)`` for in-kernel RoPE over ``s`` positions:
+    fp32 ``[s, head_dim]`` tables padded past the rotary dim with cos 1 and
+    sin 0, so the channels past ``rot`` pass through (the JAX package's
+    ``flash_attention_packed``). ``freqs`` is ``[s, rot]`` or the
+    ``[s, 1, 1, rot]`` layout of :func:`rope_freqs`."""
+    f = freqs.reshape(s, -1).float()
+    rot = f.shape[-1]
+    if rot % 2 or rot > head_dim:
+        raise ValueError(f"rotary dim {rot} must be even and <= head_dim "
+                         f"{head_dim}")
+    pad = (0, head_dim - rot)
+    cos = torch.nn.functional.pad(torch.cos(f), pad, value=1.0)
+    sin = torch.nn.functional.pad(torch.sin(f), pad)
+    return cos.contiguous(), sin.contiguous(), rot

@@ -1,5 +1,9 @@
-"""Tensor-parallel layers at tensor-parallel size 1."""
+"""Tensor-parallel layers and the vocab-parallel loss at tensor-parallel
+size 1."""
 
+from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
+    vocab_parallel_cross_entropy,
+)
 from apex_tpu_torch.transformer.tensor_parallel.layers import (
     ColumnParallelLinear,
     RowParallelLinear,
@@ -8,4 +12,4 @@ from apex_tpu_torch.transformer.tensor_parallel.layers import (
 )
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
-           "VocabParallelEmbedding", "linear"]
+           "VocabParallelEmbedding", "linear", "vocab_parallel_cross_entropy"]

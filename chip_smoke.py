@@ -10,15 +10,31 @@ printing its own lines and raising on failure:
 3. kernel A — LayerNorm forward vs its plain PyTorch version;
 4. kernel B — flash attention forward vs its plain version;
 5. kernel C — paged decode attention vs its plain version;
-6. serve    — GPT-2 124M (bf16, random weights from a seed) serves 16
-              greedy requests through ``InferenceEngine``; every kernel's
-              launch counter, read over this phase alone, must be > 0;
-7. card vs CPU — one f32 request gives the same greedy tokens on the card
-              as the plain path on the CPU.
+6. kernel D — LayerNorm backward vs its plain version;
+7. kernel E — packed-QKV flash forward vs its plain version (GQA, RoPE,
+              window, kv_lengths, and dropout whose keep mask must equal
+              ``hash_keep``'s exactly);
+8. kernel F — packed-QKV flash backward vs its plain version;
+9. serve    — GPT-2 124M (bf16, random weights from a seed) serves 16
+              greedy requests through ``InferenceEngine``; the launch
+              counters of its kernels (A, B, C), read over this phase
+              alone, must be > 0;
+10. card vs CPU — one f32 request gives the same greedy tokens on the card
+              as the plain path on the CPU;
+11. train   — GPT-2 124M in the ``bench.py`` configuration (bf16 compute,
+              fp32 params, b 8, s 1024, FusedAdam lr 1e-4) takes 2 + 8
+              steps of ``make_train_step`` on a fixed seeded batch; every
+              loss finite, the last below the first, and Kernels A, D, E,
+              F launched exactly 25, 25, 12 and 12 times a step;
+12. train card vs CPU — a small f32 GPT (TF32 off) trains 3 steps on the
+              card and on the CPU from the same seed: losses and every
+              step-1 gradient leaf agree.
 
-Then one JSON line of per-kernel numbers (launches from phase 6; times from
-CUDA events in this run; ``bound_ms`` from this run's shapes over the H100's
-published peaks), and last ``{"ok": true, "device": {...}}``.
+Then one JSON line of per-kernel numbers (launches from the phase that
+drives each kernel's slice: serve for A-C, train for D-F, with both paths'
+counts in ``launches_by_path``; times from CUDA events in this run;
+``bound_ms`` from this run's shapes over the H100's published peaks), and
+last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -42,6 +58,12 @@ SPIN_CYCLES = 200_000_000          # ~0.1 s at the H100's ~2 GHz
 GPT2 = dict(num_layers=12, hidden_size=768, num_attention_heads=12,
             vocab_size=50304, max_position_embeddings=1024)
 PROMPT_LENS = (64, 128, 256, 512, 700)
+SERVE_KERNELS = ("layer_norm_fwd", "flash_fwd", "paged_decode")
+#: launches a GPT-2 124M training step must make (2 LN per layer + final)
+TRAIN_KERNELS = {"layer_norm_fwd": 25, "layer_norm_bwd": 25,
+                 "flash_packed_fwd": 12, "flash_packed_bwd": 12}
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+WARMUP_STEPS, TIMED_STEPS = 2, 8
 
 
 def log(phase: str, **fields) -> None:
@@ -312,6 +334,246 @@ def phase_decode(timer: Timer) -> dict:
     return record
 
 
+def phase_layer_norm_bwd(timer: Timer) -> dict:
+    from apex_tpu_torch.ops.layer_norm import (layer_norm_bwd_cuda,
+                                               layer_norm_bwd_plain,
+                                               layer_norm_fwd_plain)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    h = GPT2["hidden_size"]
+    rows = TRAIN_BATCH * TRAIN_SEQ
+    w = 1.0 + 0.1 * torch.randn(h, device="cuda", generator=g)
+    b = 0.1 * torch.randn(h, device="cuda", generator=g)
+    record = None
+    # the training block's LN: bf16 x and dy over fp32 weight and bias
+    # (out_dtype=x.dtype), then all-f32, then RMSNorm
+    for dtype, is_rms in ((torch.bfloat16, False), (torch.float32, False),
+                          (torch.bfloat16, True)):
+        x = (2.0 * torch.randn(rows, h, device="cuda", generator=g)
+             + 0.5).to(dtype)
+        dy = torch.randn(rows, h, device="cuda", generator=g).to(dtype)
+        bias = None if is_rms else b
+        _, mean, iv = layer_norm_fwd_plain(x, w, bias, 1e-5, is_rms, dtype)
+        dx, dw, db = layer_norm_bwd_cuda(dy, x, mean, iv, w, is_rms,
+                                         bias is not None)
+        rdx, rdw, rdb = layer_norm_bwd_plain(dy.float(), x.float(), mean,
+                                             iv, w, is_rms, bias is not None)
+        torch.cuda.synchronize()
+        rdx = rdx.to(dtype)
+        err = float((dx.float() - rdx.float()).abs().max())
+        ulps, ok, tol = check_close(dx, rdx)
+        # dw/db: fp32 sums of 8192 rows in another order
+        dw_err = max(float(((dw - rdw).abs() / (1.0 + rdw.abs())).max()),
+                     0.0 if db is None else
+                     float(((db - rdb).abs() / (1.0 + rdb.abs())).max()))
+        if not ok or dw_err > 1e-4:
+            raise AssertionError(
+                f"layer_norm_bwd [{rows},{h}] {dtype} rms={is_rms}: dx err "
+                f"{err} ({ulps} ulp, tolerance {tol}), dw/db rel err "
+                f"{dw_err} (tolerance 1e-4)")
+        esz = x.element_size()
+        n_bytes = 3 * rows * h * esz + 2 * rows * 4 + h * 4 + \
+            (1 if is_rms else 2) * h * 4
+        bms, by = bound_ms(n_bytes, 12.0 * rows * h, dtype)
+        ms = timer(lambda: layer_norm_bwd_cuda(dy, x, mean, iv, w, is_rms,
+                                               bias is not None))
+        plain = timer(lambda: layer_norm_bwd_plain(dy, x, mean, iv, w,
+                                                   is_rms, bias is not None))
+        lib = None
+        if not is_rms:
+            # the library's own saved statistics (their dtype is its choice)
+            wd, bd = w.to(dtype), b.to(dtype)
+            _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [h], wd, bd,
+                                                               1e-5)
+            lib = timer(lambda: torch.ops.aten.native_layer_norm_backward(
+                dy, x, [h], lmean, lrstd, wd, bd, [True, True, True]))
+        log("kernel_d", shape=f"[{rows},{h}]", dtype=str(dtype)[6:],
+            rms=is_rms, max_abs_err=f"{err:.3e}", ulps=ulps,
+            tol=tol.replace(" ", "_"), dw_db_rel_err=f"{dw_err:.2e}",
+            ms=f"{ms:.5f}", plain_ms=f"{plain:.5f}",
+            library_ms=None if lib is None else f"{lib:.5f}",
+            bound_ms=f"{bms:.5f}", bound_by=by)
+        if dtype == torch.bfloat16 and not is_rms:
+            record = dict(name="layer_norm_bwd", route="cuda",
+                          source="apex_tpu_torch/csrc/layer_norm_bwd.cu",
+                          replaces="apex_tpu/ops/layer_norm.py:151",
+                          shape=f"dy,x[{rows},{h}] bf16, w,b fp32",
+                          max_abs_err=err, ms=ms, plain_ms=plain,
+                          bound_ms=bms, bound_by=by, library_ms=lib)
+    return record
+
+
+#: (name, b, s, groups, qpg, d, causal, kv_lengths, window, rot, rate,
+#: dtype): the GPT-2 training shape in bf16 (the timed record) and f32,
+#: then the corner cases at fewer rows
+PACKED_CASES = [
+    ("gpt2_train", 8, 1024, 12, 1, 64, True, None, None, 0, 0.0,
+     torch.bfloat16),
+    ("gpt2_train", 8, 1024, 12, 1, 64, True, None, None, 0, 0.0,
+     torch.float32),
+    ("gqa_qpg2", 2, 512, 6, 2, 64, True, None, None, 0, 0.0, torch.bfloat16),
+    ("rope_half", 2, 512, 12, 1, 64, True, None, None, 32, 0.0,
+     torch.bfloat16),
+    ("window_256", 2, 1024, 12, 1, 64, True, None, 256, 0, 0.0,
+     torch.bfloat16),
+    ("kv_lengths_0", 3, 512, 12, 1, 64, False, [512, 200, 0], None, 0, 0.0,
+     torch.bfloat16),
+    ("dropout_0.1", 2, 512, 12, 1, 64, True, None, None, 0, 0.1,
+     torch.bfloat16),
+    ("dropout_0.1", 2, 512, 12, 1, 64, True, None, None, 0, 0.1,
+     torch.float32),
+]
+DROPOUT_SEED = -1234567
+
+
+def _packed_unpacked(qkv, b, s, groups, qpg, d):
+    """q [b, H, s, d], k/v [b, G, s, d], contiguous, for the library call."""
+    t = qkv.reshape(s, b, groups, qpg + 2, d)
+    q = t[:, :, :, :qpg].reshape(s, b, groups * qpg, d)
+    return (x.permute(1, 2, 0, 3).contiguous()
+            for x in (q, t[:, :, :, qpg], t[:, :, :, qpg + 1]))
+
+
+def _check_dropout_mask() -> None:
+    """With v = I per group (s == d) and a non-causal softmax (every p >
+    0), o[i, j] = keep[i, j] * p[i, j] / (1 - rate): Kernel E's keep mask
+    is read off and must equal ``hash_keep``'s bit for bit."""
+    from apex_tpu_torch.ops.attention import (drop_combo,
+                                              flash_packed_fwd_cuda,
+                                              hash_keep)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    b, s, groups, d, rate = 2, 64, 12, 64, 0.1
+    q = 0.1 * torch.randn(s, b, groups, 1, d, device="cuda", generator=g)
+    k = 0.1 * torch.randn(s, b, groups, 1, d, device="cuda", generator=g)
+    eye = torch.eye(s, device="cuda")[:, None, None, None, :].expand(
+        s, b, groups, 1, d)
+    qkv = torch.cat([q, k, eye], dim=3).reshape(s, b, -1).contiguous()
+    o, _ = flash_packed_fwd_cuda(qkv, None, None, DROPOUT_SEED, rate, 0.125,
+                                 False, None, 1, d)
+    got = (o.reshape(s, b, groups, d) != 0).permute(1, 2, 0, 3).cpu()
+    combo = drop_combo(torch.arange(b)[:, None, None, None],
+                       torch.arange(groups)[None, :, None, None])
+    want = hash_keep(DROPOUT_SEED, combo, (b, groups, s, s), rate)
+    mismatched = int((got != want).sum())
+    if mismatched:
+        raise AssertionError(f"dropout keep mask differs from hash_keep at "
+                             f"{mismatched} of {want.numel()} positions")
+    log("kernel_e_dropout_mask", shape=f"b{b} heads{groups} s{s}",
+        rate=rate, seed=DROPOUT_SEED, kept=int(got.sum()),
+        positions=want.numel(), mismatched=0)
+
+
+def phase_packed(timer: Timer) -> tuple:
+    """Kernels E and F: every case against the plain versions (the
+    forward's o and lse, then the backward's dqkv on the plain forward's
+    o and lse); the GPT-2 bf16 case is timed."""
+    from apex_tpu_torch.ops.attention import (flash_packed_bwd_cuda,
+                                              flash_packed_bwd_plain,
+                                              flash_packed_fwd_cuda,
+                                              flash_packed_fwd_plain)
+    from apex_tpu_torch.ops.rope import rope_freqs, rope_tables
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rec_e = rec_f = None
+    for (name, b, s, groups, qpg, d, causal, kvl, window, rot, rate,
+         dtype) in PACKED_CASES:
+        qkv = torch.randn(s, b, groups * (qpg + 2) * d, device="cuda",
+                          generator=gen).to(dtype)
+        do = torch.randn(s, b, groups * qpg * d, device="cuda",
+                         generator=gen).to(dtype)
+        kvl_t = None if kvl is None else torch.tensor(kvl, device="cuda")
+        rope = (None if not rot else rope_tables(
+            rope_freqs(0, s, rot, 10000.0, device="cuda"), s, d))
+        seed = DROPOUT_SEED if rate else None
+        args = (kvl_t, rope, seed, rate, 1.0 / math.sqrt(d), causal, window,
+                qpg, d)
+        # the plain versions compute in fp32 past the RoPE rounding (part
+        # of the function) and round once at the end
+        o, lse = flash_packed_fwd_cuda(qkv, *args)
+        ro, rlse = flash_packed_fwd_plain(qkv, *args)
+        dqkv = flash_packed_bwd_cuda(qkv, do, ro, rlse, *args)
+        rdqkv = flash_packed_bwd_plain(qkv, do, ro, rlse, *args)
+        torch.cuda.synchronize()
+        errs = {}
+        for kname, got, want in (("e", o, ro), ("f", dqkv, rdqkv)):
+            err = float((got.float() - want.float()).abs().max())
+            ulps, ok, tol = check_close(got, want)
+            if not ok or not torch.isfinite(got).all():
+                raise AssertionError(
+                    f"kernel {kname} {name} {dtype}: max err {err} "
+                    f"({ulps} ulp) — tolerance {tol}")
+            errs[kname] = (err, ulps, tol)
+        lse_err = float((lse - rlse).abs().max())
+        if lse_err > 1e-4:
+            raise AssertionError(f"kernel e {name} {dtype}: lse err "
+                                 f"{lse_err} — tolerance 1e-4")
+        if kvl is not None and 0 in kvl:
+            row = kvl.index(0)
+            if o[:, row].any() or dqkv[:, row].any() or \
+                    not bool((lse[row] == 1e30).all()):
+                raise AssertionError(f"kernel e/f {name}: the batch row "
+                                     f"with kv_length 0 is not zero")
+        timed = name == "gpt2_train" and dtype == torch.bfloat16
+        fields = {}
+        if timed:
+            esz = qkv.element_size()
+            pairs = _visible_pairs(s, s, causal, window, s)
+            heads = groups * qpg
+            fwd_bytes = (qkv.numel() + o.numel()) * esz + lse.numel() * 4
+            bwd_bytes = (2 * qkv.numel() + 2 * o.numel()) * esz \
+                + lse.numel() * 4
+            bms_e, by_e = bound_ms(fwd_bytes, 4.0 * d * heads * b * pairs,
+                                   dtype)
+            bms_f, by_f = bound_ms(bwd_bytes, 10.0 * d * heads * b * pairs,
+                                   dtype)
+            ms_e = timer(lambda: flash_packed_fwd_cuda(qkv, *args), iters=10)
+            ms_f = timer(lambda: flash_packed_bwd_cuda(qkv, do, ro, rlse,
+                                                       *args), iters=10)
+            plain_e = timer(lambda: flash_packed_fwd_plain(qkv, *args),
+                            iters=5, warmup=1)
+            plain_f = timer(lambda: flash_packed_bwd_plain(qkv, do, ro, rlse,
+                                                           *args),
+                            iters=5, warmup=1)
+            q4, k4, v4 = _packed_unpacked(qkv, b, s, groups, qpg, d)
+            lib_e = timer(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True))
+            q4, k4, v4 = (t.requires_grad_() for t in (q4, k4, v4))
+            out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+            do4 = do.reshape(s, b, heads, d).permute(1, 2, 0, 3).contiguous()
+            lib_f = timer(lambda: torch.autograd.grad(
+                out4, (q4, k4, v4), do4, retain_graph=True))
+            fields = dict(e=(ms_e, plain_e, lib_e, bms_e, by_e),
+                          f=(ms_f, plain_f, lib_f, bms_f, by_f))
+        for kname in ("e", "f"):
+            err, ulps, tol = errs[kname]
+            t = fields.get(kname)
+            log(f"kernel_{kname}", case=name,
+                shape=f"b{b} s{s} groups{groups} qpg{qpg} d{d}",
+                causal=causal, window=window, kv_lengths=kvl, rot=rot,
+                rate=rate, dtype=str(dtype)[6:], max_abs_err=f"{err:.3e}",
+                ulps=ulps, tol=tol.replace(" ", "_"),
+                **({} if t is None else dict(
+                    ms=f"{t[0]:.5f}", plain_ms=f"{t[1]:.5f}",
+                    library_ms=f"{t[2]:.5f}", bound_ms=f"{t[3]:.5f}",
+                    bound_by=t[4])))
+        if timed:
+            shape = f"qkv[{s},{b},{qkv.shape[-1]}] bf16 causal"
+            ms_e, plain_e, lib_e, bms_e, by_e = fields["e"]
+            ms_f, plain_f, lib_f, bms_f, by_f = fields["f"]
+            rec_e = dict(name="flash_packed_fwd", route="cuda",
+                         source="apex_tpu_torch/csrc/flash_packed_fwd.cu",
+                         replaces="apex_tpu/ops/attention.py:832",
+                         shape=shape, max_abs_err=errs["e"][0], ms=ms_e,
+                         plain_ms=plain_e, bound_ms=bms_e, bound_by=by_e,
+                         library_ms=lib_e)
+            rec_f = dict(name="flash_packed_bwd", route="cuda",
+                         source="apex_tpu_torch/csrc/flash_packed_bwd.cu",
+                         replaces="apex_tpu/ops/attention.py:885",
+                         shape=shape, max_abs_err=errs["f"][0], ms=ms_f,
+                         plain_ms=plain_f, bound_ms=bms_f, bound_by=by_f,
+                         library_ms=lib_f)
+    _check_dropout_mask()
+    return rec_e, rec_f
+
+
 def _requests(n, vocab, max_new, seed):
     from apex_tpu_torch.serving import Request
     g = torch.Generator().manual_seed(seed)
@@ -320,38 +582,51 @@ def _requests(n, vocab, max_new, seed):
         max_new_tokens=max_new) for i in range(n)]
 
 
-def profile_serve(model, ecfg) -> None:
-    """Where a serve's time goes: torch.profiler over 8 requests on a fresh
-    engine — device-busy share of the wall time and the kernels by device
-    time. Costs host time while on, so its wall is not the serve phase's."""
+def profile_device(path: str, fn, describe=dict) -> None:
+    """Where ``fn``'s time goes: torch.profiler around it — device-busy
+    share of the wall time and the kernels by device time, printed as
+    ``[profile]`` (with the fields ``describe()`` gives after the run) and
+    ``[profile_kernel]`` lines tagged with ``path``. Costs host time while
+    on, so its wall is not the phase's own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from apex_tpu_torch.serving import InferenceEngine
-    engine = InferenceEngine(model, ecfg)
-    requests = _requests(8, model.config.vocab_size, 16, 7)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.serve(requests)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    # kernels only (operator rows would count their kernels twice)
+    # kernels only (operator rows would count their kernels twice, and a
+    # user annotation such as ``Optimizer.step`` spans its kernels)
     per_kernel = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
             calls, us = per_kernel.get(e.name, (0, 0.0))
             per_kernel[e.name] = (calls + 1, us + e.time_range.elapsed_us())
     busy = sum(us for _, us in per_kernel.values()) / 1e6
-    log("profile", requests=8, wall_s=f"{wall:.3f}",
+    log("profile", path=path, **describe(), wall_s=f"{wall:.3f}",
         device_busy_s=f"{busy:.4f}", busy_share=f"{busy / wall:.3f}",
-        decode_steps=engine.metrics.counters()["decode_steps"])
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:12]
-    for name, (calls, us) in top:
-        log("profile_kernel", device_ms=f"{us / 1e3:.3f}", calls=calls,
-            name=name[:90].replace(" ", "_"))
+        device_launches=sum(c for c, _ in per_kernel.values()))
+    ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])
+    for name, (calls, us) in ranked[:16]:
+        log("profile_kernel", path=path, device_ms=f"{us / 1e3:.3f}",
+            calls=calls, name=name[:90].replace(" ", "_"))
+    rest = ranked[16:]
+    log("profile_kernel", path=path,
+        device_ms=f"{sum(us for _, (_, us) in rest) / 1e3:.3f}",
+        calls=sum(c for _, (c, _) in rest), name=f"{len(rest)}_other_kernels")
+
+
+def profile_serve(model, ecfg) -> None:
+    """8 requests on a fresh engine under the profiler."""
+    from apex_tpu_torch.serving import InferenceEngine
+    engine = InferenceEngine(model, ecfg)
+    requests = _requests(8, model.config.vocab_size, 16, 7)
+    profile_device("serve", lambda: engine.serve(requests), lambda: dict(
+        requests=8, decode_steps=engine.metrics.counters()["decode_steps"]))
 
 
 def phase_serve(profile: bool = False) -> dict:
@@ -380,7 +655,7 @@ def phase_serve(profile: bool = False) -> dict:
     if len(results) != 16 or bad:
         raise AssertionError(f"serve: {len(results)} results, bad finish "
                              f"reasons {bad}")
-    missing = [k for k, n in launches.items() if n <= 0]
+    missing = [k for k in SERVE_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"serve: kernels never launched: {missing}")
     tokens = sum(len(r.tokens) for r in results)
@@ -419,11 +694,135 @@ def phase_card_vs_cpu() -> None:
     log("card_vs_cpu", prompt_len=64, tokens=out["cuda"], equal=True)
 
 
+def _train_model(cfg, device, seed=0):
+    from apex_tpu_torch.models import GPTModel
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.training import make_train_step
+    model = GPTModel(cfg, device=device,
+                     generator=torch.Generator().manual_seed(seed))
+    opt = FusedAdam(model.parameters(), lr=1e-4)
+    return model, make_train_step(lambda batch: model(*batch), opt)
+
+
+def _train_batch(cfg, b, s, device, seed=1):
+    g = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=g)
+    labels = torch.randint(0, cfg.vocab_size, (b, s), generator=g)
+    return tokens.to(device), labels.to(device)
+
+
+def train_mfu(n_params, tokens, layers, seq, hidden, step_s) -> float:
+    """Model FLOPs utilization against the H100's bf16 peak: the 6 N
+    matmul term plus the causal attention term 6 L s h per token
+    (``(6 N T + 6 L s h T) / step_time / 989e12``)."""
+    flops = 6.0 * n_params * tokens + 6.0 * layers * seq * hidden * tokens
+    return flops / step_s / PEAK_FLOPS[torch.bfloat16]
+
+
+def phase_train(profile: bool = False) -> dict:
+    """GPT-2 124M trains in the bench.py configuration: returns the
+    kernels' launches over the phase. With ``profile``, two more steps run
+    under the profiler once the counts are read."""
+    from apex_tpu_torch.models import TransformerConfig
+    from apex_tpu_torch.ops import LAUNCHES, reset_launches
+    cfg = TransformerConfig(**GPT2, hidden_dropout=0.0, attention_dropout=0.0,
+                            params_dtype=torch.float32,
+                            compute_dtype=torch.bfloat16)
+    model, step = _train_model(cfg, "cuda")
+    batch = _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, "cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    steps = WARMUP_STEPS + TIMED_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(step(batch))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = dict(LAUNCHES)
+    losses = [float(x) for x in losses]
+    timed = sorted(times[WARMUP_STEPS:])
+    step_s = timed[len(timed) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    wrong = {k: launches[k] for k, n in TRAIN_KERNELS.items()
+             if launches[k] != n * steps}
+    log("train", model="gpt2-124m bf16/fp32 random-init",
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=steps,
+        losses=json.dumps([round(x, 5) for x in losses]).replace(" ", ""),
+        step_ms_median=f"{1e3 * step_s:.2f}",
+        step_ms=json.dumps([round(1e3 * t, 2) for t in times]).replace(
+            " ", ""),
+        tokens_per_s=f"{tokens / step_s:.1f}",
+        mfu=f"{train_mfu(n_params, tokens, GPT2['num_layers'], TRAIN_SEQ, GPT2['hidden_size'], step_s):.4f}",
+        peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
+        n_params=n_params,
+        launches=json.dumps(launches).replace(" ", ""))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train: non-finite loss in {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: loss did not fall on the fixed batch: "
+                             f"{losses}")
+    if wrong:
+        raise AssertionError(
+            f"train: launches over {steps} steps {wrong}, expected "
+            f"{ {k: n * steps for k, n in TRAIN_KERNELS.items()} }")
+    if profile:
+        profile_device("train", lambda: [step(batch) for _ in range(2)],
+                       lambda: dict(steps=2, batch=TRAIN_BATCH,
+                                    seq=TRAIN_SEQ))
+    return launches
+
+
+def _grad_tree(model):
+    return {name: p.grad.detach().cpu().clone()
+            for name, p in model.named_parameters()}
+
+
+def phase_train_card_vs_cpu() -> None:
+    """A small f32 GPT trains 3 steps on the card (TF32 off, set in
+    ``main``) and on the CPU from the same seed. Losses agree to 1e-5
+    relative; every step-1 gradient leaf to atol 1e-5 + rtol 1e-4 (fp32
+    sums in other orders, through the kernels on one side and the plain
+    versions on the other)."""
+    from apex_tpu_torch.models import TransformerConfig
+    cfg = TransformerConfig(num_layers=2, hidden_size=128,
+                            num_attention_heads=2, vocab_size=512,
+                            max_position_embeddings=128, hidden_dropout=0.0,
+                            attention_dropout=0.0)
+    losses, grads = {}, {}
+    for device in ("cuda", "cpu"):
+        model, step = _train_model(cfg, device, seed=2)
+        batch = _train_batch(cfg, 4, 96, device, seed=3)
+        losses[device] = [float(step(batch))]
+        grads[device] = _grad_tree(model)
+        losses[device] += [float(step(batch)) for _ in range(2)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                  losses["cpu"]))
+    worst, worst_name = 0.0, None
+    for name, want in grads["cpu"].items():
+        got = grads["cuda"][name]
+        excess = float(((got - want).abs() - 1e-4 * want.abs()).max())
+        if excess > worst or worst_name is None:
+            worst, worst_name = excess, name
+    log("train_card_vs_cpu", layers=2, hidden=128, steps=3,
+        losses_cuda=json.dumps(losses["cuda"]).replace(" ", ""),
+        losses_cpu=json.dumps(losses["cpu"]).replace(" ", ""),
+        loss_rel_err=f"{rel:.2e}", grad_leaves=len(grads["cpu"]),
+        worst_grad_excess=f"{worst:.2e}", worst_leaf=worst_name)
+    if rel > 1e-5 or worst > 1e-5:
+        raise AssertionError(
+            f"train card vs CPU: loss rel err {rel} (tolerance 1e-5), grad "
+            f"leaf {worst_name} off by {worst} past atol 1e-5 + rtol 1e-4")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="after the serve phase, trace a second serve "
-                        "with torch.profiler and print its breakdown")
+                        help="after the serve and train phases, trace a "
+                        "second serve and two more train steps with "
+                        "torch.profiler and print their breakdowns")
     args = parser.parse_args()
     phase_device()
     # fp32 comparisons hold to fp32 GEMMs, not TF32
@@ -432,15 +831,20 @@ def main() -> int:
     phase_build()
     timer = Timer()
     records = [phase_layer_norm(timer), phase_flash(timer),
-               phase_decode(timer)]
-    launches = phase_serve(args.profile)
+               phase_decode(timer), phase_layer_norm_bwd(timer),
+               *phase_packed(timer)]
+    serve = phase_serve(args.profile)
     phase_card_vs_cpu()
+    train = phase_train(args.profile)
+    phase_train_card_vs_cpu()
     for rec in records:
-        rec["launches"] = launches[rec["name"]]
+        name = rec["name"]
+        rec["launches"] = (serve if name in SERVE_KERNELS else train)[name]
+        rec["launches_by_path"] = {"serve": serve[name], "train": train[name]}
     kernels = [{k: rec[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")}
-        for rec in records]
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+        "launches_by_path")} for rec in records]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

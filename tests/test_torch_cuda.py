@@ -4,12 +4,16 @@ device; run them on a machine with one:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-They reach the corners the serving smoke test (``chip_smoke.py``) does not:
-RMSNorm and non-affine LayerNorm at a width that is not a multiple of 32,
-flash attention with ``kv_lengths`` (one of them 0), ``sq != sk``, GQA,
-sliding windows and head_dim 32/128, paged decode with GQA, a sliding
-window and sentinel pages. Tolerances: f32 atol 1e-4 (summation order
-only, TF32 off); bf16 1 ulp of an fp32 reference rounded to bf16.
+They reach the corners the smoke test (``chip_smoke.py``) does not:
+RMSNorm and non-affine LayerNorm forward and backward at widths that are
+not a multiple of 32 and row counts over several backward blocks, flash
+attention with ``kv_lengths`` (one of them 0), ``sq != sk``, GQA, sliding
+windows and head_dim 32/128, the packed-QKV forward and backward with
+GQA, partial and full RoPE, windows, ``kv_lengths`` and dropout (whose
+keep mask is read off exactly with ``v = I``, and whose seed may stay on
+the card with no host sync), paged decode with GQA, a
+sliding window and sentinel pages. Tolerances: f32 atol 1e-4 (summation
+order only, TF32 off); bf16 1 ulp of an fp32 reference rounded to bf16.
 """
 
 import math
@@ -18,7 +22,17 @@ import pytest
 import torch
 
 from apex_tpu_torch.ops import _support
-from apex_tpu_torch.ops.attention import flash_fwd_cuda, mha_plain
+from apex_tpu_torch.ops.attention import (
+    drop_combo,
+    flash_attention_packed,
+    flash_fwd_cuda,
+    flash_packed_bwd_cuda,
+    flash_packed_bwd_plain,
+    flash_packed_fwd_cuda,
+    flash_packed_fwd_plain,
+    hash_keep,
+    mha_plain,
+)
 from apex_tpu_torch.ops.decode_attention import (
     append_rows,
     decode_plain,
@@ -26,9 +40,12 @@ from apex_tpu_torch.ops.decode_attention import (
     paged_decode_cuda,
 )
 from apex_tpu_torch.ops.layer_norm import (
+    layer_norm_bwd_cuda,
+    layer_norm_bwd_plain,
     layer_norm_fwd_cuda,
     layer_norm_fwd_plain,
 )
+from apex_tpu_torch.ops.rope import rope_freqs, rope_tables
 
 pytestmark = pytest.mark.cuda
 
@@ -135,3 +152,144 @@ def test_paged_decode_kernel(gen, group, window, dtype):
     ref = decode_plain(q.float(), kp.float(), vp.float(), pt, pos, group,
                        window).to(dtype)
     assert_close_once_rounded(ctx, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("is_rms,affine,bias", [
+    (False, True, True), (False, False, False), (True, True, False),
+    (True, False, False)])
+@pytest.mark.parametrize("rows,h", [(300, 96), (5, 1000), (70, 4096)])
+def test_layer_norm_bwd_kernel(gen, rows, h, is_rms, affine, bias, dtype):
+    x = (torch.randn(rows, h, device="cuda", generator=gen) + 0.3).to(dtype)
+    dy = torch.randn(rows, h, device="cuda", generator=gen).to(dtype)
+    w = (1 + 0.1 * torch.randn(h, device="cuda", generator=gen)) \
+        if affine else None
+    _, mean, iv = layer_norm_fwd_plain(x, w, None, 1e-5, is_rms,
+                                       torch.float32)
+    before = _support.LAUNCHES["layer_norm_bwd"]
+    dx, dw, db = layer_norm_bwd_cuda(dy, x, mean, iv, w, is_rms, bias)
+    assert _support.LAUNCHES["layer_norm_bwd"] == before + 1
+    rdx, rdw, rdb = layer_norm_bwd_plain(dy.float(), x.float(), mean, iv, w,
+                                         is_rms, bias)
+    assert_close_once_rounded(dx, rdx.to(dtype))
+    if affine:
+        # fp32 sums over the rows in another order
+        torch.testing.assert_close(dw, rdw, atol=1e-4, rtol=1e-5)
+        if bias:
+            torch.testing.assert_close(db, rdb, atol=1e-4, rtol=1e-5)
+        else:
+            assert db is None
+
+
+PACKED = {
+    # (b, s, groups, qpg, d, causal, kv_lengths, window, rot, rate)
+    "causal_mha": (2, 200, 3, 1, 64, True, None, None, 0, 0.0),
+    "gqa_qpg2": (2, 130, 2, 2, 64, True, None, None, 0, 0.0),
+    "rope_half": (1, 100, 2, 1, 64, True, None, None, 32, 0.0),
+    "window": (1, 300, 2, 1, 64, True, None, 50, 0, 0.0),
+    "kv_lengths_with_zero": (3, 90, 2, 1, 64, False, [90, 37, 0], None, 0,
+                             0.0),
+    "dropout": (2, 80, 2, 1, 64, True, None, None, 0, 0.1),
+    "d128_gqa_rope_varlen_dropout": (1, 129, 2, 3, 128, True, [100], None,
+                                     128, 0.2),
+    "d32_rope": (1, 65, 1, 4, 32, False, None, None, 16, 0.0),
+}
+
+
+def _packed_inputs(gen, case, dtype):
+    b, s, g, qpg, d, causal, kvl, window, rot, rate = case
+    qkv = torch.randn(s, b, g * (qpg + 2) * d, device="cuda",
+                      generator=gen).to(dtype)
+    do = torch.randn(s, b, g * qpg * d, device="cuda",
+                     generator=gen).to(dtype)
+    kvl = None if kvl is None else torch.tensor(kvl, device="cuda")
+    rope = None
+    if rot:
+        rope = rope_tables(rope_freqs(0, s, rot, 10000.0, device="cuda"),
+                           s, d)
+    return qkv, do, kvl, rope, -12345 if rate else None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(PACKED))
+def test_flash_packed_kernels(gen, name, dtype):
+    case = PACKED[name]
+    b, s, g, qpg, d, causal, _, window, _, rate = case
+    qkv, do, kvl, rope, seed = _packed_inputs(gen, case, dtype)
+    args = (kvl, rope, seed, rate, 1.0 / math.sqrt(d), causal, window, qpg,
+            d)
+    before = dict(_support.LAUNCHES)
+    o, lse = flash_packed_fwd_cuda(qkv, *args)
+    # the plain version computes in fp32 past the RoPE rounding (part of
+    # the function) and rounds once at the end
+    ro, rlse = flash_packed_fwd_plain(qkv, *args)
+    assert_close_once_rounded(o, ro)
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=1e-6)
+    dqkv = flash_packed_bwd_cuda(qkv, do, ro, rlse, *args)
+    rdqkv = flash_packed_bwd_plain(qkv, do, ro, rlse, *args)
+    assert_close_once_rounded(dqkv, rdqkv)
+    assert _support.LAUNCHES["flash_packed_fwd"] == \
+        before["flash_packed_fwd"] + 1
+    assert _support.LAUNCHES["flash_packed_bwd"] == \
+        before["flash_packed_bwd"] + 1
+    if kvl is not None and int(kvl.min()) == 0:
+        row = int(torch.argmin(kvl))
+        assert not o[:, row].any()
+        assert bool((lse[row] == 1e30).all())
+        assert not dqkv[:, row].any()
+
+
+def test_flash_packed_backward_is_deterministic(gen):
+    case = PACKED["gqa_qpg2"]
+    qkv, do, kvl, rope, seed = _packed_inputs(gen, case, torch.bfloat16)
+    args = (kvl, rope, seed, 0.0, 0.125, True, None, 2, 64)
+    o, lse = flash_packed_fwd_cuda(qkv, *args)
+    first = flash_packed_bwd_cuda(qkv, do, o, lse, *args)
+    assert torch.equal(first, flash_packed_bwd_cuda(qkv, do, o, lse, *args))
+
+
+def test_flash_packed_device_seed_needs_no_host_sync(gen):
+    """A one-element seed tensor on the card goes to the kernels as it is:
+    forward and backward make no host sync and give the int seed's
+    output and grads bitwise."""
+    b, s, g, qpg, d, causal, _, _, _, rate = PACKED["dropout"]
+    qkv, do, _, _, seed = _packed_inputs(gen, PACKED["dropout"],
+                                         torch.bfloat16)
+    device_seed = torch.tensor([seed], dtype=torch.int32, device="cuda")
+    outs = []
+    for sd in (seed, device_seed):
+        x = qkv.clone().requires_grad_()
+        torch.cuda.synchronize()
+        if isinstance(sd, torch.Tensor):
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            o = flash_attention_packed(x, queries_per_group=qpg, head_dim=d,
+                                       causal=causal, dropout_rate=rate,
+                                       dropout_seed=sd)
+            o.backward(do)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        outs.append((o.detach(), x.grad))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.parametrize("seed,rate", [(7, 0.1), (-2 ** 31, 0.5),
+                                       (123456789, 0.9)])
+def test_flash_packed_dropout_mask_is_the_hash(gen, seed, rate):
+    """With v = I per group (s == d) and a non-causal softmax (every p >
+    0), o[i, j] = keep[i, j] * p[i, j] / (1 - rate): the kernel's mask is
+    read off exactly."""
+    b, s, g, d = 2, 64, 2, 64
+    q = 0.1 * torch.randn(s, b, g, 1, d, device="cuda", generator=gen)
+    k = 0.1 * torch.randn(s, b, g, 1, d, device="cuda", generator=gen)
+    eye = torch.eye(s, device="cuda")[:, None, None, None, :].expand(
+        s, b, g, 1, d)
+    qkv = torch.cat([q, k, eye], dim=3).reshape(s, b, g * 3 * d).contiguous()
+    o, _ = flash_packed_fwd_cuda(qkv, None, None, seed, rate, 0.125, False,
+                                 None, 1, d)
+    got = (o.reshape(s, b, g, d) != 0).permute(1, 2, 0, 3)   # [b, h, s, s]
+    combo = drop_combo(torch.arange(b)[:, None, None, None],
+                       torch.arange(g)[None, :, None, None])
+    want = hash_keep(seed, combo, (b, g, s, s), rate)
+    assert torch.equal(got.cpu(), want)

@@ -1,0 +1,121 @@
+"""FusedAdam / FusedAdamW of the port against the JAX package.
+
+The same numpy-made parameter tree and five numpy-made gradient sets go
+through ``apex_tpu.optimizers.FusedAdam`` (``init`` / ``step`` on a dict
+of arrays) and through the port's ``FusedAdam`` over ``nn.Parameter``s
+updated in place: both ``adam_w_mode`` values, weight decay with and
+without a mask (matrices decayed, vectors not), bias correction off,
+``master_weights`` over bf16 params, and a ``found_inf`` step that must
+leave parameters, moments and the step count untouched; ``grad_scale``
+unscales inside the step.
+
+Tolerance: fp32 parameters rtol 1e-6 + atol 1e-7 after five steps (the
+same fp32 expressions; ``b ** t`` may differ by an ulp); bf16 parameters
+under master weights exactly equal (both round the same fp32 master).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from apex_tpu.optimizers import FusedAdam as JaxFusedAdam
+from apex_tpu_torch.optimizers import FusedAdam, FusedAdamW
+
+SHAPES = {"w1": (6, 5), "b1": (5,), "w2": (5, 3), "scale": (3,)}
+STEPS = 5
+
+
+def _tree(seed):
+    rng = np.random.RandomState(seed)
+    return {k: rng.randn(*shape).astype(np.float32)
+            for k, shape in SHAPES.items()}
+
+
+def _run(kw, param_dtype="float32", found_inf_at=None, grad_scale=None):
+    params = _tree(0)
+    grads = [_tree(10 + i) for i in range(STEPS)]
+    jmask = kw.pop("mask", False)
+    jopt = JaxFusedAdam(**kw, weight_decay_mask=(
+        (lambda p: jax.tree.map(lambda x: x.ndim > 1, p)) if jmask
+        else None))
+    jp = {k: jnp.asarray(v, getattr(jnp, param_dtype))
+          for k, v in params.items()}
+    jstate = jopt.init(jp)
+    tp = {k: torch.nn.Parameter(torch.from_numpy(v).to(
+        getattr(torch, param_dtype))) for k, v in params.items()}
+    topt = FusedAdam(list(tp.values()), **kw,
+                     weight_decay_mask=(lambda p: p.dim() > 1) if jmask
+                     else None)
+    for i, g in enumerate(grads):
+        skip = found_inf_at == i
+        jfound = None if found_inf_at is None else jnp.asarray(skip)
+        jscale = None if grad_scale is None else jnp.float32(grad_scale)
+        # grads in the params' dtype on both sides (torch requires it)
+        jp, jstate = jopt.step({k: jnp.asarray(v, getattr(jnp, param_dtype))
+                                for k, v in g.items()},
+                               jp, jstate, found_inf=jfound,
+                               grad_scale=jscale)
+        for k, p in tp.items():
+            p.grad = torch.from_numpy(g[k]).to(p.dtype)
+        topt.step(found_inf=None if found_inf_at is None
+                  else torch.tensor(skip),
+                  grad_scale=None if grad_scale is None
+                  else torch.tensor(grad_scale))
+    return jp, jstate, tp, topt
+
+
+def _check(jp, tp, exact=False):
+    for k, p in tp.items():
+        want = np.asarray(jp[k].astype(jnp.float32))
+        got = p.detach().float().numpy()
+        if exact:
+            np.testing.assert_array_equal(got, want)
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(lr=1e-2),
+    dict(lr=1e-2, adam_w_mode=False, weight_decay=0.1),
+    dict(lr=1e-2, weight_decay=0.1),
+    dict(lr=1e-2, weight_decay=0.1, mask=True),
+    dict(lr=1e-2, adam_w_mode=False, weight_decay=0.1, mask=True),
+    dict(lr=3e-3, betas=(0.8, 0.95), eps=1e-6, bias_correction=False),
+], ids=["adamw", "adam_l2", "adamw_wd", "adamw_wd_mask", "adam_l2_mask",
+        "no_bias_correction"])
+def test_five_steps_match_jax(kw):
+    jp, _, tp, _ = _run(dict(kw))
+    _check(jp, tp)
+
+
+def test_master_weights_over_bf16_params():
+    jp, jstate, tp, topt = _run(dict(lr=1e-2, weight_decay=0.1,
+                                     master_weights=True),
+                                param_dtype="bfloat16")
+    for k, p in tp.items():
+        assert p.dtype == torch.bfloat16
+        np.testing.assert_allclose(topt.state[p]["master"].numpy(),
+                                   np.asarray(jstate["master"][k]),
+                                   rtol=1e-6, atol=1e-7)
+    _check(jp, tp, exact=True)
+
+
+def test_found_inf_skips_the_step_on_the_device():
+    jp, jstate, tp, topt = _run(dict(lr=1e-2), found_inf_at=2,
+                                grad_scale=4.0)
+    _check(jp, tp)
+    for k, p in tp.items():
+        st = topt.state[p]
+        assert int(st["step"]) == int(jstate["step"]) == STEPS - 1
+        np.testing.assert_allclose(
+            st["exp_avg"].numpy(),
+            np.asarray(jstate["slots"]["exp_avg"][k]), rtol=1e-6, atol=1e-8)
+
+
+def test_adamw_factory_and_amsgrad():
+    p = torch.nn.Parameter(torch.zeros(3))
+    assert FusedAdamW([p]).adam_w_mode
+    with pytest.raises(RuntimeError, match="AMSGrad"):
+        FusedAdam([p], amsgrad=True)
