@@ -1,15 +1,19 @@
-"""Parameter conversion between the JAX package's GPT tree and the port.
+"""Parameter conversion between the JAX package's model trees and the port.
 
 The caller hands over apex_tpu's parameter pytree already turned into
 numpy (``jax.tree.map(np.asarray, params)``), so the port never sees a
-JAX array. :func:`params_from_jax` maps it onto
-:class:`~apex_tpu_torch.models.GPTModel` ``state_dict`` keys:
+JAX array. :func:`params_from_jax` maps it onto the ``state_dict`` keys of
+:class:`~apex_tpu_torch.models.GPTModel`,
+:class:`~apex_tpu_torch.models.BertModel` or
+:class:`~apex_tpu_torch.models.EncoderDecoderModel`:
 
-- the stacked ``params["transformer"]["layers"]`` leaves ``[L, ...]``
-  split into the per-layer modules ``transformer.layers.{i}.…``;
+- the stacked ``params[stack]["layers"]`` leaves ``[L, ...]`` (``stack``
+  is ``transformer``, ``encoder`` or ``decoder``) split into the per-layer
+  modules ``{stack}.layers.{i}.…``;
 - every other leaf maps one to one, its path joined with dots
   (``embedding/word_embeddings/weight`` — the tied LM head —
-  ``embedding/position_embeddings``, ``transformer/final_layernorm/…``);
+  ``embedding/position_embeddings``, ``lm_head/dense/bias``,
+  ``binary_head/pooler/weight``, ``transformer/final_layernorm/…``);
 - weights stay ``[out, in]``, as both packages keep them.
 
 :func:`params_to_jax` is the inverse (numpy leaves, layers restacked;
@@ -28,7 +32,10 @@ import torch
 __all__ = ["params_from_jax", "params_to_jax", "grads_to_jax",
            "load_jax_params"]
 
-_LAYERS = ("transformer", "layers")
+
+def _stacked(path) -> bool:
+    """``{stack}/layers/…``: a leaf stacked over the layers."""
+    return len(path) > 2 and path[1] == "layers"
 
 
 def _to_tensor(a) -> torch.Tensor:
@@ -55,11 +62,11 @@ def _walk(tree: Mapping[str, Any], prefix=()):
 
 
 def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """apex_tpu GPT params (numpy leaves) -> a ``GPTModel`` state dict
+    """apex_tpu model params (numpy leaves) -> the port model's state dict
     of CPU tensors in the leaves' dtypes."""
     state: Dict[str, torch.Tensor] = {}
     for path, leaf in _walk(tree):
-        if path[:2] == _LAYERS:
+        if _stacked(path):
             stacked = _to_tensor(leaf)
             for i in range(stacked.shape[0]):
                 key = ".".join(path[:2] + (str(i),) + path[2:])
@@ -76,13 +83,13 @@ def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     layers: Dict[tuple, Dict[int, np.ndarray]] = {}
     for key, tensor in state.items():
         path = tuple(key.split("."))
-        if path[:2] == _LAYERS:
-            layers.setdefault(path[3:], {})[int(path[2])] = _to_numpy(tensor)
+        if _stacked(path):
+            leaf = path[:2] + path[3:]
+            layers.setdefault(leaf, {})[int(path[2])] = _to_numpy(tensor)
             continue
         _put(tree, path, _to_numpy(tensor))
-    for rest, per_layer in layers.items():
-        stacked = np.stack([per_layer[i] for i in sorted(per_layer)])
-        _put(tree, _LAYERS + rest, stacked)
+    for leaf, per_layer in layers.items():
+        _put(tree, leaf, np.stack([per_layer[i] for i in sorted(per_layer)]))
     return tree
 
 
@@ -104,7 +111,7 @@ def _put(tree: Dict[str, Any], path, value) -> None:
 
 @torch.no_grad()
 def load_jax_params(model: torch.nn.Module, tree: Mapping[str, Any]):
-    """Copy apex_tpu GPT params (numpy leaves) into ``model`` in place,
+    """Copy apex_tpu model params (numpy leaves) into ``model`` in place,
     cast to each parameter's dtype and device; every key must match.
     Returns the model."""
     model.load_state_dict(params_from_jax(tree), strict=True)

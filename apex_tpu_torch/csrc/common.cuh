@@ -21,6 +21,14 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);  // round to nearest even, as XLA and torch do
 }
 
+// v rounded to the element type T and read back as fp32 (the rounding point
+// of a value the JAX package casts to the input dtype before a product):
+// round_to(v, static_cast<T*>(nullptr)).
+__device__ __forceinline__ float round_to(float v, float*) { return v; }
+__device__ __forceinline__ float round_to(float v, __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);

@@ -63,11 +63,6 @@ __device__ __forceinline__ long long out_index(const Opts& o, int bb, int h,
          static_cast<long long>(h) * o.d;
 }
 
-__device__ __forceinline__ float round_to(float v, float*) { return v; }
-__device__ __forceinline__ float round_to(float v, __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
 // Element c of the q or k row at position `row`, rotated as `_rope_block`
 // does: in fp32, t * cos + rotate_half(t) * sin with separate roundings
 // (no fused multiply-add, as the plain version computes it), then rounded

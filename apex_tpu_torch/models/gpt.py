@@ -19,32 +19,18 @@ import torch
 from torch import nn
 
 from apex_tpu_torch.models.transformer import (
+    Embedding,
     ParallelTransformer,
     TransformerConfig,
+    embed_tokens,
 )
 from apex_tpu_torch.ops._support import resolve_device
 from apex_tpu_torch.transformer.tensor_parallel import (
-    VocabParallelEmbedding,
     linear,
     vocab_parallel_cross_entropy,
 )
 
 __all__ = ["GPTModel", "lm_head", "lm_head_loss", "init_weights"]
-
-
-class _Embedding(nn.Module):
-    """The JAX tree's ``embedding`` node: word table and (learned
-    positions only) the position table."""
-
-    def __init__(self, config: TransformerConfig, device=None):
-        super().__init__()
-        self.word_embeddings = VocabParallelEmbedding(
-            config.vocab_size, config.hidden_size,
-            params_dtype=config.params_dtype, device=device)
-        self.position_embeddings = (nn.Parameter(torch.empty(
-            (config.max_position_embeddings, config.hidden_size),
-            dtype=config.params_dtype, device=device))
-            if config.position_embedding_type == "learned" else None)
 
 
 def lm_head_loss(embedding_weight: torch.Tensor, hidden: torch.Tensor,
@@ -80,9 +66,12 @@ def lm_head(model: "GPTModel", hidden: torch.Tensor) -> torch.Tensor:
 def init_weights(model: "GPTModel",
                  generator: Optional[torch.Generator] = None) -> None:
     """Draw every weight from ``generator`` (a CPU generator, so the same
-    seed gives the same weights on any device)."""
+    seed gives the same weights on any device): norms at one, biases at
+    zero, the residual-output projections (every attention's ``dense`` and
+    the MLP's ``dense_4h_to_h``) at ``output_init_std``, the rest at
+    ``init_method_std``."""
     c = model.config
-    out_proj = ("self_attention.dense.weight", "mlp.dense_4h_to_h.weight")
+    out_proj = ("attention.dense.weight", "mlp.dense_4h_to_h.weight")
     for name, p in model.named_parameters():
         if name.endswith("layernorm.weight"):
             p.fill_(1.0)
@@ -106,8 +95,8 @@ class GPTModel(nn.Module):
         super().__init__()
         device = resolve_device(device)
         self.config = config
-        self.embedding = _Embedding(config, device)
-        self.transformer = ParallelTransformer(config, device)
+        self.embedding = Embedding(config, device=device)
+        self.transformer = ParallelTransformer(config, device=device)
         init_weights(self, generator)
 
     @property
@@ -124,10 +113,7 @@ class GPTModel(nn.Module):
         ``NotImplementedError``: not ported yet."""
         c = self.config
         c.check_dropout(deterministic)
-        emb = self.embedding.word_embeddings(tokens)
-        if c.position_embedding_type == "learned":
-            emb = emb + self.embedding.position_embeddings[:tokens.shape[1]]
-        hidden = emb.transpose(0, 1).to(c.compute_dtype)
+        hidden = embed_tokens(self.embedding, tokens, c)
         hidden = self.transformer(hidden, deterministic=deterministic)
         return lm_head_loss(self.embedding.word_embeddings.weight, hidden,
                             labels, loss_mask, c)

@@ -1,19 +1,29 @@
 """Megatron-style transformer blocks in PyTorch, for training and serving.
 
 Counterpart of ``apex_tpu/models/transformer.py`` at tensor-parallel size
-1: ``TransformerConfig``, ``ParallelMLP``, ``ParallelAttention``,
-``ParallelTransformerLayer`` and ``ParallelTransformer`` (a layer loop;
-the per-layer LIST cache loop when decoding). Layout is Megatron's
-``[seq, batch, hidden]``. Module and parameter names follow the JAX
-parameter tree, so ``state_dict`` keys read like its paths
-(:mod:`apex_tpu_torch.convert`).
+1: ``TransformerConfig``, the embedding (``Embedding``, ``embed_tokens``),
+``ParallelMLP``, ``ParallelAttention`` (self- and cross-attention),
+``ParallelTransformerLayer`` (encoder and decoder layers) and
+``ParallelTransformer`` (a layer loop; the per-layer LIST cache loop when
+decoding). Layout is Megatron's ``[seq, batch, hidden]``. Module and
+parameter names follow the JAX parameter tree, so ``state_dict`` keys read
+like its paths (:mod:`apex_tpu_torch.convert`).
 
 What runs here:
 
-- no cache (training, and the cache-free forward): the packed-QKV
-  attention :func:`~apex_tpu_torch.ops.attention.flash_attention_packed`
-  on the fused projection, differentiable, with RoPE in-kernel — the JAX
-  package's packed path;
+- self-attention without a cache or mask (training, and the cache-free
+  forward): the packed-QKV attention
+  :func:`~apex_tpu_torch.ops.attention.flash_attention_packed` on the fused
+  projection, differentiable, with RoPE in-kernel and ``kv_lengths`` — the
+  JAX package's packed path;
+- otherwise ``_core_attention`` over ``[b, heads, s, head_dim]``: with no
+  mask the differentiable 4D
+  :func:`~apex_tpu_torch.ops.flash_attention` (cross-attention, with the
+  encoder's ``kv_lengths``); with a boolean mask the unfused product, the
+  scores divided by ``sqrt(head_dim)`` in the compute dtype and
+  :class:`~apex_tpu_torch.transformer.functional.FusedScaleMaskSoftmax`
+  (the masked softmax kernels; ``kv_lengths`` and the window are folded
+  into the mask);
 - a 4D ``[b, kv_heads, S, head_dim]`` cache at ``cache_index == 0``: the
   prefill fast path — K/V written into the cache in place, then causal
   flash over the filled prefix (inference);
@@ -48,10 +58,12 @@ from apex_tpu_torch.ops.attention import (
     flash_attention_packed,
     packed_attention_supported,
 )
-from apex_tpu_torch.transformer.enums import AttnMaskType
+from apex_tpu_torch.transformer.enums import AttnMaskType, AttnType, LayerType
+from apex_tpu_torch.transformer.functional import FusedScaleMaskSoftmax
 from apex_tpu_torch.transformer.tensor_parallel import (
     ColumnParallelLinear,
     RowParallelLinear,
+    VocabParallelEmbedding,
 )
 from apex_tpu_torch.utils.activations import (
     apply_activation,
@@ -59,8 +71,9 @@ from apex_tpu_torch.utils.activations import (
     validate_activation,
 )
 
-__all__ = ["TransformerConfig", "ParallelMLP", "ParallelAttention",
-           "ParallelTransformerLayer", "ParallelTransformer"]
+__all__ = ["TransformerConfig", "Embedding", "embed_tokens", "ParallelMLP",
+           "ParallelAttention", "ParallelTransformerLayer",
+           "ParallelTransformer"]
 
 
 @dataclass(frozen=True)
@@ -169,6 +182,41 @@ def _norm(config: TransformerConfig, device) -> nn.Module:
                params_dtype=config.params_dtype, device=device)
 
 
+class Embedding(nn.Module):
+    """The JAX tree's ``embedding`` node: the word table, the position table
+    (learned positions only) and, with ``num_tokentypes``, the tokentype
+    table."""
+
+    def __init__(self, config: TransformerConfig, num_tokentypes: int = 0,
+                 device=None):
+        super().__init__()
+        kw = dict(dtype=config.params_dtype, device=device)
+        self.word_embeddings = VocabParallelEmbedding(
+            config.vocab_size, config.hidden_size,
+            params_dtype=config.params_dtype, device=device)
+        self.position_embeddings = (nn.Parameter(torch.empty(
+            (config.max_position_embeddings, config.hidden_size), **kw))
+            if config.position_embedding_type == "learned" else None)
+        self.tokentype_embeddings = (nn.Parameter(torch.empty(
+            (num_tokentypes, config.hidden_size), **kw))
+            if num_tokentypes else None)
+
+
+def embed_tokens(embedding: Embedding, tokens: torch.Tensor,
+                 config: TransformerConfig,
+                 tokentype_ids: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """Word + learned position (+ tokentype) lookups in the params' dtype,
+    ``[b, s, h] -> [s, b, h]`` in the compute dtype (the JAX package's
+    ``embed_tokens``; its dropout is not ported)."""
+    emb = embedding.word_embeddings(tokens)
+    if config.position_embedding_type == "learned":
+        emb = emb + embedding.position_embeddings[:tokens.shape[1]]
+    if tokentype_ids is not None:
+        emb = emb + embedding.tokentype_embeddings[tokentype_ids]
+    return emb.transpose(0, 1).to(config.compute_dtype)
+
+
 class ParallelMLP(nn.Module):
     """h -> ffn (column) -> activation -> h (row); gated activations widen
     the column projection to ``2*ffn``, unit-interleaved and bias-free."""
@@ -193,52 +241,130 @@ class ParallelMLP(nn.Module):
 
 class ParallelAttention(nn.Module):
     """Self-attention with the fused, grouped QKV projection
-    ``[g0: qpg*dh q | dh k | dh v | g1: ...]`` and an output projection."""
+    ``[g0: qpg*dh q | dh k | dh v | g1: ...]``, or cross-attention with a
+    ``query`` (h -> h) and a ``key_value`` (h -> 2h, each head's k before its
+    v) projection over the encoder output; then the output projection."""
 
-    def __init__(self, config: TransformerConfig, device=None):
+    def __init__(self, config: TransformerConfig, *,
+                 attn_type: AttnType = AttnType.self_attn, device=None):
         super().__init__()
         c = config
         self.config = c
-        qpg = c.num_attention_heads // c.kv_heads
+        self.attn_type = attn_type
         kw = dict(params_dtype=c.params_dtype, device=device)
-        self.query_key_value = ColumnParallelLinear(
-            c.hidden_size, c.kv_heads * (qpg + 2) * c.head_dim, **kw)
+        if attn_type == AttnType.self_attn:
+            qpg = c.num_attention_heads // c.kv_heads
+            self.query_key_value = ColumnParallelLinear(
+                c.hidden_size, c.kv_heads * (qpg + 2) * c.head_dim, **kw)
+        else:
+            self.query = ColumnParallelLinear(c.hidden_size, c.hidden_size,
+                                              **kw)
+            self.key_value = ColumnParallelLinear(c.hidden_size,
+                                                  2 * c.hidden_size, **kw)
         self.dense = RowParallelLinear(c.hidden_size, c.hidden_size, **kw)
+        self.scale_mask_softmax = FusedScaleMaskSoftmax(
+            attn_mask_type=(AttnMaskType.padding
+                            if attn_type == AttnType.cross_attn
+                            else c.attn_mask_type),
+            scaled_masked_softmax_fusion=True, softmax_in_fp32=True)
+
+    def _core_attention(self, q, k, v, attention_mask, kv_lengths, window):
+        """``q [b, heads, sq, dh]``, ``k``/``v [b, kv_heads, sk, dh]`` ->
+        context ``[b, heads, sq, dh]``: flash with no mask, else the unfused
+        scores through the fused masked softmax."""
+        c = self.config
+        causal = (self.attn_type == AttnType.self_attn
+                  and c.attn_mask_type == AttnMaskType.causal)
+        if attention_mask is None:
+            return flash_attention(q, k, v, causal=causal,
+                                   kv_lengths=kv_lengths,
+                                   sliding_window=window)
+        b, heads, sq, dh = q.shape
+        kvh, sk = k.shape[1], k.shape[2]
+        if kv_lengths is not None:
+            # varlen lengths folded into the mask (True = masked out)
+            col = torch.arange(sk, device=q.device)[None, None, None, :]
+            attention_mask = attention_mask | (
+                col >= kv_lengths.to(q.device)[:, None, None, None])
+        if window is not None and causal:
+            row = torch.arange(sq, device=q.device)[None, None, :, None]
+            col = torch.arange(sk, device=q.device)[None, None, None, :]
+            attention_mask = attention_mask | (col <= row + (sk - sq)
+                                               - window)
+        # sqrt(head_dim) in fp32, rounded to the compute dtype
+        inv_scale = float(torch.tensor(float(c.head_dim)).sqrt().to(q.dtype))
+        if kvh != heads:
+            # grouped product: q heads fold into [kv_heads, group], so K/V
+            # are read once per group with no broadcast copy
+            g = heads // kvh
+            qg = q.reshape(b, kvh, g, sq, dh)
+            scores = torch.matmul(qg, k.unsqueeze(2).transpose(-1, -2)) \
+                / inv_scale
+            probs = self.scale_mask_softmax(
+                scores.reshape(b, heads, sq, sk), attention_mask)
+            ctx = torch.matmul(probs.reshape(b, kvh, g, sq, sk).to(v.dtype),
+                               v.unsqueeze(2))
+            return ctx.reshape(b, heads, sq, dh)
+        scores = torch.matmul(q, k.transpose(-1, -2)) / inv_scale
+        probs = self.scale_mask_softmax(scores, attention_mask)
+        return torch.matmul(probs.to(v.dtype), v)
 
     def forward(self, hidden: torch.Tensor, *,
+                encoder_output: Optional[torch.Tensor] = None,
+                attention_mask: Optional[torch.Tensor] = None,
+                kv_lengths: Optional[torch.Tensor] = None,
                 kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 cache_index=None,
                 paged_state: Optional[torch.Tensor] = None):
         """``hidden [s, b, h] -> [s, b, h]``, or ``(out, cache)`` with a
-        ``kv_cache``. The cache is updated in place and returned."""
+        ``kv_cache`` (updated in place and returned). Cross-attention reads
+        K/V from ``encoder_output [s_enc, b, h]``. ``attention_mask`` is a
+        bool broadcastable to ``[b, heads, sq, sk]``, True = masked out;
+        ``kv_lengths [b]`` bounds the keys of each batch row."""
         c = self.config
         dh = c.head_dim
-        qpg = c.num_attention_heads // c.kv_heads
-        qkv = self.query_key_value(hidden)
-        s, b = qkv.shape[0], qkv.shape[1]
-        causal = c.attn_mask_type == AttnMaskType.causal
-        if (kv_cache is None and cache_index is None and paged_state is None
-                and packed_attention_supported(s, c.kv_heads, qpg, dh)):
-            # layout-native: the fused projection goes straight to the
-            # kernel and the context comes back in [s, b, h*dh]
-            freqs = None
+        if self.attn_type == AttnType.self_attn:
+            qpg = c.num_attention_heads // c.kv_heads
+            qkv = self.query_key_value(hidden)
+            s, b = qkv.shape[0], qkv.shape[1]
+            causal = c.attn_mask_type == AttnMaskType.causal
+            if (kv_cache is None and cache_index is None
+                    and paged_state is None and attention_mask is None
+                    and packed_attention_supported(s, c.kv_heads, qpg, dh)):
+                # layout-native: the fused projection goes straight to the
+                # kernel and the context comes back in [s, b, h*dh]
+                freqs = None
+                if c.position_embedding_type == "rope":
+                    freqs = rope_freqs(0, s, c.rotary_dim, c.rope_theta,
+                                       device=hidden.device)
+                ctx = flash_attention_packed(
+                    qkv, queries_per_group=qpg, head_dim=dh, causal=causal,
+                    kv_lengths=kv_lengths, sliding_window=c.sliding_window,
+                    rope_freqs=freqs)
+                return self.dense(ctx)
+            qkv = qkv.reshape(s, b, c.kv_heads, qpg + 2, dh)
+            q = qkv[:, :, :, :qpg].reshape(s, b, c.num_attention_heads, dh)
+            k = qkv[:, :, :, qpg]
+            v = qkv[:, :, :, qpg + 1]
             if c.position_embedding_type == "rope":
-                freqs = rope_freqs(0, s, c.rotary_dim, c.rope_theta,
+                start = 0 if cache_index is None else cache_index
+                freqs = rope_freqs(start, s, c.rotary_dim, c.rope_theta,
                                    device=hidden.device)
-            ctx = flash_attention_packed(
-                qkv, queries_per_group=qpg, head_dim=dh, causal=causal,
-                sliding_window=c.sliding_window, rope_freqs=freqs)
-            return self.dense(ctx)
-        qkv = qkv.reshape(s, b, c.kv_heads, qpg + 2, dh)
-        q = qkv[:, :, :, :qpg].reshape(s, b, c.num_attention_heads, dh)
-        k = qkv[:, :, :, qpg]
-        v = qkv[:, :, :, qpg + 1]
-        if c.position_embedding_type == "rope":
-            start = 0 if cache_index is None else cache_index
-            freqs = rope_freqs(start, s, c.rotary_dim, c.rope_theta,
-                               device=hidden.device)
-            q = fused_rope(q, freqs)
-            k = fused_rope(k, freqs)
+                q = fused_rope(q, freqs)
+                k = fused_rope(k, freqs)
+        else:
+            if encoder_output is None:
+                raise ValueError("cross-attention needs encoder_output")
+            if kv_cache is not None or paged_state is not None:
+                raise NotImplementedError(
+                    "kv_cache is for self-attention decode; cross-attention "
+                    "K/V are static — precompute them once instead")
+            q = self.query(hidden)
+            kv = self.key_value(encoder_output)
+            s, b = q.shape[0], q.shape[1]
+            heads = q.shape[-1] // dh
+            q = q.reshape(s, b, heads, dh)
+            k, v = kv.reshape(kv.shape[0], b, heads, 2 * dh).split(dh, dim=-1)
         if paged_state is not None:
             # paged decode: append this step's K/V rows at each slot's
             # position and attend over its mapped pages (one kernel)
@@ -246,6 +372,10 @@ class ParallelAttention(nn.Module):
                 raise NotImplementedError(
                     "paged decode takes the page-pool kv_cache pair and one "
                     "token per slot (verify windows are a later slice)")
+            if attention_mask is not None or kv_lengths is not None:
+                raise NotImplementedError(
+                    "paged decode derives validity from cache_index; "
+                    "attention_mask/kv_lengths are not supported")
             ck, cv = kv_cache
             ctx, ck, cv = fused_paged_decode_attention(
                 q[0], k[0].reshape(b, -1), v[0].reshape(b, -1), ck, cv,
@@ -257,47 +387,71 @@ class ParallelAttention(nn.Module):
         if kv_cache is not None:
             ck, cv = kv_cache
             if ck.dim() != 4 or not (isinstance(cache_index, int)
-                                     and cache_index == 0):
+                                     and cache_index == 0) \
+                    or attention_mask is not None or kv_lengths is not None:
                 raise NotImplementedError(
-                    "only the prefill cache path (4D cache, cache_index 0) "
-                    "and paged decode are ported; mid-cache and flat-cache "
-                    "decode are a later slice")
+                    "only the prefill cache path (4D cache, cache_index 0, "
+                    "no mask or kv_lengths) and paged decode are ported; "
+                    "mid-cache and flat-cache decode are a later slice")
             ck[:, :, :s] = k.to(ck.dtype)
             cv[:, :, :s] = v.to(cv.dtype)
             ctx = flash_attention(q, ck[:, :, :s].to(q.dtype),
                                   cv[:, :, :s].to(q.dtype), causal=True,
                                   sliding_window=c.sliding_window)
         else:
-            ctx = flash_attention(q, k, v, causal=causal,
-                                  sliding_window=c.sliding_window)
+            window = (c.sliding_window if self.attn_type == AttnType.self_attn
+                      else None)
+            ctx = self._core_attention(q, k, v, attention_mask, kv_lengths,
+                                       window)
         out = self.dense(ctx.permute(2, 0, 1, 3).reshape(s, b, -1))
         return out if kv_cache is None else (out, (ck, cv))
 
 
 class ParallelTransformerLayer(nn.Module):
-    """Pre-LN block: ln -> attention -> add -> ln -> mlp -> add."""
+    """Pre-LN block: ln -> self-attention -> add -> [decoder: ln ->
+    cross-attention over the encoder output -> add] -> ln -> mlp -> add."""
 
-    def __init__(self, config: TransformerConfig, device=None):
+    def __init__(self, config: TransformerConfig, *,
+                 layer_type: LayerType = LayerType.encoder, device=None):
         super().__init__()
         self.config = config
+        self.layer_type = layer_type
         self.input_layernorm = _norm(config, device)
-        self.self_attention = ParallelAttention(config, device)
+        self.self_attention = ParallelAttention(config, device=device)
         self.post_attention_layernorm = _norm(config, device)
         self.mlp = ParallelMLP(config, device)
+        if layer_type == LayerType.decoder:
+            self.inter_attention = ParallelAttention(
+                config, attn_type=AttnType.cross_attn, device=device)
+            self.post_inter_attention_layernorm = _norm(config, device)
 
-    def forward(self, hidden: torch.Tensor, *, kv_cache=None,
+    def forward(self, hidden: torch.Tensor, *, encoder_output=None,
+                enc_dec_attn_mask=None, enc_kv_lengths=None,
+                attention_mask=None, kv_lengths=None, kv_cache=None,
                 cache_index=None, paged_state=None):
+        """``encoder_output`` (decoder layers) is the full encoder sequence
+        ``[s_enc, b, h]``; ``enc_kv_lengths`` keeps padded cross-attention
+        on flash, ``enc_dec_attn_mask`` sends it through the masked
+        softmax."""
         c = self.config
         # out_dtype=x.dtype: the consumers run in the compute dtype
         x = self.input_layernorm(hidden, out_dtype=hidden.dtype)
-        attn = self.self_attention(x.to(c.compute_dtype), kv_cache=kv_cache,
-                                   cache_index=cache_index,
-                                   paged_state=paged_state)
+        attn = self.self_attention(
+            x.to(c.compute_dtype), attention_mask=attention_mask,
+            kv_lengths=kv_lengths, kv_cache=kv_cache,
+            cache_index=cache_index, paged_state=paged_state)
         new_cache = None
         if kv_cache is not None:
             attn, new_cache = attn
         hidden = hidden + attn
-        x = self.post_attention_layernorm(hidden, out_dtype=hidden.dtype)
+        norm = self.post_attention_layernorm
+        if self.layer_type == LayerType.decoder:
+            x = self.post_attention_layernorm(hidden, out_dtype=hidden.dtype)
+            hidden = hidden + self.inter_attention(
+                x.to(c.compute_dtype), encoder_output=encoder_output,
+                attention_mask=enc_dec_attn_mask, kv_lengths=enc_kv_lengths)
+            norm = self.post_inter_attention_layernorm
+        x = norm(hidden, out_dtype=hidden.dtype)
         out = hidden + self.mlp(x.to(c.compute_dtype))
         return out if kv_cache is None else (out, new_cache)
 
@@ -307,21 +461,26 @@ class ParallelTransformer(nn.Module):
     :class:`~torch.nn.ModuleList`, so the JAX package's stacked ``[L, ...]``
     parameters map onto per-layer modules."""
 
-    def __init__(self, config: TransformerConfig, device=None):
+    def __init__(self, config: TransformerConfig, *,
+                 layer_type: LayerType = LayerType.encoder, device=None):
         super().__init__()
         self.config = config
         self.layers = nn.ModuleList(
-            ParallelTransformerLayer(config, device)
+            ParallelTransformerLayer(config, layer_type=layer_type,
+                                     device=device)
             for _ in range(config.num_layers))
         self.final_layernorm = _norm(config, device)
 
-    def forward(self, hidden: torch.Tensor, *,
+    def forward(self, hidden: torch.Tensor, *, encoder_output=None,
+                enc_dec_attn_mask=None, enc_kv_lengths=None,
+                attention_mask=None, kv_lengths=None,
                 kv_caches: Optional[List] = None, cache_index=None,
                 paged_state=None, final_norm: bool = True,
                 deterministic: bool = True):
         """``hidden``, or ``(hidden, new_caches)`` with ``kv_caches`` — a
         LIST of per-layer ``(k, v)`` pairs (4D caches or page pools),
-        updated in place."""
+        updated in place. The masks, lengths and encoder output reach every
+        layer."""
         self.config.check_dropout(deterministic)
         if kv_caches is None and self.config.recompute:
             raise NotImplementedError(
@@ -335,13 +494,18 @@ class ParallelTransformer(nn.Module):
                 f"(k, v) pairs")
         new_caches = []
         for idx, layer in enumerate(self.layers):
+            out = layer(hidden, encoder_output=encoder_output,
+                        enc_dec_attn_mask=enc_dec_attn_mask,
+                        enc_kv_lengths=enc_kv_lengths,
+                        attention_mask=attention_mask, kv_lengths=kv_lengths,
+                        kv_cache=None if kv_caches is None
+                        else kv_caches[idx],
+                        cache_index=cache_index, paged_state=paged_state)
             if kv_caches is None:
-                hidden = layer(hidden)
-                continue
-            hidden, cache = layer(hidden, kv_cache=kv_caches[idx],
-                                  cache_index=cache_index,
-                                  paged_state=paged_state)
-            new_caches.append(cache)
+                hidden = out
+            else:
+                hidden, cache = out
+                new_caches.append(cache)
         if final_norm:
             hidden = self.final_layernorm(hidden, out_dtype=hidden.dtype)
         return hidden if kv_caches is None else (hidden, new_caches)

@@ -15,8 +15,17 @@ from apex_tpu_torch.ops.layer_norm import (
     fused_rms_norm_affine,
 )
 from apex_tpu_torch.ops.rope import fused_rope, rope_freqs
+from apex_tpu_torch.ops.softmax import (
+    generic_scaled_masked_softmax,
+    scaled_masked_softmax,
+    scaled_softmax,
+    scaled_upper_triang_masked_softmax,
+)
 
 __all__ = ["LAUNCHES", "reset_launches", "flash_attention",
            "fused_paged_decode_attention", "paged_pages_for",
            "fused_layer_norm", "fused_layer_norm_affine", "fused_rms_norm",
-           "fused_rms_norm_affine", "fused_rope", "rope_freqs"]
+           "fused_rms_norm_affine", "fused_rope", "rope_freqs",
+           "scaled_softmax", "scaled_masked_softmax",
+           "scaled_upper_triang_masked_softmax",
+           "generic_scaled_masked_softmax"]

@@ -34,6 +34,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint
+_L = ctypes.c_longlong
 #: C signature of every entry point (see the ``extern "C"`` blocks)
 _SIGNATURES = {
     # x, w, b, y, mean, invvar, stream, m, h, eps, is_rms, x/w/y dtypes
@@ -46,6 +47,9 @@ _SIGNATURES = {
     # causal, window, dtype
     "apex_flash_fwd": [_P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _F, _I, _I, _I],
+    # q, k, v, o, do, lse, delta, dq, dk, dv, kv_lengths, stream, b, h, kvh,
+    # sq, sk, d, scale, causal, window, dtype
+    "apex_flash_bwd": [_P] * 12 + [_I] * 6 + [_F, _I, _I, _I],
     # q, k_pages, v_pages, page_table, positions, ctx, stream, b, hl, kvh,
     # dh, n_pages, page_size, pages_per_slot, window, dtype
     "apex_paged_decode": [_P, _P, _P, _P, _P, _P, _P,
@@ -58,6 +62,12 @@ _SIGNATURES = {
     # then as the forward
     "apex_flash_packed_bwd": [_P] * 11 + [_I] * 5 + [_F, _I, _I, _I, _U, _F,
                                                      _I],
+    # x, mask, y, stream, rows, k, d1, d2, mask strides (4), scale, sq,
+    # causal, dtype
+    "apex_softmax_fwd": [_P, _P, _P, _P, _L, _I, _I, _I, _L, _L, _L, _L, _F,
+                         _I, _I, _I],
+    # dy, y, dx, stream, rows, k, scale, dtype
+    "apex_softmax_bwd": [_P, _P, _P, _P, _L, _I, _F, _I],
 }
 
 _lock = threading.Lock()

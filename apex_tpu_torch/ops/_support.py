@@ -25,8 +25,10 @@ __all__ = ["LAUNCHES", "reset_launches", "count_launch", "resolve_device",
 #: launches per kernel since the last :func:`reset_launches` — a wrapper
 #: adds one where it launches its kernel, and nowhere else
 LAUNCHES: Dict[str, int] = {"layer_norm_fwd": 0, "layer_norm_bwd": 0,
-                            "flash_fwd": 0, "flash_packed_fwd": 0,
-                            "flash_packed_bwd": 0, "paged_decode": 0}
+                            "flash_fwd": 0, "flash_bwd": 0,
+                            "flash_packed_fwd": 0, "flash_packed_bwd": 0,
+                            "paged_decode": 0, "softmax_fwd": 0,
+                            "softmax_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -72,10 +74,9 @@ def is_cpu(*tensors: Optional[torch.Tensor]) -> bool:
 
 
 def forward_only(op: str, why: str, *tensors: Optional[torch.Tensor]) -> None:
-    """Raise when autograd would need a backward the port does not have:
-    the 4D flash forward (its backward kernels are not ported yet) and
-    paged decode (inference only). ``why`` says which, and names the
-    slice that lifts it."""
+    """Raise when autograd would need a backward that does not exist:
+    paged decode is inference only, in the JAX package too. ``why`` says
+    so."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(

@@ -1,13 +1,16 @@
-"""Flash attention: the 4D forward and the packed-QKV forward/backward.
+"""Flash attention: 4D and packed-QKV, forward and backward.
 
 Counterpart of ``apex_tpu/ops/attention.py``:
 
 - :func:`flash_attention` over ``[batch, heads, seq, head_dim]`` is
-  forward only (its backward kernels, TPU rows 5-7, are not ported yet).
-  A CUDA tensor runs ``csrc/flash_fwd.cu`` (Kernel B, both TPU forward
-  kernels); a CPU tensor runs :func:`mha_plain` (``_mha_reference``).
-  ``kv_heads`` may divide ``heads`` (GQA/MQA); masks: ``causal`` with the
-  ``seq_k - seq_q`` offset, ``kv_lengths`` per batch, ``sliding_window``.
+  differentiable, the JAX package's ``_flash`` custom VJP: the forward
+  saves ``(q, k, v, kv_lengths, o, lse)``. A CUDA tensor runs
+  ``csrc/flash_fwd.cu`` (Kernel B, both TPU forward kernels) and
+  ``csrc/flash_bwd.cu`` (Kernel I, the three TPU backward kernels); a CPU
+  tensor runs :func:`flash_fwd_plain` (``_mha_reference`` with the lse) and
+  :func:`flash_bwd_plain`. ``kv_heads`` may divide ``heads`` (GQA/MQA);
+  masks: ``causal`` with the ``seq_k - seq_q`` offset, ``kv_lengths`` per
+  batch, ``sliding_window``.
 - :func:`flash_attention_packed` takes the fused QKV projection
   ``[s, b, G*(qpg+2)*d]`` as it comes out of ``ParallelAttention`` and is
   differentiable: the forward is ``csrc/flash_packed_fwd.cu`` (Kernel E),
@@ -19,14 +22,16 @@ Counterpart of ``apex_tpu/ops/attention.py``:
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
 from apex_tpu_torch.ops import _build, _support
 from apex_tpu_torch.ops.rope import rope_tables
 
-__all__ = ["flash_attention", "flash_fwd", "mha_plain", "flash_fwd_cuda",
+__all__ = ["flash_attention", "flash_fwd_plain",
+           "flash_fwd_cuda", "flash_bwd_factors", "flash_bwd_plain",
+           "flash_bwd_rounding_slack", "flash_bwd_cuda",
            "flash_attention_packed", "packed_attention_supported",
            "packed_geometry", "drop_combo", "hash_keep",
            "flash_packed_fwd_plain", "flash_packed_bwd_plain",
@@ -37,29 +42,41 @@ _NEG_INF = -1e30
 _LSE_PAD = 1e30
 
 
-def mha_plain(q, k, v, kv_lengths, scale: float, causal: bool,
-              window: Optional[int] = None):
-    """Plain PyTorch attention (``_mha_reference``): fp32 scores and
-    softmax, fully masked rows give zeros, output in ``q.dtype``."""
-    sq, sk = q.shape[2], k.shape[2]
-    if k.shape[1] != q.shape[1]:
-        group = q.shape[1] // k.shape[1]
-        k = k.repeat_interleave(group, dim=1)
-        v = v.repeat_interleave(group, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    col = torch.arange(sk, device=q.device)[None, None, None, :]
-    row = torch.arange(sq, device=q.device)[None, None, :, None]
-    valid = torch.ones(s.shape, dtype=torch.bool, device=q.device)
+def _visible(sq: int, sk: int, kv_lengths, causal: bool, window, device):
+    """``[b or 1, 1, sq, sk]`` visibility of (query row, key col), as
+    ``_mask_block`` with the query offset ``sk - sq``."""
+    col = torch.arange(sk, device=device)[None, None, None, :]
+    row = torch.arange(sq, device=device)[None, None, :, None]
+    valid = torch.ones((1, 1, sq, sk), dtype=torch.bool, device=device)
     if kv_lengths is not None:
-        valid = valid & (col < kv_lengths.to(q.device)[:, None, None, None])
+        valid = valid & (col < kv_lengths.to(device)[:, None, None, None])
     if causal:
         valid = valid & (col <= row + (sk - sq))
     if window is not None:
         valid = valid & (col > row + (sk - sq) - window)
+    return valid
+
+
+def flash_fwd_plain(q, k, v, kv_lengths, scale: float, causal: bool,
+                    window: Optional[int] = None):
+    """Plain PyTorch forward (``_mha_reference``) with the lse the
+    backward reads: fp32 scores and softmax, output in ``q.dtype``, lse
+    ``[b, h, sq]`` fp32. A row that sees no key gives o = 0 and lse = 1e30
+    (``_LSE_PAD``)."""
+    group = q.shape[1] // k.shape[1]
+    k = k.repeat_interleave(group, dim=1)
+    v = v.repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    valid = _visible(q.shape[2], k.shape[2], kv_lengths, causal, window,
+                     q.device)
     s = torch.where(valid, s, torch.full_like(s, _NEG_INF))
+    any_valid = valid.any(dim=-1, keepdim=True)
+    lse = torch.where(any_valid, torch.logsumexp(s, dim=-1, keepdim=True),
+                      torch.full_like(s[..., :1], _LSE_PAD))
     p = torch.softmax(s, dim=-1)
-    p = torch.where(valid.any(dim=-1, keepdim=True), p, torch.zeros_like(p))
-    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    p = torch.where(any_valid, p, torch.zeros_like(p))
+    o = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    return o, lse[..., 0]
 
 
 def flash_fwd_cuda(q, k, v, kv_lengths, scale: float, causal: bool,
@@ -91,13 +108,129 @@ def flash_fwd_cuda(q, k, v, kv_lengths, scale: float, causal: bool,
     return o, lse
 
 
-def flash_fwd(q, k, v, kv_lengths=None, *, scale: float, causal: bool,
-              window: Optional[int] = None):
-    """``(o, lse)`` on the card; on the CPU ``(o, None)`` — the plain
-    version has no lse, and nothing on the serving path reads it."""
-    if _support.is_cpu(q, k, v):
-        return mha_plain(q, k, v, kv_lengths, scale, causal, window), None
-    return flash_fwd_cuda(q, k, v, kv_lengths, scale, causal, window)
+def flash_bwd_factors(q, k, v, do, o, lse, kv_lengths, scale: float,
+                      causal: bool, window: Optional[int] = None):
+    """The fp32 factors of the plain backward (``_recompute_p_ds`` over
+    whole matrices): ``p [b, h, sq, sk]`` from lse with masked scores at
+    -1e30, and ``ds = p * (dp - delta)`` with ``delta = rowsum(do * o)``.
+    Returns ``(p, ds)``."""
+    group = q.shape[1] // k.shape[1]
+    kr = k.repeat_interleave(group, dim=1)
+    vr = v.repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr.float()) * scale
+    valid = _visible(q.shape[2], k.shape[2], kv_lengths, causal, window,
+                     q.device)
+    s = torch.where(valid, s, torch.full_like(s, _NEG_INF))
+    p = torch.exp(s - lse[..., None])
+    dof = do.float()
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vr.float())
+    return p, p * (dp - delta)
+
+
+def flash_bwd_plain(q, k, v, do, o, lse, kv_lengths, scale: float,
+                    causal: bool, window: Optional[int] = None):
+    """Plain PyTorch backward, the algebra of ``_dq_kernel`` and
+    ``_dkv_kernel`` over whole matrices on :func:`flash_bwd_factors`:
+    ``dq = scale * ds k`` with ds rounded to k's dtype,
+    ``dk = scale * ds^T q`` with ds rounded to q's dtype, ``dv = p^T do``
+    with p rounded to do's dtype; dk and dv summed over each group's query
+    heads in fp32, then one rounding to the input dtype. Returns
+    ``(dq, dk, dv)``."""
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    group = h // kvh
+    p, ds = flash_bwd_factors(q, k, v, do, o, lse, kv_lengths, scale,
+                              causal, window)
+    kr = k.repeat_interleave(group, dim=1)
+    dq = scale * torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(),
+                              kr.float())
+    dk = scale * torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(),
+                              q.float())
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(do.dtype).float(), do.float())
+    dk = dk.reshape(b, kvh, group, sk, d).sum(dim=2)
+    dv = dv.reshape(b, kvh, group, sk, d).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_rounding_slack(q, k, v, do, o, lse, kv_lengths, scale: float,
+                             causal: bool, window: Optional[int] = None):
+    """How far one rounding step of every factor the backward rounds to the
+    input dtype (ds before ``ds k`` and ``ds^T q``, p before ``p^T do``) can
+    move dq, dk and dv: ``2^-8 * scale * |ds| |k|`` and so on, in fp32. Two
+    correct bf16 backwards that form ds in other fp32 summation orders may
+    round a ds on a bf16 boundary to neighbouring values; this bounds what
+    that does to each output element."""
+    p, ds = flash_bwd_factors(q, k, v, do, o, lse, kv_lengths, scale,
+                              causal, window)
+    b, kvh, sk, d = k.shape
+    group = q.shape[1] // kvh
+    step = 2.0 ** -8
+    ka = k.float().abs().repeat_interleave(group, dim=1)
+    dq = step * scale * torch.einsum("bhqk,bhkd->bhqd", ds.abs(), ka)
+    dk = step * scale * torch.einsum("bhqk,bhqd->bhkd", ds.abs(),
+                                     q.float().abs())
+    dv = step * torch.einsum("bhqk,bhqd->bhkd", p, do.float().abs())
+    return (dq, dk.reshape(b, kvh, group, sk, d).sum(dim=2),
+            dv.reshape(b, kvh, group, sk, d).sum(dim=2))
+
+
+def flash_bwd_cuda(q, k, v, do, o, lse, kv_lengths, scale: float,
+                   causal: bool, window: Optional[int] = None):
+    """Launch Kernel I (dq pass, then dk/dv pass); returns
+    ``(dq, dk, dv)`` in the inputs' dtype."""
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    if k.dtype != q.dtype or v.dtype != q.dtype or o.dtype != q.dtype:
+        raise TypeError(f"q/k/v/o dtypes differ: {q.dtype} {k.dtype} "
+                        f"{v.dtype} {o.dtype}")
+    if d > 128:
+        raise ValueError(f"head_dim {d} > 128 is not supported by the kernel")
+    q, k, v, o = q.contiguous(), k.contiguous(), v.contiguous(), \
+        o.contiguous()
+    do = do.contiguous().to(q.dtype)
+    lse = lse.contiguous()
+    if kv_lengths is not None:
+        kv_lengths = kv_lengths.to(device=q.device,
+                                   dtype=torch.int32).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    status = lib.apex_flash_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(),
+        None if kv_lengths is None else kv_lengths.data_ptr(), stream, b, h,
+        kvh, sq, sk, d, float(scale), int(causal), int(window or 0),
+        _support.dtype_code(q.dtype))
+    _build.check("apex_flash_bwd", status)
+    _support.count_launch("flash_bwd")
+    return dq, dk, dv
+
+
+class _Flash(torch.autograd.Function):
+    """The JAX package's ``_flash`` custom VJP: o and lse from Kernel B (or
+    the plain forward), dq/dk/dv from Kernel I (or the plain backward)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lengths, scale, causal, window):
+        cpu = _support.is_cpu(q, k, v)
+        fwd = flash_fwd_plain if cpu else flash_fwd_cuda
+        o, lse = fwd(q, k, v, kv_lengths, scale, causal, window)
+        ctx.save_for_backward(q, k, v, kv_lengths, o, lse)
+        ctx.args = (scale, causal, window)
+        ctx.cpu = cpu
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kv_lengths, o, lse = ctx.saved_tensors
+        bwd = flash_bwd_plain if ctx.cpu else flash_bwd_cuda
+        dq, dk, dv = bwd(q, k, v, do, o, lse, kv_lengths, *ctx.args)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -105,16 +238,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softmax_scale: Optional[float] = None,
                     kv_lengths: Optional[torch.Tensor] = None,
                     sliding_window: Optional[int] = None) -> torch.Tensor:
-    """Multi-head attention ``softmax(scale * q @ k^T + mask) @ v``.
+    """Multi-head attention ``softmax(scale * q @ k^T + mask) @ v``,
+    differentiable in q, k and v.
 
     Args:
       q: ``[batch, heads, seq_q, head_dim]``.
       k, v: ``[batch, kv_heads, seq_k, head_dim]``; ``kv_heads`` divides
         ``heads`` (grouped heads read the same K/V, no broadcast copy on
-        the card).
+        the card; dk/dv sum over the group).
       causal: mask with the ``seq_k - seq_q`` offset.
       softmax_scale: defaults to ``1/sqrt(head_dim)``.
-      kv_lengths: optional int ``[batch]`` valid key lengths.
+      kv_lengths: optional int ``[batch]`` valid key lengths; a row with
+        length 0 gives zero output and zero gradients.
       sliding_window: keep only the last ``sliding_window`` keys per query
         (incl. self; requires ``causal``).
     """
@@ -130,14 +265,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if sliding_window < 1:
             raise ValueError(f"sliding_window must be >= 1, got "
                              f"{sliding_window}")
-    _support.forward_only(
-        "flash_attention", "its backward kernels, TPU rows 5-7, come with "
-        "the masked and cross-attention training slice",
-        q, k, v)
     scale = float(softmax_scale if softmax_scale is not None
                   else 1.0 / math.sqrt(q.shape[-1]))
-    return flash_fwd(q, k, v, kv_lengths, scale=scale, causal=causal,
-                     window=sliding_window)[0]
+    return _Flash.apply(q, k, v, kv_lengths, scale, causal, sliding_window)
 
 
 # ---------------------------------------------------------------------------

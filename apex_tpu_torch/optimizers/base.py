@@ -16,12 +16,18 @@ place, with the JAX package's step semantics. The update is plain PyTorch
 - ``weight_decay_mask`` (a callable ``param -> bool``) drops weight decay
   where it is False, as the JAX mask pytree does (torch's own idiom, a
   param group with ``weight_decay=0``, works too). The rate is each
-  group's ``lr``, which a scheduler sets.
+  group's ``lr``, which a scheduler sets;
+- :meth:`FusedOptimizer._begin_step` sees every parameter and its fp32
+  (unscaled) gradient once before the per-parameter updates, for what the
+  JAX ``_update`` computes over the whole gradient tree (LAMB's global
+  norm). The step holds those fp32 gradients together: for fp32 grads
+  without ``grad_scale`` they are the grads themselves, otherwise one fp32
+  copy each.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -53,6 +59,12 @@ class FusedOptimizer(torch.optim.Optimizer):
         (fp32, counted from 1)."""
         raise NotImplementedError
 
+    def _begin_step(self, todo: List[Tuple[Dict[str, Any], torch.Tensor,
+                                           torch.Tensor]]) -> None:
+        """Called once a step, before the first :meth:`_update`, with
+        ``(param group, parameter, fp32 unscaled gradient)`` for every
+        parameter that has a gradient."""
+
     # -- helpers ----------------------------------------------------------
     def _decay(self, group: Dict[str, Any], p: torch.Tensor) -> float:
         wd = group.get("weight_decay", 0.0)
@@ -83,30 +95,34 @@ class FusedOptimizer(torch.optim.Optimizer):
             with torch.enable_grad():
                 loss = closure()
         skip = None if found_inf is None else found_inf.to(torch.bool)
+        todo = []
         for group in self.param_groups:
             for p in group["params"]:
                 if p.grad is None:
                     continue
-                st = self._state(p)
-                step = st["step"] + 1
                 g32 = p.grad.float()
                 if grad_scale is not None:
                     g32 = g32 * (1.0 / grad_scale)
-                p32 = st["master"] if self.master_weights else p.float()
-                slot_names = [k for k in st if k not in ("step", "master")]
-                slots = {k: st[k] for k in slot_names}
-                new_p, new_slots = self._update(
-                    g32, p32, slots, step.float(), group["lr"],
-                    self._decay(group, p), group)
-                if skip is not None:
-                    new_p = torch.where(skip, p32, new_p)
-                    new_slots = {k: torch.where(skip, slots[k], v)
-                                 for k, v in new_slots.items()}
-                    step = torch.where(skip, st["step"], step)
-                for k, v in new_slots.items():
-                    st[k].copy_(v)
-                st["step"].copy_(step)
-                if self.master_weights:
-                    st["master"].copy_(new_p)
-                p.copy_(new_p.to(p.dtype))
+                todo.append((group, p, g32))
+        self._begin_step(todo)
+        for group, p, g32 in todo:
+            st = self._state(p)
+            step = st["step"] + 1
+            p32 = st["master"] if self.master_weights else p.float()
+            slot_names = [k for k in st if k not in ("step", "master")]
+            slots = {k: st[k] for k in slot_names}
+            new_p, new_slots = self._update(
+                g32, p32, slots, step.float(), group["lr"],
+                self._decay(group, p), group)
+            if skip is not None:
+                new_p = torch.where(skip, p32, new_p)
+                new_slots = {k: torch.where(skip, slots[k], v)
+                             for k, v in new_slots.items()}
+                step = torch.where(skip, st["step"], step)
+            for k, v in new_slots.items():
+                st[k].copy_(v)
+            st["step"].copy_(step)
+            if self.master_weights:
+                st["master"].copy_(new_p)
+            p.copy_(new_p.to(p.dtype))
         return loss

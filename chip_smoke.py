@@ -28,13 +28,35 @@ printing its own lines and raising on failure:
               F launched exactly 25, 25, 12 and 12 times a step;
 12. train card vs CPU — a small f32 GPT (TF32 off) trains 3 steps on the
               card and on the CPU from the same seed: losses and every
-              step-1 gradient leaf agree.
+              step-1 gradient leaf agree;
+13. kernel G/H — the masked softmax forward and backward vs their plain
+              versions: BERT's [16,1,512,512] padding mask with fully
+              masked rows (which must be 1/k), a [b,1,1,s] key mask,
+              causal [96,1024,1024], rows of 17, 1000 and 4097, scale != 1;
+14. kernel I — the 4D flash backward vs its plain version: the T5
+              cross-attention shape with kv_lengths, causal GQA at 1024,
+              window 256, a kv_lengths row at 0, causal sq != sk; two runs
+              bitwise equal; and Kernel B at the cross-attention shape;
+15. bert_train — BERT-base (b 16, s 512, seeded padding masks, tokentype
+              ids, FusedLAMB lr 1e-3 wd 0.01) takes 2 + 8 steps; every loss
+              finite, the last below the first, and the launches a step of
+              every kernel as the model's code implies (LN 26/26, softmax
+              12/12, the flash kernels 0);
+16. t5_train — an encoder-decoder at T5-base widths (12 + 12 layers,
+              RMSNorm, ReLU, inputs 512 with seeded enc_lengths, targets
+              114, b 16, FusedAdam lr 1e-4), the same checks (LN 62/62,
+              packed 24/24, flash 12/12, softmax 0);
+17. enc card vs CPU — a small f32 BERT with a padding mask and LAMB, and a
+              small encoder-decoder with enc_lengths, train 3 steps on the
+              card and on the CPU: losses and every step-1 gradient leaf
+              agree.
 
 Then one JSON line of per-kernel numbers (launches from the phase that
-drives each kernel's slice: serve for A-C, train for D-F, with both paths'
-counts in ``launches_by_path``; times from CUDA events in this run;
-``bound_ms`` from this run's shapes over the H100's published peaks), and
-last ``{"ok": true, "device": {...}}``.
+drives each kernel's slice: serve for A-C, train for D-F, bert_train for G
+and H, t5_train for I, with every path's counts in ``launches_by_path``;
+times from CUDA events in this run; ``bound_ms`` from this run's shapes
+over the H100's published peaks), and last ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -64,6 +86,27 @@ TRAIN_KERNELS = {"layer_norm_fwd": 25, "layer_norm_bwd": 25,
                  "flash_packed_fwd": 12, "flash_packed_bwd": 12}
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024
 WARMUP_STEPS, TIMED_STEPS = 2, 8
+#: every kernel's launch counter
+ALL_KERNELS = ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd", "flash_bwd",
+               "flash_packed_fwd", "flash_packed_bwd", "paged_decode",
+               "softmax_fwd", "softmax_bwd")
+#: BERT-base (benchmarks/bert_lamb.py:20-27) and its launches a step: 2 LN
+#: per layer, the final LN and the LM head's; one masked softmax per layer
+BERT = dict(num_layers=12, hidden_size=768, num_attention_heads=12,
+            vocab_size=30528, max_position_embeddings=512)
+BERT_BATCH, BERT_SEQ = 16, 512
+BERT_KERNELS = {"layer_norm_fwd": 26, "layer_norm_bwd": 26,
+                "softmax_fwd": 12, "softmax_bwd": 12}
+#: T5-base widths (the public t5-base config) with the JAX model's learned
+#: positions and biases; encoder 2 norms a layer + final, decoder 3 + final;
+#: packed self-attention in both stacks, 4D flash in cross-attention
+T5 = dict(num_layers=12, hidden_size=768, num_attention_heads=12,
+          ffn_hidden_size=3072, activation="relu", normalization="rmsnorm",
+          vocab_size=32128, max_position_embeddings=512)
+T5_BATCH, T5_ENC, T5_DEC = 16, 512, 114
+T5_KERNELS = {"layer_norm_fwd": 62, "layer_norm_bwd": 62,
+              "flash_packed_fwd": 24, "flash_packed_bwd": 24,
+              "flash_fwd": 12, "flash_bwd": 12}
 
 
 def log(phase: str, **fields) -> None:
@@ -201,18 +244,35 @@ def phase_layer_norm(timer: Timer) -> dict:
     return record
 
 
-def _visible_pairs(sq, sk, causal, window, kv_len):
+def _visible_spans(sq, sk, causal, window, kv_len):
+    """The ``[lo, hi)`` keys each query row of one batch row sees."""
     off = sk - sq
-    total = 0
     for r in range(sq):
-        hi = min(kv_len, r + off + 1) if causal else kv_len
+        hi = min(kv_len, r + off + 1) if causal else min(kv_len, sk)
         lo = max(0, r + off - window + 1) if window else 0
-        total += max(0, hi - lo)
-    return total
+        yield lo, hi
+
+
+def _visible_pairs(sq, sk, causal, window, kv_len):
+    return sum(max(0, hi - lo)
+               for lo, hi in _visible_spans(sq, sk, causal, window, kv_len))
+
+
+def _visible_rows_keys(sq, sk, causal, window, kv_len) -> tuple:
+    """``(query rows that see a key, keys that some query row sees)`` of
+    one batch row: the q and K/V rows the backward must read. Both span
+    ends grow with the row, so the keys seen are a union of intervals."""
+    rows = keys = end = 0
+    for lo, hi in _visible_spans(sq, sk, causal, window, kv_len):
+        if hi > lo:
+            rows += 1
+            keys += max(0, hi - max(lo, end))
+            end = max(end, hi)
+    return rows, keys
 
 
 def phase_flash(timer: Timer) -> dict:
-    from apex_tpu_torch.ops.attention import flash_fwd_cuda, mha_plain
+    from apex_tpu_torch.ops.attention import flash_fwd_cuda, flash_fwd_plain
     g = torch.Generator(device="cuda").manual_seed(2)
     record = None
     # (heads, kv_heads, s, window, dtype): the serve buckets at GPT-2
@@ -229,8 +289,8 @@ def phase_flash(timer: Timer) -> dict:
         v = torch.randn(1, kvh, s, d, device="cuda", generator=g).to(dtype)
         scale = 1.0 / math.sqrt(d)
         o, lse = flash_fwd_cuda(q, k, v, None, scale, True, window)
-        ro = mha_plain(q.float(), k.float(), v.float(), None, scale, True,
-                       window).to(dtype)
+        ro = flash_fwd_plain(q.float(), k.float(), v.float(), None, scale,
+                             True, window)[0].to(dtype)
         torch.cuda.synchronize()
         err = float((o.float() - ro.float()).abs().max())
         ulps, ok, tol = check_close(o, ro)
@@ -243,7 +303,8 @@ def phase_flash(timer: Timer) -> dict:
         n_bytes = (2 * q.numel() + k.numel() + v.numel()) * esz + h * s * 4
         bms, by = bound_ms(n_bytes, 4.0 * d * h * pairs, dtype)
         ms = timer(lambda: flash_fwd_cuda(q, k, v, None, scale, True, window))
-        plain = timer(lambda: mha_plain(q, k, v, None, scale, True, window),
+        plain = timer(lambda: flash_fwd_plain(q, k, v, None, scale, True,
+                                              window),
                       iters=10)
         if window is None:
             gqa = {"enable_gqa": True} if kvh != h else {}
@@ -574,6 +635,271 @@ def phase_packed(timer: Timer) -> tuple:
     return rec_e, rec_f
 
 
+def _valid_lengths(b, s, seed):
+    """``[b]`` valid lengths drawn from a seed in [s/2, s], row 0 at s."""
+    g = torch.Generator().manual_seed(seed)
+    lengths = torch.randint(s // 2, s + 1, (b,), generator=g)
+    lengths[0] = s
+    return lengths
+
+
+#: (name, x shape, mask, causal sq, scale): BERT's scores with its padding
+#: mask, a [b,1,1,s] key mask, causal [96,1024,1024], odd row lengths
+SOFTMAX_CASES = [
+    ("bert", (16, 12, 512, 512), "padding", 0, 1.0),
+    ("key_mask", (4, 12, 512, 512), "key", 0, 1.0),
+    ("causal", (1, 96, 1024, 1024), None, 1024, 1.0),
+    ("k17", (8, 12, 64, 17), "key", 0, 1.0),
+    ("k1000", (2, 12, 100, 1000), "key", 0, 0.125),
+    ("k4097", (1, 4, 64, 4097), "key", 0, 2.0),
+]
+
+
+def _softmax_mask(kind, shape, seed):
+    if kind is None:
+        return None
+    lengths = _valid_lengths(shape[0], shape[-1], seed).cuda()
+    valid = torch.arange(shape[-1], device="cuda")[None, :] < \
+        lengths[:, None]
+    if kind == "key":
+        return ~valid[:, None, None, :]
+    # BertModel.build_attention_mask: a padded query row masks every key
+    return ~(valid[:, None, None, :] & valid[:, None, :, None])
+
+
+def phase_softmax(timer: Timer) -> tuple:
+    """Kernels G and H against their plain versions in f32 (atol 1e-5) and
+    bf16 (1 ulp of the plain version run in fp32 and rounded); BERT's
+    fully masked rows must be 1/k. The BERT bf16 case is timed."""
+    from apex_tpu_torch.ops.softmax import (softmax_bwd_cuda,
+                                            softmax_bwd_plain,
+                                            softmax_fwd_cuda,
+                                            softmax_fwd_plain)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rec_g = rec_h = None
+    for name, shape, kind, sq, scale in SOFTMAX_CASES:
+        mask = _softmax_mask(kind, shape, 8)
+        causal = sq > 0
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (3 * torch.randn(shape, device="cuda", generator=gen)).to(
+                dtype)
+            dy = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+            y = softmax_fwd_cuda(x, mask, scale, sq, causal)
+            ry = softmax_fwd_plain(x.float(), mask, scale, sq, causal).to(
+                dtype)
+            dx = softmax_bwd_cuda(dy, y, scale)
+            rdx = softmax_bwd_plain(dy.float(), y.float(), scale).to(dtype)
+            torch.cuda.synchronize()
+            errs = {}
+            for kname, got, want in (("g", y, ry), ("h", dx, rdx)):
+                err = float((got.float() - want.float()).abs().max())
+                if dtype == torch.bfloat16:
+                    ulps = bf16_ulps(got, want)
+                    ok, tol = ulps <= 1.0, "1_bf16_ulp"
+                else:
+                    ulps, ok, tol = 0.0, err <= 1e-5, "atol_1e-5"
+                if not ok or not torch.isfinite(got).all():
+                    raise AssertionError(f"kernel {kname} {name} {dtype}: "
+                                         f"max err {err} ({ulps} ulp) — "
+                                         f"tolerance {tol}")
+                errs[kname] = (err, ulps, tol)
+            uniform = None
+            if kind == "padding":
+                # the query rows whose every key is masked: [n, heads, k]
+                rows = y.permute(0, 2, 1, 3)[mask[:, 0].all(dim=-1)]
+                k = shape[-1]
+                uniform = float((rows.float() * k - 1.0).abs().max())
+                if rows.numel() == 0 or uniform > 2.0 ** -8:
+                    raise AssertionError(f"kernel g {name} {dtype}: fully "
+                                         f"masked rows are not 1/k "
+                                         f"({uniform})")
+            fields = {}
+            if name == "bert" and dtype == torch.bfloat16:
+                esz = x.element_size()
+                n = x.numel()
+                # G reads x only where the mask leaves a key visible (a
+                # fully masked row is 1/k whatever x holds), all of the mask,
+                # and writes all of y
+                seen = int((~mask).expand(shape).sum())
+                bms_g, by_g = bound_ms((seen + n) * esz + mask.numel(),
+                                       6.0 * seen, torch.float32)
+                bms_h, by_h = bound_ms(3 * n * esz, 4.0 * n, torch.float32)
+                ms_g = timer(lambda: softmax_fwd_cuda(x, mask, scale, sq,
+                                                      causal))
+                ms_h = timer(lambda: softmax_bwd_cuda(dy, y, scale))
+                plain_g = timer(lambda: softmax_fwd_plain(x, mask, scale, sq,
+                                                          causal),
+                                iters=5, warmup=1)
+                plain_h = timer(lambda: softmax_bwd_plain(dy, y, scale),
+                                iters=5, warmup=1)
+                lib_g = timer(lambda: torch.softmax(x, -1))
+                lib_h = timer(lambda: torch.ops.aten._softmax_backward_data(
+                    dy, y, -1, x.dtype))
+                fields = dict(g=(ms_g, plain_g, lib_g, bms_g, by_g),
+                              h=(ms_h, plain_h, lib_h, bms_h, by_h))
+                shape_s = (f"x[{','.join(map(str, shape))}] bf16, mask "
+                           f"[{','.join(map(str, mask.shape))}]")
+                rec_g = dict(name="softmax_fwd", route="cuda",
+                             source="apex_tpu_torch/csrc/softmax_fwd.cu",
+                             replaces="apex_tpu/ops/softmax.py:47",
+                             shape=shape_s, max_abs_err=errs["g"][0],
+                             ms=ms_g, plain_ms=plain_g, bound_ms=bms_g,
+                             bound_by=by_g, library_ms=lib_g)
+                rec_h = dict(name="softmax_bwd", route="cuda",
+                             source="apex_tpu_torch/csrc/softmax_bwd.cu",
+                             replaces="apex_tpu/ops/softmax.py:111",
+                             shape=shape_s, max_abs_err=errs["h"][0],
+                             ms=ms_h, plain_ms=plain_h, bound_ms=bms_h,
+                             bound_by=by_h, library_ms=lib_h)
+            for kname in ("g", "h"):
+                err, ulps, tol = errs[kname]
+                t = fields.get(kname)
+                log(f"kernel_{kname}", case=name,
+                    shape=f"[{','.join(map(str, shape))}]",
+                    mask=None if mask is None
+                    else f"[{','.join(map(str, mask.shape))}]",
+                    causal=causal, scale=scale, dtype=str(dtype)[6:],
+                    max_abs_err=f"{err:.3e}", ulps=ulps, tol=tol,
+                    **({"uniform_rows_rel_err": f"{uniform:.2e}"}
+                       if kname == "g" and uniform is not None else {}),
+                    **({} if t is None else dict(
+                        ms=f"{t[0]:.5f}", plain_ms=f"{t[1]:.5f}",
+                        library_ms=f"{t[2]:.5f}", bound_ms=f"{t[3]:.5f}",
+                        bound_by=t[4])))
+            del x, dy, y, ry, dx, rdx
+    return rec_g, rec_h
+
+
+#: (name, b, h, kvh, sq, sk, causal, kv_lengths, window): the T5-base
+#: cross-attention of the t5_train phase (kv_lengths as it draws them), a
+#: multi-block causal GQA case, a window, an empty row, causal sq != sk
+FLASH_BWD_CASES = [
+    ("t5_cross", T5_BATCH, 12, 12, T5_DEC, T5_ENC, False, "t5", None),
+    ("causal_gqa_1024", 2, 12, 6, 1024, 1024, True, None, None),
+    ("window_256", 2, 12, 12, 1024, 1024, True, None, 256),
+    ("kv_lengths_0", 3, 12, 12, 128, 512, False, [512, 200, 0], None),
+    ("causal_sq_ne_sk", 2, 12, 12, 300, 700, True, None, None),
+]
+
+
+def phase_flash_bwd(timer: Timer) -> dict:
+    """Kernel I against its plain version on the same inputs (which rounds
+    ds and p to the input dtype where the JAX kernels do): f32 atol 1e-4;
+    bf16 every element within 1 ulp plus the slack of one bf16 step of each
+    rounded factor (``flash_bwd_rounding_slack``) and at most 0.1% of the
+    elements past 1 ulp; two runs bitwise equal. Kernel B is checked at
+    each shape on the way (its o within 1 ulp, lse within 1e-4). The T5
+    cross-attention bf16 case is timed."""
+    from apex_tpu_torch.ops.attention import (flash_bwd_cuda,
+                                              flash_bwd_plain,
+                                              flash_bwd_rounding_slack,
+                                              flash_fwd_cuda,
+                                              flash_fwd_plain)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    record = None
+    for name, b, h, kvh, sq, sk, causal, kvl, window in FLASH_BWD_CASES:
+        d = 64
+        if kvl == "t5":
+            kvl = _valid_lengths(b, sk, 11).tolist()
+        kvl_t = None if kvl is None else torch.tensor(kvl, device="cuda")
+        scale = 1.0 / math.sqrt(d)
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(b, h, sq, d, device="cuda", generator=gen).to(
+                dtype)
+            k = torch.randn(b, kvh, sk, d, device="cuda", generator=gen).to(
+                dtype)
+            v = torch.randn(b, kvh, sk, d, device="cuda", generator=gen).to(
+                dtype)
+            do = torch.randn(b, h, sq, d, device="cuda", generator=gen).to(
+                dtype)
+            args = (kvl_t, scale, causal, window)
+            o, lse = flash_fwd_cuda(q, k, v, *args)
+            ro, rlse = flash_fwd_plain(q.float(), k.float(), v.float(), *args)
+            b_ulps, b_ok, b_tol = check_close(o, ro.to(dtype))
+            lse_err = float((lse - rlse).abs().max())
+            if not b_ok or lse_err > 1e-4:
+                raise AssertionError(f"kernel b {name} {dtype}: o {b_ulps} "
+                                     f"ulp ({b_tol}), lse err {lse_err}")
+            got = flash_bwd_cuda(q, k, v, do, o, lse, *args)
+            want = flash_bwd_plain(q, k, v, do, o, lse, *args)
+            again = flash_bwd_cuda(q, k, v, do, o, lse, *args)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, g) for a, g in zip(again, got)):
+                raise AssertionError(f"kernel i {name} {dtype}: two runs "
+                                     f"differ")
+            slack = (flash_bwd_rounding_slack(q, k, v, do, o, lse, *args)
+                     if dtype == torch.bfloat16 else (None,) * 3)
+            err, ulps, past, tol = 0.0, 0.0, 0.0, "atol_1e-4"
+            for g_, w_, sl in zip(got, want, slack):
+                e = (g_.float() - w_.float()).abs()
+                err = max(err, float(e.max()))
+                if dtype == torch.bfloat16:
+                    tol = "1_bf16_ulp+factor_rounding"
+                    one = 2.0 ** -15 + 2.0 ** -7 * w_.float().abs()
+                    ulps = max(ulps, bf16_ulps(g_, w_))
+                    past = max(past, float((e > one).float().mean()))
+                    if not bool((e <= one + sl).all()) or past > 1e-3:
+                        raise AssertionError(
+                            f"kernel i {name} bf16: {ulps} ulp, "
+                            f"{past:.2e} of elements past 1 ulp, excess "
+                            f"{float((e - one - sl).max())} — tolerance "
+                            f"{tol}")
+                elif err > 1e-4:
+                    raise AssertionError(f"kernel i {name} f32: max err "
+                                         f"{err} — tolerance {tol}")
+            if kvl is not None and 0 in kvl:
+                row = kvl.index(0)
+                if any(t[row].any() for t in got):
+                    raise AssertionError(f"kernel i {name}: the batch row "
+                                         f"with kv_length 0 has gradients")
+            fields = {}
+            if name == "t5_cross" and dtype == torch.bfloat16:
+                esz = q.element_size()
+                pairs = sum(_visible_pairs(sq, sk, causal, window, n)
+                            for n in kvl)
+                rows, keys = (sum(t) for t in zip(*(
+                    _visible_rows_keys(sq, sk, causal, window, n)
+                    for n in kvl)))
+                # reads: q, o, do and lse of the query rows that see a key,
+                # K and V of the keys that some row sees, kv_lengths;
+                # writes: all of dq, dk and dv
+                n_bytes = (3 * rows * h * d + 2 * keys * kvh * d
+                           + q.numel() + 2 * k.numel()) * esz \
+                    + rows * h * 4 + b * 4
+                bms, by = bound_ms(n_bytes, 10.0 * d * h * pairs, dtype)
+                ms = timer(lambda: flash_bwd_cuda(q, k, v, do, o, lse, *args))
+                plain = timer(lambda: flash_bwd_plain(q, k, v, do, o, lse,
+                                                      *args),
+                              iters=5, warmup=1)
+                q4, k4, v4 = (t.detach().clone().requires_grad_()
+                              for t in (q, k, v))
+                keep = (torch.arange(sk, device="cuda")[None, :]
+                        < kvl_t[:, None])[:, None, None, :]
+                out4 = F.scaled_dot_product_attention(q4, k4, v4,
+                                                      attn_mask=keep)
+                lib = timer(lambda: torch.autograd.grad(
+                    out4, (q4, k4, v4), do, retain_graph=True))
+                fields = dict(ms=f"{ms:.5f}", plain_ms=f"{plain:.5f}",
+                              library_ms=f"{lib:.5f}", bound_ms=f"{bms:.5f}",
+                              bound_by=by)
+                record = dict(name="flash_bwd", route="cuda",
+                              source="apex_tpu_torch/csrc/flash_bwd.cu",
+                              replaces="apex_tpu/ops/attention.py:669",
+                              shape=f"q[{b},{h},{sq},{d}] k,v[{b},{kvh},{sk},"
+                              f"{d}] bf16 kv_lengths", max_abs_err=err,
+                              ms=ms, plain_ms=plain, bound_ms=bms,
+                              bound_by=by, library_ms=lib)
+            log("kernel_i", case=name,
+                shape=f"b{b} h{h} kvh{kvh} sq{sq} sk{sk} d{d}",
+                causal=causal, window=window,
+                kv_lengths=None if kvl is None else len(kvl),
+                dtype=str(dtype)[6:], max_abs_err=f"{err:.3e}", ulps=ulps,
+                share_past_1_ulp=f"{past:.2e}", tol=tol, bitwise_repeat=True,
+                kernel_b_ulps=b_ulps, kernel_b_lse_err=f"{lse_err:.2e}",
+                **fields)
+    return record
+
+
 def _requests(n, vocab, max_new, seed):
     from apex_tpu_torch.serving import Request
     g = torch.Generator().manual_seed(seed)
@@ -711,12 +1037,62 @@ def _train_batch(cfg, b, s, device, seed=1):
     return tokens.to(device), labels.to(device)
 
 
-def train_mfu(n_params, tokens, layers, seq, hidden, step_s) -> float:
-    """Model FLOPs utilization against the H100's bf16 peak: the 6 N
-    matmul term plus the causal attention term 6 L s h per token
-    (``(6 N T + 6 L s h T) / step_time / 989e12``)."""
-    flops = 6.0 * n_params * tokens + 6.0 * layers * seq * hidden * tokens
-    return flops / step_s / PEAK_FLOPS[torch.bfloat16]
+def transformer_train_flops(n_params, tokens, num_layers, hidden, seq,
+                            causal) -> float:
+    """Model FLOPs of one training step (``apex_tpu/utils/flops.py:44-50``):
+    ``6 N`` per token plus the attention term ``12 L s h`` per token,
+    halved for causal masking."""
+    attn = 12 * num_layers * seq * hidden * (0.5 if causal else 1.0)
+    return float(tokens) * (6.0 * n_params + attn)
+
+
+def _timed_steps(step, batch) -> tuple:
+    """2 warm-up and 8 timed steps, the launch counters read over all ten:
+    ``(losses, step seconds, launches, peak GB)``."""
+    from apex_tpu_torch.ops import LAUNCHES, reset_launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, times = [], []
+    for _ in range(WARMUP_STEPS + TIMED_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step(batch))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return ([float(x) for x in losses], times, dict(LAUNCHES),
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _report_train(phase, model_name, losses, times, launches, peak_gb,
+                  per_step, tokens, flops, positions=None, **extra) -> None:
+    """Print the phase's line; raise unless every loss is finite, the last
+    below the first, and every kernel launched ``per_step`` times a step
+    (0 for a kernel not listed). ``tokens`` are the tokens a step trains
+    (padding left out); ``positions`` (if padded) and ``flops`` count every
+    position the step computes, padding included."""
+    steps = len(losses)
+    timed = sorted(times[WARMUP_STEPS:])
+    step_s = timed[len(timed) // 2]
+    log(phase, model=model_name, steps=steps,
+        losses=json.dumps([round(x, 5) for x in losses]).replace(" ", ""),
+        step_ms_median=f"{1e3 * step_s:.2f}",
+        step_ms=json.dumps([round(1e3 * t, 2) for t in times]).replace(
+            " ", ""),
+        tokens_per_s=f"{tokens / step_s:.1f}",
+        **({} if positions is None
+           else dict(positions_per_s=f"{positions / step_s:.1f}")),
+        mfu=f"{flops / step_s / PEAK_FLOPS[torch.bfloat16]:.4f}",
+        peak_mem_gb=f"{peak_gb:.3f}", **extra,
+        launches=json.dumps(launches).replace(" ", ""))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{phase}: non-finite loss in {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{phase}: loss did not fall on the fixed "
+                             f"batch: {losses}")
+    want = {k: per_step.get(k, 0) * steps for k in ALL_KERNELS}
+    if launches != want:
+        raise AssertionError(f"{phase}: launches over {steps} steps "
+                             f"{launches}, expected {want}")
 
 
 def phase_train(profile: bool = False) -> dict:
@@ -724,54 +1100,144 @@ def phase_train(profile: bool = False) -> dict:
     kernels' launches over the phase. With ``profile``, two more steps run
     under the profiler once the counts are read."""
     from apex_tpu_torch.models import TransformerConfig
-    from apex_tpu_torch.ops import LAUNCHES, reset_launches
     cfg = TransformerConfig(**GPT2, hidden_dropout=0.0, attention_dropout=0.0,
                             params_dtype=torch.float32,
                             compute_dtype=torch.bfloat16)
     model, step = _train_model(cfg, "cuda")
     batch = _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, "cuda")
     n_params = sum(p.numel() for p in model.parameters())
-    steps = WARMUP_STEPS + TIMED_STEPS
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    losses, times = [], []
-    for _ in range(steps):
-        t0 = time.perf_counter()
-        losses.append(step(batch))
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    launches = dict(LAUNCHES)
-    losses = [float(x) for x in losses]
-    timed = sorted(times[WARMUP_STEPS:])
-    step_s = timed[len(timed) // 2]
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    wrong = {k: launches[k] for k, n in TRAIN_KERNELS.items()
-             if launches[k] != n * steps}
-    log("train", model="gpt2-124m bf16/fp32 random-init",
-        batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=steps,
-        losses=json.dumps([round(x, 5) for x in losses]).replace(" ", ""),
-        step_ms_median=f"{1e3 * step_s:.2f}",
-        step_ms=json.dumps([round(1e3 * t, 2) for t in times]).replace(
-            " ", ""),
-        tokens_per_s=f"{tokens / step_s:.1f}",
-        mfu=f"{train_mfu(n_params, tokens, GPT2['num_layers'], TRAIN_SEQ, GPT2['hidden_size'], step_s):.4f}",
-        peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
-        n_params=n_params,
-        launches=json.dumps(launches).replace(" ", ""))
-    if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"train: non-finite loss in {losses}")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"train: loss did not fall on the fixed batch: "
-                             f"{losses}")
-    if wrong:
-        raise AssertionError(
-            f"train: launches over {steps} steps {wrong}, expected "
-            f"{ {k: n * steps for k, n in TRAIN_KERNELS.items()} }")
+    losses, times, launches, peak = _timed_steps(step, batch)
+    _report_train("train", "gpt2-124m bf16/fp32 random-init", losses, times,
+                  launches, peak, TRAIN_KERNELS, tokens,
+                  transformer_train_flops(n_params, tokens,
+                                          GPT2["num_layers"],
+                                          GPT2["hidden_size"], TRAIN_SEQ,
+                                          causal=True),
+                  batch=TRAIN_BATCH, seq=TRAIN_SEQ, n_params=n_params)
     if profile:
         profile_device("train", lambda: [step(batch) for _ in range(2)],
                        lambda: dict(steps=2, batch=TRAIN_BATCH,
                                     seq=TRAIN_SEQ))
+    return launches
+
+
+def _bert_model(cfg, device, seed=0):
+    from apex_tpu_torch.models import BertModel
+    from apex_tpu_torch.optimizers import FusedLAMB
+    from apex_tpu_torch.training import make_train_step
+    model = BertModel(cfg, device=device,
+                      generator=torch.Generator().manual_seed(seed))
+    opt = FusedLAMB(model.parameters(), lr=1e-3, weight_decay=0.01)
+    return model, make_train_step(lambda batch: model(*batch)[0], opt)
+
+
+def _bert_batch(cfg, b, s, device, seed):
+    """Tokens, a padding mask with valid lengths in [s/2, s] (row 0 full),
+    tokentype ids 0 before a seeded split inside each row's valid part and
+    1 after, LM labels."""
+    g = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=g)
+    labels = torch.randint(0, cfg.vocab_size, (b, s), generator=g)
+    lengths = _valid_lengths(b, s, seed + 1)
+    split = (torch.rand(b, generator=g) * lengths).long().clamp_min(1)
+    pos = torch.arange(s)[None, :]
+    padding = pos < lengths[:, None]
+    types = (pos >= split[:, None]).long()
+    return tuple(t.to(device) for t in (tokens, padding, types, labels))
+
+
+def phase_bert_train(profile: bool = False) -> dict:
+    """BERT-base with padding masks and FusedLAMB: returns the launches."""
+    from apex_tpu_torch.models import TransformerConfig
+    from apex_tpu_torch.transformer.enums import AttnMaskType
+    cfg = TransformerConfig(**BERT, hidden_dropout=0.0, attention_dropout=0.0,
+                            attn_mask_type=AttnMaskType.padding,
+                            params_dtype=torch.float32,
+                            compute_dtype=torch.bfloat16)
+    model, step = _bert_model(cfg, "cuda")
+    batch = _bert_batch(cfg, BERT_BATCH, BERT_SEQ, "cuda", seed=12)
+    n_params = sum(p.numel() for p in model.parameters())
+    positions = BERT_BATCH * BERT_SEQ
+    tokens = int(batch[1].sum())
+    losses, times, launches, peak = _timed_steps(step, batch)
+    _report_train("bert_train", "bert-base bf16/fp32 random-init", losses,
+                  times, launches, peak, BERT_KERNELS, tokens,
+                  transformer_train_flops(n_params, positions,
+                                          BERT["num_layers"],
+                                          BERT["hidden_size"], BERT_SEQ,
+                                          causal=False),
+                  positions, batch=BERT_BATCH, seq=BERT_SEQ,
+                  valid_tokens=tokens, n_params=n_params)
+    if profile:
+        profile_device("bert_train", lambda: [step(batch) for _ in range(2)],
+                       lambda: dict(steps=2, batch=BERT_BATCH, seq=BERT_SEQ))
+    return launches
+
+
+def _t5_model(cfg, device, seed=0, lr=1e-4):
+    from apex_tpu_torch.models import EncoderDecoderModel
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.training import make_train_step
+    model = EncoderDecoderModel(cfg, device=device,
+                                generator=torch.Generator().manual_seed(seed))
+    opt = FusedAdam(model.parameters(), lr=lr)
+    return model, make_train_step(
+        lambda b: model(b[0], b[1], b[2], enc_lengths=b[3]), opt)
+
+
+def _t5_batch(cfg, b, s_enc, s_dec, device, seed):
+    """Encoder and decoder tokens, decoder labels, encoder valid lengths
+    in [s_enc/2, s_enc] (row 0 full)."""
+    g = torch.Generator().manual_seed(seed)
+    enc = torch.randint(0, cfg.vocab_size, (b, s_enc), generator=g)
+    dec = torch.randint(0, cfg.vocab_size, (b, s_dec), generator=g)
+    labels = torch.randint(0, cfg.vocab_size, (b, s_dec), generator=g)
+    lengths = _valid_lengths(b, s_enc, seed + 1)
+    return tuple(t.to(device) for t in (enc, dec, labels, lengths))
+
+
+def enc_dec_train_flops(model, b, s_enc, s_dec) -> float:
+    """Encoder tokens through the encoder's parameters (bidirectional
+    attention), decoder tokens through the decoder's and the tied LM head's
+    (causal self-attention, and cross-attention over ``s_enc`` keys: 12 L
+    s_enc h a token), each as ``transformer_train_flops`` counts them."""
+    c = model.config
+    n_enc = sum(p.numel() for p in model.encoder.parameters())
+    n_dec = sum(p.numel() for p in model.decoder.parameters()) + \
+        model.embedding.word_embeddings.weight.numel()
+    cross = 12.0 * c.num_layers * s_enc * c.hidden_size * b * s_dec
+    return (transformer_train_flops(n_enc, b * s_enc, c.num_layers,
+                                    c.hidden_size, s_enc, causal=False)
+            + transformer_train_flops(n_dec, b * s_dec, c.num_layers,
+                                      c.hidden_size, s_dec, causal=True)
+            + cross)
+
+
+def phase_t5_train(profile: bool = False) -> dict:
+    """The encoder-decoder at T5-base widths with enc_lengths: returns the
+    launches."""
+    from apex_tpu_torch.models import TransformerConfig
+    cfg = TransformerConfig(**T5, hidden_dropout=0.0, attention_dropout=0.0,
+                            params_dtype=torch.float32,
+                            compute_dtype=torch.bfloat16)
+    model, step = _t5_model(cfg, "cuda")
+    batch = _t5_batch(cfg, T5_BATCH, T5_ENC, T5_DEC, "cuda", seed=13)
+    n_params = sum(p.numel() for p in model.parameters())
+    positions = T5_BATCH * (T5_ENC + T5_DEC)
+    tokens = int(batch[3].sum()) + T5_BATCH * T5_DEC
+    losses, times, launches, peak = _timed_steps(step, batch)
+    _report_train("t5_train", "t5-base-widths enc-dec bf16/fp32 random-init",
+                  losses, times, launches, peak, T5_KERNELS, tokens,
+                  enc_dec_train_flops(model, T5_BATCH, T5_ENC, T5_DEC),
+                  positions, batch=T5_BATCH, enc_seq=T5_ENC, dec_seq=T5_DEC,
+                  valid_tokens=tokens,
+                  enc_lengths=json.dumps(batch[3].tolist()).replace(" ", ""),
+                  n_params=n_params)
+    if profile:
+        profile_device("t5_train", lambda: [step(batch) for _ in range(2)],
+                       lambda: dict(steps=2, batch=T5_BATCH, enc_seq=T5_ENC,
+                                    dec_seq=T5_DEC))
     return launches
 
 
@@ -780,21 +1246,15 @@ def _grad_tree(model):
             for name, p in model.named_parameters()}
 
 
-def phase_train_card_vs_cpu() -> None:
-    """A small f32 GPT trains 3 steps on the card (TF32 off, set in
-    ``main``) and on the CPU from the same seed. Losses agree to 1e-5
-    relative; every step-1 gradient leaf to atol 1e-5 + rtol 1e-4 (fp32
-    sums in other orders, through the kernels on one side and the plain
-    versions on the other)."""
-    from apex_tpu_torch.models import TransformerConfig
-    cfg = TransformerConfig(num_layers=2, hidden_size=128,
-                            num_attention_heads=2, vocab_size=512,
-                            max_position_embeddings=128, hidden_dropout=0.0,
-                            attention_dropout=0.0)
+def _card_vs_cpu(phase, build, **fields) -> None:
+    """``build(device) -> (model, step, batch)`` from fixed seeds; three
+    steps on the card (TF32 off, set in ``main``) and on the CPU. Losses
+    agree to 1e-5 relative; every step-1 gradient leaf to atol 1e-5 + rtol
+    1e-4 (fp32 sums in other orders, through the kernels on one side and
+    the plain versions on the other)."""
     losses, grads = {}, {}
     for device in ("cuda", "cpu"):
-        model, step = _train_model(cfg, device, seed=2)
-        batch = _train_batch(cfg, 4, 96, device, seed=3)
+        model, step, batch = build(device)
         losses[device] = [float(step(batch))]
         grads[device] = _grad_tree(model)
         losses[device] += [float(step(batch)) for _ in range(2)]
@@ -806,23 +1266,73 @@ def phase_train_card_vs_cpu() -> None:
         excess = float(((got - want).abs() - 1e-4 * want.abs()).max())
         if excess > worst or worst_name is None:
             worst, worst_name = excess, name
-    log("train_card_vs_cpu", layers=2, hidden=128, steps=3,
+    log(phase, **fields, steps=3,
         losses_cuda=json.dumps(losses["cuda"]).replace(" ", ""),
         losses_cpu=json.dumps(losses["cpu"]).replace(" ", ""),
         loss_rel_err=f"{rel:.2e}", grad_leaves=len(grads["cpu"]),
         worst_grad_excess=f"{worst:.2e}", worst_leaf=worst_name)
     if rel > 1e-5 or worst > 1e-5:
         raise AssertionError(
-            f"train card vs CPU: loss rel err {rel} (tolerance 1e-5), grad "
-            f"leaf {worst_name} off by {worst} past atol 1e-5 + rtol 1e-4")
+            f"{phase}: loss rel err {rel} (tolerance 1e-5), grad leaf "
+            f"{worst_name} off by {worst} past atol 1e-5 + rtol 1e-4")
+
+
+SMALL = dict(num_layers=2, hidden_size=128, num_attention_heads=2,
+             vocab_size=512, max_position_embeddings=128, hidden_dropout=0.0,
+             attention_dropout=0.0)
+
+
+def phase_train_card_vs_cpu() -> None:
+    """A small f32 GPT trains 3 steps on the card and on the CPU."""
+    from apex_tpu_torch.models import TransformerConfig
+    cfg = TransformerConfig(**SMALL)
+
+    def build(device):
+        model, step = _train_model(cfg, device, seed=2)
+        return model, step, _train_batch(cfg, 4, 96, device, seed=3)
+
+    _card_vs_cpu("train_card_vs_cpu", build, layers=2, hidden=128)
+
+
+def phase_enc_card_vs_cpu() -> None:
+    """A small f32 BERT (padding mask, LAMB) and a small f32
+    encoder-decoder (enc_lengths, Adam) train 3 steps on the card and on
+    the CPU."""
+    from apex_tpu_torch.models import TransformerConfig
+    from apex_tpu_torch.transformer.enums import AttnMaskType
+    bert = TransformerConfig(**SMALL, attn_mask_type=AttnMaskType.padding)
+    t5 = TransformerConfig(**SMALL, normalization="rmsnorm",
+                           activation="relu")
+
+    def build_bert(device):
+        model, step = _bert_model(bert, device, seed=4)
+        return model, step, _bert_batch(bert, 4, 96, device, seed=5)
+
+    def build_t5(device):
+        model, step = _t5_model(t5, device, seed=6, lr=1e-3)
+        return model, step, _t5_batch(t5, 4, 96, 40, device, seed=7)
+
+    _card_vs_cpu("enc_card_vs_cpu", build_bert, model="bert_padding_lamb",
+                 layers=2, hidden=128)
+    _card_vs_cpu("enc_card_vs_cpu", build_t5,
+                 model="enc_dec_enc_lengths_adam", layers=2, hidden=128)
+
+
+#: the phase whose run is each kernel's main path
+MAIN_PATH = {"layer_norm_fwd": "serve", "flash_fwd": "serve",
+             "paged_decode": "serve", "layer_norm_bwd": "train",
+             "flash_packed_fwd": "train", "flash_packed_bwd": "train",
+             "softmax_fwd": "bert_train", "softmax_bwd": "bert_train",
+             "flash_bwd": "t5_train"}
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="after the serve and train phases, trace a "
-                        "second serve and two more train steps with "
-                        "torch.profiler and print their breakdowns")
+                        "second serve and two more steps of each train "
+                        "phase with torch.profiler and print their "
+                        "breakdowns")
     args = parser.parse_args()
     phase_device()
     # fp32 comparisons hold to fp32 GEMMs, not TF32
@@ -832,15 +1342,20 @@ def main() -> int:
     timer = Timer()
     records = [phase_layer_norm(timer), phase_flash(timer),
                phase_decode(timer), phase_layer_norm_bwd(timer),
-               *phase_packed(timer)]
-    serve = phase_serve(args.profile)
+               *phase_packed(timer), *phase_softmax(timer),
+               phase_flash_bwd(timer)]
+    paths = {"serve": phase_serve(args.profile)}
     phase_card_vs_cpu()
-    train = phase_train(args.profile)
+    paths["train"] = phase_train(args.profile)
     phase_train_card_vs_cpu()
+    paths["bert_train"] = phase_bert_train(args.profile)
+    paths["t5_train"] = phase_t5_train(args.profile)
+    phase_enc_card_vs_cpu()
     for rec in records:
         name = rec["name"]
-        rec["launches"] = (serve if name in SERVE_KERNELS else train)[name]
-        rec["launches_by_path"] = {"serve": serve[name], "train": train[name]}
+        rec["launches"] = paths[MAIN_PATH[name]][name]
+        rec["launches_by_path"] = {path: counts[name]
+                                   for path, counts in paths.items()}
     kernels = [{k: rec[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",

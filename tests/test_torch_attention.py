@@ -8,6 +8,21 @@ the Hopper kernel). Cases: causal and not, GQA (8 heads over 2 groups),
 ``kv_lengths`` (one of them 0: a batch row with no visible key),
 ``sliding_window``, ``sq != sk``, head_dim 64.
 
+4D backward: the same inputs and a numpy-made cotangent through
+``jax.vjp`` of the JAX ``flash_attention`` (its plain path, and in
+interpret mode with small blocks the two-pass ``_dq_kernel`` /
+``_dkv_kernel`` and the single-block ``_dqkv_single_kernel``) and torch
+autograd of the port's (``flash_bwd_plain``, what Kernel I computes).
+Cases: cross-attention (``sq != sk``) with ``kv_lengths`` and a 0 row,
+causal with the offset, GQA, a window; f32 grads atol 1e-4. In bf16 each
+grad element is held to 1 ulp plus ``flash_bwd_rounding_slack`` (the
+backward rounds ds and p to bf16 before its products, as the JAX kernels
+do): against the plain path's ``jax.vjp`` with a further term for delta,
+which the port reads off the stored bf16 o and JAX's autograd off its fp32
+o; against the interpret-mode kernels' backward on the same forward
+residuals, with at most 0.1% of the elements past 1 ulp. The plain
+backward is also held against autograd of the plain forward.
+
 Packed QKV: a numpy-made packed projection goes through both packages'
 ``flash_attention_packed`` — forward, and backward through ``jax.vjp``
 and torch autograd with the same cotangent — with the JAX side on its
@@ -36,6 +51,10 @@ from apex_tpu_torch.ops import LAUNCHES, flash_attention
 from apex_tpu_torch.ops.attention import (
     drop_combo,
     flash_attention_packed,
+    flash_bwd_factors,
+    flash_bwd_plain,
+    flash_bwd_rounding_slack,
+    flash_fwd_plain,
     flash_packed_bwd_plain,
     flash_packed_fwd_plain,
     hash_keep,
@@ -124,8 +143,219 @@ def test_invalid_arguments_raise():
         flash_attention(q, torch.zeros(1, 3, 8, 64), torch.zeros(1, 3, 8, 64))
     with pytest.raises(ValueError, match="causal"):
         flash_attention(q, q, q, sliding_window=4)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        flash_attention(q.requires_grad_(), q, q)
+    with pytest.raises(ValueError, match=">= 1"):
+        flash_attention(q, q, q, causal=True, sliding_window=0)
+
+
+# ---------------------------------------------------------------------------
+# 4D backward
+# ---------------------------------------------------------------------------
+
+BWD_CASES = dict(CASES, **{
+    # the encoder-decoder's cross-attention: 114 decoder queries over 200
+    # encoder keys (scaled down), varlen keys with an empty row
+    "cross_kv_lengths": (3, 4, 4, 28, 100, 64, False, [100, 37, 0], None),
+    "cross_gqa": (2, 8, 2, 20, 70, 64, False, [70, 50], None),
+})
+
+
+def _bwd_run(case, seed=0, dtype="float32", **blocks):
+    """(jax o, dq, dk, dv), (torch o, dq, dk, dv) with one cotangent, as
+    fp32 numpy; in bf16 also the bound past 1 ulp (:func:`_bf16_slack`)."""
+    b, h, kvh, sq, sk, d, causal, kvl, window = case
+    q, k, v, do = _bwd_inputs(case, seed)
+    kvl = None if kvl is None else np.asarray(kvl, np.int32)
+    jkvl = None if kvl is None else jnp.asarray(kvl)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jo, vjp = jax.vjp(lambda a, bb, c: jax_flash(
+        a, bb, c, causal=causal, sliding_window=window, kv_lengths=jkvl,
+        **blocks), *(jnp.asarray(a, jdt) for a in (q, k, v)))
+    jgrads = vjp(jnp.asarray(do, jdt))
+    tq, tk, tv = (torch.from_numpy(a).to(tdt).requires_grad_()
+                  for a in (q, k, v))
+    tdo = torch.from_numpy(do).to(tdt)
+    tkvl = None if kvl is None else torch.from_numpy(kvl)
+    before = dict(LAUNCHES)
+    to = flash_attention(tq, tk, tv, causal=causal, sliding_window=window,
+                         kv_lengths=tkvl)
+    to.backward(tdo)
+    assert LAUNCHES == before          # CPU tensors launch no kernel
+    slack = None
+    if dtype == BF16:
+        slack = _bf16_slack(tq, tk, tv, tdo, tkvl, causal, window,
+                            o_rounded=True)
+    return ([_f32(a) for a in (jo, *jgrads)],
+            [_f32(t) for t in (to, tq.grad, tk.grad, tv.grad)], slack)
+
+
+def _bwd_inputs(case, seed):
+    b, h, kvh, sq, sk, d = case[:6]
+    rng = np.random.RandomState(seed)
+    return [rng.randn(*shape).astype(np.float32) for shape in
+            ((b, h, sq, d), (b, kvh, sk, d), (b, kvh, sk, d), (b, h, sq, d))]
+
+
+def _f32(a):
+    if isinstance(a, torch.Tensor):
+        return a.detach().float().numpy()
+    return np.asarray(a, np.float32)
+
+
+def _bf16_slack(q, k, v, do, kvl, causal, window, o_rounded=False):
+    """How far past 1 bf16 ulp a correct bf16 backward may land from another:
+    ``flash_bwd_rounding_slack`` (the backward rounds ds and p to bf16
+    before its products, as the JAX kernels do) on the port's forward
+    residuals. With ``o_rounded``, also what the bf16 rounding of o moves
+    delta = rowsum(do o) by, one bf16 step of each |do o| term, through ds
+    into dq and dk: the port (like the JAX kernels) reads delta off the
+    stored bf16 o, the JAX plain path's autograd off its fp32 o."""
+    q, k, v = q.detach(), k.detach(), v.detach()
+    args = (kvl, 1.0 / np.sqrt(q.shape[-1]), causal, window)
+    o, lse = flash_fwd_plain(q, k, v, *args)
+    slack = list(flash_bwd_rounding_slack(q, k, v, do, o, lse, *args))
+    if o_rounded:
+        p, _ = flash_bwd_factors(q, k, v, do, o, lse, *args)
+        scale, group = args[1], q.shape[1] // k.shape[1]
+        dd = 2.0 ** -8 * (do.float() * o.float()).abs().sum(-1)[..., None]
+        ka = k.float().abs().repeat_interleave(group, dim=1)
+        slack[0] = slack[0] + scale * dd * (p @ ka)
+        dk = scale * torch.einsum("bhqk,bhqd->bhkd", p * dd, q.float().abs())
+        b, kvh, sk, d = k.shape
+        slack[1] = slack[1] + dk.reshape(b, kvh, group, sk, d).sum(dim=2)
+    return [t.numpy() for t in slack]
+
+
+def _check_bwd(want, got, slack=None):
+    """f32: o atol 2e-5, grads atol 1e-4. bf16: o within 1 ulp, each grad
+    within 1 ulp plus ``slack``."""
+    names = ("o", "dq", "dk", "dv")
+    if slack is None:
+        np.testing.assert_allclose(got[0], want[0], atol=2e-5, rtol=0)
+        for name, w, g in zip(names[1:], want[1:], got[1:]):
+            np.testing.assert_allclose(g, w, atol=1e-4, rtol=0, err_msg=name)
+        return
+    _check_bf16(names, want, got, [0.0] + slack)
+
+
+def _check_bf16(names, want, got, slack, max_past_ulp=1.0):
+    """Every element within 1 bf16 ulp plus its slack, and at most a share
+    ``max_past_ulp`` of them past 1 ulp."""
+    for name, w, g, sl in zip(names, want, got, slack):
+        ulp = 2.0 ** -15 + 2.0 ** -7 * np.abs(w)
+        e = np.abs(g - w)
+        assert (e - ulp - sl).max() <= 0, \
+            f"{name}: {(e - ulp - sl).max()} past the bound"
+        assert (e > ulp).mean() <= max_past_ulp, \
+            f"{name}: {(e > ulp).mean()} of the elements past 1 ulp"
+
+
+def _kernel_bwd_run(case, blocks, seed=1):
+    """In bf16, the JAX kernels' backward (``_flash_vjp_bwd`` with the
+    Pallas path on) and the port's autograd backward, on the same forward
+    residuals (the port's o and lse): the JAX kernel forward rounds p to
+    bf16 before ``p v`` and the port's does not, so their o may differ by
+    more than an ulp. Returns (jax dq, dk, dv), (torch dq, dk, dv), slack."""
+    b, h, kvh, sq, sk, d, causal, kvl, window = case
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _bwd_inputs(case, seed))
+    tkvl = None if kvl is None else torch.tensor(kvl, dtype=torch.int32)
+    scale = 1.0 / np.sqrt(d)
+    o, lse = flash_fwd_plain(q, k, v, tkvl, scale, causal, window)
+    block_q, block_k = jatt._auto_blocks(blocks.get("block_q"),
+                                         blocks.get("block_k"), sk)
+    bq = min(block_q, jatt.round_up(sq, 8))
+    bk = min(block_k, jatt.round_up(sk, 128))
+    to_jax = lambda t: jnp.asarray(_f32(t), t.dtype is torch.bfloat16  # noqa
+                                   and jnp.bfloat16 or jnp.float32)
+    res = (to_jax(q), to_jax(k), to_jax(v),
+           None if kvl is None else jnp.asarray(kvl, jnp.int32),
+           to_jax(o), to_jax(lse))
+    want = jatt._flash_vjp_bwd(scale, causal, bq, bk, window, res,
+                               to_jax(do))[:3]
+    tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+    flash_attention(tq, tk, tv, causal=causal, sliding_window=window,
+                    kv_lengths=tkvl).backward(do)
+    return ([_f32(a) for a in want], [_f32(t.grad) for t in (tq, tk, tv)],
+            _bf16_slack(q, k, v, do, tkvl, causal, window))
+
+
+BF16 = "bfloat16"
+
+
+@pytest.mark.parametrize("name,dtype", [
+    *((n, "float32") for n in BWD_CASES),
+    *(pytest.param(n, BF16, id=f"{n}-bf16") for n in BWD_CASES)])
+def test_backward_matches_jax_plain(jax_mode, name, dtype):
+    jax_mode("off")
+    _check_bwd(*_bwd_run(BWD_CASES[name], dtype=dtype))
+
+
+INTERPRET_BWD = [
+    # two-pass _dq_kernel + _dkv_kernel: cross-attention over 3 key blocks
+    # with an empty row (interpret mode keeps the two-pass path for nq >= 2)
+    ((3, 4, 2, 100, 160, 64, False, [160, 90, 0], None),
+     dict(block_q=64, block_k=64)),
+    # two-pass, causal with the sk - sq offset
+    ((1, 4, 4, 72, 130, 64, True, None, None), dict(block_q=64, block_k=64)),
+    # two-pass with a sliding window (banded grid), GQA
+    ((1, 8, 2, 160, 160, 64, True, None, 40), dict(block_q=64, block_k=64)),
+    # single block (_dqkv_single_kernel): the cross-attention shape
+    ((2, 4, 4, 24, 100, 64, False, [100, 61], None), {}),
+]
+
+
+@pytest.mark.parametrize("case,blocks,dtype", [
+    *((c, bl, "float32") for c, bl in INTERPRET_BWD),
+    *(pytest.param(c, bl, BF16, id=f"case{i}-bf16")
+      for i, (c, bl) in enumerate(INTERPRET_BWD))])
+def test_backward_matches_jax_interpret_kernels(jax_mode, case, blocks,
+                                                dtype):
+    jax_mode("interpret")
+    if dtype == BF16:
+        # both round ds and p where the kernels do: few elements past 1 ulp
+        # (a backward that rounds neither puts 6-12% of them there)
+        _check_bf16(("dq", "dk", "dv"), *_kernel_bwd_run(case, blocks),
+                    max_past_ulp=1e-3)
+    else:
+        _check_bwd(*_bwd_run(case, seed=1, **blocks))
+
+
+def test_backward_of_an_empty_row_is_zero(jax_mode):
+    jax_mode("off")
+    _, got, _ = _bwd_run(BWD_CASES["cross_kv_lengths"])
+    assert not any(np.any(g[2]) for g in got)
+
+
+@pytest.mark.parametrize("name", list(BWD_CASES))
+def test_flash_bwd_plain_matches_autograd_of_plain_fwd(name):
+    """The hand-written algebra (p from lse, delta = rowsum(do * o),
+    ds = p * (dp - delta), dk/dv summed over the group) against torch
+    autograd through the plain forward, f32 atol 2e-5."""
+    b, h, kvh, sq, sk, d, causal, kvl, window = BWD_CASES[name]
+    rng = np.random.RandomState(2)
+    q, k, v = (torch.from_numpy(rng.randn(b, n, s, d).astype(np.float32))
+               .requires_grad_() for n, s in ((h, sq), (kvh, sk), (kvh, sk)))
+    do = torch.from_numpy(rng.randn(b, h, sq, d).astype(np.float32))
+    kvl = None if kvl is None else torch.tensor(kvl)
+    scale = 1.0 / np.sqrt(d)
+    o, lse = flash_fwd_plain(q, k, v, kvl, scale, causal, window)
+    o.backward(do)
+    got = flash_bwd_plain(q.detach(), k.detach(), v.detach(), do, o.detach(),
+                          lse.detach(), kvl, scale, causal, window)
+    for g, t in zip(got, (q, k, v)):
+        np.testing.assert_allclose(g.numpy(), t.grad.numpy(), atol=2e-5,
+                                   rtol=0)
+
+
+def test_plain_forward_lse_of_an_empty_row():
+    """The plain forward returns the lse Kernel B writes: 1e30 (the JAX
+    ``_LSE_PAD``) on a row that sees no key, with o = 0 there."""
+    q = torch.randn(2, 2, 5, 16)
+    k = torch.randn(2, 2, 7, 16)
+    o, lse = flash_fwd_plain(q, k, k, torch.tensor([7, 0]), 0.25, False)
+    assert bool((lse[1] == 1e30).all()) and not o[1].any()
+    want = torch.logsumexp(0.25 * q[0] @ k[0].transpose(-1, -2), dim=-1)
+    torch.testing.assert_close(lse[0], want)
 
 
 # ---------------------------------------------------------------------------

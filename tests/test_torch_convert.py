@@ -1,6 +1,6 @@
-"""``apex_tpu_torch.convert``: apex_tpu's GPT parameter tree (as numpy)
-onto the port's ``GPTModel`` and back, leaf for leaf, by shape and value
-(exact: a conversion is a copy)."""
+"""``apex_tpu_torch.convert``: apex_tpu's GPT, BERT and encoder-decoder
+parameter trees (as numpy) onto the port's models and back, leaf for leaf,
+by shape and value (exact: a conversion is a copy)."""
 
 import jax
 import jax.numpy as jnp
@@ -10,12 +10,19 @@ import torch
 
 from apex_tpu.models import GPTModel as JaxGPT
 from apex_tpu.models import TransformerConfig as JaxConfig
+from apex_tpu.models.bert import BertModel as JaxBert
+from apex_tpu.models.encoder_decoder import EncoderDecoderModel as JaxEncDec
 from apex_tpu_torch.convert import (
     load_jax_params,
     params_from_jax,
     params_to_jax,
 )
-from apex_tpu_torch.models import GPTModel, TransformerConfig
+from apex_tpu_torch.models import (
+    BertModel,
+    EncoderDecoderModel,
+    GPTModel,
+    TransformerConfig,
+)
 
 TINY = dict(num_layers=2, hidden_size=64, num_attention_heads=4,
             vocab_size=128, max_position_embeddings=64)
@@ -90,3 +97,23 @@ def test_missing_leaf_is_refused():
     with pytest.raises(RuntimeError, match="final_layernorm"):
         load_jax_params(GPTModel(TransformerConfig(**TINY), device="cpu"),
                         tree)
+
+
+@pytest.mark.parametrize("jax_cls,cls", [(JaxBert, BertModel),
+                                         (JaxEncDec, EncoderDecoderModel)],
+                         ids=["bert", "encoder_decoder"])
+def test_round_trip_bert_and_encoder_decoder(jax_cls, cls):
+    """BERT's tokentype table, LM head and binary head; the encoder's and
+    decoder's stacked layers (the decoder's with cross-attention and its
+    norm)."""
+    jm = jax_cls(JaxConfig(**TINY, normalization="rmsnorm"))
+    tree = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(3)))
+    model = cls(TransformerConfig(**TINY, normalization="rmsnorm"),
+                device="cpu")
+    load_jax_params(model, tree)
+    back = params_to_jax(model.state_dict())
+    want, got = list(_leaves(tree)), list(_leaves(back))
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (path, a), (_, b) in zip(want, got):
+        np.testing.assert_array_equal(b, np.asarray(a, np.float32), path)
+

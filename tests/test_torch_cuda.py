@@ -12,8 +12,13 @@ windows and head_dim 32/128, the packed-QKV forward and backward with
 GQA, partial and full RoPE, windows, ``kv_lengths`` and dropout (whose
 keep mask is read off exactly with ``v = I``, and whose seed may stay on
 the card with no host sync), paged decode with GQA, a
-sliding window and sentinel pages. Tolerances: f32 atol 1e-4 (summation
-order only, TF32 off); bf16 1 ulp of an fp32 reference rounded to bf16.
+sliding window and sentinel pages, the masked softmax forward and
+backward (padding masks with fully masked rows read through their broadcast
+strides, key masks, causal, rows of 17 to 4097, a scale), and the 4D flash
+backward (cross-attention with ``kv_lengths``, a 0 length, causal with the
+``sk - sq`` offset, GQA, windows; bitwise repeatable). Tolerances: f32 atol
+1e-4 (summation order only, TF32 off; the softmax 1e-5); bf16 1 ulp of an
+fp32 reference rounded to bf16.
 """
 
 import math
@@ -24,14 +29,18 @@ import torch
 from apex_tpu_torch.ops import _support
 from apex_tpu_torch.ops.attention import (
     drop_combo,
+    flash_attention,
     flash_attention_packed,
+    flash_bwd_cuda,
+    flash_bwd_plain,
+    flash_bwd_rounding_slack,
     flash_fwd_cuda,
+    flash_fwd_plain,
     flash_packed_bwd_cuda,
     flash_packed_bwd_plain,
     flash_packed_fwd_cuda,
     flash_packed_fwd_plain,
     hash_keep,
-    mha_plain,
 )
 from apex_tpu_torch.ops.decode_attention import (
     append_rows,
@@ -46,6 +55,13 @@ from apex_tpu_torch.ops.layer_norm import (
     layer_norm_fwd_plain,
 )
 from apex_tpu_torch.ops.rope import rope_freqs, rope_tables
+from apex_tpu_torch.ops.softmax import (
+    scaled_masked_softmax,
+    softmax_bwd_cuda,
+    softmax_bwd_plain,
+    softmax_fwd_cuda,
+    softmax_fwd_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -115,8 +131,8 @@ def test_flash_kernel(gen, name, dtype):
     kvl = None if kvl is None else torch.tensor(kvl, device="cuda")
     scale = 1.0 / math.sqrt(d)
     o, lse = flash_fwd_cuda(q, k, v, kvl, scale, causal, window)
-    ref = mha_plain(q.float(), k.float(), v.float(), kvl, scale, causal,
-                    window).to(dtype)
+    ref = flash_fwd_plain(q.float(), k.float(), v.float(), kvl, scale,
+                          causal, window)[0].to(dtype)
     assert_close_once_rounded(o, ref)
     if kvl is not None and int(kvl.min()) == 0:
         row = int(torch.argmin(kvl))
@@ -293,3 +309,146 @@ def test_flash_packed_dropout_mask_is_the_hash(gen, seed, rate):
                        torch.arange(g)[None, :, None, None])
     want = hash_keep(seed, combo, (b, g, s, s), rate)
     assert torch.equal(got.cpu(), want)
+
+
+SOFTMAX = {
+    # (x shape, mask shape or None, causal sq, scale)
+    "bert_padding": ((2, 3, 200, 200), "padding", 0, 1.0),
+    "key_mask": ((2, 3, 40, 200), (2, 1, 1, 200), 0, 0.5),
+    "causal": ((1, 6, 130, 130), None, 130, 1.0),
+    "k17": ((1, 2, 9, 17), (1, 1, 9, 17), 0, 1.0),
+    "k1000": ((1, 2, 7, 1000), (1, 2, 1, 1000), 0, 0.125),
+    "k4097": ((1, 1, 6, 4097), (1, 1, 1, 4097), 0, 1.0),
+    "k4097_causal": ((1, 1, 4097, 4097), None, 4097, 2.0),
+}
+
+
+def _softmax_inputs(gen, name, dtype):
+    shape, mask, sq, scale = SOFTMAX[name]
+    x = (3 * torch.randn(shape, device="cuda", generator=gen)).to(dtype)
+    if mask == "padding":
+        valid = torch.ones(shape[0], shape[-1], dtype=torch.bool,
+                           device="cuda")
+        valid[1, 150:] = False             # padded rows: every key masked
+        mask = ~(valid[:, None, None, :] & valid[:, None, :, None])
+    elif mask is not None:
+        mask = torch.rand(mask, device="cuda", generator=gen) < 0.3
+    return x, mask, sq, scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(SOFTMAX))
+def test_softmax_kernels(gen, name, dtype):
+    x, mask, sq, scale = _softmax_inputs(gen, name, dtype)
+    causal = sq > 0
+    before = dict(_support.LAUNCHES)
+    y = softmax_fwd_cuda(x, mask, scale, sq, causal)
+    ref = softmax_fwd_plain(x.float(), mask, scale, sq, causal).to(dtype)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, ref, atol=1e-5, rtol=0)
+    else:
+        assert_close_once_rounded(y, ref)
+    dy = torch.randn(x.shape, device="cuda", generator=gen).to(dtype)
+    dx = softmax_bwd_cuda(dy, y, scale)
+    rdx = softmax_bwd_plain(dy.float(), y.float(), scale).to(dtype)
+    if dtype == torch.float32:
+        torch.testing.assert_close(dx, rdx, atol=1e-5, rtol=0)
+    else:
+        assert_close_once_rounded(dx, rdx)
+    assert _support.LAUNCHES["softmax_fwd"] == before["softmax_fwd"] + 1
+    assert _support.LAUNCHES["softmax_bwd"] == before["softmax_bwd"] + 1
+    if name == "bert_padding":
+        # a padded query row masks every key: uniform 1/k, not 0
+        k = x.shape[-1]
+        torch.testing.assert_close(y[1, :, 150:].float(),
+                                   torch.full_like(y[1, :, 150:].float(),
+                                                   1.0 / k),
+                                   atol=0, rtol=2.0 ** -8)
+
+
+def test_softmax_autograd_launches_both_kernels(gen):
+    x, mask, _, _ = _softmax_inputs(gen, "bert_padding", torch.bfloat16)
+    x.requires_grad_()
+    before = dict(_support.LAUNCHES)
+    y = scaled_masked_softmax(x, mask, 0.5)
+    y.backward(torch.ones_like(y))
+    assert _support.LAUNCHES["softmax_fwd"] == before["softmax_fwd"] + 1
+    assert _support.LAUNCHES["softmax_bwd"] == before["softmax_bwd"] + 1
+    assert x.grad.shape == x.shape
+
+
+FLASH_BWD = dict(FLASH, cross_t5=(2, 4, 4, 114, 512, 64, False, [512, 300],
+                                  None),
+                 cross_zero_length=(3, 4, 2, 50, 130, 64, False, [130, 7, 0],
+                                    None))
+
+
+def assert_close_up_to_factor_rounding(got, want, slack):
+    """bf16: every element within 1 ulp plus ``slack``
+    (:func:`flash_bwd_rounding_slack`: the JAX backward rounds ds and p to
+    bf16 before its products, and a ds on a rounding boundary may round to
+    a neighbouring value on one side), and at most 0.1% of the elements
+    past 1 ulp (a boundary flip is rare; a wrong tile would move many
+    elements)."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    one_ulp = 2.0 ** -15 + 2.0 ** -7 * w.abs()
+    assert bool((err <= one_ulp + slack).all()), float((err - one_ulp
+                                                        - slack).max())
+    assert float((err > one_ulp).float().mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(FLASH_BWD))
+def test_flash_bwd_kernel(gen, name, dtype):
+    """Kernel I against the plain backward on the same inputs: the plain
+    version rounds ds and p to the input dtype where the JAX kernels do,
+    computes in fp32 and rounds once at the end. f32 atol 1e-4; bf16 see
+    :func:`assert_close_up_to_factor_rounding`."""
+    b, h, kvh, sq, sk, d, causal, kvl, window = FLASH_BWD[name]
+    q = torch.randn(b, h, sq, d, device="cuda", generator=gen).to(dtype)
+    k = torch.randn(b, kvh, sk, d, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(b, kvh, sk, d, device="cuda", generator=gen).to(dtype)
+    do = torch.randn(b, h, sq, d, device="cuda", generator=gen).to(dtype)
+    kvl = None if kvl is None else torch.tensor(kvl, device="cuda")
+    scale = 1.0 / math.sqrt(d)
+    o, lse = flash_fwd_cuda(q, k, v, kvl, scale, causal, window)
+    before = _support.LAUNCHES["flash_bwd"]
+    got = flash_bwd_cuda(q, k, v, do, o, lse, kvl, scale, causal, window)
+    assert _support.LAUNCHES["flash_bwd"] == before + 1
+    want = flash_bwd_plain(q, k, v, do, o, lse, kvl, scale, causal, window)
+    if dtype == torch.float32:
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
+    else:
+        slack = flash_bwd_rounding_slack(q, k, v, do, o, lse, kvl, scale,
+                                         causal, window)
+        for g, w, sl in zip(got, want, slack):
+            assert_close_up_to_factor_rounding(g, w, sl)
+    again = flash_bwd_cuda(q, k, v, do, o, lse, kvl, scale, causal, window)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+    if kvl is not None and int(kvl.min()) == 0:
+        row = int(torch.argmin(kvl))
+        assert not any(t[row].any() for t in got)
+
+
+def test_flash_attention_autograd_on_the_card(gen):
+    """``flash_attention`` under autograd launches Kernel B forward and
+    Kernel I backward, and its grads match the plain backward's."""
+    b, h, kvh, sq, sk, d, causal, kvl, window = FLASH_BWD["cross_t5"]
+    q, k, v = (torch.randn(b, n, s, d, device="cuda",
+                           generator=gen).requires_grad_()
+               for n, s in ((h, sq), (kvh, sk), (kvh, sk)))
+    kvl = torch.tensor(kvl, device="cuda")
+    do = torch.randn(b, h, sq, d, device="cuda", generator=gen)
+    before = dict(_support.LAUNCHES)
+    o = flash_attention(q, k, v, kv_lengths=kvl)
+    o.backward(do)
+    assert _support.LAUNCHES["flash_fwd"] == before["flash_fwd"] + 1
+    assert _support.LAUNCHES["flash_bwd"] == before["flash_bwd"] + 1
+    _, lse = flash_fwd_cuda(q.detach(), k.detach(), v.detach(), kvl,
+                            1.0 / math.sqrt(d), False)
+    want = flash_bwd_plain(q.detach(), k.detach(), v.detach(), do,
+                           o.detach(), lse, kvl, 1.0 / math.sqrt(d), False)
+    for g, w in zip((q.grad, k.grad, v.grad), want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=0)

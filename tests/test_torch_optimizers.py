@@ -1,4 +1,4 @@
-"""FusedAdam / FusedAdamW of the port against the JAX package.
+"""FusedAdam / FusedAdamW / FusedLAMB of the port against the JAX package.
 
 The same numpy-made parameter tree and five numpy-made gradient sets go
 through ``apex_tpu.optimizers.FusedAdam`` (``init`` / ``step`` on a dict
@@ -9,9 +9,16 @@ without a mask (matrices decayed, vectors not), bias correction off,
 leave parameters, moments and the step count untouched; ``grad_scale``
 unscales inside the step.
 
+FusedLAMB runs the same five steps with the clip on the global gradient
+norm active and inactive, both ``adam_w_mode`` values, a decay mask,
+``trust_clip``, ``always_adapt`` without decay, ``grad_averaging`` off, a
+zero-initialised leaf (trust ratio 1), master weights over bf16 and a
+``found_inf`` step under ``grad_scale``.
+
 Tolerance: fp32 parameters rtol 1e-6 + atol 1e-7 after five steps (the
-same fp32 expressions; ``b ** t`` may differ by an ulp); bf16 parameters
-under master weights exactly equal (both round the same fp32 master).
+same fp32 expressions; ``b ** t`` may differ by an ulp; LAMB's norms sum
+in another order); bf16 parameters under master weights exactly equal
+(both round the same fp32 master).
 """
 
 import jax
@@ -21,7 +28,8 @@ import pytest
 import torch
 
 from apex_tpu.optimizers import FusedAdam as JaxFusedAdam
-from apex_tpu_torch.optimizers import FusedAdam, FusedAdamW
+from apex_tpu.optimizers import FusedLAMB as JaxFusedLAMB
+from apex_tpu_torch.optimizers import FusedAdam, FusedAdamW, FusedLAMB
 
 SHAPES = {"w1": (6, 5), "b1": (5,), "w2": (5, 3), "scale": (3,)}
 STEPS = 5
@@ -33,11 +41,16 @@ def _tree(seed):
             for k, shape in SHAPES.items()}
 
 
-def _run(kw, param_dtype="float32", found_inf_at=None, grad_scale=None):
+def _run(kw, param_dtype="float32", found_inf_at=None, grad_scale=None,
+         lamb=False, zero_leaf=False):
     params = _tree(0)
+    if zero_leaf:
+        params["b1"] = np.zeros_like(params["b1"])
     grads = [_tree(10 + i) for i in range(STEPS)]
     jmask = kw.pop("mask", False)
-    jopt = JaxFusedAdam(**kw, weight_decay_mask=(
+    jcls, tcls = ((JaxFusedLAMB, FusedLAMB) if lamb
+                  else (JaxFusedAdam, FusedAdam))
+    jopt = jcls(**kw, weight_decay_mask=(
         (lambda p: jax.tree.map(lambda x: x.ndim > 1, p)) if jmask
         else None))
     jp = {k: jnp.asarray(v, getattr(jnp, param_dtype))
@@ -45,7 +58,7 @@ def _run(kw, param_dtype="float32", found_inf_at=None, grad_scale=None):
     jstate = jopt.init(jp)
     tp = {k: torch.nn.Parameter(torch.from_numpy(v).to(
         getattr(torch, param_dtype))) for k, v in params.items()}
-    topt = FusedAdam(list(tp.values()), **kw,
+    topt = tcls(list(tp.values()), **kw,
                      weight_decay_mask=(lambda p: p.dim() > 1) if jmask
                      else None)
     for i, g in enumerate(grads):
@@ -119,3 +132,60 @@ def test_adamw_factory_and_amsgrad():
     assert FusedAdamW([p]).adam_w_mode
     with pytest.raises(RuntimeError, match="AMSGrad"):
         FusedAdam([p], amsgrad=True)
+
+
+@pytest.mark.parametrize("kw,zero_leaf", [
+    (dict(lr=1e-2), False),
+    (dict(lr=1e-2, max_grad_norm=100.0), False),
+    (dict(lr=1e-2, max_grad_norm=0.0), False),
+    (dict(lr=1e-2, adam_w_mode=False, weight_decay=0.1), False),
+    (dict(lr=1e-2, weight_decay=0.1, mask=True), False),
+    (dict(lr=1e-2, adam_w_mode=False, weight_decay=0.1, mask=True), False),
+    (dict(lr=5e-2, weight_decay=0.3, trust_clip=True), False),
+    (dict(lr=1e-2, weight_decay=0.0, always_adapt=True), False),
+    (dict(lr=1e-2, weight_decay=0.0), False),
+    (dict(lr=1e-2, grad_averaging=False, bias_correction=False,
+          betas=(0.8, 0.95)), False),
+    (dict(lr=1e-2, weight_decay=0.05), True),
+], ids=["clip_active", "clip_inactive", "no_clip", "l2", "adamw_mask",
+        "l2_mask", "trust_clip", "always_adapt", "no_decay_no_adapt",
+        "no_grad_averaging", "zero_leaf"])
+def test_lamb_five_steps_match_jax(kw, zero_leaf):
+    jp, _, tp, _ = _run(dict(kw), lamb=True, zero_leaf=zero_leaf)
+    _check(jp, tp)
+
+
+def test_lamb_master_weights_over_bf16_params():
+    jp, jstate, tp, topt = _run(dict(lr=1e-2, weight_decay=0.1,
+                                     master_weights=True),
+                                param_dtype="bfloat16", lamb=True)
+    for k, p in tp.items():
+        assert p.dtype == torch.bfloat16
+        np.testing.assert_allclose(topt.state[p]["master"].numpy(),
+                                   np.asarray(jstate["master"][k]),
+                                   rtol=1e-6, atol=1e-7)
+    _check(jp, tp, exact=True)
+
+
+def test_lamb_found_inf_skips_the_step_on_the_device():
+    jp, jstate, tp, topt = _run(dict(lr=1e-2, weight_decay=0.1),
+                                found_inf_at=1, grad_scale=8.0, lamb=True)
+    _check(jp, tp)
+    for k, p in tp.items():
+        assert int(topt.state[p]["step"]) == int(jstate["step"]) == STEPS - 1
+
+
+def test_lamb_clip_is_global_and_stays_on_the_device():
+    """The clip factor is the global norm over every gradient (one tensor's
+    rescaling shrinks another's update) and is a tensor, not a host
+    number."""
+    p1 = torch.nn.Parameter(torch.ones(4))
+    p2 = torch.nn.Parameter(torch.ones(4))
+    opt = FusedLAMB([p1, p2], lr=0.1, weight_decay=0.0, max_grad_norm=1.0)
+    p1.grad = torch.full((4,), 3.0)
+    p2.grad = torch.full((4,), 4.0)
+    opt.step()
+    assert isinstance(opt._clip, torch.Tensor)
+    assert float(opt._clip) == pytest.approx(10.0)
+    with pytest.raises(RuntimeError, match="AMSGrad"):
+        FusedLAMB([p1], amsgrad=True)
