@@ -14,12 +14,19 @@ JAX array. :func:`params_from_jax` maps it onto the ``state_dict`` keys of
   (``embedding/word_embeddings/weight`` — the tied LM head —
   ``embedding/position_embeddings``, ``lm_head/dense/bias``,
   ``binary_head/pooler/weight``, ``transformer/final_layernorm/…``);
-- weights stay ``[out, in]``, as both packages keep them.
+- weights stay ``[out, in]``, as both packages keep them;
+- a ResNet's stages are **lists** of block dicts (``layer1: [{...}, ...]``):
+  ``layer1/0/conv1`` maps to ``layer1.0.conv1``, and its conv weights stay
+  HWIO (the layout the fused kernels read), its fc kernel ``[in,
+  classes]``.
 
-:func:`params_to_jax` is the inverse (numpy leaves, layers restacked;
-bf16 leaves come back widened to float32, which is exact), and
-:func:`grads_to_jax` lays a model's ``.grad`` tensors out the same way, so
-they compare leaf by leaf with the JAX gradient tree.
+:func:`params_to_jax` is the inverse (numpy leaves, layers restacked,
+lists rebuilt; bf16 leaves come back widened to float32, which is exact),
+and :func:`grads_to_jax` lays a model's ``.grad`` tensors out the same way,
+so they compare leaf by leaf with the JAX gradient tree.
+:func:`state_from_jax` / :func:`state_to_jax` do the same for a ResNet's
+batch-norm running statistics (the JAX ``state`` tree, the port's
+buffers).
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ import numpy as np
 import torch
 
 __all__ = ["params_from_jax", "params_to_jax", "grads_to_jax",
-           "load_jax_params"]
+           "load_jax_params", "state_from_jax", "state_to_jax"]
 
 
 def _stacked(path) -> bool:
@@ -52,13 +59,27 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _walk(tree: Mapping[str, Any], prefix=()):
-    for key, value in tree.items():
+def _walk(tree, prefix=()):
+    """``(path, leaf)`` over nested mappings and lists (a list's entries
+    are keyed by their index)."""
+    items = (tree.items() if isinstance(tree, Mapping)
+             else enumerate(tree))
+    for key, value in items:
         path = prefix + (str(key),)
-        if isinstance(value, Mapping):
+        if isinstance(value, (Mapping, list, tuple)):
             yield from _walk(value, path)
         else:
             yield path, value
+
+
+def _lists(tree):
+    """Turn every dict whose keys are all indices back into a list."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _lists(v) for k, v in tree.items()}
+    if out and all(k.isdigit() for k in out):
+        return [out[k] for k in sorted(out, key=int)]
+    return out
 
 
 def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -90,7 +111,7 @@ def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         _put(tree, path, _to_numpy(tensor))
     for leaf, per_layer in layers.items():
         _put(tree, leaf, np.stack([per_layer[i] for i in sorted(per_layer)]))
-    return tree
+    return _lists(tree)
 
 
 def grads_to_jax(model: torch.nn.Module) -> Dict[str, Any]:
@@ -109,10 +130,37 @@ def _put(tree: Dict[str, Any], path, value) -> None:
     tree[path[-1]] = value
 
 
+def state_from_jax(state: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A ResNet's JAX batch-norm state (numpy leaves: ``stem/bn/mean``,
+    ``layer1/0/bn1/var``, ...) -> the port's buffer keys
+    (``stem.bn.mean``, ``layer1.0.bn1.var``, ...)."""
+    return {".".join(path): _to_tensor(leaf) for path, leaf in _walk(state)}
+
+
+def state_to_jax(model: torch.nn.Module) -> Dict[str, Any]:
+    """The model's buffers as the JAX state tree (numpy leaves, stages as
+    lists)."""
+    tree: Dict[str, Any] = {}
+    for name, buf in model.named_buffers():
+        _put(tree, tuple(name.split(".")), _to_numpy(buf))
+    return _lists(tree)
+
+
 @torch.no_grad()
-def load_jax_params(model: torch.nn.Module, tree: Mapping[str, Any]):
+def load_jax_params(model: torch.nn.Module, tree: Mapping[str, Any],
+                    state: Mapping[str, Any] = None):
     """Copy apex_tpu model params (numpy leaves) into ``model`` in place,
-    cast to each parameter's dtype and device; every key must match.
-    Returns the model."""
-    model.load_state_dict(params_from_jax(tree), strict=True)
+    cast to each parameter's dtype and device; every parameter key must
+    match. ``state`` (a ResNet's batch-norm state tree) loads the buffers
+    too, every one of them. Returns the model."""
+    values = params_from_jax(tree)
+    if state is not None:
+        values.update(state_from_jax(state))
+    missing, unexpected = model.load_state_dict(values, strict=False)
+    buffers = {name for name, _ in model.named_buffers()}
+    missing = [k for k in missing if state is not None or k not in buffers]
+    if missing or unexpected:
+        # the error load_state_dict(strict=True) raises
+        raise RuntimeError(f"load_jax_params: missing keys {missing}, "
+                           f"unexpected keys {unexpected}")
     return model

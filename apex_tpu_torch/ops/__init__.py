@@ -4,6 +4,7 @@ kernel, a CPU tensor runs the plain PyTorch version
 
 from apex_tpu_torch.ops._support import LAUNCHES, reset_launches
 from apex_tpu_torch.ops.attention import flash_attention
+from apex_tpu_torch.ops.conv_fused import conv1x1_bn_act, conv3x3_bn_act
 from apex_tpu_torch.ops.decode_attention import (
     fused_paged_decode_attention,
     paged_pages_for,
@@ -28,4 +29,5 @@ __all__ = ["LAUNCHES", "reset_launches", "flash_attention",
            "fused_rms_norm_affine", "fused_rope", "rope_freqs",
            "scaled_softmax", "scaled_masked_softmax",
            "scaled_upper_triang_masked_softmax",
-           "generic_scaled_masked_softmax"]
+           "generic_scaled_masked_softmax", "conv1x1_bn_act",
+           "conv3x3_bn_act"]

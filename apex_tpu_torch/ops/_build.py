@@ -68,6 +68,16 @@ _SIGNATURES = {
                          _I, _I, _I],
     # dy, y, dx, stream, rows, k, scale, dtype
     "apex_softmax_bwd": [_P, _P, _P, _P, _L, _I, _F, _I],
+    # x, a, b, w, c, y, partial, stats, stream, m, k, n, affine, relu, dtype
+    "apex_conv1x1_fwd": [_P] * 9 + [_I] * 6,
+    # x, a, b, w, c, y, partial, stats, stream, images, h, w, k, n, affine,
+    # relu, dtype
+    "apex_conv3x3_fwd": [_P] * 9 + [_I] * 8,
+    # x, a, b, w, c, y, dy, ds, dx, dw_partial, dw, dab_partial, dab, stream,
+    # m, k, n, chunk_rows, affine, relu, dtype
+    "apex_conv1x1_bwd": [_P] * 14 + [_I] * 7,
+    # as the 1x1, with images, h, w in place of m
+    "apex_conv3x3_bwd": [_P] * 14 + [_I] * 9,
 }
 
 _lock = threading.Lock()

@@ -28,7 +28,9 @@ LAUNCHES: Dict[str, int] = {"layer_norm_fwd": 0, "layer_norm_bwd": 0,
                             "flash_fwd": 0, "flash_bwd": 0,
                             "flash_packed_fwd": 0, "flash_packed_bwd": 0,
                             "paged_decode": 0, "softmax_fwd": 0,
-                            "softmax_bwd": 0}
+                            "softmax_bwd": 0, "conv1x1_fwd": 0,
+                            "conv1x1_bwd": 0, "conv3x3_fwd": 0,
+                            "conv3x3_bwd": 0}
 
 
 def reset_launches() -> None:

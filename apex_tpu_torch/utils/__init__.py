@@ -1,1 +1,2 @@
-"""Small shared helpers (counterpart of ``apex_tpu.utils``)."""
+"""Small shared helpers (counterpart of ``apex_tpu.utils``): activations,
+NHWC convolution, batch norm and FLOP counts."""

@@ -49,11 +49,36 @@ printing its own lines and raising on failure:
 17. enc card vs CPU — a small f32 BERT with a padding mask and LAMB, and a
               small encoder-decoder with enc_lengths, train 3 steps on the
               card and on the CPU: losses and every step-1 gradient leaf
-              agree.
+              agree;
+18. kernel J/K — the fused 1x1 conv forward and backward vs their plain
+              versions, f32 and bf16, with a random stats cotangent:
+              ResNet-50's layer1 conv3 (affine + relu), layer4 conv1 and
+              downsample (no affine; the downsample's 2M weights were
+              gated off the TPU), and a 200-row tail in every (affine,
+              relu) combination; two backward runs bitwise equal;
+19. kernel L/M — the fused 3x3 conv forward and backward, the same checks
+              at [256,56,56,64], [256,28,28,128], [256,7,7,512] (the first
+              and last gated off the TPU) and an odd [3,5,9,16] -> 32;
+20. rn50_train — ResNet-50 (224 px, batch 256, bf16 compute over fp32
+              params, fused_conv, FusedSGD lr 0.1 momentum 0.9 wd 1e-4 with
+              master weights) takes 2 + 8 steps; every loss finite, the
+              last below the first, and Kernels J, K, L, M launched exactly
+              36, 36, 13 and 13 times a step, every other kernel 0;
+21. rn50 card vs CPU — ResNet-50 at 64 px, batch 4, 8 classes, f32:
+              two fused blocks alone (layer1.1 and layer2.0: output, input
+              and parameter gradients, new batch-norm state to 2e-5 of each
+              leaf's largest magnitude), which with the checks of phases 18
+              and 19 decide Kernels K and M; then, as a check of the
+              model's wiring, the step-1 loss, every gradient leaf and the
+              batch-norm state
+              with ``zero_init_residual=False`` (gradients held to the
+              noise floor that 1e-7 perturbations of the input show on the
+              CPU), then three FusedSGD steps with the recipe's init.
 
 Then one JSON line of per-kernel numbers (launches from the phase that
 drives each kernel's slice: serve for A-C, train for D-F, bert_train for G
-and H, t5_train for I, with every path's counts in ``launches_by_path``;
+and H, t5_train for I, rn50_train for J-M, with every path's counts in
+``launches_by_path``;
 times from CUDA events in this run; ``bound_ms`` from this run's shapes
 over the H100's published peaks), and last ``{"ok": true, "device":
 {...}}``.
@@ -89,7 +114,8 @@ WARMUP_STEPS, TIMED_STEPS = 2, 8
 #: every kernel's launch counter
 ALL_KERNELS = ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd", "flash_bwd",
                "flash_packed_fwd", "flash_packed_bwd", "paged_decode",
-               "softmax_fwd", "softmax_bwd")
+               "softmax_fwd", "softmax_bwd", "conv1x1_fwd", "conv1x1_bwd",
+               "conv3x3_fwd", "conv3x3_bwd")
 #: BERT-base (benchmarks/bert_lamb.py:20-27) and its launches a step: 2 LN
 #: per layer, the final LN and the LM head's; one masked softmax per layer
 BERT = dict(num_layers=12, hidden_size=768, num_attention_heads=12,
@@ -107,6 +133,13 @@ T5_BATCH, T5_ENC, T5_DEC = 16, 512, 114
 T5_KERNELS = {"layer_norm_fwd": 62, "layer_norm_bwd": 62,
               "flash_packed_fwd": 24, "flash_packed_bwd": 24,
               "flash_fwd": 12, "flash_bwd": 12}
+#: ResNet-50 as benchmarks/rn50_dp.py:21-31 trains it, on the fused path:
+#: 16 bottlenecks run conv1 and conv3 through the 1x1 kernels and the 4
+#: downsamples add 4; the 13 stride-1 conv2s take the 3x3 kernels (the 3
+#: stride-2 ones keep cuDNN's conv)
+RN50_BATCH, RN50_SIZE = 256, 224
+RN50_KERNELS = {"conv1x1_fwd": 36, "conv1x1_bwd": 36, "conv3x3_fwd": 13,
+                "conv3x3_bwd": 13}
 
 
 def log(phase: str, **fields) -> None:
@@ -900,6 +933,216 @@ def phase_flash_bwd(timer: Timer) -> dict:
     return record
 
 
+def rel_norm(got: torch.Tensor, want: torch.Tensor) -> float:
+    """||got - want|| / ||want|| in fp32: the norm-wise error of an fp32
+    sum taken in another order."""
+    g, w = got.float(), want.float()
+    return float((g - w).norm() / w.norm().clamp_min(1e-30))
+
+
+#: norm-wise tolerance of every fp32 sum of the conv kernels (y and dx in
+#: f32; stats, dW, da and db in both dtypes): the same fp32 products summed
+#: in another order
+CONV_SUM_TOL = 1e-5
+#: (name, kind, x shape, w shape, (affine, relu) cases, NHW of a 1x1's rows
+#: for the library call, timed as the kernel's record)
+CONV_CASES = [
+    ("layer1_conv3", "1x1", (802816, 64), (64, 256), [(True, True)],
+     (256, 56, 56), True),
+    ("layer4_conv1", "1x1", (12544, 2048), (2048, 512), [(False, False)],
+     (256, 7, 7), False),
+    ("layer4_down", "1x1", (12544, 1024), (1024, 2048), [(False, False)],
+     (256, 7, 7), False),
+    ("tail_200", "1x1", (200, 64), (64, 96),
+     [(False, False), (True, False), (True, True)], None, False),
+    ("layer1_3x3", "3x3", (256, 56, 56, 64), (3, 3, 64, 64), [(True, True)],
+     None, True),
+    ("layer2_3x3", "3x3", (256, 28, 28, 128), (3, 3, 128, 128),
+     [(True, True)], None, False),
+    ("layer4_3x3", "3x3", (256, 7, 7, 512), (3, 3, 512, 512), [(True, True)],
+     None, False),
+    ("odd", "3x3", (3, 5, 9, 16), (3, 3, 16, 32),
+     [(False, False), (True, False), (True, True)], None, False),
+]
+
+
+def _conv_bytes_flops(kind, x_shape, w_shape, affine, esz) -> tuple:
+    """``(fwd bytes, fwd FLOPs, bwd bytes, bwd FLOPs)`` a fused conv must
+    move and do: each input read once, each output written once; FLOPs of
+    the products only (2 a multiply-add; the backward has two)."""
+    m = math.prod(x_shape[:-1])
+    k, n = w_shape[-2], w_shape[-1]
+    taps = 9 if kind == "3x3" else 1
+    wn = taps * k * n
+    vec = (2 * k if affine else 0) + n             # a, b and the shift
+    fwd = (m * k + wn + m * n) * esz + (vec + 2 * n) * 4
+    # reads x, w, y, dy, a, b, c, ds; writes dx, dW (fp32), da and db
+    bwd = (2 * m * k + wn + 2 * m * n) * esz + (vec + 2 * n + wn
+                                                 + (2 * k if affine else 0)) * 4
+    flops = 2.0 * m * taps * k * n
+    return fwd, flops, bwd, 2 * flops
+
+
+def _conv_library(kind, x, w, dy, nhw):
+    """cuDNN's convolution alone (no affine, no stats) on bf16
+    channels-last views: ``(forward fn, backward fn)``, the backward its
+    input and weight gradients."""
+    if kind == "1x1":
+        b, h, wd = nhw
+        x4 = x.reshape(b, h, wd, -1)
+        dy4 = dy.reshape(b, h, wd, -1)
+        w4 = w.t().reshape(w.shape[1], w.shape[0], 1, 1)
+        pad = 0
+    else:
+        x4, dy4, pad = x, dy, 1
+        w4 = w.permute(3, 2, 0, 1)
+    xv = x4.permute(0, 3, 1, 2).detach().requires_grad_()
+    wv = w4.contiguous(memory_format=torch.channels_last).requires_grad_()
+    out = F.conv2d(xv, wv, padding=pad)
+    dyv = dy4.permute(0, 3, 1, 2)
+    return (lambda: F.conv2d(xv, wv, padding=pad),
+            lambda: torch.autograd.grad(out, (xv, wv), dyv,
+                                        retain_graph=True))
+
+
+def phase_conv(timer: Timer) -> tuple:
+    """Kernels J-M against their plain versions on the same inputs, with a
+    random stats cotangent: bf16 y and dx within 1 ulp of the plain
+    version run in fp32 and rounded once; f32 y and dx, and every fp32 sum
+    (stats, dW, da, db), norm-wise within ``CONV_SUM_TOL``; two backward
+    runs bitwise equal. The layer1 bf16 cases are the records; every bf16
+    case at a ResNet-50 shape is timed against cuDNN's conv alone."""
+    from apex_tpu_torch.ops import conv_fused as cf
+    ops = {"1x1": (cf.conv1x1_fwd_cuda, cf.conv1x1_fwd_plain,
+                   cf.conv1x1_bwd_cuda, cf.conv1x1_bwd_plain),
+           "3x3": (cf.conv3x3_fwd_cuda, cf.conv3x3_fwd_plain,
+                   cf.conv3x3_bwd_cuda, cf.conv3x3_bwd_plain)}
+    names = {"1x1": ("j", "k", "conv1x1"), "3x3": ("l", "m", "conv3x3")}
+    replaces = {"conv1x1_fwd": 63, "conv1x1_bwd": 136, "conv3x3_fwd": 356,
+                "conv3x3_bwd": 446}
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    records = {}
+    for name, kind, x_shape, w_shape, acts, nhw, record in CONV_CASES:
+        fwd_c, fwd_p, bwd_c, bwd_p = ops[kind]
+        fk, bk, stem = names[kind]
+        k, n = w_shape[-2], w_shape[-1]
+        fan_in = math.prod(w_shape[:-1])
+        for affine, relu in acts:
+            for dtype in (torch.float32, torch.bfloat16):
+                rnd = lambda *shape: torch.randn(  # noqa: E731
+                    shape, device="cuda", generator=gen)
+                x = rnd(*x_shape).to(dtype)
+                w = (rnd(*w_shape) * fan_in ** -0.5).to(dtype)
+                a = (torch.rand(k, device="cuda", generator=gen) + 0.5
+                     if affine else None)
+                b = rnd(k) if affine else None
+                c = 0.1 * rnd(n)
+                dy = rnd(*x_shape[:-1], n).to(dtype)
+                ds = 0.1 * rnd(2, n)
+                args = (a, b, w, c)
+                y, st = fwd_c(x, *args, affine, relu)
+                ry, rst = fwd_p(x, *args, affine, relu)
+                got = bwd_c(x, *args, ry, dy, ds, affine, relu)
+                again = bwd_c(x, *args, ry, dy, ds, affine, relu)
+                want = bwd_p(x, *args, ry, dy, ds, affine, relu)
+                torch.cuda.synchronize()
+                if not all((g is None and h is None) or torch.equal(g, h)
+                           for g, h in zip(got, again)):
+                    raise AssertionError(f"kernel {bk} {name} {dtype}: two "
+                                         f"runs differ")
+                errs = {}
+                outs = [("y", y, ry), ("dx", got[0], want[0])]
+                sums = [("stats", st, rst), ("dw", got[1], want[1])]
+                if affine:
+                    sums.append(("da_db", got[2], want[2]))
+                for oname, g, h in outs:
+                    if dtype == torch.bfloat16:
+                        errs[oname] = bf16_ulps(g, h)
+                        ok = errs[oname] <= 1.0
+                    else:
+                        errs[oname] = rel_norm(g, h)
+                        ok = errs[oname] <= CONV_SUM_TOL
+                    if not ok or not torch.isfinite(g).all():
+                        raise AssertionError(
+                            f"kernel {fk if oname == 'y' else bk} {name} "
+                            f"{dtype} affine={affine} relu={relu}: {oname} "
+                            f"err {errs[oname]} (1 bf16 ulp / {CONV_SUM_TOL} "
+                            f"norm-wise)")
+                for sname, g, h in sums:
+                    errs[sname] = rel_norm(g, h)
+                    if errs[sname] > CONV_SUM_TOL:
+                        raise AssertionError(
+                            f"kernel {fk if sname == 'stats' else bk} "
+                            f"{name} {dtype} affine={affine} relu={relu}: "
+                            f"{sname} norm-wise err {errs[sname]} "
+                            f"(tolerance {CONV_SUM_TOL})")
+                max_err = {"y": float((y.float() - ry.float()).abs().max()),
+                           "dx": float((got[0].float()
+                                        - want[0].float()).abs().max())}
+                timed = {}
+                if dtype == torch.bfloat16 and (nhw or kind == "3x3") \
+                        and x.numel() > 10 ** 6:
+                    fb, ff, bb, bf = _conv_bytes_flops(kind, x_shape,
+                                                       w_shape, affine, 2)
+                    timed["fwd_bound"] = bound_ms(fb, ff, dtype)
+                    timed["bwd_bound"] = bound_ms(bb, bf, dtype)
+                    timed["fwd"] = timer(lambda: fwd_c(x, *args, affine,
+                                                       relu), iters=10)
+                    timed["bwd"] = timer(lambda: bwd_c(x, *args, ry, dy, ds,
+                                                       affine, relu),
+                                         iters=10)
+                    lib_f, lib_b = _conv_library(kind, x, w, dy, nhw)
+                    timed["fwd_lib"] = timer(lib_f, iters=10)
+                    timed["bwd_lib"] = timer(lib_b, iters=10)
+                    if record:
+                        timed["fwd_plain"] = timer(
+                            lambda: fwd_p(x, *args, affine, relu), iters=5,
+                            warmup=1)
+                        timed["bwd_plain"] = timer(
+                            lambda: bwd_p(x, *args, ry, dy, ds, affine,
+                                          relu), iters=5, warmup=1)
+                for kname, which in ((fk, "fwd"), (bk, "bwd")):
+                    fields = {}
+                    if timed:
+                        bms, by = timed[f"{which}_bound"]
+                        fields = dict(ms=f"{timed[which]:.5f}",
+                                      library_ms=f"{timed[which + '_lib']:.5f}",
+                                      bound_ms=f"{bms:.5f}", bound_by=by)
+                        if record:
+                            fields["plain_ms"] = \
+                                f"{timed[which + '_plain']:.5f}"
+                    keys = (("y", "stats") if which == "fwd"
+                            else ("dx", "dw", "da_db"))
+                    log(f"kernel_{kname}", case=name, kind=kind,
+                        x=list(x_shape), w=list(w_shape), affine=affine,
+                        relu=relu, dtype=str(dtype)[6:],
+                        **{f"{e}_err": f"{errs[e]:.3e}" for e in keys
+                           if e in errs},
+                        tol="1_bf16_ulp/1e-5_normwise", **fields,
+                        **({"bitwise_repeat": True} if which == "bwd"
+                           else {}))
+                if record and dtype == torch.bfloat16:
+                    shape = (f"x[{','.join(map(str, x_shape))}] "
+                             f"w[{','.join(map(str, w_shape))}] bf16"
+                             f"{' affine+relu' if affine and relu else ''}")
+                    for which, oname in (("fwd", "y"), ("bwd", "dx")):
+                        kname = f"{stem}_{which}"
+                        bms, by = timed[f"{which}_bound"]
+                        records[kname] = dict(
+                            name=kname, route="cuda",
+                            source=f"apex_tpu_torch/csrc/{kname}.cu",
+                            replaces="apex_tpu/ops/conv_fused.py:"
+                                     f"{replaces[kname]}",
+                            shape=shape, max_abs_err=max_err[oname],
+                            ms=timed[which], plain_ms=timed[which + "_plain"],
+                            bound_ms=bms, bound_by=by,
+                            library_ms=timed[which + "_lib"])
+                del x, w, dy, y, ry, got, again, want
+    torch.cuda.empty_cache()
+    return tuple(records[k] for k in ("conv1x1_fwd", "conv1x1_bwd",
+                                      "conv3x3_fwd", "conv3x3_bwd"))
+
+
 def _requests(n, vocab, max_new, seed):
     from apex_tpu_torch.serving import Request
     g = torch.Generator().manual_seed(seed)
@@ -1064,12 +1307,14 @@ def _timed_steps(step, batch) -> tuple:
 
 
 def _report_train(phase, model_name, losses, times, launches, peak_gb,
-                  per_step, tokens, flops, positions=None, **extra) -> None:
+                  per_step, tokens, flops, positions=None, unit="tokens",
+                  **extra) -> None:
     """Print the phase's line; raise unless every loss is finite, the last
     below the first, and every kernel launched ``per_step`` times a step
-    (0 for a kernel not listed). ``tokens`` are the tokens a step trains
-    (padding left out); ``positions`` (if padded) and ``flops`` count every
-    position the step computes, padding included."""
+    (0 for a kernel not listed). ``tokens`` are the tokens (or, with
+    ``unit``, the images) a step trains (padding left out); ``positions``
+    (if padded) and ``flops`` count every position the step computes,
+    padding included."""
     steps = len(losses)
     timed = sorted(times[WARMUP_STEPS:])
     step_s = timed[len(timed) // 2]
@@ -1078,7 +1323,7 @@ def _report_train(phase, model_name, losses, times, launches, peak_gb,
         step_ms_median=f"{1e3 * step_s:.2f}",
         step_ms=json.dumps([round(1e3 * t, 2) for t in times]).replace(
             " ", ""),
-        tokens_per_s=f"{tokens / step_s:.1f}",
+        **{f"{unit}_per_s": f"{tokens / step_s:.1f}"},
         **({} if positions is None
            else dict(positions_per_s=f"{positions / step_s:.1f}")),
         mfu=f"{flops / step_s / PEAK_FLOPS[torch.bfloat16]:.4f}",
@@ -1318,12 +1563,192 @@ def phase_enc_card_vs_cpu() -> None:
                  model="enc_dec_enc_lengths_adam", layers=2, hidden=128)
 
 
+def _rn50_model(cfg_kw, device, seed=0, master_weights=False):
+    """ResNet with weights from ``seed``, trained with cross entropy on
+    the fp32 logits (benchmarks/rn50_dp.py's loss) and FusedSGD as
+    rn50_dp configures it."""
+    from apex_tpu_torch.models import ResNet, ResNetConfig
+    from apex_tpu_torch.optimizers import FusedSGD
+    from apex_tpu_torch.training import make_train_step
+    model = ResNet(ResNetConfig(**cfg_kw), device=device,
+                   generator=torch.Generator().manual_seed(seed))
+    opt = FusedSGD(model.parameters(), lr=0.1, momentum=0.9,
+                   weight_decay=1e-4, master_weights=master_weights)
+    return model, make_train_step(
+        lambda b: F.cross_entropy(model(b[0]), b[1]), opt)
+
+
+def _rn50_batch(b, size, classes, device, seed):
+    """NHWC images and labels from ``seed``."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, size, size, 3, generator=g)
+    y = torch.randint(0, classes, (b,), generator=g)
+    return x.to(device), y.to(device)
+
+
+def phase_rn50_train(profile: bool = False) -> dict:
+    """ResNet-50 on the fused conv + batch-norm path: returns the
+    launches."""
+    from apex_tpu_torch.utils.flops import resnet50_train_flops
+    cfg = dict(depth=50, num_classes=1000, compute_dtype=torch.bfloat16,
+               fused_conv=True)
+    model, step = _rn50_model(cfg, "cuda", master_weights=True)
+    batch = _rn50_batch(RN50_BATCH, RN50_SIZE, 1000, "cuda", seed=14)
+    n_params = sum(p.numel() for p in model.parameters())
+    losses, times, launches, peak = _timed_steps(step, batch)
+    _report_train("rn50_train", "resnet50 bf16/fp32 fused_conv random-init",
+                  losses, times, launches, peak, RN50_KERNELS, RN50_BATCH,
+                  resnet50_train_flops(RN50_BATCH, RN50_SIZE), unit="images",
+                  batch=RN50_BATCH, image=RN50_SIZE, n_params=n_params)
+    if profile:
+        profile_device("rn50_train", lambda: [step(batch) for _ in range(2)],
+                       lambda: dict(steps=2, batch=RN50_BATCH,
+                                    image=RN50_SIZE))
+    return launches
+
+
+def _leaf_norm(t) -> float:
+    return float(t.double().norm())
+
+
+def _rn50_blocks_card_vs_cpu(cfg) -> None:
+    """Two fused bottlenecks of the model, where the gradient is well
+    conditioned: layer1.1 (Kernels J, L, K, M) and layer2.0 (stride 2 with
+    the downsample: J and K beside cuDNN's conv2). Output, new batch-norm
+    buffers and the gradients of the input and every parameter agree to
+    2e-5 of each leaf's largest magnitude (+ 1e-6 for the buffers)."""
+    worst = 0.0
+    for si, bi in ((0, 1), (1, 0)):
+        got = {}
+        for device in ("cuda", "cpu"):
+            model, _ = _rn50_model(cfg, device, seed=3)
+            blk = model.stages()[si][bi]
+            g = torch.Generator().manual_seed(5)
+            x = torch.randn(4, 8, 8, blk.conv1.shape[2], generator=g)
+            hw = 8 // blk.stride
+            r = torch.randn(4, hw, hw, blk.conv3.shape[3], generator=g)
+            xt = x.to(device).requires_grad_()
+            out = model._block_apply_fused(blk, xt)
+            (out * r.to(device)).sum().backward()
+            leaves = {"out": out, "grad x": xt.grad}
+            leaves.update({f"grad {n}": p.grad
+                           for n, p in blk.named_parameters()})
+            leaves.update({f"buffer {n}": b for n, b in blk.named_buffers()})
+            got[device] = {n: t.detach().cpu().clone() for n, t in
+                           leaves.items()}
+        for n, want in got["cpu"].items():
+            atol = 1e-6 if n.startswith("buffer") else 0.0
+            err = float((got["cuda"][n] - want).abs().max())
+            ratio = err / (2e-5 * float(want.abs().max()) + atol + 1e-30)
+            worst = max(worst, ratio)
+            if ratio > 1.0:
+                raise AssertionError(
+                    f"rn50_card_vs_cpu: block layer{si + 1}.{bi} leaf {n} "
+                    f"off by {err} (2e-5 of max {float(want.abs().max())})")
+    log("rn50_card_vs_cpu", part="fused_blocks_layer1.1_layer2.0",
+        leaves_per_block=len(got["cpu"]), worst_over_tol=f"{worst:.3f}")
+
+
+def phase_rn50_card_vs_cpu() -> None:
+    """ResNet-50 at 64 px, batch 4, 8 classes, f32 (TF32 off), on the card
+    and on the CPU from one seed. Kernels K and M are decided by
+    ``phase_conv``'s checks at the main path's shapes and by part 0 here;
+    parts 1 and 2 check the model's wiring, since the whole model's
+    gradient is too chaotic to catch a dW that is off by a few percent.
+
+    0. Two fused blocks in isolation (``_rn50_blocks_card_vs_cpu``), to
+       2e-5 of each leaf's largest magnitude.
+    1. ``zero_init_residual=False``, one step: the loss to rtol 2e-4, the
+       batch-norm buffers to 1e-3 of each leaf's largest magnitude + 1e-5.
+       This model's f32 gradient is chaotic at batch 4 (a 1e-7 relative
+       perturbation of the input moves it by ~2% of its norm), so each
+       gradient leaf is held within 8x, and the whole tree within 3x, the
+       largest change that three such perturbations make on the CPU (or
+       1e-5 of the leaf's norm).
+    2. The recipe's ``zero_init_residual=True``, three FusedSGD steps: the
+       losses to rtol 1e-4, then every parameter and buffer to 1e-4 of its
+       leaf's largest magnitude + 1e-6."""
+    cfg = dict(depth=50, num_classes=8, fused_conv=True,
+               zero_init_residual=False)
+    _rn50_blocks_card_vs_cpu(cfg)
+    x, y = _rn50_batch(4, 64, 8, "cpu", seed=15)
+
+    def one_step(device, xx):
+        model, _ = _rn50_model(cfg, device, seed=3)
+        loss = F.cross_entropy(model(xx.to(device)), y.to(device))
+        loss.backward()
+        return (float(loss.detach()), _grad_tree(model),
+                {n: b.detach().cpu().clone()
+                 for n, b in model.named_buffers()})
+
+    loss_c, grads_c, bufs_c = one_step("cuda", x)
+    loss_h, grads_h, bufs_h = one_step("cpu", x)
+    floors = []
+    for seed in (9, 10, 11):
+        noise = torch.randn(x.shape, generator=torch.Generator().manual_seed(
+            seed))
+        floors.append(one_step("cpu", x * (1 + 1e-7 * noise))[1])
+    loss_rel = abs(loss_c - loss_h) / abs(loss_h)
+    buf_excess = max(float((bufs_c[n] - v).abs().max()
+                           - 1e-3 * v.abs().max() - 1e-5)
+                     for n, v in bufs_h.items())
+    worst_ratio, worst_leaf = 0.0, None
+    for n, want in grads_h.items():
+        floor = max(_leaf_norm(f[n] - want) for f in floors)
+        ratio = _leaf_norm(grads_c[n] - want) / max(
+            floor, 1e-5 * _leaf_norm(want), 1e-30)
+        if ratio >= worst_ratio:
+            worst_ratio, worst_leaf = ratio, n
+    tree = math.sqrt(sum(_leaf_norm(grads_c[n] - v) ** 2
+                         for n, v in grads_h.items()))
+    tree_floor = max(math.sqrt(sum(_leaf_norm(f[n] - v) ** 2
+                                   for n, v in grads_h.items()))
+                     for f in floors)
+    log("rn50_card_vs_cpu", part="step1_zero_init_residual_false",
+        image=64, batch=4, loss_cuda=f"{loss_c:.7f}", loss_cpu=f"{loss_h:.7f}",
+        loss_rel_err=f"{loss_rel:.2e}", grad_leaves=len(grads_h),
+        worst_leaf_over_floor=f"{worst_ratio:.3f}", worst_leaf=worst_leaf,
+        tree_err=f"{tree:.3e}", tree_floor=f"{tree_floor:.3e}",
+        buffer_excess=f"{buf_excess:.2e}")
+    if loss_rel > 2e-4 or worst_ratio > 8.0 or tree > 3 * tree_floor \
+            or buf_excess > 0:
+        raise AssertionError(
+            f"rn50_card_vs_cpu: loss rel {loss_rel} (2e-4), leaf "
+            f"{worst_leaf} at {worst_ratio}x its noise floor (8x), tree "
+            f"{tree} vs floor {tree_floor} (3x), buffers {buf_excess} past "
+            f"1e-3 rel + 1e-5")
+    cfg3 = dict(cfg, zero_init_residual=True)
+    losses, states = {}, {}
+    for device in ("cuda", "cpu"):
+        model, step = _rn50_model(cfg3, device, seed=3)
+        batch = (x.to(device), y.to(device))
+        losses[device] = [float(step(batch)) for _ in range(3)]
+        states[device] = {n: t.detach().cpu().clone()
+                          for n, t in model.state_dict().items()}
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                  losses["cpu"]))
+    excess = max(float((states["cuda"][n].float() - v.float()).abs().max()
+                       - 1e-4 * v.float().abs().max() - 1e-6)
+                 for n, v in states["cpu"].items())
+    log("rn50_card_vs_cpu", part="three_sgd_steps_zero_init_residual_true",
+        losses_cuda=json.dumps(losses["cuda"]).replace(" ", ""),
+        losses_cpu=json.dumps(losses["cpu"]).replace(" ", ""),
+        loss_rel_err=f"{rel:.2e}", state_leaves=len(states["cpu"]),
+        state_excess=f"{excess:.2e}")
+    if rel > 1e-4 or excess > 0 or not losses["cuda"][-1] < \
+            losses["cuda"][0]:
+        raise AssertionError(f"rn50_card_vs_cpu: three steps, loss rel "
+                             f"{rel} (1e-4), state excess {excess}")
+
+
 #: the phase whose run is each kernel's main path
 MAIN_PATH = {"layer_norm_fwd": "serve", "flash_fwd": "serve",
              "paged_decode": "serve", "layer_norm_bwd": "train",
              "flash_packed_fwd": "train", "flash_packed_bwd": "train",
              "softmax_fwd": "bert_train", "softmax_bwd": "bert_train",
-             "flash_bwd": "t5_train"}
+             "flash_bwd": "t5_train", "conv1x1_fwd": "rn50_train",
+             "conv1x1_bwd": "rn50_train", "conv3x3_fwd": "rn50_train",
+             "conv3x3_bwd": "rn50_train"}
 
 
 def main() -> int:
@@ -1343,7 +1768,7 @@ def main() -> int:
     records = [phase_layer_norm(timer), phase_flash(timer),
                phase_decode(timer), phase_layer_norm_bwd(timer),
                *phase_packed(timer), *phase_softmax(timer),
-               phase_flash_bwd(timer)]
+               phase_flash_bwd(timer), *phase_conv(timer)]
     paths = {"serve": phase_serve(args.profile)}
     phase_card_vs_cpu()
     paths["train"] = phase_train(args.profile)
@@ -1351,6 +1776,8 @@ def main() -> int:
     paths["bert_train"] = phase_bert_train(args.profile)
     paths["t5_train"] = phase_t5_train(args.profile)
     phase_enc_card_vs_cpu()
+    paths["rn50_train"] = phase_rn50_train(args.profile)
+    phase_rn50_card_vs_cpu()
     for rec in records:
         name = rec["name"]
         rec["launches"] = paths[MAIN_PATH[name]][name]

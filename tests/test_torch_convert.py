@@ -1,6 +1,7 @@
-"""``apex_tpu_torch.convert``: apex_tpu's GPT, BERT and encoder-decoder
-parameter trees (as numpy) onto the port's models and back, leaf for leaf,
-by shape and value (exact: a conversion is a copy)."""
+"""``apex_tpu_torch.convert``: apex_tpu's GPT, BERT, encoder-decoder and
+ResNet parameter trees (as numpy; the ResNet's stages are lists, and its
+batch-norm state a second tree) onto the port's models and back, leaf for
+leaf, by shape and value (exact: a conversion is a copy)."""
 
 import jax
 import jax.numpy as jnp
@@ -12,15 +13,21 @@ from apex_tpu.models import GPTModel as JaxGPT
 from apex_tpu.models import TransformerConfig as JaxConfig
 from apex_tpu.models.bert import BertModel as JaxBert
 from apex_tpu.models.encoder_decoder import EncoderDecoderModel as JaxEncDec
+from apex_tpu.models.resnet import ResNet as JaxResNet
+from apex_tpu.models.resnet import ResNetConfig as JaxResNetConfig
 from apex_tpu_torch.convert import (
     load_jax_params,
     params_from_jax,
     params_to_jax,
+    state_from_jax,
+    state_to_jax,
 )
 from apex_tpu_torch.models import (
     BertModel,
     EncoderDecoderModel,
     GPTModel,
+    ResNet,
+    ResNetConfig,
     TransformerConfig,
 )
 
@@ -34,11 +41,13 @@ VARIANTS = {"learned": {},
 
 
 def _leaves(tree, prefix=()):
-    for k, v in sorted(tree.items()):
-        if isinstance(v, dict):
-            yield from _leaves(v, prefix + (k,))
+    items = (sorted(tree.items()) if isinstance(tree, dict)
+             else enumerate(tree))
+    for k, v in items:
+        if isinstance(v, (dict, list)):
+            yield from _leaves(v, prefix + (str(k),))
         else:
-            yield prefix + (k,), v
+            yield prefix + (str(k),), v
 
 
 @pytest.mark.parametrize("params_dtype", ["float32", "bfloat16"])
@@ -117,3 +126,47 @@ def test_round_trip_bert_and_encoder_decoder(jax_cls, cls):
     for (path, a), (_, b) in zip(want, got):
         np.testing.assert_array_equal(b, np.asarray(a, np.float32), path)
 
+
+
+def _assert_same_tree(back, tree):
+    want, got = list(_leaves(tree)), list(_leaves(back))
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (path, a), (_, b) in zip(want, got):
+        assert b.shape == a.shape, path
+        np.testing.assert_array_equal(b, np.asarray(a, np.float32), path)
+
+
+@pytest.mark.parametrize("depth", [18, 50])
+def test_resnet_round_trip_params_and_state(depth):
+    """Stages are lists of block dicts: ``layer1/0/conv1`` is the port's
+    ``layer1.0.conv1`` (HWIO kept); the batch-norm state loads into the
+    buffers and comes back as the JAX state tree, lists and all."""
+    jm = JaxResNet(JaxResNetConfig(depth=depth, num_classes=10, width=16))
+    params, state = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(2)))
+    rng = np.random.RandomState(0)
+    state = jax.tree.map(lambda v: v + rng.rand(*v.shape).astype(v.dtype),
+                         state)
+    model = ResNet(ResNetConfig(depth=depth, num_classes=10, width=16),
+                   device="cpu")
+    load_jax_params(model, params, state)
+    assert model.layer1[0].conv1.shape == params["layer1"][0]["conv1"].shape
+    assert isinstance(params_to_jax(dict(model.named_parameters()))
+                      ["layer1"], list)
+    _assert_same_tree(params_to_jax(dict(model.named_parameters())), params)
+    _assert_same_tree(state_to_jax(model), state)
+    assert set(state_from_jax(state)) == {n for n, _ in model.named_buffers()}
+
+
+def test_resnet_load_checks_keys():
+    """Parameters must all be given; buffers only when a state is."""
+    jm = JaxResNet(JaxResNetConfig(depth=18, num_classes=4, width=8))
+    params, state = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(3)))
+    model = ResNet(ResNetConfig(depth=18, num_classes=4, width=8),
+                   device="cpu")
+    load_jax_params(model, params)              # buffers keep their values
+    del state["layer4"][1]["bn2"]
+    with pytest.raises(RuntimeError, match="layer4.1.bn2.mean"):
+        load_jax_params(model, params, state)
+    del params["fc"]
+    with pytest.raises(RuntimeError, match="fc.kernel"):
+        load_jax_params(model, params)

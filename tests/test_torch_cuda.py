@@ -16,9 +16,13 @@ sliding window and sentinel pages, the masked softmax forward and
 backward (padding masks with fully masked rows read through their broadcast
 strides, key masks, causal, rows of 17 to 4097, a scale), and the 4D flash
 backward (cross-attention with ``kv_lengths``, a 0 length, causal with the
-``sk - sq`` offset, GQA, windows; bitwise repeatable). Tolerances: f32 atol
-1e-4 (summation order only, TF32 off; the softmax 1e-5); bf16 1 ulp of an
-fp32 reference rounded to bf16.
+``sk - sq`` offset, GQA, windows; bitwise repeatable), and the fused 1x1
+and 3x3 conv + batch-norm kernels forward and backward (every ``(affine,
+relu)`` combination, row and channel counts off the 64-wide tiles, images
+of 1 x 1 to 14 x 14, a stats cotangent; bitwise repeatable). Tolerances:
+f32 atol 1e-4 (summation order only, TF32 off; the softmax 1e-5); bf16 1
+ulp of an fp32 reference rounded to bf16; the conv kernels' fp32 sums
+(y and dx in f32, stats, dW, da, db) norm-wise 1e-5.
 """
 
 import math
@@ -41,6 +45,18 @@ from apex_tpu_torch.ops.attention import (
     flash_packed_fwd_cuda,
     flash_packed_fwd_plain,
     hash_keep,
+)
+from apex_tpu_torch.ops.conv_fused import (
+    conv1x1_bn_act,
+    conv1x1_bwd_cuda,
+    conv1x1_bwd_plain,
+    conv1x1_fwd_cuda,
+    conv1x1_fwd_plain,
+    conv3x3_bn_act,
+    conv3x3_bwd_cuda,
+    conv3x3_bwd_plain,
+    conv3x3_fwd_cuda,
+    conv3x3_fwd_plain,
 )
 from apex_tpu_torch.ops.decode_attention import (
     append_rows,
@@ -452,3 +468,90 @@ def test_flash_attention_autograd_on_the_card(gen):
                            o.detach(), lse, kvl, 1.0 / math.sqrt(d), False)
     for g, w in zip((q.grad, k.grad, v.grad), want):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
+
+
+#: (kind, x shape, w shape): ragged rows and channels (1x1), a 1 x 1 image,
+#: odd and ResNet-like images (3x3)
+CONV = {
+    "1x1_tail": ("1x1", (200, 64), (64, 96)),
+    "1x1_ragged": ("1x1", (4133, 96), (96, 160)),
+    "1x1_wide": ("1x1", (392, 1024), (1024, 2048)),
+    "3x3_odd": ("3x3", (3, 5, 9, 16), (3, 3, 16, 32)),
+    "3x3_1x1_image": ("3x3", (4, 1, 1, 24), (3, 3, 24, 40)),
+    "3x3_14": ("3x3", (4, 14, 14, 64), (3, 3, 64, 128)),
+    "3x3_7_wide": ("3x3", (2, 7, 7, 512), (3, 3, 512, 512)),
+}
+CONV_OPS = {"1x1": (conv1x1_fwd_cuda, conv1x1_fwd_plain, conv1x1_bwd_cuda,
+                    conv1x1_bwd_plain),
+            "3x3": (conv3x3_fwd_cuda, conv3x3_fwd_plain, conv3x3_bwd_cuda,
+                    conv3x3_bwd_plain)}
+
+
+def _norm_rel(got, want):
+    g, w = got.float(), want.float()
+    return float((g - w).norm() / w.norm().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("affine,relu", [(False, False), (True, False),
+                                         (True, True)])
+@pytest.mark.parametrize("name", list(CONV))
+def test_conv_kernels(gen, name, affine, relu, dtype):
+    """Kernels J-M against their plain versions on the same inputs."""
+    kind, x_shape, w_shape = CONV[name]
+    fwd_c, fwd_p, bwd_c, bwd_p = CONV_OPS[kind]
+    k, n = w_shape[-2], w_shape[-1]
+    rnd = lambda *shape: torch.randn(shape, device="cuda",  # noqa: E731
+                                     generator=gen)
+    x = rnd(*x_shape).to(dtype)
+    w = (rnd(*w_shape) * (k * (9 if kind == "3x3" else 1)) ** -0.5).to(dtype)
+    a = (torch.rand(k, device="cuda", generator=gen) + 0.5) if affine \
+        else None
+    b = rnd(k) if affine else None
+    c = 0.1 * rnd(n)
+    dy = rnd(*x_shape[:-1], n).to(dtype)
+    ds = 0.1 * rnd(2, n)
+    y, st = fwd_c(x, a, b, w, c, affine, relu)
+    ry, rst = fwd_p(x, a, b, w, c, affine, relu)
+    got = bwd_c(x, a, b, w, c, ry, dy, ds, affine, relu)
+    want = bwd_p(x, a, b, w, c, ry, dy, ds, affine, relu)
+    again = bwd_c(x, a, b, w, c, ry, dy, ds, affine, relu)
+    for g, h in ((y, ry), (got[0], want[0])):
+        if dtype == torch.bfloat16:
+            assert_close_once_rounded(g, h)
+        else:
+            assert _norm_rel(g, h) <= 1e-5
+    for g, h in ((st, rst), (got[1], want[1]), (got[2], want[2])):
+        if g is None:
+            assert h is None and not affine
+            continue
+        assert _norm_rel(g, h) <= 1e-5
+    assert all((g is None and h is None) or torch.equal(g, h)
+               for g, h in zip(again, got))
+
+
+def test_conv_autograd_launches_each_kernel_once(gen):
+    """Under autograd a fused conv launches its forward and its backward
+    kernel once each (the backward's passes count as one launch), and its
+    grads match the plain backward's."""
+    x = torch.randn(2, 6, 6, 32, device="cuda", generator=gen,
+                    requires_grad=True)
+    w1 = (0.2 * torch.randn(32, 48, device="cuda", generator=gen)
+          ).requires_grad_()
+    w3 = (0.1 * torch.randn(3, 3, 48, 16, device="cuda", generator=gen)
+          ).requires_grad_()
+    a = (torch.rand(48, device="cuda", generator=gen) + 0.5).requires_grad_()
+    b = torch.randn(48, device="cuda", generator=gen).requires_grad_()
+    before = dict(_support.LAUNCHES)
+    y1, s1 = conv1x1_bn_act(x, w1)
+    y3, s3 = conv3x3_bn_act(y1, w3, a, b, relu=True)
+    (y3.square().sum() + s3.sum() + s1[1].sum()).backward()
+    for name in ("conv1x1_fwd", "conv1x1_bwd", "conv3x3_fwd", "conv3x3_bwd"):
+        assert _support.LAUNCHES[name] == before[name] + 1, name
+    leaves = [t.detach().cpu().requires_grad_() for t in (x, w1, w3, a, b)]
+    cy1, cs1 = conv1x1_bn_act(leaves[0], leaves[1])
+    cy3, cs3 = conv3x3_bn_act(cy1, leaves[2], leaves[3], leaves[4],
+                              relu=True)
+    (cy3.square().sum() + cs3.sum() + cs1[1].sum()).backward()
+    for t, ref in zip((x, w1, w3, a, b), leaves):
+        assert _norm_rel(t.grad.cpu(), ref.grad) <= 1e-5

@@ -1,4 +1,5 @@
-"""FusedAdam / FusedAdamW / FusedLAMB of the port against the JAX package.
+"""FusedAdam / FusedAdamW / FusedLAMB / FusedSGD of the port against the
+JAX package.
 
 The same numpy-made parameter tree and five numpy-made gradient sets go
 through ``apex_tpu.optimizers.FusedAdam`` (``init`` / ``step`` on a dict
@@ -15,6 +16,11 @@ norm active and inactive, both ``adam_w_mode`` values, a decay mask,
 zero-initialised leaf (trust ratio 1), master weights over bf16 and a
 ``found_inf`` step under ``grad_scale``.
 
+FusedSGD runs the same five steps without momentum, with momentum (the
+first step sets the buffer to the update direction), dampening, nesterov,
+weight decay before and after the momentum (``wd_after_momentum``) and
+under a mask, master weights over bf16 and a ``found_inf`` step.
+
 Tolerance: fp32 parameters rtol 1e-6 + atol 1e-7 after five steps (the
 same fp32 expressions; ``b ** t`` may differ by an ulp; LAMB's norms sum
 in another order); bf16 parameters under master weights exactly equal
@@ -29,7 +35,8 @@ import torch
 
 from apex_tpu.optimizers import FusedAdam as JaxFusedAdam
 from apex_tpu.optimizers import FusedLAMB as JaxFusedLAMB
-from apex_tpu_torch.optimizers import FusedAdam, FusedAdamW, FusedLAMB
+from apex_tpu.optimizers import FusedSGD as JaxFusedSGD
+from apex_tpu_torch.optimizers import FusedAdam, FusedAdamW, FusedLAMB, FusedSGD
 
 SHAPES = {"w1": (6, 5), "b1": (5,), "w2": (5, 3), "scale": (3,)}
 STEPS = 5
@@ -42,13 +49,14 @@ def _tree(seed):
 
 
 def _run(kw, param_dtype="float32", found_inf_at=None, grad_scale=None,
-         lamb=False, zero_leaf=False):
+         lamb=False, zero_leaf=False, sgd=False):
     params = _tree(0)
     if zero_leaf:
         params["b1"] = np.zeros_like(params["b1"])
     grads = [_tree(10 + i) for i in range(STEPS)]
     jmask = kw.pop("mask", False)
     jcls, tcls = ((JaxFusedLAMB, FusedLAMB) if lamb
+                  else (JaxFusedSGD, FusedSGD) if sgd
                   else (JaxFusedAdam, FusedAdam))
     jopt = jcls(**kw, weight_decay_mask=(
         (lambda p: jax.tree.map(lambda x: x.ndim > 1, p)) if jmask
@@ -189,3 +197,70 @@ def test_lamb_clip_is_global_and_stays_on_the_device():
     assert float(opt._clip) == pytest.approx(10.0)
     with pytest.raises(RuntimeError, match="AMSGrad"):
         FusedLAMB([p1], amsgrad=True)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(lr=0.1),
+    dict(lr=0.1, momentum=0.9),
+    dict(lr=0.1, momentum=0.9, dampening=0.2),
+    dict(lr=0.1, momentum=0.9, nesterov=True),
+    dict(lr=0.1, momentum=0.9, weight_decay=1e-2),
+    dict(lr=0.1, momentum=0.9, weight_decay=1e-2, wd_after_momentum=True),
+    dict(lr=0.1, momentum=0.9, weight_decay=1e-2, mask=True),
+    dict(lr=0.05, weight_decay=1e-2),
+], ids=["plain", "momentum", "dampening", "nesterov", "wd", "wd_after",
+        "wd_mask", "wd_no_momentum"])
+def test_sgd_five_steps_match_jax(kw):
+    jp, jstate, tp, topt = _run(dict(kw), sgd=True)
+    _check(jp, tp)
+    if kw.get("momentum"):
+        for k, p in tp.items():
+            np.testing.assert_allclose(
+                topt.state[p]["momentum_buffer"].numpy(),
+                np.asarray(jstate["slots"]["momentum_buffer"][k]),
+                rtol=1e-6, atol=1e-7)
+
+
+def test_sgd_first_step_sets_the_buffer_to_the_direction():
+    """Step 1: buf = d_p = g + wd p (not momentum * 0 + (1 - dampening)
+    d_p), decided on the device."""
+    p = torch.nn.Parameter(torch.tensor([1.0, -2.0]))
+    opt = FusedSGD([p], lr=0.5, momentum=0.9, dampening=0.5,
+                   weight_decay=0.1)
+    p.grad = torch.tensor([0.3, 0.4])
+    opt.step()
+    torch.testing.assert_close(opt.state[p]["momentum_buffer"],
+                               torch.tensor([0.4, 0.2]))
+    torch.testing.assert_close(p.detach(), torch.tensor([0.8, -2.1]))
+
+
+def test_sgd_master_weights_over_bf16_params():
+    jp, jstate, tp, topt = _run(dict(lr=0.1, momentum=0.9,
+                                     weight_decay=1e-4, master_weights=True),
+                                param_dtype="bfloat16", sgd=True)
+    for k, p in tp.items():
+        assert p.dtype == torch.bfloat16
+        np.testing.assert_allclose(topt.state[p]["master"].numpy(),
+                                   np.asarray(jstate["master"][k]),
+                                   rtol=1e-6, atol=1e-7)
+    _check(jp, tp, exact=True)
+
+
+def test_sgd_found_inf_skips_the_step_on_the_device():
+    jp, jstate, tp, topt = _run(dict(lr=0.1, momentum=0.9), found_inf_at=0,
+                                grad_scale=2.0, sgd=True)
+    _check(jp, tp)
+    for k, p in tp.items():
+        assert int(topt.state[p]["step"]) == int(jstate["step"]) == STEPS - 1
+        np.testing.assert_allclose(
+            topt.state[p]["momentum_buffer"].numpy(),
+            np.asarray(jstate["slots"]["momentum_buffer"][k]), rtol=1e-6,
+            atol=1e-7)
+
+
+def test_sgd_nesterov_needs_momentum_and_no_dampening():
+    p = torch.nn.Parameter(torch.zeros(2))
+    with pytest.raises(ValueError, match="Nesterov"):
+        FusedSGD([p], lr=0.1, nesterov=True)
+    with pytest.raises(ValueError, match="Nesterov"):
+        FusedSGD([p], lr=0.1, momentum=0.9, dampening=0.1, nesterov=True)
