@@ -12,46 +12,87 @@
 //
 // What does not carry over: the TPU kernel holds whole images, W and an fp32
 // dW[3, 3] accumulator in VMEM across grid steps (its caller skips it at
-// ResNet-50's layer1 and layer4 sizes). Here:
-// - pass 1 (dx): an implicit GEMM over output pixels x (tap, out channel)
-//   of dy_eff against w transposed per tap, with Kernel K's epilogue;
-// - pass 2 (dW): blocks over (64 x 64 tile of [K, N'], tap, chunk of
-//   pixels) write fp32 partials of dW[tap];
-// - pass 3: fixed-order column sums of the dW and da/db partials. No
-//   atomics: repeated runs are bitwise equal.
+// ResNet-50's layer1 and layer4 sizes). Blocks on the card run in parallel,
+// so the sums over pixels become per-chunk partials reduced in a fixed
+// order (no atomics: repeated runs are bitwise equal).
+//
+// bf16, the path ResNet-50 trains on (four passes):
+// - pass 0, prep: one elementwise pass with 16-byte loads and stores writes
+//   dy_eff [m, N] and, with the affine, z [m, K] to bf16 scratch, each
+//   element formed once (conv_fused.cuh's dyc and zval: the rounding points
+//   of the plain version). Every operand of the two GEMMs is then a plain
+//   bf16 tensor, and each operand row is copied 16 bytes at a time;
+// - dW: blocks over (64 x 64 tile of [K, N], kernel row, chunk of pixels)
+//   run dW[tap] = z_shifted^T dy_eff for the row's three taps over their
+//   chunk in 32-pixel slices: one dy_eff tile serves the three, and the
+//   three z tiles (rows one pixel apart) are copied through L1;
+// - dx: blocks of 128 output pixels x 64 input channels run dz over (tap,
+//   32 output channels) slices, A = dy_eff at the shifted pixel (rows
+//   outside the image copied as zeros, the nine taps' overlapping rows
+//   through L1) and B = w[tap] read as stored, then Kernel K's epilogue
+//   (relu mask from x a + b, dx = dg a, da/db partials summed in a fixed
+//   order);
+// - fixed-order sums of the dW partials (chunk_sum_kernel) and of the
+//   da/db partials (conv_fused.cuh's column_sum).
+// Both GEMMs run on mma.sync m16n8k16 fed by a 4-stage cp.async ring
+// (mma_ring.cuh), one barrier a slice; shared-memory rows are padded so
+// ldmatrix reads them without bank conflicts. Channel counts that are not
+// multiples of 8 take the loaders' element-by-element edge in the same
+// kernels. The dW chunks are sized in ops/conv_fused.py (m_dw_chunks) so
+// that the blocks fill their last wave.
+//
+// f32 (checks only): the implicit GEMMs of conv_fused.cuh in fp32 FMAs,
+// with z and dy_eff formed in their loaders.
 //
 // Bound on the H100 at layer1 ([256, 56, 56, 64] -> 64, bf16): bytes and
-// operations about even, ~411 MB against 118 G FLOPs (~0.12 ms).
+// operations about even, ~411 MB against 118 G FLOPs (~0.12 ms). The
+// scratch adds ~0.5 GB of traffic by design: the prep pass runs near the
+// memory rate (~0.17 ms). The two GEMMs run at ~150-220 TFLOP/s, far from
+// the tensor cores' rate; inferred, not profiled (no ncu on the card's
+// machine): what bounds them is operand traffic per product (L2 and L1 to
+// shared memory, then ldmatrix for 32 x 32 warp tiles) and the fp32 add
+// after every 16-deep mma.sync, which costs as many issue slots as the
+// products. wgmma with TMA, and a longer promotion interval, are the next
+// steps.
+#include <algorithm>
+
 #include "conv_fused.cuh"
+#include "mma_ring.cuh"
 
 namespace {
 
 using namespace apex::conv;
+using apex::to_float;
+using apex::ring::bf16;
 
-template <typename T, bool AFFINE, bool RELU>
+// ---------------------------------------------------------------------------
+// f32: the fused loaders over fp32 FMAs
+// ---------------------------------------------------------------------------
+
+template <bool AFFINE, bool RELU>
 __global__ void __launch_bounds__(kThreads)
-conv3x3_dx_kernel(const T* __restrict__ x, const float* __restrict__ a,
-                  const float* __restrict__ b, const T* __restrict__ w,
-                  const float* __restrict__ c, const T* __restrict__ y,
-                  const T* __restrict__ dy, const float* __restrict__ ds,
-                  T* __restrict__ dx, float* __restrict__ dab_partial,
+conv3x3_dx_kernel(const float* __restrict__ x, const float* __restrict__ a,
+                  const float* __restrict__ b, const float* __restrict__ w,
+                  const float* __restrict__ c, const float* __restrict__ y,
+                  const float* __restrict__ dy, const float* __restrict__ ds,
+                  float* __restrict__ dx, float* __restrict__ dab_partial,
                   long long m, int h, int wd, int k, int n) {
   __shared__ Shared sm;
   const long long row0 = static_cast<long long>(blockIdx.x) * kBM;
   const int col0 = blockIdx.y * kBN;
-  DyTaps<T> la(dy, y, c, ds, m, h, wd, n, row0);
-  WTaps<T> lb(w, k, n, col0);
+  DyTaps<float> la(dy, y, c, ds, m, h, wd, n, row0);
+  WTaps<float> lb(w, k, n, col0);
   float acc[4][4] = {};
-  mainloop<T, true, true>(9 * n, la, lb, sm, acc);
-  epilogue_dx<T, AFFINE, RELU>(acc, x, a, b, dx, dab_partial, m, k, row0,
-                               col0, sm);
+  mainloop<float, true, true>(9 * n, la, lb, sm, acc);
+  epilogue_dx<float, AFFINE, RELU>(acc, x, a, b, dx, dab_partial, m, k, row0,
+                                   col0, sm);
 }
 
-template <typename T, bool AFFINE, bool RELU>
+template <bool AFFINE, bool RELU>
 __global__ void __launch_bounds__(kThreads)
-conv3x3_dw_kernel(const T* __restrict__ x, const float* __restrict__ a,
+conv3x3_dw_kernel(const float* __restrict__ x, const float* __restrict__ a,
                   const float* __restrict__ b, const float* __restrict__ c,
-                  const T* __restrict__ y, const T* __restrict__ dy,
+                  const float* __restrict__ y, const float* __restrict__ dy,
                   const float* __restrict__ ds, float* __restrict__ dw_partial,
                   long long m, int h, int wd, int k, int n, int chunk_rows) {
   __shared__ Shared sm;
@@ -62,13 +103,431 @@ conv3x3_dw_kernel(const T* __restrict__ x, const float* __restrict__ a,
   const long long m_lo = static_cast<long long>(chunk) * chunk_rows;
   const int rows = static_cast<int>(min(static_cast<long long>(chunk_rows),
                                         m - m_lo));
-  ZCols<T, AFFINE, RELU> la(x, a, b, h, wd, k, row0, m_lo, tap);
-  DyCols<T> lb(dy, y, c, ds, n, col0, m_lo);
+  ZCols<float, AFFINE, RELU> la(x, a, b, h, wd, k, row0, m_lo, tap);
+  DyCols<float> lb(dy, y, c, ds, n, col0, m_lo);
   float acc[4][4] = {};
-  mainloop<T, false, false>(rows, la, lb, sm, acc);
+  mainloop<float, false, false>(rows, la, lb, sm, acc);
   epilogue_dw(acc, dw_partial + static_cast<long long>(blockIdx.z) * k * n,
               k, n, row0, col0);
 }
+
+// ---------------------------------------------------------------------------
+// bf16, pass 0: dy_eff and z to scratch
+// ---------------------------------------------------------------------------
+
+constexpr int kPrepThreads = 256;
+constexpr int kPrepMaxBlocks = 132 * 16;
+
+// Channel of flat element e of a [rows, dim] tensor.
+__device__ __forceinline__ int channel_of(long long e, int dim) {
+  return e < (1LL << 32)
+             ? static_cast<int>(static_cast<unsigned>(e) %
+                                static_cast<unsigned>(dim))
+             : static_cast<int>(e % dim);
+}
+
+// Eight elements a thread: with VEC (dim % 8 == 0, 16-byte aligned
+// tensors) one 16-byte load of each input and one store, all eight in one
+// row; else element by element.
+template <bool VEC, class F>
+__device__ __forceinline__ void prep_loop(long long total, int dim, F&& f) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       g * 8 < total; g += stride) {
+    const long long e0 = g * 8;
+    if (VEC) {
+      f.vec8(e0, channel_of(e0, dim));
+    } else {
+      for (int j = 0; j < 8 && e0 + j < total; ++j)
+        f.one(e0 + j, channel_of(e0 + j, dim));
+    }
+  }
+}
+
+struct DyEffOp {
+  const bf16* dy;
+  const bf16* y;
+  const float* c;
+  const float* ds;
+  bf16* out;
+  int n_dim;
+  __device__ void one(long long e, int n) const {
+    out[e] = __float2bfloat16(dyc<bf16>(to_float(dy[e]), to_float(y[e]),
+                                        cot_of(c, ds, n_dim, n)));
+  }
+  __device__ void vec8(long long e0, int n0) const {
+    const uint4 dv = *reinterpret_cast<const uint4*>(dy + e0);
+    const uint4 yv = *reinterpret_cast<const uint4*>(y + e0);
+    const bf16* d8 = reinterpret_cast<const bf16*>(&dv);
+    const bf16* y8 = reinterpret_cast<const bf16*>(&yv);
+    uint4 ov;
+    bf16* o8 = reinterpret_cast<bf16*>(&ov);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      o8[j] = __float2bfloat16(dyc<bf16>(to_float(d8[j]), to_float(y8[j]),
+                                         cot_of(c, ds, n_dim, n0 + j)));
+    *reinterpret_cast<uint4*>(out + e0) = ov;
+  }
+};
+
+template <bool RELU>
+struct ZOp {
+  const bf16* x;
+  const float* a;
+  const float* b;
+  bf16* out;
+  __device__ void one(long long e, int k) const {
+    out[e] = __float2bfloat16(
+        zval<bf16, true, RELU>(to_float(x[e]), affine_of<true>(a, b, k)));
+  }
+  __device__ void vec8(long long e0, int k0) const {
+    const uint4 xv = *reinterpret_cast<const uint4*>(x + e0);
+    const bf16* x8 = reinterpret_cast<const bf16*>(&xv);
+    uint4 ov;
+    bf16* o8 = reinterpret_cast<bf16*>(&ov);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      o8[j] = __float2bfloat16(zval<bf16, true, RELU>(
+          to_float(x8[j]), affine_of<true>(a, b, k0 + j)));
+    *reinterpret_cast<uint4*>(out + e0) = ov;
+  }
+};
+
+template <bool VEC>
+__global__ void __launch_bounds__(kPrepThreads)
+prep_dy_kernel(DyEffOp op, long long total) {
+  prep_loop<VEC>(total, op.n_dim, op);
+}
+
+template <bool RELU, bool VEC>
+__global__ void __launch_bounds__(kPrepThreads)
+prep_z_kernel(ZOp<RELU> op, long long total, int k_dim) {
+  prep_loop<VEC>(total, k_dim, op);
+}
+
+inline unsigned prep_blocks(long long total) {
+  return static_cast<unsigned>(std::min(
+      cdiv(cdiv(total, 8), kPrepThreads),
+      static_cast<long long>(kPrepMaxBlocks)));
+}
+
+// ---------------------------------------------------------------------------
+// bf16, the two GEMMs on the cp.async ring
+// ---------------------------------------------------------------------------
+
+constexpr int kStages = 4;
+constexpr int kSlice = 32;           // contraction depth of one slice
+constexpr int kRowH = kSlice + 8;    // dx stage rows: 32 channels + pad
+constexpr int kTileH = 64 + 8;       // dW stage rows: 64 channels + pad
+
+__device__ __forceinline__ int slices_of(long long depth) {
+  return static_cast<int>((depth + kSlice - 1) / kSlice);
+}
+
+// dW: a 64 x 64 tile of dW[tap] ([K, N]) for kDwTaps taps of one kernel
+// row (the same dy_eff rows), 4 warps of 32 x 32, slices of 32 pixels;
+// each stage holds dy_eff [32 pixels][64 N] and, for each tap, z [32][64 K]
+// at the tap's shifted pixels.
+constexpr int kDwThreads = 128;
+constexpr int kDwTaps = 3;
+constexpr int kDwGroups = 9 / kDwTaps;
+constexpr int kDwStage = (1 + kDwTaps) * kSlice * kTileH * 2;
+
+template <bool VEC>
+__global__ void __launch_bounds__(kDwThreads)
+dw_mma_kernel(const bf16* __restrict__ z, const bf16* __restrict__ dye,
+              float* __restrict__ dw_partial, long long m, int h, int wd,
+              int k, int n, int chunk_rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int k0 = blockIdx.x * 64;
+  const int n0 = blockIdx.y * 64;
+  const int tap0 = (blockIdx.z % kDwGroups) * kDwTaps;
+  const long long chunk = blockIdx.z / kDwGroups;
+  const long long m_lo = chunk * chunk_rows;
+  const long long m_hi = min(m, m_lo + chunk_rows);
+  const int slices = slices_of(m_hi - m_lo);
+  int dr[kDwTaps], dc[kDwTaps];  // z is read at (row + dr, column + dc)
+  long long shift[kDwTaps];
+#pragma unroll
+  for (int t = 0; t < kDwTaps; ++t) {
+    dr[t] = (tap0 + t) / 3 - 1;
+    dc[t] = (tap0 + t) % 3 - 1;
+    shift[t] = static_cast<long long>(dr[t]) * wd + dc[t];
+  }
+  // this thread copies rows r and r + 16 of each slice, channels cq..cq+7
+  const int tid = threadIdx.x;
+  const int cq = (tid & 7) * 8;
+  const int r = tid >> 3;
+  long long p[2];
+  int ph[2], pw[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    p[i] = m_lo + r + 16 * i;
+    int img;
+    pixel_of(p[i] < m ? p[i] : 0, h, wd, img, ph[i], pw[i]);
+  }
+  const int k_left = k - k0 - cq;
+  const int n_left = n - n0 - cq;
+  auto load = [&](unsigned char* st) {
+    bf16* sb = reinterpret_cast<bf16*>(st);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const bool in = p[i] < m_hi;
+      const int row = r + 16 * i;
+      apex::ring::copy8<VEC>(sb + row * kTileH + cq,
+                             dye + p[i] * n + n0 + cq, dye, in, n_left);
+#pragma unroll
+      for (int t = 0; t < kDwTaps; ++t) {
+        const int hh = ph[i] + dr[t];
+        const int ww = pw[i] + dc[t];
+        const bool zin = in && hh >= 0 && hh < h && ww >= 0 && ww < wd;
+        apex::ring::copy8<VEC, true>(sb + ((1 + t) * kSlice + row) * kTileH + cq,
+                               z + (p[i] + shift[t]) * k + k0 + cq, z, zin,
+                               k_left);
+      }
+      p[i] += kSlice;
+      pw[i] += kSlice;
+      while (pw[i] >= wd) {
+        pw[i] -= wd;
+        if (++ph[i] == h) ph[i] = 0;
+      }
+    }
+  };
+  const int warp = tid >> 5;
+  const int wm = (warp & 1) * 32;   // K
+  const int wn = (warp >> 1) * 32;  // N
+  float acc[kDwTaps][2][4][4] = {};
+  auto step = [&](const unsigned char* st) {
+    const bf16* sb = reinterpret_cast<const bf16*>(st);
+#pragma unroll
+    for (int kk = 0; kk < kSlice; kk += 16) {
+      unsigned fb[2][4];
+      apex::ring::load_b<4, true>(fb, sb + wn, kTileH, kk);
+#pragma unroll
+      for (int t = 0; t < kDwTaps; ++t) {
+        unsigned fa[2][4];
+        apex::ring::load_a<2, true>(fa, sb + (1 + t) * kSlice * kTileH + wm,
+                                    kTileH, kk);
+        apex::ring::mma_tile<2, 4>(acc[t], fa, fb);
+      }
+    }
+  };
+  apex::ring::run_ring<kStages, kDwStage>(slices, smem, load, step);
+
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t2 = (lane & 3) * 2;
+#pragma unroll
+  for (int t = 0; t < kDwTaps; ++t) {
+    float* out = dw_partial + (chunk * 9 + tap0 + t) * k * n;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kr = k0 + wm + 16 * i + g + 8 * (e >> 1);
+          const int nc = n0 + wn + 8 * j + t2 + (e & 1);
+          if (kr < k && nc < n)
+            out[static_cast<long long>(kr) * n + nc] = acc[t][i][j][e];
+        }
+  }
+}
+
+// dx: 128 output pixels x 64 input channels, 8 warps (4 x 2) of 32 x 32,
+// slices of (tap, 32 output channels); each stage holds dy_eff [128
+// pixels][32 N] at the tap's shifted pixels and w[tap] [64 K][32 N].
+constexpr int kDxMT = 2;                  // m16 tiles a warp
+constexpr int kDxNT = 4;                  // n8 tiles a warp
+constexpr int kDxRows = 4 * 16 * kDxMT;   // pixels a block
+constexpr int kDxCols = 2 * 8 * kDxNT;    // input channels a block
+constexpr int kDxThreads = 256;
+constexpr int kDxStage = (kDxRows + kDxCols) * kRowH * 2;
+
+template <bool AFFINE, bool RELU, bool VEC>
+__global__ void __launch_bounds__(kDxThreads)
+dx_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
+              const float* __restrict__ b, const bf16* __restrict__ w,
+              const bf16* __restrict__ dye, bf16* __restrict__ dx,
+              float* __restrict__ dab_partial, long long m, int h, int wd,
+              int k, int n) {
+  constexpr int AR = kDxRows / 64;  // A rows a thread copies
+  constexpr int BR = kDxCols / 64;  // B rows a thread copies
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red[4][kDxCols][2];
+  const long long row0 = static_cast<long long>(blockIdx.x) * kDxRows;
+  const int col0 = blockIdx.y * kDxCols;
+  const int tid = threadIdx.x;
+  const int cq = (tid & 3) * 8;
+  const int r = tid >> 2;  // A rows r + 64 i; B rows r + 64 i
+  long long p[AR];
+  int ph[AR], pw[AR];
+  bool ok[AR];
+#pragma unroll
+  for (int i = 0; i < AR; ++i) {
+    p[i] = row0 + r + 64 * i;
+    ok[i] = p[i] < m;
+    int img;
+    pixel_of(ok[i] ? p[i] : 0, h, wd, img, ph[i], pw[i]);
+  }
+  int tap = 0;
+  int nb = 0;
+  auto load = [&](unsigned char* st) {
+    bf16* sa = reinterpret_cast<bf16*>(st);
+    bf16* sb = sa + kDxRows * kRowH;
+    const int dr = 1 - tap / 3;  // dy_eff is read at (row + dr, col + dc)
+    const int dc = 1 - tap % 3;
+    const long long shift = static_cast<long long>(dr) * wd + dc;
+    const int n_left = n - nb - cq;
+#pragma unroll
+    for (int i = 0; i < AR; ++i) {
+      const int hh = ph[i] + dr;
+      const int ww = pw[i] + dc;
+      const bool in = ok[i] && hh >= 0 && hh < h && ww >= 0 && ww < wd;
+      apex::ring::copy8<VEC, true>(sa + (r + 64 * i) * kRowH + cq,
+                             dye + (p[i] + shift) * n + nb + cq, dye, in,
+                             n_left);
+    }
+#pragma unroll
+    for (int i = 0; i < BR; ++i) {
+      const int kr = col0 + r + 64 * i;
+      apex::ring::copy8<VEC>(
+          sb + (r + 64 * i) * kRowH + cq,
+          w + (static_cast<long long>(tap) * k + kr) * n + nb + cq, w,
+          kr < k, n_left);
+    }
+    nb += kSlice;
+    if (nb >= n) {
+      nb = 0;
+      ++tap;
+    }
+  };
+  const int warp = tid >> 5;
+  const int wm = (warp & 3) * 16 * kDxMT;  // pixels
+  const int wn = (warp >> 2) * 8 * kDxNT;  // K
+  float acc[kDxMT][kDxNT][4] = {};
+  auto step = [&](const unsigned char* st) {
+    const bf16* sa = reinterpret_cast<const bf16*>(st);
+    const bf16* sb = sa + kDxRows * kRowH;
+#pragma unroll
+    for (int kk = 0; kk < kSlice; kk += 16)
+      apex::ring::warp_step<kDxMT, kDxNT, false, false>(
+          sa + wm * kRowH, kRowH, sb + wn * kRowH, kRowH, kk, acc);
+  };
+  apex::ring::run_ring<kStages, kDxStage>(9 * slices_of(n), smem, load, step);
+
+  // epilogue: Kernel K's (epilogue_dx) on this thread's fragment layout
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t2 = (lane & 3) * 2;
+  float s0[kDxNT][2] = {};
+  float s1[kDxNT][2] = {};
+  const bool pair = (k & 1) == 0 &&
+                    ((reinterpret_cast<size_t>(x) |
+                      reinterpret_cast<size_t>(dx)) & 3) == 0;
+#pragma unroll
+  for (int i = 0; i < kDxMT; ++i)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const long long row = row0 + wm + 16 * i + g + 8 * hf;
+      if (row >= m) continue;
+#pragma unroll
+      for (int j = 0; j < kDxNT; ++j) {
+        const int kc = col0 + wn + 8 * j + t2;
+        if (kc >= k) continue;
+        const long long idx = row * k + kc;
+        const bool both = pair || kc + 1 < k;
+        float xv[2] = {0.f, 0.f};
+        if (AFFINE) {
+          if (pair) {
+            const __nv_bfloat162 x2 =
+                *reinterpret_cast<const __nv_bfloat162*>(x + idx);
+            xv[0] = __low2float(x2);
+            xv[1] = __high2float(x2);
+          } else {
+            xv[0] = to_float(x[idx]);
+            if (both) xv[1] = to_float(x[idx + 1]);
+          }
+        }
+        float out[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          out[e] = acc[i][j][2 * hf + e];
+          if (AFFINE && (e == 0 || both)) {
+            const int kk = kc + e;
+            const float pre = __fadd_rn(__fmul_rn(xv[e], a[kk]), b[kk]);
+            const float dg = (RELU && !(pre > 0.f)) ? 0.f : out[e];
+            out[e] = __fmul_rn(dg, a[kk]);
+            s0[j][e] += dg * xv[e];
+            s1[j][e] += dg;
+          }
+        }
+        if (pair) {
+          *reinterpret_cast<__nv_bfloat162*>(dx + idx) =
+              __floats2bfloat162_rn(out[0], out[1]);
+        } else {
+          dx[idx] = __float2bfloat16(out[0]);
+          if (both) dx[idx + 1] = __float2bfloat16(out[1]);
+        }
+      }
+    }
+  if (!AFFINE) return;
+  // da/db partials: over the 8 row groups of the warp (lanes that share
+  // lane % 4) by a fixed butterfly, then over the 4 warps of the tile's
+  // rows in order: repeated runs are bitwise equal
+#pragma unroll
+  for (int j = 0; j < kDxNT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        s0[j][e] += __shfl_xor_sync(0xffffffffu, s0[j][e], off);
+        s1[j][e] += __shfl_xor_sync(0xffffffffu, s1[j][e], off);
+      }
+  if (g == 0) {
+#pragma unroll
+    for (int j = 0; j < kDxNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        red[warp & 3][wn + 8 * j + t2 + e][0] = s0[j][e];
+        red[warp & 3][wn + 8 * j + t2 + e][1] = s1[j][e];
+      }
+  }
+  __syncthreads();
+  if (tid < kDxCols && col0 + tid < k) {
+    float t0 = 0.f;
+    float t1 = 0.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      t0 += red[q][tid][0];
+      t1 += red[q][tid][1];
+    }
+    const long long slot = blockIdx.x;
+    dab_partial[(slot * 2) * k + col0 + tid] = t0;
+    dab_partial[(slot * 2 + 1) * k + col0 + tid] = t1;
+  }
+}
+
+// dW = the sum of its per-chunk partials [chunks, 9 k n], each element's in
+// chunk order: repeated runs are bitwise equal
+constexpr int kSumThreads = 256;
+
+__global__ void __launch_bounds__(kSumThreads)
+chunk_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
+                 int chunks, long long cols) {
+  const long long col =
+      static_cast<long long>(blockIdx.x) * kSumThreads + threadIdx.x;
+  if (col >= cols) return;
+  float s = 0.f;
+#pragma unroll 8
+  for (int r = 0; r < chunks; ++r) s += part[r * cols + col];
+  out[col] = s;
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
 
 struct Args {
   const void* x;
@@ -82,39 +541,111 @@ struct Args {
   void* dx;
   float* dw_partial;   // [chunks, 9, k, n] fp32 scratch
   float* dw;           // [3, 3, k, n] fp32
-  float* dab_partial;  // [ceil(images h w / 64), 2, k] (affine only)
+  float* dab_partial;  // [row blocks, 2, k] (affine only)
   float* dab;          // [2, k]: da, db (affine only)
+  void* dy_eff;        // [images h w, n] bf16 scratch (bf16 only)
+  void* z;             // [images h w, k] bf16 scratch (bf16 with the affine)
   int images, h, wd, k, n, chunk_rows;
 };
+
+template <bool AFFINE, bool RELU, bool VEC>
+cudaError_t run_bf16(const Args& p, long long m, cudaStream_t stream) {
+  const bf16* x = static_cast<const bf16*>(p.x);
+  bf16* dye = static_cast<bf16*>(p.dy_eff);
+  const long long mn = m * p.n;
+  prep_dy_kernel<VEC><<<prep_blocks(mn), kPrepThreads, 0, stream>>>(
+      DyEffOp{static_cast<const bf16*>(p.dy), static_cast<const bf16*>(p.y),
+              p.c, p.ds, dye, p.n},
+      mn);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const bf16* z = x;
+  if (AFFINE) {
+    bf16* zs = static_cast<bf16*>(p.z);
+    const long long mk = m * p.k;
+    prep_z_kernel<RELU, VEC><<<prep_blocks(mk), kPrepThreads, 0, stream>>>(
+        ZOp<RELU>{x, p.a, p.b, zs}, mk, p.k);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    z = zs;
+  }
+  const int chunks = static_cast<int>(cdiv(m, p.chunk_rows));
+  const dim3 grid_dw(static_cast<unsigned>(cdiv(p.k, 64)),
+                     static_cast<unsigned>(cdiv(p.n, 64)),
+                     static_cast<unsigned>(kDwGroups * chunks));
+  constexpr int dw_smem = kStages * kDwStage;
+  err = apex::allow_smem(dw_mma_kernel<VEC>, dw_smem);
+  if (err != cudaSuccess) return err;
+  dw_mma_kernel<VEC><<<grid_dw, kDwThreads, dw_smem, stream>>>(
+      z, dye, p.dw_partial, m, p.h, p.wd, p.k, p.n, p.chunk_rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int row_blocks = static_cast<int>(cdiv(m, kDxRows));
+  const dim3 grid_dx(static_cast<unsigned>(row_blocks),
+                     static_cast<unsigned>(cdiv(p.k, kDxCols)));
+  constexpr int dx_smem = kStages * kDxStage;
+  err = apex::allow_smem(dx_mma_kernel<AFFINE, RELU, VEC>, dx_smem);
+  if (err != cudaSuccess) return err;
+  dx_mma_kernel<AFFINE, RELU, VEC><<<grid_dx, kDxThreads, dx_smem, stream>>>(
+      x, p.a, p.b, static_cast<const bf16*>(p.w), dye,
+      static_cast<bf16*>(p.dx), p.dab_partial, m, p.h, p.wd, p.k, p.n);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long dw_size = 9LL * p.k * p.n;
+  chunk_sum_kernel<<<static_cast<unsigned>(cdiv(dw_size, kSumThreads)),
+                     kSumThreads, 0, stream>>>(p.dw_partial, p.dw, chunks,
+                                               dw_size);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !AFFINE) return err;
+  return column_sum(p.dab_partial, p.dab, row_blocks, 2LL * p.k, stream);
+}
+
+template <bool AFFINE, bool RELU>
+cudaError_t run_f32(const Args& p, long long m, cudaStream_t stream) {
+  const float* x = static_cast<const float*>(p.x);
+  const float* y = static_cast<const float*>(p.y);
+  const float* dy = static_cast<const float*>(p.dy);
+  const int row_blocks = static_cast<int>(cdiv(m, kBM));
+  const dim3 grid_dx(static_cast<unsigned>(row_blocks),
+                     static_cast<unsigned>(cdiv(p.k, kBN)));
+  conv3x3_dx_kernel<AFFINE, RELU><<<grid_dx, kThreads, 0, stream>>>(
+      x, p.a, p.b, static_cast<const float*>(p.w), p.c, y, dy, p.ds,
+      static_cast<float*>(p.dx), p.dab_partial, m, p.h, p.wd, p.k, p.n);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int chunks = static_cast<int>(cdiv(m, p.chunk_rows));
+  const dim3 grid_dw(static_cast<unsigned>(cdiv(p.k, kBM)),
+                     static_cast<unsigned>(cdiv(p.n, kBN)),
+                     static_cast<unsigned>(9 * chunks));
+  conv3x3_dw_kernel<AFFINE, RELU><<<grid_dw, kThreads, 0, stream>>>(
+      x, p.a, p.b, p.c, y, dy, p.ds, p.dw_partial, m, p.h, p.wd, p.k, p.n,
+      p.chunk_rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = column_sum(p.dw_partial, p.dw, chunks, 9LL * p.k * p.n, stream);
+  if (err != cudaSuccess || !AFFINE) return err;
+  return column_sum(p.dab_partial, p.dab, row_blocks, 2LL * p.k, stream);
+}
+
+inline bool aligned16(const void* ptr) {
+  return (reinterpret_cast<size_t>(ptr) & 15) == 0;
+}
 
 template <typename T, bool AFFINE, bool RELU>
 struct Launch {
   static cudaError_t run(const Args& p, cudaStream_t stream) {
-    const T* x = static_cast<const T*>(p.x);
-    const T* y = static_cast<const T*>(p.y);
-    const T* dy = static_cast<const T*>(p.dy);
     const long long m = static_cast<long long>(p.images) * p.h * p.wd;
-    const int row_blocks = static_cast<int>(cdiv(m, kBM));
-    const dim3 grid_dx(static_cast<unsigned>(row_blocks),
-                       static_cast<unsigned>(cdiv(p.k, kBN)));
-    conv3x3_dx_kernel<T, AFFINE, RELU><<<grid_dx, kThreads, 0, stream>>>(
-        x, p.a, p.b, static_cast<const T*>(p.w), p.c, y, dy, p.ds,
-        static_cast<T*>(p.dx), p.dab_partial, m, p.h, p.wd, p.k, p.n);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    const int chunks = static_cast<int>(cdiv(m, p.chunk_rows));
-    const dim3 grid_dw(static_cast<unsigned>(cdiv(p.k, kBM)),
-                       static_cast<unsigned>(cdiv(p.n, kBN)),
-                       static_cast<unsigned>(9 * chunks));
-    conv3x3_dw_kernel<T, AFFINE, RELU><<<grid_dw, kThreads, 0, stream>>>(
-        x, p.a, p.b, p.c, y, dy, p.ds, p.dw_partial, m, p.h, p.wd, p.k, p.n,
-        p.chunk_rows);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    err = column_sum(p.dw_partial, p.dw, chunks,
-                     9LL * p.k * p.n, stream);
-    if (err != cudaSuccess || !AFFINE) return err;
-    return column_sum(p.dab_partial, p.dab, row_blocks, 2LL * p.k, stream);
+    if constexpr (std::is_same<T, float>::value) {
+      return run_f32<AFFINE, RELU>(p, m, stream);
+    } else {
+      // the 16-byte copies need whole 8-channel groups and aligned rows
+      const bool vec = p.k % 8 == 0 && p.n % 8 == 0 && aligned16(p.x) &&
+                       aligned16(p.w) && aligned16(p.y) &&
+                       aligned16(p.dy) && aligned16(p.dy_eff) &&
+                       (!AFFINE || aligned16(p.z));
+      return vec ? run_bf16<AFFINE, RELU, true>(p, m, stream)
+                 : run_bf16<AFFINE, RELU, false>(p, m, stream);
+    }
   }
 };
 
@@ -122,23 +653,26 @@ struct Launch {
 
 // x and dx [images, h, w, k], w [3, 3, k, n], y and dy [images, h, w, n] of
 // one dtype; c [n] and ds [2, n] fp32; a, b, dab_partial and dab null
-// without the affine. The caller sizes the partials (ops/conv_fused.py):
-// dw_partial [ceil(images h w / chunk_rows), 9, k, n] with at most 7281
-// chunks, dab_partial [ceil(images h w / 64), 2, k]. All sizes > 0,
+// without the affine. The caller sizes the scratch (ops/conv_fused.py
+// `conv3x3_bwd_scratch`): dw_partial [ceil(images h w / chunk_rows), 9, k,
+// n] with at most 7281 chunks; dab_partial [ceil(images h w / rows), 2, k]
+// with rows 128 in bf16 and 64 in f32; in bf16 dy_eff [images h w, n] and,
+// with the affine, z [images h w, k] (both null in f32). All sizes > 0,
 // tensors contiguous.
 extern "C" int apex_conv3x3_bwd(const void* x, const void* a, const void* b,
                                 const void* w, const void* c, const void* y,
                                 const void* dy, const void* ds, void* dx,
                                 void* dw_partial, void* dw, void* dab_partial,
-                                void* dab, void* stream, int images, int h,
-                                int wd, int k, int n, int chunk_rows,
-                                int affine, int relu, int dtype) {
+                                void* dab, void* dy_eff, void* z,
+                                void* stream, int images, int h, int wd,
+                                int k, int n, int chunk_rows, int affine,
+                                int relu, int dtype) {
   const Args p{x, static_cast<const float*>(a), static_cast<const float*>(b),
                w, static_cast<const float*>(c), y, dy,
                static_cast<const float*>(ds), dx,
                static_cast<float*>(dw_partial), static_cast<float*>(dw),
                static_cast<float*>(dab_partial), static_cast<float*>(dab),
-               images, h, wd, k, n, chunk_rows};
+               dy_eff, z, images, h, wd, k, n, chunk_rows};
   return static_cast<int>(apex::conv::dispatch<Launch>(
       p, dtype, affine, relu, static_cast<cudaStream_t>(stream)));
 }

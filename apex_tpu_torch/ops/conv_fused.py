@@ -34,7 +34,8 @@ from apex_tpu_torch.ops import _build, _support
 __all__ = ["conv1x1_bn_act", "conv3x3_bn_act", "conv1x1_fwd_plain",
            "conv1x1_fwd_cuda", "conv1x1_bwd_plain", "conv1x1_bwd_cuda",
            "conv3x3_fwd_plain", "conv3x3_fwd_cuda", "conv3x3_bwd_plain",
-           "conv3x3_bwd_cuda", "dw_chunks"]
+           "conv3x3_bwd_cuda", "dw_chunks", "m_dw_chunks",
+           "conv3x3_bwd_scratch"]
 
 #: rows per block of every pass (``kBM`` in csrc/conv_fused.cuh)
 _BM = 64
@@ -44,6 +45,16 @@ _FILL_BLOCKS = 4 * 132
 _MIN_CHUNK_ROWS = 256
 #: the 3x3 dW grid's z extent is 9 x chunks <= 65535
 _MAX_CHUNKS_3X3 = 65535 // 9
+#: Kernel M in bf16 (csrc/conv3x3_bwd.cu): the dx pass tiles 128 pixels;
+#: the dW pass walks a chunk in slices of 32 pixels with 128-thread blocks,
+#: each over a 64 x 64 tile of the dW of 3 taps (one kernel row), two of
+#: them resident an SM of an H100 (132 SMs) ...
+_M_DX_ROWS = 128
+_M_SLICE = 32
+_M_DW_TAPS = 3
+_M_DW_RESIDENT = 2 * 132
+#: ... and chunks of at most this many pixels
+_M_MAX_CHUNK_ROWS = 4608
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -64,6 +75,53 @@ def dw_chunks(m: int, tiles: int, max_chunks: int = 65535) -> Tuple[int, int]:
 
 def _tiles(k: int, n: int) -> int:
     return _support.cdiv(k, _BM) * _support.cdiv(n, _BM)
+
+
+def m_dw_chunks(m: int, tiles: int) -> Tuple[int, int]:
+    """``(chunks, pixels per chunk)`` of Kernel M's bf16 dW pass over ``m``
+    pixels whose dW has ``tiles`` 64 x 64 tiles a tap. Chunks are whole
+    32-pixel slices of at most 4,608 pixels; from the fewest such chunks
+    to twice as many, the count whose blocks (3 x tiles a chunk) fill the
+    last wave of resident blocks best. ResNet-50's layer1 3x3 (m =
+    802,816, one tile) takes 176 chunks of 4,576 pixels (528 blocks, two
+    full waves); layer4's (m = 12,544, 64 tiles) 4 of 3,136 (768 blocks,
+    97% of three waves)."""
+    per_chunk = 9 // _M_DW_TAPS * tiles
+    lo = min(_support.cdiv(m, _M_MAX_CHUNK_ROWS), _MAX_CHUNKS_3X3)
+    best = (0.0, lo)
+    for c in range(lo, min(2 * lo, _MAX_CHUNKS_3X3) + 1):
+        blocks = c * per_chunk
+        waves = _support.cdiv(blocks, _M_DW_RESIDENT)
+        fill = blocks / (waves * _M_DW_RESIDENT)
+        if fill > best[0]:
+            best = (fill, c)
+    rows = _support.round_up(_support.cdiv(m, best[1]), _M_SLICE)
+    return _support.cdiv(m, rows), rows
+
+
+def conv3x3_bwd_scratch(n_img: int, h: int, wd: int, k: int, n: int,
+                        affine: bool, dtype: torch.dtype) -> Tuple[int, dict]:
+    """``(pixels per dW chunk, scratch)``: what :func:`conv3x3_bwd_cuda`
+    allocates for Kernel M besides its outputs, name -> (shape, dtype).
+    bf16: the prep pass's dy_eff [m, N] and (with the affine) z [m, K], the
+    dW partials per (chunk, tap) from :func:`m_dw_chunks`, the da/db
+    partials per 128-pixel tile. f32: the dW partials from
+    :func:`dw_chunks` and the da/db partials per 64-pixel tile."""
+    m = n_img * h * wd
+    bf16 = dtype == torch.bfloat16
+    if bf16:
+        chunks, rows = m_dw_chunks(m, _tiles(k, n))
+    else:
+        chunks, rows = dw_chunks(m, 9 * _tiles(k, n), _MAX_CHUNKS_3X3)
+    out = {"dw_partial": ((chunks, 9, k, n), torch.float32)}
+    if affine:
+        out["dab_partial"] = ((_support.cdiv(m, _M_DX_ROWS if bf16 else _BM),
+                               2, k), torch.float32)
+    if bf16:
+        out["dy_eff"] = ((m, n), torch.bfloat16)
+        if affine:
+            out["z"] = ((m, k), torch.bfloat16)
+    return rows, out
 
 
 # ---------------------------------------------------------------------------
@@ -308,8 +366,10 @@ def conv3x3_fwd_cuda(x, a, b, w, shift, affine: bool, relu: bool):
 
 
 def conv3x3_bwd_cuda(x, a, b, w, shift, y, dy, ds, affine: bool, relu: bool):
-    """Launch Kernel M: the dx pass (transposed convolution), the dW pass
-    over (tap, chunk) and the partial reductions."""
+    """Launch Kernel M. bf16: the prep pass (dy_eff and z to scratch), the
+    dW pass over (kernel row, chunk) and the dx pass (transposed
+    convolution) on the tensor cores, and the partial reductions; f32: the
+    dx and dW passes in fp32 FMAs and the reductions."""
     n_img, h, wd, k, n = _c3_shapes(x, w)
     code = _check("conv3x3_bwd", x, w, a, b, shift, k, n, affine, relu, y,
                   dy)
@@ -323,17 +383,15 @@ def conv3x3_bwd_cuda(x, a, b, w, shift, y, dy, ds, affine: bool, relu: bool):
            else None)
     if m == 0:
         return dx, dw, dab
-    chunks, rows = dw_chunks(m, 9 * _tiles(k, n), _MAX_CHUNKS_3X3)
-    dw_partial = torch.empty((chunks, 9, k, n), dtype=torch.float32,
-                             device=dev)
-    dab_partial = (torch.empty((_support.cdiv(m, _BM), 2, k),
-                               dtype=torch.float32, device=dev)
-                   if affine else None)
+    rows, plan = conv3x3_bwd_scratch(n_img, h, wd, k, n, affine, x.dtype)
+    scratch = {name: torch.empty(shape, dtype=dt, device=dev)
+               for name, (shape, dt) in plan.items()}
     status = _build.library().apex_conv3x3_bwd(
         _ptr(x), _ptr(a), _ptr(b), _ptr(w), _ptr(shift), _ptr(y), _ptr(dy),
-        _ptr(ds), _ptr(dx), _ptr(dw_partial), _ptr(dw), _ptr(dab_partial),
-        _ptr(dab), _stream(dev), n_img, h, wd, k, n, rows, int(affine),
-        int(relu), code)
+        _ptr(ds), _ptr(dx), _ptr(scratch["dw_partial"]), _ptr(dw),
+        _ptr(scratch.get("dab_partial")), _ptr(dab),
+        _ptr(scratch.get("dy_eff")), _ptr(scratch.get("z")), _stream(dev),
+        n_img, h, wd, k, n, rows, int(affine), int(relu), code)
     _build.check("apex_conv3x3_bwd", status)
     _support.count_launch("conv3x3_bwd")
     return dx, dw, dab

@@ -1,0 +1,188 @@
+#!/usr/bin/env python3
+"""Time the fused conv kernels on one CUDA card, at ResNet-50's shapes.
+
+Usage (from a checkout's root, on a machine with one GPU)::
+
+    python3 apex_tpu_torch/tools/conv_timing.py [--root DIR] [--tag NAME]
+        [--out FILE]
+
+``--root`` names the checkout whose ``apex_tpu_torch`` is imported and
+built (default: the one holding this file), so one call can time two
+versions of the kernels in turns (parent, change, change, parent), each in
+its own process. Kernel M (``conv3x3_bwd_cuda``) is timed in bf16 with the
+input affine and relu at the four stride-1 3x3 shapes of ResNet-50
+(layers 1-4, batch 256), beside cuDNN's conv backward alone on the same
+inputs, and split into its device kernels by ``torch.profiler``; J, K and
+L at layer1 give the noise between processes. Each M case is first held
+to its plain version (dx within 1 bf16 ulp, dW and da/db within 1e-5
+norm-wise, two runs bitwise equal). Times are medians of CUDA-event
+intervals, as ``chip_smoke.py``'s ``Timer`` takes them. Prints one JSON
+line per measurement and, with ``--out``, writes them all to FILE.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+SPIN_CYCLES = 200_000_000
+#: (name, x shape, w shape) of ResNet-50's stride-1 3x3 convs at batch 256
+M_SHAPES = [
+    ("layer1", (256, 56, 56, 64), (3, 3, 64, 64)),
+    ("layer2", (256, 28, 28, 128), (3, 3, 128, 128)),
+    ("layer3", (256, 14, 14, 256), (3, 3, 256, 256)),
+    ("layer4", (256, 7, 7, 512), (3, 3, 512, 512)),
+]
+
+
+def median_ms(fn, iters=20, warmup=3) -> float:
+    """Median CUDA-event time of one call; a spin kernel queued first
+    keeps the host's launch overhead out of the intervals."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for s, e in ev:
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    times = sorted(s.elapsed_time(e) for s, e in ev)
+    return times[len(times) // 2]
+
+
+def device_split(fn, calls=5) -> dict:
+    """Device ms per call of each kernel ``fn`` launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = re.split(r"[<(]", name.removeprefix("void "))[0][:60]
+            split[name] = split.get(name, 0.0) + e.time_range.elapsed_us()
+    return {k: round(v / calls / 1e3, 5) for k, v in split.items()}
+
+
+def ulps(got, want) -> float:
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -8)
+    return float(((g - w).abs() / torch.exp2(torch.floor(torch.log2(mag))
+                                              - 7)).max())
+
+
+def rel(got, want) -> float:
+    g, w = got.float(), want.float()
+    return float((g - w).norm() / w.norm().clamp_min(1e-30))
+
+
+def inputs(x_shape, w_shape, gen):
+    k, n = w_shape[-2], w_shape[-1]
+    rnd = lambda *s: torch.randn(s, device="cuda", generator=gen)  # noqa
+    x = rnd(*x_shape).bfloat16()
+    w = (rnd(*w_shape) * math.prod(w_shape[:-1]) ** -0.5).bfloat16()
+    a = torch.rand(k, device="cuda", generator=gen) + 0.5
+    b = rnd(k)
+    c = 0.1 * rnd(n)
+    dy = rnd(*x_shape[:-1], n).bfloat16()
+    ds = 0.1 * rnd(2, n)
+    return x, a, b, w, c, dy, ds
+
+
+def time_m(cf, name, x_shape, w_shape, gen, emit) -> None:
+    x, a, b, w, c, dy, ds = inputs(x_shape, w_shape, gen)
+    y, _ = cf.conv3x3_fwd_plain(x, a, b, w, c, True, True)
+    run = lambda: cf.conv3x3_bwd_cuda(x, a, b, w, c, y, dy, ds,  # noqa
+                                      True, True)
+    got, again = run(), run()
+    want = cf.conv3x3_bwd_plain(x, a, b, w, c, y, dy, ds, True, True)
+    errs = dict(dx_ulps=ulps(got[0], want[0]), dw_rel=rel(got[1], want[1]),
+                dab_rel=rel(got[2], want[2]),
+                bitwise_repeat=all(torch.equal(g, h)
+                                   for g, h in zip(got, again)))
+    ok = (errs["dx_ulps"] <= 1.0 and errs["dw_rel"] <= 1e-5
+          and errs["dab_rel"] <= 1e-5 and errs["bitwise_repeat"])
+    xv = x.permute(0, 3, 1, 2).detach().requires_grad_()
+    wv = w.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    out = F.conv2d(xv, wv, padding=1)
+    dyv = dy.permute(0, 3, 1, 2)
+    emit(kernel="conv3x3_bwd", case=name, x=list(x_shape), w=list(w_shape),
+         ms=median_ms(run), cudnn_bwd_ms=median_ms(
+             lambda: torch.autograd.grad(out, (xv, wv), dyv,
+                                         retain_graph=True)),
+         split_ms=device_split(run), ok=ok, **errs)
+
+
+def time_jkl(cf, gen, emit) -> None:
+    x, a, b, w, c, dy, ds = inputs((256, 56, 56, 64), (3, 3, 64, 64), gen)
+    y, _ = cf.conv3x3_fwd_plain(x, a, b, w, c, True, True)
+    emit(kernel="conv3x3_fwd", case="layer1", ms=median_ms(
+        lambda: cf.conv3x3_fwd_cuda(x, a, b, w, c, True, True)))
+    x2 = x.reshape(-1, 64)
+    w1 = (torch.randn(64, 256, device="cuda", generator=gen) / 8).bfloat16()
+    c1 = 0.1 * torch.randn(256, device="cuda", generator=gen)
+    y1, _ = cf.conv1x1_fwd_cuda(x2, a, b, w1, c1, True, True)
+    dy1 = torch.randn(y1.shape, device="cuda", generator=gen).bfloat16()
+    ds1 = 0.1 * torch.randn(2, 256, device="cuda", generator=gen)
+    emit(kernel="conv1x1_fwd", case="layer1_conv3", ms=median_ms(
+        lambda: cf.conv1x1_fwd_cuda(x2, a, b, w1, c1, True, True)))
+    emit(kernel="conv1x1_bwd", case="layer1_conv3", ms=median_ms(
+        lambda: cf.conv1x1_bwd_cuda(x2, a, b, w1, c1, y1, dy1, ds1, True,
+                                    True)))
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--root", default=str(Path(__file__).resolve()
+                                              .parents[2]))
+    parser.add_argument("--tag", default="")
+    parser.add_argument("--out", default=None)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("conv_timing: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    from apex_tpu_torch.ops import conv_fused as cf
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows = []
+
+    def emit(**fields):
+        row = dict(tag=args.tag, card=card, **fields)
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for name, x_shape, w_shape in M_SHAPES:
+        time_m(cf, name, x_shape, w_shape, gen, emit)
+        torch.cuda.empty_cache()
+    time_jkl(cf, gen, emit)
+    if args.out:
+        with open(args.out, "a") as f:
+            f.writelines(json.dumps(r) + "\n" for r in rows)
+    return 0 if all(r.get("ok", True) for r in rows) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -57,8 +57,11 @@ printing its own lines and raising on failure:
               gated off the TPU), and a 200-row tail in every (affine,
               relu) combination; two backward runs bitwise equal;
 19. kernel L/M — the fused 3x3 conv forward and backward, the same checks
-              at [256,56,56,64], [256,28,28,128], [256,7,7,512] (the first
-              and last gated off the TPU) and an odd [3,5,9,16] -> 32;
+              at ResNet-50's four stride-1 3x3 shapes [256,56,56,64],
+              [256,28,28,128], [256,14,14,256], [256,7,7,512] (the first
+              and last gated off the TPU), an odd [3,5,9,16] -> 32 and a
+              ragged [5,13,11,20] -> 36 (channels off M's 8-channel
+              copies, pixels off its 128-pixel tiles);
 20. rn50_train — ResNet-50 (224 px, batch 256, bf16 compute over fp32
               params, fused_conv, FusedSGD lr 0.1 momentum 0.9 wd 1e-4 with
               master weights) takes 2 + 8 steps; every loss finite, the
@@ -101,6 +104,8 @@ HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 L2_BYTES = 50 * 2 ** 20
 SPIN_CYCLES = 200_000_000          # ~0.1 s at the H100's ~2 GHz
+#: kernels listed by name in a ``--profile`` breakdown (the rest summed)
+PROFILE_TOP = 40
 
 GPT2 = dict(num_layers=12, hidden_size=768, num_attention_heads=12,
             vocab_size=50304, max_position_embeddings=1024)
@@ -959,9 +964,13 @@ CONV_CASES = [
      None, True),
     ("layer2_3x3", "3x3", (256, 28, 28, 128), (3, 3, 128, 128),
      [(True, True)], None, False),
+    ("layer3_3x3", "3x3", (256, 14, 14, 256), (3, 3, 256, 256),
+     [(True, True)], None, False),
     ("layer4_3x3", "3x3", (256, 7, 7, 512), (3, 3, 512, 512), [(True, True)],
      None, False),
     ("odd", "3x3", (3, 5, 9, 16), (3, 3, 16, 32),
+     [(False, False), (True, False), (True, True)], None, False),
+    ("ragged", "3x3", (5, 13, 11, 20), (3, 3, 20, 36),
      [(False, False), (True, False), (True, True)], None, False),
 ]
 
@@ -1180,10 +1189,10 @@ def profile_device(path: str, fn, describe=dict) -> None:
         device_busy_s=f"{busy:.4f}", busy_share=f"{busy / wall:.3f}",
         device_launches=sum(c for c, _ in per_kernel.values()))
     ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])
-    for name, (calls, us) in ranked[:16]:
+    for name, (calls, us) in ranked[:PROFILE_TOP]:
         log("profile_kernel", path=path, device_ms=f"{us / 1e3:.3f}",
             calls=calls, name=name[:90].replace(" ", "_"))
-    rest = ranked[16:]
+    rest = ranked[PROFILE_TOP:]
     log("profile_kernel", path=path,
         device_ms=f"{sum(us for _, (_, us) in rest) / 1e3:.3f}",
         calls=sum(c for _, (c, _) in rest), name=f"{len(rest)}_other_kernels")

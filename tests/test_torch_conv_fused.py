@@ -31,7 +31,9 @@ from apex_tpu_torch.ops import LAUNCHES, reset_launches
 from apex_tpu_torch.ops.conv_fused import (
     conv1x1_bn_act,
     conv3x3_bn_act,
+    conv3x3_bwd_scratch,
     dw_chunks,
+    m_dw_chunks,
 )
 
 ACTS = [(False, False), (True, False), (True, True)]
@@ -189,3 +191,67 @@ def test_dw_chunks_follow_m_and_kn(m, tiles, want):
     chunks, rows = dw_chunks(m, tiles)
     assert (chunks, rows) == want
     assert (chunks - 1) * rows < m <= chunks * rows
+
+
+@pytest.mark.parametrize("m,tiles,want", [
+    (802816, 1, (176, 4576)),        # ResNet-50 layer1 3x3 (K = N = 64)
+    (200704, 4, (44, 4576)),         # layer2 (128)
+    (50176, 16, (11, 4576)),         # layer3 (256)
+    (12544, 64, (4, 3136)),          # layer4 (512)
+    (715, 1, (2, 384)),              # the card tests' ragged case
+    (165, 1, (2, 96)),               # fewer pixels than one slice a block
+])
+def test_m_dw_chunks_are_whole_slices(m, tiles, want):
+    """Kernel M's bf16 dW chunks: whole 32-pixel slices of at most 4,608
+    pixels, every pixel in exactly one chunk, and a block count (3 x tiles
+    a chunk) that fills its last wave of 2 x 132 resident blocks best."""
+    chunks, rows = m_dw_chunks(m, tiles)
+    assert (chunks, rows) == want
+    assert rows % 32 == 0 and 9 * chunks <= 65535
+    assert (chunks - 1) * rows < m <= chunks * rows
+    assert rows <= 4608 or chunks == 65535 // 9
+
+
+def test_m_dw_chunks_fill_the_last_wave():
+    """At ResNet-50's layers 1-3 the dW blocks are two full waves of 264;
+    at layer4 four chunks (768 blocks, 97% of three waves) beat the three
+    that 4,608 pixels a chunk would give (576 blocks, 73%)."""
+    for m, tiles in ((802816, 1), (200704, 4), (50176, 16)):
+        chunks, _ = m_dw_chunks(m, tiles)
+        assert chunks * 3 * tiles == 528
+    chunks, _ = m_dw_chunks(12544, 64)
+    assert chunks * 3 * 64 == 768
+
+
+@pytest.mark.parametrize("affine", [True, False])
+def test_conv3x3_bwd_scratch_layer1(affine):
+    """What Kernel M allocates at ResNet-50's layer1 3x3: in bf16 the
+    prep pass's dy_eff and z, dW partials per (chunk, tap) and da/db
+    partials per 128-pixel tile; in f32 K's chunking and 64-pixel tiles,
+    and no prep scratch."""
+    m = 256 * 56 * 56
+    rows, bf = conv3x3_bwd_scratch(256, 56, 56, 64, 64, affine,
+                                   torch.bfloat16)
+    want = {"dw_partial": ((176, 9, 64, 64), torch.float32),
+            "dy_eff": ((m, 64), torch.bfloat16)}
+    if affine:
+        want["z"] = ((m, 64), torch.bfloat16)
+        want["dab_partial"] = ((6272, 2, 64), torch.float32)
+    assert (rows, bf) == (4576, want)
+    rows, f32 = conv3x3_bwd_scratch(256, 56, 56, 64, 64, affine,
+                                    torch.float32)
+    want = {"dw_partial": ((59, 9, 64, 64), torch.float32)}
+    if affine:
+        want["dab_partial"] = ((12544, 2, 64), torch.float32)
+    assert (rows, f32) == (13608, want)
+
+
+def test_conv3x3_bwd_scratch_ragged():
+    """Ragged pixels and channels (the card tests' ``3x3_ragged``): the
+    partials cover every pixel and channel."""
+    rows, plan = conv3x3_bwd_scratch(5, 13, 11, 20, 36, True, torch.bfloat16)
+    assert rows == 384
+    assert plan == {"dw_partial": ((2, 9, 20, 36), torch.float32),
+                    "dab_partial": ((6, 2, 20), torch.float32),
+                    "dy_eff": ((715, 36), torch.bfloat16),
+                    "z": ((715, 20), torch.bfloat16)}

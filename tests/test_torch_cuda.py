@@ -471,7 +471,7 @@ def test_flash_attention_autograd_on_the_card(gen):
 
 
 #: (kind, x shape, w shape): ragged rows and channels (1x1), a 1 x 1 image,
-#: odd and ResNet-like images (3x3)
+#: odd and ResNet-like images, ragged channels (3x3)
 CONV = {
     "1x1_tail": ("1x1", (200, 64), (64, 96)),
     "1x1_ragged": ("1x1", (4133, 96), (96, 160)),
@@ -480,6 +480,9 @@ CONV = {
     "3x3_1x1_image": ("3x3", (4, 1, 1, 24), (3, 3, 24, 40)),
     "3x3_14": ("3x3", (4, 14, 14, 64), (3, 3, 64, 128)),
     "3x3_7_wide": ("3x3", (2, 7, 7, 512), (3, 3, 512, 512)),
+    # channel counts off the 8-channel groups of Kernel M's 16-byte copies
+    # (its element-by-element edge) and 715 pixels, off its 128-pixel tiles
+    "3x3_ragged": ("3x3", (5, 13, 11, 20), (3, 3, 20, 36)),
 }
 CONV_OPS = {"1x1": (conv1x1_fwd_cuda, conv1x1_fwd_plain, conv1x1_bwd_cuda,
                     conv1x1_bwd_plain),
