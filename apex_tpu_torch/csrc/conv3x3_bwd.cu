@@ -20,7 +20,8 @@
 // - pass 0, prep: one elementwise pass with 16-byte loads and stores writes
 //   dy_eff [m, N] and, with the affine, z [m, K] to bf16 scratch, each
 //   element formed once (conv_fused.cuh's dyc and zval: the rounding points
-//   of the plain version). Every operand of the two GEMMs is then a plain
+//   of the plain version; z's pass is conv_prep.cuh's, which Kernel L
+//   runs too). Every operand of the two GEMMs is then a plain
 //   bf16 tensor, and each operand row is copied 16 bytes at a time;
 // - dW: blocks over (64 x 64 tile of [K, N], kernel row, chunk of pixels)
 //   run dW[tap] = z_shifted^T dy_eff for the row's three taps over their
@@ -57,6 +58,7 @@
 #include <algorithm>
 
 #include "conv_fused.cuh"
+#include "conv_prep.cuh"
 #include "mma_ring.cuh"
 
 namespace {
@@ -112,38 +114,8 @@ conv3x3_dw_kernel(const float* __restrict__ x, const float* __restrict__ a,
 }
 
 // ---------------------------------------------------------------------------
-// bf16, pass 0: dy_eff and z to scratch
+// bf16, pass 0: dy_eff and z to scratch (z: conv_prep.cuh)
 // ---------------------------------------------------------------------------
-
-constexpr int kPrepThreads = 256;
-constexpr int kPrepMaxBlocks = 132 * 16;
-
-// Channel of flat element e of a [rows, dim] tensor.
-__device__ __forceinline__ int channel_of(long long e, int dim) {
-  return e < (1LL << 32)
-             ? static_cast<int>(static_cast<unsigned>(e) %
-                                static_cast<unsigned>(dim))
-             : static_cast<int>(e % dim);
-}
-
-// Eight elements a thread: with VEC (dim % 8 == 0, 16-byte aligned
-// tensors) one 16-byte load of each input and one store, all eight in one
-// row; else element by element.
-template <bool VEC, class F>
-__device__ __forceinline__ void prep_loop(long long total, int dim, F&& f) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       g * 8 < total; g += stride) {
-    const long long e0 = g * 8;
-    if (VEC) {
-      f.vec8(e0, channel_of(e0, dim));
-    } else {
-      for (int j = 0; j < 8 && e0 + j < total; ++j)
-        f.one(e0 + j, channel_of(e0 + j, dim));
-    }
-  }
-}
 
 struct DyEffOp {
   const bf16* dy;
@@ -171,45 +143,10 @@ struct DyEffOp {
   }
 };
 
-template <bool RELU>
-struct ZOp {
-  const bf16* x;
-  const float* a;
-  const float* b;
-  bf16* out;
-  __device__ void one(long long e, int k) const {
-    out[e] = __float2bfloat16(
-        zval<bf16, true, RELU>(to_float(x[e]), affine_of<true>(a, b, k)));
-  }
-  __device__ void vec8(long long e0, int k0) const {
-    const uint4 xv = *reinterpret_cast<const uint4*>(x + e0);
-    const bf16* x8 = reinterpret_cast<const bf16*>(&xv);
-    uint4 ov;
-    bf16* o8 = reinterpret_cast<bf16*>(&ov);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      o8[j] = __float2bfloat16(zval<bf16, true, RELU>(
-          to_float(x8[j]), affine_of<true>(a, b, k0 + j)));
-    *reinterpret_cast<uint4*>(out + e0) = ov;
-  }
-};
-
 template <bool VEC>
 __global__ void __launch_bounds__(kPrepThreads)
 prep_dy_kernel(DyEffOp op, long long total) {
   prep_loop<VEC>(total, op.n_dim, op);
-}
-
-template <bool RELU, bool VEC>
-__global__ void __launch_bounds__(kPrepThreads)
-prep_z_kernel(ZOp<RELU> op, long long total, int k_dim) {
-  prep_loop<VEC>(total, k_dim, op);
-}
-
-inline unsigned prep_blocks(long long total) {
-  return static_cast<unsigned>(std::min(
-      cdiv(cdiv(total, 8), kPrepThreads),
-      static_cast<long long>(kPrepMaxBlocks)));
 }
 
 // ---------------------------------------------------------------------------
@@ -562,10 +499,7 @@ cudaError_t run_bf16(const Args& p, long long m, cudaStream_t stream) {
   const bf16* z = x;
   if (AFFINE) {
     bf16* zs = static_cast<bf16*>(p.z);
-    const long long mk = m * p.k;
-    prep_z_kernel<RELU, VEC><<<prep_blocks(mk), kPrepThreads, 0, stream>>>(
-        ZOp<RELU>{x, p.a, p.b, zs}, mk, p.k);
-    err = cudaGetLastError();
+    err = prep_z<RELU, VEC>(x, p.a, p.b, zs, m, p.k, stream);
     if (err != cudaSuccess) return err;
     z = zs;
   }

@@ -70,9 +70,9 @@ _SIGNATURES = {
     "apex_softmax_bwd": [_P, _P, _P, _P, _L, _I, _F, _I],
     # x, a, b, w, c, y, partial, stats, stream, m, k, n, affine, relu, dtype
     "apex_conv1x1_fwd": [_P] * 9 + [_I] * 6,
-    # x, a, b, w, c, y, partial, stats, stream, images, h, w, k, n, affine,
-    # relu, dtype
-    "apex_conv3x3_fwd": [_P] * 9 + [_I] * 8,
+    # x, a, b, w, c, y, partial, stats, z (bf16 scratch), stream, images, h,
+    # w, k, n, affine, relu, dtype
+    "apex_conv3x3_fwd": [_P] * 10 + [_I] * 8,
     # x, a, b, w, c, y, dy, ds, dx, dw_partial, dw, dab_partial, dab, stream,
     # m, k, n, chunk_rows, affine, relu, dtype
     "apex_conv1x1_bwd": [_P] * 14 + [_I] * 7,

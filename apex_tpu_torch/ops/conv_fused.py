@@ -35,7 +35,7 @@ __all__ = ["conv1x1_bn_act", "conv3x3_bn_act", "conv1x1_fwd_plain",
            "conv1x1_fwd_cuda", "conv1x1_bwd_plain", "conv1x1_bwd_cuda",
            "conv3x3_fwd_plain", "conv3x3_fwd_cuda", "conv3x3_bwd_plain",
            "conv3x3_bwd_cuda", "dw_chunks", "m_dw_chunks",
-           "conv3x3_bwd_scratch"]
+           "conv3x3_fwd_scratch", "conv3x3_bwd_scratch"]
 
 #: rows per block of every pass (``kBM`` in csrc/conv_fused.cuh)
 _BM = 64
@@ -97,6 +97,28 @@ def m_dw_chunks(m: int, tiles: int) -> Tuple[int, int]:
             best = (fill, c)
     rows = _support.round_up(_support.cdiv(m, best[1]), _M_SLICE)
     return _support.cdiv(m, rows), rows
+
+
+def _l_rows(n: int) -> int:
+    """Pixels a tile of Kernel L's bf16 GEMM (csrc/conv3x3_fwd.cu): 128 x
+    64 output channels a block, or 64 x 128 where N' >= 128 (one z tile
+    then feeds twice the columns)."""
+    return 64 if n >= 128 else 128
+
+
+def conv3x3_fwd_scratch(n_img: int, h: int, wd: int, k: int, n: int,
+                        affine: bool, dtype: torch.dtype) -> dict:
+    """What :func:`conv3x3_fwd_cuda` allocates for Kernel L besides its
+    outputs, name -> (shape, dtype): the stats partials per pixel tile
+    (:func:`_l_rows` pixels in bf16, 64 in f32) and, in bf16 with the
+    affine, the prep pass's z [m, K]."""
+    m = n_img * h * wd
+    bf16 = dtype == torch.bfloat16
+    out = {"partial": ((_support.cdiv(m, _l_rows(n) if bf16 else _BM), 2, n),
+                       torch.float32)}
+    if bf16 and affine:
+        out["z"] = ((m, k), torch.bfloat16)
+    return out
 
 
 def conv3x3_bwd_scratch(n_img: int, h: int, wd: int, k: int, n: int,
@@ -344,7 +366,10 @@ def _c3_shapes(x, w):
 
 
 def conv3x3_fwd_cuda(x, a, b, w, shift, affine: bool, relu: bool):
-    """Launch Kernel L on ``x [N, H, W, K]``, ``w [3, 3, K, N']``."""
+    """Launch Kernel L on ``x [N, H, W, K]``, ``w [3, 3, K, N']``. bf16:
+    the prep pass (z to scratch, with the affine), the implicit GEMM on the
+    tensor cores with the stats partials in its epilogue, and their
+    reduction; f32: the GEMM in fp32 FMAs and the reduction."""
     n_img, h, wd, k, n = _c3_shapes(x, w)
     code = _check("conv3x3_fwd", x, w, a, b, shift, k, n, affine, relu)
     x, a, b, w, shift = _contig(x, a, b, w, shift)
@@ -354,12 +379,13 @@ def conv3x3_fwd_cuda(x, a, b, w, shift, affine: bool, relu: bool):
     stats = torch.zeros((2, n), dtype=torch.float32, device=dev)
     if m == 0:
         return y, stats
-    partial = torch.empty((_support.cdiv(m, _BM), 2, n), dtype=torch.float32,
-                          device=dev)
+    scratch = {name: torch.empty(shape, dtype=dt, device=dev)
+               for name, (shape, dt) in conv3x3_fwd_scratch(
+                   n_img, h, wd, k, n, affine, x.dtype).items()}
     status = _build.library().apex_conv3x3_fwd(
         _ptr(x), _ptr(a), _ptr(b), _ptr(w), _ptr(shift), _ptr(y),
-        _ptr(partial), _ptr(stats), _stream(dev), n_img, h, wd, k, n,
-        int(affine), int(relu), code)
+        _ptr(scratch["partial"]), _ptr(stats), _ptr(scratch.get("z")),
+        _stream(dev), n_img, h, wd, k, n, int(affine), int(relu), code)
     _build.check("apex_conv3x3_fwd", status)
     _support.count_launch("conv3x3_fwd")
     return y, stats

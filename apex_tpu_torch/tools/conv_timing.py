@@ -4,25 +4,33 @@
 Usage (from a checkout's root, on a machine with one GPU)::
 
     python3 apex_tpu_torch/tools/conv_timing.py [--root DIR] [--tag NAME]
-        [--out FILE]
+        [--out FILE] [--rn50]
 
 ``--root`` names the checkout whose ``apex_tpu_torch`` is imported and
 built (default: the one holding this file), so one call can time two
 versions of the kernels in turns (parent, change, change, parent), each in
-its own process. Kernel M (``conv3x3_bwd_cuda``) is timed in bf16 with the
-input affine and relu at the four stride-1 3x3 shapes of ResNet-50
-(layers 1-4, batch 256), beside cuDNN's conv backward alone on the same
-inputs, and split into its device kernels by ``torch.profiler``; J, K and
-L at layer1 give the noise between processes. Each M case is first held
-to its plain version (dx within 1 bf16 ulp, dW and da/db within 1e-5
-norm-wise, two runs bitwise equal). Times are medians of CUDA-event
-intervals, as ``chip_smoke.py``'s ``Timer`` takes them. Prints one JSON
-line per measurement and, with ``--out``, writes them all to FILE.
+its own process. Kernels L (``conv3x3_fwd_cuda``) and M
+(``conv3x3_bwd_cuda``) are timed in bf16 with the input affine and relu at
+the four stride-1 3x3 shapes of ResNet-50 (layers 1-4, batch 256), beside
+cuDNN's conv forward or backward alone on the same inputs, and split into
+their device kernels by ``torch.profiler``; J and K at layer1 give the
+noise between processes. Each case is first held to its plain version (L:
+y within 1 bf16 ulp, stats within 1e-5 norm-wise; M: dx within 1 bf16
+ulp, dW and da/db within 1e-5 norm-wise; two runs bitwise equal), and
+its outputs' digest is printed, so that two versions' outputs can be
+compared bit for bit. Times are medians of CUDA-event intervals, as
+``chip_smoke.py``'s ``Timer`` takes them. Prints one JSON line per
+measurement and, with ``--out``, writes them all to FILE. With ``--rn50``
+it runs the checkout's ``chip_smoke.py`` ``[rn50_train]`` phase instead,
+so that the training step can be compared in turns as well.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import hashlib
+import io
 import json
 import math
 import re
@@ -75,9 +83,20 @@ def device_split(fn, calls=5) -> dict:
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             name = e.name.replace("(anonymous namespace)::", "")
-            name = re.split(r"[<(]", name.removeprefix("void "))[0][:60]
+            name = re.split(r"[<(]", name.removeprefix("void "))[0]
+            name = name.split("::")[-1][:60]
             split[name] = split.get(name, 0.0) + e.time_range.elapsed_us()
     return {k: round(v / calls / 1e3, 5) for k, v in split.items()}
+
+
+def digest(tensors) -> str:
+    """sha256 of the outputs' bytes: equal digests in two processes (two
+    versions of a kernel on the same seeded inputs) mean bitwise equal
+    outputs."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def ulps(got, want) -> float:
@@ -127,14 +146,30 @@ def time_m(cf, name, x_shape, w_shape, gen, emit) -> None:
          ms=median_ms(run), cudnn_bwd_ms=median_ms(
              lambda: torch.autograd.grad(out, (xv, wv), dyv,
                                          retain_graph=True)),
-         split_ms=device_split(run), ok=ok, **errs)
+         split_ms=device_split(run), ok=ok, sha256=digest(got), **errs)
 
 
-def time_jkl(cf, gen, emit) -> None:
-    x, a, b, w, c, dy, ds = inputs((256, 56, 56, 64), (3, 3, 64, 64), gen)
-    y, _ = cf.conv3x3_fwd_plain(x, a, b, w, c, True, True)
-    emit(kernel="conv3x3_fwd", case="layer1", ms=median_ms(
-        lambda: cf.conv3x3_fwd_cuda(x, a, b, w, c, True, True)))
+def time_l(cf, name, x_shape, w_shape, gen, emit) -> None:
+    x, a, b, w, c, _, _ = inputs(x_shape, w_shape, gen)
+    run = lambda: cf.conv3x3_fwd_cuda(x, a, b, w, c, True, True)  # noqa
+    got, again = run(), run()
+    want = cf.conv3x3_fwd_plain(x, a, b, w, c, True, True)
+    errs = dict(y_ulps=ulps(got[0], want[0]),
+                stats_rel=rel(got[1], want[1]),
+                bitwise_repeat=all(torch.equal(g, h)
+                                   for g, h in zip(got, again)))
+    ok = (errs["y_ulps"] <= 1.0 and errs["stats_rel"] <= 1e-5
+          and errs["bitwise_repeat"])
+    xv = x.permute(0, 3, 1, 2)
+    wv = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    emit(kernel="conv3x3_fwd", case=name, x=list(x_shape), w=list(w_shape),
+         ms=median_ms(run), cudnn_fwd_ms=median_ms(
+             lambda: F.conv2d(xv, wv, padding=1)),
+         split_ms=device_split(run), ok=ok, sha256=digest(got), **errs)
+
+
+def time_jk(cf, gen, emit) -> None:
+    x, a, b, *_ = inputs((256, 56, 56, 64), (3, 3, 64, 64), gen)
     x2 = x.reshape(-1, 64)
     w1 = (torch.randn(64, 256, device="cuda", generator=gen) / 8).bfloat16()
     c1 = 0.1 * torch.randn(256, device="cuda", generator=gen)
@@ -148,12 +183,31 @@ def time_jkl(cf, gen, emit) -> None:
                                     True)))
 
 
+def time_rn50(emit) -> None:
+    """``chip_smoke.py``'s ``[rn50_train]`` phase of the ``--root``
+    checkout (ResNet-50 at 224 px, batch 256, 2 warm-up and 8 timed steps
+    on one seeded batch, its losses and launches checked); its line is
+    printed and its step time, images/s, MFU and peak memory emitted."""
+    import chip_smoke
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        chip_smoke.phase_rn50_train()
+    print(buf.getvalue(), end="", flush=True)
+    fields = re.findall(r"(step_ms_median|images_per_s|mfu|peak_mem_gb)="
+                        r"([0-9.]+)", buf.getvalue())
+    emit(kernel="rn50_train", case="224px_b256",
+         **{k: float(v) for k, v in fields})
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--root", default=str(Path(__file__).resolve()
                                               .parents[2]))
     parser.add_argument("--tag", default="")
     parser.add_argument("--out", default=None)
+    parser.add_argument("--rn50", action="store_true",
+                        help="run the checkout's rn50_train phase instead "
+                        "of timing the kernels")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("conv_timing: no CUDA device", file=sys.stderr)
@@ -172,15 +226,19 @@ def main() -> int:
         row = dict(tag=args.tag, card=card, **fields)
         rows.append(row)
         print(json.dumps(row), flush=True)
+        if args.out:
+            with open(args.out, "a") as f:
+                f.write(json.dumps(row) + "\n")
 
+    if args.rn50:
+        time_rn50(emit)
+        return 0
     gen = torch.Generator(device="cuda").manual_seed(6)
     for name, x_shape, w_shape in M_SHAPES:
+        time_l(cf, name, x_shape, w_shape, gen, emit)
         time_m(cf, name, x_shape, w_shape, gen, emit)
         torch.cuda.empty_cache()
-    time_jkl(cf, gen, emit)
-    if args.out:
-        with open(args.out, "a") as f:
-            f.writelines(json.dumps(r) + "\n" for r in rows)
+    time_jk(cf, gen, emit)
     return 0 if all(r.get("ok", True) for r in rows) else 1
 
 

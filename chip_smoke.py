@@ -55,13 +55,14 @@ printing its own lines and raising on failure:
               ResNet-50's layer1 conv3 (affine + relu), layer4 conv1 and
               downsample (no affine; the downsample's 2M weights were
               gated off the TPU), and a 200-row tail in every (affine,
-              relu) combination; two backward runs bitwise equal;
+              relu) combination; two forward and two backward runs
+              bitwise equal;
 19. kernel L/M — the fused 3x3 conv forward and backward, the same checks
               at ResNet-50's four stride-1 3x3 shapes [256,56,56,64],
               [256,28,28,128], [256,14,14,256], [256,7,7,512] (the first
               and last gated off the TPU), an odd [3,5,9,16] -> 32 and a
-              ragged [5,13,11,20] -> 36 (channels off M's 8-channel
-              copies, pixels off its 128-pixel tiles);
+              ragged [5,13,11,20] -> 36 (channels off L's and M's
+              8-channel copies, pixels off their 128-pixel tiles);
 20. rn50_train — ResNet-50 (224 px, batch 256, bf16 compute over fp32
               params, fused_conv, FusedSGD lr 0.1 momentum 0.9 wd 1e-4 with
               master weights) takes 2 + 8 steps; every loss finite, the
@@ -1018,9 +1019,10 @@ def phase_conv(timer: Timer) -> tuple:
     """Kernels J-M against their plain versions on the same inputs, with a
     random stats cotangent: bf16 y and dx within 1 ulp of the plain
     version run in fp32 and rounded once; f32 y and dx, and every fp32 sum
-    (stats, dW, da, db), norm-wise within ``CONV_SUM_TOL``; two backward
-    runs bitwise equal. The layer1 bf16 cases are the records; every bf16
-    case at a ResNet-50 shape is timed against cuDNN's conv alone."""
+    (stats, dW, da, db), norm-wise within ``CONV_SUM_TOL``; two forward
+    and two backward runs bitwise equal. The layer1 bf16 cases are the
+    records; every bf16 case at a ResNet-50 shape is timed against cuDNN's
+    conv alone."""
     from apex_tpu_torch.ops import conv_fused as cf
     ops = {"1x1": (cf.conv1x1_fwd_cuda, cf.conv1x1_fwd_plain,
                    cf.conv1x1_bwd_cuda, cf.conv1x1_bwd_plain),
@@ -1050,11 +1052,15 @@ def phase_conv(timer: Timer) -> tuple:
                 ds = 0.1 * rnd(2, n)
                 args = (a, b, w, c)
                 y, st = fwd_c(x, *args, affine, relu)
+                y2, st2 = fwd_c(x, *args, affine, relu)
                 ry, rst = fwd_p(x, *args, affine, relu)
                 got = bwd_c(x, *args, ry, dy, ds, affine, relu)
                 again = bwd_c(x, *args, ry, dy, ds, affine, relu)
                 want = bwd_p(x, *args, ry, dy, ds, affine, relu)
                 torch.cuda.synchronize()
+                if not (torch.equal(y, y2) and torch.equal(st, st2)):
+                    raise AssertionError(f"kernel {fk} {name} {dtype}: two "
+                                         f"runs differ")
                 if not all((g is None and h is None) or torch.equal(g, h)
                            for g, h in zip(got, again)):
                     raise AssertionError(f"kernel {bk} {name} {dtype}: two "
@@ -1128,8 +1134,7 @@ def phase_conv(timer: Timer) -> tuple:
                         **{f"{e}_err": f"{errs[e]:.3e}" for e in keys
                            if e in errs},
                         tol="1_bf16_ulp/1e-5_normwise", **fields,
-                        **({"bitwise_repeat": True} if which == "bwd"
-                           else {}))
+                        bitwise_repeat=True)
                 if record and dtype == torch.bfloat16:
                     shape = (f"x[{','.join(map(str, x_shape))}] "
                              f"w[{','.join(map(str, w_shape))}] bf16"
@@ -1146,7 +1151,7 @@ def phase_conv(timer: Timer) -> tuple:
                             ms=timed[which], plain_ms=timed[which + "_plain"],
                             bound_ms=bms, bound_by=by,
                             library_ms=timed[which + "_lib"])
-                del x, w, dy, y, ry, got, again, want
+                del x, w, dy, y, y2, ry, got, again, want
     torch.cuda.empty_cache()
     return tuple(records[k] for k in ("conv1x1_fwd", "conv1x1_bwd",
                                       "conv3x3_fwd", "conv3x3_bwd"))

@@ -32,6 +32,7 @@ from apex_tpu_torch.ops.conv_fused import (
     conv1x1_bn_act,
     conv3x3_bn_act,
     conv3x3_bwd_scratch,
+    conv3x3_fwd_scratch,
     dw_chunks,
     m_dw_chunks,
 )
@@ -255,3 +256,46 @@ def test_conv3x3_bwd_scratch_ragged():
                     "dab_partial": ((6, 2, 20), torch.float32),
                     "dy_eff": ((715, 36), torch.bfloat16),
                     "z": ((715, 20), torch.bfloat16)}
+
+
+@pytest.mark.parametrize("affine", [True, False])
+def test_conv3x3_fwd_scratch_layer1(affine):
+    """What Kernel L allocates at ResNet-50's layer1 3x3: in bf16 the
+    stats partials per 128-pixel tile and, with the affine, the prep
+    pass's z; in f32 partials per 64-pixel tile and no z."""
+    m = 256 * 56 * 56
+    want = {"partial": ((6272, 2, 64), torch.float32)}
+    if affine:
+        want["z"] = ((m, 64), torch.bfloat16)
+    assert conv3x3_fwd_scratch(256, 56, 56, 64, 64, affine,
+                               torch.bfloat16) == want
+    assert conv3x3_fwd_scratch(256, 56, 56, 64, 64, affine,
+                               torch.float32) == {
+        "partial": ((12544, 2, 64), torch.float32)}
+
+
+@pytest.mark.parametrize("affine", [True, False])
+def test_conv3x3_fwd_scratch_ragged(affine):
+    """Ragged pixels and channels (the card tests' ``3x3_ragged``): the
+    partial rows cover the last, part-filled pixel tile."""
+    want = {"partial": ((6, 2, 36), torch.float32)}
+    if affine:
+        want["z"] = ((715, 20), torch.bfloat16)
+    assert conv3x3_fwd_scratch(5, 13, 11, 20, 36, affine,
+                               torch.bfloat16) == want
+    assert conv3x3_fwd_scratch(5, 13, 11, 20, 36, affine,
+                               torch.float32) == {
+        "partial": ((12, 2, 36), torch.float32)}
+
+
+@pytest.mark.parametrize("layer,n_img,hw,c,rows", [
+    ("layer2", 256, 28, 128, 3136),
+    ("layer3", 256, 14, 256, 784),
+    ("layer4", 256, 7, 512, 196),
+])
+def test_conv3x3_fwd_scratch_wide(layer, n_img, hw, c, rows):
+    """From N' = 128 on (ResNet-50's layers 2-4) Kernel L's bf16 GEMM tiles
+    64 pixels x 128 channels: a partial row per 64 pixels."""
+    plan = conv3x3_fwd_scratch(n_img, hw, hw, c, c, True, torch.bfloat16)
+    assert plan == {"partial": ((rows, 2, c), torch.float32),
+                    "z": ((n_img * hw * hw, c), torch.bfloat16)}

@@ -480,9 +480,13 @@ CONV = {
     "3x3_1x1_image": ("3x3", (4, 1, 1, 24), (3, 3, 24, 40)),
     "3x3_14": ("3x3", (4, 14, 14, 64), (3, 3, 64, 128)),
     "3x3_7_wide": ("3x3", (2, 7, 7, 512), (3, 3, 512, 512)),
-    # channel counts off the 8-channel groups of Kernel M's 16-byte copies
-    # (its element-by-element edge) and 715 pixels, off its 128-pixel tiles
+    # channel counts off the 8-channel groups of Kernel L's and M's 16-byte
+    # copies (their element-by-element edge) and 715 pixels, off their
+    # 128-pixel tiles
     "3x3_ragged": ("3x3", (5, 13, 11, 20), (3, 3, 20, 36)),
+    # more than one column tile of Kernel L's GEMM, and 351 pixels: a
+    # ragged last row tile
+    "3x3_wide_rows": ("3x3", (3, 9, 13, 64), (3, 3, 64, 192)),
 }
 CONV_OPS = {"1x1": (conv1x1_fwd_cuda, conv1x1_fwd_plain, conv1x1_bwd_cuda,
                     conv1x1_bwd_plain),
@@ -500,7 +504,8 @@ def _norm_rel(got, want):
                                          (True, True)])
 @pytest.mark.parametrize("name", list(CONV))
 def test_conv_kernels(gen, name, affine, relu, dtype):
-    """Kernels J-M against their plain versions on the same inputs."""
+    """Kernels J-M against their plain versions on the same inputs; two
+    runs of each bitwise equal."""
     kind, x_shape, w_shape = CONV[name]
     fwd_c, fwd_p, bwd_c, bwd_p = CONV_OPS[kind]
     k, n = w_shape[-2], w_shape[-1]
@@ -515,6 +520,7 @@ def test_conv_kernels(gen, name, affine, relu, dtype):
     dy = rnd(*x_shape[:-1], n).to(dtype)
     ds = 0.1 * rnd(2, n)
     y, st = fwd_c(x, a, b, w, c, affine, relu)
+    y2, st2 = fwd_c(x, a, b, w, c, affine, relu)
     ry, rst = fwd_p(x, a, b, w, c, affine, relu)
     got = bwd_c(x, a, b, w, c, ry, dy, ds, affine, relu)
     want = bwd_p(x, a, b, w, c, ry, dy, ds, affine, relu)
@@ -529,6 +535,7 @@ def test_conv_kernels(gen, name, affine, relu, dtype):
             assert h is None and not affine
             continue
         assert _norm_rel(g, h) <= 1e-5
+    assert torch.equal(y2, y) and torch.equal(st2, st)
     assert all((g is None and h is None) or torch.equal(g, h)
                for g, h in zip(again, got))
 
