@@ -20,8 +20,8 @@
 // - pass 0, prep: one elementwise pass with 16-byte loads and stores writes
 //   dy_eff [m, N] and, with the affine, z [m, K] to bf16 scratch, each
 //   element formed once (conv_fused.cuh's dyc and zval: the rounding points
-//   of the plain version; z's pass is conv_prep.cuh's, which Kernel L
-//   runs too). Every operand of the two GEMMs is then a plain
+//   of the plain version; both passes are conv_prep.cuh's, which Kernels K
+//   and L run too). Every operand of the two GEMMs is then a plain
 //   bf16 tensor, and each operand row is copied 16 bytes at a time;
 // - dW: blocks over (64 x 64 tile of [K, N], kernel row, chunk of pixels)
 //   run dW[tap] = z_shifted^T dy_eff for the row's three taps over their
@@ -32,9 +32,9 @@
 //   outside the image copied as zeros, the nine taps' overlapping rows
 //   through L1) and B = w[tap] read as stored, then Kernel K's epilogue
 //   (relu mask from x a + b, dx = dg a, da/db partials summed in a fixed
-//   order);
-// - fixed-order sums of the dW partials (chunk_sum_kernel) and of the
-//   da/db partials (conv_fused.cuh's column_sum).
+//   order; conv_mma.cuh's dx_mma_kernel, which Kernel K runs at one tap);
+// - fixed-order sums of the dW partials (conv_mma.cuh's chunk_sum) and of
+//   the da/db partials (conv_fused.cuh's column_sum).
 // Both GEMMs run on mma.sync m16n8k16 fed by a 4-stage cp.async ring
 // (mma_ring.cuh), one barrier a slice; shared-memory rows are padded so
 // ldmatrix reads them without bank conflicts. Channel counts that are not
@@ -58,6 +58,7 @@
 #include <algorithm>
 
 #include "conv_fused.cuh"
+#include "conv_mma.cuh"
 #include "conv_prep.cuh"
 #include "mma_ring.cuh"
 
@@ -114,53 +115,11 @@ conv3x3_dw_kernel(const float* __restrict__ x, const float* __restrict__ a,
 }
 
 // ---------------------------------------------------------------------------
-// bf16, pass 0: dy_eff and z to scratch (z: conv_prep.cuh)
+// bf16, the dW GEMM on the cp.async ring (prep, dx and the chunk sum:
+// conv_prep.cuh, conv_mma.cuh)
 // ---------------------------------------------------------------------------
 
-struct DyEffOp {
-  const bf16* dy;
-  const bf16* y;
-  const float* c;
-  const float* ds;
-  bf16* out;
-  int n_dim;
-  __device__ void one(long long e, int n) const {
-    out[e] = __float2bfloat16(dyc<bf16>(to_float(dy[e]), to_float(y[e]),
-                                        cot_of(c, ds, n_dim, n)));
-  }
-  __device__ void vec8(long long e0, int n0) const {
-    const uint4 dv = *reinterpret_cast<const uint4*>(dy + e0);
-    const uint4 yv = *reinterpret_cast<const uint4*>(y + e0);
-    const bf16* d8 = reinterpret_cast<const bf16*>(&dv);
-    const bf16* y8 = reinterpret_cast<const bf16*>(&yv);
-    uint4 ov;
-    bf16* o8 = reinterpret_cast<bf16*>(&ov);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      o8[j] = __float2bfloat16(dyc<bf16>(to_float(d8[j]), to_float(y8[j]),
-                                         cot_of(c, ds, n_dim, n0 + j)));
-    *reinterpret_cast<uint4*>(out + e0) = ov;
-  }
-};
-
-template <bool VEC>
-__global__ void __launch_bounds__(kPrepThreads)
-prep_dy_kernel(DyEffOp op, long long total) {
-  prep_loop<VEC>(total, op.n_dim, op);
-}
-
-// ---------------------------------------------------------------------------
-// bf16, the two GEMMs on the cp.async ring
-// ---------------------------------------------------------------------------
-
-constexpr int kStages = 4;
-constexpr int kSlice = 32;           // contraction depth of one slice
-constexpr int kRowH = kSlice + 8;    // dx stage rows: 32 channels + pad
 constexpr int kTileH = 64 + 8;       // dW stage rows: 64 channels + pad
-
-__device__ __forceinline__ int slices_of(long long depth) {
-  return static_cast<int>((depth + kSlice - 1) / kSlice);
-}
 
 // dW: a 64 x 64 tile of dW[tap] ([K, N]) for kDwTaps taps of one kernel
 // row (the same dy_eff rows), 4 warps of 32 x 32, slices of 32 pixels;
@@ -272,196 +231,6 @@ dw_mma_kernel(const bf16* __restrict__ z, const bf16* __restrict__ dye,
   }
 }
 
-// dx: 128 output pixels x 64 input channels, 8 warps (4 x 2) of 32 x 32,
-// slices of (tap, 32 output channels); each stage holds dy_eff [128
-// pixels][32 N] at the tap's shifted pixels and w[tap] [64 K][32 N].
-constexpr int kDxMT = 2;                  // m16 tiles a warp
-constexpr int kDxNT = 4;                  // n8 tiles a warp
-constexpr int kDxRows = 4 * 16 * kDxMT;   // pixels a block
-constexpr int kDxCols = 2 * 8 * kDxNT;    // input channels a block
-constexpr int kDxThreads = 256;
-constexpr int kDxStage = (kDxRows + kDxCols) * kRowH * 2;
-
-template <bool AFFINE, bool RELU, bool VEC>
-__global__ void __launch_bounds__(kDxThreads)
-dx_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
-              const float* __restrict__ b, const bf16* __restrict__ w,
-              const bf16* __restrict__ dye, bf16* __restrict__ dx,
-              float* __restrict__ dab_partial, long long m, int h, int wd,
-              int k, int n) {
-  constexpr int AR = kDxRows / 64;  // A rows a thread copies
-  constexpr int BR = kDxCols / 64;  // B rows a thread copies
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float red[4][kDxCols][2];
-  const long long row0 = static_cast<long long>(blockIdx.x) * kDxRows;
-  const int col0 = blockIdx.y * kDxCols;
-  const int tid = threadIdx.x;
-  const int cq = (tid & 3) * 8;
-  const int r = tid >> 2;  // A rows r + 64 i; B rows r + 64 i
-  long long p[AR];
-  int ph[AR], pw[AR];
-  bool ok[AR];
-#pragma unroll
-  for (int i = 0; i < AR; ++i) {
-    p[i] = row0 + r + 64 * i;
-    ok[i] = p[i] < m;
-    int img;
-    pixel_of(ok[i] ? p[i] : 0, h, wd, img, ph[i], pw[i]);
-  }
-  int tap = 0;
-  int nb = 0;
-  auto load = [&](unsigned char* st) {
-    bf16* sa = reinterpret_cast<bf16*>(st);
-    bf16* sb = sa + kDxRows * kRowH;
-    const int dr = 1 - tap / 3;  // dy_eff is read at (row + dr, col + dc)
-    const int dc = 1 - tap % 3;
-    const long long shift = static_cast<long long>(dr) * wd + dc;
-    const int n_left = n - nb - cq;
-#pragma unroll
-    for (int i = 0; i < AR; ++i) {
-      const int hh = ph[i] + dr;
-      const int ww = pw[i] + dc;
-      const bool in = ok[i] && hh >= 0 && hh < h && ww >= 0 && ww < wd;
-      apex::ring::copy8<VEC, true>(sa + (r + 64 * i) * kRowH + cq,
-                             dye + (p[i] + shift) * n + nb + cq, dye, in,
-                             n_left);
-    }
-#pragma unroll
-    for (int i = 0; i < BR; ++i) {
-      const int kr = col0 + r + 64 * i;
-      apex::ring::copy8<VEC>(
-          sb + (r + 64 * i) * kRowH + cq,
-          w + (static_cast<long long>(tap) * k + kr) * n + nb + cq, w,
-          kr < k, n_left);
-    }
-    nb += kSlice;
-    if (nb >= n) {
-      nb = 0;
-      ++tap;
-    }
-  };
-  const int warp = tid >> 5;
-  const int wm = (warp & 3) * 16 * kDxMT;  // pixels
-  const int wn = (warp >> 2) * 8 * kDxNT;  // K
-  float acc[kDxMT][kDxNT][4] = {};
-  auto step = [&](const unsigned char* st) {
-    const bf16* sa = reinterpret_cast<const bf16*>(st);
-    const bf16* sb = sa + kDxRows * kRowH;
-#pragma unroll
-    for (int kk = 0; kk < kSlice; kk += 16)
-      apex::ring::warp_step<kDxMT, kDxNT, false, false>(
-          sa + wm * kRowH, kRowH, sb + wn * kRowH, kRowH, kk, acc);
-  };
-  apex::ring::run_ring<kStages, kDxStage>(9 * slices_of(n), smem, load, step);
-
-  // epilogue: Kernel K's (epilogue_dx) on this thread's fragment layout
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t2 = (lane & 3) * 2;
-  float s0[kDxNT][2] = {};
-  float s1[kDxNT][2] = {};
-  const bool pair = (k & 1) == 0 &&
-                    ((reinterpret_cast<size_t>(x) |
-                      reinterpret_cast<size_t>(dx)) & 3) == 0;
-#pragma unroll
-  for (int i = 0; i < kDxMT; ++i)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const long long row = row0 + wm + 16 * i + g + 8 * hf;
-      if (row >= m) continue;
-#pragma unroll
-      for (int j = 0; j < kDxNT; ++j) {
-        const int kc = col0 + wn + 8 * j + t2;
-        if (kc >= k) continue;
-        const long long idx = row * k + kc;
-        const bool both = pair || kc + 1 < k;
-        float xv[2] = {0.f, 0.f};
-        if (AFFINE) {
-          if (pair) {
-            const __nv_bfloat162 x2 =
-                *reinterpret_cast<const __nv_bfloat162*>(x + idx);
-            xv[0] = __low2float(x2);
-            xv[1] = __high2float(x2);
-          } else {
-            xv[0] = to_float(x[idx]);
-            if (both) xv[1] = to_float(x[idx + 1]);
-          }
-        }
-        float out[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          out[e] = acc[i][j][2 * hf + e];
-          if (AFFINE && (e == 0 || both)) {
-            const int kk = kc + e;
-            const float pre = __fadd_rn(__fmul_rn(xv[e], a[kk]), b[kk]);
-            const float dg = (RELU && !(pre > 0.f)) ? 0.f : out[e];
-            out[e] = __fmul_rn(dg, a[kk]);
-            s0[j][e] += dg * xv[e];
-            s1[j][e] += dg;
-          }
-        }
-        if (pair) {
-          *reinterpret_cast<__nv_bfloat162*>(dx + idx) =
-              __floats2bfloat162_rn(out[0], out[1]);
-        } else {
-          dx[idx] = __float2bfloat16(out[0]);
-          if (both) dx[idx + 1] = __float2bfloat16(out[1]);
-        }
-      }
-    }
-  if (!AFFINE) return;
-  // da/db partials: over the 8 row groups of the warp (lanes that share
-  // lane % 4) by a fixed butterfly, then over the 4 warps of the tile's
-  // rows in order: repeated runs are bitwise equal
-#pragma unroll
-  for (int j = 0; j < kDxNT; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        s0[j][e] += __shfl_xor_sync(0xffffffffu, s0[j][e], off);
-        s1[j][e] += __shfl_xor_sync(0xffffffffu, s1[j][e], off);
-      }
-  if (g == 0) {
-#pragma unroll
-    for (int j = 0; j < kDxNT; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        red[warp & 3][wn + 8 * j + t2 + e][0] = s0[j][e];
-        red[warp & 3][wn + 8 * j + t2 + e][1] = s1[j][e];
-      }
-  }
-  __syncthreads();
-  if (tid < kDxCols && col0 + tid < k) {
-    float t0 = 0.f;
-    float t1 = 0.f;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      t0 += red[q][tid][0];
-      t1 += red[q][tid][1];
-    }
-    const long long slot = blockIdx.x;
-    dab_partial[(slot * 2) * k + col0 + tid] = t0;
-    dab_partial[(slot * 2 + 1) * k + col0 + tid] = t1;
-  }
-}
-
-// dW = the sum of its per-chunk partials [chunks, 9 k n], each element's in
-// chunk order: repeated runs are bitwise equal
-constexpr int kSumThreads = 256;
-
-__global__ void __launch_bounds__(kSumThreads)
-chunk_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
-                 int chunks, long long cols) {
-  const long long col =
-      static_cast<long long>(blockIdx.x) * kSumThreads + threadIdx.x;
-  if (col >= cols) return;
-  float s = 0.f;
-#pragma unroll 8
-  for (int r = 0; r < chunks; ++r) s += part[r * cols + col];
-  out[col] = s;
-}
-
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
@@ -489,17 +258,14 @@ template <bool AFFINE, bool RELU, bool VEC>
 cudaError_t run_bf16(const Args& p, long long m, cudaStream_t stream) {
   const bf16* x = static_cast<const bf16*>(p.x);
   bf16* dye = static_cast<bf16*>(p.dy_eff);
-  const long long mn = m * p.n;
-  prep_dy_kernel<VEC><<<prep_blocks(mn), kPrepThreads, 0, stream>>>(
-      DyEffOp{static_cast<const bf16*>(p.dy), static_cast<const bf16*>(p.y),
-              p.c, p.ds, dye, p.n},
-      mn);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = prep_dy<KernelM, VEC>(
+      static_cast<const bf16*>(p.dy), static_cast<const bf16*>(p.y), p.c,
+      p.ds, dye, m, p.n, stream);
   if (err != cudaSuccess) return err;
   const bf16* z = x;
   if (AFFINE) {
     bf16* zs = static_cast<bf16*>(p.z);
-    err = prep_z<RELU, VEC>(x, p.a, p.b, zs, m, p.k, stream);
+    err = prep_z<KernelM, RELU, VEC>(x, p.a, p.b, zs, m, p.k, stream);
     if (err != cudaSuccess) return err;
     z = zs;
   }
@@ -514,23 +280,14 @@ cudaError_t run_bf16(const Args& p, long long m, cudaStream_t stream) {
       z, dye, p.dw_partial, m, p.h, p.wd, p.k, p.n, p.chunk_rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int row_blocks = static_cast<int>(cdiv(m, kDxRows));
-  const dim3 grid_dx(static_cast<unsigned>(row_blocks),
-                     static_cast<unsigned>(cdiv(p.k, kDxCols)));
-  constexpr int dx_smem = kStages * kDxStage;
-  err = apex::allow_smem(dx_mma_kernel<AFFINE, RELU, VEC>, dx_smem);
-  if (err != cudaSuccess) return err;
-  dx_mma_kernel<AFFINE, RELU, VEC><<<grid_dx, kDxThreads, dx_smem, stream>>>(
+  err = run_dx<9, AFFINE, RELU, VEC>(
       x, p.a, p.b, static_cast<const bf16*>(p.w), dye,
-      static_cast<bf16*>(p.dx), p.dab_partial, m, p.h, p.wd, p.k, p.n);
-  err = cudaGetLastError();
+      static_cast<bf16*>(p.dx), p.dab_partial, m, p.h, p.wd, p.k, p.n,
+      stream);
   if (err != cudaSuccess) return err;
-  const long long dw_size = 9LL * p.k * p.n;
-  chunk_sum_kernel<<<static_cast<unsigned>(cdiv(dw_size, kSumThreads)),
-                     kSumThreads, 0, stream>>>(p.dw_partial, p.dw, chunks,
-                                               dw_size);
-  err = cudaGetLastError();
+  err = chunk_sum<9>(p.dw_partial, p.dw, chunks, 9LL * p.k * p.n, stream);
   if (err != cudaSuccess || !AFFINE) return err;
+  const int row_blocks = static_cast<int>(cdiv(m, kDxRows));
   return column_sum(p.dab_partial, p.dab, row_blocks, 2LL * p.k, stream);
 }
 
@@ -561,10 +318,6 @@ cudaError_t run_f32(const Args& p, long long m, cudaStream_t stream) {
   return column_sum(p.dab_partial, p.dab, row_blocks, 2LL * p.k, stream);
 }
 
-inline bool aligned16(const void* ptr) {
-  return (reinterpret_cast<size_t>(ptr) & 15) == 0;
-}
-
 template <typename T, bool AFFINE, bool RELU>
 struct Launch {
   static cudaError_t run(const Args& p, cudaStream_t stream) {
@@ -573,10 +326,13 @@ struct Launch {
       return run_f32<AFFINE, RELU>(p, m, stream);
     } else {
       // the 16-byte copies need whole 8-channel groups and aligned rows
+      // and per-channel vectors
       const bool vec = p.k % 8 == 0 && p.n % 8 == 0 && aligned16(p.x) &&
                        aligned16(p.w) && aligned16(p.y) &&
                        aligned16(p.dy) && aligned16(p.dy_eff) &&
-                       (!AFFINE || aligned16(p.z));
+                       aligned16(p.c) && aligned16(p.ds) &&
+                       (!AFFINE || (aligned16(p.z) && aligned16(p.a) &&
+                                    aligned16(p.b)));
       return vec ? run_bf16<AFFINE, RELU, true>(p, m, stream)
                  : run_bf16<AFFINE, RELU, false>(p, m, stream);
     }

@@ -311,7 +311,8 @@ cudaError_t run_bf16(const Args& p, long long m, cudaStream_t stream) {
   const bf16* z = static_cast<const bf16*>(p.x);
   if constexpr (AFFINE) {
     bf16* zs = static_cast<bf16*>(p.z);
-    const cudaError_t err = prep_z<RELU, VEC>(z, p.a, p.b, zs, m, p.k, stream);
+    const cudaError_t err =
+        prep_z<KernelL, RELU, VEC>(z, p.a, p.b, zs, m, p.k, stream);
     if (err != cudaSuccess) return err;
     z = zs;
   }
@@ -335,10 +336,6 @@ cudaError_t run_f32(const Args& p, long long m, cudaStream_t stream) {
   return column_sum(p.partial, p.stats, row_blocks, 2LL * p.n, stream);
 }
 
-inline bool aligned16(const void* ptr) {
-  return (reinterpret_cast<size_t>(ptr) & 15) == 0;
-}
-
 template <typename T, bool AFFINE, bool RELU>
 struct Launch {
   static cudaError_t run(const Args& p, cudaStream_t stream) {
@@ -347,8 +344,11 @@ struct Launch {
       return run_f32<AFFINE, RELU>(p, m, stream);
     } else {
       // the 16-byte copies need whole 8-channel groups and aligned rows
+      // and per-channel vectors
       const bool vec = p.k % 8 == 0 && p.n % 8 == 0 && aligned16(p.x) &&
-                       aligned16(p.w) && (!AFFINE || aligned16(p.z));
+                       aligned16(p.w) &&
+                       (!AFFINE || (aligned16(p.z) && aligned16(p.a) &&
+                                    aligned16(p.b)));
       return vec ? run_bf16<AFFINE, RELU, true>(p, m, stream)
                  : run_bf16<AFFINE, RELU, false>(p, m, stream);
     }

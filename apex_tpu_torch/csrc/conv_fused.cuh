@@ -21,6 +21,9 @@
 // dy_eff after their rounding) and the eight warps run WMMA 16 x 16 x 16
 // products on the tensor cores into fp32 accumulators, two 16 x 16 tiles a
 // warp, which land in the same 4 x 4 per-thread layout for the epilogue.
+// Only Kernel J runs the bf16 mainloop; K, L and M run their bf16 paths on
+// conv_prep.cuh's prep passes and mma_ring.cuh's ring, and this GEMM in
+// f32.
 // No asynchronous copies and no wgmma: that is later work. The loaders
 // decide which operand index runs fastest across threads, so that global
 // reads are coalesced along the contiguous axis of each operand.

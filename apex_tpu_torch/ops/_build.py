@@ -73,11 +73,10 @@ _SIGNATURES = {
     # x, a, b, w, c, y, partial, stats, z (bf16 scratch), stream, images, h,
     # w, k, n, affine, relu, dtype
     "apex_conv3x3_fwd": [_P] * 10 + [_I] * 8,
-    # x, a, b, w, c, y, dy, ds, dx, dw_partial, dw, dab_partial, dab, stream,
-    # m, k, n, chunk_rows, affine, relu, dtype
-    "apex_conv1x1_bwd": [_P] * 14 + [_I] * 7,
-    # as the 1x1 with the bf16 scratch dy_eff and z before the stream, and
-    # images, h, w in place of m
+    # x, a, b, w, c, y, dy, ds, dx, dw_partial, dw, dab_partial, dab, dy_eff,
+    # z (bf16 scratch), stream, m, k, n, chunk_rows, affine, relu, dtype
+    "apex_conv1x1_bwd": [_P] * 16 + [_I] * 7,
+    # as the 1x1 with images, h, w in place of m
     "apex_conv3x3_bwd": [_P] * 16 + [_I] * 9,
 }
 

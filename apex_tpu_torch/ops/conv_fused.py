@@ -34,8 +34,9 @@ from apex_tpu_torch.ops import _build, _support
 __all__ = ["conv1x1_bn_act", "conv3x3_bn_act", "conv1x1_fwd_plain",
            "conv1x1_fwd_cuda", "conv1x1_bwd_plain", "conv1x1_bwd_cuda",
            "conv3x3_fwd_plain", "conv3x3_fwd_cuda", "conv3x3_bwd_plain",
-           "conv3x3_bwd_cuda", "dw_chunks", "m_dw_chunks",
-           "conv3x3_fwd_scratch", "conv3x3_bwd_scratch"]
+           "conv3x3_bwd_cuda", "dw_chunks", "m_dw_chunks", "k_dw_chunks",
+           "conv1x1_bwd_scratch", "conv3x3_fwd_scratch",
+           "conv3x3_bwd_scratch"]
 
 #: rows per block of every pass (``kBM`` in csrc/conv_fused.cuh)
 _BM = 64
@@ -45,16 +46,25 @@ _FILL_BLOCKS = 4 * 132
 _MIN_CHUNK_ROWS = 256
 #: the 3x3 dW grid's z extent is 9 x chunks <= 65535
 _MAX_CHUNKS_3X3 = 65535 // 9
-#: Kernel M in bf16 (csrc/conv3x3_bwd.cu): the dx pass tiles 128 pixels;
-#: the dW pass walks a chunk in slices of 32 pixels with 128-thread blocks,
-#: each over a 64 x 64 tile of the dW of 3 taps (one kernel row), two of
-#: them resident an SM of an H100 (132 SMs) ...
-_M_DX_ROWS = 128
+#: Kernels K and M in bf16: their dx pass (csrc/conv_mma.cuh) tiles 128
+#: rows, one da/db partial row each
+_DX_ROWS = 128
+#: Kernel M in bf16 (csrc/conv3x3_bwd.cu): the dW pass walks a chunk in
+#: slices of 32 pixels with 128-thread blocks, each over a 64 x 64 tile of
+#: the dW of 3 taps (one kernel row), two of them resident an SM of an
+#: H100 (132 SMs) ...
 _M_SLICE = 32
 _M_DW_TAPS = 3
 _M_DW_RESIDENT = 2 * 132
 #: ... and chunks of at most this many pixels
 _M_MAX_CHUNK_ROWS = 4608
+#: Kernel K in bf16 (csrc/conv1x1_bwd.cu): the dW pass walks a chunk in
+#: 32-row slices over a tile of [K, N] (:func:`_k_dw_tile`), with this many
+#: blocks resident an SM of an H100 (132 SMs) by tile, and chunks of at
+#: most M's 4,608 rows
+_K_DW_RESIDENT = {(64, 64): 6 * 132, (64, 128): 4 * 132,
+                  (128, 64): 4 * 132, (128, 128): 2 * 132}
+_MAX_CHUNKS_1X1 = 65535
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -77,26 +87,74 @@ def _tiles(k: int, n: int) -> int:
     return _support.cdiv(k, _BM) * _support.cdiv(n, _BM)
 
 
-def m_dw_chunks(m: int, tiles: int) -> Tuple[int, int]:
-    """``(chunks, pixels per chunk)`` of Kernel M's bf16 dW pass over ``m``
-    pixels whose dW has ``tiles`` 64 x 64 tiles a tap. Chunks are whole
-    32-pixel slices of at most 4,608 pixels; from the fewest such chunks
-    to twice as many, the count whose blocks (3 x tiles a chunk) fill the
-    last wave of resident blocks best. ResNet-50's layer1 3x3 (m =
-    802,816, one tile) takes 176 chunks of 4,576 pixels (528 blocks, two
-    full waves); layer4's (m = 12,544, 64 tiles) 4 of 3,136 (768 blocks,
-    97% of three waves)."""
-    per_chunk = 9 // _M_DW_TAPS * tiles
-    lo = min(_support.cdiv(m, _M_MAX_CHUNK_ROWS), _MAX_CHUNKS_3X3)
+def _fill_chunks(m: int, per_chunk: int, resident: int,
+                 max_chunks: int) -> Tuple[int, int]:
+    """``(chunks, rows per chunk)`` of a ring GEMM's dW pass over ``m``
+    rows with ``per_chunk`` blocks a chunk and ``resident`` blocks resident
+    on the card: chunks are whole 32-row slices of at most 4,608 rows; from
+    the fewest such chunks to twice as many, the count whose blocks fill
+    the last wave of resident blocks best."""
+    lo = min(_support.cdiv(m, _M_MAX_CHUNK_ROWS), max_chunks)
     best = (0.0, lo)
-    for c in range(lo, min(2 * lo, _MAX_CHUNKS_3X3) + 1):
+    for c in range(lo, min(2 * lo, max_chunks) + 1):
         blocks = c * per_chunk
-        waves = _support.cdiv(blocks, _M_DW_RESIDENT)
-        fill = blocks / (waves * _M_DW_RESIDENT)
+        waves = _support.cdiv(blocks, resident)
+        fill = blocks / (waves * resident)
         if fill > best[0]:
             best = (fill, c)
     rows = _support.round_up(_support.cdiv(m, best[1]), _M_SLICE)
     return _support.cdiv(m, rows), rows
+
+
+def m_dw_chunks(m: int, tiles: int) -> Tuple[int, int]:
+    """``(chunks, pixels per chunk)`` of Kernel M's bf16 dW pass over ``m``
+    pixels whose dW has ``tiles`` 64 x 64 tiles a tap (:func:`_fill_chunks`
+    with 3 x tiles blocks a chunk, two resident an SM). ResNet-50's layer1
+    3x3 (m = 802,816, one tile) takes 176 chunks of 4,576 pixels (528
+    blocks, two full waves); layer4's (m = 12,544, 64 tiles) 4 of 3,136
+    (768 blocks, 97% of three waves)."""
+    return _fill_chunks(m, 9 // _M_DW_TAPS * tiles, _M_DW_RESIDENT,
+                        _MAX_CHUNKS_3X3)
+
+
+def _k_dw_tile(k: int, n: int) -> Tuple[int, int]:
+    """The ``[K, N]`` tile of a block of Kernel K's bf16 dW pass: 128 along
+    each dimension that is wider than 64, else 64."""
+    return (128 if k > 64 else 64), (128 if n > 64 else 64)
+
+
+def k_dw_chunks(m: int, k: int, n: int) -> Tuple[int, int]:
+    """``(chunks, rows per chunk)`` of Kernel K's bf16 dW pass over ``m``
+    rows of ``x [m, K]``, ``dy [m, N]`` (:func:`_fill_chunks` with one
+    block a tile of :func:`_k_dw_tile` a chunk). ResNet-50's layer4
+    downsample (m = 12,544, 1024 -> 2048: 128 tiles of 128 x 128, two
+    resident an SM) takes 4 chunks of 3,136 rows (512 blocks, 97% of two
+    waves), where ``dw_chunks`` gave 2."""
+    bk, bn = _k_dw_tile(k, n)
+    tiles = _support.cdiv(k, bk) * _support.cdiv(n, bn)
+    return _fill_chunks(m, tiles, _K_DW_RESIDENT[bk, bn], _MAX_CHUNKS_1X1)
+
+
+def conv1x1_bwd_scratch(m: int, k: int, n: int, affine: bool,
+                        dtype: torch.dtype) -> Tuple[int, dict]:
+    """``(rows per dW chunk, scratch)``: what :func:`conv1x1_bwd_cuda`
+    allocates for Kernel K besides its outputs, name -> (shape, dtype).
+    bf16: the prep pass's dy_eff [m, N] and (with the affine) z [m, K], the
+    dW partials per chunk from :func:`k_dw_chunks`, the da/db partials per
+    128-row tile. f32: the dW partials from :func:`dw_chunks` and the da/db
+    partials per 64-row tile."""
+    bf16 = dtype == torch.bfloat16
+    chunks, rows = k_dw_chunks(m, k, n) if bf16 else dw_chunks(
+        m, _tiles(k, n))
+    out = {"dw_partial": ((chunks, k, n), torch.float32)}
+    if affine:
+        out["dab_partial"] = ((_support.cdiv(m, _DX_ROWS if bf16 else _BM),
+                               2, k), torch.float32)
+    if bf16:
+        out["dy_eff"] = ((m, n), torch.bfloat16)
+        if affine:
+            out["z"] = ((m, k), torch.bfloat16)
+    return rows, out
 
 
 def _l_rows(n: int) -> int:
@@ -137,7 +195,7 @@ def conv3x3_bwd_scratch(n_img: int, h: int, wd: int, k: int, n: int,
         chunks, rows = dw_chunks(m, 9 * _tiles(k, n), _MAX_CHUNKS_3X3)
     out = {"dw_partial": ((chunks, 9, k, n), torch.float32)}
     if affine:
-        out["dab_partial"] = ((_support.cdiv(m, _M_DX_ROWS if bf16 else _BM),
+        out["dab_partial"] = ((_support.cdiv(m, _DX_ROWS if bf16 else _BM),
                                2, k), torch.float32)
     if bf16:
         out["dy_eff"] = ((m, n), torch.bfloat16)
@@ -327,8 +385,10 @@ def conv1x1_fwd_cuda(x2, a, b, w, shift, affine: bool, relu: bool):
 
 def conv1x1_bwd_cuda(x2, a, b, w, shift, y, dy, ds, affine: bool,
                      relu: bool):
-    """Launch Kernel K: the dx pass, the chunked dW pass and the partial
-    reductions; ``(dx, dW fp32, [da; db] or None)``."""
+    """Launch Kernel K. bf16: the prep pass (dy_eff and z to scratch), the
+    chunked dW pass and the dx pass on the tensor cores, and the partial
+    reductions; f32: the dx and dW passes in fp32 FMAs and the reductions.
+    ``(dx, dW fp32, [da; db] or None)``."""
     m, k = x2.shape
     n = w.shape[1]
     code = _check("conv1x1_bwd", x2, w, a, b, shift, k, n, affine, relu, y,
@@ -342,15 +402,15 @@ def conv1x1_bwd_cuda(x2, a, b, w, shift, y, dy, ds, affine: bool,
            else None)
     if m == 0:
         return dx, dw, dab
-    chunks, rows = dw_chunks(m, _tiles(k, n))
-    dw_partial = torch.empty((chunks, k, n), dtype=torch.float32, device=dev)
-    dab_partial = (torch.empty((_support.cdiv(m, _BM), 2, k),
-                               dtype=torch.float32, device=dev)
-                   if affine else None)
+    rows, plan = conv1x1_bwd_scratch(m, k, n, affine, x2.dtype)
+    scratch = {name: torch.empty(shape, dtype=dt, device=dev)
+               for name, (shape, dt) in plan.items()}
     status = _build.library().apex_conv1x1_bwd(
         _ptr(x2), _ptr(a), _ptr(b), _ptr(w), _ptr(shift), _ptr(y), _ptr(dy),
-        _ptr(ds), _ptr(dx), _ptr(dw_partial), _ptr(dw), _ptr(dab_partial),
-        _ptr(dab), _stream(dev), m, k, n, rows, int(affine), int(relu), code)
+        _ptr(ds), _ptr(dx), _ptr(scratch["dw_partial"]), _ptr(dw),
+        _ptr(scratch.get("dab_partial")), _ptr(dab),
+        _ptr(scratch.get("dy_eff")), _ptr(scratch.get("z")), _stream(dev), m,
+        k, n, rows, int(affine), int(relu), code)
     _build.check("apex_conv1x1_bwd", status)
     _support.count_launch("conv1x1_bwd")
     return dx, dw, dab

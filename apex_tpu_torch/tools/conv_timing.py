@@ -4,20 +4,24 @@
 Usage (from a checkout's root, on a machine with one GPU)::
 
     python3 apex_tpu_torch/tools/conv_timing.py [--root DIR] [--tag NAME]
-        [--out FILE] [--rn50]
+        [--out FILE] [--only j,k,l,m] [--rn50]
 
 ``--root`` names the checkout whose ``apex_tpu_torch`` is imported and
 built (default: the one holding this file), so one call can time two
 versions of the kernels in turns (parent, change, change, parent), each in
 its own process. Kernels L (``conv3x3_fwd_cuda``) and M
 (``conv3x3_bwd_cuda``) are timed in bf16 with the input affine and relu at
-the four stride-1 3x3 shapes of ResNet-50 (layers 1-4, batch 256), beside
-cuDNN's conv forward or backward alone on the same inputs, and split into
-their device kernels by ``torch.profiler``; J and K at layer1 give the
+the four stride-1 3x3 shapes of ResNet-50 (layers 1-4, batch 256), and
+Kernel K (``conv1x1_bwd_cuda``) at the 16 distinct 1x1 shapes of one
+ResNet-50 step (``K_SHAPES``, with or without the affine as the model
+runs them), each beside cuDNN's conv forward or backward alone on the same
+inputs and split into its device kernels by ``torch.profiler``; K's rows
+are then summed with their launches a step (``conv1x1_bwd_step``), to
+set beside a ``--profile`` breakdown of the step. J at layer1 gives the
 noise between processes. Each case is first held to its plain version (L:
-y within 1 bf16 ulp, stats within 1e-5 norm-wise; M: dx within 1 bf16
-ulp, dW and da/db within 1e-5 norm-wise; two runs bitwise equal), and
-its outputs' digest is printed, so that two versions' outputs can be
+y within 1 bf16 ulp, stats within 1e-5 norm-wise; K and M: dx within 1
+bf16 ulp, dW and da/db within 1e-5 norm-wise; two runs bitwise equal),
+and its outputs' digest is printed, so that two versions' outputs can be
 compared bit for bit. Times are medians of CUDA-event intervals, as
 ``chip_smoke.py``'s ``Timer`` takes them. Prints one JSON line per
 measurement and, with ``--out``, writes them all to FILE. With ``--rn50``
@@ -48,6 +52,28 @@ M_SHAPES = [
     ("layer2", (256, 28, 28, 128), (3, 3, 128, 128)),
     ("layer3", (256, 14, 14, 256), (3, 3, 256, 256)),
     ("layer4", (256, 7, 7, 512), (3, 3, 512, 512)),
+]
+#: (name, image side, K, N, affine + relu, launches a step) of the 1x1
+#: convs of one ResNet-50 step at batch 256 (torchvision v1.5 strides:
+#: the stride sits on the 3x3, so every block's conv1 reads its input
+#: grid and the downsample the block's output grid)
+K_SHAPES = [
+    ("layer1_b0_conv1", 56, 64, 64, False, 1),
+    ("layer1_conv1", 56, 256, 64, False, 2),
+    ("layer1_conv3", 56, 64, 256, True, 3),
+    ("layer1_down", 56, 64, 256, False, 1),
+    ("layer2_b0_conv1", 56, 256, 128, False, 1),
+    ("layer2_conv1", 28, 512, 128, False, 3),
+    ("layer2_conv3", 28, 128, 512, True, 4),
+    ("layer2_down", 28, 256, 512, False, 1),
+    ("layer3_b0_conv1", 28, 512, 256, False, 1),
+    ("layer3_conv1", 14, 1024, 256, False, 5),
+    ("layer3_conv3", 14, 256, 1024, True, 6),
+    ("layer3_down", 14, 512, 1024, False, 1),
+    ("layer4_b0_conv1", 14, 1024, 512, False, 1),
+    ("layer4_conv1", 7, 2048, 512, False, 2),
+    ("layer4_conv3", 7, 512, 2048, True, 3),
+    ("layer4_down", 7, 1024, 2048, False, 1),
 ]
 
 
@@ -168,19 +194,60 @@ def time_l(cf, name, x_shape, w_shape, gen, emit) -> None:
          split_ms=device_split(run), ok=ok, sha256=digest(got), **errs)
 
 
-def time_jk(cf, gen, emit) -> None:
+def time_j(cf, gen, emit) -> None:
     x, a, b, *_ = inputs((256, 56, 56, 64), (3, 3, 64, 64), gen)
     x2 = x.reshape(-1, 64)
     w1 = (torch.randn(64, 256, device="cuda", generator=gen) / 8).bfloat16()
     c1 = 0.1 * torch.randn(256, device="cuda", generator=gen)
-    y1, _ = cf.conv1x1_fwd_cuda(x2, a, b, w1, c1, True, True)
-    dy1 = torch.randn(y1.shape, device="cuda", generator=gen).bfloat16()
-    ds1 = 0.1 * torch.randn(2, 256, device="cuda", generator=gen)
     emit(kernel="conv1x1_fwd", case="layer1_conv3", ms=median_ms(
         lambda: cf.conv1x1_fwd_cuda(x2, a, b, w1, c1, True, True)))
-    emit(kernel="conv1x1_bwd", case="layer1_conv3", ms=median_ms(
-        lambda: cf.conv1x1_bwd_cuda(x2, a, b, w1, c1, y1, dy1, ds1, True,
-                                    True)))
+
+
+def time_k(cf, gen, emit) -> None:
+    """Kernel K at each of ``K_SHAPES``, then its step total: each row's
+    ms, cuDNN's and device split weighted by its launches a step."""
+    total = {"ms": 0.0, "cudnn_bwd_ms": 0.0, "launches": 0}
+    split_total = {}
+    for name, side, k, n, affine, launches in K_SHAPES:
+        x, a, b, w, c, dy, ds = inputs((256, side, side, k), (k, n), gen)
+        x2, dy2 = x.reshape(-1, k), dy.reshape(-1, n)
+        if not affine:
+            a = b = None
+        y, _ = cf.conv1x1_fwd_plain(x2, a, b, w, c, affine, affine)
+        run = lambda: cf.conv1x1_bwd_cuda(  # noqa: E731
+            x2, a, b, w, c, y, dy2, ds, affine, affine)
+        got, again = run(), run()
+        want = cf.conv1x1_bwd_plain(x2, a, b, w, c, y, dy2, ds, affine,
+                                    affine)
+        errs = dict(dx_ulps=ulps(got[0], want[0]), dw_rel=rel(got[1], want[1]),
+                    dab_rel=rel(got[2], want[2]) if affine else 0.0,
+                    bitwise_repeat=all(
+                        (g is None and h is None) or torch.equal(g, h)
+                        for g, h in zip(got, again)))
+        ok = (errs["dx_ulps"] <= 1.0 and errs["dw_rel"] <= 1e-5
+              and errs["dab_rel"] <= 1e-5 and errs["bitwise_repeat"])
+        xv = x.permute(0, 3, 1, 2).detach().requires_grad_()
+        wv = w.t().reshape(n, k, 1, 1).contiguous(
+            memory_format=torch.channels_last).requires_grad_()
+        out = F.conv2d(xv, wv)
+        dyv = dy.permute(0, 3, 1, 2)
+        row = dict(ms=median_ms(run), cudnn_bwd_ms=median_ms(
+            lambda: torch.autograd.grad(out, (xv, wv), dyv,
+                                        retain_graph=True)),
+            split_ms=device_split(run))
+        emit(kernel="conv1x1_bwd", case=name, m=x2.shape[0], k=k, n=n,
+             affine=affine, launches=launches, **row, ok=ok,
+             sha256=digest([t for t in got if t is not None]), **errs)
+        total["ms"] += launches * row["ms"]
+        total["cudnn_bwd_ms"] += launches * row["cudnn_bwd_ms"]
+        total["launches"] += launches
+        for kname, ms in row["split_ms"].items():
+            split_total[kname] = split_total.get(kname, 0.0) + launches * ms
+        del x, x2, dy, dy2, y, got, again, want, out, xv, wv
+        torch.cuda.empty_cache()
+    emit(kernel="conv1x1_bwd_step", case="resnet50_b256",
+         **{key: round(v, 5) for key, v in total.items()},
+         split_ms={key: round(v, 5) for key, v in split_total.items()})
 
 
 def time_rn50(emit) -> None:
@@ -205,6 +272,8 @@ def main() -> int:
                                               .parents[2]))
     parser.add_argument("--tag", default="")
     parser.add_argument("--out", default=None)
+    parser.add_argument("--only", default="j,k,l,m",
+                        help="comma-separated kernels to time (default all)")
     parser.add_argument("--rn50", action="store_true",
                         help="run the checkout's rn50_train phase instead "
                         "of timing the kernels")
@@ -233,12 +302,18 @@ def main() -> int:
     if args.rn50:
         time_rn50(emit)
         return 0
+    only = set(args.only.split(","))
     gen = torch.Generator(device="cuda").manual_seed(6)
     for name, x_shape, w_shape in M_SHAPES:
-        time_l(cf, name, x_shape, w_shape, gen, emit)
-        time_m(cf, name, x_shape, w_shape, gen, emit)
+        if "l" in only:
+            time_l(cf, name, x_shape, w_shape, gen, emit)
+        if "m" in only:
+            time_m(cf, name, x_shape, w_shape, gen, emit)
         torch.cuda.empty_cache()
-    time_jk(cf, gen, emit)
+    if "j" in only:
+        time_j(cf, gen, emit)
+    if "k" in only:
+        time_k(cf, gen, emit)
     return 0 if all(r.get("ok", True) for r in rows) else 1
 
 

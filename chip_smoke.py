@@ -961,6 +961,8 @@ CONV_CASES = [
      (256, 7, 7), False),
     ("tail_200", "1x1", (200, 64), (64, 96),
      [(False, False), (True, False), (True, True)], None, False),
+    ("ragged_1x1", "1x1", (1000, 20), (20, 36),
+     [(False, False), (True, False), (True, True)], None, False),
     ("layer1_3x3", "3x3", (256, 56, 56, 64), (3, 3, 64, 64), [(True, True)],
      None, True),
     ("layer2_3x3", "3x3", (256, 28, 28, 128), (3, 3, 128, 128),

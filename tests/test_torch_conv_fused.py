@@ -30,10 +30,12 @@ from apex_tpu.ops import conv_fused as jcf
 from apex_tpu_torch.ops import LAUNCHES, reset_launches
 from apex_tpu_torch.ops.conv_fused import (
     conv1x1_bn_act,
+    conv1x1_bwd_scratch,
     conv3x3_bn_act,
     conv3x3_bwd_scratch,
     conv3x3_fwd_scratch,
     dw_chunks,
+    k_dw_chunks,
     m_dw_chunks,
 )
 
@@ -222,6 +224,76 @@ def test_m_dw_chunks_fill_the_last_wave():
         assert chunks * 3 * tiles == 528
     chunks, _ = m_dw_chunks(12544, 64)
     assert chunks * 3 * 64 == 768
+
+
+@pytest.mark.parametrize("m,k,n,want", [
+    (802816, 64, 64, (349, 2304)),     # ResNet-50 layer1 b0 conv1
+    (802816, 64, 256, (262, 3072)),    # layer1 conv3
+    (200704, 128, 512, (66, 3072)),    # layer2 conv3
+    (50176, 256, 1024, (16, 3136)),    # layer3 conv3
+    (12544, 2048, 512, (4, 3136)),     # layer4 b1-2 conv1
+    (12544, 1024, 2048, (4, 3136)),    # layer4 downsample
+    (1000, 20, 36, (2, 512)),          # the card tests' ragged channels
+    (4133, 96, 160, (2, 2080)),        # a ragged row count
+    (200, 64, 96, (2, 128)),           # fewer rows than one slice a block
+])
+def test_k_dw_chunks_are_whole_slices(m, k, n, want):
+    """Kernel K's bf16 dW chunks: whole 32-row slices of at most 4,608
+    rows, every row in exactly one chunk."""
+    chunks, rows = k_dw_chunks(m, k, n)
+    assert (chunks, rows) == want
+    assert rows % 32 == 0 and rows <= 4608
+    assert (chunks - 1) * rows < m <= chunks * rows
+
+
+@pytest.mark.parametrize("m,k,n,tiles,resident,blocks", [
+    (802816, 64, 256, 2, 4 * 132, 524),      # layer1 conv3: 64 x 128 tiles
+    (12544, 2048, 512, 64, 2 * 132, 256),    # layer4 conv1: 128 x 128
+    (12544, 1024, 2048, 128, 2 * 132, 512),  # layer4 downsample
+])
+def test_k_dw_chunks_fill_the_last_wave(m, k, n, tiles, resident, blocks):
+    """At the layer1 conv3, layer4 conv1 and layer4 downsample shapes the
+    dW blocks (tiles x chunks) fill at least 97% of their last wave of
+    resident blocks; at the downsample four chunks where ``dw_chunks``
+    (the f32 path's) gives two."""
+    chunks, _ = k_dw_chunks(m, k, n)
+    assert chunks * tiles == blocks
+    waves = -(-blocks // resident)
+    assert blocks / (waves * resident) >= 0.96
+    if (k, n) == (1024, 2048):
+        assert dw_chunks(m, 16 * 32)[0] == 2
+
+
+@pytest.mark.parametrize("affine", [True, False])
+def test_conv1x1_bwd_scratch_layer1(affine):
+    """What Kernel K allocates at ResNet-50's layer1 conv3 shape: in bf16
+    the prep pass's dy_eff and (with the affine) z, dW partials per chunk
+    and da/db partials per 128-row tile; in f32 ``dw_chunks``'s partials,
+    64-row tiles and no prep scratch."""
+    m = 256 * 56 * 56
+    rows, bf = conv1x1_bwd_scratch(m, 64, 256, affine, torch.bfloat16)
+    want = {"dw_partial": ((262, 64, 256), torch.float32),
+            "dy_eff": ((m, 256), torch.bfloat16)}
+    if affine:
+        want["z"] = ((m, 64), torch.bfloat16)
+        want["dab_partial"] = ((6272, 2, 64), torch.float32)
+    assert (rows, bf) == (3072, want)
+    rows, f32 = conv1x1_bwd_scratch(m, 64, 256, affine, torch.float32)
+    want = {"dw_partial": ((132, 64, 256), torch.float32)}
+    if affine:
+        want["dab_partial"] = ((12544, 2, 64), torch.float32)
+    assert (rows, f32) == (6082, want)
+
+
+def test_conv1x1_bwd_scratch_ragged():
+    """Ragged rows and channels (the card tests' ``1x1_ragged_channels``):
+    the partials cover every row and channel."""
+    rows, plan = conv1x1_bwd_scratch(1000, 20, 36, True, torch.bfloat16)
+    assert rows == 512
+    assert plan == {"dw_partial": ((2, 20, 36), torch.float32),
+                    "dab_partial": ((8, 2, 20), torch.float32),
+                    "dy_eff": ((1000, 36), torch.bfloat16),
+                    "z": ((1000, 20), torch.bfloat16)}
 
 
 @pytest.mark.parametrize("affine", [True, False])

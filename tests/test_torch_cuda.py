@@ -476,6 +476,11 @@ CONV = {
     "1x1_tail": ("1x1", (200, 64), (64, 96)),
     "1x1_ragged": ("1x1", (4133, 96), (96, 160)),
     "1x1_wide": ("1x1", (392, 1024), (1024, 2048)),
+    # channel counts off the 8-channel groups of Kernel K's 16-byte copies
+    # (their element-by-element edge), 1,000 rows off its 128-row dx tiles
+    "1x1_ragged_channels": ("1x1", (1000, 20), (20, 36)),
+    # a layer4 width whose bf16 dW pass sums two 3,136-row chunks
+    "1x1_layer4_chunks": ("1x1", (6272, 1024), (1024, 2048)),
     "3x3_odd": ("3x3", (3, 5, 9, 16), (3, 3, 16, 32)),
     "3x3_1x1_image": ("3x3", (4, 1, 1, 24), (3, 3, 24, 40)),
     "3x3_14": ("3x3", (4, 14, 14, 64), (3, 3, 64, 128)),
