@@ -1,0 +1,212 @@
+// Pieces of the tensor-core flash attention kernels, on top of
+// mma_ring.cuh (cp.async, ldmatrix, mma.sync m16n8k16 in bf16) and
+// packed_attention.cuh (the packed layout, RoPE's rounding, the dropout
+// hash, visibility): the copy of a bf16 tile into padded shared-memory
+// rows, RoPE applied to a landed tile in place, the test of which key
+// tiles a warp's rows see whole, in part or not at all, the online
+// softmax step over the scores a warp holds in mma accumulators, and p
+// split into bf16 hi + lo A fragments. Kernel E's bf16 path
+// (flash_packed_fwd.cu) uses them; Kernels F, B and I can take the same.
+//
+// Fragment layout (PTX ISA, mma.m16n8k16, as mma_ring.cuh): a warp's
+// score tile is NS n8 tiles of 16 rows, acc[j][e] at row g + 8 (e >> 1),
+// column 8 j + 2 t + (e & 1), g = lane / 4, t = lane % 4. So a thread
+// holds two rows (g and g + 8), and the four lanes of a quad hold a row's
+// columns between them.
+#pragma once
+
+#include "mma_ring.cuh"
+#include "packed_attention.cuh"
+
+namespace apex {
+namespace flash {
+
+using ring::bf16;
+using packed::kNeg;
+using packed::Opts;
+
+// Shared-memory row length of a tile of DMAX columns: 8 bf16 of padding
+// put the 8 rows an ldmatrix reads in 8 distinct groups of banks, and
+// keep each row on a 16-byte boundary for cp.async.
+template <int DMAX>
+struct Tile {
+  static constexpr int kLd = DMAX + 8;
+  static constexpr int kChunks = DMAX / 8;  // 16-byte copies a row
+};
+
+// ROWS rows of one head's q, k or v slice into `dst` (padded rows):
+// row r is position pos0 + r, read at base + col + pos * row_stride.
+// Columns from d on and rows from s on are zero-filled. VEC: d and the
+// packed row width are multiples of 8, so every copy is one 16-byte
+// cp.async; else the copies go element by element (ring::copy8).
+template <int ROWS, int DMAX, int THREADS, bool VEC>
+__device__ __forceinline__ void copy_tile(bf16* dst, const bf16* base,
+                                          long long col,
+                                          long long row_stride, int pos0,
+                                          int s, int d) {
+  using T = Tile<DMAX>;
+  static_assert(ROWS * T::kChunks % THREADS == 0, "whole copies a thread");
+#pragma unroll
+  for (int i = 0; i < ROWS * T::kChunks / THREADS; ++i) {
+    const int idx = threadIdx.x + i * THREADS;
+    const int r = idx / T::kChunks;
+    const int c = (idx % T::kChunks) * 8;
+    const int pos = pos0 + r;
+    const bool valid = pos < s;
+    const bf16* src =
+        valid ? base + col + static_cast<long long>(pos) * row_stride + c
+              : base;
+    ring::copy8<VEC>(dst + r * T::kLd + c, src, base, valid, d - c);
+  }
+}
+
+// RoPE on a landed tile (ROWS rows from position pos0), in place: each
+// thread owns the pairs (c, c + rot / 2), so no element is read after it
+// is written. The arithmetic is packed::load_rope's: fp32 with separate
+// roundings, then one round to bf16. Rows from s on stay zero.
+template <int ROWS, int THREADS>
+__device__ __forceinline__ void rope_tile(bf16* tile, int ld, int pos0,
+                                          const Opts& o) {
+  const int half = o.rot / 2;
+  for (int idx = threadIdx.x; idx < ROWS * half; idx += THREADS) {
+    const int r = idx / half;
+    const int c = idx % half;
+    const int pos = pos0 + r;
+    if (pos >= o.s) continue;
+    bf16* x = tile + r * ld;
+    const float lo = __bfloat162float(x[c]);
+    const float hi = __bfloat162float(x[c + half]);
+    const long long i = static_cast<long long>(pos) * o.d + c;
+    const long long k = i + half;
+    x[c] = __float2bfloat16(
+        __fadd_rn(__fmul_rn(lo, o.cos[i]), __fmul_rn(-hi, o.sin[i])));
+    x[c + half] = __float2bfloat16(
+        __fadd_rn(__fmul_rn(hi, o.cos[k]), __fmul_rn(lo, o.sin[k])));
+  }
+}
+
+enum Cover : int { kNone = 0, kSome = 1, kAll = 2 };
+
+// What query rows [r0, r0 + 16) see of keys [c0, c0 + bk) under
+// packed::visible: kNone, no pair (the tile can be skipped: its scores
+// would all be masked, p 0 and the running max unchanged); kAll, every
+// pair of rows below s (no mask needed; rows from s on are never stored);
+// else kSome (mask each score).
+__device__ __forceinline__ Cover tile_cover(const Opts& o, int kvl, int r0,
+                                            int c0, int bk) {
+  const int r1 = min(r0 + 16, o.s) - 1;
+  if (r1 < r0) return kNone;
+  const int kv_end = min(o.s, kvl);
+  // the first row sees the fewest keys at the top, the last the fewest at
+  // the bottom; the union runs from the first row's bottom to the last's top
+  const int hi_first = o.causal ? min(kv_end, r0 + 1) : kv_end;
+  const int hi_last = o.causal ? min(kv_end, r1 + 1) : kv_end;
+  const int lo_first = o.window > 0 ? max(0, r0 - o.window + 1) : 0;
+  const int lo_last = o.window > 0 ? max(0, r1 - o.window + 1) : 0;
+  if (c0 >= hi_last || c0 + bk <= lo_first) return kNone;
+  if (c0 >= lo_last && c0 + bk <= hi_first) return kAll;
+  return kSome;
+}
+
+// d += a b for one m16n8k16 tile, the tensor cores carrying the sum
+// (mma_ring.cuh adds each product into fp32 registers instead: over the
+// few thousand products of one attention row the carried sum holds the
+// 1 bf16 ulp check of o, and saves an add a product)
+__device__ __forceinline__ void mma_acc(float (&d)[4], const unsigned (&a)[4],
+                                        unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// e^x as 2^(x log2 e): one multiply and the SFU's exp2 (results below
+// 2^-126 flushed to 0), within a few fp32 ulps of expf for the arguments
+// a softmax gives (x <= 0), at a fraction of expf's instructions
+__device__ __forceinline__ float fast_exp(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(x * 1.4426950408889634f));
+  return r;
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// One key tile of the online softmax for a thread's two rows: s holds the
+// scaled scores (kNeg where masked) and becomes the undropped p; the
+// running max m and sum l advance, and the o accumulators are rescaled by
+// alpha = exp(m_old - m_new). A masked score gives p = exp(kNeg - base)
+// = 0 exactly, the base being the row max, or 0 while the row has seen no
+// key (which keeps m = kNeg, l = 0), so no score is tested for the mask.
+template <int NS, int NO>
+__device__ __forceinline__ void softmax_step(float (&s)[NS][4], float (&m)[2],
+                                             float (&l)[2],
+                                             float (&o)[NO][4]) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+  mx[0] = quad_max(mx[0]);
+  mx[1] = quad_max(mx[1]);
+  float sum[2] = {0.f, 0.f};
+  const float base[2] = {mx[0] == kNeg ? 0.f : mx[0],
+                         mx[1] == kNeg ? 0.f : mx[1]};
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = fast_exp(s[j][e] - base[e >> 1]);
+      s[j][e] = p;
+      sum[e >> 1] += p;
+    }
+  float alpha[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    alpha[h] = fast_exp(m[h] - mx[h]);
+    l[h] = l[h] * alpha[h] + quad_sum(sum[h]);
+    m[h] = mx[h];
+  }
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
+}
+
+__device__ __forceinline__ unsigned as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// (x, y) as bf16 pairs hi = bf16(x, y) and lo = bf16((x, y) - hi), x in
+// the low half: hi + lo carries p to about 2^-16 of itself (the
+// difference is exact in fp32).
+__device__ __forceinline__ void split2(float x, float y, unsigned& hi,
+                                       unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+}
+
+// The A fragments (m16 x k16) of p over keys 16 kk .. 16 kk + 15, from the
+// accumulators of score tiles 2 kk and 2 kk + 1 (FlashAttention-2's remap:
+// an m16n8 accumulator pair is an m16k16 operand), split into hi and lo.
+template <int NS>
+__device__ __forceinline__ void p_fragments(const float (&p)[NS][4], int kk,
+                                            unsigned (&hi)[4],
+                                            unsigned (&lo)[4]) {
+  split2(p[2 * kk][0], p[2 * kk][1], hi[0], lo[0]);
+  split2(p[2 * kk][2], p[2 * kk][3], hi[1], lo[1]);
+  split2(p[2 * kk + 1][0], p[2 * kk + 1][1], hi[2], lo[2]);
+  split2(p[2 * kk + 1][2], p[2 * kk + 1][3], hi[3], lo[3]);
+}
+
+}  // namespace flash
+}  // namespace apex

@@ -15,23 +15,68 @@
 //   combo b * 4096 + head; l and lse come from the UNDROPPED
 //   probabilities and o = (drop(p) v) / l (:870-881);
 // - a row with no visible key gives o = 0 and lse = 1e30 (`_LSE_PAD`).
+// p stays fp32 up to P V, as the plain version keeps it (the JAX kernel
+// rounds exp(s - m_final) to the input type, :877, which an online kernel
+// cannot reproduce).
 //
 // Bound on the H100: at GPT-2 124M training (b 8, 12 heads, s 1024,
 // d 64, causal, bf16) the causal work is 4 d per visible (row, col) pair,
 // 12.9 GFLOP (13 us at the bf16 tensor rate), against 50.7 MB of qkv, o
-// and lse (15 us at 3.35 TB/s).
+// and lse (15 us at 3.35 TB/s): about even, so the kernel has to keep
+// the tensor cores fed and read each K/V tile once per query tile.
 //
-// Design (correct and simple first, as Kernel B in flash_fwd.cu): one
-// 256-thread block per (64-row query tile, head, batch); the rotated query
-// tile stays in shared memory as fp32; the block walks the visible 64-key
-// tiles with an online softmax, S = Q K^T and P V in fp32 FMA, each thread
-// owning a 4 x (DMAX / 16) output tile. No tensor cores or asynchronous
-// copies yet: that is the work of a later change.
+// bf16 (the path the models train on): one block of 8 warps per (head,
+// batch, 128-row query tile), the tiles that see the most keys launched
+// first under a causal mask so that the last wave is short. Each warp
+// owns 16 query rows:
+// - the Q tile comes in by cp.async (16 bytes a copy from the packed row;
+//   element by element where d % 8 != 0, columns past d and rows past s
+//   zero-filled), is rotated in shared memory when rot > 0, and is read
+//   once by ldmatrix into A fragments that stay in registers;
+// - K and V tiles of 64 keys come through a cp.async ring (3 stages at
+//   d <= 64, 2 at 128; flash_mma.cuh, mma_ring.cuh), one barrier a tile;
+//   a K tile is rotated in place;
+// - S = Q K^T on mma.sync m16n8k16 (bf16 in, fp32 out), scaled in fp32;
+//   masks only on tiles that cross the diagonal, kv_length, the window's
+//   edge or s, and tiles a warp sees nothing of are skipped;
+// - the online softmax in registers (row max and sum over a quad's lanes,
+//   exp on the SFU's exp2, no per-score mask test: a masked score's exp
+//   is 0 by itself), l from the undropped p, the dropout hash at each
+//   accumulator's absolute (row, col);
+// - P V: the dropped fp32 p is split into bf16 hi + lo, packed straight
+//   from the S accumulators into A fragments, and multiplied with the same
+//   V fragments (ldmatrix.trans) twice, so that o keeps p to about 2^-16
+//   of itself and holds 1 bf16 ulp of the plain version (one bf16 p would
+//   miss it by tens of ulps at s 1024). The lo product adds half the
+//   tensor-core work: 6 d a visible pair in place of 4 d;
+// - the tensor cores carry the sums of S and o across the products (an
+//   fp32 add after each product, as mma_ring.cuh does, cost 7% at the
+//   GPT-2 shape); o = acc / l is rounded once to bf16.
+// Registers are capped at 128 a thread at d <= 64 so that two blocks fit
+// an SM: the kernel waits on latency (ldmatrix, mma, exp) more than on
+// any one unit, and 16 resident warps beat the few bytes it spills.
+// No atomics: repeated runs are bitwise equal.
+//
+// What bounds it now: inferred, not profiled (no ncu on the card's
+// machine): at the GPT-2 shape it runs at about 115 TFLOP/s of useful
+// work, 170 counting the lo product, so the instruction rate of the
+// non-tensor work (scale, exp, the split, the rescale) and the latency
+// of mma.sync chains set the pace; wgmma with the softmax of one tile
+// overlapped with the next tile's products is the next step.
+//
+// f32 (checks only; TF32 would miss their atol of 1e-4): one 256-thread
+// block per (64-row query tile, head, batch); the rotated query tile stays
+// in shared memory as fp32; the block walks the visible 64-key tiles with
+// an online softmax, S = Q K^T and P V in fp32 FMA, each thread owning a
+// 4 x (DMAX / 16) output tile.
+#include "flash_mma.cuh"
 #include "packed_attention.cuh"
 
 namespace {
 
 using namespace apex::packed;
+namespace flash = apex::flash;
+namespace ring = apex::ring;
 
 template <int DMAX>
 struct Smem {
@@ -236,6 +281,229 @@ cudaError_t launch_d(const void* qkv, void* o, float* lse, const Opts& opt,
   return cudaErrorInvalidValue;
 }
 
+// The bf16 kernel: WARPS warps of 16 query rows, key tiles of kBK through
+// a ring of STAGES (K, V) stages.
+template <int DMAX, int WARPS, int STAGES>
+struct MmaCfg {
+  static constexpr int kThreads = WARPS * 32;
+  static constexpr int kRows = WARPS * 16;  // query rows a block
+  static constexpr int kLd = flash::Tile<DMAX>::kLd;
+  static constexpr int kStage = 2 * kBK * kLd;  // K then V, in bf16
+  static constexpr size_t bytes = (kRows * kLd + STAGES * kStage) * 2;
+  // two blocks an SM at d <= 64 (registers capped at 128 a thread): the
+  // kernel waits on latency more than on any one unit, so occupancy wins
+  // over the few bytes it spills
+  static constexpr int kMinBlocks = DMAX <= 64 ? 2 : 1;
+};
+
+template <int DMAX, int WARPS, int STAGES, bool VEC>
+__global__ void __launch_bounds__(WARPS * 32,
+                                  (MmaCfg<DMAX, WARPS, STAGES>::kMinBlocks))
+flash_packed_fwd_mma(const __nv_bfloat16* __restrict__ qkv,
+                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                     const Opts opt) {
+  using C = MmaCfg<DMAX, WARPS, STAGES>;
+  using flash::bf16;
+  constexpr int kKS = DMAX / 16;  // k16 steps of Q K^T
+  constexpr int kNS = kBK / 8;    // n8 score tiles a warp
+  constexpr int kNO = DMAX / 8;   // n8 output tiles a warp
+  extern __shared__ __align__(16) unsigned char fsmem[];
+  bf16* Qs = reinterpret_cast<bf16*>(fsmem);
+  bf16* kv = Qs + C::kRows * C::kLd;  // the ring's stages
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int hh = blockIdx.x;
+  const int bb = blockIdx.y;
+  const int qt = opt.causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q_start = qt * C::kRows;
+  const int r0 = q_start + 16 * warp;  // the warp's first row
+  const int g = hh / opt.qpg;
+  const int d = opt.d;
+  const Layout lay(opt, bb);
+  const int kvl = opt.kv_lengths != nullptr ? opt.kv_lengths[bb] : opt.s;
+  int first, last;
+  key_tiles(opt, kvl, q_start, &first, &last, C::kRows);
+  const int tiles = last - first + 1;
+
+  float acc[kNO][4];
+#pragma unroll
+  for (int j = 0; j < kNO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m[2] = {kNeg, kNeg};
+  float l[2] = {0.f, 0.f};
+
+  if (tiles > 0) {
+    const bool drop = opt.seed != nullptr;
+    const unsigned seed = drop ? static_cast<unsigned>(opt.seed[0]) : 0u;
+    const unsigned cmb = combo(bb, hh);
+    const long long kcol = lay.k(g, opt.qpg, 0, d);
+    const long long vcol = lay.v(g, opt.qpg, 0, d);
+    auto load_kv = [&](int tile, bf16* stage) {
+      flash::copy_tile<kBK, DMAX, C::kThreads, VEC>(
+          stage, qkv, kcol, lay.row_stride, tile * kBK, opt.s, d);
+      flash::copy_tile<kBK, DMAX, C::kThreads, VEC>(
+          stage + kBK * C::kLd, qkv, vcol, lay.row_stride, tile * kBK, opt.s,
+          d);
+    };
+    flash::copy_tile<C::kRows, DMAX, C::kThreads, VEC>(
+        Qs, qkv, lay.q(g, hh % opt.qpg, 0, d), lay.row_stride, q_start,
+        opt.s, d);
+    ring::cp_async_commit();
+#pragma unroll
+    for (int st = 0; st < STAGES - 1; ++st) {
+      if (st < tiles) load_kv(first + st, kv + st * C::kStage);
+      ring::cp_async_commit();
+    }
+
+    unsigned qf[kKS][1][4];
+    const int g4 = lane / 4;
+    const int t4 = lane % 4;
+    for (int it = 0; it < tiles; ++it) {
+      ring::cp_async_wait<STAGES - 2>();
+      __syncthreads();
+      bf16* Ks = kv + (it % STAGES) * C::kStage;
+      bf16* Vs = Ks + kBK * C::kLd;
+      const int c0 = (first + it) * kBK;
+      if (opt.rot > 0) {
+        if (it == 0)
+          flash::rope_tile<C::kRows, C::kThreads>(Qs, C::kLd, q_start, opt);
+        flash::rope_tile<kBK, C::kThreads>(Ks, C::kLd, c0, opt);
+        __syncthreads();
+      }
+      if (it == 0) {
+#pragma unroll
+        for (int kk = 0; kk < kKS; ++kk)
+          ring::load_a<1, false>(qf[kk], Qs + 16 * warp * C::kLd, C::kLd,
+                                 16 * kk);
+      }
+      const int next = it + STAGES - 1;
+      if (next < tiles)
+        load_kv(first + next, kv + (next % STAGES) * C::kStage);
+      ring::cp_async_commit();
+
+      const flash::Cover cover = flash::tile_cover(opt, kvl, r0, c0, kBK);
+      if (cover == flash::kNone) continue;
+      // S = scale * Q K^T, masked where the tile needs it
+      float sc[kNS][4];
+#pragma unroll
+      for (int j = 0; j < kNS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kKS; ++kk) {
+        unsigned fb[kNS / 2][4];
+        ring::load_b<kNS, false>(fb, Ks, C::kLd, 16 * kk);
+#pragma unroll
+        for (int j = 0; j < kNS; ++j)
+          flash::mma_acc(sc[j], qf[kk][0], fb[j >> 1][2 * (j & 1)],
+                         fb[j >> 1][2 * (j & 1) + 1]);
+      }
+#pragma unroll
+      for (int j = 0; j < kNS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = r0 + g4 + 8 * (e >> 1);
+          const int col = c0 + 8 * j + 2 * t4 + (e & 1);
+          sc[j][e] = cover == flash::kAll || visible(opt, kvl, row, col)
+                         ? sc[j][e] * opt.scale : kNeg;
+        }
+      flash::softmax_step<kNS, kNO>(sc, m, l, acc);
+      if (drop) {
+#pragma unroll
+        for (int j = 0; j < kNS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const unsigned row = r0 + g4 + 8 * (e >> 1);
+            const unsigned col = c0 + 8 * j + 2 * t4 + (e & 1);
+            sc[j][e] = hash_keep(seed, cmb, row, col, opt.keep_thresh)
+                           ? sc[j][e] * opt.inv_keep : 0.f;
+          }
+      }
+      // acc += p_hi V + p_lo V
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        unsigned hi[4], lo[4];
+        flash::p_fragments<kNS>(sc, kk, hi, lo);
+        unsigned fb[kNO / 2][4];
+        ring::load_b<kNO, true>(fb, Vs, C::kLd, 16 * kk);
+#pragma unroll
+        for (int j = 0; j < kNO; ++j) {
+          flash::mma_acc(acc[j], hi, fb[j >> 1][2 * (j & 1)],
+                         fb[j >> 1][2 * (j & 1) + 1]);
+          flash::mma_acc(acc[j], lo, fb[j >> 1][2 * (j & 1)],
+                         fb[j >> 1][2 * (j & 1) + 1]);
+        }
+      }
+    }
+    ring::cp_async_wait<0>();
+  }
+
+  const int heads = opt.groups * opt.qpg;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + lane / 4 + 8 * h;
+    if (row >= opt.s) continue;
+    const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
+    bf16* orow = o + out_index(opt, bb, hh, row);
+#pragma unroll
+    for (int j = 0; j < kNO; ++j) {
+      const int col = 8 * j + 2 * (lane % 4);
+      const float x = acc[j][2 * h] * inv;
+      const float y = acc[j][2 * h + 1] * inv;
+      if (col + 1 < d && (d & 1) == 0) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(x, y);
+      } else {
+        if (col < d) orow[col] = __float2bfloat16(x);
+        if (col + 1 < d) orow[col + 1] = __float2bfloat16(y);
+      }
+    }
+    if (lane % 4 == 0)
+      lse[(static_cast<long long>(bb) * heads + hh) * opt.s + row] =
+          l[h] > 0.f ? m[h] + logf(l[h]) : kLsePad;
+  }
+}
+
+template <int DMAX, int WARPS, int STAGES, bool VEC>
+cudaError_t launch_mma(const void* qkv, void* o, float* lse, const Opts& opt,
+                       cudaStream_t stream) {
+  using C = MmaCfg<DMAX, WARPS, STAGES>;
+  auto kernel = flash_packed_fwd_mma<DMAX, WARPS, STAGES, VEC>;
+  cudaError_t err = apex::allow_smem(kernel, C::bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(opt.groups * opt.qpg, opt.b,
+                  (opt.s + C::kRows - 1) / C::kRows);
+  kernel<<<grid, C::kThreads, C::bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(qkv),
+      static_cast<__nv_bfloat16*>(o), lse, opt);
+  return cudaGetLastError();
+}
+
+// 8 warps (128 query rows a block); 3 ring stages at d <= 64, 2 at 128.
+// 16-byte copies need every row start (a multiple of d past a 16-byte
+// aligned base) on a 16-byte boundary.
+template <int DMAX>
+cudaError_t launch_mma_vec(const void* qkv, void* o, float* lse,
+                           const Opts& opt, cudaStream_t stream) {
+  constexpr int kWarps = 8;
+  constexpr int kStages = DMAX <= 64 ? 3 : 2;
+  const bool vec = opt.d % 8 == 0 &&
+                   reinterpret_cast<unsigned long long>(qkv) % 16 == 0;
+  return vec ? launch_mma<DMAX, kWarps, kStages, true>(qkv, o, lse, opt,
+                                                        stream)
+             : launch_mma<DMAX, kWarps, kStages, false>(qkv, o, lse, opt,
+                                                         stream);
+}
+
+cudaError_t launch_bf16(const void* qkv, void* o, float* lse, const Opts& opt,
+                        cudaStream_t stream) {
+  if (opt.d <= 64) return launch_mma_vec<64>(qkv, o, lse, opt, stream);
+  if (opt.d <= 128) return launch_mma_vec<128>(qkv, o, lse, opt, stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // qkv [s, b, groups * (qpg + 2) * d], o [s, b, groups * qpg * d],
@@ -256,7 +524,7 @@ extern "C" int apex_flash_packed_fwd(const void* qkv, void* o, void* lse,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   cudaError_t err = dtype == apex::kBF16
-                        ? launch_d<__nv_bfloat16>(qkv, o, l, opt, st)
+                        ? launch_bf16(qkv, o, l, opt, st)
                         : launch_d<float>(qkv, o, l, opt, st);
   return static_cast<int>(err);
 }

@@ -121,10 +121,11 @@ __device__ __forceinline__ bool visible(const Opts& o, int kvl, int row,
 }
 
 // Key tiles [first, last] holding a visible column for query rows
-// [q_start, q_start + kBQ); last < first when there is none.
+// [q_start, q_start + rows); last < first when there is none.
 __device__ __forceinline__ void key_tiles(const Opts& o, int kvl, int q_start,
-                                          int* first, int* last) {
-  const int last_row = min(q_start + kBQ, o.s) - 1;
+                                          int* first, int* last,
+                                          int rows = kBQ) {
+  const int last_row = min(q_start + rows, o.s) - 1;
   int k_end = min(o.s, kvl);
   if (o.causal) k_end = min(k_end, last_row + 1);
   const int k_begin = o.window > 0 ? max(0, q_start - o.window + 1) : 0;

@@ -1,0 +1,155 @@
+#!/usr/bin/env python3
+"""Time the packed-QKV flash forward (Kernel E) on one CUDA card.
+
+Usage (from a checkout's root, on a machine with one GPU)::
+
+    python3 apex_tpu_torch/tools/attn_timing.py [--root DIR] [--tag NAME]
+        [--out FILE] [--train [train|t5_train]]
+
+``--root`` names the checkout whose ``apex_tpu_torch`` is imported and
+built (default: the one holding this file), so one call can time two
+versions of the kernel in turns (parent, change, change, parent), each in
+its own process. ``flash_packed_fwd_cuda`` is timed in bf16 at the
+self-attention shapes of the training cells: GPT-2 124M (qkv [1024, 8,
+2304], causal), the T5-base-width encoder (b 16, s 512, not causal, with
+``chip_smoke.py``'s seeded enc_lengths) and decoder (b 16, s 114,
+causal), each beside ``scaled_dot_product_attention`` on the same q, k, v
+(a bool key mask for the encoder's lengths) and beside its bound
+(``chip_smoke.bound_ms`` of qkv, o and lse and of 4 d FLOPs a visible
+pair). Each case is first held to the plain version (o within
+1 bf16 ulp, lse within 1e-4, two runs bitwise equal), and a digest of o
+and lse is printed, so that two versions' outputs can be compared bit for
+bit; the f32 GPT-2 case gives the f32 kernel's digest. Times are medians
+of CUDA-event intervals (``conv_timing.median_ms``).
+Prints one JSON line per measurement and, with ``--out``, appends them to
+FILE. With ``--train`` it runs the checkout's ``chip_smoke.py`` phase
+``[train]`` (GPT-2, the default) or ``[t5_train]`` instead, so that
+training steps can be compared in turns as well.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import io
+import json
+import math
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+from conv_timing import digest, median_ms, ulps
+
+#: (name, b, s, causal, kv_lengths, dtype) at 12 heads of 64
+CASES = [
+    ("gpt2_train", 8, 1024, True, None, torch.bfloat16),
+    ("t5_encoder", 16, 512, False, "enc_lengths", torch.bfloat16),
+    ("t5_decoder", 16, 114, True, None, torch.bfloat16),
+    ("gpt2_train_f32", 8, 1024, True, None, torch.float32),
+]
+HEADS, HEAD_DIM = 12, 64
+
+
+def time_case(att, name, b, s, causal, kvl, dtype, gen, emit) -> None:
+    from chip_smoke import _valid_lengths, _visible_pairs, bound_ms
+    d, heads = HEAD_DIM, HEADS
+    if kvl == "enc_lengths":
+        kvl = _valid_lengths(b, s, 14).tolist()   # chip_smoke's _t5_batch
+    qkv = torch.randn(s, b, heads * 3 * d, device="cuda",
+                      generator=gen).to(dtype)
+    kvl_t = None if kvl is None else torch.tensor(kvl, device="cuda")
+    args = (kvl_t, None, None, 0.0, 1.0 / math.sqrt(d), causal, None, 1, d)
+    run = lambda: att.flash_packed_fwd_cuda(qkv, *args)  # noqa: E731
+    (o, lse), (o2, lse2) = run(), run()
+    ro, rlse = att.flash_packed_fwd_plain(qkv, *args)
+    err = dict(o_ulps=ulps(o, ro) if dtype == torch.bfloat16 else 0.0,
+               o_abs=float((o.float() - ro.float()).abs().max()),
+               lse_abs=float((lse - rlse).abs().max()),
+               bitwise_repeat=torch.equal(o, o2) and torch.equal(lse, lse2))
+    ok = (err["lse_abs"] <= 1e-4 and err["bitwise_repeat"]
+          and (err["o_ulps"] <= 1.0 if dtype == torch.bfloat16
+               else err["o_abs"] <= 1e-4))
+    pairs = sum(_visible_pairs(s, s, causal, None,
+                               s if kvl is None else kvl[r])
+                for r in range(b))
+    flops = 4.0 * d * heads * pairs
+    n_bytes = (qkv.numel() + o.numel()) * qkv.element_size() + \
+        lse.numel() * 4
+    bound = bound_ms(n_bytes, flops, dtype)[0]
+    t = qkv.reshape(s, b, heads, 3, d)
+    q4, k4, v4 = (t[:, :, :, i].permute(1, 2, 0, 3).contiguous()
+                  for i in range(3))
+    mask = (None if kvl_t is None else
+            (torch.arange(s, device="cuda")[None, :]
+             < kvl_t[:, None])[:, None, None, :])
+    ms = median_ms(run, iters=30)
+    emit(kernel="flash_packed_fwd", case=name, b=b, s=s, causal=causal,
+         kv_lengths=kvl, dtype=str(dtype)[6:], ms=ms,
+         sdpa_ms=median_ms(lambda: F.scaled_dot_product_attention(
+             q4, k4, v4, attn_mask=mask, is_causal=causal), iters=30),
+         bound_ms=bound, tflops=flops / ms / 1e9, ok=ok,
+         sha256=digest([o, lse]), **err)
+
+
+def time_train(phase, emit) -> None:
+    """``chip_smoke.py``'s ``[train]`` or ``[t5_train]`` phase of the
+    ``--root`` checkout (2 warm-up and 8 timed steps on one seeded batch,
+    its losses and launches checked); its line is printed and its step
+    time, throughput, MFU and peak memory emitted."""
+    import chip_smoke
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        getattr(chip_smoke, f"phase_{phase}")()
+    print(buf.getvalue(), end="", flush=True)
+    fields = re.findall(r"(step_ms_median|tokens_per_s|mfu|peak_mem_gb)="
+                        r"([0-9.]+)", buf.getvalue())
+    emit(kernel=phase, case=phase, **{k: float(v) for k, v in fields})
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--root", default=str(Path(__file__).resolve()
+                                              .parents[2]))
+    parser.add_argument("--tag", default="")
+    parser.add_argument("--out", default=None)
+    parser.add_argument("--train", nargs="?", const="train", default=None,
+                        choices=("train", "t5_train"),
+                        help="run the checkout's train (or t5_train) phase "
+                        "instead of timing the kernel")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("attn_timing: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    from apex_tpu_torch.ops import attention as att
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+
+    def emit(**fields):
+        row = dict(tag=args.tag, card=card, **fields)
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        if args.out:
+            with open(args.out, "a") as f:
+                f.write(json.dumps(row) + "\n")
+
+    if args.train:
+        time_train(args.train, emit)
+        return 0
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for case in CASES:
+        time_case(att, *case, gen, emit)
+        torch.cuda.empty_cache()
+    return 0 if all(r.get("ok", True) for r in rows) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

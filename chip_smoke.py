@@ -13,7 +13,9 @@ printing its own lines and raising on failure:
 6. kernel D — LayerNorm backward vs its plain version;
 7. kernel E — packed-QKV flash forward vs its plain version (GQA, RoPE,
               window, kv_lengths, and dropout whose keep mask must equal
-              ``hash_keep``'s exactly);
+              ``hash_keep``'s exactly, in f32 and bf16); timed beside SDPA
+              at the GPT-2 and the T5 encoder and decoder shapes, where
+              two bf16 runs must be bitwise equal;
 8. kernel F — packed-QKV flash backward vs its plain version;
 9. serve    — GPT-2 124M (bf16, random weights from a seed) serves 16
               greedy requests through ``InferenceEngine``; the launch
@@ -504,12 +506,18 @@ def phase_layer_norm_bwd(timer: Timer) -> dict:
 
 #: (name, b, s, groups, qpg, d, causal, kv_lengths, window, rot, rate,
 #: dtype): the GPT-2 training shape in bf16 (the timed record) and f32,
-#: then the corner cases at fewer rows
+#: the T5 encoder (its seeded enc_lengths, as ``t5_train`` draws them) and
+#: decoder self-attention shapes in bf16 (E timed beside SDPA), then the
+#: corner cases at fewer rows
 PACKED_CASES = [
     ("gpt2_train", 8, 1024, 12, 1, 64, True, None, None, 0, 0.0,
      torch.bfloat16),
     ("gpt2_train", 8, 1024, 12, 1, 64, True, None, None, 0, 0.0,
      torch.float32),
+    ("t5_encoder", 16, 512, 12, 1, 64, False, "enc_lengths", None, 0, 0.0,
+     torch.bfloat16),
+    ("t5_decoder", 16, 114, 12, 1, 64, True, None, None, 0, 0.0,
+     torch.bfloat16),
     ("gqa_qpg2", 2, 512, 6, 2, 64, True, None, None, 0, 0.0, torch.bfloat16),
     ("rope_half", 2, 512, 12, 1, 64, True, None, None, 32, 0.0,
      torch.bfloat16),
@@ -523,6 +531,8 @@ PACKED_CASES = [
      torch.float32),
 ]
 DROPOUT_SEED = -1234567
+#: cases whose Kernel E is timed beside SDPA (F at the GPT-2 shape only)
+TIMED_E = ("gpt2_train", "t5_encoder", "t5_decoder")
 
 
 def _packed_unpacked(qkv, b, s, groups, qpg, d):
@@ -533,10 +543,11 @@ def _packed_unpacked(qkv, b, s, groups, qpg, d):
             for x in (q, t[:, :, :, qpg], t[:, :, :, qpg + 1]))
 
 
-def _check_dropout_mask() -> None:
+def _check_dropout_mask(dtype) -> None:
     """With v = I per group (s == d) and a non-causal softmax (every p >
     0), o[i, j] = keep[i, j] * p[i, j] / (1 - rate): Kernel E's keep mask
-    is read off and must equal ``hash_keep``'s bit for bit."""
+    is read off and must equal ``hash_keep``'s bit for bit (f32 and bf16
+    take different kernels, each hashing on its own)."""
     from apex_tpu_torch.ops.attention import (drop_combo,
                                               flash_packed_fwd_cuda,
                                               hash_keep)
@@ -546,7 +557,8 @@ def _check_dropout_mask() -> None:
     k = 0.1 * torch.randn(s, b, groups, 1, d, device="cuda", generator=g)
     eye = torch.eye(s, device="cuda")[:, None, None, None, :].expand(
         s, b, groups, 1, d)
-    qkv = torch.cat([q, k, eye], dim=3).reshape(s, b, -1).contiguous()
+    qkv = torch.cat([q, k, eye], dim=3).reshape(s, b, -1).to(
+        dtype).contiguous()
     o, _ = flash_packed_fwd_cuda(qkv, None, None, DROPOUT_SEED, rate, 0.125,
                                  False, None, 1, d)
     got = (o.reshape(s, b, groups, d) != 0).permute(1, 2, 0, 3).cpu()
@@ -558,14 +570,15 @@ def _check_dropout_mask() -> None:
         raise AssertionError(f"dropout keep mask differs from hash_keep at "
                              f"{mismatched} of {want.numel()} positions")
     log("kernel_e_dropout_mask", shape=f"b{b} heads{groups} s{s}",
-        rate=rate, seed=DROPOUT_SEED, kept=int(got.sum()),
+        dtype=str(dtype)[6:], rate=rate, seed=DROPOUT_SEED, kept=int(got.sum()),
         positions=want.numel(), mismatched=0)
 
 
 def phase_packed(timer: Timer) -> tuple:
     """Kernels E and F: every case against the plain versions (the
     forward's o and lse, then the backward's dqkv on the plain forward's
-    o and lse); the GPT-2 bf16 case is timed."""
+    o and lse); in bf16, E's GPT-2 and T5 cases are timed beside SDPA and
+    must repeat bitwise, and F is timed at the GPT-2 shape."""
     from apex_tpu_torch.ops.attention import (flash_packed_bwd_cuda,
                                               flash_packed_bwd_plain,
                                               flash_packed_fwd_cuda,
@@ -579,6 +592,8 @@ def phase_packed(timer: Timer) -> tuple:
                           generator=gen).to(dtype)
         do = torch.randn(s, b, groups * qpg * d, device="cuda",
                          generator=gen).to(dtype)
+        if kvl == "enc_lengths":
+            kvl = _valid_lengths(b, s, 14).tolist()   # _t5_batch's seed 13
         kvl_t = None if kvl is None else torch.tensor(kvl, device="cuda")
         rope = (None if not rot else rope_tables(
             rope_freqs(0, s, rot, 10000.0, device="cuda"), s, d))
@@ -611,37 +626,44 @@ def phase_packed(timer: Timer) -> tuple:
                     not bool((lse[row] == 1e30).all()):
                 raise AssertionError(f"kernel e/f {name}: the batch row "
                                      f"with kv_length 0 is not zero")
-        timed = name == "gpt2_train" and dtype == torch.bfloat16
+        timed = name in TIMED_E and dtype == torch.bfloat16
         fields = {}
         if timed:
+            if not torch.equal(o, flash_packed_fwd_cuda(qkv, *args)[0]):
+                raise AssertionError(f"kernel e {name}: two runs differ")
             esz = qkv.element_size()
-            pairs = _visible_pairs(s, s, causal, window, s)
+            pairs = sum(_visible_pairs(s, s, causal, window,
+                                       s if kvl is None else kvl[r])
+                        for r in range(b))
             heads = groups * qpg
             fwd_bytes = (qkv.numel() + o.numel()) * esz + lse.numel() * 4
-            bwd_bytes = (2 * qkv.numel() + 2 * o.numel()) * esz \
-                + lse.numel() * 4
-            bms_e, by_e = bound_ms(fwd_bytes, 4.0 * d * heads * b * pairs,
-                                   dtype)
-            bms_f, by_f = bound_ms(bwd_bytes, 10.0 * d * heads * b * pairs,
-                                   dtype)
+            bms_e, by_e = bound_ms(fwd_bytes, 4.0 * d * heads * pairs, dtype)
             ms_e = timer(lambda: flash_packed_fwd_cuda(qkv, *args), iters=10)
-            ms_f = timer(lambda: flash_packed_bwd_cuda(qkv, do, ro, rlse,
-                                                       *args), iters=10)
             plain_e = timer(lambda: flash_packed_fwd_plain(qkv, *args),
                             iters=5, warmup=1)
+            q4, k4, v4 = _packed_unpacked(qkv, b, s, groups, qpg, d)
+            mask = (None if kvl_t is None else
+                    (torch.arange(s, device="cuda")[None, :]
+                     < kvl_t[:, None])[:, None, None, :])
+            lib_e = timer(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask, is_causal=causal))
+            fields = dict(e=(ms_e, plain_e, lib_e, bms_e, by_e))
+        if timed and name == "gpt2_train":
+            bwd_bytes = (2 * qkv.numel() + 2 * o.numel()) * esz \
+                + lse.numel() * 4
+            bms_f, by_f = bound_ms(bwd_bytes, 10.0 * d * heads * pairs,
+                                   dtype)
+            ms_f = timer(lambda: flash_packed_bwd_cuda(qkv, do, ro, rlse,
+                                                       *args), iters=10)
             plain_f = timer(lambda: flash_packed_bwd_plain(qkv, do, ro, rlse,
                                                            *args),
                             iters=5, warmup=1)
-            q4, k4, v4 = _packed_unpacked(qkv, b, s, groups, qpg, d)
-            lib_e = timer(lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, is_causal=True))
             q4, k4, v4 = (t.requires_grad_() for t in (q4, k4, v4))
             out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
             do4 = do.reshape(s, b, heads, d).permute(1, 2, 0, 3).contiguous()
             lib_f = timer(lambda: torch.autograd.grad(
                 out4, (q4, k4, v4), do4, retain_graph=True))
-            fields = dict(e=(ms_e, plain_e, lib_e, bms_e, by_e),
-                          f=(ms_f, plain_f, lib_f, bms_f, by_f))
+            fields["f"] = (ms_f, plain_f, lib_f, bms_f, by_f)
         for kname in ("e", "f"):
             err, ulps, tol = errs[kname]
             t = fields.get(kname)
@@ -654,7 +676,7 @@ def phase_packed(timer: Timer) -> tuple:
                     ms=f"{t[0]:.5f}", plain_ms=f"{t[1]:.5f}",
                     library_ms=f"{t[2]:.5f}", bound_ms=f"{t[3]:.5f}",
                     bound_by=t[4])))
-        if timed:
+        if timed and name == "gpt2_train":
             shape = f"qkv[{s},{b},{qkv.shape[-1]}] bf16 causal"
             ms_e, plain_e, lib_e, bms_e, by_e = fields["e"]
             ms_f, plain_f, lib_f, bms_f, by_f = fields["f"]
@@ -670,7 +692,8 @@ def phase_packed(timer: Timer) -> tuple:
                          shape=shape, max_abs_err=errs["f"][0], ms=ms_f,
                          plain_ms=plain_f, bound_ms=bms_f, bound_by=by_f,
                          library_ms=lib_f)
-    _check_dropout_mask()
+    for dtype in (torch.float32, torch.bfloat16):
+        _check_dropout_mask(dtype)
     return rec_e, rec_f
 
 
@@ -840,6 +863,8 @@ def phase_flash_bwd(timer: Timer) -> dict:
         d = 64
         if kvl == "t5":
             kvl = _valid_lengths(b, sk, 11).tolist()
+        if kvl == "enc_lengths":
+            kvl = _valid_lengths(b, s, 14).tolist()   # _t5_batch's seed 13
         kvl_t = None if kvl is None else torch.tensor(kvl, device="cuda")
         scale = 1.0 / math.sqrt(d)
         for dtype in (torch.float32, torch.bfloat16):

@@ -531,3 +531,111 @@ def test_packed_gate_and_errors():
     assert flash_attention_packed(
         qkv.bfloat16(), queries_per_group=1, head_dim=16,
         causal=True).dtype == torch.bfloat16
+
+
+# ---------------------------------------------------------------------------
+# Kernel E's bf16 rounding plan, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+def _kernel_e_emulation(qkv, kv_lengths, seed, rate, scale, causal,
+                        split=True, tile=64):
+    """Kernel E's bf16 arithmetic for one head (groups 1, qpg 1): an online
+    softmax over ``tile``-key tiles with a running max, l from the
+    undropped p, the dropped fp32 p split into bf16 hi + lo (or, with
+    ``split=False``, rounded once to bf16) before its products with v,
+    fp32 sums, and one round of o to bf16 at the end. Returns ``(o [s, b,
+    d], lse [b, 1, s])`` as ``flash_packed_fwd_plain`` lays them out."""
+    s, b, w = qkv.shape
+    d = w // 3
+    t = qkv.reshape(s, b, 3, d).permute(1, 2, 0, 3).float()
+    q, k, v = t[:, 0], t[:, 1], t[:, 2]                     # [b, s, d]
+    row = torch.arange(s)[:, None]
+    col = torch.arange(s)[None, :]
+    kvl = (torch.full((b,), s) if kv_lengths is None
+           else torch.as_tensor(kv_lengths))
+    valid = col[None] < kvl[:, None, None]
+    if causal:
+        valid = valid & (col <= row)[None]
+    keep = None
+    if rate > 0.0:
+        combo = drop_combo(torch.arange(b)[:, None, None, None],
+                           torch.zeros(1, 1, 1, 1, dtype=torch.long))
+        keep = hash_keep(seed, combo, (b, 1, s, s), rate)[:, 0]
+    m = torch.full((b, s, 1), -1e30)
+    l = torch.zeros(b, s, 1)
+    acc = torch.zeros(b, s, d)
+    for c0 in range(0, s, tile):
+        sl = slice(c0, c0 + tile)
+        sc = torch.einsum("bqd,bkd->bqk", q, k[:, sl]) * scale
+        sc = torch.where(valid[:, :, sl], sc, torch.tensor(-1e30))
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        p = torch.where(sc == -1e30, torch.zeros(()), torch.exp(sc - m_new))
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        if keep is not None:
+            p = torch.where(keep[:, :, sl], p * (1.0 / (1.0 - rate)),
+                            torch.zeros(()))
+        hi = p.bfloat16().float()
+        pv = hi @ v[:, sl]
+        if split:
+            pv = pv + (p - hi).bfloat16().float() @ v[:, sl]
+        acc = acc * alpha + pv
+        m = m_new
+    o = acc * torch.where(l > 0, 1.0 / l, torch.zeros(()))
+    lse = torch.where(l > 0, m + torch.log(l), torch.tensor(1e30))
+    return (o.bfloat16().permute(1, 0, 2), lse[..., 0][:, None])
+
+
+def _within_one_bf16_ulp(got, want) -> bool:
+    """The card tests' bf16 tolerance (``assert_close_once_rounded``): one
+    rounding step of 2^-7 of the magnitude, floored at 2^-15 near 0."""
+    g, w = got.float(), want.float()
+    return bool(((g - w).abs() <= 2.0 ** -15 + 2.0 ** -7 * w.abs()).all())
+
+
+ROUNDING_CASES = {
+    # name: (s, b, causal, kv_lengths, rate): one head of the GPT-2
+    # training shape, the same with dropout, and kv_lengths with a 0 row
+    "gpt2_causal_s1024": (1024, 1, True, None, 0.0),
+    "gpt2_causal_s1024_dropout": (1024, 1, True, None, 0.1),
+    "kv_lengths_with_zero": (256, 3, False, [256, 100, 0], 0.0),
+}
+
+
+def _rounding_inputs(s, b, seed=0):
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy(rng.randn(s, b, 3 * 64).astype(
+        np.float32)).bfloat16()
+
+
+@pytest.mark.parametrize("name", list(ROUNDING_CASES))
+def test_kernel_e_rounding_plan_holds_one_ulp(name):
+    """p split into bf16 hi + lo keeps Kernel E's bf16 o within one bf16
+    ulp of the plain version (p in fp32) and lse within 1e-4; a row that
+    sees no key is 0 with lse 1e30."""
+    s, b, causal, kvl, rate = ROUNDING_CASES[name]
+    qkv = _rounding_inputs(s, b)
+    kvl_t = None if kvl is None else torch.tensor(kvl)
+    seed = -1234567 if rate else None
+    args = (kvl_t, None, seed, rate, 0.125, causal, None, 1, 64)
+    want_o, want_lse = flash_packed_fwd_plain(qkv, *args)
+    got_o, got_lse = _kernel_e_emulation(qkv, kvl, seed, rate, 0.125,
+                                         causal)
+    assert _within_one_bf16_ulp(got_o.reshape(want_o.shape), want_o)
+    torch.testing.assert_close(got_lse, want_lse, atol=1e-4, rtol=1e-6)
+    if kvl is not None and 0 in kvl:
+        row = kvl.index(0)
+        assert not got_o[:, row].any()
+        assert bool((got_lse[row] == 1e30).all())
+
+
+def test_kernel_e_single_bf16_p_misses_one_ulp():
+    """Why the kernel splits p: rounded once to bf16 before P V, p puts o
+    past one bf16 ulp of the plain version at s 1024."""
+    s, b, causal, _, _ = ROUNDING_CASES["gpt2_causal_s1024"]
+    qkv = _rounding_inputs(s, b)
+    want_o, _ = flash_packed_fwd_plain(qkv, None, None, None, 0.0, 0.125,
+                                       causal, None, 1, 64)
+    got_o, _ = _kernel_e_emulation(qkv, None, None, 0.0, 0.125, causal,
+                                   split=False)
+    assert not _within_one_bf16_ulp(got_o.reshape(want_o.shape), want_o)

@@ -10,8 +10,11 @@ not a multiple of 32 and row counts over several backward blocks, flash
 attention with ``kv_lengths`` (one of them 0), ``sq != sk``, GQA, sliding
 windows and head_dim 32/128, the packed-QKV forward and backward with
 GQA, partial and full RoPE, windows, ``kv_lengths`` and dropout (whose
-keep mask is read off exactly with ``v = I``, and whose seed may stay on
-the card with no host sync), paged decode with GQA, a
+keep mask is read off exactly with ``v = I``, in f32 and bf16, and whose
+seed may stay on the card with no host sync), at lengths around the bf16
+forward's 64-row tiles (63-65, 127-129), head_dim 36 and 40, a window and
+``kv_lengths`` that end inside a tile, T5-like encoder and decoder
+shapes, with two bf16 forward runs bitwise equal, paged decode with GQA, a
 sliding window and sentinel pages, the masked softmax forward and
 backward (padding masks with fully masked rows read through their broadcast
 strides, key masks, causal, rows of 17 to 4097, a scale), and the 4D flash
@@ -225,6 +228,26 @@ PACKED = {
     "d128_gqa_rope_varlen_dropout": (1, 129, 2, 3, 128, True, [100], None,
                                      128, 0.2),
     "d32_rope": (1, 65, 1, 4, 32, False, None, None, 16, 0.0),
+    # the edges of the bf16 kernel's 64-row query and 64-key tiles
+    "s63_causal": (2, 63, 2, 1, 64, True, None, None, 0, 0.0),
+    "s64": (1, 64, 2, 1, 64, False, None, None, 0, 0.0),
+    "s65_causal_gqa": (2, 65, 2, 2, 64, True, None, None, 0, 0.0),
+    "s127_causal_rope": (1, 127, 2, 1, 64, True, None, None, 64, 0.0),
+    "s128_dropout": (1, 128, 2, 1, 64, True, None, None, 0, 0.1),
+    "s129_causal": (2, 129, 3, 1, 64, True, None, None, 0, 0.0),
+    # d 40: 16-byte copies, the last k-step of Q K^T half zero; d 36:
+    # element-by-element copies
+    "d40_causal": (2, 100, 2, 1, 40, True, None, None, 0, 0.0),
+    "d36_rope_varlen": (2, 90, 2, 1, 36, False, [90, 41], None, 20, 0.0),
+    "window_70": (1, 300, 2, 1, 64, True, None, 70, 0, 0.0),
+    "kv_lengths_in_tile": (3, 200, 2, 1, 64, False, [200, 100, 33], None,
+                           0, 0.0),
+    "kv_lengths_causal_dropout": (2, 200, 2, 1, 64, True, [150, 70], None,
+                                  0, 0.2),
+    # T5-like: a padded encoder (not causal) and the s 114 decoder
+    "t5_encoder": (4, 160, 2, 1, 64, False, [160, 97, 130, 81], None, 0,
+                   0.0),
+    "t5_decoder": (2, 114, 3, 1, 64, True, None, None, 0, 0.0),
 }
 
 
@@ -271,6 +294,19 @@ def test_flash_packed_kernels(gen, name, dtype):
         assert not dqkv[:, row].any()
 
 
+@pytest.mark.parametrize("name", ["causal_mha", "d128_gqa_rope_varlen_dropout",
+                                  "d36_rope_varlen"])
+def test_flash_packed_forward_is_deterministic(gen, name):
+    qkv, _, kvl, rope, seed = _packed_inputs(gen, PACKED[name],
+                                             torch.bfloat16)
+    b, s, g, qpg, d, causal, _, window, _, rate = PACKED[name]
+    args = (kvl, rope, seed, rate, 1.0 / math.sqrt(d), causal, window, qpg,
+            d)
+    o, lse = flash_packed_fwd_cuda(qkv, *args)
+    o2, lse2 = flash_packed_fwd_cuda(qkv, *args)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
 def test_flash_packed_backward_is_deterministic(gen):
     case = PACKED["gqa_qpg2"]
     qkv, do, kvl, rope, seed = _packed_inputs(gen, case, torch.bfloat16)
@@ -306,18 +342,21 @@ def test_flash_packed_device_seed_needs_no_host_sync(gen):
     assert torch.equal(outs[0][1], outs[1][1])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("seed,rate", [(7, 0.1), (-2 ** 31, 0.5),
                                        (123456789, 0.9)])
-def test_flash_packed_dropout_mask_is_the_hash(gen, seed, rate):
+def test_flash_packed_dropout_mask_is_the_hash(gen, seed, rate, dtype):
     """With v = I per group (s == d) and a non-causal softmax (every p >
     0), o[i, j] = keep[i, j] * p[i, j] / (1 - rate): the kernel's mask is
-    read off exactly."""
+    read off exactly (in bf16 too, where the kernel hashes each score
+    accumulator's (row, col) itself)."""
     b, s, g, d = 2, 64, 2, 64
     q = 0.1 * torch.randn(s, b, g, 1, d, device="cuda", generator=gen)
     k = 0.1 * torch.randn(s, b, g, 1, d, device="cuda", generator=gen)
     eye = torch.eye(s, device="cuda")[:, None, None, None, :].expand(
         s, b, g, 1, d)
-    qkv = torch.cat([q, k, eye], dim=3).reshape(s, b, g * 3 * d).contiguous()
+    qkv = torch.cat([q, k, eye], dim=3).reshape(s, b, g * 3 * d).to(
+        dtype).contiguous()
     o, _ = flash_packed_fwd_cuda(qkv, None, None, seed, rate, 0.125, False,
                                  None, 1, d)
     got = (o.reshape(s, b, g, d) != 0).permute(1, 2, 0, 3)   # [b, h, s, s]
