@@ -4,9 +4,10 @@
 // hash, visibility): the copy of a bf16 tile into padded shared-memory
 // rows, RoPE applied to a landed tile in place, the test of which key
 // tiles a warp's rows see whole, in part or not at all, the online
-// softmax step over the scores a warp holds in mma accumulators, and p
-// split into bf16 hi + lo A fragments. Kernel E's bf16 path
-// (flash_packed_fwd.cu) uses them; Kernels F, B and I can take the same.
+// softmax step over the scores a warp holds in mma accumulators, p split
+// into bf16 hi + lo A fragments, and a factor rounded once to bf16 into A
+// fragments. Kernels E and F's bf16 paths (flash_packed_fwd.cu,
+// flash_packed_bwd.cu) use them; Kernels B and I can take the same.
 //
 // Fragment layout (PTX ISA, mma.m16n8k16, as mma_ring.cuh): a warp's
 // score tile is NS n8 tiles of 16 rows, acc[j][e] at row g + 8 (e >> 1),
@@ -87,14 +88,14 @@ __device__ __forceinline__ void rope_tile(bf16* tile, int ld, int pos0,
 
 enum Cover : int { kNone = 0, kSome = 1, kAll = 2 };
 
-// What query rows [r0, r0 + 16) see of keys [c0, c0 + bk) under
+// What query rows [r0, r0 + rows) see of keys [c0, c0 + bk) under
 // packed::visible: kNone, no pair (the tile can be skipped: its scores
 // would all be masked, p 0 and the running max unchanged); kAll, every
-// pair of rows below s (no mask needed; rows from s on are never stored);
-// else kSome (mask each score).
+// pair of rows below s (no mask needed; rows from s on are never stored,
+// or carry zero q and do); else kSome (mask each score).
 __device__ __forceinline__ Cover tile_cover(const Opts& o, int kvl, int r0,
-                                            int c0, int bk) {
-  const int r1 = min(r0 + 16, o.s) - 1;
+                                            int c0, int bk, int rows = 16) {
+  const int r1 = min(r0 + rows, o.s) - 1;
   if (r1 < r0) return kNone;
   const int kv_end = min(o.s, kvl);
   // the first row sees the fewest keys at the top, the last the fewest at
@@ -206,6 +207,19 @@ __device__ __forceinline__ void p_fragments(const float (&p)[NS][4], int kk,
   split2(p[2 * kk][2], p[2 * kk][3], hi[1], lo[1]);
   split2(p[2 * kk + 1][0], p[2 * kk + 1][1], hi[2], lo[2]);
   split2(p[2 * kk + 1][2], p[2 * kk + 1][3], hi[3], lo[3]);
+}
+
+// The A fragment (m16 x k16) over columns 16 kk .. 16 kk + 15 of a warp's
+// fp32 accumulators (n8 tiles 2 kk and 2 kk + 1), each value rounded once
+// to bf16: the remap of p_fragments with the hi half only. Kernel F packs
+// ds and the dropped p this way, rounded where the JAX kernel rounds them.
+template <int NS>
+__device__ __forceinline__ void bf16_fragment(const float (&v)[NS][4], int kk,
+                                              unsigned (&a)[4]) {
+  a[0] = as_u32(__floats2bfloat162_rn(v[2 * kk][0], v[2 * kk][1]));
+  a[1] = as_u32(__floats2bfloat162_rn(v[2 * kk][2], v[2 * kk][3]));
+  a[2] = as_u32(__floats2bfloat162_rn(v[2 * kk + 1][0], v[2 * kk + 1][1]));
+  a[3] = as_u32(__floats2bfloat162_rn(v[2 * kk + 1][2], v[2 * kk + 1][3]));
 }
 
 }  // namespace flash

@@ -14,28 +14,75 @@
 // un-rotated in fp32 with -sin before the one rounding at the store
 // (:937-953). The dropout mask is regenerated from the same hash.
 //
+// The JAX kernel rounds ds to the input dtype before `ds k` (:935) and
+// `ds^T q` (:948), and the dropped p before `p^T do` (:945); the plain
+// version (flash_packed_bwd_plain) rounds at the same three points, and
+// in f32 these roundings are the identity.
+//
 // What does not carry over: the TPU kernel holds a whole (s, s) block of
 // one cell in VMEM and accumulates dk/dv in registers across the group's
-// query heads in one grid step. Here two passes split the work so no
-// value is accumulated across blocks:
-// - pass 1, one block per (64-row query tile, head, batch): delta for its
-//   rows (written to a [b, H, s] fp32 scratch for pass 2) and dq, walking
-//   the visible key tiles;
-// - pass 2, one block per (64-row key tile, group, batch): dk and dv
-//   accumulate in fp32 over the group's qpg query heads and their visible
-//   query tiles.
-// No atomics: every output element is written by one thread once, so
-// repeated runs are bitwise equal.
+// query heads in one grid step. Here separate passes split the work so no
+// value is accumulated across blocks, and no atomics are used: every
+// output element is written by one thread once, so repeated runs are
+// bitwise equal.
 //
 // Bound on the H100: at GPT-2 124M training (b 8, 12 heads, s 1024, d 64,
 // causal, bf16) the causal work is ~32 GFLOP (five products of 2 d per
 // visible pair: q k^T, do v^T, ds k, ds^T q, p^T do; 33 us at the bf16
 // tensor rate) against ~101 MB moved (30 us at 3.35 TB/s).
 //
-// Design: fp32 tiles in shared memory and fp32 FMA as in Kernel E; each
-// thread owns a 4-row x (DMAX / 16)-column accumulator tile. Pass 1
-// recomputes q k^T and do v^T once; pass 2 again (7 tile products in all
-// against the algorithm's 5). No tensor cores yet.
+// bf16 (the path the models train on), three launches:
+// - delta prep: delta = rowsum(do * o) in fp32 into the [b, H, s] scratch
+//   (16-byte loads, 8 threads a row at d 64), so that the two GEMM passes
+//   read it and depend on nothing but their inputs (the `di` of
+//   `_recompute_p_ds`, :412);
+// - dk/dv pass, one block of 4 warps per (group, batch, 64-key tile), the
+//   tiles that see the most queries first under a causal mask. Each warp
+//   owns 16 keys: K (rotated in shared memory) and V come in once by
+//   cp.async and stay in shared memory. The group's qpg heads and their
+//   visible 64-query tiles stream through a 2-stage cp.async ring
+//   (flash_mma.cuh, mma_ring.cuh) with their lse and delta rows; a Q tile
+//   is rotated in place. S^T = K Q^T and dP^T = V dO^T on mma.sync
+//   m16n8k16 (bf16 in, fp32 out), p = exp(scale s - lse) on the SFU, masks
+//   only on tiles that cross the diagonal, a length, the window's edge or
+//   s (flash::tile_cover), tiles a warp sees nothing of skipped, the
+//   dropout hash at each accumulator's absolute (row, col). The dropped p
+//   and ds are rounded to bf16 straight into A fragments
+//   (flash::bf16_fragment), and dV += P^T dO, dK += dS^T Q take dO and Q
+//   as B fragments by ldmatrix.trans from the same stage. dk and dv are
+//   summed in fp32 across heads and tiles by the tensor cores; dk is
+//   scaled, un-rotated in fp32 through shared memory and rounded once.
+// - dq pass, one block of 4 warps per (head, batch, 64-query tile), the
+//   heaviest causal tiles first: Q (rotated) and dO go into A fragments
+//   once, K and V 64-key tiles come through the ring (K rotated in place);
+//   S = Q K^T and dP = dO V^T on mma.sync, then ds rounded to bf16 as A
+//   fragments and dq += dS K with K by ldmatrix.trans from the same tile;
+//   dq is scaled, un-rotated and rounded once.
+// Registers are capped at 168 a thread at d <= 64 so that three blocks
+// (12 warps) fit an SM: as in Kernel E, the passes wait on latency
+// (ldmatrix, mma, exp) more than on one unit, and this occupancy beat
+// fewer or larger blocks, a deeper ring, K and V fragments held in
+// registers and 16-column steps (PERF.md, section 6).
+// This is seven tile products a visible pair (q k^T and do v^T in both
+// passes): 14 d of tensor work against the algorithm's 10 d, for no
+// atomics and no cross-block sums. FlashAttention-2's single pass with an
+// fp32 atomic dq is not taken: its sums would change order between runs.
+// What bounds it: inferred, not profiled (no ncu on the card's machine):
+// at the GPT-2 shape both passes issue ~160-180 TFLOP/s of mma.sync work,
+// E's regime: the latency of mma.sync chains and the ldmatrix traffic of
+// 16-row warps (two mma a B fragment). wgmma with 64-row warpgroups is the
+// next step.
+//
+// f32 (checks only; TF32 would miss their atol of 1e-4), two launches:
+// fp32 tiles in shared memory and fp32 FMA as in Kernel E's f32 path;
+// each thread owns a 4-row x (DMAX / 16)-column accumulator tile.
+// - pass 1, one block per (64-row query tile, head, batch): delta for its
+//   rows (written to the [b, H, s] fp32 scratch for pass 2) and dq,
+//   walking the visible key tiles;
+// - pass 2, one block per (64-row key tile, group, batch): dk and dv
+//   accumulate in fp32 over the group's qpg query heads and their visible
+//   query tiles.
+#include "flash_mma.cuh"
 #include "packed_attention.cuh"
 
 namespace {
@@ -294,7 +341,8 @@ flash_packed_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
   for (int jh = 0; jh < opt.qpg; ++jh) {
     const int hh = g * opt.qpg + jh;
     const unsigned cmb = combo(bb, hh);
-    const long long stat_base = (static_cast<long long>(bb) * heads + hh) * opt.s;
+    const long long stat_base =
+        (static_cast<long long>(bb) * heads + hh) * opt.s;
     for (int it = i_first; it <= i_last; ++it) {
       const int q_start = it * kBQ;
       __syncthreads();  // the previous tile's readers are done
@@ -456,6 +504,651 @@ cudaError_t launch_d(const void* qkv, const void* dout, const void* out,
   return cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// bf16: delta prep, then the dk/dv and dq passes on mma.sync
+// ---------------------------------------------------------------------------
+
+namespace flash = apex::flash;
+namespace ring = apex::ring;
+using flash::bf16;
+
+// 4 bytes from global to shared memory, or 4 zero bytes when !valid (src
+// must be a mapped address either way)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   ring::smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+// (x, y) into columns col, col + 1 of a bf16 row of d columns, rounded
+// once; a pair store where both fit and d is even (every row start even)
+__device__ __forceinline__ void store_pair(bf16* row, int col, int d,
+                                           float x, float y) {
+  if (col + 1 < d && (d & 1) == 0) {
+    *reinterpret_cast<__nv_bfloat162*>(row + col) =
+        __floats2bfloat162_rn(x, y);
+  } else {
+    if (col < d) row[col] = __float2bfloat16(x);
+    if (col + 1 < d) row[col + 1] = __float2bfloat16(y);
+  }
+}
+
+// delta[bb, h, row] = sum_c do[row, bb, h, c] * o[row, bb, h, c] in fp32.
+// Row i of the [s * b * H, d] view of do and o is position i / (b H),
+// batch (i / H) % b, head i % H. CH > 0: CH threads a row, 8 columns each
+// by 16-byte loads (d == 8 CH, rows 16-byte aligned), summed across the
+// CH lanes; CH == 0: one warp a row, element by element.
+constexpr int kDeltaThreads = 256;
+
+template <int CH>
+__global__ void __launch_bounds__(kDeltaThreads)
+packed_delta_kernel(const bf16* __restrict__ dout,
+                    const bf16* __restrict__ out, float* __restrict__ delta,
+                    int s, int b, int heads, int d) {
+  constexpr int kLanes = CH > 0 ? CH : 32;  // threads a row
+  const long long i = static_cast<long long>(blockIdx.x) *
+                          (kDeltaThreads / kLanes) + threadIdx.x / kLanes;
+  const long long rows = static_cast<long long>(s) * b * heads;
+  const int lane = threadIdx.x % kLanes;
+  float part = 0.f;
+  if (i < rows) {
+    if (CH > 0) {
+      const uint4 x = *reinterpret_cast<const uint4*>(dout + i * d + 8 * lane);
+      const uint4 y = *reinterpret_cast<const uint4*>(out + i * d + 8 * lane);
+      const unsigned xs[4] = {x.x, x.y, x.z, x.w};
+      const unsigned ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 a = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&xs[e]));
+        const float2 c = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&ys[e]));
+        part += a.x * c.x;
+        part += a.y * c.y;
+      }
+    } else {
+      for (int c = lane; c < d; c += 32)
+        part += __bfloat162float(dout[i * d + c]) *
+                __bfloat162float(out[i * d + c]);
+    }
+  }
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1)
+    part += __shfl_xor_sync(0xffffffffu, part, off);
+  if (i < rows && lane == 0) {
+    const long long row = i / (static_cast<long long>(b) * heads);
+    const int bh = static_cast<int>(i % (static_cast<long long>(b) * heads));
+    delta[static_cast<long long>(bh) * s + row] = part;
+  }
+}
+
+template <int CH>
+cudaError_t launch_delta(const bf16* dout, const bf16* out, float* delta,
+                         const Opts& opt, cudaStream_t stream) {
+  constexpr int kRowsPerBlock = kDeltaThreads / (CH > 0 ? CH : 32);
+  const int heads = opt.groups * opt.qpg;
+  const long long rows = static_cast<long long>(opt.s) * opt.b * heads;
+  packed_delta_kernel<CH><<<static_cast<unsigned>(
+                                (rows + kRowsPerBlock - 1) / kRowsPerBlock),
+                            kDeltaThreads, 0, stream>>>(
+      dout, out, delta, opt.s, opt.b, heads, opt.d);
+  return cudaGetLastError();
+}
+
+// Query tiles [first, last] of BQ rows holding a row that sees a key of
+// [k0, k0 + keys); last < first when there is none.
+__device__ __forceinline__ void query_range(const Opts& o, int kvl, int k0,
+                                            int keys, int bq, int* first,
+                                            int* last) {
+  const int k1 = min(k0 + keys, min(o.s, kvl));  // keys any row can see
+  const int q_begin = o.causal ? k0 : 0;
+  int q_end = o.s;  // exclusive
+  if (o.window > 0) q_end = min(q_end, k1 - 1 + o.window);
+  *first = q_begin / bq;
+  *last = (k0 < k1 && q_end > q_begin) ? (q_end - 1) / bq : *first - 1;
+}
+
+// The dk/dv pass: WARPS warps of 16 keys, query tiles of BQ rows through a
+// ring of STAGES (Q, dO, lse, delta) stages. K and V stay in shared memory
+// and their A fragments are read at each use.
+template <int DMAX, int WARPS, int BQ, int STAGES>
+struct DkvCfg {
+  static constexpr int kThreads = WARPS * 32;
+  static constexpr int kKeys = WARPS * 16;
+  static constexpr int kLd = flash::Tile<DMAX>::kLd;
+  static constexpr int kOutLd = DMAX + 4;  // fp32 dk rows to un-rotate
+  static constexpr int kKV = 2 * kKeys * kLd * 2;
+  static constexpr int kStage = 4 * BQ * kLd + 8 * BQ;  // bytes
+  static constexpr size_t bytes = kKV + STAGES * kStage;
+  static constexpr int kMinBlocks = DMAX <= 64 ? 3 : 2;  // dk/dv
+  static_assert(kKeys * kOutLd * 4 <= bytes, "dk tile fits");
+  static_assert(2 * BQ <= kThreads, "a thread a lse or delta row");
+};
+
+template <int DMAX, int WARPS, int BQ, int STAGES, bool VEC>
+__global__ void __launch_bounds__(
+    WARPS * 32, (DkvCfg<DMAX, WARPS, BQ, STAGES>::kMinBlocks))
+flash_packed_dkv_mma(const bf16* __restrict__ qkv,
+                     const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dqkv,
+                     const Opts opt) {
+  using C = DkvCfg<DMAX, WARPS, BQ, STAGES>;
+  constexpr int kKS = DMAX / 16;  // k16 steps over d
+  constexpr int kNS = BQ / 8;     // n8 score tiles (queries) a warp
+  constexpr int kNO = DMAX / 8;   // n8 output tiles (columns of d) a warp
+  extern __shared__ __align__(16) unsigned char fsmem[];
+  bf16* Ks = reinterpret_cast<bf16*>(fsmem);
+  bf16* Vs = Ks + C::kKeys * C::kLd;
+  unsigned char* ring_smem = fsmem + C::kKV;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g4 = lane / 4;
+  const int t4 = lane % 4;
+  const int grp = blockIdx.x;
+  const int bb = blockIdx.y;
+  const int k_start = blockIdx.z * C::kKeys;
+  const int kw0 = k_start + 16 * warp;  // the warp's first key
+  const int d = opt.d;
+  const int heads = opt.groups * opt.qpg;
+  const Layout lay(opt, bb);
+  const int kvl = opt.kv_lengths != nullptr ? opt.kv_lengths[bb] : opt.s;
+  int first, last;
+  query_range(opt, kvl, k_start, C::kKeys, BQ, &first, &last);
+  const int nt = last - first + 1;
+  const int slices = nt > 0 ? nt * opt.qpg : 0;  // (head, query tile)
+
+  float dk[kNO][4];
+  float dv[kNO][4];
+#pragma unroll
+  for (int j = 0; j < kNO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  if (slices > 0) {
+    const bool drop = opt.seed != nullptr;
+    const unsigned seed = drop ? static_cast<unsigned>(opt.seed[0]) : 0u;
+    const long long hd = static_cast<long long>(heads) * d;
+    auto load = [&](int i, unsigned char* st) {
+      const int jh = i / nt;
+      const int q0 = (first + i % nt) * BQ;
+      const int hh = grp * opt.qpg + jh;
+      bf16* Qs = reinterpret_cast<bf16*>(st);
+      bf16* dOs = Qs + BQ * C::kLd;
+      float* ls = reinterpret_cast<float*>(dOs + BQ * C::kLd);
+      flash::copy_tile<BQ, DMAX, C::kThreads, VEC>(
+          Qs, qkv, lay.q(grp, jh, 0, d), lay.row_stride, q0, opt.s, d);
+      flash::copy_tile<BQ, DMAX, C::kThreads, VEC>(
+          dOs, dout, bb * hd + static_cast<long long>(hh) * d, opt.b * hd,
+          q0, opt.s, d);
+      const int t = threadIdx.x;
+      if (t < 2 * BQ) {  // lse rows, then delta rows (0 past s)
+        const int r = t % BQ;
+        const float* src = t < BQ ? lse : delta;
+        const bool ok = q0 + r < opt.s;
+        const long long at =
+            (static_cast<long long>(bb) * heads + hh) * opt.s + q0 + r;
+        cp_async4(ls + t, ok ? src + at : src, ok);
+      }
+    };
+
+    flash::copy_tile<C::kKeys, DMAX, C::kThreads, VEC>(
+        Ks, qkv, lay.k(grp, opt.qpg, 0, d), lay.row_stride, k_start, opt.s, d);
+    flash::copy_tile<C::kKeys, DMAX, C::kThreads, VEC>(
+        Vs, qkv, lay.v(grp, opt.qpg, 0, d), lay.row_stride, k_start, opt.s, d);
+    ring::cp_async_commit();
+#pragma unroll
+    for (int st = 0; st < STAGES - 1; ++st) {
+      if (st < slices) load(st, ring_smem + st * C::kStage);
+      ring::cp_async_commit();
+    }
+
+    const bf16* kw_s = Ks + 16 * warp * C::kLd;
+    const bf16* vw_s = Vs + 16 * warp * C::kLd;
+    for (int it = 0; it < slices; ++it) {
+      ring::cp_async_wait<STAGES - 2>();
+      __syncthreads();
+      unsigned char* st = ring_smem + (it % STAGES) * C::kStage;
+      const bf16* Qs = reinterpret_cast<const bf16*>(st);
+      const bf16* dOs = Qs + BQ * C::kLd;
+      const float* ls = reinterpret_cast<const float*>(dOs + BQ * C::kLd);
+      const float* dls = ls + BQ;
+      const int jh = it / nt;
+      const int q0 = (first + it % nt) * BQ;
+      const unsigned cmb = combo(bb, grp * opt.qpg + jh);
+      if (opt.rot > 0) {
+        if (it == 0)
+          flash::rope_tile<C::kKeys, C::kThreads>(Ks, C::kLd, k_start, opt);
+        flash::rope_tile<BQ, C::kThreads>(reinterpret_cast<bf16*>(st),
+                                          C::kLd, q0, opt);
+        __syncthreads();
+      }
+      const int next = it + STAGES - 1;
+      if (next < slices)
+        load(next, ring_smem + (next % STAGES) * C::kStage);
+      ring::cp_async_commit();
+
+      const flash::Cover cover = flash::tile_cover(opt, kvl, q0, kw0, 16, BQ);
+      if (cover == flash::kNone) continue;
+      // S^T = K Q^T, then p = exp(scale s - lse) (0 where masked)
+      float sc[kNS][4];
+#pragma unroll
+      for (int j = 0; j < kNS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kKS; ++kk) {
+        unsigned a[1][4];
+        ring::load_a<1, false>(a, kw_s, C::kLd, 16 * kk);
+        unsigned fb[kNS / 2][4];
+        ring::load_b<kNS, false>(fb, Qs, C::kLd, 16 * kk);
+#pragma unroll
+        for (int j = 0; j < kNS; ++j)
+          flash::mma_acc(sc[j], a[0], fb[j >> 1][2 * (j & 1)],
+                         fb[j >> 1][2 * (j & 1) + 1]);
+      }
+#pragma unroll
+      for (int j = 0; j < kNS; ++j) {
+        const float2 l2 =
+            *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = q0 + 8 * j + 2 * t4 + (e & 1);
+          const int col = kw0 + g4 + 8 * (e >> 1);
+          float x = sc[j][e] * opt.scale - ((e & 1) ? l2.y : l2.x);
+          if (cover == flash::kSome && !visible(opt, kvl, row, col)) x = kNeg;
+          sc[j][e] = flash::fast_exp(x);
+        }
+      }
+      // 16 queries at a time: dP^T, the dropped p and ds rounded to bf16
+      // into A fragments, dV += P^T dO and dK += dS^T Q
+#pragma unroll
+      for (int c = 0; c < kNS / 2; ++c) {
+        float dp[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < kKS; ++kk) {
+          unsigned a[1][4];
+          ring::load_a<1, false>(a, vw_s, C::kLd, 16 * kk);
+          unsigned fb[1][4];
+          ring::load_b<2, false>(fb, dOs + 16 * c * C::kLd, C::kLd, 16 * kk);
+          flash::mma_acc(dp[0], a[0], fb[0][0], fb[0][1]);
+          flash::mma_acc(dp[1], a[0], fb[0][2], fb[0][3]);
+        }
+        float pd[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int ql = 16 * c + 8 * j + 2 * t4;
+          const float2 d2 = *reinterpret_cast<const float2*>(dls + ql);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = sc[2 * c + j][e];
+            float dpv = dp[j][e];
+            pd[j][e] = p;
+            if (drop) {
+              const bool keep =
+                  hash_keep(seed, cmb, q0 + ql + (e & 1),
+                            kw0 + g4 + 8 * (e >> 1), opt.keep_thresh);
+              pd[j][e] = keep ? p * opt.inv_keep : 0.f;
+              dpv = keep ? dpv * opt.inv_keep : 0.f;
+            }
+            dp[j][e] = p * (dpv - ((e & 1) ? d2.y : d2.x));  // ds
+          }
+        }
+        unsigned pa[4], sa[4];
+        flash::bf16_fragment<2>(pd, 0, pa);
+        flash::bf16_fragment<2>(dp, 0, sa);
+        {
+          unsigned fb[kNO / 2][4];
+          ring::load_b<kNO, true>(fb, dOs, C::kLd, 16 * c);
+#pragma unroll
+          for (int j = 0; j < kNO; ++j)
+            flash::mma_acc(dv[j], pa, fb[j >> 1][2 * (j & 1)],
+                           fb[j >> 1][2 * (j & 1) + 1]);
+        }
+        {
+          unsigned fb[kNO / 2][4];
+          ring::load_b<kNO, true>(fb, Qs, C::kLd, 16 * c);
+#pragma unroll
+          for (int j = 0; j < kNO; ++j)
+            flash::mma_acc(dk[j], sa, fb[j >> 1][2 * (j & 1)],
+                           fb[j >> 1][2 * (j & 1) + 1]);
+        }
+      }
+    }
+    ring::cp_async_wait<0>();
+  }
+
+  // dk = scale * acc, un-rotated in fp32 through shared memory (a row mixes
+  // columns c and c +- rot / 2, held by other lanes); dv as it is
+#pragma unroll
+  for (int j = 0; j < kNO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] *= opt.scale;
+  float* out_s = reinterpret_cast<float*>(fsmem) + 16 * warp * C::kOutLd;
+  if (opt.rot > 0) {
+    __syncthreads();  // every warp is done with K, V and the ring
+#pragma unroll
+    for (int j = 0; j < kNO; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        out_s[(g4 + 8 * (e >> 1)) * C::kOutLd + 8 * j + 2 * t4 + (e & 1)] =
+            dk[j][e];
+    __syncwarp();
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = kw0 + g4 + 8 * h;
+    if (row >= opt.s) continue;
+    bf16* dk_dst = dqkv + lay.k(grp, opt.qpg, row, d);
+    bf16* dv_dst = dqkv + lay.v(grp, opt.qpg, row, d);
+    const float* r_s = out_s + (g4 + 8 * h) * C::kOutLd;
+#pragma unroll
+    for (int j = 0; j < kNO; ++j) {
+      const int col = 8 * j + 2 * t4;
+      float x = dk[j][2 * h];
+      float y = dk[j][2 * h + 1];
+      if (opt.rot > 0) {
+        x = col < d ? unrotate(r_s, opt, row, col) : 0.f;
+        y = col + 1 < d ? unrotate(r_s, opt, row, col + 1) : 0.f;
+      }
+      store_pair(dk_dst, col, d, x, y);
+      store_pair(dv_dst, col, d, dv[j][2 * h], dv[j][2 * h + 1]);
+    }
+  }
+}
+
+// The dq pass: WARPS warps of 16 query rows, 64-key tiles through a ring of
+// STAGES (K, V) stages.
+template <int DMAX, int WARPS, int STAGES>
+struct DqCfg {
+  static constexpr int kThreads = WARPS * 32;
+  static constexpr int kRows = WARPS * 16;
+  static constexpr int kLd = flash::Tile<DMAX>::kLd;
+  static constexpr int kOutLd = DMAX + 4;  // fp32 dq rows to un-rotate
+  static constexpr int kQD = 2 * kRows * kLd * 2;  // Q, then dO, bytes
+  static constexpr int kStage = 2 * kBK * kLd * 2;  // K, then V, bytes
+  static constexpr size_t bytes = kQD + STAGES * kStage;
+  static constexpr int kMinBlocks = DMAX <= 64 ? 3 : 2;  // dq
+  static_assert(kRows * kOutLd * 4 <= kQD, "dq tile fits");
+};
+
+template <int DMAX, int WARPS, int STAGES, bool VEC>
+__global__ void __launch_bounds__(WARPS * 32,
+                                  (DqCfg<DMAX, WARPS, STAGES>::kMinBlocks))
+flash_packed_dq_mma(const bf16* __restrict__ qkv,
+                    const bf16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dqkv,
+                    const Opts opt) {
+  using C = DqCfg<DMAX, WARPS, STAGES>;
+  constexpr int kKS = DMAX / 16;  // k16 steps over d
+  constexpr int kNS = kBK / 8;    // n8 score tiles (keys) a warp
+  constexpr int kNO = DMAX / 8;   // n8 output tiles a warp
+  extern __shared__ __align__(16) unsigned char fsmem[];
+  bf16* Qs = reinterpret_cast<bf16*>(fsmem);
+  bf16* dOs = Qs + C::kRows * C::kLd;
+  bf16* kv = reinterpret_cast<bf16*>(fsmem + C::kQD);  // the ring's stages
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g4 = lane / 4;
+  const int t4 = lane % 4;
+  const int hh = blockIdx.x;
+  const int bb = blockIdx.y;
+  const int qt = opt.causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q_start = qt * C::kRows;
+  const int r0 = q_start + 16 * warp;  // the warp's first row
+  const int grp = hh / opt.qpg;
+  const int d = opt.d;
+  const int heads = opt.groups * opt.qpg;
+  const Layout lay(opt, bb);
+  const int kvl = opt.kv_lengths != nullptr ? opt.kv_lengths[bb] : opt.s;
+  int first, last;
+  key_tiles(opt, kvl, q_start, &first, &last, C::kRows);
+  const int tiles = last - first + 1;
+
+  float dq[kNO][4];
+#pragma unroll
+  for (int j = 0; j < kNO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+
+  if (tiles > 0) {
+    const bool drop = opt.seed != nullptr;
+    const unsigned seed = drop ? static_cast<unsigned>(opt.seed[0]) : 0u;
+    const unsigned cmb = combo(bb, hh);
+    const long long hd = static_cast<long long>(heads) * d;
+    const long long stat_base =
+        (static_cast<long long>(bb) * heads + hh) * opt.s;
+    float lse_r[2], delta_r[2];  // the thread's rows g4 and g4 + 8
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + g4 + 8 * h;
+      lse_r[h] = row < opt.s ? lse[stat_base + row] : 0.f;
+      delta_r[h] = row < opt.s ? delta[stat_base + row] : 0.f;
+    }
+    const long long kcol = lay.k(grp, opt.qpg, 0, d);
+    const long long vcol = lay.v(grp, opt.qpg, 0, d);
+    auto load_kv = [&](int tile, bf16* stage) {
+      flash::copy_tile<kBK, DMAX, C::kThreads, VEC>(
+          stage, qkv, kcol, lay.row_stride, tile * kBK, opt.s, d);
+      flash::copy_tile<kBK, DMAX, C::kThreads, VEC>(
+          stage + kBK * C::kLd, qkv, vcol, lay.row_stride, tile * kBK, opt.s,
+          d);
+    };
+    flash::copy_tile<C::kRows, DMAX, C::kThreads, VEC>(
+        Qs, qkv, lay.q(grp, hh % opt.qpg, 0, d), lay.row_stride, q_start,
+        opt.s, d);
+    flash::copy_tile<C::kRows, DMAX, C::kThreads, VEC>(
+        dOs, dout, bb * hd + static_cast<long long>(hh) * d, opt.b * hd,
+        q_start, opt.s, d);
+    ring::cp_async_commit();
+#pragma unroll
+    for (int st = 0; st < STAGES - 1; ++st) {
+      if (st < tiles) load_kv(first + st, kv + st * (C::kStage / 2));
+      ring::cp_async_commit();
+    }
+
+    unsigned qf[kKS][1][4];
+    unsigned df[kKS][1][4];
+    for (int it = 0; it < tiles; ++it) {
+      ring::cp_async_wait<STAGES - 2>();
+      __syncthreads();
+      bf16* Ks = kv + (it % STAGES) * (C::kStage / 2);
+      const bf16* Vs = Ks + kBK * C::kLd;
+      const int c0 = (first + it) * kBK;
+      if (opt.rot > 0) {
+        if (it == 0)
+          flash::rope_tile<C::kRows, C::kThreads>(Qs, C::kLd, q_start, opt);
+        flash::rope_tile<kBK, C::kThreads>(Ks, C::kLd, c0, opt);
+        __syncthreads();
+      }
+      if (it == 0) {
+#pragma unroll
+        for (int kk = 0; kk < kKS; ++kk) {
+          ring::load_a<1, false>(qf[kk], Qs + 16 * warp * C::kLd, C::kLd,
+                                 16 * kk);
+          ring::load_a<1, false>(df[kk], dOs + 16 * warp * C::kLd, C::kLd,
+                                 16 * kk);
+        }
+      }
+      const int next = it + STAGES - 1;
+      if (next < tiles)
+        load_kv(first + next, kv + (next % STAGES) * (C::kStage / 2));
+      ring::cp_async_commit();
+
+      const flash::Cover cover = flash::tile_cover(opt, kvl, r0, c0, kBK);
+      if (cover == flash::kNone) continue;
+      // S = Q K^T, then p = exp(scale s - lse) (0 where masked)
+      float sc[kNS][4];
+#pragma unroll
+      for (int j = 0; j < kNS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kKS; ++kk) {
+        unsigned fb[kNS / 2][4];
+        ring::load_b<kNS, false>(fb, Ks, C::kLd, 16 * kk);
+#pragma unroll
+        for (int j = 0; j < kNS; ++j)
+          flash::mma_acc(sc[j], qf[kk][0], fb[j >> 1][2 * (j & 1)],
+                         fb[j >> 1][2 * (j & 1) + 1]);
+      }
+#pragma unroll
+      for (int j = 0; j < kNS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = r0 + g4 + 8 * (e >> 1);
+          const int col = c0 + 8 * j + 2 * t4 + (e & 1);
+          float x = sc[j][e] * opt.scale - lse_r[e >> 1];
+          if (cover == flash::kSome && !visible(opt, kvl, row, col)) x = kNeg;
+          sc[j][e] = flash::fast_exp(x);
+        }
+      // 16 keys at a time: dP, ds rounded to bf16 into an A fragment,
+      // dq += dS K
+#pragma unroll
+      for (int c = 0; c < kNS / 2; ++c) {
+        float dp[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < kKS; ++kk) {
+          unsigned fb[1][4];
+          ring::load_b<2, false>(fb, Vs + 16 * c * C::kLd, C::kLd, 16 * kk);
+          flash::mma_acc(dp[0], df[kk][0], fb[0][0], fb[0][1]);
+          flash::mma_acc(dp[1], df[kk][0], fb[0][2], fb[0][3]);
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float dpv = dp[j][e];
+            if (drop) {
+              const unsigned row = r0 + g4 + 8 * (e >> 1);
+              const unsigned col = c0 + 16 * c + 8 * j + 2 * t4 + (e & 1);
+              dpv = hash_keep(seed, cmb, row, col, opt.keep_thresh)
+                        ? dpv * opt.inv_keep : 0.f;
+            }
+            dp[j][e] = sc[2 * c + j][e] * (dpv - delta_r[e >> 1]);  // ds
+          }
+        unsigned sa[4];
+        flash::bf16_fragment<2>(dp, 0, sa);
+        unsigned fb[kNO / 2][4];
+        ring::load_b<kNO, true>(fb, Ks, C::kLd, 16 * c);
+#pragma unroll
+        for (int j = 0; j < kNO; ++j)
+          flash::mma_acc(dq[j], sa, fb[j >> 1][2 * (j & 1)],
+                         fb[j >> 1][2 * (j & 1) + 1]);
+      }
+    }
+    ring::cp_async_wait<0>();
+  }
+
+  // dq = scale * acc, un-rotated in fp32 through shared memory, rounded once
+#pragma unroll
+  for (int j = 0; j < kNO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] *= opt.scale;
+  float* out_s = reinterpret_cast<float*>(fsmem) + 16 * warp * C::kOutLd;
+  if (opt.rot > 0) {
+    __syncthreads();  // every warp is done with Q and dO
+#pragma unroll
+    for (int j = 0; j < kNO; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        out_s[(g4 + 8 * (e >> 1)) * C::kOutLd + 8 * j + 2 * t4 + (e & 1)] =
+            dq[j][e];
+    __syncwarp();
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + g4 + 8 * h;
+    if (row >= opt.s) continue;
+    bf16* dst = dqkv + lay.q(grp, hh % opt.qpg, row, d);
+    const float* r_s = out_s + (g4 + 8 * h) * C::kOutLd;
+#pragma unroll
+    for (int j = 0; j < kNO; ++j) {
+      const int col = 8 * j + 2 * t4;
+      float x = dq[j][2 * h];
+      float y = dq[j][2 * h + 1];
+      if (opt.rot > 0) {
+        x = col < d ? unrotate(r_s, opt, row, col) : 0.f;
+        y = col + 1 < d ? unrotate(r_s, opt, row, col + 1) : 0.f;
+      }
+      store_pair(dst, col, d, x, y);
+    }
+  }
+}
+
+// 4 warps a block in both passes; at d <= 64 query tiles of 64 rows in the
+// dk/dv ring, at 128 of 32 (the score tiles' registers beside dk and dv).
+// 16-byte copies need every row start (a multiple of d past a 16-byte
+// aligned base) on a 16-byte boundary.
+template <int DMAX>
+cudaError_t launch_mma(const void* qkv, const void* dout, const void* out,
+                       float* delta, const float* lse, void* dqkv,
+                       const Opts& opt, cudaStream_t stream) {
+  constexpr int kDkvWarps = 4;
+  constexpr int kDkvStages = 2;
+  constexpr int kDqWarps = 4;
+  constexpr int kDqStages = 2;
+  constexpr int kBQ = DMAX <= 64 ? 64 : 32;
+  using KvC = DkvCfg<DMAX, kDkvWarps, kBQ, kDkvStages>;
+  using QC = DqCfg<DMAX, kDqWarps, kDqStages>;
+  const auto* x = static_cast<const bf16*>(qkv);
+  const auto* dy = static_cast<const bf16*>(dout);
+  const auto* y = static_cast<const bf16*>(out);
+  auto* dx = static_cast<bf16*>(dqkv);
+  const int heads = opt.groups * opt.qpg;
+  const bool vec = opt.d % 8 == 0 &&
+                   reinterpret_cast<unsigned long long>(qkv) % 16 == 0 &&
+                   reinterpret_cast<unsigned long long>(dout) % 16 == 0;
+  const bool vec_o =
+      vec && reinterpret_cast<unsigned long long>(out) % 16 == 0;
+  cudaError_t err =
+      vec_o && opt.d == 64    ? launch_delta<8>(dy, y, delta, opt, stream)
+      : vec_o && opt.d == 128 ? launch_delta<16>(dy, y, delta, opt, stream)
+                              : launch_delta<0>(dy, y, delta, opt, stream);
+  if (err != cudaSuccess) return err;
+  auto dkv =
+      vec ? flash_packed_dkv_mma<DMAX, kDkvWarps, kBQ, kDkvStages, true>
+          : flash_packed_dkv_mma<DMAX, kDkvWarps, kBQ, kDkvStages, false>;
+  auto dq = vec ? flash_packed_dq_mma<DMAX, kDqWarps, kDqStages, true>
+                : flash_packed_dq_mma<DMAX, kDqWarps, kDqStages, false>;
+  err = apex::allow_smem(dkv, KvC::bytes);
+  if (err != cudaSuccess) return err;
+  err = apex::allow_smem(dq, QC::bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 dkv_grid(opt.groups, opt.b,
+                      (opt.s + KvC::kKeys - 1) / KvC::kKeys);
+  dkv<<<dkv_grid, KvC::kThreads, KvC::bytes, stream>>>(x, dy, lse, delta, dx,
+                                                       opt);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 dq_grid(heads, opt.b, (opt.s + QC::kRows - 1) / QC::kRows);
+  dq<<<dq_grid, QC::kThreads, QC::bytes, stream>>>(x, dy, lse, delta, dx,
+                                                   opt);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bf16(const void* qkv, const void* dout, const void* out,
+                        const float* lse, float* delta, void* dqkv,
+                        const Opts& opt, cudaStream_t stream) {
+  if (opt.d <= 64)
+    return launch_mma<64>(qkv, dout, out, delta, lse, dqkv, opt, stream);
+  if (opt.d <= 128)
+    return launch_mma<128>(qkv, dout, out, delta, lse, dqkv, opt, stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // qkv and dqkv [s, b, groups * (qpg + 2) * d]; dout and out
@@ -481,7 +1174,7 @@ extern "C" int apex_flash_packed_bwd(const void* qkv, const void* dout,
   float* dl = static_cast<float*>(delta);
   cudaError_t err =
       dtype == apex::kBF16
-          ? launch_d<__nv_bfloat16>(qkv, dout, out, l, dl, dqkv, opt, st)
+          ? launch_bf16(qkv, dout, out, l, dl, dqkv, opt, st)
           : launch_d<float>(qkv, dout, out, l, dl, dqkv, opt, st);
   return static_cast<int>(err);
 }

@@ -35,7 +35,8 @@ __all__ = ["flash_attention", "flash_fwd_plain",
            "flash_attention_packed", "packed_attention_supported",
            "packed_geometry", "drop_combo", "hash_keep",
            "flash_packed_fwd_plain", "flash_packed_bwd_plain",
-           "flash_packed_fwd_cuda", "flash_packed_bwd_cuda"]
+           "flash_packed_bwd_rounding_slack", "flash_packed_fwd_cuda",
+           "flash_packed_bwd_cuda"]
 
 _NEG_INF = -1e30
 #: lse of a query row that sees no key (attention.py ``_LSE_PAD``)
@@ -367,6 +368,15 @@ def _rotate(t: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     return tf * cos + half * sin
 
 
+def _rotate_bound(t: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                  rot: int) -> torch.Tensor:
+    """What :func:`_rotate` (either sign of sin) can make of a per-element
+    bound ``t >= 0``: ``t |cos| + t' |sin|``, t' the partner column."""
+    half = torch.cat([t[..., rot // 2:rot], t[..., :rot // 2],
+                      torch.zeros_like(t[..., rot:])], dim=-1)
+    return t * cos.abs() + half * sin.abs()
+
+
 def _packed_valid(s: int, kv_lengths, causal: bool, window, device):
     """``[b or 1, 1, s, s]`` visibility of (query row, key col)."""
     row = torch.arange(s, device=device)[:, None]
@@ -425,18 +435,18 @@ def flash_packed_fwd_plain(qkv, kv_lengths, rope, seed, rate: float,
     return o.permute(2, 0, 1, 3).reshape(s, b, h * d), lse[..., 0]
 
 
-def flash_packed_bwd_plain(qkv, do, o, lse, kv_lengths, rope, seed,
-                           rate: float, scale: float, causal: bool, window,
-                           qpg: int, d: int):
-    """Plain PyTorch backward, the algebra of ``_dqkv_packed_kernel``:
-    p recomputed from lse, ``delta = rowsum(do * o)``, dp masked and
-    rescaled by the dropout keep mask, ``ds = p * (dp - delta)``; dq and dk
-    un-rotated in fp32 with -sin; ``dqkv`` written in the packed layout in
-    qkv's dtype."""
-    s, b, w = qkv.shape
+def _packed_bwd_factors(qkv, do, o, lse, kv_lengths, rope, seed,
+                        rate: float, scale: float, causal: bool, window,
+                        qpg: int, d: int):
+    """The fp32 factors of the packed backward (``_recompute_p_ds`` over
+    whole heads): q and k as the forward rotates and rounds them (k
+    repeated over each group's query heads), do ``[b, H, s, d]``, the
+    dropped p (``pd``) from lse with masked scores at -1e30, and
+    ``ds = p * (dp - delta)`` with ``delta = rowsum(do * o)`` and dp masked
+    and rescaled by the dropout keep mask. Returns ``(q, k, do, pd, ds)``."""
+    s, b, _ = qkv.shape
     q, k, v = _qk(qkv, qpg, d, rope)
     h = q.shape[1]
-    g = h // qpg
     dof = do.reshape(s, b, h, d).permute(1, 2, 0, 3).float()
     of = o.reshape(s, b, h, d).permute(1, 2, 0, 3).float()
     sc = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
@@ -451,22 +461,77 @@ def flash_packed_bwd_plain(qkv, do, o, lse, kv_lengths, rope, seed,
         inv_keep = 1.0 / (1.0 - rate)
         dp = torch.where(keep, dp * inv_keep, torch.zeros_like(dp))
         pd = torch.where(keep, p * inv_keep, torch.zeros_like(p))
-    ds = p * (dp - delta)
+    return q, k, dof, pd, p * (dp - delta)
+
+
+def _pack_dqkv(dq, dk, dv, qpg: int, dtype):
+    """dq ``[b, H, s, d]``, dk and dv ``[b, G, s, d]`` -> the packed
+    ``[s, b, G*(qpg+2)*d]`` layout in ``dtype``."""
+    b, g, s, d = dk.shape
+    dqkv = torch.empty((s, b, g, qpg + 2, d), dtype=dtype, device=dk.device)
+    dqkv[:, :, :, :qpg] = dq.permute(2, 0, 1, 3).reshape(s, b, g, qpg, d)
+    dqkv[:, :, :, qpg] = dk.permute(2, 0, 1, 3)
+    dqkv[:, :, :, qpg + 1] = dv.permute(2, 0, 1, 3)
+    return dqkv.reshape(s, b, g * (qpg + 2) * d)
+
+
+def flash_packed_bwd_plain(qkv, do, o, lse, kv_lengths, rope, seed,
+                           rate: float, scale: float, causal: bool, window,
+                           qpg: int, d: int):
+    """Plain PyTorch backward, the algebra of ``_dqkv_packed_kernel`` on
+    the factors of :func:`_packed_bwd_factors`, rounded where that kernel
+    rounds them: ``dq = scale * ds k`` with ds rounded to qkv's dtype,
+    ``dk = scale * ds^T q`` with ds rounded likewise, ``dv = pd^T do`` with
+    the dropped p rounded likewise; dk and dv summed over each group's
+    query heads in fp32; dq and dk un-rotated in fp32 with -sin; ``dqkv``
+    written in the packed layout in qkv's dtype (one rounding)."""
+    s, b, w = qkv.shape
+    q, k, dof, pd, ds = _packed_bwd_factors(qkv, do, o, lse, kv_lengths,
+                                            rope, seed, rate, scale, causal,
+                                            window, qpg, d)
+    g = q.shape[1] // qpg
+    ds = ds.to(qkv.dtype).float()
     dq = scale * torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
     dk = scale * torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
-    dv = torch.einsum("bhqk,bhqd->bhkd", pd, dof)
+    dv = torch.einsum("bhqk,bhqd->bhkd", pd.to(qkv.dtype).float(), dof)
     dk = dk.reshape(b, g, qpg, s, d).sum(dim=2)
     dv = dv.reshape(b, g, qpg, s, d).sum(dim=2)
     if rope is not None:
         cos, sin, rot = rope
         dq = _rotate(dq, cos, -sin, rot)
         dk = _rotate(dk, cos, -sin, rot)
-    dqkv = torch.empty((s, b, g, qpg + 2, d), dtype=qkv.dtype,
-                       device=qkv.device)
-    dqkv[:, :, :, :qpg] = dq.permute(2, 0, 1, 3).reshape(s, b, g, qpg, d)
-    dqkv[:, :, :, qpg] = dk.permute(2, 0, 1, 3)
-    dqkv[:, :, :, qpg + 1] = dv.permute(2, 0, 1, 3)
-    return dqkv.reshape(s, b, w)
+    return _pack_dqkv(dq, dk, dv, qpg, qkv.dtype)
+
+
+def flash_packed_bwd_rounding_slack(qkv, do, o, lse, kv_lengths, rope, seed,
+                                    rate: float, scale: float, causal: bool,
+                                    window, qpg: int, d: int):
+    """How far one rounding step of every factor the packed backward
+    rounds to qkv's dtype (ds before ``ds k`` and ``ds^T q``, the dropped p
+    before ``pd^T do``) can move each element of dqkv: ``2^-8 * scale *
+    |ds| |k|`` and so on, summed over the group's query heads and carried
+    through the un-rotation (``|cos|`` and ``|sin|``), in fp32 and the
+    packed layout. Two correct backwards that form ds in other fp32
+    summation orders may round a ds on a bf16 boundary to neighbouring
+    values; this bounds what that does to each output element (the packed
+    counterpart of :func:`flash_bwd_rounding_slack`)."""
+    s, b, _ = qkv.shape
+    q, k, dof, pd, ds = _packed_bwd_factors(qkv, do, o, lse, kv_lengths,
+                                            rope, seed, rate, scale, causal,
+                                            window, qpg, d)
+    g = q.shape[1] // qpg
+    step = 2.0 ** -8
+    ds = ds.abs()
+    dq = step * scale * torch.einsum("bhqk,bhkd->bhqd", ds, k.float().abs())
+    dk = step * scale * torch.einsum("bhqk,bhqd->bhkd", ds, q.float().abs())
+    dv = step * torch.einsum("bhqk,bhqd->bhkd", pd.abs(), dof.abs())
+    dk = dk.reshape(b, g, qpg, s, d).sum(dim=2)
+    dv = dv.reshape(b, g, qpg, s, d).sum(dim=2)
+    if rope is not None:
+        cos, sin, rot = rope
+        dq = _rotate_bound(dq, cos, sin, rot)
+        dk = _rotate_bound(dk, cos, sin, rot)
+    return _pack_dqkv(dq, dk, dv, qpg, torch.float32)
 
 
 def _packed_args(qkv, kv_lengths, rope, seed, rate):

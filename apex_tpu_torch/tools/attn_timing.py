@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Time the packed-QKV flash forward (Kernel E) on one CUDA card.
+"""Time the packed-QKV flash forward and backward (Kernels E and F) on one
+CUDA card.
 
 Usage (from a checkout's root, on a machine with one GPU)::
 
     python3 apex_tpu_torch/tools/attn_timing.py [--root DIR] [--tag NAME]
-        [--out FILE] [--train [train|t5_train]]
+        [--out FILE] [--cases NAME,...] [--train [train|t5_train]]
 
 ``--root`` names the checkout whose ``apex_tpu_torch`` is imported and
 built (default: the one holding this file), so one call can time two
@@ -19,8 +20,18 @@ causal), each beside ``scaled_dot_product_attention`` on the same q, k, v
 pair). Each case is first held to the plain version (o within
 1 bf16 ulp, lse within 1e-4, two runs bitwise equal), and a digest of o
 and lse is printed, so that two versions' outputs can be compared bit for
-bit; the f32 GPT-2 case gives the f32 kernel's digest. Times are medians
-of CUDA-event intervals (``conv_timing.median_ms``).
+bit; the f32 GPT-2 case gives the f32 kernel's digest.
+``flash_packed_bwd_cuda`` is timed at the same shapes on a
+seeded do and the plain forward's o and lse, beside SDPA's backward on the
+same q, k, v, do (``torch.autograd.grad`` through
+``scaled_dot_product_attention``) and beside its bound (qkv, do, o and lse
+read, dqkv written; 10 d FLOPs a visible pair, the five products). Each
+case is first held to the plain backward (f32 atol 1e-4; bf16 within 1 ulp
+plus ``flash_packed_bwd_rounding_slack`` and at most 0.1% of the elements
+past 1 ulp, or 1 ulp of its own plain version in a checkout older than the
+slack; two runs bitwise equal), its dqkv digest is printed (bf16 and f32),
+and in bf16 its passes are split by the profiler. Times are medians of
+CUDA-event intervals (``conv_timing.median_ms``).
 Prints one JSON line per measurement and, with ``--out``, appends them to
 FILE. With ``--train`` it runs the checkout's ``chip_smoke.py`` phase
 ``[train]`` (GPT-2, the default) or ``[t5_train]`` instead, so that
@@ -42,7 +53,7 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-from conv_timing import digest, median_ms, ulps
+from conv_timing import device_split, digest, median_ms, ulps
 
 #: (name, b, s, causal, kv_lengths, dtype) at 12 heads of 64
 CASES = [
@@ -93,6 +104,52 @@ def time_case(att, name, b, s, causal, kvl, dtype, gen, emit) -> None:
              q4, k4, v4, attn_mask=mask, is_causal=causal), iters=30),
          bound_ms=bound, tflops=flops / ms / 1e9, ok=ok,
          sha256=digest([o, lse]), **err)
+    time_bwd(att, name, b, s, causal, kvl, dtype, qkv, ro, rlse, args,
+             (q4, k4, v4, mask), pairs, gen, emit)
+
+
+def time_bwd(att, name, b, s, causal, kvl, dtype, qkv, o, lse, args, sdpa,
+             pairs, gen, emit) -> None:
+    """Kernel F at one case (see the module's docstring)."""
+    from chip_smoke import bound_ms
+    d, heads = HEAD_DIM, HEADS
+    do = torch.randn(s, b, heads * d, device="cuda", generator=gen).to(dtype)
+    run = lambda: att.flash_packed_bwd_cuda(qkv, do, o, lse, *args)  # noqa
+    got, again = run(), run()
+    want = att.flash_packed_bwd_plain(qkv, do, o, lse, *args)
+    err = dict(dqkv_abs=float((got.float() - want.float()).abs().max()),
+               bitwise_repeat=torch.equal(got, again))
+    if dtype == torch.float32:
+        ok = err["dqkv_abs"] <= 1e-4
+    elif hasattr(att, "flash_packed_bwd_rounding_slack"):
+        from chip_smoke import check_rounded_factors
+        slack = att.flash_packed_bwd_rounding_slack(qkv, do, o, lse, *args)
+        _, err["dqkv_ulps"], err["share_past_1_ulp"], _, ok = \
+            check_rounded_factors(got, want, slack)
+        del slack
+    else:
+        err["dqkv_ulps"] = ulps(got, want)
+        ok = err["dqkv_ulps"] <= 1.0
+    del want
+    ok = ok and err["bitwise_repeat"]
+    flops = 10.0 * d * heads * pairs
+    n_bytes = (2 * qkv.numel() + 2 * o.numel()) * qkv.element_size() + \
+        lse.numel() * 4
+    bound = bound_ms(n_bytes, flops, dtype)[0]
+    q4, k4, v4, mask = (t if t is None or t.dtype == torch.bool
+                        else t.detach().clone().requires_grad_()
+                        for t in sdpa)
+    out4 = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                          is_causal=causal)
+    do4 = do.reshape(s, b, heads, d).permute(1, 2, 0, 3).contiguous()
+    ms = median_ms(run, iters=30)
+    emit(kernel="flash_packed_bwd", case=name, b=b, s=s, causal=causal,
+         kv_lengths=kvl, dtype=str(dtype)[6:], ms=ms,
+         sdpa_bwd_ms=median_ms(lambda: torch.autograd.grad(
+             out4, (q4, k4, v4), do4, retain_graph=True), iters=30),
+         bound_ms=bound, tflops=flops / ms / 1e9, ok=ok,
+         sha256=digest([got]),
+         split=device_split(run) if dtype == torch.bfloat16 else None, **err)
 
 
 def time_train(phase, emit) -> None:
@@ -120,6 +177,8 @@ def main() -> int:
                         choices=("train", "t5_train"),
                         help="run the checkout's train (or t5_train) phase "
                         "instead of timing the kernel")
+    parser.add_argument("--cases", default=None,
+                        help="comma-separated case names (default: all)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("attn_timing: no CUDA device", file=sys.stderr)
@@ -146,6 +205,8 @@ def main() -> int:
         return 0
     gen = torch.Generator(device="cuda").manual_seed(9)
     for case in CASES:
+        if args.cases and case[0] not in args.cases.split(","):
+            continue
         time_case(att, *case, gen, emit)
         torch.cuda.empty_cache()
     return 0 if all(r.get("ok", True) for r in rows) else 1

@@ -16,7 +16,12 @@ printing its own lines and raising on failure:
               ``hash_keep``'s exactly, in f32 and bf16); timed beside SDPA
               at the GPT-2 and the T5 encoder and decoder shapes, where
               two bf16 runs must be bitwise equal;
-8. kernel F — packed-QKV flash backward vs its plain version;
+8. kernel F — packed-QKV flash backward vs its plain version (f32 atol
+              1e-4; bf16, where both round ds and the dropped p as the JAX
+              kernel does, 1 ulp plus one bf16 step of each rounded factor,
+              at most 0.1% of the elements past 1 ulp); timed beside SDPA's
+              backward at the GPT-2 shape, where two bf16 runs must be
+              bitwise equal, and the f32 dqkv's sha256 printed;
 9. serve    — GPT-2 124M (bf16, random weights from a seed) serves 16
               greedy requests through ``InferenceEngine``; the launch
               counters of its kernels (A, B, C), read over this phase
@@ -93,6 +98,7 @@ over the H100's published peaks), and last ``{"ok": true, "device":
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
 import subprocess
@@ -211,6 +217,30 @@ def check_close(got: torch.Tensor, want: torch.Tensor) -> tuple:
         ulps = bf16_ulps(got, want)
         return ulps, ulps <= 1.0, "1 bf16 ulp"
     return 0.0, float((got - want).abs().max()) <= 1e-4, "atol 1e-4"
+
+
+def check_rounded_factors(got: torch.Tensor, want: torch.Tensor,
+                          slack: torch.Tensor) -> tuple:
+    """A bf16 flash backward that rounds ds and p to bf16 where the JAX
+    kernels do, against its plain version on the same inputs: every
+    element within 1 bf16 ulp plus ``slack``, one bf16 step of each
+    rounded factor carried to the output (two fp32 summation orders may
+    round a ds on a bf16 boundary to neighbouring values), and at most 0.1%
+    of the elements past 1 ulp. Returns (max abs err, ulps, share past 1
+    ulp, excess over the bound, ok)."""
+    e = (got.float() - want.float()).abs()
+    one = 2.0 ** -15 + 2.0 ** -7 * want.float().abs()
+    past = float((e > one).float().mean())
+    ok = bool((e <= one + slack).all()) and past <= 1e-3
+    return (float(e.max()), bf16_ulps(got, want), past,
+            float((e - one - slack).max()), ok)
+
+
+def digest(t: torch.Tensor) -> str:
+    """sha256 of a tensor's bytes: equal digests from two versions of a
+    kernel on the same seeded inputs mean bitwise equal outputs."""
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes()).hexdigest()[:16]
 
 
 def phase_device() -> None:
@@ -577,12 +607,18 @@ def _check_dropout_mask(dtype) -> None:
 def phase_packed(timer: Timer) -> tuple:
     """Kernels E and F: every case against the plain versions (the
     forward's o and lse, then the backward's dqkv on the plain forward's
-    o and lse); in bf16, E's GPT-2 and T5 cases are timed beside SDPA and
-    must repeat bitwise, and F is timed at the GPT-2 shape."""
-    from apex_tpu_torch.ops.attention import (flash_packed_bwd_cuda,
-                                              flash_packed_bwd_plain,
-                                              flash_packed_fwd_cuda,
-                                              flash_packed_fwd_plain)
+    o and lse). E and f32 F within ``check_close``'s tolerance; bf16 F
+    (which rounds ds and the dropped p to bf16 where the JAX kernel does,
+    as its plain version does) within 1 ulp plus
+    ``flash_packed_bwd_rounding_slack`` with at most 0.1% of the elements
+    past 1 ulp (``check_rounded_factors``). In bf16, E's GPT-2 and T5
+    cases are timed beside SDPA and must repeat bitwise; F is timed at the
+    GPT-2 shape and must repeat bitwise there, and its f32 dqkv digest is
+    printed."""
+    from apex_tpu_torch.ops.attention import (
+        flash_packed_bwd_cuda, flash_packed_bwd_plain,
+        flash_packed_bwd_rounding_slack, flash_packed_fwd_cuda,
+        flash_packed_fwd_plain)
     from apex_tpu_torch.ops.rope import rope_freqs, rope_tables
     gen = torch.Generator(device="cuda").manual_seed(5)
     rec_e = rec_f = None
@@ -601,7 +637,8 @@ def phase_packed(timer: Timer) -> tuple:
         args = (kvl_t, rope, seed, rate, 1.0 / math.sqrt(d), causal, window,
                 qpg, d)
         # the plain versions compute in fp32 past the RoPE rounding (part
-        # of the function) and round once at the end
+        # of the function), the backward's rounding of ds and the dropped p
+        # as well, and round once at the end
         o, lse = flash_packed_fwd_cuda(qkv, *args)
         ro, rlse = flash_packed_fwd_plain(qkv, *args)
         dqkv = flash_packed_bwd_cuda(qkv, do, ro, rlse, *args)
@@ -610,12 +647,23 @@ def phase_packed(timer: Timer) -> tuple:
         errs = {}
         for kname, got, want in (("e", o, ro), ("f", dqkv, rdqkv)):
             err = float((got.float() - want.float()).abs().max())
-            ulps, ok, tol = check_close(got, want)
+            past = None
+            if kname == "f" and dtype == torch.bfloat16:
+                slack = flash_packed_bwd_rounding_slack(qkv, do, ro, rlse,
+                                                        *args)
+                err, ulps, past, excess, ok = check_rounded_factors(
+                    got, want, slack)
+                tol = "1 bf16 ulp+factor rounding"
+                del slack
+            else:
+                ulps, ok, tol = check_close(got, want)
+                excess = None
             if not ok or not torch.isfinite(got).all():
                 raise AssertionError(
                     f"kernel {kname} {name} {dtype}: max err {err} "
-                    f"({ulps} ulp) — tolerance {tol}")
-            errs[kname] = (err, ulps, tol)
+                    f"({ulps} ulp, share past 1 ulp {past}, excess "
+                    f"{excess}) — tolerance {tol}")
+            errs[kname] = (err, ulps, tol, past)
         lse_err = float((lse - rlse).abs().max())
         if lse_err > 1e-4:
             raise AssertionError(f"kernel e {name} {dtype}: lse err "
@@ -628,6 +676,8 @@ def phase_packed(timer: Timer) -> tuple:
                                      f"with kv_length 0 is not zero")
         timed = name in TIMED_E and dtype == torch.bfloat16
         fields = {}
+        f32_digest = (digest(dqkv) if name == "gpt2_train"
+                      and dtype == torch.float32 else None)
         if timed:
             if not torch.equal(o, flash_packed_fwd_cuda(qkv, *args)[0]):
                 raise AssertionError(f"kernel e {name}: two runs differ")
@@ -649,6 +699,9 @@ def phase_packed(timer: Timer) -> tuple:
                 q4, k4, v4, attn_mask=mask, is_causal=causal))
             fields = dict(e=(ms_e, plain_e, lib_e, bms_e, by_e))
         if timed and name == "gpt2_train":
+            if not torch.equal(dqkv, flash_packed_bwd_cuda(qkv, do, ro, rlse,
+                                                           *args)):
+                raise AssertionError(f"kernel f {name}: two runs differ")
             bwd_bytes = (2 * qkv.numel() + 2 * o.numel()) * esz \
                 + lse.numel() * 4
             bms_f, by_f = bound_ms(bwd_bytes, 10.0 * d * heads * pairs,
@@ -665,13 +718,19 @@ def phase_packed(timer: Timer) -> tuple:
                 out4, (q4, k4, v4), do4, retain_graph=True))
             fields["f"] = (ms_f, plain_f, lib_f, bms_f, by_f)
         for kname in ("e", "f"):
-            err, ulps, tol = errs[kname]
+            err, ulps, tol, past = errs[kname]
             t = fields.get(kname)
+            extra = {} if past is None else dict(
+                share_past_1_ulp=f"{past:.2e}")
+            if kname == "f" and f32_digest is not None:
+                extra["dqkv_sha256"] = f32_digest
+            if kname == "f" and t is not None:
+                extra["bitwise_repeat"] = True
             log(f"kernel_{kname}", case=name,
                 shape=f"b{b} s{s} groups{groups} qpg{qpg} d{d}",
                 causal=causal, window=window, kv_lengths=kvl, rot=rot,
                 rate=rate, dtype=str(dtype)[6:], max_abs_err=f"{err:.3e}",
-                ulps=ulps, tol=tol.replace(" ", "_"),
+                ulps=ulps, tol=tol.replace(" ", "_"), **extra,
                 **({} if t is None else dict(
                     ms=f"{t[0]:.5f}", plain_ms=f"{t[1]:.5f}",
                     library_ms=f"{t[2]:.5f}", bound_ms=f"{t[3]:.5f}",
@@ -895,20 +954,19 @@ def phase_flash_bwd(timer: Timer) -> dict:
                      if dtype == torch.bfloat16 else (None,) * 3)
             err, ulps, past, tol = 0.0, 0.0, 0.0, "atol_1e-4"
             for g_, w_, sl in zip(got, want, slack):
-                e = (g_.float() - w_.float()).abs()
-                err = max(err, float(e.max()))
                 if dtype == torch.bfloat16:
                     tol = "1_bf16_ulp+factor_rounding"
-                    one = 2.0 ** -15 + 2.0 ** -7 * w_.float().abs()
-                    ulps = max(ulps, bf16_ulps(g_, w_))
-                    past = max(past, float((e > one).float().mean()))
-                    if not bool((e <= one + sl).all()) or past > 1e-3:
+                    e_, u_, p_, excess, ok = check_rounded_factors(g_, w_, sl)
+                    err, ulps, past = max(err, e_), max(ulps, u_), \
+                        max(past, p_)
+                    if not ok:
                         raise AssertionError(
                             f"kernel i {name} bf16: {ulps} ulp, "
                             f"{past:.2e} of elements past 1 ulp, excess "
-                            f"{float((e - one - sl).max())} — tolerance "
-                            f"{tol}")
-                elif err > 1e-4:
+                            f"{excess} — tolerance {tol}")
+                    continue
+                err = max(err, float((g_.float() - w_.float()).abs().max()))
+                if err > 1e-4:
                     raise AssertionError(f"kernel i {name} f32: max err "
                                          f"{err} — tolerance {tol}")
             if kvl is not None and 0 in kvl:

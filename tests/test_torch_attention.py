@@ -56,6 +56,7 @@ from apex_tpu_torch.ops.attention import (
     flash_bwd_rounding_slack,
     flash_fwd_plain,
     flash_packed_bwd_plain,
+    flash_packed_bwd_rounding_slack,
     flash_packed_fwd_plain,
     hash_keep,
     packed_attention_supported,
@@ -429,6 +430,73 @@ def test_packed_matches_jax_interpret_kernel(jax_mode, name):
     _check_packed(*_packed_run(PACKED[name], seed=1))
 
 
+def _packed_bf16_inputs(case, seed):
+    """bf16 qkv and do for one ``PACKED`` case, and the port's arguments
+    ``(kv_lengths, rope, seed, rate, scale, causal, window, qpg, d)``."""
+    s, b, g, qpg, d, kw = case
+    rng = np.random.RandomState(seed)
+    qkv, do = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+               .bfloat16() for shape in ((s, b, g * (qpg + 2) * d),
+                                         (s, b, g * qpg * d)))
+    kvl = kw.get("kv_lengths")
+    rope = (None if "rot" not in kw
+            else rope_tables(rope_freqs(0, s, kw["rot"], 10000.0), s, d))
+    return qkv, do, (None if kvl is None else torch.tensor(kvl), rope,
+                     kw.get("dropout_seed"), kw.get("dropout_rate", 0.0),
+                     1.0 / np.sqrt(d), kw.get("causal", False),
+                     kw.get("sliding_window"), qpg, d)
+
+
+def _packed_kernel_bwd_run(case, seed=1):
+    """In bf16, the JAX packed kernel's backward (``_flash_packed_vjp_bwd``
+    with the Pallas path on) and the port's plain backward, on the same
+    residuals: qkv, do, the JAX kernel forward's o and the port's lse (the
+    JAX forward rounds p to bf16 before ``p v``, the port's keeps it in
+    fp32, so the two o's may differ by more than an ulp; feeding both the
+    same o keeps that out). Returns (jax dqkv), (torch dqkv), (slack) as
+    fp32 numpy, the slack from ``flash_packed_bwd_rounding_slack``."""
+    s, b, g, qpg, d, kw = case
+    qkv, do, args = _packed_bf16_inputs(case, seed)
+    kvl, rope, dseed, rate, scale, causal, window = args[:7]
+    _, lse = flash_packed_fwd_plain(qkv, *args)
+    jqkv = jnp.asarray(_f32(qkv), jnp.bfloat16)
+    jkvl = None if kvl is None else jnp.asarray(kvl.numpy(), jnp.int32)
+    jseed = None if not rate else jnp.asarray([dseed], jnp.int32)
+    jkw = dict(kv_lengths=jkvl, causal=causal, sliding_window=window,
+               dropout_rate=rate, dropout_seed=jseed)
+    cos = sin = None
+    rot = 0
+    if rope is not None:
+        cos, sin = (jnp.asarray(t.numpy()) for t in rope[:2])
+        rot = rope[2]
+        jkw["rope_freqs"] = jnp.asarray(
+            rope_freqs(0, s, rot, 10000.0).reshape(s, rot).numpy())
+    jo = jatt.flash_attention_packed(jqkv, queries_per_group=qpg,
+                                     head_dim=d, **jkw)
+    res = (jqkv, jkvl, cos, sin, jseed, jo,
+           jnp.asarray(lse.numpy()).reshape(b, g * qpg, 1, s))
+    want = jatt._flash_packed_vjp_bwd(scale, causal, window, qpg, d, rot,
+                                      rate, res,
+                                      jnp.asarray(_f32(do), jnp.bfloat16))[0]
+    o = torch.from_numpy(_f32(jo)).bfloat16()
+    got = flash_packed_bwd_plain(qkv, do, o, lse, *args)
+    slack = flash_packed_bwd_rounding_slack(qkv, do, o, lse, *args)
+    return [_f32(want)], [_f32(got)], [slack.numpy()]
+
+
+@pytest.mark.parametrize("name", list(PACKED))
+def test_packed_bwd_bf16_matches_jax_interpret_kernel(jax_mode, name):
+    """The plain backward rounds ds and the dropped p to bf16 where
+    ``_dqkv_packed_kernel`` does: every element of dqkv within 1 bf16 ulp
+    plus ``flash_packed_bwd_rounding_slack``, at most 0.1% past 1 ulp (a
+    backward that keeps them in fp32 puts ~9% there, up to ~34 ulps)."""
+    jax_mode("interpret")
+    s, b, g, qpg, d, _ = PACKED[name]
+    assert jatt.packed_attention_supported(s, g, qpg, d)
+    _check_bf16(("dqkv",), *_packed_kernel_bwd_run(PACKED[name]),
+                max_past_ulp=1e-3)
+
+
 def test_packed_fully_masked_row_is_zero(jax_mode):
     jax_mode("off")
     _, (o, dqkv) = _packed_run(PACKED["kv_lengths_with_zero"])
@@ -639,3 +707,84 @@ def test_kernel_e_single_bf16_p_misses_one_ulp():
     got_o, _ = _kernel_e_emulation(qkv, None, None, 0.0, 0.125, causal,
                                    split=False)
     assert not _within_one_bf16_ulp(got_o.reshape(want_o.shape), want_o)
+
+
+# ---------------------------------------------------------------------------
+# Kernel F's bf16 rounding plan, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+def _kernel_f_emulation(qkv, do, o, lse, seed, rate, scale, causal,
+                        tile=64):
+    """Kernel F's bf16 arithmetic for one head (groups 1, qpg 1), as its
+    two passes order it: delta = rowsum(do * o); the dq pass walks 64-key
+    tiles, the dk/dv pass 64-query tiles, each recomputing the tile's fp32
+    scores and dp, p = 2^((scale s - lse) log2 e), the dropout keep mask on
+    dp and p, ds = p (dp - delta), then ds and the dropped p rounded to
+    bf16 per tile before their products, which are summed over tiles in
+    fp32; scale and one rounding to bf16 at the end. Returns dqkv in the
+    packed layout."""
+    s, b, w = qkv.shape
+    d = w // 3
+    t = qkv.reshape(s, b, 3, d).permute(1, 2, 0, 3).float()
+    q, k, v = t[:, 0], t[:, 1], t[:, 2]                     # [b, s, d]
+    dof = do.reshape(s, b, d).permute(1, 0, 2).float()
+    delta = (dof * o.reshape(s, b, d).permute(1, 0, 2).float()).sum(-1)
+    lse = lse[:, 0]                                         # [b, s]
+    valid = torch.ones(s, s, dtype=torch.bool)
+    if causal:
+        valid = torch.arange(s)[None, :] <= torch.arange(s)[:, None]
+    keep = None
+    if rate > 0.0:
+        combo = drop_combo(torch.arange(b)[:, None, None, None],
+                           torch.zeros(1, 1, 1, 1, dtype=torch.long))
+        keep = hash_keep(seed, combo, (b, 1, s, s), rate)[:, 0]
+    log2e = 1.4426950408889634
+
+    def factors(rows, cols):
+        """p (dropped) and ds of the tile rows x cols, rounded to bf16."""
+        x = torch.einsum("bqd,bkd->bqk", q[:, rows], k[:, cols]) * scale
+        x = torch.where(valid[rows, cols], x - lse[:, rows, None],
+                        torch.tensor(-1e30))
+        p = torch.exp2(x * log2e)
+        dp = torch.einsum("bqd,bkd->bqk", dof[:, rows], v[:, cols])
+        pd = p
+        if keep is not None:
+            kp = keep[:, rows, cols]
+            dp = torch.where(kp, dp * (1.0 / (1.0 - rate)), torch.zeros(()))
+            pd = torch.where(kp, p * (1.0 / (1.0 - rate)), torch.zeros(()))
+        ds = p * (dp - delta[:, rows, None])
+        return pd.bfloat16().float(), ds.bfloat16().float()
+
+    dq, dk, dv = (torch.zeros(b, s, d) for _ in range(3))
+    for c0 in range(0, s, tile):                            # the dq pass
+        cols = slice(c0, c0 + tile)
+        _, ds = factors(slice(0, s), cols)
+        dq = dq + ds @ k[:, cols]
+    for r0 in range(0, s, tile):                            # the dk/dv pass
+        rows = slice(r0, r0 + tile)
+        pd, ds = factors(rows, slice(0, s))
+        dk = dk + ds.transpose(1, 2) @ q[:, rows]
+        dv = dv + pd.transpose(1, 2) @ dof[:, rows]
+    out = torch.stack([dq * scale, dk * scale, dv], dim=2)  # [b, s, 3, d]
+    return out.permute(1, 0, 2, 3).reshape(s, b, w).bfloat16()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["no_dropout", "dropout"])
+def test_kernel_f_rounding_plan_holds_one_ulp(rate):
+    """ds and the dropped p formed per 64-wide tile in fp32 and rounded to
+    bf16 once each, as Kernel F's bf16 path does, keep dqkv at one head of
+    the GPT-2 training shape (s 1024, causal) within 1 bf16 ulp of the
+    repaired plain version plus ``flash_packed_bwd_rounding_slack``, with
+    at most 0.1% of the elements past 1 ulp."""
+    s, b = 1024, 1
+    rng = np.random.RandomState(4)
+    qkv, do = (torch.from_numpy(rng.randn(s, b, n).astype(np.float32))
+               .bfloat16() for n in (3 * 64, 64))
+    seed = -1234567 if rate else None
+    args = (None, None, seed, rate, 0.125, True, None, 1, 64)
+    o, lse = flash_packed_fwd_plain(qkv, *args)
+    want = flash_packed_bwd_plain(qkv, do, o, lse, *args)
+    slack = flash_packed_bwd_rounding_slack(qkv, do, o, lse, *args)
+    got = _kernel_f_emulation(qkv, do, o, lse, seed, rate, 0.125, True)
+    _check_bf16(("dqkv",), [_f32(want)], [_f32(got)], [slack.numpy()],
+                max_past_ulp=1e-3)

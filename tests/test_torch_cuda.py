@@ -24,8 +24,10 @@ and 3x3 conv + batch-norm kernels forward and backward (every ``(affine,
 relu)`` combination, row and channel counts off the 64-wide tiles, images
 of 1 x 1 to 14 x 14, a stats cotangent; bitwise repeatable). Tolerances:
 f32 atol 1e-4 (summation order only, TF32 off; the softmax 1e-5); bf16 1
-ulp of an fp32 reference rounded to bf16; the conv kernels' fp32 sums
-(y and dx in f32, stats, dW, da, db) norm-wise 1e-5.
+ulp of an fp32 reference rounded to bf16 (the flash backwards, which round
+ds and p to bf16 where the JAX kernels do: 1 ulp plus one bf16 step of
+each rounded factor, at most 0.1% of the elements past 1 ulp); the conv
+kernels' fp32 sums (y and dx in f32, stats, dW, da, db) norm-wise 1e-5.
 """
 
 import math
@@ -45,6 +47,7 @@ from apex_tpu_torch.ops.attention import (
     flash_fwd_plain,
     flash_packed_bwd_cuda,
     flash_packed_bwd_plain,
+    flash_packed_bwd_rounding_slack,
     flash_packed_fwd_cuda,
     flash_packed_fwd_plain,
     hash_keep,
@@ -248,6 +251,9 @@ PACKED = {
     "t5_encoder": (4, 160, 2, 1, 64, False, [160, 97, 130, 81], None, 0,
                    0.0),
     "t5_decoder": (2, 114, 3, 1, 64, True, None, None, 0, 0.0),
+    # every feature across several of the backward's 64-key blocks
+    "s257_gqa_window_rope_dropout": (2, 257, 2, 2, 64, True, None, 100, 64,
+                                     0.1),
 }
 
 
@@ -281,8 +287,15 @@ def test_flash_packed_kernels(gen, name, dtype):
     assert_close_once_rounded(o, ro)
     torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=1e-6)
     dqkv = flash_packed_bwd_cuda(qkv, do, ro, rlse, *args)
+    # the plain backward rounds ds and the dropped p to qkv's dtype where
+    # the JAX kernel does, as the bf16 kernel does
     rdqkv = flash_packed_bwd_plain(qkv, do, ro, rlse, *args)
-    assert_close_once_rounded(dqkv, rdqkv)
+    if dtype == torch.float32:
+        assert_close_once_rounded(dqkv, rdqkv)
+    else:
+        assert_close_up_to_factor_rounding(
+            dqkv, rdqkv,
+            flash_packed_bwd_rounding_slack(qkv, do, ro, rlse, *args))
     assert _support.LAUNCHES["flash_packed_fwd"] == \
         before["flash_packed_fwd"] + 1
     assert _support.LAUNCHES["flash_packed_bwd"] == \
