@@ -23,76 +23,69 @@
 //
 // What does not carry over: the TPU kernels carry dq or dk/dv in scratch
 // across sequential grid steps, or read-modify-write dq through an aliased
-// output. Blocks on the card run in parallel, so two passes split the work,
-// as Kernel F does, and no value is accumulated across blocks:
+// output. Blocks on the card run in parallel, so separate passes split the
+// work, as Kernel F does, and no value is accumulated across blocks. No
+// atomics: every output element is written once by one thread, so two
+// runs are bitwise equal.
+//
+// Bound on the H100: at the T5-base cross-attention of training (b 16,
+// 12 heads, 114 queries over 512 encoder keys, d 64, bf16, kv_lengths) it
+// moves q, o, do, dq and the K/V rows the lengths leave (with dk and dv
+// written whole) in ~56 MB, ~17 us at 3.35 TB/s, against ~3 GFLOP (five
+// products of 2 d per visible pair), ~3 us at the bf16 tensor rate. Bytes
+// bound it.
+//
+// bf16 (the path the models train on), Kernel F's three launches
+// (flash_packed_bwd.cu) over the 4D layout, on the pieces of
+// flash_mma.cuh:
+// - delta prep: delta = rowsum(do * o) in fp32 into the [b, H, sq]
+//   scratch (flash::delta_kernel, 16-byte loads);
+// - dk/dv pass, one block of 4 warps per (kv head, batch, 64-key tile).
+//   Each warp owns 16 keys: K and V come in once by cp.async and stay in
+//   shared memory. The group's H / KVH query heads (their own [sq, d]
+//   slices) and their visible 64-query tiles stream through a 3-stage
+//   cp.async ring with their lse and delta rows. S^T = K Q^T and dP^T =
+//   V dO^T on mma.sync m16n8k16 (bf16 in, fp32 out), p = exp(scale s -
+//   lse) on the SFU, masks only on tiles that cross the diagonal, a
+//   length, the window's edge, sq or sk (flash::tile_cover with the sk -
+//   sq offset), tiles a warp sees nothing of skipped. p and ds are
+//   rounded to bf16 straight into A fragments (flash::bf16_fragment), and
+//   dV += P^T dO, dK += dS^T Q take dO and Q as B fragments by
+//   ldmatrix.trans from the same stage. dk and dv are summed in fp32
+//   across the group's heads and tiles by the tensor cores and rounded
+//   once; key tiles past kv_length or seen by no query write zeros.
+// - dq pass, one block of 4 warps per (head, batch, 64-query tile), the
+//   heaviest causal tiles first: Q and dO go into A fragments once, K and
+//   V 64-key tiles come through the ring; S = Q K^T and dP = dO V^T on
+//   mma.sync, then ds rounded to bf16 as A fragments and dq += dS K with K
+//   by ldmatrix.trans from the same tile; dq is scaled and rounded once.
+// Registers are capped at 168 a thread at d <= 64 so that three blocks fit
+// an SM, as in Kernel F. Seven tile products a visible pair (q k^T and
+// do v^T in both passes) in place of the algorithm's five, for no atomics.
+//
+// f32 (checks only; TF32 would miss their atol of 1e-4), two launches of
+// fp32 tiles in shared memory and fp32 FMA, each thread owning a 4-row x
+// (DMAX / 16)-column accumulator tile:
 // - pass 1, one block per (64-row query tile, head, batch): delta for its
 //   rows (kept in an fp32 [b, H, sq] scratch for pass 2) and dq, walking
 //   the visible key tiles;
 // - pass 2, one block per (64-row key tile, kv head, batch): dk and dv over
 //   the group's query heads and their visible query tiles.
-// No atomics: every output element is written once by one thread, so two
-// runs are bitwise equal.
-//
-// Bound on the H100: at the T5-base cross-attention of training (b 16,
-// 12 heads, 114 queries over 512 encoder keys, d 64, bf16) it moves
-// q, o, do, dq (11.2 MB) and k, v, dk, dv (50.3 MB): ~18 us at 3.35 TB/s,
-// against ~7 GFLOP (five products of 2 d per visible pair), ~7 us at the
-// bf16 tensor rate. Bytes bound it.
-//
-// Design: fp32 tiles in shared memory and fp32 FMA, each thread owning a
-// 4-row x (DMAX / 16)-column accumulator tile, as in Kernels B and F. Pass 1
-// computes q k^T and do v^T once, pass 2 again (seven tile products against
-// the algorithm's five). No tensor cores yet.
-#include "common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;   // query rows per tile
-constexpr int kBK = 64;   // key rows per tile
-constexpr int kThreads = 256;
+using namespace apex::packed;  // kBQ, kBK, kThreads, kNeg, Mask, tiles
+namespace flash = apex::flash;
+namespace ring = apex::ring;
+using flash::bf16;
 
 struct Args {
   const int* kv_lengths;  // [b] int32, or null
-  int b, h, kvh, sq, sk, d;
+  int b, h, kvh, d;
   float scale;
-  int causal;
-  int window;  // 0 = no sliding window
+  Mask mask;
 };
-
-// Is key `col` visible to query `row` (`_mask_block` with q_off = sk - sq)?
-__device__ __forceinline__ bool visible(const Args& a, int kvl, int row, int col) {
-  const int row_g = row + a.sk - a.sq;
-  bool ok = row < a.sq && col < a.sk && col < kvl;
-  if (a.causal) ok = ok && col <= row_g;
-  if (a.window > 0) ok = ok && col > row_g - a.window;
-  return ok;
-}
-
-// Key tiles [first, last] with a visible column for query rows
-// [q_start, q_start + kBQ); last < first when there is none.
-__device__ __forceinline__ void key_tiles(const Args& a, int kvl, int q_start,
-                                          int* first, int* last) {
-  const int q_off = a.sk - a.sq;
-  const int last_row = min(q_start + kBQ, a.sq) - 1;
-  int k_end = min(a.sk, kvl);
-  if (a.causal) k_end = min(k_end, last_row + q_off + 1);
-  const int k_begin = a.window > 0 ? max(0, q_start + q_off - a.window + 1) : 0;
-  *first = k_begin / kBK;
-  *last = k_end > k_begin ? (k_end - 1) / kBK : *first - 1;
-}
-
-// Query tiles [first, last] with a row that sees a key of
-// [k_start, k_start + kBK); last < first when there is none.
-__device__ __forceinline__ void query_tiles(const Args& a, int kvl, int k_start,
-                                            int* first, int* last) {
-  const int q_off = a.sk - a.sq;
-  const int q_begin = a.causal ? max(0, k_start - q_off) : 0;
-  int q_end = a.sq;  // exclusive
-  if (a.window > 0) q_end = min(q_end, k_start + kBK - 1 - q_off + a.window);
-  *first = q_begin / kBQ;
-  *last = (k_start < min(kvl, a.sk) && q_end > q_begin) ? (q_end - 1) / kBQ
-                                                         : *first - 1;
-}
 
 template <int DMAX>
 struct DqSmem {
@@ -102,12 +95,12 @@ struct DqSmem {
   static constexpr size_t floats = 2 * kBQ * kRS + 2 * kBK * kCS + kBQ * kSS + 2 * kBQ;
 };
 
-template <typename T, int DMAX>
+template <int DMAX>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ out,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    float* __restrict__ delta, T* __restrict__ dq,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ out,
+                    const float* __restrict__ dout, const float* __restrict__ lse,
+                    float* __restrict__ delta, float* __restrict__ dq,
                     const Args a) {
   using S = DqSmem<DMAX>;
   constexpr int kCols = DMAX / 16;
@@ -130,9 +123,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bb = blockIdx.z;
   const int d = a.d;
   const int kv_head = hh / (a.h / a.kvh);
-  const long long row_base = (static_cast<long long>(bb) * a.h + hh) * a.sq;
+  const int sq = a.mask.sq;
+  const int sk = a.mask.sk;
+  const long long row_base = (static_cast<long long>(bb) * a.h + hh) * sq;
   const long long q_base = row_base * d;
-  const long long kv_base = (static_cast<long long>(bb) * a.kvh + kv_head) * a.sk * d;
+  const long long kv_base = (static_cast<long long>(bb) * a.kvh + kv_head) * sk * d;
 
   for (int idx = tid; idx < kBQ * DMAX; idx += kThreads) {
     const int r = idx / DMAX;
@@ -140,7 +135,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q_start + r;
     float qv = 0.f;
     float dov = 0.f;
-    if (row < a.sq && c < d) {
+    if (row < sq && c < d) {
       const long long off = q_base + static_cast<long long>(row) * d + c;
       qv = apex::to_float(q[off]);
       dov = apex::to_float(dout[off]);
@@ -152,7 +147,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = warp; r < kBQ; r += kThreads / 32) {
     const int row = q_start + r;
     float part = 0.f;
-    if (row < a.sq) {
+    if (row < sq) {
       const long long base = q_base + static_cast<long long>(row) * d;
       for (int c = lane; c < d; c += 32)
         part += apex::to_float(dout[base + c]) * apex::to_float(out[base + c]);
@@ -160,8 +155,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     part = apex::warp_sum(part);
     if (lane == 0) {
       delta_s[r] = part;
-      lse_s[r] = row < a.sq ? lse[row_base + row] : 0.f;
-      if (row < a.sq) delta[row_base + row] = part;
+      lse_s[r] = row < sq ? lse[row_base + row] : 0.f;
+      if (row < sq) delta[row_base + row] = part;
     }
   }
 
@@ -171,9 +166,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
 
-  const int kvl = a.kv_lengths != nullptr ? a.kv_lengths[bb] : a.sk;
+  const int kvl = a.kv_lengths != nullptr ? a.kv_lengths[bb] : sk;
   int j_first, j_last;
-  key_tiles(a, kvl, q_start, &j_first, &j_last);
+  key_tiles(a.mask, kvl, q_start, &j_first, &j_last);
   __syncthreads();
 
   for (int jt = j_first; jt <= j_last; ++jt) {
@@ -184,7 +179,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int row = k_start + r;
       float kval = 0.f;
       float vval = 0.f;
-      if (row < a.sk && c < d) {
+      if (row < sk && c < d) {
         const long long off = kv_base + static_cast<long long>(row) * d + c;
         kval = apex::to_float(k[off]);
         vval = apex::to_float(v[off]);
@@ -228,9 +223,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int jj = 0; jj < 4; ++jj) {
         const int col = k_start + tx + 16 * jj;
         float ds = 0.f;
-        if (visible(a, kvl, row, col)) {
+        if (visible(a.mask, kvl, row, col)) {
           const float p = expf(sc[i][jj] * a.scale - lse_s[r]);
-          ds = apex::round_to(p * (dp[i][jj] - delta_s[r]), static_cast<T*>(nullptr));
+          ds = p * (dp[i][jj] - delta_s[r]);
         }
         dSs[r * S::kSS + tx + 16 * jj] = ds;
       }
@@ -256,7 +251,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q_start + ty * 4 + i;
-    if (row >= a.sq) continue;
+    if (row >= sq) continue;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int col = tx + 16 * c;
@@ -274,13 +269,13 @@ struct DkvSmem {
   static constexpr size_t floats = 2 * kBK * kRS + 2 * kBQ * kCS + 2 * kBK * kSS + 2 * kBQ;
 };
 
-template <typename T, int DMAX>
+template <int DMAX>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, const Args a) {
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, const Args a) {
   using S = DkvSmem<DMAX>;
   constexpr int kCols = DMAX / 16;
   extern __shared__ float smem[];
@@ -301,7 +296,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bb = blockIdx.z;
   const int d = a.d;
   const int group = a.h / a.kvh;
-  const long long kv_base = (static_cast<long long>(bb) * a.kvh + kv_head) * a.sk * d;
+  const int sq = a.mask.sq;
+  const int sk = a.mask.sk;
+  const long long kv_base = (static_cast<long long>(bb) * a.kvh + kv_head) * sk * d;
 
   for (int idx = tid; idx < kBK * DMAX; idx += kThreads) {
     const int r = idx / DMAX;
@@ -309,7 +306,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = k_start + r;
     float kval = 0.f;
     float vval = 0.f;
-    if (row < a.sk && c < d) {
+    if (row < sk && c < d) {
       const long long off = kv_base + static_cast<long long>(row) * d + c;
       kval = apex::to_float(k[off]);
       vval = apex::to_float(v[off]);
@@ -325,13 +322,13 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < kCols; ++c) dka[i][c] = dva[i][c] = 0.f;
 
-  const int kvl = a.kv_lengths != nullptr ? a.kv_lengths[bb] : a.sk;
+  const int kvl = a.kv_lengths != nullptr ? a.kv_lengths[bb] : sk;
   int i_first, i_last;
-  query_tiles(a, kvl, k_start, &i_first, &i_last);
+  query_tiles(a.mask, kvl, k_start, &i_first, &i_last);
 
   for (int jh = 0; jh < group; ++jh) {
     const int hh = kv_head * group + jh;
-    const long long row_base = (static_cast<long long>(bb) * a.h + hh) * a.sq;
+    const long long row_base = (static_cast<long long>(bb) * a.h + hh) * sq;
     const long long q_base = row_base * d;
     for (int it = i_first; it <= i_last; ++it) {
       const int q_start = it * kBQ;
@@ -342,7 +339,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int row = q_start + r;
         float qv = 0.f;
         float dov = 0.f;
-        if (row < a.sq && c < d) {
+        if (row < sq && c < d) {
           const long long off = q_base + static_cast<long long>(row) * d + c;
           qv = apex::to_float(q[off]);
           dov = apex::to_float(dout[off]);
@@ -352,8 +349,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       if (tid < kBQ) {
         const int row = q_start + tid;
-        lse_s[tid] = row < a.sq ? lse[row_base + row] : 0.f;
-        delta_s[tid] = row < a.sq ? delta[row_base + row] : 0.f;
+        lse_s[tid] = row < sq ? lse[row_base + row] : 0.f;
+        delta_s[tid] = row < sq ? delta[row_base + row] : 0.f;
       }
       __syncthreads();
 
@@ -394,10 +391,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const int row = q_start + qc;
           float pr = 0.f;
           float ds = 0.f;
-          if (visible(a, kvl, row, col)) {
+          if (visible(a.mask, kvl, row, col)) {
             const float p = expf(sc[i][jj] * a.scale - lse_s[qc]);
-            pr = apex::round_to(p, static_cast<T*>(nullptr));
-            ds = apex::round_to(p * (dp[i][jj] - delta_s[qc]), static_cast<T*>(nullptr));
+            pr = p;
+            ds = p * (dp[i][jj] - delta_s[qc]);
           }
           Ps[kr * S::kSS + qc] = pr;
           dSs[kr * S::kSS + qc] = ds;
@@ -432,7 +429,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = k_start + ty * 4 + i;
-    if (row >= a.sk) continue;
+    if (row >= sk) continue;
     const long long base = kv_base + static_cast<long long>(row) * d;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
@@ -445,44 +442,473 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DMAX>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* out, const void* dout, const float* lse,
-                   float* delta, void* dq, void* dk, void* dv, const Args& a,
-                   cudaStream_t stream) {
-  auto dq_kernel = flash_bwd_dq_kernel<T, DMAX>;
-  auto dkv_kernel = flash_bwd_dkv_kernel<T, DMAX>;
+template <int DMAX>
+cudaError_t launch_f32(const float* q, const float* k, const float* v,
+                       const float* out, const float* dout, const float* lse,
+                       float* delta, float* dq, float* dk, float* dv,
+                       const Args& a, cudaStream_t stream) {
+  auto dq_kernel = flash_bwd_dq_kernel<DMAX>;
+  auto dkv_kernel = flash_bwd_dkv_kernel<DMAX>;
   const size_t dq_smem = DqSmem<DMAX>::floats * sizeof(float);
   const size_t dkv_smem = DkvSmem<DMAX>::floats * sizeof(float);
   cudaError_t err = apex::allow_smem(dq_kernel, dq_smem);
   if (err != cudaSuccess) return err;
   err = apex::allow_smem(dkv_kernel, dkv_smem);
   if (err != cudaSuccess) return err;
-  const dim3 dq_grid((a.sq + kBQ - 1) / kBQ, a.h, a.b);
-  dq_kernel<<<dq_grid, kThreads, dq_smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(out),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), a);
+  const dim3 dq_grid((a.mask.sq + kBQ - 1) / kBQ, a.h, a.b);
+  dq_kernel<<<dq_grid, kThreads, dq_smem, stream>>>(q, k, v, out, dout, lse,
+                                                    delta, dq, a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 dkv_grid((a.sk + kBK - 1) / kBK, a.kvh, a.b);
-  dkv_kernel<<<dkv_grid, kThreads, dkv_smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), a);
+  const dim3 dkv_grid((a.mask.sk + kBK - 1) / kBK, a.kvh, a.b);
+  dkv_kernel<<<dkv_grid, kThreads, dkv_smem, stream>>>(q, k, v, dout, lse,
+                                                       delta, dk, dv, a);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(const void* q, const void* k, const void* v,
-                     const void* out, const void* dout, const float* lse,
-                     float* delta, void* dq, void* dk, void* dv, const Args& a,
-                     cudaStream_t stream) {
-  if (a.d <= 64)
-    return launch<T, 64>(q, k, v, out, dout, lse, delta, dq, dk, dv, a, stream);
-  if (a.d <= 128)
-    return launch<T, 128>(q, k, v, out, dout, lse, delta, dq, dk, dv, a, stream);
-  return cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// bf16: delta prep, then the dk/dv and dq passes on mma.sync
+// ---------------------------------------------------------------------------
+
+// the tag that names Kernel I's delta prep pass in a profile
+struct KernelI {};
+
+// The bf16 passes' operands: q, do and o [b, H, sq, d], k and v [b, KVH,
+// sk, d], lse and delta [b, H, sq] fp32, dq like q, dk and dv like k.
+struct Bf16Args {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  const bf16* dout;
+  const float* lse;
+  const float* delta;
+  bf16* dq;
+  bf16* dk;
+  bf16* dv;
+  const int* kv_lengths;  // [b] int32, or null
+  int H, KVH, d;
+  float scale;
+  Mask mask;
+};
+
+// The dk/dv pass: WARPS warps of 16 keys, query tiles of BQ rows through a
+// ring of STAGES (Q, dO, lse, delta) stages. K and V stay in shared memory
+// and their A fragments are read at each use.
+template <int DMAX, int WARPS, int BQ, int STAGES>
+struct DkvCfg {
+  static constexpr int kThreads = WARPS * 32;
+  static constexpr int kKeys = WARPS * 16;
+  static constexpr int kLd = flash::Tile<DMAX>::kLd;
+  static constexpr int kKV = 2 * kKeys * kLd * 2;  // K, then V, bytes
+  static constexpr int kStage = 4 * BQ * kLd + 8 * BQ;  // bytes
+  static constexpr size_t bytes = kKV + STAGES * kStage;
+  static constexpr int kMinBlocks = DMAX <= 64 ? 3 : 2;  // dk/dv
+  static_assert(2 * BQ <= kThreads, "a thread a lse or delta row");
+};
+
+template <int DMAX, int WARPS, int BQ, int STAGES, bool VEC>
+__global__ void __launch_bounds__(
+    WARPS * 32, (DkvCfg<DMAX, WARPS, BQ, STAGES>::kMinBlocks))
+flash_bwd_dkv_mma(const Bf16Args a) {
+  using C = DkvCfg<DMAX, WARPS, BQ, STAGES>;
+  constexpr int kKS = DMAX / 16;  // k16 steps over d
+  constexpr int kNS = BQ / 8;     // n8 score tiles (queries) a warp
+  constexpr int kNO = DMAX / 8;   // n8 output tiles (columns of d) a warp
+  extern __shared__ __align__(16) unsigned char fsmem[];
+  bf16* Ks = reinterpret_cast<bf16*>(fsmem);
+  bf16* Vs = Ks + C::kKeys * C::kLd;
+  unsigned char* ring_smem = fsmem + C::kKV;
+
+  const Mask& mk = a.mask;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g4 = lane / 4;
+  const int t4 = lane % 4;
+  const int kvh = blockIdx.x;
+  const int bb = blockIdx.y;
+  const int k_start = blockIdx.z * C::kKeys;
+  const int kw0 = k_start + 16 * warp;  // the warp's first key
+  const int d = a.d;
+  const int group = a.H / a.KVH;
+  const long long kv_base =
+      (static_cast<long long>(bb) * a.KVH + kvh) * mk.sk * d;
+  const int kvl = a.kv_lengths != nullptr ? a.kv_lengths[bb] : mk.sk;
+  int first, last;
+  query_tiles(mk, kvl, k_start, &first, &last, C::kKeys, BQ);
+  const int nt = last - first + 1;
+  const int slices = nt > 0 ? nt * group : 0;  // (head, query tile)
+
+  float dk[kNO][4];
+  float dv[kNO][4];
+#pragma unroll
+  for (int j = 0; j < kNO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  if (slices > 0) {
+    // the [sq] rows of the group's head jh: q, do, lse and delta
+    auto rows_of = [&](int jh) {
+      return (static_cast<long long>(bb) * a.H + kvh * group + jh) * mk.sq;
+    };
+    auto load = [&](int i, unsigned char* st) {
+      const long long rb = rows_of(i / nt);
+      const int q0 = (first + i % nt) * BQ;
+      bf16* Qs = reinterpret_cast<bf16*>(st);
+      bf16* dOs = Qs + BQ * C::kLd;
+      float* ls = reinterpret_cast<float*>(dOs + BQ * C::kLd);
+      flash::copy_tile<BQ, DMAX, C::kThreads, VEC>(Qs, a.q, rb * d, d, q0,
+                                                   mk.sq, d);
+      flash::copy_tile<BQ, DMAX, C::kThreads, VEC>(dOs, a.dout, rb * d, d,
+                                                   q0, mk.sq, d);
+      const int t = threadIdx.x;
+      if (t < 2 * BQ) {  // lse rows, then delta rows (0 past sq)
+        const int r = t % BQ;
+        const float* src = t < BQ ? a.lse : a.delta;
+        const bool ok = q0 + r < mk.sq;
+        flash::cp_async4(ls + t, ok ? src + rb + q0 + r : src, ok);
+      }
+    };
+
+    flash::copy_tile<C::kKeys, DMAX, C::kThreads, VEC>(Ks, a.k, kv_base, d,
+                                                       k_start, mk.sk, d);
+    flash::copy_tile<C::kKeys, DMAX, C::kThreads, VEC>(Vs, a.v, kv_base, d,
+                                                       k_start, mk.sk, d);
+    ring::cp_async_commit();
+#pragma unroll
+    for (int st = 0; st < STAGES - 1; ++st) {
+      if (st < slices) load(st, ring_smem + st * C::kStage);
+      ring::cp_async_commit();
+    }
+
+    const bf16* kw_s = Ks + 16 * warp * C::kLd;
+    const bf16* vw_s = Vs + 16 * warp * C::kLd;
+    for (int it = 0; it < slices; ++it) {
+      ring::cp_async_wait<STAGES - 2>();
+      __syncthreads();
+      unsigned char* st = ring_smem + (it % STAGES) * C::kStage;
+      const bf16* Qs = reinterpret_cast<const bf16*>(st);
+      const bf16* dOs = Qs + BQ * C::kLd;
+      const float* ls = reinterpret_cast<const float*>(dOs + BQ * C::kLd);
+      const float* dls = ls + BQ;
+      const int q0 = (first + it % nt) * BQ;
+      const int next = it + STAGES - 1;
+      if (next < slices)
+        load(next, ring_smem + (next % STAGES) * C::kStage);
+      ring::cp_async_commit();
+
+      const flash::Cover cover = flash::tile_cover(mk, kvl, q0, kw0, 16, BQ);
+      if (cover == flash::kNone) continue;
+      // S^T = K Q^T, then p = exp(scale s - lse) (0 where masked)
+      float sc[kNS][4];
+#pragma unroll
+      for (int j = 0; j < kNS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kKS; ++kk) {
+        unsigned fa[1][4];
+        ring::load_a<1, false>(fa, kw_s, C::kLd, 16 * kk);
+        unsigned fb[kNS / 2][4];
+        ring::load_b<kNS, false>(fb, Qs, C::kLd, 16 * kk);
+#pragma unroll
+        for (int j = 0; j < kNS; ++j)
+          flash::mma_acc(sc[j], fa[0], fb[j >> 1][2 * (j & 1)],
+                         fb[j >> 1][2 * (j & 1) + 1]);
+      }
+#pragma unroll
+      for (int j = 0; j < kNS; ++j) {
+        const float2 l2 =
+            *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = q0 + 8 * j + 2 * t4 + (e & 1);
+          const int col = kw0 + g4 + 8 * (e >> 1);
+          float x = sc[j][e] * a.scale - ((e & 1) ? l2.y : l2.x);
+          if (cover == flash::kSome && !visible(mk, kvl, row, col)) x = kNeg;
+          sc[j][e] = flash::fast_exp(x);
+        }
+      }
+      // 16 queries at a time: dP^T, then p and ds rounded to bf16 into A
+      // fragments, dV += P^T dO and dK += dS^T Q
+#pragma unroll
+      for (int c = 0; c < kNS / 2; ++c) {
+        float dp[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < kKS; ++kk) {
+          unsigned fa[1][4];
+          ring::load_a<1, false>(fa, vw_s, C::kLd, 16 * kk);
+          unsigned fb[1][4];
+          ring::load_b<2, false>(fb, dOs + 16 * c * C::kLd, C::kLd, 16 * kk);
+          flash::mma_acc(dp[0], fa[0], fb[0][0], fb[0][1]);
+          flash::mma_acc(dp[1], fa[0], fb[0][2], fb[0][3]);
+        }
+        float pc[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float2 d2 =
+              *reinterpret_cast<const float2*>(dls + 16 * c + 8 * j + 2 * t4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            pc[j][e] = sc[2 * c + j][e];
+            dp[j][e] = pc[j][e] * (dp[j][e] - ((e & 1) ? d2.y : d2.x));  // ds
+          }
+        }
+        unsigned pa[4], sa[4];
+        flash::bf16_fragment<2>(pc, 0, pa);
+        flash::bf16_fragment<2>(dp, 0, sa);
+        {
+          unsigned fb[kNO / 2][4];
+          ring::load_b<kNO, true>(fb, dOs, C::kLd, 16 * c);
+#pragma unroll
+          for (int j = 0; j < kNO; ++j)
+            flash::mma_acc(dv[j], pa, fb[j >> 1][2 * (j & 1)],
+                           fb[j >> 1][2 * (j & 1) + 1]);
+        }
+        {
+          unsigned fb[kNO / 2][4];
+          ring::load_b<kNO, true>(fb, Qs, C::kLd, 16 * c);
+#pragma unroll
+          for (int j = 0; j < kNO; ++j)
+            flash::mma_acc(dk[j], sa, fb[j >> 1][2 * (j & 1)],
+                           fb[j >> 1][2 * (j & 1) + 1]);
+        }
+      }
+    }
+    ring::cp_async_wait<0>();
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = kw0 + g4 + 8 * h;
+    if (row >= mk.sk) continue;
+    bf16* dk_dst = a.dk + kv_base + static_cast<long long>(row) * d;
+    bf16* dv_dst = a.dv + kv_base + static_cast<long long>(row) * d;
+#pragma unroll
+    for (int j = 0; j < kNO; ++j) {
+      const int col = 8 * j + 2 * t4;
+      flash::store_pair(dk_dst, col, d, dk[j][2 * h] * a.scale,
+                        dk[j][2 * h + 1] * a.scale);
+      flash::store_pair(dv_dst, col, d, dv[j][2 * h], dv[j][2 * h + 1]);
+    }
+  }
+}
+
+// The dq pass: WARPS warps of 16 query rows, 64-key tiles through a ring of
+// STAGES (K, V) stages.
+template <int DMAX, int WARPS, int STAGES>
+struct DqCfg {
+  static constexpr int kThreads = WARPS * 32;
+  static constexpr int kRows = WARPS * 16;
+  static constexpr int kLd = flash::Tile<DMAX>::kLd;
+  static constexpr int kQD = 2 * kRows * kLd * 2;  // Q, then dO, bytes
+  static constexpr int kStage = 2 * kBK * kLd * 2;  // K, then V, bytes
+  static constexpr size_t bytes = kQD + STAGES * kStage;
+  static constexpr int kMinBlocks = DMAX <= 64 ? 3 : 2;  // dq
+};
+
+template <int DMAX, int WARPS, int STAGES, bool VEC>
+__global__ void __launch_bounds__(WARPS * 32,
+                                  (DqCfg<DMAX, WARPS, STAGES>::kMinBlocks))
+flash_bwd_dq_mma(const Bf16Args a) {
+  using C = DqCfg<DMAX, WARPS, STAGES>;
+  constexpr int kKS = DMAX / 16;  // k16 steps over d
+  constexpr int kNS = kBK / 8;    // n8 score tiles (keys) a warp
+  constexpr int kNO = DMAX / 8;   // n8 output tiles a warp
+  extern __shared__ __align__(16) unsigned char fsmem[];
+  bf16* Qs = reinterpret_cast<bf16*>(fsmem);
+  bf16* dOs = Qs + C::kRows * C::kLd;
+  bf16* kv = reinterpret_cast<bf16*>(fsmem + C::kQD);  // the ring's stages
+
+  const Mask& mk = a.mask;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g4 = lane / 4;
+  const int t4 = lane % 4;
+  const int hh = blockIdx.x;
+  const int bb = blockIdx.y;
+  const int qt = mk.causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q_start = qt * C::kRows;
+  const int r0 = q_start + 16 * warp;  // the warp's first row
+  const int d = a.d;
+  const long long rb = (static_cast<long long>(bb) * a.H + hh) * mk.sq;
+  const long long kv_base =
+      (static_cast<long long>(bb) * a.KVH + hh / (a.H / a.KVH)) * mk.sk * d;
+  const int kvl = a.kv_lengths != nullptr ? a.kv_lengths[bb] : mk.sk;
+  int first, last;
+  key_tiles(mk, kvl, q_start, &first, &last, C::kRows);
+  const int tiles = last - first + 1;
+
+  float dq[kNO][4];
+#pragma unroll
+  for (int j = 0; j < kNO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+
+  if (tiles > 0) {
+    float lse_r[2], delta_r[2];  // the thread's rows g4 and g4 + 8
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + g4 + 8 * h;
+      lse_r[h] = row < mk.sq ? a.lse[rb + row] : 0.f;
+      delta_r[h] = row < mk.sq ? a.delta[rb + row] : 0.f;
+    }
+    auto load_kv = [&](int tile, bf16* stage) {
+      flash::copy_tile<kBK, DMAX, C::kThreads, VEC>(stage, a.k, kv_base, d,
+                                                    tile * kBK, mk.sk, d);
+      flash::copy_tile<kBK, DMAX, C::kThreads, VEC>(
+          stage + kBK * C::kLd, a.v, kv_base, d, tile * kBK, mk.sk, d);
+    };
+    flash::copy_tile<C::kRows, DMAX, C::kThreads, VEC>(Qs, a.q, rb * d, d,
+                                                       q_start, mk.sq, d);
+    flash::copy_tile<C::kRows, DMAX, C::kThreads, VEC>(dOs, a.dout, rb * d,
+                                                       d, q_start, mk.sq, d);
+    ring::cp_async_commit();
+#pragma unroll
+    for (int st = 0; st < STAGES - 1; ++st) {
+      if (st < tiles) load_kv(first + st, kv + st * (C::kStage / 2));
+      ring::cp_async_commit();
+    }
+
+    unsigned qf[kKS][1][4];
+    unsigned df[kKS][1][4];
+    for (int it = 0; it < tiles; ++it) {
+      ring::cp_async_wait<STAGES - 2>();
+      __syncthreads();
+      const bf16* Ks = kv + (it % STAGES) * (C::kStage / 2);
+      const bf16* Vs = Ks + kBK * C::kLd;
+      const int c0 = (first + it) * kBK;
+      if (it == 0) {
+#pragma unroll
+        for (int kk = 0; kk < kKS; ++kk) {
+          ring::load_a<1, false>(qf[kk], Qs + 16 * warp * C::kLd, C::kLd,
+                                 16 * kk);
+          ring::load_a<1, false>(df[kk], dOs + 16 * warp * C::kLd, C::kLd,
+                                 16 * kk);
+        }
+      }
+      const int next = it + STAGES - 1;
+      if (next < tiles)
+        load_kv(first + next, kv + (next % STAGES) * (C::kStage / 2));
+      ring::cp_async_commit();
+
+      const flash::Cover cover = flash::tile_cover(mk, kvl, r0, c0, kBK);
+      if (cover == flash::kNone) continue;
+      // S = Q K^T, then p = exp(scale s - lse) (0 where masked)
+      float sc[kNS][4];
+#pragma unroll
+      for (int j = 0; j < kNS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kKS; ++kk) {
+        unsigned fb[kNS / 2][4];
+        ring::load_b<kNS, false>(fb, Ks, C::kLd, 16 * kk);
+#pragma unroll
+        for (int j = 0; j < kNS; ++j)
+          flash::mma_acc(sc[j], qf[kk][0], fb[j >> 1][2 * (j & 1)],
+                         fb[j >> 1][2 * (j & 1) + 1]);
+      }
+#pragma unroll
+      for (int j = 0; j < kNS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = r0 + g4 + 8 * (e >> 1);
+          const int col = c0 + 8 * j + 2 * t4 + (e & 1);
+          float x = sc[j][e] * a.scale - lse_r[e >> 1];
+          if (cover == flash::kSome && !visible(mk, kvl, row, col)) x = kNeg;
+          sc[j][e] = flash::fast_exp(x);
+        }
+      // 16 keys at a time: dP, ds rounded to bf16 into an A fragment,
+      // dq += dS K
+#pragma unroll
+      for (int c = 0; c < kNS / 2; ++c) {
+        float dp[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < kKS; ++kk) {
+          unsigned fb[1][4];
+          ring::load_b<2, false>(fb, Vs + 16 * c * C::kLd, C::kLd, 16 * kk);
+          flash::mma_acc(dp[0], df[kk][0], fb[0][0], fb[0][1]);
+          flash::mma_acc(dp[1], df[kk][0], fb[0][2], fb[0][3]);
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[j][e] = sc[2 * c + j][e] * (dp[j][e] - delta_r[e >> 1]);  // ds
+        unsigned sa[4];
+        flash::bf16_fragment<2>(dp, 0, sa);
+        unsigned fb[kNO / 2][4];
+        ring::load_b<kNO, true>(fb, Ks, C::kLd, 16 * c);
+#pragma unroll
+        for (int j = 0; j < kNO; ++j)
+          flash::mma_acc(dq[j], sa, fb[j >> 1][2 * (j & 1)],
+                         fb[j >> 1][2 * (j & 1) + 1]);
+      }
+    }
+    ring::cp_async_wait<0>();
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + g4 + 8 * h;
+    if (row >= mk.sq) continue;
+    bf16* dst = a.dq + (rb + row) * d;
+#pragma unroll
+    for (int j = 0; j < kNO; ++j)
+      flash::store_pair(dst, 8 * j + 2 * t4, d, dq[j][2 * h] * a.scale,
+                        dq[j][2 * h + 1] * a.scale);
+  }
+}
+
+// 4 warps a block in both passes; at d <= 64 query tiles of 64 rows in the
+// dk/dv ring, at 128 of 32 (the score tiles' registers beside dk and dv),
+// as in Kernel F. The dk/dv ring has 3 stages (F's 2 were 2% slower at
+// the T5 cross-attention, where a block walks only two query tiles), the
+// dq ring 2. 16-byte copies need every row start (a multiple of d past a
+// 16-byte aligned base) on a 16-byte boundary.
+template <int DMAX>
+cudaError_t launch_bf16(const Bf16Args& a, int b, const bf16* out,
+                        float* delta, cudaStream_t stream) {
+  constexpr int kDkvWarps = 4;
+  constexpr int kDkvStages = 3;
+  constexpr int kDqWarps = 4;
+  constexpr int kDqStages = 2;
+  constexpr int kBQ = DMAX <= 64 ? 64 : 32;
+  using KvC = DkvCfg<DMAX, kDkvWarps, kBQ, kDkvStages>;
+  using QC = DqCfg<DMAX, kDqWarps, kDqStages>;
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<unsigned long long>(p) % 16 == 0;
+  };
+  const bool vec = a.d % 8 == 0 && aligned(a.q) && aligned(a.k) &&
+                   aligned(a.v) && aligned(a.dout);
+  cudaError_t err = flash::launch_delta<KernelI>(
+      a.dout, out, delta, static_cast<long long>(b) * a.H * a.mask.sq, 1,
+      a.mask.sq, a.d, vec && aligned(out), stream);
+  if (err != cudaSuccess) return err;
+  auto dkv =
+      vec ? flash_bwd_dkv_mma<DMAX, kDkvWarps, kBQ, kDkvStages, true>
+          : flash_bwd_dkv_mma<DMAX, kDkvWarps, kBQ, kDkvStages, false>;
+  auto dq = vec ? flash_bwd_dq_mma<DMAX, kDqWarps, kDqStages, true>
+                : flash_bwd_dq_mma<DMAX, kDqWarps, kDqStages, false>;
+  err = apex::allow_smem(dkv, KvC::bytes);
+  if (err != cudaSuccess) return err;
+  err = apex::allow_smem(dq, QC::bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 dkv_grid(a.KVH, b, (a.mask.sk + KvC::kKeys - 1) / KvC::kKeys);
+  dkv<<<dkv_grid, KvC::kThreads, KvC::bytes, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 dq_grid(a.H, b, (a.mask.sq + QC::kRows - 1) / QC::kRows);
+  dq<<<dq_grid, QC::kThreads, QC::bytes, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -498,14 +924,30 @@ extern "C" int apex_flash_bwd(const void* q, const void* k, const void* v,
                               void* stream, int b, int h, int kvh, int sq,
                               int sk, int d, float scale, int causal,
                               int window, int dtype) {
-  const Args a{static_cast<const int*>(kv_lengths), b, h, kvh, sq, sk, d,
-               scale, causal, window};
+  const Mask mask = mask_4d(sq, sk, causal, window);
+  const int* kvl = static_cast<const int*>(kv_lengths);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  const cudaError_t err =
-      dtype == apex::kBF16
-          ? launch_d<__nv_bfloat16>(q, k, v, out, dout, l, dl, dq, dk, dv, a, st)
-          : launch_d<float>(q, k, v, out, dout, l, dl, dq, dk, dv, a, st);
+  if (d > 128) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  if (dtype == apex::kBF16) {
+    const Bf16Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                     static_cast<const bf16*>(v),
+                     static_cast<const bf16*>(dout), l, dl,
+                     static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+                     static_cast<bf16*>(dv), kvl, h, kvh, d, scale, mask};
+    const auto* o = static_cast<const bf16*>(out);
+    err = d <= 64 ? launch_bf16<64>(a, b, o, dl, st)
+                  : launch_bf16<128>(a, b, o, dl, st);
+  } else {
+    const Args a{kvl, b, h, kvh, d, scale, mask};
+    auto f = [](const void* p) { return static_cast<const float*>(p); };
+    auto w = [](void* p) { return static_cast<float*>(p); };
+    err = d <= 64 ? launch_f32<64>(f(q), f(k), f(v), f(out), f(dout), l, dl,
+                                   w(dq), w(dk), w(dv), a, st)
+                  : launch_f32<128>(f(q), f(k), f(v), f(out), f(dout), l, dl,
+                                    w(dq), w(dk), w(dv), a, st);
+  }
   return static_cast<int>(err);
 }

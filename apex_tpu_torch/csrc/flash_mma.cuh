@@ -3,11 +3,13 @@
 // packed_attention.cuh (the packed layout, RoPE's rounding, the dropout
 // hash, visibility): the copy of a bf16 tile into padded shared-memory
 // rows, RoPE applied to a landed tile in place, the test of which key
-// tiles a warp's rows see whole, in part or not at all, the online
+// tiles a warp's rows see whole, in part or not at all (under the
+// packed::Mask of `_mask_block`, with the sk - sq offset), the online
 // softmax step over the scores a warp holds in mma accumulators, p split
-// into bf16 hi + lo A fragments, and a factor rounded once to bf16 into A
-// fragments. Kernels E and F's bf16 paths (flash_packed_fwd.cu,
-// flash_packed_bwd.cu) use them; Kernels B and I can take the same.
+// into bf16 hi + lo A fragments, a factor rounded once to bf16 into A
+// fragments, and the backward's delta prep pass. The bf16 paths of
+// Kernels B and E (flash_fwd.cu, flash_packed_fwd.cu) and of Kernels I and
+// F (flash_bwd.cu, flash_packed_bwd.cu) use them.
 //
 // Fragment layout (PTX ISA, mma.m16n8k16, as mma_ring.cuh): a warp's
 // score tile is NS n8 tiles of 16 rows, acc[j][e] at row g + 8 (e >> 1),
@@ -24,6 +26,7 @@ namespace flash {
 
 using ring::bf16;
 using packed::kNeg;
+using packed::Mask;
 using packed::Opts;
 
 // Shared-memory row length of a tile of DMAX columns: 8 bf16 of padding
@@ -91,22 +94,28 @@ enum Cover : int { kNone = 0, kSome = 1, kAll = 2 };
 // What query rows [r0, r0 + rows) see of keys [c0, c0 + bk) under
 // packed::visible: kNone, no pair (the tile can be skipped: its scores
 // would all be masked, p 0 and the running max unchanged); kAll, every
-// pair of rows below s (no mask needed; rows from s on are never stored,
+// pair of rows below sq (no mask needed; rows from sq on are never stored,
 // or carry zero q and do); else kSome (mask each score).
-__device__ __forceinline__ Cover tile_cover(const Opts& o, int kvl, int r0,
+__device__ __forceinline__ Cover tile_cover(const Mask& m, int kvl, int r0,
                                             int c0, int bk, int rows = 16) {
-  const int r1 = min(r0 + rows, o.s) - 1;
+  const int r1 = min(r0 + rows, m.sq) - 1;
   if (r1 < r0) return kNone;
-  const int kv_end = min(o.s, kvl);
+  const int q_off = m.q_off;
+  const int kv_end = min(m.sk, kvl);
   // the first row sees the fewest keys at the top, the last the fewest at
   // the bottom; the union runs from the first row's bottom to the last's top
-  const int hi_first = o.causal ? min(kv_end, r0 + 1) : kv_end;
-  const int hi_last = o.causal ? min(kv_end, r1 + 1) : kv_end;
-  const int lo_first = o.window > 0 ? max(0, r0 - o.window + 1) : 0;
-  const int lo_last = o.window > 0 ? max(0, r1 - o.window + 1) : 0;
+  const int hi_first = m.causal ? min(kv_end, r0 + q_off + 1) : kv_end;
+  const int hi_last = m.causal ? min(kv_end, r1 + q_off + 1) : kv_end;
+  const int lo_first = m.window > 0 ? max(0, r0 + q_off - m.window + 1) : 0;
+  const int lo_last = m.window > 0 ? max(0, r1 + q_off - m.window + 1) : 0;
   if (c0 >= hi_last || c0 + bk <= lo_first) return kNone;
   if (c0 >= lo_last && c0 + bk <= hi_first) return kAll;
   return kSome;
+}
+
+__device__ __forceinline__ Cover tile_cover(const Opts& o, int kvl, int r0,
+                                            int c0, int bk, int rows = 16) {
+  return tile_cover(packed::mask_of(o), kvl, r0, c0, bk, rows);
 }
 
 // d += a b for one m16n8k16 tile, the tensor cores carrying the sum
@@ -220,6 +229,99 @@ __device__ __forceinline__ void bf16_fragment(const float (&v)[NS][4], int kk,
   a[1] = as_u32(__floats2bfloat162_rn(v[2 * kk][2], v[2 * kk][3]));
   a[2] = as_u32(__floats2bfloat162_rn(v[2 * kk + 1][0], v[2 * kk + 1][1]));
   a[3] = as_u32(__floats2bfloat162_rn(v[2 * kk + 1][2], v[2 * kk + 1][3]));
+}
+
+// 4 bytes from global to shared memory, or 4 zero bytes when !valid (src
+// must be a mapped address either way)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   ring::smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+// (x, y) into columns col, col + 1 of a bf16 row of d columns, rounded
+// once; a pair store where both fit and d is even (every row start even)
+__device__ __forceinline__ void store_pair(bf16* row, int col, int d,
+                                           float x, float y) {
+  if (col + 1 < d && (d & 1) == 0) {
+    *reinterpret_cast<__nv_bfloat162*>(row + col) =
+        __floats2bfloat162_rn(x, y);
+  } else {
+    if (col < d) row[col] = __float2bfloat16(x);
+    if (col + 1 < d) row[col + 1] = __float2bfloat16(y);
+  }
+}
+
+// The backward's delta prep: delta = rowsum(do * o) in fp32 over the
+// `rows` rows of d columns of do and o, row i stored at delta[(i % inner)
+// * s + i / inner] (the packed layout [s, b, H, d] puts its b H rows of
+// one position side by side, inner = b H, and delta is [b, H, s]; the 4D
+// layout [b, H, s, d] already orders its rows as delta, inner = 1). CH >
+// 0: CH threads a row, 8 columns each by 16-byte loads (d == 8 CH, rows
+// 16-byte aligned), summed across the CH lanes; CH == 0: one warp a row,
+// element by element. OWNER tags the kernel that runs the pass (a name
+// in a profile; each source instantiates its own).
+constexpr int kDeltaThreads = 256;
+
+template <class OWNER, int CH>
+__global__ void __launch_bounds__(kDeltaThreads)
+delta_kernel(const bf16* __restrict__ dout, const bf16* __restrict__ out,
+             float* __restrict__ delta, long long rows, int inner, int s,
+             int d) {
+  constexpr int kLanes = CH > 0 ? CH : 32;  // threads a row
+  const long long i = static_cast<long long>(blockIdx.x) *
+                          (kDeltaThreads / kLanes) + threadIdx.x / kLanes;
+  const int lane = threadIdx.x % kLanes;
+  float part = 0.f;
+  if (i < rows) {
+    if (CH > 0) {
+      const uint4 x = *reinterpret_cast<const uint4*>(dout + i * d + 8 * lane);
+      const uint4 y = *reinterpret_cast<const uint4*>(out + i * d + 8 * lane);
+      const unsigned xs[4] = {x.x, x.y, x.z, x.w};
+      const unsigned ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 a = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&xs[e]));
+        const float2 c = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&ys[e]));
+        part += a.x * c.x;
+        part += a.y * c.y;
+      }
+    } else {
+      for (int c = lane; c < d; c += 32)
+        part += __bfloat162float(dout[i * d + c]) *
+                __bfloat162float(out[i * d + c]);
+    }
+  }
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1)
+    part += __shfl_xor_sync(0xffffffffu, part, off);
+  if (i < rows && lane == 0)
+    delta[(i % inner) * s + i / inner] = part;
+}
+
+// Launches delta_kernel, 16-byte loads where d is 64 or 128 and every
+// row of do and o starts on a 16-byte boundary (`vec`).
+template <class OWNER>
+cudaError_t launch_delta(const bf16* dout, const bf16* out, float* delta,
+                         long long rows, int inner, int s, int d, bool vec,
+                         cudaStream_t stream) {
+  auto grid = [&](int lanes) {
+    const int per_block = kDeltaThreads / lanes;
+    return static_cast<unsigned>((rows + per_block - 1) / per_block);
+  };
+  if (vec && d == 64)
+    delta_kernel<OWNER, 8><<<grid(8), kDeltaThreads, 0, stream>>>(
+        dout, out, delta, rows, inner, s, d);
+  else if (vec && d == 128)
+    delta_kernel<OWNER, 16><<<grid(16), kDeltaThreads, 0, stream>>>(
+        dout, out, delta, rows, inner, s, d);
+  else
+    delta_kernel<OWNER, 0><<<grid(32), kDeltaThreads, 0, stream>>>(
+        dout, out, delta, rows, inner, s, d);
+  return cudaGetLastError();
 }
 
 }  // namespace flash

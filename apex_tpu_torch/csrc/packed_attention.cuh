@@ -1,8 +1,9 @@
-// Shared pieces of the packed-QKV attention kernels (Kernels E and F):
-// the packed layout's addressing, in-kernel RoPE with the JAX package's
-// rounding points, the dropout hash, and the visible key range of a query
-// tile. Semantics follow apex_tpu/ops/attention.py `_rope_block` (:817),
-// `_hash_keep` (:784) and `_mask_block` (:77) with sq == sk == s.
+// Shared pieces of the flash attention kernels: the mask of
+// apex_tpu/ops/attention.py `_mask_block` (:77) and the key and query
+// tiles it leaves visible (Kernels B, E, F and I), and, for the
+// packed-QKV kernels (E and F), the packed layout's addressing, in-kernel
+// RoPE with the JAX package's rounding points and the dropout hash
+// (`_rope_block` :817, `_hash_keep` :784).
 #pragma once
 
 #include "common.cuh"
@@ -112,37 +113,85 @@ __device__ __forceinline__ unsigned combo(int bb, int h) {
   return static_cast<unsigned>(bb) * 4096u + static_cast<unsigned>(h);
 }
 
-__device__ __forceinline__ bool visible(const Opts& o, int kvl, int row,
+// `_mask_block` over sq query rows and sk keys: query row r sits at
+// position r + q_off, q_off = sk - sq (a query block that ends the key
+// sequence), and sees key c when c < sk, c < kvl (the batch row's
+// kv_length), r < sq, c <= r + q_off (causal) and c > r + q_off - window
+// (window > 0). The packed kernels have sq == sk == s and q_off a literal
+// 0 (mask_of), which the compiler folds away; with sq > sk under causal,
+// the first sq - sk rows see no key.
+struct Mask {
+  int sq, sk;
+  int q_off;   // sk - sq
+  int causal;
+  int window;  // 0 = no sliding window
+};
+
+__host__ __device__ __forceinline__ Mask mask_4d(int sq, int sk, int causal,
+                                                 int window) {
+  return Mask{sq, sk, sk - sq, causal, window};
+}
+
+__device__ __forceinline__ Mask mask_of(const Opts& o) {
+  return Mask{o.s, o.s, 0, o.causal, o.window};
+}
+
+__device__ __forceinline__ bool visible(const Mask& m, int kvl, int row,
                                         int col) {
-  bool ok = col < o.s && col < kvl && row < o.s;
-  if (o.causal) ok = ok && col <= row;
-  if (o.window > 0) ok = ok && col > row - o.window;
+  const int pos = row + m.q_off;
+  bool ok = col < m.sk && col < kvl && row < m.sq;
+  if (m.causal) ok = ok && col <= pos;
+  if (m.window > 0) ok = ok && col > pos - m.window;
   return ok;
 }
 
-// Key tiles [first, last] holding a visible column for query rows
-// [q_start, q_start + rows); last < first when there is none.
-__device__ __forceinline__ void key_tiles(const Opts& o, int kvl, int q_start,
-                                          int* first, int* last,
-                                          int rows = kBQ) {
-  const int last_row = min(q_start + rows, o.s) - 1;
-  int k_end = min(o.s, kvl);
-  if (o.causal) k_end = min(k_end, last_row + 1);
-  const int k_begin = o.window > 0 ? max(0, q_start - o.window + 1) : 0;
+__device__ __forceinline__ bool visible(const Opts& o, int kvl, int row,
+                                        int col) {
+  return visible(mask_of(o), kvl, row, col);
+}
+
+// Key tiles [first, last] of kBK keys holding a visible column for query
+// rows [q_start, q_start + rows); last < first when there is none.
+__device__ __forceinline__ void key_tiles(const Mask& m, int kvl,
+                                          int q_start, int* first,
+                                          int* last, int rows = kBQ) {
+  const int q_off = m.q_off;
+  const int last_row = min(q_start + rows, m.sq) - 1;
+  int k_end = min(m.sk, kvl);
+  if (m.causal) k_end = min(k_end, last_row + q_off + 1);
+  const int k_begin =
+      m.window > 0 ? max(0, q_start + q_off - m.window + 1) : 0;
   *first = k_begin / kBK;
   *last = k_end > k_begin ? (k_end - 1) / kBK : *first - 1;
 }
 
-// Query tiles [first, last] holding a row that sees a key of
-// [k_start, k_start + kBK); last < first when there is none.
-__device__ __forceinline__ void query_tiles(const Opts& o, int kvl,
-                                            int k_start, int* first,
-                                            int* last) {
-  const int q_begin = o.causal ? k_start : 0;
-  int q_end = o.s;  // exclusive
-  if (o.window > 0) q_end = min(q_end, k_start + kBK - 1 + o.window);
-  *first = q_begin / kBQ;
-  *last = (k_start < kvl && q_end > q_begin) ? (q_end - 1) / kBQ : *first - 1;
+__device__ __forceinline__ void key_tiles(const Opts& o, int kvl,
+                                          int q_start, int* first,
+                                          int* last, int rows = kBQ) {
+  key_tiles(mask_of(o), kvl, q_start, first, last, rows);
+}
+
+// Query tiles [first, last] of bq rows holding a row that sees a key of
+// [k0, k0 + keys); last < first when there is none.
+__device__ __forceinline__ void query_tiles(const Mask& m, int kvl, int k0,
+                                            int* first, int* last,
+                                            int keys = kBK, int bq = kBQ) {
+  const int q_off = m.q_off;
+  const int k1 = min(k0 + keys, min(m.sk, kvl));  // keys any row can see
+  // the first row that sees key k0; clamped only where q_off > 0, so that
+  // the packed kernels' literal q_off = 0 leaves k0 as it is
+  const int q_begin =
+      m.causal ? (q_off > 0 ? max(0, k0 - q_off) : k0 - q_off) : 0;
+  int q_end = m.sq;  // exclusive
+  if (m.window > 0) q_end = min(q_end, k1 - 1 - q_off + m.window);
+  *first = q_begin / bq;
+  *last = (k0 < k1 && q_end > q_begin) ? (q_end - 1) / bq : *first - 1;
+}
+
+__device__ __forceinline__ void query_tiles(const Opts& o, int kvl, int k0,
+                                            int* first, int* last,
+                                            int keys = kBK, int bq = kBQ) {
+  query_tiles(mask_of(o), kvl, k0, first, last, keys, bq);
 }
 
 }  // namespace packed

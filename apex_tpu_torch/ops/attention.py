@@ -178,8 +178,9 @@ def flash_bwd_rounding_slack(q, k, v, do, o, lse, kv_lengths, scale: float,
 
 def flash_bwd_cuda(q, k, v, do, o, lse, kv_lengths, scale: float,
                    causal: bool, window: Optional[int] = None):
-    """Launch Kernel I (dq pass, then dk/dv pass); returns
-    ``(dq, dk, dv)`` in the inputs' dtype."""
+    """Launch Kernel I (bf16: delta prep, dk/dv pass, dq pass; f32: dq
+    pass, then dk/dv pass); returns ``(dq, dk, dv)`` in the inputs'
+    dtype."""
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     if k.dtype != q.dtype or v.dtype != q.dtype or o.dtype != q.dtype:

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the packed-QKV flash forward and backward (Kernels E and F) on one
-CUDA card.
+"""Time the flash attention kernels on one CUDA card: the packed-QKV
+forward and backward (Kernels E and F) and the 4D forward and backward
+(Kernels B and I).
 
 Usage (from a checkout's root, on a machine with one GPU)::
 
@@ -30,8 +31,21 @@ case is first held to the plain backward (f32 atol 1e-4; bf16 within 1 ulp
 plus ``flash_packed_bwd_rounding_slack`` and at most 0.1% of the elements
 past 1 ulp, or 1 ulp of its own plain version in a checkout older than the
 slack; two runs bitwise equal), its dqkv digest is printed (bf16 and f32),
-and in bf16 its passes are split by the profiler. Times are medians of
-CUDA-event intervals (``conv_timing.median_ms``).
+and in bf16 its passes are split by the profiler.
+``flash_fwd_cuda`` and ``flash_bwd_cuda`` (Kernels B and I) are timed the
+same way at 12 heads of 64 over ``[b, h, s, d]``: the serving prefill's
+two largest buckets (GPT-2 124M, b 1, s 512 and 768, causal) and the
+T5-base cross-attention of ``[t5_train]`` (q [16, 12, 114, 64], k and v
+[16, 12, 512, 64], not causal, ``chip_smoke.py`` ``phase_flash_bwd``'s
+seeded kv_lengths), in bf16 beside SDPA and SDPA's backward (a bool key
+mask for the lengths), and in f32 at s 768 and the T5 shape for the f32
+kernels' digests. B is held to its plain version run in f32 (o within 1
+bf16 ulp, lse within 1e-4), I to its plain version on B's o and lse
+(bf16 within 1 ulp plus ``flash_bwd_rounding_slack``, at most 0.1% past
+1 ulp; f32 atol 1e-4), both bitwise repeatable; their bounds count the
+query rows that see a key and the K/V rows that some row sees, as
+``chip_smoke.py`` does. Times are medians of CUDA-event intervals
+(``conv_timing.median_ms``).
 Prints one JSON line per measurement and, with ``--out``, appends them to
 FILE. With ``--train`` it runs the checkout's ``chip_smoke.py`` phase
 ``[train]`` (GPT-2, the default) or ``[t5_train]`` instead, so that
@@ -63,6 +77,14 @@ CASES = [
     ("gpt2_train_f32", 8, 1024, True, None, torch.float32),
 ]
 HEADS, HEAD_DIM = 12, 64
+#: (name, b, h, kvh, sq, sk, causal, kv_lengths, dtype) of Kernels B and I
+FLASH_CASES = [
+    ("serve_s512", 1, 12, 12, 512, 512, True, None, torch.bfloat16),
+    ("serve_s768", 1, 12, 12, 768, 768, True, None, torch.bfloat16),
+    ("t5_cross", 16, 12, 12, 114, 512, False, "t5", torch.bfloat16),
+    ("serve_s768_f32", 1, 12, 12, 768, 768, True, None, torch.float32),
+    ("t5_cross_f32", 16, 12, 12, 114, 512, False, "t5", torch.float32),
+]
 
 
 def time_case(att, name, b, s, causal, kvl, dtype, gen, emit) -> None:
@@ -152,6 +174,92 @@ def time_bwd(att, name, b, s, causal, kvl, dtype, qkv, o, lse, args, sdpa,
          split=device_split(run) if dtype == torch.bfloat16 else None, **err)
 
 
+def time_flash(att, name, b, h, kvh, sq, sk, causal, kvl, dtype, gen,
+               emit) -> None:
+    """Kernels B and I at one case (see the module's docstring)."""
+    from chip_smoke import (_valid_lengths, _visible_pairs,
+                            _visible_rows_keys, bound_ms)
+    d = HEAD_DIM
+    gen.manual_seed(11)  # inputs that do not depend on the cases run before
+    if kvl == "t5":
+        kvl = _valid_lengths(b, sk, 11).tolist()  # phase_flash_bwd's
+    q = torch.randn(b, h, sq, d, device="cuda", generator=gen).to(dtype)
+    k, v = (torch.randn(b, kvh, sk, d, device="cuda", generator=gen)
+            .to(dtype) for _ in range(2))
+    kvl_t = None if kvl is None else torch.tensor(kvl, device="cuda")
+    args = (kvl_t, 1.0 / math.sqrt(d), causal, None)
+    run = lambda: att.flash_fwd_cuda(q, k, v, *args)  # noqa: E731
+    (o, lse), (o2, lse2) = run(), run()
+    ro, rlse = att.flash_fwd_plain(q.float(), k.float(), v.float(), *args)
+    bf16 = dtype == torch.bfloat16
+    err = dict(o_ulps=ulps(o, ro.to(dtype)) if bf16 else 0.0,
+               o_abs=float((o.float() - ro).abs().max()),
+               lse_abs=float((lse - rlse).abs().max()),
+               bitwise_repeat=torch.equal(o, o2) and torch.equal(lse, lse2))
+    ok = (err["lse_abs"] <= 1e-4 and err["bitwise_repeat"]
+          and (err["o_ulps"] <= 1.0 if bf16 else err["o_abs"] <= 1e-4))
+    lengths = [sk] * b if kvl is None else kvl
+    pairs = sum(_visible_pairs(sq, sk, causal, None, n) for n in lengths)
+    rows, keys = (sum(t) for t in zip(*(
+        _visible_rows_keys(sq, sk, causal, None, n) for n in lengths)))
+    esz = q.element_size()
+    # reads: q rows that see a key, K/V rows some row sees, kv_lengths;
+    # writes: o and lse whole
+    n_bytes = (rows * h * d + 2 * keys * kvh * d + o.numel()) * esz + \
+        lse.numel() * 4 + (0 if kvl is None else 4 * b)
+    flops = 4.0 * d * h * pairs
+    mask = (None if kvl_t is None else
+            (torch.arange(sk, device="cuda")[None, :]
+             < kvl_t[:, None])[:, None, None, :])
+    ms = median_ms(run, iters=30)
+    emit(kernel="flash_fwd", case=name, b=b, h=h, kvh=kvh, sq=sq, sk=sk,
+         causal=causal, kv_lengths=kvl, dtype=str(dtype)[6:], ms=ms,
+         sdpa_ms=median_ms(lambda: F.scaled_dot_product_attention(
+             q, k, v, attn_mask=mask, is_causal=causal), iters=30),
+         bound_ms=bound_ms(n_bytes, flops, dtype)[0],
+         tflops=flops / ms / 1e9, ok=ok, sha256=digest([o, lse]), **err)
+    del ro, rlse, o2, lse2
+
+    do = torch.randn(b, h, sq, d, device="cuda", generator=gen).to(dtype)
+    run = lambda: att.flash_bwd_cuda(q, k, v, do, o, lse, *args)  # noqa
+    got, again = run(), run()
+    want = att.flash_bwd_plain(q, k, v, do, o, lse, *args)
+    err = dict(bitwise_repeat=all(torch.equal(a, g)
+                                  for a, g in zip(again, got)),
+               abs=max(float((g.float() - w.float()).abs().max())
+                       for g, w in zip(got, want)))
+    ok = err["bitwise_repeat"]
+    if bf16:
+        from chip_smoke import check_rounded_factors
+        slack = att.flash_bwd_rounding_slack(q, k, v, do, o, lse, *args)
+        checks = [check_rounded_factors(g, w, sl)
+                  for g, w, sl in zip(got, want, slack)]
+        err["ulps"] = max(c[1] for c in checks)
+        err["share_past_1_ulp"] = max(c[2] for c in checks)
+        ok = ok and all(c[4] for c in checks)
+        del slack
+    else:
+        ok = ok and err["abs"] <= 1e-4
+    del want, again
+    # reads: q, o, do and lse of the rows that see a key, K/V rows some
+    # row sees, kv_lengths; writes: dq, dk and dv whole
+    n_bytes = (3 * rows * h * d + 2 * keys * kvh * d + q.numel()
+               + 2 * k.numel()) * esz + rows * h * 4 + \
+        (0 if kvl is None else 4 * b)
+    flops = 10.0 * d * h * pairs
+    q4, k4, v4 = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out4 = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                          is_causal=causal)
+    ms = median_ms(run, iters=30)
+    emit(kernel="flash_bwd", case=name, b=b, h=h, kvh=kvh, sq=sq, sk=sk,
+         causal=causal, kv_lengths=kvl, dtype=str(dtype)[6:], ms=ms,
+         sdpa_bwd_ms=median_ms(lambda: torch.autograd.grad(
+             out4, (q4, k4, v4), do, retain_graph=True), iters=30),
+         bound_ms=bound_ms(n_bytes, flops, dtype)[0],
+         tflops=flops / ms / 1e9, ok=ok, sha256=digest(got),
+         split=device_split(run) if bf16 else None, **err)
+
+
 def time_train(phase, emit) -> None:
     """``chip_smoke.py``'s ``[train]`` or ``[t5_train]`` phase of the
     ``--root`` checkout (2 warm-up and 8 timed steps on one seeded batch,
@@ -204,11 +312,12 @@ def main() -> int:
         time_train(args.train, emit)
         return 0
     gen = torch.Generator(device="cuda").manual_seed(9)
-    for case in CASES:
-        if args.cases and case[0] not in args.cases.split(","):
-            continue
-        time_case(att, *case, gen, emit)
-        torch.cuda.empty_cache()
+    for cases, time_fn in ((CASES, time_case), (FLASH_CASES, time_flash)):
+        for case in cases:
+            if args.cases and case[0] not in args.cases.split(","):
+                continue
+            time_fn(att, *case, gen, emit)
+            torch.cuda.empty_cache()
     return 0 if all(r.get("ok", True) for r in rows) else 1
 
 

@@ -910,7 +910,8 @@ def phase_flash_bwd(timer: Timer) -> dict:
     rounded factor (``flash_bwd_rounding_slack``) and at most 0.1% of the
     elements past 1 ulp; two runs bitwise equal. Kernel B is checked at
     each shape on the way (its o within 1 ulp, lse within 1e-4). The T5
-    cross-attention bf16 case is timed."""
+    cross-attention bf16 case is timed, B's forward beside SDPA and I
+    beside SDPA's backward, each with its bound."""
     from apex_tpu_torch.ops.attention import (flash_bwd_cuda,
                                               flash_bwd_plain,
                                               flash_bwd_rounding_slack,
@@ -922,8 +923,6 @@ def phase_flash_bwd(timer: Timer) -> dict:
         d = 64
         if kvl == "t5":
             kvl = _valid_lengths(b, sk, 11).tolist()
-        if kvl == "enc_lengths":
-            kvl = _valid_lengths(b, s, 14).tolist()   # _t5_batch's seed 13
         kvl_t = None if kvl is None else torch.tensor(kvl, device="cuda")
         scale = 1.0 / math.sqrt(d)
         for dtype in (torch.float32, torch.bfloat16):
@@ -989,6 +988,12 @@ def phase_flash_bwd(timer: Timer) -> dict:
                            + q.numel() + 2 * k.numel()) * esz \
                     + rows * h * 4 + b * 4
                 bms, by = bound_ms(n_bytes, 10.0 * d * h * pairs, dtype)
+                # Kernel B: reads q of the rows that see a key, K and V of
+                # the keys some row sees, kv_lengths; writes o and lse
+                b_bms, b_by = bound_ms(
+                    (rows * h * d + 2 * keys * kvh * d + o.numel()) * esz
+                    + lse.numel() * 4 + b * 4, 4.0 * d * h * pairs, dtype)
+                b_ms = timer(lambda: flash_fwd_cuda(q, k, v, *args))
                 ms = timer(lambda: flash_bwd_cuda(q, k, v, do, o, lse, *args))
                 plain = timer(lambda: flash_bwd_plain(q, k, v, do, o, lse,
                                                       *args),
@@ -1001,9 +1006,14 @@ def phase_flash_bwd(timer: Timer) -> dict:
                                                       attn_mask=keep)
                 lib = timer(lambda: torch.autograd.grad(
                     out4, (q4, k4, v4), do, retain_graph=True))
+                b_lib = timer(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=keep))
                 fields = dict(ms=f"{ms:.5f}", plain_ms=f"{plain:.5f}",
                               library_ms=f"{lib:.5f}", bound_ms=f"{bms:.5f}",
-                              bound_by=by)
+                              bound_by=by, kernel_b_ms=f"{b_ms:.5f}",
+                              kernel_b_library_ms=f"{b_lib:.5f}",
+                              kernel_b_bound_ms=f"{b_bms:.5f}",
+                              kernel_b_bound_by=b_by)
                 record = dict(name="flash_bwd", route="cuda",
                               source="apex_tpu_torch/csrc/flash_bwd.cu",
                               replaces="apex_tpu/ops/attention.py:669",

@@ -32,6 +32,14 @@ GQA (``qpg = 2``), RoPE over half the head dim, a sliding window,
 bit for bit, and the plain backward against autograd of the plain
 forward.
 
+The bf16 rounding plans of the Hopper kernels are emulated on the CPU
+and held to the plain versions: the forwards' (Kernels E and B: an online
+softmax over 64-key tiles, p split into bf16 hi + lo) within 1 ulp, the
+backwards' (Kernels F and I: ds and p rounded to bf16 once per tile) within
+1 ulp plus the rounding slack, on one GPT-2 head and, in the 4D layout,
+one head of the T5 cross-attention with a 0 length, causal sq > sk, a
+window with the sk - sq offset, and GQA 12 over 4.
+
 Tolerances: f32 forward atol 2e-5 — both compute softmax in fp32; the
 flash kernels sum in another order than one softmax over the row;
 f32 dqkv atol 1e-4 (the same sums, through the softmax Jacobian).
@@ -49,6 +57,7 @@ from apex_tpu.ops import attention as jatt
 from apex_tpu.ops import flash_attention as jax_flash
 from apex_tpu_torch.ops import LAUNCHES, flash_attention
 from apex_tpu_torch.ops.attention import (
+    _visible,
     drop_combo,
     flash_attention_packed,
     flash_bwd_factors,
@@ -602,37 +611,26 @@ def test_packed_gate_and_errors():
 
 
 # ---------------------------------------------------------------------------
-# Kernel E's bf16 rounding plan, emulated on the CPU
+# Kernels E's and B's bf16 rounding plan, emulated on the CPU
 # ---------------------------------------------------------------------------
 
-def _kernel_e_emulation(qkv, kv_lengths, seed, rate, scale, causal,
-                        split=True, tile=64):
-    """Kernel E's bf16 arithmetic for one head (groups 1, qpg 1): an online
-    softmax over ``tile``-key tiles with a running max, l from the
-    undropped p, the dropped fp32 p split into bf16 hi + lo (or, with
-    ``split=False``, rounded once to bf16) before its products with v,
-    fp32 sums, and one round of o to bf16 at the end. Returns ``(o [s, b,
-    d], lse [b, 1, s])`` as ``flash_packed_fwd_plain`` lays them out."""
-    s, b, w = qkv.shape
-    d = w // 3
-    t = qkv.reshape(s, b, 3, d).permute(1, 2, 0, 3).float()
-    q, k, v = t[:, 0], t[:, 1], t[:, 2]                     # [b, s, d]
-    row = torch.arange(s)[:, None]
-    col = torch.arange(s)[None, :]
-    kvl = (torch.full((b,), s) if kv_lengths is None
-           else torch.as_tensor(kv_lengths))
-    valid = col[None] < kvl[:, None, None]
-    if causal:
-        valid = valid & (col <= row)[None]
-    keep = None
-    if rate > 0.0:
-        combo = drop_combo(torch.arange(b)[:, None, None, None],
-                           torch.zeros(1, 1, 1, 1, dtype=torch.long))
-        keep = hash_keep(seed, combo, (b, 1, s, s), rate)[:, 0]
-    m = torch.full((b, s, 1), -1e30)
-    l = torch.zeros(b, s, 1)
-    acc = torch.zeros(b, s, d)
-    for c0 in range(0, s, tile):
+def _fwd_emulation(q, k, v, valid, scale, keep=None, rate=0.0, split=True,
+                   tile=64):
+    """The bf16 arithmetic of Kernels E and B, one (batch, head) pair per
+    row of the leading dimension: q ``[n, sq, d]``, k and v ``[n, sk, d]``,
+    ``valid`` ``[n or 1, sq, sk]`` (the mask, with the sk - sq offset),
+    ``keep`` the dropout keep mask or None. An online softmax over
+    ``tile``-key tiles with a running max, l from the undropped p, the
+    dropped fp32 p split into bf16 hi + lo (or, with ``split=False``,
+    rounded once to bf16) before its products with v, fp32 sums, and one
+    round of o to bf16 at the end. Returns ``(o [n, sq, d], lse [n, sq])``;
+    a row that sees no key gives o = 0 and lse = 1e30."""
+    q, k, v = q.float(), k.float(), v.float()
+    n, sq, d = q.shape
+    m = torch.full((n, sq, 1), -1e30)
+    l = torch.zeros(n, sq, 1)
+    acc = torch.zeros(n, sq, d)
+    for c0 in range(0, k.shape[1], tile):
         sl = slice(c0, c0 + tile)
         sc = torch.einsum("bqd,bkd->bqk", q, k[:, sl]) * scale
         sc = torch.where(valid[:, :, sl], sc, torch.tensor(-1e30))
@@ -651,7 +649,53 @@ def _kernel_e_emulation(qkv, kv_lengths, seed, rate, scale, causal,
         m = m_new
     o = acc * torch.where(l > 0, 1.0 / l, torch.zeros(()))
     lse = torch.where(l > 0, m + torch.log(l), torch.tensor(1e30))
-    return (o.bfloat16().permute(1, 0, 2), lse[..., 0][:, None])
+    return o.bfloat16(), lse[..., 0]
+
+
+def _packed_keep(seed, rate, b, s):
+    """The dropout keep mask ``[b, s, s]`` of head 0 of a one-head packed
+    projection, or None without dropout."""
+    if rate == 0.0:
+        return None
+    combo = drop_combo(torch.arange(b)[:, None, None, None],
+                       torch.zeros(1, 1, 1, 1, dtype=torch.long))
+    return hash_keep(seed, combo, (b, 1, s, s), rate)[:, 0]
+
+
+def _kernel_e_emulation(qkv, kv_lengths, seed, rate, scale, causal,
+                        split=True, tile=64):
+    """Kernel E's bf16 arithmetic (:func:`_fwd_emulation`) for one head
+    (groups 1, qpg 1). Returns ``(o [s, b, d], lse [b, 1, s])`` as
+    ``flash_packed_fwd_plain`` lays them out."""
+    s, b, w = qkv.shape
+    t = qkv.reshape(s, b, 3, w // 3).permute(1, 2, 0, 3)
+    kvl = None if kv_lengths is None else torch.as_tensor(kv_lengths)
+    valid = _visible(s, s, kvl, causal, None, "cpu")[:, 0]
+    o, lse = _fwd_emulation(t[:, 0], t[:, 1], t[:, 2], valid, scale,
+                            _packed_keep(seed, rate, b, s), rate, split, tile)
+    return o.permute(1, 0, 2), lse[:, None]
+
+
+def _heads_4d(q, k, kv_lengths, causal, window):
+    """``[b, h, sq, d]`` q and ``[b, kvh, sk, d]`` k as the one-head rows
+    of the emulations: ``(n, k and v repeat, valid [b h, sq, sk])``."""
+    b, h, sq, _ = q.shape
+    sk = k.shape[2]
+    valid = _visible(sq, sk, kv_lengths, causal, window, "cpu")
+    valid = valid.expand(b, h, sq, sk).reshape(b * h, sq, sk)
+    group = h // k.shape[1]
+    return b * h, (lambda t: t.repeat_interleave(group, dim=1).reshape(
+        b * h, sk, -1)), valid
+
+
+def _kernel_b_emulation(q, k, v, kv_lengths, scale, causal, window):
+    """Kernel B's bf16 arithmetic (:func:`_fwd_emulation`) over
+    ``[b, h, s, d]`` with GQA. Returns ``(o [b, h, sq, d], lse [b, h,
+    sq])``."""
+    b, h, sq, d = q.shape
+    n, kv, valid = _heads_4d(q, k, kv_lengths, causal, window)
+    o, lse = _fwd_emulation(q.reshape(n, sq, d), kv(k), kv(v), valid, scale)
+    return o.reshape(b, h, sq, d), lse.reshape(b, h, sq)
 
 
 def _within_one_bf16_ulp(got, want) -> bool:
@@ -710,40 +754,29 @@ def test_kernel_e_single_bf16_p_misses_one_ulp():
 
 
 # ---------------------------------------------------------------------------
-# Kernel F's bf16 rounding plan, emulated on the CPU
+# Kernels F's and I's bf16 rounding plan, emulated on the CPU
 # ---------------------------------------------------------------------------
 
-def _kernel_f_emulation(qkv, do, o, lse, seed, rate, scale, causal,
-                        tile=64):
-    """Kernel F's bf16 arithmetic for one head (groups 1, qpg 1), as its
-    two passes order it: delta = rowsum(do * o); the dq pass walks 64-key
-    tiles, the dk/dv pass 64-query tiles, each recomputing the tile's fp32
-    scores and dp, p = 2^((scale s - lse) log2 e), the dropout keep mask on
-    dp and p, ds = p (dp - delta), then ds and the dropped p rounded to
-    bf16 per tile before their products, which are summed over tiles in
-    fp32; scale and one rounding to bf16 at the end. Returns dqkv in the
-    packed layout."""
-    s, b, w = qkv.shape
-    d = w // 3
-    t = qkv.reshape(s, b, 3, d).permute(1, 2, 0, 3).float()
-    q, k, v = t[:, 0], t[:, 1], t[:, 2]                     # [b, s, d]
-    dof = do.reshape(s, b, d).permute(1, 0, 2).float()
-    delta = (dof * o.reshape(s, b, d).permute(1, 0, 2).float()).sum(-1)
-    lse = lse[:, 0]                                         # [b, s]
-    valid = torch.ones(s, s, dtype=torch.bool)
-    if causal:
-        valid = torch.arange(s)[None, :] <= torch.arange(s)[:, None]
-    keep = None
-    if rate > 0.0:
-        combo = drop_combo(torch.arange(b)[:, None, None, None],
-                           torch.zeros(1, 1, 1, 1, dtype=torch.long))
-        keep = hash_keep(seed, combo, (b, 1, s, s), rate)[:, 0]
+def _bwd_emulation(q, k, v, do, o, lse, valid, scale, keep=None, rate=0.0,
+                   tile=64):
+    """The bf16 arithmetic of Kernels F and I, as their passes order it,
+    one (batch, head) pair per row of the leading dimension (q, do, o
+    ``[n, sq, d]``, k, v ``[n, sk, d]``, lse ``[n, sq]``, ``valid`` ``[n or
+    1, sq, sk]``): delta = rowsum(do * o); the dq pass walks ``tile``-key
+    tiles, the dk/dv pass ``tile``-query tiles, each recomputing the tile's
+    fp32 scores and dp, p = 2^((scale s - lse) log2 e) (0 where masked),
+    the dropout keep mask on dp and p, ds = p (dp - delta), then ds and the
+    dropped p rounded to bf16 per tile before their products, which are
+    summed over tiles in fp32. Returns fp32 ``(scale dq, scale dk, dv)``
+    before the one rounding."""
+    q, k, v, dof = (t.float() for t in (q, k, v, do))
+    delta = (dof * o.float()).sum(-1)
     log2e = 1.4426950408889634
 
     def factors(rows, cols):
         """p (dropped) and ds of the tile rows x cols, rounded to bf16."""
         x = torch.einsum("bqd,bkd->bqk", q[:, rows], k[:, cols]) * scale
-        x = torch.where(valid[rows, cols], x - lse[:, rows, None],
+        x = torch.where(valid[:, rows, cols], x - lse[:, rows, None],
                         torch.tensor(-1e30))
         p = torch.exp2(x * log2e)
         dp = torch.einsum("bqd,bkd->bqk", dof[:, rows], v[:, cols])
@@ -755,18 +788,53 @@ def _kernel_f_emulation(qkv, do, o, lse, seed, rate, scale, causal,
         ds = p * (dp - delta[:, rows, None])
         return pd.bfloat16().float(), ds.bfloat16().float()
 
-    dq, dk, dv = (torch.zeros(b, s, d) for _ in range(3))
-    for c0 in range(0, s, tile):                            # the dq pass
+    sq, sk = q.shape[1], k.shape[1]
+    dq = torch.zeros_like(q)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for c0 in range(0, sk, tile):                           # the dq pass
         cols = slice(c0, c0 + tile)
-        _, ds = factors(slice(0, s), cols)
+        _, ds = factors(slice(0, sq), cols)
         dq = dq + ds @ k[:, cols]
-    for r0 in range(0, s, tile):                            # the dk/dv pass
+    for r0 in range(0, sq, tile):                           # the dk/dv pass
         rows = slice(r0, r0 + tile)
-        pd, ds = factors(rows, slice(0, s))
+        pd, ds = factors(rows, slice(0, sk))
         dk = dk + ds.transpose(1, 2) @ q[:, rows]
         dv = dv + pd.transpose(1, 2) @ dof[:, rows]
-    out = torch.stack([dq * scale, dk * scale, dv], dim=2)  # [b, s, 3, d]
+    return dq * scale, dk * scale, dv
+
+
+def _kernel_f_emulation(qkv, do, o, lse, seed, rate, scale, causal,
+                        tile=64):
+    """Kernel F's bf16 arithmetic (:func:`_bwd_emulation`) for one head
+    (groups 1, qpg 1). Returns dqkv in the packed layout, rounded to
+    bf16."""
+    s, b, w = qkv.shape
+    d = w // 3
+    t = qkv.reshape(s, b, 3, d).permute(1, 2, 0, 3)
+    rows = lambda x: x.reshape(s, b, d).permute(1, 0, 2)  # noqa: E731
+    valid = _visible(s, s, None, causal, None, "cpu")[:, 0]
+    grads = _bwd_emulation(t[:, 0], t[:, 1], t[:, 2], rows(do), rows(o),
+                           lse[:, 0], valid, scale,
+                           _packed_keep(seed, rate, b, s), rate, tile)
+    out = torch.stack(grads, dim=2)                         # [b, s, 3, d]
     return out.permute(1, 0, 2, 3).reshape(s, b, w).bfloat16()
+
+
+def _kernel_i_emulation(q, k, v, do, o, lse, kv_lengths, scale, causal,
+                        window):
+    """Kernel I's bf16 arithmetic (:func:`_bwd_emulation`) over
+    ``[b, h, s, d]`` with GQA: dk and dv summed over each group's query
+    heads in fp32 before the one rounding. Returns ``(dq, dk, dv)`` in
+    bf16."""
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    n, kv, valid = _heads_4d(q, k, kv_lengths, causal, window)
+    flat = lambda t: t.reshape(n, sq, -1)  # noqa: E731
+    dq, dk, dv = _bwd_emulation(flat(q), kv(k), kv(v), flat(do), flat(o),
+                                lse.reshape(n, sq), valid, scale)
+    group = lambda t: t.reshape(b, kvh, h // kvh, sk, d).sum(2)  # noqa
+    return (dq.reshape(b, h, sq, d).bfloat16(), group(dk).bfloat16(),
+            group(dv).bfloat16())
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1], ids=["no_dropout", "dropout"])
@@ -788,3 +856,73 @@ def test_kernel_f_rounding_plan_holds_one_ulp(rate):
     got = _kernel_f_emulation(qkv, do, o, lse, seed, rate, 0.125, True)
     _check_bf16(("dqkv",), [_f32(want)], [_f32(got)], [slack.numpy()],
                 max_past_ulp=1e-3)
+
+
+#: (b, h, kvh, sq, sk, causal, kv_lengths, window): one head of the T5
+#: cross-attention (114 queries over 512 keys, kv_lengths with a 0 row),
+#: causal with sq > sk (the first sq - sk rows see no key), a window with
+#: the sk - sq offset and a length, GQA 12 over 4
+KERNEL_BI_CASES = {
+    "t5_cross_one_head": (3, 1, 1, 114, 512, False, [512, 300, 0], None),
+    "sq_gt_sk_causal": (1, 2, 2, 200, 130, True, None, None),
+    "window_offset": (1, 2, 2, 160, 300, True, [280], 64),
+    "gqa_12_over_4": (1, 12, 4, 128, 192, True, None, None),
+}
+
+
+def _kernel_bi_inputs(case, seed=5):
+    b, h, kvh, sq, sk, causal, kvl, window = case
+    q, k, v, do = (torch.from_numpy(a).bfloat16() for a in _bwd_inputs(
+        (b, h, kvh, sq, sk, 64), seed))
+    kvl = None if kvl is None else torch.tensor(kvl, dtype=torch.int32)
+    return q, k, v, do, (kvl, 0.125, causal, window)
+
+
+def _no_key_rows(case):
+    """``(batch, query row)`` pairs that see no key."""
+    b, _, _, sq, sk, causal, kvl, _ = case
+    lengths = [sk] * b if kvl is None else kvl
+    return [(bb, r) for bb in range(b) for r in range(sq)
+            if lengths[bb] == 0 or (causal and r + sk - sq < 0)]
+
+
+@pytest.mark.parametrize("name", list(KERNEL_BI_CASES))
+def test_kernel_b_rounding_plan_holds_one_ulp(name):
+    """Kernel B's bf16 plan (Kernel E's: p split into bf16 hi + lo before
+    P V, an online softmax over 64-key tiles) keeps o within one bf16 ulp
+    of the plain version (p in fp32) and lse within 1e-4, with the sk - sq
+    offset, kv_lengths, a window and GQA; a row that sees no key is 0 with
+    lse 1e30."""
+    case = KERNEL_BI_CASES[name]
+    q, k, v, _, args = _kernel_bi_inputs(case)
+    want_o, want_lse = flash_fwd_plain(q, k, v, *args)
+    got_o, got_lse = _kernel_b_emulation(q, k, v, *args)
+    assert _within_one_bf16_ulp(got_o, want_o)
+    torch.testing.assert_close(got_lse, want_lse, atol=1e-4, rtol=1e-6)
+    empty = _no_key_rows(case)
+    assert empty or name != "sq_gt_sk_causal"
+    for bb, r in empty:
+        assert not got_o[bb, :, r].any()
+        assert bool((got_lse[bb, :, r] == 1e30).all())
+
+
+@pytest.mark.parametrize("name", list(KERNEL_BI_CASES))
+def test_kernel_i_rounding_plan_holds_one_ulp(name):
+    """Kernel I's bf16 plan (Kernel F's: ds and p formed per 64-wide tile
+    in fp32 and rounded to bf16 once each, dk and dv summed over a group's
+    heads in fp32) keeps dq, dk and dv within 1 bf16 ulp of the plain
+    version plus ``flash_bwd_rounding_slack``, with at most 0.1% of the
+    elements past 1 ulp; a batch row with kv_length 0 gets zero
+    gradients."""
+    case = KERNEL_BI_CASES[name]
+    q, k, v, do, args = _kernel_bi_inputs(case)
+    o, lse = flash_fwd_plain(q, k, v, *args)
+    want = flash_bwd_plain(q, k, v, do, o, lse, *args)
+    slack = flash_bwd_rounding_slack(q, k, v, do, o, lse, *args)
+    got = _kernel_i_emulation(q, k, v, do, o, lse, *args)
+    _check_bf16(("dq", "dk", "dv"), [_f32(w) for w in want],
+                [_f32(g) for g in got], [sl.numpy() for sl in slack],
+                max_past_ulp=1e-3)
+    kvl = case[6]
+    if kvl is not None and 0 in kvl:
+        assert not any(t[kvl.index(0)].any() for t in got)

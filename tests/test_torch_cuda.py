@@ -8,7 +8,7 @@ They reach the corners the smoke test (``chip_smoke.py``) does not:
 RMSNorm and non-affine LayerNorm forward and backward at widths that are
 not a multiple of 32 and row counts over several backward blocks, flash
 attention with ``kv_lengths`` (one of them 0), ``sq != sk``, GQA, sliding
-windows and head_dim 32/128, the packed-QKV forward and backward with
+windows and head_dim 32/36/128, the packed-QKV forward and backward with
 GQA, partial and full RoPE, windows, ``kv_lengths`` and dropout (whose
 keep mask is read off exactly with ``v = I``, in f32 and bf16, and whose
 seed may stay on the card with no host sync), at lengths around the bf16
@@ -140,6 +140,8 @@ FLASH = {
     "window_sq_lt_sk": (1, 4, 4, 70, 333, 64, True, [300], 33),
     "head_dim_32": (1, 4, 1, 65, 65, 32, False, None, None),
     "head_dim_128": (2, 4, 4, 129, 129, 128, True, None, None),
+    # bf16 copies element by element (d % 8 != 0), GQA, a length
+    "head_dim_36_gqa": (2, 4, 2, 77, 100, 36, True, [100, 61], None),
 }
 
 

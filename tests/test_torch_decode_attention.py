@@ -11,6 +11,16 @@ Tolerances: f32 context atol 2e-5 (the two run the same gathered-view
 formulation; sums differ only in order); the pools after the append
 must be EQUAL — an append is a copy, and a dropped row must leave every
 page untouched.
+
+bf16: the two packages split the same way. ``_reference`` (and
+``decode_plain``, the port's CPU path) forms the scores by a GEMM in
+q's dtype and rounds the probabilities to q's dtype before ``p v``;
+the TPU kernel ``_decode_kernel`` (and Kernel C, the port's card path)
+keeps scores and p in fp32 and rounds the context once. So in bf16
+``decode_plain`` is held to ``_reference`` bitwise, and the function
+Kernel C computes, the plain version run in f32 and rounded once, to
+``_pallas`` in interpret mode within 1 bf16 ulp. The two pairs differ
+from each other by design.
 """
 
 import jax.numpy as jnp
@@ -49,31 +59,50 @@ def _inputs(seed=0):
     return q, k_new, v_new, k_pages, v_pages, table, positions
 
 
-def _torch_pool(a):
-    pool = page_pool(N_PAGES, PS, F, torch.float32, "cpu")
+def _torch_pool(a, dtype=torch.float32):
+    pool = page_pool(N_PAGES, PS, F, dtype, "cpu")
     pool.copy_(torch.from_numpy(a))
     return pool
 
 
 def _run_torch(q, k_new, v_new, k_pages, v_pages, table, positions,
-               window):
-    kp, vp = _torch_pool(k_pages), _torch_pool(v_pages)
+               window, dtype=torch.float32):
+    """The port's CPU path in ``dtype`` (f32 numpy in; outputs as f32
+    numpy)."""
+    kp, vp = _torch_pool(k_pages, dtype), _torch_pool(v_pages, dtype)
+    t = lambda a: torch.from_numpy(a).to(dtype)  # noqa: E731
     ctx, kp2, vp2 = fused_paged_decode_attention(
-        torch.from_numpy(q), torch.from_numpy(k_new), torch.from_numpy(v_new),
-        kp, vp, torch.from_numpy(table), torch.from_numpy(positions),
-        queries_per_group=GROUP, sliding_window=window)
+        t(q), t(k_new), t(v_new), kp, vp, torch.from_numpy(table),
+        torch.from_numpy(positions), queries_per_group=GROUP,
+        sliding_window=window)
     assert kp2 is kp and vp2 is vp                     # updated in place
-    return ctx.numpy(), kp.numpy(), vp.numpy()
+    assert ctx.dtype == dtype
+    return ctx.float().numpy(), kp.float().numpy(), vp.float().numpy()
+
+
+def _jax_args(q, k_new, v_new, k_pages, v_pages, table, positions,
+              dtype=jnp.float32):
+    a = lambda x: jnp.asarray(x, dtype)  # noqa: E731
+    return (a(q)[:, None], a(k_new)[:, None], a(v_new)[:, None],
+            a(k_pages), a(v_pages), None, None, jnp.asarray(table),
+            jnp.asarray(positions))
 
 
 def _run_reference(q, k_new, v_new, k_pages, v_pages, table, positions,
-                   window):
+                   window, dtype=jnp.float32):
     ctx, kp, vp, _, _ = _reference(
-        jnp.asarray(q)[:, None], jnp.asarray(k_new)[:, None],
-        jnp.asarray(v_new)[:, None], jnp.asarray(k_pages),
-        jnp.asarray(v_pages), None, None, jnp.asarray(table),
-        jnp.asarray(positions), GROUP, window)
-    return np.asarray(ctx[:, 0]), np.asarray(kp), np.asarray(vp)
+        *_jax_args(q, k_new, v_new, k_pages, v_pages, table, positions,
+                   dtype), GROUP, window)
+    return (np.asarray(ctx[:, 0], np.float32), np.asarray(kp, np.float32),
+            np.asarray(vp, np.float32))
+
+
+def _bf16_inputs(seed):
+    """``_inputs(seed)`` rounded to bf16 values (still f32 arrays), so
+    that an f32 run and a bf16 run read the same numbers."""
+    return tuple(a if a.dtype != np.float32 else
+                 torch.from_numpy(a).bfloat16().float().numpy()
+                 for a in _inputs(seed))
 
 
 @pytest.mark.parametrize("window", [None, 6])
@@ -105,6 +134,41 @@ def test_decode_matches_interpret_kernel(monkeypatch):
     np.testing.assert_allclose(ctx, np.asarray(kctx[:, 0]), atol=2e-5,
                                rtol=0)
     np.testing.assert_array_equal(kp, np.asarray(kkp))
+
+
+@pytest.mark.parametrize("window", [None, 6])
+def test_decode_bf16_matches_reference_bitwise(window):
+    """In bf16 the port's plain version is JAX's ``_reference`` bit for
+    bit: the same GEMM in bf16, the same roundings of the scores and
+    of p before ``p v``."""
+    args = _bf16_inputs(2)
+    ctx, kp, vp = _run_torch(*args, window, dtype=torch.bfloat16)
+    rctx, rkp, rvp = _run_reference(*args, window, dtype=jnp.bfloat16)
+    np.testing.assert_array_equal(ctx, rctx)
+    np.testing.assert_array_equal(kp, rkp)
+    np.testing.assert_array_equal(vp, rvp)
+
+
+@pytest.mark.parametrize("window", [None, 6])
+def test_decode_bf16_kernel_function_matches_interpret_kernel(monkeypatch,
+                                                              window):
+    """What Kernel C computes in bf16 (scores and p in fp32, the context
+    rounded once: the plain version run in f32 on the bf16 values, then
+    rounded to bf16) is within 1 bf16 ulp of the TPU kernel in interpret
+    mode on the same bf16 inputs."""
+    args = _bf16_inputs(3)
+    monkeypatch.setenv("APEX_TPU_FORCE_PALLAS", "interpret")
+    jax_support.pallas_mode.cache_clear()
+    try:
+        kctx, _, _, _, _ = _pallas(*_jax_args(*args, dtype=jnp.bfloat16),
+                                   GROUP, window)
+    finally:
+        jax_support.pallas_mode.cache_clear()
+    want = np.asarray(kctx[:, 0], np.float32)
+    ctx, _, _ = _run_torch(*args, window)
+    got = torch.from_numpy(ctx).bfloat16().float().numpy()
+    ulp = 2.0 ** -15 + 2.0 ** -7 * np.abs(want)
+    assert (np.abs(got - want) <= ulp).all(), np.abs(got - want).max()
 
 
 def test_dropped_rows_land_in_the_spare_page_only():
