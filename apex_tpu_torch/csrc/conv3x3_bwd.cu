@@ -86,7 +86,7 @@ conv3x3_dx_kernel(const float* __restrict__ x, const float* __restrict__ a,
   DyTaps<float> la(dy, y, c, ds, m, h, wd, n, row0);
   WTaps<float> lb(w, k, n, col0);
   float acc[4][4] = {};
-  mainloop<float, true, true>(9 * n, la, lb, sm, acc);
+  mainloop<true, true>(9 * n, la, lb, sm.g, acc);
   epilogue_dx<float, AFFINE, RELU>(acc, x, a, b, dx, dab_partial, m, k, row0,
                                    col0, sm);
 }
@@ -109,7 +109,7 @@ conv3x3_dw_kernel(const float* __restrict__ x, const float* __restrict__ a,
   ZCols<float, AFFINE, RELU> la(x, a, b, h, wd, k, row0, m_lo, tap);
   DyCols<float> lb(dy, y, c, ds, n, col0, m_lo);
   float acc[4][4] = {};
-  mainloop<float, false, false>(rows, la, lb, sm, acc);
+  mainloop<false, false>(rows, la, lb, sm.g, acc);
   epilogue_dw(acc, dw_partial + static_cast<long long>(blockIdx.z) * k * n,
               k, n, row0, col0);
 }

@@ -21,12 +21,13 @@
 // operations about even, ~206 MB against 59 G FLOPs (~0.06 ms).
 //
 // bf16, the path ResNet-50 trains on (three passes):
-// - prep (with the affine; conv_prep.cuh, shared with Kernel M): one
+// - prep (with the affine; conv_prep.cuh, shared with Kernels J, K, M): one
 //   elementwise pass with 16-byte loads and stores writes z [m, K] to bf16
 //   scratch, each element formed once (conv_fused.cuh's zval: the rounding
 //   points of the plain version). Without the affine z is x, and no pass
 //   runs;
-// - the implicit GEMM: blocks of 128 output pixels x 64 output channels
+// - the implicit GEMM (conv_mma.cuh's fwd_mma_kernel at nine taps, which
+//   Kernel J runs at one): blocks of 128 output pixels x 64 output channels
 //   (64 x 128 where N' >= 128, so that one z tile feeds more columns), 8
 //   warps of 32 x 32, run y over (tap, 32 input channels) slices on
 //   mma.sync m16n8k16 fed by a 4-stage cp.async ring (mma_ring.cuh), one
@@ -56,6 +57,7 @@
 // formed in its loader: each thread keeps its four output pixels as
 // (image, row, column) and walks the contraction as (tap, channel).
 #include "conv_fused.cuh"
+#include "conv_mma.cuh"
 #include "conv_prep.cuh"
 #include "mma_ring.cuh"
 
@@ -81,195 +83,8 @@ conv3x3_fwd_kernel(const float* __restrict__ x, const float* __restrict__ a,
   ZTaps<float, AFFINE, RELU> la(x, a, b, m, h, wd, k, row0);
   WRows<float> lb(w, n, col0);
   float acc[4][4] = {};
-  mainloop<float, true, false>(9 * k, la, lb, sm, acc);
+  mainloop<true, false>(9 * k, la, lb, sm.g, acc);
   epilogue_fwd<float>(acc, y, c, partial, m, n, row0, col0, sm);
-}
-
-// ---------------------------------------------------------------------------
-// bf16: the implicit GEMM over z on the cp.async ring
-// ---------------------------------------------------------------------------
-
-constexpr int kStages = 4;
-constexpr int kSlice = 32;         // contraction depth of one slice
-constexpr int kRowH = kSlice + 8;  // A stage rows: 32 channels + pad
-constexpr int kGemmThreads = 256;
-constexpr int kWarpTile = 32;      // each warp owns 32 x 32 of the tile
-
-// A BM pixels x BN output channels block of 8 warps; a stage holds z [BM
-// pixels][32 K] at the tap's shifted pixels and w[tap] [32 K][BN N'].
-template <int BM, int BN>
-struct Tile {
-  static constexpr int kWarpsN = BN / kWarpTile;
-  static constexpr int kWarpsM = kGemmThreads / 32 / kWarpsN;
-  static_assert(kWarpsM * kWarpTile == BM, "8 warps of 32 x 32");
-  static constexpr int kLdb = BN + 8;  // B stage rows: BN channels + pad
-  static constexpr int kStage = (BM * kRowH + kSlice * kLdb) * 2;
-};
-
-template <int BM, int BN, bool VEC>
-__global__ void __launch_bounds__(kGemmThreads)
-fwd_mma_kernel(const bf16* __restrict__ z, const bf16* __restrict__ w,
-               const float* __restrict__ c, bf16* __restrict__ y,
-               float* __restrict__ partial, long long m, int h, int wd,
-               int k, int n) {
-  using T = Tile<BM, BN>;
-  constexpr int AR = BM / 64;                 // A rows a thread copies
-  constexpr int BCH = BN / 8;                 // 16-byte pieces of a B row
-  constexpr int BSTEP = kGemmThreads / BCH;   // B rows between its copies
-  constexpr int BR = kSlice / BSTEP;          // B rows a thread copies
-  constexpr int MT = kWarpTile / 16;
-  constexpr int NT = kWarpTile / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float red[T::kWarpsM][BN][2];
-  const long long row0 = static_cast<long long>(blockIdx.x) * BM;
-  const int col0 = blockIdx.y * BN;
-  const int tid = threadIdx.x;
-  // this thread copies A rows r + 64 i, channels cq..cq+7 of the slice, and
-  // B rows rb + BSTEP i, output channels cb..cb+7 of the block
-  const int cq = (tid & 3) * 8;
-  const int r = tid >> 2;
-  const int cb = (tid % BCH) * 8;
-  const int rb = tid / BCH;
-  long long p[AR];
-  int ph[AR], pw[AR];
-  bool ok[AR];
-#pragma unroll
-  for (int i = 0; i < AR; ++i) {
-    p[i] = row0 + r + 64 * i;
-    ok[i] = p[i] < m;
-    int img;
-    pixel_of(ok[i] ? p[i] : 0, h, wd, img, ph[i], pw[i]);
-  }
-  const int n_left = n - col0 - cb;
-  int tap = 0;
-  int kb = 0;
-  auto load = [&](unsigned char* st) {
-    bf16* sa = reinterpret_cast<bf16*>(st);
-    bf16* sb = sa + BM * kRowH;
-    const int dr = tap / 3 - 1;  // z is read at (row + dr, column + dc)
-    const int dc = tap % 3 - 1;
-    const long long shift = static_cast<long long>(dr) * wd + dc;
-    const int k_left = k - kb - cq;
-#pragma unroll
-    for (int i = 0; i < AR; ++i) {
-      const int hh = ph[i] + dr;
-      const int ww = pw[i] + dc;
-      const bool in = ok[i] && hh >= 0 && hh < h && ww >= 0 && ww < wd;
-      apex::ring::copy8<VEC, true>(sa + (r + 64 * i) * kRowH + cq,
-                                   z + (p[i] + shift) * k + kb + cq, z, in,
-                                   k_left);
-    }
-#pragma unroll
-    for (int i = 0; i < BR; ++i) {
-      const int row = rb + BSTEP * i;
-      const int kr = kb + row;
-      apex::ring::copy8<VEC>(
-          sb + row * T::kLdb + cb,
-          w + (static_cast<long long>(tap) * k + kr) * n + col0 + cb, w,
-          kr < k, n_left);
-    }
-    kb += kSlice;
-    if (kb >= k) {
-      kb = 0;
-      ++tap;
-    }
-  };
-  const int warp = tid >> 5;
-  const int wm = (warp % T::kWarpsM) * kWarpTile;  // pixels
-  const int wn = (warp / T::kWarpsM) * kWarpTile;  // output channels
-  float acc[MT][NT][4] = {};
-  auto step = [&](const unsigned char* st) {
-    const bf16* sa = reinterpret_cast<const bf16*>(st);
-    const bf16* sb = sa + BM * kRowH;
-#pragma unroll
-    for (int kk = 0; kk < kSlice; kk += 16)
-      apex::ring::warp_step<MT, NT, false, true>(sa + wm * kRowH, kRowH,
-                                                 sb + wn, T::kLdb, kk, acc);
-  };
-  apex::ring::run_ring<kStages, T::kStage>(9 * ((k + kSlice - 1) / kSlice),
-                                           smem, load, step);
-
-  // epilogue on this thread's fragments (mma_ring.cuh's layout): y rounded
-  // once to bf16, and the (y - c) sums of its columns over its rows
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t2 = (lane & 3) * 2;
-  const bool pair = (n & 1) == 0 && (reinterpret_cast<size_t>(y) & 3) == 0;
-  float cv[NT][2];
-  float s0[NT][2] = {};
-  float s1[NT][2] = {};
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int nc = col0 + wn + 8 * j + t2 + e;
-      cv[j][e] = nc < n ? c[nc] : 0.f;
-    }
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const long long row = row0 + wm + 16 * i + g + 8 * hf;
-      if (row >= m) continue;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int nc = col0 + wn + 8 * j + t2;
-        if (nc >= n) continue;
-        const bool both = nc + 1 < n;
-        const long long idx = row * n + nc;
-        const float v0 = acc[i][j][2 * hf];
-        const float v1 = acc[i][j][2 * hf + 1];
-        if (pair) {
-          *reinterpret_cast<__nv_bfloat162*>(y + idx) =
-              __floats2bfloat162_rn(v0, v1);
-        } else {
-          y[idx] = __float2bfloat16(v0);
-          if (both) y[idx + 1] = __float2bfloat16(v1);
-        }
-        const float d0 = v0 - cv[j][0];
-        s0[j][0] += d0;
-        s1[j][0] += d0 * d0;
-        if (both) {
-          const float d1 = v1 - cv[j][1];
-          s0[j][1] += d1;
-          s1[j][1] += d1 * d1;
-        }
-      }
-    }
-  // over the 8 row groups of the warp (lanes that share lane % 4) by a
-  // fixed butterfly, then over the warps of the tile's rows in order:
-  // repeated runs are bitwise equal
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        s0[j][e] += __shfl_xor_sync(0xffffffffu, s0[j][e], off);
-        s1[j][e] += __shfl_xor_sync(0xffffffffu, s1[j][e], off);
-      }
-  if (g == 0) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        red[warp % T::kWarpsM][wn + 8 * j + t2 + e][0] = s0[j][e];
-        red[warp % T::kWarpsM][wn + 8 * j + t2 + e][1] = s1[j][e];
-      }
-  }
-  __syncthreads();
-  if (tid < BN && col0 + tid < n) {
-    float t0 = 0.f;
-    float t1 = 0.f;
-#pragma unroll
-    for (int q = 0; q < T::kWarpsM; ++q) {
-      t0 += red[q][tid][0];
-      t1 += red[q][tid][1];
-    }
-    const long long slot = blockIdx.x;
-    partial[(slot * 2) * n + col0 + tid] = t0;
-    partial[(slot * 2 + 1) * n + col0 + tid] = t1;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -289,23 +104,6 @@ struct Args {
   int images, h, wd, k, n;
 };
 
-template <int BM, int BN, bool VEC>
-cudaError_t run_gemm(const Args& p, const bf16* z, long long m,
-                     cudaStream_t stream) {
-  const int row_blocks = static_cast<int>(cdiv(m, BM));
-  const dim3 grid(static_cast<unsigned>(row_blocks),
-                  static_cast<unsigned>(cdiv(p.n, BN)));
-  constexpr int smem = kStages * Tile<BM, BN>::kStage;
-  cudaError_t err = apex::allow_smem(fwd_mma_kernel<BM, BN, VEC>, smem);
-  if (err != cudaSuccess) return err;
-  fwd_mma_kernel<BM, BN, VEC><<<grid, kGemmThreads, smem, stream>>>(
-      z, static_cast<const bf16*>(p.w), p.c, static_cast<bf16*>(p.y),
-      p.partial, m, p.h, p.wd, p.k, p.n);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return column_sum(p.partial, p.stats, row_blocks, 2LL * p.n, stream);
-}
-
 template <bool AFFINE, bool RELU, bool VEC>
 cudaError_t run_bf16(const Args& p, long long m, cudaStream_t stream) {
   const bf16* z = static_cast<const bf16*>(p.x);
@@ -318,8 +116,15 @@ cudaError_t run_bf16(const Args& p, long long m, cudaStream_t stream) {
   }
   // 128 pixels x 64 channels a block, or 64 x 128 where N' >= 128 (one z
   // tile then feeds twice the columns; ops/conv_fused.py `_l_rows`)
-  return p.n >= 128 ? run_gemm<64, 128, VEC>(p, z, m, stream)
-                    : run_gemm<128, 64, VEC>(p, z, m, stream);
+  const bf16* w = static_cast<const bf16*>(p.w);
+  bf16* y = static_cast<bf16*>(p.y);
+  return p.n >= 128
+             ? run_fwd<9, 64, 128, VEC, false>(z, w, p.c, y, p.partial,
+                                               p.stats, m, p.h, p.wd, p.k,
+                                               p.n, stream)
+             : run_fwd<9, 128, 64, VEC, false>(z, w, p.c, y, p.partial,
+                                               p.stats, m, p.h, p.wd, p.k,
+                                               p.n, stream);
 }
 
 template <bool AFFINE, bool RELU>

@@ -1,8 +1,9 @@
 // Shared pieces of the fused convolution kernels (Kernels J, K, L and M of
-// the PyTorch port): a 64 x 64 output tile GEMM over fp32 shared-memory
-// stages, the operand loaders that form z = relu(x * a + b) and the
-// effective cotangent dy_eff on the fly, the three epilogues, and the
-// fixed-order column sum that reduces per-block partials.
+// the PyTorch port): their f32 paths' 64 x 64 output tile GEMM over fp32
+// shared-memory stages, the operand loaders that form z = relu(x * a + b)
+// and the effective cotangent dy_eff on the fly, the three epilogues, the
+// z and dy_eff formulas the bf16 prep passes share (conv_prep.cuh), and the
+// fixed-order column sum that reduces per-block partials (both dtypes).
 //
 // Rounding points are those of apex_tpu/ops/conv_fused.py: z is formed in
 // fp32 (x * a, then + b, then relu) and rounded to w's dtype before the
@@ -13,23 +14,15 @@
 // PyTorch versions compute them as separate operations, and a relu mask or
 // a bf16 rounding must not flip between the two.
 //
-// GEMM: 256 threads own a 64 x 64 output tile. Each step stages a 64 x 16
-// slice of A and a 16 x 64 slice of B in shared memory. In f32 the slices
-// are fp32 and each thread runs 16 rank-1 updates of its 4 x 4 outputs
-// (rows ty * 4 + i, columns tx * 4 + j) from registers. In bf16 the slices
-// are bf16 (every operand value is already a bf16 value: x, w, and z and
-// dy_eff after their rounding) and the eight warps run WMMA 16 x 16 x 16
-// products on the tensor cores into fp32 accumulators, two 16 x 16 tiles a
-// warp, which land in the same 4 x 4 per-thread layout for the epilogue.
-// Only Kernel J runs the bf16 mainloop; K, L and M run their bf16 paths on
-// conv_prep.cuh's prep passes and mma_ring.cuh's ring, and this GEMM in
-// f32.
-// No asynchronous copies and no wgmma: that is later work. The loaders
-// decide which operand index runs fastest across threads, so that global
-// reads are coalesced along the contiguous axis of each operand.
+// GEMM (f32 only: the bf16 paths run conv_prep.cuh's prep passes and the
+// mma.sync GEMMs of conv_mma.cuh and conv1x1_bwd.cu / conv3x3_bwd.cu): 256
+// threads own a 64 x 64 output tile. Each step stages a 64 x 16 slice of A
+// and a 16 x 64 slice of B in shared memory as fp32, and each thread runs
+// 16 rank-1 updates of its 4 x 4 outputs (rows ty * 4 + i, columns tx * 4
+// + j) from registers. The loaders decide which operand index runs fastest
+// across threads, so that global reads are coalesced along the contiguous
+// axis of each operand.
 #pragma once
-
-#include <mma.h>
 
 #include <type_traits>
 
@@ -43,8 +36,6 @@ constexpr int kBN = 64;
 constexpr int kBK = 16;
 constexpr int kThreads = 256;
 constexpr int kPad = 4;
-// bf16 rows of 72: WMMA wants a row stride that is a multiple of 16 bytes
-constexpr int kPadH = 8;
 constexpr int kReduceThreads = 1024;
 
 struct Stage {
@@ -52,19 +43,10 @@ struct Stage {
   float b[kBK][kBN + kPad];
 };
 
-// bf16 slices, kept as raw bits so that the union stays trivial
-struct StageH {
-  unsigned short a[kBK][kBM + kPadH];
-  unsigned short b[kBK][kBN + kPadH];
-};
-
-// the mainloop's stages, the tensor-core accumulators' hand-over tile and
-// the epilogue's column reduction share the block's shared memory (WMMA
-// needs 32-byte aligned tile pointers)
-union __align__(32) Shared {
+// the mainloop's stages and the epilogue's column reduction share the
+// block's shared memory
+union Shared {
   Stage g;
-  StageH h;
-  float c[kBM][kBN + kPad];
   float red[kThreads / 16][kBN][2];
 };
 
@@ -126,13 +108,12 @@ __device__ __forceinline__ float dyc(float dy, float y, Cot q) {
   return round_to(d, static_cast<T*>(nullptr));
 }
 
-// acc += A[64 x kdim] B[kdim x 64] in fp32 FMAs (the f32 path); la / lb
-// give element i of this thread's share of each slice (valid: its
-// contraction index is below kdim) and step to the next slice with
-// advance().
+// acc += A[64 x kdim] B[kdim x 64] in fp32 FMAs; la / lb give element i of
+// this thread's share of each slice (valid: its contraction index is below
+// kdim) and step to the next slice with advance().
 template <bool A_KFAST, bool B_KFAST, class LA, class LB>
-__device__ __forceinline__ void mainloop_fma(int kdim, LA& la, LB& lb,
-                                             Stage& sm, float (&acc)[4][4]) {
+__device__ __forceinline__ void mainloop(int kdim, LA& la, LB& lb, Stage& sm,
+                                         float (&acc)[4][4]) {
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
@@ -167,88 +148,6 @@ __device__ __forceinline__ void mainloop_fma(int kdim, LA& la, LB& lb,
   }
 }
 
-// The bf16 path: the same slices staged as bf16, WMMA on the tensor cores.
-// Warp w owns rows 16 (w / 2) and columns 32 (w % 2) + {0, 16} of the tile.
-// Each slice's 16-long products land in fresh fragments that are added to
-// the running fp32 sums with ordinary adds: the tensor cores' own fp32
-// accumulation does not round each add, and over a chunk of thousands of
-// rows (the dW passes) it drifted to 2e-5 norm-wise. The sums go through
-// shared memory into acc's layout.
-template <bool A_KFAST, bool B_KFAST, class LA, class LB>
-__device__ __forceinline__ void mainloop_wmma(int kdim, LA& la, LB& lb,
-                                              Shared& sm,
-                                              float (&acc)[4][4]) {
-  using namespace nvcuda;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wr = (warp >> 1) * 16;
-  const int wc = (warp & 1) * 32;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c0, c1, p0, p1;
-  wmma::fill_fragment(c0, 0.f);
-  wmma::fill_fragment(c1, 0.f);
-  for (int k0 = 0; k0 < kdim; k0 += kBK) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kk = tile_k<A_KFAST>(i);
-      sm.h.a[kk][tile_rc<A_KFAST>(i)] =
-          __bfloat16_as_ushort(__float2bfloat16(la.load(i, k0 + kk < kdim)));
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kk = tile_k<B_KFAST>(i);
-      sm.h.b[kk][tile_rc<B_KFAST>(i)] =
-          __bfloat16_as_ushort(__float2bfloat16(lb.load(i, k0 + kk < kdim)));
-    }
-    la.advance();
-    lb.advance();
-    __syncthreads();
-    // A is staged k-major: element (row r, k) at a[k][r], a column-major
-    // 64 x 16 matrix; B row-major
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major>
-        fa;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-        fb0, fb1;
-    const auto* ha = reinterpret_cast<const __nv_bfloat16*>(&sm.h.a[0][0]);
-    const auto* hb = reinterpret_cast<const __nv_bfloat16*>(&sm.h.b[0][0]);
-    wmma::load_matrix_sync(fa, ha + wr, kBM + kPadH);
-    wmma::load_matrix_sync(fb0, hb + wc, kBN + kPadH);
-    wmma::load_matrix_sync(fb1, hb + wc + 16, kBN + kPadH);
-    wmma::fill_fragment(p0, 0.f);
-    wmma::fill_fragment(p1, 0.f);
-    wmma::mma_sync(p0, fa, fb0, p0);
-    wmma::mma_sync(p1, fa, fb1, p1);
-#pragma unroll
-    for (int e = 0; e < p0.num_elements; ++e) {
-      c0.x[e] += p0.x[e];
-      c1.x[e] += p1.x[e];
-    }
-    __syncthreads();
-  }
-  wmma::store_matrix_sync(&sm.c[wr][wc], c0, kBN + kPad, wmma::mem_row_major);
-  wmma::store_matrix_sync(&sm.c[wr][wc + 16], c1, kBN + kPad,
-                          wmma::mem_row_major);
-  __syncthreads();
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = sm.c[ty * 4 + i][tx * 4 + j];
-  __syncthreads();
-}
-
-// acc = A[64 x kdim] B[kdim x 64] of this block's tile, on the tensor cores
-// for bf16 operands and in fp32 FMAs for f32 ones.
-template <typename T, bool A_KFAST, bool B_KFAST, class LA, class LB>
-__device__ __forceinline__ void mainloop(int kdim, LA& la, LB& lb, Shared& sm,
-                                         float (&acc)[4][4]) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    mainloop_wmma<A_KFAST, B_KFAST>(kdim, la, lb, sm, acc);
-  } else {
-    mainloop_fma<A_KFAST, B_KFAST>(kdim, la, lb, sm.g, acc);
-  }
-}
-
 // Decompose a flattened NHW row index into (image, row, column).
 __device__ __forceinline__ void pixel_of(long long m, int h_dim, int w_dim,
                                          int& img, int& h, int& w) {
@@ -268,7 +167,7 @@ __device__ __forceinline__ long long pixel_index(int img, int h, int w,
 // loaders
 // ---------------------------------------------------------------------------
 
-// A(m, k) = z(x[m, k]) over output rows m (Kernel J; K-fast).
+// A(m, k) = z(x[m, k]) over output rows m (Kernel J in f32; K-fast).
 template <typename T, bool AFFINE, bool RELU>
 struct ZRows {
   const T* x;

@@ -1,14 +1,14 @@
-// The prep passes of the fused convolutions' bf16 paths (Kernels K, L and
-// M of the PyTorch port): one elementwise pass that writes z = relu?(x a +
+// The prep passes of the fused convolutions' bf16 paths (Kernels J, K, L
+// and M of the PyTorch port): one elementwise pass that writes z = relu?(x a +
 // b) and one that writes dy_eff = dy + ds0 + 2 (y - c) ds1, each rounded to
 // bf16 (conv_fused.cuh's zval and dyc: the rounding points of the plain
 // version) once to scratch, with 16-byte loads and stores where the
 // channel count allows. The implicit GEMMs that follow read z and dy_eff as
 // plain bf16 tensors, each operand row copied 16 bytes at a time.
 //
-// Each pass is a template over the kernel that runs it (KernelK, KernelL,
-// KernelM), so that a profile names K's, L's and M's passes apart; the
-// code is the same.
+// Each pass is a template over the kernel that runs it (KernelJ, KernelK,
+// KernelL, KernelM), so that a profile names J's, K's, L's and M's passes
+// apart; the code is the same.
 #pragma once
 
 #include <algorithm>
@@ -22,6 +22,7 @@ constexpr int kPrepThreads = 256;
 constexpr int kPrepMaxBlocks = 132 * 16;
 
 // which kernel runs a prep pass (template tags: names in a profile only)
+struct KernelJ;
 struct KernelK;
 struct KernelL;
 struct KernelM;

@@ -63,13 +63,14 @@ _SIGNATURES = {
     "apex_flash_packed_bwd": [_P] * 11 + [_I] * 5 + [_F, _I, _I, _I, _U, _F,
                                                      _I],
     # x, mask, y, stream, rows, k, d1, d2, mask strides (4), scale, sq,
-    # causal, dtype
+    # causal, dtype, pieces a lane, lanes a row
     "apex_softmax_fwd": [_P, _P, _P, _P, _L, _I, _I, _I, _L, _L, _L, _L, _F,
-                         _I, _I, _I],
+                         _I, _I, _I, _I, _I],
     # dy, y, dx, stream, rows, k, scale, dtype
     "apex_softmax_bwd": [_P, _P, _P, _P, _L, _I, _F, _I],
-    # x, a, b, w, c, y, partial, stats, stream, m, k, n, affine, relu, dtype
-    "apex_conv1x1_fwd": [_P] * 9 + [_I] * 6,
+    # x, a, b, w, c, y, partial, stats, z (bf16 scratch), stream, m, k, n,
+    # affine, relu, dtype
+    "apex_conv1x1_fwd": [_P] * 10 + [_I] * 6,
     # x, a, b, w, c, y, partial, stats, z (bf16 scratch), stream, images, h,
     # w, k, n, affine, relu, dtype
     "apex_conv3x3_fwd": [_P] * 10 + [_I] * 8,

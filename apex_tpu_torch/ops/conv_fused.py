@@ -35,11 +35,15 @@ __all__ = ["conv1x1_bn_act", "conv3x3_bn_act", "conv1x1_fwd_plain",
            "conv1x1_fwd_cuda", "conv1x1_bwd_plain", "conv1x1_bwd_cuda",
            "conv3x3_fwd_plain", "conv3x3_fwd_cuda", "conv3x3_bwd_plain",
            "conv3x3_bwd_cuda", "dw_chunks", "m_dw_chunks", "k_dw_chunks",
-           "conv1x1_bwd_scratch", "conv3x3_fwd_scratch",
-           "conv3x3_bwd_scratch"]
+           "conv1x1_fwd_scratch", "conv1x1_bwd_scratch",
+           "conv3x3_fwd_scratch", "conv3x3_bwd_scratch"]
 
-#: rows per block of every pass (``kBM`` in csrc/conv_fused.cuh)
+#: rows per block of the f32 passes, and the side of the tiles :func:`_tiles`
+#: counts (``kBM`` in csrc/conv_fused.cuh)
 _BM = 64
+#: Kernel J in bf16 sums its stats partials in chunks of this many rows
+#: (``kStatChunk`` in csrc/conv_mma.cuh)
+_STAT_CHUNK = 512
 #: the dW passes aim at four blocks per SM of an H100 (132 SMs) ...
 _FILL_BLOCKS = 4 * 132
 #: ... with at least this many rows of M a chunk
@@ -135,6 +139,23 @@ def k_dw_chunks(m: int, k: int, n: int) -> Tuple[int, int]:
     return _fill_chunks(m, tiles, _K_DW_RESIDENT[bk, bn], _MAX_CHUNKS_1X1)
 
 
+def conv1x1_fwd_scratch(m: int, k: int, n: int, affine: bool,
+                        dtype: torch.dtype) -> dict:
+    """What :func:`conv1x1_fwd_cuda` allocates for Kernel J besides its
+    outputs, name -> (shape, dtype): the stats partials, a row per row tile
+    (64 rows in f32); in bf16 (Kernel L's tiles at one tap: :func:`_l_rows`
+    rows a tile) followed by the sums of their chunks of ``_STAT_CHUNK``
+    rows and, with the affine, the prep pass's z [m, K]."""
+    bf16 = dtype == torch.bfloat16
+    rows = _support.cdiv(m, _l_rows(n) if bf16 else _BM)
+    if bf16:
+        rows += _support.cdiv(rows, _STAT_CHUNK)
+    out = {"partial": ((rows, 2, n), torch.float32)}
+    if bf16 and affine:
+        out["z"] = ((m, k), torch.bfloat16)
+    return out
+
+
 def conv1x1_bwd_scratch(m: int, k: int, n: int, affine: bool,
                         dtype: torch.dtype) -> Tuple[int, dict]:
     """``(rows per dW chunk, scratch)``: what :func:`conv1x1_bwd_cuda`
@@ -158,9 +179,10 @@ def conv1x1_bwd_scratch(m: int, k: int, n: int, affine: bool,
 
 
 def _l_rows(n: int) -> int:
-    """Pixels a tile of Kernel L's bf16 GEMM (csrc/conv3x3_fwd.cu): 128 x
-    64 output channels a block, or 64 x 128 where N' >= 128 (one z tile
-    then feeds twice the columns)."""
+    """Pixels a tile of Kernel L's bf16 GEMM (csrc/conv_mma.cuh's forward
+    GEMM, which Kernel J runs at one tap): 128 x 64 output channels a
+    block, or 64 x 128 where N' >= 128 (one z tile then feeds twice the
+    columns)."""
     return 64 if n >= 128 else 128
 
 
@@ -360,7 +382,10 @@ def _stream(dev):
 
 
 def conv1x1_fwd_cuda(x2, a, b, w, shift, affine: bool, relu: bool):
-    """Launch Kernel J on ``x2 [M, K]``, ``w [K, N]`` (one CUDA device)."""
+    """Launch Kernel J on ``x2 [M, K]``, ``w [K, N]`` (one CUDA device).
+    bf16: the prep pass (z to scratch, with the affine), the GEMM on the
+    tensor cores with the stats partials in its epilogue, and their
+    reduction; f32: the GEMM in fp32 FMAs and the reduction."""
     m, k = x2.shape
     n = w.shape[1]
     if w.dim() != 2 or w.shape[0] != k:
@@ -372,12 +397,13 @@ def conv1x1_fwd_cuda(x2, a, b, w, shift, affine: bool, relu: bool):
     stats = torch.zeros((2, n), dtype=torch.float32, device=dev)
     if m == 0:
         return y, stats
-    partial = torch.empty((_support.cdiv(m, _BM), 2, n), dtype=torch.float32,
-                          device=dev)
+    scratch = {name: torch.empty(shape, dtype=dt, device=dev)
+               for name, (shape, dt) in conv1x1_fwd_scratch(
+                   m, k, n, affine, x2.dtype).items()}
     status = _build.library().apex_conv1x1_fwd(
         _ptr(x2), _ptr(a), _ptr(b), _ptr(w), _ptr(shift), _ptr(y),
-        _ptr(partial), _ptr(stats), _stream(dev), m, k, n, int(affine),
-        int(relu), code)
+        _ptr(scratch["partial"]), _ptr(stats), _ptr(scratch.get("z")),
+        _stream(dev), m, k, n, int(affine), int(relu), code)
     _build.check("apex_conv1x1_fwd", status)
     _support.count_launch("conv1x1_fwd")
     return y, stats

@@ -15,12 +15,14 @@ A CUDA tensor runs ``csrc/softmax_fwd.cu`` (Kernel G) and
 (``_bwd_jnp``). Rows are the last axis of ``x`` at any length. The boolean
 mask (True = masked out) broadcasts against ``x``: Kernel G reads it through
 its broadcast strides, so a ``[b, 1, s, s]`` or ``[b, 1, 1, s]`` mask is
-never expanded in memory.
+never expanded in memory. :func:`softmax_fwd_plan` picks Kernel G's path:
+16-byte loads for bf16 rows whose length is a multiple of 8 up to 1024,
+else element by element.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -29,10 +31,39 @@ from apex_tpu_torch.ops import _build, _support
 __all__ = ["scaled_softmax", "scaled_masked_softmax",
            "scaled_upper_triang_masked_softmax",
            "generic_scaled_masked_softmax", "softmax_fwd_plain",
-           "softmax_bwd_plain", "softmax_fwd_cuda", "softmax_bwd_cuda"]
+           "softmax_bwd_plain", "softmax_fwd_cuda", "softmax_bwd_cuda",
+           "softmax_fwd_plan"]
 
 #: the fill value of a masked logit (softmax.py ``_MASK_FILL``)
 _MASK_FILL = -10000.0
+#: Kernel G's 16-byte path: rows of at most four 16-byte pieces a lane of a
+#: warp
+_VEC_MAX_K = 4 * 8 * 32
+
+
+def softmax_fwd_plan(k: int, dtype: torch.dtype, x_ptr: int, y_ptr: int,
+                     mask_ptr: Optional[int] = None,
+                     mask_strides: Tuple[int, ...] = (0, 0, 0, 1)
+                     ) -> Tuple[int, int]:
+    """``(pieces a lane, lanes a row)`` of Kernel G's 16-byte path
+    (csrc/softmax_fwd.cu), or ``(0, 0)`` for its element path.
+
+    The 16-byte path takes bf16 rows of ``k % 8 == 0``, ``k <= 1024``, x
+    and y at 16-byte aligned addresses and, with a mask, one whose last
+    stride is 1 and whose other strides and base are multiples of 8 bytes
+    (its 8 bytes beside a lane's 8 elements are one load). A lane holds one
+    16-byte piece where the row has at most 32 (k <= 256), else two or
+    four; a row takes the power of two of lanes that covers its pieces, so
+    ``32 // lanes`` rows share a warp (four at k = 64)."""
+    if dtype != torch.bfloat16 or k % 8 or k > _VEC_MAX_K or \
+            (x_ptr | y_ptr) % 16:
+        return 0, 0
+    if mask_ptr is not None and (mask_strides[-1] != 1 or mask_ptr % 8 or
+                                 any(st % 8 for st in mask_strides[:-1])):
+        return 0, 0
+    pieces = k // 8
+    cpl = next(c for c in (1, 2, 4) if pieces <= 32 * c)
+    return cpl, 1 << (_support.cdiv(pieces, cpl) - 1).bit_length()
 
 
 def softmax_fwd_plain(x4: torch.Tensor, mask4: Optional[torch.Tensor],
@@ -77,13 +108,15 @@ def softmax_fwd_cuda(x4: torch.Tensor, mask4: Optional[torch.Tensor],
             raise TypeError(f"the mask must be bool, got {mask4.dtype}")
         mask4 = mask4.expand(x4.shape)       # a view: zero strides
         strides = mask4.stride()
+    mask_ptr = None if mask4 is None else mask4.data_ptr()
+    cpl, lpr = softmax_fwd_plan(k, x4.dtype, x4.data_ptr(), y.data_ptr(),
+                                mask_ptr, strides)
     lib = _build.library()
     stream = torch.cuda.current_stream(x4.device).cuda_stream
     status = lib.apex_softmax_fwd(
-        x4.data_ptr(), None if mask4 is None else mask4.data_ptr(),
-        y.data_ptr(), stream, x4.numel() // k, k, x4.shape[1], x4.shape[2],
-        *strides, float(scale), max(sq, 1),
-        int(causal), _support.dtype_code(x4.dtype))
+        x4.data_ptr(), mask_ptr, y.data_ptr(), stream, x4.numel() // k, k,
+        x4.shape[1], x4.shape[2], *strides, float(scale), max(sq, 1),
+        int(causal), _support.dtype_code(x4.dtype), cpl, lpr)
     _build.check("apex_softmax_fwd", status)
     _support.count_launch("softmax_fwd")
     return y

@@ -11,18 +11,20 @@ built (default: the one holding this file), so one call can time two
 versions of the kernels in turns (parent, change, change, parent), each in
 its own process. Kernels L (``conv3x3_fwd_cuda``) and M
 (``conv3x3_bwd_cuda``) are timed in bf16 with the input affine and relu at
-the four stride-1 3x3 shapes of ResNet-50 (layers 1-4, batch 256), and
-Kernel K (``conv1x1_bwd_cuda``) at the 16 distinct 1x1 shapes of one
-ResNet-50 step (``K_SHAPES``, with or without the affine as the model
-runs them), each beside cuDNN's conv forward or backward alone on the same
-inputs and split into its device kernels by ``torch.profiler``; K's rows
-are then summed with their launches a step (``conv1x1_bwd_step``), to
-set beside a ``--profile`` breakdown of the step. J at layer1 gives the
-noise between processes. Each case is first held to its plain version (L:
-y within 1 bf16 ulp, stats within 1e-5 norm-wise; K and M: dx within 1
-bf16 ulp, dW and da/db within 1e-5 norm-wise; two runs bitwise equal),
-and its outputs' digest is printed, so that two versions' outputs can be
-compared bit for bit. Times are medians of CUDA-event intervals, as
+the four stride-1 3x3 shapes of ResNet-50 (layers 1-4, batch 256); L at
+layer1 also gives the noise between processes. Kernels J
+(``conv1x1_fwd_cuda``) and K (``conv1x1_bwd_cuda``) are timed at the 16
+distinct 1x1 shapes of one ResNet-50 step (``K_SHAPES``, with or without
+the affine as the model runs them). Each case is timed beside cuDNN's conv
+forward or backward alone on the same inputs (J also beside its bound) and
+split into its device kernels by ``torch.profiler``; J's and K's rows are
+then summed with their launches a step (``conv1x1_fwd_step``,
+``conv1x1_bwd_step``), to set beside a ``--profile`` breakdown of the
+step. Each case is first held to its plain version (J and L: y within 1
+bf16 ulp, stats within 1e-5 norm-wise; K and M: dx within 1 bf16 ulp, dW
+and da/db within 1e-5 norm-wise; two runs bitwise equal), and its
+outputs' digest is printed, so that two versions' outputs can be compared
+bit for bit; J's f32 kernel prints its digests at two shapes. Times are medians of CUDA-event intervals, as
 ``chip_smoke.py``'s ``Timer`` takes them. Prints one JSON line per
 measurement and, with ``--out``, writes them all to FILE. With ``--rn50``
 it runs the checkout's ``chip_smoke.py`` ``[rn50_train]`` phase instead,
@@ -46,6 +48,8 @@ import torch
 import torch.nn.functional as F
 
 SPIN_CYCLES = 200_000_000
+HBM_BYTES_S = 3.35e12
+PEAK_BF16 = 989e12
 #: (name, x shape, w shape) of ResNet-50's stride-1 3x3 convs at batch 256
 M_SHAPES = [
     ("layer1", (256, 56, 56, 64), (3, 3, 64, 64)),
@@ -194,13 +198,74 @@ def time_l(cf, name, x_shape, w_shape, gen, emit) -> None:
          split_ms=device_split(run), ok=ok, sha256=digest(got), **errs)
 
 
+def fwd_bound_ms(m, k, n, affine) -> float:
+    """The least time of a fused 1x1 forward on an H100: x, w, a, b and c
+    read once, y and the stats written once, at 3.35 TB/s, or its
+    products at 989 TFLOP/s, whichever is longer (``chip_smoke.py``'s
+    ``_conv_bytes_flops``)."""
+    n_bytes = (m * k + k * n + m * n) * 2 + ((2 * k if affine else 0)
+                                             + 3 * n) * 4
+    return max(n_bytes / HBM_BYTES_S, 2.0 * m * k * n / PEAK_BF16) * 1e3
+
+
 def time_j(cf, gen, emit) -> None:
-    x, a, b, *_ = inputs((256, 56, 56, 64), (3, 3, 64, 64), gen)
-    x2 = x.reshape(-1, 64)
-    w1 = (torch.randn(64, 256, device="cuda", generator=gen) / 8).bfloat16()
-    c1 = 0.1 * torch.randn(256, device="cuda", generator=gen)
-    emit(kernel="conv1x1_fwd", case="layer1_conv3", ms=median_ms(
-        lambda: cf.conv1x1_fwd_cuda(x2, a, b, w1, c1, True, True)))
+    """Kernel J at each of ``K_SHAPES`` in bf16 (with or without the
+    affine + relu as the model runs them), beside cuDNN's 1x1 conv alone
+    and the bound; then its step total weighted by launches
+    (``conv1x1_fwd_step``); then the f32 kernel's digest at two shapes
+    (``conv1x1_fwd_f32``), which shows it unchanged between versions."""
+    total = {"ms": 0.0, "cudnn_fwd_ms": 0.0, "bound_ms": 0.0,
+             "launches": 0}
+    split_total = {}
+    for name, side, k, n, affine, launches in K_SHAPES:
+        x, a, b, w, c, _, _ = inputs((256, side, side, k), (k, n), gen)
+        x2 = x.reshape(-1, k)
+        if not affine:
+            a = b = None
+        run = lambda: cf.conv1x1_fwd_cuda(  # noqa: E731
+            x2, a, b, w, c, affine, affine)
+        got, again = run(), run()
+        want = cf.conv1x1_fwd_plain(x2, a, b, w, c, affine, affine)
+        errs = dict(y_ulps=ulps(got[0], want[0]),
+                    stats_rel=rel(got[1], want[1]),
+                    bitwise_repeat=all(torch.equal(g, h)
+                                       for g, h in zip(got, again)))
+        ok = (errs["y_ulps"] <= 1.0 and errs["stats_rel"] <= 1e-5
+              and errs["bitwise_repeat"])
+        xv = x.permute(0, 3, 1, 2)
+        wv = w.t().reshape(n, k, 1, 1).contiguous(
+            memory_format=torch.channels_last)
+        row = dict(ms=median_ms(run), cudnn_fwd_ms=median_ms(
+            lambda: F.conv2d(xv, wv)),
+            bound_ms=fwd_bound_ms(x2.shape[0], k, n, affine),
+            split_ms=device_split(run))
+        emit(kernel="conv1x1_fwd", case=name, m=x2.shape[0], k=k, n=n,
+             affine=affine, launches=launches, **row, ok=ok,
+             sha256=digest(got), **errs)
+        for key in ("ms", "cudnn_fwd_ms", "bound_ms"):
+            total[key] += launches * row[key]
+        total["launches"] += launches
+        for kname, ms in row["split_ms"].items():
+            split_total[kname] = split_total.get(kname, 0.0) + launches * ms
+        del x, x2, got, again, want, xv, wv
+        torch.cuda.empty_cache()
+    emit(kernel="conv1x1_fwd_step", case="resnet50_b256",
+         **{key: round(v, 5) for key, v in total.items()},
+         split_ms={key: round(v, 5) for key, v in split_total.items()})
+    for name, side, k, n, affine, _ in (K_SHAPES[2], K_SHAPES[-1]):
+        x, a, b, w, c, _, _ = inputs((256, side, side, k), (k, n), gen)
+        x2, w = x.reshape(-1, k).float(), w.float()
+        if not affine:
+            a = b = None
+        got = cf.conv1x1_fwd_cuda(x2, a, b, w, c, affine, affine)
+        want = cf.conv1x1_fwd_plain(x2, a, b, w, c, affine, affine)
+        errs = dict(y_rel=rel(got[0], want[0]),
+                    stats_rel=rel(got[1], want[1]))
+        emit(kernel="conv1x1_fwd_f32", case=name, m=x2.shape[0], k=k, n=n,
+             affine=affine, ok=max(errs.values()) <= 1e-5,
+             sha256=digest(got), **errs)
+        del x, x2, w, got, want
+        torch.cuda.empty_cache()
 
 
 def time_k(cf, gen, emit) -> None:

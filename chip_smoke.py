@@ -765,7 +765,9 @@ def _valid_lengths(b, s, seed):
 
 
 #: (name, x shape, mask, causal sq, scale): BERT's scores with its padding
-#: mask, a [b,1,1,s] key mask, causal [96,1024,1024], odd row lengths
+#: mask, a [b,1,1,s] key mask, causal [96,1024,1024], odd row lengths, the
+#: encoder-decoder's key mask at s 114 (Kernel G's element path) and rows
+#: of 64 (its 16-byte path, four rows a warp)
 SOFTMAX_CASES = [
     ("bert", (16, 12, 512, 512), "padding", 0, 1.0),
     ("key_mask", (4, 12, 512, 512), "key", 0, 1.0),
@@ -773,6 +775,8 @@ SOFTMAX_CASES = [
     ("k17", (8, 12, 64, 17), "key", 0, 1.0),
     ("k1000", (2, 12, 100, 1000), "key", 0, 0.125),
     ("k4097", (1, 4, 64, 4097), "key", 0, 2.0),
+    ("enc_dec_key", (16, 12, 114, 114), "key", 0, 1.0),
+    ("k64", (16, 12, 512, 64), "key", 0, 1.0),
 ]
 
 
@@ -1044,10 +1048,18 @@ def rel_norm(got: torch.Tensor, want: torch.Tensor) -> float:
 #: in another order
 CONV_SUM_TOL = 1e-5
 #: (name, kind, x shape, w shape, (affine, relu) cases, NHW of a 1x1's rows
-#: for the library call, timed as the kernel's record)
+#: for the library call, timed as the kernel's record). Kernel J's bf16
+#: branches: 64 x 128 tiles with the prep pass (layer1_conv3, layer3_conv3
+#: at N = 1024) and without (layer4); 128 x 64 tiles without (layer1_conv1,
+#: N = 64 over K = 256) and with (tail_200, 200 rows: a ragged last tile);
+#: channels off the 16-byte groups (ragged_1x1: fragment stores)
 CONV_CASES = [
     ("layer1_conv3", "1x1", (802816, 64), (64, 256), [(True, True)],
      (256, 56, 56), True),
+    ("layer1_conv1", "1x1", (802816, 256), (256, 64), [(False, False)],
+     (256, 56, 56), False),
+    ("layer3_conv3", "1x1", (50176, 256), (256, 1024), [(True, True)],
+     (256, 14, 14), False),
     ("layer4_conv1", "1x1", (12544, 2048), (2048, 512), [(False, False)],
      (256, 7, 7), False),
     ("layer4_down", "1x1", (12544, 1024), (1024, 2048), [(False, False)],

@@ -31,6 +31,7 @@ from apex_tpu_torch.ops import LAUNCHES, reset_launches
 from apex_tpu_torch.ops.conv_fused import (
     conv1x1_bn_act,
     conv1x1_bwd_scratch,
+    conv1x1_fwd_scratch,
     conv3x3_bn_act,
     conv3x3_bwd_scratch,
     conv3x3_fwd_scratch,
@@ -371,3 +372,62 @@ def test_conv3x3_fwd_scratch_wide(layer, n_img, hw, c, rows):
     plan = conv3x3_fwd_scratch(n_img, hw, hw, c, c, True, torch.bfloat16)
     assert plan == {"partial": ((rows, 2, c), torch.float32),
                     "z": ((n_img * hw * hw, c), torch.bfloat16)}
+
+
+#: (name, rows M, K, N, affine + relu, Kernel J's bf16 tile rows) of the 16
+#: distinct 1x1 convs of a ResNet-50 step at batch 256 (the shapes of
+#: ``apex_tpu_torch/tools/conv_timing.py`` ``K_SHAPES``)
+J_SHAPES = [
+    ("layer1_b0_conv1", 802816, 64, 64, False, 128),
+    ("layer1_conv1", 802816, 256, 64, False, 128),
+    ("layer1_conv3", 802816, 64, 256, True, 64),
+    ("layer1_down", 802816, 64, 256, False, 64),
+    ("layer2_b0_conv1", 802816, 256, 128, False, 64),
+    ("layer2_conv1", 200704, 512, 128, False, 64),
+    ("layer2_conv3", 200704, 128, 512, True, 64),
+    ("layer2_down", 200704, 256, 512, False, 64),
+    ("layer3_b0_conv1", 200704, 512, 256, False, 64),
+    ("layer3_conv1", 50176, 1024, 256, False, 64),
+    ("layer3_conv3", 50176, 256, 1024, True, 64),
+    ("layer3_down", 50176, 512, 1024, False, 64),
+    ("layer4_b0_conv1", 50176, 1024, 512, False, 64),
+    ("layer4_conv1", 12544, 2048, 512, False, 64),
+    ("layer4_conv3", 12544, 512, 2048, True, 64),
+    ("layer4_down", 12544, 1024, 2048, False, 64),
+]
+
+
+@pytest.mark.parametrize("name,m,k,n,affine,rows", J_SHAPES,
+                         ids=[s[0] for s in J_SHAPES])
+def test_conv1x1_fwd_scratch_resnet50(name, m, k, n, affine, rows):
+    """What Kernel J allocates at each 1x1 shape of a ResNet-50 step: in
+    bf16 L's tiles at one tap (128 rows x 64 channels, 64 x 128 from N =
+    128 on), a stats partial row per row tile and one per 512 of those
+    (their chunk sums), and the prep pass's z only with the affine
+    (conv3); in f32 a partial row per 64 rows, no z."""
+    tiles = -(-m // rows)
+    want = {"partial": ((tiles + -(-tiles // 512), 2, n), torch.float32)}
+    if affine:
+        want["z"] = ((m, k), torch.bfloat16)
+    assert conv1x1_fwd_scratch(m, k, n, affine, torch.bfloat16) == want
+    assert conv1x1_fwd_scratch(m, k, n, affine, torch.float32) == {
+        "partial": ((m // 64, 2, n), torch.float32)}
+
+
+@pytest.mark.parametrize("affine", [True, False])
+def test_conv1x1_fwd_scratch_ragged(affine):
+    """Ragged rows and channels (the card tests' ``1x1_ragged_channels``,
+    ``1x1_tail``, ``1x1_ragged`` and ``1x1_n1024``): the partial rows cover
+    the last, part-filled row tile, and the chunk sums follow them."""
+    want = {"partial": ((8 + 1, 2, 36), torch.float32)}
+    if affine:
+        want["z"] = ((1000, 20), torch.bfloat16)
+    assert conv1x1_fwd_scratch(1000, 20, 36, affine, torch.bfloat16) == want
+    assert conv1x1_fwd_scratch(1000, 20, 36, affine, torch.float32) == {
+        "partial": ((16, 2, 36), torch.float32)}
+    assert conv1x1_fwd_scratch(200, 64, 96, affine, torch.bfloat16)[
+        "partial"] == ((2 + 1, 2, 96), torch.float32)
+    assert conv1x1_fwd_scratch(4133, 96, 160, affine, torch.bfloat16)[
+        "partial"] == ((65 + 1, 2, 160), torch.float32)
+    assert conv1x1_fwd_scratch(1000, 256, 1024, affine, torch.bfloat16)[
+        "partial"] == ((16 + 1, 2, 1024), torch.float32)

@@ -390,6 +390,15 @@ SOFTMAX = {
     "k1000": ((1, 2, 7, 1000), (1, 2, 1, 1000), 0, 0.125),
     "k4097": ((1, 1, 6, 4097), (1, 1, 1, 4097), 0, 1.0),
     "k4097_causal": ((1, 1, 4097, 4097), None, 4097, 2.0),
+    # Kernel G's 16-byte path: rows of 64 four to a warp over 300 rows (a
+    # part-filled last block), rows of 8 thirty-two to a warp, causal rows
+    # of 256; its element path for the encoder-decoder's 114 and for a
+    # mask broadcast along the keys (last stride 0)
+    "k64_packed": ((2, 3, 50, 64), (2, 1, 1, 64), 0, 1.0),
+    "k8": ((1, 1, 37, 8), None, 0, 1.0),
+    "causal_256": ((1, 2, 256, 256), None, 256, 1.0),
+    "enc_dec_114": ((2, 12, 114, 114), (2, 1, 1, 114), 0, 1.0),
+    "mask_per_row": ((1, 2, 7, 64), (1, 2, 7, 1), 0, 1.0),
 }
 
 
@@ -530,6 +539,11 @@ CONV = {
     "1x1_tail": ("1x1", (200, 64), (64, 96)),
     "1x1_ragged": ("1x1", (4133, 96), (96, 160)),
     "1x1_wide": ("1x1", (392, 1024), (1024, 2048)),
+    # Kernel J's 128 x 64 tiles over a deep contraction (layer1's conv1,
+    # N = 64 over K = 256), and N = 1024 (layer3's conv3) with a ragged
+    # last row tile
+    "1x1_n64_k256": ("1x1", (6272, 256), (256, 64)),
+    "1x1_n1024": ("1x1", (1000, 256), (256, 1024)),
     # channel counts off the 8-channel groups of Kernel K's 16-byte copies
     # (their element-by-element edge), 1,000 rows off its 128-row dx tiles
     "1x1_ragged_channels": ("1x1", (1000, 20), (20, 36)),

@@ -38,6 +38,7 @@ from apex_tpu_torch.ops.softmax import (
     scaled_upper_triang_masked_softmax,
     softmax_bwd_plain,
     softmax_fwd_plain,
+    softmax_fwd_plan,
 )
 from apex_tpu_torch.transformer.enums import AttnMaskType
 from apex_tpu_torch.transformer.functional import FusedScaleMaskSoftmax
@@ -253,3 +254,64 @@ def test_errors():
         FusedScaleMaskSoftmax(input_in_fp16=True, input_in_bf16=True)
     with pytest.raises(RuntimeError, match="fp32"):
         FusedScaleMaskSoftmax(softmax_in_fp32=False, scale=2.0)
+
+
+#: ``chip_smoke.py`` ``SOFTMAX_CASES`` (name, x shape, mask shape or None)
+#: and Kernel G's bf16 launch plan there: (16-byte pieces a lane, lanes a
+#: row), (0, 0) for the element path
+G_PLANS = [
+    ("bert", (16, 12, 512, 512), (16, 1, 512, 512), (2, 32)),
+    ("key_mask", (4, 12, 512, 512), (4, 1, 1, 512), (2, 32)),
+    ("causal", (1, 96, 1024, 1024), None, (4, 32)),
+    ("k17", (8, 12, 64, 17), (8, 1, 1, 17), (0, 0)),
+    ("k1000", (2, 12, 100, 1000), (2, 1, 1, 1000), (4, 32)),
+    ("k4097", (1, 4, 64, 4097), (1, 1, 1, 4097), (0, 0)),
+    ("enc_dec_key", (16, 12, 114, 114), (16, 1, 1, 114), (0, 0)),
+    ("k64", (16, 12, 512, 64), (16, 1, 1, 64), (1, 8)),
+]
+
+
+def _mask_strides(x_shape, mask_shape):
+    if mask_shape is None:
+        return None, (0, 0, 0, 0)
+    return 0, torch.empty(mask_shape, dtype=torch.bool).expand(
+        x_shape).stride()
+
+
+@pytest.mark.parametrize("name,x_shape,mask_shape,plan", G_PLANS,
+                         ids=[c[0] for c in G_PLANS])
+def test_kernel_g_launch_plan(name, x_shape, mask_shape, plan):
+    """Kernel G's host-side plan at each card-check shape: bf16 rows whose
+    length is a multiple of 8 up to 1024 take the 16-byte path, one piece
+    a lane up to 256 (rows of 64: eight lanes, four rows a warp), two at
+    512 and four at 1000-1024, over a padding, key or no mask; other
+    lengths (17, 114, 4097) and f32 take the element path."""
+    mask_ptr, strides = _mask_strides(x_shape, mask_shape)
+    k = x_shape[-1]
+    got = softmax_fwd_plan(k, torch.bfloat16, 0, 0, mask_ptr, strides)
+    assert got == plan
+    if plan != (0, 0):
+        assert 32 // got[1] == (4 if name == "k64" else 1)
+    assert softmax_fwd_plan(k, torch.float32, 0, 0, mask_ptr,
+                            strides) == (0, 0)
+
+
+def test_kernel_g_launch_plan_needs_aligned_rows_and_mask():
+    """The 16-byte path needs x and y 16-byte aligned and, with a mask,
+    its last stride 1, its other strides and base multiples of 8 bytes;
+    every row length from 8 to 1024 in steps of 8 gets a plan whose lanes
+    cover the row."""
+    bert = (0, 0, 512, 1)
+    assert softmax_fwd_plan(512, torch.bfloat16, 0, 0, 0, bert) == (2, 32)
+    assert softmax_fwd_plan(512, torch.bfloat16, 2, 0, 0, bert) == (0, 0)
+    assert softmax_fwd_plan(512, torch.bfloat16, 0, 8, 0, bert) == (0, 0)
+    assert softmax_fwd_plan(512, torch.bfloat16, 0, 0, 4, bert) == (0, 0)
+    assert softmax_fwd_plan(512, torch.bfloat16, 0, 0, 0,
+                            (0, 0, 512, 0)) == (0, 0)
+    assert softmax_fwd_plan(512, torch.bfloat16, 0, 0, 0,
+                            (0, 0, 4, 1)) == (0, 0)
+    assert softmax_fwd_plan(1032, torch.bfloat16, 0, 0) == (0, 0)
+    for k in range(8, 1025, 8):
+        cpl, lpr = softmax_fwd_plan(k, torch.bfloat16, 0, 0)
+        assert cpl in (1, 2, 4) and lpr in (1, 2, 4, 8, 16, 32)
+        assert (lpr // 2) * cpl < k // 8 <= lpr * cpl
