@@ -14,14 +14,32 @@
 // ~8 fp32 operations per element, far below the card's 295 operations per
 // byte, so the floor is (bytes read + written) / 3.35 TB/s.
 //
-// Design: one warp per row, four rows per 128-thread block. The warp
-// stages its row in shared memory as fp32 while summing, so x is read
-// from device memory once; both later passes (centred variance, output)
-// read shared memory. Reductions are warp shuffles, no block barrier.
-// Later work: 16-byte vector loads and several rows per warp.
+// bf16 x with h % 8 == 0, h <= 1024 and 16-byte aligned x, y, w and b
+// (ops/layer_norm.py `layer_norm_fwd_plan`): the 16-byte kernel. A lane
+// holds its pieces of the row in registers (layer_norm_vec.cuh; no
+// shared-memory stage), the sums are shuffles over the row's lanes, y is
+// written as 16-byte pieces (bf16) or two float4 (f32). w and b are read
+// once a warp and kept in registers as loaded, and the warp walks several
+// rows (the grid is at most the card's resident blocks; a decode step's
+// few rows spread one a block), loading the next row's x before it
+// reduces the current one. Measured with apex_tpu_torch/tools/
+// ln_timing.py on an H100 at 700 W (PERF.md): [8, 768] in 0.0066 ms, 1.3x
+// the ~0.0049 ms of one timed launch of a one-element fill; [6144, 768]
+// in 0.0134 ms with a cold L2 (0.0093 of kernel time).
+//
+// Other cases (f32 x, other h, unaligned rows): one warp per row, four
+// rows per 128-thread block. The warp stages its row in shared memory as
+// fp32 while summing, so x is read from device memory once; both later
+// passes (centred variance, output) read shared memory. Reductions are
+// warp shuffles, no block barrier.
 #include "common.cuh"
+#include "layer_norm_vec.cuh"
 
 namespace {
+
+using ln::bf16;
+using ln::kVecThreads;
+using ln::kVecWarps;
 
 constexpr int kWarps = 4;
 
@@ -36,6 +54,9 @@ struct LnArgs {
   int h;
   float eps;
   int is_rms;
+  int n_blocks;
+  int block_rows;  // the 16-byte path: consecutive rows a block takes
+  int lanes;       // the 16-byte path: lanes a row
 };
 
 template <typename TX, typename TW, typename TY>
@@ -89,14 +110,150 @@ layer_norm_fwd_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
   }
 }
 
+// a lane's pieces of row `row` of x (zeros past the block's rows or the
+// row's pieces)
+template <int PPL>
+__device__ __forceinline__ void load_row(uint4 (&piece)[PPL],
+                                         const bf16* __restrict__ x, int row,
+                                         int row_end, int h, int li,
+                                         int lanes) {
+#pragma unroll
+  for (int i = 0; i < PPL; ++i) {
+    const int p = li + lanes * i;
+    piece[i] = make_uint4(0u, 0u, 0u, 0u);
+    if (row < row_end && p < h / 8)
+      piece[i] = ln::load_piece(x + static_cast<long long>(row) * h + 8 * p);
+  }
+}
+
+// bf16 x on 16-byte pieces; PPL pieces a lane at most
+template <int PPL, typename TW, typename TY>
+__global__ void __launch_bounds__(kVecThreads)
+layer_norm_fwd_vec_kernel(const LnArgs a) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int lanes = a.lanes;
+  const int li = lane % lanes;
+  const int h = a.h;
+  const int pieces = h / 8;
+  const int rows_a_warp = 32 / lanes;
+  const bf16* x = static_cast<const bf16*>(a.x);
+  const TW* w = static_cast<const TW*>(a.w);
+  const TW* b = static_cast<const TW*>(a.b);
+  TY* y = static_cast<TY*>(a.y);
+  const int row0 = blockIdx.x * a.block_rows;
+  const int row_end = min(a.m, row0 + a.block_rows);
+  const int step = kVecWarps * rows_a_warp;
+  const int slot = lane / lanes;
+  const int first = row0 + warp * rows_a_warp;  // this warp's first slot
+  // w and b as loaded for this lane's columns, the same for every row (a
+  // warp without rows loads neither); the first row's x is loaded before
+  // any of them is used
+  ln::Raw8<TW> wv[PPL] = {}, bv[PPL] = {};
+#pragma unroll
+  for (int i = 0; i < PPL; ++i) {
+    const int p = li + lanes * i;
+    if (first < row_end && p < pieces) {
+      if (w != nullptr) wv[i] = ln::load_raw(w + 8 * p);
+      if (b != nullptr) bv[i] = ln::load_raw(b + 8 * p);
+    }
+  }
+  uint4 next[PPL];
+  load_row<PPL>(next, x, first + slot, row_end, h, li, lanes);
+  // the whole warp walks its row slots together (shuffles need every
+  // lane); a slot past the block's rows reads and writes nothing
+  for (int base = first; base < row_end; base += step) {
+    const int row = base + slot;
+    float v[PPL][8];
+#pragma unroll
+    for (int i = 0; i < PPL; ++i) ln::unpack(next[i], v[i]);
+    load_row<PPL>(next, x, base + step + slot, row_end, h, li, lanes);
+    // an empty piece holds zeros: it adds nothing to the sum
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < PPL; ++i)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sum += v[i][e];
+    float mean = 0.f;
+    float sq = 0.f;
+    if (a.is_rms) {
+#pragma unroll
+      for (int i = 0; i < PPL; ++i)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) sq += v[i][e] * v[i][e];
+    } else {
+      mean = ln::row_sum(sum, lanes) / h;
+      // centred variance, as in _fwd_kernel (not Welford)
+#pragma unroll
+      for (int i = 0; i < PPL; ++i) {
+        if (li + lanes * i >= pieces) continue;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float c = v[i][e] - mean;
+          sq += c * c;
+        }
+      }
+    }
+    const float var = ln::row_sum(sq, lanes) / h;
+    const float invvar = 1.f / sqrtf(var + a.eps);
+    if (row < row_end) {
+#pragma unroll
+      for (int i = 0; i < PPL; ++i) {
+        const int p = li + lanes * i;
+        if (p >= pieces) continue;
+        float wf[8], bf[8], out[8];
+        ln::expand(wv[i], wf);
+        ln::expand(bv[i], bf);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          out[e] = (v[i][e] - mean) * invvar;
+          if (w != nullptr) out[e] *= wf[e];
+          if (b != nullptr) out[e] += bf[e];
+        }
+        ln::store8(y + static_cast<long long>(row) * h + 8 * p, out);
+      }
+      if (li == 0) {
+        a.mean[row] = mean;
+        a.invvar[row] = invvar;
+      }
+    }
+  }
+}
+
+using VecKernel = void (*)(LnArgs);
+
+template <int PPL, typename TW>
+VecKernel vec_kernel_y(int y_dtype) {
+  return y_dtype == apex::kBF16 ? layer_norm_fwd_vec_kernel<PPL, TW, bf16>
+                                : layer_norm_fwd_vec_kernel<PPL, TW, float>;
+}
+
+template <int PPL>
+VecKernel vec_kernel_of(int w_dtype, int y_dtype) {
+  return w_dtype == apex::kBF16 ? vec_kernel_y<PPL, bf16>(y_dtype)
+                                : vec_kernel_y<PPL, float>(y_dtype);
+}
+
+// null for a piece count the plan never gives
+VecKernel vec_kernel(int pieces, int w_dtype, int y_dtype) {
+  switch (pieces) {
+    case 1: return vec_kernel_of<1>(w_dtype, y_dtype);
+    case 2: return vec_kernel_of<2>(w_dtype, y_dtype);
+    case 3: return vec_kernel_of<3>(w_dtype, y_dtype);
+    case 4: return vec_kernel_of<4>(w_dtype, y_dtype);
+    default: return nullptr;
+  }
+}
+
 template <typename TX, typename TW, typename TY>
 cudaError_t launch(const LnArgs& a, cudaStream_t stream) {
+  // the plan's blocks hold kWarps rows each, one a warp
+  if (a.block_rows != kWarps) return cudaErrorInvalidValue;
   auto kernel = layer_norm_fwd_kernel<TX, TW, TY>;
   const size_t smem = static_cast<size_t>(kWarps) * a.h * sizeof(float);
   cudaError_t err = apex::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const unsigned grid = static_cast<unsigned>((a.m + kWarps - 1) / kWarps);
-  kernel<<<grid, kWarps * 32, smem, stream>>>(
+  kernel<<<a.n_blocks, kWarps * 32, smem, stream>>>(
       static_cast<const TX*>(a.x), static_cast<const TW*>(a.w),
       static_cast<const TW*>(a.b), static_cast<TY*>(a.y), a.mean, a.invvar,
       a.m, a.h, a.eps, a.is_rms);
@@ -118,18 +275,40 @@ cudaError_t launch_w(const LnArgs& a, int w_dtype, int y_dtype,
 
 }  // namespace
 
-// w and b may be null (non-affine / bias-free); w_dtype is then ignored.
+// The plan (ops/layer_norm.py `layer_norm_fwd_plan`) gives the path and
+// the grid: `pieces` > 0 is the 16-byte kernel (bf16 x) with `pieces` a
+// lane and `lanes` lanes a row, block b taking rows
+// [b * block_rows, (b + 1) * block_rows); 0 is the element kernel, one
+// warp a row and four rows a block. w and b may be null (non-affine /
+// bias-free); w_dtype is then ignored.
 extern "C" int apex_layer_norm_fwd(const void* x, const void* w, const void* b,
                                    void* y, void* mean, void* invvar,
                                    void* stream, int m, int h, float eps,
                                    int is_rms, int x_dtype, int w_dtype,
-                                   int y_dtype) {
+                                   int y_dtype, int pieces, int lanes,
+                                   int n_blocks, int block_rows) {
   LnArgs a{x, w, b, y, static_cast<float*>(mean), static_cast<float*>(invvar),
-           m, h, eps, is_rms};
+           m, h, eps, is_rms, n_blocks, block_rows, lanes};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pieces > 0) {
+    const VecKernel kernel = vec_kernel(pieces, w_dtype, y_dtype);
+    if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    kernel<<<n_blocks, kVecThreads, 0, s>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
   cudaError_t err =
       x_dtype == apex::kBF16
           ? launch_w<__nv_bfloat16>(a, w_dtype, y_dtype, s)
           : launch_w<float>(a, w_dtype, y_dtype, s);
   return static_cast<int>(err);
+}
+
+// Resident blocks an SM of the 16-byte kernel with `pieces` a lane,
+// written to *blocks: the plan's grid is at most this times the SM count.
+extern "C" int apex_layer_norm_fwd_blocks_per_sm(int pieces, int w_dtype,
+                                                 int y_dtype, int* blocks) {
+  const VecKernel kernel = vec_kernel(pieces, w_dtype, y_dtype);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel, kVecThreads, 0));
 }

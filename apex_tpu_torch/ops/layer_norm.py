@@ -11,11 +11,19 @@ parameters' dtypes. A CUDA tensor runs the hand-written kernels,
 ``memory_efficient=True`` saves the output instead of the input and
 rebuilds x from it in plain PyTorch before the backward kernel, as
 ``_norm_vjp_bwd`` does outside its Pallas kernel.
+
+:func:`layer_norm_fwd_plan` and :func:`layer_norm_bwd_plan` pick each
+kernel's path on the host: bf16 rows (bf16 dy and x for the backward) of
+``h % 8 == 0`` up to 1024 at 16-byte aligned addresses take the 16-byte
+kernels, whose rows live in registers and whose grid is the card's
+resident blocks; every other call takes the element kernels.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+import ctypes
+import functools
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -23,11 +31,145 @@ from apex_tpu_torch.ops import _build, _support
 
 __all__ = ["fused_layer_norm", "fused_layer_norm_affine", "fused_rms_norm",
            "fused_rms_norm_affine", "layer_norm_fwd", "layer_norm_fwd_plain",
-           "layer_norm_fwd_cuda", "layer_norm_bwd_plain", "layer_norm_bwd_cuda"]
+           "layer_norm_fwd_cuda", "layer_norm_bwd_plain", "layer_norm_bwd_cuda",
+           "LayerNormPlan", "layer_norm_fwd_plan", "layer_norm_bwd_plan",
+           "layer_norm_fwd_cuda_plan", "layer_norm_bwd_cuda_plan"]
 
 Shape = Union[int, Sequence[int]]
-#: rows per pass-1 block of Kernel D (``kRows`` in csrc/layer_norm_bwd.cu)
-_BWD_ROWS = 32
+#: the 16-byte kernels hold at most four 16-byte pieces a lane of a warp
+_VEC_MAX_H = 4 * 8 * 32
+#: rows a block of the element kernels: Kernel A's one warp a row in blocks
+#: of four warps, Kernel D's pass-1 blocks of 32 rows
+_FWD_ELEMENT_ROWS = 4
+_BWD_ELEMENT_ROWS = 32
+
+
+class LayerNormPlan(NamedTuple):
+    """How one call of Kernel A or D runs (csrc/layer_norm_vec.cuh)."""
+    #: 16-byte pieces a lane holds; 0 is the element path
+    pieces: int
+    #: lanes a row: ``32 // lanes`` rows share a warp (0 on the element path)
+    lanes: int
+    #: the grid; Kernel D writes one fp32 partial row of dw/db per block
+    blocks: int
+    #: consecutive rows a block takes
+    block_rows: int
+
+    @property
+    def path(self) -> str:
+        return "vector" if self.pieces else "element"
+
+    @property
+    def rows_a_warp(self) -> int:
+        return 32 // self.lanes if self.lanes else 1
+
+
+def _vector_rows(h: int, ptrs: Sequence[Optional[int]]) -> bool:
+    """Rows of h bf16 that the 16-byte kernels take: ``h % 8 == 0``, at
+    most ``_VEC_MAX_H``, every given address 16-byte aligned."""
+    return (0 < h <= _VEC_MAX_H and h % 8 == 0
+            and all(p % 16 == 0 for p in ptrs if p is not None))
+
+
+def _vector_plan(m: int, h: int, blocks_per_sm: Callable[[int], int],
+                 n_sms: int) -> LayerNormPlan:
+    """A lane holds one piece where the row has at most 32 (h <= 256),
+    the row's lanes the power of two that covers its pieces; longer rows
+    take a whole warp, ``ceil(pieces / 32)`` a lane (3 at h = 768). The
+    grid is at most the card's resident blocks, the rows split statically
+    into runs of ``block_rows`` (at least a warp's worth): a few rows, as
+    in a decode step, spread over as many SMs."""
+    n = h // 8
+    pieces, lanes = ((1, 1 << (n - 1).bit_length()) if n <= 32
+                     else (_support.cdiv(n, 32), 32))
+    block_rows = max(32 // lanes,
+                     _support.cdiv(m, n_sms * blocks_per_sm(pieces)))
+    return LayerNormPlan(pieces, lanes, _support.cdiv(m, block_rows),
+                         block_rows)
+
+
+def layer_norm_fwd_plan(m: int, h: int, x_dtype: torch.dtype,
+                        ptrs: Sequence[Optional[int]],
+                        blocks_per_sm: Callable[[int], int],
+                        n_sms: int) -> LayerNormPlan:
+    """Kernel A's path and grid for ``x [m, h]``: the 16-byte kernel for
+    bf16 x whose rows :func:`_vector_rows` takes (``ptrs``: the addresses
+    of x, y, w and b, None where absent), else the element kernel.
+    ``blocks_per_sm(pieces)`` is the 16-byte kernel's resident blocks an SM
+    at that many pieces a lane, ``n_sms`` the card's SMs."""
+    if x_dtype != torch.bfloat16 or not _vector_rows(h, ptrs):
+        return LayerNormPlan(0, 0, _support.cdiv(m, _FWD_ELEMENT_ROWS),
+                             _FWD_ELEMENT_ROWS)
+    return _vector_plan(m, h, blocks_per_sm, n_sms)
+
+
+def layer_norm_bwd_plan(m: int, h: int, dy_dtype: torch.dtype,
+                        x_dtype: torch.dtype, ptrs: Sequence[Optional[int]],
+                        blocks_per_sm: Callable[[int], int],
+                        n_sms: int) -> LayerNormPlan:
+    """Kernel D's path and grid, as :func:`layer_norm_fwd_plan`: the
+    16-byte kernel needs bf16 dy and x (``ptrs``: dy, x, dx and w); its
+    ``blocks`` are also the partial rows pass 2 sums."""
+    if dy_dtype != torch.bfloat16 or x_dtype != torch.bfloat16 or \
+            not _vector_rows(h, ptrs):
+        return LayerNormPlan(0, 0, _support.cdiv(m, _BWD_ELEMENT_ROWS),
+                             _BWD_ELEMENT_ROWS)
+    return _vector_plan(m, h, blocks_per_sm, n_sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(device: int, kernel: str, *args: int) -> int:
+    """The card's occupancy of a 16-byte kernel (its C query's ``args``
+    before the out pointer), asked once per configuration."""
+    out = ctypes.c_int(0)
+    name = f"apex_layer_norm_{kernel}_blocks_per_sm"
+    with torch.cuda.device(device):
+        status = getattr(_build.library(), name)(*args, ctypes.addressof(out))
+    _build.check(name, status)
+    if out.value < 1:
+        raise RuntimeError(f"{name}{args}: no block fits on an SM")
+    return out.value
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _dtype_code(t: Optional[torch.Tensor]) -> int:
+    """A parameter's dtype code; 0 (fp32) where it is absent."""
+    return 0 if t is None else _support.dtype_code(t.dtype)
+
+
+def layer_norm_fwd_cuda_plan(x2, y, w, b) -> LayerNormPlan:
+    """The plan :func:`layer_norm_fwd_cuda` takes for ``x2 [m, h]`` into
+    ``y`` on their card (its occupancy and SM count)."""
+    m, h = x2.shape
+    dev = x2.device.index
+    codes = (_dtype_code(w), _support.dtype_code(y.dtype))
+    return layer_norm_fwd_plan(
+        m, h, x2.dtype, (x2.data_ptr(), y.data_ptr(), _ptr(w), _ptr(b)),
+        lambda pieces: _blocks_per_sm(dev, "fwd", pieces, *codes),
+        _sm_count(dev))
+
+
+def layer_norm_bwd_cuda_plan(dy2, x2, dx, w, has_bias: bool
+                             ) -> LayerNormPlan:
+    """The plan :func:`layer_norm_bwd_cuda` takes for these rows on their
+    card: its ``blocks`` are the partial rows it allocates."""
+    m, h = x2.shape
+    dev = x2.device.index
+    affine = 0 if w is None else (2 if has_bias else 1)
+    return layer_norm_bwd_plan(
+        m, h, dy2.dtype, x2.dtype,
+        (dy2.data_ptr(), x2.data_ptr(), dx.data_ptr(), _ptr(w)),
+        lambda pieces: _blocks_per_sm(dev, "bwd", h, pieces, _dtype_code(w),
+                                      affine),
+        _sm_count(dev))
 
 
 def _as_shape(s: Shape) -> Tuple[int, ...]:
@@ -77,12 +219,12 @@ def layer_norm_fwd_cuda(x2, w, b, eps: float, is_rms: bool,
         return y, mean, invvar
     lib = _build.library()
     stream = torch.cuda.current_stream(x2.device).cuda_stream
-    w_dtype = _support.dtype_code(w.dtype) if w is not None else 0
+    plan = layer_norm_fwd_cuda_plan(x2, y, w, b)
     status = lib.apex_layer_norm_fwd(
-        x2.data_ptr(), None if w is None else w.data_ptr(),
-        None if b is None else b.data_ptr(), y.data_ptr(), mean.data_ptr(),
+        x2.data_ptr(), _ptr(w), _ptr(b), y.data_ptr(), mean.data_ptr(),
         invvar.data_ptr(), stream, m, h, float(eps), int(is_rms),
-        _support.dtype_code(x2.dtype), w_dtype, _support.dtype_code(out_dtype))
+        _support.dtype_code(x2.dtype), _dtype_code(w),
+        _support.dtype_code(out_dtype), *plan)
     _build.check("apex_layer_norm_fwd", status)
     _support.count_launch("layer_norm_fwd")
     return y, mean, invvar
@@ -109,20 +251,18 @@ def layer_norm_bwd_plain(dy2, x2, mean, invvar, w, is_rms: bool,
 
 def layer_norm_bwd_cuda(dy2, x2, mean, invvar, w, is_rms: bool,
                         has_bias: bool):
-    """Launch Kernel D on ``[m, h]`` rows (one CUDA device): dx, then the
-    fp32 per-block dw/db partials and their column sums."""
+    """Launch Kernel D on ``[m, h]`` rows (one CUDA device): dx and the
+    fp32 per-block dw/db partials, then their column sums."""
     m, h = x2.shape
     dy2, x2 = dy2.contiguous(), x2.contiguous()
     mean, invvar = mean.contiguous(), invvar.contiguous()
     dev = x2.device
     dx = torch.empty((m, h), dtype=x2.dtype, device=dev)
-    partial = dw = db = None
+    dw = db = None
     if w is not None:
         w = w.reshape(-1).contiguous()
         if w.numel() != h:
             raise ValueError(f"weight has {w.numel()} elements, expected {h}")
-        partial = torch.empty((_support.cdiv(m, _BWD_ROWS), 2, h),
-                              dtype=torch.float32, device=dev)
         dw = torch.empty(h, dtype=torch.float32, device=dev)
         db = (torch.empty(h, dtype=torch.float32, device=dev) if has_bias
               else None)
@@ -131,13 +271,14 @@ def layer_norm_bwd_cuda(dy2, x2, mean, invvar, w, is_rms: bool,
             None if db is None else db.zero_()
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    plan = layer_norm_bwd_cuda_plan(dy2, x2, dx, w, has_bias)
+    partial = None if w is None else torch.empty(
+        (plan.blocks, 2, h), dtype=torch.float32, device=dev)
     status = lib.apex_layer_norm_bwd(
         dy2.data_ptr(), x2.data_ptr(), mean.data_ptr(), invvar.data_ptr(),
-        ptr(w), dx.data_ptr(), ptr(partial), ptr(dw), ptr(db), stream, m, h,
-        int(is_rms), _support.dtype_code(dy2.dtype),
-        _support.dtype_code(x2.dtype),
-        _support.dtype_code(w.dtype) if w is not None else 0)
+        _ptr(w), dx.data_ptr(), _ptr(partial), _ptr(dw), _ptr(db), stream, m,
+        h, int(is_rms), _support.dtype_code(dy2.dtype),
+        _support.dtype_code(x2.dtype), _dtype_code(w), *plan)
     _build.check("apex_layer_norm_bwd", status)
     _support.count_launch("layer_norm_bwd")
     return dx, dw, db

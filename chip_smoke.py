@@ -7,10 +7,17 @@ printing its own lines and raising on failure:
 
 1. device   — the card's name and power limit (nvidia-smi);
 2. build    — nvcc builds every kernel from ``apex_tpu_torch/csrc``;
-3. kernel A — LayerNorm forward vs its plain PyTorch version;
+3. kernel A — LayerNorm forward vs its plain PyTorch version: serving's
+              bf16 shapes, f32, and the training block's mix (bf16 x over
+              fp32 w and b into bf16 y) at [8192, 768] in LayerNorm and
+              RMSNorm; two runs bitwise equal; the launch plan printed;
 4. kernel B — flash attention forward vs its plain version;
 5. kernel C — paged decode attention vs its plain version;
-6. kernel D — LayerNorm backward vs its plain version;
+6. kernel D — LayerNorm backward vs its plain version: GPT-2's training
+              rows in bf16 over fp32 w and b, f32 and RMSNorm, the T5
+              decoder's [1824, 768] RMSNorm and a bf16 width off the
+              16-byte path (h = 1020); two runs bitwise equal (dx, dw, db);
+              the launch plan printed;
 7. kernel E — packed-QKV flash forward vs its plain version (GQA, RoPE,
               window, kv_lengths, and dropout whose keep mask must equal
               ``hash_keep``'s exactly, in f32 and bf16); timed beside SDPA
@@ -267,45 +274,81 @@ def phase_build() -> None:
         sources=len(_build._sources()))
 
 
+def _plan_text(plan) -> str:
+    """A LayerNorm kernel's launch plan as one log field."""
+    return (f"{plan.path}:pieces{plan.pieces}:rows_a_warp{plan.rows_a_warp}"
+            f":blocks{plan.blocks}")
+
+
+#: (rows, x dtype, w/b dtype, RMSNorm): [8, 768] every decode step (2 per
+#: layer + final); [768, 768] the largest prefill bucket; [8*768, 768] a
+#: bulk shape (all with w, b and y in x's dtype, as serving runs them);
+#: then the training block's mix, bf16 x over fp32 w and b into bf16 y
+#: ([8192, 768]: GPT-2's and BERT's rows), LayerNorm and RMSNorm (T5)
+LN_FWD_CASES = [(8, torch.bfloat16, torch.bfloat16, False),
+                (768, torch.bfloat16, torch.bfloat16, False),
+                (8 * 768, torch.bfloat16, torch.bfloat16, False),
+                (8 * 768, torch.float32, torch.float32, False),
+                (8192, torch.bfloat16, torch.float32, False),
+                (8192, torch.bfloat16, torch.float32, True)]
+
+
 def phase_layer_norm(timer: Timer) -> dict:
     from apex_tpu_torch.ops.layer_norm import (layer_norm_fwd_cuda,
+                                               layer_norm_fwd_cuda_plan,
                                                layer_norm_fwd_plain)
     g = torch.Generator(device="cuda").manual_seed(1)
     h = GPT2["hidden_size"]
     w = 1.0 + 0.1 * torch.randn(h, device="cuda", generator=g)
     b = 0.1 * torch.randn(h, device="cuda", generator=g)
     record = None
-    # [8, 768]: every decode step (2 per layer + final); [768, 768]: the
-    # largest prefill bucket; [8*768, 768]: a bulk shape
-    for rows, dtype in ((8, torch.bfloat16), (768, torch.bfloat16),
-                        (8 * 768, torch.bfloat16), (8 * 768, torch.float32)):
+    for rows, dtype, wdt, is_rms in LN_FWD_CASES:
         x = (2.0 * torch.randn(rows, h, device="cuda", generator=g)
              + 0.5).to(dtype)
-        wd, bd = w.to(dtype), b.to(dtype)
-        y, mean, iv = layer_norm_fwd_cuda(x, wd, bd, 1e-5, False, dtype)
-        ry, rmean, riv = layer_norm_fwd_plain(x, wd, bd, 1e-5, False, dtype)
+        wd, bd = w.to(wdt), None if is_rms else b.to(wdt)
+        run = lambda: layer_norm_fwd_cuda(x, wd, bd, 1e-5, is_rms,  # noqa
+                                          dtype)
+        y, mean, iv = run()
+        again = run()
+        ry, rmean, riv = layer_norm_fwd_plain(x.float(), wd, bd, 1e-5,
+                                              is_rms, torch.float32)
+        ry = ry.to(dtype)
         torch.cuda.synchronize()
         err = float((y.float() - ry.float()).abs().max())
         stat_err = max(float((mean - rmean).abs().max()),
                        float((iv - riv).abs().max()))
         ulps, ok, tol = check_close(y, ry)
-        if not ok or stat_err > 1e-4:
+        same = all(torch.equal(u, v) for u, v in zip((y, mean, iv), again))
+        if not ok or stat_err > 1e-4 or not same:
             raise AssertionError(
-                f"layer_norm_fwd [{rows},{h}] {dtype}: max err {err} "
-                f"({ulps} ulp), stats err {stat_err} — tolerance {tol}")
+                f"layer_norm_fwd [{rows},{h}] {dtype} w {wdt} rms={is_rms}: "
+                f"max err {err} ({ulps} ulp), stats err {stat_err} — "
+                f"tolerance {tol}, stats 1e-4; two runs bitwise equal: "
+                f"{same}")
         esz = x.element_size()
-        n_bytes = 2 * rows * h * esz + 2 * h * esz + 2 * rows * 4
+        n_bytes = 2 * rows * h * esz + (1 if is_rms else 2) * h * \
+            wd.element_size() + 2 * rows * 4
         bms, by = bound_ms(n_bytes, 8.0 * rows * h, dtype)
-        ms = timer(lambda: layer_norm_fwd_cuda(x, wd, bd, 1e-5, False, dtype))
-        plain = timer(lambda: layer_norm_fwd_plain(x, wd, bd, 1e-5, False,
+        ms = timer(run)
+        plain = timer(lambda: layer_norm_fwd_plain(x, wd, bd, 1e-5, is_rms,
                                                    dtype))
-        lib = timer(lambda: F.layer_norm(x, (h,), wd, bd, 1e-5))
+        # the library call with w and b in x's dtype (F.rms_norm where
+        # the installed PyTorch has it)
+        lib = None
+        if not is_rms:
+            lib = timer(lambda: F.layer_norm(x, (h,), wd.to(dtype),
+                                             bd.to(dtype), 1e-5))
+        elif hasattr(F, "rms_norm"):
+            lib = timer(lambda: F.rms_norm(x, (h,), wd.to(dtype), 1e-5))
         log("kernel_a", shape=f"[{rows},{h}]", dtype=str(dtype)[6:],
+            w=str(wdt)[6:], rms=is_rms,
+            plan=_plan_text(layer_norm_fwd_cuda_plan(x, y, wd, bd)),
             max_abs_err=f"{err:.3e}", ulps=ulps, tol=tol.replace(" ", "_"),
-            ms=f"{ms:.5f}",
-            plain_ms=f"{plain:.5f}", library_ms=f"{lib:.5f}",
+            repeat_bitwise=same, ms=f"{ms:.5f}", plain_ms=f"{plain:.5f}",
+            library_ms=None if lib is None else f"{lib:.5f}",
             bound_ms=f"{bms:.5f}", bound_by=by)
-        if rows == 8 and dtype == torch.bfloat16:
+        if (rows, dtype, wdt, is_rms) == (8, torch.bfloat16, torch.bfloat16,
+                                          False):
             record = dict(name="layer_norm_fwd", route="cuda",
                           source="apex_tpu_torch/csrc/layer_norm_fwd.cu",
                           replaces="apex_tpu/ops/layer_norm.py:50",
@@ -466,48 +509,59 @@ def phase_decode(timer: Timer) -> dict:
     return record
 
 
+#: (rows, h, dtype, RMSNorm): the training block's LN, bf16 x and dy over
+#: fp32 weight and bias (out_dtype=x.dtype), then all-f32, then RMSNorm;
+#: the T5 decoder's RMSNorm rows (16 x 114); a bf16 width off the 16-byte
+#: path (h % 8 != 0: the element kernel)
+LN_BWD_CASES = [(TRAIN_BATCH * TRAIN_SEQ, 768, torch.bfloat16, False),
+                (TRAIN_BATCH * TRAIN_SEQ, 768, torch.float32, False),
+                (TRAIN_BATCH * TRAIN_SEQ, 768, torch.bfloat16, True),
+                (T5_BATCH * T5_DEC, 768, torch.bfloat16, True),
+                (2048, 1020, torch.bfloat16, False)]
+
+
 def phase_layer_norm_bwd(timer: Timer) -> dict:
     from apex_tpu_torch.ops.layer_norm import (layer_norm_bwd_cuda,
+                                               layer_norm_bwd_cuda_plan,
                                                layer_norm_bwd_plain,
                                                layer_norm_fwd_plain)
     g = torch.Generator(device="cuda").manual_seed(4)
-    h = GPT2["hidden_size"]
-    rows = TRAIN_BATCH * TRAIN_SEQ
-    w = 1.0 + 0.1 * torch.randn(h, device="cuda", generator=g)
-    b = 0.1 * torch.randn(h, device="cuda", generator=g)
     record = None
-    # the training block's LN: bf16 x and dy over fp32 weight and bias
-    # (out_dtype=x.dtype), then all-f32, then RMSNorm
-    for dtype, is_rms in ((torch.bfloat16, False), (torch.float32, False),
-                          (torch.bfloat16, True)):
+    for rows, h, dtype, is_rms in LN_BWD_CASES:
+        w = 1.0 + 0.1 * torch.randn(h, device="cuda", generator=g)
+        b = 0.1 * torch.randn(h, device="cuda", generator=g)
         x = (2.0 * torch.randn(rows, h, device="cuda", generator=g)
              + 0.5).to(dtype)
         dy = torch.randn(rows, h, device="cuda", generator=g).to(dtype)
         bias = None if is_rms else b
         _, mean, iv = layer_norm_fwd_plain(x, w, bias, 1e-5, is_rms, dtype)
-        dx, dw, db = layer_norm_bwd_cuda(dy, x, mean, iv, w, is_rms,
-                                         bias is not None)
+        run = lambda: layer_norm_bwd_cuda(dy, x, mean, iv, w,  # noqa: E731
+                                          is_rms, bias is not None)
+        dx, dw, db = run()
+        again = run()
         rdx, rdw, rdb = layer_norm_bwd_plain(dy.float(), x.float(), mean,
                                              iv, w, is_rms, bias is not None)
         torch.cuda.synchronize()
         rdx = rdx.to(dtype)
         err = float((dx.float() - rdx.float()).abs().max())
         ulps, ok, tol = check_close(dx, rdx)
-        # dw/db: fp32 sums of 8192 rows in another order
+        # dw/db: fp32 sums of the rows in another order
         dw_err = max(float(((dw - rdw).abs() / (1.0 + rdw.abs())).max()),
                      0.0 if db is None else
                      float(((db - rdb).abs() / (1.0 + rdb.abs())).max()))
-        if not ok or dw_err > 1e-4:
+        same = all((u is None and v is None) or torch.equal(u, v)
+                   for u, v in zip((dx, dw, db), again))
+        if not ok or dw_err > 1e-4 or not same:
             raise AssertionError(
                 f"layer_norm_bwd [{rows},{h}] {dtype} rms={is_rms}: dx err "
                 f"{err} ({ulps} ulp, tolerance {tol}), dw/db rel err "
-                f"{dw_err} (tolerance 1e-4)")
+                f"{dw_err} (tolerance 1e-4); two runs bitwise equal: {same}")
         esz = x.element_size()
         n_bytes = 3 * rows * h * esz + 2 * rows * 4 + h * 4 + \
             (1 if is_rms else 2) * h * 4
         bms, by = bound_ms(n_bytes, 12.0 * rows * h, dtype)
-        ms = timer(lambda: layer_norm_bwd_cuda(dy, x, mean, iv, w, is_rms,
-                                               bias is not None))
+        ms = timer(run)
+        ms_cold = timer(run, cold=True)
         plain = timer(lambda: layer_norm_bwd_plain(dy, x, mean, iv, w,
                                                    is_rms, bias is not None))
         lib = None
@@ -519,12 +573,16 @@ def phase_layer_norm_bwd(timer: Timer) -> dict:
             lib = timer(lambda: torch.ops.aten.native_layer_norm_backward(
                 dy, x, [h], lmean, lrstd, wd, bd, [True, True, True]))
         log("kernel_d", shape=f"[{rows},{h}]", dtype=str(dtype)[6:],
-            rms=is_rms, max_abs_err=f"{err:.3e}", ulps=ulps,
+            rms=is_rms,
+            plan=_plan_text(layer_norm_bwd_cuda_plan(dy, x, dx, w,
+                                                     bias is not None)),
+            max_abs_err=f"{err:.3e}", ulps=ulps,
             tol=tol.replace(" ", "_"), dw_db_rel_err=f"{dw_err:.2e}",
-            ms=f"{ms:.5f}", plain_ms=f"{plain:.5f}",
+            repeat_bitwise=same, ms=f"{ms:.5f}", ms_cold=f"{ms_cold:.5f}",
+            plain_ms=f"{plain:.5f}",
             library_ms=None if lib is None else f"{lib:.5f}",
-            bound_ms=f"{bms:.5f}", bound_by=by)
-        if dtype == torch.bfloat16 and not is_rms:
+            bound_ms=f"{bms:.5f}", bound_by=by, dx_sha256=digest(dx))
+        if (rows, h, dtype, is_rms) == LN_BWD_CASES[0]:
             record = dict(name="layer_norm_bwd", route="cuda",
                           source="apex_tpu_torch/csrc/layer_norm_bwd.cu",
                           replaces="apex_tpu/ops/layer_norm.py:151",

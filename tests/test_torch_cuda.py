@@ -6,7 +6,9 @@ device; run them on a machine with one:
 
 They reach the corners the smoke test (``chip_smoke.py``) does not:
 RMSNorm and non-affine LayerNorm forward and backward at widths that are
-not a multiple of 32 and row counts over several backward blocks, flash
+not a multiple of 32 and row counts over several backward blocks, their
+16-byte paths at GPT-2's width in bf16 over fp32 weights (8193 rows, one
+row, RMSNorm, rows of 96 two to a warp; two runs bitwise equal), flash
 attention with ``kv_lengths`` (one of them 0), ``sq != sk``, GQA, sliding
 windows and head_dim 32/36/128, the packed-QKV forward and backward with
 GQA, partial and full RoPE, windows, ``kv_lengths`` and dropout (whose
@@ -72,8 +74,10 @@ from apex_tpu_torch.ops.decode_attention import (
 )
 from apex_tpu_torch.ops.layer_norm import (
     layer_norm_bwd_cuda,
+    layer_norm_bwd_cuda_plan,
     layer_norm_bwd_plain,
     layer_norm_fwd_cuda,
+    layer_norm_fwd_cuda_plan,
     layer_norm_fwd_plain,
 )
 from apex_tpu_torch.ops.rope import rope_freqs, rope_tables
@@ -219,6 +223,71 @@ def test_layer_norm_bwd_kernel(gen, rows, h, is_rms, affine, bias, dtype):
             torch.testing.assert_close(db, rdb, atol=1e-4, rtol=1e-5)
         else:
             assert db is None
+
+
+#: (rows, h, is_rms, bias) of the training block's norms in bf16 over fp32
+#: parameters, on the 16-byte kernels: a row past a whole grid, one row,
+#: RMSNorm (the T5 decoder's rows), rows of 96 two to a warp
+LN_VECTOR = {
+    "ln_8193": (8193, 768, False, True),
+    "ln_1": (1, 768, False, True),
+    "rms_8193": (8193, 768, True, False),
+    "rms_1824": (1824, 768, True, False),
+    "ln_h96": (300, 96, False, True),
+}
+
+
+def _ln_vector_inputs(gen, name):
+    rows, h, is_rms, bias = LN_VECTOR[name]
+    x = (2 * torch.randn(rows, h, device="cuda", generator=gen) + 0.5) \
+        .bfloat16()
+    dy = torch.randn(rows, h, device="cuda", generator=gen).bfloat16()
+    w = 1 + 0.1 * torch.randn(h, device="cuda", generator=gen)
+    b = 0.1 * torch.randn(h, device="cuda", generator=gen) if bias else None
+    return x, dy, w, b, is_rms
+
+
+@pytest.mark.parametrize("name", list(LN_VECTOR))
+def test_layer_norm_vector_paths(gen, name):
+    """Kernels A and D on their 16-byte paths: y and dx within 1 bf16 ulp
+    of the plain versions run in fp32, mean and invvar within 1e-4, dw and
+    db within 1e-4 of 1 + |value| (fp32 sums in another order)."""
+    x, dy, w, b, is_rms = _ln_vector_inputs(gen, name)
+    y, mean, iv = layer_norm_fwd_cuda(x, w, b, 1e-5, is_rms, torch.bfloat16)
+    assert layer_norm_fwd_cuda_plan(x, y, w, b).path == "vector"
+    ry, rmean, riv = layer_norm_fwd_plain(x.float(), w, b, 1e-5, is_rms,
+                                          torch.float32)
+    assert_close_once_rounded(y, ry.bfloat16())
+    torch.testing.assert_close(mean, rmean, atol=1e-4, rtol=0)
+    torch.testing.assert_close(iv, riv, atol=1e-4, rtol=0)
+    dx, dw, db = layer_norm_bwd_cuda(dy, x, mean, iv, w, is_rms,
+                                     b is not None)
+    assert layer_norm_bwd_cuda_plan(dy, x, dx, w, b is not None).path == \
+        "vector"
+    rdx, rdw, rdb = layer_norm_bwd_plain(dy.float(), x.float(), mean, iv, w,
+                                         is_rms, b is not None)
+    assert_close_once_rounded(dx, rdx.bfloat16())
+    for got, want in ((dw, rdw), (db, rdb)):
+        if want is None:
+            assert got is None
+        else:
+            assert float(((got - want).abs() / (1 + want.abs())).max()) \
+                <= 1e-4
+
+
+@pytest.mark.parametrize("name", ["ln_8193", "rms_8193", "ln_h96"])
+def test_layer_norm_vector_paths_are_bitwise_repeatable(gen, name):
+    """Two runs of each 16-byte kernel give the same bits: D's dw/db sums
+    take a fixed order (the grid from the occupancy, rows split
+    statically, no atomics)."""
+    x, dy, w, b, is_rms = _ln_vector_inputs(gen, name)
+    y1 = layer_norm_fwd_cuda(x, w, b, 1e-5, is_rms, torch.bfloat16)
+    y2 = layer_norm_fwd_cuda(x, w, b, 1e-5, is_rms, torch.bfloat16)
+    _, mean, iv = y1
+    g1 = layer_norm_bwd_cuda(dy, x, mean, iv, w, is_rms, b is not None)
+    g2 = layer_norm_bwd_cuda(dy, x, mean, iv, w, is_rms, b is not None)
+    for one, two in zip((*y1, *g1), (*y2, *g2)):
+        assert (one is None and two is None) or torch.equal(one, two)
 
 
 PACKED = {

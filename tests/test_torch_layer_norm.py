@@ -283,3 +283,73 @@ def test_bf16_block_grads_keep_their_dtypes():
     assert x.grad.dtype == torch.bfloat16
     assert w.grad.dtype == torch.float32 and b.grad.dtype == torch.float32
     assert LAUNCHES == before
+
+
+BF16, F32 = torch.bfloat16, torch.float32
+#: (kernel, m, h, dy dtype (backward), x dtype, misaligned) at the shapes
+#: the card checks run (chip_smoke.py, tests/test_torch_cuda.py), and the
+#: plan expected with two resident blocks an SM on 132 SMs: (pieces a lane,
+#: rows a warp, path, blocks = Kernel D's partial rows)
+PLAN_CASES = {
+    "fwd_decode_8x768": ("fwd", 8, 768, None, BF16, False,
+                         (3, 1, "vector", 8)),
+    "fwd_prefill_768x768": ("fwd", 768, 768, None, BF16, False,
+                            (3, 1, "vector", 256)),
+    "fwd_bulk_6144x768": ("fwd", 6144, 768, None, BF16, False,
+                          (3, 1, "vector", 256)),
+    "fwd_train_8192x768": ("fwd", 8192, 768, None, BF16, False,
+                           (3, 1, "vector", 256)),
+    "fwd_f32_6144x768": ("fwd", 6144, 768, None, F32, False,
+                         (0, 1, "element", 1536)),
+    "fwd_h96": ("fwd", 300, 96, None, BF16, False, (1, 2, "vector", 150)),
+    "fwd_h1000": ("fwd", 5, 1000, None, BF16, False, (4, 1, "vector", 5)),
+    "fwd_h4096": ("fwd", 1, 4096, None, BF16, False, (0, 1, "element", 1)),
+    "fwd_h1020": ("fwd", 300, 1020, None, BF16, False,
+                  (0, 1, "element", 75)),
+    "fwd_misaligned": ("fwd", 8192, 768, None, BF16, True,
+                       (0, 1, "element", 2048)),
+    "bwd_train_8192x768": ("bwd", 8192, 768, BF16, BF16, False,
+                           (3, 1, "vector", 256)),
+    "bwd_8193x768": ("bwd", 8193, 768, BF16, BF16, False,
+                     (3, 1, "vector", 257)),
+    "bwd_1x768": ("bwd", 1, 768, BF16, BF16, False, (3, 1, "vector", 1)),
+    "bwd_t5_decoder_1824x768": ("bwd", 1824, 768, BF16, BF16, False,
+                                (3, 1, "vector", 261)),
+    "bwd_f32_8192x768": ("bwd", 8192, 768, F32, F32, False,
+                         (0, 1, "element", 256)),
+    "bwd_mixed_f32_dy": ("bwd", 8192, 768, F32, BF16, False,
+                         (0, 1, "element", 256)),
+    "bwd_h96": ("bwd", 300, 96, BF16, BF16, False, (1, 2, "vector", 150)),
+    "bwd_h1000": ("bwd", 5, 1000, BF16, BF16, False, (4, 1, "vector", 5)),
+    "bwd_h1020": ("bwd", 300, 1020, BF16, BF16, False,
+                  (0, 1, "element", 10)),
+    "bwd_h4096": ("bwd", 70, 4096, BF16, BF16, False, (0, 1, "element", 3)),
+    "bwd_misaligned": ("bwd", 8192, 768, BF16, BF16, True,
+                       (0, 1, "element", 256)),
+}
+
+
+@pytest.mark.parametrize("name", list(PLAN_CASES))
+def test_kernel_a_d_launch_plan(name):
+    """The host's choice between the 16-byte kernels and the element
+    kernels, and the grid: every row in exactly one block, rows split
+    statically, the 16-byte grid within the card's resident blocks."""
+    from apex_tpu_torch.ops.layer_norm import (layer_norm_bwd_plan,
+                                               layer_norm_fwd_plan)
+    kernel, m, h, dy_dtype, x_dtype, misaligned, want = PLAN_CASES[name]
+    n_sms, resident = 132, 2
+    ptrs = (4096 + (2 if misaligned else 0), 8192, 12288, None)
+    if kernel == "fwd":
+        plan = layer_norm_fwd_plan(m, h, x_dtype, ptrs, lambda p: resident,
+                                   n_sms)
+    else:
+        plan = layer_norm_bwd_plan(m, h, dy_dtype, x_dtype, ptrs,
+                                   lambda p: resident, n_sms)
+    assert (plan.pieces, plan.rows_a_warp, plan.path, plan.blocks) == want
+    assert (plan.blocks - 1) * plan.block_rows < m <= \
+        plan.blocks * plan.block_rows
+    if plan.pieces:
+        assert plan.pieces * 8 * plan.lanes >= h > \
+            (plan.pieces - 1) * 8 * plan.lanes
+        assert plan.lanes * plan.rows_a_warp == 32
+        assert plan.blocks <= n_sms * resident
