@@ -15,12 +15,17 @@ can show that its main path went through the kernels.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Dict, Optional, Union
 
 import torch
 
+from apex_tpu_torch.ops import _build
+
 __all__ = ["LAUNCHES", "reset_launches", "count_launch", "resolve_device",
-           "is_cpu", "forward_only", "cdiv", "round_up", "dtype_code"]
+           "is_cpu", "forward_only", "cdiv", "round_up", "dtype_code",
+           "sm_count", "blocks_per_sm"]
 
 #: launches per kernel since the last :func:`reset_launches` — a wrapper
 #: adds one where it launches its kernel, and nowhere else
@@ -105,3 +110,23 @@ def dtype_code(dtype: torch.dtype) -> int:
         raise TypeError(
             f"the CUDA kernels take float32 or bfloat16, got {dtype}") \
             from None
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: int) -> int:
+    """The streaming multiprocessors of CUDA device ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def blocks_per_sm(device: int, name: str, *args: int) -> int:
+    """Resident blocks an SM of a kernel on CUDA device ``device``, from
+    its C occupancy query ``name`` (``args`` before the out pointer),
+    asked once per configuration."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        status = getattr(_build.library(), name)(*args, ctypes.addressof(out))
+    _build.check(name, status)
+    if out.value < 1:
+        raise RuntimeError(f"{name}{args}: no block fits on an SM")
+    return out.value

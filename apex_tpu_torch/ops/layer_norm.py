@@ -21,8 +21,6 @@ resident blocks; every other call takes the element kernels.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Callable, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
@@ -117,23 +115,11 @@ def layer_norm_bwd_plan(m: int, h: int, dy_dtype: torch.dtype,
     return _vector_plan(m, h, blocks_per_sm, n_sms)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: int) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-@functools.lru_cache(maxsize=None)
 def _blocks_per_sm(device: int, kernel: str, *args: int) -> int:
     """The card's occupancy of a 16-byte kernel (its C query's ``args``
     before the out pointer), asked once per configuration."""
-    out = ctypes.c_int(0)
-    name = f"apex_layer_norm_{kernel}_blocks_per_sm"
-    with torch.cuda.device(device):
-        status = getattr(_build.library(), name)(*args, ctypes.addressof(out))
-    _build.check(name, status)
-    if out.value < 1:
-        raise RuntimeError(f"{name}{args}: no block fits on an SM")
-    return out.value
+    return _support.blocks_per_sm(
+        device, f"apex_layer_norm_{kernel}_blocks_per_sm", *args)
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -154,7 +140,7 @@ def layer_norm_fwd_cuda_plan(x2, y, w, b) -> LayerNormPlan:
     return layer_norm_fwd_plan(
         m, h, x2.dtype, (x2.data_ptr(), y.data_ptr(), _ptr(w), _ptr(b)),
         lambda pieces: _blocks_per_sm(dev, "fwd", pieces, *codes),
-        _sm_count(dev))
+        _support.sm_count(dev))
 
 
 def layer_norm_bwd_cuda_plan(dy2, x2, dx, w, has_bias: bool
@@ -169,7 +155,7 @@ def layer_norm_bwd_cuda_plan(dy2, x2, dx, w, has_bias: bool
         (dy2.data_ptr(), x2.data_ptr(), dx.data_ptr(), _ptr(w)),
         lambda pieces: _blocks_per_sm(dev, "bwd", h, pieces, _dtype_code(w),
                                       affine),
-        _sm_count(dev))
+        _support.sm_count(dev))
 
 
 def _as_shape(s: Shape) -> Tuple[int, ...]:

@@ -12,7 +12,12 @@ printing its own lines and raising on failure:
               fp32 w and b into bf16 y) at [8192, 768] in LayerNorm and
               RMSNorm; two runs bitwise equal; the launch plan printed;
 4. kernel B — flash attention forward vs its plain version;
-5. kernel C — paged decode attention vs its plain version;
+5. kernel C — paged decode attention vs its plain version: the serve
+              shape (b 8, 12 heads, positions 63-700) in bf16 and f32 on
+              the vector path, GQA at head_dim 128 over 2048 rows with and
+              without a window, one slot at 767, a slot at 0 and a
+              sentinel inside a slot's range, head_dim 60 (the element
+              path); two runs bitwise equal; the launch plan printed;
 6. kernel D — LayerNorm backward vs its plain version: GPT-2's training
               rows in bf16 over fp32 w and b, f32 and RMSNorm, the T5
               decoder's [1824, 768] RMSNorm and a bf16 width off the
@@ -445,60 +450,137 @@ def phase_flash(timer: Timer) -> dict:
     return record
 
 
-def phase_decode(timer: Timer) -> dict:
-    from apex_tpu_torch.ops.decode_attention import (append_rows,
-                                                     decode_plain, page_pool,
-                                                     paged_decode_cuda)
-    g = torch.Generator(device="cuda").manual_seed(3)
-    b, hl, dh, ps, max_len = 8, 12, 64, 64, 768
-    pps = max_len // ps
-    n_pages = b * pps
-    f = hl * dh
-    positions = torch.tensor([63, 64, 200, 700] * 2, dtype=torch.int32)
-    # each slot maps the pages its rows [0, pos] need, from a shuffled
-    # pool; the rest of its row is the sentinel n_pages
+def _decode_plan_text(plan) -> str:
+    """Kernel C's launch plan as one log field."""
+    return (f"{plan.path}:split_pages{plan.split_pages}:splits{plan.splits}"
+            f":heads{plan.heads}:grid{'x'.join(map(str, plan.grid))}")
+
+
+def _decode_inputs(b, hl, group, dh, ps, pps, positions, dtype, g,
+                   sentinel=False):
+    """Pools whose slots map the pages their rows [0, pos] need, from a
+    shuffled pool (the rest of a slot's row is the sentinel n_pages;
+    with ``sentinel`` also slot 5's second page), holding the step's
+    appended rows."""
+    from apex_tpu_torch.ops.decode_attention import append_rows, page_pool
+    f = hl // group * dh
+    need = [min(pps, p // ps + 1) for p in positions]
+    n_pages = max(sum(need), 1)
     perm = torch.randperm(n_pages, generator=torch.Generator().manual_seed(3))
     table = torch.full((b, pps), n_pages, dtype=torch.int32)
     used = 0
     for r in range(b):
-        need = int(positions[r]) // ps + 1
-        table[r, :need] = perm[used:used + need]
-        used += need
+        table[r, :need[r]] = perm[used:used + need[r]]
+        used += need[r]
+    if sentinel:
+        table[5, 1] = n_pages
+    kp = page_pool(n_pages, ps, f, dtype, "cuda")
+    vp = page_pool(n_pages, ps, f, dtype, "cuda")
+    kp.copy_(torch.randn(kp.shape, device="cuda", generator=g))
+    vp.copy_(torch.randn(vp.shape, device="cuda", generator=g))
+    q = torch.randn(b, hl, dh, device="cuda", generator=g).to(dtype)
+    rows = torch.randn(2, b, f, device="cuda", generator=g).to(dtype)
+    pt = table.cuda()
+    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    append_rows(kp, rows[0], pt, pos, ps)
+    append_rows(vp, rows[1], pt, pos, ps)
+    return q, kp, vp, pt, pos
+
+
+def _decode_rows(positions, ps, pps, window) -> int:
+    """The K/V rows Kernel C must read: each slot's rows
+    max(0, pos - window + 1) to min(pos, pps * ps - 1)."""
+    last = pps * ps - 1
+    return sum(max(0, min(p, last) - (max(0, p - window + 1) if window
+                                      else 0) + 1) for p in positions)
+
+
+def _decode_bytes(q, pt, positions, ps, kvh, window) -> int:
+    """The bytes Kernel C must move: K and V at the rows of
+    :func:`_decode_rows` for every kv head, q and ctx, the page table and
+    the positions."""
+    b, hl, dh = q.shape
+    rows = _decode_rows(positions, ps, pt.shape[1], window)
+    return (2 * rows * kvh * dh + 2 * b * hl * dh) * q.element_size() \
+        + pt.numel() * 4 + b * 4
+
+
+def _decode_check(name, q, kp, vp, pt, pos, group, window) -> tuple:
+    """Kernel C against its plain version run in f32 and rounded once
+    (1 bf16 ulp, f32 atol 1e-4), two runs bitwise equal; logs the case
+    with its plan and returns (max abs err, plan)."""
+    from apex_tpu_torch.ops.decode_attention import (decode_plain,
+                                                     paged_decode_cuda,
+                                                     paged_decode_cuda_plan)
+    plan = paged_decode_cuda_plan(q, kp, vp, pt, group, window)
+    ctx = paged_decode_cuda(q, kp, vp, pt, pos, group, window)
+    again = paged_decode_cuda(q, kp, vp, pt, pos, group, window)
+    ref = decode_plain(q.float(), kp.float(), vp.float(), pt, pos, group,
+                       window).to(q.dtype)
+    torch.cuda.synchronize()
+    err = float((ctx.float() - ref.float()).abs().max())
+    ulps, ok, tol = check_close(ctx, ref)
+    same = torch.equal(ctx, again)
+    log("kernel_c_case", case=name, dtype=str(q.dtype)[6:],
+        shape=f"b{q.shape[0]} heads{q.shape[1]} group{group} "
+        f"dh{q.shape[2]} page{kp.shape[1]}".replace(" ", "_"),
+        window=window, plan=_decode_plan_text(plan),
+        max_abs_err=f"{err:.3e}", ulps=ulps, tol=tol.replace(" ", "_"),
+        repeat_bitwise=same)
+    if not ok or not same:
+        raise AssertionError(f"paged_decode {name} {q.dtype}: max err {err} "
+                             f"({ulps} ulp; {tol}), repeat bitwise {same}")
+    return err, plan
+
+
+#: Kernel C's cases beside the serve shape: (name, b, heads, group,
+#: head_dim, page, pages a slot, positions, window, dtypes, sentinel) —
+#: GQA at head_dim 128 over 2048 rows with and without a window, one slot
+#: at the serve cell's last row (the old grid's 12 blocks), the card
+#: test's corners at pages of 16 (a slot at 0, one at its table's last
+#: row, a sentinel inside a slot's range; GQA with a window), and head_dim
+#: 60 in bf16 (the element path)
+DECODE_CASES = [
+    ("gqa", 8, 32, 4, 128, 64, 32, (2047,) * 8, None,
+     (torch.bfloat16, torch.float32), False),
+    ("gqa_window", 8, 32, 4, 128, 64, 32, (2047,) * 8, 512,
+     (torch.bfloat16,), False),
+    ("one", 1, 12, 1, 64, 64, 12, (767,), None, (torch.bfloat16,), False),
+    ("corners", 6, 12, 3, 64, 16, 8, (0, 15, 16, 77, 127, 40), 20,
+     (torch.bfloat16, torch.float32), True),
+    ("element_dh60", 8, 12, 1, 60, 64, 12, (63, 64, 200, 700) * 2, None,
+     (torch.bfloat16,), False),
+]
+
+
+def phase_decode(timer: Timer) -> dict:
+    from apex_tpu_torch.ops.decode_attention import (decode_plain,
+                                                     paged_decode_cuda)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    b, hl, dh, ps, max_len = 8, 12, 64, 64, 768
+    pps = max_len // ps
+    positions = (63, 64, 200, 700) * 2
     record = None
     for dtype in (torch.bfloat16, torch.float32):
-        kp = page_pool(n_pages, ps, f, dtype, "cuda")
-        vp = page_pool(n_pages, ps, f, dtype, "cuda")
-        kp.copy_(torch.randn(kp.shape, device="cuda", generator=g))
-        vp.copy_(torch.randn(vp.shape, device="cuda", generator=g))
-        q = torch.randn(b, hl, dh, device="cuda", generator=g).to(dtype)
-        rows = torch.randn(2, b, f, device="cuda", generator=g).to(dtype)
-        pt, pos = table.cuda(), positions.cuda()
-        append_rows(kp, rows[0], pt, pos, ps)
-        append_rows(vp, rows[1], pt, pos, ps)
-        ctx = paged_decode_cuda(q, kp, vp, pt, pos, 1, None)
-        ref = decode_plain(q.float(), kp.float(), vp.float(), pt, pos, 1,
-                           None).to(dtype)
-        torch.cuda.synchronize()
-        err = float((ctx.float() - ref.float()).abs().max())
-        ulps, ok, tol = check_close(ctx, ref)
-        if not ok:
-            raise AssertionError(f"paged_decode {dtype}: max err {err} "
-                                 f"({ulps} ulp) — tolerance {tol}")
-        mapped = sum(int(p) // ps + 1 for p in positions)
-        esz = q.element_size()
-        n_bytes = (2 * mapped * ps * f + 2 * b * f) * esz + table.numel() \
-            * 4 + b * 4
-        visible = sum(int(p) + 1 for p in positions)
-        bms, by = bound_ms(n_bytes, 4.0 * dh * hl * visible, dtype)
+        q, kp, vp, pt, pos = _decode_inputs(b, hl, 1, dh, ps, pps, positions,
+                                            dtype, g)
+        err, plan = _decode_check("table", q, kp, vp, pt, pos, 1, None)
+        if plan.path != "vector":
+            raise AssertionError(f"paged_decode {dtype} at the serve shape "
+                                 f"took the {plan.path} path")
+        rows = _decode_rows(positions, ps, pps, None)
+        bms, by = bound_ms(_decode_bytes(q, pt, positions, ps, hl, None),
+                           4.0 * dh * hl * rows, dtype)
         ms = timer(lambda: paged_decode_cuda(q, kp, vp, pt, pos, 1, None),
                    cold=True)
         plain = timer(lambda: decode_plain(q, kp, vp, pt, pos, 1, None),
                       cold=True, iters=10)
         log("kernel_c", shape=f"b{b} heads{hl} dh{dh} page{ps}",
-            positions=[int(p) for p in positions[:4]], dtype=str(dtype)[6:],
-            max_abs_err=f"{err:.3e}", ulps=ulps, tol=tol.replace(" ", "_"),
-            ms=f"{ms:.5f}", plain_ms=f"{plain:.5f}", library_ms=None,
-            bound_ms=f"{bms:.5f}", bound_by=by, mapped_pages=mapped)
+            positions=list(positions[:4]), dtype=str(dtype)[6:],
+            max_abs_err=f"{err:.3e}", ms=f"{ms:.5f}",
+            plain_ms=f"{plain:.5f}", library_ms=None,
+            bound_ms=f"{bms:.5f}", bound_by=by, rows_read=rows,
+            plan=_decode_plan_text(plan))
         if dtype == torch.bfloat16:
             record = dict(name="paged_decode", route="cuda",
                           source="apex_tpu_torch/csrc/paged_decode.cu",
@@ -506,6 +588,18 @@ def phase_decode(timer: Timer) -> dict:
                           shape=f"b{b} heads{hl} dh{dh} page{ps} bf16 cold L2",
                           max_abs_err=err, ms=ms, plain_ms=plain,
                           bound_ms=bms, bound_by=by, library_ms=None)
+    for (name, b, hl, group, dh, ps, pps, positions, window, dtypes,
+         sentinel) in DECODE_CASES:
+        for dtype in dtypes:
+            args = _decode_inputs(b, hl, group, dh, ps, pps, positions,
+                                  dtype, g, sentinel)
+            _, plan = _decode_check(name, *args, group, window)
+            if plan.path != ("element" if name == "element_dh60"
+                             else "vector"):
+                raise AssertionError(f"paged_decode {name} {dtype}: "
+                                     f"{plan.path} path")
+            del args
+    torch.cuda.empty_cache()
     return record
 
 

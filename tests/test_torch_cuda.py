@@ -15,21 +15,24 @@ GQA, partial and full RoPE, windows, ``kv_lengths`` and dropout (whose
 keep mask is read off exactly with ``v = I``, in f32 and bf16, and whose
 seed may stay on the card with no host sync), at lengths around the bf16
 forward's 64-row tiles (63-65, 127-129), head_dim 36 and 40, a window and
-``kv_lengths`` that end inside a tile, T5-like encoder and decoder
-shapes, with two bf16 forward runs bitwise equal, paged decode with GQA, a
-sliding window and sentinel pages, the masked softmax forward and
-backward (padding masks with fully masked rows read through their broadcast
-strides, key masks, causal, rows of 17 to 4097, a scale), and the 4D flash
-backward (cross-attention with ``kv_lengths``, a 0 length, causal with the
-``sk - sq`` offset, GQA, windows; bitwise repeatable), and the fused 1x1
-and 3x3 conv + batch-norm kernels forward and backward (every ``(affine,
-relu)`` combination, row and channel counts off the 64-wide tiles, images
-of 1 x 1 to 14 x 14, a stats cotangent; bitwise repeatable). Tolerances:
-f32 atol 1e-4 (summation order only, TF32 off; the softmax 1e-5); bf16 1
-ulp of an fp32 reference rounded to bf16 (the flash backwards, which round
-ds and p to bf16 where the JAX kernels do: 1 ulp plus one bf16 step of
-each rounded factor, at most 0.1% of the elements past 1 ulp); the conv
-kernels' fp32 sums (y and dx in f32, stats, dW, da, db) norm-wise 1e-5.
+``kv_lengths`` that end inside a tile, T5-like encoder and decoder shapes,
+with two bf16 forward runs bitwise equal, paged decode on both of its
+paths with GQA (two head chunks at a group of 12), head_dim 128, a sliding
+window, a slot at 0 and one at its table's last row, a sentinel inside a
+slot's range, and repeated calls bitwise equal, the masked softmax forward
+and backward (padding masks with fully masked rows read through their
+broadcast strides, key masks, causal, rows of 17 to 4097, a scale), and
+the 4D flash backward (cross-attention with ``kv_lengths``, a 0 length,
+causal with the ``sk - sq`` offset, GQA, windows; bitwise repeatable), and
+the fused 1x1 and 3x3 conv + batch-norm kernels forward and backward
+(every ``(affine, relu)`` combination, row and channel counts off the
+64-wide tiles, images of 1 x 1 to 14 x 14, a stats cotangent; bitwise
+repeatable). Tolerances: f32 atol 1e-4 (summation order only, TF32 off;
+the softmax 1e-5); bf16 1 ulp of an fp32 reference rounded to bf16 (the
+flash backwards, which round ds and p to bf16 where the JAX kernels do: 1
+ulp plus one bf16 step of each rounded factor, at most 0.1% of the
+elements past 1 ulp); the conv kernels' fp32 sums (y and dx in f32, stats,
+dW, da, db) norm-wise 1e-5.
 """
 
 import math
@@ -71,6 +74,7 @@ from apex_tpu_torch.ops.decode_attention import (
     decode_plain,
     page_pool,
     paged_decode_cuda,
+    paged_decode_cuda_plan,
 )
 from apex_tpu_torch.ops.layer_norm import (
     layer_norm_bwd_cuda,
@@ -167,14 +171,25 @@ def test_flash_kernel(gen, name, dtype):
         assert not o[row].any() and bool((lse[row] == 1e30).all())
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("group,window", [(1, None), (4, None), (3, 20),
-                                          (12, 70)])
-def test_paged_decode_kernel(gen, group, window, dtype):
-    b, hl, dh, ps, pps, n_pages = 6, 12, 64, 16, 8, 40
-    kvh = hl // group
-    f = kvh * dh
-    positions = torch.tensor([0, 15, 16, 77, 127, 40], dtype=torch.int32)
+PAGED = {
+    # (b, heads, group, head_dim, window); slot r at PAGED_POSITIONS[r]
+    "mha": (6, 12, 1, 64, None),
+    "gqa4": (6, 12, 4, 64, None),
+    "gqa3_window": (6, 12, 3, 64, 20),
+    "mqa_window_two_chunks": (6, 12, 12, 64, 70),
+    "one_slot_at_table_end": (1, 12, 1, 64, None),
+    "head_dim_128_gqa4": (6, 16, 4, 128, None),
+    "head_dim_60_element_path": (6, 12, 4, 60, None),
+}
+#: a slot at 0, at a page's last and next row, inside the table, at its
+#: last row (127 = 8 pages of 16), and one with a sentinel inside its range
+PAGED_POSITIONS = (127, 15, 16, 77, 0, 40)
+
+
+def _paged_case(gen, b, hl, group, dh, dtype):
+    ps, pps, n_pages = 16, 8, 40
+    f = hl // group * dh
+    positions = torch.tensor(PAGED_POSITIONS[:b], dtype=torch.int32)
     table = torch.full((b, pps), n_pages, dtype=torch.int32)
     perm = torch.randperm(n_pages, generator=torch.Generator().manual_seed(1))
     used = 0
@@ -182,7 +197,8 @@ def test_paged_decode_kernel(gen, group, window, dtype):
         need = min(pps, int(positions[r]) // ps + 1)
         table[r, :need] = perm[used:used + need]
         used += need
-    table[5, 1] = n_pages          # a sentinel inside the slot's range
+    if b > 5:
+        table[5, 1] = n_pages      # a sentinel inside the slot's range
     kp = page_pool(n_pages, ps, f, dtype, "cuda")
     vp = page_pool(n_pages, ps, f, dtype, "cuda")
     kp.copy_(torch.randn(kp.shape, device="cuda", generator=gen))
@@ -192,10 +208,37 @@ def test_paged_decode_kernel(gen, group, window, dtype):
     pt, pos = table.cuda(), positions.cuda()
     append_rows(kp, rows[0], pt, pos, ps)
     append_rows(vp, rows[1], pt, pos, ps)
+    return q, kp, vp, pt, pos
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(PAGED))
+def test_paged_decode_kernel(gen, name, dtype):
+    b, hl, group, dh, window = PAGED[name]
+    q, kp, vp, pt, pos = _paged_case(gen, b, hl, group, dh, dtype)
+    plan = paged_decode_cuda_plan(q, kp, vp, pt, group, window)
+    vector = dtype == torch.float32 or dh % 8 == 0
+    assert plan.path == ("vector" if vector else "element")
+    before = _support.LAUNCHES["paged_decode"]
     ctx = paged_decode_cuda(q, kp, vp, pt, pos, group, window)
+    assert _support.LAUNCHES["paged_decode"] == before + 1
     ref = decode_plain(q.float(), kp.float(), vp.float(), pt, pos, group,
                        window).to(dtype)
     assert_close_once_rounded(ctx, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["mha", "gqa3_window", "head_dim_128_gqa4"])
+def test_paged_decode_kernel_bitwise_repeatable(gen, name, dtype):
+    """The splits merge in a fixed order whatever block ends last, and the
+    counters are left at zero: repeated calls give the same bits."""
+    b, hl, group, dh, window = PAGED[name]
+    q, kp, vp, pt, pos = _paged_case(gen, b, hl, group, dh, dtype)
+    assert paged_decode_cuda_plan(q, kp, vp, pt, group, window).splits > 1
+    first = paged_decode_cuda(q, kp, vp, pt, pos, group, window)
+    for _ in range(3):
+        assert torch.equal(paged_decode_cuda(q, kp, vp, pt, pos, group,
+                                             window), first)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -21,7 +21,17 @@ keeps scores and p in fp32 and rounds the context once. So in bf16
 Kernel C computes, the plain version run in f32 and rounded once, to
 ``_pallas`` in interpret mode within 1 bf16 ulp. The two pairs differ
 from each other by design.
+
+Kernel C's launch plan (``paged_decode_plan``: vector or element path,
+pages a split, splits, heads a block) is pure Python and pinned here at
+every shape the card checks and the timing tool use; the vector kernel's
+walk (splits of a slot's pages, row slots stepping by the block's row
+slots in tiles, the online softmax in log2 units, the merges of row
+slots, warps and splits in fixed order) is emulated in fp32 numpy and
+held to the plain version within 1e-5.
 """
+
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -32,9 +42,13 @@ from apex_tpu.ops import _support as jax_support
 from apex_tpu.ops.decode_attention import _pallas, _reference
 from apex_tpu_torch.ops import _support
 from apex_tpu_torch.ops.decode_attention import (
+    DecodePlan,
     append_rows,
+    decode_plain,
     fused_paged_decode_attention,
     page_pool,
+    paged_decode_cuda_plan,
+    paged_decode_plan,
 )
 
 N_PAGES, PS, PPS = 12, 8, 5
@@ -216,3 +230,275 @@ def test_plain_path_counts_no_launch():
     before = dict(_support.LAUNCHES)
     _run_torch(*_inputs(), None)
     assert _support.LAUNCHES == before
+
+
+
+#: a card's resident blocks an SM by the query heads a block holds (made
+#: up: the plan's arithmetic is what is pinned, the card answers its own)
+_OCCUPANCY = {1: 8, 2: 6, 3: 4, 4: 4, 5: 2, 6: 2, 7: 2, 8: 2}
+BF16, F32 = torch.bfloat16, torch.float32
+
+#: (b, heads, kv heads, head_dim, page size, pages a slot, dtype, aligned,
+#: window)
+#: -> (path, pieces, lanes, heads a block, pages a split, splits, grid)
+_PLANS = [
+    # chip_smoke / decode_timing "table" and "full" (GPT-2 serve), bf16, f32
+    ((8, 12, 12, 64, 64, 12, BF16, True, None),
+     ("vector", 1, 8, 1, 2, 6, (12, 8, 6))),
+    ((8, 12, 12, 64, 64, 12, F32, True, None),
+     ("vector", 1, 16, 1, 2, 6, (12, 8, 6))),
+    # "one": b 1 at 767
+    ((1, 12, 12, 64, 64, 12, BF16, True, None),
+     ("vector", 1, 8, 1, 1, 12, (12, 1, 12))),
+    # "gqa": 32 heads over 8, head_dim 128, 2048 rows
+    ((8, 32, 8, 128, 64, 32, BF16, True, None),
+     ("vector", 1, 16, 4, 4, 8, (8, 8, 8))),
+    # "gqa_window": a window of 512 rows spans at most 9 pages, so the
+    # splits are sized on 9 pages and cover all 32
+    ((8, 32, 8, 128, 64, 32, BF16, True, 512),
+     ("vector", 1, 16, 4, 2, 16, (8, 8, 16))),
+    # a window shorter than a page: 2 pages at most
+    ((6, 12, 3, 64, 16, 8, BF16, True, 9),
+     ("vector", 1, 8, 4, 1, 8, (3, 6, 8))),
+    # G 8 at head_dim 64: one block holds the whole group
+    ((8, 32, 4, 64, 64, 12, BF16, True, None),
+     ("vector", 1, 8, 8, 2, 6, (4, 8, 6))),
+    # test_paged_decode_kernel: pages of 16, G 1, 4, 3 and 12 (two chunks
+    # of 6), bf16 and f32
+    ((6, 12, 12, 64, 16, 8, BF16, True, None),
+     ("vector", 1, 8, 1, 1, 8, (12, 6, 8))),
+    ((6, 12, 3, 64, 16, 8, BF16, True, None),
+     ("vector", 1, 8, 4, 1, 8, (3, 6, 8))),
+    ((6, 12, 4, 64, 16, 8, F32, True, None),
+     ("vector", 1, 16, 3, 1, 8, (4, 6, 8))),
+    ((6, 12, 1, 64, 16, 8, BF16, True, None),
+     ("vector", 1, 8, 6, 1, 8, (2, 6, 8))),
+    # head_dim 128 at G 4 (the card test's GQA case)
+    ((6, 16, 4, 128, 16, 8, BF16, True, None),
+     ("vector", 1, 16, 4, 1, 8, (4, 6, 8))),
+    # f32 at head_dim 256: two pieces a lane
+    ((2, 4, 2, 256, 64, 16, F32, True, None),
+     ("vector", 2, 32, 2, 1, 16, (2, 2, 16))),
+    # more triples than a wave: one split of at most 64 pages
+    ((64, 32, 32, 64, 16, 4096, BF16, True, None),
+     ("vector", 1, 8, 1, 64, 64, (32, 64, 64))),
+    # the element path: head_dim 60 in bf16 (off the 8-element pieces), a
+    # misaligned base, head_dim past 256
+    ((8, 12, 12, 60, 64, 12, BF16, True, None),
+     ("element", 0, 0, 1, 12, 1, (12, 8, 1))),
+    ((8, 12, 12, 64, 64, 12, BF16, False, None),
+     ("element", 0, 0, 1, 12, 1, (12, 8, 1))),
+    ((2, 8, 2, 264, 16, 4, BF16, True, None),
+     ("element", 0, 0, 4, 4, 1, (2, 2, 1))),
+]
+
+
+@pytest.mark.parametrize("shape,want", _PLANS)
+def test_decode_plan(shape, want):
+    b, hl, kvh, dh, ps, pps, dtype, aligned, window = shape
+    asked = []
+
+    def occupancy(pieces, heads):
+        asked.append((pieces, heads))
+        return _OCCUPANCY[heads]
+
+    plan = paged_decode_plan(b, hl, kvh, dh, ps, pps, dtype, aligned,
+                             occupancy, 132, window)
+    assert isinstance(plan, DecodePlan)
+    assert (plan.path, plan.pieces, plan.lanes, plan.heads, plan.split_pages,
+            plan.splits, plan.grid) == want
+    if plan.path == "vector":
+        assert asked == [(plan.pieces, plan.heads)]
+        assert 1 <= plan.heads <= 8
+        assert plan.split_pages * (plan.splits - 1) < pps <= \
+            plan.split_pages * plan.splits
+    else:
+        assert asked == []
+    # the plan is a function of the shapes: no position reaches it
+    from apex_tpu_torch.ops.decode_attention import _card_plan
+    for fn in (paged_decode_plan, paged_decode_cuda_plan, _card_plan):
+        assert "positions" not in inspect.signature(fn).parameters
+
+
+@pytest.mark.parametrize("dtype", [BF16, torch.float32])
+def test_decode_card_plan_is_made_once_per_configuration(monkeypatch, dtype):
+    """``paged_decode_cuda_plan`` asks the card once per configuration
+    (shapes, dtype, 16-byte alignment, window): a repeated call takes the
+    plan already made, a misaligned pool or a window makes its own."""
+    from apex_tpu_torch.ops import decode_attention as da
+    asked = []
+    monkeypatch.setattr(_support, "blocks_per_sm",
+                        lambda dev, name, *args: asked.append(args) or 2)
+    monkeypatch.setattr(_support, "sm_count", lambda dev: 132)
+    da._card_plan.cache_clear()
+    try:
+        n = 96 * 64 * 768
+        q = torch.zeros(8, 12, 64, dtype=dtype)
+        kp = page_pool(96, 64, 768, dtype, "cpu")
+        vp = page_pool(96, 64, 768, dtype, "cpu")
+        pt = torch.zeros(8, 12, dtype=torch.int32)
+        first = paged_decode_cuda_plan(q, kp, vp, pt, 1)
+        for _ in range(3):
+            assert paged_decode_cuda_plan(q, kp, vp, pt, 1) == first
+        assert first == paged_decode_plan(8, 12, 12, 64, 64, 12, dtype, True,
+                                          lambda *_: 2, 132)
+        assert first.path == "vector" and len(asked) == 1
+        # one element past a 16-byte boundary
+        off = torch.zeros(n + 8, dtype=dtype)[1:n + 1].view(96, 64, 768)
+        assert paged_decode_cuda_plan(q, off, vp, pt, 1).path == "element"
+        assert len(asked) == 1
+        window = paged_decode_cuda_plan(q, kp, vp, pt, 1, 128)
+        assert window == paged_decode_plan(8, 12, 12, 64, 64, 12, dtype,
+                                           True, lambda *_: 2, 132, 128)
+        assert paged_decode_cuda_plan(q, kp, vp, pt, 1, 128) == window
+        assert len(asked) == 2
+    finally:
+        da._card_plan.cache_clear()
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_stream_buffers_are_per_stream(monkeypatch, dtype):
+    """Each stream gets its own zeroed counters (int32) and partials
+    (fp32), kept across calls; a buffer outgrown is replaced by one at
+    least twice its size, and the outgrown one is kept."""
+    from apex_tpu_torch.ops import decode_attention as da
+    monkeypatch.setattr(da, "_BUFFERS", {})
+    cpu = torch.device("cpu")
+    first = da._stream_buffer(cpu, 1, dtype, 96)
+    assert first.numel() >= 96 and first.dtype == dtype and not first.any()
+    assert da._stream_buffer(cpu, 1, dtype, 96) is first
+    other = da._stream_buffer(cpu, 2, dtype, 96)
+    assert other is not first
+    grown = da._stream_buffer(cpu, 1, dtype, first.numel() + 1)
+    assert grown.numel() >= 2 * first.numel() and not grown.any()
+    assert da._stream_buffer(cpu, 1, dtype, 96) is grown
+    assert [t is u for t, u in zip(da._BUFFERS[(None, 1, dtype)],
+                                   (first, grown))] == [True, True]
+    assert da._stream_buffer(cpu, 2, dtype, 96) is other
+    other_dtype = torch.float32 if dtype == torch.int32 else torch.int32
+    assert da._stream_buffer(cpu, 1, other_dtype, 96) is not grown
+
+
+def _emulate_vector_kernel(q, kp, vp, table, positions, group, window, plan):
+    """Kernel C's vector path walked in fp32 numpy, block by block, as
+    csrc/paged_decode.cu does it (8 warps; row slots of ``plan.lanes``
+    lanes; tiles of 2 rows a slot)."""
+    n_pages, ps, f = kp.shape
+    b, hl, dh = q.shape
+    kvh = hl // group
+    pps = table.shape[1]
+    slots = 32 // plan.lanes
+    groups = 8 * slots
+    rt = 2
+    chunks = plan.grid[0] // kvh
+    split_rows = plan.split_pages * ps
+    qs = q.astype(np.float32) * np.float32(np.log2(np.e) / np.sqrt(dh))
+    ctx = np.full((b, hl, dh), np.nan, np.float32)
+    neg = np.float32(-1e30)
+    for r in range(b):
+        pos = int(positions[r])
+        row_lo = max(0, pos - window + 1) if window else 0
+        row_hi = min(pos + 1, pps * ps)
+        for kv in range(kvh):
+            for chunk in range(chunks):
+                h0 = kv * group + chunk * plan.heads
+                heads = range(h0, min(h0 + plan.heads, (kv + 1) * group))
+                if row_lo >= row_hi:
+                    ctx[r, heads] = 0
+                    continue
+                s_lo = row_lo // split_rows
+                s_hi = (row_hi - 1) // split_rows
+                parts = []
+                for s in range(s_lo, s_hi + 1):
+                    lo = max(row_lo, s * split_rows)
+                    hi = min(row_hi, (s + 1) * split_rows)
+                    tiles = -(-(hi - lo) // (groups * rt))
+                    m = np.full((groups, len(heads)), neg, np.float32)
+                    l = np.zeros((groups, len(heads)), np.float32)
+                    acc = np.zeros((groups, len(heads), dh), np.float32)
+                    for gi in range(groups):
+                        for tile in range(tiles):
+                            rows = [lo + gi + (tile * rt + k) * groups
+                                    for k in range(rt)]
+                            rows = [u for u in rows if u < hi]
+                            if not rows:
+                                continue
+                            pages = [min(max(int(table[r, u // ps]), 0),
+                                         n_pages - 1) for u in rows]
+                            kk = np.stack([kp[p, u % ps, kv * dh:(kv + 1) * dh]
+                                           for p, u in zip(pages, rows)])
+                            vv = np.stack([vp[p, u % ps, kv * dh:(kv + 1) * dh]
+                                           for p, u in zip(pages, rows)])
+                            sc = qs[r, heads] @ kk.T          # [heads, rows]
+                            mt = np.maximum(m[gi], sc.max(axis=1))
+                            alpha = np.exp2(m[gi] - mt)
+                            p = np.exp2(sc - mt[:, None])
+                            l[gi] = l[gi] * alpha + p.sum(axis=1)
+                            acc[gi] = acc[gi] * alpha[:, None] + p @ vv
+                            m[gi] = mt
+                    # row slots of a warp (xor butterfly), then the warps
+                    wm, wl, wacc = [], [], []
+                    for w in range(8):
+                        sl = slice(w * slots, (w + 1) * slots)
+                        mx = m[sl].max(axis=0)
+                        sc = np.exp2(m[sl] - mx)
+                        wm.append(mx)
+                        wl.append((l[sl] * sc).sum(axis=0))
+                        wacc.append((acc[sl] * sc[..., None]).sum(axis=0))
+                    mx = np.max(wm, axis=0)
+                    sc = [np.exp2(x - mx) for x in wm]
+                    parts.append((mx, sum(x * y for x, y in zip(wl, sc)),
+                                  sum(x * y[:, None] for x, y in
+                                      zip(wacc, sc))))
+                # the splits, folded in split order
+                mx, ls, accs = neg, 0, 0
+                for pm, pl, pa in parts:
+                    mn = np.maximum(mx, pm)
+                    a0, a1 = np.exp2(mx - mn), np.exp2(pm - mn)
+                    ls = ls * a0 + pl * a1
+                    accs = accs * a0[:, None] + pa * a1[:, None]
+                    mx = mn
+                ctx[r, heads] = accs / np.where(ls > 0, ls, 1)[:, None]
+    return ctx.reshape(b, hl * dh)
+
+
+@pytest.mark.parametrize("group,window,dh,split_pages", [
+    (1, None, 64, 1), (4, None, 64, 3), (3, 20, 64, 2), (12, 70, 64, 1),
+    (4, None, 128, 2), (8, 9, 32, 8), (2, None, 16, 2)])
+def test_kernel_c_vector_walk_emulation(group, window, dh, split_pages):
+    """The vector kernel's walk, at the card test's shapes (pages of 16;
+    a slot at 0, one past its table, a sentinel inside a slot's range),
+    gives the plain version's context within 1e-5 in fp32, and zeros
+    where a window leaves a slot no row."""
+    rng = np.random.RandomState(group * 100 + dh)
+    b, hl, ps, pps, n_pages = 6, 12 if group != 8 else 16, 16, 8, 40
+    kvh = hl // group
+    f = kvh * dh
+    positions = np.array([0, 15, 16, 77, 127, 200], np.int32)
+    table = np.full((b, pps), n_pages, np.int32)
+    perm = rng.permutation(n_pages)
+    used = 0
+    for r in range(b):
+        need = min(pps, int(positions[r]) // ps + 1)
+        table[r, :need] = perm[used % n_pages:used % n_pages + need]
+        used += need
+    table[4, 1] = n_pages          # a sentinel inside the slot's range
+    q = rng.randn(b, hl, dh).astype(np.float32)
+    kp = rng.randn(n_pages, ps, f).astype(np.float32)
+    vp = rng.randn(n_pages, ps, f).astype(np.float32)
+    plan = paged_decode_plan(b, hl, kvh, dh, ps, pps, torch.float32, True,
+                             lambda *_: 4, 132, window)
+    splits = -(-pps // split_pages)
+    plan = plan._replace(split_pages=split_pages, splits=splits,
+                         grid=plan.grid[:2] + (splits,))
+    got = _emulate_vector_kernel(q, kp, vp, table, positions, group, window,
+                                 plan)
+    want = decode_plain(torch.from_numpy(q), torch.from_numpy(kp),
+                        torch.from_numpy(vp), torch.from_numpy(table),
+                        torch.from_numpy(positions), group, window).numpy()
+    # a slot whose window lies past its table has no row to read: the
+    # kernels give 0 (the TPU kernel's l > 0 guard), the plain version the
+    # mean of every (masked) row
+    empty = positions - (window or 10 ** 9) + 1 >= pps * ps
+    np.testing.assert_array_equal(got[empty], 0)
+    np.testing.assert_allclose(got[~empty], want[~empty], atol=1e-5, rtol=0)
