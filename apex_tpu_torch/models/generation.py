@@ -8,7 +8,9 @@ caches here are the same tensors that were passed in):
 - :func:`init_kv_caches` — 4D ``[b, kv_heads, S, head_dim]`` pairs, the
   prefill form (the JAX ``stacked=False`` form);
 - :func:`init_paged_kv_caches` — ``[n_pages, page_size, kv_heads *
-  head_dim]`` page pools, the paged decode form.
+  head_dim]`` page pools, the paged decode form; with ``quantized=True``
+  int8 pools, each nested as a ``(pages, scales)`` pair with its float32
+  ``[n_pages, kv_heads]`` scale sidecar.
 
 Everything here runs under ``torch.no_grad()``: the path is inference.
 """
@@ -22,7 +24,7 @@ import torch
 from torch import nn
 
 from apex_tpu_torch.models.gpt import GPTModel, lm_head
-from apex_tpu_torch.ops.decode_attention import page_pool
+from apex_tpu_torch.ops.decode_attention import page_pool, scale_pool
 
 __all__ = ["cast_decode_params", "flatten_decode_caches", "init_kv_caches",
            "init_paged_kv_caches", "decode_step"]
@@ -67,17 +69,26 @@ def init_kv_caches(model: GPTModel, batch_size: int, max_len: int,
 
 
 def init_paged_kv_caches(model: GPTModel, n_pages: int, page_size: int,
-                         dtype: Optional[torch.dtype] = None) -> Caches:
+                         dtype: Optional[torch.dtype] = None, *,
+                         quantized: bool = False) -> list:
     """Zeroed per-layer page pools ``[n_pages, page_size, kv_heads *
     head_dim]`` on the model's device. Each pool's storage holds one spare
     page past ``n_pages`` that dropped appends land in (see
-    :mod:`apex_tpu_torch.ops.decode_attention`)."""
+    :mod:`apex_tpu_torch.ops.decode_attention`).
+
+    ``quantized=True`` (``kv_dtype="int8"``): the pools are int8 and each
+    of k/v nests as a ``(pages, scales)`` pair, ``scales`` the float32
+    per-(page, kv-head) sidecar ``[n_pages, kv_heads]`` (with its spare
+    row) that the decode op dequantizes from, as in the JAX package."""
     c = model.config
-    dtype = dtype or c.compute_dtype
+    dtype = torch.int8 if quantized else dtype or c.compute_dtype
 
     def pool():
-        return page_pool(n_pages, page_size, c.kv_heads * c.head_dim, dtype,
-                         model.device)
+        pages = page_pool(n_pages, page_size, c.kv_heads * c.head_dim, dtype,
+                          model.device)
+        if quantized:
+            return pages, scale_pool(n_pages, c.kv_heads, model.device)
+        return pages
 
     return [(pool(), pool()) for _ in range(c.num_layers)]
 
@@ -100,7 +111,12 @@ def _cached_forward(model: GPTModel, caches: Caches, tokens: torch.Tensor,
         if isinstance(index, torch.Tensor) and index.dim() == 1:
             positions = index.long()[:, None] + torch.arange(
                 s, device=index.device)[None, :]
-            emb = emb + table[positions]
+            # a position past the table reads NaN, as the JAX gather's
+            # fill does (a verify window's padding rows can reach past it)
+            n = table.shape[0]
+            pos_emb = table[positions.clamp(max=n - 1)]
+            emb = emb + torch.where((positions < n)[..., None], pos_emb,
+                                    torch.full_like(pos_emb, float("nan")))
         else:
             emb = emb + table[index:index + s][None]
     hidden = emb.transpose(0, 1).to(c.compute_dtype)             # [s, b, h]
@@ -118,8 +134,8 @@ def decode_step(model: GPTModel, caches: Caches, tokens: torch.Tensor,
                 index, paged_state=None):
     """One step: ``tokens [b]`` at positions ``index`` -> (fp32 logits
     ``[b, V]``, caches). With ``paged_state`` (``[b, pages_per_slot]``
-    page table) ``caches`` are the page pools and ``index`` the ``[b]``
-    position vector."""
+    page table) ``caches`` are the page pools (``(pages, scales)`` pairs
+    when quantized) and ``index`` the ``[b]`` position vector."""
     logits, caches = _cached_forward(model, caches, tokens[:, None], index,
                                      paged_state=paged_state)
     return logits[0], caches

@@ -24,14 +24,18 @@ What runs here:
   :class:`~apex_tpu_torch.transformer.functional.FusedScaleMaskSoftmax`
   (the masked softmax kernels; ``kv_lengths`` and the window are folded
   into the mask);
-- a 4D ``[b, kv_heads, S, head_dim]`` cache at ``cache_index == 0``: the
-  prefill fast path — K/V written into the cache in place, then causal
-  flash over the filled prefix (inference);
+- a 4D ``[b, kv_heads, S, head_dim]`` cache: K/V written into the cache
+  in place at ``cache_index``; at ``cache_index == 0`` (a Python int) the
+  prefill fast path, causal flash over the filled prefix; at a mid-cache
+  offset (a prefix-cache suffix prefill) an explicit offset-causal mask
+  over the whole cache and the unfused masked softmax (inference);
 - ``paged_state`` (a page table) with a ``[b]`` position vector: the paged
-  decode step through :func:`~apex_tpu_torch.ops.fused_paged_decode_attention`.
+  decode step, or an ``s``-row speculative verify window, through
+  :func:`~apex_tpu_torch.ops.fused_paged_decode_attention`, over bf16/f32
+  pools or int8 ``(pages, scales)`` pairs.
 
-Raising ``NotImplementedError`` until their slice: other cache forms
-(mid-cache 4D offsets, the flat cache), active dropout
+Raising ``NotImplementedError`` until their slice: the flat cache, active
+dropout
 (``deterministic=False`` with a rate > 0: the JAX masks come from
 ``jax.random``), a truthy ``recompute``, sequence/context parallelism and
 MoE. ``scan_unroll`` is accepted and has no effect (the layers run as a
@@ -366,38 +370,71 @@ class ParallelAttention(nn.Module):
             q = q.reshape(s, b, heads, dh)
             k, v = kv.reshape(kv.shape[0], b, heads, 2 * dh).split(dh, dim=-1)
         if paged_state is not None:
-            # paged decode: append this step's K/V rows at each slot's
-            # position and attend over its mapped pages (one kernel)
-            if kv_cache is None or s != 1:
-                raise NotImplementedError(
-                    "paged decode takes the page-pool kv_cache pair and one "
-                    "token per slot (verify windows are a later slice)")
+            # paged decode: append each slot's K/V rows at its position and
+            # attend over its mapped pages (one kernel). ``s > 1`` is a
+            # speculative verify window: window row t lands at
+            # cache_index + t and attends up to it. An int8 pool comes as
+            # ``(pages, scales)`` pairs, carried through.
+            if kv_cache is None:
+                raise ValueError("paged decode takes the page-pool kv_cache "
+                                 "pair")
             if attention_mask is not None or kv_lengths is not None:
                 raise NotImplementedError(
                     "paged decode derives validity from cache_index; "
                     "attention_mask/kv_lengths are not supported")
             ck, cv = kv_cache
-            ctx, ck, cv = fused_paged_decode_attention(
-                q[0], k[0].reshape(b, -1), v[0].reshape(b, -1), ck, cv,
-                paged_state, cache_index, queries_per_group=qpg,
-                sliding_window=c.sliding_window)
-            return self.dense(ctx[None]), (ck, cv)
+            k_scales = v_scales = None
+            if isinstance(ck, (tuple, list)):
+                (ck, k_scales), (cv, v_scales) = ck, cv
+            res = fused_paged_decode_attention(
+                q.transpose(0, 1), k.transpose(0, 1).reshape(b, s, -1),
+                v.transpose(0, 1).reshape(b, s, -1), ck, cv, paged_state,
+                cache_index, queries_per_group=qpg,
+                sliding_window=c.sliding_window, k_scales=k_scales,
+                v_scales=v_scales)
+            new = ((ck, k_scales), (cv, v_scales)) if k_scales is not None \
+                else (ck, cv)
+            # ctx [b, s, heads * dh] -> [s, b, heads * dh]
+            return self.dense(res[0].transpose(0, 1)), new
         # [s, b, heads, dh] -> [b, heads, s, dh]
         q, k, v = (t.permute(1, 2, 0, 3) for t in (q, k, v))
         if kv_cache is not None:
             ck, cv = kv_cache
-            if ck.dim() != 4 or not (isinstance(cache_index, int)
-                                     and cache_index == 0) \
-                    or attention_mask is not None or kv_lengths is not None:
+            if ck.dim() != 4 or attention_mask is not None \
+                    or kv_lengths is not None:
                 raise NotImplementedError(
-                    "only the prefill cache path (4D cache, cache_index 0, "
-                    "no mask or kv_lengths) and paged decode are ported; "
-                    "mid-cache and flat-cache decode are a later slice")
-            ck[:, :, :s] = k.to(ck.dtype)
-            cv[:, :, :s] = v.to(cv.dtype)
-            ctx = flash_attention(q, ck[:, :, :s].to(q.dtype),
-                                  cv[:, :, :s].to(q.dtype), causal=True,
-                                  sliding_window=c.sliding_window)
+                    "only the 4D cache (no mask or kv_lengths) and paged "
+                    "decode are ported; the flat cache is a later slice")
+            if isinstance(cache_index, torch.Tensor) and cache_index.dim():
+                raise NotImplementedError(
+                    "per-row cache_index (continuous-batching decode) needs "
+                    "the flat cache or paged_state")
+            # K/V written in place at the cache offset (clamped into the
+            # cache, as dynamic_update_slice does)
+            start = min(max(int(cache_index), 0), ck.shape[2] - s)
+            ck[:, :, start:start + s] = k.to(ck.dtype)
+            cv[:, :, start:start + s] = v.to(cv.dtype)
+            if isinstance(cache_index, int) and cache_index == 0:
+                # prefill: queries fill [0, s), so causal flash over the
+                # filled prefix
+                ctx = flash_attention(q, ck[:, :, :s].to(q.dtype),
+                                      cv[:, :, :s].to(q.dtype), causal=True,
+                                      sliding_window=c.sliding_window)
+            else:
+                # mid-cache offset (a prefix-cache suffix prefill): query i
+                # sees slots <= cache_index + i, encoded as an explicit
+                # mask over the whole cache (the causal kernels assume the
+                # queries sit at the cache's end), so the unfused softmax
+                # runs, as in the JAX package
+                sk = ck.shape[2]
+                slots = torch.arange(sk, device=q.device)[None, None, None, :]
+                allowed = int(cache_index) + torch.arange(
+                    s, device=q.device)[None, None, :, None]
+                invalid = slots > allowed
+                if c.sliding_window is not None:
+                    invalid = invalid | (slots <= allowed - c.sliding_window)
+                ctx = self._core_attention(q, ck.to(q.dtype), cv.to(q.dtype),
+                                           invalid, None, None)
         else:
             window = (c.sliding_window if self.attn_type == AttnType.self_attn
                       else None)

@@ -60,10 +60,10 @@ _SIGNATURES = {
     # stream, b, hl, kvh, dh, n_pages, page_size, pages_per_slot, window,
     # dtype, then the plan: pieces a lane, lanes a row, query heads a block,
     # pages a split, splits
-    "apex_paged_decode": [_P] * 9 + [_I] * 14,
+    "apex_paged_decode": [_P] * 11 + [_I] * 16,
     # dtype, pieces a lane, query heads a block, head_dim, out: resident
     # blocks an SM
-    "apex_paged_decode_blocks_per_sm": [_I] * 4 + [_P],
+    "apex_paged_decode_blocks_per_sm": [_I] * 6 + [_P],
     # qkv, o, lse, kv_lengths, cos, sin, seed, stream, s, b, groups, qpg,
     # d, scale, causal, window, rot, keep_thresh, inv_keep, dtype
     "apex_flash_packed_fwd": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _I, _U, _F,

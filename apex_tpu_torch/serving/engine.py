@@ -1,9 +1,9 @@
 """Continuous-batching inference engine over the paged decode path.
 
-Counterpart of ``apex_tpu/serving/engine.py`` for the first slice of the
-port: greedy requests on the paged KV layout, no prefix cache. The loop is
-the JAX engine's — requests are admitted and retired per decode step over
-one batched step across all slots:
+Counterpart of ``apex_tpu/serving/engine.py``: greedy requests on the
+paged KV layout, with the prefix cache, int8 KV pools and self-speculative
+verify windows. The loop is the JAX engine's — requests are admitted and
+retired per decode step over one batched step across all slots:
 
 - **Slots and pages**: :class:`~apex_tpu_torch.serving.slots.SlotPool`
   hands out decode rows; :class:`~apex_tpu_torch.serving.slots.PagePool`
@@ -13,18 +13,28 @@ one batched step across all slots:
   decode-time page growth can never exhaust the pool.
 - **Bucketed prefill**: a prompt is right-padded to a power-of-two
   bucket, run through the 4D-cache prefill path (causal flash), and its
-  K/V rows are copied into the slot's pages; the LM head reads the single
-  row ``prompt_len - 1``. Chunks past the mapped pages are dropped.
+  K/V rows are copied into the slot's pages (int8 pools: each whole page
+  quantized at its own scale); the LM head reads the single row
+  ``prompt_len - 1``. Chunks past the mapped pages are dropped.
+- **Prefix cache** (``prefix_cache=True``, the default): a prompt's
+  page-aligned prefix is interned in the pool's content-addressed index
+  once its prefill logits are finite; a later prompt sharing it maps
+  those pages refcounted and prefills only its suffix at the cache
+  offset (the mid-cache 4D path: offset-causal mask, unfused softmax).
+  A fully page-aligned hit recomputes the prompt's last token for its
+  logits and skips writing its row (the copy-on-write seam).
 - **One decode step per tick** over every slot: page table, positions and
   tokens are uploaded once per tick, each layer appends its row and runs
   the paged decode kernel, and the next tokens come back in ONE host read.
-  A slot whose logits are not finite is quarantined (its freed pages are
-  zeroed) while co-tenants keep serving.
+  With ``speculation=k`` the step is a ``k``-row verify window a slot
+  (the token to feed, then an n-gram draft over the slot's own history),
+  and the longest prefix the model agrees with is accepted. A slot whose
+  logits are not finite is quarantined (the pages its release frees are
+  zeroed, and their scales) while co-tenants keep serving.
 
 Eager PyTorch has no retrace, so the JAX engine's retrace watchdog has no
 counterpart; caches are updated in place (no donation). Knobs of later
-slices — ``prefix_cache=True``, ``speculation``, ``kv_dtype="int8"``,
-``prefill_token_budget``, ``kv_layout="flat"``, adapters, fault
+slices — ``prefill_token_budget``, ``kv_layout="flat"``, adapters, fault
 injectors, and sampled requests (``temperature > 0``, which needs the
 threefry port for token parity) — raise ``NotImplementedError``.
 """
@@ -48,7 +58,13 @@ from apex_tpu_torch.models.generation import (
 )
 from apex_tpu_torch.observability.registry import MetricsRegistry
 from apex_tpu_torch.ops._support import cdiv, resolve_device
+from apex_tpu_torch.ops.decode_attention import (
+    paged_quant_fill,
+    paged_quant_scatter,
+    spare_page_view,
+)
 from apex_tpu_torch.serving import clock
+from apex_tpu_torch.serving.prefix import prefix_hash_chain, prefix_salt
 from apex_tpu_torch.serving.request import (
     FINISH_CANCELLED,
     FINISH_EOS,
@@ -68,6 +84,7 @@ from apex_tpu_torch.serving.scheduler import (
     prefill_buckets,
 )
 from apex_tpu_torch.serving.slots import PagePool, SlotPool
+from apex_tpu_torch.serving.speculation import propose_draft
 
 __all__ = ["EngineConfig", "InferenceEngine"]
 
@@ -75,19 +92,32 @@ __all__ = ["EngineConfig", "InferenceEngine"]
 _COUNTERS = ("requests_submitted", "requests_eos", "requests_length",
              "requests_cancelled", "requests_timeout", "requests_rejected",
              "requests_error", "prefills", "decode_steps",
-             "tokens_generated", "slots_quarantined", "requests_shed_pages")
+             "tokens_generated", "slots_quarantined", "requests_shed_pages",
+             # prefix cache: hits + misses == prefills when it is on;
+             # pages_shared counts prefill pages NOT recomputed
+             "prefix_hits", "prefix_misses", "prefix_pages_shared",
+             "prefix_evictions",
+             # speculative decoding: proposed counts drafted positions
+             # beyond the forced first feed, accepted the ones the model
+             # agreed with
+             "draft_tokens_proposed", "draft_tokens_accepted")
 
 
 @dataclass
 class EngineConfig:
     """Engine sizing knobs — the JAX ``EngineConfig``'s names and
-    defaults, except ``prefix_cache``, which defaults to False until the
-    prefix-cache slice lands. ``retrace_budget`` and ``donate_caches``
-    have no counterpart in eager PyTorch and are absent.
+    defaults. ``retrace_budget`` and ``donate_caches`` have no counterpart
+    in eager PyTorch and are absent.
 
     ``n_pages=None`` sizes the pool to back every slot at ``max_len``;
     smaller overcommits, and a request whose worst case can never fit is
-    shed as ``pages_exhausted``."""
+    shed as ``pages_exhausted``. ``prefix_cache`` interns page-aligned
+    prompt prefixes (``prefix_lru_capacity`` entries, evicted LRU-first
+    under page pressure); ``False`` restores the one-owner pool.
+    ``kv_dtype="int8"`` stores the pools int8 with per-(page, kv-head)
+    scales; ``speculation=k`` (``k >= 2``) makes each decode step a
+    ``k``-row verify window. Both keep greedy streams token-exact
+    against the defaults."""
 
     max_slots: int = 8
     max_len: int = 512
@@ -95,7 +125,7 @@ class EngineConfig:
     kv_layout: str = "paged"
     page_size: int = 64
     n_pages: Optional[int] = None
-    prefix_cache: bool = False
+    prefix_cache: bool = True
     prefix_lru_capacity: int = 32
     kv_dtype: str = "bf16"
     speculation: int = 0
@@ -115,6 +145,9 @@ class EngineConfig:
             raise ValueError(f"page_size must be >= 1, got {self.page_size}")
         if self.n_pages is not None and self.n_pages < 1:
             raise ValueError(f"n_pages must be >= 1, got {self.n_pages}")
+        if self.prefix_lru_capacity < 0:
+            raise ValueError(f"prefix_lru_capacity must be >= 0, got "
+                             f"{self.prefix_lru_capacity}")
         if self.kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_dtype must be 'bf16' or 'int8', got "
                              f"{self.kv_dtype!r}")
@@ -123,9 +156,6 @@ class EngineConfig:
                              f">= 2, got {self.speculation}")
         unported = [name for name, on in (
             ("kv_layout='flat'", self.kv_layout == "flat"),
-            ("prefix_cache=True", self.prefix_cache),
-            ("kv_dtype='int8'", self.kv_dtype == "int8"),
-            ("speculation", self.speculation > 0),
             ("prefill_token_budget", self.prefill_token_budget is not None),
         ) if on]
         if unported:
@@ -144,7 +174,7 @@ class _Active:
     __slots__ = ("request", "slot", "tokens", "last_token", "position",
                  "submit_ts", "prefill_start", "prefill_end",
                  "first_token_ts", "last_token_ts", "cancelled",
-                 "reserved_pages")
+                 "reserved_pages", "spec_proposed", "spec_accepted")
 
     def __init__(self, request: Request, slot: int, submit_ts: float):
         self.request = request
@@ -152,7 +182,9 @@ class _Active:
         self.tokens: List[int] = []
         self.last_token = 0
         self.position = 0        # cache rows written for this slot
-        self.reserved_pages = 0  # worst-case pages promised at admission
+        self.reserved_pages = 0  # worst-case pages minus shared-prefix hit
+        self.spec_proposed = 0   # draft positions offered over the lifetime
+        self.spec_accepted = 0   # draft positions the model agreed with
         self.submit_ts = submit_ts
         self.prefill_start = 0.0
         self.prefill_end = 0.0
@@ -210,19 +242,37 @@ class InferenceEngine:
         pps = self.config.pages_per_slot
         n_pages = (self.config.n_pages if self.config.n_pages is not None
                    else self.config.max_slots * pps)
-        self.pages = PagePool(n_pages, self.config.page_size, pps)
+        self.pages = PagePool(
+            n_pages, self.config.page_size, pps,
+            lru_capacity=(self.config.prefix_lru_capacity
+                          if self.config.prefix_cache else 0))
+        #: salt of the prompt-prefix hash chains: the model's fingerprint
+        self._prefix_salt = prefix_salt(c)
+        self._evictions_seen = 0
+        self._quantized = self.config.kv_dtype == "int8"
         self._caches = init_paged_kv_caches(model, n_pages,
-                                            self.config.page_size)
-        # bytes one decode step streams per mapped page (K + V, all layers)
-        itemsize = torch.empty((), dtype=c.compute_dtype).element_size()
+                                            self.config.page_size,
+                                            quantized=self._quantized)
+        # bytes one decode step streams per mapped page (K + V, all layers,
+        # plus the f32 scale sidecars when quantized)
+        itemsize = 1 if self._quantized else torch.empty(
+            (), dtype=c.compute_dtype).element_size()
         self._page_read_bytes = 2 * c.num_layers * (
-            self.config.page_size * c.kv_heads * c.head_dim * itemsize)
+            self.config.page_size * c.kv_heads * c.head_dim * itemsize
+            + (c.kv_heads * 4 if self._quantized else 0))
         self._page_table_h = np.full((self.config.max_slots, pps), n_pages,
                                      np.int32)
         self._reserved_pages = 0
         n = self.config.max_slots
         self._tokens_h = np.zeros(n, np.int64)
         self._positions_h = np.zeros(n, np.int32)
+        #: speculation: per-slot verify window (row 0 the token the
+        #: sequential step would feed, rows 1.. the n-gram draft, padded by
+        #: repeating the last real feed) and its valid length
+        self._spec = self.config.speculation
+        if self._spec:
+            self._window_h = np.zeros((n, self._spec), np.int64)
+            self._wlen_h = np.ones(n, np.int32)
 
     # -- introspection ----------------------------------------------------
 
@@ -305,6 +355,10 @@ class InferenceEngine:
         self.metrics.set_gauge("kv_pages_in_use", self.pages.in_use_count)
         self.metrics.set_gauge("kv_pages_free", self.pages.free_count)
         self.metrics.observe("kv_page_occupancy", self.pages.occupancy)
+        delta = self.pages.evictions - self._evictions_seen
+        if delta:
+            self.metrics.inc("prefix_evictions", delta)
+            self._evictions_seen = self.pages.evictions
         return finished
 
     def serve(self, requests: Sequence[Request], *,
@@ -376,24 +430,63 @@ class InferenceEngine:
                 finished.append(self._retire(
                     rec, FINISH_CANCELLED, clock.now()))
 
+    def _plan_prefix(self, request: Request):
+        """Match ``request``'s page-aligned prompt prefix against the
+        intern index: ``(chain, shared_pages, skip_first)``. The chain is
+        always computed (the miss path interns it); ``shared_pages`` is
+        the longest interned leading run (empty on a miss or with
+        ``prefix_cache=False``). ``skip_first`` marks the fully
+        page-aligned hit, whose suffix prefill recomputes only the
+        prompt's last token with its K/V write masked. A match is trimmed
+        when its suffix bucket would overrun ``max_len``, so the bucket
+        set keeps holding."""
+        ps = self.config.page_size
+        chain = prefix_hash_chain(request.prompt, ps, self._prefix_salt)
+        if not self.config.prefix_cache or not chain:
+            return chain, [], False
+        pages, matched = self.pages.match_prefix(chain)
+        max_len = self.config.max_len
+        while matched:
+            start = (request.prompt_len - 1
+                     if matched * ps == request.prompt_len
+                     else matched * ps)
+            if start + bucket_for(request.prompt_len - start,
+                                  max_len) <= max_len:
+                break
+            matched -= 1
+        if matched == 0:
+            return chain, [], False
+        return chain, pages[:matched], matched * ps == request.prompt_len
+
     def _page_predicate(self):
         """Admission predicate: a request enters only when its worst-case
-        page need fits beside every admitted request's outstanding
-        reservation; one that can never fit is shed, one that must wait
-        defers (FCFS head-blocking). ``planned`` accumulates across the
-        pops of one call."""
-        planned = 0
+        page need (minus the shared-prefix pages a cache hit maps
+        refcounted) fits beside every admitted request's outstanding
+        reservation. Pages held only by the intern index count as
+        capacity, since allocation evicts entries under pressure, less
+        this request's own shared pages (mapping pins them). One that can
+        never fit is shed, one that must wait defers (FCFS head-blocking).
+        ``planned`` and ``planned_shared`` accumulate across the pops of
+        one call."""
+        planned = 0          # private pages promised this tick
+        planned_shared = 0   # reclaimable pages pinned this tick
 
         def predicate(request):
-            nonlocal planned
+            nonlocal planned, planned_shared
             need = self.pages.pages_for(request.total_len)
             if need > self.pages.n_pages:
                 return "shed"
-            avail = (self.pages.free_count
-                     - (self._reserved_pages - self.pages.in_use_count)
+            _, shared_pages, _ = self._plan_prefix(request)
+            shared = len(shared_pages)
+            pool = self.pages
+            avail = (pool.free_count
+                     + max(0, pool.reclaimable_count
+                           - planned_shared - shared)
+                     - (self._reserved_pages - pool.owned_count)
                      - planned)
-            if need <= avail:
-                planned += need
+            if need - shared <= avail:
+                planned += need - shared
+                planned_shared += shared
                 return "admit"
             return "defer"
 
@@ -423,13 +516,23 @@ class InferenceEngine:
                             submit_ts=submit_ts, now=now,
                             detail="pages_exhausted")
 
+    def _first_token(self, logits: torch.Tensor):
+        """``(greedy token, finite)`` of one prefill's logits ``[1, 1,
+        V]``, in one host read."""
+        row = logits[0, 0]
+        both = torch.stack([torch.argmax(row),
+                            torch.isfinite(row).all().long()]).tolist()
+        return int(both[0]), bool(both[1])
+
     def _paged_prefill(self, page_row: np.ndarray, prompt: np.ndarray,
-                       prompt_len: int) -> int:
+                       prompt_len: int):
         """Prefill one bucket-padded prompt ``[1, bucket]`` and land its
-        K/V rows in the slot's pages (``page_row``); returns the first
-        generated token. Chunks whose page is the sentinel (bucket padding
-        past the mapped pages) are dropped; garbage rows inside the last
-        mapped page stay causally masked by the slot's position."""
+        K/V rows in the slot's pages (``page_row``); returns ``(first
+        token, finite logits)``. Chunks whose page is the sentinel (bucket
+        padding past the mapped pages) are dropped; garbage rows inside the
+        last mapped page stay causally masked by the slot's position. An
+        int8 pool takes each chunk as a whole page at its own scale
+        (:func:`paged_quant_fill`)."""
         model = self.model
         bucket = prompt.shape[1]
         small = init_kv_caches(model, 1, bucket)
@@ -439,6 +542,16 @@ class InferenceEngine:
         ps = self.config.page_size
         n_chunks = cdiv(bucket, ps)
         pad = n_chunks * ps - bucket
+        if self._quantized:
+            dest = torch.as_tensor(page_row[:n_chunks].astype(np.int64),
+                                   device=self.device)
+            for ((bk, bks), (bv, bvs)), (fk, fv) in zip(
+                    self._caches, flatten_decode_caches(small)):
+                for pool, scales, rows in ((bk, bks, fk), (bv, bvs, fv)):
+                    paged_quant_fill(pool, scales, F.pad(
+                        rows[0], (0, 0, 0, pad)).reshape(n_chunks, ps, -1),
+                        dest)
+            return self._first_token(logits)
         keep = [i for i in range(n_chunks)
                 if page_row[i] < self.pages.n_pages]
         dest = torch.as_tensor(page_row[keep].astype(np.int64),
@@ -451,16 +564,121 @@ class InferenceEngine:
                     n_chunks, ps, -1)
                 pool.index_copy_(0, dest,
                                  chunks.index_select(0, sel).to(pool.dtype))
-        return int(torch.argmax(logits[0, 0]))
+        return self._first_token(logits)
+
+    def _suffix_prefill(self, page_row: np.ndarray, suffix: np.ndarray,
+                        start: int, suffix_len: int, skip_first: bool):
+        """Prefill ONLY the suffix of a prefix-cache hit; returns ``(first
+        token, finite logits)``.
+
+        The slot's page row already maps the shared prefix pages for
+        tokens ``[0, start)``; their rows (int8 ones dequantized with their
+        pages' scales) are gathered into a 4D cache of ``pages_per_slot *
+        page_size + bucket`` rows, the suffix runs at ``cache_index =
+        start`` (the mid-cache path: offset-causal mask, rope and
+        positions at the absolute offset), and the suffix K/V rows land
+        in the slot's PRIVATE pages row by row (int8 through the
+        rescale-on-append scatter). Shared pages are never written: with
+        ``skip_first`` (a fully page-aligned hit, whose one-token suffix
+        recomputes the prompt's last token for its logits only) that
+        row's write is masked, since it already lives in the last shared
+        page."""
+        model = self.model
+        c = model.config
+        ps = self.config.page_size
+        pps = self.config.pages_per_slot
+        n_pages = self.pages.n_pages
+        bucket = suffix.shape[1]
+        s0 = pps * ps
+        dev = self.device
+        small = init_kv_caches(model, 1, s0 + bucket)
+        row = torch.as_tensor(page_row.astype(np.int64), device=dev)
+        valid_page = (row < n_pages)[:, None, None]
+        clamped = row.clamp(0, n_pages - 1)
+        h, d = c.kv_heads, c.head_dim
+
+        def place(pool, sm, scales=None):
+            g = pool[clamped]                               # [pps, ps, h*d]
+            if scales is not None:
+                g = g.float() * scales[clamped].repeat_interleave(
+                    d, dim=-1)[:, None, :]
+            # sentinel rows read as exact zeros (a clamped gather could
+            # import a co-tenant's NaN into masked positions)
+            g = torch.where(valid_page, g, torch.zeros((), dtype=g.dtype,
+                                                       device=dev))
+            sm[:, :, :s0] = g.reshape(s0, h, d).transpose(0, 1)[None] \
+                .to(sm.dtype)
+
+        for cache, (sk, sv) in zip(self._caches, small):
+            if self._quantized:
+                (bk, bks), (bv, bvs) = cache
+                place(bk, sk, bks)
+                place(bv, sv, bvs)
+            else:
+                place(cache[0], sk)
+                place(cache[1], sv)
+        logits, small = _cached_forward(
+            model, small, torch.as_tensor(suffix, device=dev), start,
+            last_index=suffix_len - 1)
+        # the suffix rows' destinations: pad rows and a skipped first row
+        # go to the spare page
+        idx = np.arange(bucket)
+        pos = start + idx
+        dest_page = page_row[np.clip(pos // ps, 0, pps - 1)].astype(np.int64)
+        valid = (idx < suffix_len) & ~(skip_first & (idx == 0))
+        dest_page = np.where(valid & (dest_page < n_pages), dest_page,
+                             n_pages)
+        dest = torch.as_tensor(dest_page, device=dev)
+        off = torch.as_tensor(pos % ps, dtype=torch.long, device=dev)
+        for cache, (fk, fv) in zip(self._caches, small):
+
+            def rows(f):
+                return f[0, :, start:start + bucket].transpose(0, 1) \
+                    .reshape(bucket, h * d)
+
+            if self._quantized:
+                (bk, bks), (bv, bvs) = cache
+                paged_quant_scatter(bk, bks, rows(fk), dest, off)
+                paged_quant_scatter(bv, bvs, rows(fv), dest, off)
+            else:
+                for pool, f in zip(cache, (fk, fv)):
+                    spare_page_view(pool).index_put_(
+                        (dest, off), rows(f).to(pool.dtype))
+        return self._first_token(logits)
+
+    def _reset_fresh_scales(self, pages) -> None:
+        """Zero the scale sidecars of freshly allocated ``pages`` (int8
+        pools only): a stale scale from the previous tenant would poison
+        the rescale-on-append floor. Shared pages keep theirs."""
+        if not self._quantized or len(pages) == 0:
+            return
+        idx = torch.as_tensor(list(pages), dtype=torch.long,
+                              device=self.device)
+        for (_, ks), (_, vs) in self._caches:
+            ks.index_fill_(0, idx, 0.0)
+            vs.index_fill_(0, idx, 0.0)
 
     def _prefill_into(self, request: Request, slot: int, submit_ts: float,
                       finished: List[RequestResult]) -> None:
         rec = _Active(request, slot, submit_ts)
         rec.prefill_start = clock.now()
-        need = self.pages.pages_for(request.total_len)
-        mapped = self.pages.map_slot(slot, request.prompt_len)
+        # re-match the prefix NOW (the predicate's match may have been
+        # reshaped by a later head's intern eviction), commit the
+        # worst-case reservation minus the shared pages, then map only the
+        # prompt's pages (decode extends on demand)
+        chain, shared_pages, skip_first = self._plan_prefix(request)
+        shared_used = len(shared_pages)
+        need = self.pages.pages_for(request.total_len) - shared_used
+        mapped = self.pages.map_slot(slot, request.prompt_len,
+                                     shared=shared_pages or None)
         if mapped is None:
             self.slots.release(slot)
+            if self.config.prefix_cache:
+                # an intern eviction between the predicate and this map
+                # changed what is reclaimable: retry from the FRONT of the
+                # queue on a later tick
+                self.scheduler.requeue_front(request, submit_ts)
+                return
             raise RuntimeError(
                 f"page pool exhausted at prefill despite admission "
                 f"reservation (slot {slot}, free={self.pages.free_count})")
@@ -469,11 +687,27 @@ class InferenceEngine:
         row = self._page_table_h[slot]
         row[:] = self.pages.n_pages
         row[:len(mapped)] = mapped
+        self._reset_fresh_scales(mapped[shared_used:])
         try:
-            bucket = bucket_for(request.prompt_len, self.config.max_len)
-            padded = np.zeros((1, bucket), np.int64)
-            padded[0, :request.prompt_len] = request.prompt
-            first = self._paged_prefill(row, padded, request.prompt_len)
+            if shared_used:
+                # prefix-cache hit: prefill ONLY the suffix, from the first
+                # token the shared pages do not cover (or, fully covered,
+                # the prompt's last token, for its logits only)
+                ps = self.config.page_size
+                start = (request.prompt_len - 1 if skip_first
+                         else shared_used * ps)
+                suffix_len = request.prompt_len - start
+                bucket = bucket_for(suffix_len, self.config.max_len)
+                suffix = np.zeros((1, bucket), np.int64)
+                suffix[0, :suffix_len] = request.prompt[start:]
+                first, finite = self._suffix_prefill(
+                    row, suffix, start, suffix_len, skip_first)
+            else:
+                bucket = bucket_for(request.prompt_len, self.config.max_len)
+                padded = np.zeros((1, bucket), np.int64)
+                padded[0, :request.prompt_len] = request.prompt
+                first, finite = self._paged_prefill(row, padded,
+                                                    request.prompt_len)
         except Exception:
             # keep the pool invariants as the failure propagates
             self.slots.release(slot)
@@ -481,6 +715,17 @@ class InferenceEngine:
             self._reserved_pages -= rec.reserved_pages
             self._page_table_h[slot, :] = self.pages.n_pages
             raise
+        if self.config.prefix_cache:
+            if shared_used:
+                self.metrics.inc("prefix_hits")
+                self.metrics.inc("prefix_pages_shared", shared_used)
+            else:
+                self.metrics.inc("prefix_misses")
+            # publish the prompt's full pages (shared run + fresh privates)
+            # so later prompts hit; never a prefill with non-finite logits
+            if chain and finite:
+                self.pages.intern_prefix(
+                    chain, [int(p) for p in row[:len(chain)]])
         rec.prefill_end = clock.now()
         rec.tokens.append(first)
         rec.last_token = first
@@ -496,32 +741,65 @@ class InferenceEngine:
         if done is not None:
             finished.append(self._retire(rec, done, clock.now()))
 
+    def _build_windows(self) -> None:
+        """Fill the per-slot verify windows for the next speculative step:
+        row 0 is the token the sequential engine would feed, rows
+        ``1..wl-1`` the n-gram draft over the slot's own history, rows past
+        ``wl`` repeat the last real feed (causally invisible padding that
+        cannot inflate an int8 page scale). ``wl`` is clipped so a nearly
+        finished request cannot overrun its page reservation."""
+        k = self._spec
+        for slot in sorted(self._active):
+            rec = self._active[slot]
+            wl = max(1, min(k, rec.request.max_new_tokens - len(rec.tokens)))
+            draft = propose_draft(list(rec.request.prompt) + rec.tokens,
+                                  wl - 1)
+            window = [rec.last_token] + draft
+            window += [window[-1]] * (k - wl)
+            self._window_h[slot] = window
+            self._wlen_h[slot] = wl
+
     def _decode_tick(self, finished: List[RequestResult]) -> None:
+        if self._spec and self._active:
+            self._build_windows()
         self._extend_pages(finished)
         if not self._active:
             return
+        # bytes of KV stream one decode step reads (mapped pages of every
+        # active slot, dtype- and scale-aware)
         self.metrics.set_gauge(
             "kv_bytes_per_step",
             sum(len(self.pages.slot_pages(s)) for s in self._active)
             * self._page_read_bytes)
         t0 = clock.now()
         dev = self.device
-        logits, self._caches = decode_step(
-            self.model, self._caches, torch.as_tensor(self._tokens_h,
-                                                      device=dev),
-            torch.as_tensor(self._positions_h, device=dev),
-            paged_state=torch.as_tensor(self._page_table_h, device=dev))
+        positions = torch.as_tensor(self._positions_h, device=dev)
+        table = torch.as_tensor(self._page_table_h, device=dev)
+        if self._spec:
+            logits, self._caches = _cached_forward(
+                self.model, self._caches,
+                torch.as_tensor(self._window_h, device=dev), positions,
+                paged_state=table)                           # [k, n, V]
+            logits = logits.transpose(0, 1)                  # [n, k, V]
+        else:
+            logits, self._caches = decode_step(
+                self.model, self._caches,
+                torch.as_tensor(self._tokens_h, device=dev), positions,
+                paged_state=table)                           # [n, V]
         # one host read per tick: the greedy token, or -1 for a row whose
         # logits are not finite
         nxt = torch.where(torch.isfinite(logits).all(dim=-1),
                           torch.argmax(logits, dim=-1),
-                          torch.full((logits.shape[0],), -1,
+                          torch.full(logits.shape[:-1], -1,
                                      dtype=torch.long, device=dev))
         nxt = nxt.cpu().numpy()
         now = clock.now()
         self.metrics.observe("decode_step_s", now - t0)
         self.metrics.inc("decode_steps")
         self.metrics.observe("decode_batch_size", len(self._active))
+        if self._spec:
+            self._accept_windows(nxt, now, finished)
+            return
         for slot in sorted(self._active):
             rec = self._active[slot]
             token = int(nxt[slot])
@@ -540,15 +818,68 @@ class InferenceEngine:
             if done is not None:
                 finished.append(self._retire(rec, done, now))
 
+    def _accept_windows(self, nxt: np.ndarray, now: float,
+                        finished: List[RequestResult]) -> None:
+        """Consume each slot's verified window ``nxt [n, k]``: walk the
+        rows left to right, keeping the model's token at row ``j`` only
+        while the token FED at row ``j`` was the model's previous output —
+        the first disagreement invalidates everything to its right (those
+        rows' K/V are garbage the next window overwrites). Row 0 is always
+        the sequential feed, so every step emits >= 1 token."""
+        for slot in sorted(self._active):
+            rec = self._active[slot]
+            wl = int(self._wlen_h[slot])
+            consumed = 0
+            quarantined = done = None
+            for j in range(wl):
+                token = int(nxt[slot, j])
+                if not 0 <= token < self._vocab:
+                    quarantined = ("nonfinite_logits" if token == -1
+                                   else "out_of_vocab_token")
+                    break
+                rec.position += 1     # row j's fed K/V are now cached
+                rec.tokens.append(token)
+                rec.last_token = token
+                rec.last_token_ts = now
+                consumed += 1
+                self.metrics.inc("tokens_generated")
+                done = self._finish_reason(rec, token)
+                if done is not None:
+                    break
+                if j + 1 >= wl or int(self._window_h[slot, j + 1]) != token:
+                    break             # the draft diverged from the model
+            # rows 1..wl-1 were drafted; those the walk consumed beyond the
+            # mandatory row-0 token are the accepted ones
+            proposed = wl - 1
+            accepted = max(0, consumed - 1)
+            if proposed:
+                self.metrics.inc("draft_tokens_proposed", proposed)
+                self.metrics.inc("draft_tokens_accepted", accepted)
+                self.metrics.observe("spec_accept_rate",
+                                     accepted / proposed)
+                rec.spec_proposed += proposed
+                rec.spec_accepted += accepted
+            if quarantined is not None:
+                # poisoned at any window row: quarantine the slot even if
+                # clean tokens landed first — its KV is suspect
+                finished.append(self._quarantine(rec, quarantined, now))
+                continue
+            self._sync_slot(rec)
+            if done is not None:
+                finished.append(self._retire(rec, done, now))
+
     def _extend_pages(self, finished: List[RequestResult]) -> None:
-        """Map the page backing row ``position`` of every active slot
-        before the decode step appends there. Admission reserved each
-        request's worst case, so this cannot fail; the defensive branch
-        retires the slot as an error rather than corrupt a foreign page."""
+        """Map the pages backing the rows the decode step appends — row
+        ``position``, or the whole verify window ``position .. position +
+        wl - 1`` — of every active slot. Admission reserved each request's
+        worst case (``wl`` is clipped to ``max_new_tokens``), so this cannot
+        fail; the defensive branch retires the slot as an error rather
+        than corrupt a foreign page."""
         now = clock.now()
         for slot in sorted(self._active):
             rec = self._active[slot]
-            fresh = self.pages.extend_slot(slot, rec.position + 1)
+            grow = int(self._wlen_h[slot]) if self._spec else 1
+            fresh = self.pages.extend_slot(slot, rec.position + grow)
             if fresh is None:
                 self.metrics.inc("requests_shed_pages")
                 self.metrics.event("request_shed",
@@ -560,13 +891,17 @@ class InferenceEngine:
                 row = self._page_table_h[slot]
                 pages = self.pages.slot_pages(slot)
                 row[len(pages) - len(fresh):len(pages)] = fresh
+                self._reset_fresh_scales(fresh)
 
     # -- retirement & bookkeeping ----------------------------------------
 
     def _quarantine(self, rec: _Active, cause: str,
                     now: float) -> RequestResult:
-        """Retire ONE poisoned slot and keep the batch serving: its freed
-        pages are zeroed so no NaN outlives the occupant."""
+        """Retire ONE poisoned slot and keep the batch serving: the pages
+        its release frees are zeroed (and their scales) so no NaN outlives
+        the occupant. Shared prefix pages still referenced elsewhere hold
+        only pre-intern prefill data, interned on finite logits, and are
+        zeroed when their last reference drops."""
         self.metrics.inc("slots_quarantined")
         self.metrics.event("slot_quarantined", slot=rec.slot,
                            request_id=rec.request.request_id, cause=cause)
@@ -587,20 +922,34 @@ class InferenceEngine:
     def _clear_slot(self, slot: int) -> None:
         self._tokens_h[slot] = 0
         self._positions_h[slot] = 0
+        if self._spec:
+            self._window_h[slot] = 0
+            self._wlen_h[slot] = 1
 
     def _retire(self, rec: _Active, reason: str, now: float, *,
                 scrub: bool = False) -> RequestResult:
         del self._active[rec.slot]
         self.slots.release(rec.slot)
+        # release returns only the pages whose LAST reference this drop
+        # removed — shared prefix pages outlive the slot
         freed = self.pages.release_slot(rec.slot)
         self._reserved_pages -= rec.reserved_pages
         self._page_table_h[rec.slot, :] = self.pages.n_pages
         if scrub and freed:
             idx = torch.as_tensor(freed, dtype=torch.long, device=self.device)
             for k, v in self._caches:
-                k.index_fill_(0, idx, 0.0)
-                v.index_fill_(0, idx, 0.0)
+                for pool in ((*k, *v) if self._quantized else (k, v)):
+                    pool.index_fill_(0, idx, 0)
+            # PagePool.check() can now assert these free pages hold zero
+            # scales until their next allocation
+            self.pages.note_scrubbed(freed)
         self._clear_slot(rec.slot)
+        if rec.spec_proposed:
+            # lifetime speculation totals of the request
+            self.metrics.event("spec_verify",
+                               request_id=rec.request.request_id,
+                               proposed=rec.spec_proposed,
+                               accepted=rec.spec_accepted)
         return self._finish(
             rec.request, rec.tokens, reason, submit_ts=rec.submit_ts,
             now=now, prefill_start=rec.prefill_start,

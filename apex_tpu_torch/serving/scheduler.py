@@ -2,8 +2,8 @@
 
 Adapted from ``apex_tpu/serving/scheduler.py`` (stdlib only), kept in the
 port so it never imports the JAX package. The JAX scheduler's brownout
-admission floor, preemption requeue and supervisor snapshot come with the
-slices that use them.
+admission floor and supervisor snapshot come with the slices that use
+them.
 
 The queue half of continuous batching (Orca-style — PAPERS.md survey of
 request-level schedulers; TorchTitan's serving siblings ship the same
@@ -124,6 +124,7 @@ class _Queued:
     request: Request
     submit_ts: float
     #: arrival order — totally orders requests ACROSS the per-class lanes
+    #: (requeue_front entries get negative orders so they sort first)
     order: int = 0
 
 
@@ -138,6 +139,7 @@ class FCFSScheduler:
         self._queues: Dict[str, Deque[_Queued]] = {
             p: deque() for p in PRIORITIES}
         self._next_order = 0
+        self._next_front = -1
 
     def _lane(self, request: Request) -> Deque[_Queued]:
         return self._queues[request.sampling.priority]
@@ -264,3 +266,16 @@ class FCFSScheduler:
             lane.popleft()
             admitted.append((head.request, head.submit_ts))
         return admitted
+
+    def requeue_front(self, request: Request, submit_ts: float) -> None:
+        """Put a popped request BACK at the head of its class lane,
+        keeping its original ``submit_ts`` (deadline clock keeps
+        running). Used when the engine discovers, after
+        ``pop_admissible`` said yes, that the resources it predicted are
+        gone (an intern-index eviction reshaped the page pool) — FCFS
+        honesty demands the request retries from the front, not the
+        back. Deliberately bypasses ``max_queue``: the request already
+        held a queue position."""
+        self._lane(request).appendleft(
+            _Queued(request, submit_ts, self._next_front))
+        self._next_front -= 1

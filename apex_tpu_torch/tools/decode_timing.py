@@ -21,7 +21,11 @@ its own process. ``paged_decode_cuda`` is timed at:
   slot at 2047 (32 pages each), and ``gqa_window`` with a sliding window of
   512 (8 pages a slot read);
 - ``element_dh60``: the table in bf16 at head_dim 60, off the 16-byte
-  pieces (the element path, whose sha256 two versions share).
+  pieces (the element path, whose sha256 two versions share);
+- ``int8``, ``w2``, ``w4``, ``int8_w4``: the table in bf16 over int8
+  pools (quantized page by page, then the step's rows appended with the
+  rescale-on-append) and with 2- and 4-row query windows (a checkout
+  without them cannot run these cases).
 
 Each case is first held to its plain version run in f32 and rounded once
 (1 bf16 ulp in bf16, atol 1e-4 in f32) and run twice (bitwise equal);
@@ -40,10 +44,11 @@ reads. The case ``bandwidth`` times ``torch.sum`` over 19 and 67 MB of
 bf16 (the "full" and "gqa" cases' bytes) in the same three modes: what
 one plain read of those bytes takes. The bound counts the bytes of the
 K/V rows each slot must read (rows ``max(0, pos - window + 1)`` to
-``pos``), q, ctx, the page table and the positions, at 3.35 TB/s, as
-``chip_smoke.py`` does; the inputs are the ones its ``phase_decode``
-builds. ``host_us`` is the wrapper's host time a call (the median and
-the least of 30 runs of 100 calls). The case
+``pos + w - 1``; one byte an element in int8, plus the fp32 scales of the
+(page, kv head) pairs those rows lie on), q, ctx, the page table and the
+positions, at 3.35 TB/s, as ``chip_smoke.py`` does; the inputs are the
+ones its ``phase_decode`` builds. ``host_us`` is the wrapper's host time
+a call (the median and the least of 30 runs of 100 calls). The case
 ``floor`` times a one-element fill, the least a timed call takes.
 
 ``--serve`` runs the checkout's ``chip_smoke.py`` serve phase with its
@@ -83,7 +88,8 @@ def _load_smoke():
 
 SMOKE = _load_smoke()
 #: (name, b, heads, group, head_dim, page, pages a slot, positions, window,
-#: dtype)
+#: dtype[, query window rows, int8 pools])
+TABLE = (63, 64, 200, 700) * 2
 CASES = [
     ("table_bf16", 8, 12, 1, 64, 64, 12, (63, 64, 200, 700) * 2, None, BF16),
     ("table_f32", 8, 12, 1, 64, 64, 12, (63, 64, 200, 700) * 2, None, F32),
@@ -93,6 +99,10 @@ CASES = [
     ("gqa_window", 8, 32, 4, 128, 64, 32, (2047,) * 8, 512, BF16),
     ("element_dh60", 8, 12, 1, 60, 64, 12, (63, 64, 200, 700) * 2, None,
      BF16),
+    ("int8", 8, 12, 1, 64, 64, 12, TABLE, None, BF16, 1, True),
+    ("w2", 8, 12, 1, 64, 64, 12, TABLE, None, BF16, 2, False),
+    ("w4", 8, 12, 1, 64, 64, 12, TABLE, None, BF16, 4, False),
+    ("int8_w4", 8, 12, 1, 64, 64, 12, TABLE, None, BF16, 4, True),
 ]
 
 
@@ -181,23 +191,37 @@ def plan_of(da, q, kp, vp, pt, group, window):
 
 
 def time_case(da, timer, gen, case, emit) -> None:
-    name, b, hl, group, dh, ps, pps, positions, window, dtype = case
-    q, kp, vp, pt, pos = SMOKE._decode_inputs(b, hl, group, dh, ps, pps,
-                                              positions, dtype, gen)
-    run = lambda: da.paged_decode_cuda(q, kp, vp, pt, pos, group,  # noqa
-                                       window)
+    name, b, hl, group, dh, ps, pps, positions, window, dtype = case[:10]
+    w, int8 = case[10:] if len(case) > 10 else (1, False)
+    if w == 1 and not int8:
+        q, kp, vp, pt, pos = SMOKE._decode_inputs(b, hl, group, dh, ps, pps,
+                                                  positions, dtype, gen)
+        ks = vs = None
+        run = lambda: da.paged_decode_cuda(q, kp, vp, pt, pos,  # noqa
+                                           group, window)
+    else:
+        q, kp, vp, pt, pos, ks, vs = SMOKE._decode_window_inputs(
+            b, hl, group, dh, ps, pps, positions, dtype, gen, w, int8)
+        run = lambda: da.paged_decode_cuda(q, kp, vp, pt, pos,  # noqa
+                                           group, window, ks, vs)
     got, again = run(), run()
-    want = da.decode_plain(q.float(), kp.float(), vp.float(), pt, pos, group,
-                           window)
+    if int8:
+        want = da.decode_plain(q.float(), kp, vp, pt, pos, group, window,
+                               ks, vs)
+    else:
+        want = da.decode_plain(q.float(), kp.float(), vp.float(), pt, pos,
+                               group, window)
     err = ulps(got, want.to(dtype)) if dtype == BF16 else \
         float((got - want).abs().max())
     same = torch.equal(got, again)
     ok = same and err <= (1.0 if dtype == BF16 else 1e-4)
-    n_bytes = SMOKE._decode_bytes(q, pt, positions, ps, hl // group, window)
+    n_bytes = SMOKE._decode_bytes(q, pt, positions, ps, hl // group, window,
+                                  1 if int8 else None, int8)
     emit(kernel="paged_decode", case=name, b=b, heads=hl, group=group, dh=dh,
-         page=ps, positions=list(positions[:4]), window=window,
-         dtype=str(dtype)[6:], plan=plan_of(da, q, kp, vp, pt, group, window),
-         rows_read=SMOKE._decode_rows(positions, ps, pps, window),
+         page=ps, positions=list(positions[:4]), window=window, w=w,
+         pool=str(kp.dtype)[6:], dtype=str(dtype)[6:],
+         plan=plan_of(da, q, kp, vp, pt, group, window),
+         rows_read=SMOKE._decode_rows(positions, ps, pps, window, w),
          ms=event_ms(timer, run), kernel_ms=kernel_ms(timer, run),
          host_us=host_us(run), bound_ms=n_bytes / HBM_BYTES_S * 1e3, ok=ok,
          err=err, tol="1 bf16 ulp" if dtype == BF16 else "atol 1e-4",

@@ -17,7 +17,10 @@ printing its own lines and raising on failure:
               the vector path, GQA at head_dim 128 over 2048 rows with and
               without a window, one slot at 767, a slot at 0 and a
               sentinel inside a slot's range, head_dim 60 (the element
-              path); two runs bitwise equal; the launch plan printed;
+              path); then int8 pools, w = 4 query windows and both, at
+              the serve shape (timed), GQA, the corners and head_dim 60,
+              each int8 append run twice bitwise equal; two runs bitwise
+              equal; the launch plan and the context's sha256 printed;
 6. kernel D — LayerNorm backward vs its plain version: GPT-2's training
               rows in bf16 over fp32 w and b, f32 and RMSNorm, the T5
               decoder's [1824, 768] RMSNorm and a bf16 width off the
@@ -38,8 +41,17 @@ printing its own lines and raising on failure:
               greedy requests through ``InferenceEngine``; the launch
               counters of its kernels (A, B, C), read over this phase
               alone, must be > 0;
+    serve_prefix, serve_int8, serve_spec — the same model at the same
+              engine size serves 16 greedy requests with one feature on:
+              the prefix cache over a shared 512-token prompt prefix with
+              suffixes of 16-200 tokens (>= 15 hits; Kernel B launched
+              only for the misses' prefills), ``kv_dtype="int8"``, and
+              ``speculation=4``; each ends every request ``length``/``eos``
+              with Kernel C launched exactly decode steps x 12 layers;
 10. card vs CPU — one f32 request gives the same greedy tokens on the card
-              as the plain path on the CPU;
+              as the plain path on the CPU; then a small f32 GPT serves
+              shared-prefix requests with the prefix cache, int8 pools and
+              speculation (3), each with the same tokens on both;
 11. train   — GPT-2 124M in the ``bench.py`` configuration (bf16 compute,
               fp32 params, b 8, s 1024, FusedAdam lr 1e-4) takes 2 + 8
               steps of ``make_train_step`` on a fixed seeded batch; every
@@ -99,8 +111,9 @@ printing its own lines and raising on failure:
               CPU), then three FusedSGD steps with the recipe's init.
 
 Then one JSON line of per-kernel numbers (launches from the phase that
-drives each kernel's slice: serve for A-C, train for D-F, bert_train for G
-and H, t5_train for I, rn50_train for J-M, with every path's counts in
+drives each kernel's slice: serve for A-C, serve_int8 and serve_spec for
+C's int8 and window records, train for D-F, bert_train for G and H,
+t5_train for I, rn50_train for J-M, with every path's counts in
 ``launches_by_path``;
 times from CUDA events in this run; ``bound_ms`` from this run's shapes
 over the H100's published peaks), and last ``{"ok": true, "device":
@@ -487,50 +500,110 @@ def _decode_inputs(b, hl, group, dh, ps, pps, positions, dtype, g,
     return q, kp, vp, pt, pos
 
 
-def _decode_rows(positions, ps, pps, window) -> int:
-    """The K/V rows Kernel C must read: each slot's rows
-    max(0, pos - window + 1) to min(pos, pps * ps - 1)."""
+def _decode_spans(positions, ps, pps, window, w=1) -> list:
+    """Each slot's K/V rows Kernel C must read, ``(first, last)`` or None:
+    max(0, pos - window + 1) to min(pos + w - 1, pps * ps - 1) (a
+    ``w``-row window reads to its last row's position)."""
     last = pps * ps - 1
-    return sum(max(0, min(p, last) - (max(0, p - window + 1) if window
-                                      else 0) + 1) for p in positions)
+    out = []
+    for p in positions:
+        lo = max(0, p - window + 1) if window else 0
+        hi = min(p + w - 1, last)
+        out.append((lo, hi) if hi >= lo else None)
+    return out
 
 
-def _decode_bytes(q, pt, positions, ps, kvh, window) -> int:
+def _decode_rows(positions, ps, pps, window, w=1) -> int:
+    """The K/V rows Kernel C must read (see :func:`_decode_spans`)."""
+    return sum(hi - lo + 1 for lo, hi in
+               filter(None, _decode_spans(positions, ps, pps, window, w)))
+
+
+def _decode_bytes(q, pt, positions, ps, kvh, window, pool_bytes=None,
+                  scales=False) -> int:
     """The bytes Kernel C must move: K and V at the rows of
-    :func:`_decode_rows` for every kv head, q and ctx, the page table and
-    the positions."""
-    b, hl, dh = q.shape
-    rows = _decode_rows(positions, ps, pt.shape[1], window)
-    return (2 * rows * kvh * dh + 2 * b * hl * dh) * q.element_size() \
-        + pt.numel() * 4 + b * 4
+    :func:`_decode_rows` for every kv head (``pool_bytes`` an element: 1
+    for int8 pools; q's size by default), with ``scales`` the fp32 K and
+    V scales of every (page, kv head) those rows lie on, q and ctx (``q``
+    is ``[b, heads, dh]`` or a window ``[b, w, heads, dh]``), the page
+    table and the positions."""
+    w = 1 if q.dim() == 3 else q.shape[1]
+    b, hl, dh = q.shape[0], q.shape[-2], q.shape[-1]
+    spans = list(filter(None, _decode_spans(positions, ps, pt.shape[1],
+                                            window, w)))
+    rows = sum(hi - lo + 1 for lo, hi in spans)
+    pages = sum(hi // ps - lo // ps + 1 for lo, hi in spans)
+    item = q.element_size() if pool_bytes is None else pool_bytes
+    return 2 * rows * kvh * dh * item + (2 * pages * kvh * 4 if scales
+                                         else 0) \
+        + 2 * b * w * hl * dh * q.element_size() + pt.numel() * 4 + b * 4
 
 
-def _decode_check(name, q, kp, vp, pt, pos, group, window) -> tuple:
+def _decode_window_inputs(b, hl, group, dh, ps, pps, positions, dtype, g,
+                          w, int8, sentinel=False):
+    """:func:`_decode_inputs` with a ``w``-row query window ``[b, w, heads,
+    dh]`` whose rows are appended (rows past a slot's table dropped) and,
+    for ``int8``, the pools quantized page by page as a prefill fills them
+    (``paged_quant_fill``) before the window's rescale-on-append. Returns
+    ``(q, kp, vp, pt, pos, ks, vs)``; the scales are None without
+    ``int8``."""
+    from apex_tpu_torch.ops.decode_attention import (
+        _quant_append, append_rows, page_pool, paged_quant_fill, scale_pool)
+    _, kp, vp, pt, pos = _decode_inputs(b, hl, group, dh, ps, pps, positions,
+                                        dtype, g, sentinel)
+    n_pages, _, f = kp.shape
+    q = torch.randn(b, w, hl, dh, device="cuda", generator=g).to(dtype)
+    rows = torch.randn(2, b, w, f, device="cuda", generator=g).to(dtype)
+    ks = vs = None
+    if int8:
+        pools = []
+        for src in (kp, vp):
+            pool = page_pool(n_pages, ps, f, torch.int8, "cuda")
+            sc = scale_pool(n_pages, f // dh, "cuda")
+            paged_quant_fill(pool, sc, src, torch.arange(n_pages,
+                                                         device="cuda"))
+            pools.append((pool, sc))
+        (kp, ks), (vp, vs) = pools
+        _quant_append(kp, ks, rows[0], pt, pos, ps)
+        _quant_append(vp, vs, rows[1], pt, pos, ps)
+    else:
+        append_rows(kp, rows[0], pt, pos, ps)
+        append_rows(vp, rows[1], pt, pos, ps)
+    return q, kp, vp, pt, pos, ks, vs
+
+
+def _decode_check(name, q, kp, vp, pt, pos, group, window, ks=None,
+                  vs=None) -> tuple:
     """Kernel C against its plain version run in f32 and rounded once
-    (1 bf16 ulp, f32 atol 1e-4), two runs bitwise equal; logs the case
-    with its plan and returns (max abs err, plan)."""
+    (1 bf16 ulp, f32 atol 1e-4; int8 pools dequantized in f32 on both
+    sides), two runs bitwise equal; logs the case with its plan and the
+    sha256 of its context, and returns (max abs err, plan, ctx)."""
     from apex_tpu_torch.ops.decode_attention import (decode_plain,
                                                      paged_decode_cuda,
                                                      paged_decode_cuda_plan)
     plan = paged_decode_cuda_plan(q, kp, vp, pt, group, window)
-    ctx = paged_decode_cuda(q, kp, vp, pt, pos, group, window)
-    again = paged_decode_cuda(q, kp, vp, pt, pos, group, window)
-    ref = decode_plain(q.float(), kp.float(), vp.float(), pt, pos, group,
-                       window).to(q.dtype)
+    ctx = paged_decode_cuda(q, kp, vp, pt, pos, group, window, ks, vs)
+    again = paged_decode_cuda(q, kp, vp, pt, pos, group, window, ks, vs)
+    int8 = ks is not None
+    ref = decode_plain(q.float(), kp if int8 else kp.float(),
+                       vp if int8 else vp.float(), pt, pos, group, window,
+                       ks, vs).to(q.dtype)
     torch.cuda.synchronize()
     err = float((ctx.float() - ref.float()).abs().max())
     ulps, ok, tol = check_close(ctx, ref)
     same = torch.equal(ctx, again)
+    w = 1 if q.dim() == 3 else q.shape[1]
     log("kernel_c_case", case=name, dtype=str(q.dtype)[6:],
-        shape=f"b{q.shape[0]} heads{q.shape[1]} group{group} "
-        f"dh{q.shape[2]} page{kp.shape[1]}".replace(" ", "_"),
+        pool=str(kp.dtype)[6:], w=w,
+        shape=f"b{q.shape[0]} heads{q.shape[-2]} group{group} "
+        f"dh{q.shape[-1]} page{kp.shape[1]}".replace(" ", "_"),
         window=window, plan=_decode_plan_text(plan),
         max_abs_err=f"{err:.3e}", ulps=ulps, tol=tol.replace(" ", "_"),
-        repeat_bitwise=same)
+        repeat_bitwise=same, sha256=digest(ctx))
     if not ok or not same:
         raise AssertionError(f"paged_decode {name} {q.dtype}: max err {err} "
                              f"({ulps} ulp; {tol}), repeat bitwise {same}")
-    return err, plan
+    return err, plan, ctx
 
 
 #: Kernel C's cases beside the serve shape: (name, b, heads, group,
@@ -553,7 +626,103 @@ DECODE_CASES = [
 ]
 
 
-def phase_decode(timer: Timer) -> dict:
+#: Kernel C's int8 pools and w-row windows: (name, b, heads, group,
+#: head_dim, page, pages a slot, positions, sliding window, w, int8, path,
+#: sentinel) — the serve shape (timed, and the records of the int8 and
+#: window variants), GQA 32/8 at w 4 (16 rows a kv head: two chunks), the
+#: corners with a sentinel, rows past the table and a sliding window, and
+#: head_dim 60 (the element path); bf16 q throughout, f32 q over int8
+#: pools on the element path
+DECODE_WINDOW_CASES = [
+    ("int8", 8, 12, 1, 64, 64, 12, (63, 64, 200, 700) * 2, None, 1, True,
+     "vector", False),
+    ("w4", 8, 12, 1, 64, 64, 12, (63, 64, 200, 700) * 2, None, 4, False,
+     "vector", False),
+    ("int8_w4", 8, 12, 1, 64, 64, 12, (63, 64, 200, 700) * 2, None, 4, True,
+     "vector", False),
+    ("gqa_int8_w4", 8, 32, 4, 128, 64, 32, (2044,) * 8, None, 4, True,
+     "vector", False),
+    ("corners_w4", 6, 12, 3, 64, 16, 8, (0, 15, 16, 77, 126, 40), 20, 4,
+     False, "vector", True),
+    ("corners_int8_w2", 6, 12, 3, 64, 16, 8, (0, 15, 16, 77, 127, 40), 20,
+     2, True, "vector", True),
+    ("element_dh60_int8", 8, 12, 1, 60, 64, 12, (63, 64, 200, 700) * 2, None,
+     1, True, "element", False),
+    ("element_dh60_w4", 8, 12, 1, 60, 64, 12, (63, 64, 200, 700) * 2, None,
+     4, False, "element", False),
+    ("element_dh60_int8_w4", 8, 12, 1, 60, 64, 12, (63, 64, 200, 700) * 2,
+     None, 4, True, "element", False),
+]
+#: the timed window cases that print a kernel record: C's int8 and window
+#: variants at the serve shape
+DECODE_RECORDS = {"int8": "paged_decode_int8", "w4": "paged_decode_window"}
+
+
+def _decode_window_phase(timer: Timer, g) -> list:
+    """Kernel C's int8 and window cases (:data:`DECODE_WINDOW_CASES`):
+    each against its plain version in f32, two runs bitwise equal, the
+    int8 append run twice from the same seed bitwise equal (pools and
+    scales), the serve-shape ones timed beside their plain version and
+    bound. Returns the kernel records."""
+    from apex_tpu_torch.ops.decode_attention import (decode_plain,
+                                                     paged_decode_cuda)
+    records = []
+    for (name, b, hl, group, dh, ps, pps, positions, window, w, int8, path,
+         sentinel) in DECODE_WINDOW_CASES:
+        for dtype in ((torch.bfloat16, torch.float32) if int8 and
+                      path == "element" else (torch.bfloat16,)):
+            args = _decode_window_inputs(b, hl, group, dh, ps, pps,
+                                         positions, dtype, g, w, int8,
+                                         sentinel)
+            q, kp, vp, pt, pos, ks, vs = args
+            err, plan, _ = _decode_check(name, q, kp, vp, pt, pos, group,
+                                         window, ks, vs)
+            if plan.path != path:
+                raise AssertionError(f"paged_decode {name} {dtype}: "
+                                     f"{plan.path} path")
+            if int8:
+                seed = 100 + len(records)
+                twice = [_decode_window_inputs(
+                    b, hl, group, dh, ps, pps, positions, dtype,
+                    torch.Generator(device="cuda").manual_seed(seed), w,
+                    int8, sentinel) for _ in range(2)]
+                for i in (1, 2, 5, 6):
+                    if not torch.equal(twice[0][i], twice[1][i]):
+                        raise AssertionError(f"int8 append {name}: two runs "
+                                             f"differ (output {i})")
+                del twice
+            if name in DECODE_RECORDS:
+                kvh = hl // group
+                rows = _decode_rows(positions, ps, pps, window, w)
+                bms, by = bound_ms(_decode_bytes(
+                    q, pt, positions, ps, kvh, window, 1 if int8 else None,
+                    int8), 4.0 * dh * hl * w * rows, dtype)
+                run = lambda: paged_decode_cuda(  # noqa: E731
+                    q, kp, vp, pt, pos, group, window, ks, vs)
+                ms = timer(run, cold=True)
+                plain = timer(lambda: decode_plain(
+                    q, kp, vp, pt, pos, group, window, ks, vs), cold=True,
+                    iters=10)
+                log("kernel_c", case=name, shape=f"b{b} heads{hl} dh{dh} "
+                    f"page{ps}", w=w, pool=str(kp.dtype)[6:],
+                    positions=list(positions[:4]), dtype=str(dtype)[6:],
+                    max_abs_err=f"{err:.3e}", ms=f"{ms:.5f}",
+                    plain_ms=f"{plain:.5f}", library_ms=None,
+                    bound_ms=f"{bms:.5f}", bound_by=by, rows_read=rows,
+                    plan=_decode_plan_text(plan))
+                records.append(dict(
+                    name=DECODE_RECORDS[name], route="cuda",
+                    source="apex_tpu_torch/csrc/paged_decode.cu",
+                    replaces="apex_tpu/ops/decode_attention.py:272",
+                    shape=f"b{b} heads{hl} dh{dh} page{ps} w{w} "
+                    f"{str(kp.dtype)[6:]} pools, {str(dtype)[6:]} q, cold L2",
+                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                    bound_by=by, library_ms=None))
+            del args, q, kp, vp, ks, vs
+    return records
+
+
+def phase_decode(timer: Timer) -> list:
     from apex_tpu_torch.ops.decode_attention import (decode_plain,
                                                      paged_decode_cuda)
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -564,7 +733,7 @@ def phase_decode(timer: Timer) -> dict:
     for dtype in (torch.bfloat16, torch.float32):
         q, kp, vp, pt, pos = _decode_inputs(b, hl, 1, dh, ps, pps, positions,
                                             dtype, g)
-        err, plan = _decode_check("table", q, kp, vp, pt, pos, 1, None)
+        err, plan, _ = _decode_check("table", q, kp, vp, pt, pos, 1, None)
         if plan.path != "vector":
             raise AssertionError(f"paged_decode {dtype} at the serve shape "
                                  f"took the {plan.path} path")
@@ -593,14 +762,15 @@ def phase_decode(timer: Timer) -> dict:
         for dtype in dtypes:
             args = _decode_inputs(b, hl, group, dh, ps, pps, positions,
                                   dtype, g, sentinel)
-            _, plan = _decode_check(name, *args, group, window)
+            _, plan, _ = _decode_check(name, *args, group, window)
             if plan.path != ("element" if name == "element_dh60"
                              else "vector"):
                 raise AssertionError(f"paged_decode {name} {dtype}: "
                                      f"{plan.path} path")
             del args
+    records = [record] + _decode_window_phase(timer, g)
     torch.cuda.empty_cache()
-    return record
+    return records
 
 
 #: (rows, h, dtype, RMSNorm): the training block's LN, bf16 x and dy over
@@ -1516,6 +1686,132 @@ def phase_serve(profile: bool = False) -> dict:
     return launches
 
 
+def _prefix_requests(n, vocab, max_new, seed, prefix_len=512,
+                     suffix=(16, 200)):
+    """``n`` greedy requests sharing one ``prefix_len``-token prompt prefix
+    (8 pages of 64), each with its own suffix of 16-200 tokens (or the
+    ``suffix`` range)."""
+    from apex_tpu_torch.serving import Request
+    g = torch.Generator().manual_seed(seed)
+    prefix = torch.randint(0, vocab, (prefix_len,), generator=g).tolist()
+    lens = torch.randint(suffix[0], suffix[1] + 1, (n,), generator=g).tolist()
+    return [Request(prompt=prefix + torch.randint(
+        0, vocab, (k,), generator=g).tolist(), max_new_tokens=max_new)
+        for k in lens]
+
+
+#: the serve phases of the prefix cache, int8 pools and speculation: (name,
+#: engine knobs beside 8 slots of 768 and pages of 64, requests)
+SERVE_FEATURES = [
+    ("serve_prefix", dict(prefix_cache=True), "prefix"),
+    ("serve_int8", dict(prefix_cache=False, kv_dtype="int8"), "serve"),
+    ("serve_spec", dict(prefix_cache=False, speculation=4), "serve"),
+]
+
+
+def phase_serve_feature(name, knobs, kind, profile: bool = False) -> dict:
+    """GPT-2 124M in bf16 at full width serves 16 greedy requests with one
+    feature on (see :data:`SERVE_FEATURES`): every request ends
+    ``length``/``eos``, Kernel C launched exactly decode steps x 12
+    layers; the prefix phase needs >= 15 hits of 16 and Kernel B launched
+    only for the misses' full prefills (12 a miss: the suffix prefills run
+    the unfused softmax, no kernel). Logs tokens/s, TTFT p50, decode
+    ms/step, and the acceptance rate or the pages shared; with
+    ``profile``, a profiler breakdown of 8 more requests on a fresh
+    engine."""
+    from apex_tpu_torch.models import GPTModel, TransformerConfig
+    from apex_tpu_torch.ops import LAUNCHES, reset_launches
+    from apex_tpu_torch.serving import EngineConfig, InferenceEngine
+    cfg = TransformerConfig(**GPT2, params_dtype=torch.float32,
+                            compute_dtype=torch.bfloat16)
+    model = GPTModel(cfg, device="cuda",
+                     generator=torch.Generator().manual_seed(0))
+    ecfg = EngineConfig(max_slots=8, max_len=768, page_size=64, **knobs)
+    make = _prefix_requests if kind == "prefix" else _requests
+    # warm-up on its own engine: cuBLAS handles and first-call costs
+    InferenceEngine(model, ecfg).serve(make(2, cfg.vocab_size, 4, 9))
+    engine = InferenceEngine(model, ecfg)
+    requests = make(16, cfg.vocab_size, 32, 1)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    results = engine.serve(requests)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    counters = engine.metrics.counters()
+    bad = [r.finish_reason for r in results
+           if r.finish_reason not in ("length", "eos")]
+    if len(results) != 16 or bad:
+        raise AssertionError(f"{name}: {len(results)} results, bad finish "
+                             f"reasons {bad}")
+    steps = counters["decode_steps"]
+    if launches["paged_decode"] != steps * GPT2["num_layers"]:
+        raise AssertionError(f"{name}: Kernel C launched "
+                             f"{launches['paged_decode']} times for {steps} "
+                             f"decode steps of {GPT2['num_layers']} layers")
+    extra = {}
+    if kind == "prefix":
+        hits, misses = counters["prefix_hits"], counters["prefix_misses"]
+        if hits < 15 or launches["flash_fwd"] != misses * GPT2["num_layers"] \
+                or launches["softmax_fwd"]:
+            raise AssertionError(
+                f"{name}: {hits} hits, {misses} misses, Kernel B launched "
+                f"{launches['flash_fwd']} times, G {launches['softmax_fwd']}")
+        extra = dict(prefix_hits=hits, prefix_misses=misses,
+                     pages_shared=counters["prefix_pages_shared"])
+    if knobs.get("speculation"):
+        prop = counters["draft_tokens_proposed"]
+        acc = counters["draft_tokens_accepted"]
+        extra = dict(draft_proposed=prop, draft_accepted=acc,
+                     accept_rate=f"{acc / prop:.4f}" if prop else None)
+    tokens = sum(len(r.tokens) for r in results)
+    ttft = sorted(r.ttft_s for r in results)
+    step = engine.metrics.histogram("decode_step_s")
+    log(name, model="gpt2-124m bf16 random-init", requests=16,
+        knobs=json.dumps(knobs).replace(" ", ""), tokens=tokens,
+        wall_s=f"{wall:.3f}", tokens_per_s=f"{tokens / wall:.1f}",
+        ttft_p50_ms=f"{1e3 * ttft[len(ttft) // 2]:.2f}",
+        decode_ms_per_step=f"{1e3 * step.sum / step.count:.3f}",
+        decode_steps=steps, prefills=counters["prefills"], **extra,
+        launches=json.dumps(launches).replace(" ", ""))
+    if profile:
+        fresh = InferenceEngine(model, ecfg)
+        profile_device(name, lambda: fresh.serve(
+            make(8, cfg.vocab_size, 16, 7)), lambda: dict(
+                requests=8,
+                decode_steps=fresh.metrics.counters()["decode_steps"]))
+    del engine, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_features_card_vs_cpu() -> None:
+    """A small f32 GPT (TF32 off, set in ``main``) serves requests sharing
+    a prefix through the prefix cache, int8 pools and speculation (3) on
+    the card and on the CPU: the greedy tokens are equal."""
+    from apex_tpu_torch.models import GPTModel, TransformerConfig
+    from apex_tpu_torch.serving import EngineConfig, InferenceEngine
+    cfg = TransformerConfig(**SMALL)
+    out = {}
+    for knobs in (dict(prefix_cache=True), dict(kv_dtype="int8"),
+                  dict(speculation=3)):
+        for device in ("cuda", "cpu"):
+            model = GPTModel(cfg, device=device,
+                             generator=torch.Generator().manual_seed(0))
+            reqs = _prefix_requests(6, cfg.vocab_size, 8, 4, prefix_len=48,
+                                    suffix=(4, 40))
+            eng = InferenceEngine(model, EngineConfig(
+                max_slots=4, max_len=128, page_size=16, **knobs),
+                device=device)
+            out[device] = [r.tokens for r in eng.serve(reqs)]
+        if out["cuda"] != out["cpu"]:
+            raise AssertionError(f"card vs CPU greedy tokens differ with "
+                                 f"{knobs}: {out}")
+        log("features_card_vs_cpu", knobs=json.dumps(knobs).replace(" ", ""),
+            requests=6, tokens=sum(map(len, out["cuda"])), equal=True)
+
+
 def phase_card_vs_cpu() -> None:
     """Runs with TF32 off (set in ``main``), so the card's f32 GEMMs are
     f32 as on the CPU."""
@@ -2021,16 +2317,20 @@ MAIN_PATH = {"layer_norm_fwd": "serve", "flash_fwd": "serve",
              "softmax_fwd": "bert_train", "softmax_bwd": "bert_train",
              "flash_bwd": "t5_train", "conv1x1_fwd": "rn50_train",
              "conv1x1_bwd": "rn50_train", "conv3x3_fwd": "rn50_train",
-             "conv3x3_bwd": "rn50_train"}
+             "conv3x3_bwd": "rn50_train", "paged_decode_int8": "serve_int8",
+             "paged_decode_window": "serve_spec"}
+#: the launch counter of a record that names a variant of a kernel
+COUNTER = {"paged_decode_int8": "paged_decode",
+           "paged_decode_window": "paged_decode"}
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="after the serve and train phases, trace a "
-                        "second serve and two more steps of each train "
-                        "phase with torch.profiler and print their "
-                        "breakdowns")
+                        "second serve (of each serve phase) and two more "
+                        "steps of each train phase with torch.profiler and "
+                        "print their breakdowns")
     args = parser.parse_args()
     phase_device()
     # fp32 comparisons hold to fp32 GEMMs, not TF32
@@ -2039,11 +2339,14 @@ def main() -> int:
     phase_build()
     timer = Timer()
     records = [phase_layer_norm(timer), phase_flash(timer),
-               phase_decode(timer), phase_layer_norm_bwd(timer),
+               *phase_decode(timer), phase_layer_norm_bwd(timer),
                *phase_packed(timer), *phase_softmax(timer),
                phase_flash_bwd(timer), *phase_conv(timer)]
     paths = {"serve": phase_serve(args.profile)}
+    for name, knobs, kind in SERVE_FEATURES:
+        paths[name] = phase_serve_feature(name, knobs, kind, args.profile)
     phase_card_vs_cpu()
+    phase_features_card_vs_cpu()
     paths["train"] = phase_train(args.profile)
     phase_train_card_vs_cpu()
     paths["bert_train"] = phase_bert_train(args.profile)
@@ -2053,8 +2356,9 @@ def main() -> int:
     phase_rn50_card_vs_cpu()
     for rec in records:
         name = rec["name"]
-        rec["launches"] = paths[MAIN_PATH[name]][name]
-        rec["launches_by_path"] = {path: counts[name]
+        counter = COUNTER.get(name, name)
+        rec["launches"] = paths[MAIN_PATH[name]][counter]
+        rec["launches_by_path"] = {path: counts[counter]
                                    for path, counts in paths.items()}
     kernels = [{k: rec[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",

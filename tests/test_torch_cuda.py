@@ -19,7 +19,9 @@ forward's 64-row tiles (63-65, 127-129), head_dim 36 and 40, a window and
 with two bf16 forward runs bitwise equal, paged decode on both of its
 paths with GQA (two head chunks at a group of 12), head_dim 128, a sliding
 window, a slot at 0 and one at its table's last row, a sentinel inside a
-slot's range, and repeated calls bitwise equal, the masked softmax forward
+slot's range, and repeated calls bitwise equal, and with w = 2 and 4 query
+windows (rows past the table dropped) over bf16/f32 and int8 pools (int8
+appends repeated bitwise), the masked softmax forward
 and backward (padding masks with fully masked rows read through their
 broadcast strides, key masks, causal, rows of 17 to 4097, a scale), and
 the 4D flash backward (cross-attention with ``kv_lengths``, a 0 length,
@@ -70,11 +72,13 @@ from apex_tpu_torch.ops.conv_fused import (
     conv3x3_fwd_plain,
 )
 from apex_tpu_torch.ops.decode_attention import (
+    _quant_append,
     append_rows,
     decode_plain,
     page_pool,
     paged_decode_cuda,
     paged_decode_cuda_plan,
+    scale_pool,
 )
 from apex_tpu_torch.ops.layer_norm import (
     layer_norm_bwd_cuda,
@@ -239,6 +243,83 @@ def test_paged_decode_kernel_bitwise_repeatable(gen, name, dtype):
     for _ in range(3):
         assert torch.equal(paged_decode_cuda(q, kp, vp, pt, pos, group,
                                              window), first)
+
+
+def _paged_window_case(gen, name, dtype, w, int8):
+    """``_paged_case`` with a ``w``-row window of new rows appended
+    (rows past a slot's table dropped) and, for ``int8``, int8 pools with
+    random scales that the append rescales. Returns q ``[b, w, heads,
+    head_dim]``, the pools, table, positions and scales (or Nones)."""
+    b, hl, group, dh, window = PAGED[name]
+    q, kp, vp, pt, pos = _paged_case(gen, b, hl, group, dh, dtype)
+    n_pages, ps, f = kp.shape
+    q = torch.randn(b, w, hl, dh, device="cuda", generator=gen).to(dtype)
+    rows = torch.randn(2, b, w, f, device="cuda", generator=gen).to(dtype)
+    ks = vs = None
+    if int8:
+        kvh = f // dh
+        pools = []
+        for _ in range(2):
+            pool = page_pool(n_pages, ps, f, torch.int8, "cuda")
+            pool.copy_(torch.randint(-127, 128, pool.shape, device="cuda",
+                                     generator=gen))
+            sc = scale_pool(n_pages, kvh, "cuda")
+            # scales of pages of O(1) values, as the appends make them
+            # (absmax / 127)
+            sc.copy_(torch.rand(sc.shape, device="cuda", generator=gen)
+                     * (4 / 127))
+            pools.append((pool, sc))
+        (kp, ks), (vp, vs) = pools
+        _quant_append(kp, ks, rows[0], pt, pos, ps)
+        _quant_append(vp, vs, rows[1], pt, pos, ps)
+    else:
+        append_rows(kp, rows[0], pt, pos, ps)
+        append_rows(vp, rows[1], pt, pos, ps)
+    return q, kp, vp, pt, pos, ks, vs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True], ids=["pool", "int8"])
+@pytest.mark.parametrize("w", [2, 4])
+@pytest.mark.parametrize("name", ["mha", "gqa4", "gqa3_window",
+                                  "head_dim_60_element_path"])
+def test_paged_decode_kernel_windows_and_int8(gen, name, w, int8, dtype):
+    """Windows fold in as more query rows (row t masked to pos + t); int8
+    pools are dequantized as int8 * scale in fp32. Held to the plain
+    version run in f32 and rounded once; the vector path takes bf16 q over
+    int8 pools, the element path f32 q over them and bf16 head_dim 60."""
+    b, hl, group, dh, window = PAGED[name]
+    q, kp, vp, pt, pos, ks, vs = _paged_window_case(gen, name, dtype, w,
+                                                    int8)
+    plan = paged_decode_cuda_plan(q, kp, vp, pt, group, window)
+    vector = (dh % 4 == 0 and not int8) if dtype == torch.float32 \
+        else dh % 8 == 0
+    assert plan.path == ("vector" if vector else "element")
+    before = _support.LAUNCHES["paged_decode"]
+    ctx = paged_decode_cuda(q, kp, vp, pt, pos, group, window, ks, vs)
+    assert _support.LAUNCHES["paged_decode"] == before + 1
+    assert ctx.shape == (b, w, hl * dh)
+    ref = decode_plain(q.float(), kp if int8 else kp.float(),
+                       vp if int8 else vp.float(), pt, pos, group, window,
+                       ks, vs).to(dtype)
+    assert_close_once_rounded(ctx, ref)
+    for _ in range(2):
+        assert torch.equal(paged_decode_cuda(q, kp, vp, pt, pos, group,
+                                             window, ks, vs), ctx)
+
+
+def test_paged_int8_append_is_bitwise_repeatable(gen):
+    """The rescale-on-append writes identical values to duplicate
+    destinations, so two runs of the same append give the same pools and
+    scales."""
+    outs = []
+    for _ in range(2):
+        g = torch.Generator(device="cuda").manual_seed(5)
+        _, kp, _, _, _, ks, _ = _paged_window_case(g, "gqa4",
+                                                   torch.bfloat16, 4, True)
+        outs.append((kp.clone(), ks.clone()))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

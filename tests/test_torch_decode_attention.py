@@ -22,6 +22,17 @@ Kernel C computes, the plain version run in f32 and rounded once, to
 ``_pallas`` in interpret mode within 1 bf16 ulp. The two pairs differ
 from each other by design.
 
+int8 pools and ``w``-row windows: the port's appends (the windowed row
+scatter, ``paged_quant_scatter``, ``paged_quant_fill``, ``_quant_append``)
+leave pools and scales BITWISE equal to JAX's, sentinel pages, rows past
+the table and duplicate destinations included; ``decode_plain`` with
+windows (GQA, a sliding window, int8 pools) is held to ``_reference``,
+f32 atol 2e-5 and bf16 bitwise, and Kernel C's function in bf16 (the plain
+version run in f32, rounded once) to ``_reference`` run in f32 and rounded
+once within 1 bf16 ulp. The JAX interpret kernel is not used for int8
+windows: it disagrees with ``_reference`` there (a fault of the
+reference package).
+
 Kernel C's launch plan (``paged_decode_plan``: vector or element path,
 pages a split, splits, heads a block) is pure Python and pinned here at
 every shape the card checks and the timing tool use; the vector kernel's
@@ -39,16 +50,21 @@ import pytest
 import torch
 
 from apex_tpu.ops import _support as jax_support
+from apex_tpu.ops import decode_attention as jda
 from apex_tpu.ops.decode_attention import _pallas, _reference
 from apex_tpu_torch.ops import _support
 from apex_tpu_torch.ops.decode_attention import (
     DecodePlan,
+    _quant_append,
     append_rows,
     decode_plain,
     fused_paged_decode_attention,
     page_pool,
     paged_decode_cuda_plan,
     paged_decode_plan,
+    paged_quant_fill,
+    paged_quant_scatter,
+    scale_pool,
 )
 
 N_PAGES, PS, PPS = 12, 8, 5
@@ -212,18 +228,31 @@ def test_window_query_of_one_row_is_accepted():
 
 
 def test_later_slices_raise_not_implemented():
+    """What the first slice refused (``w > 1`` windows, int8 pools) now
+    runs; a pool and its scales must still come together."""
     q, k_new, v_new, k_pages, v_pages, table, positions = _inputs()
     kp, vp = _torch_pool(k_pages), _torch_pool(v_pages)
     t = torch.from_numpy
-    with pytest.raises(NotImplementedError, match="w > 1"):
+    ctx, _, _ = fused_paged_decode_attention(
+        t(q)[:, None].repeat(1, 2, 1, 1), t(k_new)[:, None].repeat(1, 2, 1),
+        t(v_new)[:, None].repeat(1, 2, 1), kp, vp, t(table), t(positions),
+        queries_per_group=GROUP)
+    assert ctx.shape == (B, 2, HL * DH)
+    ks, vs = scale_pool(N_PAGES, KVH, "cpu"), scale_pool(N_PAGES, KVH, "cpu")
+    k8 = _torch_int8(k_pages.astype(np.int8))
+    v8 = _torch_int8(v_pages.astype(np.int8))
+    out = fused_paged_decode_attention(
+        t(q), t(k_new), t(v_new), k8, v8, t(table), t(positions),
+        queries_per_group=GROUP, k_scales=ks, v_scales=vs)
+    assert len(out) == 5 and out[3] is ks and out[4] is vs
+    with pytest.raises(ValueError, match="scale"):
         fused_paged_decode_attention(
-            t(q)[:, None].repeat(1, 2, 1, 1), t(k_new)[:, None].repeat(1, 2, 1),
-            t(v_new)[:, None].repeat(1, 2, 1), kp, vp, t(table),
-            t(positions), queries_per_group=GROUP)
-    with pytest.raises(NotImplementedError, match="int8"):
+            t(q), t(k_new), t(v_new), k8, v8, t(table), t(positions),
+            queries_per_group=GROUP)
+    with pytest.raises(ValueError, match="scale"):
         fused_paged_decode_attention(
-            t(q), t(k_new), t(v_new), kp.to(torch.int8), vp.to(torch.int8),
-            t(table), t(positions), queries_per_group=GROUP)
+            t(q), t(k_new), t(v_new), kp, vp, t(table), t(positions),
+            queries_per_group=GROUP, k_scales=ks, v_scales=vs)
 
 
 def test_plain_path_counts_no_launch():
@@ -231,6 +260,193 @@ def test_plain_path_counts_no_launch():
     _run_torch(*_inputs(), None)
     assert _support.LAUNCHES == before
 
+
+
+# -- int8 pools and windows ---------------------------------------------------
+
+W_POSITIONS = np.array([13, 0, 22, 20, 38], np.int32)
+
+
+def _window_inputs(w, seed=2):
+    """``_inputs`` with ``w``-row windows of queries and new rows at
+    positions whose windows cross a page (slot 0), start a slot (1), run
+    past the last mapped page (2, the rows past it land on sentinels), hit
+    a sentinel page (3) and run past the table (4)."""
+    q, _, _, k_pages, v_pages, table, _ = _inputs(seed)
+    rng = np.random.RandomState(seed + 50)
+    q = rng.randn(B, w, HL, DH).astype(np.float32)
+    k_new = rng.randn(B, w, F).astype(np.float32)
+    v_new = rng.randn(B, w, F).astype(np.float32)
+    return q, k_new, v_new, k_pages, v_pages, table, W_POSITIONS
+
+
+def _quantized(pages, seed):
+    """An int8 pool from float pages and per-(page, kv head) scales as a
+    whole-page fill makes them (some pages left at scale 0, as free pages
+    are)."""
+    rng = np.random.RandomState(seed)
+    amax = np.abs(pages.reshape(N_PAGES, PS, KVH, DH)).max(axis=(1, 3))
+    scales = (amax / 127.0).astype(np.float32)
+    scales[rng.rand(N_PAGES) < 0.25] = 0.0
+    safe = np.where(scales > 0, scales, 1.0)[:, None, :, None]
+    q = np.clip(np.round(pages.reshape(N_PAGES, PS, KVH, DH) / safe),
+                -127, 127).astype(np.int8).reshape(N_PAGES, PS, F)
+    return q, scales
+
+
+def _torch_scales(a):
+    sc = scale_pool(N_PAGES, KVH, "cpu")
+    sc.copy_(torch.from_numpy(a))
+    return sc
+
+
+def _torch_int8(a):
+    pool = page_pool(N_PAGES, PS, F, torch.int8, "cpu")
+    pool.copy_(torch.from_numpy(a))
+    return pool
+
+
+@pytest.mark.parametrize("w", [1, 2, 4])
+def test_windowed_append_matches_jax_bitwise(w):
+    _, k_new, _, k_pages, _, table, positions = _window_inputs(w)
+    pool = _torch_pool(k_pages)
+    append_rows(pool, torch.from_numpy(k_new), torch.from_numpy(table),
+                torch.from_numpy(positions), PS)
+    want = jda._append_rows(jnp.asarray(k_pages), jnp.asarray(k_new),
+                            jnp.asarray(table), jnp.asarray(positions), PS)
+    np.testing.assert_array_equal(pool.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("w", [1, 2, 4])
+def test_quant_append_matches_jax_bitwise(w):
+    """The windowed rescale-on-append: pools and scales bitwise JAX's,
+    with rows on sentinels and past the table dropped, pages at scale 0
+    (their resident bits zeroed) and rows of one window sharing a page
+    (duplicate destinations of the rescale)."""
+    _, k_new, _, k_pages, _, table, positions = _window_inputs(w, seed=3)
+    k8, ks = _quantized(k_pages * 0.5, 7)
+    pool, sc = _torch_int8(k8), _torch_scales(ks)
+    out = _quant_append(pool, sc, torch.from_numpy(k_new),
+                        torch.from_numpy(table), torch.from_numpy(positions),
+                        PS)
+    assert out[0] is pool and out[1] is sc
+    jp, js = jda._quant_append(jnp.asarray(k8), jnp.asarray(ks),
+                               jnp.asarray(k_new), jnp.asarray(table),
+                               jnp.asarray(positions), PS)
+    np.testing.assert_array_equal(pool.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(sc.numpy(), np.asarray(js))
+
+
+def test_quant_scatter_and_fill_match_jax_bitwise():
+    """``paged_quant_scatter`` with duplicate destination pages, a
+    sentinel page and a page id far past the pool, then
+    ``paged_quant_fill`` of whole pages with one sentinel: bitwise
+    JAX's, and the spare page alone takes the dropped rows."""
+    rng = np.random.RandomState(9)
+    k8, ks = _quantized(rng.randn(N_PAGES, PS, F).astype(np.float32), 4)
+    rows = (rng.randn(7, F) * 2).astype(np.float32)
+    dest_page = np.array([3, 3, 5, N_PAGES, 2 ** 30, 0, 3], np.int32)
+    dest_row = np.array([0, 1, 7, 2, 3, 4, 6], np.int32)
+    pool, sc = _torch_int8(k8), _torch_scales(ks)
+    paged_quant_scatter(pool, sc, torch.from_numpy(rows),
+                        torch.from_numpy(dest_page), torch.from_numpy(dest_row))
+    jp, js = jda.paged_quant_scatter(jnp.asarray(k8), jnp.asarray(ks),
+                                     jnp.asarray(rows), jnp.asarray(dest_page),
+                                     jnp.asarray(dest_row))
+    np.testing.assert_array_equal(pool.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(sc.numpy(), np.asarray(js))
+    chunks = rng.randn(3, PS, F).astype(np.float32)
+    chunks[1, :, :DH] = 0.0            # a kv head of zeros: scale 0
+    dest = np.array([6, N_PAGES, 1], np.int32)
+    paged_quant_fill(pool, sc, torch.from_numpy(chunks),
+                     torch.from_numpy(dest))
+    jp, js = jda.paged_quant_fill(jp, js, jnp.asarray(chunks),
+                                  jnp.asarray(dest))
+    np.testing.assert_array_equal(pool.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(sc.numpy(), np.asarray(js))
+
+
+def _run_window(args, window, int8, dtype=torch.float32, seed=0):
+    """The port's CPU path over ``w``-row windows (int8 pools from the
+    f32 pages when ``int8``); outputs as f32 numpy."""
+    q, k_new, v_new, k_pages, v_pages, table, positions = args
+    t = lambda a: torch.from_numpy(a).to(dtype)  # noqa: E731
+    kw = {}
+    if int8:
+        (k8, ks), (v8, vs) = _quantized(k_pages, seed), _quantized(v_pages,
+                                                                  seed + 1)
+        kp, vp = _torch_int8(k8), _torch_int8(v8)
+        kw = dict(k_scales=_torch_scales(ks), v_scales=_torch_scales(vs))
+    else:
+        kp, vp = _torch_pool(k_pages, dtype), _torch_pool(v_pages, dtype)
+    out = fused_paged_decode_attention(
+        t(q), t(k_new), t(v_new), kp, vp, torch.from_numpy(table),
+        torch.from_numpy(positions), queries_per_group=GROUP,
+        sliding_window=window, **kw)
+    return [o.float().numpy() for o in out]
+
+
+def _reference_window(args, window, int8, dtype=jnp.float32, seed=0):
+    q, k_new, v_new, k_pages, v_pages, table, positions = args
+    a = lambda x: jnp.asarray(x, dtype)  # noqa: E731
+    if int8:
+        (k8, ks), (v8, vs) = _quantized(k_pages, seed), _quantized(v_pages,
+                                                                  seed + 1)
+        pools = (jnp.asarray(k8), jnp.asarray(v8), jnp.asarray(ks),
+                 jnp.asarray(vs))
+    else:
+        pools = (a(k_pages), a(v_pages), None, None)
+    kp, vp, ks, vs = pools
+    out = _reference(a(q), a(k_new), a(v_new), kp, vp, ks, vs,
+                     jnp.asarray(table), jnp.asarray(positions), GROUP,
+                     window)
+    return [np.asarray(o, np.float32) for o in out if o is not None]
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["pool", "int8"])
+@pytest.mark.parametrize("window", [None, 6])
+@pytest.mark.parametrize("w", [2, 4])
+def test_decode_windows_match_reference(w, window, int8):
+    """``decode_plain`` over ``w``-row windows (GQA 4, int8 pools through
+    their scales) against ``_reference``: f32 context atol 2e-5, pools and
+    scales after the append equal."""
+    args = _window_inputs(w)
+    got = _run_window(args, window, int8)
+    want = _reference_window(args, window, int8)
+    np.testing.assert_allclose(got[0], want[0], atol=2e-5, rtol=0)
+    for g, r in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(g, r)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["pool", "int8"])
+@pytest.mark.parametrize("window", [None, 6])
+@pytest.mark.parametrize("w", [2, 4])
+def test_decode_windows_bf16_match_reference_bitwise(w, window, int8):
+    """In bf16 ``decode_plain`` rounds where ``_reference`` does (the
+    score GEMM in q's dtype, int8 pages dequantized to q's dtype, p
+    rounded before ``p v``): equal bit for bit."""
+    args = tuple(a if a.dtype != np.float32 else
+                 torch.from_numpy(a).bfloat16().float().numpy()
+                 for a in _window_inputs(w, seed=4))
+    got = _run_window(args, window, int8, torch.bfloat16)
+    want = _reference_window(args, window, int8, jnp.bfloat16)
+    np.testing.assert_array_equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["pool", "int8"])
+@pytest.mark.parametrize("w", [2, 4])
+def test_decode_windows_bf16_kernel_function_matches_reference(w, int8):
+    """Kernel C's function in bf16 (scores and p in fp32, int8 dequantized
+    in fp32, the context rounded once: the plain version run in f32 on
+    the bf16 values) against ``_reference`` run in f32 on the same values
+    and rounded once: within 1 bf16 ulp (summation order only)."""
+    args = tuple(a if a.dtype != np.float32 else
+                 torch.from_numpy(a).bfloat16().float().numpy()
+                 for a in _window_inputs(w, seed=5))
+    got = torch.from_numpy(_run_window(args, 6, int8)[0]).bfloat16().float()
+    want = torch.from_numpy(_reference_window(args, 6, int8)[0]) \
+        .bfloat16().float()
+    torch.testing.assert_close(got, want, atol=2.0 ** -15, rtol=2.0 ** -7)
 
 
 #: a card's resident blocks an SM by the query heads a block holds (made
@@ -291,6 +507,45 @@ _PLANS = [
     ((2, 8, 2, 264, 16, 4, BF16, True, None),
      ("element", 0, 0, 4, 4, 1, (2, 2, 1))),
 ]
+
+#: windows and int8 pools: (shape as above, w, pool dtype) -> plan
+I8 = torch.int8
+_WINDOW_PLANS = [
+    # the serve shape with a 4-row window: 4 query rows a block, so fewer
+    # resident blocks and splits of 3 pages
+    ((8, 12, 12, 64, 64, 12, BF16, True, None), 4, BF16,
+     ("vector", 1, 8, 4, 3, 4, (12, 8, 4))),
+    # ... over int8 pools (8-byte pieces under bf16 q)
+    ((8, 12, 12, 64, 64, 12, BF16, True, None), 4, I8,
+     ("vector", 1, 8, 4, 3, 4, (12, 8, 4))),
+    ((8, 12, 12, 64, 64, 12, BF16, True, None), 1, I8,
+     ("vector", 1, 8, 1, 2, 6, (12, 8, 6))),
+    # GQA 32/8 at w 4: 16 rows a kv head, two chunks of 8
+    ((8, 32, 8, 128, 64, 32, BF16, True, None), 4, BF16,
+     ("vector", 1, 16, 8, 16, 2, (16, 8, 2))),
+    # a sliding window of 512 with w 4 spans at most 10 pages
+    ((8, 32, 8, 128, 64, 32, BF16, True, 512), 4, BF16,
+     ("vector", 1, 16, 8, 5, 7, (16, 8, 7))),
+    # a window of 9 rows with w 2 still spans at most 2 pages of 16
+    ((6, 12, 3, 64, 16, 8, BF16, True, 9), 2, BF16,
+     ("vector", 1, 8, 8, 1, 8, (3, 6, 8))),
+    # f32 q over int8 pools, and int8 at head_dim 60: the element path,
+    # all of a kv head's w x group rows in one block
+    ((8, 12, 12, 64, 64, 12, F32, True, None), 4, I8,
+     ("element", 0, 0, 4, 12, 1, (12, 8, 1))),
+    ((8, 12, 12, 60, 64, 12, BF16, True, None), 4, I8,
+     ("element", 0, 0, 4, 12, 1, (12, 8, 1))),
+]
+
+
+@pytest.mark.parametrize("shape,w,pool,want", _WINDOW_PLANS)
+def test_decode_plan_windows_and_int8(shape, w, pool, want):
+    b, hl, kvh, dh, ps, pps, dtype, aligned, window = shape
+    plan = paged_decode_plan(b, hl, kvh, dh, ps, pps, dtype, aligned,
+                             lambda pieces, heads: _OCCUPANCY[heads], 132,
+                             window, window=w, pool_dtype=pool)
+    assert (plan.path, plan.pieces, plan.lanes, plan.heads, plan.split_pages,
+            plan.splits, plan.grid) == want
 
 
 @pytest.mark.parametrize("shape,want", _PLANS)

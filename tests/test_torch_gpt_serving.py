@@ -176,15 +176,16 @@ class TestEngine:
         assert engine.metrics.counters()["decode_steps"] > 0
 
     def test_engine_refuses_unported_knobs(self):
-        with pytest.raises(NotImplementedError):
-            EngineConfig(prefix_cache=True)
-        with pytest.raises(NotImplementedError):
-            EngineConfig(kv_dtype="int8")
-        with pytest.raises(NotImplementedError):
-            EngineConfig(speculation=2)
+        """Only the flat layout and chunked prefill are still to port; the
+        prefix cache (on by default, as in apex_tpu), int8 pools and
+        speculation construct."""
         with pytest.raises(NotImplementedError):
             EngineConfig(kv_layout="flat")
         with pytest.raises(NotImplementedError):
             EngineConfig(prefill_token_budget=64)
-        assert EngineConfig().prefix_cache is False
+        for knobs in (dict(prefix_cache=True), dict(kv_dtype="int8"),
+                      dict(speculation=2),
+                      dict(kv_dtype="int8", speculation=4)):
+            EngineConfig(**knobs)
+        assert EngineConfig().prefix_cache is True
         assert EngineConfig().kv_layout == "paged"
