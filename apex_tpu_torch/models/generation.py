@@ -6,13 +6,20 @@ are updated IN PLACE (the JAX package returns new arrays; the returned
 caches here are the same tensors that were passed in):
 
 - :func:`init_kv_caches` — 4D ``[b, kv_heads, S, head_dim]`` pairs, the
-  prefill form (the JAX ``stacked=False`` form);
+  prefill form (the JAX ``stacked=False`` form), or with ``flat=True``
+  ``[b, S, kv_heads * head_dim]`` pairs, the flat decode form;
 - :func:`init_paged_kv_caches` — ``[n_pages, page_size, kv_heads *
   head_dim]`` page pools, the paged decode form; with ``quantized=True``
   int8 pools, each nested as a ``(pages, scales)`` pair with its float32
   ``[n_pages, kv_heads]`` scale sidecar.
 
 Everything here runs under ``torch.no_grad()``: the path is inference.
+:func:`generate` is the batch primitive: one prefill, then a Python decode
+loop over the flat caches, greedy or sampled with the port's threefry
+(:mod:`apex_tpu_torch.utils.prng`), token-exact against the JAX package.
+The JAX ``preslice_layer_params`` has no counterpart: the port's layers
+are already one module each (there is no stacked ``[L, ...]`` parameter
+form to slice).
 """
 
 from __future__ import annotations
@@ -25,9 +32,10 @@ from torch import nn
 
 from apex_tpu_torch.models.gpt import GPTModel, lm_head
 from apex_tpu_torch.ops.decode_attention import page_pool, scale_pool
+from apex_tpu_torch.utils.prng import categorical, fold_in, prng_key
 
 __all__ = ["cast_decode_params", "flatten_decode_caches", "init_kv_caches",
-           "init_paged_kv_caches", "decode_step"]
+           "init_paged_kv_caches", "decode_step", "generate"]
 
 Caches = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -57,11 +65,16 @@ def flatten_decode_caches(caches: Caches) -> Caches:
 
 
 def init_kv_caches(model: GPTModel, batch_size: int, max_len: int,
-                   dtype: Optional[torch.dtype] = None) -> Caches:
+                   dtype: Optional[torch.dtype] = None, *,
+                   flat: bool = False) -> Caches:
     """Zeroed per-layer 4D caches ``[batch, kv_heads, max_len, head_dim]``
-    on the model's device."""
+    on the model's device; ``flat=True`` gives the flat decode form
+    ``[batch, max_len, kv_heads * head_dim]`` (the JAX ``stacked=False,
+    flat=True`` form)."""
     c = model.config
     shape = (batch_size, c.kv_heads, max_len, c.head_dim)
+    if flat:
+        shape = (batch_size, max_len, c.kv_heads * c.head_dim)
     dtype = dtype or c.compute_dtype
     return [(torch.zeros(shape, dtype=dtype, device=model.device),
              torch.zeros(shape, dtype=dtype, device=model.device))
@@ -139,3 +152,77 @@ def decode_step(model: GPTModel, caches: Caches, tokens: torch.Tensor,
     logits, caches = _cached_forward(model, caches, tokens[:, None], index,
                                      paged_state=paged_state)
     return logits[0], caches
+
+
+@torch.no_grad()
+def generate(model: GPTModel, prompt: torch.Tensor, max_new_tokens: int, *,
+             max_len: Optional[int] = None, temperature: float = 0.0,
+             top_k: Optional[int] = None,
+             rng: Optional[torch.Tensor] = None,
+             eos_token: Optional[int] = None) -> torch.Tensor:
+    """Generate ``[batch, prompt_len + max_new_tokens]`` token ids from
+    ``prompt [batch, prompt_len]`` (on the model's device).
+
+    ``temperature == 0`` is greedy; otherwise softmax sampling, truncated to
+    the ``top_k`` largest logits (``torch.topk``, as JAX's ``lax.top_k``)
+    when given, with ``rng`` (a threefry key, :func:`~apex_tpu_torch.utils.\
+prng.prng_key`): the token after position ``i`` is drawn with
+    ``fold_in(rng, i)`` over the whole ``[batch, V]`` logits, as the JAX
+    ``generate`` draws it. ``eos_token`` freezes finished rows (they keep
+    emitting it). The prompt prefills in one batched forward on the 4D
+    caches (the flash kernel), whose caches then flatten for a Python loop
+    of single-token decode steps over the flat caches."""
+    if max_new_tokens < 1:
+        raise ValueError(
+            f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    if top_k is not None and top_k < 1:
+        raise ValueError(f"top_k must be >= 1, got {top_k}")
+    if temperature > 0.0 and rng is None:
+        raise ValueError("sampling (temperature > 0) needs rng")
+    c = model.config
+    if c.compute_dtype != torch.float32:
+        model = cast_decode_params(model, c.compute_dtype)
+    b, prompt_len = prompt.shape
+    total = prompt_len + max_new_tokens
+    if (c.position_embedding_type == "learned"
+            and total > c.max_position_embeddings):
+        raise ValueError(
+            f"prompt + new tokens ({total}) exceeds max_position_embeddings "
+            f"({c.max_position_embeddings}); the clamped position lookup "
+            f"would silently repeat the last row")
+    S = max_len or total
+    if S < total:
+        raise ValueError(f"max_len {S} < prompt+new tokens {total}")
+    dev = model.device
+    prompt = prompt.to(dev)
+    rng = prng_key(0, dev) if rng is None else rng.to(dev)
+    out = torch.zeros((b, total), dtype=prompt.dtype, device=dev)
+    out[:, :prompt_len] = prompt
+    # a device tensor, never a Python scalar: CUDA divides by a host scalar
+    # through its reciprocal, which is not the CPU's (nor XLA's) division
+    temp = torch.tensor(temperature, dtype=torch.float32, device=dev)
+
+    def pick_next(logits, key):
+        if temperature == 0.0:
+            return torch.argmax(logits, dim=-1).to(prompt.dtype)
+        logits = logits / temp
+        if top_k is not None:
+            kth = torch.topk(logits, top_k, dim=-1).values[:, -1:]
+            logits = torch.where(logits < kth, float("-inf"), logits)
+        return categorical(key, logits).to(prompt.dtype)
+
+    caches = init_kv_caches(model, b, S)
+    prefill_logits, caches = _cached_forward(model, caches, prompt, 0,
+                                             last_only=True)
+    caches = flatten_decode_caches(caches)
+    first = pick_next(prefill_logits[-1], fold_in(rng, 0))
+    out[:, prompt_len] = first
+    done = (first == eos_token) if eos_token is not None else None
+    for i in range(prompt_len, total - 1):
+        logits, caches = decode_step(model, caches, out[:, i], i)
+        nxt = pick_next(logits, fold_in(rng, i))
+        if eos_token is not None:
+            nxt = torch.where(done, eos_token, nxt)
+            done = done | (nxt == eos_token)
+        out[:, i + 1] = nxt
+    return out

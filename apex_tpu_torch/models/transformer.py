@@ -25,17 +25,23 @@ What runs here:
   (the masked softmax kernels; ``kv_lengths`` and the window are folded
   into the mask);
 - a 4D ``[b, kv_heads, S, head_dim]`` cache: K/V written into the cache
-  in place at ``cache_index``; at ``cache_index == 0`` (a Python int) the
-  prefill fast path, causal flash over the filled prefix; at a mid-cache
-  offset (a prefix-cache suffix prefill) an explicit offset-causal mask
-  over the whole cache and the unfused masked softmax (inference);
+  in place at ``cache_index``; at ``cache_index == 0`` (a Python int, no
+  mask or ``kv_lengths``) the prefill fast path, causal flash over the
+  filled prefix; otherwise (a prefix-cache suffix prefill, a prefill
+  chunk; ``cache_index`` a tensor) an explicit offset-causal mask over the
+  whole cache and the unfused masked softmax (inference);
+- a FLAT ``[b, S, kv_heads * head_dim]`` cache (``generate()`` and the
+  engine's ``kv_layout="flat"``): ``cache_index`` an int or a ``[b]``
+  vector of per-row offsets, each row written at its own offset and
+  masked offset-causally, within the window and below ``kv_lengths``; one
+  token runs two GEMMs and an fp32 softmax, more run the grouped product
+  and the masked softmax (``_flat_cache_attention``);
 - ``paged_state`` (a page table) with a ``[b]`` position vector: the paged
   decode step, or an ``s``-row speculative verify window, through
   :func:`~apex_tpu_torch.ops.fused_paged_decode_attention`, over bf16/f32
   pools or int8 ``(pages, scales)`` pairs.
 
-Raising ``NotImplementedError`` until their slice: the flat cache, active
-dropout
+Raising ``NotImplementedError`` until their slice: active dropout
 (``deterministic=False`` with a rate > 0: the JAX masks come from
 ``jax.random``), a truthy ``recompute``, sequence/context parallelism and
 MoE. ``scan_unroll`` is accepted and has no effect (the layers run as a
@@ -313,6 +319,83 @@ class ParallelAttention(nn.Module):
         probs = self.scale_mask_softmax(scores, attention_mask)
         return torch.matmul(probs.to(v.dtype), v)
 
+    def _offset_causal(self, sk: int, s: int, cache_index, device):
+        """``[b|1, 1, s, sk]`` True where query ``i`` of a slice written at
+        ``cache_index`` (an int, or a ``[b]`` tensor of per-row offsets)
+        may not see cache slot ``j``: ``j > cache_index + i``, or outside
+        the sliding window."""
+        slots = torch.arange(sk, device=device)[None, None, None, :]
+        if isinstance(cache_index, torch.Tensor):
+            ci = cache_index.to(device=device, dtype=torch.long).reshape(
+                -1, 1, 1, 1)
+        else:
+            ci = cache_index
+        allowed = ci + torch.arange(s, device=device)[None, None, :, None]
+        invalid = slots > allowed
+        if self.config.sliding_window is not None:
+            invalid = invalid | (slots <= allowed - self.config.sliding_window)
+        return invalid
+
+    def _flat_cache_attention(self, q, k, v, ck, cv, cache_index,
+                              attention_mask, kv_lengths):
+        """Cached attention over a FLAT ``[b, S, kv_heads * head_dim]``
+        cache pair (the JAX package's ``_flat_cache_attention``), written
+        in place. ``q``/``k``/``v`` arrive as ``[b, heads, s, head_dim]``;
+        ``cache_index`` is an int or a ``[b]`` vector of per-row offsets
+        (continuous batching: each row an independent request at its own
+        position). Each row's ``s`` new K/V rows land at its offset
+        (clamped into the cache, as ``dynamic_update_slice`` does); query
+        ``i`` sees slots ``<= cache_index + i``, within the window and below
+        ``kv_lengths``. One token: the scores as one GEMM in q's dtype,
+        masked with ``-1e30`` and softmaxed in fp32, the probabilities
+        rounded to q's dtype for the context GEMM — where JAX rounds. More
+        tokens: the grouped product and the masked softmax."""
+        c = self.config
+        dh = c.head_dim
+        b, hl, s, _ = q.shape
+        kvh = k.shape[1]
+        S = ck.shape[1]
+        kf = k.transpose(1, 2).reshape(b, s, kvh * dh)
+        vf = v.transpose(1, 2).reshape(b, s, kvh * dh)
+        if isinstance(cache_index, torch.Tensor) and cache_index.dim():
+            start = cache_index.to(device=ck.device, dtype=torch.long) \
+                .clamp(0, S - s)
+            rows = start[:, None] + torch.arange(s, device=ck.device)
+            bi = torch.arange(b, device=ck.device)[:, None]
+            ck[bi, rows] = kf.to(ck.dtype)
+            cv[bi, rows] = vf.to(cv.dtype)
+        else:
+            start = min(max(int(cache_index), 0), S - s)
+            ck[:, start:start + s] = kf.to(ck.dtype)
+            cv[:, start:start + s] = vf.to(cv.dtype)
+        invalid = self._offset_causal(S, s, cache_index, q.device)
+        if kv_lengths is not None:
+            slots = torch.arange(S, device=q.device)
+            invalid = invalid | (slots >= kv_lengths.to(q.device).reshape(
+                -1, 1, 1, 1))
+        if attention_mask is not None:
+            invalid = invalid | attention_mask
+        # sqrt(head_dim) in fp32, rounded to the compute dtype
+        inv_scale = float(torch.tensor(float(dh)).sqrt().to(q.dtype))
+        g = hl // kvh
+        k4 = ck.reshape(b, S, kvh, dh).transpose(1, 2).to(q.dtype)
+        v4 = cv.reshape(b, S, kvh, dh).transpose(1, 2).to(q.dtype)
+        if s == 1:
+            scores = torch.matmul(q.reshape(b, kvh, g, dh),
+                                  k4.transpose(-1, -2)) / inv_scale
+            # the mask of head 0, as JAX reads it
+            sf = torch.where(invalid[:, 0, 0][:, None, None, :],
+                             torch.tensor(-1e30, device=q.device),
+                             scores.float())           # [b, kvh, g, S]
+            sf = sf - sf.amax(dim=-1, keepdim=True)
+            e = torch.exp(sf)
+            probs = (e / e.sum(dim=-1, keepdim=True)).to(q.dtype)
+            ctx = torch.matmul(probs, v4)              # [b, kvh, g, dh]
+            return self.dense(ctx.reshape(1, b, hl * dh)), (ck, cv)
+        ctx = self._core_attention(q, k4, v4, invalid, None, None)
+        out = self.dense(ctx.permute(2, 0, 1, 3).reshape(s, b, hl * dh))
+        return out, (ck, cv)
+
     def forward(self, hidden: torch.Tensor, *,
                 encoder_output: Optional[torch.Tensor] = None,
                 attention_mask: Optional[torch.Tensor] = None,
@@ -400,41 +483,39 @@ class ParallelAttention(nn.Module):
         q, k, v = (t.permute(1, 2, 0, 3) for t in (q, k, v))
         if kv_cache is not None:
             ck, cv = kv_cache
-            if ck.dim() != 4 or attention_mask is not None \
-                    or kv_lengths is not None:
-                raise NotImplementedError(
-                    "only the 4D cache (no mask or kv_lengths) and paged "
-                    "decode are ported; the flat cache is a later slice")
+            if ck.dim() == 3:
+                return self._flat_cache_attention(
+                    q, k, v, ck, cv, cache_index, attention_mask, kv_lengths)
             if isinstance(cache_index, torch.Tensor) and cache_index.dim():
                 raise NotImplementedError(
                     "per-row cache_index (continuous-batching decode) needs "
-                    "the flat cache or paged_state")
+                    "the FLAT cache form (init_kv_caches(flat=True)) or "
+                    "paged_state")
             # K/V written in place at the cache offset (clamped into the
             # cache, as dynamic_update_slice does)
             start = min(max(int(cache_index), 0), ck.shape[2] - s)
             ck[:, :, start:start + s] = k.to(ck.dtype)
             cv[:, :, start:start + s] = v.to(cv.dtype)
-            if isinstance(cache_index, int) and cache_index == 0:
+            if (isinstance(cache_index, int) and cache_index == 0
+                    and attention_mask is None and kv_lengths is None):
                 # prefill: queries fill [0, s), so causal flash over the
                 # filled prefix
                 ctx = flash_attention(q, ck[:, :, :s].to(q.dtype),
                                       cv[:, :, :s].to(q.dtype), causal=True,
                                       sliding_window=c.sliding_window)
             else:
-                # mid-cache offset (a prefix-cache suffix prefill): query i
-                # sees slots <= cache_index + i, encoded as an explicit
-                # mask over the whole cache (the causal kernels assume the
-                # queries sit at the cache's end), so the unfused softmax
-                # runs, as in the JAX package
-                sk = ck.shape[2]
-                slots = torch.arange(sk, device=q.device)[None, None, None, :]
-                allowed = int(cache_index) + torch.arange(
-                    s, device=q.device)[None, None, :, None]
-                invalid = slots > allowed
-                if c.sliding_window is not None:
-                    invalid = invalid | (slots <= allowed - c.sliding_window)
+                # any other offset (a suffix prefill, a prefill chunk; a
+                # tensor offset even at 0): query i sees slots <=
+                # cache_index + i, encoded as an explicit mask over the
+                # whole cache (the causal kernels assume the queries sit at
+                # the cache's end), so the unfused softmax runs, as in the
+                # JAX package
+                invalid = self._offset_causal(ck.shape[2], s,
+                                              int(cache_index), q.device)
+                if attention_mask is not None:
+                    invalid = invalid | attention_mask
                 ctx = self._core_attention(q, ck.to(q.dtype), cv.to(q.dtype),
-                                           invalid, None, None)
+                                           invalid, kv_lengths, None)
         else:
             window = (c.sliding_window if self.attn_type == AttnType.self_attn
                       else None)

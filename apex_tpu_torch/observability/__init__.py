@@ -6,7 +6,7 @@ from apex_tpu_torch.observability.registry import (
     MetricsRegistry,
     percentile,
 )
-from apex_tpu_torch.observability.trace import new_trace_id
+from apex_tpu_torch.observability.trace import emit_span, new_trace_id
 
 __all__ = ["HistogramSnapshot", "MetricsRegistry", "percentile",
-           "new_trace_id"]
+           "emit_span", "new_trace_id"]

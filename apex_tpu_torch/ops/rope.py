@@ -20,7 +20,10 @@ def rope_freqs(start: Union[int, torch.Tensor], length: int, rot_dim: int,
                theta: float, device=None) -> torch.Tensor:
     """Angles for positions ``[start, start + length)``: ``[s, 1, 1,
     rot_dim]``, or ``[s, b, 1, rot_dim]`` when ``start`` is a ``[b]``
-    tensor of per-row offsets (continuous-batching decode)."""
+    tensor of per-row offsets (continuous-batching decode); a 0-dim
+    ``start`` reads as an int."""
+    if isinstance(start, torch.Tensor) and start.dim() == 0:
+        start = int(start)
     if isinstance(start, torch.Tensor):
         device = start.device
     inv = 1.0 / theta ** (torch.arange(0, rot_dim, 2, dtype=torch.float32,

@@ -1,5 +1,5 @@
-"""Continuous-batching serving over the paged KV layout (counterpart of
-``apex_tpu.serving``)."""
+"""Continuous-batching serving over the paged or flat KV layout, and the
+engine supervisor (counterpart of ``apex_tpu.serving``)."""
 
 from apex_tpu_torch.serving.engine import EngineConfig, InferenceEngine
 from apex_tpu_torch.serving.request import (
@@ -24,6 +24,11 @@ from apex_tpu_torch.serving.scheduler import (
 )
 from apex_tpu_torch.serving.slots import PageError, PagePool, SlotError, \
     SlotPool
+from apex_tpu_torch.serving.supervisor import (
+    EngineSupervisor,
+    EngineUnavailableError,
+    SupervisorConfig,
+)
 
 __all__ = ["EngineConfig", "InferenceEngine", "Request", "RequestResult",
            "SamplingParams", "FINISH_CANCELLED", "FINISH_EOS", "FINISH_ERROR",
@@ -31,4 +36,5 @@ __all__ = ["EngineConfig", "InferenceEngine", "Request", "RequestResult",
            "FINISH_TIMEOUT", "DeadlineExpiredError", "FCFSScheduler",
            "QueueFullError", "SchedulerConfig", "bucket_for",
            "prefill_buckets", "PageError", "PagePool", "SlotError",
-           "SlotPool"]
+           "SlotPool", "EngineSupervisor", "EngineUnavailableError",
+           "SupervisorConfig"]

@@ -1,42 +1,61 @@
-"""Continuous-batching inference engine over the paged decode path.
+"""Continuous-batching inference engine.
 
-Counterpart of ``apex_tpu/serving/engine.py``: greedy requests on the
-paged KV layout, with the prefix cache, int8 KV pools and self-speculative
-verify windows. The loop is the JAX engine's — requests are admitted and
-retired per decode step over one batched step across all slots:
+Counterpart of ``apex_tpu/serving/engine.py``: greedy and sampled requests
+on the paged or the flat KV layout, with the prefix cache, int8 KV pools,
+self-speculative verify windows, chunked prefill and priority preemption.
+The loop is the JAX engine's — requests are admitted and retired per
+decode step over one batched step across all slots:
 
-- **Slots and pages**: :class:`~apex_tpu_torch.serving.slots.SlotPool`
-  hands out decode rows; :class:`~apex_tpu_torch.serving.slots.PagePool`
-  maps each slot onto pages of the shared per-layer pools through a host
-  page table whose unmapped entries hold the sentinel ``n_pages``.
-  Admission reserves a request's worst case (prompt + max_new_tokens), so
-  decode-time page growth can never exhaust the pool.
+- **Slots and pages** (``kv_layout="paged"``, the default):
+  :class:`~apex_tpu_torch.serving.slots.SlotPool` hands out decode rows;
+  :class:`~apex_tpu_torch.serving.slots.PagePool` maps each slot onto
+  pages of the shared per-layer pools through a host page table whose
+  unmapped entries hold the sentinel ``n_pages``. Admission reserves a
+  request's worst case (prompt + max_new_tokens), so decode-time page
+  growth can never exhaust the pool. ``kv_layout="flat"`` keeps dense
+  ``[max_slots, max_len]`` rows per layer instead (the bisection layout:
+  no pages, no prefix cache, decode through two GEMMs a layer).
 - **Bucketed prefill**: a prompt is right-padded to a power-of-two
   bucket, run through the 4D-cache prefill path (causal flash), and its
   K/V rows are copied into the slot's pages (int8 pools: each whole page
-  quantized at its own scale); the LM head reads the single row
-  ``prompt_len - 1``. Chunks past the mapped pages are dropped.
-- **Prefix cache** (``prefix_cache=True``, the default): a prompt's
-  page-aligned prefix is interned in the pool's content-addressed index
-  once its prefill logits are finite; a later prompt sharing it maps
-  those pages refcounted and prefills only its suffix at the cache
-  offset (the mid-cache 4D path: offset-causal mask, unfused softmax).
-  A fully page-aligned hit recomputes the prompt's last token for its
-  logits and skips writing its row (the copy-on-write seam).
+  quantized at its own scale) or its flat row; the LM head reads the
+  single row ``prompt_len - 1``.
+- **Prefix cache** (``prefix_cache=True``, the default, paged only): a
+  prompt's page-aligned prefix is interned in the pool's content-addressed
+  index once its prefill logits are finite; a later prompt sharing it maps
+  those pages refcounted and prefills only its suffix at the cache offset
+  (the mid-cache 4D path: offset-causal mask, unfused softmax).
+- **Chunked prefill** (``prefill_token_budget=n``): a prompt prefills as a
+  sequence of bucketed chunks carried across ticks, at most ``n`` prompt
+  tokens a tick, interleaved with the batched decode step. Paged chunks
+  run the suffix-prefill program at a page-aligned offset; flat chunks
+  gather the slot's row into a small 4D cache. The last chunk's sample is
+  keyed to the absolute position, so it is the monolithic first token.
+- **Sampling**: greedy where ``temperature == 0``; otherwise the logits
+  over the temperature, truncated below the row's k-th largest, drawn with
+  ``categorical(fold_in(PRNGKey(seed), position))`` through the port's
+  threefry (:mod:`apex_tpu_torch.utils.prng`), so a sampled stream is the
+  JAX engine's token for token and depends on nothing else in the batch.
 - **One decode step per tick** over every slot: page table, positions and
-  tokens are uploaded once per tick, each layer appends its row and runs
-  the paged decode kernel, and the next tokens come back in ONE host read.
-  With ``speculation=k`` the step is a ``k``-row verify window a slot
-  (the token to feed, then an n-gram draft over the slot's own history),
-  and the longest prefix the model agrees with is accepted. A slot whose
-  logits are not finite is quarantined (the pages its release frees are
-  zeroed, and their scales) while co-tenants keep serving.
+  tokens are uploaded once per tick, each layer appends its row and attends
+  (the paged decode kernel, or the flat GEMMs), and the next tokens and the
+  per-slot finite flags come back in ONE host read. With ``speculation=k``
+  the step is a ``k``-row verify window a slot, each row sampled with the
+  key of the sequential step it stands for. A slot whose logits are not
+  finite is quarantined (its freed pages or its row zeroed) while
+  co-tenants keep serving.
+- **Preemption**: with a ``resume_consumer`` (the
+  :class:`~apex_tpu_torch.serving.supervisor.EngineSupervisor`), a
+  higher-class queued head blocked on slots or pages parks the
+  lowest-class running slot; its host cursor (request, tokens) waits in
+  :meth:`take_parked` for a continuation that resumes token-exact.
 
 Eager PyTorch has no retrace, so the JAX engine's retrace watchdog has no
-counterpart; caches are updated in place (no donation). Knobs of later
-slices — ``prefill_token_budget``, ``kv_layout="flat"``, adapters, fault
-injectors, and sampled requests (``temperature > 0``, which needs the
-threefry port for token parity) — raise ``NotImplementedError``.
+counterpart; caches are updated in place (no donation).
+``prefill_compiles``/``decode_compiles`` count the shapes first run (their
+first call pays the one-time costs: kernel build, library handles), which
+the supervisor's hung-tick check exempts as the JAX one exempts compiles.
+LoRA ``adapters`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -72,6 +91,7 @@ from apex_tpu_torch.serving.request import (
     FINISH_LENGTH,
     FINISH_REJECTED,
     FINISH_TIMEOUT,
+    PRIORITY_RANK,
     Request,
     RequestResult,
 )
@@ -85,6 +105,7 @@ from apex_tpu_torch.serving.scheduler import (
 )
 from apex_tpu_torch.serving.slots import PagePool, SlotPool
 from apex_tpu_torch.serving.speculation import propose_draft
+from apex_tpu_torch.utils.prng import categorical, fold_in, prng_key
 
 __all__ = ["EngineConfig", "InferenceEngine"]
 
@@ -100,24 +121,34 @@ _COUNTERS = ("requests_submitted", "requests_eos", "requests_length",
              # speculative decoding: proposed counts drafted positions
              # beyond the forced first feed, accepted the ones the model
              # agreed with
-             "draft_tokens_proposed", "draft_tokens_accepted")
+             "draft_tokens_proposed", "draft_tokens_accepted",
+             # chunked prefill: chunk programs run under
+             # prefill_token_budget
+             "prefill_chunks",
+             # priority preemption: running slots parked for a higher
+             # class (parks are not terminal)
+             "requests_preempted")
 
 
 @dataclass
 class EngineConfig:
-    """Engine sizing knobs — the JAX ``EngineConfig``'s names and
-    defaults. ``retrace_budget`` and ``donate_caches`` have no counterpart
+    """Engine sizing knobs — the JAX ``EngineConfig``'s names, defaults and
+    checks. ``retrace_budget`` and ``donate_caches`` have no counterpart
     in eager PyTorch and are absent.
 
-    ``n_pages=None`` sizes the pool to back every slot at ``max_len``;
-    smaller overcommits, and a request whose worst case can never fit is
-    shed as ``pages_exhausted``. ``prefix_cache`` interns page-aligned
-    prompt prefixes (``prefix_lru_capacity`` entries, evicted LRU-first
-    under page pressure); ``False`` restores the one-owner pool.
-    ``kv_dtype="int8"`` stores the pools int8 with per-(page, kv-head)
-    scales; ``speculation=k`` (``k >= 2``) makes each decode step a
-    ``k``-row verify window. Both keep greedy streams token-exact
-    against the defaults."""
+    ``kv_layout="paged"`` backs slots with a shared page pool;
+    ``n_pages=None`` sizes it to back every slot at ``max_len``, smaller
+    overcommits (a request whose worst case can never fit is shed as
+    ``pages_exhausted``). ``kv_layout="flat"`` keeps dense rows. Paged
+    only: ``prefix_cache`` interns page-aligned prompt prefixes
+    (``prefix_lru_capacity`` entries, evicted LRU-first under page
+    pressure); ``kv_dtype="int8"`` stores the pools int8 with
+    per-(page, kv-head) scales; ``speculation=k`` (``k >= 2``) makes each
+    decode step a ``k``-row verify window. ``prefill_token_budget=n``
+    bounds the prefill tokens a tick runs (chunked prefill; under the
+    paged layout internal chunk boundaries are page-aligned, so ``n`` must
+    be at least ``page_size``). Every knob keeps greedy and sampled streams
+    token-exact against the defaults."""
 
     max_slots: int = 8
     max_len: int = 512
@@ -151,16 +182,28 @@ class EngineConfig:
         if self.kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_dtype must be 'bf16' or 'int8', got "
                              f"{self.kv_dtype!r}")
+        if self.kv_dtype == "int8" and self.kv_layout != "paged":
+            raise ValueError("kv_dtype='int8' needs kv_layout='paged' — the "
+                             "scales are per-page sidecars")
         if self.speculation < 0 or self.speculation == 1:
             raise ValueError(f"speculation is 0 (off) or a verify window "
                              f">= 2, got {self.speculation}")
-        unported = [name for name, on in (
-            ("kv_layout='flat'", self.kv_layout == "flat"),
-            ("prefill_token_budget", self.prefill_token_budget is not None),
-        ) if on]
-        if unported:
-            raise NotImplementedError(
-                f"not ported yet (later slices): {', '.join(unported)}")
+        if self.speculation and self.kv_layout != "paged":
+            raise ValueError("speculation needs kv_layout='paged' — the "
+                             "verify window rides the fused paged kernel")
+        if self.prefill_token_budget is not None:
+            if self.prefill_token_budget < 1:
+                raise ValueError(
+                    f"prefill_token_budget must be >= 1 (or None to "
+                    f"disable chunking), got {self.prefill_token_budget}")
+            if (self.kv_layout == "paged"
+                    and self.prefill_token_budget < self.page_size):
+                raise ValueError(
+                    f"prefill_token_budget ({self.prefill_token_budget}) "
+                    f"must be >= page_size ({self.page_size}) under the "
+                    f"paged layout — internal chunk boundaries are "
+                    f"page-aligned, so a smaller budget could never make "
+                    f"progress on a multi-page prompt")
 
     @property
     def pages_per_slot(self) -> int:
@@ -174,7 +217,9 @@ class _Active:
     __slots__ = ("request", "slot", "tokens", "last_token", "position",
                  "submit_ts", "prefill_start", "prefill_end",
                  "first_token_ts", "last_token_ts", "cancelled",
-                 "reserved_pages", "spec_proposed", "spec_accepted")
+                 "reserved_pages", "spec_proposed", "spec_accepted",
+                 "prefill_pos", "prefill_chunks", "page_row", "chain",
+                 "shared_used", "skip_first", "finite_ok")
 
     def __init__(self, request: Request, slot: int, submit_ts: float):
         self.request = request
@@ -191,6 +236,38 @@ class _Active:
         self.first_token_ts = 0.0
         self.last_token_ts = 0.0
         self.cancelled = False
+        # chunked-prefill progress, carried across ticks as host data
+        self.prefill_pos = 0     # prompt tokens whose K/V are written
+        self.prefill_chunks = 0  # chunk programs run so far
+        self.page_row = None     # the slot's REAL page row while chunking
+        self.chain = ()          # prefix hash chain (interned at the end)
+        self.shared_used = 0     # prefix-hit pages mapped at admission
+        self.skip_first = False  # fully page-aligned hit (COW seam)
+        self.finite_ok = True    # AND of every chunk's isfinite flag
+
+
+def _sample_tokens(logits: torch.Tensor, temps: torch.Tensor,
+                   topks: torch.Tensor, seeds: torch.Tensor,
+                   steps: torch.Tensor) -> torch.Tensor:
+    """Per-row sampling over ``logits [n, V]`` (the JAX engine's
+    ``_sample_tokens``): greedy where ``temps == 0``, else the logits over
+    the row's temperature, masked below its k-th largest (``topks == V``
+    disables truncation), drawn with ``fold_in(PRNGKey(seed), step)`` — so
+    a request's stream depends only on its own (seed, positions), never on
+    batch co-tenants. ``temps``/``topks``/``seeds``/``steps`` are ``[n]``
+    tensors on ``logits``' device; returns int64 tokens ``[n]``."""
+    greedy = torch.argmax(logits, dim=-1)
+    v = logits.shape[-1]
+    safe_t = torch.where(temps > 0.0, temps, 1.0).to(logits.dtype)
+    scaled = logits / safe_t[:, None]
+    # kth-largest per row via one ascending sort (top_k varies per row);
+    # mask below it — generate()'s truncation support
+    order = torch.sort(scaled, dim=-1).values
+    kth = torch.gather(order, -1, (v - topks.long()).clamp(0, v - 1)[:, None])
+    masked = torch.where(scaled < kth, float("-inf"), scaled)
+    keys = fold_in(prng_key(seeds.long()), steps.long())
+    sampled = categorical(keys, masked)
+    return torch.where(temps > 0.0, sampled, greedy)
 
 
 class InferenceEngine:
@@ -201,7 +278,10 @@ class InferenceEngine:
     The model must already live on ``device`` (``"cuda"`` unless the
     caller asks for the CPU); under a non-fp32 ``compute_dtype`` the engine
     serves its own copy of the model, cast once at construction, and the
-    caller's model keeps its fp32 parameters.
+    caller's model keeps its fp32 parameters. ``faults`` takes a
+    :class:`~apex_tpu_torch.testing_faults.ServingFaultInjector`, whose
+    hooks run before each prefill (and chunk), before each decode step and
+    on its host outputs.
     """
 
     def __init__(self, model, config: Optional[EngineConfig] = None, *,
@@ -209,9 +289,8 @@ class InferenceEngine:
                  replica_id: Optional[int] = None, adapters=None,
                  device="cuda"):
         self.device = resolve_device(device)
-        if faults is not None or adapters is not None:
-            raise NotImplementedError(
-                "fault injectors and LoRA adapters are not ported yet")
+        if adapters is not None:
+            raise NotImplementedError("LoRA adapters are not ported yet")
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device} but the engine "
                              f"runs on {self.device}; build the model with "
@@ -219,6 +298,7 @@ class InferenceEngine:
         self.model = model
         self.config = config or EngineConfig()
         self.replica_id = replica_id
+        self._faults = faults
         self._closed = False
         c = model.config
         if (c.position_embedding_type == "learned"
@@ -235,37 +315,59 @@ class InferenceEngine:
         #: request ids in admission (prefill) order — the FCFS audit trail
         self.admission_log: List[int] = []
         self._active: Dict[int, _Active] = {}      # slot -> state
+        #: slots mid-chunked-prefill, in admission order — kept out of
+        #: _active so the batched decode step never sees them
+        self._prefilling: Dict[int, _Active] = {}
+        #: preempted (parked) requests as (request, generated_tokens,
+        #: submit_ts), slot and pages released; drained by take_parked()
+        self._parked: List = []
+        #: set True by a caller that drains take_parked() every tick (the
+        #: EngineSupervisor). Without a consumer the engine never preempts
+        #: on its own; park_class() is exempt (its caller owns the drain)
+        self.resume_consumer = False
+        self._chunk_tokens_tick = 0   # prefill tokens run this tick
+        #: shapes first run, per program (see prefill_compiles)
+        self._shapes: Dict[str, set] = {"prefill": set(), "decode": set(),
+                                         "chunk": set()}
         self._vocab = c.vocab_size
         if c.compute_dtype != torch.float32:
             model = self.model = cast_decode_params(model, c.compute_dtype)
 
-        pps = self.config.pages_per_slot
-        n_pages = (self.config.n_pages if self.config.n_pages is not None
-                   else self.config.max_slots * pps)
-        self.pages = PagePool(
-            n_pages, self.config.page_size, pps,
-            lru_capacity=(self.config.prefix_lru_capacity
-                          if self.config.prefix_cache else 0))
-        #: salt of the prompt-prefix hash chains: the model's fingerprint
-        self._prefix_salt = prefix_salt(c)
-        self._evictions_seen = 0
         self._quantized = self.config.kv_dtype == "int8"
-        self._caches = init_paged_kv_caches(model, n_pages,
-                                            self.config.page_size,
-                                            quantized=self._quantized)
-        # bytes one decode step streams per mapped page (K + V, all layers,
-        # plus the f32 scale sidecars when quantized)
-        itemsize = 1 if self._quantized else torch.empty(
-            (), dtype=c.compute_dtype).element_size()
-        self._page_read_bytes = 2 * c.num_layers * (
-            self.config.page_size * c.kv_heads * c.head_dim * itemsize
-            + (c.kv_heads * 4 if self._quantized else 0))
-        self._page_table_h = np.full((self.config.max_slots, pps), n_pages,
-                                     np.int32)
-        self._reserved_pages = 0
+        if self.config.kv_layout == "paged":
+            pps = self.config.pages_per_slot
+            n_pages = (self.config.n_pages if self.config.n_pages is not None
+                       else self.config.max_slots * pps)
+            self.pages: Optional[PagePool] = PagePool(
+                n_pages, self.config.page_size, pps,
+                lru_capacity=(self.config.prefix_lru_capacity
+                              if self.config.prefix_cache else 0))
+            #: salt of the prompt-prefix hash chains: the model's fingerprint
+            self._prefix_salt = prefix_salt(c)
+            self._evictions_seen = 0
+            self._caches = init_paged_kv_caches(model, n_pages,
+                                                self.config.page_size,
+                                                quantized=self._quantized)
+            # bytes one decode step streams per mapped page (K + V, all
+            # layers, plus the f32 scale sidecars when quantized)
+            itemsize = 1 if self._quantized else torch.empty(
+                (), dtype=c.compute_dtype).element_size()
+            self._page_read_bytes = 2 * c.num_layers * (
+                self.config.page_size * c.kv_heads * c.head_dim * itemsize
+                + (c.kv_heads * 4 if self._quantized else 0))
+            self._page_table_h = np.full((self.config.max_slots, pps),
+                                         n_pages, np.int32)
+            self._reserved_pages = 0
+        else:
+            self.pages = None
+            self._caches = init_kv_caches(model, self.config.max_slots,
+                                          self.config.max_len, flat=True)
         n = self.config.max_slots
         self._tokens_h = np.zeros(n, np.int64)
         self._positions_h = np.zeros(n, np.int32)
+        self._temps_h = np.zeros(n, np.float32)
+        self._topks_h = np.full(n, self._vocab, np.int32)
+        self._seeds_h = np.zeros(n, np.int32)
         #: speculation: per-slot verify window (row 0 the token the
         #: sequential step would feed, rows 1.. the n-gram draft, padded by
         #: repeating the last real feed) and its valid length
@@ -277,6 +379,25 @@ class InferenceEngine:
     # -- introspection ----------------------------------------------------
 
     @property
+    def prefill_compiles(self) -> int:
+        """Distinct full-prefill buckets run — bounded by ``len(buckets)``.
+        Eager PyTorch compiles nothing, but a shape's first call pays the
+        one-time costs (kernel build, library handles) that the JAX
+        engine's compiles stand for."""
+        return len(self._shapes["prefill"])
+
+    @property
+    def decode_compiles(self) -> int:
+        """1 once the decode step has run (its one program shape)."""
+        return len(self._shapes["decode"])
+
+    @property
+    def chunk_compiles(self) -> int:
+        """Distinct chunk buckets run under chunked prefill (paged chunks
+        run the suffix program)."""
+        return len(self._shapes["chunk"])
+
+    @property
     def active_count(self) -> int:
         return self.slots.active_count
 
@@ -284,13 +405,61 @@ class InferenceEngine:
     def queued_count(self) -> int:
         return self.scheduler.depth
 
+    @property
+    def queued_tokens(self) -> int:
+        """Prompt tokens waiting in the queue — the token-aware load signal
+        of the supervisor's shed estimate."""
+        return self.scheduler.queued_tokens
+
+    @property
+    def parked_count(self) -> int:
+        """Preempted requests awaiting resume."""
+        return len(self._parked)
+
+    def take_parked(self) -> List:
+        """Drain the parked (preempted) requests as ``(request,
+        generated_tokens, submit_ts)`` tuples — the supervisor turns each
+        into a continuation (prompt + generated prefix, remaining budget,
+        same ids and deadline clock) and resubmits it."""
+        parked, self._parked = self._parked, []
+        return parked
+
+    def queued_tokens_by_class(self) -> Dict[str, int]:
+        """Queued prompt tokens per priority class (scheduler
+        passthrough)."""
+        return self.scheduler.queued_tokens_by_class()
+
+    def queued_depth_by_class(self) -> Dict[str, int]:
+        """Queue depth per priority class (scheduler passthrough)."""
+        return self.scheduler.depth_by_class()
+
+    def set_admission_floor(self, priority: Optional[str]) -> None:
+        """Scheduler passthrough: pause dispatch of classes below
+        ``priority``."""
+        self.scheduler.set_admission_floor(priority)
+
+    def inflight(self) -> List:
+        """Active requests as ``(request, generated_tokens, submit_ts)`` in
+        slot order — what the supervisor re-prefills after a restart —
+        then mid-chunked-prefill requests with NO tokens (their chunk
+        progress dies with the engine), then parked requests with theirs."""
+        recs = [(rec.request, list(rec.tokens), rec.submit_ts)
+                for _, rec in sorted(self._active.items())]
+        recs += [(rec.request, [], rec.submit_ts)
+                 for rec in self._prefilling.values()]
+        recs += [(request, list(tokens), submit_ts)
+                 for request, tokens, submit_ts in self._parked]
+        return recs
+
     # -- request lifecycle ------------------------------------------------
 
-    def submit(self, request: Request) -> int:
+    def submit(self, request: Request, *, resubmission: bool = False) -> int:
         """Enqueue; returns the request id. Raises
         :class:`~apex_tpu_torch.serving.scheduler.QueueFullError` /
         :class:`~apex_tpu_torch.serving.scheduler.DeadlineExpiredError`
-        after recording a ``rejected`` result."""
+        after recording a ``rejected`` result. ``resubmission=True`` is the
+        supervisor's continuation path: the request was counted at its
+        original submit, so ``requests_submitted`` is not counted again."""
         if self._closed:
             raise RuntimeError("engine is closed")
         if request.request_id in self.completed:
@@ -301,15 +470,11 @@ class InferenceEngine:
                 f"prompt ({request.prompt_len}) + max_new_tokens "
                 f"({request.max_new_tokens}) exceeds the engine's max_len "
                 f"({self.config.max_len})")
-        sp = request.sampling
-        if sp.temperature > 0.0:
-            raise NotImplementedError(
-                "sampled decoding (temperature > 0) needs the threefry port "
-                "for token parity; only greedy requests are served yet")
-        if sp.adapter_id is not None:
+        if request.sampling.adapter_id is not None:
             raise NotImplementedError("LoRA adapters are not ported yet")
         now = clock.now()
-        self.metrics.inc("requests_submitted")
+        if not resubmission:
+            self.metrics.inc("requests_submitted")
         try:
             self.scheduler.submit(request, now)
         except QueueFullError:
@@ -323,16 +488,23 @@ class InferenceEngine:
         return request.request_id
 
     def cancel(self, request_id: int) -> bool:
-        """Cancel a queued or in-flight request; returns True when found.
-        A queued request terminates now; an in-flight one is evicted at
-        the start of the next tick, keeping its partial tokens."""
+        """Cancel a queued, parked or in-flight request; returns True when
+        found. A queued or parked request terminates now (a parked one
+        keeps its tokens); an in-flight one is evicted at the start of the
+        next tick, keeping its partial tokens."""
         queued = self.scheduler.cancel(request_id)
         if queued is not None:
             request, submit_ts = queued
             self._finish(request, [], FINISH_CANCELLED, submit_ts=submit_ts,
                          now=clock.now())
             return True
-        for rec in self._active.values():
+        for i, (request, tokens, submit_ts) in enumerate(self._parked):
+            if request.request_id == request_id:
+                del self._parked[i]
+                self._finish(request, tokens, FINISH_CANCELLED,
+                             submit_ts=submit_ts, now=clock.now())
+                return True
+        for rec in (*self._active.values(), *self._prefilling.values()):
             if rec.request.request_id == request_id:
                 rec.cancelled = True
                 return True
@@ -340,25 +512,37 @@ class InferenceEngine:
 
     def tick(self) -> List[RequestResult]:
         """One scheduler iteration: expire deadlines, evict cancellations,
-        admit + prefill (FCFS, decode-starvation capped), then one batched
-        decode step over all active slots. Returns the requests that
-        reached a terminal state during this tick."""
+        maybe preempt, admit + prefill (FCFS, decode-starvation capped, or
+        token-budgeted chunks), then one batched decode step over all
+        active slots. Returns the requests that reached a terminal state
+        during this tick."""
         if self._closed:
             raise RuntimeError("engine is closed")
         finished: List[RequestResult] = []
         now = clock.now()
         self._expire(now, finished)
         self._evict_cancelled(finished)
-        self._admit(finished)
+        self._maybe_preempt(now)
+        self._chunk_tokens_tick = 0
+        if self.config.prefill_token_budget is None:
+            self._admit(finished)
+        else:
+            self._chunked_admit(finished)
+        if self._chunk_tokens_tick:
+            # one observation per tick with prefill activity: its max
+            # never exceeds prefill_token_budget
+            self.metrics.observe("prefill_tokens_per_tick",
+                                 self._chunk_tokens_tick)
         self._decode_tick(finished)
         self.metrics.observe("slot_occupancy", self.slots.occupancy)
-        self.metrics.set_gauge("kv_pages_in_use", self.pages.in_use_count)
-        self.metrics.set_gauge("kv_pages_free", self.pages.free_count)
-        self.metrics.observe("kv_page_occupancy", self.pages.occupancy)
-        delta = self.pages.evictions - self._evictions_seen
-        if delta:
-            self.metrics.inc("prefix_evictions", delta)
-            self._evictions_seen = self.pages.evictions
+        if self.pages is not None:
+            self.metrics.set_gauge("kv_pages_in_use", self.pages.in_use_count)
+            self.metrics.set_gauge("kv_pages_free", self.pages.free_count)
+            self.metrics.observe("kv_page_occupancy", self.pages.occupancy)
+            delta = self.pages.evictions - self._evictions_seen
+            if delta:
+                self.metrics.inc("prefix_evictions", delta)
+                self._evictions_seen = self.pages.evictions
         return finished
 
     def serve(self, requests: Sequence[Request], *,
@@ -371,11 +555,13 @@ class InferenceEngine:
         pending = list(requests)
         ids = [r.request_id for r in pending]
         ticks = 0
-        while pending or self.scheduler.depth or self._active:
+        while pending or self.scheduler.depth or self._active \
+                or self._prefilling:
             while pending and \
                     self.scheduler.depth < self.config.scheduler.max_queue:
                 self.submit(pending.pop(0))
-            before = (len(pending), self.scheduler.depth, len(self._active))
+            before = (len(pending), self.scheduler.depth, len(self._active),
+                      len(self._prefilling))
             self.tick()
             ticks += 1
             if on_tick is not None:
@@ -383,8 +569,9 @@ class InferenceEngine:
             if max_ticks is not None and ticks >= max_ticks:
                 break
             if (before == (len(pending), self.scheduler.depth,
-                           len(self._active))
-                    and not self._active and self.scheduler.depth):
+                           len(self._active), len(self._prefilling))
+                    and not self._active and not self._prefilling
+                    and self.scheduler.depth):
                 raise RuntimeError(
                     "serve() made no progress: queued requests exist but "
                     "none are admissible (admission_hook deferring "
@@ -398,11 +585,23 @@ class InferenceEngine:
             return
         self._closed = True
         self._active.clear()
+        self._prefilling.clear()
+        self._parked.clear()
         self.slots.reset()
-        self.pages.reset()
-        self._reserved_pages = 0
-        self._page_table_h[:] = self.pages.n_pages
+        if self.pages is not None:
+            self.pages.reset()
+            self._reserved_pages = 0
+            self._page_table_h[:] = self.pages.n_pages
         self.metrics.flush()
+
+    def release_device_memory(self) -> None:
+        """Drop the KV caches and the engine's own cast copy of the model,
+        so a replacement engine can allocate them again without two sets on
+        the card (the supervisor's restart calls this on the dead engine
+        after reading its host state). The engine is unusable after."""
+        self._closed = True
+        self._caches = None
+        self.model = None
 
     def __enter__(self) -> "InferenceEngine":
         return self
@@ -417,17 +616,41 @@ class InferenceEngine:
         for request, submit_ts in self.scheduler.expire(now):
             finished.append(self._finish(
                 request, [], FINISH_TIMEOUT, submit_ts=submit_ts, now=now))
+        if self._parked:
+            # a park never stops the deadline clock; a parked request
+            # expires with its partial tokens
+            kept = []
+            for request, tokens, submit_ts in self._parked:
+                d = request.deadline_s
+                if d is not None and now - submit_ts > d:
+                    finished.append(self._finish(
+                        request, tokens, FINISH_TIMEOUT,
+                        submit_ts=submit_ts, now=now))
+                else:
+                    kept.append((request, tokens, submit_ts))
+            self._parked = kept
         for slot in sorted(self._active):
             rec = self._active[slot]
             d = rec.request.deadline_s
             if d is not None and now - rec.submit_ts > d:
                 finished.append(self._retire(rec, FINISH_TIMEOUT, now))
+        for slot in list(self._prefilling):
+            rec = self._prefilling[slot]
+            d = rec.request.deadline_s
+            if d is not None and now - rec.submit_ts > d:
+                finished.append(self._abandon_prefill(
+                    rec, FINISH_TIMEOUT, now))
 
     def _evict_cancelled(self, finished: List[RequestResult]) -> None:
         for slot in sorted(self._active):
             rec = self._active[slot]
             if rec.cancelled:
                 finished.append(self._retire(
+                    rec, FINISH_CANCELLED, clock.now()))
+        for slot in list(self._prefilling):
+            rec = self._prefilling[slot]
+            if rec.cancelled:
+                finished.append(self._abandon_prefill(
                     rec, FINISH_CANCELLED, clock.now()))
 
     def _plan_prefix(self, request: Request):
@@ -459,15 +682,18 @@ class InferenceEngine:
         return chain, pages[:matched], matched * ps == request.prompt_len
 
     def _page_predicate(self):
-        """Admission predicate: a request enters only when its worst-case
-        page need (minus the shared-prefix pages a cache hit maps
-        refcounted) fits beside every admitted request's outstanding
-        reservation. Pages held only by the intern index count as
-        capacity, since allocation evicts entries under pressure, less
-        this request's own shared pages (mapping pins them). One that can
-        never fit is shed, one that must wait defers (FCFS head-blocking).
-        ``planned`` and ``planned_shared`` accumulate across the pops of
-        one call."""
+        """Admission predicate (None under the flat layout): a request
+        enters only when its worst-case page need (minus the shared-prefix
+        pages a cache hit maps refcounted) fits beside every admitted
+        request's outstanding reservation. Pages held only by the intern
+        index count as capacity, since allocation evicts entries under
+        pressure, less this request's own shared pages (mapping pins them).
+        One that can never fit is shed, one that must wait defers (FCFS
+        head-blocking). ``planned`` and ``planned_shared`` accumulate across
+        the pops of one call — chunked admission builds a fresh predicate
+        per single-head pop, because it maps pages between pops."""
+        if self.pages is None:
+            return None
         planned = 0          # private pages promised this tick
         planned_shared = 0   # reclaimable pages pinned this tick
 
@@ -492,6 +718,71 @@ class InferenceEngine:
 
         return predicate
 
+    def _maybe_preempt(self, now: float) -> None:
+        """Park ONE lowest-class running slot when a strictly-higher-class
+        queued head is blocked on slots or pages. Runs before admission so
+        the freed slot and pages can admit the head in the same tick; one
+        park a tick converges without thrashing (the continuation re-queues
+        in its own class lane, behind the traffic that displaced it). The
+        head's TRUE class decides: an aged batch head never preempts."""
+        if not self.resume_consumer or not self._active:
+            return
+        head = self.scheduler.head(now=now)
+        if head is None:
+            return
+        head_rank = PRIORITY_RANK[head[0].sampling.priority]
+        blocked = self.slots.free_count == 0
+        if not blocked and self.pages is not None:
+            blocked = self._page_predicate()(head[0]) == "defer"
+        if not blocked:
+            return
+        victim, victim_key = None, None
+        for slot in sorted(self._active):
+            rec = self._active[slot]
+            rank = PRIORITY_RANK[rec.request.sampling.priority]
+            if rank <= head_rank:
+                continue
+            # lowest class first; among peers the one with the least
+            # generated work (cheapest re-prefill), ids breaking ties
+            key = (rank, -len(rec.tokens), rec.request.request_id)
+            if victim_key is None or key > victim_key:
+                victim, victim_key = rec, key
+        if victim is not None:
+            self._park(victim, now, cause="priority")
+
+    def _park(self, rec: _Active, now: float, *, cause: str) -> None:
+        """Preempt one ACTIVE slot: release the slot and its pages (shared
+        prefix pages outlive it, refcounted — the ``_retire`` release
+        sequence) with NO terminal record: a park is not an outcome. The
+        host cursor (request, generated tokens, submit_ts) moves to the
+        parked list for the supervisor's continuation path."""
+        slot = rec.slot
+        del self._active[slot]
+        self.slots.release(slot)
+        if self.pages is not None:
+            self.pages.release_slot(slot)
+            self._reserved_pages -= rec.reserved_pages
+            self._page_table_h[slot, :] = self.pages.n_pages
+        self._clear_slot(slot)
+        self._parked.append((rec.request, list(rec.tokens), rec.submit_ts))
+        self.metrics.inc("requests_preempted")
+        self.metrics.event("request_preempted",
+                           request_id=rec.request.request_id, cause=cause,
+                           priority=rec.request.sampling.priority,
+                           tokens_parked=len(rec.tokens))
+
+    def park_class(self, priority: str, *, cause: str = "brownout") -> int:
+        """Park EVERY active slot of ``priority``; returns the number
+        parked. The caller owns the take_parked() drain. Mid-chunked-prefill
+        slots are not parked — their progress lives in half-filled pages,
+        not a host cursor."""
+        now = clock.now()
+        victims = [self._active[s] for s in sorted(self._active)
+                   if self._active[s].request.sampling.priority == priority]
+        for rec in victims:
+            self._park(rec, now, cause=cause)
+        return len(victims)
+
     def _admit(self, finished: List[RequestResult]) -> None:
         shed: List = []
         now = clock.now()
@@ -505,6 +796,48 @@ class InferenceEngine:
             assert slot is not None  # pop_admissible respects free_count
             self._prefill_into(request, slot, submit_ts, finished)
 
+    def _chunked_admit(self, finished: List[RequestResult]) -> None:
+        """Token-budgeted mixed tick: continue in-flight chunked prefills
+        in admission order, then admit new heads while budget remains, each
+        running its first chunk(s) in the same tick.
+        ``max_prefills_per_tick`` still caps NEW admissions while requests
+        are decoding; the token budget bounds the tick's prefill work."""
+        budget = self.config.prefill_token_budget
+        spent = 0
+        for slot in list(self._prefilling):
+            if spent >= budget:
+                break
+            ran = self._run_chunk(self._prefilling[slot], budget - spent,
+                                  finished)
+            if ran == 0:
+                break           # remaining budget below one page
+            spent += ran
+        admitted = 0
+        limit = self.slots.free_count
+        if self._active:
+            limit = min(limit, self.config.scheduler.max_prefills_per_tick)
+        while spent < budget and admitted < limit and self.scheduler.depth:
+            shed: List = []
+            now = clock.now()
+            batch = self.scheduler.pop_admissible(
+                1, decoding=False, predicate=self._page_predicate(),
+                shed=shed, now=now)
+            for request, submit_ts in shed:
+                finished.append(self._shed_pages(request, submit_ts, now))
+            if not batch:
+                break           # head deferred (pages) or queue drained
+            request, submit_ts = batch[0]
+            slot = self.slots.allocate()
+            assert slot is not None
+            rec = self._begin_chunked_prefill(request, slot, submit_ts)
+            if rec is None:
+                break           # intern-eviction race: requeued at front
+            admitted += 1
+            ran = self._run_chunk(rec, budget - spent, finished)
+            if ran == 0:
+                break           # admitted; first chunk waits for budget
+            spent += ran
+
     def _shed_pages(self, request: Request, submit_ts: float,
                     now: float) -> RequestResult:
         need = self.pages.pages_for(request.total_len)
@@ -516,25 +849,66 @@ class InferenceEngine:
                             submit_ts=submit_ts, now=now,
                             detail="pages_exhausted")
 
-    def _first_token(self, logits: torch.Tensor):
-        """``(greedy token, finite)`` of one prefill's logits ``[1, 1,
-        V]``, in one host read."""
-        row = logits[0, 0]
-        both = torch.stack([torch.argmax(row),
-                            torch.isfinite(row).all().long()]).tolist()
+    def _sampling(self, request: Request):
+        """``(temperature, top_k, seed)`` of one request as the host arrays
+        hold them: ``top_k=None`` is the vocabulary size."""
+        sp = request.sampling
+        return (sp.temperature,
+                sp.top_k if sp.top_k is not None else self._vocab, sp.seed)
+
+    def _pick(self, logits: torch.Tensor, temps: np.ndarray,
+              topks: np.ndarray, seeds: np.ndarray,
+              steps: np.ndarray) -> torch.Tensor:
+        """Tokens of ``logits [n, V]`` under the host sampling arrays
+        (``[n]`` each): the argmax, with the sampled rows (temperature > 0)
+        drawn by :func:`_sample_tokens` — over those rows only, which gives
+        the same tokens (every op is row-independent), so a greedy batch
+        launches no sampling work."""
+        tokens = torch.argmax(logits, dim=-1)
+        rows = np.flatnonzero(temps > 0.0)
+        if rows.size:
+            dev = logits.device
+
+            def up(a):
+                return torch.as_tensor(a[rows], device=dev)
+
+            idx = torch.as_tensor(rows, device=dev)
+            tokens[idx] = _sample_tokens(logits[idx], up(temps), up(topks),
+                                         up(seeds), up(steps))
+        return tokens
+
+    def _first_token(self, logits: torch.Tensor, request: Request,
+                     sample: bool = True):
+        """``(first token, finite)`` of one prefill's logits ``[1, 1, V]``,
+        in one host read; the token is sampled at step ``prompt_len`` (the
+        absolute position it will occupy). ``sample=False`` (an interior
+        prefill chunk) reads only the finite flag and returns token 0."""
+        row = logits[0]
+        finite = torch.isfinite(row).all().long()
+        if not sample:
+            return 0, bool(finite.item())
+        t, k, sd = self._sampling(request)
+        token = self._pick(row, np.array([t], np.float32),
+                           np.array([k], np.int32), np.array([sd], np.int32),
+                           np.array([request.prompt_len], np.int64))
+        both = torch.stack([token[0], finite]).tolist()
         return int(both[0]), bool(both[1])
 
+    def _note_shape(self, program: str, bucket: int) -> None:
+        self._shapes[program].add(bucket)
+
     def _paged_prefill(self, page_row: np.ndarray, prompt: np.ndarray,
-                       prompt_len: int):
+                       prompt_len: int) -> torch.Tensor:
         """Prefill one bucket-padded prompt ``[1, bucket]`` and land its
-        K/V rows in the slot's pages (``page_row``); returns ``(first
-        token, finite logits)``. Chunks whose page is the sentinel (bucket
+        K/V rows in the slot's pages (``page_row``); returns the logits of
+        its last token ``[1, 1, V]``. Chunks whose page is the sentinel (bucket
         padding past the mapped pages) are dropped; garbage rows inside the
         last mapped page stay causally masked by the slot's position. An
         int8 pool takes each chunk as a whole page at its own scale
         (:func:`paged_quant_fill`)."""
         model = self.model
         bucket = prompt.shape[1]
+        self._note_shape("prefill", bucket)
         small = init_kv_caches(model, 1, bucket)
         logits, small = _cached_forward(
             model, small, torch.as_tensor(prompt, device=self.device), 0,
@@ -551,7 +925,7 @@ class InferenceEngine:
                     paged_quant_fill(pool, scales, F.pad(
                         rows[0], (0, 0, 0, pad)).reshape(n_chunks, ps, -1),
                         dest)
-            return self._first_token(logits)
+            return logits
         keep = [i for i in range(n_chunks)
                 if page_row[i] < self.pages.n_pages]
         dest = torch.as_tensor(page_row[keep].astype(np.int64),
@@ -564,25 +938,45 @@ class InferenceEngine:
                     n_chunks, ps, -1)
                 pool.index_copy_(0, dest,
                                  chunks.index_select(0, sel).to(pool.dtype))
-        return self._first_token(logits)
+        return logits
+
+    def _flat_prefill(self, slot: int, prompt: np.ndarray,
+                      prompt_len: int) -> torch.Tensor:
+        """Prefill one bucket-padded prompt into the slot's flat row (rows
+        ``[0, bucket)``; pad rows land past the live length and are never
+        read); returns the logits of its last token ``[1, 1, V]``."""
+        model = self.model
+        bucket = prompt.shape[1]
+        self._note_shape("prefill", bucket)
+        small = init_kv_caches(model, 1, bucket)
+        logits, small = _cached_forward(
+            model, small, torch.as_tensor(prompt, device=self.device), 0,
+            last_index=prompt_len - 1)
+        for (bk, bv), (fk, fv) in zip(self._caches,
+                                      flatten_decode_caches(small)):
+            bk[slot, :bucket] = fk[0].to(bk.dtype)
+            bv[slot, :bucket] = fv[0].to(bv.dtype)
+        return logits
 
     def _suffix_prefill(self, page_row: np.ndarray, suffix: np.ndarray,
-                        start: int, suffix_len: int, skip_first: bool):
-        """Prefill ONLY the suffix of a prefix-cache hit; returns ``(first
-        token, finite logits)``.
+                        start: int, suffix_len: int,
+                        skip_first: bool) -> torch.Tensor:
+        """Prefill ONLY the suffix of a prefix-cache hit, or one paged
+        prefill chunk; returns the logits of its last token ``[1, 1,
+        V]``.
 
-        The slot's page row already maps the shared prefix pages for
-        tokens ``[0, start)``; their rows (int8 ones dequantized with their
-        pages' scales) are gathered into a 4D cache of ``pages_per_slot *
+        The slot's page row already maps the pages holding tokens ``[0,
+        start)``; their rows (int8 ones dequantized with their pages'
+        scales) are gathered into a 4D cache of ``pages_per_slot *
         page_size + bucket`` rows, the suffix runs at ``cache_index =
-        start`` (the mid-cache path: offset-causal mask, rope and
-        positions at the absolute offset), and the suffix K/V rows land
-        in the slot's PRIVATE pages row by row (int8 through the
-        rescale-on-append scatter). Shared pages are never written: with
-        ``skip_first`` (a fully page-aligned hit, whose one-token suffix
-        recomputes the prompt's last token for its logits only) that
-        row's write is masked, since it already lives in the last shared
-        page."""
+        start`` (a tensor, so even a chunk at 0 takes the mid-cache path:
+        offset-causal mask, rope and positions at the absolute offset, the
+        unfused softmax), and the suffix K/V rows land in the slot's
+        PRIVATE pages row by row (int8 through the rescale-on-append
+        scatter). Shared pages are never written: with ``skip_first`` (a
+        fully page-aligned hit, whose one-token suffix recomputes the
+        prompt's last token for its logits only) that row's write is
+        masked, since it already lives in the last shared page."""
         model = self.model
         c = model.config
         ps = self.config.page_size
@@ -618,8 +1012,8 @@ class InferenceEngine:
                 place(cache[0], sk)
                 place(cache[1], sv)
         logits, small = _cached_forward(
-            model, small, torch.as_tensor(suffix, device=dev), start,
-            last_index=suffix_len - 1)
+            model, small, torch.as_tensor(suffix, device=dev),
+            torch.tensor(start), last_index=suffix_len - 1)
         # the suffix rows' destinations: pad rows and a skipped first row
         # go to the spare page
         idx = np.arange(bucket)
@@ -644,7 +1038,38 @@ class InferenceEngine:
                 for pool, f in zip(cache, (fk, fv)):
                     spare_page_view(pool).index_put_(
                         (dest, off), rows(f).to(pool.dtype))
-        return self._first_token(logits)
+        return logits
+
+    def _flat_chunk(self, slot: int, chunk: np.ndarray, start: int,
+                    chunk_len: int) -> torch.Tensor:
+        """Prefill ONE bucketed chunk of a prompt into a flat slot row;
+        returns the logits of its last token ``[1, 1, V]``. The slot's dense row
+        (tokens ``[0, start)`` live, later rows garbage the offset-causal
+        mask never attends) is gathered into a small 4D cache of ``max_len
+        + bucket`` rows, the chunk runs at ``cache_index = start`` (rope and
+        sampling keyed to the ABSOLUTE position, so the final chunk's sample
+        is the monolithic prefill's first token), and the chunk's K/V rows
+        go back into the row (pad rows dropped)."""
+        model = self.model
+        c = model.config
+        max_len = self.config.max_len
+        bucket = chunk.shape[1]
+        dev = self.device
+        h, d = c.kv_heads, c.head_dim
+        small = init_kv_caches(model, 1, max_len + bucket)
+        for (bk, bv), (sk, sv) in zip(self._caches, small):
+            for big, sm in ((bk, sk), (bv, sv)):
+                sm[0, :, :max_len] = big[slot].reshape(max_len, h, d) \
+                    .transpose(0, 1).to(sm.dtype)
+        logits, small = _cached_forward(
+            model, small, torch.as_tensor(chunk, device=dev),
+            torch.tensor(start), last_index=chunk_len - 1)
+        for (bk, bv), (fk, fv) in zip(self._caches, small):
+            for big, f in ((bk, fk), (bv, fv)):
+                big[slot, start:start + chunk_len] = \
+                    f[0, :, start:start + chunk_len].transpose(0, 1) \
+                    .reshape(chunk_len, h * d).to(big.dtype)
+        return logits
 
     def _reset_fresh_scales(self, pages) -> None:
         """Zero the scale sidecars of freshly allocated ``pages`` (int8
@@ -658,14 +1083,14 @@ class InferenceEngine:
             ks.index_fill_(0, idx, 0.0)
             vs.index_fill_(0, idx, 0.0)
 
-    def _prefill_into(self, request: Request, slot: int, submit_ts: float,
-                      finished: List[RequestResult]) -> None:
-        rec = _Active(request, slot, submit_ts)
-        rec.prefill_start = clock.now()
-        # re-match the prefix NOW (the predicate's match may have been
-        # reshaped by a later head's intern eviction), commit the
-        # worst-case reservation minus the shared pages, then map only the
-        # prompt's pages (decode extends on demand)
+    def _map_pages(self, request: Request, slot: int, submit_ts: float):
+        """Paged admission: re-match the prefix NOW (the predicate's match
+        may have been reshaped by a later head's intern eviction), map the
+        prompt's pages (shared prefix refcounted, decode extends on demand)
+        and commit the worst-case reservation minus the shared pages.
+        Returns ``(mapped, chain, shared_used, skip_first, need)``, or None
+        when an intern eviction between the predicate and this map left no
+        room: the request is then back at the FRONT of the queue."""
         chain, shared_pages, skip_first = self._plan_prefix(request)
         shared_used = len(shared_pages)
         need = self.pages.pages_for(request.total_len) - shared_used
@@ -674,22 +1099,34 @@ class InferenceEngine:
         if mapped is None:
             self.slots.release(slot)
             if self.config.prefix_cache:
-                # an intern eviction between the predicate and this map
-                # changed what is reclaimable: retry from the FRONT of the
-                # queue on a later tick
                 self.scheduler.requeue_front(request, submit_ts)
-                return
+                return None
             raise RuntimeError(
                 f"page pool exhausted at prefill despite admission "
                 f"reservation (slot {slot}, free={self.pages.free_count})")
-        rec.reserved_pages = need
         self._reserved_pages += need
-        row = self._page_table_h[slot]
-        row[:] = self.pages.n_pages
-        row[:len(mapped)] = mapped
+        # freshly mapped PRIVATE pages may carry a previous tenant's scales
         self._reset_fresh_scales(mapped[shared_used:])
+        return mapped, chain, shared_used, skip_first, need
+
+    def _prefill_into(self, request: Request, slot: int, submit_ts: float,
+                      finished: List[RequestResult]) -> None:
+        rec = _Active(request, slot, submit_ts)
+        rec.prefill_start = clock.now()
+        chain, shared_used, skip_first = (), 0, False
+        if self.pages is not None:
+            planned = self._map_pages(request, slot, submit_ts)
+            if planned is None:
+                return
+            mapped, chain, shared_used, skip_first, rec.reserved_pages = \
+                planned
+            row = self._page_table_h[slot]
+            row[:] = self.pages.n_pages
+            row[:len(mapped)] = mapped
         try:
-            if shared_used:
+            if self._faults is not None:
+                self._faults.before_prefill()
+            if self.pages is not None and shared_used:
                 # prefix-cache hit: prefill ONLY the suffix, from the first
                 # token the shared pages do not cover (or, fully covered,
                 # the prompt's last token, for its logits only)
@@ -700,22 +1137,28 @@ class InferenceEngine:
                 bucket = bucket_for(suffix_len, self.config.max_len)
                 suffix = np.zeros((1, bucket), np.int64)
                 suffix[0, :suffix_len] = request.prompt[start:]
-                first, finite = self._suffix_prefill(
-                    row, suffix, start, suffix_len, skip_first)
+                logits = self._suffix_prefill(row, suffix, start, suffix_len,
+                                              skip_first)
             else:
                 bucket = bucket_for(request.prompt_len, self.config.max_len)
                 padded = np.zeros((1, bucket), np.int64)
                 padded[0, :request.prompt_len] = request.prompt
-                first, finite = self._paged_prefill(row, padded,
-                                                    request.prompt_len)
+                if self.pages is not None:
+                    logits = self._paged_prefill(row, padded,
+                                                 request.prompt_len)
+                else:
+                    logits = self._flat_prefill(slot, padded,
+                                                request.prompt_len)
+            first, finite = self._first_token(logits, request)
         except Exception:
             # keep the pool invariants as the failure propagates
             self.slots.release(slot)
-            self.pages.release_slot(slot)
-            self._reserved_pages -= rec.reserved_pages
-            self._page_table_h[slot, :] = self.pages.n_pages
+            if self.pages is not None:
+                self.pages.release_slot(slot)
+                self._reserved_pages -= rec.reserved_pages
+                self._page_table_h[slot, :] = self.pages.n_pages
             raise
-        if self.config.prefix_cache:
+        if self.pages is not None and self.config.prefix_cache:
             if shared_used:
                 self.metrics.inc("prefix_hits")
                 self.metrics.inc("prefix_pages_shared", shared_used)
@@ -726,20 +1169,165 @@ class InferenceEngine:
             if chain and finite:
                 self.pages.intern_prefix(
                     chain, [int(p) for p in row[:len(chain)]])
+        self.admission_log.append(request.request_id)
+        self._activate(rec, first, finished)
+
+    def _activate(self, rec: _Active, first: int,
+                  finished: List[RequestResult]) -> None:
+        """A prefill landed: promote ``rec`` to the active set with its
+        first token (TTFT is submit -> here)."""
         rec.prefill_end = clock.now()
         rec.tokens.append(first)
         rec.last_token = first
-        # token #1 lands with the prefill result — TTFT is submit -> here
         rec.first_token_ts = rec.last_token_ts = rec.prefill_end
-        rec.position = request.prompt_len
-        self._active[slot] = rec
-        self.admission_log.append(request.request_id)
+        rec.position = rec.request.prompt_len
+        self._active[rec.slot] = rec
         self.metrics.inc("prefills")
         self.metrics.inc("tokens_generated")
         self._sync_slot(rec)
         done = self._finish_reason(rec, first)
         if done is not None:
             finished.append(self._retire(rec, done, clock.now()))
+
+    def _begin_chunked_prefill(self, request: Request, slot: int,
+                               submit_ts: float) -> Optional[_Active]:
+        """Admission half of a chunked prefill: allocate the slot, commit
+        the page reservation and map the prompt's pages (shared prefix
+        refcounted, as the monolithic path) — but run NO compute yet. The
+        slot's real page row lives on the rec while chunks land; the global
+        table row stays all-sentinel, so the batched decode step treats the
+        slot as idle (gathers mask, appends drop). Returns None when an
+        intern-eviction race requeued the request."""
+        rec = _Active(request, slot, submit_ts)
+        rec.prefill_start = clock.now()
+        if self.pages is not None:
+            planned = self._map_pages(request, slot, submit_ts)
+            if planned is None:
+                return None
+            mapped, rec.chain, rec.shared_used, rec.skip_first, \
+                rec.reserved_pages = planned
+            row = np.full(self.config.pages_per_slot, self.pages.n_pages,
+                          np.int32)
+            row[:len(mapped)] = mapped
+            rec.page_row = row
+            # shared prefix rows are already resident: chunking starts at
+            # the first uncovered token (page-aligned), or — fully covered —
+            # at the last-token recompute (the COW seam)
+            rec.prefill_pos = (request.prompt_len - 1 if rec.skip_first
+                               else rec.shared_used * self.config.page_size)
+        else:
+            # park the position at the last row: the flat decode step
+            # appends at _positions_h[slot] unconditionally, and row
+            # max_len-1 is never live (a request's final token is never fed
+            # back), so co-tenant decode garbage cannot clobber chunk rows
+            self._positions_h[slot] = self.config.max_len - 1
+        self._prefilling[slot] = rec
+        self.admission_log.append(request.request_id)
+        return rec
+
+    def _run_chunk(self, rec: _Active, budget_left: int,
+                   finished: List[RequestResult]) -> int:
+        """Run ONE maximal prefill chunk for ``rec`` within ``budget_left``
+        tokens; returns the tokens consumed (0 = no progress possible this
+        tick). Paged chunks reuse the suffix program (the slot's pages ARE
+        the carried state); flat chunks run :meth:`_flat_chunk`. The final
+        chunk's sample — keyed at step ``prompt_len`` from the prompt's
+        last-token logits — is the request's first token, what the
+        monolithic prefill emits; interior chunks sample nothing."""
+        request = rec.request
+        remaining = request.prompt_len - rec.prefill_pos
+        chunk_len = min(remaining, budget_left)
+        if chunk_len < remaining and self.pages is not None:
+            # internal chunk boundaries stay page-aligned: every fresh page
+            # is written whole onto a zeroed scale, so int8 page contents
+            # (and interned prefix pages) are what the monolithic fill
+            # produces
+            ps = self.config.page_size
+            chunk_len = ((rec.prefill_pos + chunk_len) // ps) * ps \
+                - rec.prefill_pos
+        if chunk_len <= 0:
+            return 0
+        start = rec.prefill_pos
+        last = chunk_len == remaining
+        bucket = bucket_for(chunk_len, self.config.max_len)
+        self._note_shape("chunk", bucket)
+        chunk = np.zeros((1, bucket), np.int64)
+        chunk[0, :chunk_len] = request.prompt[start:start + chunk_len]
+        try:
+            if self._faults is not None:
+                self._faults.before_prefill()
+            if self.pages is not None:
+                logits = self._suffix_prefill(
+                    rec.page_row, chunk, start, chunk_len,
+                    rec.skip_first and rec.prefill_chunks == 0)
+            else:
+                logits = self._flat_chunk(rec.slot, chunk, start, chunk_len)
+            first, finite = self._first_token(logits, request, sample=last)
+            rec.finite_ok = rec.finite_ok and finite
+        except Exception:
+            # the monolithic prefill's failure contract: release everything
+            # as the exception propagates; the supervisor's restart
+            # re-prefills the request from its prompt
+            del self._prefilling[rec.slot]
+            self.slots.release(rec.slot)
+            if self.pages is not None:
+                self.pages.release_slot(rec.slot)
+                self._reserved_pages -= rec.reserved_pages
+                self._page_table_h[rec.slot, :] = self.pages.n_pages
+            self._clear_slot(rec.slot)
+            raise
+        rec.prefill_pos += chunk_len
+        rec.prefill_chunks += 1
+        self.metrics.inc("prefill_chunks")
+        self._chunk_tokens_tick += chunk_len
+        if last:
+            self._complete_chunked_prefill(rec, first, finished)
+        return chunk_len
+
+    def _complete_chunked_prefill(self, rec: _Active, first: int,
+                                  finished: List[RequestResult]) -> None:
+        """Final chunk landed: publish the page row to the global table
+        (the decode step sees, and appends to, the slot from the next step
+        on), intern the prefix, and activate the rec with its first
+        token."""
+        slot = rec.slot
+        del self._prefilling[slot]
+        if self.pages is not None:
+            self._page_table_h[slot] = rec.page_row
+            if self.config.prefix_cache:
+                # hit/miss accounting lands at COMPLETION, so hits + misses
+                # stays == prefills when a mid-prefill request is abandoned
+                if rec.shared_used:
+                    self.metrics.inc("prefix_hits")
+                    self.metrics.inc("prefix_pages_shared", rec.shared_used)
+                else:
+                    self.metrics.inc("prefix_misses")
+                if rec.chain and rec.finite_ok:
+                    self.pages.intern_prefix(
+                        rec.chain,
+                        [int(p) for p in rec.page_row[:len(rec.chain)]])
+        self._activate(rec, first, finished)
+
+    def _abandon_prefill(self, rec: _Active, reason: str,
+                         now: float) -> RequestResult:
+        """Retire a request whose chunked prefill never completed
+        (deadline/cancel): release the slot and its pages. Partially
+        written rows need no scrub unless a chunk went non-finite — finite
+        garbage is causally invisible to any future occupant, like bucket
+        padding."""
+        del self._prefilling[rec.slot]
+        self.slots.release(rec.slot)
+        if self.pages is not None:
+            freed = self.pages.release_slot(rec.slot)
+            self._reserved_pages -= rec.reserved_pages
+            self._page_table_h[rec.slot, :] = self.pages.n_pages
+            if not rec.finite_ok and freed:
+                self._scrub_pages(freed)
+        self._clear_slot(rec.slot)
+        return self._finish(
+            rec.request, [], reason, submit_ts=rec.submit_ts, now=now,
+            prefill_start=rec.prefill_start, prefill_end=now,
+            prefill_chunks=rec.prefill_chunks or None)
 
     def _build_windows(self) -> None:
         """Fill the per-slot verify windows for the next speculative step:
@@ -762,49 +1350,70 @@ class InferenceEngine:
     def _decode_tick(self, finished: List[RequestResult]) -> None:
         if self._spec and self._active:
             self._build_windows()
-        self._extend_pages(finished)
+        if self.pages is not None:
+            self._extend_pages(finished)
         if not self._active:
             return
-        # bytes of KV stream one decode step reads (mapped pages of every
-        # active slot, dtype- and scale-aware)
-        self.metrics.set_gauge(
-            "kv_bytes_per_step",
-            sum(len(self.pages.slot_pages(s)) for s in self._active)
-            * self._page_read_bytes)
+        if self._faults is not None:
+            self._faults.before_decode()
+        self._note_shape("decode", 0)
         t0 = clock.now()
         dev = self.device
         positions = torch.as_tensor(self._positions_h, device=dev)
-        table = torch.as_tensor(self._page_table_h, device=dev)
+        n = self.config.max_slots
+        if self.pages is not None:
+            # bytes of KV stream one decode step reads (mapped pages of
+            # every active slot, dtype- and scale-aware)
+            self.metrics.set_gauge(
+                "kv_bytes_per_step",
+                sum(len(self.pages.slot_pages(s)) for s in self._active)
+                * self._page_read_bytes)
+            table = torch.as_tensor(self._page_table_h, device=dev)
         if self._spec:
+            k = self._spec
             logits, self._caches = _cached_forward(
                 self.model, self._caches,
                 torch.as_tensor(self._window_h, device=dev), positions,
                 paged_state=table)                           # [k, n, V]
-            logits = logits.transpose(0, 1)                  # [n, k, V]
+            logits = logits.transpose(0, 1).reshape(n * k, -1)
+            # row j of a slot's window samples with the key of the
+            # sequential step at position + 1 + j
+            steps = (self._positions_h[:, None].astype(np.int64) + 1
+                     + np.arange(k)[None, :]).reshape(-1)
+            nxt = self._pick(logits, np.repeat(self._temps_h, k),
+                             np.repeat(self._topks_h, k),
+                             np.repeat(self._seeds_h, k), steps)
         else:
             logits, self._caches = decode_step(
                 self.model, self._caches,
                 torch.as_tensor(self._tokens_h, device=dev), positions,
-                paged_state=table)                           # [n, V]
-        # one host read per tick: the greedy token, or -1 for a row whose
-        # logits are not finite
-        nxt = torch.where(torch.isfinite(logits).all(dim=-1),
-                          torch.argmax(logits, dim=-1),
-                          torch.full(logits.shape[:-1], -1,
-                                     dtype=torch.long, device=dev))
-        nxt = nxt.cpu().numpy()
+                paged_state=table if self.pages is not None else None)
+            nxt = self._pick(logits, self._temps_h, self._topks_h,
+                             self._seeds_h,
+                             self._positions_h.astype(np.int64) + 1)
+        # one host read per tick: the tokens and the per-row finite flags
+        finite = torch.isfinite(logits).all(dim=-1).long()
+        both = torch.stack([nxt, finite]).cpu().numpy()
+        nxt, finite = both[0], both[1].astype(bool)
+        if self._spec:
+            nxt, finite = nxt.reshape(n, self._spec), \
+                finite.reshape(n, self._spec)
+        if self._faults is not None:
+            nxt, finite = self._faults.corrupt_decode(nxt, finite)
         now = clock.now()
         self.metrics.observe("decode_step_s", now - t0)
         self.metrics.inc("decode_steps")
         self.metrics.observe("decode_batch_size", len(self._active))
         if self._spec:
-            self._accept_windows(nxt, now, finished)
+            self._accept_windows(nxt, finite, now, finished)
             return
         for slot in sorted(self._active):
             rec = self._active[slot]
             token = int(nxt[slot])
-            if not 0 <= token < self._vocab:
-                cause = ("nonfinite_logits" if token == -1
+            # a row whose logits are not finite, or an out-of-vocab token:
+            # quarantine it alone, co-tenant rows keep their clean step
+            if not finite[slot] or not 0 <= token < self._vocab:
+                cause = ("nonfinite_logits" if not finite[slot]
                          else "out_of_vocab_token")
                 finished.append(self._quarantine(rec, cause, now))
                 continue
@@ -818,8 +1427,8 @@ class InferenceEngine:
             if done is not None:
                 finished.append(self._retire(rec, done, now))
 
-    def _accept_windows(self, nxt: np.ndarray, now: float,
-                        finished: List[RequestResult]) -> None:
+    def _accept_windows(self, nxt: np.ndarray, finite: np.ndarray,
+                        now: float, finished: List[RequestResult]) -> None:
         """Consume each slot's verified window ``nxt [n, k]``: walk the
         rows left to right, keeping the model's token at row ``j`` only
         while the token FED at row ``j`` was the model's previous output —
@@ -833,8 +1442,9 @@ class InferenceEngine:
             quarantined = done = None
             for j in range(wl):
                 token = int(nxt[slot, j])
-                if not 0 <= token < self._vocab:
-                    quarantined = ("nonfinite_logits" if token == -1
+                if not finite[slot, j] or not 0 <= token < self._vocab:
+                    quarantined = ("nonfinite_logits"
+                                   if not finite[slot, j]
                                    else "out_of_vocab_token")
                     break
                 rec.position += 1     # row j's fed K/V are now cached
@@ -895,13 +1505,27 @@ class InferenceEngine:
 
     # -- retirement & bookkeeping ----------------------------------------
 
+    def _scrub_pages(self, freed) -> None:
+        """Zero ``freed`` pages (and their scales) across every layer, and
+        tell the pool so ``PagePool.check()`` can assert they stay zeroed
+        until their next allocation."""
+        idx = torch.as_tensor(freed, dtype=torch.long, device=self.device)
+        for k, v in self._caches:
+            for pool in ((*k, *v) if self._quantized else (k, v)):
+                pool.index_fill_(0, idx, 0)
+        self.pages.note_scrubbed(freed)
+
     def _quarantine(self, rec: _Active, cause: str,
                     now: float) -> RequestResult:
-        """Retire ONE poisoned slot and keep the batch serving: the pages
-        its release frees are zeroed (and their scales) so no NaN outlives
-        the occupant. Shared prefix pages still referenced elsewhere hold
-        only pre-intern prefill data, interned on finite logits, and are
-        zeroed when their last reference drops."""
+        """Retire ONE poisoned slot and keep the batch serving: its flat row
+        is zeroed, or the pages its release frees (and their scales), so no
+        NaN outlives the occupant. Shared prefix pages still referenced
+        elsewhere hold only pre-intern prefill data, interned on finite
+        logits, and are zeroed when their last reference drops."""
+        if self.pages is None:
+            for k, v in self._caches:
+                k[rec.slot] = 0
+                v[rec.slot] = 0
         self.metrics.inc("slots_quarantined")
         self.metrics.event("slot_quarantined", slot=rec.slot,
                            request_id=rec.request.request_id, cause=cause)
@@ -916,12 +1540,18 @@ class InferenceEngine:
         return None
 
     def _sync_slot(self, rec: _Active) -> None:
-        self._tokens_h[rec.slot] = rec.last_token
-        self._positions_h[rec.slot] = rec.position
+        i = rec.slot
+        self._tokens_h[i] = rec.last_token
+        self._positions_h[i] = rec.position
+        self._temps_h[i], self._topks_h[i], self._seeds_h[i] = \
+            self._sampling(rec.request)
 
     def _clear_slot(self, slot: int) -> None:
         self._tokens_h[slot] = 0
         self._positions_h[slot] = 0
+        self._temps_h[slot] = 0.0
+        self._topks_h[slot] = self._vocab
+        self._seeds_h[slot] = 0
         if self._spec:
             self._window_h[slot] = 0
             self._wlen_h[slot] = 1
@@ -930,19 +1560,14 @@ class InferenceEngine:
                 scrub: bool = False) -> RequestResult:
         del self._active[rec.slot]
         self.slots.release(rec.slot)
-        # release returns only the pages whose LAST reference this drop
-        # removed — shared prefix pages outlive the slot
-        freed = self.pages.release_slot(rec.slot)
-        self._reserved_pages -= rec.reserved_pages
-        self._page_table_h[rec.slot, :] = self.pages.n_pages
-        if scrub and freed:
-            idx = torch.as_tensor(freed, dtype=torch.long, device=self.device)
-            for k, v in self._caches:
-                for pool in ((*k, *v) if self._quantized else (k, v)):
-                    pool.index_fill_(0, idx, 0)
-            # PagePool.check() can now assert these free pages hold zero
-            # scales until their next allocation
-            self.pages.note_scrubbed(freed)
+        if self.pages is not None:
+            # release returns only the pages whose LAST reference this drop
+            # removed — shared prefix pages outlive the slot
+            freed = self.pages.release_slot(rec.slot)
+            self._reserved_pages -= rec.reserved_pages
+            self._page_table_h[rec.slot, :] = self.pages.n_pages
+            if scrub and freed:
+                self._scrub_pages(freed)
         self._clear_slot(rec.slot)
         if rec.spec_proposed:
             # lifetime speculation totals of the request
@@ -954,12 +1579,14 @@ class InferenceEngine:
             rec.request, rec.tokens, reason, submit_ts=rec.submit_ts,
             now=now, prefill_start=rec.prefill_start,
             prefill_end=rec.prefill_end, first_token_ts=rec.first_token_ts,
-            last_token_ts=rec.last_token_ts)
+            last_token_ts=rec.last_token_ts,
+            prefill_chunks=rec.prefill_chunks or None)
 
     def _finish(self, request: Request, tokens: List[int], reason: str, *,
                 submit_ts: float, now: float, prefill_start: float = 0.0,
                 prefill_end: float = 0.0, first_token_ts: float = 0.0,
                 last_token_ts: float = 0.0,
+                prefill_chunks: Optional[int] = None,
                 detail: Optional[str] = None) -> RequestResult:
         if prefill_start:
             queue_s = prefill_start - submit_ts
@@ -977,6 +1604,7 @@ class InferenceEngine:
             prefill_s=prefill_s, decode_s=decode_s,
             total_s=now - submit_ts, ttft_s=ttft_s, tpot_s=tpot_s,
             replica_id=self.replica_id, trace_id=request.trace_id,
+            prefill_chunks=prefill_chunks,
             priority=request.sampling.priority)
         self.completed[request.request_id] = result
         self.metrics.inc(f"requests_{reason}")

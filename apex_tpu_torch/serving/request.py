@@ -55,10 +55,13 @@ _REQUEST_IDS = itertools.count()
 
 @dataclass(frozen=True)
 class SamplingParams:
-    """Per-request sampling: ``temperature == 0`` is greedy — the only
-    mode the port's engine serves yet; sampled requests
-    (``temperature > 0``, ``top_k``, ``seed``) and LoRA ``adapter_id``
-    raise ``NotImplementedError`` at ``submit()`` until their slices land.
+    """Per-request sampling: ``temperature == 0`` is greedy; with
+    ``temperature > 0`` the engine samples from the (optionally
+    ``top_k``-truncated) softmax, keyed by ``seed`` folded with the
+    absolute position of each generated token — one request's stream is
+    deterministic in (seed, prompt) and independent of what else shares
+    the batch, and equal to the JAX engine's. A LoRA ``adapter_id`` raises
+    ``NotImplementedError`` at ``submit()`` until its slice lands.
 
     ``priority`` is the request's scheduling class (one of
     :data:`PRIORITIES`). It orders dispatch under contention; it never
@@ -157,7 +160,9 @@ class RequestResult:
     tokens.
 
     ``replica_id``, ``trace_id`` and ``priority`` echo the engine's
-    replica id and the request's trace id and scheduling class; each is
+    replica id and the request's trace id and scheduling class;
+    ``prefill_chunks`` counts the chunk programs a token-budgeted (chunked)
+    prefill ran for the request (``None`` on the monolithic path). Each is
     omitted from the JSONL record when ``None``, as in the JAX package's
     records.
     """
@@ -174,6 +179,7 @@ class RequestResult:
     tpot_s: Optional[float] = None
     replica_id: Optional[int] = None
     trace_id: Optional[str] = None
+    prefill_chunks: Optional[int] = None
     priority: Optional[str] = None
 
     @property
@@ -209,6 +215,8 @@ class RequestResult:
             rec["ttft_s"] = self.ttft_s
         if self.tpot_s is not None:
             rec["tpot_s"] = self.tpot_s
+        if self.prefill_chunks is not None:
+            rec["prefill_chunks"] = self.prefill_chunks
         if self.priority is not None:
             rec["priority"] = self.priority
         tps = self.tokens_per_s

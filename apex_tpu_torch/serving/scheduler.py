@@ -1,9 +1,7 @@
 """FCFS admission scheduling for the serving engine.
 
 Adapted from ``apex_tpu/serving/scheduler.py`` (stdlib only), kept in the
-port so it never imports the JAX package. The JAX scheduler's brownout
-admission floor and supervisor snapshot come with the slices that use
-them.
+port so it never imports the JAX package.
 
 The queue half of continuous batching (Orca-style — PAPERS.md survey of
 request-level schedulers; TorchTitan's serving siblings ship the same
@@ -22,7 +20,8 @@ Design points:
 - **Anti-starvation aging**: a ``batch`` head that has waited longer
   than ``batch_aging_s`` competes at ``standard`` rank, so a steady
   stream of standard traffic cannot starve batch forever. Aging never
-  lifts batch above ``interactive``.
+  lifts batch above ``interactive``, and never bypasses an admission
+  floor (``set_admission_floor`` filters on the TRUE class).
 - **Bounded queue = backpressure**: ``submit`` past ``max_queue`` raises
   :class:`QueueFullError` so callers shed load at the edge instead of
   growing an unbounded host-side backlog.
@@ -124,7 +123,8 @@ class _Queued:
     request: Request
     submit_ts: float
     #: arrival order — totally orders requests ACROSS the per-class lanes
-    #: (requeue_front entries get negative orders so they sort first)
+    #: (snapshot/restart replay arrival order exactly; requeue_front
+    #: entries get negative orders so they sort first)
     order: int = 0
 
 
@@ -140,13 +140,61 @@ class FCFSScheduler:
             p: deque() for p in PRIORITIES}
         self._next_order = 0
         self._next_front = -1
+        #: admission floor rank — classes with a TRUE rank above this are
+        #: not dispatched (brownout's "pause batch/standard" rungs)
+        self._floor_rank = PRIORITY_RANK[PRIORITY_BATCH]
 
     def _lane(self, request: Request) -> Deque[_Queued]:
         return self._queues[request.sampling.priority]
 
+    def _all(self) -> List[_Queued]:
+        out = [q for lane in self._queues.values() for q in lane]
+        out.sort(key=lambda q: q.order)
+        return out
+
     @property
     def depth(self) -> int:
         return sum(len(lane) for lane in self._queues.values())
+
+    @property
+    def queued_tokens(self) -> int:
+        """Total PROMPT tokens waiting in line — the token-denominated
+        companion to ``depth``: a backlog of long prompts costs far more
+        prefill work than the same depth of short ones (the supervisor's
+        deadline-shed projection folds it in)."""
+        return sum(q.request.prompt_len
+                   for lane in self._queues.values() for q in lane)
+
+    def queued_tokens_by_class(self) -> Dict[str, int]:
+        """Queued PROMPT tokens per priority class, so an interactive
+        submit's shed projection counts only the backlog that would run
+        ahead of it."""
+        return {p: sum(q.request.prompt_len for q in lane)
+                for p, lane in self._queues.items()}
+
+    def depth_by_class(self) -> Dict[str, int]:
+        """Queue depth per priority class."""
+        return {p: len(lane) for p, lane in self._queues.items()}
+
+    def set_admission_floor(self, priority: Optional[str]) -> None:
+        """Pause dispatch of classes BELOW ``priority`` (higher rank): the
+        brownout ladder's "pause batch admissions" rung. ``None`` (or
+        ``"batch"``) restores dispatch of every class. Paused requests stay
+        queued — deadline expiry still applies. The floor filters on a
+        request's TRUE class, so aging cannot tunnel through it."""
+        if priority is None:
+            self._floor_rank = PRIORITY_RANK[PRIORITY_BATCH]
+            return
+        if priority not in PRIORITY_RANK:
+            raise ValueError(
+                f"priority must be one of {PRIORITIES} or None, "
+                f"got {priority!r}")
+        self._floor_rank = PRIORITY_RANK[priority]
+
+    @property
+    def admission_floor(self) -> str:
+        """The lowest-ranked class currently admissible."""
+        return PRIORITIES[self._floor_rank]
 
     def _effective_rank(self, priority: str, head: _Queued,
                         now: Optional[float]) -> int:
@@ -159,16 +207,26 @@ class FCFSScheduler:
     def _select_class(self, now: Optional[float]) -> Optional[str]:
         """The class whose head dispatches next: lowest effective rank
         (aging may promote a stale batch head to standard rank), oldest
-        arrival on ties."""
+        arrival on ties, honoring the admission floor."""
         best, best_key = None, None
         for p, lane in self._queues.items():
-            if not lane:
+            if not lane or PRIORITY_RANK[p] > self._floor_rank:
                 continue
             head = lane[0]
             key = (self._effective_rank(p, head, now), head.order)
             if best_key is None or key < best_key:
                 best, best_key = p, key
         return best
+
+    def head(self, now: Optional[float] = None
+             ) -> Optional[Tuple[Request, float]]:
+        """The (request, submit_ts) that ``pop_admissible`` would consider
+        next, non-popping — the engine's preemption check peeks here."""
+        p = self._select_class(now)
+        if p is None:
+            return None
+        head = self._queues[p][0]
+        return head.request, head.submit_ts
 
     def submit(self, request: Request, now: float) -> None:
         # deadline fast-fail: a request whose budget elapsed before it
@@ -200,7 +258,9 @@ class FCFSScheduler:
         return None
 
     def expire(self, now: float) -> List[Tuple[Request, float]]:
-        """Pop queued requests whose deadline elapsed while waiting."""
+        """Pop queued requests whose deadline elapsed while waiting —
+        including requests an admission floor is holding back (paused does
+        not mean immortal)."""
         dead: List[_Queued] = []
         for p, lane in self._queues.items():
             kept: Deque[_Queued] = deque()
@@ -279,3 +339,9 @@ class FCFSScheduler:
         self._lane(request).appendleft(
             _Queued(request, submit_ts, self._next_front))
         self._next_front -= 1
+
+    def snapshot(self) -> List[Tuple[Request, float]]:
+        """Queued (request, submit_ts) pairs in arrival order across all
+        classes, non-popping — the supervisor's restart path uses this to
+        requeue survivors."""
+        return [(q.request, q.submit_ts) for q in self._all()]

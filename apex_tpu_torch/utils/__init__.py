@@ -1,2 +1,3 @@
 """Small shared helpers (counterpart of ``apex_tpu.utils``): activations,
-NHWC convolution, batch norm and FLOP counts."""
+NHWC convolution, batch norm, FLOP counts, threefry random numbers and
+structured logging."""

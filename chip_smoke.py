@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of apex_tpu_torch on one NVIDIA GPU (written for an H100).
 
-Usage: ``python3 chip_smoke.py [--profile]`` from the repository
-root. It needs one CUDA device and exits non-zero without one. Phases, each
+Usage: ``python3 chip_smoke.py [--profile] [--seed N]`` from the
+repository root. It needs one CUDA device and exits non-zero without one. Phases, each
 printing its own lines and raising on failure:
 
 1. device   — the card's name and power limit (nvidia-smi);
@@ -48,10 +48,28 @@ printing its own lines and raising on failure:
               only for the misses' prefills), ``kv_dtype="int8"``, and
               ``speculation=4``; each ends every request ``length``/``eos``
               with Kernel C launched exactly decode steps x 12 layers;
+    serve_sampled, serve_chunked, serve_flat, serve_supervised — the same
+              model and engine size serve the ``[serve]`` requests through
+              the engine's other paths: half of them sampled (temperatures
+              0.7 and 1.0, top_k None and 8, seeds from ``--seed``; C
+              launched decode steps x 12, B 12 a prefill; the device
+              operations of one 8-slot decode tick, greedy and sampled, and
+              of the sampling alone, counted by torch.profiler),
+              ``prefill_token_budget=256`` (every chunk runs the
+              suffix-prefill program: B launched 0 times, C decode steps x
+              12; the chunk counts), ``kv_layout="flat"`` (C 0, B 12 a
+              prefill), and an ``EngineSupervisor`` whose fault injector
+              raises once in decode and once in prefill (two restarts);
+              every request ends ``length``/``eos``;
 10. card vs CPU — one f32 request gives the same greedy tokens on the card
               as the plain path on the CPU; then a small f32 GPT serves
               shared-prefix requests with the prefix cache, int8 pools and
-              speculation (3), each with the same tokens on both;
+              speculation (3), each with the same tokens on both; then,
+              half of them sampled, through sampled paged decode, sampled
+              speculation (3), chunked prefill paged and flat, a priority
+              preemption whose continuation the supervisor resubmits, and
+              a supervisor restart after injected failures, each with the
+              same tokens on both;
 11. train   — GPT-2 124M in the ``bench.py`` configuration (bf16 compute,
               fp32 params, b 8, s 1024, FusedAdam lr 1e-4) takes 2 + 8
               steps of ``make_train_step`` on a fixed seeded batch; every
@@ -1812,6 +1830,306 @@ def phase_features_card_vs_cpu() -> None:
             requests=6, tokens=sum(map(len, out["cuda"])), equal=True)
 
 
+def _with_sampling(requests, seed):
+    """The requests again, every odd one sampled: temperatures 0.7 and 1.0
+    and top_k None and 8 in all four pairs, seeds drawn from ``seed``."""
+    from apex_tpu_torch.serving import Request, SamplingParams
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for i, r in enumerate(requests):
+        sp = SamplingParams()
+        if i % 2:
+            sp = SamplingParams(temperature=(0.7, 1.0)[(i // 2) % 2],
+                                top_k=(None, 8)[(i // 4) % 2],
+                                seed=int(torch.randint(0, 2 ** 31 - 1, (1,),
+                                                       generator=g)))
+        out.append(Request(prompt=list(r.prompt),
+                           max_new_tokens=r.max_new_tokens, sampling=sp))
+    return out
+
+
+def count_device_launches(fn):
+    """Device operations (kernels and copies) ``fn`` enqueues, read by
+    torch.profiler; "not_measured" when the profiler sees no device."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False))
+    return n if n else "not_measured"
+
+
+def _decode_step_launches(model, ecfg, requests) -> dict:
+    """Device operations of one decode tick with 8 slots decoding (no
+    admission in the tick): with the requests as given, and with every
+    request greedy; and of the sampling alone over the sampled rows."""
+    from apex_tpu_torch.serving import InferenceEngine, Request
+    from apex_tpu_torch.serving.engine import _sample_tokens
+    out = {}
+    for name, reqs in (("greedy", [
+            Request(prompt=list(r.prompt), max_new_tokens=r.max_new_tokens)
+            for r in requests]), ("sampled", requests)):
+        engine = InferenceEngine(model, ecfg)
+        for r in reqs[:8]:
+            engine.submit(r)
+        while engine.queued_count:
+            engine.tick()
+        engine.tick()                       # a warm decode-only tick
+        out[f"{name}_decode_step_launches"] = count_device_launches(
+            engine.tick)
+    # the sampling alone, over the last engine's sampled rows
+    rows = [s for s in sorted(engine._active) if engine._temps_h[s] > 0]
+
+    def up(a, dtype):
+        return torch.as_tensor(a[rows], dtype=dtype, device="cuda")
+
+    args = (torch.randn(len(rows), model.config.vocab_size, device="cuda"),
+            up(engine._temps_h, torch.float32),
+            up(engine._topks_h, torch.int32),
+            up(engine._seeds_h, torch.int32),
+            up(engine._positions_h, torch.int64) + 1)
+    _sample_tokens(*args)
+    out["sampling_launches"] = count_device_launches(
+        lambda: _sample_tokens(*args))
+    out["sampled_rows"] = len(rows)
+    return out
+
+
+def _serve_timed(name, make_engine, requests):
+    """Serve ``requests`` on a fresh engine (or supervisor) after a
+    warm-up on its own; returns (results, wall seconds, launches, the
+    engine)."""
+    from apex_tpu_torch.ops import LAUNCHES, reset_launches
+    make_engine().serve(requests[:2])
+    engine = make_engine()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    results = engine.serve(requests)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    bad = [r.finish_reason for r in results
+           if r.finish_reason not in ("length", "eos")]
+    if len(results) != len(requests) or bad:
+        raise AssertionError(f"{name}: {len(results)} results, bad finish "
+                             f"reasons {bad}")
+    return results, wall, launches, engine
+
+
+def _serve_line(name, results, wall, metrics, launches, **extra) -> None:
+    tokens = sum(len(r.tokens) for r in results)
+    ttft = sorted(r.ttft_s for r in results if r.ttft_s is not None)
+    step = metrics.histogram("decode_step_s")
+    counters = metrics.counters()
+    log(name, model="gpt2-124m bf16 random-init", requests=len(results),
+        tokens=tokens, wall_s=f"{wall:.3f}",
+        tokens_per_s=f"{tokens / wall:.1f}",
+        ttft_p50_ms=f"{1e3 * ttft[len(ttft) // 2]:.2f}" if ttft else None,
+        decode_ms_per_step=f"{1e3 * step.sum / step.count:.3f}",
+        decode_steps=counters["decode_steps"],
+        prefills=counters["prefills"], **extra,
+        launches=json.dumps(launches).replace(" ", ""))
+
+
+def phase_serve_paths(seed: int, profile: bool = False) -> dict:
+    """GPT-2 124M in bf16 at full width, 8 slots of 768 and pages of 64,
+    serves the ``[serve]`` request set through the engine's other paths:
+    sampled (half the requests), chunked prefill (budget 256), the flat
+    layout, and a supervisor that restarts the engine after an injected
+    decode and an injected prefill failure. Every request must end
+    ``length``/``eos``; the launch counts must be as each path implies.
+    With ``profile``, a profiler breakdown of 8 more requests on a fresh
+    engine (or supervisor) of each path. Returns each path's launch
+    counters."""
+    from apex_tpu_torch.models import GPTModel, TransformerConfig
+    from apex_tpu_torch.serving import (EngineConfig, EngineSupervisor,
+                                        InferenceEngine)
+    from apex_tpu_torch.testing_faults import ServingFaultInjector
+    cfg = TransformerConfig(**GPT2, params_dtype=torch.float32,
+                            compute_dtype=torch.bfloat16)
+    model = GPTModel(cfg, device="cuda",
+                     generator=torch.Generator().manual_seed(0))
+    layers = GPT2["num_layers"]
+    base = dict(max_slots=8, max_len=768, page_size=64, prefix_cache=False)
+    greedy = _requests(16, cfg.vocab_size, 32, 1)
+    paths = {}
+
+    def profiled(name, make_engine, reqs):
+        if not profile:
+            return
+        fresh = make_engine()
+        metrics = fresh.metrics
+        profile_device(name, lambda: fresh.serve(reqs[:8]), lambda: dict(
+            requests=8, decode_steps=metrics.counters()["decode_steps"]))
+
+    # sampled
+    ecfg = EngineConfig(**base)
+    reqs = _with_sampling(greedy, seed)
+    results, wall, launches, engine = _serve_timed(
+        "serve_sampled", lambda: InferenceEngine(model, ecfg), reqs)
+    steps = engine.metrics.counters()["decode_steps"]
+    if launches["paged_decode"] != steps * layers or \
+            launches["flash_fwd"] != 16 * layers:
+        raise AssertionError(f"serve_sampled: launches {launches} for "
+                             f"{steps} decode steps")
+    _serve_line("serve_sampled", results, wall, engine.metrics, launches,
+                sampled=sum(r.sampling.temperature > 0 for r in reqs),
+                **_decode_step_launches(model, ecfg, reqs))
+    profiled("serve_sampled", lambda: InferenceEngine(model, ecfg), reqs)
+    paths["serve_sampled"] = launches
+
+    # chunked prefill
+    ecfg = EngineConfig(**base, prefill_token_budget=256)
+    results, wall, launches, engine = _serve_timed(
+        "serve_chunked", lambda: InferenceEngine(model, ecfg), greedy)
+    counters = engine.metrics.counters()
+    chunks = counters["prefill_chunks"]
+    steps = counters["decode_steps"]
+    # every chunk runs the suffix program (the unfused masked softmax, no
+    # kernel B), as the JAX engine's chunks do
+    long_prompts = sum(len(r.prompt) > 256 for r in greedy)
+    if chunks < 16 + long_prompts or launches["flash_fwd"] or \
+            launches["paged_decode"] != steps * layers or \
+            engine.metrics.histogram("prefill_tokens_per_tick").max > 256:
+        raise AssertionError(f"serve_chunked: {chunks} chunks, launches "
+                             f"{launches} for {steps} decode steps")
+    _serve_line("serve_chunked", results, wall, engine.metrics, launches,
+                prefill_chunks=chunks,
+                chunks_per_request=json.dumps(
+                    [r.prefill_chunks for r in results]).replace(" ", ""))
+    profiled("serve_chunked", lambda: InferenceEngine(model, ecfg), greedy)
+    paths["serve_chunked"] = launches
+
+    # the flat layout
+    ecfg = EngineConfig(max_slots=8, max_len=768, kv_layout="flat")
+    results, wall, launches, engine = _serve_timed(
+        "serve_flat", lambda: InferenceEngine(model, ecfg), greedy)
+    prefills = engine.metrics.counters()["prefills"]
+    if launches["paged_decode"] or launches["flash_fwd"] != \
+            prefills * layers or launches["layer_norm_fwd"] <= 0:
+        raise AssertionError(f"serve_flat: launches {launches} for "
+                             f"{prefills} prefills")
+    _serve_line("serve_flat", results, wall, engine.metrics, launches)
+    profiled("serve_flat", lambda: InferenceEngine(model, ecfg), greedy)
+    paths["serve_flat"] = launches
+
+    # supervised, one decode and one prefill failure injected
+    ecfg = EngineConfig(**base)
+    injectors = []
+
+    def supervised():
+        injectors.append(ServingFaultInjector(decode_raise_calls={5},
+                                              prefill_raise_calls={11}))
+        return EngineSupervisor(model, ecfg, faults=injectors[-1])
+
+    results, wall, launches, sup = _serve_timed(
+        "serve_supervised", supervised, greedy)
+    counters = sup.metrics.counters()
+    if counters["engine_restarts"] != 2 or len(injectors[-1].log) != 2 or \
+            not launches["paged_decode"] or not launches["flash_fwd"]:
+        raise AssertionError(f"serve_supervised: counters {counters}, "
+                             f"faults {injectors[-1].log}, launches "
+                             f"{launches}")
+    _serve_line("serve_supervised", results, wall, sup.metrics, launches,
+                engine_restarts=counters["engine_restarts"],
+                requests_recovered=counters["requests_recovered"],
+                faults=json.dumps(injectors[-1].log).replace(" ", ""))
+    profiled("serve_supervised", supervised, greedy)
+    paths["serve_supervised"] = launches
+    del sup, engine, model
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_serving_paths_card_vs_cpu(seed: int) -> None:
+    """A small f32 GPT (TF32 off, set in ``main``) serves the same requests
+    on the card and on the CPU through each new serving path: sampled
+    paged decode, sampled speculation, chunked prefill on both layouts, a
+    priority preemption whose continuation the supervisor resubmits, and a
+    supervisor restart. The tokens must be equal."""
+    from apex_tpu_torch.models import GPTModel, TransformerConfig
+    from apex_tpu_torch.serving import (EngineConfig, EngineSupervisor,
+                                        InferenceEngine, Request,
+                                        SamplingParams, SchedulerConfig)
+    from apex_tpu_torch.testing_faults import ServingFaultInjector
+    cfg = TransformerConfig(**SMALL)
+    base = dict(max_slots=4, max_len=128, page_size=16)
+
+    def engine_run(knobs):
+        def run(model, device, reqs):
+            eng = InferenceEngine(model, EngineConfig(**base, **knobs),
+                                  device=device)
+            return eng.serve(reqs), eng.metrics.counters()
+        return run
+
+    def restart_run(model, device, reqs):
+        sup = EngineSupervisor(model, EngineConfig(**base), device=device,
+                               faults=ServingFaultInjector(
+                                   decode_raise_calls={3},
+                                   prefill_raise_calls={2}))
+        return sup.serve(reqs), sup.metrics.counters()
+
+    def preempt_run(model, device, reqs):
+        sup = EngineSupervisor(model, EngineConfig(
+            **dict(base, max_slots=1), scheduler=SchedulerConfig(
+                max_queue=8, max_prefills_per_tick=1)), device=device)
+        victim = Request(prompt=list(reqs[1].prompt), max_new_tokens=12,
+                         sampling=SamplingParams(
+                             temperature=0.9, top_k=8, seed=seed + 5,
+                             priority="batch"))
+        head = Request(prompt=list(reqs[0].prompt), max_new_tokens=4,
+                       sampling=SamplingParams(priority="interactive"))
+        sup.submit(victim)
+        while not sup.engine._active or len(
+                next(iter(sup.engine._active.values())).tokens) < 3:
+            sup.tick()
+        sup.submit(head)
+        while sup.inflight_count:
+            sup.tick()
+        return [sup.completed[victim.request_id],
+                sup.completed[head.request_id]], sup.metrics.counters()
+
+    cases = [("sampled_paged", engine_run({}), {}),
+             ("sampled_speculation", engine_run(dict(speculation=3)),
+              {"draft_tokens_accepted": 1}),
+             ("chunked_paged", engine_run(dict(prefill_token_budget=32)),
+              {"prefill_chunks": 7}),
+             ("chunked_flat", engine_run(dict(kv_layout="flat",
+                                              prefill_token_budget=24)),
+              {"prefill_chunks": 7}),
+             ("preemption", preempt_run,
+              {"requests_preempted": 1, "requests_resumed": 1}),
+             ("restart", restart_run, {"engine_restarts": 2})]
+    for name, run, least in cases:
+        out = {}
+        for device in ("cuda", "cpu"):
+            model = GPTModel(cfg, device=device,
+                             generator=torch.Generator().manual_seed(0))
+            reqs = _with_sampling(_prefix_requests(
+                6, cfg.vocab_size, 10, 4, prefix_len=48, suffix=(4, 40)),
+                seed)
+            results, counters = run(model, device, reqs)
+            if any(r.finish_reason not in ("length", "eos")
+                   for r in results):
+                raise AssertionError(f"{name} on {device}: "
+                                     f"{[r.finish_reason for r in results]}")
+            short = {k: counters[k] for k in least if counters[k] < least[k]}
+            if short:
+                raise AssertionError(f"{name} on {device}: counters {short} "
+                                     f"below {least}")
+            out[device] = [r.tokens for r in results]
+        if out["cuda"] != out["cpu"]:
+            raise AssertionError(f"card vs CPU tokens differ on {name}: "
+                                 f"{out}")
+        log("serving_paths_card_vs_cpu", path=name, requests=len(out["cuda"]),
+            tokens=sum(map(len, out["cuda"])), equal=True)
+
+
 def phase_card_vs_cpu() -> None:
     """Runs with TF32 off (set in ``main``), so the card's f32 GEMMs are
     f32 as on the CPU."""
@@ -2331,6 +2649,8 @@ def main() -> int:
                         "second serve (of each serve phase) and two more "
                         "steps of each train phase with torch.profiler and "
                         "print their breakdowns")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the sampled requests' seeds")
     args = parser.parse_args()
     phase_device()
     # fp32 comparisons hold to fp32 GEMMs, not TF32
@@ -2345,8 +2665,10 @@ def main() -> int:
     paths = {"serve": phase_serve(args.profile)}
     for name, knobs, kind in SERVE_FEATURES:
         paths[name] = phase_serve_feature(name, knobs, kind, args.profile)
+    paths.update(phase_serve_paths(args.seed, args.profile))
     phase_card_vs_cpu()
     phase_features_card_vs_cpu()
+    phase_serving_paths_card_vs_cpu(args.seed)
     paths["train"] = phase_train(args.profile)
     phase_train_card_vs_cpu()
     paths["bert_train"] = phase_bert_train(args.profile)

@@ -32,7 +32,8 @@ from apex_tpu_torch.convert import load_jax_params
 from apex_tpu_torch.models import GPTModel, TransformerConfig
 from apex_tpu_torch.models import generation as tgen
 from apex_tpu_torch.ops import LAUNCHES
-from apex_tpu_torch.serving import EngineConfig, InferenceEngine, Request
+from apex_tpu_torch.serving import (EngineConfig, InferenceEngine, Request,
+                                    SamplingParams)
 
 TINY = dict(num_layers=2, hidden_size=64, num_attention_heads=4,
             vocab_size=128, max_position_embeddings=64)
@@ -176,16 +177,32 @@ class TestEngine:
         assert engine.metrics.counters()["decode_steps"] > 0
 
     def test_engine_refuses_unported_knobs(self):
-        """Only the flat layout and chunked prefill are still to port; the
-        prefix cache (on by default, as in apex_tpu), int8 pools and
-        speculation construct."""
-        with pytest.raises(NotImplementedError):
-            EngineConfig(kv_layout="flat")
-        with pytest.raises(NotImplementedError):
-            EngineConfig(prefill_token_budget=64)
+        """Only LoRA adapters are still to port. Every other knob
+        constructs — the flat layout, chunked prefill, the prefix cache (on
+        by default, as in apex_tpu), int8 pools, speculation — and the
+        config raises ``ValueError`` wherever the JAX ``EngineConfig``
+        does."""
         for knobs in (dict(prefix_cache=True), dict(kv_dtype="int8"),
                       dict(speculation=2),
-                      dict(kv_dtype="int8", speculation=4)):
+                      dict(kv_dtype="int8", speculation=4),
+                      dict(kv_layout="flat"),
+                      dict(kv_layout="flat", prefill_token_budget=1),
+                      dict(prefill_token_budget=64)):
             EngineConfig(**knobs)
+        for knobs in (dict(kv_layout="flat", kv_dtype="int8"),
+                      dict(kv_layout="flat", speculation=2),
+                      dict(prefill_token_budget=0),
+                      dict(prefill_token_budget=63)):
+            with pytest.raises(ValueError):
+                EngineConfig(**knobs)
+            with pytest.raises(ValueError):
+                JaxEngineConfig(**knobs)
+        _, _, tm = _pair("learned")
+        with pytest.raises(NotImplementedError):
+            InferenceEngine(tm, device="cpu", adapters=object())
+        engine = InferenceEngine(tm, EngineConfig(max_len=48), device="cpu")
+        with pytest.raises(NotImplementedError):
+            engine.submit(Request(prompt=[1, 2], max_new_tokens=2,
+                                  sampling=SamplingParams(adapter_id="a")))
         assert EngineConfig().prefix_cache is True
         assert EngineConfig().kv_layout == "paged"

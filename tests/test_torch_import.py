@@ -24,7 +24,10 @@ def _submodules():
 
 def test_import_pulls_in_no_jax():
     names = _submodules()
-    assert "apex_tpu_torch.serving.engine" in names
+    assert {"apex_tpu_torch.serving.engine",
+            "apex_tpu_torch.serving.supervisor",
+            "apex_tpu_torch.testing_faults", "apex_tpu_torch.utils.prng",
+            "apex_tpu_torch.utils.logging"} <= set(names)
     code = ("import importlib, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
