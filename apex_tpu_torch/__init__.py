@@ -11,6 +11,8 @@ Entry points run on ``device="cuda"`` unless the caller asks for the CPU.
 This package imports neither ``jax`` nor ``apex_tpu``.
 """
 
+from apex_tpu_torch import amp, fp16_utils, multi_tensor_apply
+
 __version__ = "0.1.0"
 
-__all__ = ["__version__"]
+__all__ = ["amp", "fp16_utils", "multi_tensor_apply", "__version__"]

@@ -8,8 +8,9 @@
 
 namespace apex {
 
-// dtype codes passed from Python (_support.dtype_code)
-enum DType : int { kF32 = 0, kBF16 = 1 };
+// dtype codes passed from Python (_support.dtype_code; fp16 only for the
+// multi-tensor kernels, ops/multi_tensor.py)
+enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {

@@ -89,6 +89,30 @@ _SIGNATURES = {
     "apex_conv1x1_bwd": [_P] * 16 + [_I] * 7,
     # as the 1x1 with images, h, w in place of m
     "apex_conv3x3_bwd": [_P] * 16 + [_I] * 9,
+    # multi-tensor kernels: records (device), chunk counts (host), records,
+    # stream, then each kernel's own (csrc/multi_tensor.cu)
+    # scale, found_inf
+    "apex_mt_scale": [_P, _P, _I, _P, _P, _P],
+    # list, scale, partial
+    "apex_mt_l2norm": [_P, _P, _I, _P, _I, _P, _P],
+    # chunk_start, partial, n, per_tensor, total, stream
+    "apex_mt_l2norm_finish": [_P, _P, _I, _P, _P, _P],
+    # master list, lr, lr_ptr, scale, found_inf, wd, b1, b2, 1 - b1, 1 - b2,
+    # eps, adam_w, bias_correction
+    "apex_mt_adam": [_P, _P, _I, _P, _I, _F, _P, _P, _P] + [_F] * 6
+    + [_I, _I],
+    # master list, scale, found_inf, wd, b1, b2, beta3, 1 - b2, eps, adam_w,
+    # bias_correction, gnorm, max_grad_norm, 1 / max_grad_norm
+    "apex_mt_lamb_stage1": [_P, _P, _I, _P, _I, _P, _P] + [_F] * 6
+    + [_I, _I, _P, _F, _F],
+    # master list, lr, lr_ptr, found_inf, w_norm, u_norm, adapt, trust_clip
+    "apex_mt_lamb_stage2": [_P, _P, _I, _P, _I, _F, _P, _P, _P, _P, _I, _I],
+    # buf list, master list, lr, lr_ptr, scale, found_inf, wd, momentum,
+    # 1 - dampening, nesterov, wd_after_momentum
+    "apex_mt_sgd": [_P, _P, _I, _P, _I, _I, _F, _P, _P, _P, _F, _F, _F, _I,
+                    _I],
+    # step addresses, n, stream, found_inf
+    "apex_mt_bump": [_P, _I, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -35,7 +35,9 @@ LAUNCHES: Dict[str, int] = {"layer_norm_fwd": 0, "layer_norm_bwd": 0,
                             "paged_decode": 0, "softmax_fwd": 0,
                             "softmax_bwd": 0, "conv1x1_fwd": 0,
                             "conv1x1_bwd": 0, "conv3x3_fwd": 0,
-                            "conv3x3_bwd": 0}
+                            "conv3x3_bwd": 0, "multi_tensor_scale": 0,
+                            "multi_tensor_l2norm": 0, "multi_tensor_adam": 0,
+                            "multi_tensor_lamb": 0, "multi_tensor_sgd": 0}
 
 
 def reset_launches() -> None:
@@ -43,8 +45,8 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def count_launch(name: str) -> None:
-    LAUNCHES[name] += 1
+def count_launch(name: str, n: int = 1) -> None:
+    LAUNCHES[name] += n
 
 
 def resolve_device(device: Union[str, torch.device, None] = "cuda"

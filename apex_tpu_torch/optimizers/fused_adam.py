@@ -5,7 +5,10 @@ of ``apex.optimizers.FusedAdam``): ``adam_w_mode`` picks decoupled weight
 decay (AdamW) or L2 added to the grad, ``bias_correction`` toggles the
 ``1 / (1 - beta ** t)`` factors, computed in fp32 from the step count.
 The base class supplies master weights and the ``grad_scale`` /
-``found_inf`` flow, which never syncs with the host.
+``found_inf`` flow, which never syncs with the host. On the card a list of
+parameters is one ``multi_tensor_adam`` kernel call
+(:mod:`apex_tpu_torch.ops.multi_tensor`); on the CPU each parameter runs
+:func:`~apex_tpu_torch.ops.multi_tensor.adam_update`.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from typing import Tuple
 
 import torch
 
+from apex_tpu_torch.ops import multi_tensor as mt
 from apex_tpu_torch.optimizers.base import FusedOptimizer, Mask
 
 __all__ = ["FusedAdam", "FusedAdamW"]
@@ -39,17 +43,22 @@ class FusedAdam(FusedOptimizer):
                 "exp_avg_sq": torch.zeros_like(p32)}
 
     def _update(self, g32, p32, slots, t, lr, wd, group):
-        b1, b2 = group["betas"]
-        bc1 = 1.0 - b1 ** t if group["bias_correction"] else 1.0
-        bc2 = 1.0 - b2 ** t if group["bias_correction"] else 1.0
-        if not self.adam_w_mode and wd != 0.0:
-            g32 = g32 + wd * p32
-        m = b1 * slots["exp_avg"] + (1.0 - b1) * g32
-        v = b2 * slots["exp_avg_sq"] + (1.0 - b2) * g32 * g32
-        update = (m / bc1) / (torch.sqrt(v / bc2) + group["eps"])
-        if self.adam_w_mode and wd != 0.0:
-            update = update + wd * p32
-        return p32 - lr * update, {"exp_avg": m, "exp_avg_sq": v}
+        new_p, m, v = mt.adam_update(
+            g32, p32, slots["exp_avg"], slots["exp_avg_sq"], t, lr, wd,
+            group["betas"], group["eps"], self.adam_w_mode,
+            group["bias_correction"])
+        return new_p, {"exp_avg": m, "exp_avg_sq": v}
+
+    def _multi_tensor_update(self, group, params, wd, grad_scale, found_inf,
+                             key):
+        grads, steps, (m, v), masters = self._lists(params, "exp_avg",
+                                                    "exp_avg_sq")
+        mt.multi_tensor_adam(
+            grads, params, m, v, steps, masters, lr=group["lr"],
+            weight_decay=wd, betas=group["betas"], eps=group["eps"],
+            adam_w_mode=self.adam_w_mode,
+            bias_correction=group["bias_correction"], grad_scale=grad_scale,
+            found_inf=found_inf, cache=self._cache(key))
 
 
 def FusedAdamW(params, lr: float = 1e-3, **kw) -> FusedAdam:

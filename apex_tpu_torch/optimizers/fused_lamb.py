@@ -20,7 +20,11 @@ package stacks each transformer parameter over the layers into one
 each stack holds one layer.
 
 The base class supplies ``weight_decay_mask``, master weights and the
-``grad_scale`` / ``found_inf`` flow; none of it syncs with the host.
+``grad_scale`` / ``found_inf`` flow; none of it syncs with the host. On the
+card phase 1 is one ``multi_tensor_l2norm`` over every gradient, and each
+list of parameters one ``multi_tensor_lamb`` call (moments and update into
+an fp32 buffer kept per list, the per-tensor norms of p and of the update,
+then the trust-ratio step; :mod:`apex_tpu_torch.ops.multi_tensor`).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from typing import Tuple
 
 import torch
 
+from apex_tpu_torch.ops import multi_tensor as mt
 from apex_tpu_torch.optimizers.base import FusedOptimizer, Mask
 
 __all__ = ["FusedLAMB"]
@@ -55,6 +60,9 @@ class FusedLAMB(FusedOptimizer):
         self.trust_clip = trust_clip
         self.always_adapt = always_adapt
         self._clip = 1.0
+        self._gnorm = None
+        #: the fp32 update buffers of each kernel list (by list key)
+        self._updates = {}
 
     def _init_slots(self, p32):
         return {"exp_avg": torch.zeros_like(p32),
@@ -63,31 +71,39 @@ class FusedLAMB(FusedOptimizer):
     def _begin_step(self, todo):
         self._clip = 1.0
         if todo and self.max_grad_norm > 0.0:
-            gnorm = torch.stack([g.square().sum()
-                                 for _, _, g in todo]).sum().sqrt()
-            self._clip = torch.where(gnorm > self.max_grad_norm,
-                                     gnorm / self.max_grad_norm,
-                                     torch.ones_like(gnorm))
+            gnorm, _ = mt.l2norm_plain([g for _, _, g in todo])
+            self._clip = mt.lamb_clip(gnorm, self.max_grad_norm)
 
     def _update(self, g32, p32, slots, t, lr, wd, group):
-        b1, b2 = group["betas"]
-        bc1 = 1.0 - b1 ** t if group["bias_correction"] else 1.0
-        bc2 = 1.0 - b2 ** t if group["bias_correction"] else 1.0
-        beta3 = 1.0 - b1 if self.grad_averaging else 1.0
-        g = g32 / self._clip
-        if not self.adam_w_mode and wd != 0.0:
-            g = g + wd * p32
-        m = b1 * slots["exp_avg"] + beta3 * g
-        v = b2 * slots["exp_avg_sq"] + (1.0 - b2) * g * g
-        update = (m / bc1) / (torch.sqrt(v / bc2) + group["eps"])
-        if self.adam_w_mode and wd != 0.0:
-            update = update + wd * p32
-        ratio = 1.0
-        if wd != 0.0 or self.always_adapt:
-            w_norm = torch.sqrt(torch.sum(p32 * p32))
-            u_norm = torch.sqrt(torch.sum(update * update))
-            ratio = torch.where((w_norm > 0) & (u_norm > 0), w_norm / u_norm,
-                                torch.ones_like(w_norm))
-            if self.trust_clip:
-                ratio = torch.clamp_max(ratio, 1.0)
-        return p32 - lr * ratio * update, {"exp_avg": m, "exp_avg_sq": v}
+        new_p, m, v, _ = mt.lamb_update(
+            g32, p32, slots["exp_avg"], slots["exp_avg_sq"], t, lr, wd,
+            self._clip, group["betas"], group["eps"], self.adam_w_mode,
+            group["bias_correction"], self.grad_averaging,
+            wd != 0.0 or self.always_adapt, self.trust_clip)
+        return new_p, {"exp_avg": m, "exp_avg_sq": v}
+
+    def _begin_multi_tensor(self, params, grad_scale):
+        self._gnorm = None
+        if self.max_grad_norm > 0.0:
+            self._gnorm, _ = mt.multi_tensor_l2norm(
+                [p.grad for p in params], grad_scale=grad_scale,
+                cache=self._cache("grads"))
+
+    def _multi_tensor_update(self, group, params, wd, grad_scale, found_inf,
+                             key):
+        grads, steps, (m, v), masters = self._lists(params, "exp_avg",
+                                                    "exp_avg_sq")
+        updates = self._updates.get(key)
+        if updates is None or [u.shape for u in updates] != \
+                [p.shape for p in params]:
+            updates = [torch.empty_like(x) for x in m]
+            self._updates[key] = updates
+        mt.multi_tensor_lamb(
+            grads, params, m, v, updates, steps, masters, lr=group["lr"],
+            weight_decay=wd, betas=group["betas"], eps=group["eps"],
+            adam_w_mode=self.adam_w_mode,
+            bias_correction=group["bias_correction"],
+            grad_averaging=self.grad_averaging, gnorm=self._gnorm,
+            max_grad_norm=self.max_grad_norm, trust_clip=self.trust_clip,
+            always_adapt=self.always_adapt, grad_scale=grad_scale,
+            found_inf=found_inf, cache=self._cache(key))

@@ -6,13 +6,17 @@ the update direction ``d_p`` itself, ``wd_after_momentum`` adds the weight
 decay after the momentum instead of before it, and the base class supplies
 master weights and the ``grad_scale`` / ``found_inf`` flow. Whether a step
 is the first is decided on the device (``torch.where`` on the step count),
-never by reading the count on the host.
+never by reading the count on the host. On the card a list of parameters
+is one ``multi_tensor_sgd`` kernel call
+(:mod:`apex_tpu_torch.ops.multi_tensor`), which reads each tensor's own
+step count.
 """
 
 from __future__ import annotations
 
 import torch
 
+from apex_tpu_torch.ops import multi_tensor as mt
 from apex_tpu_torch.optimizers.base import FusedOptimizer, Mask
 
 __all__ = ["FusedSGD"]
@@ -39,16 +43,18 @@ class FusedSGD(FusedOptimizer):
         return {"momentum_buffer": torch.zeros_like(p32)}
 
     def _update(self, g32, p32, slots, t, lr, wd, group):
-        mom = self.momentum
-        d_p = g32
-        if wd != 0.0 and not self.wd_after_momentum:
-            d_p = d_p + wd * p32
-        new_slots = {}
-        if mom != 0.0:
-            buf = torch.where(t == 1, d_p, mom * slots["momentum_buffer"]
-                              + (1.0 - self.dampening) * d_p)
-            d_p = d_p + mom * buf if self.nesterov else buf
-            new_slots["momentum_buffer"] = buf
-        if wd != 0.0 and self.wd_after_momentum:
-            d_p = d_p + wd * p32
-        return p32 - lr * d_p, new_slots
+        new_p, buf = mt.sgd_update(
+            g32, p32, slots.get("momentum_buffer"), t, lr, wd, self.momentum,
+            self.dampening, self.nesterov, self.wd_after_momentum)
+        return new_p, ({} if buf is None else {"momentum_buffer": buf})
+
+    def _multi_tensor_update(self, group, params, wd, grad_scale, found_inf,
+                             key):
+        slots = ("momentum_buffer",) if self.momentum != 0.0 else ()
+        grads, steps, bufs, masters = self._lists(params, *slots)
+        mt.multi_tensor_sgd(
+            grads, params, bufs[0] if bufs else None, steps, masters,
+            lr=group["lr"], weight_decay=wd, momentum=self.momentum,
+            dampening=self.dampening, nesterov=self.nesterov,
+            wd_after_momentum=self.wd_after_momentum, grad_scale=grad_scale,
+            found_inf=found_inf, cache=self._cache(key))

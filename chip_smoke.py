@@ -74,7 +74,11 @@ printing its own lines and raising on failure:
               fp32 params, b 8, s 1024, FusedAdam lr 1e-4) takes 2 + 8
               steps of ``make_train_step`` on a fixed seeded batch; every
               loss finite, the last below the first, and Kernels A, D, E,
-              F launched exactly 25, 25, 12 and 12 times a step;
+              F launched exactly 25, 25, 12 and 12 times a step, the Adam
+              kernel the launches its list implies; then the device
+              operations and ms of one optimizer step through the kernels
+              and through the per-parameter torch ops (``[optimizer]``; the
+              bert, t5 and rn50 phases print the same);
 12. train card vs CPU — a small f32 GPT (TF32 off) trains 3 steps on the
               card and on the CPU from the same seed: losses and every
               step-1 gradient leaf agree;
@@ -90,7 +94,8 @@ printing its own lines and raising on failure:
               ids, FusedLAMB lr 1e-3 wd 0.01) takes 2 + 8 steps; every loss
               finite, the last below the first, and the launches a step of
               every kernel as the model's code implies (LN 26/26, softmax
-              12/12, the flash kernels 0);
+              12/12, the flash kernels 0, LAMB's l2norm and LAMB kernels
+              as its list implies);
 16. t5_train — an encoder-decoder at T5-base widths (12 + 12 layers,
               RMSNorm, ReLU, inputs 512 with seeded enc_lengths, targets
               114, b 16, FusedAdam lr 1e-4), the same checks (LN 62/62,
@@ -116,7 +121,8 @@ printing its own lines and raising on failure:
               params, fused_conv, FusedSGD lr 0.1 momentum 0.9 wd 1e-4 with
               master weights) takes 2 + 8 steps; every loss finite, the
               last below the first, and Kernels J, K, L, M launched exactly
-              36, 36, 13 and 13 times a step, every other kernel 0;
+              36, 36, 13 and 13 times a step, the SGD kernel as its list
+              implies, every other kernel 0;
 21. rn50 card vs CPU — ResNet-50 at 64 px, batch 4, 8 classes, f32:
               two fused blocks alone (layer1.1 and layer2.0: output, input
               and parameter gradients, new batch-norm state to 2e-5 of each
@@ -126,13 +132,36 @@ printing its own lines and raising on failure:
               batch-norm state
               with ``zero_init_residual=False`` (gradients held to the
               noise floor that 1e-7 perturbations of the input show on the
-              CPU), then three FusedSGD steps with the recipe's init.
+              CPU), then three FusedSGD steps with the recipe's init;
+22. multi_tensor — the five multi-tensor kernels (amp's unscale, the L2
+              norms, Adam, LAMB, SGD; port-only, csrc/multi_tensor.cu) over
+              GPT-2 124M's 148 parameters plus a 1-element tensor and one
+              of CHUNK + 1, with fp32 params and with bf16 params over fp32
+              masters, SGD also over ResNet-50's 161 and LAMB over
+              BERT-base's, each against its plain version on the card over
+              3 steps: scale, Adam and SGD bitwise, the norms within 1e-6
+              (summation order; two runs bitwise equal), LAMB every state
+              leaf within 1e-6 norm-wise; a found_inf step leaves every
+              param, master, slot and step bitwise unchanged; timed beside
+              the plain per-parameter loop and the library's call;
+23. train_amp — GPT-2 124M at the train shape under amp O2 (bf16 params,
+              FusedAdam over fp32 masters, dynamic scale 2**16): scale_loss
+              -> backward -> unscale -> step(found_inf) -> update, 2 + 8
+              steps; an inf written into one grad at one step must skip
+              that step bitwise and halve the scale, every other step
+              finds no inf, the loss falls, and every kernel launches
+              exactly what the step implies;
+24. amp card vs CPU — a small f32 GPT runs the amp flow (O2 over f32,
+              fp32 masters, dynamic scale, an inf at step 2) 5 steps with
+              FusedAdam, FusedLAMB and FusedSGD on the card and the CPU:
+              the losses, scaler states and parameters agree.
 
 Then one JSON line of per-kernel numbers (launches from the phase that
 drives each kernel's slice: serve for A-C, serve_int8 and serve_spec for
 C's int8 and window records, train for D-F, bert_train for G and H,
-t5_train for I, rn50_train for J-M, with every path's counts in
-``launches_by_path``;
+t5_train for I, rn50_train for J-M and SGD, train_amp for the unscale
+and Adam kernels, bert_train for LAMB and the norms, with every path's
+counts in ``launches_by_path``;
 times from CUDA events in this run; ``bound_ms`` from this run's shapes
 over the H100's published peaks), and last ``{"ok": true, "device":
 {...}}``.
@@ -172,7 +201,9 @@ WARMUP_STEPS, TIMED_STEPS = 2, 8
 ALL_KERNELS = ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd", "flash_bwd",
                "flash_packed_fwd", "flash_packed_bwd", "paged_decode",
                "softmax_fwd", "softmax_bwd", "conv1x1_fwd", "conv1x1_bwd",
-               "conv3x3_fwd", "conv3x3_bwd")
+               "conv3x3_fwd", "conv3x3_bwd", "multi_tensor_scale",
+               "multi_tensor_l2norm", "multi_tensor_adam", "multi_tensor_lamb",
+               "multi_tensor_sgd")
 #: BERT-base (benchmarks/bert_lamb.py:20-27) and its launches a step: 2 LN
 #: per layer, the final LN and the LM head's; one masked softmax per layer
 BERT = dict(num_layers=12, hidden_size=768, num_attention_heads=12,
@@ -1848,9 +1879,10 @@ def _with_sampling(requests, seed):
     return out
 
 
-def count_device_launches(fn):
-    """Device operations (kernels and copies) ``fn`` enqueues, read by
-    torch.profiler; "not_measured" when the profiler sees no device."""
+def device_work(fn) -> tuple:
+    """``(device operations, their device ms, {name: count})`` of what
+    ``fn`` enqueues (kernels and copies), read by torch.profiler;
+    "not_measured" for the first two when the profiler sees no device."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1858,9 +1890,20 @@ def count_device_launches(fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False))
-    return n if n else "not_measured"
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    names = {}
+    for e in events:
+        names[e.name] = names.get(e.name, 0) + 1
+    if not events:
+        return "not_measured", "not_measured", names
+    return (len(events), sum(e.time_range.elapsed_us() for e in events) / 1e3,
+            names)
+
+
+def count_device_launches(fn):
+    """Device operations (kernels and copies) ``fn`` enqueues."""
+    return device_work(fn)[0]
 
 
 def _decode_step_launches(model, ecfg, requests) -> dict:
@@ -2157,7 +2200,9 @@ def _train_model(cfg, device, seed=0):
     model = GPTModel(cfg, device=device,
                      generator=torch.Generator().manual_seed(seed))
     opt = FusedAdam(model.parameters(), lr=1e-4)
-    return model, make_train_step(lambda batch: model(*batch), opt)
+    step = make_train_step(lambda batch: model(*batch), opt)
+    step.optimizer = opt
+    return model, step
 
 
 def _train_batch(cfg, b, s, device, seed=1):
@@ -2240,13 +2285,16 @@ def phase_train(profile: bool = False) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     tokens = TRAIN_BATCH * TRAIN_SEQ
     losses, times, launches, peak = _timed_steps(step, batch)
+    per_step = dict(TRAIN_KERNELS,
+                    **optimizer_launches_per_step(step.optimizer))
     _report_train("train", "gpt2-124m bf16/fp32 random-init", losses, times,
-                  launches, peak, TRAIN_KERNELS, tokens,
+                  launches, peak, per_step, tokens,
                   transformer_train_flops(n_params, tokens,
                                           GPT2["num_layers"],
                                           GPT2["hidden_size"], TRAIN_SEQ,
                                           causal=True),
                   batch=TRAIN_BATCH, seq=TRAIN_SEQ, n_params=n_params)
+    report_optimizer("train", step.optimizer)
     if profile:
         profile_device("train", lambda: [step(batch) for _ in range(2)],
                        lambda: dict(steps=2, batch=TRAIN_BATCH,
@@ -2261,7 +2309,9 @@ def _bert_model(cfg, device, seed=0):
     model = BertModel(cfg, device=device,
                       generator=torch.Generator().manual_seed(seed))
     opt = FusedLAMB(model.parameters(), lr=1e-3, weight_decay=0.01)
-    return model, make_train_step(lambda batch: model(*batch)[0], opt)
+    step = make_train_step(lambda batch: model(*batch)[0], opt)
+    step.optimizer = opt
+    return model, step
 
 
 def _bert_batch(cfg, b, s, device, seed):
@@ -2293,14 +2343,17 @@ def phase_bert_train(profile: bool = False) -> dict:
     positions = BERT_BATCH * BERT_SEQ
     tokens = int(batch[1].sum())
     losses, times, launches, peak = _timed_steps(step, batch)
+    per_step = dict(BERT_KERNELS,
+                    **optimizer_launches_per_step(step.optimizer))
     _report_train("bert_train", "bert-base bf16/fp32 random-init", losses,
-                  times, launches, peak, BERT_KERNELS, tokens,
+                  times, launches, peak, per_step, tokens,
                   transformer_train_flops(n_params, positions,
                                           BERT["num_layers"],
                                           BERT["hidden_size"], BERT_SEQ,
                                           causal=False),
                   positions, batch=BERT_BATCH, seq=BERT_SEQ,
                   valid_tokens=tokens, n_params=n_params)
+    report_optimizer("bert_train", step.optimizer)
     if profile:
         profile_device("bert_train", lambda: [step(batch) for _ in range(2)],
                        lambda: dict(steps=2, batch=BERT_BATCH, seq=BERT_SEQ))
@@ -2314,8 +2367,10 @@ def _t5_model(cfg, device, seed=0, lr=1e-4):
     model = EncoderDecoderModel(cfg, device=device,
                                 generator=torch.Generator().manual_seed(seed))
     opt = FusedAdam(model.parameters(), lr=lr)
-    return model, make_train_step(
+    step = make_train_step(
         lambda b: model(b[0], b[1], b[2], enc_lengths=b[3]), opt)
+    step.optimizer = opt
+    return model, step
 
 
 def _t5_batch(cfg, b, s_enc, s_dec, device, seed):
@@ -2359,13 +2414,16 @@ def phase_t5_train(profile: bool = False) -> dict:
     positions = T5_BATCH * (T5_ENC + T5_DEC)
     tokens = int(batch[3].sum()) + T5_BATCH * T5_DEC
     losses, times, launches, peak = _timed_steps(step, batch)
+    per_step = dict(T5_KERNELS,
+                    **optimizer_launches_per_step(step.optimizer))
     _report_train("t5_train", "t5-base-widths enc-dec bf16/fp32 random-init",
-                  losses, times, launches, peak, T5_KERNELS, tokens,
+                  losses, times, launches, peak, per_step, tokens,
                   enc_dec_train_flops(model, T5_BATCH, T5_ENC, T5_DEC),
                   positions, batch=T5_BATCH, enc_seq=T5_ENC, dec_seq=T5_DEC,
                   valid_tokens=tokens,
                   enc_lengths=json.dumps(batch[3].tolist()).replace(" ", ""),
                   n_params=n_params)
+    report_optimizer("t5_train", step.optimizer)
     if profile:
         profile_device("t5_train", lambda: [step(batch) for _ in range(2)],
                        lambda: dict(steps=2, batch=T5_BATCH, enc_seq=T5_ENC,
@@ -2461,8 +2519,10 @@ def _rn50_model(cfg_kw, device, seed=0, master_weights=False):
                    generator=torch.Generator().manual_seed(seed))
     opt = FusedSGD(model.parameters(), lr=0.1, momentum=0.9,
                    weight_decay=1e-4, master_weights=master_weights)
-    return model, make_train_step(
+    step = make_train_step(
         lambda b: F.cross_entropy(model(b[0]), b[1]), opt)
+    step.optimizer = opt
+    return model, step
 
 
 def _rn50_batch(b, size, classes, device, seed):
@@ -2483,10 +2543,13 @@ def phase_rn50_train(profile: bool = False) -> dict:
     batch = _rn50_batch(RN50_BATCH, RN50_SIZE, 1000, "cuda", seed=14)
     n_params = sum(p.numel() for p in model.parameters())
     losses, times, launches, peak = _timed_steps(step, batch)
+    per_step = dict(RN50_KERNELS,
+                    **optimizer_launches_per_step(step.optimizer))
     _report_train("rn50_train", "resnet50 bf16/fp32 fused_conv random-init",
-                  losses, times, launches, peak, RN50_KERNELS, RN50_BATCH,
+                  losses, times, launches, peak, per_step, RN50_BATCH,
                   resnet50_train_flops(RN50_BATCH, RN50_SIZE), unit="images",
                   batch=RN50_BATCH, image=RN50_SIZE, n_params=n_params)
+    report_optimizer("rn50_train", step.optimizer)
     if profile:
         profile_device("rn50_train", lambda: [step(batch) for _ in range(2)],
                        lambda: dict(steps=2, batch=RN50_BATCH,
@@ -2628,6 +2691,533 @@ def phase_rn50_card_vs_cpu() -> None:
                              f"{rel} (1e-4), state excess {excess}")
 
 
+#: the multi-tensor kernels (csrc/multi_tensor.cu): port-only, no Pallas
+#: counterpart; each stands for a jnp function of the JAX package
+MT_REPLACES = {"multi_tensor_scale": "apex_tpu/amp/scaler.py:86",
+               "multi_tensor_l2norm": "apex_tpu/utils/tree.py:35",
+               "multi_tensor_adam": "apex_tpu/optimizers/fused_adam.py:44",
+               "multi_tensor_lamb": "apex_tpu/optimizers/fused_lamb.py:48",
+               "multi_tensor_sgd": "apex_tpu/optimizers/fused_sgd.py:37"}
+#: fp32 operations an element of each kernel (for the operations bound)
+MT_FLOPS = {"multi_tensor_scale": 2, "multi_tensor_l2norm": 3,
+            "multi_tensor_adam": 18, "multi_tensor_lamb": 24,
+            "multi_tensor_sgd": 8}
+#: [train_amp]: the step (counted from 0, inside the timed steps) whose
+#: grads get an inf after the backward
+AMP_INJECT_STEP = 5
+
+
+def _param_shapes(kind: str) -> list:
+    """The parameter shapes of GPT-2 124M, BERT-base or ResNet-50."""
+    from apex_tpu_torch.models import (BertModel, GPTModel, ResNet,
+                                       ResNetConfig, TransformerConfig)
+    from apex_tpu_torch.transformer.enums import AttnMaskType
+    gen = torch.Generator().manual_seed(0)
+    if kind == "gpt2":
+        model = GPTModel(TransformerConfig(**GPT2), device="cuda",
+                         generator=gen)
+    elif kind == "bert":
+        model = BertModel(TransformerConfig(
+            **BERT, attn_mask_type=AttnMaskType.padding), device="cuda",
+            generator=gen)
+    else:
+        model = ResNet(ResNetConfig(depth=50, num_classes=1000),
+                       device="cuda", generator=gen)
+    shapes = [tuple(p.shape) for p in model.parameters()]
+    del model
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def _mt_tensors(shapes, dtype, g, scale=1.0) -> list:
+    return [(scale * torch.randn(s, device="cuda", generator=g)).to(dtype)
+            for s in shapes]
+
+
+def _clones(xs):
+    return None if xs is None else [x.clone() for x in xs]
+
+
+def _all_equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _norm_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| of fp32 norms in units of want's fp32 ulp."""
+    w = want.float().clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(w)) - 23)
+    return float(((got.float() - w).abs() / ulp).max())
+
+
+def _mt_record(name, label, ms, plain, lib, n_bytes, elements, err,
+               shape) -> dict:
+    bms, by = bound_ms(n_bytes, MT_FLOPS[name] * elements, torch.float32)
+    return dict(name=name, route="cuda",
+                source="apex_tpu_torch/csrc/multi_tensor.cu",
+                replaces=MT_REPLACES[name], shape=f"{label}: {shape}",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=lib)
+
+
+def _mt_scale_and_norm(timer, mt, shapes, dtype, g, label) -> tuple:
+    """multi_tensor_scale and multi_tensor_l2norm over one list: scale
+    bitwise its plain version (with an inf and a nan: found_inf set, both
+    zeroed; a clean list: not set), the norms within 1e-6 of theirs (sum
+    order) and bitwise repeatable. Timed at scale 1 (a no-op unscale)."""
+    n = sum(math.prod(s) for s in shapes)
+    esz = torch.tensor([], dtype=dtype).element_size()
+    grads = _mt_tensors(shapes, dtype, g, 1000.0)
+    grads[0].view(-1)[0] = float("inf")
+    grads[-1].view(-1)[-1] = float("nan")
+    want = _clones(grads)
+    scale = torch.tensor(1024.0, device="cuda")
+    cache = mt.TableCache()
+    found = mt.multi_tensor_scale(grads, scale, cache=cache)
+    wfound = mt.scale_plain(want, scale)
+    clean = _mt_tensors(shapes[:3], dtype, g)
+    ok = (bool(found) and bool(wfound) and _all_equal(grads, want)
+          and not bool(mt.multi_tensor_scale(clean, scale)))
+    one = torch.tensor(1.0, device="cuda")
+    ms = timer(lambda: mt.multi_tensor_scale(grads, one, cache=cache))
+    plain = timer(lambda: mt.scale_plain(grads, one), iters=5, warmup=1)
+    # torch's amp unscale takes no bf16: time it over fp16 copies (the
+    # same bytes)
+    lib_dtype = torch.float16 if dtype == torch.bfloat16 else dtype
+    lib_grads = [x.to(lib_dtype) for x in grads]
+    found_f = torch.zeros(1, device="cuda")
+    lib = timer(lambda: torch._amp_foreach_non_finite_check_and_unscale_(
+        lib_grads, found_f, one.view(1)))
+    del lib_grads
+    log("multi_tensor", kernel="multi_tensor_scale", list=label,
+        tensors=len(shapes), elements=n, dtype=str(dtype)[6:],
+        bitwise=ok, found_inf=bool(found), ms=f"{ms:.5f}",
+        plain_ms=f"{plain:.5f}", library_ms=f"{lib:.5f}",
+        library_dtype=str(lib_dtype)[6:])
+    if not ok:
+        raise AssertionError(f"multi_tensor_scale {label}: not bitwise its "
+                             f"plain version, or found_inf wrong")
+    scale_rec = _mt_record("multi_tensor_scale", label, ms, plain, lib,
+                           2 * n * esz, n, 0.0,
+                           f"{len(shapes)} grads, {n} elements "
+                           f"{str(dtype)[6:]}")
+    ncache = mt.TableCache()
+    total, per = mt.multi_tensor_l2norm(grads, per_tensor=True, cache=ncache)
+    total2, per2 = mt.multi_tensor_l2norm(grads, per_tensor=True,
+                                          cache=ncache)
+    wt, wp = mt.l2norm_plain(grads)
+    rel = max(rel_norm(per, wp), abs(float(total) / float(wt) - 1))
+    ulps = max(_norm_ulps(per, wp), _norm_ulps(total.view(1), wt.view(1)))
+    same = torch.equal(total, total2) and torch.equal(per, per2)
+    ms = timer(lambda: mt.multi_tensor_l2norm(grads, cache=ncache))
+    plain = timer(lambda: mt.l2norm_plain(grads), iters=5, warmup=1)
+    lib = timer(lambda: torch.linalg.vector_norm(torch.stack(
+        torch._foreach_norm(grads))))
+    log("multi_tensor", kernel="multi_tensor_l2norm", list=label,
+        tensors=len(shapes), elements=n, dtype=str(dtype)[6:],
+        rel_norm=f"{rel:.2e}", ulps=f"{ulps:.1f}", repeat_bitwise=same,
+        ms=f"{ms:.5f}", plain_ms=f"{plain:.5f}", library_ms=f"{lib:.5f}")
+    if rel > 1e-6 or not same:
+        raise AssertionError(f"multi_tensor_l2norm {label}: rel {rel} "
+                             f"(1e-6), repeat bitwise {same}")
+    norm_rec = _mt_record("multi_tensor_l2norm", label, ms, plain, lib,
+                          n * esz, n, float((total - wt).abs()),
+                          f"{len(shapes)} grads, {n} elements "
+                          f"{str(dtype)[6:]}, total and per tensor")
+    return scale_rec, norm_rec
+
+
+def _mt_optimizer(timer, mt, kind, shapes, dtype, master, g, label) -> dict:
+    """Three steps of the Adam, LAMB or SGD kernel (the second with
+    found_inf) against the plain version on the card: Adam and SGD
+    bitwise, LAMB every state leaf within 1e-6 norm-wise; the found_inf
+    step leaves every param, master, slot and step bitwise as it was. Then
+    one step timed beside the plain version and the library's fused
+    optimizer over the same tensors."""
+    n = sum(math.prod(s) for s in shapes)
+    psz = torch.tensor([], dtype=dtype).element_size()
+    params = _mt_tensors(shapes, dtype, g, 0.05)
+    slots = [[torch.zeros(s, device="cuda") for s in shapes]
+             for _ in range(1 if kind == "sgd" else 2)]
+    updates = [torch.empty(s, device="cuda") for s in shapes]
+    steps = [torch.zeros((), dtype=torch.int32, device="cuda")
+             for _ in shapes]
+    masters = [p.float().clone() for p in params] if master else None
+    q, qslots, qsteps = _clones(params), [_clones(x) for x in slots], \
+        _clones(steps)
+    qmasters, qupdates = _clones(masters), _clones(updates)
+    cache, gcache = mt.TableCache(), mt.TableCache()
+    if kind == "adam":
+        kw = dict(lr=1e-4, weight_decay=0.01, betas=(0.9, 0.999), eps=1e-8,
+                  adam_w_mode=True, bias_correction=True)
+
+        def run(grads, p, sl, st, ms_, up, found, kernel):
+            fn = mt.multi_tensor_adam if kernel else mt.adam_plain
+            extra = dict(cache=cache) if kernel else {}
+            fn(grads, p, sl[0], sl[1], st, ms_, found_inf=found, **kw,
+               **extra)
+    elif kind == "lamb":
+        kw = dict(lr=1e-3, weight_decay=0.01, betas=(0.9, 0.999), eps=1e-6,
+                  adam_w_mode=True, bias_correction=True, grad_averaging=True,
+                  max_grad_norm=1.0, trust_clip=False, always_adapt=False)
+
+        def run(grads, p, sl, st, ms_, up, found, kernel):
+            if kernel:
+                gnorm, _ = mt.multi_tensor_l2norm(grads, cache=gcache)
+                mt.multi_tensor_lamb(grads, p, sl[0], sl[1], up, st, ms_,
+                                     gnorm=gnorm, found_inf=found,
+                                     cache=cache, **kw)
+            else:
+                gnorm, _ = mt.l2norm_plain(grads)
+                mt.lamb_plain(grads, p, sl[0], sl[1], up, st, ms_,
+                              gnorm=gnorm, found_inf=found, **kw)
+    else:
+        kw = dict(lr=0.1, weight_decay=1e-4, momentum=0.9, dampening=0.0,
+                  nesterov=False, wd_after_momentum=False)
+
+        def run(grads, p, sl, st, ms_, up, found, kernel):
+            fn = mt.multi_tensor_sgd if kernel else mt.sgd_plain
+            extra = dict(cache=cache) if kernel else {}
+            fn(grads, p, sl[0], st, ms_, found_inf=found, **kw, **extra)
+
+    state = lambda: params + sum(slots, []) + steps + (masters or [])  # noqa
+    unchanged = True
+    for i in range(3):
+        grads = _mt_tensors(shapes, dtype, g, 1.0)
+        found = torch.tensor(i == 1, device="cuda")
+        before = _clones(state()) if i == 1 else None
+        run(grads, params, slots, steps, masters, updates, found, True)
+        run(grads, q, qslots, qsteps, qmasters, qupdates, found, False)
+        if before is not None:
+            unchanged = _all_equal(before, state())
+    got = params + sum(slots, []) + steps + (masters or [])
+    want = q + sum(qslots, []) + qsteps + (qmasters or [])
+    if kind == "lamb":
+        # fp32 leaves norm-wise; a bf16 param is its master rounded, so an
+        # ulp of the master on a rounding boundary flips it by one bf16 ulp
+        err = max(rel_norm(a, b) for a, b in zip(got, want)
+                  if a.numel() and a.dtype == torch.float32)
+        ulps = max((bf16_ulps(a, b) for a, b in zip(params, q)
+                    if a.numel() and a.dtype == torch.bfloat16), default=0.0)
+        ok = err <= 1e-6 and ulps <= 1.0 and _all_equal(steps, qsteps)
+        tol = (f"fp32 leaves rel_norm 1e-6, bf16 params 1 ulp "
+               f"({ulps:.0f} ulp)")
+    else:
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, want) if a.numel())
+        ok = _all_equal(got, want)
+        tol = "bitwise"
+    grads = _mt_tensors(shapes, dtype, g, 1.0)
+    ms = timer(lambda: run(grads, params, slots, steps, masters, updates,
+                           None, True))
+    plain = timer(lambda: run(grads, q, qslots, qsteps, qmasters, qupdates,
+                              None, False), iters=5, warmup=1)
+    lib = None
+    if kind != "lamb":
+        lp = [torch.nn.Parameter(p.clone()) for p in params]
+        for p, x in zip(lp, grads):
+            p.grad = x
+        opt = (torch.optim.AdamW(lp, lr=1e-4, weight_decay=0.01, fused=True)
+               if kind == "adam" else
+               torch.optim.SGD(lp, lr=0.1, momentum=0.9, weight_decay=1e-4,
+                               fused=True))
+        lib = timer(opt.step)
+        del lp, opt
+    name = f"multi_tensor_{kind}"
+    # g read; p read and written (or the master read and written and p
+    # written); fp32 moments read and written
+    n_bytes = n * (psz + (8 + psz if master else 2 * psz)
+                   + 8 * len(slots))
+    log("multi_tensor", kernel=name, list=label, tensors=len(shapes),
+        elements=n, dtype=str(dtype)[6:], master=master,
+        max_err=f"{err:.3e}", tol=tol.replace(" ", "_"), ok=ok,
+        found_inf_unchanged=unchanged, ms=f"{ms:.5f}",
+        plain_ms=f"{plain:.5f}",
+        library_ms=None if lib is None else f"{lib:.5f}",
+        launches_a_step=json.dumps(mt.optimizer_launches(
+            [math.prod(s) for s in shapes], name)).replace(" ", ""))
+    if not ok or not unchanged:
+        raise AssertionError(f"{name} {label}: off its plain version by "
+                             f"{err} ({tol}); found_inf step unchanged: "
+                             f"{unchanged}")
+    return _mt_record(name, label, ms, plain, lib, n_bytes, n, err,
+                      f"{len(shapes)} tensors, {n} elements "
+                      f"{str(dtype)[6:]} params"
+                      + (", fp32 master" if master else ""))
+
+
+def phase_multi_tensor(timer: Timer) -> list:
+    """The five multi-tensor kernels over GPT-2 124M's parameter list (plus
+    a 1-element tensor and one of CHUNK + 1) with fp32 params and with
+    bf16 params over fp32 masters; SGD also over ResNet-50's 161 tensors
+    and LAMB over BERT-base's. The records: scale, l2norm and Adam at
+    GPT-2 bf16 over masters ([train_amp]'s), LAMB at BERT-base fp32
+    ([bert_train]'s), SGD at ResNet-50 fp32 over masters
+    ([rn50_train]'s)."""
+    from apex_tpu_torch.ops import multi_tensor as mt
+    g = torch.Generator(device="cuda").manual_seed(17)
+    gpt2 = _param_shapes("gpt2") + [(1,), (mt.CHUNK + 1,)]
+    records = {}
+    for dtype, master in ((torch.float32, False), (torch.bfloat16, True)):
+        label = "gpt2-124m+2"
+        recs = list(_mt_scale_and_norm(timer, mt, gpt2, dtype, g, label))
+        for kind in ("adam", "lamb", "sgd"):
+            recs.append(_mt_optimizer(timer, mt, kind, gpt2, dtype, master,
+                                      g, label))
+            torch.cuda.empty_cache()
+        if dtype == torch.bfloat16:
+            records.update({r["name"]: r for r in recs[:3]})
+    records["multi_tensor_lamb"] = _mt_optimizer(
+        timer, mt, "lamb", _param_shapes("bert"), torch.float32, False, g,
+        "bert-base")
+    records["multi_tensor_sgd"] = _mt_optimizer(
+        timer, mt, "sgd", _param_shapes("rn50"), torch.float32, True, g,
+        "resnet50")
+    torch.cuda.empty_cache()
+    return [records[k] for k in MT_REPLACES]
+
+
+def optimizer_launches_per_step(opt) -> dict:
+    """The multi-tensor launches one step of ``opt`` makes: a list per
+    param group (the phases set no decay mask and one dtype), LAMB's
+    global grad norm over every grad."""
+    from apex_tpu_torch.ops import multi_tensor as mt
+    from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB, FusedSGD
+    out, every = {}, []
+    for group in opt.param_groups:
+        sizes = [p.numel() for p in group["params"]]
+        every += sizes
+        if isinstance(opt, FusedLAMB):
+            got = mt.optimizer_launches(
+                sizes, "multi_tensor_lamb",
+                adapt=group["weight_decay"] != 0.0 or opt.always_adapt)
+        elif isinstance(opt, FusedAdam):
+            got = mt.optimizer_launches(sizes, "multi_tensor_adam")
+        elif isinstance(opt, FusedSGD):
+            got = mt.optimizer_launches(sizes, "multi_tensor_sgd")
+        else:
+            got = {}
+        for k, v in got.items():
+            out[k] = out.get(k, 0) + v
+    if isinstance(opt, FusedLAMB) and opt.max_grad_norm > 0.0:
+        out["multi_tensor_l2norm"] = out.get("multi_tensor_l2norm", 0) + \
+            mt.optimizer_launches(every, "multi_tensor_l2norm")[
+                "multi_tensor_l2norm"]
+    return out
+
+
+def report_optimizer(phase: str, opt, found_inf=None) -> None:
+    """One optimizer step (the grads of the phase's last step) through the
+    kernels: its launches (the wrappers' counters), device operations and
+    device ms (torch.profiler) and CUDA-event ms; and through the
+    per-parameter torch ops the parent ran (profiler). Each takes one more
+    step."""
+    from apex_tpu_torch.ops import LAUNCHES
+    before = dict(LAUNCHES)
+    ops, ms, names = device_work(lambda: opt.step(found_inf=found_inf))
+    launches = {k: v - before[k] for k, v in LAUNCHES.items()
+                if v != before[k]}
+    todo = [(gi, group, p) for gi, group in enumerate(opt.param_groups)
+            for p in group["params"] if p.grad is not None]
+    pp_ops, pp_ms, _ = device_work(
+        lambda: opt._step_per_parameter(todo, None, found_inf))
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    opt.step(found_inf=found_inf)
+    end.record()
+    torch.cuda.synchronize()
+    fmt = lambda x: x if isinstance(x, str) else f"{x:.3f}"  # noqa: E731
+    kernels = {}
+    for name, count in names.items():
+        short = name.replace("(anonymous namespace)::", "").replace(
+            "void ", "").split("(")[0].split("<")[0].split("::")[-1]
+        kernels[short] = kernels.get(short, 0) + count
+    log("optimizer", path=phase, optimizer=type(opt).__name__,
+        tensors=len(todo), launches=json.dumps(launches).replace(" ", ""),
+        device_ops=ops, device_ms=fmt(ms),
+        device_kernels=json.dumps(kernels).replace(" ", ""),
+        event_ms=f"{start.elapsed_time(end):.3f}",
+        per_parameter_device_ops=pp_ops, per_parameter_device_ms=fmt(pp_ms))
+
+
+def phase_train_amp(profile: bool = False) -> dict:
+    """GPT-2 124M at the [train] shape under amp O2: bf16 params
+    (``policy.cast_to_param``), FusedAdam with fp32 masters, a dynamic
+    loss scaler (2**16, hysteresis 1); each step is scale_loss -> backward
+    -> unscale (multi_tensor_scale) -> step(found_inf) (multi_tensor_adam)
+    -> update. Step AMP_INJECT_STEP gets an inf in one grad element after
+    its backward: that step must leave every param, master, moment and
+    step count bitwise unchanged, halve the scale and reset the growth
+    tracker; every other step's found_inf is False. Returns the launches."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import GPTModel, TransformerConfig
+    from apex_tpu_torch.ops import LAUNCHES, reset_launches
+    from apex_tpu_torch.ops import multi_tensor as mt
+    from apex_tpu_torch.optimizers import FusedAdam
+    state = amp.initialize("O2")
+    cfg = TransformerConfig(**GPT2, hidden_dropout=0.0, attention_dropout=0.0,
+                            compute_dtype=state.policy.compute_dtype)
+    model = GPTModel(cfg, device="cuda",
+                     generator=torch.Generator().manual_seed(0))
+    state.policy.cast_to_param(model)
+    params = list(model.parameters())
+    opt = FusedAdam(params, lr=1e-4, master_weights=True)
+    scaler, ss = state.scaler, [state.scaler_states[0]]
+    batch = _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, "cuda")
+
+    def step(inject):
+        opt.zero_grad(set_to_none=True)
+        loss = model(*batch)
+        amp.scale_loss(loss, ss[0]).backward()
+        if inject:
+            params[0].grad.view(-1)[0] = float("inf")
+        _, found = scaler.unscale([p.grad for p in params], ss[0])
+        opt.step(found_inf=found)
+        ss[0] = scaler.update(ss[0], found)
+        return loss.detach(), found
+
+    def snapshot():
+        out = list(params)
+        for p in params:
+            st = opt.state.get(p, {})
+            out += [st[k] for k in ("master", "exp_avg", "exp_avg_sq",
+                                    "step") if k in st]
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, times, founds, scales, unchanged = [], [], [], [], None
+    for i in range(WARMUP_STEPS + TIMED_STEPS):
+        before = _clones(snapshot()) if i == AMP_INJECT_STEP else None
+        t0 = time.perf_counter()
+        loss, found = step(i == AMP_INJECT_STEP)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        founds.append(found)
+        scales.append((ss[0].loss_scale.clone(),
+                       ss[0].growth_tracker.clone()))
+        if before is not None:
+            unchanged = _all_equal(before, snapshot())
+            del before
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    founds = [bool(f) for f in founds]
+    scale_walk = [(float(a), int(b)) for a, b in scales]
+    sizes = [p.numel() for p in params]
+    per_step = dict(TRAIN_KERNELS, **mt.optimizer_launches(
+        sizes, "multi_tensor_scale"), **optimizer_launches_per_step(opt))
+    n_params = sum(sizes)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    _report_train("train_amp", "gpt2-124m amp O2 bf16 params fp32 master "
+                  "random-init", [float(x) for x in losses], times, launches,
+                  peak, per_step, tokens,
+                  transformer_train_flops(n_params, tokens,
+                                          GPT2["num_layers"],
+                                          GPT2["hidden_size"], TRAIN_SEQ,
+                                          causal=True),
+                  batch=TRAIN_BATCH, seq=TRAIN_SEQ, n_params=n_params,
+                  injected_step=AMP_INJECT_STEP,
+                  found_inf=json.dumps(founds).replace(" ", ""),
+                  loss_scale=json.dumps([a for a, _ in scale_walk]).replace(
+                      " ", ""),
+                  injected_step_unchanged=unchanged)
+    want = [i == AMP_INJECT_STEP for i in range(len(founds))]
+    before_scale = scale_walk[AMP_INJECT_STEP - 1][0]
+    if founds != want or not unchanged or \
+            scale_walk[AMP_INJECT_STEP] != (before_scale / 2, 0) or \
+            before_scale != 2.0 ** 16:
+        raise AssertionError(
+            f"train_amp: found_inf {founds} (want {want}), injected step "
+            f"unchanged {unchanged}, scale walk {scale_walk}")
+    _, found = step(False)
+    report_optimizer("train_amp", opt, found)
+    if profile:
+        profile_device("train_amp", lambda: [step(False) for _ in range(2)],
+                       lambda: dict(steps=2, batch=TRAIN_BATCH,
+                                    seq=TRAIN_SEQ))
+    return launches
+
+
+def phase_amp_card_vs_cpu() -> None:
+    """A small f32 GPT runs the amp flow (``initialize("O2",
+    half_dtype=float32)``: fp32 masters and a dynamic scale) 5 steps on the
+    card and on the CPU from one seed, with an inf injected after the
+    backward of step 2, once each with FusedAdam, FusedLAMB and FusedSGD:
+    the losses to 1e-5 relative and the unscaled step-1 gradients to atol
+    1e-5 + rtol 1e-4 (``phase_train_card_vs_cpu``'s f32 tolerances), the
+    scaler states equal; the parameters after five steps to atol 1e-5 +
+    rtol 1e-4 under SGD, and to atol 1e-4 under Adam and LAMB, which
+    normalise each element's step: a gradient whose two sides differ in
+    their last bits moves a weight by up to lr, as
+    ``tests/test_torch_gpt_training.py`` holds Adam steps against JAX."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import GPTModel, TransformerConfig
+    from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB, FusedSGD
+    cfg = TransformerConfig(**SMALL)
+    makers = {"adam": lambda ps: FusedAdam(ps, lr=1e-3, master_weights=True),
+              "lamb": lambda ps: FusedLAMB(ps, lr=1e-3, weight_decay=0.01,
+                                           master_weights=True),
+              "sgd": lambda ps: FusedSGD(ps, lr=0.1, momentum=0.9,
+                                         weight_decay=1e-4,
+                                         master_weights=True)}
+    for name, make in makers.items():
+        out = {}
+        for device in ("cuda", "cpu"):
+            state = amp.initialize("O2", half_dtype=torch.float32,
+                                   device=device)
+            model = GPTModel(cfg, device=device,
+                             generator=torch.Generator().manual_seed(2))
+            state.policy.cast_to_param(model)
+            params = list(model.parameters())
+            opt = make(params)
+            sc, ss = state.scaler, state.scaler_states[0]
+            batch = _train_batch(cfg, 4, 96, device, seed=3)
+            losses, walk, grads = [], [], None
+            for i in range(5):
+                opt.zero_grad(set_to_none=True)
+                loss = model(*batch)
+                amp.scale_loss(loss, ss).backward()
+                if i == 2:
+                    params[0].grad.view(-1)[0] = float("inf")
+                _, found = sc.unscale([p.grad for p in params], ss)
+                if i == 0:
+                    grads = _grad_tree(model)
+                opt.step(found_inf=found)
+                ss = sc.update(ss, found)
+                losses.append(float(loss.detach()))
+                walk.append(sc.state_dict(ss))
+            out[device] = (losses, walk, grads, {
+                n: p.detach().cpu().clone()
+                for n, p in model.named_parameters()})
+        (lc, wc, gc, pc), (lh, wh, gh, ph) = out["cuda"], out["cpu"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+        grad_excess = max(float(((gc[n] - want).abs() - 1e-4 * want.abs()
+                                 ).max()) for n, want in gh.items())
+        atol, rtol = (1e-5, 1e-4) if name == "sgd" else (1e-4, 0.0)
+        worst, worst_name = 0.0, None
+        for n, want in ph.items():
+            excess = float(((pc[n] - want).abs() - rtol * want.abs()).max())
+            if worst_name is None or excess > worst:
+                worst, worst_name = excess, n
+        log("amp_card_vs_cpu", optimizer=name, steps=5, injected_step=2,
+            losses_cuda=json.dumps(lc).replace(" ", ""),
+            losses_cpu=json.dumps(lh).replace(" ", ""),
+            loss_rel_err=f"{rel:.2e}", grad_excess=f"{grad_excess:.2e}",
+            loss_scale=json.dumps([w["loss_scale"] for w in wc]).replace(
+                " ", ""), scaler_equal=wc == wh,
+            param_tol=f"atol_{atol:g}_rtol_{rtol:g}",
+            worst_param_excess=f"{worst:.2e}", worst_leaf=worst_name)
+        if rel > 1e-5 or grad_excess > 1e-5 or wc != wh or worst > atol or \
+                wc[2]["loss_scale"] != wc[1]["loss_scale"] / 2:
+            raise AssertionError(
+                f"amp_card_vs_cpu {name}: loss rel err {rel} (1e-5), step-1 "
+                f"grads {grad_excess} past atol 1e-5 + rtol 1e-4, scalers "
+                f"{wc} vs {wh}, param {worst_name} off by {worst} past atol "
+                f"{atol} + rtol {rtol}")
+
+
 #: the phase whose run is each kernel's main path
 MAIN_PATH = {"layer_norm_fwd": "serve", "flash_fwd": "serve",
              "paged_decode": "serve", "layer_norm_bwd": "train",
@@ -2636,7 +3226,12 @@ MAIN_PATH = {"layer_norm_fwd": "serve", "flash_fwd": "serve",
              "flash_bwd": "t5_train", "conv1x1_fwd": "rn50_train",
              "conv1x1_bwd": "rn50_train", "conv3x3_fwd": "rn50_train",
              "conv3x3_bwd": "rn50_train", "paged_decode_int8": "serve_int8",
-             "paged_decode_window": "serve_spec"}
+             "paged_decode_window": "serve_spec",
+             "multi_tensor_scale": "train_amp",
+             "multi_tensor_l2norm": "bert_train",
+             "multi_tensor_adam": "train_amp",
+             "multi_tensor_lamb": "bert_train",
+             "multi_tensor_sgd": "rn50_train"}
 #: the launch counter of a record that names a variant of a kernel
 COUNTER = {"paged_decode_int8": "paged_decode",
            "paged_decode_window": "paged_decode"}
@@ -2661,7 +3256,8 @@ def main() -> int:
     records = [phase_layer_norm(timer), phase_flash(timer),
                *phase_decode(timer), phase_layer_norm_bwd(timer),
                *phase_packed(timer), *phase_softmax(timer),
-               phase_flash_bwd(timer), *phase_conv(timer)]
+               phase_flash_bwd(timer), *phase_conv(timer),
+               *phase_multi_tensor(timer)]
     paths = {"serve": phase_serve(args.profile)}
     for name, knobs, kind in SERVE_FEATURES:
         paths[name] = phase_serve_feature(name, knobs, kind, args.profile)
@@ -2671,6 +3267,8 @@ def main() -> int:
     phase_serving_paths_card_vs_cpu(args.seed)
     paths["train"] = phase_train(args.profile)
     phase_train_card_vs_cpu()
+    paths["train_amp"] = phase_train_amp(args.profile)
+    phase_amp_card_vs_cpu()
     paths["bert_train"] = phase_bert_train(args.profile)
     paths["t5_train"] = phase_t5_train(args.profile)
     phase_enc_card_vs_cpu()

@@ -29,7 +29,13 @@ causal with the ``sk - sq`` offset, GQA, windows; bitwise repeatable), and
 the fused 1x1 and 3x3 conv + batch-norm kernels forward and backward
 (every ``(affine, relu)`` combination, row and channel counts off the
 64-wide tiles, images of 1 x 1 to 14 x 14, a stats cotangent; bitwise
-repeatable). Tolerances: f32 atol 1e-4 (summation order only, TF32 off;
+repeatable), and the multi-tensor kernels (amp's unscale, the L2 norms,
+Adam, LAMB and SGD) over lists with a 1-element tensor, one of ``CHUNK +
+1``, an empty one, more tensors and chunks than a launch record holds,
+mixed dtypes, per-tensor step counts, ``grad_scale``, a device ``lr`` and
+a ``found_inf`` step (scale, Adam, SGD bitwise their plain versions; the
+norms 1e-6 relative, LAMB rtol 1e-5), and the optimizers taking them on
+CUDA parameters. Tolerances: f32 atol 1e-4 (summation order only, TF32 off;
 the softmax 1e-5); bf16 1 ulp of an fp32 reference rounded to bf16 (the
 flash backwards, which round ds and p to bf16 where the JAX kernels do: 1
 ulp plus one bf16 step of each rounded factor, at most 0.1% of the
@@ -43,6 +49,7 @@ import pytest
 import torch
 
 from apex_tpu_torch.ops import _support
+from apex_tpu_torch.ops import multi_tensor as mt
 from apex_tpu_torch.ops.attention import (
     drop_combo,
     flash_attention,
@@ -831,3 +838,218 @@ def test_conv_autograd_launches_each_kernel_once(gen):
     (cy3.square().sum() + cs3.sum() + cs1[1].sum()).backward()
     for t, ref in zip((x, w1, w3, a, b), leaves):
         assert _norm_rel(t.grad.cpu(), ref.grad) <= 1e-5
+
+
+# -- multi-tensor kernels (ops/multi_tensor.py) ------------------------------
+
+MT_SIZES = [1, mt.CHUNK + 1, 3 * mt.CHUNK + 17, 0, 767, 5]
+
+
+def _mt_list(gen, sizes, dtype, scale=1.0):
+    return [(scale * torch.randn(n, device="cuda", generator=gen)).to(dtype)
+            for n in sizes]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_multi_tensor_scale_kernel(gen, dtype):
+    """Bitwise the plain version (one fp32 product, rounded once), inf/nan
+    zeroed, found_inf from the input; a clean list reports False."""
+    grads = _mt_list(gen, MT_SIZES, dtype, 100.0)
+    grads[1][mt.CHUNK] = float("inf")
+    grads[2][5] = float("nan")
+    want = [g.clone() for g in grads]
+    scale = torch.tensor(2.0 ** 7, device="cuda")
+    before = _support.LAUNCHES["multi_tensor_scale"]
+    found = mt.multi_tensor_scale(grads, scale)
+    assert _support.LAUNCHES["multi_tensor_scale"] == before + len(
+        mt.plan(MT_SIZES))
+    assert bool(found) and bool(mt.scale_plain(want, scale))
+    for g, w in zip(grads, want):
+        assert torch.equal(g, w)
+    clean = _mt_list(gen, MT_SIZES, dtype)
+    assert not bool(mt.multi_tensor_scale(clean, scale))
+    mixed = [grads[0].float(), grads[1].to(torch.bfloat16), grads[4]]
+    want = [g.clone() for g in mixed]
+    assert bool(mt.multi_tensor_scale(mixed, scale)) == bool(
+        mt.scale_plain(want, scale))
+    assert all(torch.equal(g, w) for g, w in zip(mixed, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_multi_tensor_l2norm_kernel(gen, dtype):
+    """Total and per-tensor norms within 1e-6 of the plain version (sum
+    order), the same with grad_scale, two runs bitwise equal, and a list
+    over more tensors and chunks than one record holds."""
+    tensors = _mt_list(gen, MT_SIZES + [mt.CHUNK * 5] * 150, dtype)
+    total, per = mt.multi_tensor_l2norm(tensors, per_tensor=True)
+    again, per2 = mt.multi_tensor_l2norm(tensors, per_tensor=True)
+    assert torch.equal(total, again) and torch.equal(per, per2)
+    want, want_per = mt.l2norm_plain(tensors)
+    assert abs(float(total) / float(want) - 1) <= 1e-6
+    torch.testing.assert_close(per, want_per, rtol=1e-6, atol=0)
+    scale = torch.tensor(8.0, device="cuda")
+    scaled, _ = mt.multi_tensor_l2norm([t * 8 for t in tensors],
+                                       grad_scale=scale)
+    assert abs(float(scaled) / float(want) - 1) <= 1e-6
+    big = torch.randn(mt.CHUNK * mt.MAX_CHUNKS + 3, device="cuda",
+                      generator=gen)
+    got, _ = mt.multi_tensor_l2norm([big])
+    assert abs(float(got) / float(big.double().norm()) - 1) <= 1e-6
+
+
+def _opt_state(gen, sizes, dtype, master, slots=2, steps0=None):
+    params = _mt_list(gen, sizes, dtype)
+    state = [[torch.zeros(n, device="cuda") for n in sizes]
+             for _ in range(slots)]
+    steps = [torch.tensor(s, dtype=torch.int32, device="cuda")
+             for s in (steps0 or [0] * len(sizes))]
+    masters = [p.float().clone() for p in params] if master else None
+    return params, state, steps, masters
+
+
+def _clone(x):
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    return [_clone(t) for t in x]
+
+
+def _equal(a, b):
+    if a is None:
+        return b is None
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return all(_equal(x, y) for x, y in zip(a, b))
+
+
+OPT_KERNELS = {
+    "adam": (lambda p, st, s, m, **kw: mt.multi_tensor_adam(
+        kw.pop("g"), p, st[0], st[1], s, m, **kw),
+        lambda p, st, s, m, **kw: mt.adam_plain(kw.pop("g"), p, st[0], st[1],
+                                                s, m, **kw),
+        dict(betas=(0.9, 0.999), eps=1e-8, bias_correction=True), 2),
+    "sgd": (lambda p, st, s, m, **kw: mt.multi_tensor_sgd(
+        kw.pop("g"), p, st[0], s, m, **kw),
+        lambda p, st, s, m, **kw: mt.sgd_plain(kw.pop("g"), p, st[0], s, m,
+                                               **kw),
+        dict(momentum=0.9, dampening=0.0, nesterov=False), 1),
+}
+
+
+@pytest.mark.parametrize("name,variant", [
+    ("adam", dict(adam_w_mode=True, weight_decay=0.1)),
+    ("adam", dict(adam_w_mode=False, weight_decay=0.1)),
+    ("sgd", dict(wd_after_momentum=False, weight_decay=1e-2)),
+    ("sgd", dict(wd_after_momentum=True, weight_decay=1e-2,
+                 nesterov=True)),
+], ids=["adamw", "adam_l2", "sgd", "sgd_nesterov_wd_after"])
+@pytest.mark.parametrize("dtype,master", [
+    (torch.float32, False), (torch.bfloat16, True), (torch.float16, True)])
+def test_adam_and_sgd_kernels_bitwise(gen, name, variant, dtype, master):
+    """Three steps against the plain version on the card, bitwise: each
+    tensor's own step (counts 0, 4, 1, ...: its bias corrections and
+    SGD's first-step rule), grad_scale, lr as a device tensor at step 2,
+    and a found_inf step that writes nothing."""
+    kernel, plain, fixed, slots = OPT_KERNELS[name]
+    steps0 = [i % 5 for i in range(len(MT_SIZES))]
+    p, st, s, m = _opt_state(gen, MT_SIZES, dtype, master, slots, steps0)
+    q, qst, qs, qm = _clone(p), _clone(st), _clone(s), _clone(m)
+    for i in range(4):
+        g = _mt_list(gen, MT_SIZES, dtype, 64.0)
+        found = torch.tensor(i == 1, device="cuda")
+        lr = torch.tensor(1e-2, device="cuda") if i == 2 else 1e-2
+        kw = dict(fixed, **variant, lr=lr,
+                  grad_scale=torch.tensor(64.0, device="cuda"),
+                  found_inf=found)
+        before = [_clone(x) for x in (p, st, s, m)]
+        kernel(p, st, s, m, g=g, **kw)
+        plain(q, qst, qs, qm, g=_clone(g), **kw)
+        if i == 1:
+            assert all(_equal(a, b) for a, b in zip(before, (p, st, s, m)))
+        assert _equal(p, q) and _equal(st, qst) and _equal(s, qs) \
+            and _equal(m, qm), i
+
+
+@pytest.mark.parametrize("kw", [
+    dict(weight_decay=0.01, adam_w_mode=True),
+    dict(weight_decay=0.01, adam_w_mode=False, trust_clip=True),
+    dict(weight_decay=0.0, always_adapt=True, max_grad_norm=0.0),
+    dict(weight_decay=0.0),
+], ids=["adamw", "l2_trust_clip", "always_adapt_no_clip", "no_adapt"])
+@pytest.mark.parametrize("dtype,master", [(torch.float32, False),
+                                          (torch.bfloat16, True)])
+def test_lamb_kernels_against_plain(gen, kw, dtype, master):
+    """Three LAMB steps against the plain version on the card: fp32 state
+    within rtol 1e-5 (the norms' summation order moves the clip and the
+    trust ratio by an ulp or so), found_inf writes nothing, every step
+    count equal."""
+    full = dict(dict(lr=1e-2, betas=(0.9, 0.999), eps=1e-6,
+                     bias_correction=True, grad_averaging=True,
+                     max_grad_norm=1.0, trust_clip=False,
+                     always_adapt=False, adam_w_mode=True), **kw)
+    p, st, s, m = _opt_state(gen, MT_SIZES, dtype, master)
+    q, qst, qs, qm = _clone(p), _clone(st), _clone(s), _clone(m)
+    upd = [torch.empty(n, device="cuda") for n in MT_SIZES]
+    qupd = _clone(upd)
+    for i in range(3):
+        g = _mt_list(gen, MT_SIZES, dtype, 3.0)
+        found = torch.tensor(i == 1, device="cuda")
+        gnorm, _ = mt.multi_tensor_l2norm(g)
+        pn, _ = mt.l2norm_plain(g)
+        before = _clone(p)
+        mt.multi_tensor_lamb(g, p, st[0], st[1], upd, s, m, gnorm=gnorm,
+                             found_inf=found, **full)
+        mt.lamb_plain(_clone(g), q, qst[0], qst[1], qupd, qs, qm, gnorm=pn,
+                      found_inf=found, **full)
+        if i == 1:
+            assert _equal(before, p)
+    assert _equal(s, qs)
+    for a, b in zip(m or p, qm or q):
+        torch.testing.assert_close(a.float(), b.float(), rtol=1e-5,
+                                   atol=1e-7)
+    for a, b in zip(st[0] + st[1], qst[0] + qst[1]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-9)
+
+
+def test_optimizers_take_the_kernels_on_the_card(gen):
+    """FusedAdam / FusedLAMB / FusedSGD on CUDA parameters launch their
+    kernels and give the per-parameter path's parameters (Adam and SGD
+    bitwise, LAMB within rtol 1e-5), a parameter without a grad keeping its
+    step, two param groups and a weight-decay mask making separate
+    lists."""
+    from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB, FusedSGD
+    sizes = [(64, 48), (48,), (48, 3), (7,)]
+    for cls, kw, exact, counter in (
+            (FusedAdam, dict(lr=1e-2, weight_decay=0.1), True,
+             "multi_tensor_adam"),
+            (FusedSGD, dict(lr=0.1, momentum=0.9, weight_decay=1e-2), True,
+             "multi_tensor_sgd"),
+            (FusedLAMB, dict(lr=1e-2, weight_decay=0.01), False,
+             "multi_tensor_lamb")):
+        init = [torch.randn(*sz, device="cuda", generator=gen)
+                for sz in sizes]
+        ps = [torch.nn.Parameter(t.clone()) for t in init]
+        qs = [torch.nn.Parameter(t.clone()) for t in init]
+        groups = lambda x: [{"params": x[:2]}, {"params": x[2:]}]  # noqa: E731
+        a = cls(groups(ps), weight_decay_mask=lambda t: t.dim() > 1, **kw)
+        b = cls(groups(qs), weight_decay_mask=lambda t: t.dim() > 1, **kw)
+        for i in range(3):
+            g = [torch.randn(*sz, device="cuda", generator=gen)
+                 for sz in sizes]
+            for j, (p, q) in enumerate(zip(ps, qs)):
+                p.grad = None if (i == 1 and j == 3) else g[j].clone()
+                q.grad = None if (i == 1 and j == 3) else g[j].clone()
+            before = _support.LAUNCHES[counter]
+            a.step()
+            assert _support.LAUNCHES[counter] > before
+            todo = [(gi, grp, q) for gi, grp in enumerate(b.param_groups)
+                    for q in grp["params"] if q.grad is not None]
+            b._step_per_parameter(todo, None, None)
+        assert int(a.state[ps[3]]["step"]) == 2
+        for p, q in zip(ps, qs):
+            if exact:
+                assert torch.equal(p, q)
+            else:
+                torch.testing.assert_close(p, q, rtol=1e-5, atol=1e-7)

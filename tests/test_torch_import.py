@@ -27,7 +27,11 @@ def test_import_pulls_in_no_jax():
     assert {"apex_tpu_torch.serving.engine",
             "apex_tpu_torch.serving.supervisor",
             "apex_tpu_torch.testing_faults", "apex_tpu_torch.utils.prng",
-            "apex_tpu_torch.utils.logging"} <= set(names)
+            "apex_tpu_torch.utils.logging", "apex_tpu_torch.amp.scaler",
+            "apex_tpu_torch.amp.policy", "apex_tpu_torch.fp16_utils",
+            "apex_tpu_torch.multi_tensor_apply.multi_tensor_apply",
+            "apex_tpu_torch.ops.multi_tensor", "apex_tpu_torch.parallel.larc",
+            "apex_tpu_torch.utils.tree"} <= set(names)
     code = ("import importlib, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "

@@ -21,6 +21,13 @@ first step sets the buffer to the update direction), dampening, nesterov,
 weight decay before and after the momentum (``wd_after_momentum``) and
 under a mask, master weights over bf16 and a ``found_inf`` step.
 
+FusedNovoGrad (norm types 2 and 0, ``init_zero``, ``reg_inside_moment``,
+grad averaging, decay), FusedAdagrad (L2 and ``adagrad_w_mode`` decay),
+FusedMixedPrecisionLamb (bf16 params over its fp32 masters, ``use_nvlamb``)
+and LARC over FusedSGD and FusedAdam (clip and scale modes, with weight
+decay, whose inner groups get their decay back after the step, also when
+it raises) run the same five steps against their JAX counterparts.
+
 Tolerance: fp32 parameters rtol 1e-6 + atol 1e-7 after five steps (the
 same fp32 expressions; ``b ** t`` may differ by an ulp; LAMB's norms sum
 in another order); bf16 parameters under master weights exactly equal
@@ -33,10 +40,23 @@ import numpy as np
 import pytest
 import torch
 
+from apex_tpu.optimizers import FusedAdagrad as JaxFusedAdagrad
 from apex_tpu.optimizers import FusedAdam as JaxFusedAdam
 from apex_tpu.optimizers import FusedLAMB as JaxFusedLAMB
+from apex_tpu.optimizers import FusedMixedPrecisionLamb as JaxMPLamb
+from apex_tpu.optimizers import FusedNovoGrad as JaxFusedNovoGrad
 from apex_tpu.optimizers import FusedSGD as JaxFusedSGD
-from apex_tpu_torch.optimizers import FusedAdam, FusedAdamW, FusedLAMB, FusedSGD
+from apex_tpu.parallel import LARC as JaxLARC
+from apex_tpu_torch.optimizers import (
+    FusedAdagrad,
+    FusedAdam,
+    FusedAdamW,
+    FusedLAMB,
+    FusedMixedPrecisionLamb,
+    FusedNovoGrad,
+    FusedSGD,
+)
+from apex_tpu_torch.parallel import LARC
 
 SHAPES = {"w1": (6, 5), "b1": (5,), "w2": (5, 3), "scale": (3,)}
 STEPS = 5
@@ -264,3 +284,107 @@ def test_sgd_nesterov_needs_momentum_and_no_dampening():
         FusedSGD([p], lr=0.1, nesterov=True)
     with pytest.raises(ValueError, match="Nesterov"):
         FusedSGD([p], lr=0.1, momentum=0.9, dampening=0.1, nesterov=True)
+
+
+def _run_pair(jopt, make_topt, param_dtype="float32"):
+    """Five steps of ``jopt`` (JAX) and ``make_topt(params)`` (the port)
+    from the same numpy parameters and gradients."""
+    params = _tree(0)
+    grads = [_tree(10 + i) for i in range(STEPS)]
+    jp = {k: jnp.asarray(v, getattr(jnp, param_dtype))
+          for k, v in params.items()}
+    jstate = jopt.init(jp)
+    tp = {k: torch.nn.Parameter(torch.from_numpy(v).to(
+        getattr(torch, param_dtype))) for k, v in params.items()}
+    topt = make_topt(list(tp.values()))
+    for g in grads:
+        jp, jstate = jopt.step({k: jnp.asarray(v, getattr(jnp, param_dtype))
+                                for k, v in g.items()}, jp, jstate)
+        for k, p in tp.items():
+            p.grad = torch.from_numpy(g[k]).to(p.dtype)
+        topt.step()
+    return jp, jstate, tp, topt
+
+
+@pytest.mark.parametrize("kw", [
+    dict(lr=1e-2),
+    dict(lr=1e-2, norm_type=0),
+    dict(lr=1e-2, init_zero=True),
+    dict(lr=1e-2, weight_decay=0.1),
+    dict(lr=1e-2, weight_decay=0.1, reg_inside_moment=True),
+    dict(lr=1e-2, grad_averaging=True, bias_correction=False,
+         betas=(0.9, 0.99)),
+    dict(lr=1e-2, norm_type=0, init_zero=True, weight_decay=0.05,
+         reg_inside_moment=True),
+], ids=["l2", "inf_norm", "init_zero", "wd", "reg_inside_moment",
+        "grad_averaging", "inf_init_zero_reg"])
+def test_novograd_five_steps_match_jax(kw):
+    jp, jstate, tp, topt = _run_pair(JaxFusedNovoGrad(**kw),
+                                     lambda ps: FusedNovoGrad(ps, **kw))
+    _check(jp, tp)
+    for k, p in tp.items():
+        np.testing.assert_allclose(
+            topt.state[p]["exp_avg_sq"].numpy(),
+            np.asarray(jstate["slots"]["exp_avg_sq"][k]), rtol=1e-6)
+    with pytest.raises(RuntimeError, match="norm"):
+        FusedNovoGrad(list(tp.values()), norm_type=1)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(lr=1e-2),
+    dict(lr=1e-2, weight_decay=0.1),
+    dict(lr=1e-2, weight_decay=0.1, adagrad_w_mode=True),
+    dict(lr=5e-2, eps=1e-6),
+], ids=["plain", "l2", "w_mode", "eps"])
+def test_adagrad_five_steps_match_jax(kw):
+    jp, jstate, tp, topt = _run_pair(JaxFusedAdagrad(**kw),
+                                     lambda ps: FusedAdagrad(ps, **kw))
+    _check(jp, tp)
+    for k, p in tp.items():
+        np.testing.assert_allclose(topt.state[p]["sum"].numpy(),
+                                   np.asarray(jstate["slots"]["sum"][k]),
+                                   rtol=1e-6)
+
+
+@pytest.mark.parametrize("nvlamb", [False, True])
+def test_mixed_precision_lamb_over_bf16_matches_jax(nvlamb):
+    kw = dict(lr=1e-2, weight_decay=0.0 if nvlamb else 0.01,
+              use_nvlamb=nvlamb)
+    jp, jstate, tp, topt = _run_pair(
+        JaxMPLamb(**kw), lambda ps: FusedMixedPrecisionLamb(ps, **kw),
+        param_dtype="bfloat16")
+    assert topt.master_weights
+    for k, p in tp.items():
+        assert p.dtype == torch.bfloat16
+        np.testing.assert_allclose(topt.state[p]["master"].numpy(),
+                                   np.asarray(jstate["master"][k]),
+                                   rtol=1e-6, atol=1e-7)
+    _check(jp, tp, exact=True)
+
+
+@pytest.mark.parametrize("inner,clip", [
+    ("sgd", True), ("sgd", False), ("adam", True), ("adam", False)])
+def test_larc_five_steps_match_jax(inner, clip):
+    kw = (dict(lr=0.1, momentum=0.9, weight_decay=1e-2) if inner == "sgd"
+          else dict(lr=1e-2, weight_decay=0.1))
+    jcls, tcls = ((JaxFusedSGD, FusedSGD) if inner == "sgd"
+                  else (JaxFusedAdam, FusedAdam))
+    jp, _, tp, topt = _run_pair(
+        JaxLARC(jcls(**kw), trust_coefficient=0.02, clip=clip),
+        lambda ps: LARC(tcls(ps, **kw), trust_coefficient=0.02, clip=clip))
+    _check(jp, tp)
+    assert topt.param_groups[0]["weight_decay"] == kw["weight_decay"]
+
+
+def test_larc_restores_weight_decay_when_the_step_raises():
+    p = torch.nn.Parameter(torch.ones(3))
+    larc = LARC(FusedSGD([p], lr=0.1, weight_decay=0.5))
+    p.grad = torch.ones(3)
+
+    def boom(*a, **k):
+        raise RuntimeError("inner step failed")
+
+    larc.inner.step = boom
+    with pytest.raises(RuntimeError, match="inner step failed"):
+        larc.step()
+    assert larc.param_groups[0]["weight_decay"] == 0.5
