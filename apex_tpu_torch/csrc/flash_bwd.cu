@@ -49,7 +49,7 @@
 //   lse) on the SFU, masks only on tiles that cross the diagonal, a
 //   length, the window's edge, sq or sk (flash::tile_cover with the sk -
 //   sq offset), tiles a warp sees nothing of skipped. p and ds are
-//   rounded to bf16 straight into A fragments (flash::bf16_fragment), and
+//   rounded to bf16 straight into A fragments (flash::fragment16), and
 //   dV += P^T dO, dK += dS^T Q take dO and Q as B fragments by
 //   ldmatrix.trans from the same stage. dk and dv are summed in fp32
 //   across the group's heads and tiles by the tensor cores and rounded
@@ -658,8 +658,8 @@ flash_bwd_dkv_mma(const Bf16Args a) {
           }
         }
         unsigned pa[4], sa[4];
-        flash::bf16_fragment<2>(pc, 0, pa);
-        flash::bf16_fragment<2>(dp, 0, sa);
+        flash::fragment16<2>(pc, 0, pa);
+        flash::fragment16<2>(dp, 0, sa);
         {
           unsigned fb[kNO / 2][4];
           ring::load_b<kNO, true>(fb, dOs, C::kLd, 16 * c);
@@ -844,7 +844,7 @@ flash_bwd_dq_mma(const Bf16Args a) {
           for (int e = 0; e < 4; ++e)
             dp[j][e] = sc[2 * c + j][e] * (dp[j][e] - delta_r[e >> 1]);  // ds
         unsigned sa[4];
-        flash::bf16_fragment<2>(dp, 0, sa);
+        flash::fragment16<2>(dp, 0, sa);
         unsigned fb[kNO / 2][4];
         ring::load_b<kNO, true>(fb, Ks, C::kLd, 16 * c);
 #pragma unroll
@@ -930,6 +930,9 @@ extern "C" int apex_flash_bwd(const void* q, const void* k, const void* v,
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   if (d > 128) return static_cast<int>(cudaErrorInvalidValue);
+  // f32 and bf16 only: fp16 is not yet ported here
+  if (dtype != apex::kBF16 && dtype != apex::kF32)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   if (dtype == apex::kBF16) {
     const Bf16Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),

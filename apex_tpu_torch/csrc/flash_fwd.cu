@@ -463,10 +463,11 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                     scale, mask_4d(sq, sk, causal, window)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d > 128) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err;
+  // f32 and bf16 only: fp16 is not yet ported here
+  cudaError_t err = cudaErrorInvalidValue;
   if (dtype == apex::kBF16)
     err = d <= 64 ? launch_bf16<64>(a, s) : launch_bf16<128>(a, s);
-  else
+  else if (dtype == apex::kF32)
     err = d <= 64 ? launch_f32<64>(a, s) : launch_f32<128>(a, s);
   return static_cast<int>(err);
 }

@@ -1,15 +1,18 @@
 // Pieces of the tensor-core flash attention kernels, on top of
-// mma_ring.cuh (cp.async, ldmatrix, mma.sync m16n8k16 in bf16) and
+// mma_ring.cuh (cp.async, ldmatrix, mma.sync m16n8k16) and
 // packed_attention.cuh (the packed layout, RoPE's rounding, the dropout
-// hash, visibility): the copy of a bf16 tile into padded shared-memory
+// hash, visibility): the copy of a 16-bit tile into padded shared-memory
 // rows, RoPE applied to a landed tile in place, the test of which key
 // tiles a warp's rows see whole, in part or not at all (under the
 // packed::Mask of `_mask_block`, with the sk - sq offset), the online
 // softmax step over the scores a warp holds in mma accumulators, p split
-// into bf16 hi + lo A fragments, a factor rounded once to bf16 into A
-// fragments, and the backward's delta prep pass. The bf16 paths of
-// Kernels B and E (flash_fwd.cu, flash_packed_fwd.cu) and of Kernels I and
-// F (flash_bwd.cu, flash_packed_bwd.cu) use them.
+// into 16-bit hi + lo A fragments, a factor rounded once to the 16-bit
+// type into A fragments, and the backward's delta prep pass. The bf16
+// paths of Kernels B and E (flash_fwd.cu, flash_packed_fwd.cu) and of
+// Kernels I and F (flash_bwd.cu, flash_packed_bwd.cu), and the fp16 paths
+// of E and F, use them: each piece takes the 16-bit element type T (bf16
+// or fp16) from its pointers or as a template argument that defaults to
+// bf16, and apex::Half16<T> gives the pair packing and the mma opcode.
 //
 // Fragment layout (PTX ISA, mma.m16n8k16, as mma_ring.cuh): a warp's
 // score tile is NS n8 tiles of 16 rows, acc[j][e] at row g + 8 (e >> 1),
@@ -29,7 +32,7 @@ using packed::kNeg;
 using packed::Mask;
 using packed::Opts;
 
-// Shared-memory row length of a tile of DMAX columns: 8 bf16 of padding
+// Shared-memory row length of a tile of DMAX columns: 8 elements of padding
 // put the 8 rows an ldmatrix reads in 8 distinct groups of banks, and
 // keep each row on a 16-byte boundary for cp.async.
 template <int DMAX>
@@ -43,33 +46,33 @@ struct Tile {
 // Columns from d on and rows from s on are zero-filled. VEC: d and the
 // packed row width are multiples of 8, so every copy is one 16-byte
 // cp.async; else the copies go element by element (ring::copy8).
-template <int ROWS, int DMAX, int THREADS, bool VEC>
-__device__ __forceinline__ void copy_tile(bf16* dst, const bf16* base,
+template <int ROWS, int DMAX, int THREADS, bool VEC, typename T>
+__device__ __forceinline__ void copy_tile(T* dst, const T* base,
                                           long long col,
                                           long long row_stride, int pos0,
                                           int s, int d) {
-  using T = Tile<DMAX>;
-  static_assert(ROWS * T::kChunks % THREADS == 0, "whole copies a thread");
+  using TL = Tile<DMAX>;
+  static_assert(ROWS * TL::kChunks % THREADS == 0, "whole copies a thread");
 #pragma unroll
-  for (int i = 0; i < ROWS * T::kChunks / THREADS; ++i) {
+  for (int i = 0; i < ROWS * TL::kChunks / THREADS; ++i) {
     const int idx = threadIdx.x + i * THREADS;
-    const int r = idx / T::kChunks;
-    const int c = (idx % T::kChunks) * 8;
+    const int r = idx / TL::kChunks;
+    const int c = (idx % TL::kChunks) * 8;
     const int pos = pos0 + r;
     const bool valid = pos < s;
-    const bf16* src =
+    const T* src =
         valid ? base + col + static_cast<long long>(pos) * row_stride + c
               : base;
-    ring::copy8<VEC>(dst + r * T::kLd + c, src, base, valid, d - c);
+    ring::copy8<VEC>(dst + r * TL::kLd + c, src, base, valid, d - c);
   }
 }
 
 // RoPE on a landed tile (ROWS rows from position pos0), in place: each
 // thread owns the pairs (c, c + rot / 2), so no element is read after it
 // is written. The arithmetic is packed::load_rope's: fp32 with separate
-// roundings, then one round to bf16. Rows from s on stay zero.
-template <int ROWS, int THREADS>
-__device__ __forceinline__ void rope_tile(bf16* tile, int ld, int pos0,
+// roundings, then one round to T. Rows from s on stay zero.
+template <int ROWS, int THREADS, typename T>
+__device__ __forceinline__ void rope_tile(T* tile, int ld, int pos0,
                                           const Opts& o) {
   const int half = o.rot / 2;
   for (int idx = threadIdx.x; idx < ROWS * half; idx += THREADS) {
@@ -77,15 +80,15 @@ __device__ __forceinline__ void rope_tile(bf16* tile, int ld, int pos0,
     const int c = idx % half;
     const int pos = pos0 + r;
     if (pos >= o.s) continue;
-    bf16* x = tile + r * ld;
-    const float lo = __bfloat162float(x[c]);
-    const float hi = __bfloat162float(x[c + half]);
+    T* x = tile + r * ld;
+    const float lo = to_float(x[c]);
+    const float hi = to_float(x[c + half]);
     const long long i = static_cast<long long>(pos) * o.d + c;
     const long long k = i + half;
-    x[c] = __float2bfloat16(
-        __fadd_rn(__fmul_rn(lo, o.cos[i]), __fmul_rn(-hi, o.sin[i])));
-    x[c + half] = __float2bfloat16(
-        __fadd_rn(__fmul_rn(hi, o.cos[k]), __fmul_rn(lo, o.sin[k])));
+    store(&x[c],
+          __fadd_rn(__fmul_rn(lo, o.cos[i]), __fmul_rn(-hi, o.sin[i])));
+    store(&x[c + half],
+          __fadd_rn(__fmul_rn(hi, o.cos[k]), __fmul_rn(lo, o.sin[k])));
   }
 }
 
@@ -118,16 +121,14 @@ __device__ __forceinline__ Cover tile_cover(const Opts& o, int kvl, int r0,
   return tile_cover(packed::mask_of(o), kvl, r0, c0, bk, rows);
 }
 
-// d += a b for one m16n8k16 tile, the tensor cores carrying the sum
-// (mma_ring.cuh adds each product into fp32 registers instead: over the
-// few thousand products of one attention row the carried sum holds the
-// 1 bf16 ulp check of o, and saves an add a product)
+// d += a b for one m16n8k16 tile of T operands, the tensor cores carrying
+// the sum (mma_ring.cuh adds each product into fp32 registers instead: over
+// the few thousand products of one attention row the carried sum holds the
+// 1 ulp check of o, and saves an add a product)
+template <typename T = bf16>
 __device__ __forceinline__ void mma_acc(float (&d)[4], const unsigned (&a)[4],
                                         unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  Half16<T>::mma(d, a, b0, b1);
 }
 
 // e^x as 2^(x log2 e): one multiply and the SFU's exp2 (results below
@@ -190,45 +191,42 @@ __device__ __forceinline__ void softmax_step(float (&s)[NS][4], float (&m)[2],
     for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
 }
 
-__device__ __forceinline__ unsigned as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-// (x, y) as bf16 pairs hi = bf16(x, y) and lo = bf16((x, y) - hi), x in
-// the low half: hi + lo carries p to about 2^-16 of itself (the
-// difference is exact in fp32).
+// (x, y) as T pairs hi = T(x, y) and lo = T((x, y) - hi), x in the low
+// half: hi + lo carries p to about 2^-16 (bf16) or 2^-22 (fp16) of itself
+// while lo stays a normal number (the difference is exact in fp32).
+template <typename T>
 __device__ __forceinline__ void split2(float x, float y, unsigned& hi,
                                        unsigned& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = as_u32(h);
-  lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+  hi = Half16<T>::pack(x, y);
+  const float2 hf = Half16<T>::unpack(hi);
+  lo = Half16<T>::pack(x - hf.x, y - hf.y);
 }
 
 // The A fragments (m16 x k16) of p over keys 16 kk .. 16 kk + 15, from the
 // accumulators of score tiles 2 kk and 2 kk + 1 (FlashAttention-2's remap:
 // an m16n8 accumulator pair is an m16k16 operand), split into hi and lo.
-template <int NS>
+template <int NS, typename T = bf16>
 __device__ __forceinline__ void p_fragments(const float (&p)[NS][4], int kk,
                                             unsigned (&hi)[4],
                                             unsigned (&lo)[4]) {
-  split2(p[2 * kk][0], p[2 * kk][1], hi[0], lo[0]);
-  split2(p[2 * kk][2], p[2 * kk][3], hi[1], lo[1]);
-  split2(p[2 * kk + 1][0], p[2 * kk + 1][1], hi[2], lo[2]);
-  split2(p[2 * kk + 1][2], p[2 * kk + 1][3], hi[3], lo[3]);
+  split2<T>(p[2 * kk][0], p[2 * kk][1], hi[0], lo[0]);
+  split2<T>(p[2 * kk][2], p[2 * kk][3], hi[1], lo[1]);
+  split2<T>(p[2 * kk + 1][0], p[2 * kk + 1][1], hi[2], lo[2]);
+  split2<T>(p[2 * kk + 1][2], p[2 * kk + 1][3], hi[3], lo[3]);
 }
 
 // The A fragment (m16 x k16) over columns 16 kk .. 16 kk + 15 of a warp's
 // fp32 accumulators (n8 tiles 2 kk and 2 kk + 1), each value rounded once
-// to bf16: the remap of p_fragments with the hi half only. Kernel F packs
-// ds and the dropped p this way, rounded where the JAX kernel rounds them.
-template <int NS>
-__device__ __forceinline__ void bf16_fragment(const float (&v)[NS][4], int kk,
-                                              unsigned (&a)[4]) {
-  a[0] = as_u32(__floats2bfloat162_rn(v[2 * kk][0], v[2 * kk][1]));
-  a[1] = as_u32(__floats2bfloat162_rn(v[2 * kk][2], v[2 * kk][3]));
-  a[2] = as_u32(__floats2bfloat162_rn(v[2 * kk + 1][0], v[2 * kk + 1][1]));
-  a[3] = as_u32(__floats2bfloat162_rn(v[2 * kk + 1][2], v[2 * kk + 1][3]));
+// to T: the remap of p_fragments with the hi half only. Kernels F and I
+// pack ds and the dropped p this way, rounded where the JAX kernels round
+// them.
+template <int NS, typename T = bf16>
+__device__ __forceinline__ void fragment16(const float (&v)[NS][4], int kk,
+                                           unsigned (&a)[4]) {
+  a[0] = Half16<T>::pack(v[2 * kk][0], v[2 * kk][1]);
+  a[1] = Half16<T>::pack(v[2 * kk][2], v[2 * kk][3]);
+  a[2] = Half16<T>::pack(v[2 * kk + 1][0], v[2 * kk + 1][1]);
+  a[3] = Half16<T>::pack(v[2 * kk + 1][2], v[2 * kk + 1][3]);
 }
 
 // 4 bytes from global to shared memory, or 4 zero bytes when !valid (src
@@ -240,16 +238,17 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                "l"(src), "r"(valid ? 4 : 0));
 }
 
-// (x, y) into columns col, col + 1 of a bf16 row of d columns, rounded
-// once; a pair store where both fit and d is even (every row start even)
-__device__ __forceinline__ void store_pair(bf16* row, int col, int d,
-                                           float x, float y) {
+// (x, y) into columns col, col + 1 of a T row of d columns, rounded
+// once (to inf past fp16's range); a pair store where both fit and d is
+// even (every row start even)
+template <typename T>
+__device__ __forceinline__ void store_pair(T* row, int col, int d, float x,
+                                           float y) {
   if (col + 1 < d && (d & 1) == 0) {
-    *reinterpret_cast<__nv_bfloat162*>(row + col) =
-        __floats2bfloat162_rn(x, y);
+    *reinterpret_cast<unsigned*>(row + col) = Half16<T>::pack(x, y);
   } else {
-    if (col < d) row[col] = __float2bfloat16(x);
-    if (col + 1 < d) row[col + 1] = __float2bfloat16(y);
+    if (col < d) store(&row[col], x);
+    if (col + 1 < d) store(&row[col + 1], y);
   }
 }
 
@@ -264,9 +263,9 @@ __device__ __forceinline__ void store_pair(bf16* row, int col, int d,
 // in a profile; each source instantiates its own).
 constexpr int kDeltaThreads = 256;
 
-template <class OWNER, int CH>
+template <class OWNER, int CH, typename T>
 __global__ void __launch_bounds__(kDeltaThreads)
-delta_kernel(const bf16* __restrict__ dout, const bf16* __restrict__ out,
+delta_kernel(const T* __restrict__ dout, const T* __restrict__ out,
              float* __restrict__ delta, long long rows, int inner, int s,
              int d) {
   constexpr int kLanes = CH > 0 ? CH : 32;  // threads a row
@@ -282,17 +281,14 @@ delta_kernel(const bf16* __restrict__ dout, const bf16* __restrict__ out,
       const unsigned ys[4] = {y.x, y.y, y.z, y.w};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float2 a = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&xs[e]));
-        const float2 c = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&ys[e]));
+        const float2 a = Half16<T>::unpack(xs[e]);
+        const float2 c = Half16<T>::unpack(ys[e]);
         part += a.x * c.x;
         part += a.y * c.y;
       }
     } else {
       for (int c = lane; c < d; c += 32)
-        part += __bfloat162float(dout[i * d + c]) *
-                __bfloat162float(out[i * d + c]);
+        part += to_float(dout[i * d + c]) * to_float(out[i * d + c]);
     }
   }
 #pragma unroll
@@ -304,8 +300,8 @@ delta_kernel(const bf16* __restrict__ dout, const bf16* __restrict__ out,
 
 // Launches delta_kernel, 16-byte loads where d is 64 or 128 and every
 // row of do and o starts on a 16-byte boundary (`vec`).
-template <class OWNER>
-cudaError_t launch_delta(const bf16* dout, const bf16* out, float* delta,
+template <class OWNER, typename T>
+cudaError_t launch_delta(const T* dout, const T* out, float* delta,
                          long long rows, int inner, int s, int d, bool vec,
                          cudaStream_t stream) {
   auto grid = [&](int lanes) {
@@ -313,13 +309,13 @@ cudaError_t launch_delta(const bf16* dout, const bf16* out, float* delta,
     return static_cast<unsigned>((rows + per_block - 1) / per_block);
   };
   if (vec && d == 64)
-    delta_kernel<OWNER, 8><<<grid(8), kDeltaThreads, 0, stream>>>(
+    delta_kernel<OWNER, 8, T><<<grid(8), kDeltaThreads, 0, stream>>>(
         dout, out, delta, rows, inner, s, d);
   else if (vec && d == 128)
-    delta_kernel<OWNER, 16><<<grid(16), kDeltaThreads, 0, stream>>>(
+    delta_kernel<OWNER, 16, T><<<grid(16), kDeltaThreads, 0, stream>>>(
         dout, out, delta, rows, inner, s, d);
   else
-    delta_kernel<OWNER, 0><<<grid(32), kDeltaThreads, 0, stream>>>(
+    delta_kernel<OWNER, 0, T><<<grid(32), kDeltaThreads, 0, stream>>>(
         dout, out, delta, rows, inner, s, d);
   return cudaGetLastError();
 }

@@ -17,7 +17,11 @@
 // The JAX kernel rounds ds to the input dtype before `ds k` (:935) and
 // `ds^T q` (:948), and the dropped p before `p^T do` (:945); the plain
 // version (flash_packed_bwd_plain) rounds at the same three points, and
-// in f32 these roundings are the identity.
+// in f32 these roundings are the identity. In fp16 a small ds lands in
+// fp16's subnormals and a large one (under a big loss scale) overflows
+// to inf, in both versions alike (round to nearest even, subnormals
+// kept), and dq, dk and dv past 65504 round to inf at their one store, so
+// amp's unscale finds the overflow.
 //
 // What does not carry over: the TPU kernel holds a whole (s, s) block of
 // one cell in VMEM and accumulates dk/dv in registers across the group's
@@ -31,7 +35,8 @@
 // visible pair: q k^T, do v^T, ds k, ds^T q, p^T do; 33 us at the bf16
 // tensor rate) against ~101 MB moved (30 us at 3.35 TB/s).
 //
-// bf16 (the path the models train on), three launches:
+// bf16 and fp16 (the paths the models train on; one template over the
+// 16-bit type T), three launches:
 // - delta prep: delta = rowsum(do * o) in fp32 into the [b, H, s] scratch
 //   (16-byte loads, 8 threads a row at d 64), so that the two GEMM passes
 //   read it and depend on nothing but their inputs (the `di` of
@@ -43,19 +48,19 @@
 //   visible 64-query tiles stream through a 2-stage cp.async ring
 //   (flash_mma.cuh, mma_ring.cuh) with their lse and delta rows; a Q tile
 //   is rotated in place. S^T = K Q^T and dP^T = V dO^T on mma.sync
-//   m16n8k16 (bf16 in, fp32 out), p = exp(scale s - lse) on the SFU, masks
+//   m16n8k16 (T in, fp32 out), p = exp(scale s - lse) on the SFU, masks
 //   only on tiles that cross the diagonal, a length, the window's edge or
 //   s (flash::tile_cover), tiles a warp sees nothing of skipped, the
 //   dropout hash at each accumulator's absolute (row, col). The dropped p
-//   and ds are rounded to bf16 straight into A fragments
-//   (flash::bf16_fragment), and dV += P^T dO, dK += dS^T Q take dO and Q
+//   and ds are rounded to T straight into A fragments
+//   (flash::fragment16), and dV += P^T dO, dK += dS^T Q take dO and Q
 //   as B fragments by ldmatrix.trans from the same stage. dk and dv are
 //   summed in fp32 across heads and tiles by the tensor cores; dk is
 //   scaled, un-rotated in fp32 through shared memory and rounded once.
 // - dq pass, one block of 4 warps per (head, batch, 64-query tile), the
 //   heaviest causal tiles first: Q (rotated) and dO go into A fragments
 //   once, K and V 64-key tiles come through the ring (K rotated in place);
-//   S = Q K^T and dP = dO V^T on mma.sync, then ds rounded to bf16 as A
+//   S = Q K^T and dP = dO V^T on mma.sync, then ds rounded to T as A
 //   fragments and dq += dS K with K by ldmatrix.trans from the same tile;
 //   dq is scaled, un-rotated and rounded once.
 // Registers are capped at 168 a thread at d <= 64 so that three blocks
@@ -505,12 +510,11 @@ cudaError_t launch_d(const void* qkv, const void* dout, const void* out,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: delta prep, then the dk/dv and dq passes on mma.sync
+// bf16 and fp16: delta prep, then the dk/dv and dq passes on mma.sync
 // ---------------------------------------------------------------------------
 
 namespace flash = apex::flash;
 namespace ring = apex::ring;
-using flash::bf16;
 
 using flash::cp_async4;
 using flash::store_pair;
@@ -535,21 +539,20 @@ struct DkvCfg {
   static_assert(2 * BQ <= kThreads, "a thread a lse or delta row");
 };
 
-template <int DMAX, int WARPS, int BQ, int STAGES, bool VEC>
+template <typename T, int DMAX, int WARPS, int BQ, int STAGES, bool VEC>
 __global__ void __launch_bounds__(
     WARPS * 32, (DkvCfg<DMAX, WARPS, BQ, STAGES>::kMinBlocks))
-flash_packed_dkv_mma(const bf16* __restrict__ qkv,
-                     const bf16* __restrict__ dout,
+flash_packed_dkv_mma(const T* __restrict__ qkv, const T* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, bf16* __restrict__ dqkv,
+                     const float* __restrict__ delta, T* __restrict__ dqkv,
                      const Opts opt) {
   using C = DkvCfg<DMAX, WARPS, BQ, STAGES>;
   constexpr int kKS = DMAX / 16;  // k16 steps over d
   constexpr int kNS = BQ / 8;     // n8 score tiles (queries) a warp
   constexpr int kNO = DMAX / 8;   // n8 output tiles (columns of d) a warp
   extern __shared__ __align__(16) unsigned char fsmem[];
-  bf16* Ks = reinterpret_cast<bf16*>(fsmem);
-  bf16* Vs = Ks + C::kKeys * C::kLd;
+  T* Ks = reinterpret_cast<T*>(fsmem);
+  T* Vs = Ks + C::kKeys * C::kLd;
   unsigned char* ring_smem = fsmem + C::kKV;
 
   const int warp = threadIdx.x / 32;
@@ -584,8 +587,8 @@ flash_packed_dkv_mma(const bf16* __restrict__ qkv,
       const int jh = i / nt;
       const int q0 = (first + i % nt) * BQ;
       const int hh = grp * opt.qpg + jh;
-      bf16* Qs = reinterpret_cast<bf16*>(st);
-      bf16* dOs = Qs + BQ * C::kLd;
+      T* Qs = reinterpret_cast<T*>(st);
+      T* dOs = Qs + BQ * C::kLd;
       float* ls = reinterpret_cast<float*>(dOs + BQ * C::kLd);
       flash::copy_tile<BQ, DMAX, C::kThreads, VEC>(
           Qs, qkv, lay.q(grp, jh, 0, d), lay.row_stride, q0, opt.s, d);
@@ -614,14 +617,14 @@ flash_packed_dkv_mma(const bf16* __restrict__ qkv,
       ring::cp_async_commit();
     }
 
-    const bf16* kw_s = Ks + 16 * warp * C::kLd;
-    const bf16* vw_s = Vs + 16 * warp * C::kLd;
+    const T* kw_s = Ks + 16 * warp * C::kLd;
+    const T* vw_s = Vs + 16 * warp * C::kLd;
     for (int it = 0; it < slices; ++it) {
       ring::cp_async_wait<STAGES - 2>();
       __syncthreads();
       unsigned char* st = ring_smem + (it % STAGES) * C::kStage;
-      const bf16* Qs = reinterpret_cast<const bf16*>(st);
-      const bf16* dOs = Qs + BQ * C::kLd;
+      const T* Qs = reinterpret_cast<const T*>(st);
+      const T* dOs = Qs + BQ * C::kLd;
       const float* ls = reinterpret_cast<const float*>(dOs + BQ * C::kLd);
       const float* dls = ls + BQ;
       const int jh = it / nt;
@@ -630,8 +633,8 @@ flash_packed_dkv_mma(const bf16* __restrict__ qkv,
       if (opt.rot > 0) {
         if (it == 0)
           flash::rope_tile<C::kKeys, C::kThreads>(Ks, C::kLd, k_start, opt);
-        flash::rope_tile<BQ, C::kThreads>(reinterpret_cast<bf16*>(st),
-                                          C::kLd, q0, opt);
+        flash::rope_tile<BQ, C::kThreads>(reinterpret_cast<T*>(st), C::kLd,
+                                          q0, opt);
         __syncthreads();
       }
       const int next = it + STAGES - 1;
@@ -655,7 +658,7 @@ flash_packed_dkv_mma(const bf16* __restrict__ qkv,
         ring::load_b<kNS, false>(fb, Qs, C::kLd, 16 * kk);
 #pragma unroll
         for (int j = 0; j < kNS; ++j)
-          flash::mma_acc(sc[j], a[0], fb[j >> 1][2 * (j & 1)],
+          flash::mma_acc<T>(sc[j], a[0], fb[j >> 1][2 * (j & 1)],
                          fb[j >> 1][2 * (j & 1) + 1]);
       }
 #pragma unroll
@@ -671,7 +674,7 @@ flash_packed_dkv_mma(const bf16* __restrict__ qkv,
           sc[j][e] = flash::fast_exp(x);
         }
       }
-      // 16 queries at a time: dP^T, the dropped p and ds rounded to bf16
+      // 16 queries at a time: dP^T, the dropped p and ds rounded to T
       // into A fragments, dV += P^T dO and dK += dS^T Q
 #pragma unroll
       for (int c = 0; c < kNS / 2; ++c) {
@@ -686,8 +689,8 @@ flash_packed_dkv_mma(const bf16* __restrict__ qkv,
           ring::load_a<1, false>(a, vw_s, C::kLd, 16 * kk);
           unsigned fb[1][4];
           ring::load_b<2, false>(fb, dOs + 16 * c * C::kLd, C::kLd, 16 * kk);
-          flash::mma_acc(dp[0], a[0], fb[0][0], fb[0][1]);
-          flash::mma_acc(dp[1], a[0], fb[0][2], fb[0][3]);
+          flash::mma_acc<T>(dp[0], a[0], fb[0][0], fb[0][1]);
+          flash::mma_acc<T>(dp[1], a[0], fb[0][2], fb[0][3]);
         }
         float pd[2][4];
 #pragma unroll
@@ -710,14 +713,14 @@ flash_packed_dkv_mma(const bf16* __restrict__ qkv,
           }
         }
         unsigned pa[4], sa[4];
-        flash::bf16_fragment<2>(pd, 0, pa);
-        flash::bf16_fragment<2>(dp, 0, sa);
+        flash::fragment16<2, T>(pd, 0, pa);
+        flash::fragment16<2, T>(dp, 0, sa);
         {
           unsigned fb[kNO / 2][4];
           ring::load_b<kNO, true>(fb, dOs, C::kLd, 16 * c);
 #pragma unroll
           for (int j = 0; j < kNO; ++j)
-            flash::mma_acc(dv[j], pa, fb[j >> 1][2 * (j & 1)],
+            flash::mma_acc<T>(dv[j], pa, fb[j >> 1][2 * (j & 1)],
                            fb[j >> 1][2 * (j & 1) + 1]);
         }
         {
@@ -725,7 +728,7 @@ flash_packed_dkv_mma(const bf16* __restrict__ qkv,
           ring::load_b<kNO, true>(fb, Qs, C::kLd, 16 * c);
 #pragma unroll
           for (int j = 0; j < kNO; ++j)
-            flash::mma_acc(dk[j], sa, fb[j >> 1][2 * (j & 1)],
+            flash::mma_acc<T>(dk[j], sa, fb[j >> 1][2 * (j & 1)],
                            fb[j >> 1][2 * (j & 1) + 1]);
         }
       }
@@ -754,8 +757,8 @@ flash_packed_dkv_mma(const bf16* __restrict__ qkv,
   for (int h = 0; h < 2; ++h) {
     const int row = kw0 + g4 + 8 * h;
     if (row >= opt.s) continue;
-    bf16* dk_dst = dqkv + lay.k(grp, opt.qpg, row, d);
-    bf16* dv_dst = dqkv + lay.v(grp, opt.qpg, row, d);
+    T* dk_dst = dqkv + lay.k(grp, opt.qpg, row, d);
+    T* dv_dst = dqkv + lay.v(grp, opt.qpg, row, d);
     const float* r_s = out_s + (g4 + 8 * h) * C::kOutLd;
 #pragma unroll
     for (int j = 0; j < kNO; ++j) {
@@ -787,22 +790,21 @@ struct DqCfg {
   static_assert(kRows * kOutLd * 4 <= kQD, "dq tile fits");
 };
 
-template <int DMAX, int WARPS, int STAGES, bool VEC>
+template <typename T, int DMAX, int WARPS, int STAGES, bool VEC>
 __global__ void __launch_bounds__(WARPS * 32,
                                   (DqCfg<DMAX, WARPS, STAGES>::kMinBlocks))
-flash_packed_dq_mma(const bf16* __restrict__ qkv,
-                    const bf16* __restrict__ dout,
+flash_packed_dq_mma(const T* __restrict__ qkv, const T* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dqkv,
+                    const float* __restrict__ delta, T* __restrict__ dqkv,
                     const Opts opt) {
   using C = DqCfg<DMAX, WARPS, STAGES>;
   constexpr int kKS = DMAX / 16;  // k16 steps over d
   constexpr int kNS = kBK / 8;    // n8 score tiles (keys) a warp
   constexpr int kNO = DMAX / 8;   // n8 output tiles a warp
   extern __shared__ __align__(16) unsigned char fsmem[];
-  bf16* Qs = reinterpret_cast<bf16*>(fsmem);
-  bf16* dOs = Qs + C::kRows * C::kLd;
-  bf16* kv = reinterpret_cast<bf16*>(fsmem + C::kQD);  // the ring's stages
+  T* Qs = reinterpret_cast<T*>(fsmem);
+  T* dOs = Qs + C::kRows * C::kLd;
+  T* kv = reinterpret_cast<T*>(fsmem + C::kQD);  // the ring's stages
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -844,7 +846,7 @@ flash_packed_dq_mma(const bf16* __restrict__ qkv,
     }
     const long long kcol = lay.k(grp, opt.qpg, 0, d);
     const long long vcol = lay.v(grp, opt.qpg, 0, d);
-    auto load_kv = [&](int tile, bf16* stage) {
+    auto load_kv = [&](int tile, T* stage) {
       flash::copy_tile<kBK, DMAX, C::kThreads, VEC>(
           stage, qkv, kcol, lay.row_stride, tile * kBK, opt.s, d);
       flash::copy_tile<kBK, DMAX, C::kThreads, VEC>(
@@ -869,8 +871,8 @@ flash_packed_dq_mma(const bf16* __restrict__ qkv,
     for (int it = 0; it < tiles; ++it) {
       ring::cp_async_wait<STAGES - 2>();
       __syncthreads();
-      bf16* Ks = kv + (it % STAGES) * (C::kStage / 2);
-      const bf16* Vs = Ks + kBK * C::kLd;
+      T* Ks = kv + (it % STAGES) * (C::kStage / 2);
+      const T* Vs = Ks + kBK * C::kLd;
       const int c0 = (first + it) * kBK;
       if (opt.rot > 0) {
         if (it == 0)
@@ -906,7 +908,7 @@ flash_packed_dq_mma(const bf16* __restrict__ qkv,
         ring::load_b<kNS, false>(fb, Ks, C::kLd, 16 * kk);
 #pragma unroll
         for (int j = 0; j < kNS; ++j)
-          flash::mma_acc(sc[j], qf[kk][0], fb[j >> 1][2 * (j & 1)],
+          flash::mma_acc<T>(sc[j], qf[kk][0], fb[j >> 1][2 * (j & 1)],
                          fb[j >> 1][2 * (j & 1) + 1]);
       }
 #pragma unroll
@@ -919,7 +921,7 @@ flash_packed_dq_mma(const bf16* __restrict__ qkv,
           if (cover == flash::kSome && !visible(opt, kvl, row, col)) x = kNeg;
           sc[j][e] = flash::fast_exp(x);
         }
-      // 16 keys at a time: dP, ds rounded to bf16 into an A fragment,
+      // 16 keys at a time: dP, ds rounded to T into an A fragment,
       // dq += dS K
 #pragma unroll
       for (int c = 0; c < kNS / 2; ++c) {
@@ -932,8 +934,8 @@ flash_packed_dq_mma(const bf16* __restrict__ qkv,
         for (int kk = 0; kk < kKS; ++kk) {
           unsigned fb[1][4];
           ring::load_b<2, false>(fb, Vs + 16 * c * C::kLd, C::kLd, 16 * kk);
-          flash::mma_acc(dp[0], df[kk][0], fb[0][0], fb[0][1]);
-          flash::mma_acc(dp[1], df[kk][0], fb[0][2], fb[0][3]);
+          flash::mma_acc<T>(dp[0], df[kk][0], fb[0][0], fb[0][1]);
+          flash::mma_acc<T>(dp[1], df[kk][0], fb[0][2], fb[0][3]);
         }
 #pragma unroll
         for (int j = 0; j < 2; ++j)
@@ -949,12 +951,12 @@ flash_packed_dq_mma(const bf16* __restrict__ qkv,
             dp[j][e] = sc[2 * c + j][e] * (dpv - delta_r[e >> 1]);  // ds
           }
         unsigned sa[4];
-        flash::bf16_fragment<2>(dp, 0, sa);
+        flash::fragment16<2, T>(dp, 0, sa);
         unsigned fb[kNO / 2][4];
         ring::load_b<kNO, true>(fb, Ks, C::kLd, 16 * c);
 #pragma unroll
         for (int j = 0; j < kNO; ++j)
-          flash::mma_acc(dq[j], sa, fb[j >> 1][2 * (j & 1)],
+          flash::mma_acc<T>(dq[j], sa, fb[j >> 1][2 * (j & 1)],
                          fb[j >> 1][2 * (j & 1) + 1]);
       }
     }
@@ -981,7 +983,7 @@ flash_packed_dq_mma(const bf16* __restrict__ qkv,
   for (int h = 0; h < 2; ++h) {
     const int row = r0 + g4 + 8 * h;
     if (row >= opt.s) continue;
-    bf16* dst = dqkv + lay.q(grp, hh % opt.qpg, row, d);
+    T* dst = dqkv + lay.q(grp, hh % opt.qpg, row, d);
     const float* r_s = out_s + (g4 + 8 * h) * C::kOutLd;
 #pragma unroll
     for (int j = 0; j < kNO; ++j) {
@@ -1001,7 +1003,7 @@ flash_packed_dq_mma(const bf16* __restrict__ qkv,
 // dk/dv ring, at 128 of 32 (the score tiles' registers beside dk and dv).
 // 16-byte copies need every row start (a multiple of d past a 16-byte
 // aligned base) on a 16-byte boundary.
-template <int DMAX>
+template <typename T, int DMAX>
 cudaError_t launch_mma(const void* qkv, const void* dout, const void* out,
                        float* delta, const float* lse, void* dqkv,
                        const Opts& opt, cudaStream_t stream) {
@@ -1012,10 +1014,10 @@ cudaError_t launch_mma(const void* qkv, const void* dout, const void* out,
   constexpr int kBQ = DMAX <= 64 ? 64 : 32;
   using KvC = DkvCfg<DMAX, kDkvWarps, kBQ, kDkvStages>;
   using QC = DqCfg<DMAX, kDqWarps, kDqStages>;
-  const auto* x = static_cast<const bf16*>(qkv);
-  const auto* dy = static_cast<const bf16*>(dout);
-  const auto* y = static_cast<const bf16*>(out);
-  auto* dx = static_cast<bf16*>(dqkv);
+  const auto* x = static_cast<const T*>(qkv);
+  const auto* dy = static_cast<const T*>(dout);
+  const auto* y = static_cast<const T*>(out);
+  auto* dx = static_cast<T*>(dqkv);
   const int heads = opt.groups * opt.qpg;
   const bool vec = opt.d % 8 == 0 &&
                    reinterpret_cast<unsigned long long>(qkv) % 16 == 0 &&
@@ -1027,10 +1029,10 @@ cudaError_t launch_mma(const void* qkv, const void* dout, const void* out,
       opt.b * heads, opt.s, opt.d, vec_o, stream);
   if (err != cudaSuccess) return err;
   auto dkv =
-      vec ? flash_packed_dkv_mma<DMAX, kDkvWarps, kBQ, kDkvStages, true>
-          : flash_packed_dkv_mma<DMAX, kDkvWarps, kBQ, kDkvStages, false>;
-  auto dq = vec ? flash_packed_dq_mma<DMAX, kDqWarps, kDqStages, true>
-                : flash_packed_dq_mma<DMAX, kDqWarps, kDqStages, false>;
+      vec ? flash_packed_dkv_mma<T, DMAX, kDkvWarps, kBQ, kDkvStages, true>
+          : flash_packed_dkv_mma<T, DMAX, kDkvWarps, kBQ, kDkvStages, false>;
+  auto dq = vec ? flash_packed_dq_mma<T, DMAX, kDqWarps, kDqStages, true>
+                : flash_packed_dq_mma<T, DMAX, kDqWarps, kDqStages, false>;
   err = apex::allow_smem(dkv, KvC::bytes);
   if (err != cudaSuccess) return err;
   err = apex::allow_smem(dq, QC::bytes);
@@ -1047,21 +1049,24 @@ cudaError_t launch_mma(const void* qkv, const void* dout, const void* out,
   return cudaGetLastError();
 }
 
-cudaError_t launch_bf16(const void* qkv, const void* dout, const void* out,
-                        const float* lse, float* delta, void* dqkv,
-                        const Opts& opt, cudaStream_t stream) {
+// the bf16 and fp16 paths
+template <typename T>
+cudaError_t launch_16(const void* qkv, const void* dout, const void* out,
+                      const float* lse, float* delta, void* dqkv,
+                      const Opts& opt, cudaStream_t stream) {
   if (opt.d <= 64)
-    return launch_mma<64>(qkv, dout, out, delta, lse, dqkv, opt, stream);
+    return launch_mma<T, 64>(qkv, dout, out, delta, lse, dqkv, opt, stream);
   if (opt.d <= 128)
-    return launch_mma<128>(qkv, dout, out, delta, lse, dqkv, opt, stream);
+    return launch_mma<T, 128>(qkv, dout, out, delta, lse, dqkv, opt, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // qkv and dqkv [s, b, groups * (qpg + 2) * d]; dout and out
-// [s, b, groups * qpg * d]; lse and the delta scratch [b, groups * qpg, s]
-// fp32; all contiguous. kv_lengths, cos/sin and seed as in
+// [s, b, groups * qpg * d], all four of one dtype (f32, bf16 or fp16;
+// another code is cudaErrorInvalidValue); lse and the delta scratch
+// [b, groups * qpg, s] fp32; all contiguous. kv_lengths, cos/sin and seed as in
 // apex_flash_packed_fwd, and the same values the forward was given.
 extern "C" int apex_flash_packed_bwd(const void* qkv, const void* dout,
                                      const void* out, const void* lse,
@@ -1080,9 +1085,12 @@ extern "C" int apex_flash_packed_bwd(const void* qkv, const void* dout,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  cudaError_t err =
-      dtype == apex::kBF16
-          ? launch_bf16(qkv, dout, out, l, dl, dqkv, opt, st)
-          : launch_d<float>(qkv, dout, out, l, dl, dqkv, opt, st);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == apex::kBF16)
+    err = launch_16<__nv_bfloat16>(qkv, dout, out, l, dl, dqkv, opt, st);
+  else if (dtype == apex::kF16)
+    err = launch_16<__half>(qkv, dout, out, l, dl, dqkv, opt, st);
+  else if (dtype == apex::kF32)
+    err = launch_d<float>(qkv, dout, out, l, dl, dqkv, opt, st);
   return static_cast<int>(err);
 }

@@ -25,8 +25,9 @@
 // and lse (15 us at 3.35 TB/s): about even, so the kernel has to keep
 // the tensor cores fed and read each K/V tile once per query tile.
 //
-// bf16 (the path the models train on): one block of 8 warps per (head,
-// batch, 128-row query tile), the tiles that see the most keys launched
+// bf16 and fp16 (the paths the models train on; one template over the
+// 16-bit type T): one block of 8 warps per (head, batch, 128-row query
+// tile), the tiles that see the most keys launched
 // first under a causal mask so that the last wave is short. Each warp
 // owns 16 query rows:
 // - the Q tile comes in by cp.async (16 bytes a copy from the packed row;
@@ -36,22 +37,34 @@
 // - K and V tiles of 64 keys come through a cp.async ring (3 stages at
 //   d <= 64, 2 at 128; flash_mma.cuh, mma_ring.cuh), one barrier a tile;
 //   a K tile is rotated in place;
-// - S = Q K^T on mma.sync m16n8k16 (bf16 in, fp32 out), scaled in fp32;
+// - S = Q K^T on mma.sync m16n8k16 (T in, fp32 out), scaled in fp32;
 //   masks only on tiles that cross the diagonal, kv_length, the window's
 //   edge or s, and tiles a warp sees nothing of are skipped;
 // - the online softmax in registers (row max and sum over a quad's lanes,
 //   exp on the SFU's exp2, no per-score mask test: a masked score's exp
 //   is 0 by itself), l from the undropped p, the dropout hash at each
 //   accumulator's absolute (row, col);
-// - P V: the dropped fp32 p is split into bf16 hi + lo, packed straight
+// - P V: the dropped fp32 p is split into T hi + lo, packed straight
 //   from the S accumulators into A fragments, and multiplied with the same
 //   V fragments (ldmatrix.trans) twice, so that o keeps p to about 2^-16
-//   of itself and holds 1 bf16 ulp of the plain version (one bf16 p would
-//   miss it by tens of ulps at s 1024). The lo product adds half the
+//   of itself and holds 1 ulp of the plain version (one bf16 p would miss
+//   it by tens of ulps at s 1024). The lo product adds half the
 //   tensor-core work: 6 d a visible pair in place of 4 d;
+// - fp16 takes the same split, chosen over one fp16 p by the CPU
+//   emulations in tests/test_torch_fp16.py
+//   (`test_kernel_e_fp16_rounding_plan_holds_one_ulp`,
+//   `test_kernel_e_single_fp16_p_misses_one_ulp`): one fp16 p misses 1
+//   fp16 ulp of the plain version by tens of ulps at s 1024, the split
+//   holds it. fp16's exponent is the narrow
+//   one: lo = p - hi is about 2^-11 hi, so for p below 2^-3 it would
+//   fall into fp16's subnormals and lose its low bits. The dropped p is
+//   therefore scaled by 2^(14 - e) before the split, e = ilogb(1 / (1 -
+//   rate)) (2^14 without dropout): a power of two, exact in fp32, that
+//   keeps hi below 2^15 (no overflow) and lo normal down to p ~ 2^-17;
+//   o = acc / l is scaled back by its inverse before the one rounding;
 // - the tensor cores carry the sums of S and o across the products (an
 //   fp32 add after each product, as mma_ring.cuh does, cost 7% at the
-//   GPT-2 shape); o = acc / l is rounded once to bf16.
+//   GPT-2 shape); o = acc / l is rounded once to T.
 // Registers are capped at 128 a thread at d <= 64 so that two blocks fit
 // an SM: the kernel waits on latency (ldmatrix, mma, exp) more than on
 // any one unit, and 16 resident warps beat the few bytes it spills.
@@ -69,6 +82,8 @@
 // in shared memory as fp32; the block walks the visible 64-key tiles with
 // an online softmax, S = Q K^T and P V in fp32 FMA, each thread owning a
 // 4 x (DMAX / 16) output tile.
+#include <type_traits>
+
 #include "flash_mma.cuh"
 #include "packed_attention.cuh"
 
@@ -281,14 +296,14 @@ cudaError_t launch_d(const void* qkv, void* o, float* lse, const Opts& opt,
   return cudaErrorInvalidValue;
 }
 
-// The bf16 kernel: WARPS warps of 16 query rows, key tiles of kBK through
-// a ring of STAGES (K, V) stages.
+// The 16-bit kernel: WARPS warps of 16 query rows, key tiles of kBK
+// through a ring of STAGES (K, V) stages.
 template <int DMAX, int WARPS, int STAGES>
 struct MmaCfg {
   static constexpr int kThreads = WARPS * 32;
   static constexpr int kRows = WARPS * 16;  // query rows a block
   static constexpr int kLd = flash::Tile<DMAX>::kLd;
-  static constexpr int kStage = 2 * kBK * kLd;  // K then V, in bf16
+  static constexpr int kStage = 2 * kBK * kLd;  // K then V, 16-bit
   static constexpr size_t bytes = (kRows * kLd + STAGES * kStage) * 2;
   // two blocks an SM at d <= 64 (registers capped at 128 a thread): the
   // kernel waits on latency more than on any one unit, so occupancy wins
@@ -296,20 +311,19 @@ struct MmaCfg {
   static constexpr int kMinBlocks = DMAX <= 64 ? 2 : 1;
 };
 
-template <int DMAX, int WARPS, int STAGES, bool VEC>
+template <typename T, int DMAX, int WARPS, int STAGES, bool VEC>
 __global__ void __launch_bounds__(WARPS * 32,
                                   (MmaCfg<DMAX, WARPS, STAGES>::kMinBlocks))
-flash_packed_fwd_mma(const __nv_bfloat16* __restrict__ qkv,
-                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                     const Opts opt) {
+flash_packed_fwd_mma(const T* __restrict__ qkv, T* __restrict__ o,
+                     float* __restrict__ lse, const Opts opt) {
   using C = MmaCfg<DMAX, WARPS, STAGES>;
-  using flash::bf16;
+  constexpr bool kF16 = std::is_same<T, __half>::value;
   constexpr int kKS = DMAX / 16;  // k16 steps of Q K^T
   constexpr int kNS = kBK / 8;    // n8 score tiles a warp
   constexpr int kNO = DMAX / 8;   // n8 output tiles a warp
   extern __shared__ __align__(16) unsigned char fsmem[];
-  bf16* Qs = reinterpret_cast<bf16*>(fsmem);
-  bf16* kv = Qs + C::kRows * C::kLd;  // the ring's stages
+  T* Qs = reinterpret_cast<T*>(fsmem);
+  T* kv = Qs + C::kRows * C::kLd;  // the ring's stages
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -333,6 +347,11 @@ flash_packed_fwd_mma(const __nv_bfloat16* __restrict__ qkv,
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
   float m[2] = {kNeg, kNeg};
   float l[2] = {0.f, 0.f};
+  // fp16: the dropped p scaled by 2^(14 - e) before its split, o by the
+  // inverse after it (above); both exact powers of two
+  const int p_exp = kF16 ? 14 - ilogbf(opt.inv_keep) : 0;
+  const float p_scale = ldexpf(1.f, p_exp);
+  const float o_scale = ldexpf(1.f, -p_exp);
 
   if (tiles > 0) {
     const bool drop = opt.seed != nullptr;
@@ -340,7 +359,7 @@ flash_packed_fwd_mma(const __nv_bfloat16* __restrict__ qkv,
     const unsigned cmb = combo(bb, hh);
     const long long kcol = lay.k(g, opt.qpg, 0, d);
     const long long vcol = lay.v(g, opt.qpg, 0, d);
-    auto load_kv = [&](int tile, bf16* stage) {
+    auto load_kv = [&](int tile, T* stage) {
       flash::copy_tile<kBK, DMAX, C::kThreads, VEC>(
           stage, qkv, kcol, lay.row_stride, tile * kBK, opt.s, d);
       flash::copy_tile<kBK, DMAX, C::kThreads, VEC>(
@@ -363,8 +382,8 @@ flash_packed_fwd_mma(const __nv_bfloat16* __restrict__ qkv,
     for (int it = 0; it < tiles; ++it) {
       ring::cp_async_wait<STAGES - 2>();
       __syncthreads();
-      bf16* Ks = kv + (it % STAGES) * C::kStage;
-      bf16* Vs = Ks + kBK * C::kLd;
+      T* Ks = kv + (it % STAGES) * C::kStage;
+      T* Vs = Ks + kBK * C::kLd;
       const int c0 = (first + it) * kBK;
       if (opt.rot > 0) {
         if (it == 0)
@@ -397,8 +416,8 @@ flash_packed_fwd_mma(const __nv_bfloat16* __restrict__ qkv,
         ring::load_b<kNS, false>(fb, Ks, C::kLd, 16 * kk);
 #pragma unroll
         for (int j = 0; j < kNS; ++j)
-          flash::mma_acc(sc[j], qf[kk][0], fb[j >> 1][2 * (j & 1)],
-                         fb[j >> 1][2 * (j & 1) + 1]);
+          flash::mma_acc<T>(sc[j], qf[kk][0], fb[j >> 1][2 * (j & 1)],
+                            fb[j >> 1][2 * (j & 1) + 1]);
       }
 #pragma unroll
       for (int j = 0; j < kNS; ++j)
@@ -421,19 +440,25 @@ flash_packed_fwd_mma(const __nv_bfloat16* __restrict__ qkv,
                            ? sc[j][e] * opt.inv_keep : 0.f;
           }
       }
+      if (kF16) {
+#pragma unroll
+        for (int j = 0; j < kNS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[j][e] *= p_scale;
+      }
       // acc += p_hi V + p_lo V
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
         unsigned hi[4], lo[4];
-        flash::p_fragments<kNS>(sc, kk, hi, lo);
+        flash::p_fragments<kNS, T>(sc, kk, hi, lo);
         unsigned fb[kNO / 2][4];
         ring::load_b<kNO, true>(fb, Vs, C::kLd, 16 * kk);
 #pragma unroll
         for (int j = 0; j < kNO; ++j) {
-          flash::mma_acc(acc[j], hi, fb[j >> 1][2 * (j & 1)],
-                         fb[j >> 1][2 * (j & 1) + 1]);
-          flash::mma_acc(acc[j], lo, fb[j >> 1][2 * (j & 1)],
-                         fb[j >> 1][2 * (j & 1) + 1]);
+          flash::mma_acc<T>(acc[j], hi, fb[j >> 1][2 * (j & 1)],
+                            fb[j >> 1][2 * (j & 1) + 1]);
+          flash::mma_acc<T>(acc[j], lo, fb[j >> 1][2 * (j & 1)],
+                            fb[j >> 1][2 * (j & 1) + 1]);
         }
       }
     }
@@ -446,19 +471,17 @@ flash_packed_fwd_mma(const __nv_bfloat16* __restrict__ qkv,
     const int row = r0 + lane / 4 + 8 * h;
     if (row >= opt.s) continue;
     const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
-    bf16* orow = o + out_index(opt, bb, hh, row);
+    T* orow = o + out_index(opt, bb, hh, row);
 #pragma unroll
     for (int j = 0; j < kNO; ++j) {
       const int col = 8 * j + 2 * (lane % 4);
-      const float x = acc[j][2 * h] * inv;
-      const float y = acc[j][2 * h + 1] * inv;
-      if (col + 1 < d && (d & 1) == 0) {
-        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-            __floats2bfloat162_rn(x, y);
-      } else {
-        if (col < d) orow[col] = __float2bfloat16(x);
-        if (col + 1 < d) orow[col + 1] = __float2bfloat16(y);
+      float x = acc[j][2 * h] * inv;
+      float y = acc[j][2 * h + 1] * inv;
+      if (kF16) {
+        x *= o_scale;
+        y *= o_scale;
       }
+      flash::store_pair(orow, col, d, x, y);
     }
     if (lane % 4 == 0)
       lse[(static_cast<long long>(bb) * heads + hh) * opt.s + row] =
@@ -466,47 +489,49 @@ flash_packed_fwd_mma(const __nv_bfloat16* __restrict__ qkv,
   }
 }
 
-template <int DMAX, int WARPS, int STAGES, bool VEC>
+template <typename T, int DMAX, int WARPS, int STAGES, bool VEC>
 cudaError_t launch_mma(const void* qkv, void* o, float* lse, const Opts& opt,
                        cudaStream_t stream) {
   using C = MmaCfg<DMAX, WARPS, STAGES>;
-  auto kernel = flash_packed_fwd_mma<DMAX, WARPS, STAGES, VEC>;
+  auto kernel = flash_packed_fwd_mma<T, DMAX, WARPS, STAGES, VEC>;
   cudaError_t err = apex::allow_smem(kernel, C::bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(opt.groups * opt.qpg, opt.b,
                   (opt.s + C::kRows - 1) / C::kRows);
   kernel<<<grid, C::kThreads, C::bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv),
-      static_cast<__nv_bfloat16*>(o), lse, opt);
+      static_cast<const T*>(qkv), static_cast<T*>(o), lse, opt);
   return cudaGetLastError();
 }
 
 // 8 warps (128 query rows a block); 3 ring stages at d <= 64, 2 at 128.
 // 16-byte copies need every row start (a multiple of d past a 16-byte
 // aligned base) on a 16-byte boundary.
-template <int DMAX>
+template <typename T, int DMAX>
 cudaError_t launch_mma_vec(const void* qkv, void* o, float* lse,
                            const Opts& opt, cudaStream_t stream) {
   constexpr int kWarps = 8;
   constexpr int kStages = DMAX <= 64 ? 3 : 2;
   const bool vec = opt.d % 8 == 0 &&
                    reinterpret_cast<unsigned long long>(qkv) % 16 == 0;
-  return vec ? launch_mma<DMAX, kWarps, kStages, true>(qkv, o, lse, opt,
-                                                        stream)
-             : launch_mma<DMAX, kWarps, kStages, false>(qkv, o, lse, opt,
-                                                         stream);
+  return vec ? launch_mma<T, DMAX, kWarps, kStages, true>(qkv, o, lse, opt,
+                                                           stream)
+             : launch_mma<T, DMAX, kWarps, kStages, false>(qkv, o, lse, opt,
+                                                            stream);
 }
 
-cudaError_t launch_bf16(const void* qkv, void* o, float* lse, const Opts& opt,
-                        cudaStream_t stream) {
-  if (opt.d <= 64) return launch_mma_vec<64>(qkv, o, lse, opt, stream);
-  if (opt.d <= 128) return launch_mma_vec<128>(qkv, o, lse, opt, stream);
+// the bf16 and fp16 paths
+template <typename T>
+cudaError_t launch_16(const void* qkv, void* o, float* lse, const Opts& opt,
+                      cudaStream_t stream) {
+  if (opt.d <= 64) return launch_mma_vec<T, 64>(qkv, o, lse, opt, stream);
+  if (opt.d <= 128) return launch_mma_vec<T, 128>(qkv, o, lse, opt, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// qkv [s, b, groups * (qpg + 2) * d], o [s, b, groups * qpg * d],
+// qkv [s, b, groups * (qpg + 2) * d], o [s, b, groups * qpg * d] of one
+// dtype (f32, bf16 or fp16; another code is cudaErrorInvalidValue),
 // lse [b, groups * qpg, s] fp32, all contiguous. kv_lengths [b] int32,
 // cos/sin [s, d] fp32 and seed [1] int32 may each be null (feature off).
 extern "C" int apex_flash_packed_fwd(const void* qkv, void* o, void* lse,
@@ -523,8 +548,12 @@ extern "C" int apex_flash_packed_fwd(const void* qkv, void* o, void* lse,
                  causal, window, rot, keep_thresh, inv_keep};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  cudaError_t err = dtype == apex::kBF16
-                        ? launch_bf16(qkv, o, l, opt, st)
-                        : launch_d<float>(qkv, o, l, opt, st);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == apex::kBF16)
+    err = launch_16<__nv_bfloat16>(qkv, o, l, opt, st);
+  else if (dtype == apex::kF16)
+    err = launch_16<__half>(qkv, o, l, opt, st);
+  else if (dtype == apex::kF32)
+    err = launch_d<float>(qkv, o, l, opt, st);
   return static_cast<int>(err);
 }

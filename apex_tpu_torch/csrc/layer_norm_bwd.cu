@@ -7,8 +7,10 @@
 // forward's fp32 statistics (mean 0 for RMSNorm); dyw = dy * w (or dy);
 // c1 = sum(dyw) / h, c2 = sum(dyw * xhat) / h;
 // dx = invvar * (dyw - c1 - xhat * c2), RMSNorm without c1; dx is rounded
-// once to x's type. dw = sum over rows of dy * xhat and db = sum of dy,
-// both fp32 (the caller casts them to the weight's type).
+// once to x's type (to inf past fp16's 65504). dw = sum over rows of
+// dy * xhat and db = sum of dy, both fp32 (the caller casts them to the
+// weight's type once, where under a large loss scale an fp16 weight's
+// gradient overflows to inf exactly where the plain version's does).
 //
 // What does not carry over: the TPU kernel accumulates dw/db into one
 // (8, hp) block that every grid step revisits, which relies on the grid
@@ -22,8 +24,9 @@
 // bf16) pass 1 reads dy and x once and writes dx (37.7 MB, 11.3 us at
 // 3.35 TB/s) against ~12 fp32 operations per element.
 //
-// bf16 dy and x with h % 8 == 0, h <= 1024 and 16-byte aligned dy, x, dx
-// and w (ops/layer_norm.py `layer_norm_bwd_plan`): the 16-byte kernel.
+// bf16 or fp16 dy and x (one type) with h % 8 == 0, h <= 1024 and
+// 16-byte aligned dy, x, dx and w (ops/layer_norm.py
+// `layer_norm_bwd_plan`): the 16-byte kernel.
 // A lane holds its pieces of a row's dy and x in registers, still packed
 // (layer_norm_vec.cuh; 3 a lane at h = 768), sums c1 and c2 by shuffles
 // and forms dx from the same registers: dy and x are read once, dx
@@ -42,6 +45,11 @@
 // 128 registers that keep two blocks an SM, leaving one row of loads in
 // flight a warp (a second row prefetched cost the second block, slower).
 //
+// The dtypes (dy, x, w) instantiated, on both paths: dy and w each f32
+// or the 16-bit type x pairs with (apex::Pair16: bf16 for f32 or bf16 x,
+// fp16 for fp16 x; an absent w counts as f32); the 16-byte kernel also
+// needs dy of x's type. Another triple is cudaErrorInvalidValue.
+//
 // Other cases (f32, mixed dy/x types, other h, unaligned rows): one block
 // of up to 8 warps per 32 rows; a warp owns a row at a time, lane i the
 // columns i, i + 32, ... The row's sums are warp shuffles; the second
@@ -56,6 +64,7 @@
 namespace {
 
 using ln::bf16;
+using ln::f16;
 using ln::kVecThreads;
 using ln::kVecWarps;
 
@@ -149,12 +158,12 @@ layer_norm_bwd_reduce(const float* __restrict__ partial, float* __restrict__ dw,
 // The 16-byte path's arguments: one struct for every instance, so that one
 // function pointer type serves the launch and the occupancy query.
 struct VecArgs {
-  const bf16* dy;
-  const bf16* x;
+  const void* dy;    // T (bf16 or fp16), as x and dx
+  const void* x;
   const float* mean;
   const float* invvar;
   const void* w;     // TW, null without affine
-  bf16* dx;
+  void* dx;
   float* partial;    // [gridDim.x, 2, h] fp32, null without affine
   int m;
   int h;
@@ -165,7 +174,7 @@ struct VecArgs {
 
 // a lane's pieces of dy and x of `row` and the row's statistics (zeros
 // past the block's rows or the row's pieces)
-template <int PPL>
+template <int PPL, typename T>
 __device__ __forceinline__ void load_row(uint4 (&dv)[PPL], uint4 (&xv)[PPL],
                                          float& mu, float& iv,
                                          const VecArgs& a, int row,
@@ -177,17 +186,17 @@ __device__ __forceinline__ void load_row(uint4 (&dv)[PPL], uint4 (&xv)[PPL],
     const int p = li + a.lanes * i;
     dv[i] = xv[i] = make_uint4(0u, 0u, 0u, 0u);
     if (live && p < a.h / 8) {
-      dv[i] = ln::load_piece(a.dy + off + 8 * p);
-      xv[i] = ln::load_piece(a.x + off + 8 * p);
+      dv[i] = ln::load_piece(static_cast<const T*>(a.dy) + off + 8 * p);
+      xv[i] = ln::load_piece(static_cast<const T*>(a.x) + off + 8 * p);
     }
   }
   mu = live && !a.is_rms ? a.mean[row] : 0.f;
   iv = live ? a.invvar[row] : 0.f;
 }
 
-// bf16 dy and x on 16-byte pieces; AFF 0: no weight, 1: a weight (dw),
-// 2: a weight and a bias (dw and db). PPL pieces a lane at most.
-template <int PPL, typename TW, int AFF>
+// 16-bit dy and x (T) on 16-byte pieces; AFF 0: no weight, 1: a weight
+// (dw), 2: a weight and a bias (dw and db). PPL pieces a lane at most.
+template <int PPL, typename T, typename TW, int AFF>
 __global__ void __launch_bounds__(kVecThreads)
 layer_norm_bwd_vec_kernel(const VecArgs a) {
   extern __shared__ float4 red4[];  // [kVecWarps][2h / 4], at the end only
@@ -229,15 +238,15 @@ layer_norm_bwd_vec_kernel(const VecArgs a) {
     const long long off = static_cast<long long>(live ? row : 0) * h;
     uint4 dv[PPL], xv[PPL];
     float mu, iv;
-    load_row<PPL>(dv, xv, mu, iv, a, row, row_end, li);
+    load_row<PPL, T>(dv, xv, mu, iv, a, row, row_end, li);
     // an empty piece has d = 0: it adds nothing below
     float s1 = 0.f;
     float s2 = 0.f;
 #pragma unroll
     for (int i = 0; i < PPL; ++i) {
       float d[8], xh[8], wf[8];
-      ln::unpack(dv[i], d);
-      ln::unpack(xv[i], xh);
+      ln::unpack<T>(dv[i], d);
+      ln::unpack<T>(xv[i], xh);
       if constexpr (AFF > 0) ln::expand(wv[i], wf);
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
@@ -257,8 +266,8 @@ layer_norm_bwd_vec_kernel(const VecArgs a) {
       const int p = li + lanes * i;
       if (!(live && p < pieces)) continue;
       float d[8], xh[8], wf[8], out[8];
-      ln::unpack(dv[i], d);
-      ln::unpack(xv[i], xh);
+      ln::unpack<T>(dv[i], d);
+      ln::unpack<T>(xv[i], xh);
       if constexpr (AFF > 0) ln::expand(wv[i], wf);
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
@@ -267,7 +276,7 @@ layer_norm_bwd_vec_kernel(const VecArgs a) {
         if constexpr (AFF > 0) g *= wf[e];
         out[e] = iv * (g - c1 - xhat * c2);
       }
-      ln::store8(a.dx + off + 8 * p, out);
+      ln::store8(static_cast<T*>(a.dx) + off + 8 * p, out);
     }
   }
   if constexpr (AFF > 0) {
@@ -363,23 +372,32 @@ layer_norm_bwd_strip_sum(const float* __restrict__ partial,
 
 using VecKernel = void (*)(VecArgs);
 
-template <int PPL>
-VecKernel vec_kernel_of(int w_dtype, int affine) {
-  if (affine == 0) return layer_norm_bwd_vec_kernel<PPL, float, 0>;
-  if (w_dtype == apex::kBF16)
-    return affine == 1 ? layer_norm_bwd_vec_kernel<PPL, bf16, 1>
-                       : layer_norm_bwd_vec_kernel<PPL, bf16, 2>;
-  return affine == 1 ? layer_norm_bwd_vec_kernel<PPL, float, 1>
-                     : layer_norm_bwd_vec_kernel<PPL, float, 2>;
+template <int PPL, typename T>
+VecKernel vec_kernel_w(int w_dtype, int affine) {
+  if (affine == 0) return layer_norm_bwd_vec_kernel<PPL, T, float, 0>;
+  if (w_dtype == apex::Half16<T>::kCode)
+    return affine == 1 ? layer_norm_bwd_vec_kernel<PPL, T, T, 1>
+                       : layer_norm_bwd_vec_kernel<PPL, T, T, 2>;
+  if (w_dtype == apex::kF32)
+    return affine == 1 ? layer_norm_bwd_vec_kernel<PPL, T, float, 1>
+                       : layer_norm_bwd_vec_kernel<PPL, T, float, 2>;
+  return nullptr;
 }
 
-// null for a piece count the plan never gives
-VecKernel vec_kernel(int pieces, int w_dtype, int affine) {
+template <int PPL>
+VecKernel vec_kernel_of(int x_dtype, int w_dtype, int affine) {
+  if (x_dtype == apex::kBF16) return vec_kernel_w<PPL, bf16>(w_dtype, affine);
+  if (x_dtype == apex::kF16) return vec_kernel_w<PPL, f16>(w_dtype, affine);
+  return nullptr;
+}
+
+// null for a piece count the plan never gives or dtypes not instantiated
+VecKernel vec_kernel(int pieces, int x_dtype, int w_dtype, int affine) {
   switch (pieces) {
-    case 1: return vec_kernel_of<1>(w_dtype, affine);
-    case 2: return vec_kernel_of<2>(w_dtype, affine);
-    case 3: return vec_kernel_of<3>(w_dtype, affine);
-    case 4: return vec_kernel_of<4>(w_dtype, affine);
+    case 1: return vec_kernel_of<1>(x_dtype, w_dtype, affine);
+    case 2: return vec_kernel_of<2>(x_dtype, w_dtype, affine);
+    case 3: return vec_kernel_of<3>(x_dtype, w_dtype, affine);
+    case 4: return vec_kernel_of<4>(x_dtype, w_dtype, affine);
     default: return nullptr;
   }
 }
@@ -405,18 +423,17 @@ struct LnBwdArgs {
   int block_rows;  // consecutive rows a pass-1 block takes
 };
 
-cudaError_t launch_vec(const LnBwdArgs& a, int w_dtype, int pieces, int lanes,
-                       cudaStream_t stream) {
+cudaError_t launch_vec(const LnBwdArgs& a, int x_dtype, int w_dtype,
+                       int pieces, int lanes, cudaStream_t stream) {
   const int affine = a.partial == nullptr ? 0 : (a.db != nullptr ? 2 : 1);
-  const VecKernel kernel = vec_kernel(pieces, w_dtype, affine);
+  const VecKernel kernel = vec_kernel(pieces, x_dtype, w_dtype, affine);
   if (kernel == nullptr) return cudaErrorInvalidValue;
   const size_t smem = vec_smem(a.h, affine);
   cudaError_t err = apex::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<a.n_blocks, kVecThreads, smem, stream>>>(VecArgs{
-      static_cast<const bf16*>(a.dy), static_cast<const bf16*>(a.x), a.mean,
-      a.invvar, a.w, static_cast<bf16*>(a.dx), a.partial, a.m, a.h,
-      a.is_rms, lanes, a.block_rows});
+      a.dy, a.x, a.mean, a.invvar, a.w, a.dx, a.partial, a.m, a.h, a.is_rms,
+      lanes, a.block_rows});
   err = cudaGetLastError();
   if (err != cudaSuccess || affine == 0) return err;
   const int cols = affine == 2 ? 2 * a.h : a.h;
@@ -455,26 +472,33 @@ cudaError_t launch(const LnBwdArgs& a, cudaStream_t stream) {
 
 template <typename TDY, typename TX>
 cudaError_t launch_w(const LnBwdArgs& a, int w_dtype, cudaStream_t stream) {
-  return w_dtype == apex::kBF16 ? launch<TDY, TX, __nv_bfloat16>(a, stream)
-                                : launch<TDY, TX, float>(a, stream);
+  using H = typename apex::Pair16<TX>::type;
+  if (w_dtype == apex::kF32) return launch<TDY, TX, float>(a, stream);
+  if (w_dtype == apex::Half16<H>::kCode) return launch<TDY, TX, H>(a, stream);
+  return cudaErrorInvalidValue;
 }
 
-template <typename TDY>
-cudaError_t launch_x(const LnBwdArgs& a, int x_dtype, int w_dtype,
-                     cudaStream_t stream) {
-  return x_dtype == apex::kBF16 ? launch_w<TDY, __nv_bfloat16>(a, w_dtype, stream)
-                                : launch_w<TDY, float>(a, w_dtype, stream);
+template <typename TX>
+cudaError_t launch_dy(const LnBwdArgs& a, int dy_dtype, int w_dtype,
+                      cudaStream_t stream) {
+  using H = typename apex::Pair16<TX>::type;
+  if (dy_dtype == apex::kF32) return launch_w<float, TX>(a, w_dtype, stream);
+  if (dy_dtype == apex::Half16<H>::kCode)
+    return launch_w<H, TX>(a, w_dtype, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // The plan (ops/layer_norm.py `layer_norm_bwd_plan`) gives the path and
 // the grid: `pieces` > 0 is the 16-byte kernel with `pieces` a lane and
-// `lanes` lanes a row (bf16 dy and x), 0 the element kernel; pass-1 block
+// `lanes` lanes a row (16-bit dy and x of one type), 0 the element kernel;
+// pass-1 block
 // b takes rows [b * block_rows, (b + 1) * block_rows), and the caller
 // sizes `partial` as [n_blocks, 2, h] fp32. w may be null (non-affine:
-// partial, dw and db are null too); db is null without a bias. All
-// tensors contiguous.
+// partial, dw and db are null too; w_dtype 0); db is null without a bias.
+// All tensors contiguous. Dtype triples off the list above return
+// cudaErrorInvalidValue.
 extern "C" int apex_layer_norm_bwd(const void* dy, const void* x,
                                    const void* mean, const void* invvar,
                                    const void* w, void* dx, void* partial,
@@ -487,21 +511,27 @@ extern "C" int apex_layer_norm_bwd(const void* dy, const void* x,
               static_cast<float*>(partial), static_cast<float*>(dw),
               static_cast<float*>(db), m, h, is_rms, n_blocks, block_rows};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (pieces > 0)
-    return static_cast<int>(launch_vec(a, w_dtype, pieces, lanes, s));
-  cudaError_t err = dy_dtype == apex::kBF16
-                        ? launch_x<__nv_bfloat16>(a, x_dtype, w_dtype, s)
-                        : launch_x<float>(a, x_dtype, w_dtype, s);
+  if (pieces > 0) {
+    if (dy_dtype != x_dtype) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_vec(a, x_dtype, w_dtype, pieces, lanes, s));
+  }
+  cudaError_t err = cudaErrorInvalidValue;
+  if (x_dtype == apex::kBF16)
+    err = launch_dy<bf16>(a, dy_dtype, w_dtype, s);
+  else if (x_dtype == apex::kF16)
+    err = launch_dy<f16>(a, dy_dtype, w_dtype, s);
+  else if (x_dtype == apex::kF32)
+    err = launch_dy<float>(a, dy_dtype, w_dtype, s);
   return static_cast<int>(err);
 }
 
 // Resident blocks an SM of the 16-byte kernel with `pieces` a lane at
-// width h (affine 0: none, 1: a weight, 2: a weight and a bias), written
-// to *blocks: the plan's grid is this times the SM count.
+// width h over x_dtype rows (affine 0: none, 1: a weight, 2: a weight and
+// a bias), written to *blocks: the plan's grid is this times the SM count.
 extern "C" int apex_layer_norm_bwd_blocks_per_sm(int h, int pieces,
-                                                 int w_dtype, int affine,
-                                                 int* blocks) {
-  const VecKernel kernel = vec_kernel(pieces, w_dtype, affine);
+                                                 int x_dtype, int w_dtype,
+                                                 int affine, int* blocks) {
+  const VecKernel kernel = vec_kernel(pieces, x_dtype, w_dtype, affine);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = vec_smem(h, affine);
   cudaError_t err = apex::allow_smem(kernel, smem);

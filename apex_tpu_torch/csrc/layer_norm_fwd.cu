@@ -14,11 +14,11 @@
 // ~8 fp32 operations per element, far below the card's 295 operations per
 // byte, so the floor is (bytes read + written) / 3.35 TB/s.
 //
-// bf16 x with h % 8 == 0, h <= 1024 and 16-byte aligned x, y, w and b
-// (ops/layer_norm.py `layer_norm_fwd_plan`): the 16-byte kernel. A lane
-// holds its pieces of the row in registers (layer_norm_vec.cuh; no
+// bf16 or fp16 x with h % 8 == 0, h <= 1024 and 16-byte aligned x, y, w
+// and b (ops/layer_norm.py `layer_norm_fwd_plan`): the 16-byte kernel. A
+// lane holds its pieces of the row in registers (layer_norm_vec.cuh; no
 // shared-memory stage), the sums are shuffles over the row's lanes, y is
-// written as 16-byte pieces (bf16) or two float4 (f32). w and b are read
+// written as 16-byte pieces (x's 16-bit type) or two float4 (f32). w and b are read
 // once a warp and kept in registers as loaded, and the warp walks several
 // rows (the grid is at most the card's resident blocks; a decode step's
 // few rows spread one a block), loading the next row's x before it
@@ -26,6 +26,13 @@
 // ln_timing.py on an H100 at 700 W (PERF.md): [8, 768] in 0.0066 ms, 1.3x
 // the ~0.0049 ms of one timed launch of a one-element fill; [6144, 768]
 // in 0.0134 ms with a cold L2 (0.0093 of kernel time).
+//
+// The dtypes (x, w, y) instantiated, on both paths: w and y each f32 or
+// the 16-bit type x pairs with (apex::Pair16: bf16 for f32 or bf16 x,
+// fp16 for fp16 x; an absent w counts as f32). fp16 x with an fp16 w (amp
+// O2), an f32 w (O1) or none, into fp16 or f32 y (`_out_dtype`), is what
+// the models run; y rounds to inf past 65504, as torch's cast does.
+// Another triple is cudaErrorInvalidValue (the wrapper raises first).
 //
 // Other cases (f32 x, other h, unaligned rows): one warp per row, four
 // rows per 128-thread block. The warp stages its row in shared memory as
@@ -38,6 +45,7 @@
 namespace {
 
 using ln::bf16;
+using ln::f16;
 using ln::kVecThreads;
 using ln::kVecWarps;
 
@@ -112,9 +120,9 @@ layer_norm_fwd_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
 
 // a lane's pieces of row `row` of x (zeros past the block's rows or the
 // row's pieces)
-template <int PPL>
+template <int PPL, typename TX>
 __device__ __forceinline__ void load_row(uint4 (&piece)[PPL],
-                                         const bf16* __restrict__ x, int row,
+                                         const TX* __restrict__ x, int row,
                                          int row_end, int h, int li,
                                          int lanes) {
 #pragma unroll
@@ -126,8 +134,8 @@ __device__ __forceinline__ void load_row(uint4 (&piece)[PPL],
   }
 }
 
-// bf16 x on 16-byte pieces; PPL pieces a lane at most
-template <int PPL, typename TW, typename TY>
+// 16-bit x (TX) on 16-byte pieces; PPL pieces a lane at most
+template <int PPL, typename TX, typename TW, typename TY>
 __global__ void __launch_bounds__(kVecThreads)
 layer_norm_fwd_vec_kernel(const LnArgs a) {
   const int warp = threadIdx.x / 32;
@@ -137,7 +145,7 @@ layer_norm_fwd_vec_kernel(const LnArgs a) {
   const int h = a.h;
   const int pieces = h / 8;
   const int rows_a_warp = 32 / lanes;
-  const bf16* x = static_cast<const bf16*>(a.x);
+  const TX* x = static_cast<const TX*>(a.x);
   const TW* w = static_cast<const TW*>(a.w);
   const TW* b = static_cast<const TW*>(a.b);
   TY* y = static_cast<TY*>(a.y);
@@ -166,7 +174,7 @@ layer_norm_fwd_vec_kernel(const LnArgs a) {
     const int row = base + slot;
     float v[PPL][8];
 #pragma unroll
-    for (int i = 0; i < PPL; ++i) ln::unpack(next[i], v[i]);
+    for (int i = 0; i < PPL; ++i) ln::unpack<TX>(next[i], v[i]);
     load_row<PPL>(next, x, base + step + slot, row_end, h, li, lanes);
     // an empty piece holds zeros: it adds nothing to the sum
     float sum = 0.f;
@@ -222,25 +230,36 @@ layer_norm_fwd_vec_kernel(const LnArgs a) {
 
 using VecKernel = void (*)(LnArgs);
 
-template <int PPL, typename TW>
+template <int PPL, typename TX, typename TW>
 VecKernel vec_kernel_y(int y_dtype) {
-  return y_dtype == apex::kBF16 ? layer_norm_fwd_vec_kernel<PPL, TW, bf16>
-                                : layer_norm_fwd_vec_kernel<PPL, TW, float>;
+  if (y_dtype == apex::kF32) return layer_norm_fwd_vec_kernel<PPL, TX, TW, float>;
+  if (y_dtype == apex::Half16<TX>::kCode)
+    return layer_norm_fwd_vec_kernel<PPL, TX, TW, TX>;
+  return nullptr;
+}
+
+template <int PPL, typename TX>
+VecKernel vec_kernel_w(int w_dtype, int y_dtype) {
+  if (w_dtype == apex::kF32) return vec_kernel_y<PPL, TX, float>(y_dtype);
+  if (w_dtype == apex::Half16<TX>::kCode)
+    return vec_kernel_y<PPL, TX, TX>(y_dtype);
+  return nullptr;
 }
 
 template <int PPL>
-VecKernel vec_kernel_of(int w_dtype, int y_dtype) {
-  return w_dtype == apex::kBF16 ? vec_kernel_y<PPL, bf16>(y_dtype)
-                                : vec_kernel_y<PPL, float>(y_dtype);
+VecKernel vec_kernel_of(int x_dtype, int w_dtype, int y_dtype) {
+  if (x_dtype == apex::kBF16) return vec_kernel_w<PPL, bf16>(w_dtype, y_dtype);
+  if (x_dtype == apex::kF16) return vec_kernel_w<PPL, f16>(w_dtype, y_dtype);
+  return nullptr;
 }
 
-// null for a piece count the plan never gives
-VecKernel vec_kernel(int pieces, int w_dtype, int y_dtype) {
+// null for a piece count the plan never gives or dtypes not instantiated
+VecKernel vec_kernel(int pieces, int x_dtype, int w_dtype, int y_dtype) {
   switch (pieces) {
-    case 1: return vec_kernel_of<1>(w_dtype, y_dtype);
-    case 2: return vec_kernel_of<2>(w_dtype, y_dtype);
-    case 3: return vec_kernel_of<3>(w_dtype, y_dtype);
-    case 4: return vec_kernel_of<4>(w_dtype, y_dtype);
+    case 1: return vec_kernel_of<1>(x_dtype, w_dtype, y_dtype);
+    case 2: return vec_kernel_of<2>(x_dtype, w_dtype, y_dtype);
+    case 3: return vec_kernel_of<3>(x_dtype, w_dtype, y_dtype);
+    case 4: return vec_kernel_of<4>(x_dtype, w_dtype, y_dtype);
     default: return nullptr;
   }
 }
@@ -262,25 +281,31 @@ cudaError_t launch(const LnArgs& a, cudaStream_t stream) {
 
 template <typename TX, typename TW>
 cudaError_t launch_y(const LnArgs& a, int y_dtype, cudaStream_t stream) {
-  return y_dtype == apex::kBF16 ? launch<TX, TW, __nv_bfloat16>(a, stream)
-                                : launch<TX, TW, float>(a, stream);
+  using H = typename apex::Pair16<TX>::type;
+  if (y_dtype == apex::kF32) return launch<TX, TW, float>(a, stream);
+  if (y_dtype == apex::Half16<H>::kCode) return launch<TX, TW, H>(a, stream);
+  return cudaErrorInvalidValue;
 }
 
 template <typename TX>
 cudaError_t launch_w(const LnArgs& a, int w_dtype, int y_dtype,
                      cudaStream_t stream) {
-  return w_dtype == apex::kBF16 ? launch_y<TX, __nv_bfloat16>(a, y_dtype, stream)
-                                : launch_y<TX, float>(a, y_dtype, stream);
+  using H = typename apex::Pair16<TX>::type;
+  if (w_dtype == apex::kF32) return launch_y<TX, float>(a, y_dtype, stream);
+  if (w_dtype == apex::Half16<H>::kCode)
+    return launch_y<TX, H>(a, y_dtype, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // The plan (ops/layer_norm.py `layer_norm_fwd_plan`) gives the path and
-// the grid: `pieces` > 0 is the 16-byte kernel (bf16 x) with `pieces` a
+// the grid: `pieces` > 0 is the 16-byte kernel (16-bit x) with `pieces` a
 // lane and `lanes` lanes a row, block b taking rows
 // [b * block_rows, (b + 1) * block_rows); 0 is the element kernel, one
 // warp a row and four rows a block. w and b may be null (non-affine /
-// bias-free); w_dtype is then ignored.
+// bias-free); w_dtype is then 0 (f32). Dtype triples off the list above
+// return cudaErrorInvalidValue.
 extern "C" int apex_layer_norm_fwd(const void* x, const void* w, const void* b,
                                    void* y, void* mean, void* invvar,
                                    void* stream, int m, int h, float eps,
@@ -291,23 +316,27 @@ extern "C" int apex_layer_norm_fwd(const void* x, const void* w, const void* b,
            m, h, eps, is_rms, n_blocks, block_rows, lanes};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (pieces > 0) {
-    const VecKernel kernel = vec_kernel(pieces, w_dtype, y_dtype);
+    const VecKernel kernel = vec_kernel(pieces, x_dtype, w_dtype, y_dtype);
     if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     kernel<<<n_blocks, kVecThreads, 0, s>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
-  cudaError_t err =
-      x_dtype == apex::kBF16
-          ? launch_w<__nv_bfloat16>(a, w_dtype, y_dtype, s)
-          : launch_w<float>(a, w_dtype, y_dtype, s);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (x_dtype == apex::kBF16)
+    err = launch_w<bf16>(a, w_dtype, y_dtype, s);
+  else if (x_dtype == apex::kF16)
+    err = launch_w<f16>(a, w_dtype, y_dtype, s);
+  else if (x_dtype == apex::kF32)
+    err = launch_w<float>(a, w_dtype, y_dtype, s);
   return static_cast<int>(err);
 }
 
 // Resident blocks an SM of the 16-byte kernel with `pieces` a lane,
 // written to *blocks: the plan's grid is at most this times the SM count.
-extern "C" int apex_layer_norm_fwd_blocks_per_sm(int pieces, int w_dtype,
-                                                 int y_dtype, int* blocks) {
-  const VecKernel kernel = vec_kernel(pieces, w_dtype, y_dtype);
+extern "C" int apex_layer_norm_fwd_blocks_per_sm(int pieces, int x_dtype,
+                                                 int w_dtype, int y_dtype,
+                                                 int* blocks) {
+  const VecKernel kernel = vec_kernel(pieces, x_dtype, w_dtype, y_dtype);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, kernel, kVecThreads, 0));

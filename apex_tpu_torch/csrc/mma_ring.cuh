@@ -1,8 +1,12 @@
 // Tensor-core GEMM pieces for Hopper written with the pre-Hopper
 // instructions: a ring of shared-memory stages filled by cp.async (16 bytes
 // a copy, zero-filled where the source is out of range), fragments read by
-// ldmatrix (optionally transposed), and mma.sync m16n8k16 with bf16
-// operands and fp32 results. No TMA and no wgmma: later work.
+// ldmatrix (optionally transposed), and mma.sync m16n8k16 with 16-bit
+// operands and fp32 results. No TMA and no wgmma: later work. The copies
+// and ldmatrix move bits whatever the 16-bit type (T: bf16 or fp16, the
+// element type of the pointers); the products take it from
+// apex::Half16<T> (common.cuh). The GEMM loop (mma_tile, warp_step) is
+// the fused convs' and stays bf16.
 //
 // A warp owns a tile of MT m16 tiles by NT n8 tiles of the output (4 MT NT
 // fp32 sums a thread). Each 16-deep product lands in a zeroed
@@ -14,8 +18,6 @@
 // 16 i + g + 8 (e >> 1), column 8 j + 2 t + (e & 1) of the warp's tile,
 // with g = lane / 4 and t = lane % 4.
 #pragma once
-
-#include <cuda_bf16.h>
 
 #include "common.cuh"
 
@@ -54,14 +56,14 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Eight bf16 of one operand row into shared memory: a 16-byte cp.async
-// when VEC (the row's channel count and base are 16-byte multiples, so the
-// 8 channels are all in range or all out), else element by element, with
-// channels from `left` on (and everything when !valid) read as zero.
-template <bool VEC, bool L1 = false>
-__device__ __forceinline__ void copy8(bf16* dst, const bf16* src,
-                                      const bf16* base, bool valid,
-                                      int left) {
+// Eight 16-bit elements of one operand row into shared memory: a 16-byte
+// cp.async when VEC (the row's channel count and base are 16-byte
+// multiples, so the 8 channels are all in range or all out), else element
+// by element, with channels from `left` on (and everything when !valid)
+// read as zero.
+template <bool VEC, bool L1 = false, typename T = bf16>
+__device__ __forceinline__ void copy8(T* dst, const T* src, const T* base,
+                                      bool valid, int left) {
   if (VEC) {
     const bool ok = valid && left > 0;
     cp_async16<L1>(dst, ok ? src : base, ok);
@@ -70,9 +72,9 @@ __device__ __forceinline__ void copy8(bf16* dst, const bf16* src,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const unsigned lo = (valid && 2 * e < left)
-                              ? __bfloat16_as_ushort(src[2 * e]) : 0u;
+                              ? Half16<T>::bits(src[2 * e]) : 0u;
       const unsigned hi = (valid && 2 * e + 1 < left)
-                              ? __bfloat16_as_ushort(src[2 * e + 1]) : 0u;
+                              ? Half16<T>::bits(src[2 * e + 1]) : 0u;
       v[e] = lo | (hi << 16);
     }
     *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
@@ -93,14 +95,10 @@ __device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
       : "r"(smem_addr(p)));
 }
 
-// d = a b for one m16n8k16 tile, from a zero accumulator
+// d = a b for one bf16 m16n8k16 tile, from a zero accumulator
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
                                          unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(0.f));
+  Half16<bf16>::mma_zero(d, a, b0, b1);
 }
 
 // Fragments of A and B over 16 of the contraction (from kk on) for a
@@ -110,8 +108,8 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
 // (element (kk, col) at b[kk * ldb + col]), else column-major (b[col * ldb
 // + kk]). a and b point at the warp's first row and column; every
 // 8-element row that ldmatrix reads is 16-byte aligned.
-template <int MT, bool A_T>
-__device__ __forceinline__ void load_a(unsigned (&fa)[MT][4], const bf16* a,
+template <int MT, bool A_T, typename T>
+__device__ __forceinline__ void load_a(unsigned (&fa)[MT][4], const T* a,
                                        int lda, int kk) {
   const int lane = threadIdx.x & 31;
   const int r8 = lane & 7;
@@ -126,9 +124,9 @@ __device__ __forceinline__ void load_a(unsigned (&fa)[MT][4], const bf16* a,
   }
 }
 
-template <int NT, bool B_T>
+template <int NT, bool B_T, typename T>
 __device__ __forceinline__ void load_b(unsigned (&fb)[NT / 2][4],
-                                       const bf16* b, int ldb, int kk) {
+                                       const T* b, int ldb, int kk) {
   const int lane = threadIdx.x & 31;
   const int r8 = lane & 7;
   const int q1 = (lane >> 3) & 1;

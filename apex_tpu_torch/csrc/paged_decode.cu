@@ -856,7 +856,7 @@ VecKernel vec_kernel(int dtype, int pool_int8, int pieces, int heads,
     return pool_int8 ? vec_kernel_win<bf16, int8_t, 1>(hmax, win)
                      : vec_kernel_win<bf16, bf16, 1>(hmax, win);
   }
-  if (pool_int8) return nullptr;
+  if (pool_int8 || dtype != apex::kF32) return nullptr;
   if (pieces == 1) return vec_kernel_win<float, float, 1>(hmax, win);
   if (pieces == 2) return vec_kernel_win<float, float, 2>(hmax, win);
   return nullptr;
@@ -902,6 +902,9 @@ extern "C" int apex_paged_decode(const void* q, const void* k_pages,
   const float* ks = static_cast<const float*>(k_scales);
   const float* vs = static_cast<const float*>(v_scales);
   if (pool_int8 && (ks == nullptr || vs == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // f32 and bf16 only: fp16 is not yet ported here
+  if (dtype != apex::kBF16 && dtype != apex::kF32)
     return static_cast<int>(cudaErrorInvalidValue);
   if (pieces == 0) {
     DecodeArgs a{q, k_pages, v_pages, ks, vs,

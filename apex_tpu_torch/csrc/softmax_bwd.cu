@@ -90,9 +90,11 @@ extern "C" int apex_softmax_bwd(const void* dy, const void* y, void* dx,
                                 void* stream, long long rows, int k,
                                 float scale, int dtype) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      dtype == apex::kBF16
-          ? launch<__nv_bfloat16>(dy, y, dx, rows, k, scale, st)
-          : launch<float>(dy, y, dx, rows, k, scale, st);
+  // f32 and bf16 only: fp16 is not yet ported here
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == apex::kBF16)
+    err = launch<__nv_bfloat16>(dy, y, dx, rows, k, scale, st);
+  else if (dtype == apex::kF32)
+    err = launch<float>(dy, y, dx, rows, k, scale, st);
   return static_cast<int>(err);
 }

@@ -293,6 +293,9 @@ extern "C" int apex_softmax_fwd(const void* x, const void* mask, void* y,
   const Args a{static_cast<const unsigned char*>(mask), ms0, ms1, ms2, ms3,
                rows, k, d1, d2, scale, sq, causal};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // f32 and bf16 only: fp16 is not yet ported here
+  if (dtype != apex::kBF16 && dtype != apex::kF32)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   if (cpl > 0)
     err = dtype == apex::kBF16 ? launch_vec(x, y, a, cpl, lpr, st)

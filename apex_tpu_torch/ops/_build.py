@@ -41,14 +41,14 @@ _SIGNATURES = {
     # then the plan: pieces a lane, lanes a row, blocks, rows a block
     "apex_layer_norm_fwd": [_P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _F, _I, _I, _I, _I, _I, _I, _I, _I],
-    # pieces a lane, w/y dtypes, out: resident blocks an SM
-    "apex_layer_norm_fwd_blocks_per_sm": [_I, _I, _I, _P],
+    # pieces a lane, x/w/y dtypes, out: resident blocks an SM
+    "apex_layer_norm_fwd_blocks_per_sm": [_I, _I, _I, _I, _P],
     # dy, x, mean, invvar, w, dx, partial, dw, db, stream, m, h, is_rms,
     # dy/x/w dtypes, then the plan as the forward's
     "apex_layer_norm_bwd": [_P] * 10 + [_I] * 10,
-    # h, pieces a lane, w dtype, affine (0, 1 weight, 2 and bias), out:
+    # h, pieces a lane, x/w dtypes, affine (0, 1 weight, 2 and bias), out:
     # resident blocks an SM
-    "apex_layer_norm_bwd_blocks_per_sm": [_I, _I, _I, _I, _P],
+    "apex_layer_norm_bwd_blocks_per_sm": [_I, _I, _I, _I, _I, _P],
     # q, k, v, o, lse, kv_lengths, stream, b, h, kvh, sq, sk, d, scale,
     # causal, window, dtype
     "apex_flash_fwd": [_P, _P, _P, _P, _P, _P, _P,

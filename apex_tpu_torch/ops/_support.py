@@ -25,7 +25,7 @@ from apex_tpu_torch.ops import _build
 
 __all__ = ["LAUNCHES", "reset_launches", "count_launch", "resolve_device",
            "is_cpu", "forward_only", "cdiv", "round_up", "dtype_code",
-           "sm_count", "blocks_per_sm"]
+           "F32_BF16", "F32_BF16_F16", "sm_count", "blocks_per_sm"]
 
 #: launches per kernel since the last :func:`reset_launches` — a wrapper
 #: adds one where it launches its kernel, and nowhere else
@@ -102,16 +102,28 @@ def cdiv(a: int, b: int) -> int:
 
 
 #: dtype codes shared with the C entry points in ``csrc/common.cuh``
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: (``DType``: kF32, kBF16, kF16)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: what a kernel without an fp16 path takes (B, C, G-M)
+F32_BF16 = (torch.float32, torch.bfloat16)
+#: what Kernels A, D, E and F take
+F32_BF16_F16 = (torch.float32, torch.bfloat16, torch.float16)
 
 
-def dtype_code(dtype: torch.dtype) -> int:
-    try:
+def dtype_code(dtype: torch.dtype, allowed, kernel: str) -> int:
+    """The C dtype code of ``dtype`` for a kernel that takes ``allowed``.
+    Raises TypeError for any other dtype (and names ``kernel``): an fp16
+    tensor never reaches a kernel without an fp16 path, where its bytes
+    would be read as another type's."""
+    if dtype in allowed:
         return _DTYPE_CODES[dtype]
-    except KeyError:
+    names = ", ".join(str(d).replace("torch.", "") for d in allowed)
+    if dtype == torch.float16:
         raise TypeError(
-            f"the CUDA kernels take float32 or bfloat16, got {dtype}") \
-            from None
+            f"{kernel}: float16 is not yet ported to this kernel (it takes "
+            f"{names}); see ROADMAP.md for the order in which fp16 comes "
+            f"to the remaining kernels")
+    raise TypeError(f"{kernel} takes {names}, got {dtype}")
 
 
 @functools.lru_cache(maxsize=None)

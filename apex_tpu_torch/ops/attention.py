@@ -36,11 +36,21 @@ __all__ = ["flash_attention", "flash_fwd_plain",
            "packed_geometry", "drop_combo", "hash_keep",
            "flash_packed_fwd_plain", "flash_packed_bwd_plain",
            "flash_packed_bwd_rounding_slack", "flash_packed_fwd_cuda",
-           "flash_packed_bwd_cuda"]
+           "flash_packed_bwd_cuda", "rounding_step"]
 
 _NEG_INF = -1e30
 #: lse of a query row that sees no key (attention.py ``_LSE_PAD``)
 _LSE_PAD = 1e30
+
+
+def rounding_step(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """One rounding step of the fp32 values ``t`` to ``dtype``, as the
+    rounding slack counts it: ``eps / 2`` of the magnitude (2^-8 for bf16,
+    2^-11 for fp16), and at least the spacing of ``dtype``'s subnormals
+    (2^-24 for fp16), where a small value's step no longer shrinks with
+    it. Non-negative fp32."""
+    fi = torch.finfo(dtype)
+    return torch.clamp_min(t.abs() * (fi.eps / 2), fi.tiny * fi.eps)
 
 
 def _visible(sq: int, sk: int, kv_lengths, causal: bool, window, device):
@@ -87,6 +97,8 @@ def flash_fwd_cuda(q, k, v, kv_lengths, scale: float, causal: bool,
     kvh, sk = k.shape[1], k.shape[2]
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v dtypes differ: {q.dtype} {k.dtype} {v.dtype}")
+    code = _support.dtype_code(q.dtype, _support.F32_BF16,
+                               "Kernel B (flash_fwd_cuda)")
     if d > 128:
         raise ValueError(f"head_dim {d} > 128 is not supported by the kernel")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -103,7 +115,7 @@ def flash_fwd_cuda(q, k, v, kv_lengths, scale: float, causal: bool,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), None if kv_lengths is None else kv_lengths.data_ptr(),
         stream, b, h, kvh, sq, sk, d, float(scale), int(causal),
-        int(window or 0), _support.dtype_code(q.dtype))
+        int(window or 0), code)
     _build.check("apex_flash_fwd", status)
     _support.count_launch("flash_fwd")
     return o, lse
@@ -158,20 +170,21 @@ def flash_bwd_rounding_slack(q, k, v, do, o, lse, kv_lengths, scale: float,
                              causal: bool, window: Optional[int] = None):
     """How far one rounding step of every factor the backward rounds to the
     input dtype (ds before ``ds k`` and ``ds^T q``, p before ``p^T do``) can
-    move dq, dk and dv: ``2^-8 * scale * |ds| |k|`` and so on, in fp32. Two
-    correct bf16 backwards that form ds in other fp32 summation orders may
-    round a ds on a bf16 boundary to neighbouring values; this bounds what
+    move dq, dk and dv: ``step(ds) * scale * |k|`` and so on, in fp32, with
+    :func:`rounding_step` in q's dtype (``2^-8 |ds|`` in bf16). Two correct
+    16-bit backwards that form ds in other fp32 summation orders may round
+    a ds on a rounding boundary to neighbouring values; this bounds what
     that does to each output element."""
     p, ds = flash_bwd_factors(q, k, v, do, o, lse, kv_lengths, scale,
                               causal, window)
     b, kvh, sk, d = k.shape
     group = q.shape[1] // kvh
-    step = 2.0 ** -8
+    ds_step = rounding_step(ds, q.dtype)
     ka = k.float().abs().repeat_interleave(group, dim=1)
-    dq = step * scale * torch.einsum("bhqk,bhkd->bhqd", ds.abs(), ka)
-    dk = step * scale * torch.einsum("bhqk,bhqd->bhkd", ds.abs(),
-                                     q.float().abs())
-    dv = step * torch.einsum("bhqk,bhqd->bhkd", p, do.float().abs())
+    dq = scale * torch.einsum("bhqk,bhkd->bhqd", ds_step, ka)
+    dk = scale * torch.einsum("bhqk,bhqd->bhkd", ds_step, q.float().abs())
+    dv = torch.einsum("bhqk,bhqd->bhkd", rounding_step(p, q.dtype),
+                      do.float().abs())
     return (dq, dk.reshape(b, kvh, group, sk, d).sum(dim=2),
             dv.reshape(b, kvh, group, sk, d).sum(dim=2))
 
@@ -186,6 +199,8 @@ def flash_bwd_cuda(q, k, v, do, o, lse, kv_lengths, scale: float,
     if k.dtype != q.dtype or v.dtype != q.dtype or o.dtype != q.dtype:
         raise TypeError(f"q/k/v/o dtypes differ: {q.dtype} {k.dtype} "
                         f"{v.dtype} {o.dtype}")
+    code = _support.dtype_code(q.dtype, _support.F32_BF16,
+                               "Kernel I (flash_bwd_cuda)")
     if d > 128:
         raise ValueError(f"head_dim {d} > 128 is not supported by the kernel")
     q, k, v, o = q.contiguous(), k.contiguous(), v.contiguous(), \
@@ -207,7 +222,7 @@ def flash_bwd_cuda(q, k, v, do, o, lse, kv_lengths, scale: float,
         dk.data_ptr(), dv.data_ptr(),
         None if kv_lengths is None else kv_lengths.data_ptr(), stream, b, h,
         kvh, sq, sk, d, float(scale), int(causal), int(window or 0),
-        _support.dtype_code(q.dtype))
+        code)
     _build.check("apex_flash_bwd", status)
     _support.count_launch("flash_bwd")
     return dq, dk, dv
@@ -509,23 +524,25 @@ def flash_packed_bwd_rounding_slack(qkv, do, o, lse, kv_lengths, rope, seed,
                                     window, qpg: int, d: int):
     """How far one rounding step of every factor the packed backward
     rounds to qkv's dtype (ds before ``ds k`` and ``ds^T q``, the dropped p
-    before ``pd^T do``) can move each element of dqkv: ``2^-8 * scale *
-    |ds| |k|`` and so on, summed over the group's query heads and carried
-    through the un-rotation (``|cos|`` and ``|sin|``), in fp32 and the
-    packed layout. Two correct backwards that form ds in other fp32
-    summation orders may round a ds on a bf16 boundary to neighbouring
-    values; this bounds what that does to each output element (the packed
-    counterpart of :func:`flash_bwd_rounding_slack`)."""
+    before ``pd^T do``) can move each element of dqkv: ``step(ds) * scale *
+    |k|`` and so on (:func:`rounding_step` in qkv's dtype: ``2^-8 |ds|`` in
+    bf16, ``2^-11 |ds|`` but at least 2^-24 in fp16), summed over the
+    group's query heads and carried through the un-rotation (``|cos|`` and
+    ``|sin|``), in fp32 and the packed layout. Two correct backwards that
+    form ds in other fp32 summation orders may round a ds on a rounding
+    boundary to neighbouring values; this bounds what that does to each
+    output element (the packed counterpart of
+    :func:`flash_bwd_rounding_slack`)."""
     s, b, _ = qkv.shape
     q, k, dof, pd, ds = _packed_bwd_factors(qkv, do, o, lse, kv_lengths,
                                             rope, seed, rate, scale, causal,
                                             window, qpg, d)
     g = q.shape[1] // qpg
-    step = 2.0 ** -8
-    ds = ds.abs()
-    dq = step * scale * torch.einsum("bhqk,bhkd->bhqd", ds, k.float().abs())
-    dk = step * scale * torch.einsum("bhqk,bhqd->bhkd", ds, q.float().abs())
-    dv = step * torch.einsum("bhqk,bhqd->bhkd", pd.abs(), dof.abs())
+    ds = rounding_step(ds, qkv.dtype)
+    dq = scale * torch.einsum("bhqk,bhkd->bhqd", ds, k.float().abs())
+    dk = scale * torch.einsum("bhqk,bhqd->bhkd", ds, q.float().abs())
+    dv = torch.einsum("bhqk,bhqd->bhkd", rounding_step(pd, qkv.dtype),
+                      dof.abs())
     dk = dk.reshape(b, g, qpg, s, d).sum(dim=2)
     dv = dv.reshape(b, g, qpg, s, d).sum(dim=2)
     if rope is not None:
@@ -537,9 +554,6 @@ def flash_packed_bwd_rounding_slack(qkv, do, o, lse, kv_lengths, rope, seed,
 
 def _packed_args(qkv, kv_lengths, rope, seed, rate):
     """Device pointers and scalars shared by the Kernel E/F launches."""
-    if qkv.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"the packed kernels take float32 or bfloat16, "
-                        f"got {qkv.dtype}")
     dev = qkv.device
     kvl = (None if kv_lengths is None else kv_lengths.to(
         device=dev, dtype=torch.int32).contiguous())
@@ -564,6 +578,8 @@ def flash_packed_fwd_cuda(qkv, kv_lengths, rope, seed, rate: float,
     """Launch Kernel E; returns ``(o [s, b, H*d], lse [b, H, s])``."""
     s, b, w = qkv.shape
     g = w // ((qpg + 2) * d)
+    code = _support.dtype_code(qkv.dtype, _support.F32_BF16_F16,
+                               "Kernel E (flash_packed_fwd_cuda)")
     if d > 128:
         raise ValueError(f"head_dim {d} > 128 is not supported by the kernel")
     qkv = qkv.contiguous()
@@ -579,7 +595,7 @@ def flash_packed_fwd_cuda(qkv, kv_lengths, rope, seed, rate: float,
     status = lib.apex_flash_packed_fwd(
         qkv.data_ptr(), o.data_ptr(), lse.data_ptr(), *ptrs, stream, s, b, g,
         qpg, d, float(scale), int(causal), int(window or 0), rot, thresh,
-        inv_keep, _support.dtype_code(qkv.dtype))
+        inv_keep, code)
     _build.check("apex_flash_packed_fwd", status)
     _support.count_launch("flash_packed_fwd")
     return o, lse
@@ -591,6 +607,10 @@ def flash_packed_bwd_cuda(qkv, do, o, lse, kv_lengths, rope, seed,
     """Launch Kernel F (dq pass, then dk/dv pass); returns ``dqkv``."""
     s, b, w = qkv.shape
     g = w // ((qpg + 2) * d)
+    code = _support.dtype_code(qkv.dtype, _support.F32_BF16_F16,
+                               "Kernel F (flash_packed_bwd_cuda)")
+    if o.dtype != qkv.dtype:
+        raise TypeError(f"o ({o.dtype}) and qkv ({qkv.dtype}) dtypes differ")
     if d > 128:
         raise ValueError(f"head_dim {d} > 128 is not supported by the kernel")
     qkv, do, o = qkv.contiguous(), do.contiguous().to(qkv.dtype), \
@@ -609,7 +629,7 @@ def flash_packed_bwd_cuda(qkv, do, o, lse, kv_lengths, rope, seed,
         qkv.data_ptr(), do.data_ptr(), o.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dqkv.data_ptr(), *ptrs, stream, s, b, g, qpg, d,
         float(scale), int(causal), int(window or 0), rot, thresh, inv_keep,
-        _support.dtype_code(qkv.dtype))
+        code)
     _build.check("apex_flash_packed_bwd", status)
     _support.count_launch("flash_packed_bwd")
     return dqkv

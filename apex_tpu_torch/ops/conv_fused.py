@@ -355,7 +355,8 @@ def _check(op: str, x, w, a, b, shift, k: int, n: int, affine: bool,
         raise TypeError(f"{op}: x, w (and y, dy) must share one dtype, got "
                         f"{x.dtype}, {w.dtype}"
                         f"{''.join(', ' + str(t.dtype) for t in more)}")
-    code = _support.dtype_code(x.dtype)
+    code = _support.dtype_code(x.dtype, _support.F32_BF16,
+                               f"Kernels J-M ({op})")
     if k <= 0 or n <= 0:
         raise ValueError(f"{op}: channel counts must be positive, got K={k} "
                          f"N={n}")

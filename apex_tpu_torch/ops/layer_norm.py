@@ -13,10 +13,16 @@ rebuilds x from it in plain PyTorch before the backward kernel, as
 ``_norm_vjp_bwd`` does outside its Pallas kernel.
 
 :func:`layer_norm_fwd_plan` and :func:`layer_norm_bwd_plan` pick each
-kernel's path on the host: bf16 rows (bf16 dy and x for the backward) of
-``h % 8 == 0`` up to 1024 at 16-byte aligned addresses take the 16-byte
-kernels, whose rows live in registers and whose grid is the card's
-resident blocks; every other call takes the element kernels.
+kernel's path on the host: bf16 or fp16 rows (dy and x of that one type
+for the backward) of ``h % 8 == 0`` up to 1024 at 16-byte aligned
+addresses take the 16-byte kernels, whose rows live in registers and
+whose grid is the card's resident blocks; every other call takes the
+element kernels.
+
+Both kernels take x in f32, bf16 or fp16, and w, b, y (and dy) each in
+f32 or the 16-bit type that x pairs with: bf16 beside f32 or bf16 x,
+fp16 beside fp16 x (:func:`_kernel_dtypes`). A mix of bf16 and fp16
+raises TypeError before any launch.
 """
 
 from __future__ import annotations
@@ -40,6 +46,8 @@ _VEC_MAX_H = 4 * 8 * 32
 #: of four warps, Kernel D's pass-1 blocks of 32 rows
 _FWD_ELEMENT_ROWS = 4
 _BWD_ELEMENT_ROWS = 32
+#: the row dtypes of the 16-byte kernels
+_VEC_DTYPES = (torch.bfloat16, torch.float16)
 
 
 class LayerNormPlan(NamedTuple):
@@ -63,8 +71,8 @@ class LayerNormPlan(NamedTuple):
 
 
 def _vector_rows(h: int, ptrs: Sequence[Optional[int]]) -> bool:
-    """Rows of h bf16 that the 16-byte kernels take: ``h % 8 == 0``, at
-    most ``_VEC_MAX_H``, every given address 16-byte aligned."""
+    """Rows of h 16-bit elements that the 16-byte kernels take: ``h % 8 ==
+    0``, at most ``_VEC_MAX_H``, every given address 16-byte aligned."""
     return (0 < h <= _VEC_MAX_H and h % 8 == 0
             and all(p % 16 == 0 for p in ptrs if p is not None))
 
@@ -91,11 +99,11 @@ def layer_norm_fwd_plan(m: int, h: int, x_dtype: torch.dtype,
                         blocks_per_sm: Callable[[int], int],
                         n_sms: int) -> LayerNormPlan:
     """Kernel A's path and grid for ``x [m, h]``: the 16-byte kernel for
-    bf16 x whose rows :func:`_vector_rows` takes (``ptrs``: the addresses
-    of x, y, w and b, None where absent), else the element kernel.
-    ``blocks_per_sm(pieces)`` is the 16-byte kernel's resident blocks an SM
-    at that many pieces a lane, ``n_sms`` the card's SMs."""
-    if x_dtype != torch.bfloat16 or not _vector_rows(h, ptrs):
+    bf16 or fp16 x whose rows :func:`_vector_rows` takes (``ptrs``: the
+    addresses of x, y, w and b, None where absent), else the element
+    kernel. ``blocks_per_sm(pieces)`` is the 16-byte kernel's resident
+    blocks an SM at that many pieces a lane, ``n_sms`` the card's SMs."""
+    if x_dtype not in _VEC_DTYPES or not _vector_rows(h, ptrs):
         return LayerNormPlan(0, 0, _support.cdiv(m, _FWD_ELEMENT_ROWS),
                              _FWD_ELEMENT_ROWS)
     return _vector_plan(m, h, blocks_per_sm, n_sms)
@@ -106,9 +114,9 @@ def layer_norm_bwd_plan(m: int, h: int, dy_dtype: torch.dtype,
                         blocks_per_sm: Callable[[int], int],
                         n_sms: int) -> LayerNormPlan:
     """Kernel D's path and grid, as :func:`layer_norm_fwd_plan`: the
-    16-byte kernel needs bf16 dy and x (``ptrs``: dy, x, dx and w); its
-    ``blocks`` are also the partial rows pass 2 sums."""
-    if dy_dtype != torch.bfloat16 or x_dtype != torch.bfloat16 or \
+    16-byte kernel needs dy and x of one 16-bit type (``ptrs``: dy, x, dx
+    and w); its ``blocks`` are also the partial rows pass 2 sums."""
+    if x_dtype not in _VEC_DTYPES or dy_dtype != x_dtype or \
             not _vector_rows(h, ptrs):
         return LayerNormPlan(0, 0, _support.cdiv(m, _BWD_ELEMENT_ROWS),
                              _BWD_ELEMENT_ROWS)
@@ -126,9 +134,30 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _dtype_code(t: Optional[torch.Tensor]) -> int:
-    """A parameter's dtype code; 0 (fp32) where it is absent."""
-    return 0 if t is None else _support.dtype_code(t.dtype)
+def _kernel_dtypes(kernel: str, x_dtype: torch.dtype,
+                   **others: Optional[torch.dtype]) -> Tuple[int, ...]:
+    """The C dtype codes of x and then of ``others`` (w, y or dy; 0, fp32,
+    where one is absent) for the LayerNorm kernels: x f32, bf16 or fp16,
+    each of the others f32 or the 16-bit type x pairs with (fp16 beside
+    fp16 x, bf16 beside f32 or bf16 x), the combinations the C entry
+    points instantiate. Raises TypeError on any other."""
+    x_code = _support.dtype_code(x_dtype, _support.F32_BF16_F16, kernel)
+    half = torch.float16 if x_dtype == torch.float16 else torch.bfloat16
+    codes = [x_code]
+    for name, dt in others.items():
+        if dt is None:
+            codes.append(0)
+        elif dt in (torch.float32, half):
+            codes.append(_support.dtype_code(dt, _support.F32_BF16_F16,
+                                             kernel))
+        else:
+            raise TypeError(f"{kernel}: {name} in {dt} beside x in "
+                            f"{x_dtype}; it takes float32 or {half}")
+    return tuple(codes)
+
+
+def _dt(t: Optional[torch.Tensor]) -> Optional[torch.dtype]:
+    return None if t is None else t.dtype
 
 
 def layer_norm_fwd_cuda_plan(x2, y, w, b) -> LayerNormPlan:
@@ -136,7 +165,8 @@ def layer_norm_fwd_cuda_plan(x2, y, w, b) -> LayerNormPlan:
     ``y`` on their card (its occupancy and SM count)."""
     m, h = x2.shape
     dev = x2.device.index
-    codes = (_dtype_code(w), _support.dtype_code(y.dtype))
+    codes = _kernel_dtypes("Kernel A (layer_norm_fwd_cuda)", x2.dtype,
+                           w=_dt(w), y=y.dtype)
     return layer_norm_fwd_plan(
         m, h, x2.dtype, (x2.data_ptr(), y.data_ptr(), _ptr(w), _ptr(b)),
         lambda pieces: _blocks_per_sm(dev, "fwd", pieces, *codes),
@@ -150,10 +180,12 @@ def layer_norm_bwd_cuda_plan(dy2, x2, dx, w, has_bias: bool
     m, h = x2.shape
     dev = x2.device.index
     affine = 0 if w is None else (2 if has_bias else 1)
+    x_code, _, w_code = _kernel_dtypes("Kernel D (layer_norm_bwd_cuda)",
+                                       x2.dtype, dy=dy2.dtype, w=_dt(w))
     return layer_norm_bwd_plan(
         m, h, dy2.dtype, x2.dtype,
         (dy2.data_ptr(), x2.data_ptr(), dx.data_ptr(), _ptr(w)),
-        lambda pieces: _blocks_per_sm(dev, "bwd", h, pieces, _dtype_code(w),
+        lambda pieces: _blocks_per_sm(dev, "bwd", h, pieces, x_code, w_code,
                                       affine),
         _support.sm_count(dev))
 
@@ -189,6 +221,8 @@ def layer_norm_fwd_cuda(x2, w, b, eps: float, is_rms: bool,
     if w is not None and b is not None and w.dtype != b.dtype:
         raise TypeError(f"weight ({w.dtype}) and bias ({b.dtype}) dtypes "
                         f"must match")
+    codes = _kernel_dtypes("Kernel A (layer_norm_fwd_cuda)", x2.dtype,
+                           w=_dt(w), y=out_dtype)
     if h > 14336:
         raise ValueError(f"hidden size {h} exceeds the kernel's "
                          f"shared-memory row stage (14336)")
@@ -208,9 +242,8 @@ def layer_norm_fwd_cuda(x2, w, b, eps: float, is_rms: bool,
     plan = layer_norm_fwd_cuda_plan(x2, y, w, b)
     status = lib.apex_layer_norm_fwd(
         x2.data_ptr(), _ptr(w), _ptr(b), y.data_ptr(), mean.data_ptr(),
-        invvar.data_ptr(), stream, m, h, float(eps), int(is_rms),
-        _support.dtype_code(x2.dtype), _dtype_code(w),
-        _support.dtype_code(out_dtype), *plan)
+        invvar.data_ptr(), stream, m, h, float(eps), int(is_rms), *codes,
+        *plan)
     _build.check("apex_layer_norm_fwd", status)
     _support.count_launch("layer_norm_fwd")
     return y, mean, invvar
@@ -240,6 +273,8 @@ def layer_norm_bwd_cuda(dy2, x2, mean, invvar, w, is_rms: bool,
     """Launch Kernel D on ``[m, h]`` rows (one CUDA device): dx and the
     fp32 per-block dw/db partials, then their column sums."""
     m, h = x2.shape
+    codes = _kernel_dtypes("Kernel D (layer_norm_bwd_cuda)", x2.dtype,
+                           dy=dy2.dtype, w=_dt(w))
     dy2, x2 = dy2.contiguous(), x2.contiguous()
     mean, invvar = mean.contiguous(), invvar.contiguous()
     dev = x2.device
@@ -263,8 +298,7 @@ def layer_norm_bwd_cuda(dy2, x2, mean, invvar, w, is_rms: bool,
     status = lib.apex_layer_norm_bwd(
         dy2.data_ptr(), x2.data_ptr(), mean.data_ptr(), invvar.data_ptr(),
         _ptr(w), dx.data_ptr(), _ptr(partial), _ptr(dw), _ptr(db), stream, m,
-        h, int(is_rms), _support.dtype_code(dy2.dtype),
-        _support.dtype_code(x2.dtype), _dtype_code(w), *plan)
+        h, int(is_rms), codes[1], codes[0], codes[2], *plan)
     _build.check("apex_layer_norm_bwd", status)
     _support.count_launch("layer_norm_bwd")
     return dx, dw, db

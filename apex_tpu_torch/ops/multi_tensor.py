@@ -57,8 +57,8 @@ _STEP = _SIZE + MAX_TENSORS
 _CHUNKS = _STEP + MAX_TENSORS
 WORDS = _CHUNKS + MAX_CHUNKS
 
-#: dtype codes of csrc/common.cuh; the multi-tensor kernels also take fp16
-_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: dtype codes of csrc/common.cuh (the multi-tensor kernels take all three)
+_CODES = _support._DTYPE_CODES
 
 Tensors = Sequence[torch.Tensor]
 

@@ -97,6 +97,8 @@ def softmax_fwd_cuda(x4: torch.Tensor, mask4: Optional[torch.Tensor],
                      scale: float, sq: int, causal: bool) -> torch.Tensor:
     """Launch Kernel G on ``x4 [d0, d1, d2, k]``; ``mask4`` (bool,
     broadcastable to x4) is read through its broadcast strides."""
+    code = _support.dtype_code(x4.dtype, _support.F32_BF16,
+                               "Kernel G (softmax_fwd_cuda)")
     x4 = x4.contiguous()
     k = x4.shape[-1]
     y = torch.empty_like(x4)
@@ -116,7 +118,7 @@ def softmax_fwd_cuda(x4: torch.Tensor, mask4: Optional[torch.Tensor],
     status = lib.apex_softmax_fwd(
         x4.data_ptr(), mask_ptr, y.data_ptr(), stream, x4.numel() // k, k,
         x4.shape[1], x4.shape[2], *strides, float(scale), max(sq, 1),
-        int(causal), _support.dtype_code(x4.dtype), cpl, lpr)
+        int(causal), code, cpl, lpr)
     _build.check("apex_softmax_fwd", status)
     _support.count_launch("softmax_fwd")
     return y
@@ -127,6 +129,8 @@ def softmax_bwd_cuda(dy: torch.Tensor, y: torch.Tensor,
     """Launch Kernel H: dx in dy's dtype (dy and y share it)."""
     if dy.dtype != y.dtype:
         raise TypeError(f"dy ({dy.dtype}) and y ({y.dtype}) dtypes differ")
+    code = _support.dtype_code(y.dtype, _support.F32_BF16,
+                               "Kernel H (softmax_bwd_cuda)")
     dy, y = dy.contiguous(), y.contiguous()
     k = y.shape[-1]
     dx = torch.empty_like(dy)
@@ -136,7 +140,7 @@ def softmax_bwd_cuda(dy: torch.Tensor, y: torch.Tensor,
     stream = torch.cuda.current_stream(y.device).cuda_stream
     status = lib.apex_softmax_bwd(
         dy.data_ptr(), y.data_ptr(), dx.data_ptr(), stream, y.numel() // k,
-        k, float(scale), _support.dtype_code(y.dtype))
+        k, float(scale), code)
     _build.check("apex_softmax_bwd", status)
     _support.count_launch("softmax_bwd")
     return dx

@@ -11,6 +11,12 @@ printing its own lines and raising on failure:
               bf16 shapes, f32, and the training block's mix (bf16 x over
               fp32 w and b into bf16 y) at [8192, 768] in LayerNorm and
               RMSNorm; two runs bitwise equal; the launch plan printed;
+              then fp16 x (``[kernel_a_fp16]``): amp O2's [8192, 768] with
+              fp16 w and b into fp16 y (timed beside F.layer_norm in fp16),
+              RMSNorm, O1's fp32 w into fp32 y, 8193 rows and h = 1020 (the
+              element path), each within 1 fp16 ulp and bitwise
+              repeatable, and [64, 768] with w at 2^15, where y overflows
+              at the plain version's elements (masks held, not values);
 4. kernel B — flash attention forward vs its plain version;
 5. kernel C — paged decode attention vs its plain version: the serve
               shape (b 8, 12 heads, positions 63-700) in bf16 and f32 on
@@ -25,18 +31,32 @@ printing its own lines and raising on failure:
               rows in bf16 over fp32 w and b, f32 and RMSNorm, the T5
               decoder's [1824, 768] RMSNorm and a bf16 width off the
               16-byte path (h = 1020); two runs bitwise equal (dx, dw, db);
-              the launch plan printed;
+              the launch plan printed; then fp16 dy and x
+              (``[kernel_d_fp16]``) over fp16 and fp32 w at GPT-2's rows
+              (timed beside native_layer_norm_backward in fp16), RMSNorm,
+              8193 rows and h = 1020, dx within 1 fp16 ulp, and [64, 768]
+              with dy at 2^12, where dx and the fp16-cast dw and db
+              overflow at the plain version's elements;
 7. kernel E — packed-QKV flash forward vs its plain version (GQA, RoPE,
               window, kv_lengths, and dropout whose keep mask must equal
               ``hash_keep``'s exactly, in f32 and bf16); timed beside SDPA
               at the GPT-2 and the T5 encoder and decoder shapes, where
-              two bf16 runs must be bitwise equal;
+              two bf16 runs must be bitwise equal; in fp16 at the GPT-2
+              shape (timed beside SDPA in fp16, bitwise repeatable), GQA,
+              RoPE, a window, kv_lengths with a 0, dropout and s 1000;
 8. kernel F — packed-QKV flash backward vs its plain version (f32 atol
               1e-4; bf16, where both round ds and the dropped p as the JAX
               kernel does, 1 ulp plus one bf16 step of each rounded factor,
               at most 0.1% of the elements past 1 ulp); timed beside SDPA's
               backward at the GPT-2 shape, where two bf16 runs must be
-              bitwise equal, and the f32 dqkv's sha256 printed;
+              bitwise equal, and the f32 dqkv's sha256 printed; fp16 in
+              the same cases as E (1 fp16 ulp plus one fp16 step of each
+              rounded factor, at most 0.8% past 1 ulp); then the fp16
+              overflow cases of E (v at
+              2^14 under dropout 0.5) and F (do at 2^12, v at 2^6), whose
+              non-finite elements must be the plain versions';
+    fp16_gates — Kernels B, C, G and J (no fp16 path yet) raise TypeError
+              on fp16 card tensors and launch nothing;
 9. serve    — GPT-2 124M (bf16, random weights from a seed) serves 16
               greedy requests through ``InferenceEngine``; the launch
               counters of its kernels (A, B, C), read over this phase
@@ -151,17 +171,27 @@ printing its own lines and raising on failure:
               that step bitwise and halve the scale, every other step
               finds no inf, the loss falls, and every kernel launches
               exactly what the step implies;
+    train_fp16 — the same with ``half_dtype=torch.float16``: fp16 params
+              and compute through Kernels A, D, E and F in fp16 (LN 25/25,
+              packed 12/12, unscale 4 and Adam 5 launches a step, every
+              other kernel 0); the injected inf skips its step bitwise and
+              halves the scale, natural overflows are allowed but each is
+              reported by step and must skip bitwise too, at least one
+              step applies and the loss falls;
 24. amp card vs CPU — a small f32 GPT runs the amp flow (O2 over f32,
               fp32 masters, dynamic scale, an inf at step 2) 5 steps with
               FusedAdam, FusedLAMB and FusedSGD on the card and the CPU:
-              the losses, scaler states and parameters agree.
+              the losses, scaler states and parameters agree; then the
+              same GPT under O2 in fp16 with FusedAdam: scaler states
+              equal, losses within ``AMP_FP16_LOSS_RTOL``.
 
 Then one JSON line of per-kernel numbers (launches from the phase that
 drives each kernel's slice: serve for A-C, serve_int8 and serve_spec for
 C's int8 and window records, train for D-F, bert_train for G and H,
 t5_train for I, rn50_train for J-M and SGD, train_amp for the unscale
-and Adam kernels, bert_train for LAMB and the norms, with every path's
-counts in ``launches_by_path``;
+and Adam kernels, bert_train for LAMB and the norms, train_fp16 for the
+fp16 records of A, D, E and F, with every path's counts in
+``launches_by_path``;
 times from CUDA events in this run; ``bound_ms`` from this run's shapes
 over the H100's published peaks), and last ``{"ok": true, "device":
 {...}}``.
@@ -182,7 +212,8 @@ import torch.nn.functional as F
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, dense FLOP/s
 HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
+              torch.float32: 67e12}
 L2_BYTES = 50 * 2 ** 20
 SPIN_CYCLES = 200_000_000          # ~0.1 s at the H100's ~2 GHz
 #: kernels listed by name in a ``--profile`` breakdown (the rest summed)
@@ -270,43 +301,65 @@ class Timer:
         return times[len(times) // 2]
 
 
-def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
-    """Largest |got - want| in units of the bf16 ulp at the larger of the
-    two, that magnitude floored at 2^-8: where ``x_hat * w + b`` cancels
-    to near zero, an fp32 rounding difference (a fused multiply-add
-    against a separate multiply and add) is larger than the bf16 ulp of
-    the tiny result."""
+#: fraction bits of the 16-bit types (the ulp at 1 is 2^-bits)
+FRACTION_BITS = {torch.bfloat16: 7, torch.float16: 10}
+
+
+def ulps16(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| over the elements finite on both sides, in
+    units of the ulp of ``got``'s 16-bit type (bf16 or fp16) at the larger
+    of the two, that magnitude floored at 2^-8: where ``x_hat * w + b``
+    cancels to near zero, an fp32 rounding difference (a fused multiply-add
+    against a separate multiply and add) is larger than the ulp of the
+    tiny result."""
     g, w = got.float(), want.float()
+    fin = torch.isfinite(g) & torch.isfinite(w)
     mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -8)
-    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-    return float(((g - w).abs() / ulp).max())
+    ulp = torch.exp2(torch.floor(torch.log2(mag))
+                     - FRACTION_BITS[got.dtype])
+    err = ((g - w).abs() / ulp)[fin]
+    return float(err.max()) if err.numel() else 0.0
+
+
+def same_nonfinite(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Both sides non-finite (an fp16 overflow) at the same elements."""
+    return torch.equal(torch.isfinite(got), torch.isfinite(want))
 
 
 def check_close(got: torch.Tensor, want: torch.Tensor) -> tuple:
     """A kernel's output against its plain version's: both compute in
     fp32 and round once to the output dtype (the plain version is run on
-    the inputs cast to fp32), so bf16 may differ by one rounding step,
-    1 bf16 ulp; f32 by summation order only, atol 1e-4."""
-    if got.dtype == torch.bfloat16:
-        ulps = bf16_ulps(got, want)
-        return ulps, ulps <= 1.0, "1 bf16 ulp"
+    the inputs cast to fp32), so bf16 and fp16 may differ by one rounding
+    step, 1 ulp of that type, and must overflow to inf at the same
+    elements; f32 by summation order only, atol 1e-4."""
+    if got.dtype in FRACTION_BITS:
+        ulps = ulps16(got, want)
+        name = "bf16" if got.dtype == torch.bfloat16 else "fp16"
+        return (ulps, ulps <= 1.0 and same_nonfinite(got, want),
+                f"1 {name} ulp")
     return 0.0, float((got - want).abs().max()) <= 1e-4, "atol 1e-4"
 
 
 def check_rounded_factors(got: torch.Tensor, want: torch.Tensor,
                           slack: torch.Tensor) -> tuple:
-    """A bf16 flash backward that rounds ds and p to bf16 where the JAX
-    kernels do, against its plain version on the same inputs: every
-    element within 1 bf16 ulp plus ``slack``, one bf16 step of each
-    rounded factor carried to the output (two fp32 summation orders may
-    round a ds on a bf16 boundary to neighbouring values), and at most 0.1%
-    of the elements past 1 ulp. Returns (max abs err, ulps, share past 1
-    ulp, excess over the bound, ok)."""
+    """A bf16 or fp16 flash backward that rounds ds and p to that type
+    where the JAX kernels do, against its plain version on the same
+    inputs: every element within 1 ulp plus ``slack``, one rounding step of
+    each rounded factor carried to the output (two fp32 summation orders
+    may round a ds on a rounding boundary to neighbouring values), and at
+    most a small share of the elements past 1 ulp: 0.1% in bf16, 0.8% in
+    fp16 (against the same fp32 differences, fp16's 2^3 times finer
+    spacing puts 2^3 times as many ds on a boundary); one ulp is 2^-7
+    (bf16) or 2^-10 (fp16) of the magnitude, floored at the magnitude
+    2^-8. Returns (max abs err, ulps, share past 1 ulp, excess over the
+    bound, ok)."""
     e = (got.float() - want.float()).abs()
-    one = 2.0 ** -15 + 2.0 ** -7 * want.float().abs()
+    bits = FRACTION_BITS[got.dtype]
+    eps = 2.0 ** -bits
+    one = 2.0 ** -8 * eps + eps * want.float().abs()
     past = float((e > one).float().mean())
-    ok = bool((e <= one + slack).all()) and past <= 1e-3
-    return (float(e.max()), bf16_ulps(got, want), past,
+    ok = bool((e <= one + slack).all()) and past <= 1e-3 * 2.0 ** (bits - 7)
+    return (float(e.max()), ulps16(got, want), past,
             float((e - one - slack).max()), ok)
 
 
@@ -422,6 +475,106 @@ def phase_layer_norm(timer: Timer) -> dict:
                           shape=f"x[{rows},{h}] bf16 affine+bias",
                           max_abs_err=err, ms=ms, plain_ms=plain,
                           bound_ms=bms, bound_by=by, library_ms=lib)
+    return record
+
+
+#: fp16 rows of Kernel A (rows, h, w dtype, y dtype, RMSNorm): amp O2's
+#: GPT-2 rows with fp16 w and b into fp16 y (the timed record, beside
+#: F.layer_norm in fp16), RMSNorm, O1's fp32 w and b with y promoted to
+#: fp32, a ragged tail (a row past the grid), and a width off the 16-byte
+#: path (h = 1020: the element kernel)
+LN_FWD_FP16_CASES = [
+    (TRAIN_BATCH * TRAIN_SEQ, 768, torch.float16, torch.float16, False),
+    (TRAIN_BATCH * TRAIN_SEQ, 768, torch.float16, torch.float16, True),
+    (TRAIN_BATCH * TRAIN_SEQ, 768, torch.float32, torch.float32, False),
+    (TRAIN_BATCH * TRAIN_SEQ + 1, 768, torch.float16, torch.float16, False),
+    (2048, 1020, torch.float16, torch.float16, False),
+]
+
+
+def _fp16_overflow(phase, got, want, **fields) -> None:
+    """An fp16 output scaled past 65504: non-finite at the same elements
+    as the plain version's, and some must be. Only the masks are held:
+    the scale that forces the overflow also multiplies the fp32 noise of
+    the two summation orders (the row statistics, the sums over rows) far
+    past the ulp of a result near zero, so the values are held where the
+    scale is well inside the range (the phases' other cases)."""
+    same = same_nonfinite(got, want)
+    nonfinite = int((~torch.isfinite(got)).sum())
+    log(phase, **fields, nonfinite=nonfinite, elements=got.numel(),
+        same_nonfinite=same)
+    if not same or nonfinite == 0:
+        raise AssertionError(f"{phase}: {nonfinite} non-finite, masks equal "
+                             f"{same}")
+
+
+def phase_layer_norm_fp16(timer: Timer) -> dict:
+    """Kernel A on fp16 x: each case within 1 fp16 ulp of the plain
+    version run in fp32 and rounded once, mean and invvar within 1e-4, two
+    runs bitwise equal, the plan printed; then [64, 768] with w at 2^15,
+    where y overflows at the plain version's elements."""
+    from apex_tpu_torch.ops.layer_norm import (layer_norm_fwd_cuda,
+                                               layer_norm_fwd_cuda_plan,
+                                               layer_norm_fwd_plain)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    record = None
+    for rows, h, wdt, ydt, is_rms in LN_FWD_FP16_CASES:
+        w = (1.0 + 0.1 * torch.randn(h, device="cuda", generator=g)).to(wdt)
+        b = None if is_rms else \
+            (0.1 * torch.randn(h, device="cuda", generator=g)).to(wdt)
+        x = (2.0 * torch.randn(rows, h, device="cuda", generator=g)
+             + 0.5).half()
+        run = lambda: layer_norm_fwd_cuda(x, w, b, 1e-5, is_rms,  # noqa
+                                          ydt)
+        y, mean, iv = run()
+        again = run()
+        ry, rmean, riv = layer_norm_fwd_plain(x.float(), w, b, 1e-5, is_rms,
+                                              torch.float32)
+        ry = ry.to(ydt)
+        torch.cuda.synchronize()
+        err = float((y.float() - ry.float()).abs().max())
+        stat_err = max(float((mean - rmean).abs().max()),
+                       float((iv - riv).abs().max()))
+        ulps, ok, tol = check_close(y, ry)
+        same = all(torch.equal(u, v) for u, v in zip((y, mean, iv), again))
+        if not ok or stat_err > 1e-4 or not same:
+            raise AssertionError(
+                f"layer_norm_fwd fp16 [{rows},{h}] w {wdt} y {ydt} "
+                f"rms={is_rms}: max err {err} ({ulps} ulp), stats err "
+                f"{stat_err} — tolerance {tol}, stats 1e-4; two runs "
+                f"bitwise equal: {same}")
+        fields = {}
+        if record is None:
+            n_bytes = rows * h * (2 + y.element_size()) + \
+                (1 if is_rms else 2) * h * w.element_size() + 2 * rows * 4
+            bms, by = bound_ms(n_bytes, 8.0 * rows * h, torch.float16)
+            ms = timer(run)
+            plain = timer(lambda: layer_norm_fwd_plain(x, w, b, 1e-5, is_rms,
+                                                       ydt))
+            lib = timer(lambda: F.layer_norm(x, (h,), w, b, 1e-5))
+            fields = dict(ms=f"{ms:.5f}", plain_ms=f"{plain:.5f}",
+                          library_ms=f"{lib:.5f}", bound_ms=f"{bms:.5f}",
+                          bound_by=by)
+            record = dict(name="layer_norm_fwd_fp16", route="cuda",
+                          source="apex_tpu_torch/csrc/layer_norm_fwd.cu",
+                          replaces="apex_tpu/ops/layer_norm.py:50",
+                          shape=f"x[{rows},{h}] fp16, w,b fp16, y fp16",
+                          max_abs_err=err, ms=ms, plain_ms=plain,
+                          bound_ms=bms, bound_by=by, library_ms=lib)
+        log("kernel_a_fp16", shape=f"[{rows},{h}]", w=str(wdt)[6:],
+            y=str(ydt)[6:], rms=is_rms,
+            plan=_plan_text(layer_norm_fwd_cuda_plan(x, y, w, b)),
+            max_abs_err=f"{err:.3e}", ulps=ulps, tol=tol.replace(" ", "_"),
+            repeat_bitwise=same, y_sha256=digest(y), **fields)
+    h = 768
+    x = (2.0 * torch.randn(64, h, device="cuda", generator=g) + 0.5).half()
+    w = torch.full((h,), 2.0 ** 15, device="cuda").half()
+    b = (0.1 * torch.randn(h, device="cuda", generator=g)).half()
+    y, _, _ = layer_norm_fwd_cuda(x, w, b, 1e-5, False, torch.float16)
+    ry = layer_norm_fwd_plain(x.float(), w, b, 1e-5, False,
+                              torch.float32)[0].half()
+    _fp16_overflow("kernel_a_fp16_overflow", y, ry, shape=f"[64,{h}]",
+                   w="2^15")
     return record
 
 
@@ -905,6 +1058,107 @@ def phase_layer_norm_bwd(timer: Timer) -> dict:
     return record
 
 
+#: fp16 rows of Kernel D (rows, h, w dtype, RMSNorm): amp O2's GPT-2 rows
+#: with fp16 w and b (the timed record, beside native_layer_norm_backward
+#: in fp16), RMSNorm, O1's fp32 w, a ragged tail and the element path
+LN_BWD_FP16_CASES = [
+    (TRAIN_BATCH * TRAIN_SEQ, 768, torch.float16, False),
+    (TRAIN_BATCH * TRAIN_SEQ, 768, torch.float16, True),
+    (TRAIN_BATCH * TRAIN_SEQ, 768, torch.float32, False),
+    (TRAIN_BATCH * TRAIN_SEQ + 1, 768, torch.float16, False),
+    (2048, 1020, torch.float16, False),
+]
+
+
+def phase_layer_norm_bwd_fp16(timer: Timer) -> dict:
+    """Kernel D on fp16 dy and x: dx within 1 fp16 ulp of the plain
+    version run in fp32 and rounded once, the fp32 dw and db within 1e-4
+    of 1 + |value| (sums in another order) and non-finite at the same
+    elements once cast to w's dtype, two runs bitwise equal, the plan
+    printed; then [64, 768] with dy at 2^12 and w at 32, where dx and the
+    fp16 dw and db overflow at the plain version's elements."""
+    from apex_tpu_torch.ops.layer_norm import (layer_norm_bwd_cuda,
+                                               layer_norm_bwd_cuda_plan,
+                                               layer_norm_bwd_plain,
+                                               layer_norm_fwd_plain)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    record = None
+
+    def inputs(rows, h, wdt, is_rms, dy_scale=1.0, w_scale=1.0):
+        w = (w_scale * (1.0 + 0.1 * torch.randn(h, device="cuda",
+                                                generator=g))).to(wdt)
+        bias = None if is_rms else w
+        x = (2.0 * torch.randn(rows, h, device="cuda", generator=g)
+             + 0.5).half()
+        dy = (dy_scale * torch.randn(rows, h, device="cuda",
+                                     generator=g)).half()
+        _, mean, iv = layer_norm_fwd_plain(x, w, None, 1e-5, is_rms,
+                                           torch.float16)
+        run = lambda: layer_norm_bwd_cuda(dy, x, mean, iv, w,  # noqa: E731
+                                          is_rms, bias is not None)
+        plain = layer_norm_bwd_plain(dy.float(), x.float(), mean, iv, w,
+                                     is_rms, bias is not None)
+        return x, dy, w, bias, mean, iv, run, plain
+
+    for rows, h, wdt, is_rms in LN_BWD_FP16_CASES:
+        x, dy, w, bias, mean, iv, run, (rdx, rdw, rdb) = inputs(rows, h, wdt,
+                                                               is_rms)
+        dx, dw, db = run()
+        again = run()
+        torch.cuda.synchronize()
+        rdx = rdx.half()
+        err = float((dx.float() - rdx.float()).abs().max())
+        ulps, ok, tol = check_close(dx, rdx)
+        dw_err = max(float(((dw - rdw).abs() / (1.0 + rdw.abs())).max()),
+                     0.0 if db is None else
+                     float(((db - rdb).abs() / (1.0 + rdb.abs())).max()))
+        same = all((u is None and v is None) or torch.equal(u, v)
+                   for u, v in zip((dx, dw, db), again))
+        if not ok or dw_err > 1e-4 or not same:
+            raise AssertionError(
+                f"layer_norm_bwd fp16 [{rows},{h}] w {wdt} rms={is_rms}: dx "
+                f"err {err} ({ulps} ulp, tolerance {tol}), dw/db rel err "
+                f"{dw_err} (tolerance 1e-4); two runs bitwise equal: {same}")
+        fields = {}
+        if record is None:
+            n_bytes = 3 * rows * h * 2 + 2 * rows * 4 + h * 2 + 2 * h * 4
+            bms, by = bound_ms(n_bytes, 12.0 * rows * h, torch.float16)
+            ms = timer(run)
+            ms_cold = timer(run, cold=True)
+            plain = timer(lambda: layer_norm_bwd_plain(
+                dy, x, mean, iv, w, is_rms, bias is not None))
+            _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [h], w,
+                                                               bias, 1e-5)
+            lib = timer(lambda: torch.ops.aten.native_layer_norm_backward(
+                dy, x, [h], lmean, lrstd, w, bias, [True, True, True]))
+            fields = dict(ms=f"{ms:.5f}", ms_cold=f"{ms_cold:.5f}",
+                          plain_ms=f"{plain:.5f}", library_ms=f"{lib:.5f}",
+                          bound_ms=f"{bms:.5f}", bound_by=by)
+            record = dict(name="layer_norm_bwd_fp16", route="cuda",
+                          source="apex_tpu_torch/csrc/layer_norm_bwd.cu",
+                          replaces="apex_tpu/ops/layer_norm.py:151",
+                          shape=f"dy,x[{rows},{h}] fp16, w,b fp16",
+                          max_abs_err=err, ms=ms, plain_ms=plain,
+                          bound_ms=bms, bound_by=by, library_ms=lib)
+        log("kernel_d_fp16", shape=f"[{rows},{h}]", w=str(wdt)[6:],
+            rms=is_rms,
+            plan=_plan_text(layer_norm_bwd_cuda_plan(dy, x, dx, w,
+                                                     bias is not None)),
+            max_abs_err=f"{err:.3e}", ulps=ulps, tol=tol.replace(" ", "_"),
+            dw_db_rel_err=f"{dw_err:.2e}", repeat_bitwise=same,
+            dx_sha256=digest(dx), **fields)
+    x, dy, w, bias, mean, iv, run, (rdx, rdw, rdb) = inputs(
+        64, 768, torch.float16, False, dy_scale=2.0 ** 12, w_scale=32.0)
+    dx, dw, db = run()
+    _fp16_overflow("kernel_d_fp16_overflow", dx, rdx.half(),
+                   shape="[64,768]", dy="2^12", w="32", output="dx")
+    for name, got, want in (("dw", dw, rdw), ("db", db, rdb)):
+        _fp16_overflow("kernel_d_fp16_overflow", got.half(), want.half(),
+                       shape="[64,768]", dy="2^12", w="32",
+                       output=f"{name}_cast_to_fp16")
+    return record
+
+
 #: (name, b, s, groups, qpg, d, causal, kv_lengths, window, rot, rate,
 #: dtype): the GPT-2 training shape in bf16 (the timed record) and f32,
 #: the T5 encoder (its seeded enc_lengths, as ``t5_train`` draws them) and
@@ -930,7 +1184,25 @@ PACKED_CASES = [
      torch.bfloat16),
     ("dropout_0.1", 2, 512, 12, 1, 64, True, None, None, 0, 0.1,
      torch.float32),
+    # fp16 (amp O2 with half_dtype=float16): the GPT-2 shape (timed), the
+    # corners, and a ragged tail of 1000 rows (off the 128-row query and
+    # 64-key tiles)
+    ("gpt2_train", 8, 1024, 12, 1, 64, True, None, None, 0, 0.0,
+     torch.float16),
+    ("gqa_qpg2", 2, 512, 6, 2, 64, True, None, None, 0, 0.0, torch.float16),
+    ("rope_half", 2, 512, 12, 1, 64, True, None, None, 32, 0.0,
+     torch.float16),
+    ("window_256", 2, 1024, 12, 1, 64, True, None, 256, 0, 0.0,
+     torch.float16),
+    ("kv_lengths_0", 3, 512, 12, 1, 64, False, [512, 200, 0], None, 0, 0.0,
+     torch.float16),
+    ("dropout_0.1", 2, 512, 12, 1, 64, True, None, None, 0, 0.1,
+     torch.float16),
+    ("ragged_s1000", 2, 1000, 12, 1, 64, True, None, None, 0, 0.0,
+     torch.float16),
 ]
+#: the 16-bit dtypes whose Kernel F rounds ds and the dropped p
+HALF_DTYPES = (torch.bfloat16, torch.float16)
 DROPOUT_SEED = -1234567
 #: cases whose Kernel E is timed beside SDPA (F at the GPT-2 shape only)
 TIMED_E = ("gpt2_train", "t5_encoder", "t5_decoder")
@@ -947,8 +1219,8 @@ def _packed_unpacked(qkv, b, s, groups, qpg, d):
 def _check_dropout_mask(dtype) -> None:
     """With v = I per group (s == d) and a non-causal softmax (every p >
     0), o[i, j] = keep[i, j] * p[i, j] / (1 - rate): Kernel E's keep mask
-    is read off and must equal ``hash_keep``'s bit for bit (f32 and bf16
-    take different kernels, each hashing on its own)."""
+    is read off and must equal ``hash_keep``'s bit for bit (f32 and the
+    16-bit types take different kernels, each hashing on its own)."""
     from apex_tpu_torch.ops.attention import (drop_combo,
                                               flash_packed_fwd_cuda,
                                               hash_keep)
@@ -975,24 +1247,27 @@ def _check_dropout_mask(dtype) -> None:
         positions=want.numel(), mismatched=0)
 
 
-def phase_packed(timer: Timer) -> tuple:
+def phase_packed(timer: Timer) -> list:
     """Kernels E and F: every case against the plain versions (the
     forward's o and lse, then the backward's dqkv on the plain forward's
-    o and lse). E and f32 F within ``check_close``'s tolerance; bf16 F
-    (which rounds ds and the dropped p to bf16 where the JAX kernel does,
-    as its plain version does) within 1 ulp plus
-    ``flash_packed_bwd_rounding_slack`` with at most 0.1% of the elements
-    past 1 ulp (``check_rounded_factors``). In bf16, E's GPT-2 and T5
+    o and lse). E and f32 F within ``check_close``'s tolerance; bf16 and
+    fp16 F (which round ds and the dropped p to their type where the JAX
+    kernel does, as the plain version does) within 1 ulp plus
+    ``flash_packed_bwd_rounding_slack`` with at most 0.1% (bf16) or 0.8%
+    (fp16) of the elements past 1 ulp (``check_rounded_factors``). In
+    bf16, E's GPT-2 and T5
     cases are timed beside SDPA and must repeat bitwise; F is timed at the
     GPT-2 shape and must repeat bitwise there, and its f32 dqkv digest is
-    printed."""
+    printed; in fp16 both are timed at the GPT-2 shape beside SDPA in fp16
+    and must repeat bitwise. Then the fp16 overflow cases. Returns the
+    bf16 and fp16 records of E and F."""
     from apex_tpu_torch.ops.attention import (
         flash_packed_bwd_cuda, flash_packed_bwd_plain,
         flash_packed_bwd_rounding_slack, flash_packed_fwd_cuda,
         flash_packed_fwd_plain)
     from apex_tpu_torch.ops.rope import rope_freqs, rope_tables
     gen = torch.Generator(device="cuda").manual_seed(5)
-    rec_e = rec_f = None
+    recs = []
     for (name, b, s, groups, qpg, d, causal, kvl, window, rot, rate,
          dtype) in PACKED_CASES:
         qkv = torch.randn(s, b, groups * (qpg + 2) * d, device="cuda",
@@ -1019,12 +1294,12 @@ def phase_packed(timer: Timer) -> tuple:
         for kname, got, want in (("e", o, ro), ("f", dqkv, rdqkv)):
             err = float((got.float() - want.float()).abs().max())
             past = None
-            if kname == "f" and dtype == torch.bfloat16:
+            if kname == "f" and dtype in HALF_DTYPES:
                 slack = flash_packed_bwd_rounding_slack(qkv, do, ro, rlse,
                                                         *args)
                 err, ulps, past, excess, ok = check_rounded_factors(
                     got, want, slack)
-                tol = "1 bf16 ulp+factor rounding"
+                tol = f"1 {str(dtype)[6:]} ulp+factor rounding"
                 del slack
             else:
                 ulps, ok, tol = check_close(got, want)
@@ -1045,7 +1320,8 @@ def phase_packed(timer: Timer) -> tuple:
                     not bool((lse[row] == 1e30).all()):
                 raise AssertionError(f"kernel e/f {name}: the batch row "
                                      f"with kv_length 0 is not zero")
-        timed = name in TIMED_E and dtype == torch.bfloat16
+        timed = (name in TIMED_E and dtype == torch.bfloat16) or \
+            (name == "gpt2_train" and dtype == torch.float16)
         fields = {}
         f32_digest = (digest(dqkv) if name == "gpt2_train"
                       and dtype == torch.float32 else None)
@@ -1107,24 +1383,65 @@ def phase_packed(timer: Timer) -> tuple:
                     library_ms=f"{t[2]:.5f}", bound_ms=f"{t[3]:.5f}",
                     bound_by=t[4])))
         if timed and name == "gpt2_train":
-            shape = f"qkv[{s},{b},{qkv.shape[-1]}] bf16 causal"
+            tag = str(dtype)[6:].replace("float16", "fp16")
+            suffix = "" if dtype == torch.bfloat16 else "_fp16"
+            shape = f"qkv[{s},{b},{qkv.shape[-1]}] {tag} causal"
             ms_e, plain_e, lib_e, bms_e, by_e = fields["e"]
             ms_f, plain_f, lib_f, bms_f, by_f = fields["f"]
-            rec_e = dict(name="flash_packed_fwd", route="cuda",
-                         source="apex_tpu_torch/csrc/flash_packed_fwd.cu",
-                         replaces="apex_tpu/ops/attention.py:832",
-                         shape=shape, max_abs_err=errs["e"][0], ms=ms_e,
-                         plain_ms=plain_e, bound_ms=bms_e, bound_by=by_e,
-                         library_ms=lib_e)
-            rec_f = dict(name="flash_packed_bwd", route="cuda",
-                         source="apex_tpu_torch/csrc/flash_packed_bwd.cu",
-                         replaces="apex_tpu/ops/attention.py:885",
-                         shape=shape, max_abs_err=errs["f"][0], ms=ms_f,
-                         plain_ms=plain_f, bound_ms=bms_f, bound_by=by_f,
-                         library_ms=lib_f)
-    for dtype in (torch.float32, torch.bfloat16):
+            recs.append(dict(
+                name="flash_packed_fwd" + suffix, route="cuda",
+                source="apex_tpu_torch/csrc/flash_packed_fwd.cu",
+                replaces="apex_tpu/ops/attention.py:832", shape=shape,
+                max_abs_err=errs["e"][0], ms=ms_e, plain_ms=plain_e,
+                bound_ms=bms_e, bound_by=by_e, library_ms=lib_e))
+            recs.append(dict(
+                name="flash_packed_bwd" + suffix, route="cuda",
+                source="apex_tpu_torch/csrc/flash_packed_bwd.cu",
+                replaces="apex_tpu/ops/attention.py:885", shape=shape,
+                max_abs_err=errs["f"][0], ms=ms_f, plain_ms=plain_f,
+                bound_ms=bms_f, bound_by=by_f, library_ms=lib_f))
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         _check_dropout_mask(dtype)
-    return rec_e, rec_f
+    _packed_fp16_overflow()
+    return recs
+
+
+def _packed_fp16_overflow() -> None:
+    """Kernels E and F in fp16 with inputs scaled past fp16's range, as a
+    large loss scale does. E: v at 2^14 (clamped to 65504) under dropout
+    0.5, so o = drop(p) v / l passes 65504 wherever a kept v dominates its
+    row; F: do at 2^12 and v at 2^6, so ds = p (dp - delta) overflows
+    wherever p is not small, and dq and dk take it. Each must give
+    non-finite values at the same elements as its plain version (checked
+    on a small shape, where no element sits on the overflow boundary by
+    chance)."""
+    from apex_tpu_torch.ops.attention import (
+        flash_packed_bwd_cuda, flash_packed_bwd_plain, flash_packed_fwd_cuda,
+        flash_packed_fwd_plain)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    b, s, groups, d = 2, 128, 4, 64
+    qkv = torch.randn(s, b, groups, 3, d, device="cuda", generator=gen)
+    e_qkv = qkv.clone()
+    e_qkv[:, :, :, 2] = (e_qkv[:, :, :, 2] * 2.0 ** 14).clamp(-65504, 65504)
+    args = (None, None, DROPOUT_SEED, 0.5, 0.125, True, None, 1, d)
+    e_qkv = e_qkv.reshape(s, b, -1).half()
+    o, _ = flash_packed_fwd_cuda(e_qkv, *args)
+    ro, _ = flash_packed_fwd_plain(e_qkv, *args)
+    _fp16_overflow("kernel_e_fp16_overflow", o, ro,
+                   shape=f"b{b} s{s} groups{groups} d{d}", v_scale="2^14",
+                   rate=0.5)
+    f_qkv = qkv.clone()
+    f_qkv[:, :, :, 2] *= 2.0 ** 6
+    f_qkv = f_qkv.reshape(s, b, -1).half()
+    do = (torch.randn(s, b, groups * d, device="cuda", generator=gen)
+          * 2.0 ** 12).half()
+    args = (None, None, None, 0.0, 0.125, True, None, 1, d)
+    ro, rlse = flash_packed_fwd_plain(f_qkv, *args)
+    dqkv = flash_packed_bwd_cuda(f_qkv, do, ro, rlse, *args)
+    rdqkv = flash_packed_bwd_plain(f_qkv, do, ro, rlse, *args)
+    _fp16_overflow("kernel_f_fp16_overflow", dqkv, rdqkv,
+                   shape=f"b{b} s{s} groups{groups} d{d}", do_scale="2^12",
+                   v_scale="2^6")
 
 
 def _valid_lengths(b, s, seed):
@@ -1190,7 +1507,7 @@ def phase_softmax(timer: Timer) -> tuple:
             for kname, got, want in (("g", y, ry), ("h", dx, rdx)):
                 err = float((got.float() - want.float()).abs().max())
                 if dtype == torch.bfloat16:
-                    ulps = bf16_ulps(got, want)
+                    ulps = ulps16(got, want)
                     ok, tol = ulps <= 1.0, "1_bf16_ulp"
                 else:
                     ulps, ok, tol = 0.0, err <= 1e-5, "atol_1e-5"
@@ -1550,7 +1867,7 @@ def phase_conv(timer: Timer) -> tuple:
                     sums.append(("da_db", got[2], want[2]))
                 for oname, g, h in outs:
                     if dtype == torch.bfloat16:
-                        errs[oname] = bf16_ulps(g, h)
+                        errs[oname] = ulps16(g, h)
                         ok = errs[oname] <= 1.0
                     else:
                         errs[oname] = rel_norm(g, h)
@@ -2896,7 +3213,7 @@ def _mt_optimizer(timer, mt, kind, shapes, dtype, master, g, label) -> dict:
         # ulp of the master on a rounding boundary flips it by one bf16 ulp
         err = max(rel_norm(a, b) for a, b in zip(got, want)
                   if a.numel() and a.dtype == torch.float32)
-        ulps = max((bf16_ulps(a, b) for a, b in zip(params, q)
+        ulps = max((ulps16(a, b) for a, b in zip(params, q)
                     if a.numel() and a.dtype == torch.bfloat16), default=0.0)
         ok = err <= 1e-6 and ulps <= 1.0 and _all_equal(steps, qsteps)
         tol = (f"fp32 leaves rel_norm 1e-6, bf16 params 1 ulp "
@@ -3040,30 +3357,43 @@ def report_optimizer(phase: str, opt, found_inf=None) -> None:
         per_parameter_device_ops=pp_ops, per_parameter_device_ms=fmt(pp_ms))
 
 
-def phase_train_amp(profile: bool = False) -> dict:
-    """GPT-2 124M at the [train] shape under amp O2: bf16 params
-    (``policy.cast_to_param``), FusedAdam with fp32 masters, a dynamic
-    loss scaler (2**16, hysteresis 1); each step is scale_loss -> backward
-    -> unscale (multi_tensor_scale) -> step(found_inf) (multi_tensor_adam)
-    -> update. Step AMP_INJECT_STEP gets an inf in one grad element after
-    its backward: that step must leave every param, master, moment and
-    step count bitwise unchanged, halve the scale and reset the growth
-    tracker; every other step's found_inf is False. Returns the launches."""
+def _cpu_snapshot(tensors) -> list:
+    """Host copies of device tensors (a bitwise record that costs no
+    device memory, so the phase's peak is the step's own)."""
+    return [t.detach().to("cpu", copy=True) for t in tensors]
+
+
+def _train_amp(phase: str, half, profile: bool) -> dict:
+    """GPT-2 124M at the [train] shape under amp O2 with ``half`` params
+    and compute (``policy.cast_to_param``), FusedAdam with fp32 masters, a
+    dynamic loss scaler (2**16, hysteresis 1); each step is scale_loss ->
+    backward -> unscale (multi_tensor_scale) -> step(found_inf)
+    (multi_tensor_adam) -> update. Step AMP_INJECT_STEP gets an inf in one
+    grad element after its backward: that step must leave every param,
+    master, moment and step count bitwise unchanged, halve the scale and
+    reset the growth tracker. bf16 must find no other inf. fp16 may
+    overflow on its own (that is what the dynamic scale is for): each such
+    step is reported and must leave the state bitwise unchanged and halve
+    the scale too, and at least one step must apply. Returns the
+    launches."""
     from apex_tpu_torch import amp
     from apex_tpu_torch.models import GPTModel, TransformerConfig
     from apex_tpu_torch.ops import LAUNCHES, reset_launches
     from apex_tpu_torch.ops import multi_tensor as mt
     from apex_tpu_torch.optimizers import FusedAdam
-    state = amp.initialize("O2")
+    state = amp.initialize("O2", half_dtype=half)
     cfg = TransformerConfig(**GPT2, hidden_dropout=0.0, attention_dropout=0.0,
                             compute_dtype=state.policy.compute_dtype)
     model = GPTModel(cfg, device="cuda",
                      generator=torch.Generator().manual_seed(0))
     state.policy.cast_to_param(model)
     params = list(model.parameters())
+    if any(p.dtype != half for p in params):
+        raise AssertionError(f"{phase}: params not all {half}")
     opt = FusedAdam(params, lr=1e-4, master_weights=True)
     scaler, ss = state.scaler, [state.scaler_states[0]]
     batch = _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, "cuda")
+    fp16 = half == torch.float16
 
     def step(inject):
         opt.zero_grad(set_to_none=True)
@@ -3087,9 +3417,11 @@ def phase_train_amp(profile: bool = False) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    losses, times, founds, scales, unchanged = [], [], [], [], None
+    losses, times, founds, scales, unchanged = [], [], [], [], {}
     for i in range(WARMUP_STEPS + TIMED_STEPS):
-        before = _clones(snapshot()) if i == AMP_INJECT_STEP else None
+        # fp16 may skip any step: keep a host copy before each one
+        before = (_cpu_snapshot(snapshot())
+                  if fp16 or i == AMP_INJECT_STEP else None)
         t0 = time.perf_counter()
         loss, found = step(i == AMP_INJECT_STEP)
         torch.cuda.synchronize()
@@ -3098,9 +3430,9 @@ def phase_train_amp(profile: bool = False) -> dict:
         founds.append(found)
         scales.append((ss[0].loss_scale.clone(),
                        ss[0].growth_tracker.clone()))
-        if before is not None:
-            unchanged = _all_equal(before, snapshot())
-            del before
+        if before is not None and bool(found):
+            unchanged[i] = _all_equal(before, _cpu_snapshot(snapshot()))
+        del before
     launches = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 1e9
     founds = [bool(f) for f in founds]
@@ -3110,8 +3442,11 @@ def phase_train_amp(profile: bool = False) -> dict:
         sizes, "multi_tensor_scale"), **optimizer_launches_per_step(opt))
     n_params = sum(sizes)
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    _report_train("train_amp", "gpt2-124m amp O2 bf16 params fp32 master "
-                  "random-init", [float(x) for x in losses], times, launches,
+    natural = [i for i, f in enumerate(founds) if f and i != AMP_INJECT_STEP]
+    applied = [i for i, f in enumerate(founds) if not f]
+    fl = [float(x) for x in losses]
+    _report_train(phase, f"gpt2-124m amp O2 {str(half)[6:]} params fp32 "
+                  "master random-init", fl, times, launches,
                   peak, per_step, tokens,
                   transformer_train_flops(n_params, tokens,
                                           GPT2["num_layers"],
@@ -3120,24 +3455,51 @@ def phase_train_amp(profile: bool = False) -> dict:
                   batch=TRAIN_BATCH, seq=TRAIN_SEQ, n_params=n_params,
                   injected_step=AMP_INJECT_STEP,
                   found_inf=json.dumps(founds).replace(" ", ""),
+                  natural_overflow_steps=json.dumps(natural).replace(" ", ""),
                   loss_scale=json.dumps([a for a, _ in scale_walk]).replace(
                       " ", ""),
-                  injected_step_unchanged=unchanged)
-    want = [i == AMP_INJECT_STEP for i in range(len(founds))]
-    before_scale = scale_walk[AMP_INJECT_STEP - 1][0]
-    if founds != want or not unchanged or \
-            scale_walk[AMP_INJECT_STEP] != (before_scale / 2, 0) or \
-            before_scale != 2.0 ** 16:
+                  skipped_steps_unchanged=json.dumps(
+                      [unchanged[i] for i in sorted(unchanged)]).replace(
+                          " ", ""),
+                  injected_step_unchanged=unchanged.get(AMP_INJECT_STEP))
+    before_scale = (scale_walk[AMP_INJECT_STEP - 1][0] if AMP_INJECT_STEP
+                    else 2.0 ** 16)
+    halved = all(scale_walk[i] == ((scale_walk[i - 1][0] if i else 2.0 ** 16)
+                                   / 2, 0)
+                 for i in [AMP_INJECT_STEP] + natural)
+    ok = (founds[AMP_INJECT_STEP] and halved
+          and all(unchanged.get(i) for i in [AMP_INJECT_STEP] + natural))
+    if not fp16:
+        ok = ok and not natural and before_scale == 2.0 ** 16
+    elif not applied or not fl[applied[-1]] < fl[applied[0]]:
+        ok = False
+    if not ok:
         raise AssertionError(
-            f"train_amp: found_inf {founds} (want {want}), injected step "
-            f"unchanged {unchanged}, scale walk {scale_walk}")
+            f"{phase}: found_inf {founds} (injected at {AMP_INJECT_STEP}), "
+            f"skipped steps unchanged {unchanged}, scale walk {scale_walk}, "
+            f"applied steps {applied} with losses {fl}")
     _, found = step(False)
-    report_optimizer("train_amp", opt, found)
+    report_optimizer(phase, opt, found)
     if profile:
-        profile_device("train_amp", lambda: [step(False) for _ in range(2)],
+        profile_device(phase, lambda: [step(False) for _ in range(2)],
                        lambda: dict(steps=2, batch=TRAIN_BATCH,
                                     seq=TRAIN_SEQ))
     return launches
+
+
+def phase_train_amp(profile: bool = False) -> dict:
+    """``[train_amp]``: GPT-2 124M under amp O2 in bf16 (``_train_amp``):
+    the injected inf is the only one."""
+    return _train_amp("train_amp", torch.bfloat16, profile)
+
+
+def phase_train_fp16(profile: bool = False) -> dict:
+    """``[train_fp16]``: the same flow with ``half_dtype=torch.float16``
+    (JAX's ``TestFp16Path`` at GPT-2 width): fp16 params and compute on
+    Kernels A, D, E and F in fp16 (LN 25/25, packed 12/12 a step),
+    unscale and Adam as the lists imply; natural overflows are allowed,
+    each skipped bitwise and reported by step."""
+    return _train_amp("train_fp16", torch.float16, profile)
 
 
 def phase_amp_card_vs_cpu() -> None:
@@ -3216,6 +3578,112 @@ def phase_amp_card_vs_cpu() -> None:
                 f"grads {grad_excess} past atol 1e-5 + rtol 1e-4, scalers "
                 f"{wc} vs {wh}, param {worst_name} off by {worst} past atol "
                 f"{atol} + rtol {rtol}")
+    _amp_fp16_card_vs_cpu()
+
+
+#: losses of the fp16 amp flow, card against CPU (``_amp_fp16_card_vs_cpu``)
+AMP_FP16_LOSS_RTOL = 2e-3
+
+
+def _amp_fp16_card_vs_cpu() -> None:
+    """The small GPT under amp O2 in fp16 (``initialize("O2",
+    half_dtype=float16)``: fp16 params and compute, fp32 masters, FusedAdam
+    lr 1e-3, a dynamic scale from 2^16, an inf injected after the backward
+    of step 2) runs 5 steps on the card (Kernels A, D, E and F in fp16,
+    cuBLAS's fp16 GEMMs with fp32 sums) and on the CPU (the kernels' plain
+    versions): every parameter stays fp16, the scaler states agree at
+    every step, and the losses within rtol ``AMP_FP16_LOSS_RTOL``. Both
+    sides compute each op in fp32 and round it once to fp16, but sum in
+    other orders, so a value near a rounding boundary lands on a
+    neighbouring fp16 value (a 2^-11 relative step); the loss, a mean over
+    such values through two layers, is held to four such steps (2e-3).
+    cuBLAS's reduced-precision fp16 reductions are off for the comparison
+    (they round partial sums to fp16, which the CPU never does)."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import GPTModel, TransformerConfig
+    from apex_tpu_torch.optimizers import FusedAdam
+    cfg = TransformerConfig(**SMALL, compute_dtype=torch.float16)
+    keep = torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
+    out = {}
+    try:
+        for device in ("cuda", "cpu"):
+            state = amp.initialize("O2", half_dtype=torch.float16,
+                                   device=device)
+            model = GPTModel(cfg, device=device,
+                             generator=torch.Generator().manual_seed(2))
+            state.policy.cast_to_param(model)
+            params = list(model.parameters())
+            opt = FusedAdam(params, lr=1e-3, master_weights=True)
+            sc, ss = state.scaler, state.scaler_states[0]
+            batch = _train_batch(cfg, 4, 96, device, seed=3)
+            losses, walk = [], []
+            for i in range(5):
+                opt.zero_grad(set_to_none=True)
+                loss = model(*batch)
+                amp.scale_loss(loss, ss).backward()
+                if i == 2:
+                    params[0].grad.view(-1)[0] = float("inf")
+                _, found = sc.unscale([p.grad for p in params], ss)
+                opt.step(found_inf=found)
+                ss = sc.update(ss, found)
+                losses.append(float(loss.detach()))
+                walk.append(sc.state_dict(ss))
+            out[device] = (losses, walk,
+                           all(p.dtype == torch.float16 for p in params))
+    finally:
+        torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = \
+            keep
+    (lc, wc, hc), (lh, wh, hh) = out["cuda"], out["cpu"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    log("amp_card_vs_cpu", optimizer="adam", half="float16", steps=5,
+        injected_step=2, losses_cuda=json.dumps(lc).replace(" ", ""),
+        losses_cpu=json.dumps(lh).replace(" ", ""),
+        loss_rel_err=f"{rel:.2e}", loss_rtol=AMP_FP16_LOSS_RTOL,
+        loss_scale=json.dumps([w["loss_scale"] for w in wc]).replace(
+            " ", ""), scaler_equal=wc == wh, params_fp16=hc and hh)
+    if rel > AMP_FP16_LOSS_RTOL or wc != wh or not (hc and hh) or \
+            wc[2]["loss_scale"] != wc[1]["loss_scale"] / 2 or \
+            not lc[-1] < lc[0]:
+        raise AssertionError(
+            f"amp_card_vs_cpu fp16: loss rel err {rel} "
+            f"({AMP_FP16_LOSS_RTOL}), scalers {wc} vs {wh}, params fp16 "
+            f"{hc} {hh}, losses {lc}")
+
+
+def phase_fp16_gates() -> None:
+    """Kernels B, C, G and J have no fp16 path yet: their wrappers raise
+    TypeError on fp16 card tensors before any launch (no counter moves)."""
+    from apex_tpu_torch.ops import LAUNCHES
+    from apex_tpu_torch.ops.attention import flash_fwd_cuda
+    from apex_tpu_torch.ops.conv_fused import conv1x1_fwd_cuda
+    from apex_tpu_torch.ops.decode_attention import paged_decode_cuda
+    from apex_tpu_torch.ops.softmax import softmax_fwd_cuda
+    q = torch.zeros(1, 12, 64, 64, device="cuda", dtype=torch.float16)
+    pages = torch.zeros(4, 16, 12 * 64, device="cuda", dtype=torch.float16)
+    table = torch.zeros(1, 2, dtype=torch.int32, device="cuda")
+    x = torch.zeros(64, 64, device="cuda", dtype=torch.float16)
+    calls = {
+        "B": lambda: flash_fwd_cuda(q, q, q, None, 0.125, True),
+        "C": lambda: paged_decode_cuda(q[:, :, 0], pages, pages, table,
+                                       table[0, :1], 1, None),
+        "G": lambda: softmax_fwd_cuda(q, None, 1.0, 64, True),
+        "J": lambda: conv1x1_fwd_cuda(x, None, None, x, None, False, False),
+    }
+    before = dict(LAUNCHES)
+    raised = {}
+    for name, call in calls.items():
+        try:
+            call()
+            raised[name] = None
+        except TypeError as e:
+            raised[name] = "float16" in str(e)
+    torch.cuda.synchronize()
+    log("fp16_gates", raised=json.dumps(raised).replace(" ", ""),
+        launches_unchanged=LAUNCHES == before)
+    if not all(raised.values()) or LAUNCHES != before:
+        raise AssertionError(f"fp16 gates: {raised}, launches moved "
+                             f"{LAUNCHES != before}")
 
 
 #: the phase whose run is each kernel's main path
@@ -3231,10 +3699,18 @@ MAIN_PATH = {"layer_norm_fwd": "serve", "flash_fwd": "serve",
              "multi_tensor_l2norm": "bert_train",
              "multi_tensor_adam": "train_amp",
              "multi_tensor_lamb": "bert_train",
-             "multi_tensor_sgd": "rn50_train"}
+             "multi_tensor_sgd": "rn50_train",
+             "layer_norm_fwd_fp16": "train_fp16",
+             "layer_norm_bwd_fp16": "train_fp16",
+             "flash_packed_fwd_fp16": "train_fp16",
+             "flash_packed_bwd_fp16": "train_fp16"}
 #: the launch counter of a record that names a variant of a kernel
 COUNTER = {"paged_decode_int8": "paged_decode",
-           "paged_decode_window": "paged_decode"}
+           "paged_decode_window": "paged_decode",
+           "layer_norm_fwd_fp16": "layer_norm_fwd",
+           "layer_norm_bwd_fp16": "layer_norm_bwd",
+           "flash_packed_fwd_fp16": "flash_packed_fwd",
+           "flash_packed_bwd_fp16": "flash_packed_bwd"}
 
 
 def main() -> int:
@@ -3253,11 +3729,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     timer = Timer()
-    records = [phase_layer_norm(timer), phase_flash(timer),
-               *phase_decode(timer), phase_layer_norm_bwd(timer),
+    records = [phase_layer_norm(timer), phase_layer_norm_fp16(timer),
+               phase_flash(timer), *phase_decode(timer),
+               phase_layer_norm_bwd(timer), phase_layer_norm_bwd_fp16(timer),
                *phase_packed(timer), *phase_softmax(timer),
                phase_flash_bwd(timer), *phase_conv(timer),
                *phase_multi_tensor(timer)]
+    phase_fp16_gates()
     paths = {"serve": phase_serve(args.profile)}
     for name, knobs, kind in SERVE_FEATURES:
         paths[name] = phase_serve_feature(name, knobs, kind, args.profile)
@@ -3268,6 +3746,7 @@ def main() -> int:
     paths["train"] = phase_train(args.profile)
     phase_train_card_vs_cpu()
     paths["train_amp"] = phase_train_amp(args.profile)
+    paths["train_fp16"] = phase_train_fp16(args.profile)
     phase_amp_card_vs_cpu()
     paths["bert_train"] = phase_bert_train(args.profile)
     paths["t5_train"] = phase_t5_train(args.profile)

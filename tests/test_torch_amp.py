@@ -17,7 +17,9 @@
   losses (rtol 1e-5), the scaler state at every step (equal), and the
   parameters after five steps (atol 1e-4, as
   ``test_torch_gpt_training.py`` holds Adam steps). The bf16 O2 run is
-  the slow test, to a stated tolerance.
+  the slow test, to a stated tolerance; the fp16 O2 run (fp16 params and
+  compute over fp32 masters) a fast one: equal scaler walks, losses to
+  rtol 1e-4.
 """
 
 import types
@@ -288,7 +290,8 @@ def _amp_flow(half, steps=5, lr=1e-3):
     jax scaler states, jax params, port losses, port scaler states,
     port model)``; the port's grads take an inf after the backward of
     ``OVERFLOW_STEP`` (JAX's take it after ``jax.grad``)."""
-    jhalf = jnp.float32 if half == torch.float32 else jnp.bfloat16
+    jhalf = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
+             torch.float16: jnp.float16}[half]
     jst = jamp.initialize("O2", half_dtype=jhalf)
     jm = JaxGPT(JaxConfig(**TINY, compute_dtype=jhalf))
     params = jm.init(jax.random.PRNGKey(5))
@@ -355,6 +358,21 @@ def test_amp_o2_flow_on_a_tiny_gpt_matches_jax():
         np.testing.assert_allclose(np.asarray(leaf, np.float32),
                                    np.asarray(want, np.float32), rtol=0,
                                    atol=1e-4, err_msg=str(key))
+
+
+def test_amp_o2_fp16_flow_on_a_tiny_gpt_matches_jax():
+    """fp16 params and compute over fp32 masters, the dtype dynamic loss
+    scaling exists for (JAX's ``TestFp16Path``): the scaler walks agree
+    state for state (the injected overflow halves 2^16), the losses to rtol
+    1e-4 (fp16 keeps 11 bits, so the two frameworks' rounding points move
+    a loss by ~1e-5 of itself), every parameter stays fp16 and the loss
+    falls."""
+    jl, js, _, tl, ts, tm = _amp_flow(torch.float16)
+    assert all(p.dtype == torch.float16 for p in tm.parameters())
+    np.testing.assert_allclose(tl, jl, rtol=1e-4)
+    assert ts == js
+    assert ts[OVERFLOW_STEP][0] == 2.0 ** 15 and ts[OVERFLOW_STEP][1] == 0
+    assert tl[-1] < tl[0]
 
 
 @pytest.mark.slow

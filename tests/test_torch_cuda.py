@@ -35,12 +35,17 @@ Adam, LAMB and SGD) over lists with a 1-element tensor, one of ``CHUNK +
 mixed dtypes, per-tensor step counts, ``grad_scale``, a device ``lr`` and
 a ``found_inf`` step (scale, Adam, SGD bitwise their plain versions; the
 norms 1e-6 relative, LAMB rtol 1e-5), and the optimizers taking them on
-CUDA parameters. Tolerances: f32 atol 1e-4 (summation order only, TF32 off;
-the softmax 1e-5); bf16 1 ulp of an fp32 reference rounded to bf16 (the
-flash backwards, which round ds and p to bf16 where the JAX kernels do: 1
-ulp plus one bf16 step of each rounded factor, at most 0.1% of the
-elements past 1 ulp); the conv kernels' fp32 sums (y and dx in f32, stats,
-dW, da, db) norm-wise 1e-5.
+CUDA parameters. Kernels A, D, E and F also run in fp16: the LayerNorm
+tests and the packed cases above in fp16, the 16-byte LayerNorm paths
+with fp16, fp32 or no weight into fp16 or fp32 y (bitwise repeatable),
+and the wrappers of B, C, G, H, I and J refusing fp16 before any launch.
+Tolerances: f32 atol 1e-4 (summation order only, TF32 off; the softmax
+1e-5); bf16 and fp16 1 ulp of an fp32 reference rounded to that type (the
+flash backwards, which round ds and p to it where the JAX kernels do: 1
+ulp plus one step of each rounded factor, at most 0.1% of the elements
+past 1 ulp in bf16 and 0.8% in fp16, whose 2^3 times finer spacing puts
+2^3 times as many ds on a rounding boundary); the conv kernels' fp32 sums
+(y and dx in f32, stats, dW, da, db) norm-wise 1e-5.
 """
 
 import math
@@ -107,17 +112,31 @@ from apex_tpu_torch.ops.softmax import (
 pytestmark = pytest.mark.cuda
 
 
+def one_ulp(want, dtype):
+    """One rounding step of ``dtype`` at ``want`` (fp32): eps of the
+    magnitude (2^-7 in bf16, 2^-10 in fp16), with an absolute floor at the
+    magnitude 2^-8 where an output that cancels to near zero carries fp32
+    summation noise larger than its own ulp."""
+    eps = torch.finfo(dtype).eps
+    return 2.0 ** -8 * eps + eps * want.float().abs()
+
+
 def assert_close_once_rounded(got, want):
     """``want`` is the plain version run on the inputs cast to fp32 and
     rounded to ``got``'s dtype. The kernels also compute in fp32 and round
-    once, so f32 differs by summation order only (atol 1e-4) and bf16 by
-    at most one rounding step: 1 bf16 ulp, i.e. 2^-7 of the magnitude,
-    with an absolute floor of 2^-15 where the output is near zero."""
+    once, so f32 differs by summation order only (atol 1e-4) and bf16 or
+    fp16 by at most one rounding step: 1 ulp, i.e. 2^-7 (bf16) or 2^-10
+    (fp16) of the magnitude, with an absolute floor of 2^-15 or 2^-18
+    where the output is near zero. Non-finite values (an fp16 overflow)
+    must sit at the same elements."""
     if got.dtype == torch.float32:
         torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
     else:
-        torch.testing.assert_close(got.float(), want.float(),
-                                   atol=2.0 ** -15, rtol=2.0 ** -7)
+        eps = torch.finfo(got.dtype).eps
+        assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+        fin = torch.isfinite(want)
+        torch.testing.assert_close(got.float()[fin], want.float()[fin],
+                                   atol=2.0 ** -8 * eps, rtol=eps)
 
 
 @pytest.fixture
@@ -128,7 +147,8 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("is_rms,affine,bias", [
     (False, True, True), (False, False, False), (True, True, False),
     (True, False, False)])
@@ -329,7 +349,8 @@ def test_paged_int8_append_is_bitwise_repeatable(gen):
     assert torch.equal(outs[0][1], outs[1][1])
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("is_rms,affine,bias", [
     (False, True, True), (False, False, False), (True, True, False),
     (True, False, False)])
@@ -406,6 +427,89 @@ def test_layer_norm_vector_paths(gen, name):
                 <= 1e-4
 
 
+#: fp16 rows on the 16-byte kernels: (rows, h, is_rms, bias, w dtype or
+#: None, y dtype): amp O2's fp16 weights, O1's fp32 ones (y promoted to
+#: fp32, or kept in fp16), no weight; GPT-2's rows, a row past a grid,
+#: rows of 96 two to a warp and the T5 decoder's RMSNorm rows
+LN_FP16 = {
+    "o2_ln_8192": (8192, 768, False, True, torch.float16, torch.float16),
+    "o1_ln_8193": (8193, 768, False, True, torch.float32, torch.float32),
+    "o1_ln_out16": (300, 768, False, True, torch.float32, torch.float16),
+    "o2_rms_1824": (1824, 768, True, False, torch.float16, torch.float16),
+    "no_w_h96": (300, 96, False, False, None, torch.float16),
+    "rms_no_w_1": (1, 1000, True, False, None, torch.float16),
+}
+
+
+@pytest.mark.parametrize("name", list(LN_FP16))
+def test_layer_norm_fp16_vector_paths(gen, name):
+    """Kernels A and D on their 16-byte paths in fp16: y and dx within 1
+    fp16 ulp of the plain versions run in fp32, mean and invvar within
+    1e-4, dw and db within 1e-4 of 1 + |value| (fp32 sums in another
+    order), two runs bitwise equal."""
+    rows, h, is_rms, bias, wdt, ydt = LN_FP16[name]
+    x = (2 * torch.randn(rows, h, device="cuda", generator=gen) + 0.5) \
+        .half()
+    dy = torch.randn(rows, h, device="cuda", generator=gen).to(ydt)
+    w = b = None
+    if wdt is not None:
+        w = (1 + 0.1 * torch.randn(h, device="cuda", generator=gen)).to(wdt)
+        if bias:
+            b = (0.1 * torch.randn(h, device="cuda", generator=gen)).to(wdt)
+    y, mean, iv = layer_norm_fwd_cuda(x, w, b, 1e-5, is_rms, ydt)
+    assert layer_norm_fwd_cuda_plan(x, y, w, b).path == "vector"
+    ry, rmean, riv = layer_norm_fwd_plain(x.float(), w, b, 1e-5, is_rms,
+                                          torch.float32)
+    assert_close_once_rounded(y, ry.to(ydt))
+    torch.testing.assert_close(mean, rmean, atol=1e-4, rtol=0)
+    torch.testing.assert_close(iv, riv, atol=1e-4, rtol=0)
+    dy16 = dy.half()
+    dx, dw, db = layer_norm_bwd_cuda(dy16, x, mean, iv, w, is_rms,
+                                     b is not None)
+    assert layer_norm_bwd_cuda_plan(dy16, x, dx, w, b is not None).path == \
+        "vector"
+    rdx, rdw, rdb = layer_norm_bwd_plain(dy16.float(), x.float(), mean, iv,
+                                         w, is_rms, b is not None)
+    assert_close_once_rounded(dx, rdx.half())
+    for got, want in ((dw, rdw), (db, rdb)):
+        if want is None:
+            assert got is None
+        else:
+            assert float(((got - want).abs() / (1 + want.abs())).max()) \
+                <= 1e-4
+    again = (*layer_norm_fwd_cuda(x, w, b, 1e-5, is_rms, ydt),
+             *layer_norm_bwd_cuda(dy16, x, mean, iv, w, is_rms,
+                                  b is not None))
+    for one, two in zip((y, mean, iv, dx, dw, db), again):
+        assert (one is None and two is None) or torch.equal(one, two)
+
+
+def test_fp16_reaches_no_kernel_without_an_fp16_path(gen):
+    """Kernels B, C, G and J-M have no fp16 path yet: their wrappers raise
+    TypeError on fp16 card tensors before any launch."""
+    q = torch.randn(1, 2, 64, 64, device="cuda", generator=gen).half()
+    before = dict(_support.LAUNCHES)
+    with pytest.raises(TypeError, match="float16"):
+        flash_fwd_cuda(q, q, q, None, 0.125, True)
+    with pytest.raises(TypeError, match="float16"):
+        flash_bwd_cuda(q, q, q, q, q, torch.zeros(1, 2, 64, device="cuda"),
+                       None, 0.125, True)
+    pages = torch.zeros(4, 16, 128, device="cuda").half()
+    with pytest.raises(TypeError, match="float16"):
+        paged_decode_cuda(q[:, :, 0], pages, pages,
+                          torch.zeros(1, 2, dtype=torch.int32, device="cuda"),
+                          torch.zeros(1, dtype=torch.int32, device="cuda"), 1,
+                          None)
+    with pytest.raises(TypeError, match="float16"):
+        softmax_fwd_cuda(q, None, 1.0, 64, True)
+    with pytest.raises(TypeError, match="float16"):
+        softmax_bwd_cuda(q, q, 1.0)
+    x = torch.randn(64, 32, device="cuda", generator=gen).half()
+    with pytest.raises(TypeError, match="float16"):
+        conv1x1_fwd_cuda(x, None, None, x[:32], None, False, False)
+    assert _support.LAUNCHES == before
+
+
 @pytest.mark.parametrize("name", ["ln_8193", "rms_8193", "ln_h96"])
 def test_layer_norm_vector_paths_are_bitwise_repeatable(gen, name):
     """Two runs of each 16-byte kernel give the same bits: D's dw/db sums
@@ -473,7 +577,8 @@ def _packed_inputs(gen, case, dtype):
     return qkv, do, kvl, rope, -12345 if rate else None
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("name", list(PACKED))
 def test_flash_packed_kernels(gen, name, dtype):
     case = PACKED[name]
@@ -663,18 +768,22 @@ FLASH_BWD = dict(FLASH, cross_t5=(2, 4, 4, 114, 512, 64, False, [512, 300],
 
 
 def assert_close_up_to_factor_rounding(got, want, slack):
-    """bf16: every element within 1 ulp plus ``slack``
+    """bf16 or fp16: every element within 1 ulp plus ``slack``
     (:func:`flash_bwd_rounding_slack`: the JAX backward rounds ds and p to
-    bf16 before its products, and a ds on a rounding boundary may round to
-    a neighbouring value on one side), and at most 0.1% of the elements
-    past 1 ulp (a boundary flip is rare; a wrong tile would move many
-    elements)."""
+    the input dtype before its products, and a ds on a rounding boundary
+    may round to a neighbouring value on one side), and at most a small
+    share of the elements past 1 ulp (a boundary flip is rare; a wrong
+    tile would move many elements): 0.1% in bf16, and in fp16 eight times
+    that, 0.8%, since against the same fp32 differences (the kernel's exp2
+    approximation, tensor-core sums) fp16's 2^3 times finer spacing puts
+    2^3 times as many ds on a boundary."""
     g, w = got.float(), want.float()
     err = (g - w).abs()
-    one_ulp = 2.0 ** -15 + 2.0 ** -7 * w.abs()
-    assert bool((err <= one_ulp + slack).all()), float((err - one_ulp
-                                                        - slack).max())
-    assert float((err > one_ulp).float().mean()) <= 1e-3
+    ulp = one_ulp(w, got.dtype)
+    assert bool((err <= ulp + slack).all()), float((err - ulp
+                                                    - slack).max())
+    share = 1e-3 * 2.0 ** -7 / torch.finfo(got.dtype).eps
+    assert float((err > ulp).float().mean()) <= share
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
