@@ -28,8 +28,9 @@
 // attention of training (q [16, 12, 114, 64], k/v [16, 12, 512, 64],
 // kv_lengths) it is ~1.0 GFLOP against ~14 MB.
 //
-// bf16 (the path the models run), one tensor-core kernel built as Kernel
-// E's (flash_packed_fwd.cu) on the pieces of flash_mma.cuh: one block of
+// bf16 and fp16 (the paths the models run; T below), one tensor-core
+// kernel built as Kernel E's (flash_packed_fwd.cu) on the pieces of
+// flash_mma.cuh: one block of
 // 4 warps per (head, batch, 64-row query tile), the tiles that see the
 // most keys launched first under a causal mask. Each warp owns 16 query
 // rows:
@@ -39,19 +40,26 @@
 //   that stay in registers;
 // - K and V tiles of 64 keys of the query head's kv head come through a
 //   cp.async ring (3 stages at d <= 64, 2 at 128), one barrier a tile;
-// - S = Q K^T on mma.sync m16n8k16 (bf16 in, fp32 out), scaled in fp32;
+// - S = Q K^T on mma.sync m16n8k16 (T in, fp32 out), scaled in fp32;
 //   masks only on tiles that cross the causal diagonal, kv_length, the
 //   window's edge, sq or sk (flash::tile_cover with the sk - sq offset),
 //   and tiles a warp sees nothing of are skipped, so a warp whose rows
 //   all precede the first key (sq > sk) stores o = 0 and lse = 1e30;
 // - the online softmax in registers (row max and sum over a quad's lanes,
 //   exp on the SFU's exp2; a masked score's exp is 0 by itself);
-// - P V: p is split into bf16 hi + lo, packed straight from the S
+// - P V: p is split into T hi + lo, packed straight from the S
 //   accumulators into A fragments, and multiplied with the same V
 //   fragments (ldmatrix.trans) twice, so that o keeps p to about 2^-16 of
-//   itself and holds 1 bf16 ulp of the plain version (6 d of tensor work
-//   a visible pair in place of 4 d); the tensor cores carry the sums of
-//   S and o; o = acc / l is rounded once to bf16.
+//   itself and holds 1 ulp of the plain version (6 d of tensor work a
+//   visible pair in place of 4 d); the tensor cores carry the sums of S
+//   and o; o = acc / l is rounded once to T;
+// - fp16 takes E's fp16 plan without dropout: p is scaled by 2^14 before
+//   the split (lo = p - hi is about 2^-11 hi, and would fall into fp16's
+//   subnormals for p below about 2^-3), which keeps hi below 2^15 and lo
+//   normal down to p ~ 2^-17, and o is scaled back by 2^-14 before its one
+//   rounding (both exact powers of two; l and lse from the unscaled p).
+//   One fp16 p, unsplit, misses 1 fp16 ulp at s 768 as at E's s 1024
+//   (tests/test_torch_fp16.py emulates both plans on the CPU).
 // Blocks of 4 warps (64 rows), three an SM at 168 registers a thread: at
 // the serving prefill (b 1, 12 heads) E's 128-row blocks would give 12-72
 // blocks on 132 SMs, and they were 11-25% slower at every shape measured
@@ -63,6 +71,8 @@
 // shared memory; the block walks the visible 64-row key/value tiles,
 // computing S = Q K^T and P V with fp32 FMA from shared memory, each
 // thread owning a 4 x (DMAX/16) register tile of the output.
+#include <type_traits>
+
 #include "flash_mma.cuh"
 
 namespace {
@@ -271,7 +281,7 @@ cudaError_t launch_f32(const FlashArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The bf16 kernel: 4 warps of 16 query rows, key tiles of kBK through a
+// The 16-bit kernel: 4 warps of 16 query rows, key tiles of kBK through a
 // ring of STAGES (K, V) stages; three blocks an SM at d <= 64 (168
 // registers a thread; the ring's shared memory caps it there), two at 128.
 template <int DMAX, int STAGES>
@@ -280,25 +290,29 @@ struct MmaCfg {
   static constexpr int kThreads = kWarps * 32;
   static constexpr int kRows = kWarps * 16;  // query rows a block
   static constexpr int kLd = flash::Tile<DMAX>::kLd;
-  static constexpr int kStage = 2 * kBK * kLd;  // K then V, in bf16
+  static constexpr int kStage = 2 * kBK * kLd;  // K then V, 16-bit
   static constexpr size_t bytes = (kRows * kLd + STAGES * kStage) * 2;
   static constexpr int kMinBlocks = DMAX <= 64 ? 3 : 2;
 };
 
-template <int DMAX, int STAGES, bool VEC>
+template <typename T, int DMAX, int STAGES, bool VEC>
 __global__ void __launch_bounds__((MmaCfg<DMAX, STAGES>::kThreads),
                                   (MmaCfg<DMAX, STAGES>::kMinBlocks))
-flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, bf16* __restrict__ o,
+flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, T* __restrict__ o,
               float* __restrict__ lse, const int* __restrict__ kv_lengths,
               int H, int KVH, int d, float scale, const Mask mk) {
   using C = MmaCfg<DMAX, STAGES>;
+  constexpr bool kF16 = std::is_same<T, __half>::value;
+  // fp16: p scaled by 2^14 before its split, o by 2^-14 after (above)
+  constexpr float kPScale = kF16 ? 16384.f : 1.f;
+  constexpr float kOScale = kF16 ? 1.f / 16384.f : 1.f;
   constexpr int kKS = DMAX / 16;  // k16 steps of Q K^T
   constexpr int kNS = kBK / 8;    // n8 score tiles a warp
   constexpr int kNO = DMAX / 8;   // n8 output tiles a warp
   extern __shared__ __align__(16) unsigned char fsmem[];
-  bf16* Qs = reinterpret_cast<bf16*>(fsmem);
-  bf16* kv = Qs + C::kRows * C::kLd;  // the ring's stages
+  T* Qs = reinterpret_cast<T*>(fsmem);
+  T* kv = Qs + C::kRows * C::kLd;  // the ring's stages
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -324,7 +338,7 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float l[2] = {0.f, 0.f};
 
   if (tiles > 0) {
-    auto load_kv = [&](int tile, bf16* stage) {
+    auto load_kv = [&](int tile, T* stage) {
       flash::copy_tile<kBK, DMAX, C::kThreads, VEC>(stage, k, kv_base, d,
                                                     tile * kBK, mk.sk, d);
       flash::copy_tile<kBK, DMAX, C::kThreads, VEC>(
@@ -345,8 +359,8 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int it = 0; it < tiles; ++it) {
       ring::cp_async_wait<STAGES - 2>();
       __syncthreads();
-      const bf16* Ks = kv + (it % STAGES) * C::kStage;
-      const bf16* Vs = Ks + kBK * C::kLd;
+      const T* Ks = kv + (it % STAGES) * C::kStage;
+      const T* Vs = Ks + kBK * C::kLd;
       const int c0 = (first + it) * kBK;
       if (it == 0) {
 #pragma unroll
@@ -373,8 +387,8 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         ring::load_b<kNS, false>(fb, Ks, C::kLd, 16 * kk);
 #pragma unroll
         for (int j = 0; j < kNS; ++j)
-          flash::mma_acc(sc[j], qf[kk][0], fb[j >> 1][2 * (j & 1)],
-                         fb[j >> 1][2 * (j & 1) + 1]);
+          flash::mma_acc<T>(sc[j], qf[kk][0], fb[j >> 1][2 * (j & 1)],
+                            fb[j >> 1][2 * (j & 1) + 1]);
       }
 #pragma unroll
       for (int j = 0; j < kNS; ++j)
@@ -386,19 +400,25 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          ? sc[j][e] * scale : kNeg;
         }
       flash::softmax_step<kNS, kNO>(sc, m, l, acc);
+      if (kF16) {
+#pragma unroll
+        for (int j = 0; j < kNS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[j][e] *= kPScale;
+      }
       // acc += p_hi V + p_lo V
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
         unsigned hi[4], lo[4];
-        flash::p_fragments<kNS>(sc, kk, hi, lo);
+        flash::p_fragments<kNS, T>(sc, kk, hi, lo);
         unsigned fb[kNO / 2][4];
         ring::load_b<kNO, true>(fb, Vs, C::kLd, 16 * kk);
 #pragma unroll
         for (int j = 0; j < kNO; ++j) {
-          flash::mma_acc(acc[j], hi, fb[j >> 1][2 * (j & 1)],
-                         fb[j >> 1][2 * (j & 1) + 1]);
-          flash::mma_acc(acc[j], lo, fb[j >> 1][2 * (j & 1)],
-                         fb[j >> 1][2 * (j & 1) + 1]);
+          flash::mma_acc<T>(acc[j], hi, fb[j >> 1][2 * (j & 1)],
+                            fb[j >> 1][2 * (j & 1) + 1]);
+          flash::mma_acc<T>(acc[j], lo, fb[j >> 1][2 * (j & 1)],
+                            fb[j >> 1][2 * (j & 1) + 1]);
         }
       }
     }
@@ -410,49 +430,56 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row = r0 + lane / 4 + 8 * h;
     if (row >= mk.sq) continue;
     const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
-    bf16* orow = o + q_base + static_cast<long long>(row) * d;
+    T* orow = o + q_base + static_cast<long long>(row) * d;
 #pragma unroll
-    for (int j = 0; j < kNO; ++j)
-      flash::store_pair(orow, 8 * j + 2 * (lane % 4), d, acc[j][2 * h] * inv,
-                        acc[j][2 * h + 1] * inv);
+    for (int j = 0; j < kNO; ++j) {
+      float x = acc[j][2 * h] * inv;
+      float y = acc[j][2 * h + 1] * inv;
+      if (kF16) {
+        x *= kOScale;
+        y *= kOScale;
+      }
+      flash::store_pair(orow, 8 * j + 2 * (lane % 4), d, x, y);
+    }
     if (lane % 4 == 0)
       lse[(static_cast<long long>(bb) * H + hh) * mk.sq + row] =
           l[h] > 0.f ? m[h] + logf(l[h]) : kLsePad;
   }
 }
 
-template <int DMAX, int STAGES, bool VEC>
+template <typename T, int DMAX, int STAGES, bool VEC>
 cudaError_t launch_mma(const FlashArgs& a, cudaStream_t stream) {
   using C = MmaCfg<DMAX, STAGES>;
-  auto kernel = flash_fwd_mma<DMAX, STAGES, VEC>;
+  auto kernel = flash_fwd_mma<T, DMAX, STAGES, VEC>;
   cudaError_t err = apex::allow_smem(kernel, C::bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.h, a.b, (a.mask.sq + C::kRows - 1) / C::kRows);
   kernel<<<grid, C::kThreads, C::bytes, stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.lse,
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse,
       a.kv_lengths, a.h, a.kvh, a.d, a.scale, a.mask);
   return cudaGetLastError();
 }
 
 // 3 ring stages at d <= 64, 2 at 128. 16-byte copies need every row start
 // (a multiple of d past a 16-byte aligned base) on a 16-byte boundary.
-template <int DMAX>
-cudaError_t launch_bf16(const FlashArgs& a, cudaStream_t stream) {
+template <typename T, int DMAX>
+cudaError_t launch_16(const FlashArgs& a, cudaStream_t stream) {
   constexpr int kStages = DMAX <= 64 ? 3 : 2;
   auto aligned = [](const void* p) {
     return reinterpret_cast<unsigned long long>(p) % 16 == 0;
   };
   const bool vec =
       a.d % 8 == 0 && aligned(a.q) && aligned(a.k) && aligned(a.v);
-  return vec ? launch_mma<DMAX, kStages, true>(a, stream)
-             : launch_mma<DMAX, kStages, false>(a, stream);
+  return vec ? launch_mma<T, DMAX, kStages, true>(a, stream)
+             : launch_mma<T, DMAX, kStages, false>(a, stream);
 }
 
 }  // namespace
 
-// q [b, h, sq, d], k/v [b, kvh, sk, d], o like q, lse [b, h, sq] fp32;
-// all contiguous. kv_lengths [b] int32 or null; window 0 = none.
+// q [b, h, sq, d], k/v [b, kvh, sk, d] (f32, bf16 or fp16, one dtype), o
+// like q, lse [b, h, sq] fp32; all contiguous. kv_lengths [b] int32 or
+// null; window 0 = none.
 extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, const void* kv_lengths,
                               void* stream, int b, int h, int kvh, int sq,
@@ -463,10 +490,12 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                     scale, mask_4d(sq, sk, causal, window)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d > 128) return static_cast<int>(cudaErrorInvalidValue);
-  // f32 and bf16 only: fp16 is not yet ported here
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == apex::kBF16)
-    err = d <= 64 ? launch_bf16<64>(a, s) : launch_bf16<128>(a, s);
+    err = d <= 64 ? launch_16<bf16, 64>(a, s) : launch_16<bf16, 128>(a, s);
+  else if (dtype == apex::kF16)
+    err = d <= 64 ? launch_16<__half, 64>(a, s)
+                  : launch_16<__half, 128>(a, s);
   else if (dtype == apex::kF32)
     err = d <= 64 ? launch_f32<64>(a, s) : launch_f32<128>(a, s);
   return static_cast<int>(err);

@@ -1,12 +1,12 @@
 // Paged decode attention over a slot's mapped pages (Kernel C of the port).
 //
 // Replaces: apex_tpu/ops/decode_attention.py `_decode_kernel` (:272),
-// launched by `_pallas` (:355) through `pl.pallas_call` (:409): bf16/f32
-// pools, int8 pools with per-(page, kv head) fp32 scales (:289, :313-315),
-// and w-row query windows (:309-310, :322-328). The append of the step's
-// K/V rows stays torch ops that run first (`_append_rows` /
-// `_quant_append`, as in `_pallas` :365-375), so the pages already hold
-// the new rows.
+// launched by `_pallas` (:355) through `pl.pallas_call` (:409): bf16,
+// fp16 and f32 pools, int8 pools with per-(page, kv head) fp32 scales
+// (:289, :313-315), and w-row query windows (:309-310, :322-328). The
+// append of the step's K/V rows stays torch ops that run first
+// (`_append_rows` / `_quant_append`, as in `_pallas` :365-375), so the
+// pages already hold the new rows.
 //
 // Semantics kept: window row t of slot r attends over logical rows
 // [0, pos_r + t] of its pages; logical page j lives in pool row
@@ -32,11 +32,13 @@
 // Two paths, chosen on the host by ops/decode_attention.py
 // `paged_decode_plan` (pure Python; `pieces` 0 is the element path):
 //
-// The vector path (paged_decode_vec_kernel), for bf16/f32 with head_dim a
-// multiple of one 16-byte piece of q (8 bf16, 4 f32) up to 256 and 16-byte
-// aligned q, pools and ctx; pools in q's dtype, or int8 under bf16 q, read
-// as 8-byte pieces of 8 elements so that q's map of elements to lanes
-// holds (`Pool<bf16, int8_t>`):
+// The vector path (paged_decode_vec_kernel), for bf16/fp16/f32 with
+// head_dim a multiple of one 16-byte piece of q (8 bf16 or fp16, 4 f32) up
+// to 256 and 16-byte aligned q, pools and ctx; pools in q's dtype, or int8
+// under bf16 or fp16 q, read as 8-byte pieces of 8 elements so that q's
+// map of elements to lanes holds (`Pool<T, int8_t>`). fp16 is bf16's
+// template over the 16-bit type: a piece converts (fp16) where it shifts
+// (bf16), both exactly, and the context is rounded once to fp16:
 // - Grid (kv head x head chunk, slot, split). A split is a fixed run of
 //   `split_pages` logical pages; the plan sizes it from the shapes and the
 //   card's occupancy (never from the positions, which stay on the device),
@@ -83,13 +85,14 @@
 //   rows), row (t, head) masked to pos + t; a split reads the union of its
 //   rows' ranges, [pos - window + 1, pos + w - 1], and masks per row.
 // - int8 pools: the split's scales are staged beside its pool rows, and a
-//   piece is dequantized as it is unpacked (`Pool<bf16, int8_t>::unpack`).
+//   piece is dequantized as it is unpacked (`Pool<T, int8_t>::unpack`).
 //
 // The element path (paged_decode_kernel, the first port's kernel, bitwise
-// at w = 1 on bf16/f32 pools) takes everything else: head_dim off the
-// 16-byte pieces, misaligned bases, int8 pools under f32 q. One 128-thread
-// block per (kv head, slot) stages one page of K and V in shared memory as
-// fp32 (int8 dequantized there) and walks the slot's pages in turn.
+// at w = 1 on bf16/f32 pools; fp16 as bf16) takes everything else:
+// head_dim off the 16-byte pieces, misaligned bases, int8 pools under f32
+// q. One 128-thread block per (kv head, slot) stages one page of K and V
+// in shared memory as fp32 (int8 dequantized there) and walks the slot's
+// pages in turn.
 #include <cstdint>
 #include <type_traits>
 
@@ -114,10 +117,13 @@ struct DecodeArgs {
   int b, w, hl, kvh, dh, n_pages, page_size, pages_per_slot, window;
 };
 
-// A pool element as fp32: bf16/f32 as they are; int8 times its scale.
+// A pool element as fp32: bf16/fp16/f32 as they are; int8 times its scale.
 __device__ __forceinline__ float pool_float(float v, float) { return v; }
 __device__ __forceinline__ float pool_float(__nv_bfloat16 v, float) {
   return __bfloat162float(v);
+}
+__device__ __forceinline__ float pool_float(__half v, float) {
+  return __half2float(v);
 }
 __device__ __forceinline__ float pool_float(int8_t v, float scale) {
   return static_cast<float>(v) * scale;
@@ -313,7 +319,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kTileRows = 2;
 constexpr int kStages = 4;
 
-// a 16-byte piece of T as fp32 (exact: a bf16 is the high half of a float)
+// a 16-byte piece of T as fp32, exactly (a bf16 is the high half of a
+// float; an fp16 pair converts through apex::Half16)
 template <typename T>
 struct Piece;
 template <>
@@ -325,6 +332,19 @@ struct Piece<bf16> {
     for (int k = 0; k < 4; ++k) {
       v[2 * k] = __uint_as_float(w[k] << 16);
       v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+    }
+  }
+};
+template <>
+struct Piece<__half> {
+  static constexpr int kElems = 8;
+  __device__ __forceinline__ static void unpack(const uint4& u, float* v) {
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = apex::Half16<__half>::unpack(w[k]);
+      v[2 * k] = f.x;
+      v[2 * k + 1] = f.y;
     }
   }
 };
@@ -354,10 +374,12 @@ struct Pool {
     Piece<T>::unpack(u, v);
   }
 };
-template <>
-struct Pool<bf16, int8_t> {
+// int8 pools under a 16-bit q (bf16 or fp16): 8 elements a piece, as q's
+template <typename T>
+struct Pool<T, int8_t> {
+  static_assert(Piece<T>::kElems == 8, "int8 pieces pair with 16-bit q");
   static constexpr bool kQ8 = true;
-  // 8 bytes (8 int8, the elements of a bf16 piece of q) or 8 zero bytes
+  // 8 bytes (8 int8, the elements of a 16-bit piece of q) or 8 zero bytes
   // without reading when !valid; cp.async of 8 bytes goes through L1 (.ca)
   __device__ __forceinline__ static void copy(uint4* dst, const int8_t* src,
                                               bool valid) {
@@ -856,6 +878,11 @@ VecKernel vec_kernel(int dtype, int pool_int8, int pieces, int heads,
     return pool_int8 ? vec_kernel_win<bf16, int8_t, 1>(hmax, win)
                      : vec_kernel_win<bf16, bf16, 1>(hmax, win);
   }
+  if (dtype == apex::kF16) {
+    if (pieces != 1) return nullptr;
+    return pool_int8 ? vec_kernel_win<__half, int8_t, 1>(hmax, win)
+                     : vec_kernel_win<__half, __half, 1>(hmax, win);
+  }
   if (pool_int8 || dtype != apex::kF32) return nullptr;
   if (pieces == 1) return vec_kernel_win<float, float, 1>(hmax, win);
   if (pieces == 2) return vec_kernel_win<float, float, 2>(hmax, win);
@@ -879,15 +906,16 @@ cudaError_t launch_vec(const VecArgs& a, int dtype, int pool_int8,
 
 }  // namespace
 
-// q [b, w, hl, dh]; pools [n_pages, page_size, kvh * dh] of q's dtype, or
-// int8 (pool_int8) with k_scales / v_scales fp32 [n_pages, kvh]; page_table
-// [b, pages_per_slot] int32; positions [b] int32; ctx [b, w, hl * dh]; all
-// contiguous. window 0 = no sliding window. The plan
-// (ops/decode_attention.py `paged_decode_plan`): pieces 0 takes the element
-// path (ws, counters and the rest of the plan unused); else 16-byte pieces
-// of q a lane, lanes a row, query rows a block (at most 8), pages a split
-// and splits. ws: fp32 [b * w * hl * splits * (dh + 2)] (null when splits
-// is 1); counters: int32 [b * kvh * chunks], zero, left zero.
+// q [b, w, hl, dh] f32, bf16 or fp16; pools [n_pages, page_size, kvh * dh]
+// of q's dtype, or int8 (pool_int8, under any q) with k_scales / v_scales
+// fp32 [n_pages, kvh]; page_table [b, pages_per_slot] int32; positions [b]
+// int32; ctx [b, w, hl * dh]; all contiguous. window 0 = no sliding
+// window. The plan (ops/decode_attention.py `paged_decode_plan`): pieces 0
+// takes the element path (ws, counters and the rest of the plan unused);
+// else 16-byte pieces of q a lane, lanes a row, query rows a block (at
+// most 8), pages a split and splits. ws: fp32 [b * w * hl * splits * (dh
+// + 2)] (null when splits is 1); counters: int32 [b * kvh * chunks], zero,
+// left zero.
 extern "C" int apex_paged_decode(const void* q, const void* k_pages,
                                  const void* v_pages, const void* k_scales,
                                  const void* v_scales, const void* page_table,
@@ -903,8 +931,7 @@ extern "C" int apex_paged_decode(const void* q, const void* k_pages,
   const float* vs = static_cast<const float*>(v_scales);
   if (pool_int8 && (ks == nullptr || vs == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  // f32 and bf16 only: fp16 is not yet ported here
-  if (dtype != apex::kBF16 && dtype != apex::kF32)
+  if (dtype != apex::kBF16 && dtype != apex::kF16 && dtype != apex::kF32)
     return static_cast<int>(cudaErrorInvalidValue);
   if (pieces == 0) {
     DecodeArgs a{q, k_pages, v_pages, ks, vs,
@@ -915,6 +942,9 @@ extern "C" int apex_paged_decode(const void* q, const void* k_pages,
     if (dtype == apex::kBF16)
       err = pool_int8 ? launch_element<bf16, int8_t>(a, s)
                       : launch_element<bf16, bf16>(a, s);
+    else if (dtype == apex::kF16)
+      err = pool_int8 ? launch_element<__half, int8_t>(a, s)
+                      : launch_element<__half, __half>(a, s);
     else
       err = pool_int8 ? launch_element<float, int8_t>(a, s)
                       : launch_element<float, float>(a, s);

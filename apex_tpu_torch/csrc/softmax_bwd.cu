@@ -5,8 +5,10 @@
 //
 // Semantics kept (:118-122): per row, s = rowsum(dy * y) in fp32 and
 // dx = scale * y * (dy - s), computed in fp32 and rounded once to dy's
-// dtype. The mask is not applied again: a position the forward filled with
-// -10000 gets y * (dy - s) like any other, as the JAX custom VJP gives it.
+// dtype (f32, bf16 or fp16; an fp16 dx past 65504 is inf, as the plain
+// version's cast gives it). The mask is not applied again: a position the
+// forward filled with -10000 gets y * (dy - s) like any other, as the JAX
+// custom VJP gives it.
 //
 // Bound on the H100: bytes. At BERT-base pretraining (16 x 12 x 512 rows
 // of 512, bf16) it reads dy and y and writes dx once: ~302 MB, ~90 us at
@@ -90,10 +92,11 @@ extern "C" int apex_softmax_bwd(const void* dy, const void* y, void* dx,
                                 void* stream, long long rows, int k,
                                 float scale, int dtype) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // f32 and bf16 only: fp16 is not yet ported here
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == apex::kBF16)
     err = launch<__nv_bfloat16>(dy, y, dx, rows, k, scale, st);
+  else if (dtype == apex::kF16)
+    err = launch<__half>(dy, y, dx, rows, k, scale, st);
   else if (dtype == apex::kF32)
     err = launch<float>(dy, y, dx, rows, k, scale, st);
   return static_cast<int>(err);

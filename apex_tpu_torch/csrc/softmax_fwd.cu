@@ -26,10 +26,10 @@
 // loads to 0.111, exp2f and one reciprocal a row in place of expf and a
 // division an element to 0.084, ~2.4 TB/s).
 //
-// bf16 with k % 8 == 0 and k <= 1024, x and y 16-byte aligned, and no mask
-// or one whose last stride is 1 and whose other strides and base are
-// multiples of 8 bytes (ops/softmax.py `softmax_fwd_plan`), the row kernel
-// on 16-byte loads: each lane reads 8 bf16 of x in one 16-byte load and
+// bf16 or fp16 with k % 8 == 0 and k <= 1024, x and y 16-byte aligned, and
+// no mask or one whose last stride is 1 and whose other strides and base
+// are multiples of 8 bytes (ops/softmax.py `softmax_fwd_plan`), the row
+// kernel on 16-byte loads: each lane reads 8 of x in one 16-byte load and
 // the 8 mask bytes beside them in one 8-byte load, and holds up to four
 // such pieces in registers (a row of 512: two a lane). A row takes the
 // power of two of lanes that covers its pieces, at most 32, so rows
@@ -37,6 +37,9 @@
 // % of its broadcast strides) is taken once a row. The logits are taken
 // to base 2 (x * (scale log2 e), the fill -10000 log2 e), exponentiated by
 // exp2f and normalised by one reciprocal a row.
+//
+// fp16 takes the same paths as bf16 (one template over the 16-bit type);
+// its logits are the same fp32 values, and y is rounded once to fp16.
 //
 // Other rows, and f32: one warp per row, eight rows per 256-thread block,
 // element by element. A row of up to 1024 keeps its logits in registers
@@ -48,8 +51,6 @@
 #include "common.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
@@ -163,11 +164,12 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-// bf16 on 16-byte loads: LPR lanes a row (32 / LPR rows a warp), piece j of
-// lane i covering columns 8 (i + LPR j) .. + 7, CPL pieces a lane
-template <int CPL, int LPR>
+// bf16 or fp16 (T) on 16-byte loads: LPR lanes a row (32 / LPR rows a
+// warp), piece j of lane i covering columns 8 (i + LPR j) .. + 7, CPL pieces
+// a lane
+template <typename T, int CPL, int LPR>
 __global__ void __launch_bounds__(kThreads)
-softmax_fwd_vec_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
+softmax_fwd_vec_kernel(const T* __restrict__ x, T* __restrict__ y,
                        const Args a) {
   constexpr int kRows = 32 / LPR;  // rows a warp
   const int lane = threadIdx.x % 32;
@@ -177,8 +179,8 @@ softmax_fwd_vec_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
           kRows + lane / LPR;
   // lanes of a row past the last stay for the shuffles, reading nothing
   const bool live = row < a.rows;
-  const bf16* xr = x + (live ? row : 0) * a.k;
-  bf16* yr = y + (live ? row : 0) * a.k;
+  const T* xr = x + (live ? row : 0) * a.k;
+  T* yr = y + (live ? row : 0) * a.k;
   const long long mb = a.mask != nullptr && live ? mask_base(a, row) : 0;
   const int q_pos = a.causal && live ? static_cast<int>(row % a.sq) : 0;
   // logits in base 2: exp2f(l - m) below is exp(l / log2 e - ...)
@@ -197,10 +199,10 @@ softmax_fwd_vec_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
       if (a.mask != nullptr)
         mv = *reinterpret_cast<const unsigned long long*>(a.mask + mb + c0);
     }
-    const bf16* x8 = reinterpret_cast<const bf16*>(&xv);
+    const T* x8 = reinterpret_cast<const T*>(&xv);
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      float l = __bfloat162float(x8[e]) * scale;
+      float l = apex::to_float(x8[e]) * scale;
       if ((mv >> (8 * e)) & 0xffu) l = fill;
       if (a.causal && c0 + e > q_pos) l = fill;
       v[j][e] = in ? l : -FLT_MAX;
@@ -225,10 +227,10 @@ softmax_fwd_vec_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
     const int c0 = 8 * (li + LPR * j);
     if (!(live && c0 < a.k)) continue;
     uint4 ov;
-    bf16* o8 = reinterpret_cast<bf16*>(&ov);
+    T* o8 = reinterpret_cast<T*>(&ov);
 #pragma unroll
     for (int e = 0; e < 8; ++e)
-      o8[e] = __float2bfloat16(v[j][e] * r);
+      apex::store(&o8[e], v[j][e] * r);
     *reinterpret_cast<uint4*>(yr + c0) = ov;
   }
 }
@@ -245,34 +247,35 @@ cudaError_t launch(const void* x, void* y, const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int CPL, int LPR>
+template <typename T, int CPL, int LPR>
 cudaError_t launch_vec(const void* x, void* y, const Args& a,
                        cudaStream_t stream) {
   constexpr long long kBlockRows = kWarps * (32 / LPR);
   const unsigned blocks =
       static_cast<unsigned>((a.rows + kBlockRows - 1) / kBlockRows);
-  softmax_fwd_vec_kernel<CPL, LPR><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const bf16*>(x), static_cast<bf16*>(y), a);
+  softmax_fwd_vec_kernel<T, CPL, LPR><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(y), a);
   return cudaGetLastError();
 }
 
 // (pieces a lane, lanes a row) as ops/softmax.py `softmax_fwd_plan` picks
 // them: one piece a lane over 1-32 lanes, or two or four over 32
+template <typename T>
 cudaError_t launch_vec(const void* x, void* y, const Args& a, int cpl,
                        int lpr, cudaStream_t stream) {
   if (cpl == 1) {
     switch (lpr) {
-      case 1: return launch_vec<1, 1>(x, y, a, stream);
-      case 2: return launch_vec<1, 2>(x, y, a, stream);
-      case 4: return launch_vec<1, 4>(x, y, a, stream);
-      case 8: return launch_vec<1, 8>(x, y, a, stream);
-      case 16: return launch_vec<1, 16>(x, y, a, stream);
-      case 32: return launch_vec<1, 32>(x, y, a, stream);
+      case 1: return launch_vec<T, 1, 1>(x, y, a, stream);
+      case 2: return launch_vec<T, 1, 2>(x, y, a, stream);
+      case 4: return launch_vec<T, 1, 4>(x, y, a, stream);
+      case 8: return launch_vec<T, 1, 8>(x, y, a, stream);
+      case 16: return launch_vec<T, 1, 16>(x, y, a, stream);
+      case 32: return launch_vec<T, 1, 32>(x, y, a, stream);
       default: return cudaErrorInvalidValue;
     }
   }
-  if (cpl == 2 && lpr == 32) return launch_vec<2, 32>(x, y, a, stream);
-  if (cpl == 4 && lpr == 32) return launch_vec<4, 32>(x, y, a, stream);
+  if (cpl == 2 && lpr == 32) return launch_vec<T, 2, 32>(x, y, a, stream);
+  if (cpl == 4 && lpr == 32) return launch_vec<T, 4, 32>(x, y, a, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -281,7 +284,7 @@ cudaError_t launch_vec(const void* x, void* y, const Args& a, int cpl,
 // x and y [rows, k] contiguous, rows = d0 * d1 * d2; mask bool (or null)
 // addressed as mask[i0 * ms0 + i1 * ms1 + i2 * ms2 + c * ms3] for row
 // (i0 * d1 + i1) * d2 + i2; sq >= 1 (read only when causal). cpl > 0 (bf16
-// only) takes the 16-byte path with cpl pieces a lane and lpr lanes a row,
+// and fp16) takes the 16-byte path with cpl pieces a lane and lpr lanes a row,
 // under ops/softmax.py `softmax_fwd_plan`'s conditions; cpl = 0 the
 // element path.
 extern "C" int apex_softmax_fwd(const void* x, const void* mask, void* y,
@@ -293,15 +296,14 @@ extern "C" int apex_softmax_fwd(const void* x, const void* mask, void* y,
   const Args a{static_cast<const unsigned char*>(mask), ms0, ms1, ms2, ms3,
                rows, k, d1, d2, scale, sq, causal};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // f32 and bf16 only: fp16 is not yet ported here
-  if (dtype != apex::kBF16 && dtype != apex::kF32)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err;
-  if (cpl > 0)
-    err = dtype == apex::kBF16 ? launch_vec(x, y, a, cpl, lpr, st)
-                               : cudaErrorInvalidValue;
-  else
-    err = dtype == apex::kBF16 ? launch<__nv_bfloat16>(x, y, a, st)
-                               : launch<float>(x, y, a, st);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == apex::kBF16)
+    err = cpl > 0 ? launch_vec<__nv_bfloat16>(x, y, a, cpl, lpr, st)
+                  : launch<__nv_bfloat16>(x, y, a, st);
+  else if (dtype == apex::kF16)
+    err = cpl > 0 ? launch_vec<__half>(x, y, a, cpl, lpr, st)
+                  : launch<__half>(x, y, a, st);
+  else if (dtype == apex::kF32 && cpl == 0)
+    err = launch<float>(x, y, a, st);
   return static_cast<int>(err);
 }

@@ -118,7 +118,9 @@ class BertModel(nn.Module):
             pooled = torch.tanh(hidden[0].float() @ pooler.weight.t().float()
                                 + pooler.bias)
             cls = self.binary_head.classifier
-            binary_logits = pooled @ cls.weight.t() + cls.bias
+            # fp32 as jnp promotes it: under amp O2 the classifier is 16-bit
+            binary_logits = pooled @ cls.weight.t().to(pooled.dtype) + \
+                cls.bias
         h = self.lm_head.dense(hidden.to(c.compute_dtype))
         h = F.gelu(h, approximate="tanh")
         h = self.lm_head.layernorm(h, out_dtype=h.dtype)

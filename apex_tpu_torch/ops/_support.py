@@ -104,9 +104,9 @@ def cdiv(a: int, b: int) -> int:
 #: dtype codes shared with the C entry points in ``csrc/common.cuh``
 #: (``DType``: kF32, kBF16, kF16)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-#: what a kernel without an fp16 path takes (B, C, G-M)
+#: what a kernel without an fp16 path takes (I, J-M)
 F32_BF16 = (torch.float32, torch.bfloat16)
-#: what Kernels A, D, E and F take
+#: what Kernels A-H take
 F32_BF16_F16 = (torch.float32, torch.bfloat16, torch.float16)
 
 

@@ -97,7 +97,7 @@ def flash_fwd_cuda(q, k, v, kv_lengths, scale: float, causal: bool,
     kvh, sk = k.shape[1], k.shape[2]
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v dtypes differ: {q.dtype} {k.dtype} {v.dtype}")
-    code = _support.dtype_code(q.dtype, _support.F32_BF16,
+    code = _support.dtype_code(q.dtype, _support.F32_BF16_F16,
                                "Kernel B (flash_fwd_cuda)")
     if d > 128:
         raise ValueError(f"head_dim {d} > 128 is not supported by the kernel")

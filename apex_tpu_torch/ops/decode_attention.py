@@ -1,7 +1,7 @@
 """Fused decode-step attention over a PAGED KV cache.
 
-Counterpart of ``apex_tpu/ops/decode_attention.py``: bf16/f32 pools, int8
-pools with per-(page, kv-head) float32 scales, and ``w``-row query windows
+Counterpart of ``apex_tpu/ops/decode_attention.py``: bf16/fp16/f32 pools,
+int8 pools with per-(page, kv-head) float32 scales, and ``w``-row query windows
 (the verify step of speculative decoding: window row ``t`` of a slot lands
 at ``positions[r] + t`` and attends over rows ``[0, positions[r] + t]``).
 
@@ -11,7 +11,7 @@ float32 per int8 pool; page table ``[b, pages_per_slot]`` int32 whose
 unmapped entries hold the sentinel ``n_pages``.
 
 The step's K/V rows are appended first, as torch ops (in place — the JAX
-package's donation has no counterpart here): a copy into bf16/f32 pools,
+package's donation has no counterpart here): a copy into bf16/fp16/f32 pools,
 the rescale-on-append quantization (:func:`paged_quant_scatter`) into int8
 pools, whose values and scales are bitwise JAX's. Then the attention runs:
 on a CUDA tensor the hand-written kernel in ``csrc/paged_decode.cu``, on a
@@ -19,8 +19,8 @@ CPU tensor :func:`decode_plain`, which mirrors the JAX ``_reference``.
 :func:`paged_decode_plan` picks the kernel's path and grid on the host
 from the shapes alone (never the positions, which stay on the card): the
 vector path, whose blocks each take a run of a slot's pages as 16-byte
-pieces and merge in the same launch, for bf16/f32 rows of such pieces at
-aligned addresses; the element path for the rest.
+pieces and merge in the same launch, for bf16/fp16/f32 rows of such pieces
+at aligned addresses; the element path for the rest.
 
 Dropped rows. JAX scatters with ``mode="drop"``: rows whose destination
 is a sentinel page (or past the table) vanish. Torch has no dropping
@@ -56,12 +56,12 @@ _QMAX = 127.0
 #: registers (its cap)
 _MAX_HEADS = 8
 #: head_dim the vector path takes at most (one 16-byte piece a lane at 256
-#: bf16, two at 256 f32)
+#: bf16 or fp16, two at 256 f32)
 _MAX_HEAD_DIM = 256
 #: pages a split may hold (``kMaxSplitPages`` in csrc/paged_decode.cu)
 _MAX_SPLIT_PAGES = 64
 #: elements of a 16-byte piece of q, for the dtypes the vector path takes
-_PIECE_ELEMS = {torch.bfloat16: 8, torch.float32: 4}
+_PIECE_ELEMS = {torch.bfloat16: 8, torch.float16: 8, torch.float32: 4}
 
 
 def paged_pages_for(tokens: int, page_size: int) -> int:
@@ -319,11 +319,12 @@ def paged_decode_plan(b: int, hl: int, kvh: int, dh: int, page_size: int,
     of ``kvh`` heads in ``pool_dtype`` (q's dtype unless given), from the
     shapes alone: it never reads the positions.
 
-    The vector path takes bf16/f32 q with ``dh`` a multiple of one
-    16-byte piece of q (8 bf16, 4 f32) up to 256, pools in q's dtype or
-    int8 under bf16 q (read as 8-byte pieces of 8 elements, so q's map
-    of elements to lanes holds), with q, the pools and ctx at 16-byte
-    aligned addresses (``aligned``); the rest takes the element path. A
+    The vector path takes bf16/fp16/f32 q with ``dh`` a multiple of one
+    16-byte piece of q (8 bf16 or fp16, 4 f32) up to 256, pools in q's
+    dtype or int8 under 16-bit q (read as 8-byte pieces of 8 elements, so
+    q's map of elements to lanes holds), with q, the pools and ctx at
+    16-byte aligned addresses (``aligned``); the rest takes the element
+    path. A
     row's ``dh / piece`` pieces spread over the power of two of lanes that
     covers them (at most 32, two pieces a lane at 256 f32). A kv head's
     ``window x group`` query rows fold together; a block holds at most
@@ -340,7 +341,7 @@ def paged_decode_plan(b: int, hl: int, kvh: int, dh: int, page_size: int,
     pool_dtype = pool_dtype or dtype
     elems = _PIECE_ELEMS.get(dtype, 0)
     pool_ok = pool_dtype == dtype or (pool_dtype == torch.int8
-                                      and dtype == torch.bfloat16)
+                                      and elems == 8)
     if not elems or dh % elems or not 0 < dh <= _MAX_HEAD_DIM or \
             not aligned or not pool_ok:
         return DecodePlan(0, 0, rows, pages_per_slot, 1, (kvh, b, 1))
@@ -385,7 +386,7 @@ def _card_plan(b: int, hl: int, kvh: int, dh: int, page_size: int,
                pool_dtype: Optional[torch.dtype] = None) -> DecodePlan:
     """:func:`paged_decode_plan` on CUDA device ``dev``, made once per
     configuration: the plan is a function of these arguments alone."""
-    code = _support.dtype_code(dtype, _support.F32_BF16,
+    code = _support.dtype_code(dtype, _support.F32_BF16_F16,
                                "Kernel C (paged_decode_cuda)")
     int8 = int(pool_dtype == torch.int8)
     return paged_decode_plan(
@@ -426,7 +427,7 @@ def paged_decode_cuda(q, k_pages, v_pages, page_table, positions, group: int,
     kv_heads]`` float32 scales. No host sync and no allocation outside
     torch's caching allocator, so the call can be captured in a CUDA
     graph."""
-    code = _support.dtype_code(q.dtype, _support.F32_BF16,
+    code = _support.dtype_code(q.dtype, _support.F32_BF16_F16,
                                "Kernel C (paged_decode_cuda)")
     n_pages, page_size, f = k_pages.shape
     # a rank-3 q is one window row: the same memory as [b, 1, hl, dh]
@@ -497,7 +498,7 @@ def fused_paged_decode_attention(q, k_new, v_new, k_pages, v_pages,
       k_new, v_new: ``[b, kv_heads * head_dim]`` (or ``[b, w, kv_heads *
         head_dim]``) — this step's K/V rows.
       k_pages, v_pages: ``[n_pages, page_size, kv_heads * head_dim]``
-        bf16/f32 pools, or int8 with scales, from
+        pools in q's dtype (bf16/fp16/f32), or int8 with scales, from
         ``init_paged_kv_caches``; updated IN PLACE.
       page_table: ``[b, pages_per_slot]`` int — unmapped entries hold the
         sentinel ``n_pages``.

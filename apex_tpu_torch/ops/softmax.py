@@ -16,8 +16,10 @@ A CUDA tensor runs ``csrc/softmax_fwd.cu`` (Kernel G) and
 mask (True = masked out) broadcasts against ``x``: Kernel G reads it through
 its broadcast strides, so a ``[b, 1, s, s]`` or ``[b, 1, 1, s]`` mask is
 never expanded in memory. :func:`softmax_fwd_plan` picks Kernel G's path:
-16-byte loads for bf16 rows whose length is a multiple of 8 up to 1024,
-else element by element.
+16-byte loads for bf16 and fp16 rows whose length is a multiple of 8 up
+to 1024, else element by element. Both kernels take f32, bf16 and fp16;
+each computes in fp32 and rounds its output once to the input's dtype
+(an fp16 dx past 65504 is inf, as the plain version's cast gives it).
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ _MASK_FILL = -10000.0
 #: Kernel G's 16-byte path: rows of at most four 16-byte pieces a lane of a
 #: warp
 _VEC_MAX_K = 4 * 8 * 32
+#: the dtypes of Kernel G's 16-byte path: 8 elements a piece
+_VEC_DTYPES = (torch.bfloat16, torch.float16)
 
 
 def softmax_fwd_plan(k: int, dtype: torch.dtype, x_ptr: int, y_ptr: int,
@@ -48,14 +52,14 @@ def softmax_fwd_plan(k: int, dtype: torch.dtype, x_ptr: int, y_ptr: int,
     """``(pieces a lane, lanes a row)`` of Kernel G's 16-byte path
     (csrc/softmax_fwd.cu), or ``(0, 0)`` for its element path.
 
-    The 16-byte path takes bf16 rows of ``k % 8 == 0``, ``k <= 1024``, x
-    and y at 16-byte aligned addresses and, with a mask, one whose last
-    stride is 1 and whose other strides and base are multiples of 8 bytes
-    (its 8 bytes beside a lane's 8 elements are one load). A lane holds one
-    16-byte piece where the row has at most 32 (k <= 256), else two or
-    four; a row takes the power of two of lanes that covers its pieces, so
-    ``32 // lanes`` rows share a warp (four at k = 64)."""
-    if dtype != torch.bfloat16 or k % 8 or k > _VEC_MAX_K or \
+    The 16-byte path takes bf16 or fp16 rows of ``k % 8 == 0``, ``k <=
+    1024``, x and y at 16-byte aligned addresses and, with a mask, one
+    whose last stride is 1 and whose other strides and base are multiples
+    of 8 bytes (its 8 bytes beside a lane's 8 elements are one load). A
+    lane holds one 16-byte piece where the row has at most 32 (k <= 256),
+    else two or four; a row takes the power of two of lanes that covers its
+    pieces, so ``32 // lanes`` rows share a warp (four at k = 64)."""
+    if dtype not in _VEC_DTYPES or k % 8 or k > _VEC_MAX_K or \
             (x_ptr | y_ptr) % 16:
         return 0, 0
     if mask_ptr is not None and (mask_strides[-1] != 1 or mask_ptr % 8 or
@@ -97,7 +101,7 @@ def softmax_fwd_cuda(x4: torch.Tensor, mask4: Optional[torch.Tensor],
                      scale: float, sq: int, causal: bool) -> torch.Tensor:
     """Launch Kernel G on ``x4 [d0, d1, d2, k]``; ``mask4`` (bool,
     broadcastable to x4) is read through its broadcast strides."""
-    code = _support.dtype_code(x4.dtype, _support.F32_BF16,
+    code = _support.dtype_code(x4.dtype, _support.F32_BF16_F16,
                                "Kernel G (softmax_fwd_cuda)")
     x4 = x4.contiguous()
     k = x4.shape[-1]
@@ -129,7 +133,7 @@ def softmax_bwd_cuda(dy: torch.Tensor, y: torch.Tensor,
     """Launch Kernel H: dx in dy's dtype (dy and y share it)."""
     if dy.dtype != y.dtype:
         raise TypeError(f"dy ({dy.dtype}) and y ({y.dtype}) dtypes differ")
-    code = _support.dtype_code(y.dtype, _support.F32_BF16,
+    code = _support.dtype_code(y.dtype, _support.F32_BF16_F16,
                                "Kernel H (softmax_bwd_cuda)")
     dy, y = dy.contiguous(), y.contiguous()
     k = y.shape[-1]

@@ -38,9 +38,11 @@ two largest buckets (GPT-2 124M, b 1, s 512 and 768, causal) and the
 T5-base cross-attention of ``[t5_train]`` (q [16, 12, 114, 64], k and v
 [16, 12, 512, 64], not causal, ``chip_smoke.py`` ``phase_flash_bwd``'s
 seeded kv_lengths), in bf16 beside SDPA and SDPA's backward (a bool key
-mask for the lengths), and in f32 at s 768 and the T5 shape for the f32
-kernels' digests. B is held to its plain version run in f32 (o within 1
-bf16 ulp, lse within 1e-4), I to its plain version on B's o and lse
+mask for the lengths), in f32 at s 768 and the T5 shape for the f32
+kernels' digests, and B alone in fp16 at the three shapes beside SDPA in
+fp16 (cases ``*_fp16``; a checkout without B's fp16 path cannot run them,
+and I has none yet). B is held to its plain version run in f32 (o within
+1 ulp of its 16-bit type, lse within 1e-4), I to its plain version on B's o and lse
 (bf16 within 1 ulp plus ``flash_bwd_rounding_slack``, at most 0.1% past
 1 ulp; f32 atol 1e-4), both bitwise repeatable; their bounds count the
 query rows that see a key and the K/V rows that some row sees, as
@@ -84,6 +86,9 @@ FLASH_CASES = [
     ("t5_cross", 16, 12, 12, 114, 512, False, "t5", torch.bfloat16),
     ("serve_s768_f32", 1, 12, 12, 768, 768, True, None, torch.float32),
     ("t5_cross_f32", 16, 12, 12, 114, 512, False, "t5", torch.float32),
+    ("serve_s512_fp16", 1, 12, 12, 512, 512, True, None, torch.float16),
+    ("serve_s768_fp16", 1, 12, 12, 768, 768, True, None, torch.float16),
+    ("t5_cross_fp16", 16, 12, 12, 114, 512, False, "t5", torch.float16),
 ]
 
 
@@ -192,12 +197,13 @@ def time_flash(att, name, b, h, kvh, sq, sk, causal, kvl, dtype, gen,
     (o, lse), (o2, lse2) = run(), run()
     ro, rlse = att.flash_fwd_plain(q.float(), k.float(), v.float(), *args)
     bf16 = dtype == torch.bfloat16
-    err = dict(o_ulps=ulps(o, ro.to(dtype)) if bf16 else 0.0,
+    half = dtype != torch.float32
+    err = dict(o_ulps=ulps(o, ro.to(dtype)) if half else 0.0,
                o_abs=float((o.float() - ro).abs().max()),
                lse_abs=float((lse - rlse).abs().max()),
                bitwise_repeat=torch.equal(o, o2) and torch.equal(lse, lse2))
     ok = (err["lse_abs"] <= 1e-4 and err["bitwise_repeat"]
-          and (err["o_ulps"] <= 1.0 if bf16 else err["o_abs"] <= 1e-4))
+          and (err["o_ulps"] <= 1.0 if half else err["o_abs"] <= 1e-4))
     lengths = [sk] * b if kvl is None else kvl
     pairs = sum(_visible_pairs(sq, sk, causal, None, n) for n in lengths)
     rows, keys = (sum(t) for t in zip(*(
@@ -219,6 +225,8 @@ def time_flash(att, name, b, h, kvh, sq, sk, causal, kvl, dtype, gen,
          bound_ms=bound_ms(n_bytes, flops, dtype)[0],
          tflops=flops / ms / 1e9, ok=ok, sha256=digest([o, lse]), **err)
     del ro, rlse, o2, lse2
+    if dtype == torch.float16:
+        return                  # Kernel I has no fp16 path yet
 
     do = torch.randn(b, h, sq, d, device="cuda", generator=gen).to(dtype)
     run = lambda: att.flash_bwd_cuda(q, k, v, do, o, lse, *args)  # noqa

@@ -130,10 +130,14 @@ def digest(tensors) -> str:
 
 
 def ulps(got, want) -> float:
+    """Largest |got - want| in ulps of ``got``'s 16-bit type (fp16: 10
+    fraction bits; bf16, and anything else: 7) at the larger magnitude,
+    floored at 2^-8."""
     g, w = got.float(), want.float()
+    bits = 10 if got.dtype == torch.float16 else 7
     mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -8)
     return float(((g - w).abs() / torch.exp2(torch.floor(torch.log2(mag))
-                                              - 7)).max())
+                                              - bits)).max())
 
 
 def rel(got, want) -> float:

@@ -25,10 +25,14 @@ its own process. ``paged_decode_cuda`` is timed at:
 - ``int8``, ``w2``, ``w4``, ``int8_w4``: the table in bf16 over int8
   pools (quantized page by page, then the step's rows appended with the
   rescale-on-append) and with 2- and 4-row query windows (a checkout
-  without them cannot run these cases).
+  without them cannot run these cases);
+- ``*_fp16``: the table, full, one, gqa and gqa_window cases and the
+  int8, w4 and int8_w4 ones with fp16 q (and fp16 pools where they are
+  not int8); a checkout without Kernel C's fp16 path cannot run them.
 
 Each case is first held to its plain version run in f32 and rounded once
-(1 bf16 ulp in bf16, atol 1e-4 in f32) and run twice (bitwise equal);
+(1 ulp of its 16-bit type, atol 1e-4 in f32) and run twice (bitwise
+equal);
 its launch plan is printed where the checkout has one
 (``paged_decode_cuda_plan``: path, pages a split, splits, heads a block,
 grid), and the sha256 of its context. Then it is timed with the L2
@@ -73,7 +77,7 @@ import torch
 import ln_timing
 from conv_timing import HBM_BYTES_S, SPIN_CYCLES, digest, ulps
 
-BF16, F32 = torch.bfloat16, torch.float32
+BF16, F16, F32 = torch.bfloat16, torch.float16, torch.float32
 
 
 def _load_smoke():
@@ -104,6 +108,10 @@ CASES = [
     ("w4", 8, 12, 1, 64, 64, 12, TABLE, None, BF16, 4, False),
     ("int8_w4", 8, 12, 1, 64, 64, 12, TABLE, None, BF16, 4, True),
 ]
+CASES += [(f"{c[0].removesuffix('_bf16')}_fp16", *c[1:9], F16, *c[10:])
+          for c in CASES
+          if c[0] in ("table_bf16", "full", "one", "gqa", "gqa_window",
+                      "int8", "w4", "int8_w4")]
 
 
 class Timer(ln_timing.Timer):
@@ -211,10 +219,11 @@ def time_case(da, timer, gen, case, emit) -> None:
     else:
         want = da.decode_plain(q.float(), kp.float(), vp.float(), pt, pos,
                                group, window)
-    err = ulps(got, want.to(dtype)) if dtype == BF16 else \
+    half = dtype != F32
+    err = ulps(got, want.to(dtype)) if half else \
         float((got - want).abs().max())
     same = torch.equal(got, again)
-    ok = same and err <= (1.0 if dtype == BF16 else 1e-4)
+    ok = same and err <= (1.0 if half else 1e-4)
     n_bytes = SMOKE._decode_bytes(q, pt, positions, ps, hl // group, window,
                                   1 if int8 else None, int8)
     emit(kernel="paged_decode", case=name, b=b, heads=hl, group=group, dh=dh,
@@ -224,7 +233,7 @@ def time_case(da, timer, gen, case, emit) -> None:
          rows_read=SMOKE._decode_rows(positions, ps, pps, window, w),
          ms=event_ms(timer, run), kernel_ms=kernel_ms(timer, run),
          host_us=host_us(run), bound_ms=n_bytes / HBM_BYTES_S * 1e3, ok=ok,
-         err=err, tol="1 bf16 ulp" if dtype == BF16 else "atol 1e-4",
+         err=err, tol=f"1 {str(dtype)[6:]} ulp" if half else "atol 1e-4",
          repeat_bitwise=same, sha256=digest([got]))
 
 

@@ -17,7 +17,11 @@ printing its own lines and raising on failure:
               element path), each within 1 fp16 ulp and bitwise
               repeatable, and [64, 768] with w at 2^15, where y overflows
               at the plain version's elements (masks held, not values);
-4. kernel B — flash attention forward vs its plain version;
+4. kernel B — flash attention forward vs its plain version: the serve
+              buckets, GQA and a window in bf16 and f32, then in fp16 at
+              s 512 and 768, GQA, the window, kv_lengths with a 0 row,
+              head_dim 128 and the T5 cross-attention shape (each timed
+              beside SDPA, two runs bitwise equal);
 5. kernel C — paged decode attention vs its plain version: the serve
               shape (b 8, 12 heads, positions 63-700) in bf16 and f32 on
               the vector path, GQA at head_dim 128 over 2048 rows with and
@@ -27,6 +31,8 @@ printing its own lines and raising on failure:
               the serve shape (timed), GQA, the corners and head_dim 60,
               each int8 append run twice bitwise equal; two runs bitwise
               equal; the launch plan and the context's sha256 printed;
+              then every case above with fp16 q (fp16 or int8 pools),
+              the serve shape, int8 and w 4 timed cold with their bound;
 6. kernel D — LayerNorm backward vs its plain version: GPT-2's training
               rows in bf16 over fp32 w and b, f32 and RMSNorm, the T5
               decoder's [1824, 768] RMSNorm and a bf16 width off the
@@ -55,7 +61,7 @@ printing its own lines and raising on failure:
               overflow cases of E (v at
               2^14 under dropout 0.5) and F (do at 2^12, v at 2^6), whose
               non-finite elements must be the plain versions';
-    fp16_gates — Kernels B, C, G and J (no fp16 path yet) raise TypeError
+    fp16_gates — Kernels I and J-M (no fp16 path yet) raise TypeError
               on fp16 card tensors and launch nothing;
 9. serve    — GPT-2 124M (bf16, random weights from a seed) serves 16
               greedy requests through ``InferenceEngine``; the launch
@@ -81,6 +87,13 @@ printing its own lines and raising on failure:
               prefill), and an ``EngineSupervisor`` whose fault injector
               raises once in decode and once in prefill (two restarts);
               every request ends ``length``/``eos``;
+    serve_fp16 — the ``[serve]`` requests on GPT-2 124M in fp16 (fp16
+              weights from the seed, fp16 pools): every request ends
+              ``length``/``eos``, C launched decode steps x 12, B 12 a
+              prefill, A > 0, every other kernel 0; then
+              ``[serve_fp16_pairs]``, the bf16 and fp16 models serving in
+              turns (bf16, fp16, fp16, bf16): tokens/s, TTFT p50, decode
+              ms a step;
 10. card vs CPU — one f32 request gives the same greedy tokens on the card
               as the plain path on the CPU; then a small f32 GPT serves
               shared-prefix requests with the prefix cache, int8 pools and
@@ -89,7 +102,12 @@ printing its own lines and raising on failure:
               speculation (3), chunked prefill paged and flat, a priority
               preemption whose continuation the supervisor resubmits, and
               a supervisor restart after injected failures, each with the
-              same tokens on both;
+              same tokens on both; then a small fp16 GPT teacher-forced on
+              the CPU's greedy tokens on the paged and the flat layout
+              (prefill and 8 decode steps): the card's logits within
+              ``SERVE_FP16_LOGIT_ULPS`` fp16 ulps of the row's largest,
+              the argmax equal wherever the CPU's top-two margin is
+              clear of that;
 11. train   — GPT-2 124M in the ``bench.py`` configuration (bf16 compute,
               fp32 params, b 8, s 1024, FusedAdam lr 1e-4) takes 2 + 8
               steps of ``make_train_step`` on a fixed seeded batch; every
@@ -103,9 +121,12 @@ printing its own lines and raising on failure:
               card and on the CPU from the same seed: losses and every
               step-1 gradient leaf agree;
 13. kernel G/H — the masked softmax forward and backward vs their plain
-              versions: BERT's [16,1,512,512] padding mask with fully
-              masked rows (which must be 1/k), a [b,1,1,s] key mask,
-              causal [96,1024,1024], rows of 17, 1000 and 4097, scale != 1;
+              versions in f32, bf16 and fp16: BERT's [16,1,512,512]
+              padding mask with fully masked rows (which must be 1/k), a
+              [b,1,1,s] key mask, causal [96,1024,1024], rows of 17, 1000
+              and 4097, scale != 1 (BERT's timed in bf16 and fp16); then
+              H in fp16 with dy at 2^14 and scale 8, non-finite at the
+              plain version's elements;
 14. kernel I — the 4D flash backward vs its plain version: the T5
               cross-attention shape with kv_lengths, causal GQA at 1024,
               window 256, a kv_lengths row at 0, causal sq != sk; two runs
@@ -116,6 +137,11 @@ printing its own lines and raising on failure:
               every kernel as the model's code implies (LN 26/26, softmax
               12/12, the flash kernels 0, LAMB's l2norm and LAMB kernels
               as its list implies);
+    bert_train_fp16 — the same BERT-base under amp O2 in fp16
+              (FusedLAMB over fp32 masters, dynamic scale from 2^16, an
+              inf injected at step 5): LN 26/26, softmax 12/12 in fp16, the
+              flash kernels 0, unscale, LAMB and its norms as the lists
+              imply; every skipped step bitwise unchanged, the loss falls;
 16. t5_train — an encoder-decoder at T5-base widths (12 + 12 layers,
               RMSNorm, ReLU, inputs 512 with seeded enc_lengths, targets
               114, b 16, FusedAdam lr 1e-4), the same checks (LN 62/62,
@@ -182,15 +208,17 @@ printing its own lines and raising on failure:
               fp32 masters, dynamic scale, an inf at step 2) 5 steps with
               FusedAdam, FusedLAMB and FusedSGD on the card and the CPU:
               the losses, scaler states and parameters agree; then the
-              same GPT under O2 in fp16 with FusedAdam: scaler states
-              equal, losses within ``AMP_FP16_LOSS_RTOL``.
+              same GPT under O2 in fp16 with FusedAdam, and a small BERT
+              with a padding mask under O2 in fp16 with FusedLAMB: scaler
+              states equal, losses within ``AMP_FP16_LOSS_RTOL``.
 
 Then one JSON line of per-kernel numbers (launches from the phase that
 drives each kernel's slice: serve for A-C, serve_int8 and serve_spec for
 C's int8 and window records, train for D-F, bert_train for G and H,
 t5_train for I, rn50_train for J-M and SGD, train_amp for the unscale
 and Adam kernels, bert_train for LAMB and the norms, train_fp16 for the
-fp16 records of A, D, E and F, with every path's counts in
+fp16 records of A, D, E and F, serve_fp16 for those of B and C,
+bert_train_fp16 for those of G and H, with every path's counts in
 ``launches_by_path``;
 times from CUDA events in this run; ``bound_ms`` from this run's shapes
 over the H100's published peaks), and last ``{"ok": true, "device":
@@ -605,17 +633,27 @@ def _visible_rows_keys(sq, sk, causal, window, kv_len) -> tuple:
     return rows, keys
 
 
-def phase_flash(timer: Timer) -> dict:
+def phase_flash(timer: Timer) -> list:
+    """Kernel B against its plain version run in f32 and rounded once (1
+    ulp of the 16-bit type, f32 atol 1e-4) at the serve buckets, GQA, a
+    window; every case timed beside SDPA. fp16 at the two largest buckets,
+    GQA and the window, each two runs bitwise equal, then
+    :func:`_flash_fp16_cases`. Returns the bf16 and fp16 records at s 768."""
     from apex_tpu_torch.ops.attention import flash_fwd_cuda, flash_fwd_plain
     g = torch.Generator(device="cuda").manual_seed(2)
-    record = None
+    records = []
     # (heads, kv_heads, s, window, dtype): the serve buckets at GPT-2
-    # widths, a GQA and a sliding-window case, and one f32 check
+    # widths, a GQA and a sliding-window case, and one f32 check; fp16 at
+    # the buckets of 512 and 768, GQA and the window
     cases = [(12, 12, s, None, torch.bfloat16) for s in (64, 128, 256, 512,
                                                          768)]
     cases += [(12, 4, 512, None, torch.bfloat16),
               (12, 12, 768, 256, torch.bfloat16),
               (12, 12, 768, None, torch.float32)]
+    cases += [(12, 12, 512, None, torch.float16),
+              (12, 12, 768, None, torch.float16),
+              (12, 4, 512, None, torch.float16),
+              (12, 12, 768, 256, torch.float16)]
     for h, kvh, s, window, dtype in cases:
         d = 64
         q = torch.randn(1, h, s, d, device="cuda", generator=g).to(dtype)
@@ -628,10 +666,15 @@ def phase_flash(timer: Timer) -> dict:
         torch.cuda.synchronize()
         err = float((o.float() - ro.float()).abs().max())
         ulps, ok, tol = check_close(o, ro)
-        if not ok or not torch.isfinite(lse).all():
+        same = None
+        if dtype == torch.float16:
+            again = flash_fwd_cuda(q, k, v, None, scale, True, window)
+            same = torch.equal(again[0], o) and torch.equal(again[1], lse)
+        if not ok or not torch.isfinite(lse).all() or same is False:
             raise AssertionError(f"flash_fwd h={h} kvh={kvh} s={s} "
                                  f"window={window} {dtype}: max err {err} "
-                                 f"({ulps} ulp) — tolerance {tol}")
+                                 f"({ulps} ulp) — tolerance {tol}; two runs "
+                                 f"bitwise equal: {same}")
         esz = q.element_size()
         pairs = _visible_pairs(s, s, True, window, s)
         n_bytes = (2 * q.numel() + k.numel() + v.numel()) * esz + h * s * 4
@@ -654,15 +697,80 @@ def phase_flash(timer: Timer) -> dict:
             window=window, dtype=str(dtype)[6:], max_abs_err=f"{err:.3e}",
             ulps=ulps, tol=tol.replace(" ", "_"), ms=f"{ms:.5f}",
             plain_ms=f"{plain:.5f}",
-            library_ms=f"{lib:.5f}", bound_ms=f"{bms:.5f}", bound_by=by)
-        if (h, kvh, s, window, dtype) == (12, 12, 768, None, torch.bfloat16):
-            record = dict(name="flash_fwd", route="cuda",
-                          source="apex_tpu_torch/csrc/flash_fwd.cu",
-                          replaces="apex_tpu/ops/attention.py:266",
-                          shape="q,k,v[1,12,768,64] bf16 causal",
-                          max_abs_err=err, ms=ms, plain_ms=plain,
-                          bound_ms=bms, bound_by=by, library_ms=lib)
-    return record
+            library_ms=f"{lib:.5f}", bound_ms=f"{bms:.5f}", bound_by=by,
+            **({} if same is None else dict(repeat_bitwise=same,
+                                            sha256=digest(o))))
+        if (h, kvh, s, window) == (12, 12, 768, None) and \
+                dtype != torch.float32:
+            fp16 = dtype == torch.float16
+            records.append(dict(
+                name="flash_fwd_fp16" if fp16 else "flash_fwd",
+                route="cuda", source="apex_tpu_torch/csrc/flash_fwd.cu",
+                replaces="apex_tpu/ops/attention.py:266",
+                shape=f"q,k,v[1,12,768,64] {str(dtype)[6:]} causal",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=lib))
+    _flash_fp16_cases(timer, g)
+    return records
+
+
+#: Kernel B's other fp16 cases: (name, b, h, kvh, sq, sk, d, causal,
+#: kv_lengths, window) — kv_lengths with a 0 row, head_dim 128, and the
+#: T5-base cross-attention of ``[t5_train]`` (phase_flash_bwd's seeded
+#: kv_lengths)
+FLASH_FP16_CASES = [
+    ("kv_lengths_0", 3, 12, 12, 512, 512, 64, False, [512, 200, 0], None),
+    ("d128", 1, 12, 12, 512, 512, 128, True, None, None),
+    ("t5_cross", T5_BATCH, 12, 12, T5_DEC, T5_ENC, 64, False, "t5", None),
+]
+
+
+def _flash_fp16_cases(timer: Timer, g) -> None:
+    """:data:`FLASH_FP16_CASES` in fp16: o within 1 fp16 ulp of the plain
+    version run in f32 and rounded once, lse within 1e-4, a row that sees
+    no key 0 with lse 1e30, two runs bitwise equal; timed beside SDPA (a
+    bool key mask for the lengths)."""
+    from apex_tpu_torch.ops.attention import flash_fwd_cuda, flash_fwd_plain
+    for name, b, h, kvh, sq, sk, d, causal, kvl, window in FLASH_FP16_CASES:
+        if kvl == "t5":
+            kvl = _valid_lengths(b, sk, 11).tolist()
+        q = torch.randn(b, h, sq, d, device="cuda", generator=g).half()
+        k, v = (torch.randn(b, kvh, sk, d, device="cuda", generator=g)
+                .half() for _ in range(2))
+        kvl_t = None if kvl is None else torch.tensor(kvl, device="cuda")
+        args = (kvl_t, 1.0 / math.sqrt(d), causal, window)
+        o, lse = flash_fwd_cuda(q, k, v, *args)
+        again = flash_fwd_cuda(q, k, v, *args)
+        ro, rlse = flash_fwd_plain(q.float(), k.float(), v.float(), *args)
+        ro = ro.half()
+        torch.cuda.synchronize()
+        err = float((o.float() - ro.float()).abs().max())
+        ulps, ok, tol = check_close(o, ro)
+        lse_err = float((lse - rlse).abs().max())
+        same = torch.equal(again[0], o) and torch.equal(again[1], lse)
+        empty_ok = True
+        if kvl is not None and 0 in kvl:
+            r = kvl.index(0)
+            empty_ok = not o[r].any() and bool((lse[r] == 1e30).all())
+        if not (ok and lse_err <= 1e-4 and same and empty_ok):
+            raise AssertionError(
+                f"flash_fwd fp16 {name}: max err {err} ({ulps} ulp; {tol}), "
+                f"lse err {lse_err}, bitwise repeat {same}, empty rows "
+                f"{empty_ok}")
+        mask = (None if kvl_t is None else
+                (torch.arange(sk, device="cuda")[None, :]
+                 < kvl_t[:, None])[:, None, None, :])
+        ms = timer(lambda: flash_fwd_cuda(q, k, v, *args))
+        lib = timer(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=causal))
+        log("kernel_b", case=name, shape=f"q[{b},{h},{sq},{d}] "
+            f"kv[{b},{kvh},{sk},{d}]".replace(" ", "_"), causal=causal,
+            kv_lengths="seeded" if name == "t5_cross" else
+            json.dumps(kvl).replace(" ", ""), dtype="float16", max_abs_err=f"{err:.3e}", ulps=ulps,
+            tol=tol.replace(" ", "_"), lse_err=f"{lse_err:.2e}",
+            repeat_bitwise=same, ms=f"{ms:.5f}", library_ms=f"{lib:.5f}",
+            sha256=digest(o))
+        del q, k, v, o, lse, again, ro, rlse
 
 
 def _decode_plan_text(plan) -> str:
@@ -777,8 +885,8 @@ def _decode_window_inputs(b, hl, group, dh, ps, pps, positions, dtype, g,
 def _decode_check(name, q, kp, vp, pt, pos, group, window, ks=None,
                   vs=None) -> tuple:
     """Kernel C against its plain version run in f32 and rounded once
-    (1 bf16 ulp, f32 atol 1e-4; int8 pools dequantized in f32 on both
-    sides), two runs bitwise equal; logs the case with its plan and the
+    (1 ulp of the 16-bit type, f32 atol 1e-4; int8 pools dequantized in
+    f32 on both sides), two runs bitwise equal; logs the case with its plan and the
     sha256 of its context, and returns (max abs err, plan, ctx)."""
     from apex_tpu_torch.ops.decode_attention import (decode_plain,
                                                      paged_decode_cuda,
@@ -860,19 +968,21 @@ DECODE_WINDOW_CASES = [
 DECODE_RECORDS = {"int8": "paged_decode_int8", "w4": "paged_decode_window"}
 
 
-def _decode_window_phase(timer: Timer, g) -> list:
-    """Kernel C's int8 and window cases (:data:`DECODE_WINDOW_CASES`):
-    each against its plain version in f32, two runs bitwise equal, the
-    int8 append run twice from the same seed bitwise equal (pools and
+def _decode_window_phase(timer: Timer, g, half=torch.bfloat16) -> list:
+    """Kernel C's int8 and window cases (:data:`DECODE_WINDOW_CASES`) with
+    q in ``half`` (and f32 on the element path over int8 pools, with
+    bf16): each against its plain version in f32, two runs bitwise equal,
+    the int8 append run twice from the same seed bitwise equal (pools and
     scales), the serve-shape ones timed beside their plain version and
-    bound. Returns the kernel records."""
+    bound. Returns the kernel records (bf16's; fp16's timings are logged
+    only: no serve phase runs fp16 with int8 pools or windows)."""
     from apex_tpu_torch.ops.decode_attention import (decode_plain,
                                                      paged_decode_cuda)
     records = []
     for (name, b, hl, group, dh, ps, pps, positions, window, w, int8, path,
          sentinel) in DECODE_WINDOW_CASES:
-        for dtype in ((torch.bfloat16, torch.float32) if int8 and
-                      path == "element" else (torch.bfloat16,)):
+        for dtype in ((half, torch.float32) if int8 and path == "element"
+                      and half == torch.bfloat16 else (half,)):
             args = _decode_window_inputs(b, hl, group, dh, ps, pps,
                                          positions, dtype, g, w, int8,
                                          sentinel)
@@ -912,6 +1022,8 @@ def _decode_window_phase(timer: Timer, g) -> list:
                     plain_ms=f"{plain:.5f}", library_ms=None,
                     bound_ms=f"{bms:.5f}", bound_by=by, rows_read=rows,
                     plan=_decode_plan_text(plan))
+                if dtype != torch.bfloat16:
+                    continue
                 records.append(dict(
                     name=DECODE_RECORDS[name], route="cuda",
                     source="apex_tpu_torch/csrc/paged_decode.cu",
@@ -931,8 +1043,8 @@ def phase_decode(timer: Timer) -> list:
     b, hl, dh, ps, max_len = 8, 12, 64, 64, 768
     pps = max_len // ps
     positions = (63, 64, 200, 700) * 2
-    record = None
-    for dtype in (torch.bfloat16, torch.float32):
+    records = []
+    for dtype in (torch.bfloat16, torch.float32, torch.float16):
         q, kp, vp, pt, pos = _decode_inputs(b, hl, 1, dh, ps, pps, positions,
                                             dtype, g)
         err, plan, _ = _decode_check("table", q, kp, vp, pt, pos, 1, None)
@@ -952,16 +1064,18 @@ def phase_decode(timer: Timer) -> list:
             plain_ms=f"{plain:.5f}", library_ms=None,
             bound_ms=f"{bms:.5f}", bound_by=by, rows_read=rows,
             plan=_decode_plan_text(plan))
-        if dtype == torch.bfloat16:
-            record = dict(name="paged_decode", route="cuda",
-                          source="apex_tpu_torch/csrc/paged_decode.cu",
-                          replaces="apex_tpu/ops/decode_attention.py:272",
-                          shape=f"b{b} heads{hl} dh{dh} page{ps} bf16 cold L2",
-                          max_abs_err=err, ms=ms, plain_ms=plain,
-                          bound_ms=bms, bound_by=by, library_ms=None)
+        if dtype != torch.float32:
+            fp16 = dtype == torch.float16
+            records.append(dict(
+                name="paged_decode_fp16" if fp16 else "paged_decode",
+                route="cuda", source="apex_tpu_torch/csrc/paged_decode.cu",
+                replaces="apex_tpu/ops/decode_attention.py:272",
+                shape=f"b{b} heads{hl} dh{dh} page{ps} {str(dtype)[6:]} "
+                "cold L2", max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=bms, bound_by=by, library_ms=None))
     for (name, b, hl, group, dh, ps, pps, positions, window, dtypes,
          sentinel) in DECODE_CASES:
-        for dtype in dtypes:
+        for dtype in dtypes + (torch.float16,):
             args = _decode_inputs(b, hl, group, dh, ps, pps, positions,
                                   dtype, g, sentinel)
             _, plan, _ = _decode_check(name, *args, group, window)
@@ -970,7 +1084,8 @@ def phase_decode(timer: Timer) -> list:
                 raise AssertionError(f"paged_decode {name} {dtype}: "
                                      f"{plan.path} path")
             del args
-    records = [record] + _decode_window_phase(timer, g)
+    records += _decode_window_phase(timer, g)
+    _decode_window_phase(timer, g, torch.float16)
     torch.cuda.empty_cache()
     return records
 
@@ -1480,20 +1595,21 @@ def _softmax_mask(kind, shape, seed):
     return ~(valid[:, None, None, :] & valid[:, None, :, None])
 
 
-def phase_softmax(timer: Timer) -> tuple:
-    """Kernels G and H against their plain versions in f32 (atol 1e-5) and
-    bf16 (1 ulp of the plain version run in fp32 and rounded); BERT's
-    fully masked rows must be 1/k. The BERT bf16 case is timed."""
+def phase_softmax(timer: Timer) -> list:
+    """Kernels G and H against their plain versions in f32 (atol 1e-5),
+    bf16 and fp16 (1 ulp of the plain version run in fp32 and rounded);
+    BERT's fully masked rows must be 1/k. The BERT bf16 and fp16 cases are
+    timed (their records); then H's fp16 overflow."""
     from apex_tpu_torch.ops.softmax import (softmax_bwd_cuda,
                                             softmax_bwd_plain,
                                             softmax_fwd_cuda,
                                             softmax_fwd_plain)
     gen = torch.Generator(device="cuda").manual_seed(7)
-    rec_g = rec_h = None
+    records = []
     for name, shape, kind, sq, scale in SOFTMAX_CASES:
         mask = _softmax_mask(kind, shape, 8)
         causal = sq > 0
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
             x = (3 * torch.randn(shape, device="cuda", generator=gen)).to(
                 dtype)
             dy = torch.randn(shape, device="cuda", generator=gen).to(dtype)
@@ -1506,9 +1622,9 @@ def phase_softmax(timer: Timer) -> tuple:
             errs = {}
             for kname, got, want in (("g", y, ry), ("h", dx, rdx)):
                 err = float((got.float() - want.float()).abs().max())
-                if dtype == torch.bfloat16:
+                if dtype != torch.float32:
                     ulps = ulps16(got, want)
-                    ok, tol = ulps <= 1.0, "1_bf16_ulp"
+                    ok, tol = ulps <= 1.0, f"1_{str(dtype)[6:]}_ulp"
                 else:
                     ulps, ok, tol = 0.0, err <= 1e-5, "atol_1e-5"
                 if not ok or not torch.isfinite(got).all():
@@ -1527,7 +1643,7 @@ def phase_softmax(timer: Timer) -> tuple:
                                          f"masked rows are not 1/k "
                                          f"({uniform})")
             fields = {}
-            if name == "bert" and dtype == torch.bfloat16:
+            if name == "bert" and dtype != torch.float32:
                 esz = x.element_size()
                 n = x.numel()
                 # G reads x only where the mask leaves a key visible (a
@@ -1550,20 +1666,23 @@ def phase_softmax(timer: Timer) -> tuple:
                     dy, y, -1, x.dtype))
                 fields = dict(g=(ms_g, plain_g, lib_g, bms_g, by_g),
                               h=(ms_h, plain_h, lib_h, bms_h, by_h))
-                shape_s = (f"x[{','.join(map(str, shape))}] bf16, mask "
+                shape_s = (f"x[{','.join(map(str, shape))}] "
+                           f"{str(dtype)[6:]}, mask "
                            f"[{','.join(map(str, mask.shape))}]")
-                rec_g = dict(name="softmax_fwd", route="cuda",
-                             source="apex_tpu_torch/csrc/softmax_fwd.cu",
-                             replaces="apex_tpu/ops/softmax.py:47",
-                             shape=shape_s, max_abs_err=errs["g"][0],
-                             ms=ms_g, plain_ms=plain_g, bound_ms=bms_g,
-                             bound_by=by_g, library_ms=lib_g)
-                rec_h = dict(name="softmax_bwd", route="cuda",
-                             source="apex_tpu_torch/csrc/softmax_bwd.cu",
-                             replaces="apex_tpu/ops/softmax.py:111",
-                             shape=shape_s, max_abs_err=errs["h"][0],
-                             ms=ms_h, plain_ms=plain_h, bound_ms=bms_h,
-                             bound_by=by_h, library_ms=lib_h)
+                tag = "_fp16" if dtype == torch.float16 else ""
+                records += [
+                    dict(name="softmax_fwd" + tag, route="cuda",
+                         source="apex_tpu_torch/csrc/softmax_fwd.cu",
+                         replaces="apex_tpu/ops/softmax.py:47",
+                         shape=shape_s, max_abs_err=errs["g"][0], ms=ms_g,
+                         plain_ms=plain_g, bound_ms=bms_g, bound_by=by_g,
+                         library_ms=lib_g),
+                    dict(name="softmax_bwd" + tag, route="cuda",
+                         source="apex_tpu_torch/csrc/softmax_bwd.cu",
+                         replaces="apex_tpu/ops/softmax.py:111",
+                         shape=shape_s, max_abs_err=errs["h"][0], ms=ms_h,
+                         plain_ms=plain_h, bound_ms=bms_h, bound_by=by_h,
+                         library_ms=lib_h)]
             for kname in ("g", "h"):
                 err, ulps, tol = errs[kname]
                 t = fields.get(kname)
@@ -1580,7 +1699,23 @@ def phase_softmax(timer: Timer) -> tuple:
                         library_ms=f"{t[2]:.5f}", bound_ms=f"{t[3]:.5f}",
                         bound_by=t[4])))
             del x, dy, y, ry, dx, rdx
-    return rec_g, rec_h
+    # H in fp16 under an overflowing loss scale at BERT's shape: dy at 2^14
+    # (inf where |dy| passes 65504: a row's s is then inf, and its dx inf,
+    # or NaN where dy is inf too) and scale 8, where dx also passes 65504
+    # by itself where y is not small. (At 2^12 nothing overflows: y (dy -
+    # s) peaks where y is near 1/2, at a quarter of dy's spread.)
+    shape = SOFTMAX_CASES[0][1]
+    mask = _softmax_mask("padding", shape, 8)
+    x = (3 * torch.randn(shape, device="cuda", generator=gen)).half()
+    y = softmax_fwd_cuda(x, mask, 1.0, 0, False)
+    dy = (torch.randn(shape, device="cuda", generator=gen)
+          * 2.0 ** 14).half()
+    dx = softmax_bwd_cuda(dy, y, 8.0)
+    rdx = softmax_bwd_plain(dy.float(), y.float(), 8.0).half()
+    _fp16_overflow("kernel_h_fp16_overflow", dx, rdx,
+                   shape=f"[{','.join(map(str, shape))}]", dy="2^14",
+                   scale=8.0, dy_nonfinite=int((~torch.isfinite(dy)).sum()))
+    return records
 
 
 #: (name, b, h, kvh, sq, sk, causal, kv_lengths, window): the T5-base
@@ -2281,12 +2416,13 @@ def _serve_timed(name, make_engine, requests):
     return results, wall, launches, engine
 
 
-def _serve_line(name, results, wall, metrics, launches, **extra) -> None:
+def _serve_line(name, results, wall, metrics, launches,
+                model="gpt2-124m bf16 random-init", **extra) -> None:
     tokens = sum(len(r.tokens) for r in results)
     ttft = sorted(r.ttft_s for r in results if r.ttft_s is not None)
     step = metrics.histogram("decode_step_s")
     counters = metrics.counters()
-    log(name, model="gpt2-124m bf16 random-init", requests=len(results),
+    log(name, model=model, requests=len(results),
         tokens=tokens, wall_s=f"{wall:.3f}",
         tokens_per_s=f"{tokens / wall:.1f}",
         ttft_p50_ms=f"{1e3 * ttft[len(ttft) // 2]:.2f}" if ttft else None,
@@ -2404,6 +2540,166 @@ def phase_serve_paths(seed: int, profile: bool = False) -> dict:
     del sup, engine, model
     torch.cuda.empty_cache()
     return paths
+
+
+def _serve_metrics(results, wall, metrics) -> tuple:
+    """(tokens/s, TTFT p50 ms, decode ms a step) of one serve."""
+    ttft = sorted(r.ttft_s for r in results)
+    step = metrics.histogram("decode_step_s")
+    return (sum(len(r.tokens) for r in results) / wall,
+            1e3 * ttft[len(ttft) // 2], 1e3 * step.sum / step.count)
+
+
+def phase_serve_fp16(profile: bool = False) -> dict:
+    """``[serve_fp16]``: GPT-2 124M with fp16 weights (``compute_dtype``
+    fp16: the engine casts the seeded fp32 weights once, and its pools are
+    fp16) serves ``[serve]``'s 16 greedy requests at its engine size
+    (prompts 64-700, 32 new tokens, 8 slots of 768, pages of 64, no prefix
+    cache): every request ends ``length``/``eos``, Kernel C launched
+    exactly decode steps x 12 and B 12 a prefill, A at least once, every
+    other kernel 0. Then ``[serve_fp16_pairs]``: the bf16 model of
+    ``[serve]`` and the fp16 one serve the same requests on fresh engines
+    in turns (bf16, fp16, fp16, bf16), each after its own warm-up: tokens/s,
+    TTFT p50 and decode ms a step of each (host clocks: compare within the
+    pairs). Returns the launches of ``[serve_fp16]``."""
+    from apex_tpu_torch.models import GPTModel, TransformerConfig
+    from apex_tpu_torch.serving import EngineConfig, InferenceEngine
+    ecfg = EngineConfig(max_slots=8, max_len=768, page_size=64,
+                        prefix_cache=False)
+    models = {dt: GPTModel(TransformerConfig(
+        **GPT2, params_dtype=torch.float32, compute_dtype=dt), device="cuda",
+        generator=torch.Generator().manual_seed(0))
+        for dt in (torch.float16, torch.bfloat16)}
+    requests = _requests(16, GPT2["vocab_size"], 32, 1)
+    results, wall, launches, engine = _serve_timed(
+        "serve_fp16", lambda: InferenceEngine(models[torch.float16], ecfg),
+        requests)
+    pools = engine._caches[0][0]
+    counters = engine.metrics.counters()
+    layers = GPT2["num_layers"]
+    want = {k: 0 for k in ALL_KERNELS if k != "layer_norm_fwd"}
+    want.update(paged_decode=counters["decode_steps"] * layers,
+                flash_fwd=counters["prefills"] * layers)
+    got = {k: v for k, v in launches.items() if k != "layer_norm_fwd"}
+    if got != want or launches["layer_norm_fwd"] <= 0 or \
+            pools.dtype != torch.float16 or \
+            engine.model.embedding.word_embeddings.weight.dtype != \
+            torch.float16:
+        raise AssertionError(
+            f"serve_fp16: launches {launches}, expected {want} and "
+            f"layer_norm_fwd > 0; pools {pools.dtype}")
+    _serve_line("serve_fp16", results, wall, engine.metrics, launches,
+                model="gpt2-124m fp16 random-init", pool=str(pools.dtype)[6:])
+    del engine
+    runs = {torch.bfloat16: [], torch.float16: []}
+    for dt in (torch.bfloat16, torch.float16, torch.float16, torch.bfloat16):
+        res, w, _, eng = _serve_timed(
+            f"serve_pair_{str(dt)[6:]}",
+            lambda: InferenceEngine(models[dt], ecfg), requests)
+        runs[dt].append(_serve_metrics(res, w, eng.metrics))
+        del eng
+    fields = {}
+    for dt, name in ((torch.bfloat16, "bf16"), (torch.float16, "fp16")):
+        for i, key in enumerate(("tokens_per_s", "ttft_p50_ms",
+                                 "decode_ms_per_step")):
+            fields[f"{key}_{name}"] = json.dumps(
+                [round(r[i], 3) for r in runs[dt]]).replace(" ", "")
+    log("serve_fp16_pairs", order="bf16,fp16,fp16,bf16", **fields)
+    if profile:
+        fresh = InferenceEngine(models[torch.float16], ecfg)
+        profile_device("serve_fp16", lambda: fresh.serve(
+            _requests(8, GPT2["vocab_size"], 16, 7)), lambda: dict(
+                requests=8,
+                decode_steps=fresh.metrics.counters()["decode_steps"]))
+    del models
+    torch.cuda.empty_cache()
+    return launches
+
+
+#: the card's fp16 logits against the CPU's, teacher-forced
+#: (``phase_serve_fp16_card_vs_cpu``): a multiple of the ulp of the row's
+#: largest magnitude (fp16: 2^-10 of it)
+SERVE_FP16_LOGIT_ULPS = 16
+
+
+def phase_serve_fp16_card_vs_cpu() -> None:
+    """A small GPT (2 layers, hidden 128) in fp16 serves one request (a
+    prompt of 64, 9 new tokens: the prefill's token and 8 decode steps) on
+    the paged and the flat layout, first on the CPU (greedy), then on the
+    card teacher-forced on the CPU's tokens (the engine's token choice
+    replaced by the CPU's), so that both see the same inputs at every
+    position. The card's logits (Kernel B in the prefill, C in each paged
+    decode step) must lie within ``SERVE_FP16_LOGIT_ULPS`` fp16 ulps of
+    the row's largest magnitude of the CPU's: both round each op once to
+    fp16 but sum in other orders (cuBLAS's fp16 GEMMs, the kernels' fp32
+    p against the plain versions' rounded p), so a value near a rounding
+    boundary lands one fp16 step away and the steps compound over two
+    layers, the LM head's 128-term dots and the decode steps' caches. The
+    argmax must agree wherever the CPU's top-two margin exceeds that
+    tolerance. Greedy tokens are not compared: where two logits tie
+    closer than one rounding, the card may choose the other."""
+    from apex_tpu_torch.models import GPTModel, TransformerConfig
+    from apex_tpu_torch.serving import EngineConfig, InferenceEngine
+    cfg = TransformerConfig(**SMALL, compute_dtype=torch.float16)
+    keep = torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
+    try:
+        for layout in ("paged", "flat"):
+            ecfg = EngineConfig(max_slots=1, max_len=128, page_size=16,
+                                prefix_cache=False, kv_layout=layout)
+            seen, tokens = {}, {}
+            for device in ("cpu", "cuda"):
+                model = GPTModel(cfg, device=device,
+                                 generator=torch.Generator().manual_seed(0))
+                engine = InferenceEngine(model, ecfg, device=device)
+                rows, forced = [], tokens.get("cpu")
+                pick = engine._pick
+
+                def teacher(logits, *args, _pick=pick, _rows=rows,
+                            _forced=forced):
+                    _rows.append(logits.float().cpu())
+                    out = _pick(logits, *args)
+                    if _forced is not None:
+                        out = torch.full_like(out, _forced[len(_rows) - 1])
+                    return out
+
+                engine._pick = teacher
+                req = _requests(1, cfg.vocab_size, 9, 4)[0]
+                res = engine.serve([req])[0]
+                if res.finish_reason not in ("length", "eos"):
+                    raise AssertionError(f"serve_fp16_card_vs_cpu {layout} "
+                                         f"on {device}: {res.finish_reason}")
+                seen[device], tokens[device] = torch.cat(rows), res.tokens
+            want, got = seen["cpu"], seen["cuda"]
+            if got.shape != want.shape or tokens["cuda"] != tokens["cpu"]:
+                raise AssertionError(f"serve_fp16_card_vs_cpu {layout}: "
+                                     f"{tuple(got.shape)} vs "
+                                     f"{tuple(want.shape)} logits, tokens "
+                                     f"{tokens}")
+            mag = want.abs().amax(dim=-1, keepdim=True)
+            tol = SERVE_FP16_LOGIT_ULPS * torch.exp2(
+                torch.floor(torch.log2(mag)) - 10)
+            ratio = float(((got - want).abs() / tol).max())
+            top2 = want.topk(2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > tol[:, 0]
+            agree = got.argmax(-1) == want.argmax(-1)
+            log("serve_fp16_card_vs_cpu", layout=layout, positions=len(want),
+                max_abs_err=f"{float((got - want).abs().max()):.3e}",
+                max_err_over_tol=f"{ratio:.3f}",
+                tol=f"{SERVE_FP16_LOGIT_ULPS}_fp16_ulps_of_row_max",
+                clear_margins=int(clear.sum()),
+                argmax_agree_where_clear=bool(agree[clear].all()),
+                argmax_agree=int(agree.sum()), finite=bool(
+                    torch.isfinite(got).all()))
+            if ratio > 1.0 or not agree[clear].all() or \
+                    not torch.isfinite(got).all():
+                raise AssertionError(
+                    f"serve_fp16_card_vs_cpu {layout}: logits at {ratio} of "
+                    f"the tolerance, argmax where clear "
+                    f"{agree[clear].tolist()}")
+    finally:
+        torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = \
+            keep
 
 
 def phase_serving_paths_card_vs_cpu(seed: int) -> None:
@@ -3363,12 +3659,24 @@ def _cpu_snapshot(tensors) -> list:
     return [t.detach().to("cpu", copy=True) for t in tensors]
 
 
-def _train_amp(phase: str, half, profile: bool) -> dict:
-    """GPT-2 124M at the [train] shape under amp O2 with ``half`` params
-    and compute (``policy.cast_to_param``), FusedAdam with fp32 masters, a
-    dynamic loss scaler (2**16, hysteresis 1); each step is scale_loss ->
-    backward -> unscale (multi_tensor_scale) -> step(found_inf)
-    (multi_tensor_adam) -> update. Step AMP_INJECT_STEP gets an inf in one
+def _zero_unused_grads(params) -> None:
+    """Zero gradients for the parameters the loss does not reach (BERT's
+    binary head under the LM loss), as ``make_train_step`` fills them and
+    ``jax.grad`` gives them, so that LAMB's decoupled decay moves them."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+
+
+def _train_amp(phase: str, half, profile: bool, kind: str = "gpt2") -> dict:
+    """GPT-2 124M at the [train] shape (``kind`` "gpt2"; FusedAdam) or
+    BERT-base at the [bert_train] shape (``kind`` "bert": its seeded
+    padding masks and tokentype ids; FusedLAMB lr 1e-3, weight decay 0.01)
+    under amp O2 with ``half`` params and compute
+    (``policy.cast_to_param``), the optimizer over fp32 masters, a dynamic
+    loss scaler (2**16, hysteresis 1); each step is scale_loss -> backward
+    -> unscale (multi_tensor_scale) -> step(found_inf) (multi_tensor_adam,
+    or LAMB's l2norm and lamb) -> update. Step AMP_INJECT_STEP gets an inf in one
     grad element after its backward: that step must leave every param,
     master, moment and step count bitwise unchanged, halve the scale and
     reset the growth tracker. bf16 must find no other inf. fp16 may
@@ -3377,28 +3685,50 @@ def _train_amp(phase: str, half, profile: bool) -> dict:
     the scale too, and at least one step must apply. Returns the
     launches."""
     from apex_tpu_torch import amp
-    from apex_tpu_torch.models import GPTModel, TransformerConfig
+    from apex_tpu_torch.models import BertModel, GPTModel, TransformerConfig
     from apex_tpu_torch.ops import LAUNCHES, reset_launches
     from apex_tpu_torch.ops import multi_tensor as mt
-    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB
+    from apex_tpu_torch.transformer.enums import AttnMaskType
     state = amp.initialize("O2", half_dtype=half)
-    cfg = TransformerConfig(**GPT2, hidden_dropout=0.0, attention_dropout=0.0,
-                            compute_dtype=state.policy.compute_dtype)
-    model = GPTModel(cfg, device="cuda",
-                     generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(0)
+    if kind == "bert":
+        cfg = TransformerConfig(**BERT, hidden_dropout=0.0,
+                                attention_dropout=0.0,
+                                attn_mask_type=AttnMaskType.padding,
+                                compute_dtype=state.policy.compute_dtype)
+        model = BertModel(cfg, device="cuda", generator=gen)
+        shape, seq, kernels = BERT, BERT_SEQ, BERT_KERNELS
+        batch = _bert_batch(cfg, BERT_BATCH, BERT_SEQ, "cuda", seed=12)
+        positions = BERT_BATCH * BERT_SEQ
+        tokens = int(batch[1].sum())
+        extra = dict(batch=BERT_BATCH, seq=BERT_SEQ, valid_tokens=tokens)
+    else:
+        cfg = TransformerConfig(**GPT2, hidden_dropout=0.0,
+                                attention_dropout=0.0,
+                                compute_dtype=state.policy.compute_dtype)
+        model = GPTModel(cfg, device="cuda", generator=gen)
+        shape, seq, kernels = GPT2, TRAIN_SEQ, TRAIN_KERNELS
+        batch = _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, "cuda")
+        positions = tokens = TRAIN_BATCH * TRAIN_SEQ
+        extra = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ)
     state.policy.cast_to_param(model)
     params = list(model.parameters())
     if any(p.dtype != half for p in params):
         raise AssertionError(f"{phase}: params not all {half}")
-    opt = FusedAdam(params, lr=1e-4, master_weights=True)
+    opt = (FusedLAMB(params, lr=1e-3, weight_decay=0.01, master_weights=True)
+           if kind == "bert" else
+           FusedAdam(params, lr=1e-4, master_weights=True))
     scaler, ss = state.scaler, [state.scaler_states[0]]
-    batch = _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, "cuda")
     fp16 = half == torch.float16
 
     def step(inject):
         opt.zero_grad(set_to_none=True)
         loss = model(*batch)
+        if kind == "bert":
+            loss = loss[0]
         amp.scale_loss(loss, ss[0]).backward()
+        _zero_unused_grads(params)
         if inject:
             params[0].grad.view(-1)[0] = float("inf")
         _, found = scaler.unscale([p.grad for p in params], ss[0])
@@ -3438,21 +3768,22 @@ def _train_amp(phase: str, half, profile: bool) -> dict:
     founds = [bool(f) for f in founds]
     scale_walk = [(float(a), int(b)) for a, b in scales]
     sizes = [p.numel() for p in params]
-    per_step = dict(TRAIN_KERNELS, **mt.optimizer_launches(
+    per_step = dict(kernels, **mt.optimizer_launches(
         sizes, "multi_tensor_scale"), **optimizer_launches_per_step(opt))
     n_params = sum(sizes)
-    tokens = TRAIN_BATCH * TRAIN_SEQ
     natural = [i for i, f in enumerate(founds) if f and i != AMP_INJECT_STEP]
     applied = [i for i, f in enumerate(founds) if not f]
     fl = [float(x) for x in losses]
-    _report_train(phase, f"gpt2-124m amp O2 {str(half)[6:]} params fp32 "
+    name = "bert-base" if kind == "bert" else "gpt2-124m"
+    _report_train(phase, f"{name} amp O2 {str(half)[6:]} params fp32 "
                   "master random-init", fl, times, launches,
                   peak, per_step, tokens,
-                  transformer_train_flops(n_params, tokens,
-                                          GPT2["num_layers"],
-                                          GPT2["hidden_size"], TRAIN_SEQ,
-                                          causal=True),
-                  batch=TRAIN_BATCH, seq=TRAIN_SEQ, n_params=n_params,
+                  transformer_train_flops(n_params, positions,
+                                          shape["num_layers"],
+                                          shape["hidden_size"], seq,
+                                          causal=kind != "bert"),
+                  None if kind != "bert" else positions, **extra,
+                  n_params=n_params,
                   injected_step=AMP_INJECT_STEP,
                   found_inf=json.dumps(founds).replace(" ", ""),
                   natural_overflow_steps=json.dumps(natural).replace(" ", ""),
@@ -3482,8 +3813,7 @@ def _train_amp(phase: str, half, profile: bool) -> dict:
     report_optimizer(phase, opt, found)
     if profile:
         profile_device(phase, lambda: [step(False) for _ in range(2)],
-                       lambda: dict(steps=2, batch=TRAIN_BATCH,
-                                    seq=TRAIN_SEQ))
+                       lambda: dict(steps=2, batch=extra["batch"], seq=seq))
     return launches
 
 
@@ -3500,6 +3830,19 @@ def phase_train_fp16(profile: bool = False) -> dict:
     unscale and Adam as the lists imply; natural overflows are allowed,
     each skipped bitwise and reported by step."""
     return _train_amp("train_fp16", torch.float16, profile)
+
+
+def phase_bert_train_fp16(profile: bool = False) -> dict:
+    """``[bert_train_fp16]``: BERT-base at ``[bert_train]``'s shape (b 16,
+    s 512, seeded padding masks and tokentype ids) under
+    ``amp.initialize("O2", half_dtype=torch.float16)``, FusedLAMB(lr 1e-3,
+    weight decay 0.01) over fp32 masters, a dynamic scale from 2^16
+    (``_train_amp``): Kernels A, D, G and H in fp16 (LN 26/26, softmax
+    12/12 a step, the flash kernels 0), unscale, LAMB and its norms as the
+    lists imply; the injected inf and every natural one skipped bitwise,
+    the scale halved each time, at least one step applied and the loss
+    falling."""
+    return _train_amp("bert_train_fp16", torch.float16, profile, "bert")
 
 
 def phase_amp_card_vs_cpu() -> None:
@@ -3578,31 +3921,39 @@ def phase_amp_card_vs_cpu() -> None:
                 f"grads {grad_excess} past atol 1e-5 + rtol 1e-4, scalers "
                 f"{wc} vs {wh}, param {worst_name} off by {worst} past atol "
                 f"{atol} + rtol {rtol}")
-    _amp_fp16_card_vs_cpu()
+    _amp_fp16_card_vs_cpu("gpt2")
+    _amp_fp16_card_vs_cpu("bert")
 
 
 #: losses of the fp16 amp flow, card against CPU (``_amp_fp16_card_vs_cpu``)
 AMP_FP16_LOSS_RTOL = 2e-3
 
 
-def _amp_fp16_card_vs_cpu() -> None:
-    """The small GPT under amp O2 in fp16 (``initialize("O2",
-    half_dtype=float16)``: fp16 params and compute, fp32 masters, FusedAdam
-    lr 1e-3, a dynamic scale from 2^16, an inf injected after the backward
-    of step 2) runs 5 steps on the card (Kernels A, D, E and F in fp16,
-    cuBLAS's fp16 GEMMs with fp32 sums) and on the CPU (the kernels' plain
-    versions): every parameter stays fp16, the scaler states agree at
-    every step, and the losses within rtol ``AMP_FP16_LOSS_RTOL``. Both
-    sides compute each op in fp32 and round it once to fp16, but sum in
-    other orders, so a value near a rounding boundary lands on a
-    neighbouring fp16 value (a 2^-11 relative step); the loss, a mean over
-    such values through two layers, is held to four such steps (2e-3).
-    cuBLAS's reduced-precision fp16 reductions are off for the comparison
-    (they round partial sums to fp16, which the CPU never does)."""
+def _amp_fp16_card_vs_cpu(kind: str) -> None:
+    """A small model under amp O2 in fp16 (``initialize("O2",
+    half_dtype=float16)``: fp16 params and compute, fp32 masters, a dynamic
+    scale from 2^16, an inf injected after the backward of step 2) runs 5
+    steps on the card (its kernels in fp16, cuBLAS's fp16 GEMMs with fp32
+    sums) and on the CPU (the kernels' plain versions): ``kind`` "gpt2",
+    the small GPT with FusedAdam lr 1e-3 (Kernels A, D, E and F), or
+    "bert", a small BERT with a seeded padding mask and FusedLAMB lr 1e-3,
+    weight decay 0.01 (Kernels A, D, G and H). Every parameter stays fp16,
+    the scaler states agree at every step, and the losses within rtol
+    ``AMP_FP16_LOSS_RTOL``. Both sides compute each op in fp32 and round
+    it once to fp16, but sum in other orders, so a value near a rounding
+    boundary lands on a neighbouring fp16 value (a 2^-11 relative step);
+    the loss, a mean over such values through two layers, is held to four
+    such steps (2e-3). cuBLAS's reduced-precision fp16 reductions are off
+    for the comparison (they round partial sums to fp16, which the CPU
+    never does)."""
     from apex_tpu_torch import amp
-    from apex_tpu_torch.models import GPTModel, TransformerConfig
-    from apex_tpu_torch.optimizers import FusedAdam
-    cfg = TransformerConfig(**SMALL, compute_dtype=torch.float16)
+    from apex_tpu_torch.models import BertModel, GPTModel, TransformerConfig
+    from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB
+    from apex_tpu_torch.transformer.enums import AttnMaskType
+    bert = kind == "bert"
+    cfg = TransformerConfig(
+        **SMALL, compute_dtype=torch.float16,
+        **(dict(attn_mask_type=AttnMaskType.padding) if bert else {}))
     keep = torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction
     torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     out = {}
@@ -3610,18 +3961,25 @@ def _amp_fp16_card_vs_cpu() -> None:
         for device in ("cuda", "cpu"):
             state = amp.initialize("O2", half_dtype=torch.float16,
                                    device=device)
-            model = GPTModel(cfg, device=device,
-                             generator=torch.Generator().manual_seed(2))
+            gen = torch.Generator().manual_seed(2)
+            model = (BertModel if bert else GPTModel)(cfg, device=device,
+                                                      generator=gen)
             state.policy.cast_to_param(model)
             params = list(model.parameters())
-            opt = FusedAdam(params, lr=1e-3, master_weights=True)
+            opt = (FusedLAMB(params, lr=1e-3, weight_decay=0.01,
+                             master_weights=True) if bert else
+                   FusedAdam(params, lr=1e-3, master_weights=True))
             sc, ss = state.scaler, state.scaler_states[0]
-            batch = _train_batch(cfg, 4, 96, device, seed=3)
+            batch = (_bert_batch(cfg, 4, 96, device, seed=5) if bert else
+                     _train_batch(cfg, 4, 96, device, seed=3))
             losses, walk = [], []
             for i in range(5):
                 opt.zero_grad(set_to_none=True)
                 loss = model(*batch)
+                if bert:
+                    loss = loss[0]
                 amp.scale_loss(loss, ss).backward()
+                _zero_unused_grads(params)
                 if i == 2:
                     params[0].grad.view(-1)[0] = float("inf")
                 _, found = sc.unscale([p.grad for p in params], ss)
@@ -3636,7 +3994,8 @@ def _amp_fp16_card_vs_cpu() -> None:
             keep
     (lc, wc, hc), (lh, wh, hh) = out["cuda"], out["cpu"]
     rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
-    log("amp_card_vs_cpu", optimizer="adam", half="float16", steps=5,
+    log("amp_card_vs_cpu", model=kind, optimizer="lamb" if bert else "adam",
+        half="float16", steps=5,
         injected_step=2, losses_cuda=json.dumps(lc).replace(" ", ""),
         losses_cpu=json.dumps(lh).replace(" ", ""),
         loss_rel_err=f"{rel:.2e}", loss_rtol=AMP_FP16_LOSS_RTOL,
@@ -3646,29 +4005,35 @@ def _amp_fp16_card_vs_cpu() -> None:
             wc[2]["loss_scale"] != wc[1]["loss_scale"] / 2 or \
             not lc[-1] < lc[0]:
         raise AssertionError(
-            f"amp_card_vs_cpu fp16: loss rel err {rel} "
+            f"amp_card_vs_cpu fp16 {kind}: loss rel err {rel} "
             f"({AMP_FP16_LOSS_RTOL}), scalers {wc} vs {wh}, params fp16 "
             f"{hc} {hh}, losses {lc}")
 
 
 def phase_fp16_gates() -> None:
-    """Kernels B, C, G and J have no fp16 path yet: their wrappers raise
+    """Kernels I and J-M have no fp16 path yet: their wrappers raise
     TypeError on fp16 card tensors before any launch (no counter moves)."""
     from apex_tpu_torch.ops import LAUNCHES
-    from apex_tpu_torch.ops.attention import flash_fwd_cuda
-    from apex_tpu_torch.ops.conv_fused import conv1x1_fwd_cuda
-    from apex_tpu_torch.ops.decode_attention import paged_decode_cuda
-    from apex_tpu_torch.ops.softmax import softmax_fwd_cuda
+    from apex_tpu_torch.ops.attention import flash_bwd_cuda
+    from apex_tpu_torch.ops.conv_fused import (conv1x1_bwd_cuda,
+                                               conv1x1_fwd_cuda,
+                                               conv3x3_bwd_cuda,
+                                               conv3x3_fwd_cuda)
     q = torch.zeros(1, 12, 64, 64, device="cuda", dtype=torch.float16)
-    pages = torch.zeros(4, 16, 12 * 64, device="cuda", dtype=torch.float16)
-    table = torch.zeros(1, 2, dtype=torch.int32, device="cuda")
+    lse = torch.zeros(1, 12, 64, device="cuda")
     x = torch.zeros(64, 64, device="cuda", dtype=torch.float16)
+    x4 = x.reshape(1, 8, 8, 64)
+    w3 = torch.zeros(3, 3, 64, 64, device="cuda", dtype=torch.float16)
+    stats = torch.zeros(2, 64, device="cuda")
     calls = {
-        "B": lambda: flash_fwd_cuda(q, q, q, None, 0.125, True),
-        "C": lambda: paged_decode_cuda(q[:, :, 0], pages, pages, table,
-                                       table[0, :1], 1, None),
-        "G": lambda: softmax_fwd_cuda(q, None, 1.0, 64, True),
+        "I": lambda: flash_bwd_cuda(q, q, q, q, q, lse, None, 0.125, True),
         "J": lambda: conv1x1_fwd_cuda(x, None, None, x, None, False, False),
+        "K": lambda: conv1x1_bwd_cuda(x, None, None, x, None, x, x, stats,
+                                      False, False),
+        "L": lambda: conv3x3_fwd_cuda(x4, None, None, w3, None, False,
+                                      False),
+        "M": lambda: conv3x3_bwd_cuda(x4, None, None, w3, None, x4, x4,
+                                      stats, False, False),
     }
     before = dict(LAUNCHES)
     raised = {}
@@ -3703,14 +4068,22 @@ MAIN_PATH = {"layer_norm_fwd": "serve", "flash_fwd": "serve",
              "layer_norm_fwd_fp16": "train_fp16",
              "layer_norm_bwd_fp16": "train_fp16",
              "flash_packed_fwd_fp16": "train_fp16",
-             "flash_packed_bwd_fp16": "train_fp16"}
+             "flash_packed_bwd_fp16": "train_fp16",
+             "flash_fwd_fp16": "serve_fp16",
+             "paged_decode_fp16": "serve_fp16",
+             "softmax_fwd_fp16": "bert_train_fp16",
+             "softmax_bwd_fp16": "bert_train_fp16"}
 #: the launch counter of a record that names a variant of a kernel
 COUNTER = {"paged_decode_int8": "paged_decode",
            "paged_decode_window": "paged_decode",
            "layer_norm_fwd_fp16": "layer_norm_fwd",
            "layer_norm_bwd_fp16": "layer_norm_bwd",
            "flash_packed_fwd_fp16": "flash_packed_fwd",
-           "flash_packed_bwd_fp16": "flash_packed_bwd"}
+           "flash_packed_bwd_fp16": "flash_packed_bwd",
+           "flash_fwd_fp16": "flash_fwd",
+           "paged_decode_fp16": "paged_decode",
+           "softmax_fwd_fp16": "softmax_fwd",
+           "softmax_bwd_fp16": "softmax_bwd"}
 
 
 def main() -> int:
@@ -3730,7 +4103,7 @@ def main() -> int:
     phase_build()
     timer = Timer()
     records = [phase_layer_norm(timer), phase_layer_norm_fp16(timer),
-               phase_flash(timer), *phase_decode(timer),
+               *phase_flash(timer), *phase_decode(timer),
                phase_layer_norm_bwd(timer), phase_layer_norm_bwd_fp16(timer),
                *phase_packed(timer), *phase_softmax(timer),
                phase_flash_bwd(timer), *phase_conv(timer),
@@ -3740,15 +4113,18 @@ def main() -> int:
     for name, knobs, kind in SERVE_FEATURES:
         paths[name] = phase_serve_feature(name, knobs, kind, args.profile)
     paths.update(phase_serve_paths(args.seed, args.profile))
+    paths["serve_fp16"] = phase_serve_fp16(args.profile)
     phase_card_vs_cpu()
     phase_features_card_vs_cpu()
     phase_serving_paths_card_vs_cpu(args.seed)
+    phase_serve_fp16_card_vs_cpu()
     paths["train"] = phase_train(args.profile)
     phase_train_card_vs_cpu()
     paths["train_amp"] = phase_train_amp(args.profile)
     paths["train_fp16"] = phase_train_fp16(args.profile)
     phase_amp_card_vs_cpu()
     paths["bert_train"] = phase_bert_train(args.profile)
+    paths["bert_train_fp16"] = phase_bert_train_fp16(args.profile)
     paths["t5_train"] = phase_t5_train(args.profile)
     phase_enc_card_vs_cpu()
     paths["rn50_train"] = phase_rn50_train(args.profile)

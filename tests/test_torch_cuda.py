@@ -35,10 +35,13 @@ Adam, LAMB and SGD) over lists with a 1-element tensor, one of ``CHUNK +
 mixed dtypes, per-tensor step counts, ``grad_scale``, a device ``lr`` and
 a ``found_inf`` step (scale, Adam, SGD bitwise their plain versions; the
 norms 1e-6 relative, LAMB rtol 1e-5), and the optimizers taking them on
-CUDA parameters. Kernels A, D, E and F also run in fp16: the LayerNorm
-tests and the packed cases above in fp16, the 16-byte LayerNorm paths
-with fp16, fp32 or no weight into fp16 or fp32 y (bitwise repeatable),
-and the wrappers of B, C, G, H, I and J refusing fp16 before any launch.
+CUDA parameters. Kernels A-H also run in fp16: the LayerNorm tests, the
+packed cases, the 4D flash forward cases (bitwise repeatable), the paged
+decode cases with windows and int8 pools, and the softmax cases above in
+fp16, the 16-byte LayerNorm paths with fp16, fp32 or no weight into fp16
+or fp32 y (bitwise repeatable), Kernel H's fp16 overflow (non-finite at
+the plain version's elements), and the wrappers of I and J-M refusing
+fp16 before any launch.
 Tolerances: f32 atol 1e-4 (summation order only, TF32 off; the softmax
 1e-5); bf16 and fp16 1 ulp of an fp32 reference rounded to that type (the
 flash backwards, which round ds and p to it where the JAX kernels do: 1
@@ -184,7 +187,8 @@ FLASH = {
 }
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("name", list(FLASH))
 def test_flash_kernel(gen, name, dtype):
     b, h, kvh, sq, sk, d, causal, kvl, window = FLASH[name]
@@ -242,7 +246,8 @@ def _paged_case(gen, b, hl, group, dh, dtype):
     return q, kp, vp, pt, pos
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("name", list(PAGED))
 def test_paged_decode_kernel(gen, name, dtype):
     b, hl, group, dh, window = PAGED[name]
@@ -258,7 +263,8 @@ def test_paged_decode_kernel(gen, name, dtype):
     assert_close_once_rounded(ctx, ref)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("name", ["mha", "gqa3_window", "head_dim_128_gqa4"])
 def test_paged_decode_kernel_bitwise_repeatable(gen, name, dtype):
     """The splits merge in a fixed order whatever block ends last, and the
@@ -305,7 +311,8 @@ def _paged_window_case(gen, name, dtype, w, int8):
     return q, kp, vp, pt, pos, ks, vs
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("int8", [False, True], ids=["pool", "int8"])
 @pytest.mark.parametrize("w", [2, 4])
 @pytest.mark.parametrize("name", ["mha", "gqa4", "gqa3_window",
@@ -313,8 +320,9 @@ def _paged_window_case(gen, name, dtype, w, int8):
 def test_paged_decode_kernel_windows_and_int8(gen, name, w, int8, dtype):
     """Windows fold in as more query rows (row t masked to pos + t); int8
     pools are dequantized as int8 * scale in fp32. Held to the plain
-    version run in f32 and rounded once; the vector path takes bf16 q over
-    int8 pools, the element path f32 q over them and bf16 head_dim 60."""
+    version run in f32 and rounded once; the vector path takes bf16 and
+    fp16 q over int8 pools, the element path f32 q over them and 16-bit
+    head_dim 60."""
     b, hl, group, dh, window = PAGED[name]
     q, kp, vp, pt, pos, ks, vs = _paged_window_case(gen, name, dtype, w,
                                                     int8)
@@ -485,29 +493,57 @@ def test_layer_norm_fp16_vector_paths(gen, name):
 
 
 def test_fp16_reaches_no_kernel_without_an_fp16_path(gen):
-    """Kernels B, C, G and J-M have no fp16 path yet: their wrappers raise
+    """Kernels I and J-M have no fp16 path yet: their wrappers raise
     TypeError on fp16 card tensors before any launch."""
     q = torch.randn(1, 2, 64, 64, device="cuda", generator=gen).half()
     before = dict(_support.LAUNCHES)
     with pytest.raises(TypeError, match="float16"):
-        flash_fwd_cuda(q, q, q, None, 0.125, True)
-    with pytest.raises(TypeError, match="float16"):
         flash_bwd_cuda(q, q, q, q, q, torch.zeros(1, 2, 64, device="cuda"),
                        None, 0.125, True)
-    pages = torch.zeros(4, 16, 128, device="cuda").half()
-    with pytest.raises(TypeError, match="float16"):
-        paged_decode_cuda(q[:, :, 0], pages, pages,
-                          torch.zeros(1, 2, dtype=torch.int32, device="cuda"),
-                          torch.zeros(1, dtype=torch.int32, device="cuda"), 1,
-                          None)
-    with pytest.raises(TypeError, match="float16"):
-        softmax_fwd_cuda(q, None, 1.0, 64, True)
-    with pytest.raises(TypeError, match="float16"):
-        softmax_bwd_cuda(q, q, 1.0)
     x = torch.randn(64, 32, device="cuda", generator=gen).half()
+    w = x[:32]
+    stats = torch.zeros(2, 32, device="cuda")
     with pytest.raises(TypeError, match="float16"):
-        conv1x1_fwd_cuda(x, None, None, x[:32], None, False, False)
+        conv1x1_fwd_cuda(x, None, None, w, None, False, False)
+    with pytest.raises(TypeError, match="float16"):
+        conv1x1_bwd_cuda(x, None, None, w, None, x, x, stats, False, False)
+    x4 = x.reshape(1, 8, 8, 32)
+    w3 = torch.randn(3, 3, 32, 32, device="cuda", generator=gen).half()
+    with pytest.raises(TypeError, match="float16"):
+        conv3x3_fwd_cuda(x4, None, None, w3, None, False, False)
+    with pytest.raises(TypeError, match="float16"):
+        conv3x3_bwd_cuda(x4, None, None, w3, None, x4, x4, stats, False,
+                         False)
     assert _support.LAUNCHES == before
+
+
+def test_fp16_softmax_bwd_overflows_where_the_plain_version_does(gen):
+    """Kernel H in fp16 with dy at 2^15 (inf where |dy| passes 65504, as
+    an overflowing loss scale leaves it) and scale 8: dx is non-finite at
+    the plain version's elements (NaN across a row whose sum met an inf,
+    inf past 65504), and some are."""
+    x, mask, sq, _ = _softmax_inputs(gen, "bert_padding", torch.float16)
+    y = softmax_fwd_cuda(x, mask, 1.0, sq, False)
+    dy = (torch.randn(x.shape, device="cuda", generator=gen)
+          * 2.0 ** 15).half()
+    dx = softmax_bwd_cuda(dy, y, 8.0)
+    rdx = softmax_bwd_plain(dy.float(), y.float(), 8.0).half()
+    assert not torch.isfinite(rdx).all()
+    assert torch.equal(torch.isfinite(dx), torch.isfinite(rdx))
+
+
+@pytest.mark.parametrize("name", ["sq_lt_sk", "varlen_with_empty_row",
+                                  "head_dim_128"])
+def test_flash_kernel_fp16_is_bitwise_repeatable(gen, name):
+    b, h, kvh, sq, sk, d, causal, kvl, window = FLASH[name]
+    q, k, v = (torch.randn(s, device="cuda", generator=gen).half()
+               for s in ((b, h, sq, d), (b, kvh, sk, d), (b, kvh, sk, d)))
+    kvl = None if kvl is None else torch.tensor(kvl, device="cuda")
+    first = flash_fwd_cuda(q, k, v, kvl, 0.125, causal, window)
+    for _ in range(2):
+        again = flash_fwd_cuda(q, k, v, kvl, 0.125, causal, window)
+        assert torch.equal(again[0], first[0])
+        assert torch.equal(again[1], first[1])
 
 
 @pytest.mark.parametrize("name", ["ln_8193", "rms_8193", "ln_h96"])
@@ -720,7 +756,8 @@ def _softmax_inputs(gen, name, dtype):
     return x, mask, sq, scale
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("name", list(SOFTMAX))
 def test_softmax_kernels(gen, name, dtype):
     x, mask, sq, scale = _softmax_inputs(gen, name, dtype)

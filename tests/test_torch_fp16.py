@@ -1,10 +1,10 @@
-"""fp16 (``torch.float16``) in the port's Kernels A, D, E and F, against
-the JAX package on the CPU, and the dtype gates of every other kernel.
+"""fp16 (``torch.float16``) in the port's Kernels A-H, against the JAX
+package on the CPU, and the dtype gates of the kernels without it.
 
 - The gates: ``dtype_code`` takes fp16 with the code of ``kF16`` in
-  ``csrc/common.cuh``; the wrappers of Kernels B, C, G-M refuse fp16 with
-  a TypeError before any launch, and those of A, D, E and F let it through
-  to their launch (a stub build stops them there).
+  ``csrc/common.cuh``; the wrappers of Kernels I-M refuse fp16 with a
+  TypeError before any launch, and those of A-H let it through to their
+  launch (a stub build stops them there).
 - Kernels A and D: the plain versions in fp16 (x in fp16; w and b in
   fp16, in fp32 or absent; y in fp16 or promoted to fp32) against the JAX
   ``_norm`` forward and its vjp with the Pallas kernels in interpret mode,
@@ -29,6 +29,20 @@ the JAX package on the CPU, and the dtype gates of every other kernel.
   version at s 1024, one fp16 p does not (which decided E's fp16 plan);
   F's ds and dropped p rounded to fp16 once per 64-wide tile hold dqkv
   within 1 ulp plus the slack.
+- Kernels G and H: the plain versions in fp16 against ``_fwd_pallas`` and
+  ``_bwd_pallas`` in interpret mode (padding masks with fully masked rows,
+  a key mask, causal, a row of 200, scale != 1), within 1 fp16 ulp; dy
+  scaled past fp16's range, where dx is non-finite at the same elements.
+- Kernel C: ``decode_plain`` in fp16 bitwise ``_reference`` (w = 1 and
+  windows, a sliding window, fp16 and int8 pools); Kernel C's function
+  (the plain version run in f32 and rounded once) within 1 fp16 ulp of
+  ``_pallas`` in interpret mode at w = 1, and of ``_reference`` run in f32
+  for int8 pools and windows.
+- Kernel B: the plain forward in fp16 against the JAX forward in interpret
+  mode (``_fwd_single_kernel`` and, with 64-row blocks, ``_fwd_kernel``),
+  within E's bar; its fp16 p plan (p scaled by 2^14 and split into hi +
+  lo) emulated at the serve prefill's s 768 and at the T5 cross shape,
+  within 1 fp16 ulp, where one fp16 p is not.
 
 "1 fp16 ulp" is ``2^-18 + 2^-10 |want|``: one rounding step of 2^-10 of
 the magnitude with the same 2^-8 magnitude floor as the bf16 checks
@@ -49,7 +63,10 @@ import jax
 
 from apex_tpu.ops import _support as jax_support
 from apex_tpu.ops import attention as jatt
+from apex_tpu.ops import decode_attention as jda
+from apex_tpu.ops import flash_attention as jax_flash
 from apex_tpu.ops import layer_norm as jln
+from apex_tpu.ops import softmax as jsm
 from apex_tpu_torch.ops import _build, _support
 from apex_tpu_torch.ops import attention as tatt
 from apex_tpu_torch.ops import layer_norm as tln
@@ -59,7 +76,9 @@ from apex_tpu_torch.ops.attention import (
     _visible,
     drop_combo,
     flash_bwd_cuda,
+    flash_bwd_factors,
     flash_fwd_cuda,
+    flash_fwd_plain,
     flash_packed_bwd_cuda,
     flash_packed_bwd_plain,
     flash_packed_bwd_rounding_slack,
@@ -74,7 +93,13 @@ from apex_tpu_torch.ops.conv_fused import (
     conv3x3_bwd_cuda,
     conv3x3_fwd_cuda,
 )
-from apex_tpu_torch.ops.decode_attention import paged_decode_cuda
+from apex_tpu_torch.ops.decode_attention import (
+    fused_paged_decode_attention,
+    page_pool,
+    paged_decode_cuda,
+    paged_decode_plan,
+    scale_pool,
+)
 from apex_tpu_torch.ops.layer_norm import (
     fused_layer_norm,
     fused_layer_norm_affine,
@@ -85,7 +110,14 @@ from apex_tpu_torch.ops.layer_norm import (
     layer_norm_fwd_cuda,
 )
 from apex_tpu_torch.ops.rope import rope_freqs, rope_tables
-from apex_tpu_torch.ops.softmax import softmax_bwd_cuda, softmax_fwd_cuda
+from apex_tpu_torch.ops.softmax import (
+    scaled_masked_softmax,
+    softmax_bwd_cuda,
+    softmax_bwd_plain,
+    softmax_fwd_cuda,
+    softmax_fwd_plain,
+    softmax_fwd_plan,
+)
 
 F16 = torch.float16
 COMMON_CUH = Path(_build.SOURCE_DIR) / "common.cuh"
@@ -208,8 +240,7 @@ def stub_build(monkeypatch):
     monkeypatch.setattr(_build, "library", library)
 
 
-@pytest.mark.parametrize("kernel", ["B", "I", "C", "G", "H", "J", "K", "L",
-                                    "M"])
+@pytest.mark.parametrize("kernel", ["I", "J", "K", "L", "M"])
 def test_kernels_without_fp16_refuse_it(stub_build, kernel):
     with pytest.raises(TypeError, match="float16 is not yet ported"):
         GATED[kernel](F16)
@@ -217,7 +248,8 @@ def test_kernels_without_fp16_refuse_it(stub_build, kernel):
         GATED[kernel](torch.bfloat16)
 
 
-@pytest.mark.parametrize("kernel", ["A", "D", "E", "F"])
+@pytest.mark.parametrize("kernel", ["A", "B", "C", "D", "E", "F", "G",
+                                    "H"])
 def test_kernels_with_fp16_take_it(stub_build, kernel):
     with pytest.raises(_Launched):
         GATED[kernel](F16)
@@ -515,30 +547,24 @@ def test_packed_bwd_fp16_overflow_masks_match_jax(jax_mode, name):
 # Kernels E's and F's fp16 rounding plans, emulated on the CPU
 # ---------------------------------------------------------------------------
 
-def _kernel_e_fp16_emulation(qkv, kv_lengths, seed, rate, scale, causal,
-                             split=True, tile=64):
-    """Kernel E's fp16 arithmetic for one head (groups 1, qpg 1): an online
-    softmax over ``tile``-key tiles, l from the undropped p, the dropped
-    fp32 p scaled by 2^(14 - ilogb(1 / (1 - rate))) and split into fp16
-    hi + lo (or, with ``split=False``, rounded once to fp16) before P V,
-    fp32 sums, o scaled back and rounded once. Returns ``o [s, b, d]``."""
-    s, b, w = qkv.shape
-    d = w // 3
-    t = qkv.reshape(s, b, 3, d).permute(1, 2, 0, 3).float()
-    q, k, v = t[:, 0], t[:, 1], t[:, 2]
-    kvl = None if kv_lengths is None else torch.as_tensor(kv_lengths)
-    valid = _visible(s, s, kvl, causal, None, "cpu")[:, 0]
-    keep = None
+def _fwd_fp16_emulation(q, k, v, valid, scale, keep=None, rate=0.0,
+                        split=True, tile=64):
+    """The fp16 arithmetic of Kernels E and B, one (batch, head) pair per
+    row of the leading dimension: q ``[n, sq, d]``, k and v ``[n, sk, d]``,
+    ``valid`` ``[n or 1, sq, sk]``, ``keep`` the dropout keep mask or None.
+    An online softmax over ``tile``-key tiles, l from the undropped p, the
+    dropped fp32 p scaled by 2^(14 - ilogb(1 / (1 - rate))) and split into
+    fp16 hi + lo (or, with ``split=False``, rounded once to fp16) before
+    P V, fp32 sums, o scaled back and rounded once. Returns ``o [n, sq,
+    d]`` in fp16."""
+    q, k, v = q.float(), k.float(), v.float()
+    n, sq, d = q.shape
     inv_keep = float(np.float32(1.0 / (1.0 - rate)))
-    if rate:
-        combo = drop_combo(torch.arange(b)[:, None, None, None],
-                           torch.zeros(1, 1, 1, 1, dtype=torch.long))
-        keep = hash_keep(seed, combo, (b, 1, s, s), rate)[:, 0]
     p_scale = 2.0 ** (14 - (math.frexp(inv_keep)[1] - 1))
-    m = torch.full((b, s, 1), -1e30)
-    l = torch.zeros(b, s, 1)
-    acc = torch.zeros(b, s, d)
-    for c0 in range(0, s, tile):
+    m = torch.full((n, sq, 1), -1e30)
+    l = torch.zeros(n, sq, 1)
+    acc = torch.zeros(n, sq, d)
+    for c0 in range(0, k.shape[1], tile):
         sl = slice(c0, c0 + tile)
         sc = torch.einsum("bqd,bkd->bqk", q, k[:, sl]) * scale
         sc = torch.where(valid[:, :, sl], sc, torch.tensor(-1e30))
@@ -555,8 +581,27 @@ def _kernel_e_fp16_emulation(qkv, kv_lengths, seed, rate, scale, causal,
             pv = pv + (p - hi).half().float() @ v[:, sl]
         acc = acc * alpha + pv
         m = m_new
-    o = acc * torch.where(l > 0, 1.0 / l, torch.zeros(())) / p_scale
-    return o.half().permute(1, 0, 2)
+    return (acc * torch.where(l > 0, 1.0 / l, torch.zeros(()))
+            / p_scale).half()
+
+
+def _kernel_e_fp16_emulation(qkv, kv_lengths, seed, rate, scale, causal,
+                             split=True, tile=64):
+    """Kernel E's fp16 arithmetic (:func:`_fwd_fp16_emulation`) for one
+    head (groups 1, qpg 1). Returns ``o [s, b, d]``."""
+    s, b, w = qkv.shape
+    d = w // 3
+    t = qkv.reshape(s, b, 3, d).permute(1, 2, 0, 3)
+    kvl = None if kv_lengths is None else torch.as_tensor(kv_lengths)
+    valid = _visible(s, s, kvl, causal, None, "cpu")[:, 0]
+    keep = None
+    if rate:
+        combo = drop_combo(torch.arange(b)[:, None, None, None],
+                           torch.zeros(1, 1, 1, 1, dtype=torch.long))
+        keep = hash_keep(seed, combo, (b, 1, s, s), rate)[:, 0]
+    o = _fwd_fp16_emulation(t[:, 0], t[:, 1], t[:, 2], valid, scale, keep,
+                            rate, split, tile)
+    return o.permute(1, 0, 2)
 
 
 E_ROUNDING = {
@@ -682,3 +727,403 @@ def test_packed_autograd_keeps_fp16():
     assert o.dtype == F16
     o.float().sum().backward()
     assert qkv.grad.dtype == F16 and torch.isfinite(qkv.grad).all()
+
+
+# ---------------------------------------------------------------------------
+# Kernels G and H: plain versions in fp16 against the JAX interpret kernels
+# ---------------------------------------------------------------------------
+
+SOFTMAX = {
+    # name: (x shape, mask: None | "padding" | mask shape, causal, scale):
+    # a BERT padding mask (its padded query rows mask every key), a key
+    # mask, causal, a row of 200, scale != 1, rows of 64 (Kernel G's
+    # 16-byte path on the card)
+    "bert_padding": ((2, 3, 20, 20), "padding", False, 1.0),
+    "key_mask_k200": ((2, 3, 10, 200), (2, 1, 1, 200), False, 1.0),
+    "causal": ((1, 2, 24, 24), None, True, 1.0),
+    "scale_half": ((2, 2, 8, 33), (2, 1, 8, 33), False, 0.5),
+    "rows_of_64": ((2, 3, 16, 64), (2, 1, 16, 64), False, 0.125),
+}
+
+
+def _softmax_inputs(name, seed, dy_scale=1.0):
+    """fp16 x and dy ``[d0, d1, d2, k]`` (numpy-made), the bool mask (True
+    = masked out) or None, causal, scale."""
+    shape, mask, causal, scale = SOFTMAX[name]
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy((3.0 * rng.randn(*shape)).astype(np.float32)).half()
+    dy = torch.from_numpy((rng.randn(*shape) * dy_scale).astype(
+        np.float32)).half()
+    if mask == "padding":
+        valid = np.ones((shape[0], shape[-1]), bool)
+        valid[1, 13:] = False
+        mask = ~(valid[:, None, None, :] & valid[:, None, :, None])
+    elif mask is not None:
+        mask = rng.rand(*mask) < 0.3
+    return x, dy, None if mask is None else torch.from_numpy(mask), causal, \
+        scale
+
+
+def _jax_softmax(x, dy, mask, causal, scale, y=None):
+    """``_fwd_pallas`` and ``_bwd_pallas`` over the rows of the fp16 x and
+    dy (the backward on ``y``, the JAX forward's y by default): fp16
+    ``(y, dx)`` as fp32 numpy ``[rows, k]``."""
+    k, sq = x.shape[-1], x.shape[-2]
+    x2 = jnp.asarray(_f32(x), jnp.float16).reshape(-1, k)
+    m2 = None if mask is None else jnp.broadcast_to(
+        jnp.asarray(mask.numpy()), x.shape).reshape(-1, k)
+    jy = jsm._fwd_pallas(x2, m2, scale, k, sq, causal, jnp.float16)
+    jy_in = jy if y is None else jnp.asarray(_f32(y), jnp.float16)
+    jdx = jsm._bwd_pallas(jnp.asarray(_f32(dy), jnp.float16).reshape(-1, k),
+                          jy_in.reshape(-1, k), scale, k)
+    assert jy.dtype == jnp.float16 and jdx.dtype == jnp.float16
+    return _f32(jy), _f32(jdx)
+
+
+@pytest.mark.parametrize("name", list(SOFTMAX))
+def test_softmax_fp16_matches_jax_interpret_kernels(jax_mode, name,
+                                                    record_property):
+    """y and dx of the plain versions in fp16 within 1 fp16 ulp of the TPU
+    kernels in interpret mode (each side computes in fp32 and rounds once);
+    dx on the JAX forward's y, so that only H's arithmetic differs. A fully
+    masked row is uniform, 1/k. How many elements differ at all is
+    recorded (``elements_differing``, junit properties)."""
+    jax_mode("interpret")
+    x, dy, mask, causal, scale = _softmax_inputs(name, seed=5)
+    k = x.shape[-1]
+    want_y, want_dx = _jax_softmax(x, dy, mask, causal, scale)
+    y = softmax_fwd_plain(x, mask, scale, x.shape[-2], causal)
+    assert y.dtype == F16
+    _check_fp16("y", want_y, _f32(y).reshape(-1, k))
+    dx = softmax_bwd_plain(dy.reshape(-1, k),
+                           torch.from_numpy(want_y).half(), scale)
+    assert dx.dtype == F16
+    _check_fp16("dx", want_dx, _f32(dx))
+    record_property("elements_differing", {
+        "y": int((_f32(y).reshape(-1, k) != want_y).sum()),
+        "dx": int((_f32(dx) != want_dx).sum()), "of": y.numel()})
+    if name == "bert_padding":
+        rows = _f32(y)[1, :, 13:]            # padded query rows: all masked
+        assert np.all(rows == np.float32(np.float16(1.0 / k)))
+
+
+@pytest.mark.parametrize("name", ["bert_padding", "key_mask_k200"])
+def test_softmax_bwd_fp16_overflow_masks_match_jax(jax_mode, name):
+    """dy at 2^15, as an overflowing loss scale leaves it (inf in fp16
+    where |dy| passes 65504), and H's scale 8: dx = scale y (dy - s) is NaN
+    across a row whose s met an inf and inf wherever it passes 65504, on
+    both sides at the same elements. (With dy at 2^12 nothing overflows
+    here: y (dy - s) peaks where y is near 1/2, at a quarter of dy's
+    spread.) The finite elements, scaled back by 2^15 (exact), within 1
+    fp16 ulp."""
+    jax_mode("interpret")
+    x, dy, mask, causal, _ = _softmax_inputs(name, seed=6,
+                                             dy_scale=2.0 ** 15)
+    k = x.shape[-1]
+    y = softmax_fwd_plain(x, mask, 1.0, x.shape[-2], causal)
+    _, want = _jax_softmax(x, dy, mask, causal, 8.0, y=y)
+    got = _f32(softmax_bwd_plain(dy.reshape(-1, k), y.reshape(-1, k), 8.0))
+    assert not np.isfinite(want).all()
+    assert np.array_equal(np.isfinite(want), np.isfinite(got))
+    fin = np.isfinite(want)
+    _check_fp16("dx finite", np.where(fin, want, 0) / 2 ** 15,
+                np.where(fin, got, 0) / 2 ** 15)
+
+
+def test_softmax_autograd_keeps_fp16():
+    x, dy, mask, _, _ = _softmax_inputs("bert_padding", seed=7)
+    x.requires_grad_()
+    y = scaled_masked_softmax(x, mask, 0.5)
+    assert y.dtype == F16
+    y.backward(dy)
+    assert x.grad.dtype == F16 and torch.isfinite(x.grad).all()
+
+
+@pytest.mark.parametrize("k", [8, 64, 512, 1000, 1024])
+def test_kernel_g_plan_takes_fp16_rows_as_bf16(k):
+    """Kernel G's 16-byte path takes fp16 rows as it takes bf16 ones (8
+    elements a piece); f32 and off-size rows keep the element path."""
+    bert = (0, 0, k, 1)
+    assert softmax_fwd_plan(k, F16, 0, 0, 0, bert) == \
+        softmax_fwd_plan(k, torch.bfloat16, 0, 0, 0, bert) != (0, 0)
+    assert softmax_fwd_plan(k + 1, F16, 0, 0) == (0, 0)
+    assert softmax_fwd_plan(k, torch.float32, 0, 0) == (0, 0)
+
+
+# ---------------------------------------------------------------------------
+# Kernel C: paged decode in fp16 against the JAX reference and kernel
+# ---------------------------------------------------------------------------
+
+C_PAGES, C_PS, C_PPS = 12, 8, 5
+C_B, C_KVH, C_GROUP, C_DH = 5, 2, 4, 16
+C_F = C_KVH * C_DH
+#: each slot's position: a ragged last page, a slot's first row, the last
+#: row of its third page, a sentinel page (its row drops), past the table
+C_POSITIONS = np.array([13, 0, 22, 20, 38], np.int32)
+
+
+def _decode_inputs(w, seed):
+    """fp16-valued f32 numpy inputs: q ``[b, w, heads, dh]``, the new rows
+    ``[b, w, f]``, pools, a page table with sentinels, positions."""
+    rng = np.random.RandomState(seed)
+    r16 = lambda *s: rng.randn(*s).astype(np.float16).astype(  # noqa: E731
+        np.float32)
+    table = np.full((C_B, C_PPS), C_PAGES, np.int32)
+    table[0, :2] = [4, 9]
+    table[1, :1] = [0]
+    table[2, :3] = [2, 7, 11]
+    table[3, :2] = [1, 3]
+    table[4, :] = [5, 6, 8, 10, 1]
+    return (r16(C_B, w, C_KVH * C_GROUP, C_DH), r16(C_B, w, C_F),
+            r16(C_B, w, C_F), r16(C_PAGES, C_PS, C_F),
+            r16(C_PAGES, C_PS, C_F), table, C_POSITIONS)
+
+
+def _quantize(pages, seed):
+    """An int8 pool and per-(page, kv head) scales as a page fill makes
+    them (a quarter of the pages at scale 0, as free pages are)."""
+    rng = np.random.RandomState(seed)
+    p4 = pages.reshape(C_PAGES, C_PS, C_KVH, C_DH)
+    scales = (np.abs(p4).max(axis=(1, 3)) / 127.0).astype(np.float32)
+    scales[rng.rand(C_PAGES) < 0.25] = 0.0
+    safe = np.where(scales > 0, scales, 1.0)[:, None, :, None]
+    q8 = np.clip(np.round(p4 / safe), -127, 127).astype(np.int8)
+    return q8.reshape(C_PAGES, C_PS, C_F), scales
+
+
+def _pools(args, int8, dtype):
+    """The port's pools (with their spare page) and scales, or JAX's."""
+    _, _, _, kp, vp, _, _ = args
+    if int8:
+        (k8, ks), (v8, vs) = _quantize(kp, 0), _quantize(vp, 1)
+        if dtype is None:
+            return (jnp.asarray(k8), jnp.asarray(v8), jnp.asarray(ks),
+                    jnp.asarray(vs))
+        pools = []
+        for a, sc in ((k8, ks), (v8, vs)):
+            pool = page_pool(C_PAGES, C_PS, C_F, torch.int8, "cpu")
+            pool.copy_(torch.from_numpy(a))
+            scs = scale_pool(C_PAGES, C_KVH, "cpu")
+            scs.copy_(torch.from_numpy(sc))
+            pools.append((pool, scs))
+        (kq, ksc), (vq, vsc) = pools
+        return kq, vq, ksc, vsc
+    if dtype is None:
+        return None
+    out = []
+    for a in (kp, vp):
+        pool = page_pool(C_PAGES, C_PS, C_F, dtype, "cpu")
+        pool.copy_(torch.from_numpy(a))
+        out.append(pool)
+    return out[0], out[1], None, None
+
+
+def _port_decode(args, window, int8, dtype):
+    """``fused_paged_decode_attention`` on the CPU in ``dtype`` (the append
+    and ``decode_plain``): the context ``[b, w, heads * dh]`` as fp32
+    numpy."""
+    q, k_new, v_new, _, _, table, positions = args
+    kp, vp, ks, vs = _pools(args, int8, dtype)
+    t = lambda a: torch.from_numpy(a).to(dtype)  # noqa: E731
+    out = fused_paged_decode_attention(
+        t(q), t(k_new), t(v_new), kp, vp, torch.from_numpy(table),
+        torch.from_numpy(positions), queries_per_group=C_GROUP,
+        sliding_window=window, k_scales=ks, v_scales=vs)
+    assert out[0].dtype == dtype
+    return _f32(out[0])
+
+
+def _jax_decode(args, window, int8, dtype, kernel=False):
+    """JAX's ``_reference`` (or, with ``kernel``, ``_pallas``) in
+    ``dtype``: the context as fp32 numpy."""
+    q, k_new, v_new, kp, vp, table, positions = args
+    a = lambda x: jnp.asarray(x, dtype)  # noqa: E731
+    pools = _pools(args, int8, None) or (a(kp), a(vp), None, None)
+    fn = jda._pallas if kernel else jda._reference
+    out = fn(a(q), a(k_new), a(v_new), *pools, jnp.asarray(table),
+             jnp.asarray(positions), C_GROUP, window)
+    assert out[0].dtype == dtype
+    return _f32(out[0])
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp16_pools", "int8"])
+@pytest.mark.parametrize("window", [None, 6])
+@pytest.mark.parametrize("w", [1, 4])
+def test_decode_fp16_plain_matches_reference(jax_mode, record_property, w,
+                                             window, int8):
+    """In fp16 ``decode_plain`` rounds where ``_reference`` does (the score
+    GEMM in q's dtype, int8 pages dequantized to q's dtype, p rounded
+    before ``p v``), so the contexts are equal bit for bit but where a
+    score's fp32 sum lies on a rounding boundary: torch's and XLA's fp16
+    GEMMs on the CPU both sum in fp32, in other orders, and round such a
+    score to neighbouring fp16 values (a probe of random [5, 40, 32] x [5,
+    32, 8] products: 24 of 32,000 elements), which moves its row's context
+    by up to 2 fp16 ulps. Held: at most 1.5% of the elements differ, each
+    within 2 fp16 ulps (over seeds 11-15 and these eight cases: 2 of 40
+    runs differ, at 7 of 640 and 9 of 2,560 elements, 1.94 ulps at most);
+    the count is recorded (``elements_differing``)."""
+    jax_mode("off")
+    args = _decode_inputs(w, seed=11)
+    got = _port_decode(args, window, int8, F16)
+    want = _jax_decode(args, window, int8, jnp.float16)
+    record_property("elements_differing", int((got != want).sum()))
+    assert (got != want).mean() <= 0.015
+    assert (np.abs(got - want) <= 2 * _one_ulp(want)).all()
+
+
+@pytest.mark.parametrize("window", [None, 6])
+def test_decode_fp16_kernel_function_matches_interpret_kernel(jax_mode,
+                                                              window):
+    """What Kernel C computes in fp16 (scores and p in fp32, the context
+    rounded once: the plain version run in f32 on the fp16 values, then
+    rounded to fp16) within 1 fp16 ulp of the TPU kernel in interpret mode
+    on the same fp16 inputs, w = 1 over fp16 pools."""
+    jax_mode("interpret")
+    args = _decode_inputs(1, seed=12)
+    want = _jax_decode(args, window, False, jnp.float16, kernel=True)
+    got = _f32(torch.from_numpy(_port_decode(args, window, False,
+                                             torch.float32)).half())
+    _check_fp16("ctx", want, got)
+
+
+@pytest.mark.parametrize("int8,w", [(True, 1), (False, 4), (True, 4)],
+                         ids=["int8", "w4", "int8_w4"])
+def test_decode_fp16_kernel_function_matches_reference(jax_mode, int8, w):
+    """Kernel C's function in fp16 with int8 pools (dequantized in fp32)
+    and w-row windows (GQA 4, a sliding window): the plain version run in
+    f32 on the fp16 values and rounded once, within 1 fp16 ulp of
+    ``_reference`` run in f32 and rounded once (summation order only)."""
+    jax_mode("off")
+    args = _decode_inputs(w, seed=13)
+    got = _f32(torch.from_numpy(_port_decode(args, 6, int8,
+                                             torch.float32)).half())
+    want = _f32(torch.from_numpy(_jax_decode(args, 6, int8,
+                                             jnp.float32)).half())
+    _check_fp16("ctx", want, got)
+
+
+@pytest.mark.parametrize("pool", ["float16", "int8"])
+def test_decode_plan_takes_fp16_as_bf16(pool):
+    """fp16 q takes Kernel C's vector path with the plan bf16 gets: 8
+    elements a 16-byte piece, pools in q's dtype or int8."""
+    pool_dtype = getattr(torch, pool)
+    plans = [paged_decode_plan(
+        8, 12, 12, 64, 64, 12, dt, True, lambda p, h: 2, 132, None,
+        window=4, pool_dtype=pool_dtype if pool == "int8" else dt)
+        for dt in (F16, torch.bfloat16)]
+    assert plans[0] == plans[1] and plans[0].path == "vector"
+    assert paged_decode_plan(8, 12, 12, 60, 64, 12, F16, True,
+                             lambda p, h: 2, 132).path == "element"
+
+
+# ---------------------------------------------------------------------------
+# Kernel B: the plain forward in fp16 against the JAX interpret kernels, and
+# its fp16 p plan emulated on the CPU
+# ---------------------------------------------------------------------------
+
+B_INTERPRET = {
+    # name: ((b, h, kvh, sq, sk, d, causal, kv_lengths, window), blocks):
+    # the multi-block `_fwd_kernel` over 64-row tiles (causal GQA with
+    # kv_lengths, a sliding window), the single-block `_fwd_single_kernel`
+    # (causal; kv_lengths with a 0 row; the sk - sq offset)
+    "multi_causal_gqa_kvl": ((1, 8, 2, 160, 160, 64, True, [150], None),
+                             dict(block_q=64, block_k=64)),
+    "multi_window": ((1, 4, 4, 160, 160, 64, True, None, 40),
+                     dict(block_q=64, block_k=64)),
+    "single_causal": ((2, 4, 4, 48, 48, 64, True, None, None), {}),
+    "single_kv_lengths_with_zero": ((3, 2, 2, 40, 40, 64, False, [40, 17, 0],
+                                     None), {}),
+    "single_sq_lt_sk": ((1, 4, 2, 24, 100, 64, True, None, None), {}),
+}
+
+
+def _b_inputs(case, seed):
+    b, h, kvh, sq, sk, d, causal, kvl, window = case
+    rng = np.random.RandomState(seed)
+    q, k, v = (torch.from_numpy(rng.randn(*s).astype(np.float32)).half()
+               for s in ((b, h, sq, d), (b, kvh, sk, d), (b, kvh, sk, d)))
+    kvl = None if kvl is None else torch.tensor(kvl, dtype=torch.int32)
+    return q, k, v, (kvl, 1.0 / math.sqrt(d), causal, window)
+
+
+@pytest.mark.parametrize("name", list(B_INTERPRET))
+def test_flash_fwd_fp16_matches_jax_interpret_kernels(jax_mode, name):
+    """o of the plain forward in fp16 within 1 fp16 ulp plus ``sum_j
+    step(p_j) |v_j|`` of the JAX kernels in interpret mode: they round the
+    unnormalised p to fp16 before P V, the plain version keeps it in fp32
+    (E's bar). A row that sees no key is 0 on both sides."""
+    jax_mode("interpret")
+    case, blocks = B_INTERPRET[name]
+    q, k, v, args = _b_inputs(case, seed=8)
+    kvl, scale, causal, window = args
+    jkvl = None if kvl is None else jnp.asarray(kvl.numpy())
+    want = jax_flash(*(jnp.asarray(_f32(t), jnp.float16) for t in (q, k, v)),
+                     causal=causal, sliding_window=window, kv_lengths=jkvl,
+                     **blocks)
+    assert want.dtype == jnp.float16
+    o, lse = flash_fwd_plain(q, k, v, *args)
+    assert o.dtype == F16
+    p, _ = flash_bwd_factors(q, k, v, o, o, lse, *args)
+    group = q.shape[1] // k.shape[1]
+    slack = torch.einsum("bhqk,bhkd->bhqd", rounding_step(p, F16),
+                         v.float().abs().repeat_interleave(group, dim=1))
+    _check_fp16("o", _f32(want), _f32(o), slack.numpy())
+
+
+def _kernel_b_fp16_emulation(q, k, v, kv_lengths, scale, causal, window,
+                             split=True):
+    """Kernel B's fp16 arithmetic (:func:`_fwd_fp16_emulation`, no
+    dropout: p scaled by 2^14) over ``[b, h, s, d]`` with GQA: ``o [b, h,
+    sq, d]``."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    valid = _visible(sq, sk, kv_lengths, causal, window, "cpu").expand(
+        b, h, sq, sk).reshape(b * h, sq, sk)
+    group = h // k.shape[1]
+    kv = lambda t: t.repeat_interleave(group, dim=1).reshape(  # noqa: E731
+        b * h, sk, d)
+    o = _fwd_fp16_emulation(q.reshape(b * h, sq, d), kv(k), kv(v), valid,
+                            scale, split=split)
+    return o.reshape(b, h, sq, d)
+
+
+B_ROUNDING = {
+    # name: (b, h, kvh, sq, sk, d, causal, kv_lengths, window): two heads
+    # of the serve prefill at its largest bucket, the T5 cross-attention
+    # (one head, kv_lengths with a 0), a window with the sk - sq offset
+    "serve_s768": (1, 2, 2, 768, 768, 64, True, None, None),
+    "t5_cross_one_head": (3, 1, 1, 114, 512, 64, False, [512, 300, 0],
+                          None),
+    "window_offset_gqa": (1, 4, 2, 160, 300, 64, True, [280], 64),
+}
+
+
+@pytest.mark.parametrize("name", list(B_ROUNDING))
+def test_kernel_b_fp16_rounding_plan_holds_one_ulp(name):
+    """The scaled hi + lo split keeps Kernel B's fp16 o within 1 fp16 ulp
+    of the plain version (p in fp32); a row that sees no key is 0."""
+    q, k, v, args = _b_inputs(B_ROUNDING[name], seed=9)
+    want, _ = flash_fwd_plain(q, k, v, *args)
+    got = _kernel_b_fp16_emulation(q, k, v, *args)
+    _check_fp16("o", _f32(want), _f32(got))
+    kvl = args[0]
+    if kvl is not None and 0 in kvl.tolist():
+        assert not got[kvl.tolist().index(0)].any()
+
+
+def test_kernel_b_single_fp16_p_misses_one_ulp():
+    """Why Kernel B splits p in fp16 too: rounded once to fp16 before P V,
+    p puts o at the serve prefill's s 768 tens of fp16 ulps from the plain
+    version (29.7 on these inputs; the split plan: 0.97)."""
+    q, k, v, args = _b_inputs(B_ROUNDING["serve_s768"], seed=9)
+    want, _ = flash_fwd_plain(q, k, v, *args)
+    got = _kernel_b_fp16_emulation(q, k, v, *args, split=False)
+    w, g = _f32(want), _f32(got)
+    assert (np.abs(g - w) / _one_ulp(w)).max() > 10
+
+
+def test_flash_autograd_forward_keeps_fp16():
+    q, k, v, (kvl, _, causal, window) = _b_inputs(
+        B_INTERPRET["single_causal"][0], seed=10)
+    o = tatt.flash_attention(q, k, v, causal=causal, kv_lengths=kvl)
+    assert o.dtype == F16 and torch.isfinite(o).all()
