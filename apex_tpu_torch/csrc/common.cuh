@@ -75,7 +75,7 @@ struct Half16<__nv_bfloat16> {
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
   }
-  // d = a b from a zero accumulator (the fused convs' GEMM, bf16 only)
+  // d = a b from a zero accumulator (the fused convs' GEMM)
   __device__ static __forceinline__ void mma_zero(float (&d)[4],
                                                   const unsigned (&a)[4],
                                                   unsigned b0, unsigned b1) {
@@ -107,6 +107,15 @@ struct Half16<__half> {
         "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  __device__ static __forceinline__ void mma_zero(float (&d)[4],
+                                                  const unsigned (&a)[4],
+                                                  unsigned b0, unsigned b1) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+          "f"(0.f));
   }
 };
 

@@ -17,9 +17,10 @@
 // over rows become per-chunk partials reduced in a fixed order (no atomics:
 // repeated runs are bitwise equal).
 //
-// bf16, the path ResNet-50 trains on (Kernel M's passes at one tap):
+// bf16 and fp16, the paths ResNet-50 trains on (Kernel M's passes at one
+// tap; one template over the 16-bit type T):
 // - prep (conv_prep.cuh, shared with L and M): one elementwise pass with
-//   16-byte loads and stores writes dy_eff [m, N] to bf16 scratch and, with
+//   16-byte loads and stores writes dy_eff [m, N] to T scratch and, with
 //   the affine, a second one z [m, K], each element formed once with the
 //   rounding points of the plain version. Without the affine z is x, and no
 //   z pass runs;
@@ -105,8 +106,8 @@ conv1x1_dw_kernel(const float* __restrict__ x, const float* __restrict__ a,
 }
 
 // ---------------------------------------------------------------------------
-// bf16, the dW GEMM on the cp.async ring (prep, dx and the chunk sum:
-// conv_prep.cuh, conv_mma.cuh)
+// bf16 and fp16, the dW GEMM on the cp.async ring (prep, dx and the chunk
+// sum: conv_prep.cuh, conv_mma.cuh)
 // ---------------------------------------------------------------------------
 
 // A BK x BN tile of dW [K, N] over a chunk of rows: warps of 64 K x 32 N,
@@ -126,21 +127,21 @@ struct DwTile {
   static constexpr int kStage = kSlice * (kLdz + kLdd) * 2;
 };
 
-template <int BK, int BN, bool VEC>
+template <int BK, int BN, bool VEC, typename T>
 __global__ void __launch_bounds__(BK * BN / 64,
                                   BK + BN == 256 ? 2 : BK + BN == 128 ? 6 : 4)
-k_dw_mma_kernel(const bf16* __restrict__ z, const bf16* __restrict__ dye,
+k_dw_mma_kernel(const T* __restrict__ z, const T* __restrict__ dye,
                 float* __restrict__ dw_partial, long long m, int k, int n,
                 int chunk_rows) {
-  using T = DwTile<BK, BN>;
+  using TL = DwTile<BK, BN>;
   constexpr int ZG = BK / 8;                 // 16-byte pieces of a z row
   constexpr int DG = BN / 8;                 // ... of a dy_eff row
-  constexpr int ZR = kSlice * ZG / T::kThreads;  // z rows a thread copies
-  constexpr int DR = kSlice * DG / T::kThreads;  // dy_eff rows ...
-  constexpr int MT = T::kWarpK / 16;
-  constexpr int NT = T::kWarpN / 8;
-  static_assert(ZR * T::kThreads == kSlice * ZG &&
-                DR * T::kThreads == kSlice * DG, "whole rows a thread");
+  constexpr int ZR = kSlice * ZG / TL::kThreads;  // z rows a thread copies
+  constexpr int DR = kSlice * DG / TL::kThreads;  // dy_eff rows ...
+  constexpr int MT = TL::kWarpK / 16;
+  constexpr int NT = TL::kWarpN / 8;
+  static_assert(ZR * TL::kThreads == kSlice * ZG &&
+                DR * TL::kThreads == kSlice * DG, "whole rows a thread");
   extern __shared__ __align__(16) unsigned char smem[];
   const int k0 = blockIdx.x * BK;
   const int n0 = blockIdx.y * BN;
@@ -159,38 +160,38 @@ k_dw_mma_kernel(const bf16* __restrict__ z, const bf16* __restrict__ dye,
   const int k_left = k - k0 - cz;
   const int n_left = n - n0 - cd;
   auto load = [&](unsigned char* st) {
-    bf16* sz = reinterpret_cast<bf16*>(st);
-    bf16* sd = sz + kSlice * T::kLdz;
+    T* sz = reinterpret_cast<T*>(st);
+    T* sd = sz + kSlice * TL::kLdz;
 #pragma unroll
     for (int i = 0; i < ZR; ++i) {
       const int row = rz + (kSlice / ZR) * i;
       const long long p = pz + (kSlice / ZR) * i;
-      apex::ring::copy8<VEC>(sz + row * T::kLdz + cz, z + p * k + k0 + cz, z,
+      apex::ring::copy8<VEC>(sz + row * TL::kLdz + cz, z + p * k + k0 + cz, z,
                              p < m_hi, k_left);
     }
 #pragma unroll
     for (int i = 0; i < DR; ++i) {
       const int row = rd + (kSlice / DR) * i;
       const long long p = pd + (kSlice / DR) * i;
-      apex::ring::copy8<VEC>(sd + row * T::kLdd + cd, dye + p * n + n0 + cd,
+      apex::ring::copy8<VEC>(sd + row * TL::kLdd + cd, dye + p * n + n0 + cd,
                              dye, p < m_hi, n_left);
     }
     pz += kSlice;
     pd += kSlice;
   };
   const int warp = tid >> 5;
-  const int wk = (warp % T::kWarpsK) * T::kWarpK;
-  const int wn = (warp / T::kWarpsK) * T::kWarpN;
+  const int wk = (warp % TL::kWarpsK) * TL::kWarpK;
+  const int wn = (warp / TL::kWarpsK) * TL::kWarpN;
   float acc[MT][NT][4] = {};
   auto step = [&](const unsigned char* st) {
-    const bf16* sz = reinterpret_cast<const bf16*>(st);
-    const bf16* sd = sz + kSlice * T::kLdz;
+    const T* sz = reinterpret_cast<const T*>(st);
+    const T* sd = sz + kSlice * TL::kLdz;
 #pragma unroll
     for (int kk = 0; kk < kSlice; kk += 16)
-      apex::ring::warp_step<MT, NT, true, true>(sz + wk, T::kLdz, sd + wn,
-                                                T::kLdd, kk, acc);
+      apex::ring::warp_step<MT, NT, true, true>(sz + wk, TL::kLdz, sd + wn,
+                                                TL::kLdd, kk, acc);
   };
-  apex::ring::run_ring<kStages, T::kStage>(slices_of(m_hi - m_lo), smem,
+  apex::ring::run_ring<kStages, TL::kStage>(slices_of(m_hi - m_lo), smem,
                                            load, step);
 
   const int lane = tid & 31;
@@ -228,37 +229,37 @@ struct Args {
   float* dw;           // [k, n] fp32
   float* dab_partial;  // [ceil(m / rows), 2, k] fp32 scratch (affine only)
   float* dab;          // [2, k] fp32: da, db (affine only)
-  void* dy_eff;        // [m, n] bf16 scratch (bf16 only)
-  void* z;             // [m, k] bf16 scratch (bf16 with the affine)
+  void* dy_eff;        // [m, n] scratch of x's type (16-bit only)
+  void* z;             // [m, k] scratch of x's type (16-bit, with the affine)
   int m, k, n, chunk_rows;
 };
 
-template <int BK, int BN, bool VEC>
-cudaError_t run_dw(const bf16* z, const bf16* dye, const Args& p,
-                   int chunks, cudaStream_t stream) {
-  using T = DwTile<BK, BN>;
+template <int BK, int BN, bool VEC, typename T>
+cudaError_t run_dw(const T* z, const T* dye, const Args& p, int chunks,
+                   cudaStream_t stream) {
+  using TL = DwTile<BK, BN>;
   const dim3 grid(static_cast<unsigned>(cdiv(p.k, BK)),
                   static_cast<unsigned>(cdiv(p.n, BN)),
                   static_cast<unsigned>(chunks));
-  constexpr int smem = kStages * T::kStage;
-  cudaError_t err = apex::allow_smem(k_dw_mma_kernel<BK, BN, VEC>, smem);
+  constexpr int smem = kStages * TL::kStage;
+  cudaError_t err = apex::allow_smem(k_dw_mma_kernel<BK, BN, VEC, T>, smem);
   if (err != cudaSuccess) return err;
-  k_dw_mma_kernel<BK, BN, VEC><<<grid, T::kThreads, smem, stream>>>(
+  k_dw_mma_kernel<BK, BN, VEC, T><<<grid, TL::kThreads, smem, stream>>>(
       z, dye, p.dw_partial, p.m, p.k, p.n, p.chunk_rows);
   return cudaGetLastError();
 }
 
-template <bool AFFINE, bool RELU, bool VEC>
-cudaError_t run_bf16(const Args& p, cudaStream_t stream) {
-  const bf16* x = static_cast<const bf16*>(p.x);
-  bf16* dye = static_cast<bf16*>(p.dy_eff);
+template <typename T, bool AFFINE, bool RELU, bool VEC>
+cudaError_t run_16(const Args& p, cudaStream_t stream) {
+  const T* x = static_cast<const T*>(p.x);
+  T* dye = static_cast<T*>(p.dy_eff);
   cudaError_t err = prep_dy<KernelK, VEC>(
-      static_cast<const bf16*>(p.dy), static_cast<const bf16*>(p.y), p.c,
-      p.ds, dye, p.m, p.n, stream);
+      static_cast<const T*>(p.dy), static_cast<const T*>(p.y), p.c, p.ds,
+      dye, p.m, p.n, stream);
   if (err != cudaSuccess) return err;
-  const bf16* z = x;
+  const T* z = x;
   if (AFFINE) {
-    bf16* zs = static_cast<bf16*>(p.z);
+    T* zs = static_cast<T*>(p.z);
     err = prep_z<KernelK, RELU, VEC>(x, p.a, p.b, zs, p.m, p.k, stream);
     if (err != cudaSuccess) return err;
     z = zs;
@@ -274,8 +275,8 @@ cudaError_t run_bf16(const Args& p, cudaStream_t stream) {
                    : run_dw<64, 64, VEC>(z, dye, p, chunks, stream);
   if (err != cudaSuccess) return err;
   err = run_dx<1, AFFINE, RELU, VEC>(
-      x, p.a, p.b, static_cast<const bf16*>(p.w), dye,
-      static_cast<bf16*>(p.dx), p.dab_partial, p.m, 1, 1, p.k, p.n, stream);
+      x, p.a, p.b, static_cast<const T*>(p.w), dye, static_cast<T*>(p.dx),
+      p.dab_partial, p.m, 1, 1, p.k, p.n, stream);
   if (err != cudaSuccess) return err;
   err = chunk_sum<1>(p.dw_partial, p.dw, chunks,
                      static_cast<long long>(p.k) * p.n, stream);
@@ -326,8 +327,8 @@ struct Launch {
                        aligned16(p.c) && aligned16(p.ds) &&
                        (!AFFINE || (aligned16(p.z) && aligned16(p.a) &&
                                     aligned16(p.b)));
-      return vec ? run_bf16<AFFINE, RELU, true>(p, stream)
-                 : run_bf16<AFFINE, RELU, false>(p, stream);
+      return vec ? run_16<T, AFFINE, RELU, true>(p, stream)
+                 : run_16<T, AFFINE, RELU, false>(p, stream);
     }
   }
 };
@@ -338,9 +339,9 @@ struct Launch {
 // fp32; a, b, dab_partial and dab null without the affine. The caller sizes
 // the scratch (ops/conv_fused.py `conv1x1_bwd_scratch`): dw_partial
 // [ceil(m / chunk_rows), k, n] with at most 65535 chunks; dab_partial
-// [ceil(m / rows), 2, k] with rows 128 in bf16 and 64 in f32; in bf16
-// dy_eff [m, n] and, with the affine, z [m, k] (both null in f32). All
-// sizes > 0, tensors contiguous.
+// [ceil(m / rows), 2, k] with rows 128 in bf16 and fp16 and 64 in f32; in
+// bf16 and fp16 dy_eff [m, n] and, with the affine, z [m, k] of x's type
+// (both null in f32). All sizes > 0, tensors contiguous.
 extern "C" int apex_conv1x1_bwd(const void* x, const void* a, const void* b,
                                 const void* w, const void* c, const void* y,
                                 const void* dy, const void* ds, void* dx,

@@ -3,7 +3,7 @@
 // Replaces: apex_tpu/ops/conv_fused.py `_fwd_kernel` (:63), launched by
 // `_fwd_pallas` (:94) through `pl.pallas_call` (:108).
 //
-// Semantics kept: x [M, K] and w [K, N] of one dtype (bf16 or f32); with
+// Semantics kept: x [M, K] and w [K, N] of one dtype (bf16, fp16 or f32); with
 // the input affine z = relu?(x * a + b) in fp32 rounded to w's dtype, else
 // z = x; y = z @ w accumulated in fp32 and rounded once to x's dtype;
 // stats [2, N] = (sum(y - c), sum((y - c)^2)) over the M rows, from the
@@ -24,9 +24,10 @@
 // Operations at layer3's downsample and all of layer4 (26-53 G FLOPs a
 // launch: 0.027-0.053 ms at 989 TFLOP/s).
 //
-// bf16, the path ResNet-50 trains on (Kernel L's passes at one tap):
+// bf16 and fp16, the paths ResNet-50 trains on (Kernel L's passes at one
+// tap; one template over the 16-bit type T):
 // - prep (with the affine; conv_prep.cuh, shared with K, L and M): one
-//   elementwise pass with 16-byte loads and stores writes z [m, K] to bf16
+//   elementwise pass with 16-byte loads and stores writes z [m, K] to T
 //   scratch, each element formed once (conv_fused.cuh's zval: the rounding
 //   points of the plain version). Without the affine (every conv1 and
 //   downsample) z is x, and no pass runs;
@@ -38,7 +39,7 @@
 //   then from L2. The stats come from the fp32 fragments as in L. The
 //   tile's y is staged through shared memory and stored as 16-byte rows
 //   (where N % 8 == 0 and the tensors are aligned; else the fragments'
-//   bf16 pairs, as L stores them);
+//   T pairs, as L stores them);
 // - the partial rows are summed in fixed-order chunks of 512 rows
 //   (conv_mma.cuh's chunked_column_sum), then the chunks by column_sum.
 //
@@ -56,7 +57,6 @@
 namespace {
 
 using namespace apex::conv;
-using apex::ring::bf16;
 
 // ---------------------------------------------------------------------------
 // f32: the fused loader over fp32 FMAs
@@ -91,22 +91,22 @@ struct Args {
   void* y;
   float* partial;  // fp32 scratch (tile rows, then chunk rows; below)
   float* stats;    // [2, n]
-  void* z;         // [m, k] bf16 scratch (bf16 with the affine)
+  void* z;         // [m, k] scratch of x's type (16-bit, with the affine)
   int m, k, n;
 };
 
-template <bool AFFINE, bool RELU, bool VEC>
-cudaError_t run_bf16(const Args& p, cudaStream_t stream) {
-  const bf16* z = static_cast<const bf16*>(p.x);
+template <typename T, bool AFFINE, bool RELU, bool VEC>
+cudaError_t run_16(const Args& p, cudaStream_t stream) {
+  const T* z = static_cast<const T*>(p.x);
   if constexpr (AFFINE) {
-    bf16* zs = static_cast<bf16*>(p.z);
+    T* zs = static_cast<T*>(p.z);
     const cudaError_t err =
         prep_z<KernelJ, RELU, VEC>(z, p.a, p.b, zs, p.m, p.k, stream);
     if (err != cudaSuccess) return err;
     z = zs;
   }
-  const bf16* w = static_cast<const bf16*>(p.w);
-  bf16* y = static_cast<bf16*>(p.y);
+  const T* w = static_cast<const T*>(p.w);
+  T* y = static_cast<T*>(p.y);
   // y staged into 16-byte rows wherever the copies are 16-byte ones
   return p.n >= 128
              ? run_fwd<1, 64, 128, VEC, VEC>(z, w, p.c, y, p.partial, p.stats,
@@ -141,8 +141,8 @@ struct Launch {
                        aligned16(p.w) && aligned16(p.y) &&
                        (!AFFINE || (aligned16(p.z) && aligned16(p.a) &&
                                     aligned16(p.b)));
-      return vec ? run_bf16<AFFINE, RELU, true>(p, stream)
-                 : run_bf16<AFFINE, RELU, false>(p, stream);
+      return vec ? run_16<T, AFFINE, RELU, true>(p, stream)
+                 : run_16<T, AFFINE, RELU, false>(p, stream);
     }
   }
 };
@@ -151,10 +151,11 @@ struct Launch {
 
 // a and b are null without the input affine (relu then 0). The caller sizes
 // the scratch (ops/conv_fused.py `conv1x1_fwd_scratch`): `partial`
-// [rows, 2, n] fp32 with rows = ceil(m / 64) in f32 and, in bf16, ceil(m /
-// tile rows) + ceil(that / 512) (tile rows 128, or 64 where n >= 128: the
-// tiles' rows, then their chunk sums); in bf16 with the affine z [m, k]
-// (else null). m, k, n > 0; all tensors contiguous.
+// [rows, 2, n] fp32 with rows = ceil(m / 64) in f32 and, in bf16 and fp16,
+// ceil(m / tile rows) + ceil(that / 512) (tile rows 128, or 64 where n >=
+// 128: the tiles' rows, then their chunk sums); in bf16 and fp16 with the
+// affine z [m, k] of x's type (else null). m, k, n > 0; all tensors
+// contiguous.
 extern "C" int apex_conv1x1_fwd(const void* x, const void* a, const void* b,
                                 const void* w, const void* c, void* y,
                                 void* partial, void* stats, void* z,

@@ -16,13 +16,14 @@
 // so the sums over pixels become per-chunk partials reduced in a fixed
 // order (no atomics: repeated runs are bitwise equal).
 //
-// bf16, the path ResNet-50 trains on (four passes):
+// bf16 and fp16, the paths ResNet-50 trains on (four passes; one template
+// over the 16-bit type T):
 // - pass 0, prep: one elementwise pass with 16-byte loads and stores writes
-//   dy_eff [m, N] and, with the affine, z [m, K] to bf16 scratch, each
+//   dy_eff [m, N] and, with the affine, z [m, K] to T scratch, each
 //   element formed once (conv_fused.cuh's dyc and zval: the rounding points
 //   of the plain version; both passes are conv_prep.cuh's, which Kernels K
 //   and L run too). Every operand of the two GEMMs is then a plain
-//   bf16 tensor, and each operand row is copied 16 bytes at a time;
+//   T tensor, and each operand row is copied 16 bytes at a time;
 // - dW: blocks over (64 x 64 tile of [K, N], kernel row, chunk of pixels)
 //   run dW[tap] = z_shifted^T dy_eff for the row's three taps over their
 //   chunk in 32-pixel slices: one dy_eff tile serves the three, and the
@@ -66,7 +67,6 @@ namespace {
 
 using namespace apex::conv;
 using apex::to_float;
-using apex::ring::bf16;
 
 // ---------------------------------------------------------------------------
 // f32: the fused loaders over fp32 FMAs
@@ -115,8 +115,8 @@ conv3x3_dw_kernel(const float* __restrict__ x, const float* __restrict__ a,
 }
 
 // ---------------------------------------------------------------------------
-// bf16, the dW GEMM on the cp.async ring (prep, dx and the chunk sum:
-// conv_prep.cuh, conv_mma.cuh)
+// bf16 and fp16, the dW GEMM on the cp.async ring (prep, dx and the chunk
+// sum: conv_prep.cuh, conv_mma.cuh)
 // ---------------------------------------------------------------------------
 
 constexpr int kTileH = 64 + 8;       // dW stage rows: 64 channels + pad
@@ -130,9 +130,9 @@ constexpr int kDwTaps = 3;
 constexpr int kDwGroups = 9 / kDwTaps;
 constexpr int kDwStage = (1 + kDwTaps) * kSlice * kTileH * 2;
 
-template <bool VEC>
+template <bool VEC, typename T>
 __global__ void __launch_bounds__(kDwThreads)
-dw_mma_kernel(const bf16* __restrict__ z, const bf16* __restrict__ dye,
+dw_mma_kernel(const T* __restrict__ z, const T* __restrict__ dye,
               float* __restrict__ dw_partial, long long m, int h, int wd,
               int k, int n, int chunk_rows) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -166,7 +166,7 @@ dw_mma_kernel(const bf16* __restrict__ z, const bf16* __restrict__ dye,
   const int k_left = k - k0 - cq;
   const int n_left = n - n0 - cq;
   auto load = [&](unsigned char* st) {
-    bf16* sb = reinterpret_cast<bf16*>(st);
+    T* sb = reinterpret_cast<T*>(st);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const bool in = p[i] < m_hi;
@@ -195,7 +195,7 @@ dw_mma_kernel(const bf16* __restrict__ z, const bf16* __restrict__ dye,
   const int wn = (warp >> 1) * 32;  // N
   float acc[kDwTaps][2][4][4] = {};
   auto step = [&](const unsigned char* st) {
-    const bf16* sb = reinterpret_cast<const bf16*>(st);
+    const T* sb = reinterpret_cast<const T*>(st);
 #pragma unroll
     for (int kk = 0; kk < kSlice; kk += 16) {
       unsigned fb[2][4];
@@ -205,7 +205,7 @@ dw_mma_kernel(const bf16* __restrict__ z, const bf16* __restrict__ dye,
         unsigned fa[2][4];
         apex::ring::load_a<2, true>(fa, sb + (1 + t) * kSlice * kTileH + wm,
                                     kTileH, kk);
-        apex::ring::mma_tile<2, 4>(acc[t], fa, fb);
+        apex::ring::mma_tile<2, 4, T>(acc[t], fa, fb);
       }
     }
   };
@@ -249,22 +249,22 @@ struct Args {
   float* dw;           // [3, 3, k, n] fp32
   float* dab_partial;  // [row blocks, 2, k] (affine only)
   float* dab;          // [2, k]: da, db (affine only)
-  void* dy_eff;        // [images h w, n] bf16 scratch (bf16 only)
-  void* z;             // [images h w, k] bf16 scratch (bf16 with the affine)
+  void* dy_eff;        // [images h w, n] scratch of x's type (16-bit only)
+  void* z;             // [images h w, k] the same (16-bit, with the affine)
   int images, h, wd, k, n, chunk_rows;
 };
 
-template <bool AFFINE, bool RELU, bool VEC>
-cudaError_t run_bf16(const Args& p, long long m, cudaStream_t stream) {
-  const bf16* x = static_cast<const bf16*>(p.x);
-  bf16* dye = static_cast<bf16*>(p.dy_eff);
+template <typename T, bool AFFINE, bool RELU, bool VEC>
+cudaError_t run_16(const Args& p, long long m, cudaStream_t stream) {
+  const T* x = static_cast<const T*>(p.x);
+  T* dye = static_cast<T*>(p.dy_eff);
   cudaError_t err = prep_dy<KernelM, VEC>(
-      static_cast<const bf16*>(p.dy), static_cast<const bf16*>(p.y), p.c,
-      p.ds, dye, m, p.n, stream);
+      static_cast<const T*>(p.dy), static_cast<const T*>(p.y), p.c, p.ds,
+      dye, m, p.n, stream);
   if (err != cudaSuccess) return err;
-  const bf16* z = x;
+  const T* z = x;
   if (AFFINE) {
-    bf16* zs = static_cast<bf16*>(p.z);
+    T* zs = static_cast<T*>(p.z);
     err = prep_z<KernelM, RELU, VEC>(x, p.a, p.b, zs, m, p.k, stream);
     if (err != cudaSuccess) return err;
     z = zs;
@@ -274,16 +274,15 @@ cudaError_t run_bf16(const Args& p, long long m, cudaStream_t stream) {
                      static_cast<unsigned>(cdiv(p.n, 64)),
                      static_cast<unsigned>(kDwGroups * chunks));
   constexpr int dw_smem = kStages * kDwStage;
-  err = apex::allow_smem(dw_mma_kernel<VEC>, dw_smem);
+  err = apex::allow_smem(dw_mma_kernel<VEC, T>, dw_smem);
   if (err != cudaSuccess) return err;
-  dw_mma_kernel<VEC><<<grid_dw, kDwThreads, dw_smem, stream>>>(
+  dw_mma_kernel<VEC, T><<<grid_dw, kDwThreads, dw_smem, stream>>>(
       z, dye, p.dw_partial, m, p.h, p.wd, p.k, p.n, p.chunk_rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   err = run_dx<9, AFFINE, RELU, VEC>(
-      x, p.a, p.b, static_cast<const bf16*>(p.w), dye,
-      static_cast<bf16*>(p.dx), p.dab_partial, m, p.h, p.wd, p.k, p.n,
-      stream);
+      x, p.a, p.b, static_cast<const T*>(p.w), dye, static_cast<T*>(p.dx),
+      p.dab_partial, m, p.h, p.wd, p.k, p.n, stream);
   if (err != cudaSuccess) return err;
   err = chunk_sum<9>(p.dw_partial, p.dw, chunks, 9LL * p.k * p.n, stream);
   if (err != cudaSuccess || !AFFINE) return err;
@@ -333,8 +332,8 @@ struct Launch {
                        aligned16(p.c) && aligned16(p.ds) &&
                        (!AFFINE || (aligned16(p.z) && aligned16(p.a) &&
                                     aligned16(p.b)));
-      return vec ? run_bf16<AFFINE, RELU, true>(p, m, stream)
-                 : run_bf16<AFFINE, RELU, false>(p, m, stream);
+      return vec ? run_16<T, AFFINE, RELU, true>(p, m, stream)
+                 : run_16<T, AFFINE, RELU, false>(p, m, stream);
     }
   }
 };
@@ -346,9 +345,9 @@ struct Launch {
 // without the affine. The caller sizes the scratch (ops/conv_fused.py
 // `conv3x3_bwd_scratch`): dw_partial [ceil(images h w / chunk_rows), 9, k,
 // n] with at most 7281 chunks; dab_partial [ceil(images h w / rows), 2, k]
-// with rows 128 in bf16 and 64 in f32; in bf16 dy_eff [images h w, n] and,
-// with the affine, z [images h w, k] (both null in f32). All sizes > 0,
-// tensors contiguous.
+// with rows 128 in bf16 and fp16 and 64 in f32; in bf16 and fp16 dy_eff
+// [images h w, n] and, with the affine, z [images h w, k] of x's type (both
+// null in f32). All sizes > 0, tensors contiguous.
 extern "C" int apex_conv3x3_bwd(const void* x, const void* a, const void* b,
                                 const void* w, const void* c, const void* y,
                                 const void* dy, const void* ds, void* dx,

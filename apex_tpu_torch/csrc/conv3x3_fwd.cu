@@ -20,9 +20,10 @@
 // Bound on the H100 at layer1 (x [256, 56, 56, 64] bf16 -> 64): bytes and
 // operations about even, ~206 MB against 59 G FLOPs (~0.06 ms).
 //
-// bf16, the path ResNet-50 trains on (three passes):
+// bf16 and fp16, the paths ResNet-50 trains on (three passes; one template
+// over the 16-bit type T):
 // - prep (with the affine; conv_prep.cuh, shared with Kernels J, K, M): one
-//   elementwise pass with 16-byte loads and stores writes z [m, K] to bf16
+//   elementwise pass with 16-byte loads and stores writes z [m, K] to T
 //   scratch, each element formed once (conv_fused.cuh's zval: the rounding
 //   points of the plain version). Without the affine z is x, and no pass
 //   runs;
@@ -37,7 +38,7 @@
 //   halo that is zero in z-space. B is w[tap] [32 K][64 or 128 N'] as stored,
 //   read by ldmatrix.trans. Shared-memory rows are padded so that ldmatrix
 //   reads them without bank conflicts. Each 16-deep product is added into
-//   fp32 registers. The epilogue works on the fragments: y as bf16 pairs,
+//   fp32 registers. The epilogue works on the fragments: y as T pairs,
 //   the (y - c) sums per thread, then over the lanes of a column by a fixed
 //   butterfly, then over the block's row-warps in order, one partial row
 //   per pixel tile;
@@ -64,7 +65,6 @@
 namespace {
 
 using namespace apex::conv;
-using apex::ring::bf16;
 
 // ---------------------------------------------------------------------------
 // f32: the fused loader over fp32 FMAs
@@ -100,15 +100,15 @@ struct Args {
   void* y;
   float* partial;  // [ceil(images h w / rows), 2, n] fp32 scratch
   float* stats;    // [2, n]
-  void* z;         // [images h w, k] bf16 scratch (bf16 with the affine)
+  void* z;         // [images h w, k] scratch of x's type (16-bit, affine)
   int images, h, wd, k, n;
 };
 
-template <bool AFFINE, bool RELU, bool VEC>
-cudaError_t run_bf16(const Args& p, long long m, cudaStream_t stream) {
-  const bf16* z = static_cast<const bf16*>(p.x);
+template <typename T, bool AFFINE, bool RELU, bool VEC>
+cudaError_t run_16(const Args& p, long long m, cudaStream_t stream) {
+  const T* z = static_cast<const T*>(p.x);
   if constexpr (AFFINE) {
-    bf16* zs = static_cast<bf16*>(p.z);
+    T* zs = static_cast<T*>(p.z);
     const cudaError_t err =
         prep_z<KernelL, RELU, VEC>(z, p.a, p.b, zs, m, p.k, stream);
     if (err != cudaSuccess) return err;
@@ -116,8 +116,8 @@ cudaError_t run_bf16(const Args& p, long long m, cudaStream_t stream) {
   }
   // 128 pixels x 64 channels a block, or 64 x 128 where N' >= 128 (one z
   // tile then feeds twice the columns; ops/conv_fused.py `_l_rows`)
-  const bf16* w = static_cast<const bf16*>(p.w);
-  bf16* y = static_cast<bf16*>(p.y);
+  const T* w = static_cast<const T*>(p.w);
+  T* y = static_cast<T*>(p.y);
   return p.n >= 128
              ? run_fwd<9, 64, 128, VEC, false>(z, w, p.c, y, p.partial,
                                                p.stats, m, p.h, p.wd, p.k,
@@ -154,8 +154,8 @@ struct Launch {
                        aligned16(p.w) &&
                        (!AFFINE || (aligned16(p.z) && aligned16(p.a) &&
                                     aligned16(p.b)));
-      return vec ? run_bf16<AFFINE, RELU, true>(p, m, stream)
-                 : run_bf16<AFFINE, RELU, false>(p, m, stream);
+      return vec ? run_16<T, AFFINE, RELU, true>(p, m, stream)
+                 : run_16<T, AFFINE, RELU, false>(p, m, stream);
     }
   }
 };
@@ -165,9 +165,9 @@ struct Launch {
 // x [images, h, w, k], w [3, 3, k, n]; a and b null without the affine.
 // The caller sizes the scratch (ops/conv_fused.py `conv3x3_fwd_scratch`):
 // `partial` [ceil(images h w / rows), 2, n] fp32 with rows 64 in f32 and,
-// in bf16, 128 (64 where n >= 128); in bf16 with the affine z [images h w,
-// k] (else null). All
-// sizes > 0, all tensors contiguous.
+// in bf16 and fp16, 128 (64 where n >= 128); in bf16 and fp16 with the
+// affine z [images h w, k] of x's type (else null). All sizes > 0, all
+// tensors contiguous.
 extern "C" int apex_conv3x3_fwd(const void* x, const void* a, const void* b,
                                 const void* w, const void* c, void* y,
                                 void* partial, void* stats, void* z,

@@ -2,8 +2,8 @@
 // the PyTorch port): their f32 paths' 64 x 64 output tile GEMM over fp32
 // shared-memory stages, the operand loaders that form z = relu(x * a + b)
 // and the effective cotangent dy_eff on the fly, the three epilogues, the
-// z and dy_eff formulas the bf16 prep passes share (conv_prep.cuh), and the
-// fixed-order column sum that reduces per-block partials (both dtypes).
+// z and dy_eff formulas the 16-bit prep passes share (conv_prep.cuh), and
+// the fixed-order column sum that reduces per-block partials (every dtype).
 //
 // Rounding points are those of apex_tpu/ops/conv_fused.py: z is formed in
 // fp32 (x * a, then + b, then relu) and rounded to w's dtype before the
@@ -12,14 +12,14 @@
 // and dy_eff are written with round-to-nearest intrinsics so that the
 // compiler does not contract them into fused multiply-adds: the plain
 // PyTorch versions compute them as separate operations, and a relu mask or
-// a bf16 rounding must not flip between the two.
+// a 16-bit rounding must not flip between the two.
 //
-// GEMM (f32 only: the bf16 paths run conv_prep.cuh's prep passes and the
-// mma.sync GEMMs of conv_mma.cuh and conv1x1_bwd.cu / conv3x3_bwd.cu): 256
-// threads own a 64 x 64 output tile. Each step stages a 64 x 16 slice of A
-// and a 16 x 64 slice of B in shared memory as fp32, and each thread runs
-// 16 rank-1 updates of its 4 x 4 outputs (rows ty * 4 + i, columns tx * 4
-// + j) from registers. The loaders decide which operand index runs fastest
+// GEMM (f32 only: the bf16 and fp16 paths run conv_prep.cuh's prep passes
+// and the mma.sync GEMMs of conv_mma.cuh and conv1x1_bwd.cu /
+// conv3x3_bwd.cu): 256 threads own a 64 x 64 output tile. Each step
+// stages a 64 x 16 slice of A and a 16 x 64 slice of B in shared memory as
+// fp32, and each thread runs 16 rank-1 updates of its 4 x 4 outputs (rows
+// ty * 4 + i, columns tx * 4 + j) from registers. The loaders decide which operand index runs fastest
 // across threads, so that global reads are coalesced along the contiguous
 // axis of each operand.
 #pragma once
@@ -622,8 +622,9 @@ inline cudaError_t dispatch(const Args& args, int dtype, int affine, int relu,
                             cudaStream_t stream) {
   if (dtype == kBF16)
     return dispatch_act<L, __nv_bfloat16>(args, affine, relu, stream);
+  if (dtype == kF16) return dispatch_act<L, __half>(args, affine, relu, stream);
   if (dtype == kF32) return dispatch_act<L, float>(args, affine, relu, stream);
-  return cudaErrorInvalidValue;
+  return cudaErrorInvalidValue;  // no other type
 }
 
 }  // namespace conv

@@ -1,6 +1,7 @@
-// The passes that the fused convolutions' bf16 paths share (Kernels J, K,
-// L and M of the PyTorch port), on mma.sync m16n8k16 fed by the cp.async
-// ring of mma_ring.cuh:
+// The passes that the fused convolutions' 16-bit paths share (Kernels J,
+// K, L and M of the PyTorch port), on mma.sync m16n8k16 fed by the
+// cp.async ring of mma_ring.cuh, each a template over the element type T
+// (bf16 or fp16; the mma opcode and the pair packing from apex::Half16<T>):
 // - the forward GEMM, y = z w over the taps with the stats partials from
 //   its fp32 fragments (Kernels J and L; J's y tiles staged into 16-byte
 //   rows);
@@ -23,8 +24,6 @@
 namespace apex {
 namespace conv {
 
-using apex::ring::bf16;
-
 constexpr int kStages = 4;
 constexpr int kSlice = 32;           // contraction depth of one slice
 constexpr int kRowH = kSlice + 8;    // stage rows: 32 channels + pad
@@ -45,11 +44,11 @@ constexpr int kDxStage = (kDxRows + kDxCols) * kRowH * 2;
 
 // (templates, so that every source that includes this header may define
 // them)
-template <int TAPS, bool AFFINE, bool RELU, bool VEC>
+template <int TAPS, bool AFFINE, bool RELU, bool VEC, typename T>
 __global__ void __launch_bounds__(kDxThreads)
-dx_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
-              const float* __restrict__ b, const bf16* __restrict__ w,
-              const bf16* __restrict__ dye, bf16* __restrict__ dx,
+dx_mma_kernel(const T* __restrict__ x, const float* __restrict__ a,
+              const float* __restrict__ b, const T* __restrict__ w,
+              const T* __restrict__ dye, T* __restrict__ dx,
               float* __restrict__ dab_partial, long long m, int h, int wd,
               int k, int n) {
   static_assert(TAPS == 1 || TAPS == 9, "a 1x1 or a 3x3 convolution");
@@ -85,8 +84,8 @@ dx_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
   int tap = 0;
   int nb = 0;
   auto load = [&](unsigned char* st) {
-    bf16* sa = reinterpret_cast<bf16*>(st);
-    bf16* sb = sa + kDxRows * kRowH;
+    T* sa = reinterpret_cast<T*>(st);
+    T* sb = sa + kDxRows * kRowH;
     const int dr = TAPS > 1 ? 1 - tap / 3 : 0;  // dy_eff at (row + dr,
     const int dc = TAPS > 1 ? 1 - tap % 3 : 0;  // col + dc)
     const long long shift = static_cast<long long>(dr) * wd + dc;
@@ -122,8 +121,8 @@ dx_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
   const int wn = (warp >> 2) * 8 * kDxNT;  // K
   float acc[kDxMT][kDxNT][4] = {};
   auto step = [&](const unsigned char* st) {
-    const bf16* sa = reinterpret_cast<const bf16*>(st);
-    const bf16* sb = sa + kDxRows * kRowH;
+    const T* sa = reinterpret_cast<const T*>(st);
+    const T* sb = sa + kDxRows * kRowH;
 #pragma unroll
     for (int kk = 0; kk < kSlice; kk += 16)
       apex::ring::warp_step<kDxMT, kDxNT, false, false>(
@@ -156,10 +155,10 @@ dx_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
         float xv[2] = {0.f, 0.f};
         if (AFFINE) {
           if (pair) {
-            const __nv_bfloat162 x2 =
-                *reinterpret_cast<const __nv_bfloat162*>(x + idx);
-            xv[0] = __low2float(x2);
-            xv[1] = __high2float(x2);
+            const float2 x2 = apex::Half16<T>::unpack(
+                *reinterpret_cast<const unsigned*>(x + idx));
+            xv[0] = x2.x;
+            xv[1] = x2.y;
           } else {
             xv[0] = to_float(x[idx]);
             if (both) xv[1] = to_float(x[idx + 1]);
@@ -179,11 +178,11 @@ dx_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
           }
         }
         if (pair) {
-          *reinterpret_cast<__nv_bfloat162*>(dx + idx) =
-              __floats2bfloat162_rn(out[0], out[1]);
+          *reinterpret_cast<unsigned*>(dx + idx) =
+              apex::Half16<T>::pack(out[0], out[1]);
         } else {
-          dx[idx] = __float2bfloat16(out[0]);
-          if (both) dx[idx + 1] = __float2bfloat16(out[1]);
+          store(&dx[idx], out[0]);
+          if (both) store(&dx[idx + 1], out[1]);
         }
       }
     }
@@ -224,11 +223,11 @@ dx_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
 }
 
 // The dx pass on stream: x and dx [m, k], w [TAPS, k, n], dy_eff [m, n]
-// bf16; dab_partial [ceil(m / 128), 2, k] (affine only). A 3x3 takes the
+// of T; dab_partial [ceil(m / 128), 2, k] (affine only). A 3x3 takes the
 // image's h and wd; a 1x1 ignores them.
-template <int TAPS, bool AFFINE, bool RELU, bool VEC>
-inline cudaError_t run_dx(const bf16* x, const float* a, const float* b,
-                          const bf16* w, const bf16* dye, bf16* dx,
+template <int TAPS, bool AFFINE, bool RELU, bool VEC, typename T>
+inline cudaError_t run_dx(const T* x, const float* a, const float* b,
+                          const T* w, const T* dye, T* dx,
                           float* dab_partial, long long m, int h, int wd,
                           int k, int n, cudaStream_t stream) {
   const long long row_blocks = cdiv(m, kDxRows);
@@ -239,9 +238,10 @@ inline cudaError_t run_dx(const bf16* x, const float* a, const float* b,
              static_cast<unsigned>(col_blocks));
   constexpr int smem = kStages * kDxStage;
   cudaError_t err =
-      apex::allow_smem(dx_mma_kernel<TAPS, AFFINE, RELU, VEC>, smem);
+      apex::allow_smem(dx_mma_kernel<TAPS, AFFINE, RELU, VEC, T>, smem);
   if (err != cudaSuccess) return err;
-  dx_mma_kernel<TAPS, AFFINE, RELU, VEC><<<grid, kDxThreads, smem, stream>>>(
+  dx_mma_kernel<TAPS, AFFINE, RELU, VEC, T>
+      <<<grid, kDxThreads, smem, stream>>>(
       x, a, b, w, dye, dx, dab_partial, m, h, wd, k, n);
   return cudaGetLastError();
 }
@@ -267,20 +267,20 @@ struct FwdTile {
 };
 
 // y [m, n] = z [m, k] (shifted by the tap) w [TAPS, k, n], rounded once to
-// bf16, and the block's (y - c) sums as partial row rblk. STAGE_Y (J; VEC
+// T, and the block's (y - c) sums as partial row rblk. STAGE_Y (J; VEC
 // only, y 16-byte aligned): the block's y tile is first written to the
-// ring's shared memory as bf16 pairs, then copied out as 16-byte rows, so
+// ring's shared memory as T pairs, then copied out as 16-byte rows, so
 // that a warp stores whole 512-byte runs; else each thread stores its
-// fragments' bf16 pairs (L).
-template <int TAPS, int BM, int BN, bool VEC, bool STAGE_Y>
+// fragments' T pairs (L).
+template <int TAPS, int BM, int BN, bool VEC, bool STAGE_Y, typename T>
 __global__ void __launch_bounds__(kFwdThreads)
-fwd_mma_kernel(const bf16* __restrict__ z, const bf16* __restrict__ w,
-               const float* __restrict__ c, bf16* __restrict__ y,
+fwd_mma_kernel(const T* __restrict__ z, const T* __restrict__ w,
+               const float* __restrict__ c, T* __restrict__ y,
                float* __restrict__ partial, long long m, int h, int wd,
                int k, int n) {
   static_assert(TAPS == 1 || TAPS == 9, "a 1x1 or a 3x3 convolution");
   static_assert(VEC || !STAGE_Y, "16-byte rows need whole 8-channel groups");
-  using T = FwdTile<BM, BN>;
+  using TL = FwdTile<BM, BN>;
   constexpr int AR = BM / 64;                 // A rows a thread copies
   constexpr int BCH = BN / 8;                 // 16-byte pieces of a B row
   constexpr int BSTEP = kFwdThreads / BCH;    // B rows between its copies
@@ -288,7 +288,7 @@ fwd_mma_kernel(const bf16* __restrict__ z, const bf16* __restrict__ w,
   constexpr int MT = kWarpTile / 16;
   constexpr int NT = kWarpTile / 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float red[T::kWarpsM][BN][2];
+  __shared__ float red[TL::kWarpsM][BN][2];
   long long rblk;
   int cblk;
   if (TAPS == 1) {
@@ -322,8 +322,8 @@ fwd_mma_kernel(const bf16* __restrict__ z, const bf16* __restrict__ w,
   int tap = 0;
   int kb = 0;
   auto load = [&](unsigned char* st) {
-    bf16* sa = reinterpret_cast<bf16*>(st);
-    bf16* sb = sa + BM * kRowH;
+    T* sa = reinterpret_cast<T*>(st);
+    T* sb = sa + BM * kRowH;
     const int dr = TAPS > 1 ? tap / 3 - 1 : 0;  // z is read at (row + dr,
     const int dc = TAPS > 1 ? tap % 3 - 1 : 0;  // column + dc)
     const long long shift = static_cast<long long>(dr) * wd + dc;
@@ -345,7 +345,7 @@ fwd_mma_kernel(const bf16* __restrict__ z, const bf16* __restrict__ w,
       const int row = rb + BSTEP * i;
       const int kr = kb + row;
       apex::ring::copy8<VEC>(
-          sb + row * T::kLdb + cb,
+          sb + row * TL::kLdb + cb,
           w + (static_cast<long long>(tap) * k + kr) * n + col0 + cb, w,
           kr < k, n_left);
     }
@@ -356,29 +356,29 @@ fwd_mma_kernel(const bf16* __restrict__ z, const bf16* __restrict__ w,
     }
   };
   const int warp = tid >> 5;
-  const int wm = (warp % T::kWarpsM) * kWarpTile;  // pixels
-  const int wn = (warp / T::kWarpsM) * kWarpTile;  // output channels
+  const int wm = (warp % TL::kWarpsM) * kWarpTile;  // pixels
+  const int wn = (warp / TL::kWarpsM) * kWarpTile;  // output channels
   float acc[MT][NT][4] = {};
   auto step = [&](const unsigned char* st) {
-    const bf16* sa = reinterpret_cast<const bf16*>(st);
-    const bf16* sb = sa + BM * kRowH;
+    const T* sa = reinterpret_cast<const T*>(st);
+    const T* sb = sa + BM * kRowH;
 #pragma unroll
     for (int kk = 0; kk < kSlice; kk += 16)
       apex::ring::warp_step<MT, NT, false, true>(sa + wm * kRowH, kRowH,
-                                                 sb + wn, T::kLdb, kk, acc);
+                                                 sb + wn, TL::kLdb, kk, acc);
   };
-  apex::ring::run_ring<kStages, T::kStage>(TAPS * ((k + kSlice - 1) / kSlice),
+  apex::ring::run_ring<kStages, TL::kStage>(TAPS * ((k + kSlice - 1) / kSlice),
                                            smem, load, step);
   // every warp is done with the ring before its stages take the y tile
   if (STAGE_Y) __syncthreads();
 
   // epilogue on this thread's fragments (mma_ring.cuh's layout): y rounded
-  // once to bf16, and the (y - c) sums of its columns over its rows
+  // once to T, and the (y - c) sums of its columns over its rows
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t2 = (lane & 3) * 2;
   const bool pair = (n & 1) == 0 && (reinterpret_cast<size_t>(y) & 3) == 0;
-  bf16* sy = reinterpret_cast<bf16*>(smem);
+  T* sy = reinterpret_cast<T*>(smem);
   float cv[NT][2];
   float s0[NT][2] = {};
   float s1[NT][2] = {};
@@ -404,15 +404,15 @@ fwd_mma_kernel(const bf16* __restrict__ z, const bf16* __restrict__ w,
         const float v0 = acc[i][j][2 * hf];
         const float v1 = acc[i][j][2 * hf + 1];
         if (STAGE_Y) {
-          *reinterpret_cast<__nv_bfloat162*>(
-              sy + (wm + 16 * i + g + 8 * hf) * T::kLdy + wn + 8 * j + t2) =
-              __floats2bfloat162_rn(v0, v1);
+          *reinterpret_cast<unsigned*>(
+              sy + (wm + 16 * i + g + 8 * hf) * TL::kLdy + wn + 8 * j + t2) =
+              apex::Half16<T>::pack(v0, v1);
         } else if (pair) {
-          *reinterpret_cast<__nv_bfloat162*>(y + idx) =
-              __floats2bfloat162_rn(v0, v1);
+          *reinterpret_cast<unsigned*>(y + idx) =
+              apex::Half16<T>::pack(v0, v1);
         } else {
-          y[idx] = __float2bfloat16(v0);
-          if (both) y[idx + 1] = __float2bfloat16(v1);
+          store(&y[idx], v0);
+          if (both) store(&y[idx + 1], v1);
         }
         const float d0 = v0 - cv[j][0];
         s0[j][0] += d0;
@@ -441,8 +441,8 @@ fwd_mma_kernel(const bf16* __restrict__ z, const bf16* __restrict__ w,
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        red[warp % T::kWarpsM][wn + 8 * j + t2 + e][0] = s0[j][e];
-        red[warp % T::kWarpsM][wn + 8 * j + t2 + e][1] = s1[j][e];
+        red[warp % TL::kWarpsM][wn + 8 * j + t2 + e][0] = s0[j][e];
+        red[warp % TL::kWarpsM][wn + 8 * j + t2 + e][1] = s1[j][e];
       }
   }
   __syncthreads();
@@ -450,7 +450,7 @@ fwd_mma_kernel(const bf16* __restrict__ z, const bf16* __restrict__ w,
     float t0 = 0.f;
     float t1 = 0.f;
 #pragma unroll
-    for (int q = 0; q < T::kWarpsM; ++q) {
+    for (int q = 0; q < TL::kWarpsM; ++q) {
       t0 += red[q][tid][0];
       t1 += red[q][tid][1];
     }
@@ -470,7 +470,7 @@ fwd_mma_kernel(const bf16* __restrict__ z, const bf16* __restrict__ w,
       const long long row = row0 + rr;
       if (row < m && col0 + q < n)
         *reinterpret_cast<uint4*>(y + row * n + col0 + q) =
-            *reinterpret_cast<const uint4*>(sy + rr * T::kLdy + q);
+            *reinterpret_cast<const uint4*>(sy + rr * TL::kLdy + q);
     }
   }
 }
@@ -530,14 +530,14 @@ inline cudaError_t chunked_column_sum(const float* part, float* chunk,
 }
 
 // The forward GEMM on stream, then the stats' fixed-order sum: z [m, k], w
-// [TAPS, k, n], y [m, n] bf16; partial [ceil(m / BM), 2, n] and stats [2,
+// [TAPS, k, n], y [m, n] of T; partial [ceil(m / BM), 2, n] and stats [2,
 // n] fp32. A 3x3 takes the image's h and wd; a 1x1 ignores them, and sums
 // its partial rows in chunks (chunked_column_sum) into the [stat_chunks(
 // ceil(m / BM)), 2, n] rows that follow them in `partial`.
-template <int TAPS, int BM, int BN, bool VEC, bool STAGE_Y>
-inline cudaError_t run_fwd(const bf16* z, const bf16* w, const float* c,
-                           bf16* y, float* partial, float* stats, long long m,
-                           int h, int wd, int k, int n, cudaStream_t stream) {
+template <int TAPS, int BM, int BN, bool VEC, bool STAGE_Y, typename T>
+inline cudaError_t run_fwd(const T* z, const T* w, const float* c, T* y,
+                           float* partial, float* stats, long long m, int h,
+                           int wd, int k, int n, cudaStream_t stream) {
   const long long row_blocks = cdiv(m, BM);
   const long long col_blocks = cdiv(n, BN);
   const dim3 grid = TAPS == 1
@@ -546,9 +546,9 @@ inline cudaError_t run_fwd(const bf16* z, const bf16* w, const float* c,
              static_cast<unsigned>(col_blocks));
   constexpr int smem = kStages * FwdTile<BM, BN>::kStage;
   cudaError_t err =
-      apex::allow_smem(fwd_mma_kernel<TAPS, BM, BN, VEC, STAGE_Y>, smem);
+      apex::allow_smem(fwd_mma_kernel<TAPS, BM, BN, VEC, STAGE_Y, T>, smem);
   if (err != cudaSuccess) return err;
-  fwd_mma_kernel<TAPS, BM, BN, VEC, STAGE_Y>
+  fwd_mma_kernel<TAPS, BM, BN, VEC, STAGE_Y, T>
       <<<grid, kFwdThreads, smem, stream>>>(z, w, c, y, partial, m, h, wd, k,
                                             n);
   err = cudaGetLastError();

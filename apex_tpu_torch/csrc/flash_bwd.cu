@@ -35,7 +35,9 @@
 // products of 2 d per visible pair), ~3 us at the bf16 tensor rate. Bytes
 // bound it.
 //
-// bf16 (the path the models train on), Kernel F's three launches
+// bf16 and fp16 (the paths the models train on; one template over the
+// 16-bit type T, apex::Half16<T> giving the pair packing and the mma.sync
+// opcode, as in Kernel F), Kernel F's three launches
 // (flash_packed_bwd.cu) over the 4D layout, on the pieces of
 // flash_mma.cuh:
 // - delta prep: delta = rowsum(do * o) in fp32 into the [b, H, sq]
@@ -45,11 +47,11 @@
 //   shared memory. The group's H / KVH query heads (their own [sq, d]
 //   slices) and their visible 64-query tiles stream through a 3-stage
 //   cp.async ring with their lse and delta rows. S^T = K Q^T and dP^T =
-//   V dO^T on mma.sync m16n8k16 (bf16 in, fp32 out), p = exp(scale s -
+//   V dO^T on mma.sync m16n8k16 (T in, fp32 out), p = exp(scale s -
 //   lse) on the SFU, masks only on tiles that cross the diagonal, a
 //   length, the window's edge, sq or sk (flash::tile_cover with the sk -
 //   sq offset), tiles a warp sees nothing of skipped. p and ds are
-//   rounded to bf16 straight into A fragments (flash::fragment16), and
+//   rounded to T straight into A fragments (flash::fragment16), and
 //   dV += P^T dO, dK += dS^T Q take dO and Q as B fragments by
 //   ldmatrix.trans from the same stage. dk and dv are summed in fp32
 //   across the group's heads and tiles by the tensor cores and rounded
@@ -57,11 +59,15 @@
 // - dq pass, one block of 4 warps per (head, batch, 64-query tile), the
 //   heaviest causal tiles first: Q and dO go into A fragments once, K and
 //   V 64-key tiles come through the ring; S = Q K^T and dP = dO V^T on
-//   mma.sync, then ds rounded to bf16 as A fragments and dq += dS K with K
+//   mma.sync, then ds rounded to T as A fragments and dq += dS K with K
 //   by ldmatrix.trans from the same tile; dq is scaled and rounded once.
 // Registers are capped at 168 a thread at d <= 64 so that three blocks fit
 // an SM, as in Kernel F. Seven tile products a visible pair (q k^T and
 // do v^T in both passes) in place of the algorithm's five, for no atomics.
+// In fp16 the roundings keep fp16's subnormals (a p below 2^-14, as the
+// JAX kernel keeps it), and a ds past 65504 rounds to inf, as the JAX
+// kernel's cast does, so an overflow under a large loss scale shows where
+// the plain version's does.
 //
 // f32 (checks only; TF32 would miss their atol of 1e-4), two launches of
 // fp32 tiles in shared memory and fp32 FMA, each thread owning a 4-row x
@@ -71,6 +77,8 @@
 //   the visible key tiles;
 // - pass 2, one block per (64-row key tile, kv head, batch): dk and dv over
 //   the group's query heads and their visible query tiles.
+#include <type_traits>
+
 #include "flash_mma.cuh"
 
 namespace {
@@ -78,7 +86,6 @@ namespace {
 using namespace apex::packed;  // kBQ, kBK, kThreads, kNeg, Mask, tiles
 namespace flash = apex::flash;
 namespace ring = apex::ring;
-using flash::bf16;
 
 struct Args {
   const int* kv_lengths;  // [b] int32, or null
@@ -467,24 +474,26 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: delta prep, then the dk/dv and dq passes on mma.sync
+// bf16 and fp16: delta prep, then the dk/dv and dq passes on mma.sync
 // ---------------------------------------------------------------------------
 
 // the tag that names Kernel I's delta prep pass in a profile
 struct KernelI {};
 
-// The bf16 passes' operands: q, do and o [b, H, sq, d], k and v [b, KVH,
-// sk, d], lse and delta [b, H, sq] fp32, dq like q, dk and dv like k.
-struct Bf16Args {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const bf16* dout;
+// The 16-bit passes' operands (T: bf16 or fp16): q, do and o [b, H, sq,
+// d], k and v [b, KVH, sk, d], lse and delta [b, H, sq] fp32, dq like q,
+// dk and dv like k.
+template <typename T>
+struct Args16 {
+  const T* q;
+  const T* k;
+  const T* v;
+  const T* dout;
   const float* lse;
   const float* delta;
-  bf16* dq;
-  bf16* dk;
-  bf16* dv;
+  T* dq;
+  T* dk;
+  T* dv;
   const int* kv_lengths;  // [b] int32, or null
   int H, KVH, d;
   float scale;
@@ -506,17 +515,17 @@ struct DkvCfg {
   static_assert(2 * BQ <= kThreads, "a thread a lse or delta row");
 };
 
-template <int DMAX, int WARPS, int BQ, int STAGES, bool VEC>
+template <typename T, int DMAX, int WARPS, int BQ, int STAGES, bool VEC>
 __global__ void __launch_bounds__(
     WARPS * 32, (DkvCfg<DMAX, WARPS, BQ, STAGES>::kMinBlocks))
-flash_bwd_dkv_mma(const Bf16Args a) {
+flash_bwd_dkv_mma(const Args16<T> a) {
   using C = DkvCfg<DMAX, WARPS, BQ, STAGES>;
   constexpr int kKS = DMAX / 16;  // k16 steps over d
   constexpr int kNS = BQ / 8;     // n8 score tiles (queries) a warp
   constexpr int kNO = DMAX / 8;   // n8 output tiles (columns of d) a warp
   extern __shared__ __align__(16) unsigned char fsmem[];
-  bf16* Ks = reinterpret_cast<bf16*>(fsmem);
-  bf16* Vs = Ks + C::kKeys * C::kLd;
+  T* Ks = reinterpret_cast<T*>(fsmem);
+  T* Vs = Ks + C::kKeys * C::kLd;
   unsigned char* ring_smem = fsmem + C::kKV;
 
   const Mask& mk = a.mask;
@@ -553,8 +562,8 @@ flash_bwd_dkv_mma(const Bf16Args a) {
     auto load = [&](int i, unsigned char* st) {
       const long long rb = rows_of(i / nt);
       const int q0 = (first + i % nt) * BQ;
-      bf16* Qs = reinterpret_cast<bf16*>(st);
-      bf16* dOs = Qs + BQ * C::kLd;
+      T* Qs = reinterpret_cast<T*>(st);
+      T* dOs = Qs + BQ * C::kLd;
       float* ls = reinterpret_cast<float*>(dOs + BQ * C::kLd);
       flash::copy_tile<BQ, DMAX, C::kThreads, VEC>(Qs, a.q, rb * d, d, q0,
                                                    mk.sq, d);
@@ -580,14 +589,14 @@ flash_bwd_dkv_mma(const Bf16Args a) {
       ring::cp_async_commit();
     }
 
-    const bf16* kw_s = Ks + 16 * warp * C::kLd;
-    const bf16* vw_s = Vs + 16 * warp * C::kLd;
+    const T* kw_s = Ks + 16 * warp * C::kLd;
+    const T* vw_s = Vs + 16 * warp * C::kLd;
     for (int it = 0; it < slices; ++it) {
       ring::cp_async_wait<STAGES - 2>();
       __syncthreads();
       unsigned char* st = ring_smem + (it % STAGES) * C::kStage;
-      const bf16* Qs = reinterpret_cast<const bf16*>(st);
-      const bf16* dOs = Qs + BQ * C::kLd;
+      const T* Qs = reinterpret_cast<const T*>(st);
+      const T* dOs = Qs + BQ * C::kLd;
       const float* ls = reinterpret_cast<const float*>(dOs + BQ * C::kLd);
       const float* dls = ls + BQ;
       const int q0 = (first + it % nt) * BQ;
@@ -612,7 +621,7 @@ flash_bwd_dkv_mma(const Bf16Args a) {
         ring::load_b<kNS, false>(fb, Qs, C::kLd, 16 * kk);
 #pragma unroll
         for (int j = 0; j < kNS; ++j)
-          flash::mma_acc(sc[j], fa[0], fb[j >> 1][2 * (j & 1)],
+          flash::mma_acc<T>(sc[j], fa[0], fb[j >> 1][2 * (j & 1)],
                          fb[j >> 1][2 * (j & 1) + 1]);
       }
 #pragma unroll
@@ -628,7 +637,7 @@ flash_bwd_dkv_mma(const Bf16Args a) {
           sc[j][e] = flash::fast_exp(x);
         }
       }
-      // 16 queries at a time: dP^T, then p and ds rounded to bf16 into A
+      // 16 queries at a time: dP^T, then p and ds rounded to T into A
       // fragments, dV += P^T dO and dK += dS^T Q
 #pragma unroll
       for (int c = 0; c < kNS / 2; ++c) {
@@ -643,8 +652,8 @@ flash_bwd_dkv_mma(const Bf16Args a) {
           ring::load_a<1, false>(fa, vw_s, C::kLd, 16 * kk);
           unsigned fb[1][4];
           ring::load_b<2, false>(fb, dOs + 16 * c * C::kLd, C::kLd, 16 * kk);
-          flash::mma_acc(dp[0], fa[0], fb[0][0], fb[0][1]);
-          flash::mma_acc(dp[1], fa[0], fb[0][2], fb[0][3]);
+          flash::mma_acc<T>(dp[0], fa[0], fb[0][0], fb[0][1]);
+          flash::mma_acc<T>(dp[1], fa[0], fb[0][2], fb[0][3]);
         }
         float pc[2][4];
 #pragma unroll
@@ -658,14 +667,14 @@ flash_bwd_dkv_mma(const Bf16Args a) {
           }
         }
         unsigned pa[4], sa[4];
-        flash::fragment16<2>(pc, 0, pa);
-        flash::fragment16<2>(dp, 0, sa);
+        flash::fragment16<2, T>(pc, 0, pa);
+        flash::fragment16<2, T>(dp, 0, sa);
         {
           unsigned fb[kNO / 2][4];
           ring::load_b<kNO, true>(fb, dOs, C::kLd, 16 * c);
 #pragma unroll
           for (int j = 0; j < kNO; ++j)
-            flash::mma_acc(dv[j], pa, fb[j >> 1][2 * (j & 1)],
+            flash::mma_acc<T>(dv[j], pa, fb[j >> 1][2 * (j & 1)],
                            fb[j >> 1][2 * (j & 1) + 1]);
         }
         {
@@ -673,7 +682,7 @@ flash_bwd_dkv_mma(const Bf16Args a) {
           ring::load_b<kNO, true>(fb, Qs, C::kLd, 16 * c);
 #pragma unroll
           for (int j = 0; j < kNO; ++j)
-            flash::mma_acc(dk[j], sa, fb[j >> 1][2 * (j & 1)],
+            flash::mma_acc<T>(dk[j], sa, fb[j >> 1][2 * (j & 1)],
                            fb[j >> 1][2 * (j & 1) + 1]);
         }
       }
@@ -685,8 +694,8 @@ flash_bwd_dkv_mma(const Bf16Args a) {
   for (int h = 0; h < 2; ++h) {
     const int row = kw0 + g4 + 8 * h;
     if (row >= mk.sk) continue;
-    bf16* dk_dst = a.dk + kv_base + static_cast<long long>(row) * d;
-    bf16* dv_dst = a.dv + kv_base + static_cast<long long>(row) * d;
+    T* dk_dst = a.dk + kv_base + static_cast<long long>(row) * d;
+    T* dv_dst = a.dv + kv_base + static_cast<long long>(row) * d;
 #pragma unroll
     for (int j = 0; j < kNO; ++j) {
       const int col = 8 * j + 2 * t4;
@@ -710,18 +719,18 @@ struct DqCfg {
   static constexpr int kMinBlocks = DMAX <= 64 ? 3 : 2;  // dq
 };
 
-template <int DMAX, int WARPS, int STAGES, bool VEC>
+template <typename T, int DMAX, int WARPS, int STAGES, bool VEC>
 __global__ void __launch_bounds__(WARPS * 32,
                                   (DqCfg<DMAX, WARPS, STAGES>::kMinBlocks))
-flash_bwd_dq_mma(const Bf16Args a) {
+flash_bwd_dq_mma(const Args16<T> a) {
   using C = DqCfg<DMAX, WARPS, STAGES>;
   constexpr int kKS = DMAX / 16;  // k16 steps over d
   constexpr int kNS = kBK / 8;    // n8 score tiles (keys) a warp
   constexpr int kNO = DMAX / 8;   // n8 output tiles a warp
   extern __shared__ __align__(16) unsigned char fsmem[];
-  bf16* Qs = reinterpret_cast<bf16*>(fsmem);
-  bf16* dOs = Qs + C::kRows * C::kLd;
-  bf16* kv = reinterpret_cast<bf16*>(fsmem + C::kQD);  // the ring's stages
+  T* Qs = reinterpret_cast<T*>(fsmem);
+  T* dOs = Qs + C::kRows * C::kLd;
+  T* kv = reinterpret_cast<T*>(fsmem + C::kQD);  // the ring's stages
 
   const Mask& mk = a.mask;
   const int warp = threadIdx.x / 32;
@@ -756,7 +765,7 @@ flash_bwd_dq_mma(const Bf16Args a) {
       lse_r[h] = row < mk.sq ? a.lse[rb + row] : 0.f;
       delta_r[h] = row < mk.sq ? a.delta[rb + row] : 0.f;
     }
-    auto load_kv = [&](int tile, bf16* stage) {
+    auto load_kv = [&](int tile, T* stage) {
       flash::copy_tile<kBK, DMAX, C::kThreads, VEC>(stage, a.k, kv_base, d,
                                                     tile * kBK, mk.sk, d);
       flash::copy_tile<kBK, DMAX, C::kThreads, VEC>(
@@ -778,8 +787,8 @@ flash_bwd_dq_mma(const Bf16Args a) {
     for (int it = 0; it < tiles; ++it) {
       ring::cp_async_wait<STAGES - 2>();
       __syncthreads();
-      const bf16* Ks = kv + (it % STAGES) * (C::kStage / 2);
-      const bf16* Vs = Ks + kBK * C::kLd;
+      const T* Ks = kv + (it % STAGES) * (C::kStage / 2);
+      const T* Vs = Ks + kBK * C::kLd;
       const int c0 = (first + it) * kBK;
       if (it == 0) {
 #pragma unroll
@@ -809,7 +818,7 @@ flash_bwd_dq_mma(const Bf16Args a) {
         ring::load_b<kNS, false>(fb, Ks, C::kLd, 16 * kk);
 #pragma unroll
         for (int j = 0; j < kNS; ++j)
-          flash::mma_acc(sc[j], qf[kk][0], fb[j >> 1][2 * (j & 1)],
+          flash::mma_acc<T>(sc[j], qf[kk][0], fb[j >> 1][2 * (j & 1)],
                          fb[j >> 1][2 * (j & 1) + 1]);
       }
 #pragma unroll
@@ -822,7 +831,7 @@ flash_bwd_dq_mma(const Bf16Args a) {
           if (cover == flash::kSome && !visible(mk, kvl, row, col)) x = kNeg;
           sc[j][e] = flash::fast_exp(x);
         }
-      // 16 keys at a time: dP, ds rounded to bf16 into an A fragment,
+      // 16 keys at a time: dP, ds rounded to T into an A fragment,
       // dq += dS K
 #pragma unroll
       for (int c = 0; c < kNS / 2; ++c) {
@@ -835,8 +844,8 @@ flash_bwd_dq_mma(const Bf16Args a) {
         for (int kk = 0; kk < kKS; ++kk) {
           unsigned fb[1][4];
           ring::load_b<2, false>(fb, Vs + 16 * c * C::kLd, C::kLd, 16 * kk);
-          flash::mma_acc(dp[0], df[kk][0], fb[0][0], fb[0][1]);
-          flash::mma_acc(dp[1], df[kk][0], fb[0][2], fb[0][3]);
+          flash::mma_acc<T>(dp[0], df[kk][0], fb[0][0], fb[0][1]);
+          flash::mma_acc<T>(dp[1], df[kk][0], fb[0][2], fb[0][3]);
         }
 #pragma unroll
         for (int j = 0; j < 2; ++j)
@@ -844,12 +853,12 @@ flash_bwd_dq_mma(const Bf16Args a) {
           for (int e = 0; e < 4; ++e)
             dp[j][e] = sc[2 * c + j][e] * (dp[j][e] - delta_r[e >> 1]);  // ds
         unsigned sa[4];
-        flash::fragment16<2>(dp, 0, sa);
+        flash::fragment16<2, T>(dp, 0, sa);
         unsigned fb[kNO / 2][4];
         ring::load_b<kNO, true>(fb, Ks, C::kLd, 16 * c);
 #pragma unroll
         for (int j = 0; j < kNO; ++j)
-          flash::mma_acc(dq[j], sa, fb[j >> 1][2 * (j & 1)],
+          flash::mma_acc<T>(dq[j], sa, fb[j >> 1][2 * (j & 1)],
                          fb[j >> 1][2 * (j & 1) + 1]);
       }
     }
@@ -860,7 +869,7 @@ flash_bwd_dq_mma(const Bf16Args a) {
   for (int h = 0; h < 2; ++h) {
     const int row = r0 + g4 + 8 * h;
     if (row >= mk.sq) continue;
-    bf16* dst = a.dq + (rb + row) * d;
+    T* dst = a.dq + (rb + row) * d;
 #pragma unroll
     for (int j = 0; j < kNO; ++j)
       flash::store_pair(dst, 8 * j + 2 * t4, d, dq[j][2 * h] * a.scale,
@@ -874,9 +883,9 @@ flash_bwd_dq_mma(const Bf16Args a) {
 // the T5 cross-attention, where a block walks only two query tiles), the
 // dq ring 2. 16-byte copies need every row start (a multiple of d past a
 // 16-byte aligned base) on a 16-byte boundary.
-template <int DMAX>
-cudaError_t launch_bf16(const Bf16Args& a, int b, const bf16* out,
-                        float* delta, cudaStream_t stream) {
+template <typename T, int DMAX>
+cudaError_t launch_16(const Args16<T>& a, int b, const T* out, float* delta,
+                      cudaStream_t stream) {
   constexpr int kDkvWarps = 4;
   constexpr int kDkvStages = 3;
   constexpr int kDqWarps = 4;
@@ -894,10 +903,10 @@ cudaError_t launch_bf16(const Bf16Args& a, int b, const bf16* out,
       a.mask.sq, a.d, vec && aligned(out), stream);
   if (err != cudaSuccess) return err;
   auto dkv =
-      vec ? flash_bwd_dkv_mma<DMAX, kDkvWarps, kBQ, kDkvStages, true>
-          : flash_bwd_dkv_mma<DMAX, kDkvWarps, kBQ, kDkvStages, false>;
-  auto dq = vec ? flash_bwd_dq_mma<DMAX, kDqWarps, kDqStages, true>
-                : flash_bwd_dq_mma<DMAX, kDqWarps, kDqStages, false>;
+      vec ? flash_bwd_dkv_mma<T, DMAX, kDkvWarps, kBQ, kDkvStages, true>
+          : flash_bwd_dkv_mma<T, DMAX, kDkvWarps, kBQ, kDkvStages, false>;
+  auto dq = vec ? flash_bwd_dq_mma<T, DMAX, kDqWarps, kDqStages, true>
+                : flash_bwd_dq_mma<T, DMAX, kDqWarps, kDqStages, false>;
   err = apex::allow_smem(dkv, KvC::bytes);
   if (err != cudaSuccess) return err;
   err = apex::allow_smem(dq, QC::bytes);
@@ -930,20 +939,23 @@ extern "C" int apex_flash_bwd(const void* q, const void* k, const void* v,
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   if (d > 128) return static_cast<int>(cudaErrorInvalidValue);
-  // f32 and bf16 only: fp16 is not yet ported here
-  if (dtype != apex::kBF16 && dtype != apex::kF32)
-    return static_cast<int>(cudaErrorInvalidValue);
+  // the 16-bit passes over T (bf16 or fp16), each pointer read as T
+  auto run16 = [&](auto* tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    const Args16<T> a{static_cast<const T*>(q), static_cast<const T*>(k),
+                      static_cast<const T*>(v), static_cast<const T*>(dout),
+                      l, dl, static_cast<T*>(dq), static_cast<T*>(dk),
+                      static_cast<T*>(dv), kvl, h, kvh, d, scale, mask};
+    const auto* o = static_cast<const T*>(out);
+    return d <= 64 ? launch_16<T, 64>(a, b, o, dl, st)
+                   : launch_16<T, 128>(a, b, o, dl, st);
+  };
   cudaError_t err;
   if (dtype == apex::kBF16) {
-    const Bf16Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                     static_cast<const bf16*>(v),
-                     static_cast<const bf16*>(dout), l, dl,
-                     static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-                     static_cast<bf16*>(dv), kvl, h, kvh, d, scale, mask};
-    const auto* o = static_cast<const bf16*>(out);
-    err = d <= 64 ? launch_bf16<64>(a, b, o, dl, st)
-                  : launch_bf16<128>(a, b, o, dl, st);
-  } else {
+    err = run16(static_cast<__nv_bfloat16*>(nullptr));
+  } else if (dtype == apex::kF16) {
+    err = run16(static_cast<__half*>(nullptr));
+  } else if (dtype == apex::kF32) {
     const Args a{kvl, b, h, kvh, d, scale, mask};
     auto f = [](const void* p) { return static_cast<const float*>(p); };
     auto w = [](void* p) { return static_cast<float*>(p); };
@@ -951,6 +963,8 @@ extern "C" int apex_flash_bwd(const void* q, const void* k, const void* v,
                                    w(dq), w(dk), w(dv), a, st)
                   : launch_f32<128>(f(q), f(k), f(v), f(out), f(dout), l, dl,
                                     w(dq), w(dk), w(dv), a, st);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);  // no other type
   }
   return static_cast<int>(err);
 }

@@ -5,8 +5,8 @@
 // operands and fp32 results. No TMA and no wgmma: later work. The copies
 // and ldmatrix move bits whatever the 16-bit type (T: bf16 or fp16, the
 // element type of the pointers); the products take it from
-// apex::Half16<T> (common.cuh). The GEMM loop (mma_tile, warp_step) is
-// the fused convs' and stays bf16.
+// apex::Half16<T> (common.cuh), the GEMM loop (mma_tile, warp_step) of the
+// fused convs too.
 //
 // A warp owns a tile of MT m16 tiles by NT n8 tiles of the output (4 MT NT
 // fp32 sums a thread). Each 16-deep product lands in a zeroed
@@ -95,10 +95,11 @@ __device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
       : "r"(smem_addr(p)));
 }
 
-// d = a b for one bf16 m16n8k16 tile, from a zero accumulator
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  Half16<bf16>::mma_zero(d, a, b0, b1);
+// d = a b for one m16n8k16 tile of T operands, from a zero accumulator
+template <typename T>
+__device__ __forceinline__ void mma16(float (&d)[4], const unsigned (&a)[4],
+                                      unsigned b0, unsigned b1) {
+  Half16<T>::mma_zero(d, a, b0, b1);
 }
 
 // Fragments of A and B over 16 of the contraction (from kk on) for a
@@ -140,7 +141,9 @@ __device__ __forceinline__ void load_b(unsigned (&fb)[NT / 2][4],
   }
 }
 
-template <int MT, int NT>
+// acc += A B for fragments of T operands (T: the element type, bf16 or
+// fp16)
+template <int MT, int NT, typename T>
 __device__ __forceinline__ void mma_tile(float (&acc)[MT][NT][4],
                                          const unsigned (&fa)[MT][4],
                                          const unsigned (&fb)[NT / 2][4]) {
@@ -149,23 +152,23 @@ __device__ __forceinline__ void mma_tile(float (&acc)[MT][NT][4],
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       float d[4];
-      mma_bf16(d, fa[i], fb[j >> 1][2 * (j & 1)], fb[j >> 1][2 * (j & 1) + 1]);
+      mma16<T>(d, fa[i], fb[j >> 1][2 * (j & 1)], fb[j >> 1][2 * (j & 1) + 1]);
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] += d[e];
     }
   }
 }
 
-// acc += A B over 16 of the contraction, as above
-template <int MT, int NT, bool A_T, bool B_T>
-__device__ __forceinline__ void warp_step(const bf16* a, int lda,
-                                          const bf16* b, int ldb, int kk,
+// acc += A B over 16 of the contraction, as above (T from the pointers)
+template <int MT, int NT, bool A_T, bool B_T, typename T>
+__device__ __forceinline__ void warp_step(const T* a, int lda, const T* b,
+                                          int ldb, int kk,
                                           float (&acc)[MT][NT][4]) {
   unsigned fa[MT][4];
   unsigned fb[NT / 2][4];
   load_a<MT, A_T>(fa, a, lda, kk);
   load_b<NT, B_T>(fb, b, ldb, kk);
-  mma_tile<MT, NT>(acc, fa, fb);
+  mma_tile<MT, NT, T>(acc, fa, fb);
 }
 
 // The ring: slice s of `slices` is loaded into stage s % STAGES by load()

@@ -25,7 +25,7 @@ from apex_tpu_torch.ops import _build
 
 __all__ = ["LAUNCHES", "reset_launches", "count_launch", "resolve_device",
            "is_cpu", "forward_only", "cdiv", "round_up", "dtype_code",
-           "F32_BF16", "F32_BF16_F16", "sm_count", "blocks_per_sm"]
+           "sm_count", "blocks_per_sm"]
 
 #: launches per kernel since the last :func:`reset_launches` — a wrapper
 #: adds one where it launches its kernel, and nowhere else
@@ -102,27 +102,18 @@ def cdiv(a: int, b: int) -> int:
 
 
 #: dtype codes shared with the C entry points in ``csrc/common.cuh``
-#: (``DType``: kF32, kBF16, kF16)
+#: (``DType``: kF32, kBF16, kF16), which every kernel takes (Kernels A-M)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-#: what a kernel without an fp16 path takes (I, J-M)
-F32_BF16 = (torch.float32, torch.bfloat16)
-#: what Kernels A-H take
-F32_BF16_F16 = (torch.float32, torch.bfloat16, torch.float16)
 
 
-def dtype_code(dtype: torch.dtype, allowed, kernel: str) -> int:
-    """The C dtype code of ``dtype`` for a kernel that takes ``allowed``.
-    Raises TypeError for any other dtype (and names ``kernel``): an fp16
-    tensor never reaches a kernel without an fp16 path, where its bytes
-    would be read as another type's."""
-    if dtype in allowed:
+def dtype_code(dtype: torch.dtype, kernel: str) -> int:
+    """The C dtype code of ``dtype`` (a key of ``_DTYPE_CODES``). Raises
+    TypeError for any other dtype (and names ``kernel``): a tensor never
+    reaches a kernel without a path for its type, where its bytes would
+    be read as another type's."""
+    if dtype in _DTYPE_CODES:
         return _DTYPE_CODES[dtype]
-    names = ", ".join(str(d).replace("torch.", "") for d in allowed)
-    if dtype == torch.float16:
-        raise TypeError(
-            f"{kernel}: float16 is not yet ported to this kernel (it takes "
-            f"{names}); see ROADMAP.md for the order in which fp16 comes "
-            f"to the remaining kernels")
+    names = ", ".join(str(d).replace("torch.", "") for d in _DTYPE_CODES)
     raise TypeError(f"{kernel} takes {names}, got {dtype}")
 
 

@@ -97,8 +97,7 @@ def flash_fwd_cuda(q, k, v, kv_lengths, scale: float, causal: bool,
     kvh, sk = k.shape[1], k.shape[2]
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v dtypes differ: {q.dtype} {k.dtype} {v.dtype}")
-    code = _support.dtype_code(q.dtype, _support.F32_BF16_F16,
-                               "Kernel B (flash_fwd_cuda)")
+    code = _support.dtype_code(q.dtype, "Kernel B (flash_fwd_cuda)")
     if d > 128:
         raise ValueError(f"head_dim {d} > 128 is not supported by the kernel")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -191,16 +190,15 @@ def flash_bwd_rounding_slack(q, k, v, do, o, lse, kv_lengths, scale: float,
 
 def flash_bwd_cuda(q, k, v, do, o, lse, kv_lengths, scale: float,
                    causal: bool, window: Optional[int] = None):
-    """Launch Kernel I (bf16: delta prep, dk/dv pass, dq pass; f32: dq
-    pass, then dk/dv pass); returns ``(dq, dk, dv)`` in the inputs'
-    dtype."""
+    """Launch Kernel I (bf16 and fp16: delta prep, dk/dv pass, dq pass;
+    f32: dq pass, then dk/dv pass); returns ``(dq, dk, dv)`` in the
+    inputs' dtype."""
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     if k.dtype != q.dtype or v.dtype != q.dtype or o.dtype != q.dtype:
         raise TypeError(f"q/k/v/o dtypes differ: {q.dtype} {k.dtype} "
                         f"{v.dtype} {o.dtype}")
-    code = _support.dtype_code(q.dtype, _support.F32_BF16,
-                               "Kernel I (flash_bwd_cuda)")
+    code = _support.dtype_code(q.dtype, "Kernel I (flash_bwd_cuda)")
     if d > 128:
         raise ValueError(f"head_dim {d} > 128 is not supported by the kernel")
     q, k, v, o = q.contiguous(), k.contiguous(), v.contiguous(), \
@@ -578,8 +576,7 @@ def flash_packed_fwd_cuda(qkv, kv_lengths, rope, seed, rate: float,
     """Launch Kernel E; returns ``(o [s, b, H*d], lse [b, H, s])``."""
     s, b, w = qkv.shape
     g = w // ((qpg + 2) * d)
-    code = _support.dtype_code(qkv.dtype, _support.F32_BF16_F16,
-                               "Kernel E (flash_packed_fwd_cuda)")
+    code = _support.dtype_code(qkv.dtype, "Kernel E (flash_packed_fwd_cuda)")
     if d > 128:
         raise ValueError(f"head_dim {d} > 128 is not supported by the kernel")
     qkv = qkv.contiguous()
@@ -607,8 +604,7 @@ def flash_packed_bwd_cuda(qkv, do, o, lse, kv_lengths, rope, seed,
     """Launch Kernel F (dq pass, then dk/dv pass); returns ``dqkv``."""
     s, b, w = qkv.shape
     g = w // ((qpg + 2) * d)
-    code = _support.dtype_code(qkv.dtype, _support.F32_BF16_F16,
-                               "Kernel F (flash_packed_bwd_cuda)")
+    code = _support.dtype_code(qkv.dtype, "Kernel F (flash_packed_bwd_cuda)")
     if o.dtype != qkv.dtype:
         raise TypeError(f"o ({o.dtype}) and qkv ({qkv.dtype}) dtypes differ")
     if d > 128:

@@ -12,13 +12,14 @@ A CUDA tensor launches the hand-written kernels — ``csrc/conv1x1_fwd.cu``
 (Kernel J), ``csrc/conv1x1_bwd.cu`` (K), ``csrc/conv3x3_fwd.cu`` (L) and
 ``csrc/conv3x3_bwd.cu`` (M); a CPU tensor runs the plain versions beside
 them, which write the kernels' math out term by term (z and ``dy_eff``
-rounded to w's dtype, then fp32 products; each output rounded once).
+rounded to w's dtype, then fp32 products; each output rounded once). The
+kernels take f32, bf16 and fp16; bf16 and fp16 share one 16-bit path.
 
 The TPU's VMEM gates (``k * n <= 3 << 19`` for the 1x1, ``54 k n <= 8 MiB``
 and ``H W <= 1024`` for the 3x3) are not carried over: every shape takes
-the kernel. One consequence, by design: in bf16 at the shapes the TPU
-gated off, the JAX package's ``_c3_ref_impl`` reduces the statistics from
-the bf16-rounded output, the port (as every kernel) from the fp32
+the kernel. One consequence, by design: in bf16 and fp16 at the shapes the
+TPU gated off, the JAX package's ``_c3_ref_impl`` reduces the statistics
+from the rounded output, the port (as every kernel) from the fp32
 accumulator.
 """
 
@@ -41,8 +42,8 @@ __all__ = ["conv1x1_bn_act", "conv3x3_bn_act", "conv1x1_fwd_plain",
 #: rows per block of the f32 passes, and the side of the tiles :func:`_tiles`
 #: counts (``kBM`` in csrc/conv_fused.cuh)
 _BM = 64
-#: Kernel J in bf16 sums its stats partials in chunks of this many rows
-#: (``kStatChunk`` in csrc/conv_mma.cuh)
+#: Kernel J in bf16 and fp16 sums its stats partials in chunks of this many
+#: rows (``kStatChunk`` in csrc/conv_mma.cuh)
 _STAT_CHUNK = 512
 #: the dW passes aim at four blocks per SM of an H100 (132 SMs) ...
 _FILL_BLOCKS = 4 * 132
@@ -50,10 +51,10 @@ _FILL_BLOCKS = 4 * 132
 _MIN_CHUNK_ROWS = 256
 #: the 3x3 dW grid's z extent is 9 x chunks <= 65535
 _MAX_CHUNKS_3X3 = 65535 // 9
-#: Kernels K and M in bf16: their dx pass (csrc/conv_mma.cuh) tiles 128
-#: rows, one da/db partial row each
+#: Kernels K and M in bf16 and fp16: their dx pass (csrc/conv_mma.cuh)
+#: tiles 128 rows, one da/db partial row each
 _DX_ROWS = 128
-#: Kernel M in bf16 (csrc/conv3x3_bwd.cu): the dW pass walks a chunk in
+#: Kernel M in 16 bits (csrc/conv3x3_bwd.cu): the dW pass walks a chunk in
 #: slices of 32 pixels with 128-thread blocks, each over a 64 x 64 tile of
 #: the dW of 3 taps (one kernel row), two of them resident an SM of an
 #: H100 (132 SMs) ...
@@ -62,7 +63,7 @@ _M_DW_TAPS = 3
 _M_DW_RESIDENT = 2 * 132
 #: ... and chunks of at most this many pixels
 _M_MAX_CHUNK_ROWS = 4608
-#: Kernel K in bf16 (csrc/conv1x1_bwd.cu): the dW pass walks a chunk in
+#: Kernel K in 16 bits (csrc/conv1x1_bwd.cu): the dW pass walks a chunk in
 #: 32-row slices over a tile of [K, N] (:func:`_k_dw_tile`), with this many
 #: blocks resident an SM of an H100 (132 SMs) by tile, and chunks of at
 #: most M's 4,608 rows
@@ -73,6 +74,12 @@ _MAX_CHUNKS_1X1 = 65535
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
+
+
+def _is16(dtype: torch.dtype) -> bool:
+    """Whether the kernels take their 16-bit path (bf16 and fp16: the prep
+    passes and the tensor-core GEMMs) for ``dtype``, else the f32 one."""
+    return dtype in (torch.bfloat16, torch.float16)
 
 
 def dw_chunks(m: int, tiles: int, max_chunks: int = 65535) -> Tuple[int, int]:
@@ -111,7 +118,7 @@ def _fill_chunks(m: int, per_chunk: int, resident: int,
 
 
 def m_dw_chunks(m: int, tiles: int) -> Tuple[int, int]:
-    """``(chunks, pixels per chunk)`` of Kernel M's bf16 dW pass over ``m``
+    """``(chunks, pixels per chunk)`` of Kernel M's 16-bit dW pass over ``m``
     pixels whose dW has ``tiles`` 64 x 64 tiles a tap (:func:`_fill_chunks`
     with 3 x tiles blocks a chunk, two resident an SM). ResNet-50's layer1
     3x3 (m = 802,816, one tile) takes 176 chunks of 4,576 pixels (528
@@ -122,13 +129,13 @@ def m_dw_chunks(m: int, tiles: int) -> Tuple[int, int]:
 
 
 def _k_dw_tile(k: int, n: int) -> Tuple[int, int]:
-    """The ``[K, N]`` tile of a block of Kernel K's bf16 dW pass: 128 along
+    """The ``[K, N]`` tile of a block of Kernel K's 16-bit dW pass: 128 along
     each dimension that is wider than 64, else 64."""
     return (128 if k > 64 else 64), (128 if n > 64 else 64)
 
 
 def k_dw_chunks(m: int, k: int, n: int) -> Tuple[int, int]:
-    """``(chunks, rows per chunk)`` of Kernel K's bf16 dW pass over ``m``
+    """``(chunks, rows per chunk)`` of Kernel K's 16-bit dW pass over ``m``
     rows of ``x [m, K]``, ``dy [m, N]`` (:func:`_fill_chunks` with one
     block a tile of :func:`_k_dw_tile` a chunk). ResNet-50's layer4
     downsample (m = 12,544, 1024 -> 2048: 128 tiles of 128 x 128, two
@@ -143,16 +150,17 @@ def conv1x1_fwd_scratch(m: int, k: int, n: int, affine: bool,
                         dtype: torch.dtype) -> dict:
     """What :func:`conv1x1_fwd_cuda` allocates for Kernel J besides its
     outputs, name -> (shape, dtype): the stats partials, a row per row tile
-    (64 rows in f32); in bf16 (Kernel L's tiles at one tap: :func:`_l_rows`
-    rows a tile) followed by the sums of their chunks of ``_STAT_CHUNK``
-    rows and, with the affine, the prep pass's z [m, K]."""
-    bf16 = dtype == torch.bfloat16
-    rows = _support.cdiv(m, _l_rows(n) if bf16 else _BM)
-    if bf16:
+    (64 rows in f32); in bf16 and fp16 (Kernel L's tiles at one tap:
+    :func:`_l_rows` rows a tile) followed by the sums of their chunks of
+    ``_STAT_CHUNK`` rows and, with the affine, the prep pass's z [m, K] in
+    x's dtype."""
+    half = _is16(dtype)
+    rows = _support.cdiv(m, _l_rows(n) if half else _BM)
+    if half:
         rows += _support.cdiv(rows, _STAT_CHUNK)
     out = {"partial": ((rows, 2, n), torch.float32)}
-    if bf16 and affine:
-        out["z"] = ((m, k), torch.bfloat16)
+    if half and affine:
+        out["z"] = ((m, k), dtype)
     return out
 
 
@@ -160,26 +168,27 @@ def conv1x1_bwd_scratch(m: int, k: int, n: int, affine: bool,
                         dtype: torch.dtype) -> Tuple[int, dict]:
     """``(rows per dW chunk, scratch)``: what :func:`conv1x1_bwd_cuda`
     allocates for Kernel K besides its outputs, name -> (shape, dtype).
-    bf16: the prep pass's dy_eff [m, N] and (with the affine) z [m, K], the
-    dW partials per chunk from :func:`k_dw_chunks`, the da/db partials per
-    128-row tile. f32: the dW partials from :func:`dw_chunks` and the da/db
-    partials per 64-row tile."""
-    bf16 = dtype == torch.bfloat16
-    chunks, rows = k_dw_chunks(m, k, n) if bf16 else dw_chunks(
+    bf16 and fp16: the prep pass's dy_eff [m, N] and (with the affine) z
+    [m, K] in x's dtype, the dW partials per chunk from
+    :func:`k_dw_chunks`, the da/db partials per 128-row tile. f32: the dW
+    partials from :func:`dw_chunks` and the da/db partials per 64-row
+    tile."""
+    half = _is16(dtype)
+    chunks, rows = k_dw_chunks(m, k, n) if half else dw_chunks(
         m, _tiles(k, n))
     out = {"dw_partial": ((chunks, k, n), torch.float32)}
     if affine:
-        out["dab_partial"] = ((_support.cdiv(m, _DX_ROWS if bf16 else _BM),
+        out["dab_partial"] = ((_support.cdiv(m, _DX_ROWS if half else _BM),
                                2, k), torch.float32)
-    if bf16:
-        out["dy_eff"] = ((m, n), torch.bfloat16)
+    if half:
+        out["dy_eff"] = ((m, n), dtype)
         if affine:
-            out["z"] = ((m, k), torch.bfloat16)
+            out["z"] = ((m, k), dtype)
     return rows, out
 
 
 def _l_rows(n: int) -> int:
-    """Pixels a tile of Kernel L's bf16 GEMM (csrc/conv_mma.cuh's forward
+    """Pixels a tile of Kernel L's 16-bit GEMM (csrc/conv_mma.cuh's forward
     GEMM, which Kernel J runs at one tap): 128 x 64 output channels a
     block, or 64 x 128 where N' >= 128 (one z tile then feeds twice the
     columns)."""
@@ -190,14 +199,14 @@ def conv3x3_fwd_scratch(n_img: int, h: int, wd: int, k: int, n: int,
                         affine: bool, dtype: torch.dtype) -> dict:
     """What :func:`conv3x3_fwd_cuda` allocates for Kernel L besides its
     outputs, name -> (shape, dtype): the stats partials per pixel tile
-    (:func:`_l_rows` pixels in bf16, 64 in f32) and, in bf16 with the
-    affine, the prep pass's z [m, K]."""
+    (:func:`_l_rows` pixels in bf16 and fp16, 64 in f32) and, in bf16 and
+    fp16 with the affine, the prep pass's z [m, K] in x's dtype."""
     m = n_img * h * wd
-    bf16 = dtype == torch.bfloat16
-    out = {"partial": ((_support.cdiv(m, _l_rows(n) if bf16 else _BM), 2, n),
+    half = _is16(dtype)
+    out = {"partial": ((_support.cdiv(m, _l_rows(n) if half else _BM), 2, n),
                        torch.float32)}
-    if bf16 and affine:
-        out["z"] = ((m, k), torch.bfloat16)
+    if half and affine:
+        out["z"] = ((m, k), dtype)
     return out
 
 
@@ -205,24 +214,25 @@ def conv3x3_bwd_scratch(n_img: int, h: int, wd: int, k: int, n: int,
                         affine: bool, dtype: torch.dtype) -> Tuple[int, dict]:
     """``(pixels per dW chunk, scratch)``: what :func:`conv3x3_bwd_cuda`
     allocates for Kernel M besides its outputs, name -> (shape, dtype).
-    bf16: the prep pass's dy_eff [m, N] and (with the affine) z [m, K], the
-    dW partials per (chunk, tap) from :func:`m_dw_chunks`, the da/db
-    partials per 128-pixel tile. f32: the dW partials from
-    :func:`dw_chunks` and the da/db partials per 64-pixel tile."""
+    bf16 and fp16: the prep pass's dy_eff [m, N] and (with the affine) z
+    [m, K] in x's dtype, the dW partials per (chunk, tap) from
+    :func:`m_dw_chunks`, the da/db partials per 128-pixel tile. f32: the
+    dW partials from :func:`dw_chunks` and the da/db partials per 64-pixel
+    tile."""
     m = n_img * h * wd
-    bf16 = dtype == torch.bfloat16
-    if bf16:
+    half = _is16(dtype)
+    if half:
         chunks, rows = m_dw_chunks(m, _tiles(k, n))
     else:
         chunks, rows = dw_chunks(m, 9 * _tiles(k, n), _MAX_CHUNKS_3X3)
     out = {"dw_partial": ((chunks, 9, k, n), torch.float32)}
     if affine:
-        out["dab_partial"] = ((_support.cdiv(m, _DX_ROWS if bf16 else _BM),
+        out["dab_partial"] = ((_support.cdiv(m, _DX_ROWS if half else _BM),
                                2, k), torch.float32)
-    if bf16:
-        out["dy_eff"] = ((m, n), torch.bfloat16)
+    if half:
+        out["dy_eff"] = ((m, n), dtype)
         if affine:
-            out["z"] = ((m, k), torch.bfloat16)
+            out["z"] = ((m, k), dtype)
     return rows, out
 
 
@@ -355,8 +365,7 @@ def _check(op: str, x, w, a, b, shift, k: int, n: int, affine: bool,
         raise TypeError(f"{op}: x, w (and y, dy) must share one dtype, got "
                         f"{x.dtype}, {w.dtype}"
                         f"{''.join(', ' + str(t.dtype) for t in more)}")
-    code = _support.dtype_code(x.dtype, _support.F32_BF16,
-                               f"Kernels J-M ({op})")
+    code = _support.dtype_code(x.dtype, f"Kernels J-M ({op})")
     if k <= 0 or n <= 0:
         raise ValueError(f"{op}: channel counts must be positive, got K={k} "
                          f"N={n}")
@@ -384,8 +393,8 @@ def _stream(dev):
 
 def conv1x1_fwd_cuda(x2, a, b, w, shift, affine: bool, relu: bool):
     """Launch Kernel J on ``x2 [M, K]``, ``w [K, N]`` (one CUDA device).
-    bf16: the prep pass (z to scratch, with the affine), the GEMM on the
-    tensor cores with the stats partials in its epilogue, and their
+    bf16 and fp16: the prep pass (z to scratch, with the affine), the GEMM
+    on the tensor cores with the stats partials in its epilogue, and their
     reduction; f32: the GEMM in fp32 FMAs and the reduction."""
     m, k = x2.shape
     n = w.shape[1]
@@ -412,9 +421,10 @@ def conv1x1_fwd_cuda(x2, a, b, w, shift, affine: bool, relu: bool):
 
 def conv1x1_bwd_cuda(x2, a, b, w, shift, y, dy, ds, affine: bool,
                      relu: bool):
-    """Launch Kernel K. bf16: the prep pass (dy_eff and z to scratch), the
-    chunked dW pass and the dx pass on the tensor cores, and the partial
-    reductions; f32: the dx and dW passes in fp32 FMAs and the reductions.
+    """Launch Kernel K. bf16 and fp16: the prep pass (dy_eff and z to
+    scratch), the chunked dW pass and the dx pass on the tensor cores, and
+    the partial reductions; f32: the dx and dW passes in fp32 FMAs and the
+    reductions.
     ``(dx, dW fp32, [da; db] or None)``."""
     m, k = x2.shape
     n = w.shape[1]
@@ -453,10 +463,10 @@ def _c3_shapes(x, w):
 
 
 def conv3x3_fwd_cuda(x, a, b, w, shift, affine: bool, relu: bool):
-    """Launch Kernel L on ``x [N, H, W, K]``, ``w [3, 3, K, N']``. bf16:
-    the prep pass (z to scratch, with the affine), the implicit GEMM on the
-    tensor cores with the stats partials in its epilogue, and their
-    reduction; f32: the GEMM in fp32 FMAs and the reduction."""
+    """Launch Kernel L on ``x [N, H, W, K]``, ``w [3, 3, K, N']``. bf16
+    and fp16: the prep pass (z to scratch, with the affine), the implicit
+    GEMM on the tensor cores with the stats partials in its epilogue, and
+    their reduction; f32: the GEMM in fp32 FMAs and the reduction."""
     n_img, h, wd, k, n = _c3_shapes(x, w)
     code = _check("conv3x3_fwd", x, w, a, b, shift, k, n, affine, relu)
     x, a, b, w, shift = _contig(x, a, b, w, shift)
@@ -479,10 +489,11 @@ def conv3x3_fwd_cuda(x, a, b, w, shift, affine: bool, relu: bool):
 
 
 def conv3x3_bwd_cuda(x, a, b, w, shift, y, dy, ds, affine: bool, relu: bool):
-    """Launch Kernel M. bf16: the prep pass (dy_eff and z to scratch), the
-    dW pass over (kernel row, chunk) and the dx pass (transposed
-    convolution) on the tensor cores, and the partial reductions; f32: the
-    dx and dW passes in fp32 FMAs and the reductions."""
+    """Launch Kernel M. bf16 and fp16: the prep pass (dy_eff and z to
+    scratch), the dW pass over (kernel row, chunk) and the dx pass
+    (transposed convolution) on the tensor cores, and the partial
+    reductions; f32: the dx and dW passes in fp32 FMAs and the
+    reductions."""
     n_img, h, wd, k, n = _c3_shapes(x, w)
     code = _check("conv3x3_bwd", x, w, a, b, shift, k, n, affine, relu, y,
                   dy)

@@ -386,8 +386,7 @@ def _card_plan(b: int, hl: int, kvh: int, dh: int, page_size: int,
                pool_dtype: Optional[torch.dtype] = None) -> DecodePlan:
     """:func:`paged_decode_plan` on CUDA device ``dev``, made once per
     configuration: the plan is a function of these arguments alone."""
-    code = _support.dtype_code(dtype, _support.F32_BF16_F16,
-                               "Kernel C (paged_decode_cuda)")
+    code = _support.dtype_code(dtype, "Kernel C (paged_decode_cuda)")
     int8 = int(pool_dtype == torch.int8)
     return paged_decode_plan(
         b, hl, kvh, dh, page_size, pages_per_slot, dtype, aligned,
@@ -427,8 +426,7 @@ def paged_decode_cuda(q, k_pages, v_pages, page_table, positions, group: int,
     kv_heads]`` float32 scales. No host sync and no allocation outside
     torch's caching allocator, so the call can be captured in a CUDA
     graph."""
-    code = _support.dtype_code(q.dtype, _support.F32_BF16_F16,
-                               "Kernel C (paged_decode_cuda)")
+    code = _support.dtype_code(q.dtype, "Kernel C (paged_decode_cuda)")
     n_pages, page_size, f = k_pages.shape
     # a rank-3 q is one window row: the same memory as [b, 1, hl, dh]
     w = 1 if q.dim() == 3 else q.shape[1]

@@ -141,15 +141,14 @@ def _kernel_dtypes(kernel: str, x_dtype: torch.dtype,
     each of the others f32 or the 16-bit type x pairs with (fp16 beside
     fp16 x, bf16 beside f32 or bf16 x), the combinations the C entry
     points instantiate. Raises TypeError on any other."""
-    x_code = _support.dtype_code(x_dtype, _support.F32_BF16_F16, kernel)
+    x_code = _support.dtype_code(x_dtype, kernel)
     half = torch.float16 if x_dtype == torch.float16 else torch.bfloat16
     codes = [x_code]
     for name, dt in others.items():
         if dt is None:
             codes.append(0)
         elif dt in (torch.float32, half):
-            codes.append(_support.dtype_code(dt, _support.F32_BF16_F16,
-                                             kernel))
+            codes.append(_support.dtype_code(dt, kernel))
         else:
             raise TypeError(f"{kernel}: {name} in {dt} beside x in "
                             f"{x_dtype}; it takes float32 or {half}")

@@ -101,8 +101,7 @@ def softmax_fwd_cuda(x4: torch.Tensor, mask4: Optional[torch.Tensor],
                      scale: float, sq: int, causal: bool) -> torch.Tensor:
     """Launch Kernel G on ``x4 [d0, d1, d2, k]``; ``mask4`` (bool,
     broadcastable to x4) is read through its broadcast strides."""
-    code = _support.dtype_code(x4.dtype, _support.F32_BF16_F16,
-                               "Kernel G (softmax_fwd_cuda)")
+    code = _support.dtype_code(x4.dtype, "Kernel G (softmax_fwd_cuda)")
     x4 = x4.contiguous()
     k = x4.shape[-1]
     y = torch.empty_like(x4)
@@ -133,8 +132,7 @@ def softmax_bwd_cuda(dy: torch.Tensor, y: torch.Tensor,
     """Launch Kernel H: dx in dy's dtype (dy and y share it)."""
     if dy.dtype != y.dtype:
         raise TypeError(f"dy ({dy.dtype}) and y ({y.dtype}) dtypes differ")
-    code = _support.dtype_code(y.dtype, _support.F32_BF16_F16,
-                               "Kernel H (softmax_bwd_cuda)")
+    code = _support.dtype_code(y.dtype, "Kernel H (softmax_bwd_cuda)")
     dy, y = dy.contiguous(), y.contiguous()
     k = y.shape[-1]
     dx = torch.empty_like(dy)

@@ -39,19 +39,21 @@ T5-base cross-attention of ``[t5_train]`` (q [16, 12, 114, 64], k and v
 [16, 12, 512, 64], not causal, ``chip_smoke.py`` ``phase_flash_bwd``'s
 seeded kv_lengths), in bf16 beside SDPA and SDPA's backward (a bool key
 mask for the lengths), in f32 at s 768 and the T5 shape for the f32
-kernels' digests, and B alone in fp16 at the three shapes beside SDPA in
-fp16 (cases ``*_fp16``; a checkout without B's fp16 path cannot run them,
-and I has none yet). B is held to its plain version run in f32 (o within
-1 ulp of its 16-bit type, lse within 1e-4), I to its plain version on B's o and lse
-(bf16 within 1 ulp plus ``flash_bwd_rounding_slack``, at most 0.1% past
-1 ulp; f32 atol 1e-4), both bitwise repeatable; their bounds count the
+kernels' digests, and in fp16 at the three shapes beside SDPA and SDPA's
+backward in fp16 (cases ``*_fp16``; a checkout without B's fp16 path
+cannot run them, and a checkout's own copy of this tool times I in fp16
+only where I has an fp16 path). B is held to its plain version run in
+f32 (o within 1 ulp of its 16-bit type, lse within 1e-4), I to its plain
+version on B's o and lse (bf16 and fp16 within 1 ulp plus
+``flash_bwd_rounding_slack``, at most 0.1% (bf16) or 0.8% (fp16) past 1
+ulp; f32 atol 1e-4), both bitwise repeatable; their bounds count the
 query rows that see a key and the K/V rows that some row sees, as
 ``chip_smoke.py`` does. Times are medians of CUDA-event intervals
 (``conv_timing.median_ms``).
 Prints one JSON line per measurement and, with ``--out``, appends them to
 FILE. With ``--train`` it runs the checkout's ``chip_smoke.py`` phase
-``[train]`` (GPT-2, the default) or ``[t5_train]`` instead, so that
-training steps can be compared in turns as well.
+``[train]`` (GPT-2, the default), ``[t5_train]`` or ``[t5_train_fp16]``
+instead, so that training steps can be compared in turns as well.
 """
 
 from __future__ import annotations
@@ -196,7 +198,6 @@ def time_flash(att, name, b, h, kvh, sq, sk, causal, kvl, dtype, gen,
     run = lambda: att.flash_fwd_cuda(q, k, v, *args)  # noqa: E731
     (o, lse), (o2, lse2) = run(), run()
     ro, rlse = att.flash_fwd_plain(q.float(), k.float(), v.float(), *args)
-    bf16 = dtype == torch.bfloat16
     half = dtype != torch.float32
     err = dict(o_ulps=ulps(o, ro.to(dtype)) if half else 0.0,
                o_abs=float((o.float() - ro).abs().max()),
@@ -225,8 +226,6 @@ def time_flash(att, name, b, h, kvh, sq, sk, causal, kvl, dtype, gen,
          bound_ms=bound_ms(n_bytes, flops, dtype)[0],
          tflops=flops / ms / 1e9, ok=ok, sha256=digest([o, lse]), **err)
     del ro, rlse, o2, lse2
-    if dtype == torch.float16:
-        return                  # Kernel I has no fp16 path yet
 
     do = torch.randn(b, h, sq, d, device="cuda", generator=gen).to(dtype)
     run = lambda: att.flash_bwd_cuda(q, k, v, do, o, lse, *args)  # noqa
@@ -237,7 +236,7 @@ def time_flash(att, name, b, h, kvh, sq, sk, causal, kvl, dtype, gen,
                abs=max(float((g.float() - w.float()).abs().max())
                        for g, w in zip(got, want)))
     ok = err["bitwise_repeat"]
-    if bf16:
+    if half:
         from chip_smoke import check_rounded_factors
         slack = att.flash_bwd_rounding_slack(q, k, v, do, o, lse, *args)
         checks = [check_rounded_factors(g, w, sl)
@@ -265,14 +264,15 @@ def time_flash(att, name, b, h, kvh, sq, sk, causal, kvl, dtype, gen,
              out4, (q4, k4, v4), do, retain_graph=True), iters=30),
          bound_ms=bound_ms(n_bytes, flops, dtype)[0],
          tflops=flops / ms / 1e9, ok=ok, sha256=digest(got),
-         split=device_split(run) if bf16 else None, **err)
+         split=device_split(run) if half else None, **err)
 
 
 def time_train(phase, emit) -> None:
-    """``chip_smoke.py``'s ``[train]`` or ``[t5_train]`` phase of the
-    ``--root`` checkout (2 warm-up and 8 timed steps on one seeded batch,
-    its losses and launches checked); its line is printed and its step
-    time, throughput, MFU and peak memory emitted."""
+    """``chip_smoke.py``'s ``[train]``, ``[t5_train]`` or
+    ``[t5_train_fp16]`` phase of the ``--root`` checkout (2 warm-up and 8
+    timed steps on one seeded batch, its losses and launches checked); its
+    line is printed and its step time, throughput, MFU and peak memory
+    emitted."""
     import chip_smoke
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -290,9 +290,9 @@ def main() -> int:
     parser.add_argument("--tag", default="")
     parser.add_argument("--out", default=None)
     parser.add_argument("--train", nargs="?", const="train", default=None,
-                        choices=("train", "t5_train"),
-                        help="run the checkout's train (or t5_train) phase "
-                        "instead of timing the kernel")
+                        choices=("train", "t5_train", "t5_train_fp16"),
+                        help="run the checkout's train (or t5_train, "
+                        "t5_train_fp16) phase instead of timing the kernel")
     parser.add_argument("--cases", default=None,
                         help="comma-separated case names (default: all)")
     args = parser.parse_args()

@@ -61,8 +61,6 @@ printing its own lines and raising on failure:
               overflow cases of E (v at
               2^14 under dropout 0.5) and F (do at 2^12, v at 2^6), whose
               non-finite elements must be the plain versions';
-    fp16_gates — Kernels I and J-M (no fp16 path yet) raise TypeError
-              on fp16 card tensors and launch nothing;
 9. serve    — GPT-2 124M (bf16, random weights from a seed) serves 16
               greedy requests through ``InferenceEngine``; the launch
               counters of its kernels (A, B, C), read over this phase
@@ -127,10 +125,14 @@ printing its own lines and raising on failure:
               and 4097, scale != 1 (BERT's timed in bf16 and fp16); then
               H in fp16 with dy at 2^14 and scale 8, non-finite at the
               plain version's elements;
-14. kernel I — the 4D flash backward vs its plain version: the T5
-              cross-attention shape with kv_lengths, causal GQA at 1024,
-              window 256, a kv_lengths row at 0, causal sq != sk; two runs
-              bitwise equal; and Kernel B at the cross-attention shape;
+14. kernel I — the 4D flash backward vs its plain version in f32, bf16
+              and fp16: the T5 cross-attention shape with kv_lengths,
+              causal GQA at 1024, window 256, a kv_lengths row at 0, causal
+              sq != sk; two runs bitwise equal, the outputs' sha256
+              printed; Kernel B at each shape; the T5 cross-attention
+              timed in bf16 and fp16; then fp16 with do at 2^12 and v at
+              2^6 (``[kernel_i_fp16_overflow]``), non-finite at the plain
+              version's elements;
 15. bert_train — BERT-base (b 16, s 512, seeded padding masks, tokentype
               ids, FusedLAMB lr 1e-3 wd 0.01) takes 2 + 8 steps; every loss
               finite, the last below the first, and the launches a step of
@@ -146,29 +148,45 @@ printing its own lines and raising on failure:
               RMSNorm, ReLU, inputs 512 with seeded enc_lengths, targets
               114, b 16, FusedAdam lr 1e-4), the same checks (LN 62/62,
               packed 24/24, flash 12/12, softmax 0);
+    t5_train_fp16 — the same model and batch under amp O2 in fp16 (fp16
+              params, FusedAdam over fp32 masters, dynamic scale from
+              2^16, an inf injected at step 5): A, D, E, F, B and I in fp16
+              (LN 62/62, packed 24/24, flash 12/12 a step), unscale and
+              Adam as the lists imply; every skipped step bitwise
+              unchanged, the loss falls;
 17. enc card vs CPU — a small f32 BERT with a padding mask and LAMB, and a
               small encoder-decoder with enc_lengths, train 3 steps on the
               card and on the CPU: losses and every step-1 gradient leaf
               agree;
 18. kernel J/K — the fused 1x1 conv forward and backward vs their plain
-              versions, f32 and bf16, with a random stats cotangent:
+              versions, f32, bf16 and fp16, with a random stats cotangent:
               ResNet-50's layer1 conv3 (affine + relu), layer4 conv1 and
               downsample (no affine; the downsample's 2M weights were
               gated off the TPU), and a 200-row tail in every (affine,
               relu) combination; two forward and two backward runs
-              bitwise equal;
+              bitwise equal; the outputs' sha256 printed; layer1 timed in
+              bf16 and fp16;
 19. kernel L/M — the fused 3x3 conv forward and backward, the same checks
               at ResNet-50's four stride-1 3x3 shapes [256,56,56,64],
               [256,28,28,128], [256,14,14,256], [256,7,7,512] (the first
               and last gated off the TPU), an odd [3,5,9,16] -> 32 and a
               ragged [5,13,11,20] -> 36 (channels off L's and M's
-              8-channel copies, pixels off their 128-pixel tiles);
+              8-channel copies, pixels off their 128-pixel tiles); then K
+              and M in fp16 with dy at 2^13 and ds1 at 2^14, where dy_eff
+              overflows (``[kernel_k_fp16_overflow]``,
+              ``[kernel_m_fp16_overflow]``): non-finite at the plain
+              versions' elements;
 20. rn50_train — ResNet-50 (224 px, batch 256, bf16 compute over fp32
               params, fused_conv, FusedSGD lr 0.1 momentum 0.9 wd 1e-4 with
               master weights) takes 2 + 8 steps; every loss finite, the
               last below the first, and Kernels J, K, L, M launched exactly
               36, 36, 13 and 13 times a step, the SGD kernel as its list
               implies, every other kernel 0;
+    rn50_train_fp16 — the same with ``compute_dtype=torch.float16`` under
+              amp O2's dynamic scale (fp32 params and masters, an inf
+              injected at step 5): J, K, L, M in fp16 (36/36/13/13 a
+              step), SGD and unscale as the lists imply; every skipped step
+              bitwise unchanged, the loss falls;
 21. rn50 card vs CPU — ResNet-50 at 64 px, batch 4, 8 classes, f32:
               two fused blocks alone (layer1.1 and layer2.0: output, input
               and parameter gradients, new batch-norm state to 2e-5 of each
@@ -179,6 +197,10 @@ printing its own lines and raising on failure:
               with ``zero_init_residual=False`` (gradients held to the
               noise floor that 1e-7 perturbations of the input show on the
               CPU), then three FusedSGD steps with the recipe's init;
+              then in fp16: the two blocks, each leaf at most twice as far
+              from the CPU's f32 block as the CPU's fp16 block is, and
+              three steps under amp O2's dynamic scale (an inf at step 1):
+              scaler walks equal, losses within ``AMP_FP16_LOSS_RTOL``;
 22. multi_tensor — the five multi-tensor kernels (amp's unscale, the L2
               norms, Adam, LAMB, SGD; port-only, csrc/multi_tensor.cu) over
               GPT-2 124M's 148 parameters plus a 1-element tensor and one
@@ -208,9 +230,11 @@ printing its own lines and raising on failure:
               fp32 masters, dynamic scale, an inf at step 2) 5 steps with
               FusedAdam, FusedLAMB and FusedSGD on the card and the CPU:
               the losses, scaler states and parameters agree; then the
-              same GPT under O2 in fp16 with FusedAdam, and a small BERT
-              with a padding mask under O2 in fp16 with FusedLAMB: scaler
-              states equal, losses within ``AMP_FP16_LOSS_RTOL``.
+              same GPT under O2 in fp16 with FusedAdam, a small BERT with
+              a padding mask under O2 in fp16 with FusedLAMB, and a small
+              encoder-decoder with enc_lengths under O2 in fp16 with
+              FusedAdam: scaler states equal, losses within
+              ``AMP_FP16_LOSS_RTOL``.
 
 Then one JSON line of per-kernel numbers (launches from the phase that
 drives each kernel's slice: serve for A-C, serve_int8 and serve_spec for
@@ -218,7 +242,8 @@ C's int8 and window records, train for D-F, bert_train for G and H,
 t5_train for I, rn50_train for J-M and SGD, train_amp for the unscale
 and Adam kernels, bert_train for LAMB and the norms, train_fp16 for the
 fp16 records of A, D, E and F, serve_fp16 for those of B and C,
-bert_train_fp16 for those of G and H, with every path's counts in
+bert_train_fp16 for those of G and H, t5_train_fp16 for I's,
+rn50_train_fp16 for J-M's, with every path's counts in
 ``launches_by_path``;
 times from CUDA events in this run; ``bound_ms`` from this run's shapes
 over the H100's published peaks), and last ``{"ok": true, "device":
@@ -333,16 +358,17 @@ class Timer:
 FRACTION_BITS = {torch.bfloat16: 7, torch.float16: 10}
 
 
-def ulps16(got: torch.Tensor, want: torch.Tensor) -> float:
+def ulps16(got: torch.Tensor, want: torch.Tensor,
+           floor: float = 2.0 ** -8) -> float:
     """Largest |got - want| over the elements finite on both sides, in
     units of the ulp of ``got``'s 16-bit type (bf16 or fp16) at the larger
-    of the two, that magnitude floored at 2^-8: where ``x_hat * w + b``
-    cancels to near zero, an fp32 rounding difference (a fused multiply-add
-    against a separate multiply and add) is larger than the ulp of the
-    tiny result."""
+    of the two, that magnitude floored at ``floor`` (2^-8): where ``x_hat
+    * w + b`` cancels to near zero, an fp32 rounding difference (a fused
+    multiply-add against a separate multiply and add) is larger than the
+    ulp of the tiny result."""
     g, w = got.float(), want.float()
     fin = torch.isfinite(g) & torch.isfinite(w)
-    mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -8)
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(floor)
     ulp = torch.exp2(torch.floor(torch.log2(mag))
                      - FRACTION_BITS[got.dtype])
     err = ((g - w).abs() / ulp)[fin]
@@ -1730,29 +1756,87 @@ FLASH_BWD_CASES = [
 ]
 
 
-def phase_flash_bwd(timer: Timer) -> dict:
+def _flash_bwd_timed(timer, q, k, v, do, o, lse, kvl, kvl_t, args, err,
+                     name) -> tuple:
+    """Kernel I and Kernel B at the T5 cross-attention (kv_lengths
+    ``kvl``), each beside its plain version, SDPA (its backward) with a
+    bool key mask and its bound: ``(log fields, record)``."""
+    from apex_tpu_torch.ops.attention import (flash_bwd_cuda,
+                                              flash_bwd_plain,
+                                              flash_fwd_cuda)
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    causal, window = args[2], args[3]
+    dtype = q.dtype
+    esz = q.element_size()
+    pairs = sum(_visible_pairs(sq, sk, causal, window, n) for n in kvl)
+    rows, keys = (sum(t) for t in zip(*(
+        _visible_rows_keys(sq, sk, causal, window, n) for n in kvl)))
+    # reads: q, o, do and lse of the query rows that see a key, K and V of
+    # the keys that some row sees, kv_lengths; writes: all of dq, dk and dv
+    n_bytes = (3 * rows * h * d + 2 * keys * kvh * d + q.numel()
+               + 2 * k.numel()) * esz + rows * h * 4 + b * 4
+    bms, by = bound_ms(n_bytes, 10.0 * d * h * pairs, dtype)
+    # Kernel B: reads q of the rows that see a key, K and V of the keys some
+    # row sees, kv_lengths; writes o and lse
+    b_bms, b_by = bound_ms(
+        (rows * h * d + 2 * keys * kvh * d + o.numel()) * esz
+        + lse.numel() * 4 + b * 4, 4.0 * d * h * pairs, dtype)
+    b_ms = timer(lambda: flash_fwd_cuda(q, k, v, *args))
+    ms = timer(lambda: flash_bwd_cuda(q, k, v, do, o, lse, *args))
+    plain = timer(lambda: flash_bwd_plain(q, k, v, do, o, lse, *args),
+                  iters=5, warmup=1)
+    q4, k4, v4 = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    keep = (torch.arange(sk, device="cuda")[None, :]
+            < kvl_t[:, None])[:, None, None, :]
+    out4 = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=keep)
+    lib = timer(lambda: torch.autograd.grad(out4, (q4, k4, v4), do,
+                                            retain_graph=True))
+    b_lib = timer(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                         attn_mask=keep))
+    fields = dict(ms=f"{ms:.5f}", plain_ms=f"{plain:.5f}",
+                  library_ms=f"{lib:.5f}", bound_ms=f"{bms:.5f}",
+                  bound_by=by, kernel_b_ms=f"{b_ms:.5f}",
+                  kernel_b_library_ms=f"{b_lib:.5f}",
+                  kernel_b_bound_ms=f"{b_bms:.5f}", kernel_b_bound_by=b_by)
+    record = dict(name=name, route="cuda",
+                  source="apex_tpu_torch/csrc/flash_bwd.cu",
+                  replaces="apex_tpu/ops/attention.py:669",
+                  shape=f"q[{b},{h},{sq},{d}] k,v[{b},{kvh},{sk},{d}] "
+                  f"{'fp16' if dtype == torch.float16 else 'bf16'} "
+                  "kv_lengths", max_abs_err=err, ms=ms, plain_ms=plain,
+                  bound_ms=bms, bound_by=by, library_ms=lib)
+    return fields, record
+
+
+def phase_flash_bwd(timer: Timer) -> list:
     """Kernel I against its plain version on the same inputs (which rounds
     ds and p to the input dtype where the JAX kernels do): f32 atol 1e-4;
-    bf16 every element within 1 ulp plus the slack of one bf16 step of each
-    rounded factor (``flash_bwd_rounding_slack``) and at most 0.1% of the
-    elements past 1 ulp; two runs bitwise equal. Kernel B is checked at
-    each shape on the way (its o within 1 ulp, lse within 1e-4). The T5
-    cross-attention bf16 case is timed, B's forward beside SDPA and I
-    beside SDPA's backward, each with its bound."""
+    bf16 and fp16 every element within 1 ulp plus the slack of one step of
+    each rounded factor (``flash_bwd_rounding_slack``) and at most 0.1%
+    (bf16) or 0.8% (fp16) of the elements past 1 ulp; two runs bitwise
+    equal; the sha256 of dq, dk and dv printed (equal digests on one seed
+    mean bitwise equal outputs). Kernel B is checked at each shape on the
+    way (its o within 1 ulp, lse within 1e-4). The T5 cross-attention
+    bf16 and fp16 cases are timed, B's forward beside SDPA and I beside
+    SDPA's backward, each with its bound (the records ``flash_bwd`` and
+    ``flash_bwd_fp16``). Then fp16 with do at 2^12 and v at 2^6, where ds
+    overflows: the non-finite elements of dq, dk and dv must be the plain
+    version's."""
     from apex_tpu_torch.ops.attention import (flash_bwd_cuda,
                                               flash_bwd_plain,
                                               flash_bwd_rounding_slack,
                                               flash_fwd_cuda,
                                               flash_fwd_plain)
     gen = torch.Generator(device="cuda").manual_seed(9)
-    record = None
+    records = {}
     for name, b, h, kvh, sq, sk, causal, kvl, window in FLASH_BWD_CASES:
         d = 64
         if kvl == "t5":
             kvl = _valid_lengths(b, sk, 11).tolist()
         kvl_t = None if kvl is None else torch.tensor(kvl, device="cuda")
         scale = 1.0 / math.sqrt(d)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
             q = torch.randn(b, h, sq, d, device="cuda", generator=gen).to(
                 dtype)
             k = torch.randn(b, kvh, sk, d, device="cuda", generator=gen).to(
@@ -1776,18 +1860,20 @@ def phase_flash_bwd(timer: Timer) -> dict:
             if not all(torch.equal(a, g) for a, g in zip(again, got)):
                 raise AssertionError(f"kernel i {name} {dtype}: two runs "
                                      f"differ")
+            half = dtype != torch.float32
             slack = (flash_bwd_rounding_slack(q, k, v, do, o, lse, *args)
-                     if dtype == torch.bfloat16 else (None,) * 3)
+                     if half else (None,) * 3)
             err, ulps, past, tol = 0.0, 0.0, 0.0, "atol_1e-4"
             for g_, w_, sl in zip(got, want, slack):
-                if dtype == torch.bfloat16:
-                    tol = "1_bf16_ulp+factor_rounding"
+                if half:
+                    tol = (f"1_{'fp16' if dtype == torch.float16 else 'bf16'}"
+                           "_ulp+factor_rounding")
                     e_, u_, p_, excess, ok = check_rounded_factors(g_, w_, sl)
                     err, ulps, past = max(err, e_), max(ulps, u_), \
                         max(past, p_)
                     if not ok:
                         raise AssertionError(
-                            f"kernel i {name} bf16: {ulps} ulp, "
+                            f"kernel i {name} {dtype}: {ulps} ulp, "
                             f"{past:.2e} of elements past 1 ulp, excess "
                             f"{excess} — tolerance {tol}")
                     continue
@@ -1801,62 +1887,42 @@ def phase_flash_bwd(timer: Timer) -> dict:
                     raise AssertionError(f"kernel i {name}: the batch row "
                                          f"with kv_length 0 has gradients")
             fields = {}
-            if name == "t5_cross" and dtype == torch.bfloat16:
-                esz = q.element_size()
-                pairs = sum(_visible_pairs(sq, sk, causal, window, n)
-                            for n in kvl)
-                rows, keys = (sum(t) for t in zip(*(
-                    _visible_rows_keys(sq, sk, causal, window, n)
-                    for n in kvl)))
-                # reads: q, o, do and lse of the query rows that see a key,
-                # K and V of the keys that some row sees, kv_lengths;
-                # writes: all of dq, dk and dv
-                n_bytes = (3 * rows * h * d + 2 * keys * kvh * d
-                           + q.numel() + 2 * k.numel()) * esz \
-                    + rows * h * 4 + b * 4
-                bms, by = bound_ms(n_bytes, 10.0 * d * h * pairs, dtype)
-                # Kernel B: reads q of the rows that see a key, K and V of
-                # the keys some row sees, kv_lengths; writes o and lse
-                b_bms, b_by = bound_ms(
-                    (rows * h * d + 2 * keys * kvh * d + o.numel()) * esz
-                    + lse.numel() * 4 + b * 4, 4.0 * d * h * pairs, dtype)
-                b_ms = timer(lambda: flash_fwd_cuda(q, k, v, *args))
-                ms = timer(lambda: flash_bwd_cuda(q, k, v, do, o, lse, *args))
-                plain = timer(lambda: flash_bwd_plain(q, k, v, do, o, lse,
-                                                      *args),
-                              iters=5, warmup=1)
-                q4, k4, v4 = (t.detach().clone().requires_grad_()
-                              for t in (q, k, v))
-                keep = (torch.arange(sk, device="cuda")[None, :]
-                        < kvl_t[:, None])[:, None, None, :]
-                out4 = F.scaled_dot_product_attention(q4, k4, v4,
-                                                      attn_mask=keep)
-                lib = timer(lambda: torch.autograd.grad(
-                    out4, (q4, k4, v4), do, retain_graph=True))
-                b_lib = timer(lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=keep))
-                fields = dict(ms=f"{ms:.5f}", plain_ms=f"{plain:.5f}",
-                              library_ms=f"{lib:.5f}", bound_ms=f"{bms:.5f}",
-                              bound_by=by, kernel_b_ms=f"{b_ms:.5f}",
-                              kernel_b_library_ms=f"{b_lib:.5f}",
-                              kernel_b_bound_ms=f"{b_bms:.5f}",
-                              kernel_b_bound_by=b_by)
-                record = dict(name="flash_bwd", route="cuda",
-                              source="apex_tpu_torch/csrc/flash_bwd.cu",
-                              replaces="apex_tpu/ops/attention.py:669",
-                              shape=f"q[{b},{h},{sq},{d}] k,v[{b},{kvh},{sk},"
-                              f"{d}] bf16 kv_lengths", max_abs_err=err,
-                              ms=ms, plain_ms=plain, bound_ms=bms,
-                              bound_by=by, library_ms=lib)
+            if name == "t5_cross" and half:
+                rec = ("flash_bwd" if dtype == torch.bfloat16
+                       else "flash_bwd_fp16")
+                fields, records[rec] = _flash_bwd_timed(
+                    timer, q, k, v, do, o, lse, kvl, kvl_t, args, err, rec)
             log("kernel_i", case=name,
                 shape=f"b{b} h{h} kvh{kvh} sq{sq} sk{sk} d{d}",
                 causal=causal, window=window,
                 kv_lengths=None if kvl is None else len(kvl),
                 dtype=str(dtype)[6:], max_abs_err=f"{err:.3e}", ulps=ulps,
                 share_past_1_ulp=f"{past:.2e}", tol=tol, bitwise_repeat=True,
+                sha256=digest(torch.cat([t.reshape(-1) for t in got])),
                 kernel_b_ulps=b_ulps, kernel_b_lse_err=f"{lse_err:.2e}",
                 **fields)
-    return record
+    # fp16 overflow: ds = p (dp - delta) past 65504 rounds to inf
+    b, h, kvh, sq, sk = 3, 12, 12, 128, 512
+    kvl_t = torch.tensor([512, 200, 0], device="cuda")
+    q, k = (torch.randn(s_, device="cuda", generator=gen).half()
+            for s_ in ((b, h, sq, 64), (b, kvh, sk, 64)))
+    v = (64.0 * torch.randn(b, kvh, sk, 64, device="cuda",
+                            generator=gen)).half()
+    do = (4096.0 * torch.randn(b, h, sq, 64, device="cuda",
+                               generator=gen)).half()
+    args = (kvl_t, 0.125, False, None)
+    o, lse = flash_fwd_cuda(q, k, v, *args)
+    got = flash_bwd_cuda(q, k, v, do, o, lse, *args)
+    want = flash_bwd_plain(q, k, v, do, o, lse, *args)
+    _fp16_overflow("kernel_i_fp16_overflow",
+                   torch.cat([t.reshape(-1) for t in got]),
+                   torch.cat([t.reshape(-1) for t in want]),
+                   case="kv_lengths_0", do_scale="2^12", v_scale="2^6",
+                   zero_row_zero=not any(t[2].any() for t in got))
+    if any(t[2].any() for t in got):
+        raise AssertionError("kernel i fp16 overflow: the row with "
+                             "kv_length 0 has gradients")
+    return [records["flash_bwd"], records["flash_bwd_fp16"]]
 
 
 def rel_norm(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1867,9 +1933,15 @@ def rel_norm(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 #: norm-wise tolerance of every fp32 sum of the conv kernels (y and dx in
-#: f32; stats, dW, da and db in both dtypes): the same fp32 products summed
+#: f32; stats, dW, da and db in every dtype): the same fp32 products summed
 #: in another order
 CONV_SUM_TOL = 1e-5
+#: the magnitude floor of the conv kernels' 1-ulp checks of y and dx:
+#: 2^-8 in bf16 (ulp 2^-15), 2^-5 in fp16, the same absolute 2^-15. They
+#: are fp32 sums over 64 to 4,608 products, and two summation orders of
+#: unit-scale products differ by fp32 noise of up to ~2^-16 at the largest
+#: of millions of elements, past fp16's ulp at 2^-8 (2^-18)
+CONV_FLOOR = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -5}
 #: (name, kind, x shape, w shape, (affine, relu) cases, NHW of a 1x1's rows
 #: for the library call, timed as the kernel's record). Kernel J's bf16
 #: branches: 64 x 128 tiles with the prep pass (layer1_conv3, layer3_conv3
@@ -1924,8 +1996,8 @@ def _conv_bytes_flops(kind, x_shape, w_shape, affine, esz) -> tuple:
 
 
 def _conv_library(kind, x, w, dy, nhw):
-    """cuDNN's convolution alone (no affine, no stats) on bf16
-    channels-last views: ``(forward fn, backward fn)``, the backward its
+    """cuDNN's convolution alone (no affine, no stats) on channels-last
+    views of the 16-bit inputs: ``(forward fn, backward fn)``, the backward its
     input and weight gradients."""
     if kind == "1x1":
         b, h, wd = nhw
@@ -1947,12 +2019,16 @@ def _conv_library(kind, x, w, dy, nhw):
 
 def phase_conv(timer: Timer) -> tuple:
     """Kernels J-M against their plain versions on the same inputs, with a
-    random stats cotangent: bf16 y and dx within 1 ulp of the plain
-    version run in fp32 and rounded once; f32 y and dx, and every fp32 sum
-    (stats, dW, da, db), norm-wise within ``CONV_SUM_TOL``; two forward
-    and two backward runs bitwise equal. The layer1 bf16 cases are the
-    records; every bf16 case at a ResNet-50 shape is timed against cuDNN's
-    conv alone."""
+    random stats cotangent: bf16 and fp16 y and dx within 1 ulp of the
+    plain version run in fp32 and rounded once (magnitudes floored at
+    ``CONV_FLOOR``); f32 y and dx, and every fp32 sum (stats, dW, da, db),
+    norm-wise within ``CONV_SUM_TOL``; two forward and two backward runs
+    bitwise equal; the sha256 of the outputs printed. The layer1 bf16 and
+    fp16 cases are the records; every bf16 case at a ResNet-50 shape is
+    timed against cuDNN's conv alone, the fp16 records too. Then K and M in
+    fp16 with dy at 2^13 and the stats cotangent's ds1 at 2^14, where
+    dy_eff overflows: dx, dW, da and db non-finite at the plain version's
+    elements."""
     from apex_tpu_torch.ops import conv_fused as cf
     ops = {"1x1": (cf.conv1x1_fwd_cuda, cf.conv1x1_fwd_plain,
                    cf.conv1x1_bwd_cuda, cf.conv1x1_bwd_plain),
@@ -1969,7 +2045,7 @@ def phase_conv(timer: Timer) -> tuple:
         k, n = w_shape[-2], w_shape[-1]
         fan_in = math.prod(w_shape[:-1])
         for affine, relu in acts:
-            for dtype in (torch.float32, torch.bfloat16):
+            for dtype in (torch.float32, torch.bfloat16, torch.float16):
                 rnd = lambda *shape: torch.randn(  # noqa: E731
                     shape, device="cuda", generator=gen)
                 x = rnd(*x_shape).to(dtype)
@@ -2000,9 +2076,10 @@ def phase_conv(timer: Timer) -> tuple:
                 sums = [("stats", st, rst), ("dw", got[1], want[1])]
                 if affine:
                     sums.append(("da_db", got[2], want[2]))
+                half = dtype != torch.float32
                 for oname, g, h in outs:
-                    if dtype == torch.bfloat16:
-                        errs[oname] = ulps16(g, h)
+                    if half:
+                        errs[oname] = ulps16(g, h, CONV_FLOOR[dtype])
                         ok = errs[oname] <= 1.0
                     else:
                         errs[oname] = rel_norm(g, h)
@@ -2011,7 +2088,7 @@ def phase_conv(timer: Timer) -> tuple:
                         raise AssertionError(
                             f"kernel {fk if oname == 'y' else bk} {name} "
                             f"{dtype} affine={affine} relu={relu}: {oname} "
-                            f"err {errs[oname]} (1 bf16 ulp / {CONV_SUM_TOL} "
+                            f"err {errs[oname]} (1 ulp / {CONV_SUM_TOL} "
                             f"norm-wise)")
                 for sname, g, h in sums:
                     errs[sname] = rel_norm(g, h)
@@ -2025,8 +2102,9 @@ def phase_conv(timer: Timer) -> tuple:
                            "dx": float((got[0].float()
                                         - want[0].float()).abs().max())}
                 timed = {}
-                if dtype == torch.bfloat16 and (nhw or kind == "3x3") \
-                        and x.numel() > 10 ** 6:
+                if ((dtype == torch.bfloat16 and (nhw or kind == "3x3")
+                     and x.numel() > 10 ** 6)
+                        or (dtype == torch.float16 and record)):
                     fb, ff, bb, bf = _conv_bytes_flops(kind, x_shape,
                                                        w_shape, affine, 2)
                     timed["fwd_bound"] = bound_ms(fb, ff, dtype)
@@ -2046,6 +2124,10 @@ def phase_conv(timer: Timer) -> tuple:
                         timed["bwd_plain"] = timer(
                             lambda: bwd_p(x, *args, ry, dy, ds, affine,
                                           relu), iters=5, warmup=1)
+                digests = {"fwd": digest(torch.cat([
+                    y.reshape(-1).float(), st.reshape(-1)])),
+                    "bwd": digest(torch.cat([t.reshape(-1).float()
+                                             for t in got if t is not None]))}
                 for kname, which in ((fk, "fwd"), (bk, "bwd")):
                     fields = {}
                     if timed:
@@ -2063,17 +2145,19 @@ def phase_conv(timer: Timer) -> tuple:
                         relu=relu, dtype=str(dtype)[6:],
                         **{f"{e}_err": f"{errs[e]:.3e}" for e in keys
                            if e in errs},
-                        tol="1_bf16_ulp/1e-5_normwise", **fields,
-                        bitwise_repeat=True)
-                if record and dtype == torch.bfloat16:
+                        tol="1_ulp/1e-5_normwise", **fields,
+                        bitwise_repeat=True, sha256=digests[which])
+                if record and half:
+                    suffix = "" if dtype == torch.bfloat16 else "_fp16"
                     shape = (f"x[{','.join(map(str, x_shape))}] "
-                             f"w[{','.join(map(str, w_shape))}] bf16"
+                             f"w[{','.join(map(str, w_shape))}] "
+                             f"{'bf16' if not suffix else 'fp16'}"
                              f"{' affine+relu' if affine and relu else ''}")
                     for which, oname in (("fwd", "y"), ("bwd", "dx")):
                         kname = f"{stem}_{which}"
                         bms, by = timed[f"{which}_bound"]
-                        records[kname] = dict(
-                            name=kname, route="cuda",
+                        records[kname + suffix] = dict(
+                            name=kname + suffix, route="cuda",
                             source=f"apex_tpu_torch/csrc/{kname}.cu",
                             replaces="apex_tpu/ops/conv_fused.py:"
                                      f"{replaces[kname]}",
@@ -2083,8 +2167,32 @@ def phase_conv(timer: Timer) -> tuple:
                             library_ms=timed[which + "_lib"])
                 del x, w, dy, y, y2, ry, got, again, want
     torch.cuda.empty_cache()
-    return tuple(records[k] for k in ("conv1x1_fwd", "conv1x1_bwd",
-                                      "conv3x3_fwd", "conv3x3_bwd"))
+    # fp16 overflow: dy_eff = dy + ds0 + 2 (y - c) ds1 past 65504
+    for kind, x_shape, w_shape in (("1x1", (200, 64), (64, 96)),
+                                   ("3x3", (3, 5, 9, 16), (3, 3, 16, 32))):
+        fwd_c, fwd_p, bwd_c, bwd_p = ops[kind]
+        k, n = w_shape[-2], w_shape[-1]
+        rnd = lambda *shape: torch.randn(shape, device="cuda",  # noqa
+                                         generator=gen)
+        x = rnd(*x_shape).half()
+        w = (rnd(*w_shape) * math.prod(w_shape[:-1]) ** -0.5).half()
+        a = torch.rand(k, device="cuda", generator=gen) + 0.5
+        b = rnd(k)
+        c = 0.1 * rnd(n)
+        dy = (8192.0 * rnd(*x_shape[:-1], n)).half()
+        ds = torch.stack([0.1 * rnd(n), 16384.0 * rnd(n)])
+        y, _ = fwd_p(x, a, b, w, c, True, True)
+        got = bwd_c(x, a, b, w, c, y, dy, ds, True, True)
+        want = bwd_p(x, a, b, w, c, y, dy, ds, True, True)
+        _fp16_overflow(f"kernel_{names[kind][1]}_fp16_overflow",
+                       torch.cat([t.reshape(-1).float() for t in got]),
+                       torch.cat([t.reshape(-1).float() for t in want]),
+                       case=kind, x=list(x_shape), w=list(w_shape),
+                       dy_scale="2^13", ds1_scale="2^14",
+                       dy_finite=bool(torch.isfinite(dy).all()))
+    return tuple(records[k + sfx] for sfx in ("", "_fp16")
+                 for k in ("conv1x1_fwd", "conv1x1_bwd", "conv3x3_fwd",
+                           "conv3x3_bwd"))
 
 
 def _requests(n, vocab, max_new, seed):
@@ -3182,23 +3290,8 @@ def _rn50_blocks_card_vs_cpu(cfg) -> None:
     2e-5 of each leaf's largest magnitude (+ 1e-6 for the buffers)."""
     worst = 0.0
     for si, bi in ((0, 1), (1, 0)):
-        got = {}
-        for device in ("cuda", "cpu"):
-            model, _ = _rn50_model(cfg, device, seed=3)
-            blk = model.stages()[si][bi]
-            g = torch.Generator().manual_seed(5)
-            x = torch.randn(4, 8, 8, blk.conv1.shape[2], generator=g)
-            hw = 8 // blk.stride
-            r = torch.randn(4, hw, hw, blk.conv3.shape[3], generator=g)
-            xt = x.to(device).requires_grad_()
-            out = model._block_apply_fused(blk, xt)
-            (out * r.to(device)).sum().backward()
-            leaves = {"out": out, "grad x": xt.grad}
-            leaves.update({f"grad {n}": p.grad
-                           for n, p in blk.named_parameters()})
-            leaves.update({f"buffer {n}": b for n, b in blk.named_buffers()})
-            got[device] = {n: t.detach().cpu().clone() for n, t in
-                           leaves.items()}
+        got = {device: _rn50_block_leaves(cfg, device, si, bi, torch.float32)
+               for device in ("cuda", "cpu")}
         for n, want in got["cpu"].items():
             atol = 1e-6 if n.startswith("buffer") else 0.0
             err = float((got["cuda"][n] - want).abs().max())
@@ -3210,6 +3303,134 @@ def _rn50_blocks_card_vs_cpu(cfg) -> None:
                     f"off by {err} (2e-5 of max {float(want.abs().max())})")
     log("rn50_card_vs_cpu", part="fused_blocks_layer1.1_layer2.0",
         leaves_per_block=len(got["cpu"]), worst_over_tol=f"{worst:.3f}")
+
+
+def _rn50_block_leaves(cfg, device, si, bi, dtype):
+    """Fused block ``layer{si + 1}.{bi}`` of ``_rn50_model(cfg)`` (seed 3)
+    on a seeded [4, 8, 8, C] input (on the fp16 grid, so that every dtype
+    starts from the same values) in ``dtype`` and a seeded cotangent:
+    {leaf: fp32 CPU tensor} of its output, the input and parameter
+    gradients and the new batch-norm buffers."""
+    model, _ = _rn50_model(dict(cfg, compute_dtype=dtype), device, seed=3)
+    blk = model.stages()[si][bi]
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(4, 8, 8, blk.conv1.shape[2], generator=g)
+    hw = 8 // blk.stride
+    r = torch.randn(4, hw, hw, blk.conv3.shape[3], generator=g)
+    xt = x.half().to(device=device, dtype=dtype).requires_grad_()
+    out = model._block_apply_fused(blk, xt)
+    (out.float() * r.to(device)).sum().backward()
+    leaves = {"out": out, "grad x": xt.grad}
+    leaves.update({f"grad {n}": p.grad for n, p in blk.named_parameters()})
+    leaves.update({f"buffer {n}": b for n, b in blk.named_buffers()})
+    return {n: t.detach().float().cpu().clone() for n, t in leaves.items()}
+
+
+def _rn50_fp16_card_vs_cpu(cfg) -> None:
+    """fp16 parts of ``phase_rn50_card_vs_cpu`` (``compute_dtype=
+    float16``, fp32 params): 0. the two fused blocks in fp16 on the card
+    and on the CPU, each leaf held to its distance from the CPU's f32
+    block: the card's at most twice the CPU's fp16 one, plus 1e-6 of the
+    leaf's norm (both round at the same fp16 points, in other fp32 sum
+    orders, and the batch-norm backward's cancellations amplify a flipped
+    rounding to 1-4% norm-wise on either side; a bf16 rounding, or a moved
+    rounding point, lands several times further). 2. three FusedSGD steps
+    (lr 0.01, the recipe's init) under amp O2's dynamic scale with an inf
+    injected after the backward of step 1: the scaler walks equal, the
+    skipped step leaves the card's parameters and momenta bitwise
+    unchanged, and the losses within ``AMP_FP16_LOSS_RTOL`` (measured on
+    the CPU: fp16 runs on inputs perturbed by 1e-3 part at 5e-4 of each
+    other, fp16 and f32 at 4e-3), on two inputs (``RN50_FP16_SEEDS``),
+    each logged beside the CPU's fp16-vs-f32 gap on that input."""
+    worst = 0.0
+    for si, bi in ((0, 1), (1, 0)):
+        ref = _rn50_block_leaves(cfg, "cpu", si, bi, torch.float32)
+        cpu = _rn50_block_leaves(cfg, "cpu", si, bi, torch.float16)
+        card = _rn50_block_leaves(cfg, "cuda", si, bi, torch.float16)
+        for n, want in ref.items():
+            norm = float(want.norm())
+            e_card = float((card[n] - want).norm())
+            e_cpu = float((cpu[n] - want).norm())
+            ratio = e_card / (2.0 * e_cpu + 1e-6 * norm + 1e-30)
+            worst = max(worst, ratio)
+            if ratio > 1.0 or not torch.isfinite(card[n]).all():
+                raise AssertionError(
+                    f"rn50_card_vs_cpu fp16: block layer{si + 1}.{bi} leaf "
+                    f"{n}: card {e_card / norm:.3e} from the f32 block, CPU "
+                    f"fp16 {e_cpu / norm:.3e} (at most twice)")
+    log("rn50_card_vs_cpu", part="fused_blocks_fp16_layer1.1_layer2.0",
+        leaves_per_block=len(ref), worst_over_tol=f"{worst:.3f}")
+    cfg3 = dict(cfg, zero_init_residual=True, compute_dtype=torch.float16)
+    for seed in RN50_FP16_SEEDS:
+        _rn50_fp16_three_steps(cfg3, seed)
+
+
+#: the inputs (``_rn50_batch`` seeds) of the fp16 three-step comparison
+RN50_FP16_SEEDS = (15, 16)
+
+
+def _rn50_amp_three_steps(cfg3, device, x, y) -> tuple:
+    """Three FusedSGD steps (lr 0.01) of ``cfg3``'s ResNet under amp O2's
+    fp16 dynamic scale, an inf injected after the backward of step 1:
+    (losses, scaler states, the skipped step left parameters and momenta
+    bitwise unchanged)."""
+    from apex_tpu_torch import amp
+    model, step = _rn50_model(cfg3, device, seed=3)
+    opt = step.optimizer
+    for group in opt.param_groups:
+        group["lr"] = 0.01
+    state = amp.initialize("O2", half_dtype=torch.float16, device=device)
+    sc, ss = state.scaler, state.scaler_states[0]
+    params = list(model.parameters())
+    losses, walk, unchanged = [], [], None
+    for i in range(3):
+        before = _cpu_snapshot(params + [
+            v for p in params for v in opt.state.get(p, {}).values()
+            if isinstance(v, torch.Tensor)]) if i == 1 else None
+        opt.zero_grad(set_to_none=True)
+        loss = F.cross_entropy(model(x.to(device)), y.to(device))
+        amp.scale_loss(loss, ss).backward()
+        if i == 1:
+            model.fc.kernel.grad[0, 0] = float("inf")
+        _, found = sc.unscale([p.grad for p in params], ss)
+        opt.step(found_inf=found)
+        ss = sc.update(ss, found)
+        losses.append(float(loss.detach()))
+        walk.append(sc.state_dict(ss))
+        if before is not None:
+            unchanged = _all_equal(before, _cpu_snapshot(params + [
+                v for p in params for v in opt.state[p].values()
+                if isinstance(v, torch.Tensor)]))
+    return losses, walk, unchanged
+
+
+def _rn50_fp16_three_steps(cfg3, seed) -> float:
+    """Part 2 of ``_rn50_fp16_card_vs_cpu`` on the input from ``seed``:
+    the card's fp16 losses against the CPU's, beside the CPU's fp16
+    losses against its f32 ones on the same input (the gap that a
+    computation in the wrong type would open); returns the first."""
+    x, y = _rn50_batch(4, 64, 8, "cpu", seed=seed)
+    lc, wc, uc = _rn50_amp_three_steps(cfg3, "cuda", x, y)
+    lh, wh, _ = _rn50_amp_three_steps(cfg3, "cpu", x, y)
+    l32, _, _ = _rn50_amp_three_steps(
+        dict(cfg3, compute_dtype=torch.float32), "cpu", x, y)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    rel32 = max(abs(a - b) / abs(b) for a, b in zip(lh, l32))
+    log("rn50_card_vs_cpu", part="three_sgd_steps_fp16_amp_o2", lr=0.01,
+        input_seed=seed, injected_step=1,
+        losses_cuda=json.dumps(lc).replace(" ", ""),
+        losses_cpu=json.dumps(lh).replace(" ", ""),
+        loss_rel_err=f"{rel:.2e}", loss_rtol=AMP_FP16_LOSS_RTOL,
+        cpu_fp16_vs_f32_rel=f"{rel32:.2e}",
+        loss_scale=json.dumps([w["loss_scale"] for w in wc]).replace(
+            " ", ""), scaler_equal=wc == wh, skipped_step_unchanged=uc)
+    if rel > AMP_FP16_LOSS_RTOL or wc != wh or not uc or \
+            wc[1]["loss_scale"] != wc[0]["loss_scale"] / 2:
+        raise AssertionError(
+            f"rn50_card_vs_cpu fp16: input {seed}: loss rel err {rel} "
+            f"({AMP_FP16_LOSS_RTOL}), scalers {wc} vs {wh}, skipped step "
+            f"unchanged {uc}")
+    return rel
 
 
 def phase_rn50_card_vs_cpu() -> None:
@@ -3230,7 +3451,8 @@ def phase_rn50_card_vs_cpu() -> None:
        1e-5 of the leaf's norm).
     2. The recipe's ``zero_init_residual=True``, three FusedSGD steps: the
        losses to rtol 1e-4, then every parameter and buffer to 1e-4 of its
-       leaf's largest magnitude + 1e-6."""
+       leaf's largest magnitude + 1e-6.
+    Then parts 0 and 2 in fp16 (``_rn50_fp16_card_vs_cpu``)."""
     cfg = dict(depth=50, num_classes=8, fused_conv=True,
                zero_init_residual=False)
     _rn50_blocks_card_vs_cpu(cfg)
@@ -3302,6 +3524,7 @@ def phase_rn50_card_vs_cpu() -> None:
             losses["cuda"][0]:
         raise AssertionError(f"rn50_card_vs_cpu: three steps, loss rel "
                              f"{rel} (1e-4), state excess {excess}")
+    _rn50_fp16_card_vs_cpu(cfg)
 
 
 #: the multi-tensor kernels (csrc/multi_tensor.cu): port-only, no Pallas
@@ -3669,14 +3892,19 @@ def _zero_unused_grads(params) -> None:
 
 
 def _train_amp(phase: str, half, profile: bool, kind: str = "gpt2") -> dict:
-    """GPT-2 124M at the [train] shape (``kind`` "gpt2"; FusedAdam) or
-    BERT-base at the [bert_train] shape (``kind`` "bert": its seeded
-    padding masks and tokentype ids; FusedLAMB lr 1e-3, weight decay 0.01)
-    under amp O2 with ``half`` params and compute
-    (``policy.cast_to_param``), the optimizer over fp32 masters, a dynamic
-    loss scaler (2**16, hysteresis 1); each step is scale_loss -> backward
-    -> unscale (multi_tensor_scale) -> step(found_inf) (multi_tensor_adam,
-    or LAMB's l2norm and lamb) -> update. Step AMP_INJECT_STEP gets an inf in one
+    """One model at its train phase's shape under amp O2 with ``half``
+    compute: ``kind`` "gpt2" (GPT-2 124M at [train]'s shape, FusedAdam lr
+    1e-4), "bert" (BERT-base at [bert_train]'s: its seeded padding masks
+    and tokentype ids; FusedLAMB lr 1e-3, weight decay 0.01), "t5" (the
+    encoder-decoder at T5-base widths at [t5_train]'s shape with its
+    seeded enc_lengths; FusedAdam lr 1e-4), each with ``half`` params
+    (``policy.cast_to_param``), or "rn50" (ResNet-50 at [rn50_train]'s
+    shape with ``compute_dtype=half`` over fp32 params, as the JAX
+    package's ``examples/imagenet_amp.py`` runs it: batch norm and fc stay
+    fp32; FusedSGD lr 0.1, momentum 0.9, wd 1e-4). The optimizer keeps
+    fp32 masters, and a dynamic loss scaler (2**16, hysteresis 1) runs
+    each step: scale_loss -> backward -> unscale (multi_tensor_scale) ->
+    step(found_inf) -> update. Step AMP_INJECT_STEP gets an inf in one
     grad element after its backward: that step must leave every param,
     master, moment and step count bitwise unchanged, halve the scale and
     reset the growth tracker. bf16 must find no other inf. fp16 may
@@ -3685,48 +3913,87 @@ def _train_amp(phase: str, half, profile: bool, kind: str = "gpt2") -> dict:
     the scale too, and at least one step must apply. Returns the
     launches."""
     from apex_tpu_torch import amp
-    from apex_tpu_torch.models import BertModel, GPTModel, TransformerConfig
+    from apex_tpu_torch.models import (BertModel, EncoderDecoderModel,
+                                       GPTModel, TransformerConfig)
     from apex_tpu_torch.ops import LAUNCHES, reset_launches
     from apex_tpu_torch.ops import multi_tensor as mt
     from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB
     from apex_tpu_torch.transformer.enums import AttnMaskType
+    from apex_tpu_torch.utils.flops import resnet50_train_flops
     state = amp.initialize("O2", half_dtype=half)
     gen = torch.Generator().manual_seed(0)
-    if kind == "bert":
-        cfg = TransformerConfig(**BERT, hidden_dropout=0.0,
-                                attention_dropout=0.0,
-                                attn_mask_type=AttnMaskType.padding,
-                                compute_dtype=state.policy.compute_dtype)
-        model = BertModel(cfg, device="cuda", generator=gen)
-        shape, seq, kernels = BERT, BERT_SEQ, BERT_KERNELS
-        batch = _bert_batch(cfg, BERT_BATCH, BERT_SEQ, "cuda", seed=12)
-        positions = BERT_BATCH * BERT_SEQ
-        tokens = int(batch[1].sum())
-        extra = dict(batch=BERT_BATCH, seq=BERT_SEQ, valid_tokens=tokens)
+    unit, positions = "tokens", None
+    if kind == "rn50":
+        model, step_fn = _rn50_model(
+            dict(depth=50, num_classes=1000, compute_dtype=half,
+                 fused_conv=True), "cuda", master_weights=True)
+        opt = step_fn.optimizer
+        batch = _rn50_batch(RN50_BATCH, RN50_SIZE, 1000, "cuda", seed=14)
+        kernels, unit, tokens = RN50_KERNELS, "images", RN50_BATCH
+        flops = resnet50_train_flops(RN50_BATCH, RN50_SIZE)
+        extra = dict(batch=RN50_BATCH, image=RN50_SIZE)
+        forward = lambda: F.cross_entropy(model(batch[0]), batch[1])  # noqa
+        name = f"resnet50 {str(half)[6:]} compute fp32 params"
     else:
-        cfg = TransformerConfig(**GPT2, hidden_dropout=0.0,
-                                attention_dropout=0.0,
-                                compute_dtype=state.policy.compute_dtype)
-        model = GPTModel(cfg, device="cuda", generator=gen)
-        shape, seq, kernels = GPT2, TRAIN_SEQ, TRAIN_KERNELS
-        batch = _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, "cuda")
-        positions = tokens = TRAIN_BATCH * TRAIN_SEQ
-        extra = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ)
-    state.policy.cast_to_param(model)
+        shape = {"bert": BERT, "t5": T5}.get(kind, GPT2)
+        cfg = TransformerConfig(
+            **shape, hidden_dropout=0.0, attention_dropout=0.0,
+            compute_dtype=state.policy.compute_dtype,
+            **(dict(attn_mask_type=AttnMaskType.padding)
+               if kind == "bert" else {}))
+        if kind == "bert":
+            model = BertModel(cfg, device="cuda", generator=gen)
+            kernels = BERT_KERNELS
+            batch = _bert_batch(cfg, BERT_BATCH, BERT_SEQ, "cuda", seed=12)
+            positions = BERT_BATCH * BERT_SEQ
+            tokens = int(batch[1].sum())
+            extra = dict(batch=BERT_BATCH, seq=BERT_SEQ, valid_tokens=tokens)
+            forward = lambda: model(*batch)[0]  # noqa: E731
+            name = "bert-base"
+        elif kind == "t5":
+            model = EncoderDecoderModel(cfg, device="cuda", generator=gen)
+            kernels = T5_KERNELS
+            batch = _t5_batch(cfg, T5_BATCH, T5_ENC, T5_DEC, "cuda",
+                              seed=13)
+            positions = T5_BATCH * (T5_ENC + T5_DEC)
+            tokens = int(batch[3].sum()) + T5_BATCH * T5_DEC
+            extra = dict(batch=T5_BATCH, enc_seq=T5_ENC, dec_seq=T5_DEC,
+                         valid_tokens=tokens,
+                         enc_lengths=json.dumps(batch[3].tolist()).replace(
+                             " ", ""))
+            forward = lambda: model(batch[0], batch[1], batch[2],  # noqa
+                                    enc_lengths=batch[3])
+            name = "t5-base-widths enc-dec"
+        else:
+            model = GPTModel(cfg, device="cuda", generator=gen)
+            kernels = TRAIN_KERNELS
+            batch = _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, "cuda")
+            tokens = TRAIN_BATCH * TRAIN_SEQ
+            extra = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+            forward = lambda: model(*batch)  # noqa: E731
+            name = "gpt2-124m"
+        state.policy.cast_to_param(model)
+        if any(p.dtype != half for p in model.parameters()):
+            raise AssertionError(f"{phase}: params not all {half}")
+        n_params = sum(p.numel() for p in model.parameters())
+        if kind == "t5":
+            flops = enc_dec_train_flops(model, T5_BATCH, T5_ENC, T5_DEC)
+        else:
+            seq = BERT_SEQ if kind == "bert" else TRAIN_SEQ
+            flops = transformer_train_flops(
+                n_params, positions or tokens, shape["num_layers"],
+                shape["hidden_size"], seq, causal=kind != "bert")
+        opt = (FusedLAMB(model.parameters(), lr=1e-3, weight_decay=0.01,
+                         master_weights=True) if kind == "bert" else
+               FusedAdam(model.parameters(), lr=1e-4, master_weights=True))
+        name += f" amp O2 {str(half)[6:]} params"
     params = list(model.parameters())
-    if any(p.dtype != half for p in params):
-        raise AssertionError(f"{phase}: params not all {half}")
-    opt = (FusedLAMB(params, lr=1e-3, weight_decay=0.01, master_weights=True)
-           if kind == "bert" else
-           FusedAdam(params, lr=1e-4, master_weights=True))
     scaler, ss = state.scaler, [state.scaler_states[0]]
     fp16 = half == torch.float16
 
     def step(inject):
         opt.zero_grad(set_to_none=True)
-        loss = model(*batch)
-        if kind == "bert":
-            loss = loss[0]
+        loss = forward()
         amp.scale_loss(loss, ss[0]).backward()
         _zero_unused_grads(params)
         if inject:
@@ -3739,9 +4006,8 @@ def _train_amp(phase: str, half, profile: bool, kind: str = "gpt2") -> dict:
     def snapshot():
         out = list(params)
         for p in params:
-            st = opt.state.get(p, {})
-            out += [st[k] for k in ("master", "exp_avg", "exp_avg_sq",
-                                    "step") if k in st]
+            out += [v for v in opt.state.get(p, {}).values()
+                    if isinstance(v, torch.Tensor)]
         return out
 
     torch.cuda.synchronize()
@@ -3770,20 +4036,12 @@ def _train_amp(phase: str, half, profile: bool, kind: str = "gpt2") -> dict:
     sizes = [p.numel() for p in params]
     per_step = dict(kernels, **mt.optimizer_launches(
         sizes, "multi_tensor_scale"), **optimizer_launches_per_step(opt))
-    n_params = sum(sizes)
     natural = [i for i, f in enumerate(founds) if f and i != AMP_INJECT_STEP]
     applied = [i for i, f in enumerate(founds) if not f]
     fl = [float(x) for x in losses]
-    name = "bert-base" if kind == "bert" else "gpt2-124m"
-    _report_train(phase, f"{name} amp O2 {str(half)[6:]} params fp32 "
-                  "master random-init", fl, times, launches,
-                  peak, per_step, tokens,
-                  transformer_train_flops(n_params, positions,
-                                          shape["num_layers"],
-                                          shape["hidden_size"], seq,
-                                          causal=kind != "bert"),
-                  None if kind != "bert" else positions, **extra,
-                  n_params=n_params,
+    _report_train(phase, f"{name} fp32 master random-init", fl, times,
+                  launches, peak, per_step, tokens, flops, positions,
+                  unit=unit, **extra, n_params=sum(sizes),
                   injected_step=AMP_INJECT_STEP,
                   found_inf=json.dumps(founds).replace(" ", ""),
                   natural_overflow_steps=json.dumps(natural).replace(" ", ""),
@@ -3813,7 +4071,7 @@ def _train_amp(phase: str, half, profile: bool, kind: str = "gpt2") -> dict:
     report_optimizer(phase, opt, found)
     if profile:
         profile_device(phase, lambda: [step(False) for _ in range(2)],
-                       lambda: dict(steps=2, batch=extra["batch"], seq=seq))
+                       lambda: dict(steps=2, **extra))
     return launches
 
 
@@ -3843,6 +4101,30 @@ def phase_bert_train_fp16(profile: bool = False) -> dict:
     the scale halved each time, at least one step applied and the loss
     falling."""
     return _train_amp("bert_train_fp16", torch.float16, profile, "bert")
+
+
+def phase_t5_train_fp16(profile: bool = False) -> dict:
+    """``[t5_train_fp16]``: the encoder-decoder at ``[t5_train]``'s shape
+    (T5-base widths, 12 + 12 layers, b 16, encoder 512 with seeded
+    enc_lengths, decoder 114) under ``amp.initialize("O2",
+    half_dtype=torch.float16)``: fp16 params and compute, FusedAdam over
+    fp32 masters, a dynamic scale from 2^16 (``_train_amp``). Kernels A, D,
+    E, F, B and I in fp16 (LN 62/62, packed 24/24, 4D flash 12/12 a step),
+    unscale and Adam as the lists imply; the injected inf and every
+    natural one skipped bitwise, the scale halved each time, the loss
+    falling."""
+    return _train_amp("t5_train_fp16", torch.float16, profile, "t5")
+
+
+def phase_rn50_train_fp16(profile: bool = False) -> dict:
+    """``[rn50_train_fp16]``: ResNet-50 at ``[rn50_train]``'s shape (224
+    px, b 256, fused_conv, FusedSGD over fp32 masters) with
+    ``compute_dtype=torch.float16`` under amp O2's dynamic scale
+    (``_train_amp``): Kernels J and K 36 times a step and L and M 13 times
+    in fp16, SGD and unscale as the lists imply; cuDNN's stem and stride-2
+    convs in fp16; the injected inf and every natural one skipped
+    bitwise."""
+    return _train_amp("rn50_train_fp16", torch.float16, profile, "rn50")
 
 
 def phase_amp_card_vs_cpu() -> None:
@@ -3923,6 +4205,7 @@ def phase_amp_card_vs_cpu() -> None:
                 f"{atol} + rtol {rtol}")
     _amp_fp16_card_vs_cpu("gpt2")
     _amp_fp16_card_vs_cpu("bert")
+    _amp_fp16_card_vs_cpu("t5")
 
 
 #: losses of the fp16 amp flow, card against CPU (``_amp_fp16_card_vs_cpu``)
@@ -3935,9 +4218,11 @@ def _amp_fp16_card_vs_cpu(kind: str) -> None:
     scale from 2^16, an inf injected after the backward of step 2) runs 5
     steps on the card (its kernels in fp16, cuBLAS's fp16 GEMMs with fp32
     sums) and on the CPU (the kernels' plain versions): ``kind`` "gpt2",
-    the small GPT with FusedAdam lr 1e-3 (Kernels A, D, E and F), or
-    "bert", a small BERT with a seeded padding mask and FusedLAMB lr 1e-3,
-    weight decay 0.01 (Kernels A, D, G and H). Every parameter stays fp16,
+    the small GPT with FusedAdam lr 1e-3 (Kernels A, D, E and F), "bert",
+    a small BERT with a seeded padding mask and FusedLAMB lr 1e-3, weight
+    decay 0.01 (Kernels A, D, G and H), or "t5", a small encoder-decoder
+    (RMSNorm, ReLU) with seeded enc_lengths and FusedAdam lr 1e-3 (Kernels
+    A, D, E, F, B and I). Every parameter stays fp16,
     the scaler states agree at every step, and the losses within rtol
     ``AMP_FP16_LOSS_RTOL``. Both sides compute each op in fp32 and round
     it once to fp16, but sum in other orders, so a value near a rounding
@@ -3947,13 +4232,16 @@ def _amp_fp16_card_vs_cpu(kind: str) -> None:
     for the comparison (they round partial sums to fp16, which the CPU
     never does)."""
     from apex_tpu_torch import amp
-    from apex_tpu_torch.models import BertModel, GPTModel, TransformerConfig
+    from apex_tpu_torch.models import (BertModel, EncoderDecoderModel,
+                                       GPTModel, TransformerConfig)
     from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB
     from apex_tpu_torch.transformer.enums import AttnMaskType
     bert = kind == "bert"
-    cfg = TransformerConfig(
-        **SMALL, compute_dtype=torch.float16,
-        **(dict(attn_mask_type=AttnMaskType.padding) if bert else {}))
+    extra = {"bert": dict(attn_mask_type=AttnMaskType.padding),
+             "t5": dict(normalization="rmsnorm", activation="relu")}
+    cfg = TransformerConfig(**SMALL, compute_dtype=torch.float16,
+                            **extra.get(kind, {}))
+    make = {"bert": BertModel, "t5": EncoderDecoderModel}.get(kind, GPTModel)
     keep = torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction
     torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     out = {}
@@ -3962,20 +4250,26 @@ def _amp_fp16_card_vs_cpu(kind: str) -> None:
             state = amp.initialize("O2", half_dtype=torch.float16,
                                    device=device)
             gen = torch.Generator().manual_seed(2)
-            model = (BertModel if bert else GPTModel)(cfg, device=device,
-                                                      generator=gen)
+            model = make(cfg, device=device, generator=gen)
             state.policy.cast_to_param(model)
             params = list(model.parameters())
             opt = (FusedLAMB(params, lr=1e-3, weight_decay=0.01,
                              master_weights=True) if bert else
                    FusedAdam(params, lr=1e-3, master_weights=True))
             sc, ss = state.scaler, state.scaler_states[0]
-            batch = (_bert_batch(cfg, 4, 96, device, seed=5) if bert else
-                     _train_batch(cfg, 4, 96, device, seed=3))
+            if kind == "t5":
+                batch = _t5_batch(cfg, 4, 96, 40, device, seed=7)
+            elif bert:
+                batch = _bert_batch(cfg, 4, 96, device, seed=5)
+            else:
+                batch = _train_batch(cfg, 4, 96, device, seed=3)
             losses, walk = [], []
             for i in range(5):
                 opt.zero_grad(set_to_none=True)
-                loss = model(*batch)
+                if kind == "t5":
+                    loss = model(*batch[:3], enc_lengths=batch[3])
+                else:
+                    loss = model(*batch)
                 if bert:
                     loss = loss[0]
                 amp.scale_loss(loss, ss).backward()
@@ -4010,47 +4304,6 @@ def _amp_fp16_card_vs_cpu(kind: str) -> None:
             f"{hc} {hh}, losses {lc}")
 
 
-def phase_fp16_gates() -> None:
-    """Kernels I and J-M have no fp16 path yet: their wrappers raise
-    TypeError on fp16 card tensors before any launch (no counter moves)."""
-    from apex_tpu_torch.ops import LAUNCHES
-    from apex_tpu_torch.ops.attention import flash_bwd_cuda
-    from apex_tpu_torch.ops.conv_fused import (conv1x1_bwd_cuda,
-                                               conv1x1_fwd_cuda,
-                                               conv3x3_bwd_cuda,
-                                               conv3x3_fwd_cuda)
-    q = torch.zeros(1, 12, 64, 64, device="cuda", dtype=torch.float16)
-    lse = torch.zeros(1, 12, 64, device="cuda")
-    x = torch.zeros(64, 64, device="cuda", dtype=torch.float16)
-    x4 = x.reshape(1, 8, 8, 64)
-    w3 = torch.zeros(3, 3, 64, 64, device="cuda", dtype=torch.float16)
-    stats = torch.zeros(2, 64, device="cuda")
-    calls = {
-        "I": lambda: flash_bwd_cuda(q, q, q, q, q, lse, None, 0.125, True),
-        "J": lambda: conv1x1_fwd_cuda(x, None, None, x, None, False, False),
-        "K": lambda: conv1x1_bwd_cuda(x, None, None, x, None, x, x, stats,
-                                      False, False),
-        "L": lambda: conv3x3_fwd_cuda(x4, None, None, w3, None, False,
-                                      False),
-        "M": lambda: conv3x3_bwd_cuda(x4, None, None, w3, None, x4, x4,
-                                      stats, False, False),
-    }
-    before = dict(LAUNCHES)
-    raised = {}
-    for name, call in calls.items():
-        try:
-            call()
-            raised[name] = None
-        except TypeError as e:
-            raised[name] = "float16" in str(e)
-    torch.cuda.synchronize()
-    log("fp16_gates", raised=json.dumps(raised).replace(" ", ""),
-        launches_unchanged=LAUNCHES == before)
-    if not all(raised.values()) or LAUNCHES != before:
-        raise AssertionError(f"fp16 gates: {raised}, launches moved "
-                             f"{LAUNCHES != before}")
-
-
 #: the phase whose run is each kernel's main path
 MAIN_PATH = {"layer_norm_fwd": "serve", "flash_fwd": "serve",
              "paged_decode": "serve", "layer_norm_bwd": "train",
@@ -4072,7 +4325,12 @@ MAIN_PATH = {"layer_norm_fwd": "serve", "flash_fwd": "serve",
              "flash_fwd_fp16": "serve_fp16",
              "paged_decode_fp16": "serve_fp16",
              "softmax_fwd_fp16": "bert_train_fp16",
-             "softmax_bwd_fp16": "bert_train_fp16"}
+             "softmax_bwd_fp16": "bert_train_fp16",
+             "flash_bwd_fp16": "t5_train_fp16",
+             "conv1x1_fwd_fp16": "rn50_train_fp16",
+             "conv1x1_bwd_fp16": "rn50_train_fp16",
+             "conv3x3_fwd_fp16": "rn50_train_fp16",
+             "conv3x3_bwd_fp16": "rn50_train_fp16"}
 #: the launch counter of a record that names a variant of a kernel
 COUNTER = {"paged_decode_int8": "paged_decode",
            "paged_decode_window": "paged_decode",
@@ -4083,7 +4341,12 @@ COUNTER = {"paged_decode_int8": "paged_decode",
            "flash_fwd_fp16": "flash_fwd",
            "paged_decode_fp16": "paged_decode",
            "softmax_fwd_fp16": "softmax_fwd",
-           "softmax_bwd_fp16": "softmax_bwd"}
+           "softmax_bwd_fp16": "softmax_bwd",
+           "flash_bwd_fp16": "flash_bwd",
+           "conv1x1_fwd_fp16": "conv1x1_fwd",
+           "conv1x1_bwd_fp16": "conv1x1_bwd",
+           "conv3x3_fwd_fp16": "conv3x3_fwd",
+           "conv3x3_bwd_fp16": "conv3x3_bwd"}
 
 
 def main() -> int:
@@ -4106,9 +4369,8 @@ def main() -> int:
                *phase_flash(timer), *phase_decode(timer),
                phase_layer_norm_bwd(timer), phase_layer_norm_bwd_fp16(timer),
                *phase_packed(timer), *phase_softmax(timer),
-               phase_flash_bwd(timer), *phase_conv(timer),
+               *phase_flash_bwd(timer), *phase_conv(timer),
                *phase_multi_tensor(timer)]
-    phase_fp16_gates()
     paths = {"serve": phase_serve(args.profile)}
     for name, knobs, kind in SERVE_FEATURES:
         paths[name] = phase_serve_feature(name, knobs, kind, args.profile)
@@ -4126,8 +4388,10 @@ def main() -> int:
     paths["bert_train"] = phase_bert_train(args.profile)
     paths["bert_train_fp16"] = phase_bert_train_fp16(args.profile)
     paths["t5_train"] = phase_t5_train(args.profile)
+    paths["t5_train_fp16"] = phase_t5_train_fp16(args.profile)
     phase_enc_card_vs_cpu()
     paths["rn50_train"] = phase_rn50_train(args.profile)
+    paths["rn50_train_fp16"] = phase_rn50_train_fp16(args.profile)
     phase_rn50_card_vs_cpu()
     for rec in records:
         name = rec["name"]

@@ -35,13 +35,14 @@ Adam, LAMB and SGD) over lists with a 1-element tensor, one of ``CHUNK +
 mixed dtypes, per-tensor step counts, ``grad_scale``, a device ``lr`` and
 a ``found_inf`` step (scale, Adam, SGD bitwise their plain versions; the
 norms 1e-6 relative, LAMB rtol 1e-5), and the optimizers taking them on
-CUDA parameters. Kernels A-H also run in fp16: the LayerNorm tests, the
+CUDA parameters. Every kernel also runs in fp16: the LayerNorm tests, the
 packed cases, the 4D flash forward cases (bitwise repeatable), the paged
-decode cases with windows and int8 pools, and the softmax cases above in
-fp16, the 16-byte LayerNorm paths with fp16, fp32 or no weight into fp16
-or fp32 y (bitwise repeatable), Kernel H's fp16 overflow (non-finite at
-the plain version's elements), and the wrappers of I and J-M refusing
-fp16 before any launch.
+decode cases with windows and int8 pools, the softmax cases, the 4D flash
+backward cases and the conv cases above in fp16, the 16-byte LayerNorm
+paths with fp16, fp32 or no weight into fp16 or fp32 y (bitwise
+repeatable), and the fp16 overflows of Kernels H, I, K and M (non-finite
+at the plain versions' elements); the wrappers of I and J-M refuse
+float64 before any launch.
 Tolerances: f32 atol 1e-4 (summation order only, TF32 off; the softmax
 1e-5); bf16 and fp16 1 ulp of an fp32 reference rounded to that type (the
 flash backwards, which round ds and p to it where the JAX kernels do: 1
@@ -124,22 +125,23 @@ def one_ulp(want, dtype):
     return 2.0 ** -8 * eps + eps * want.float().abs()
 
 
-def assert_close_once_rounded(got, want):
+def assert_close_once_rounded(got, want, floor=None):
     """``want`` is the plain version run on the inputs cast to fp32 and
     rounded to ``got``'s dtype. The kernels also compute in fp32 and round
     once, so f32 differs by summation order only (atol 1e-4) and bf16 or
     fp16 by at most one rounding step: 1 ulp, i.e. 2^-7 (bf16) or 2^-10
-    (fp16) of the magnitude, with an absolute floor of 2^-15 or 2^-18
-    where the output is near zero. Non-finite values (an fp16 overflow)
-    must sit at the same elements."""
+    (fp16) of the magnitude, with an absolute floor (``floor``, by default
+    2^-15 or 2^-18) where the output is near zero. Non-finite values (an
+    fp16 overflow) must sit at the same elements."""
     if got.dtype == torch.float32:
         torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
     else:
         eps = torch.finfo(got.dtype).eps
         assert torch.equal(torch.isfinite(got), torch.isfinite(want))
         fin = torch.isfinite(want)
-        torch.testing.assert_close(got.float()[fin], want.float()[fin],
-                                   atol=2.0 ** -8 * eps, rtol=eps)
+        torch.testing.assert_close(
+            got.float()[fin], want.float()[fin],
+            atol=2.0 ** -8 * eps if floor is None else floor, rtol=eps)
 
 
 @pytest.fixture
@@ -492,26 +494,26 @@ def test_layer_norm_fp16_vector_paths(gen, name):
         assert (one is None and two is None) or torch.equal(one, two)
 
 
-def test_fp16_reaches_no_kernel_without_an_fp16_path(gen):
-    """Kernels I and J-M have no fp16 path yet: their wrappers raise
-    TypeError on fp16 card tensors before any launch."""
-    q = torch.randn(1, 2, 64, 64, device="cuda", generator=gen).half()
+def test_float64_reaches_no_kernel(gen):
+    """The wrappers of Kernels I and J-M take f32, bf16 and fp16: a float64
+    card tensor raises TypeError before any launch."""
+    q = torch.randn(1, 2, 64, 64, device="cuda", generator=gen).double()
     before = dict(_support.LAUNCHES)
-    with pytest.raises(TypeError, match="float16"):
+    with pytest.raises(TypeError, match="float64"):
         flash_bwd_cuda(q, q, q, q, q, torch.zeros(1, 2, 64, device="cuda"),
                        None, 0.125, True)
-    x = torch.randn(64, 32, device="cuda", generator=gen).half()
+    x = torch.randn(64, 32, device="cuda", generator=gen).double()
     w = x[:32]
     stats = torch.zeros(2, 32, device="cuda")
-    with pytest.raises(TypeError, match="float16"):
+    with pytest.raises(TypeError, match="float64"):
         conv1x1_fwd_cuda(x, None, None, w, None, False, False)
-    with pytest.raises(TypeError, match="float16"):
+    with pytest.raises(TypeError, match="float64"):
         conv1x1_bwd_cuda(x, None, None, w, None, x, x, stats, False, False)
     x4 = x.reshape(1, 8, 8, 32)
-    w3 = torch.randn(3, 3, 32, 32, device="cuda", generator=gen).half()
-    with pytest.raises(TypeError, match="float16"):
+    w3 = torch.randn(3, 3, 32, 32, device="cuda", generator=gen).double()
+    with pytest.raises(TypeError, match="float64"):
         conv3x3_fwd_cuda(x4, None, None, w3, None, False, False)
-    with pytest.raises(TypeError, match="float16"):
+    with pytest.raises(TypeError, match="float64"):
         conv3x3_bwd_cuda(x4, None, None, w3, None, x4, x4, stats, False,
                          False)
     assert _support.LAUNCHES == before
@@ -823,13 +825,14 @@ def assert_close_up_to_factor_rounding(got, want, slack):
     assert float((err > ulp).float().mean()) <= share
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("name", list(FLASH_BWD))
 def test_flash_bwd_kernel(gen, name, dtype):
     """Kernel I against the plain backward on the same inputs: the plain
     version rounds ds and p to the input dtype where the JAX kernels do,
-    computes in fp32 and rounds once at the end. f32 atol 1e-4; bf16 see
-    :func:`assert_close_up_to_factor_rounding`."""
+    computes in fp32 and rounds once at the end. f32 atol 1e-4; bf16 and
+    fp16 see :func:`assert_close_up_to_factor_rounding`."""
     b, h, kvh, sq, sk, d, causal, kvl, window = FLASH_BWD[name]
     q = torch.randn(b, h, sq, d, device="cuda", generator=gen).to(dtype)
     k = torch.randn(b, kvh, sk, d, device="cuda", generator=gen).to(dtype)
@@ -913,12 +916,22 @@ CONV_OPS = {"1x1": (conv1x1_fwd_cuda, conv1x1_fwd_plain, conv1x1_bwd_cuda,
                     conv3x3_bwd_plain)}
 
 
+#: the absolute floor of the conv kernels' 16-bit checks: bf16's 2^-15 in
+#: fp16 too. y and dx are fp32 sums over 64 to 4,608 products (K, or 9 K,
+#: channels), and two summation orders of the same unit-scale products
+#: differ by fp32 noise of up to ~2^-16 at the largest of millions of
+#: elements (a 2,048-deep one), past fp16's 2^-18 floor though far inside
+#: bf16's; values above 2^-5 are held to 1 fp16 ulp as everywhere
+CONV_FLOOR = 2.0 ** -15
+
+
 def _norm_rel(got, want):
     g, w = got.float(), want.float()
     return float((g - w).norm() / w.norm().clamp_min(1e-30))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("affine,relu", [(False, False), (True, False),
                                          (True, True)])
 @pytest.mark.parametrize("name", list(CONV))
@@ -945,8 +958,8 @@ def test_conv_kernels(gen, name, affine, relu, dtype):
     want = bwd_p(x, a, b, w, c, ry, dy, ds, affine, relu)
     again = bwd_c(x, a, b, w, c, ry, dy, ds, affine, relu)
     for g, h in ((y, ry), (got[0], want[0])):
-        if dtype == torch.bfloat16:
-            assert_close_once_rounded(g, h)
+        if dtype != torch.float32:
+            assert_close_once_rounded(g, h, floor=CONV_FLOOR)
         else:
             assert _norm_rel(g, h) <= 1e-5
     for g, h in ((st, rst), (got[1], want[1]), (got[2], want[2])):
@@ -957,6 +970,58 @@ def test_conv_kernels(gen, name, affine, relu, dtype):
     assert torch.equal(y2, y) and torch.equal(st2, st)
     assert all((g is None and h is None) or torch.equal(g, h)
                for g, h in zip(again, got))
+
+
+def test_fp16_flash_bwd_overflows_where_the_plain_version_does(gen):
+    """Kernel I in fp16 with do at 2^12 and v at 2^6 (dp = do v^T reaches
+    ~10^6, so ds rounds to inf wherever p is not small): dq and dk take
+    the infs, and dq, dk and dv are non-finite at the plain version's
+    elements (dv = p^T do, at most ~10^4 here, stays finite); the row with
+    kv_length 0 stays zero."""
+    b, h, kvh, sq, sk, d, causal, kvl, window = FLASH_BWD[
+        "cross_zero_length"]
+    q, k = (torch.randn(s, device="cuda", generator=gen).half()
+            for s in ((b, h, sq, d), (b, kvh, sk, d)))
+    v = (64.0 * torch.randn(b, kvh, sk, d, device="cuda",
+                            generator=gen)).half()
+    do = (4096.0 * torch.randn(b, h, sq, d, device="cuda",
+                               generator=gen)).half()
+    kvl = torch.tensor(kvl, device="cuda")
+    o, lse = flash_fwd_cuda(q, k, v, kvl, 0.125, causal, window)
+    got = flash_bwd_cuda(q, k, v, do, o, lse, kvl, 0.125, causal, window)
+    want = flash_bwd_plain(q, k, v, do, o, lse, kvl, 0.125, causal, window)
+    assert not torch.isfinite(want[0]).all()
+    assert not torch.isfinite(want[1]).all()
+    for g, w in zip(got, want):
+        assert torch.equal(torch.isfinite(g), torch.isfinite(w))
+        assert not g[2].any()
+
+
+@pytest.mark.parametrize("name", ["1x1_tail", "3x3_odd"])
+def test_fp16_conv_bwd_overflows_where_the_plain_version_does(gen, name):
+    """Kernels K and M in fp16 with dy at 2^13 (finite) and the stats
+    cotangent's ds1 at 2^14: dy_eff = dy + ds0 + 2 (y - c) ds1, formed in
+    fp32, rounds to inf past 65504, and dx, dW, da and db are non-finite at
+    the plain version's elements."""
+    kind, x_shape, w_shape = CONV[name]
+    _, fwd_p, bwd_c, bwd_p = CONV_OPS[kind]
+    k, n = w_shape[-2], w_shape[-1]
+    rnd = lambda *shape: torch.randn(shape, device="cuda",  # noqa: E731
+                                     generator=gen)
+    x = rnd(*x_shape).half()
+    w = (rnd(*w_shape) * (k * (9 if kind == "3x3" else 1)) ** -0.5).half()
+    a = torch.rand(k, device="cuda", generator=gen) + 0.5
+    b = rnd(k)
+    c = 0.1 * rnd(n)
+    dy = (8192.0 * rnd(*x_shape[:-1], n)).half()
+    ds = torch.stack([0.1 * rnd(n), 16384.0 * rnd(n)])
+    y, _ = fwd_p(x, a, b, w, c, True, True)
+    assert torch.isfinite(dy).all()
+    got = bwd_c(x, a, b, w, c, y, dy, ds, True, True)
+    want = bwd_p(x, a, b, w, c, y, dy, ds, True, True)
+    for g, h in zip(got, want):
+        assert not torch.isfinite(h).all()
+        assert torch.equal(torch.isfinite(g), torch.isfinite(h))
 
 
 def test_conv_autograd_launches_each_kernel_once(gen):

@@ -1,10 +1,10 @@
-"""fp16 (``torch.float16``) in the port's Kernels A-H, against the JAX
-package on the CPU, and the dtype gates of the kernels without it.
+"""fp16 (``torch.float16``) in the port's Kernels A-M, against the JAX
+package on the CPU, and the dtype gates of the kernels.
 
 - The gates: ``dtype_code`` takes fp16 with the code of ``kF16`` in
-  ``csrc/common.cuh``; the wrappers of Kernels I-M refuse fp16 with a
-  TypeError before any launch, and those of A-H let it through to their
-  launch (a stub build stops them there).
+  ``csrc/common.cuh``; the wrappers of Kernels A-M let fp16 through to
+  their launch (a stub build stops them there), and refuse float64 with a
+  TypeError before any launch.
 - Kernels A and D: the plain versions in fp16 (x in fp16; w and b in
   fp16, in fp32 or absent; y in fp16 or promoted to fp32) against the JAX
   ``_norm`` forward and its vjp with the Pallas kernels in interpret mode,
@@ -43,6 +43,21 @@ package on the CPU, and the dtype gates of the kernels without it.
   within E's bar; its fp16 p plan (p scaled by 2^14 and split into hi +
   lo) emulated at the serve prefill's s 768 and at the T5 cross shape,
   within 1 fp16 ulp, where one fp16 p is not.
+- Kernel I: the plain backward in fp16 against ``_flash_vjp_bwd`` in
+  interpret mode on the same residuals (the single-block kernel at a
+  T5-like cross shape with a 0 length; the two-pass kernels causal, and
+  with GQA and a window), within 1 fp16 ulp plus
+  ``flash_bwd_rounding_slack`` with at most 0.8% of the elements past 1
+  ulp (the card's bar); a cotangent scaled so that ds overflows fp16,
+  where the non-finite masks agree; the plain backward and the slack
+  follow the dtype (ds and p rounded to fp16, steps of 2^-11); and
+  Kernel I's fp16 rounding plan emulated at one T5 cross head.
+- Kernels J-M: the plain versions in fp16 against the JAX kernels
+  (``_fwd_pallas``, ``_bwd_pallas``, ``_c3_fwd_pallas``,
+  ``_c3_bwd_pallas``) in interpret mode on the same residuals, with and
+  without the input affine and relu: y and dx within 1 fp16 ulp, the fp32
+  sums (stats, dW, da, db) within 1e-5 norm-wise; a stats cotangent that
+  makes dy_eff overflow fp16, where the non-finite masks agree.
 
 "1 fp16 ulp" is ``2^-18 + 2^-10 |want|``: one rounding step of 2^-10 of
 the magnitude with the same 2^-8 magnitude floor as the bf16 checks
@@ -77,6 +92,8 @@ from apex_tpu_torch.ops.attention import (
     drop_combo,
     flash_bwd_cuda,
     flash_bwd_factors,
+    flash_bwd_plain,
+    flash_bwd_rounding_slack,
     flash_fwd_cuda,
     flash_fwd_plain,
     flash_packed_bwd_cuda,
@@ -87,11 +104,18 @@ from apex_tpu_torch.ops.attention import (
     hash_keep,
     rounding_step,
 )
+from apex_tpu.ops import conv_fused as jcf
 from apex_tpu_torch.ops.conv_fused import (
+    conv1x1_bn_act,
     conv1x1_bwd_cuda,
+    conv1x1_bwd_plain,
     conv1x1_fwd_cuda,
+    conv1x1_fwd_plain,
+    conv3x3_bn_act,
     conv3x3_bwd_cuda,
+    conv3x3_bwd_plain,
     conv3x3_fwd_cuda,
+    conv3x3_fwd_plain,
 )
 from apex_tpu_torch.ops.decode_attention import (
     fused_paged_decode_attention,
@@ -165,14 +189,15 @@ def test_dtype_codes_match_common_cuh():
     enum = re.search(r"enum DType : int \{([^}]*)\}", COMMON_CUH.read_text())
     codes = {k.strip(): int(v) for k, v in
              (item.split("=") for item in enum.group(1).split(","))}
-    allowed = _support.F32_BF16_F16
-    assert _support.dtype_code(torch.float16, allowed, "X") == codes["kF16"]
-    assert _support.dtype_code(torch.bfloat16, allowed, "X") == codes["kBF16"]
-    assert _support.dtype_code(torch.float32, allowed, "X") == codes["kF32"]
-    with pytest.raises(TypeError, match="not yet ported"):
-        _support.dtype_code(torch.float16, _support.F32_BF16, "Kernel X")
-    with pytest.raises(TypeError, match="Kernel X takes"):
-        _support.dtype_code(torch.float64, allowed, "Kernel X")
+    assert _support.dtype_code(torch.float16, "X") == codes["kF16"]
+    assert _support.dtype_code(torch.bfloat16, "X") == codes["kBF16"]
+    assert _support.dtype_code(torch.float32, "X") == codes["kF32"]
+    assert set(_support._DTYPE_CODES) == {torch.float32, torch.bfloat16,
+                                         torch.float16}
+    for dtype in (torch.float64, torch.int32, torch.int8):
+        with pytest.raises(TypeError, match=f"Kernel X takes .* got "
+                                            f"{dtype}"):
+            _support.dtype_code(dtype, "Kernel X")
 
 
 def _t(*shape, dtype=F16):
@@ -240,19 +265,20 @@ def stub_build(monkeypatch):
     monkeypatch.setattr(_build, "library", library)
 
 
-@pytest.mark.parametrize("kernel", ["I", "J", "K", "L", "M"])
-def test_kernels_without_fp16_refuse_it(stub_build, kernel):
-    with pytest.raises(TypeError, match="float16 is not yet ported"):
-        GATED[kernel](F16)
-    with pytest.raises(_Launched):       # bf16 still reaches the launch
-        GATED[kernel](torch.bfloat16)
-
-
-@pytest.mark.parametrize("kernel", ["A", "B", "C", "D", "E", "F", "G",
-                                    "H"])
+@pytest.mark.parametrize("kernel", sorted(GATED))
 def test_kernels_with_fp16_take_it(stub_build, kernel):
     with pytest.raises(_Launched):
         GATED[kernel](F16)
+    with pytest.raises(_Launched):
+        GATED[kernel](torch.bfloat16)
+
+
+@pytest.mark.parametrize("kernel", sorted(GATED))
+def test_kernels_refuse_float64_before_any_launch(stub_build, kernel):
+    before = dict(_support.LAUNCHES)
+    with pytest.raises(TypeError, match="float64"):
+        GATED[kernel](torch.float64)
+    assert _support.LAUNCHES == before
 
 
 @pytest.mark.parametrize("x,others", [
@@ -1127,3 +1153,351 @@ def test_flash_autograd_forward_keeps_fp16():
         B_INTERPRET["single_causal"][0], seed=10)
     o = tatt.flash_attention(q, k, v, causal=causal, kv_lengths=kvl)
     assert o.dtype == F16 and torch.isfinite(o).all()
+
+
+# ---------------------------------------------------------------------------
+# Kernel I: the plain backward in fp16 against the JAX interpret kernels, and
+# its fp16 rounding plan emulated on the CPU
+# ---------------------------------------------------------------------------
+
+I_INTERPRET = {
+    # name: ((b, h, kvh, sq, sk, d, causal, kv_lengths, window), blocks):
+    # the single-block `_dqkv_single_kernel` at a T5-like cross-attention
+    # (kv_lengths with a 0 row), the two-pass `_dq_kernel` + `_dkv_kernel`
+    # over 64-row blocks causal with the sk - sq offset, and with GQA and a
+    # sliding window
+    "t5_cross_kv_lengths_zero": ((3, 2, 2, 38, 128, 64, False, [128, 70, 0],
+                                  None), {}),
+    "causal_offset": ((1, 4, 4, 72, 130, 64, True, None, None),
+                      dict(block_q=64, block_k=64)),
+    "gqa_window": ((1, 8, 2, 160, 160, 64, True, None, 40),
+                   dict(block_q=64, block_k=64)),
+}
+
+
+def _i_inputs(case, seed, do_scale=1.0, v_scale=1.0):
+    """fp16 q, k, v (times ``v_scale``) and do (times ``do_scale``), the
+    port's forward residuals o and lse, and ``(kv_lengths, scale, causal,
+    window)``."""
+    q, k, v, args = _b_inputs(case, seed)
+    rng = np.random.RandomState(seed + 100)
+    v = (v.float() * v_scale).half()
+    do = torch.from_numpy((rng.randn(*q.shape) * do_scale).astype(
+        np.float32)).half()
+    o, lse = flash_fwd_plain(q, k, v, *args)
+    return q, k, v, do, o, lse, args
+
+
+def _i_run(name, seed, do_scale=1.0, v_scale=1.0):
+    """The JAX kernels' backward (``_flash_vjp_bwd`` in interpret mode) and
+    the port's plain backward in fp16 on the same residuals (the port's o
+    and lse): (jax, port, slack) as lists of fp32 numpy (dq, dk, dv)."""
+    case, blocks = I_INTERPRET[name]
+    q, k, v, do, o, lse, args = _i_inputs(case, seed, do_scale, v_scale)
+    kvl, scale, causal, window = args
+    sq, sk = q.shape[2], k.shape[2]
+    block_q, block_k = jatt._auto_blocks(blocks.get("block_q"),
+                                         blocks.get("block_k"), sk)
+    bq = min(block_q, jatt.round_up(sq, 8))
+    bk = min(block_k, jatt.round_up(sk, 128))
+    j16 = lambda t: jnp.asarray(_f32(t), jnp.float16)  # noqa: E731
+    res = (j16(q), j16(k), j16(v),
+           None if kvl is None else jnp.asarray(kvl.numpy()), j16(o),
+           jnp.asarray(lse.numpy()))
+    want = jatt._flash_vjp_bwd(scale, causal, bq, bk, window, res,
+                               j16(do))[:3]
+    assert all(t.dtype == jnp.float16 for t in want)
+    got = flash_bwd_plain(q, k, v, do, o, lse, *args)
+    assert all(t.dtype == F16 for t in got)
+    slack = flash_bwd_rounding_slack(q, k, v, do, o, lse, *args)
+    return ([_f32(t) for t in want], [_f32(t) for t in got],
+            [t.numpy() for t in slack])
+
+
+@pytest.mark.parametrize("name", list(I_INTERPRET))
+def test_flash_bwd_fp16_matches_jax_interpret_kernels(jax_mode, name):
+    """Both round ds and p to fp16 where the JAX kernels do: dq, dk and dv
+    within 1 fp16 ulp plus ``flash_bwd_rounding_slack``, at most 0.8% of
+    the elements past 1 ulp (the card's fp16 bar: against the same fp32
+    differences, fp16's 2^3 finer spacing puts 2^3 bf16's share of ds on a
+    rounding boundary); a batch row with kv_length 0 gets zero
+    gradients."""
+    jax_mode("interpret")
+    want, got, slack = _i_run(name, seed=11)
+    for n, w, g, sl in zip(("dq", "dk", "dv"), want, got, slack):
+        _check_fp16(n, w, g, sl, max_past_ulp=8e-3)
+    kvl = I_INTERPRET[name][0][7]
+    if kvl is not None and 0 in kvl:
+        assert not any(g[kvl.index(0)].any() for g in got)
+
+
+@pytest.mark.parametrize("name", ["t5_cross_kv_lengths_zero"])
+def test_flash_bwd_fp16_overflow_masks_match_jax(jax_mode, name):
+    """do at 2^12 and v at 2^6 make dp = do v^T reach ~10^6: ds rounds to
+    inf in fp16 wherever p is not small, and dq and dk take it (inf, or
+    NaN where infs of both signs meet), as do the dv of rows whose p
+    times do passes 65504. The plain backward and the JAX kernels give
+    non-finite values at the same elements; a row with kv_length 0 stays
+    zero."""
+    jax_mode("interpret")
+    want, got, _ = _i_run(name, seed=12, do_scale=2.0 ** 12,
+                          v_scale=2.0 ** 6)
+    assert not np.isfinite(want[0]).all()
+    for w, g in zip(want, got):
+        assert np.array_equal(np.isfinite(w), np.isfinite(g))
+    kvl = I_INTERPRET[name][0][7]
+    if kvl is not None and 0 in kvl:
+        assert not any(g[kvl.index(0)].any() for g in got)
+
+
+def test_flash_bwd_plain_and_slack_follow_fp16():
+    """In fp16 the plain backward rounds ds and p to fp16 (not bf16)
+    before their products, and the slack counts fp16 steps: 2^-11 of
+    |ds| and |p|, at least fp16's subnormal spacing 2^-24."""
+    case, _ = I_INTERPRET["t5_cross_kv_lengths_zero"]
+    q, k, v, do, o, lse, args = _i_inputs(case, seed=13)
+    scale = args[1]
+    p, ds = flash_bwd_factors(q, k, v, do, o, lse, *args)
+    group = q.shape[1] // k.shape[1]
+    kr = k.float().repeat_interleave(group, dim=1)
+    dq, dk, dv = flash_bwd_plain(q, k, v, do, o, lse, *args)
+    want = (scale * torch.einsum("bhqk,bhkd->bhqd", ds.half().float(),
+                                 kr)).half()
+    assert torch.equal(dq, want)
+    slack = flash_bwd_rounding_slack(q, k, v, do, o, lse, *args)
+    step = torch.clamp_min(ds.abs() * 2.0 ** -11, 2.0 ** -24)
+    torch.testing.assert_close(
+        slack[0], scale * torch.einsum("bhqk,bhkd->bhqd", step, kr.abs()),
+        rtol=1e-6, atol=0)
+    b, kvh, sk, d = k.shape
+    pstep = torch.clamp_min(p.abs() * 2.0 ** -11, 2.0 ** -24)
+    want_dv = torch.einsum("bhqk,bhqd->bhkd", pstep, do.float().abs())
+    torch.testing.assert_close(
+        slack[2], want_dv.reshape(b, kvh, group, sk, d).sum(2), rtol=1e-6,
+        atol=0)
+
+
+def _kernel_i_fp16_emulation(q, k, v, do, o, lse, kv_lengths, scale,
+                             causal, window, tile=64):
+    """Kernel I's fp16 arithmetic over ``[b, h, s, d]``: delta =
+    rowsum(do * o); the dq pass over ``tile``-key tiles and the dk/dv pass
+    over ``tile``-query tiles each recompute the fp32 scores and dp, p =
+    2^((scale s - lse) log2 e) (0 where masked), ds = p (dp - delta), and
+    round ds and p to fp16 before their products, summed over tiles in
+    fp32; dk and dv summed over a group's query heads before the one
+    rounding. Returns ``(dq, dk, dv)`` in fp16."""
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    group = h // kvh
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    delta = (dof * o.float()).sum(-1)
+    valid = _visible(sq, sk, kv_lengths, causal, window, "cpu")
+
+    def factors(rows, cols):
+        x = torch.einsum("bhqd,bhkd->bhqk", qf[:, :, rows],
+                         kf[:, :, cols]) * scale
+        x = torch.where(valid[:, :, rows, cols], x - lse[:, :, rows, None],
+                        torch.tensor(-1e30))
+        p = torch.exp2(x * 1.4426950408889634)
+        dp = torch.einsum("bhqd,bhkd->bhqk", dof[:, :, rows], vf[:, :, cols])
+        ds = p * (dp - delta[:, :, rows, None])
+        return p.half().float(), ds.half().float()
+
+    dq = torch.zeros_like(qf)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for c0 in range(0, sk, tile):                          # the dq pass
+        cols = slice(c0, c0 + tile)
+        _, ds = factors(slice(0, sq), cols)
+        dq = dq + ds @ kf[:, :, cols]
+    for r0 in range(0, sq, tile):                          # the dk/dv pass
+        rows = slice(r0, r0 + tile)
+        p, ds = factors(rows, slice(0, sk))
+        dk = dk + ds.transpose(2, 3) @ qf[:, :, rows]
+        dv = dv + p.transpose(2, 3) @ dof[:, :, rows]
+    grp = lambda t: t.reshape(b, kvh, group, sk, d).sum(2)  # noqa: E731
+    return ((dq * scale).half(), grp(dk * scale).half(), grp(dv).half())
+
+
+def test_kernel_i_fp16_rounding_plan_holds_one_ulp():
+    """ds and p formed per 64-wide tile in fp32 and rounded to fp16 once
+    each, as Kernel I's fp16 path does, keep dq, dk and dv at one head of
+    the T5 cross-attention (114 queries over 512 keys, kv_lengths with a
+    0 row) within 1 fp16 ulp of the plain version plus
+    ``flash_bwd_rounding_slack``, with at most 0.1% of the elements past
+    1 ulp; the row with kv_length 0 gets zero gradients."""
+    q, k, v, args = _b_inputs(B_ROUNDING["t5_cross_one_head"], seed=14)
+    rng = np.random.RandomState(15)
+    do = torch.from_numpy(rng.randn(*q.shape).astype(np.float32)).half()
+    o, lse = flash_fwd_plain(q, k, v, *args)
+    want = flash_bwd_plain(q, k, v, do, o, lse, *args)
+    slack = flash_bwd_rounding_slack(q, k, v, do, o, lse, *args)
+    got = _kernel_i_fp16_emulation(q, k, v, do, o, lse, *args)
+    for n, w, g, sl in zip(("dq", "dk", "dv"), want, got, slack):
+        _check_fp16(n, _f32(w), _f32(g), sl.numpy(), max_past_ulp=1e-3)
+    assert not any(g[2].any() for g in got)
+
+
+def test_flash_autograd_backward_keeps_fp16():
+    q, k, v, (kvl, _, causal, window) = _b_inputs(
+        B_INTERPRET["single_kv_lengths_with_zero"][0], seed=16)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    o = tatt.flash_attention(q, k, v, causal=causal, kv_lengths=kvl)
+    o.float().sum().backward()
+    for t in (q, k, v):
+        assert t.grad.dtype == F16 and torch.isfinite(t.grad).all()
+    assert not q.grad[2].any() and not k.grad[2].any()
+
+
+# ---------------------------------------------------------------------------
+# Kernels J-M: the plain versions in fp16 against the JAX interpret kernels
+# ---------------------------------------------------------------------------
+
+#: kind -> (x shape, w shape, JAX forward and backward kernels, the port's
+#: plain forward and backward): a 1x1 over a ragged row count (M = 200) and
+#: a 3x3 over three odd-sized images, as tests/test_torch_conv_fused.py
+CONV16 = {
+    "1x1": ((200, 64), (64, 96), jcf._fwd_pallas, jcf._bwd_pallas,
+            conv1x1_fwd_plain, conv1x1_bwd_plain),
+    "3x3": ((3, 5, 9, 16), (3, 3, 16, 32), jcf._c3_fwd_pallas,
+            jcf._c3_bwd_pallas, conv3x3_fwd_plain, conv3x3_bwd_plain),
+}
+
+
+def _conv16_inputs(kind, affine, seed, dy_scale=1.0, ds1_scale=0.01):
+    """fp16 x, w and dy (times ``dy_scale``); fp32 a, b (with the affine),
+    the shift c and the stats cotangent ds (its ds1 row times
+    ``ds1_scale``)."""
+    x_shape, w_shape = CONV16[kind][:2]
+    rng = np.random.RandomState(seed)
+    k, n = w_shape[-2], w_shape[-1]
+    fan_in = int(np.prod(w_shape[:-1]))
+    x = torch.from_numpy(rng.randn(*x_shape).astype(np.float32)).half()
+    w = torch.from_numpy((rng.randn(*w_shape) * fan_in ** -0.5).astype(
+        np.float32)).half()
+    a = torch.from_numpy((rng.rand(k) + 0.5).astype(np.float32))
+    b = torch.from_numpy(rng.randn(k).astype(np.float32))
+    c = torch.from_numpy((0.1 * rng.randn(n)).astype(np.float32))
+    dy = torch.from_numpy((dy_scale * rng.randn(*x_shape[:-1], n)).astype(
+        np.float32)).half()
+    ds = np.stack([0.01 * rng.randn(n), ds1_scale * rng.randn(n)])
+    ds = torch.from_numpy(ds.astype(np.float32))
+    if not affine:
+        a = b = None
+    return x, w, a, b, c, dy, ds
+
+
+def _conv16_slack(kind, x, a, b, w, c, y, dy, ds, affine, relu):
+    """How far one fp16 rounding step of each z and each dy_eff can move y
+    and dx: ``sum step(z) |w|`` and ``sum step(dy_eff) |w|^T |a|`` in fp32
+    (the plain versions run on the steps, in fp32, with no relu mask).
+    XLA on the CPU contracts the JAX kernels' ``x * a + b`` into one fused
+    multiply-add (the last fp32 bit of about a quarter of z differs from
+    two roundings), and the port, like the CUDA kernels, rounds twice, as
+    the JAX source writes it: a z or dy_eff on an fp16 rounding boundary
+    may then round to neighbouring values on the two sides."""
+    _, _, _, _, pfwd, pbwd = CONV16[kind]
+    x32, w32, y32 = x.float(), w.float().abs(), y.float()
+    z = x32 if not affine else x32 * a + b
+    if relu:
+        z = z.clamp_min(0.0)
+    zero = torch.zeros_like(c)
+    y_slack, _ = pfwd(rounding_step(z, F16), None, None, w32, zero, False,
+                      False)
+    d = (dy.float() + ds[0]) + 2.0 * (y32 - c) * ds[1]
+    dx_slack, _, _ = pbwd(x32, a.abs() if affine else None,
+                          b if affine else None, w32, c,
+                          torch.zeros_like(y32), rounding_step(d, F16),
+                          torch.zeros_like(ds), affine, False)
+    return y_slack.numpy(), dx_slack.numpy()
+
+
+def _conv16_run(kind, affine, relu, seed, **scales):
+    """The JAX kernels in interpret mode and the port's plain versions on
+    the same fp16 inputs, the backward of both on JAX's y: ``(jax, port,
+    slack)``, the first two lists of fp32 numpy ``(y, stats, dx, dw,
+    dab)`` (dab None without the affine), the slack of y and dx
+    (:func:`_conv16_slack`)."""
+    _, _, jfwd, jbwd, pfwd, pbwd = CONV16[kind]
+    x, w, a, b, c, dy, ds = _conv16_inputs(kind, affine, seed, **scales)
+    j = lambda t: jnp.asarray(_f32(t), t.dtype == F16 and jnp.float16  # noqa
+                              or jnp.float32)
+    zeros = jnp.zeros((1,), jnp.float32)
+    ja, jb = (j(a), j(b)) if affine else (zeros, zeros)
+    jx = j(x).reshape(-1, x.shape[-1]) if kind == "1x1" else j(x)
+    jy, js = jfwd(jx, ja, jb, j(w), j(c), affine=affine, relu=relu)
+    jdx, jdw, jdab = jbwd(jx, ja, jb, j(w), j(c), jy, j(dy), j(ds),
+                          affine=affine, relu=relu)
+    assert jy.dtype == jnp.float16 and jdx.dtype == jnp.float16
+    y, st = pfwd(x, a, b, w, c, affine, relu)
+    yj = torch.from_numpy(_f32(jy).copy()).half().reshape(y.shape)
+    dx, dw, dab = pbwd(x, a, b, w, c, yj, dy, ds, affine, relu)
+    assert y.dtype == F16 and dx.dtype == F16
+    want = [_f32(jy), _f32(js), _f32(jdx), _f32(jdw),
+            _f32(jdab) if affine else None]
+    got = [_f32(t) for t in (y, st, dx, dw)] + [
+        _f32(dab) if affine else None]
+    want = [None if t is None else t.reshape(g.shape)
+            for t, g in zip(want, got)]
+    return want, got, _conv16_slack(kind, x, a, b, w, c, yj, dy, ds, affine,
+                                    relu)
+
+
+def _rel_norm(got, want):
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want),
+                                                  1e-30))
+
+
+@pytest.mark.parametrize("affine,relu", [(False, False), (True, True)])
+@pytest.mark.parametrize("kind", list(CONV16))
+def test_conv_fp16_matches_jax_interpret_kernels(jax_mode, kind, affine,
+                                                 relu):
+    """y and dx within 1 fp16 ulp plus :func:`_conv16_slack` (one fp16
+    step of each z and dy_eff carried through the product), with at most
+    0.1% of the elements past 1 ulp: both form z and dy_eff in fp32, round
+    them to fp16, sum the products in fp32 in other orders and round once.
+    Stats, dW, da and db (fp32 sums) within 1e-5 norm-wise."""
+    jax_mode("interpret")
+    want, got, (y_slack, dx_slack) = _conv16_run(kind, affine, relu,
+                                                 seed=17)
+    _check_fp16("y", want[0], got[0], y_slack, max_past_ulp=1e-3)
+    _check_fp16("dx", want[2], got[2], dx_slack, max_past_ulp=1e-3)
+    for name, i in (("stats", 1), ("dw", 3), ("dab", 4)):
+        if want[i] is None:
+            continue
+        assert _rel_norm(got[i], want[i]) <= 1e-5, (name, _rel_norm(
+            got[i], want[i]))
+
+
+@pytest.mark.parametrize("kind", ["1x1"])
+def test_conv_fp16_dy_eff_overflow_masks_match_jax(jax_mode, kind):
+    """dy at 2^13 (finite in fp16) and the stats cotangent's ds1 at 2^14:
+    dy_eff = dy + ds0 + 2 (y - c) ds1, formed in fp32, passes 65504 and
+    rounds to inf. dx, dW, da and db are non-finite at the same elements
+    on both sides."""
+    jax_mode("interpret")
+    want, got, _ = _conv16_run(kind, True, True, seed=18,
+                               dy_scale=2.0 ** 13, ds1_scale=2.0 ** 14)
+    assert not np.isfinite(want[2]).all()
+    for name, w, g in zip(("dx", "dw", "dab"), want[2:], got[2:]):
+        assert np.array_equal(np.isfinite(w), np.isfinite(g)), name
+
+
+@pytest.mark.parametrize("op,x_shape,w_shape", [
+    (conv1x1_bn_act, (2, 5, 5, 24), (24, 40)),
+    (conv3x3_bn_act, (2, 5, 5, 24), (3, 3, 24, 40))])
+def test_conv_autograd_keeps_fp16(op, x_shape, w_shape):
+    rng = np.random.RandomState(19)
+    x = torch.from_numpy(rng.randn(*x_shape).astype(np.float32)).half()
+    w = torch.from_numpy(0.1 * rng.randn(*w_shape).astype(np.float32)).half()
+    a = torch.rand(24) + 0.5
+    b = torch.randn(24)
+    for t in (x, w, a, b):
+        t.requires_grad_()
+    y, s = op(x, w, a, b, relu=True)
+    assert y.dtype == F16 and s.dtype == torch.float32
+    (y.float().square().sum() + s.sum()).backward()
+    assert x.grad.dtype == F16 and w.grad.dtype == F16
+    assert a.grad.dtype == torch.float32
+    assert all(torch.isfinite(t.grad).all() for t in (x, w, a, b))

@@ -1,5 +1,6 @@
 """fp16 models of the port against the JAX package on the CPU: serving a
-GPT in fp16, and BERT trained under amp O2 in fp16 with FusedLAMB.
+GPT in fp16, BERT trained under amp O2 in fp16 with FusedLAMB, and an
+encoder-decoder (T5-like) under amp O2 in fp16 with FusedAdam.
 
 - Serving: a tiny GPT (2 layers, hidden 64; its transformer weights scaled
   x6 so that greedy streams vary and drafts are rejected, as
@@ -26,6 +27,14 @@ GPT in fp16, and BERT trained under amp O2 in fp16 with FusedLAMB.
   package's BERT under the same amp O2 flow: the losses within 2e-3
   relative (fp16 rounds at other points in the two frameworks), the
   scaler states equal at every step, every parameter fp16.
+- Encoder-decoder: ``test_torch_encoder_decoder.py``'s tiny T5 variant
+  (RMSNorm, ReLU, GQA; 2 + 2 layers) with ``enc_lengths`` (the encoder on
+  the packed path with kv_lengths, the cross-attention on the 4D flash
+  forward and backward: Kernels E, F, B and I on the card) under the same
+  O2 fp16 flow with ``FusedAdam(lr=1e-3, master_weights=True)``, an inf
+  injected after the backward of step 1: three steps against the JAX
+  package's flow, the losses within 2e-3 relative, the scaler states equal
+  at every step, the skipped step leaving the loss as it was.
 
 The JAX side runs its plain (non-Pallas) path, pinned per test. The rope
 + rmsnorm + swiglu + GQA model's fp16 serving is the slow test.
@@ -41,16 +50,19 @@ from apex_tpu import amp as jamp
 from apex_tpu.models import GPTModel as JaxGPT
 from apex_tpu.models import TransformerConfig as JaxConfig
 from apex_tpu.models.bert import BertModel as JaxBert
+from apex_tpu.models.encoder_decoder import EncoderDecoderModel as JaxEncDec
 from apex_tpu.ops import _support as jax_support
+from apex_tpu.optimizers import FusedAdam as JaxFusedAdam
 from apex_tpu.optimizers import FusedLAMB as JaxFusedLAMB
 from apex_tpu.serving import EngineConfig as JaxEngineConfig
 from apex_tpu.serving import InferenceEngine as JaxEngine
 from apex_tpu.serving import Request as JaxRequest
 from apex_tpu_torch import amp
 from apex_tpu_torch.convert import load_jax_params
-from apex_tpu_torch.models import BertModel, GPTModel, TransformerConfig
+from apex_tpu_torch.models import (BertModel, EncoderDecoderModel, GPTModel,
+                                   TransformerConfig)
 from apex_tpu_torch.ops import LAUNCHES
-from apex_tpu_torch.optimizers import FusedLAMB
+from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB
 from apex_tpu_torch.serving import EngineConfig, InferenceEngine, Request
 
 F16 = torch.float16
@@ -184,7 +196,8 @@ def _bert_o2_fp16(steps=3):
     tm = BertModel(TransformerConfig(**BERT, compute_dtype=F16),
                    device="cpu")
     load_jax_params(tm, jax.tree.map(np.asarray, params))
-    params = jst.policy.cast_to_param(params)
+    # jitted whole: eager, each leaf's cast compiles on its own
+    params = jax.jit(jst.policy.cast_to_param)(params)
     tst = amp.initialize("O2", half_dtype=F16, device="cpu")
     tst.policy.cast_to_param(tm)
     batch = _bert_batch()
@@ -259,3 +272,99 @@ def test_bert_binary_head_promotes_to_fp32_under_o2():
                             torch.from_numpy(types).long())
     assert logits.dtype == F16 and binary.dtype == torch.float32
     assert torch.isfinite(binary).all()
+
+
+# -- encoder-decoder (T5-like) under amp O2 in fp16 ---------------------------
+
+T5 = dict(num_layers=2, hidden_size=64, num_attention_heads=4,
+          vocab_size=128, max_position_embeddings=64, hidden_dropout=0.0,
+          attention_dropout=0.0, normalization="rmsnorm", activation="relu",
+          ffn_hidden_size=96, num_query_groups=2)
+T5_BATCH, S_ENC, S_DEC = 3, 24, 10
+ENC_LENGTHS = np.array([24, 13, 19], np.int32)
+
+
+def _t5_batch(seed=4):
+    rng = np.random.RandomState(seed)
+    enc = rng.randint(0, T5["vocab_size"], (T5_BATCH, S_ENC)).astype(
+        np.int32)
+    dec = rng.randint(0, T5["vocab_size"], (T5_BATCH, S_DEC)).astype(
+        np.int32)
+    labels = rng.randint(0, T5["vocab_size"], (T5_BATCH, S_DEC)).astype(
+        np.int32)
+    return enc, dec, labels
+
+
+def _t5_o2_fp16(steps=3):
+    """The JAX and the port amp O2 fp16 flows with Adam over fp32 masters
+    on one encoder-decoder with ``enc_lengths``: ``(jax losses, jax scaler
+    states, port losses, port scaler states, port model, no kernel
+    launched)``; both grads take an inf after the backward of
+    ``OVERFLOW_STEP``."""
+    jst = jamp.initialize("O2", half_dtype=jnp.float16)
+    jm = JaxEncDec(JaxConfig(**T5, compute_dtype=jnp.float16))
+    params = jax.jit(jm.init)(jax.random.PRNGKey(7))
+    tm = EncoderDecoderModel(TransformerConfig(**T5, compute_dtype=F16),
+                             device="cpu")
+    load_jax_params(tm, jax.tree.map(np.asarray, params))
+    # jitted whole: eager, each leaf's cast compiles on its own
+    params = jax.jit(jst.policy.cast_to_param)(params)
+    tst = amp.initialize("O2", half_dtype=F16, device="cpu")
+    tst.policy.cast_to_param(tm)
+    enc, dec, labels = _t5_batch()
+    jargs = tuple(jnp.asarray(a) for a in (enc, dec, labels))
+    jlen = jnp.asarray(ENC_LENGTHS)
+    jsc, jss = jst.scaler, jst.scaler_states[0]
+    jopt = JaxFusedAdam(lr=1e-3, master_weights=True)
+    jos = jax.jit(jopt.init)(params)
+
+    @jax.jit
+    def jstep(p, os_, ss, inject):
+        """One step of the flow (jitted whole: eager it compiles each of
+        the optimizer's small ops on its own)."""
+        sloss, g = jax.value_and_grad(
+            lambda q: jsc.scale(jm.apply(q, *jargs, enc_lengths=jlen),
+                                ss))(p)
+        emb = g["embedding"]["word_embeddings"]
+        emb["weight"] = jnp.where(inject, emb["weight"].at[0, 0].set(
+            jnp.inf), emb["weight"])
+        g, found = jsc.unscale(g, ss)
+        p, os_ = jopt.step(g, p, os_, found_inf=found)
+        return sloss / ss.loss_scale, p, os_, jsc.update(ss, found)
+
+    jlosses, jstates = [], []
+    for i in range(steps):
+        loss, params, jos, jss = jstep(params, jos, jss, i == OVERFLOW_STEP)
+        jlosses.append(float(loss))
+        jstates.append(_scaler_state(jss))
+
+    sc, ss = tst.scaler, tst.scaler_states[0]
+    opt = FusedAdam(tm.parameters(), lr=1e-3, master_weights=True)
+    targs = tuple(torch.from_numpy(a).long() for a in (enc, dec, labels))
+    tlen = torch.from_numpy(ENC_LENGTHS)
+    before = dict(LAUNCHES)
+    tlosses, tstates = [], []
+    for i in range(steps):
+        opt.zero_grad(set_to_none=True)
+        loss = tm(*targs, enc_lengths=tlen)
+        amp.scale_loss(loss, ss).backward()
+        tlosses.append(float(loss.detach()))
+        if i == OVERFLOW_STEP:
+            tm.embedding.word_embeddings.weight.grad[0, 0] = float("inf")
+        _, found = sc.unscale([p.grad for p in tm.parameters()], ss)
+        opt.step(found_inf=found)
+        ss = sc.update(ss, found)
+        tstates.append(_scaler_state(ss))
+    return jlosses, jstates, tlosses, tstates, tm, LAUNCHES == before
+
+
+def test_t5_o2_fp16_adam_steps_match_jax():
+    jl, js, tl, ts, tm, no_launch = _t5_o2_fp16()
+    assert no_launch                    # CPU tensors launch no kernel
+    assert all(p.dtype == F16 for p in tm.parameters())
+    np.testing.assert_allclose(tl, jl, rtol=2e-3)
+    assert ts == js
+    assert ts[OVERFLOW_STEP][0] == 2.0 ** 15 and ts[OVERFLOW_STEP][1] == 0
+    # the skipped step left the weights as they were: the same loss again
+    assert tl[OVERFLOW_STEP + 1] == tl[OVERFLOW_STEP]
+    assert tl[1] < tl[0]

@@ -22,7 +22,18 @@ input moves JAX's own gradient by ~2%), so the step-1 gradients are held to
 a measured noise floor, a single fused block to 2e-5, and the three SGD
 steps run the recipe's ``zero_init_residual=True``, where they are not
 chaotic.
+
+fp16 (``compute_dtype=float16``, the JAX package's
+``examples/imagenet_amp.py`` configuration with fp16 in place of bf16 and
+amp O2's dynamic loss scale): the two fused blocks in fp16 against the JAX
+blocks in fp16 with the Pallas kernels in interpret mode (the rounding
+points of Kernels J-M), each held to its distance from the f32 block; the
+amp O2 fp16 flow on the port's ResNet-50 (FusedSGD over fp32 masters, an
+injected inf skipped bitwise); and, slow, three such steps against the JAX
+flow.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -33,11 +44,13 @@ import torch.nn.functional as F
 from jax import lax
 
 import apex_tpu.ops._support as jax_support
+from apex_tpu import amp as jamp
 from apex_tpu.models import ResNet as JaxResNet
 from apex_tpu.models import ResNetConfig as JaxResNetConfig
 from apex_tpu.optimizers import FusedSGD as JaxFusedSGD
 from apex_tpu.utils import batch_norm as jbn
 from apex_tpu.utils.conv import conv_nhwc as jax_conv_nhwc
+from apex_tpu_torch import amp
 from apex_tpu_torch.convert import (
     grads_to_jax,
     load_jax_params,
@@ -103,13 +116,25 @@ def _batch(seed=1):
     return x, y
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_init(zero_init_residual):
+    """The JAX ResNet-50's ``init`` (~10 s eager on the CPU), once per
+    module for each ``zero_init_residual``: no other config field reaches
+    it."""
+    cfg = JaxResNetConfig(depth=50, num_classes=CLASSES,
+                          zero_init_residual=zero_init_residual)
+    return JaxResNet(cfg).init(jax.random.PRNGKey(0))
+
+
 def _jax_model(fused, zero_init_residual=False, compute_dtype=jnp.float32):
     cfg = JaxResNetConfig(depth=50, num_classes=CLASSES, fused_conv=fused,
                           zero_init_residual=zero_init_residual,
                           compute_dtype=compute_dtype)
-    model = JaxResNet(cfg)
-    params, state = model.init(jax.random.PRNGKey(0))
-    return model, params, state
+    params, state = _jax_init(zero_init_residual)
+    # fresh containers over the shared (immutable) arrays, so that no test
+    # sees another's edits of the trees
+    fresh = lambda t: jax.tree.map(lambda a: a, t)  # noqa: E731
+    return JaxResNet(cfg), fresh(params), fresh(state)
 
 
 def _jax_value_and_grad(model, y):
@@ -226,6 +251,158 @@ def test_fused_block_matches_jax(jax_reference, blk_index):
                         jax.tree.map(np.asarray, jnew), 2e-5, atol=1e-6)
 
 
+def _block_run(blk_index, dtype, params, state, jax_model=None):
+    """The fused bottleneck ``blk_index`` of a ResNet-50 whose weights are
+    ``params``/``state``, on test_fused_block_matches_jax's input and
+    cotangent with its conv weights and input in ``dtype``: with
+    ``jax_model`` the JAX block (its conv weights cast as ``apply`` casts
+    them), else the port's. Returns {leaf: fp32 numpy}: the output, the
+    input gradient, the parameter gradients (``g``) and the new batch-norm
+    state (``s``)."""
+    si, bi = blk_index
+    name = f"layer{si + 1}"
+    jp, js = params[name][bi], state[name][bi]
+    stride = 2 if (si > 0 and bi == 0) else 1
+    rng = np.random.RandomState(5)
+    x = rng.randn(4, 8, 8, jp["conv1"].shape[2]).astype(np.float32)
+    r = rng.randn(4, 8 // stride, 8 // stride,
+                  jp["conv3"].shape[3]).astype(np.float32)
+    x = np.asarray(jnp.asarray(x, jnp.float16), np.float32)
+    if jax_model is not None:
+        jdt = jnp.float16 if dtype == torch.float16 else jnp.float32
+
+        def f(p, xx):
+            pc = jax.tree.map(lambda a: a.astype(jdt) if a.ndim == 4 else a,
+                              p)
+            out, new_s = jax_model._block_apply_fused(pc, js, xx, stride)
+            return jnp.sum(out.astype(jnp.float32) * r), (out, new_s)
+
+        (_, (out, new_s)), (gp, gx) = jax.jit(jax.value_and_grad(
+            f, argnums=(0, 1), has_aux=True))(jp, jnp.asarray(x, jdt))
+    else:
+        model = _port_model(True, params, state, compute_dtype=dtype)
+        blk = model.stages()[si][bi]
+        xt = torch.tensor(x).to(dtype).requires_grad_()
+        out = model._block_apply_fused(blk, xt)
+        assert out.dtype == dtype
+        (out.float() * torch.tensor(r)).sum().backward()
+        out, gx = out.detach(), xt.grad
+        gp = grads_to_jax(model)[name][bi]
+        new_s = state_to_jax(model)[name][bi]
+    leaves = {("out",): out, ("gx",): gx}
+    leaves.update({("g",) + p: v for p, v in _leaves(gp)})
+    leaves.update({("s",) + p: v for p, v in _leaves(new_s)})
+    return {k: (v.float().numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v, np.float32)) for k, v in leaves.items()}
+
+
+@pytest.mark.parametrize("blk_index,mode", [
+    pytest.param((0, 1), "off", id="layer1.1_stride1"),
+    # J and K beside the strided conv2 (cuDNN's on the card): slow, since
+    # layer1.1 already holds all four fused kernels in fp16 to JAX's
+    pytest.param((1, 0), "off", id="layer2.0_stride2_down",
+                 marks=pytest.mark.slow),
+    # the same blocks against the JAX kernels themselves in interpret mode
+    # (~3x the compile time; each kernel's fp16 plain version is held to
+    # them in tests/test_torch_fp16.py)
+    pytest.param((0, 1), "interpret", id="layer1.1_stride1_interpret",
+                 marks=pytest.mark.slow),
+    pytest.param((1, 0), "interpret", id="layer2.0_stride2_down_interpret",
+                 marks=pytest.mark.slow)])
+def test_fused_block_fp16_matches_jax(monkeypatch, blk_index, mode):
+    """The fused bottleneck in fp16 (Kernels J-M's plain versions; layer1.1
+    runs all four, layer2.0 J and K beside the strided conv2), against the
+    JAX block in fp16: with ``mode`` "off" its plain compositions, as
+    test_fused_block_matches_jax runs it, with "interpret" its fused convs'
+    Pallas kernels in interpret mode. Both round at fp16 points that the
+    batch-norm backward's cancellations amplify (each side's gradients sit
+    1-4% norm-wise from the f32 block), so each leaf is held to its
+    distance from the port's f32 block (itself within 2e-5 of JAX's,
+    test_fused_block_matches_jax): the port's fp16 error at most twice
+    JAX's fp16 error, plus 1e-6 of the leaf's norm. A block computed in
+    bf16, or with a rounding point moved, lands several times further."""
+    monkeypatch.setenv("APEX_TPU_FORCE_PALLAS", mode)
+    jax_support.pallas_mode.cache_clear()
+    try:
+        jm, params, state = _jax_model(True, compute_dtype=jnp.float16)
+        want = _block_run(blk_index, torch.float32, params, state)
+        port = _block_run(blk_index, torch.float16, params, state)
+        jax16 = _block_run(blk_index, torch.float16, params, state, jm)
+    finally:
+        jax_support.pallas_mode.cache_clear()
+    assert want.keys() == port.keys() == jax16.keys()
+    for key, w in want.items():
+        n = float(np.linalg.norm(w))
+        e_port = float(np.linalg.norm(port[key] - w))
+        e_jax = float(np.linalg.norm(jax16[key] - w))
+        assert np.isfinite(port[key]).all(), key
+        assert e_port <= 2.0 * e_jax + 1e-6 * n, (key, e_port / n,
+                                                  e_jax / n)
+
+
+def _amp_fp16_flow(model, opt, batch, steps, inject_step):
+    """amp O2 in fp16 on the port's ResNet (fp32 params, fp16 compute):
+    scale_loss -> backward -> an inf in the fc kernel's gradient at
+    ``inject_step`` -> unscale -> step(found_inf) -> update. Returns
+    (losses, scaler states, found_inf by step, each step's parameters and
+    optimizer state copied after it)."""
+    state = amp.initialize("O2", half_dtype=torch.float16, device="cpu")
+    sc, ss = state.scaler, state.scaler_states[0]
+    params = list(model.parameters())
+    losses, walk, founds, after = [], [], [], []
+    for i in range(steps):
+        opt.zero_grad(set_to_none=True)
+        loss = F.cross_entropy(model(batch[0]), batch[1])
+        amp.scale_loss(loss, ss).backward()
+        if i == inject_step:
+            model.fc.kernel.grad[0, 0] = float("inf")
+        _, found = sc.unscale([p.grad for p in params], ss)
+        opt.step(found_inf=found)
+        ss = sc.update(ss, found)
+        losses.append(float(loss.detach()))
+        walk.append(sc.state_dict(ss))
+        founds.append(bool(found))
+        after.append([t.detach().clone() for t in params] + [
+            v.clone() for p in params for v in opt.state[p].values()
+            if isinstance(v, torch.Tensor)])
+    return losses, walk, founds, after
+
+
+def test_resnet50_fp16_amp_flow_skips_the_overflow_step():
+    """ResNet-50 (32 px, batch 4, 8 classes) with fp16 compute over fp32
+    parameters under amp O2's dynamic scale (2^16) and FusedSGD over fp32
+    masters, two steps: the second, whose gradients carry an injected inf,
+    changes no parameter, master or momentum (bitwise) and halves the
+    scale; the first finds no inf, and its update lowers the loss. Every
+    conv weight reaches the fused kernels' plain versions as fp16 (the
+    step after a skip: test_resnet50_fp16_amp_steps_match_jax, slow). One
+    intra-op thread: the CPU's fp16 kernels, parallel, crawl when other
+    test processes hold the cores (5 s alone with one thread, 2 minutes
+    with eight beside five busy workers)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        model = ResNet(ResNetConfig(depth=50, num_classes=CLASSES,
+                                    fused_conv=True,
+                                    compute_dtype=torch.float16),
+                       device="cpu",
+                       generator=torch.Generator().manual_seed(0))
+        opt = FusedSGD(model.parameters(), lr=0.01, momentum=0.9,
+                       weight_decay=1e-4, master_weights=True)
+        rng = np.random.RandomState(6)
+        batch = (torch.from_numpy(rng.randn(BATCH, 32, 32, 3).astype(
+            np.float32)), torch.from_numpy(rng.randint(0, CLASSES, BATCH)))
+        losses, walk, founds, after = _amp_fp16_flow(model, opt, batch, 2,
+                                                     1)
+    finally:
+        torch.set_num_threads(threads)
+    assert founds == [False, True]
+    assert [w["loss_scale"] for w in walk] == [2.0 ** 16, 2.0 ** 15]
+    assert all(torch.equal(a, b) for a, b in zip(after[0], after[1]))
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert losses[1] < losses[0]
+
+
 def test_resnet50_eval_matches_jax(jax_reference):
     """Eval normalizes with the running statistics on the unfused path and
     leaves them as they were, also with ``fused_conv``."""
@@ -318,6 +495,59 @@ def test_resnet50_bf16_fused_steps_match_jax(jax_reference):
     batch = (torch.tensor(x), torch.tensor(y))
     losses = [float(step(batch)) for _ in range(3)]
     np.testing.assert_allclose(losses, jlosses, rtol=2e-2)
+
+
+@pytest.mark.slow
+def test_resnet50_fp16_amp_steps_match_jax(jax_reference):
+    """The JAX package's ``examples/imagenet_amp.py`` flow in fp16: fp16
+    compute over fp32 parameters, amp O2's dynamic scale from 2^16,
+    FusedSGD over fp32 masters at a tenth of the recipe's rate, the
+    recipe's init, an inf injected after the backward of step 1; three
+    steps on both sides (the fused path; JAX's plain compositions). The
+    scaler states agree at every step, the losses to rtol 2e-2 (fp16
+    activations, rounded at the same points; the port's 3x3 statistics
+    come from the fp32 sum where ``_c3_ref_impl`` reduces the rounded fp16
+    output), and the skipped step leaves the port's parameters, masters
+    and momenta bitwise as they were."""
+    lr = dict(LR, lr=0.01)
+    jm, params, state = _jax_model(True, zero_init_residual=True,
+                                   compute_dtype=jnp.float16)
+    x, y = _batch(4)
+    jst = jamp.initialize("O2", half_dtype=jnp.float16)
+    jsc, jss = jst.scaler, jst.scaler_states[0]
+    jopt = JaxFusedSGD(**lr, master_weights=True)
+    ostate = jopt.init(params)
+
+    @jax.jit
+    def jstep(p, s, os_, ss, inject):
+        def loss(q):
+            logits, new_s = jm.apply(q, s, jnp.asarray(x), train=True)
+            logp = jax.nn.log_softmax(logits)
+            lo = -jnp.mean(logp[jnp.arange(x.shape[0]), jnp.asarray(y)])
+            return jsc.scale(lo, ss), (lo, new_s)
+        (_, (lo, new_s)), g = jax.value_and_grad(loss, has_aux=True)(p)
+        g["fc"]["kernel"] = jnp.where(
+            inject, g["fc"]["kernel"].at[0, 0].set(jnp.inf),
+            g["fc"]["kernel"])
+        g, found = jsc.unscale(g, ss)
+        p, os_ = jopt.step(g, p, os_, found_inf=found)
+        return lo, p, new_s, os_, jsc.update(ss, found)
+
+    jlosses, jscales = [], []
+    p, s = params, state
+    for i in range(3):
+        lo, p, s, ostate, jss = jstep(p, s, ostate, jss, i == 1)
+        jlosses.append(float(lo))
+        jscales.append(float(jss.loss_scale))
+    model = _port_model(True, params, state, compute_dtype=torch.float16,
+                        zero_init_residual=True)
+    opt = FusedSGD(model.parameters(), **lr, master_weights=True)
+    losses, walk, founds, after = _amp_fp16_flow(
+        model, opt, (torch.tensor(x), torch.tensor(y)), 3, 1)
+    assert founds == [False, True, False]
+    assert [w["loss_scale"] for w in walk] == jscales
+    np.testing.assert_allclose(losses, jlosses, rtol=2e-2)
+    assert all(torch.equal(a, b) for a, b in zip(after[0], after[1]))
 
 
 # ---------------------------------------------------------------------------
