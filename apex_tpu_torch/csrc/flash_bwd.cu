@@ -61,6 +61,8 @@
 //   V 64-key tiles come through the ring; S = Q K^T and dP = dO V^T on
 //   mma.sync, then ds rounded to T as A fragments and dq += dS K with K
 //   by ldmatrix.trans from the same tile; dq is scaled and rounded once.
+// Past d 128 (DMAX 256) both passes split each strip's output columns over
+// two warps, as Kernel F does (flash_mma.cuh Cols).
 // Registers are capped at 168 a thread at d <= 64 so that three blocks fit
 // an SM, as in Kernel F. Seven tile products a visible pair (q k^T and
 // do v^T in both passes) in place of the algorithm's five, for no atomics.
@@ -71,7 +73,8 @@
 //
 // f32 (checks only; TF32 would miss their atol of 1e-4), two launches of
 // fp32 tiles in shared memory and fp32 FMA, each thread owning a 4-row x
-// (DMAX / 16)-column accumulator tile:
+// (DMAX / 16)-column accumulator tile (2 rows in 32-row tiles at DMAX
+// 256, to fit the 227 KB of shared memory):
 // - pass 1, one block per (64-row query tile, head, batch): delta for its
 //   rows (kept in an fp32 [b, H, sq] scratch for pass 2) and dq, walking
 //   the visible key tiles;
@@ -94,38 +97,42 @@ struct Args {
   Mask mask;
 };
 
-template <int DMAX>
+// BR: the rows of the block's own tile (queries in pass 1, keys in pass
+// 2): 64, or 32 at DMAX 256, where 64-row tiles would not fit the 227 KB
+// of shared memory; each thread owns BR / 16 of them.
+template <int DMAX, int BR>
 struct DqSmem {
   static constexpr int kRS = DMAX + 4;  // rows read by ty (broadcast)
   static constexpr int kCS = DMAX + 1;  // rows read by tx
   static constexpr int kSS = kBK + 1;
-  static constexpr size_t floats = 2 * kBQ * kRS + 2 * kBK * kCS + kBQ * kSS + 2 * kBQ;
+  static constexpr size_t floats = 2 * BR * kRS + 2 * kBK * kCS + BR * kSS + 2 * BR;
 };
 
-template <int DMAX>
+template <int DMAX, int BR>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ out,
                     const float* __restrict__ dout, const float* __restrict__ lse,
                     float* __restrict__ delta, float* __restrict__ dq,
                     const Args a) {
-  using S = DqSmem<DMAX>;
+  using S = DqSmem<DMAX, BR>;
   constexpr int kCols = DMAX / 16;
+  constexpr int kR = BR / 16;  // rows a thread
   extern __shared__ float smem[];
-  float* Qs = smem;                    // [kBQ][kRS]
-  float* dOs = Qs + kBQ * S::kRS;      // [kBQ][kRS]
-  float* Ks = dOs + kBQ * S::kRS;      // [kBK][kCS]
+  float* Qs = smem;                    // [BR][kRS]
+  float* dOs = Qs + BR * S::kRS;       // [BR][kRS]
+  float* Ks = dOs + BR * S::kRS;       // [kBK][kCS]
   float* Vs = Ks + kBK * S::kCS;       // [kBK][kCS]
-  float* dSs = Vs + kBK * S::kCS;      // [kBQ][kSS]
-  float* lse_s = dSs + kBQ * S::kSS;
-  float* delta_s = lse_s + kBQ;
+  float* dSs = Vs + kBK * S::kCS;      // [BR][kSS]
+  float* lse_s = dSs + BR * S::kSS;
+  float* delta_s = lse_s + BR;
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int q_start = blockIdx.x * kBQ;
+  const int q_start = blockIdx.x * BR;
   const int hh = blockIdx.y;
   const int bb = blockIdx.z;
   const int d = a.d;
@@ -136,7 +143,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const long long q_base = row_base * d;
   const long long kv_base = (static_cast<long long>(bb) * a.kvh + kv_head) * sk * d;
 
-  for (int idx = tid; idx < kBQ * DMAX; idx += kThreads) {
+  for (int idx = tid; idx < BR * DMAX; idx += kThreads) {
     const int r = idx / DMAX;
     const int c = idx % DMAX;
     const int row = q_start + r;
@@ -151,7 +158,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     dOs[r * S::kRS + c] = dov;
   }
   // delta = rowsum(do * o): one warp per row
-  for (int r = warp; r < kBQ; r += kThreads / 32) {
+  for (int r = warp; r < BR; r += kThreads / 32) {
     const int row = q_start + r;
     float part = 0.f;
     if (row < sq) {
@@ -167,15 +174,15 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  float acc[4][kCols];
+  float acc[kR][kCols];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kR; ++i)
 #pragma unroll
     for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
 
   const int kvl = a.kv_lengths != nullptr ? a.kv_lengths[bb] : sk;
   int j_first, j_last;
-  key_tiles(a.mask, kvl, q_start, &j_first, &j_last);
+  key_tiles(a.mask, kvl, q_start, &j_first, &j_last, BR);
   __syncthreads();
 
   for (int jt = j_first; jt <= j_last; ++jt) {
@@ -196,18 +203,18 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
 
-    float sc[4][4];
-    float dp[4][4];
+    float sc[kR][4];
+    float dp[kR][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kR; ++i)
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) sc[i][jj] = dp[i][jj] = 0.f;
     for (int c = 0; c < DMAX; ++c) {
-      float qv[4], dov[4], kv[4], vv[4];
+      float qv[kR], dov[kR], kv[4], vv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = Qs[(ty * 4 + i) * S::kRS + c];
-        dov[i] = dOs[(ty * 4 + i) * S::kRS + c];
+      for (int i = 0; i < kR; ++i) {
+        qv[i] = Qs[(ty * kR + i) * S::kRS + c];
+        dov[i] = dOs[(ty * kR + i) * S::kRS + c];
       }
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
@@ -215,7 +222,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         vv[jj] = Vs[(tx + 16 * jj) * S::kCS + c];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kR; ++i)
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
           sc[i][jj] = fmaf(qv[i], kv[jj], sc[i][jj]);
@@ -223,8 +230,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
+    for (int i = 0; i < kR; ++i) {
+      const int r = ty * kR + i;
       const int row = q_start + r;
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
@@ -241,14 +248,14 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     // dq += ds k
     for (int jj = 0; jj < kBK; ++jj) {
-      float dsv[4];
+      float dsv[kR];
       float kv[kCols];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = dSs[(ty * 4 + i) * S::kSS + jj];
+      for (int i = 0; i < kR; ++i) dsv[i] = dSs[(ty * kR + i) * S::kSS + jj];
 #pragma unroll
       for (int c = 0; c < kCols; ++c) kv[c] = Ks[jj * S::kCS + tx + 16 * c];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kR; ++i)
 #pragma unroll
         for (int c = 0; c < kCols; ++c) acc[i][c] = fmaf(dsv[i], kv[c], acc[i][c]);
     }
@@ -256,8 +263,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q_start + ty * 4 + i;
+  for (int i = 0; i < kR; ++i) {
+    const int row = q_start + ty * kR + i;
     if (row >= sq) continue;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
@@ -268,37 +275,38 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int DMAX>
+template <int DMAX, int BR>
 struct DkvSmem {
   static constexpr int kRS = DMAX + 4;  // K, V: rows read by ty
   static constexpr int kCS = DMAX + 1;  // Q, dO: rows read by tx
   static constexpr int kSS = kBQ + 1;
-  static constexpr size_t floats = 2 * kBK * kRS + 2 * kBQ * kCS + 2 * kBK * kSS + 2 * kBQ;
+  static constexpr size_t floats = 2 * BR * kRS + 2 * kBQ * kCS + 2 * BR * kSS + 2 * kBQ;
 };
 
-template <int DMAX>
+template <int DMAX, int BR>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dk,
                      float* __restrict__ dv, const Args a) {
-  using S = DkvSmem<DMAX>;
+  using S = DkvSmem<DMAX, BR>;
   constexpr int kCols = DMAX / 16;
+  constexpr int kR = BR / 16;  // key rows a thread
   extern __shared__ float smem[];
-  float* Ks = smem;                   // [kBK][kRS]
-  float* Vs = Ks + kBK * S::kRS;      // [kBK][kRS]
-  float* Qs = Vs + kBK * S::kRS;      // [kBQ][kCS]
+  float* Ks = smem;                   // [BR][kRS]
+  float* Vs = Ks + BR * S::kRS;       // [BR][kRS]
+  float* Qs = Vs + BR * S::kRS;       // [kBQ][kCS]
   float* dOs = Qs + kBQ * S::kCS;     // [kBQ][kCS]
-  float* Ps = dOs + kBQ * S::kCS;     // p^T [kBK][kSS]
-  float* dSs = Ps + kBK * S::kSS;     // ds^T [kBK][kSS]
-  float* lse_s = dSs + kBK * S::kSS;
+  float* Ps = dOs + kBQ * S::kCS;     // p^T [BR][kSS]
+  float* dSs = Ps + BR * S::kSS;      // ds^T [BR][kSS]
+  float* lse_s = dSs + BR * S::kSS;
   float* delta_s = lse_s + kBQ;
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
-  const int k_start = blockIdx.x * kBK;
+  const int k_start = blockIdx.x * BR;
   const int kv_head = blockIdx.y;
   const int bb = blockIdx.z;
   const int d = a.d;
@@ -307,7 +315,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int sk = a.mask.sk;
   const long long kv_base = (static_cast<long long>(bb) * a.kvh + kv_head) * sk * d;
 
-  for (int idx = tid; idx < kBK * DMAX; idx += kThreads) {
+  for (int idx = tid; idx < BR * DMAX; idx += kThreads) {
     const int r = idx / DMAX;
     const int c = idx % DMAX;
     const int row = k_start + r;
@@ -322,16 +330,16 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     Vs[r * S::kRS + c] = vval;
   }
 
-  float dka[4][kCols];
-  float dva[4][kCols];
+  float dka[kR][kCols];
+  float dva[kR][kCols];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kR; ++i)
 #pragma unroll
     for (int c = 0; c < kCols; ++c) dka[i][c] = dva[i][c] = 0.f;
 
   const int kvl = a.kv_lengths != nullptr ? a.kv_lengths[bb] : sk;
   int i_first, i_last;
-  query_tiles(a.mask, kvl, k_start, &i_first, &i_last);
+  query_tiles(a.mask, kvl, k_start, &i_first, &i_last, BR);
 
   for (int jh = 0; jh < group; ++jh) {
     const int hh = kv_head * group + jh;
@@ -361,19 +369,19 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       __syncthreads();
 
-      // transposed tile: key rows ty * 4 + i, query columns tx + 16 jj
-      float sc[4][4];
-      float dp[4][4];
+      // transposed tile: key rows ty * kR + i, query columns tx + 16 jj
+      float sc[kR][4];
+      float dp[kR][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kR; ++i)
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) sc[i][jj] = dp[i][jj] = 0.f;
       for (int c = 0; c < DMAX; ++c) {
-        float kv[4], vv[4], qv[4], dov[4];
+        float kv[kR], vv[kR], qv[4], dov[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kv[i] = Ks[(ty * 4 + i) * S::kRS + c];
-          vv[i] = Vs[(ty * 4 + i) * S::kRS + c];
+        for (int i = 0; i < kR; ++i) {
+          kv[i] = Ks[(ty * kR + i) * S::kRS + c];
+          vv[i] = Vs[(ty * kR + i) * S::kRS + c];
         }
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
@@ -381,7 +389,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
           dov[jj] = dOs[(tx + 16 * jj) * S::kCS + c];
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < kR; ++i)
 #pragma unroll
           for (int jj = 0; jj < 4; ++jj) {
             sc[i][jj] = fmaf(kv[i], qv[jj], sc[i][jj]);
@@ -389,8 +397,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
           }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kr = ty * 4 + i;
+      for (int i = 0; i < kR; ++i) {
+        const int kr = ty * kR + i;
         const int col = k_start + kr;
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
@@ -411,11 +419,11 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
       // dv += p^T do, dk += ds^T q
       for (int qc = 0; qc < kBQ; ++qc) {
-        float pv[4], dsv[4], dov[kCols], qv[kCols];
+        float pv[kR], dsv[kR], dov[kCols], qv[kCols];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pv[i] = Ps[(ty * 4 + i) * S::kSS + qc];
-          dsv[i] = dSs[(ty * 4 + i) * S::kSS + qc];
+        for (int i = 0; i < kR; ++i) {
+          pv[i] = Ps[(ty * kR + i) * S::kSS + qc];
+          dsv[i] = dSs[(ty * kR + i) * S::kSS + qc];
         }
 #pragma unroll
         for (int c = 0; c < kCols; ++c) {
@@ -423,7 +431,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
           qv[c] = Qs[qc * S::kCS + tx + 16 * c];
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < kR; ++i)
 #pragma unroll
           for (int c = 0; c < kCols; ++c) {
             dva[i][c] = fmaf(pv[i], dov[c], dva[i][c]);
@@ -434,8 +442,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k_start + ty * 4 + i;
+  for (int i = 0; i < kR; ++i) {
+    const int row = k_start + ty * kR + i;
     if (row >= sk) continue;
     const long long base = kv_base + static_cast<long long>(row) * d;
 #pragma unroll
@@ -454,20 +462,21 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v,
                        const float* out, const float* dout, const float* lse,
                        float* delta, float* dq, float* dk, float* dv,
                        const Args& a, cudaStream_t stream) {
-  auto dq_kernel = flash_bwd_dq_kernel<DMAX>;
-  auto dkv_kernel = flash_bwd_dkv_kernel<DMAX>;
-  const size_t dq_smem = DqSmem<DMAX>::floats * sizeof(float);
-  const size_t dkv_smem = DkvSmem<DMAX>::floats * sizeof(float);
+  constexpr int kBR = DMAX <= 128 ? 64 : 32;  // the blocks' own rows
+  auto dq_kernel = flash_bwd_dq_kernel<DMAX, kBR>;
+  auto dkv_kernel = flash_bwd_dkv_kernel<DMAX, kBR>;
+  const size_t dq_smem = DqSmem<DMAX, kBR>::floats * sizeof(float);
+  const size_t dkv_smem = DkvSmem<DMAX, kBR>::floats * sizeof(float);
   cudaError_t err = apex::allow_smem(dq_kernel, dq_smem);
   if (err != cudaSuccess) return err;
   err = apex::allow_smem(dkv_kernel, dkv_smem);
   if (err != cudaSuccess) return err;
-  const dim3 dq_grid((a.mask.sq + kBQ - 1) / kBQ, a.h, a.b);
+  const dim3 dq_grid((a.mask.sq + kBR - 1) / kBR, a.h, a.b);
   dq_kernel<<<dq_grid, kThreads, dq_smem, stream>>>(q, k, v, out, dout, lse,
                                                     delta, dq, a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 dkv_grid((a.mask.sk + kBK - 1) / kBK, a.kvh, a.b);
+  const dim3 dkv_grid((a.mask.sk + kBR - 1) / kBR, a.kvh, a.b);
   dkv_kernel<<<dkv_grid, kThreads, dkv_smem, stream>>>(q, k, v, dout, lse,
                                                        delta, dk, dv, a);
   return cudaGetLastError();
@@ -506,13 +515,14 @@ struct Args16 {
 template <int DMAX, int WARPS, int BQ, int STAGES>
 struct DkvCfg {
   static constexpr int kThreads = WARPS * 32;
-  static constexpr int kKeys = WARPS * 16;
+  static constexpr int kKeys = WARPS / flash::Cols<DMAX>::kParts * 16;
   static constexpr int kLd = flash::Tile<DMAX>::kLd;
   static constexpr int kKV = 2 * kKeys * kLd * 2;  // K, then V, bytes
   static constexpr int kStage = 4 * BQ * kLd + 8 * BQ;  // bytes
   static constexpr size_t bytes = kKV + STAGES * kStage;
-  static constexpr int kMinBlocks = DMAX <= 64 ? 3 : 2;  // dk/dv
+  static constexpr int kMinBlocks = DMAX <= 64 ? 3 : DMAX <= 128 ? 2 : 1;  // dk/dv
   static_assert(2 * BQ <= kThreads, "a thread a lse or delta row");
+  static_assert(bytes <= 232448, "one block fits an SM");
 };
 
 template <typename T, int DMAX, int WARPS, int BQ, int STAGES, bool VEC>
@@ -520,9 +530,10 @@ __global__ void __launch_bounds__(
     WARPS * 32, (DkvCfg<DMAX, WARPS, BQ, STAGES>::kMinBlocks))
 flash_bwd_dkv_mma(const Args16<T> a) {
   using C = DkvCfg<DMAX, WARPS, BQ, STAGES>;
+  using W = flash::Cols<DMAX>;
   constexpr int kKS = DMAX / 16;  // k16 steps over d
   constexpr int kNS = BQ / 8;     // n8 score tiles (queries) a warp
-  constexpr int kNO = DMAX / 8;   // n8 output tiles (columns of d) a warp
+  constexpr int kNO = W::kWidth / 8;  // n8 output tiles (columns of d) a warp
   extern __shared__ __align__(16) unsigned char fsmem[];
   T* Ks = reinterpret_cast<T*>(fsmem);
   T* Vs = Ks + C::kKeys * C::kLd;
@@ -533,10 +544,12 @@ flash_bwd_dkv_mma(const Args16<T> a) {
   const int lane = threadIdx.x % 32;
   const int g4 = lane / 4;
   const int t4 = lane % 4;
+  const int strip = warp / W::kParts;  // the warp's 16 keys
+  const int cb = warp % W::kParts * W::kWidth;  // its first output column
   const int kvh = blockIdx.x;
   const int bb = blockIdx.y;
   const int k_start = blockIdx.z * C::kKeys;
-  const int kw0 = k_start + 16 * warp;  // the warp's first key
+  const int kw0 = k_start + 16 * strip;  // the warp's first key
   const int d = a.d;
   const int group = a.H / a.KVH;
   const long long kv_base =
@@ -589,8 +602,8 @@ flash_bwd_dkv_mma(const Args16<T> a) {
       ring::cp_async_commit();
     }
 
-    const T* kw_s = Ks + 16 * warp * C::kLd;
-    const T* vw_s = Vs + 16 * warp * C::kLd;
+    const T* kw_s = Ks + 16 * strip * C::kLd;
+    const T* vw_s = Vs + 16 * strip * C::kLd;
     for (int it = 0; it < slices; ++it) {
       ring::cp_async_wait<STAGES - 2>();
       __syncthreads();
@@ -621,8 +634,9 @@ flash_bwd_dkv_mma(const Args16<T> a) {
         ring::load_b<kNS, false>(fb, Qs, C::kLd, 16 * kk);
 #pragma unroll
         for (int j = 0; j < kNS; ++j)
-          flash::mma_acc<T>(sc[j], fa[0], fb[j >> 1][2 * (j & 1)],
-                         fb[j >> 1][2 * (j & 1) + 1]);
+          flash::mma_sum<T, W::kAddSums>(sc[j], fa[0],
+                                         fb[j >> 1][2 * (j & 1)],
+                                         fb[j >> 1][2 * (j & 1) + 1]);
       }
 #pragma unroll
       for (int j = 0; j < kNS; ++j) {
@@ -652,8 +666,8 @@ flash_bwd_dkv_mma(const Args16<T> a) {
           ring::load_a<1, false>(fa, vw_s, C::kLd, 16 * kk);
           unsigned fb[1][4];
           ring::load_b<2, false>(fb, dOs + 16 * c * C::kLd, C::kLd, 16 * kk);
-          flash::mma_acc<T>(dp[0], fa[0], fb[0][0], fb[0][1]);
-          flash::mma_acc<T>(dp[1], fa[0], fb[0][2], fb[0][3]);
+          flash::mma_sum<T, W::kAddSums>(dp[0], fa[0], fb[0][0], fb[0][1]);
+          flash::mma_sum<T, W::kAddSums>(dp[1], fa[0], fb[0][2], fb[0][3]);
         }
         float pc[2][4];
 #pragma unroll
@@ -671,7 +685,7 @@ flash_bwd_dkv_mma(const Args16<T> a) {
         flash::fragment16<2, T>(dp, 0, sa);
         {
           unsigned fb[kNO / 2][4];
-          ring::load_b<kNO, true>(fb, dOs, C::kLd, 16 * c);
+          ring::load_b<kNO, true>(fb, dOs + cb, C::kLd, 16 * c);
 #pragma unroll
           for (int j = 0; j < kNO; ++j)
             flash::mma_acc<T>(dv[j], pa, fb[j >> 1][2 * (j & 1)],
@@ -679,7 +693,7 @@ flash_bwd_dkv_mma(const Args16<T> a) {
         }
         {
           unsigned fb[kNO / 2][4];
-          ring::load_b<kNO, true>(fb, Qs, C::kLd, 16 * c);
+          ring::load_b<kNO, true>(fb, Qs + cb, C::kLd, 16 * c);
 #pragma unroll
           for (int j = 0; j < kNO; ++j)
             flash::mma_acc<T>(dk[j], sa, fb[j >> 1][2 * (j & 1)],
@@ -698,7 +712,7 @@ flash_bwd_dkv_mma(const Args16<T> a) {
     T* dv_dst = a.dv + kv_base + static_cast<long long>(row) * d;
 #pragma unroll
     for (int j = 0; j < kNO; ++j) {
-      const int col = 8 * j + 2 * t4;
+      const int col = cb + 8 * j + 2 * t4;
       flash::store_pair(dk_dst, col, d, dk[j][2 * h] * a.scale,
                         dk[j][2 * h + 1] * a.scale);
       flash::store_pair(dv_dst, col, d, dv[j][2 * h], dv[j][2 * h + 1]);
@@ -711,12 +725,13 @@ flash_bwd_dkv_mma(const Args16<T> a) {
 template <int DMAX, int WARPS, int STAGES>
 struct DqCfg {
   static constexpr int kThreads = WARPS * 32;
-  static constexpr int kRows = WARPS * 16;
+  static constexpr int kRows = WARPS / flash::Cols<DMAX>::kParts * 16;
   static constexpr int kLd = flash::Tile<DMAX>::kLd;
   static constexpr int kQD = 2 * kRows * kLd * 2;  // Q, then dO, bytes
   static constexpr int kStage = 2 * kBK * kLd * 2;  // K, then V, bytes
   static constexpr size_t bytes = kQD + STAGES * kStage;
-  static constexpr int kMinBlocks = DMAX <= 64 ? 3 : 2;  // dq
+  static constexpr int kMinBlocks = DMAX <= 64 ? 3 : DMAX <= 128 ? 2 : 1;  // dq
+  static_assert(bytes <= 232448, "one block fits an SM");
 };
 
 template <typename T, int DMAX, int WARPS, int STAGES, bool VEC>
@@ -724,9 +739,10 @@ __global__ void __launch_bounds__(WARPS * 32,
                                   (DqCfg<DMAX, WARPS, STAGES>::kMinBlocks))
 flash_bwd_dq_mma(const Args16<T> a) {
   using C = DqCfg<DMAX, WARPS, STAGES>;
+  using W = flash::Cols<DMAX>;
   constexpr int kKS = DMAX / 16;  // k16 steps over d
   constexpr int kNS = kBK / 8;    // n8 score tiles (keys) a warp
-  constexpr int kNO = DMAX / 8;   // n8 output tiles a warp
+  constexpr int kNO = W::kWidth / 8;  // n8 output tiles a warp
   extern __shared__ __align__(16) unsigned char fsmem[];
   T* Qs = reinterpret_cast<T*>(fsmem);
   T* dOs = Qs + C::kRows * C::kLd;
@@ -737,11 +753,13 @@ flash_bwd_dq_mma(const Args16<T> a) {
   const int lane = threadIdx.x % 32;
   const int g4 = lane / 4;
   const int t4 = lane % 4;
+  const int strip = warp / W::kParts;  // the warp's 16 query rows
+  const int cb = warp % W::kParts * W::kWidth;  // its first output column
   const int hh = blockIdx.x;
   const int bb = blockIdx.y;
   const int qt = mk.causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
   const int q_start = qt * C::kRows;
-  const int r0 = q_start + 16 * warp;  // the warp's first row
+  const int r0 = q_start + 16 * strip;  // the warp's first row
   const int d = a.d;
   const long long rb = (static_cast<long long>(bb) * a.H + hh) * mk.sq;
   const long long kv_base =
@@ -782,21 +800,24 @@ flash_bwd_dq_mma(const Args16<T> a) {
       ring::cp_async_commit();
     }
 
-    unsigned qf[kKS][1][4];
-    unsigned df[kKS][1][4];
+    // Q's and dO's A fragments: held from the first tile on, or (past d
+    // 128) read at each k16 step
+    constexpr int kA = W::kRegA ? kKS : 1;
+    unsigned qf[kA][1][4];
+    unsigned df[kA][1][4];
+    const T* qw_s = Qs + 16 * strip * C::kLd;
+    const T* dw_s = dOs + 16 * strip * C::kLd;
     for (int it = 0; it < tiles; ++it) {
       ring::cp_async_wait<STAGES - 2>();
       __syncthreads();
       const T* Ks = kv + (it % STAGES) * (C::kStage / 2);
       const T* Vs = Ks + kBK * C::kLd;
       const int c0 = (first + it) * kBK;
-      if (it == 0) {
+      if (W::kRegA && it == 0) {
 #pragma unroll
-        for (int kk = 0; kk < kKS; ++kk) {
-          ring::load_a<1, false>(qf[kk], Qs + 16 * warp * C::kLd, C::kLd,
-                                 16 * kk);
-          ring::load_a<1, false>(df[kk], dOs + 16 * warp * C::kLd, C::kLd,
-                                 16 * kk);
+        for (int kk = 0; kk < kA; ++kk) {
+          ring::load_a<1, false>(qf[kk], qw_s, C::kLd, 16 * kk);
+          ring::load_a<1, false>(df[kk], dw_s, C::kLd, 16 * kk);
         }
       }
       const int next = it + STAGES - 1;
@@ -814,12 +835,15 @@ flash_bwd_dq_mma(const Args16<T> a) {
         for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < kKS; ++kk) {
+        const int ai = W::kRegA ? kk : 0;
+        if (!W::kRegA) ring::load_a<1, false>(qf[ai], qw_s, C::kLd, 16 * kk);
         unsigned fb[kNS / 2][4];
         ring::load_b<kNS, false>(fb, Ks, C::kLd, 16 * kk);
 #pragma unroll
         for (int j = 0; j < kNS; ++j)
-          flash::mma_acc<T>(sc[j], qf[kk][0], fb[j >> 1][2 * (j & 1)],
-                         fb[j >> 1][2 * (j & 1) + 1]);
+          flash::mma_sum<T, W::kAddSums>(sc[j], qf[ai][0],
+                                         fb[j >> 1][2 * (j & 1)],
+                                         fb[j >> 1][2 * (j & 1) + 1]);
       }
 #pragma unroll
       for (int j = 0; j < kNS; ++j)
@@ -842,10 +866,12 @@ flash_bwd_dq_mma(const Args16<T> a) {
           for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
 #pragma unroll
         for (int kk = 0; kk < kKS; ++kk) {
+          const int ai = W::kRegA ? kk : 0;
+          if (!W::kRegA) ring::load_a<1, false>(df[ai], dw_s, C::kLd, 16 * kk);
           unsigned fb[1][4];
           ring::load_b<2, false>(fb, Vs + 16 * c * C::kLd, C::kLd, 16 * kk);
-          flash::mma_acc<T>(dp[0], df[kk][0], fb[0][0], fb[0][1]);
-          flash::mma_acc<T>(dp[1], df[kk][0], fb[0][2], fb[0][3]);
+          flash::mma_sum<T, W::kAddSums>(dp[0], df[ai][0], fb[0][0], fb[0][1]);
+          flash::mma_sum<T, W::kAddSums>(dp[1], df[ai][0], fb[0][2], fb[0][3]);
         }
 #pragma unroll
         for (int j = 0; j < 2; ++j)
@@ -855,7 +881,7 @@ flash_bwd_dq_mma(const Args16<T> a) {
         unsigned sa[4];
         flash::fragment16<2, T>(dp, 0, sa);
         unsigned fb[kNO / 2][4];
-        ring::load_b<kNO, true>(fb, Ks, C::kLd, 16 * c);
+        ring::load_b<kNO, true>(fb, Ks + cb, C::kLd, 16 * c);
 #pragma unroll
         for (int j = 0; j < kNO; ++j)
           flash::mma_acc<T>(dq[j], sa, fb[j >> 1][2 * (j & 1)],
@@ -872,23 +898,24 @@ flash_bwd_dq_mma(const Args16<T> a) {
     T* dst = a.dq + (rb + row) * d;
 #pragma unroll
     for (int j = 0; j < kNO; ++j)
-      flash::store_pair(dst, 8 * j + 2 * t4, d, dq[j][2 * h] * a.scale,
+      flash::store_pair(dst, cb + 8 * j + 2 * t4, d, dq[j][2 * h] * a.scale,
                         dq[j][2 * h + 1] * a.scale);
   }
 }
 
-// 4 warps a block in both passes; at d <= 64 query tiles of 64 rows in the
-// dk/dv ring, at 128 of 32 (the score tiles' registers beside dk and dv),
-// as in Kernel F. The dk/dv ring has 3 stages (F's 2 were 2% slower at
+// 4 warps a block in both passes (8 at d 256, two warps a strip of 16
+// keys or queries); at d <= 64 query tiles of 64 rows in the dk/dv ring,
+// from 128 on of 32 (the score tiles' registers beside dk and dv), as in
+// Kernel F. The dk/dv ring has 3 stages (F's 2 were 2% slower at
 // the T5 cross-attention, where a block walks only two query tiles), the
 // dq ring 2. 16-byte copies need every row start (a multiple of d past a
 // 16-byte aligned base) on a 16-byte boundary.
 template <typename T, int DMAX>
 cudaError_t launch_16(const Args16<T>& a, int b, const T* out, float* delta,
                       cudaStream_t stream) {
-  constexpr int kDkvWarps = 4;
+  constexpr int kDkvWarps = 4 * flash::Cols<DMAX>::kParts;
   constexpr int kDkvStages = 3;
-  constexpr int kDqWarps = 4;
+  constexpr int kDqWarps = 4 * flash::Cols<DMAX>::kParts;
   constexpr int kDqStages = 2;
   constexpr int kBQ = DMAX <= 64 ? 64 : 32;
   using KvC = DkvCfg<DMAX, kDkvWarps, kBQ, kDkvStages>;
@@ -938,7 +965,7 @@ extern "C" int apex_flash_bwd(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  if (d > 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (d > 256) return static_cast<int>(cudaErrorInvalidValue);
   // the 16-bit passes over T (bf16 or fp16), each pointer read as T
   auto run16 = [&](auto* tag) {
     using T = std::remove_pointer_t<decltype(tag)>;
@@ -947,8 +974,9 @@ extern "C" int apex_flash_bwd(const void* q, const void* k, const void* v,
                       l, dl, static_cast<T*>(dq), static_cast<T*>(dk),
                       static_cast<T*>(dv), kvl, h, kvh, d, scale, mask};
     const auto* o = static_cast<const T*>(out);
-    return d <= 64 ? launch_16<T, 64>(a, b, o, dl, st)
-                   : launch_16<T, 128>(a, b, o, dl, st);
+    return d <= 64    ? launch_16<T, 64>(a, b, o, dl, st)
+           : d <= 128 ? launch_16<T, 128>(a, b, o, dl, st)
+                      : launch_16<T, 256>(a, b, o, dl, st);
   };
   cudaError_t err;
   if (dtype == apex::kBF16) {
@@ -959,10 +987,14 @@ extern "C" int apex_flash_bwd(const void* q, const void* k, const void* v,
     const Args a{kvl, b, h, kvh, d, scale, mask};
     auto f = [](const void* p) { return static_cast<const float*>(p); };
     auto w = [](void* p) { return static_cast<float*>(p); };
-    err = d <= 64 ? launch_f32<64>(f(q), f(k), f(v), f(out), f(dout), l, dl,
-                                   w(dq), w(dk), w(dv), a, st)
-                  : launch_f32<128>(f(q), f(k), f(v), f(out), f(dout), l, dl,
-                                    w(dq), w(dk), w(dv), a, st);
+    auto f32 = [&](auto dmax) {
+      return launch_f32<decltype(dmax)::value>(f(q), f(k), f(v), f(out),
+                                               f(dout), l, dl, w(dq), w(dk),
+                                               w(dv), a, st);
+    };
+    err = d <= 64    ? f32(std::integral_constant<int, 64>())
+          : d <= 128 ? f32(std::integral_constant<int, 128>())
+                     : f32(std::integral_constant<int, 256>());
   } else {
     return static_cast<int>(cudaErrorInvalidValue);  // no other type
   }

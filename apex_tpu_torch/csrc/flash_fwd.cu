@@ -60,6 +60,10 @@
 //   rounding (both exact powers of two; l and lse from the unscaled p).
 //   One fp16 p, unsplit, misses 1 fp16 ulp at s 768 as at E's s 1024
 //   (tests/test_torch_fp16.py emulates both plans on the CPU).
+// Past d 128 (DMAX 256) two warps share each 16-row strip and own 128
+// columns of o each, Q's fragments read from shared memory at each k16
+// step (Kernel E's split, flash_mma.cuh Cols): 8-warp blocks of 64 rows,
+// one an SM.
 // Blocks of 4 warps (64 rows), three an SM at 168 registers a thread: at
 // the serving prefill (b 1, 12 heads) E's 128-row blocks would give 12-72
 // blocks on 132 SMs, and they were 11-25% slower at every shape measured
@@ -281,18 +285,20 @@ cudaError_t launch_f32(const FlashArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The 16-bit kernel: 4 warps of 16 query rows, key tiles of kBK through a
-// ring of STAGES (K, V) stages; three blocks an SM at d <= 64 (168
-// registers a thread; the ring's shared memory caps it there), two at 128.
+// The 16-bit kernel: 4 strips of 16 query rows (a warp each, two at d
+// 256), key tiles of kBK through a ring of STAGES (K, V) stages; three
+// blocks an SM at d <= 64 (168 registers a thread; the ring's shared
+// memory caps it there), two at 128, one at 256.
 template <int DMAX, int STAGES>
 struct MmaCfg {
-  static constexpr int kWarps = 4;
+  static constexpr int kWarps = 4 * flash::Cols<DMAX>::kParts;
   static constexpr int kThreads = kWarps * 32;
-  static constexpr int kRows = kWarps * 16;  // query rows a block
+  static constexpr int kRows = 4 * 16;  // query rows a block
   static constexpr int kLd = flash::Tile<DMAX>::kLd;
   static constexpr int kStage = 2 * kBK * kLd;  // K then V, 16-bit
   static constexpr size_t bytes = (kRows * kLd + STAGES * kStage) * 2;
-  static constexpr int kMinBlocks = DMAX <= 64 ? 3 : 2;
+  static constexpr int kMinBlocks = DMAX <= 64 ? 3 : DMAX <= 128 ? 2 : 1;
+  static_assert(bytes <= 232448, "one block fits an SM");
 };
 
 template <typename T, int DMAX, int STAGES, bool VEC>
@@ -307,20 +313,23 @@ flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
   // fp16: p scaled by 2^14 before its split, o by 2^-14 after (above)
   constexpr float kPScale = kF16 ? 16384.f : 1.f;
   constexpr float kOScale = kF16 ? 1.f / 16384.f : 1.f;
+  using W = flash::Cols<DMAX>;
   constexpr int kKS = DMAX / 16;  // k16 steps of Q K^T
   constexpr int kNS = kBK / 8;    // n8 score tiles a warp
-  constexpr int kNO = DMAX / 8;   // n8 output tiles a warp
+  constexpr int kNO = W::kWidth / 8;  // n8 output tiles a warp
   extern __shared__ __align__(16) unsigned char fsmem[];
   T* Qs = reinterpret_cast<T*>(fsmem);
   T* kv = Qs + C::kRows * C::kLd;  // the ring's stages
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const int strip = warp / W::kParts;  // the warp's 16 query rows
+  const int cb = warp % W::kParts * W::kWidth;  // its first output column
   const int hh = blockIdx.x;
   const int bb = blockIdx.y;
   const int qt = mk.causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
   const int q_start = qt * C::kRows;
-  const int r0 = q_start + 16 * warp;  // the warp's first row
+  const int r0 = q_start + 16 * strip;  // the warp's first row
   const long long q_base = (static_cast<long long>(bb) * H + hh) * mk.sq * d;
   const long long kv_base =
       (static_cast<long long>(bb) * KVH + hh / (H / KVH)) * mk.sk * d;
@@ -353,7 +362,10 @@ flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
       ring::cp_async_commit();
     }
 
-    unsigned qf[kKS][1][4];
+    // Q's A fragments: all of them held from the first tile on, or (past
+    // d 128) one at a time, read at each k16 step
+    unsigned qf[W::kRegA ? kKS : 1][1][4];
+    const T* qw_s = Qs + 16 * strip * C::kLd;
     const int g4 = lane / 4;
     const int t4 = lane % 4;
     for (int it = 0; it < tiles; ++it) {
@@ -362,10 +374,10 @@ flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
       const T* Ks = kv + (it % STAGES) * C::kStage;
       const T* Vs = Ks + kBK * C::kLd;
       const int c0 = (first + it) * kBK;
-      if (it == 0) {
+      if (W::kRegA && it == 0) {
 #pragma unroll
         for (int kk = 0; kk < kKS; ++kk)
-          ring::load_a<1, false>(qf[kk], Qs + 16 * warp * C::kLd, C::kLd,
+          ring::load_a<1, false>(qf[W::kRegA ? kk : 0], qw_s, C::kLd,
                                  16 * kk);
       }
       const int next = it + STAGES - 1;
@@ -383,11 +395,13 @@ flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
         for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < kKS; ++kk) {
+        const int qi = W::kRegA ? kk : 0;
+        if (!W::kRegA) ring::load_a<1, false>(qf[qi], qw_s, C::kLd, 16 * kk);
         unsigned fb[kNS / 2][4];
         ring::load_b<kNS, false>(fb, Ks, C::kLd, 16 * kk);
 #pragma unroll
         for (int j = 0; j < kNS; ++j)
-          flash::mma_acc<T>(sc[j], qf[kk][0], fb[j >> 1][2 * (j & 1)],
+          flash::mma_acc<T>(sc[j], qf[qi][0], fb[j >> 1][2 * (j & 1)],
                             fb[j >> 1][2 * (j & 1) + 1]);
       }
 #pragma unroll
@@ -412,7 +426,7 @@ flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
         unsigned hi[4], lo[4];
         flash::p_fragments<kNS, T>(sc, kk, hi, lo);
         unsigned fb[kNO / 2][4];
-        ring::load_b<kNO, true>(fb, Vs, C::kLd, 16 * kk);
+        ring::load_b<kNO, true>(fb, Vs + cb, C::kLd, 16 * kk);
 #pragma unroll
         for (int j = 0; j < kNO; ++j) {
           flash::mma_acc<T>(acc[j], hi, fb[j >> 1][2 * (j & 1)],
@@ -439,9 +453,9 @@ flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
         x *= kOScale;
         y *= kOScale;
       }
-      flash::store_pair(orow, 8 * j + 2 * (lane % 4), d, x, y);
+      flash::store_pair(orow, cb + 8 * j + 2 * (lane % 4), d, x, y);
     }
-    if (lane % 4 == 0)
+    if (lane % 4 == 0 && cb == 0)
       lse[(static_cast<long long>(bb) * H + hh) * mk.sq + row] =
           l[h] > 0.f ? m[h] + logf(l[h]) : kLsePad;
   }
@@ -461,7 +475,7 @@ cudaError_t launch_mma(const FlashArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// 3 ring stages at d <= 64, 2 at 128. 16-byte copies need every row start
+// 3 ring stages at d <= 64, 2 from 128 on. 16-byte copies need every row start
 // (a multiple of d past a 16-byte aligned base) on a 16-byte boundary.
 template <typename T, int DMAX>
 cudaError_t launch_16(const FlashArgs& a, cudaStream_t stream) {
@@ -489,14 +503,23 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                     static_cast<const int*>(kv_lengths), b, h, kvh, d,
                     scale, mask_4d(sq, sk, causal, window)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d > 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (d > 256) return static_cast<int>(cudaErrorInvalidValue);
+  // the instance of the head dim: DMAX 64, 128 or 256
+  auto by_d = [d](auto f64, auto f128, auto f256) {
+    return d <= 64 ? f64() : d <= 128 ? f128() : f256();
+  };
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == apex::kBF16)
-    err = d <= 64 ? launch_16<bf16, 64>(a, s) : launch_16<bf16, 128>(a, s);
+    err = by_d([&] { return launch_16<bf16, 64>(a, s); },
+               [&] { return launch_16<bf16, 128>(a, s); },
+               [&] { return launch_16<bf16, 256>(a, s); });
   else if (dtype == apex::kF16)
-    err = d <= 64 ? launch_16<__half, 64>(a, s)
-                  : launch_16<__half, 128>(a, s);
+    err = by_d([&] { return launch_16<__half, 64>(a, s); },
+               [&] { return launch_16<__half, 128>(a, s); },
+               [&] { return launch_16<__half, 256>(a, s); });
   else if (dtype == apex::kF32)
-    err = d <= 64 ? launch_f32<64>(a, s) : launch_f32<128>(a, s);
+    err = by_d([&] { return launch_f32<64>(a, s); },
+               [&] { return launch_f32<128>(a, s); },
+               [&] { return launch_f32<256>(a, s); });
   return static_cast<int>(err);
 }

@@ -32,6 +32,30 @@ using packed::kNeg;
 using packed::Mask;
 using packed::Opts;
 
+// How the 16-bit kernels lay a warp's work over the head dim. Up to 128
+// columns a warp owns a strip of 16 rows (queries, or keys in the dk/dv
+// passes) and every output column, and holds its Q (and dO) A fragments
+// in registers. At DMAX 256 the fp32 accumulators over all of d (128
+// registers for o or dq, 256 for dk and dv) do not fit beside the score
+// tile, so two warps share each strip: both compute the strip's scores
+// over the whole of d, and each owns half of the output columns; the A
+// fragments of Q and dO are read from shared memory at each k16 step.
+//
+// The backwards' S and dP: up to 128 the tensor cores carry each 128-deep
+// sum; at 256 each 16-deep product is added with an IEEE fp32 add instead
+// (kAddSums, mma_sum below). Carried through 16 products, the tensor
+// cores' sum drifted enough that ds = p (dp - delta), where dp and delta
+// nearly cancel, rounded to a neighbouring fp16 value of the plain
+// version's more often than its rounding slack allows (3 of 60 fp16 runs
+// of Kernel I had an element past it; none with the adds, 16% slower).
+template <int DMAX>
+struct Cols {
+  static constexpr int kParts = DMAX > 128 ? 2 : 1;  // warps a strip
+  static constexpr int kWidth = DMAX / kParts;       // columns a warp owns
+  static constexpr bool kRegA = DMAX <= 128;  // Q / dO fragments in registers
+  static constexpr bool kAddSums = DMAX > 128;  // S, dP summed by IEEE adds
+};
+
 // Shared-memory row length of a tile of DMAX columns: 8 elements of padding
 // put the 8 rows an ldmatrix reads in 8 distinct groups of banks, and
 // keep each row on a 16-byte boundary for cp.async.
@@ -129,6 +153,21 @@ template <typename T = bf16>
 __device__ __forceinline__ void mma_acc(float (&d)[4], const unsigned (&a)[4],
                                         unsigned b0, unsigned b1) {
   Half16<T>::mma(d, a, b0, b1);
+}
+
+// d += a b as mma_acc does, or with ADD the product formed from zero and
+// added to d with an IEEE fp32 add (mma_ring.cuh's way)
+template <typename T, bool ADD>
+__device__ __forceinline__ void mma_sum(float (&d)[4], const unsigned (&a)[4],
+                                        unsigned b0, unsigned b1) {
+  if (ADD) {
+    float t[4];
+    Half16<T>::mma_zero(t, a, b0, b1);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[e] += t[e];
+  } else {
+    Half16<T>::mma(d, a, b0, b1);
+  }
 }
 
 // e^x as 2^(x log2 e): one multiply and the SFU's exp2 (results below
@@ -298,7 +337,7 @@ delta_kernel(const T* __restrict__ dout, const T* __restrict__ out,
     delta[(i % inner) * s + i / inner] = part;
 }
 
-// Launches delta_kernel, 16-byte loads where d is 64 or 128 and every
+// Launches delta_kernel, 16-byte loads where d is 64, 128 or 256 and every
 // row of do and o starts on a 16-byte boundary (`vec`).
 template <class OWNER, typename T>
 cudaError_t launch_delta(const T* dout, const T* out, float* delta,
@@ -313,6 +352,9 @@ cudaError_t launch_delta(const T* dout, const T* out, float* delta,
         dout, out, delta, rows, inner, s, d);
   else if (vec && d == 128)
     delta_kernel<OWNER, 16, T><<<grid(16), kDeltaThreads, 0, stream>>>(
+        dout, out, delta, rows, inner, s, d);
+  else if (vec && d == 256)
+    delta_kernel<OWNER, 32, T><<<grid(32), kDeltaThreads, 0, stream>>>(
         dout, out, delta, rows, inner, s, d);
   else
     delta_kernel<OWNER, 0, T><<<grid(32), kDeltaThreads, 0, stream>>>(

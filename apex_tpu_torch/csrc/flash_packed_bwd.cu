@@ -68,6 +68,14 @@
 // (ldmatrix, mma, exp) more than on one unit, and this occupancy beat
 // fewer or larger blocks, a deeper ring, K and V fragments held in
 // registers and 16-column steps (PERF.md, section 6).
+// Past d 128 (DMAX 256, flash_mma.cuh Cols) dk and dv over all of d
+// would take 256 fp32 registers a thread, and dq 128 beside Q's and dO's
+// 128 of fragments: both passes run 8-warp blocks in which two warps
+// share each strip of 16 keys (or queries), both computing its S^T and
+// dP^T (or S and dP) over the whole of d, and each owning 128 columns of
+// dk and dv (or dq); Q's and dO's fragments are read from shared memory
+// at each k16 step. No atomics still: every output column has one owner.
+// The tensor work becomes 22 d a visible pair; one block an SM.
 // This is seven tile products a visible pair (q k^T and do v^T in both
 // passes): 14 d of tensor work against the algorithm's 10 d, for no
 // atomics and no cross-block sums. FlashAttention-2's single pass with an
@@ -80,7 +88,9 @@
 //
 // f32 (checks only; TF32 would miss their atol of 1e-4), two launches:
 // fp32 tiles in shared memory and fp32 FMA as in Kernel E's f32 path;
-// each thread owns a 4-row x (DMAX / 16)-column accumulator tile.
+// each thread owns a 4-row x (DMAX / 16)-column accumulator tile (2 rows
+// at DMAX 256, where the blocks' own tiles are 32 rows so that they fit
+// the 227 KB of shared memory).
 // - pass 1, one block per (64-row query tile, head, batch): delta for its
 //   rows (written to the [b, H, s] fp32 scratch for pass 2) and dq,
 //   walking the visible key tiles;
@@ -94,37 +104,41 @@ namespace {
 
 using namespace apex::packed;
 
-template <int DMAX>
+// BR: the rows of the block's own tile (queries in pass 1, keys in pass
+// 2): 64, or 32 at DMAX 256, where 64-row tiles would not fit the 227 KB
+// of shared memory; each thread owns BR / 16 of them.
+template <int DMAX, int BR>
 struct DqSmem {
   static constexpr int kRS = DMAX + 4;  // rows read by ty (broadcast)
   static constexpr int kCS = DMAX + 1;  // rows read by tx
   static constexpr int kSS = kBK + 1;
-  static constexpr size_t floats = 2 * kBQ * kRS + 2 * kBK * kCS + kBQ * kSS + 2 * kBQ;
+  static constexpr size_t floats = 2 * BR * kRS + 2 * kBK * kCS + BR * kSS + 2 * BR;
 };
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, int BR>
 __global__ void __launch_bounds__(kThreads)
 flash_packed_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
                        const T* __restrict__ out, const float* __restrict__ lse,
                        float* __restrict__ delta, T* __restrict__ dqkv,
                        const Opts opt) {
-  using S = DqSmem<DMAX>;
+  using S = DqSmem<DMAX, BR>;
   constexpr int kCols = DMAX / 16;
+  constexpr int kR = BR / 16;  // rows a thread
   extern __shared__ float smem[];
-  float* Qs = smem;                    // [kBQ][kRS], reused for dq at the end
-  float* dOs = Qs + kBQ * S::kRS;      // [kBQ][kRS]
-  float* Ks = dOs + kBQ * S::kRS;      // [kBK][kCS]
+  float* Qs = smem;                    // [BR][kRS], reused for dq at the end
+  float* dOs = Qs + BR * S::kRS;       // [BR][kRS]
+  float* Ks = dOs + BR * S::kRS;       // [kBK][kCS]
   float* Vs = Ks + kBK * S::kCS;       // [kBK][kCS]
-  float* dSs = Vs + kBK * S::kCS;      // [kBQ][kSS]
-  float* lse_s = dSs + kBQ * S::kSS;
-  float* delta_s = lse_s + kBQ;
+  float* dSs = Vs + kBK * S::kCS;      // [BR][kSS]
+  float* lse_s = dSs + BR * S::kSS;
+  float* delta_s = lse_s + BR;
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int q_start = blockIdx.x * kBQ;
+  const int q_start = blockIdx.x * BR;
   const int hh = blockIdx.y;
   const int bb = blockIdx.z;
   const int g = hh / opt.qpg;
@@ -137,7 +151,7 @@ flash_packed_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
   const unsigned cmb = combo(bb, hh);
   const long long stat_base = (static_cast<long long>(bb) * heads + hh) * opt.s;
 
-  for (int idx = tid; idx < kBQ * DMAX; idx += kThreads) {
+  for (int idx = tid; idx < BR * DMAX; idx += kThreads) {
     const int r = idx / DMAX;
     const int c = idx % DMAX;
     const int row = q_start + r;
@@ -151,7 +165,7 @@ flash_packed_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
     dOs[r * S::kRS + c] = dov;
   }
   // delta = rowsum(do * o): one warp per row
-  for (int r = warp; r < kBQ; r += kThreads / 32) {
+  for (int r = warp; r < BR; r += kThreads / 32) {
     const int row = q_start + r;
     float part = 0.f;
     if (row < opt.s) {
@@ -167,15 +181,15 @@ flash_packed_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
     }
   }
 
-  float acc[4][kCols];
+  float acc[kR][kCols];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kR; ++i)
 #pragma unroll
     for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
 
   const int kvl = opt.kv_lengths != nullptr ? opt.kv_lengths[bb] : opt.s;
   int j_first, j_last;
-  key_tiles(opt, kvl, q_start, &j_first, &j_last);
+  key_tiles(opt, kvl, q_start, &j_first, &j_last, BR);
   __syncthreads();
 
   for (int jt = j_first; jt <= j_last; ++jt) {
@@ -195,18 +209,18 @@ flash_packed_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
     }
     __syncthreads();
 
-    float sc[4][4];
-    float dp[4][4];
+    float sc[kR][4];
+    float dp[kR][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kR; ++i)
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) sc[i][jj] = dp[i][jj] = 0.f;
     for (int c = 0; c < DMAX; ++c) {
-      float qv[4], dov[4], kv[4], vv[4];
+      float qv[kR], dov[kR], kv[4], vv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = Qs[(ty * 4 + i) * S::kRS + c];
-        dov[i] = dOs[(ty * 4 + i) * S::kRS + c];
+      for (int i = 0; i < kR; ++i) {
+        qv[i] = Qs[(ty * kR + i) * S::kRS + c];
+        dov[i] = dOs[(ty * kR + i) * S::kRS + c];
       }
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
@@ -214,7 +228,7 @@ flash_packed_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
         vv[jj] = Vs[(tx + 16 * jj) * S::kCS + c];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kR; ++i)
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
           sc[i][jj] = fmaf(qv[i], kv[jj], sc[i][jj]);
@@ -222,8 +236,8 @@ flash_packed_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
         }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
+    for (int i = 0; i < kR; ++i) {
+      const int r = ty * kR + i;
       const int row = q_start + r;
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
@@ -244,14 +258,14 @@ flash_packed_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
 
     // dq += ds k
     for (int jj = 0; jj < kBK; ++jj) {
-      float dsv[4];
+      float dsv[kR];
       float kv[kCols];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = dSs[(ty * 4 + i) * S::kSS + jj];
+      for (int i = 0; i < kR; ++i) dsv[i] = dSs[(ty * kR + i) * S::kSS + jj];
 #pragma unroll
       for (int c = 0; c < kCols; ++c) kv[c] = Ks[jj * S::kCS + tx + 16 * c];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kR; ++i)
 #pragma unroll
         for (int c = 0; c < kCols; ++c) acc[i][c] = fmaf(dsv[i], kv[c], acc[i][c]);
     }
@@ -261,14 +275,14 @@ flash_packed_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
   // dq = scale * acc, un-rotated in fp32 (rows mix columns c and c +- rot/2,
   // so the tile goes through shared memory), rounded once
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kR; ++i)
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
-      Qs[(ty * 4 + i) * S::kRS + tx + 16 * c] = acc[i][c] * opt.scale;
+      Qs[(ty * kR + i) * S::kRS + tx + 16 * c] = acc[i][c] * opt.scale;
   __syncthreads();
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
+  for (int i = 0; i < kR; ++i) {
+    const int r = ty * kR + i;
     const int row = q_start + r;
     if (row >= opt.s) continue;
     T* dst = dqkv + lay.q(g, j, row, d);
@@ -280,36 +294,37 @@ flash_packed_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
   }
 }
 
-template <int DMAX>
+template <int DMAX, int BR>
 struct DkvSmem {
   static constexpr int kRS = DMAX + 4;  // K, V: rows read by ty
   static constexpr int kCS = DMAX + 1;  // Q, dO: rows read by tx
   static constexpr int kSS = kBQ + 1;
-  static constexpr size_t floats = 2 * kBK * kRS + 2 * kBQ * kCS + 2 * kBK * kSS + 2 * kBQ;
+  static constexpr size_t floats = 2 * BR * kRS + 2 * kBQ * kCS + 2 * BR * kSS + 2 * kBQ;
 };
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, int BR>
 __global__ void __launch_bounds__(kThreads)
 flash_packed_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dqkv,
                         const Opts opt) {
-  using S = DkvSmem<DMAX>;
+  using S = DkvSmem<DMAX, BR>;
   constexpr int kCols = DMAX / 16;
+  constexpr int kR = BR / 16;  // key rows a thread
   extern __shared__ float smem[];
-  float* Ks = smem;                   // [kBK][kRS], reused for dk at the end
-  float* Vs = Ks + kBK * S::kRS;      // [kBK][kRS]
-  float* Qs = Vs + kBK * S::kRS;      // [kBQ][kCS]
+  float* Ks = smem;                   // [BR][kRS], reused for dk at the end
+  float* Vs = Ks + BR * S::kRS;       // [BR][kRS]
+  float* Qs = Vs + BR * S::kRS;       // [kBQ][kCS]
   float* dOs = Qs + kBQ * S::kCS;     // [kBQ][kCS]
-  float* Ps = dOs + kBQ * S::kCS;     // dropped p^T [kBK][kSS]
-  float* dSs = Ps + kBK * S::kSS;     // ds^T [kBK][kSS]
-  float* lse_s = dSs + kBK * S::kSS;
+  float* Ps = dOs + kBQ * S::kCS;     // dropped p^T [BR][kSS]
+  float* dSs = Ps + BR * S::kSS;      // ds^T [BR][kSS]
+  float* lse_s = dSs + BR * S::kSS;
   float* delta_s = lse_s + kBQ;
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
-  const int k_start = blockIdx.x * kBK;
+  const int k_start = blockIdx.x * BR;
   const int g = blockIdx.y;
   const int bb = blockIdx.z;
   const int d = opt.d;
@@ -318,7 +333,7 @@ flash_packed_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
   const bool drop = opt.seed != nullptr;
   const unsigned seed = drop ? static_cast<unsigned>(opt.seed[0]) : 0u;
 
-  for (int idx = tid; idx < kBK * DMAX; idx += kThreads) {
+  for (int idx = tid; idx < BR * DMAX; idx += kThreads) {
     const int r = idx / DMAX;
     const int c = idx % DMAX;
     const int row = k_start + r;
@@ -332,16 +347,16 @@ flash_packed_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
     Vs[r * S::kRS + c] = vval;
   }
 
-  float dk[4][kCols];
-  float dv[4][kCols];
+  float dk[kR][kCols];
+  float dv[kR][kCols];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kR; ++i)
 #pragma unroll
     for (int c = 0; c < kCols; ++c) dk[i][c] = dv[i][c] = 0.f;
 
   const int kvl = opt.kv_lengths != nullptr ? opt.kv_lengths[bb] : opt.s;
   int i_first, i_last;
-  query_tiles(opt, kvl, k_start, &i_first, &i_last);
+  query_tiles(opt, kvl, k_start, &i_first, &i_last, BR);
 
   for (int jh = 0; jh < opt.qpg; ++jh) {
     const int hh = g * opt.qpg + jh;
@@ -371,19 +386,19 @@ flash_packed_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
       }
       __syncthreads();
 
-      // transposed tile: key rows ty * 4 + i, query columns tx + 16 jj
-      float sc[4][4];
-      float dp[4][4];
+      // transposed tile: key rows ty * kR + i, query columns tx + 16 jj
+      float sc[kR][4];
+      float dp[kR][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kR; ++i)
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) sc[i][jj] = dp[i][jj] = 0.f;
       for (int c = 0; c < DMAX; ++c) {
-        float kv[4], vv[4], qv[4], dov[4];
+        float kv[kR], vv[kR], qv[4], dov[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kv[i] = Ks[(ty * 4 + i) * S::kRS + c];
-          vv[i] = Vs[(ty * 4 + i) * S::kRS + c];
+        for (int i = 0; i < kR; ++i) {
+          kv[i] = Ks[(ty * kR + i) * S::kRS + c];
+          vv[i] = Vs[(ty * kR + i) * S::kRS + c];
         }
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
@@ -391,7 +406,7 @@ flash_packed_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
           dov[jj] = dOs[(tx + 16 * jj) * S::kCS + c];
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < kR; ++i)
 #pragma unroll
           for (int jj = 0; jj < 4; ++jj) {
             sc[i][jj] = fmaf(kv[i], qv[jj], sc[i][jj]);
@@ -399,8 +414,8 @@ flash_packed_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
           }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kr = ty * 4 + i;
+      for (int i = 0; i < kR; ++i) {
+        const int kr = ty * kR + i;
         const int col = k_start + kr;
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
@@ -427,11 +442,11 @@ flash_packed_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
 
       // dv += drop(p)^T do, dk += ds^T q
       for (int qc = 0; qc < kBQ; ++qc) {
-        float pv[4], dsv[4], dov[kCols], qv[kCols];
+        float pv[kR], dsv[kR], dov[kCols], qv[kCols];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pv[i] = Ps[(ty * 4 + i) * S::kSS + qc];
-          dsv[i] = dSs[(ty * 4 + i) * S::kSS + qc];
+        for (int i = 0; i < kR; ++i) {
+          pv[i] = Ps[(ty * kR + i) * S::kSS + qc];
+          dsv[i] = dSs[(ty * kR + i) * S::kSS + qc];
         }
 #pragma unroll
         for (int c = 0; c < kCols; ++c) {
@@ -439,7 +454,7 @@ flash_packed_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
           qv[c] = Qs[qc * S::kCS + tx + 16 * c];
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < kR; ++i)
 #pragma unroll
           for (int c = 0; c < kCols; ++c) {
             dv[i][c] = fmaf(pv[i], dov[c], dv[i][c]);
@@ -452,14 +467,14 @@ flash_packed_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
   // dk = scale * acc, un-rotated in fp32 through shared memory; dv as is
   __syncthreads();
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kR; ++i)
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
-      Ks[(ty * 4 + i) * S::kRS + tx + 16 * c] = dk[i][c] * opt.scale;
+      Ks[(ty * kR + i) * S::kRS + tx + 16 * c] = dk[i][c] * opt.scale;
   __syncthreads();
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
+  for (int i = 0; i < kR; ++i) {
+    const int r = ty * kR + i;
     const int row = k_start + r;
     if (row >= opt.s) continue;
     T* dk_dst = dqkv + lay.k(g, opt.qpg, row, d);
@@ -479,21 +494,22 @@ template <typename T, int DMAX>
 cudaError_t launch(const void* qkv, const void* dout, const void* out,
                    const float* lse, float* delta, void* dqkv, const Opts& opt,
                    cudaStream_t stream) {
-  auto dq_kernel = flash_packed_dq_kernel<T, DMAX>;
-  auto dkv_kernel = flash_packed_dkv_kernel<T, DMAX>;
-  const size_t dq_smem = DqSmem<DMAX>::floats * sizeof(float);
-  const size_t dkv_smem = DkvSmem<DMAX>::floats * sizeof(float);
+  constexpr int kBR = DMAX <= 128 ? 64 : 32;  // the blocks' own rows
+  auto dq_kernel = flash_packed_dq_kernel<T, DMAX, kBR>;
+  auto dkv_kernel = flash_packed_dkv_kernel<T, DMAX, kBR>;
+  const size_t dq_smem = DqSmem<DMAX, kBR>::floats * sizeof(float);
+  const size_t dkv_smem = DkvSmem<DMAX, kBR>::floats * sizeof(float);
   cudaError_t err = apex::allow_smem(dq_kernel, dq_smem);
   if (err != cudaSuccess) return err;
   err = apex::allow_smem(dkv_kernel, dkv_smem);
   if (err != cudaSuccess) return err;
-  const dim3 dq_grid((opt.s + kBQ - 1) / kBQ, opt.groups * opt.qpg, opt.b);
+  const dim3 dq_grid((opt.s + kBR - 1) / kBR, opt.groups * opt.qpg, opt.b);
   dq_kernel<<<dq_grid, kThreads, dq_smem, stream>>>(
       static_cast<const T*>(qkv), static_cast<const T*>(dout),
       static_cast<const T*>(out), lse, delta, static_cast<T*>(dqkv), opt);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 dkv_grid((opt.s + kBK - 1) / kBK, opt.groups, opt.b);
+  const dim3 dkv_grid((opt.s + kBR - 1) / kBR, opt.groups, opt.b);
   dkv_kernel<<<dkv_grid, kThreads, dkv_smem, stream>>>(
       static_cast<const T*>(qkv), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dqkv), opt);
@@ -506,6 +522,7 @@ cudaError_t launch_d(const void* qkv, const void* dout, const void* out,
                      const Opts& opt, cudaStream_t stream) {
   if (opt.d <= 64) return launch<T, 64>(qkv, dout, out, lse, delta, dqkv, opt, stream);
   if (opt.d <= 128) return launch<T, 128>(qkv, dout, out, lse, delta, dqkv, opt, stream);
+  if (opt.d <= 256) return launch<T, 256>(qkv, dout, out, lse, delta, dqkv, opt, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -528,14 +545,15 @@ struct KernelF {};
 template <int DMAX, int WARPS, int BQ, int STAGES>
 struct DkvCfg {
   static constexpr int kThreads = WARPS * 32;
-  static constexpr int kKeys = WARPS * 16;
+  static constexpr int kKeys = WARPS / flash::Cols<DMAX>::kParts * 16;
   static constexpr int kLd = flash::Tile<DMAX>::kLd;
   static constexpr int kOutLd = DMAX + 4;  // fp32 dk rows to un-rotate
   static constexpr int kKV = 2 * kKeys * kLd * 2;
   static constexpr int kStage = 4 * BQ * kLd + 8 * BQ;  // bytes
   static constexpr size_t bytes = kKV + STAGES * kStage;
-  static constexpr int kMinBlocks = DMAX <= 64 ? 3 : 2;  // dk/dv
+  static constexpr int kMinBlocks = DMAX <= 64 ? 3 : DMAX <= 128 ? 2 : 1;  // dk/dv
   static_assert(kKeys * kOutLd * 4 <= bytes, "dk tile fits");
+  static_assert(bytes <= 232448, "one block fits an SM");
   static_assert(2 * BQ <= kThreads, "a thread a lse or delta row");
 };
 
@@ -547,9 +565,10 @@ flash_packed_dkv_mma(const T* __restrict__ qkv, const T* __restrict__ dout,
                      const float* __restrict__ delta, T* __restrict__ dqkv,
                      const Opts opt) {
   using C = DkvCfg<DMAX, WARPS, BQ, STAGES>;
+  using W = flash::Cols<DMAX>;
   constexpr int kKS = DMAX / 16;  // k16 steps over d
   constexpr int kNS = BQ / 8;     // n8 score tiles (queries) a warp
-  constexpr int kNO = DMAX / 8;   // n8 output tiles (columns of d) a warp
+  constexpr int kNO = W::kWidth / 8;  // n8 output tiles (columns of d) a warp
   extern __shared__ __align__(16) unsigned char fsmem[];
   T* Ks = reinterpret_cast<T*>(fsmem);
   T* Vs = Ks + C::kKeys * C::kLd;
@@ -559,10 +578,12 @@ flash_packed_dkv_mma(const T* __restrict__ qkv, const T* __restrict__ dout,
   const int lane = threadIdx.x % 32;
   const int g4 = lane / 4;
   const int t4 = lane % 4;
+  const int strip = warp / W::kParts;  // the warp's 16 keys
+  const int cb = warp % W::kParts * W::kWidth;  // its first output column
   const int grp = blockIdx.x;
   const int bb = blockIdx.y;
   const int k_start = blockIdx.z * C::kKeys;
-  const int kw0 = k_start + 16 * warp;  // the warp's first key
+  const int kw0 = k_start + 16 * strip;  // the warp's first key
   const int d = opt.d;
   const int heads = opt.groups * opt.qpg;
   const Layout lay(opt, bb);
@@ -617,8 +638,8 @@ flash_packed_dkv_mma(const T* __restrict__ qkv, const T* __restrict__ dout,
       ring::cp_async_commit();
     }
 
-    const T* kw_s = Ks + 16 * warp * C::kLd;
-    const T* vw_s = Vs + 16 * warp * C::kLd;
+    const T* kw_s = Ks + 16 * strip * C::kLd;
+    const T* vw_s = Vs + 16 * strip * C::kLd;
     for (int it = 0; it < slices; ++it) {
       ring::cp_async_wait<STAGES - 2>();
       __syncthreads();
@@ -658,8 +679,9 @@ flash_packed_dkv_mma(const T* __restrict__ qkv, const T* __restrict__ dout,
         ring::load_b<kNS, false>(fb, Qs, C::kLd, 16 * kk);
 #pragma unroll
         for (int j = 0; j < kNS; ++j)
-          flash::mma_acc<T>(sc[j], a[0], fb[j >> 1][2 * (j & 1)],
-                         fb[j >> 1][2 * (j & 1) + 1]);
+          flash::mma_sum<T, W::kAddSums>(sc[j], a[0],
+                                         fb[j >> 1][2 * (j & 1)],
+                                         fb[j >> 1][2 * (j & 1) + 1]);
       }
 #pragma unroll
       for (int j = 0; j < kNS; ++j) {
@@ -689,8 +711,8 @@ flash_packed_dkv_mma(const T* __restrict__ qkv, const T* __restrict__ dout,
           ring::load_a<1, false>(a, vw_s, C::kLd, 16 * kk);
           unsigned fb[1][4];
           ring::load_b<2, false>(fb, dOs + 16 * c * C::kLd, C::kLd, 16 * kk);
-          flash::mma_acc<T>(dp[0], a[0], fb[0][0], fb[0][1]);
-          flash::mma_acc<T>(dp[1], a[0], fb[0][2], fb[0][3]);
+          flash::mma_sum<T, W::kAddSums>(dp[0], a[0], fb[0][0], fb[0][1]);
+          flash::mma_sum<T, W::kAddSums>(dp[1], a[0], fb[0][2], fb[0][3]);
         }
         float pd[2][4];
 #pragma unroll
@@ -717,7 +739,7 @@ flash_packed_dkv_mma(const T* __restrict__ qkv, const T* __restrict__ dout,
         flash::fragment16<2, T>(dp, 0, sa);
         {
           unsigned fb[kNO / 2][4];
-          ring::load_b<kNO, true>(fb, dOs, C::kLd, 16 * c);
+          ring::load_b<kNO, true>(fb, dOs + cb, C::kLd, 16 * c);
 #pragma unroll
           for (int j = 0; j < kNO; ++j)
             flash::mma_acc<T>(dv[j], pa, fb[j >> 1][2 * (j & 1)],
@@ -725,7 +747,7 @@ flash_packed_dkv_mma(const T* __restrict__ qkv, const T* __restrict__ dout,
         }
         {
           unsigned fb[kNO / 2][4];
-          ring::load_b<kNO, true>(fb, Qs, C::kLd, 16 * c);
+          ring::load_b<kNO, true>(fb, Qs + cb, C::kLd, 16 * c);
 #pragma unroll
           for (int j = 0; j < kNO; ++j)
             flash::mma_acc<T>(dk[j], sa, fb[j >> 1][2 * (j & 1)],
@@ -737,21 +759,25 @@ flash_packed_dkv_mma(const T* __restrict__ qkv, const T* __restrict__ dout,
   }
 
   // dk = scale * acc, un-rotated in fp32 through shared memory (a row mixes
-  // columns c and c +- rot / 2, held by other lanes); dv as it is
+  // columns c and c +- rot / 2, held by other lanes, or past d 128 by the
+  // strip's other warp); dv as it is
 #pragma unroll
   for (int j = 0; j < kNO; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[j][e] *= opt.scale;
-  float* out_s = reinterpret_cast<float*>(fsmem) + 16 * warp * C::kOutLd;
+  float* out_s = reinterpret_cast<float*>(fsmem) + 16 * strip * C::kOutLd;
   if (opt.rot > 0) {
     __syncthreads();  // every warp is done with K, V and the ring
 #pragma unroll
     for (int j = 0; j < kNO; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        out_s[(g4 + 8 * (e >> 1)) * C::kOutLd + 8 * j + 2 * t4 + (e & 1)] =
-            dk[j][e];
-    __syncwarp();
+        out_s[(g4 + 8 * (e >> 1)) * C::kOutLd + cb + 8 * j + 2 * t4 +
+              (e & 1)] = dk[j][e];
+    if (W::kParts > 1)
+      __syncthreads();
+    else
+      __syncwarp();
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -762,7 +788,7 @@ flash_packed_dkv_mma(const T* __restrict__ qkv, const T* __restrict__ dout,
     const float* r_s = out_s + (g4 + 8 * h) * C::kOutLd;
 #pragma unroll
     for (int j = 0; j < kNO; ++j) {
-      const int col = 8 * j + 2 * t4;
+      const int col = cb + 8 * j + 2 * t4;
       float x = dk[j][2 * h];
       float y = dk[j][2 * h + 1];
       if (opt.rot > 0) {
@@ -780,14 +806,15 @@ flash_packed_dkv_mma(const T* __restrict__ qkv, const T* __restrict__ dout,
 template <int DMAX, int WARPS, int STAGES>
 struct DqCfg {
   static constexpr int kThreads = WARPS * 32;
-  static constexpr int kRows = WARPS * 16;
+  static constexpr int kRows = WARPS / flash::Cols<DMAX>::kParts * 16;
   static constexpr int kLd = flash::Tile<DMAX>::kLd;
   static constexpr int kOutLd = DMAX + 4;  // fp32 dq rows to un-rotate
   static constexpr int kQD = 2 * kRows * kLd * 2;  // Q, then dO, bytes
   static constexpr int kStage = 2 * kBK * kLd * 2;  // K, then V, bytes
   static constexpr size_t bytes = kQD + STAGES * kStage;
-  static constexpr int kMinBlocks = DMAX <= 64 ? 3 : 2;  // dq
+  static constexpr int kMinBlocks = DMAX <= 64 ? 3 : DMAX <= 128 ? 2 : 1;  // dq
   static_assert(kRows * kOutLd * 4 <= kQD, "dq tile fits");
+  static_assert(bytes <= 232448, "one block fits an SM");
 };
 
 template <typename T, int DMAX, int WARPS, int STAGES, bool VEC>
@@ -798,9 +825,10 @@ flash_packed_dq_mma(const T* __restrict__ qkv, const T* __restrict__ dout,
                     const float* __restrict__ delta, T* __restrict__ dqkv,
                     const Opts opt) {
   using C = DqCfg<DMAX, WARPS, STAGES>;
+  using W = flash::Cols<DMAX>;
   constexpr int kKS = DMAX / 16;  // k16 steps over d
   constexpr int kNS = kBK / 8;    // n8 score tiles (keys) a warp
-  constexpr int kNO = DMAX / 8;   // n8 output tiles a warp
+  constexpr int kNO = W::kWidth / 8;  // n8 output tiles a warp
   extern __shared__ __align__(16) unsigned char fsmem[];
   T* Qs = reinterpret_cast<T*>(fsmem);
   T* dOs = Qs + C::kRows * C::kLd;
@@ -810,11 +838,13 @@ flash_packed_dq_mma(const T* __restrict__ qkv, const T* __restrict__ dout,
   const int lane = threadIdx.x % 32;
   const int g4 = lane / 4;
   const int t4 = lane % 4;
+  const int strip = warp / W::kParts;  // the warp's 16 query rows
+  const int cb = warp % W::kParts * W::kWidth;  // its first output column
   const int hh = blockIdx.x;
   const int bb = blockIdx.y;
   const int qt = opt.causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
   const int q_start = qt * C::kRows;
-  const int r0 = q_start + 16 * warp;  // the warp's first row
+  const int r0 = q_start + 16 * strip;  // the warp's first row
   const int grp = hh / opt.qpg;
   const int d = opt.d;
   const int heads = opt.groups * opt.qpg;
@@ -866,8 +896,13 @@ flash_packed_dq_mma(const T* __restrict__ qkv, const T* __restrict__ dout,
       ring::cp_async_commit();
     }
 
-    unsigned qf[kKS][1][4];
-    unsigned df[kKS][1][4];
+    // Q's and dO's A fragments: held from the first tile on, or (past d
+    // 128) read at each k16 step
+    constexpr int kA = W::kRegA ? kKS : 1;
+    unsigned qf[kA][1][4];
+    unsigned df[kA][1][4];
+    const T* qw_s = Qs + 16 * strip * C::kLd;
+    const T* dw_s = dOs + 16 * strip * C::kLd;
     for (int it = 0; it < tiles; ++it) {
       ring::cp_async_wait<STAGES - 2>();
       __syncthreads();
@@ -880,13 +915,11 @@ flash_packed_dq_mma(const T* __restrict__ qkv, const T* __restrict__ dout,
         flash::rope_tile<kBK, C::kThreads>(Ks, C::kLd, c0, opt);
         __syncthreads();
       }
-      if (it == 0) {
+      if (W::kRegA && it == 0) {
 #pragma unroll
-        for (int kk = 0; kk < kKS; ++kk) {
-          ring::load_a<1, false>(qf[kk], Qs + 16 * warp * C::kLd, C::kLd,
-                                 16 * kk);
-          ring::load_a<1, false>(df[kk], dOs + 16 * warp * C::kLd, C::kLd,
-                                 16 * kk);
+        for (int kk = 0; kk < kA; ++kk) {
+          ring::load_a<1, false>(qf[kk], qw_s, C::kLd, 16 * kk);
+          ring::load_a<1, false>(df[kk], dw_s, C::kLd, 16 * kk);
         }
       }
       const int next = it + STAGES - 1;
@@ -904,12 +937,15 @@ flash_packed_dq_mma(const T* __restrict__ qkv, const T* __restrict__ dout,
         for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < kKS; ++kk) {
+        const int ai = W::kRegA ? kk : 0;
+        if (!W::kRegA) ring::load_a<1, false>(qf[ai], qw_s, C::kLd, 16 * kk);
         unsigned fb[kNS / 2][4];
         ring::load_b<kNS, false>(fb, Ks, C::kLd, 16 * kk);
 #pragma unroll
         for (int j = 0; j < kNS; ++j)
-          flash::mma_acc<T>(sc[j], qf[kk][0], fb[j >> 1][2 * (j & 1)],
-                         fb[j >> 1][2 * (j & 1) + 1]);
+          flash::mma_sum<T, W::kAddSums>(sc[j], qf[ai][0],
+                                         fb[j >> 1][2 * (j & 1)],
+                                         fb[j >> 1][2 * (j & 1) + 1]);
       }
 #pragma unroll
       for (int j = 0; j < kNS; ++j)
@@ -932,10 +968,12 @@ flash_packed_dq_mma(const T* __restrict__ qkv, const T* __restrict__ dout,
           for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
 #pragma unroll
         for (int kk = 0; kk < kKS; ++kk) {
+          const int ai = W::kRegA ? kk : 0;
+          if (!W::kRegA) ring::load_a<1, false>(df[ai], dw_s, C::kLd, 16 * kk);
           unsigned fb[1][4];
           ring::load_b<2, false>(fb, Vs + 16 * c * C::kLd, C::kLd, 16 * kk);
-          flash::mma_acc<T>(dp[0], df[kk][0], fb[0][0], fb[0][1]);
-          flash::mma_acc<T>(dp[1], df[kk][0], fb[0][2], fb[0][3]);
+          flash::mma_sum<T, W::kAddSums>(dp[0], df[ai][0], fb[0][0], fb[0][1]);
+          flash::mma_sum<T, W::kAddSums>(dp[1], df[ai][0], fb[0][2], fb[0][3]);
         }
 #pragma unroll
         for (int j = 0; j < 2; ++j)
@@ -953,7 +991,7 @@ flash_packed_dq_mma(const T* __restrict__ qkv, const T* __restrict__ dout,
         unsigned sa[4];
         flash::fragment16<2, T>(dp, 0, sa);
         unsigned fb[kNO / 2][4];
-        ring::load_b<kNO, true>(fb, Ks, C::kLd, 16 * c);
+        ring::load_b<kNO, true>(fb, Ks + cb, C::kLd, 16 * c);
 #pragma unroll
         for (int j = 0; j < kNO; ++j)
           flash::mma_acc<T>(dq[j], sa, fb[j >> 1][2 * (j & 1)],
@@ -968,16 +1006,19 @@ flash_packed_dq_mma(const T* __restrict__ qkv, const T* __restrict__ dout,
   for (int j = 0; j < kNO; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq[j][e] *= opt.scale;
-  float* out_s = reinterpret_cast<float*>(fsmem) + 16 * warp * C::kOutLd;
+  float* out_s = reinterpret_cast<float*>(fsmem) + 16 * strip * C::kOutLd;
   if (opt.rot > 0) {
     __syncthreads();  // every warp is done with Q and dO
 #pragma unroll
     for (int j = 0; j < kNO; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        out_s[(g4 + 8 * (e >> 1)) * C::kOutLd + 8 * j + 2 * t4 + (e & 1)] =
-            dq[j][e];
-    __syncwarp();
+        out_s[(g4 + 8 * (e >> 1)) * C::kOutLd + cb + 8 * j + 2 * t4 +
+              (e & 1)] = dq[j][e];
+    if (W::kParts > 1)
+      __syncthreads();
+    else
+      __syncwarp();
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -987,7 +1028,7 @@ flash_packed_dq_mma(const T* __restrict__ qkv, const T* __restrict__ dout,
     const float* r_s = out_s + (g4 + 8 * h) * C::kOutLd;
 #pragma unroll
     for (int j = 0; j < kNO; ++j) {
-      const int col = 8 * j + 2 * t4;
+      const int col = cb + 8 * j + 2 * t4;
       float x = dq[j][2 * h];
       float y = dq[j][2 * h + 1];
       if (opt.rot > 0) {
@@ -999,17 +1040,18 @@ flash_packed_dq_mma(const T* __restrict__ qkv, const T* __restrict__ dout,
   }
 }
 
-// 4 warps a block in both passes; at d <= 64 query tiles of 64 rows in the
-// dk/dv ring, at 128 of 32 (the score tiles' registers beside dk and dv).
+// 4 warps a block in both passes (8 at d 256, two warps a strip of 16
+// keys or queries); at d <= 64 query tiles of 64 rows in the dk/dv ring,
+// from 128 on of 32 (the score tiles' registers beside dk and dv).
 // 16-byte copies need every row start (a multiple of d past a 16-byte
 // aligned base) on a 16-byte boundary.
 template <typename T, int DMAX>
 cudaError_t launch_mma(const void* qkv, const void* dout, const void* out,
                        float* delta, const float* lse, void* dqkv,
                        const Opts& opt, cudaStream_t stream) {
-  constexpr int kDkvWarps = 4;
+  constexpr int kDkvWarps = 4 * flash::Cols<DMAX>::kParts;
   constexpr int kDkvStages = 2;
-  constexpr int kDqWarps = 4;
+  constexpr int kDqWarps = 4 * flash::Cols<DMAX>::kParts;
   constexpr int kDqStages = 2;
   constexpr int kBQ = DMAX <= 64 ? 64 : 32;
   using KvC = DkvCfg<DMAX, kDkvWarps, kBQ, kDkvStages>;
@@ -1058,6 +1100,8 @@ cudaError_t launch_16(const void* qkv, const void* dout, const void* out,
     return launch_mma<T, 64>(qkv, dout, out, delta, lse, dqkv, opt, stream);
   if (opt.d <= 128)
     return launch_mma<T, 128>(qkv, dout, out, delta, lse, dqkv, opt, stream);
+  if (opt.d <= 256)
+    return launch_mma<T, 256>(qkv, dout, out, delta, lse, dqkv, opt, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -65,6 +65,13 @@
 // - the tensor cores carry the sums of S and o across the products (an
 //   fp32 add after each product, as mma_ring.cuh does, cost 7% at the
 //   GPT-2 shape); o = acc / l is rounded once to T.
+// Head dims past 128 (DMAX 256, flash_mma.cuh Cols): o over all of d
+// would take 128 fp32 registers a thread beside S's 32 and Q's 64, so two
+// warps share each 16-row strip, both computing the strip's S and softmax
+// over the whole of d (bitwise alike) and each owning 128 columns of o and
+// P V; Q's fragments are read from shared memory at each k16 step. 8 warps
+// make 64-row blocks, 2 ring stages, 168,960 bytes of shared memory, one
+// block an SM; the tensor work is 8 d a visible pair in place of 6 d.
 // Registers are capped at 128 a thread at d <= 64 so that two blocks fit
 // an SM: the kernel waits on latency (ldmatrix, mma, exp) more than on
 // any one unit, and 16 resident warps beat the few bytes it spills.
@@ -78,7 +85,8 @@
 // overlapped with the next tile's products is the next step.
 //
 // f32 (checks only; TF32 would miss their atol of 1e-4): one 256-thread
-// block per (64-row query tile, head, batch); the rotated query tile stays
+// block per (64-row query tile, head, batch; 215,296 bytes of shared
+// memory at DMAX 256); the rotated query tile stays
 // in shared memory as fp32; the block walks the visible 64-key tiles with
 // an online softmax, S = Q K^T and P V in fp32 FMA, each thread owning a
 // 4 x (DMAX / 16) output tile.
@@ -293,6 +301,7 @@ cudaError_t launch_d(const void* qkv, void* o, float* lse, const Opts& opt,
                      cudaStream_t stream) {
   if (opt.d <= 64) return launch<T, 64>(qkv, o, lse, opt, stream);
   if (opt.d <= 128) return launch<T, 128>(qkv, o, lse, opt, stream);
+  if (opt.d <= 256) return launch<T, 256>(qkv, o, lse, opt, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -301,7 +310,8 @@ cudaError_t launch_d(const void* qkv, void* o, float* lse, const Opts& opt,
 template <int DMAX, int WARPS, int STAGES>
 struct MmaCfg {
   static constexpr int kThreads = WARPS * 32;
-  static constexpr int kRows = WARPS * 16;  // query rows a block
+  static constexpr int kParts = flash::Cols<DMAX>::kParts;  // warps a strip
+  static constexpr int kRows = WARPS / kParts * 16;  // query rows a block
   static constexpr int kLd = flash::Tile<DMAX>::kLd;
   static constexpr int kStage = 2 * kBK * kLd;  // K then V, 16-bit
   static constexpr size_t bytes = (kRows * kLd + STAGES * kStage) * 2;
@@ -309,6 +319,7 @@ struct MmaCfg {
   // kernel waits on latency more than on any one unit, so occupancy wins
   // over the few bytes it spills
   static constexpr int kMinBlocks = DMAX <= 64 ? 2 : 1;
+  static_assert(bytes <= 232448, "one block fits an SM");
 };
 
 template <typename T, int DMAX, int WARPS, int STAGES, bool VEC>
@@ -318,20 +329,23 @@ flash_packed_fwd_mma(const T* __restrict__ qkv, T* __restrict__ o,
                      float* __restrict__ lse, const Opts opt) {
   using C = MmaCfg<DMAX, WARPS, STAGES>;
   constexpr bool kF16 = std::is_same<T, __half>::value;
+  using W = flash::Cols<DMAX>;
   constexpr int kKS = DMAX / 16;  // k16 steps of Q K^T
   constexpr int kNS = kBK / 8;    // n8 score tiles a warp
-  constexpr int kNO = DMAX / 8;   // n8 output tiles a warp
+  constexpr int kNO = W::kWidth / 8;  // n8 output tiles a warp
   extern __shared__ __align__(16) unsigned char fsmem[];
   T* Qs = reinterpret_cast<T*>(fsmem);
   T* kv = Qs + C::kRows * C::kLd;  // the ring's stages
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const int strip = warp / W::kParts;  // the warp's 16 query rows
+  const int cb = warp % W::kParts * W::kWidth;  // its first output column
   const int hh = blockIdx.x;
   const int bb = blockIdx.y;
   const int qt = opt.causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
   const int q_start = qt * C::kRows;
-  const int r0 = q_start + 16 * warp;  // the warp's first row
+  const int r0 = q_start + 16 * strip;  // the warp's first row
   const int g = hh / opt.qpg;
   const int d = opt.d;
   const Layout lay(opt, bb);
@@ -376,7 +390,10 @@ flash_packed_fwd_mma(const T* __restrict__ qkv, T* __restrict__ o,
       ring::cp_async_commit();
     }
 
-    unsigned qf[kKS][1][4];
+    // Q's A fragments: all of them held from the first tile on, or (past
+    // d 128) one at a time, read at each k16 step
+    unsigned qf[W::kRegA ? kKS : 1][1][4];
+    const T* qw_s = Qs + 16 * strip * C::kLd;
     const int g4 = lane / 4;
     const int t4 = lane % 4;
     for (int it = 0; it < tiles; ++it) {
@@ -391,10 +408,10 @@ flash_packed_fwd_mma(const T* __restrict__ qkv, T* __restrict__ o,
         flash::rope_tile<kBK, C::kThreads>(Ks, C::kLd, c0, opt);
         __syncthreads();
       }
-      if (it == 0) {
+      if (W::kRegA && it == 0) {
 #pragma unroll
         for (int kk = 0; kk < kKS; ++kk)
-          ring::load_a<1, false>(qf[kk], Qs + 16 * warp * C::kLd, C::kLd,
+          ring::load_a<1, false>(qf[W::kRegA ? kk : 0], qw_s, C::kLd,
                                  16 * kk);
       }
       const int next = it + STAGES - 1;
@@ -412,11 +429,13 @@ flash_packed_fwd_mma(const T* __restrict__ qkv, T* __restrict__ o,
         for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < kKS; ++kk) {
+        const int qi = W::kRegA ? kk : 0;
+        if (!W::kRegA) ring::load_a<1, false>(qf[qi], qw_s, C::kLd, 16 * kk);
         unsigned fb[kNS / 2][4];
         ring::load_b<kNS, false>(fb, Ks, C::kLd, 16 * kk);
 #pragma unroll
         for (int j = 0; j < kNS; ++j)
-          flash::mma_acc<T>(sc[j], qf[kk][0], fb[j >> 1][2 * (j & 1)],
+          flash::mma_acc<T>(sc[j], qf[qi][0], fb[j >> 1][2 * (j & 1)],
                             fb[j >> 1][2 * (j & 1) + 1]);
       }
 #pragma unroll
@@ -452,7 +471,7 @@ flash_packed_fwd_mma(const T* __restrict__ qkv, T* __restrict__ o,
         unsigned hi[4], lo[4];
         flash::p_fragments<kNS, T>(sc, kk, hi, lo);
         unsigned fb[kNO / 2][4];
-        ring::load_b<kNO, true>(fb, Vs, C::kLd, 16 * kk);
+        ring::load_b<kNO, true>(fb, Vs + cb, C::kLd, 16 * kk);
 #pragma unroll
         for (int j = 0; j < kNO; ++j) {
           flash::mma_acc<T>(acc[j], hi, fb[j >> 1][2 * (j & 1)],
@@ -474,7 +493,7 @@ flash_packed_fwd_mma(const T* __restrict__ qkv, T* __restrict__ o,
     T* orow = o + out_index(opt, bb, hh, row);
 #pragma unroll
     for (int j = 0; j < kNO; ++j) {
-      const int col = 8 * j + 2 * (lane % 4);
+      const int col = cb + 8 * j + 2 * (lane % 4);
       float x = acc[j][2 * h] * inv;
       float y = acc[j][2 * h + 1] * inv;
       if (kF16) {
@@ -483,7 +502,7 @@ flash_packed_fwd_mma(const T* __restrict__ qkv, T* __restrict__ o,
       }
       flash::store_pair(orow, col, d, x, y);
     }
-    if (lane % 4 == 0)
+    if (lane % 4 == 0 && cb == 0)
       lse[(static_cast<long long>(bb) * heads + hh) * opt.s + row] =
           l[h] > 0.f ? m[h] + logf(l[h]) : kLsePad;
   }
@@ -503,7 +522,8 @@ cudaError_t launch_mma(const void* qkv, void* o, float* lse, const Opts& opt,
   return cudaGetLastError();
 }
 
-// 8 warps (128 query rows a block); 3 ring stages at d <= 64, 2 at 128.
+// 8 warps (128 query rows a block; 64 at d 256, two warps a strip); 3
+// ring stages at d <= 64, 2 from 128 on.
 // 16-byte copies need every row start (a multiple of d past a 16-byte
 // aligned base) on a 16-byte boundary.
 template <typename T, int DMAX>
@@ -525,6 +545,7 @@ cudaError_t launch_16(const void* qkv, void* o, float* lse, const Opts& opt,
                       cudaStream_t stream) {
   if (opt.d <= 64) return launch_mma_vec<T, 64>(qkv, o, lse, opt, stream);
   if (opt.d <= 128) return launch_mma_vec<T, 128>(qkv, o, lse, opt, stream);
+  if (opt.d <= 256) return launch_mma_vec<T, 256>(qkv, o, lse, opt, stream);
   return cudaErrorInvalidValue;
 }
 

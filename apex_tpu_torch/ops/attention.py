@@ -98,8 +98,8 @@ def flash_fwd_cuda(q, k, v, kv_lengths, scale: float, causal: bool,
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v dtypes differ: {q.dtype} {k.dtype} {v.dtype}")
     code = _support.dtype_code(q.dtype, "Kernel B (flash_fwd_cuda)")
-    if d > 128:
-        raise ValueError(f"head_dim {d} > 128 is not supported by the kernel")
+    if d > 256:
+        raise ValueError(f"head_dim {d} > 256 is not supported by the kernel")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if kv_lengths is not None:
         kv_lengths = kv_lengths.to(device=q.device,
@@ -199,8 +199,8 @@ def flash_bwd_cuda(q, k, v, do, o, lse, kv_lengths, scale: float,
         raise TypeError(f"q/k/v/o dtypes differ: {q.dtype} {k.dtype} "
                         f"{v.dtype} {o.dtype}")
     code = _support.dtype_code(q.dtype, "Kernel I (flash_bwd_cuda)")
-    if d > 128:
-        raise ValueError(f"head_dim {d} > 128 is not supported by the kernel")
+    if d > 256:
+        raise ValueError(f"head_dim {d} > 256 is not supported by the kernel")
     q, k, v, o = q.contiguous(), k.contiguous(), v.contiguous(), \
         o.contiguous()
     do = do.contiguous().to(q.dtype)
@@ -310,10 +310,10 @@ def packed_attention_supported(s: int, num_groups: int,
                                queries_per_group: int,
                                head_dim: int) -> bool:
     """Whether :func:`flash_attention_packed` takes this shape: True for
-    every shape the port's kernels take (head_dim up to 128, any length,
+    every shape the port's kernels take (head_dim up to 256, any length,
     any group count), on any device — as the JAX package's plain path
     takes any shape."""
-    return 0 < head_dim <= 128 and s > 0 and num_groups > 0 \
+    return 0 < head_dim <= 256 and s > 0 and num_groups > 0 \
         and queries_per_group > 0
 
 
@@ -577,8 +577,8 @@ def flash_packed_fwd_cuda(qkv, kv_lengths, rope, seed, rate: float,
     s, b, w = qkv.shape
     g = w // ((qpg + 2) * d)
     code = _support.dtype_code(qkv.dtype, "Kernel E (flash_packed_fwd_cuda)")
-    if d > 128:
-        raise ValueError(f"head_dim {d} > 128 is not supported by the kernel")
+    if d > 256:
+        raise ValueError(f"head_dim {d} > 256 is not supported by the kernel")
     qkv = qkv.contiguous()
     o = torch.empty((s, b, g * qpg * d), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b, g * qpg, s), dtype=torch.float32,
@@ -607,8 +607,8 @@ def flash_packed_bwd_cuda(qkv, do, o, lse, kv_lengths, rope, seed,
     code = _support.dtype_code(qkv.dtype, "Kernel F (flash_packed_bwd_cuda)")
     if o.dtype != qkv.dtype:
         raise TypeError(f"o ({o.dtype}) and qkv ({qkv.dtype}) dtypes differ")
-    if d > 128:
-        raise ValueError(f"head_dim {d} > 128 is not supported by the kernel")
+    if d > 256:
+        raise ValueError(f"head_dim {d} > 256 is not supported by the kernel")
     qkv, do, o = qkv.contiguous(), do.contiguous().to(qkv.dtype), \
         o.contiguous()
     lse = lse.contiguous()

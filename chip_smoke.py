@@ -234,7 +234,37 @@ printing its own lines and raising on failure:
               a padding mask under O2 in fp16 with FusedLAMB, and a small
               encoder-decoder with enc_lengths under O2 in fp16 with
               FusedAdam: scaler states equal, losses within
-              ``AMP_FP16_LOSS_RTOL``.
+              ``AMP_FP16_LOSS_RTOL``;
+25. flash_hd256 — Kernels E, F, B and I past head_dim 128 against their
+              plain versions in f32, bf16 and fp16 (E and B o within 1
+              ulp, F and I 1 ulp plus the rounding slack, at most 0.1% /
+              0.8% past 1 ulp; 16-bit runs bitwise repeatable, sha256
+              printed): E and F at Gemma-2B's training shape (qkv [1024,
+              2, 2560], 8 query heads of 256 over one K/V head, causal,
+              RoPE over 256; timed beside SDPA), with a window, kv_lengths
+              with a 0 row and dropout, and at head_dim 160; B and I at q
+              [2, 8, 2048, 256] over one K/V head, causal (timed beside
+              SDPA; driven once through ``flash_attention``'s autograd,
+              the main path of I at 256, ``[flash_hd256_autograd]``), and
+              at head_dim 160, 200 and 196 (the element-by-element
+              copies); Kernel C's d-256 cases (8 query heads over one K/V
+              head; int8 pools, a w = 4 window) run in phase 5;
+26. gemma2b_train — a GPT at Gemma-2B's widths and 18 layers (hidden
+              2048, 8 query heads of 256 over one K/V head, geglu 16384,
+              RMSNorm, RoPE, vocab 256000; bf16 over fp32 params, weights
+              from a seed, the init's seconds printed) takes 2 + 8 steps at
+              b 2 x 1024 with FusedAdam: the loss falls and Kernels A, D,
+              E and F launch 37, 37, 18 and 18 times a step, B and I 0;
+    gemma2b_serve — the same model, its optimizer state dropped, serves 8
+              greedy requests in bf16 (prompts 64-700, 32 new tokens, 8
+              slots of 768, pages of 64): every request ends
+              ``length``/``eos``, A > 0, B 18 a prefill and C 18 a decode
+              step at head_dim 256, every other kernel 0;
+27. hd256 card vs CPU — a tiny f32 GPT at head_dim 256 (2 layers, hidden
+              512, 2 query heads over one K/V head, geglu, RMSNorm, RoPE)
+              trains 3 steps on the card and the CPU (losses and
+              gradients as phase 12) and serves 3 greedy requests on both
+              with the same tokens.
 
 Then one JSON line of per-kernel numbers (launches from the phase that
 drives each kernel's slice: serve for A-C, serve_int8 and serve_spec for
@@ -243,7 +273,9 @@ t5_train for I, rn50_train for J-M and SGD, train_amp for the unscale
 and Adam kernels, bert_train for LAMB and the norms, train_fp16 for the
 fp16 records of A, D, E and F, serve_fp16 for those of B and C,
 bert_train_fp16 for those of G and H, t5_train_fp16 for I's,
-rn50_train_fp16 for J-M's, with every path's counts in
+rn50_train_fp16 for J-M's, gemma2b_train for E's and F's head_dim-256
+records, gemma2b_serve for B's and C's, flash_hd256 for I's, with every
+path's counts in
 ``launches_by_path``;
 times from CUDA events in this run; ``bound_ms`` from this run's shapes
 over the H100's published peaks), and last ``{"ok": true, "device":
@@ -312,6 +344,27 @@ T5_KERNELS = {"layer_norm_fwd": 62, "layer_norm_bwd": 62,
 RN50_BATCH, RN50_SIZE = 256, 224
 RN50_KERNELS = {"conv1x1_fwd": 36, "conv1x1_bwd": 36, "conv3x3_fwd": 13,
                 "conv3x3_bwd": 13}
+#: Gemma-2B's widths (google/gemma-2b config.json: hidden 2048, 8 query
+#: heads of 256 over one K/V head, a gated GELU MLP of 16384, 18 layers,
+#: vocab 256000, RMSNorm eps 1e-6, RoPE theta 10000, 8192 positions) on the
+#: repo's GPT blocks (its biases, plain RMSNorm weight and exact GELU);
+#: launches a training step: 2 RMSNorms a layer + final, one packed
+#: attention a layer (head_dim 256 takes Kernels E and F)
+GEMMA = dict(num_layers=18, hidden_size=2048, num_attention_heads=8,
+             num_query_groups=1, ffn_hidden_size=16384, activation="geglu",
+             normalization="rmsnorm", position_embedding_type="rope",
+             rope_theta=10000.0, layernorm_epsilon=1e-6, vocab_size=256000,
+             max_position_embeddings=8192)
+GEMMA_BATCH, GEMMA_SEQ = 2, 1024
+GEMMA_KERNELS = {"layer_norm_fwd": 37, "layer_norm_bwd": 37,
+                 "flash_packed_fwd": 18, "flash_packed_bwd": 18}
+#: the tiny head_dim-256 GPT of tests/test_torch_hd256.py (2 query heads
+#: of 256 over one K/V head, geglu, RMSNorm, RoPE)
+HD256_SMALL = dict(num_layers=2, hidden_size=512, num_attention_heads=2,
+                   num_query_groups=1, activation="geglu",
+                   normalization="rmsnorm", position_embedding_type="rope",
+                   vocab_size=128, max_position_embeddings=128,
+                   hidden_dropout=0.0, attention_dropout=0.0)
 
 
 def log(phase: str, **fields) -> None:
@@ -959,6 +1012,10 @@ DECODE_CASES = [
      (torch.bfloat16, torch.float32), True),
     ("element_dh60", 8, 12, 1, 60, 64, 12, (63, 64, 200, 700) * 2, None,
      (torch.bfloat16,), False),
+    # Gemma-2B's decode: 8 query heads over one K/V head at head_dim 256
+    # (bf16 in _decode_hd256, timed)
+    ("mqa_dh256", 8, 8, 8, 256, 64, 12, (63, 64, 200, 700) * 2, None,
+     (torch.float32,), False),
 ]
 
 
@@ -988,6 +1045,15 @@ DECODE_WINDOW_CASES = [
      4, False, "element", False),
     ("element_dh60_int8_w4", 8, 12, 1, 60, 64, 12, (63, 64, 200, 700) * 2,
      None, 4, True, "element", False),
+    # Gemma-2B's decode (8 query heads over one K/V head at head_dim 256):
+    # int8 pools, a w = 4 window (32 query rows a kv head: four chunks of
+    # _MAX_HEADS) and both
+    ("mqa_dh256_int8", 8, 8, 8, 256, 64, 12, (63, 64, 200, 700) * 2, None,
+     1, True, "vector", False),
+    ("mqa_dh256_w4", 8, 8, 8, 256, 64, 12, (63, 64, 200, 700) * 2, None, 4,
+     False, "vector", False),
+    ("mqa_dh256_int8_w4", 8, 8, 8, 256, 64, 12, (63, 64, 200, 700) * 2,
+     None, 4, True, "vector", False),
 ]
 #: the timed window cases that print a kernel record: C's int8 and window
 #: variants at the serve shape
@@ -1110,10 +1176,44 @@ def phase_decode(timer: Timer) -> list:
                 raise AssertionError(f"paged_decode {name} {dtype}: "
                                      f"{plan.path} path")
             del args
+    records.append(_decode_hd256(timer, g))
     records += _decode_window_phase(timer, g)
     _decode_window_phase(timer, g, torch.float16)
     torch.cuda.empty_cache()
     return records
+
+
+def _decode_hd256(timer: Timer, g) -> dict:
+    """Kernel C at ``[gemma2b_serve]``'s decode: b 8, 8 query heads over
+    one K/V head at head_dim 256, bf16 pools of 64-row pages, timed cold
+    beside its plain version and bound (the record ``paged_decode_hd256``)."""
+    from apex_tpu_torch.ops.decode_attention import (decode_plain,
+                                                     paged_decode_cuda)
+    b, hl, group, dh, ps, pps = 8, 8, 8, 256, 64, 12
+    positions = (63, 64, 200, 700) * 2
+    dtype = torch.bfloat16
+    q, kp, vp, pt, pos = _decode_inputs(b, hl, group, dh, ps, pps, positions,
+                                        dtype, g)
+    err, plan, _ = _decode_check("mqa_dh256_timed", q, kp, vp, pt, pos,
+                                 group, None)
+    rows = _decode_rows(positions, ps, pps, None)
+    bms, by = bound_ms(_decode_bytes(q, pt, positions, ps, hl // group,
+                                     None), 4.0 * dh * hl * rows, dtype)
+    ms = timer(lambda: paged_decode_cuda(q, kp, vp, pt, pos, group, None),
+               cold=True)
+    plain = timer(lambda: decode_plain(q, kp, vp, pt, pos, group, None),
+                  cold=True, iters=10)
+    log("kernel_c", case="mqa_dh256", shape=f"b{b} heads{hl} kvh1 dh{dh} "
+        f"page{ps}", positions=list(positions[:4]), dtype="bfloat16",
+        max_abs_err=f"{err:.3e}", ms=f"{ms:.5f}", plain_ms=f"{plain:.5f}",
+        library_ms=None, bound_ms=f"{bms:.5f}", bound_by=by, rows_read=rows,
+        plan=_decode_plan_text(plan))
+    return dict(name="paged_decode_hd256", route="cuda",
+                source="apex_tpu_torch/csrc/paged_decode.cu",
+                replaces="apex_tpu/ops/decode_attention.py:272",
+                shape=f"b{b} heads{hl} kvh1 dh{dh} page{ps} bfloat16 cold L2",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=None)
 
 
 #: (rows, h, dtype, RMSNorm): the training block's LN, bf16 x and dy over
@@ -1923,6 +2023,324 @@ def phase_flash_bwd(timer: Timer) -> list:
         raise AssertionError("kernel i fp16 overflow: the row with "
                              "kv_length 0 has gradients")
     return [records["flash_bwd"], records["flash_bwd_fp16"]]
+
+
+#: Kernels E and F past head_dim 128: (name, b, s, groups, qpg, d, causal,
+#: kv_lengths, window, rot, rate) — Gemma-2B's training shape (8 query
+#: heads of 256 over one K/V head, RoPE over all 256 columns; timed), a
+#: window, kv_lengths with a 0 row, dropout, and head_dim 160 (GQA 2:1)
+HD256_PACKED = [
+    ("gemma2b_train", GEMMA_BATCH, GEMMA_SEQ, 1, 8, 256, True, None, None,
+     256, 0.0),
+    ("window_256", 1, 1024, 1, 8, 256, True, None, 256, 256, 0.0),
+    ("kv_lengths_0", 3, 512, 1, 8, 256, False, [512, 200, 0], None, 256,
+     0.0),
+    ("dropout_0.1", 2, 512, 1, 8, 256, True, None, None, 256, 0.1),
+    ("d160", 2, 512, 2, 2, 160, True, None, None, 160, 0.0),
+]
+#: Kernels B and I past head_dim 128: (name, b, h, kvh, sq, sk, d, causal,
+#: kv_lengths, window) — JAX's 4D route at Gemma-2B's widths past s 1024
+#: (timed), head_dim 160 with GQA and kv_lengths, 200 (a 16-byte row with
+#: its last piece past d) and 196 (d % 8 != 0: the element-by-element
+#: copies) with a window
+HD256_FLASH = [
+    ("gemma2b_4d", 2, 8, 1, 2048, 2048, 256, True, None, None),
+    ("d160_gqa_kv_lengths", 2, 8, 2, 512, 512, 160, True, [512, 300], None),
+    ("d200", 2, 4, 1, 300, 300, 200, True, None, None),
+    ("d196_element_window", 1, 4, 2, 260, 260, 196, True, None, 64),
+]
+
+
+def _half_check(kname, case, got, want, slack) -> tuple:
+    """One output of a 16-bit flash kernel against its plain version:
+    ``check_close`` (1 ulp) for a forward (``slack`` None), else
+    ``check_rounded_factors``; f32 atol 1e-4. Raises on failure; returns
+    (max abs err, ulps, share past 1 ulp)."""
+    if got.dtype == torch.float32 or slack is None:
+        ulps, ok, tol = check_close(got, want)
+        err, past = float((got.float() - want.float()).abs().max()), 0.0
+    else:
+        err, ulps, past, excess, ok = check_rounded_factors(got, want, slack)
+        tol = f"1 ulp + factor rounding (excess {excess:.3e})"
+    if not ok or not torch.isfinite(got).all():
+        raise AssertionError(f"kernel {kname} {case} {got.dtype}: max err "
+                             f"{err} ({ulps} ulp, {past:.2e} past 1 ulp) — "
+                             f"tolerance {tol}")
+    return err, ulps, past
+
+
+def _hd256_packed(timer: Timer, gen) -> list:
+    """:data:`HD256_PACKED` in f32, bf16 and fp16: E (o 1 ulp, lse 1e-4)
+    and F (1 ulp plus the rounding slack, at most 0.1% / 0.8% past 1 ulp)
+    against the plain versions, a kv_length-0 row zero, every 16-bit case
+    two runs bitwise equal, sha256 of o and dqkv printed; Gemma-2B's
+    shape timed in bf16 and fp16 beside SDPA (E: its forward; F: its
+    backward, and forward + backward). Returns the bf16 records."""
+    from apex_tpu_torch.ops.attention import (
+        flash_packed_bwd_cuda, flash_packed_bwd_plain,
+        flash_packed_bwd_rounding_slack, flash_packed_fwd_cuda,
+        flash_packed_fwd_plain)
+    from apex_tpu_torch.ops.rope import rope_freqs, rope_tables
+    recs = []
+    for (name, b, s, groups, qpg, d, causal, kvl, window, rot,
+         rate) in HD256_PACKED:
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            qkv = torch.randn(s, b, groups * (qpg + 2) * d, device="cuda",
+                              generator=gen).to(dtype)
+            do = torch.randn(s, b, groups * qpg * d, device="cuda",
+                             generator=gen).to(dtype)
+            kvl_t = None if kvl is None else torch.tensor(kvl, device="cuda")
+            rope = rope_tables(rope_freqs(0, s, rot, 10000.0,
+                                          device="cuda"), s, d)
+            args = (kvl_t, rope, DROPOUT_SEED if rate else None, rate,
+                    1.0 / math.sqrt(d), causal, window, qpg, d)
+            o, lse = flash_packed_fwd_cuda(qkv, *args)
+            ro, rlse = flash_packed_fwd_plain(qkv, *args)
+            dqkv = flash_packed_bwd_cuda(qkv, do, ro, rlse, *args)
+            rdqkv = flash_packed_bwd_plain(qkv, do, ro, rlse, *args)
+            half = dtype != torch.float32
+            slack = (flash_packed_bwd_rounding_slack(qkv, do, ro, rlse, *args)
+                     if half else None)
+            torch.cuda.synchronize()
+            e_err, e_ulps, _ = _half_check("e", name, o, ro, None)
+            f_err, f_ulps, f_past = _half_check("f", name, dqkv, rdqkv,
+                                                slack)
+            lse_err = float((lse - rlse).abs().max())
+            if lse_err > 1e-4:
+                raise AssertionError(f"kernel e {name} {dtype}: lse err "
+                                     f"{lse_err}")
+            if kvl is not None and 0 in kvl:
+                row = kvl.index(0)
+                if o[:, row].any() or dqkv[:, row].any():
+                    raise AssertionError(f"kernel e/f {name}: the batch row "
+                                         f"with kv_length 0 is not zero")
+            same = None
+            if half:
+                same = torch.equal(o, flash_packed_fwd_cuda(qkv, *args)[0]) \
+                    and torch.equal(dqkv, flash_packed_bwd_cuda(
+                        qkv, do, ro, rlse, *args))
+                if not same:
+                    raise AssertionError(f"kernel e/f {name} {dtype}: two "
+                                         f"runs differ")
+            fields = {}
+            if name == "gemma2b_train" and half:
+                heads = groups * qpg
+                esz = qkv.element_size()
+                pairs = b * _visible_pairs(s, s, causal, window, s)
+                bms_e, by_e = bound_ms((qkv.numel() + o.numel()) * esz
+                                       + lse.numel() * 4,
+                                       4.0 * d * heads * pairs, dtype)
+                bms_f, by_f = bound_ms((2 * qkv.numel() + 2 * o.numel())
+                                       * esz + lse.numel() * 4,
+                                       10.0 * d * heads * pairs, dtype)
+                ms_e = timer(lambda: flash_packed_fwd_cuda(qkv, *args),
+                             iters=10)
+                ms_f = timer(lambda: flash_packed_bwd_cuda(
+                    qkv, do, ro, rlse, *args), iters=10)
+                plain_e = timer(lambda: flash_packed_fwd_plain(qkv, *args),
+                                iters=5, warmup=1)
+                plain_f = timer(lambda: flash_packed_bwd_plain(
+                    qkv, do, ro, rlse, *args), iters=5, warmup=1)
+                q4, k4, v4 = _packed_unpacked(qkv, b, s, groups, qpg, d)
+                gqa = dict(enable_gqa=True)
+                lib_e = timer(lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=True, **gqa))
+                q4, k4, v4 = (t.requires_grad_() for t in (q4, k4, v4))
+                out4 = F.scaled_dot_product_attention(q4, k4, v4,
+                                                      is_causal=True, **gqa)
+                do4 = do.reshape(s, b, heads, d).permute(1, 2, 0, 3) \
+                    .contiguous()
+                lib_f = timer(lambda: torch.autograd.grad(
+                    out4, (q4, k4, v4), do4, retain_graph=True))
+                lib_fb = timer(lambda: torch.autograd.grad(
+                    F.scaled_dot_product_attention(q4, k4, v4,
+                                                   is_causal=True, **gqa),
+                    (q4, k4, v4), do4))
+                fields = dict(e_ms=f"{ms_e:.5f}", e_plain_ms=f"{plain_e:.5f}",
+                              e_library_ms=f"{lib_e:.5f}",
+                              e_bound_ms=f"{bms_e:.5f}", e_bound_by=by_e,
+                              f_ms=f"{ms_f:.5f}", f_plain_ms=f"{plain_f:.5f}",
+                              f_library_ms=f"{lib_f:.5f}",
+                              f_library_fwd_bwd_ms=f"{lib_fb:.5f}",
+                              f_bound_ms=f"{bms_f:.5f}", f_bound_by=by_f)
+                if dtype == torch.bfloat16:
+                    shape = f"qkv[{s},{b},{qkv.shape[-1]}] bf16 causal rot{rot}"
+                    recs.append(dict(
+                        name="flash_packed_fwd_hd256", route="cuda",
+                        source="apex_tpu_torch/csrc/flash_packed_fwd.cu",
+                        replaces="apex_tpu/ops/attention.py:832",
+                        shape=shape, max_abs_err=e_err, ms=ms_e,
+                        plain_ms=plain_e, bound_ms=bms_e, bound_by=by_e,
+                        library_ms=lib_e))
+                    recs.append(dict(
+                        name="flash_packed_bwd_hd256", route="cuda",
+                        source="apex_tpu_torch/csrc/flash_packed_bwd.cu",
+                        replaces="apex_tpu/ops/attention.py:885",
+                        shape=shape, max_abs_err=f_err, ms=ms_f,
+                        plain_ms=plain_f, bound_ms=bms_f, bound_by=by_f,
+                        library_ms=lib_f))
+                del q4, k4, v4, out4, do4
+            log("flash_hd256", kernels="e,f", case=name,
+                shape=f"b{b} s{s} groups{groups} qpg{qpg} d{d}",
+                causal=causal, window=window,
+                kv_lengths=None if kvl is None else
+                json.dumps(kvl).replace(" ", ""), rot=rot, rate=rate,
+                dtype=str(dtype)[6:], e_max_abs_err=f"{e_err:.3e}",
+                e_ulps=e_ulps, lse_err=f"{lse_err:.2e}",
+                f_max_abs_err=f"{f_err:.3e}", f_ulps=f_ulps,
+                f_share_past_1_ulp=f"{f_past:.2e}", repeat_bitwise=same,
+                o_sha256=digest(o), dqkv_sha256=digest(dqkv), **fields)
+            del qkv, do, o, lse, ro, rlse, dqkv, rdqkv, slack
+    return recs
+
+
+def _hd256_flash(timer: Timer, gen) -> tuple:
+    """:data:`HD256_FLASH` in f32, bf16 and fp16 through the wrappers of
+    Kernels B and I, each against its plain version (B's o 1 ulp and lse
+    1e-4, I 1 ulp plus the rounding slack), every 16-bit case two runs
+    bitwise equal, sha256 printed; Gemma-2B's 4D shape timed in bf16 and
+    fp16 beside SDPA (its forward; its backward), and driven once through
+    ``flash_attention``'s autograd with the launch counts read around it.
+    Returns (the bf16 records, those counts)."""
+    from apex_tpu_torch.ops import LAUNCHES, flash_attention, reset_launches
+    from apex_tpu_torch.ops.attention import (flash_bwd_cuda,
+                                              flash_bwd_plain,
+                                              flash_bwd_rounding_slack,
+                                              flash_fwd_cuda,
+                                              flash_fwd_plain)
+    recs, launches = [], None
+    for name, b, h, kvh, sq, sk, d, causal, kvl, window in HD256_FLASH:
+        kvl_t = None if kvl is None else torch.tensor(kvl, device="cuda")
+        args = (kvl_t, 1.0 / math.sqrt(d), causal, window)
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            q = torch.randn(b, h, sq, d, device="cuda", generator=gen).to(
+                dtype)
+            k, v = (torch.randn(b, kvh, sk, d, device="cuda",
+                                generator=gen).to(dtype) for _ in range(2))
+            do = torch.randn(b, h, sq, d, device="cuda", generator=gen).to(
+                dtype)
+            o, lse = flash_fwd_cuda(q, k, v, *args)
+            ro, rlse = flash_fwd_plain(q.float(), k.float(), v.float(), *args)
+            got = flash_bwd_cuda(q, k, v, do, o, lse, *args)
+            want = flash_bwd_plain(q, k, v, do, o, lse, *args)
+            half = dtype != torch.float32
+            slack = (flash_bwd_rounding_slack(q, k, v, do, o, lse, *args)
+                     if half else (None,) * 3)
+            torch.cuda.synchronize()
+            b_err, b_ulps, _ = _half_check("b", name, o, ro.to(dtype), None)
+            lse_err = float((lse - rlse).abs().max())
+            if lse_err > 1e-4:
+                raise AssertionError(f"kernel b {name} {dtype}: lse err "
+                                     f"{lse_err}")
+            i_err = i_ulps = i_past = 0.0
+            for g_, w_, sl in zip(got, want, slack):
+                e_, u_, p_ = _half_check("i", name, g_, w_, sl)
+                i_err, i_ulps, i_past = (max(i_err, e_), max(i_ulps, u_),
+                                         max(i_past, p_))
+            same = None
+            if half:
+                same = torch.equal(o, flash_fwd_cuda(q, k, v, *args)[0]) and \
+                    all(torch.equal(a, g_) for a, g_ in zip(
+                        flash_bwd_cuda(q, k, v, do, o, lse, *args), got))
+                if not same:
+                    raise AssertionError(f"kernel b/i {name} {dtype}: two "
+                                         f"runs differ")
+            fields = {}
+            if name == "gemma2b_4d" and half:
+                esz = q.element_size()
+                pairs = b * _visible_pairs(sq, sk, causal, window, sk)
+                bms_b, by_b = bound_ms((2 * q.numel() + 2 * k.numel()) * esz
+                                       + lse.numel() * 4,
+                                       4.0 * d * h * pairs, dtype)
+                bms_i, by_i = bound_ms((4 * q.numel() + 4 * k.numel()) * esz
+                                       + lse.numel() * 4,
+                                       10.0 * d * h * pairs, dtype)
+                ms_b = timer(lambda: flash_fwd_cuda(q, k, v, *args),
+                             iters=10)
+                ms_i = timer(lambda: flash_bwd_cuda(q, k, v, do, o, lse,
+                                                    *args), iters=10)
+                plain_b = timer(lambda: flash_fwd_plain(q, k, v, *args),
+                                iters=5, warmup=1)
+                plain_i = timer(lambda: flash_bwd_plain(q, k, v, do, o, lse,
+                                                        *args),
+                                iters=5, warmup=1)
+                gqa = dict(enable_gqa=True)
+                lib_b = timer(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, **gqa))
+                q4, k4, v4 = (t.detach().clone().requires_grad_()
+                              for t in (q, k, v))
+                out4 = F.scaled_dot_product_attention(q4, k4, v4,
+                                                      is_causal=True, **gqa)
+                lib_i = timer(lambda: torch.autograd.grad(
+                    out4, (q4, k4, v4), do, retain_graph=True))
+                fields = dict(b_ms=f"{ms_b:.5f}", b_plain_ms=f"{plain_b:.5f}",
+                              b_library_ms=f"{lib_b:.5f}",
+                              b_bound_ms=f"{bms_b:.5f}", b_bound_by=by_b,
+                              i_ms=f"{ms_i:.5f}", i_plain_ms=f"{plain_i:.5f}",
+                              i_library_ms=f"{lib_i:.5f}",
+                              i_bound_ms=f"{bms_i:.5f}", i_bound_by=by_i)
+                del q4, k4, v4, out4
+                if dtype == torch.bfloat16:
+                    shape = (f"q[{b},{h},{sq},{d}] k,v[{b},{kvh},{sk},{d}] "
+                             "bf16 causal")
+                    recs.append(dict(
+                        name="flash_fwd_hd256", route="cuda",
+                        source="apex_tpu_torch/csrc/flash_fwd.cu",
+                        replaces="apex_tpu/ops/attention.py:266",
+                        shape=shape, max_abs_err=b_err, ms=ms_b,
+                        plain_ms=plain_b, bound_ms=bms_b, bound_by=by_b,
+                        library_ms=lib_b))
+                    recs.append(dict(
+                        name="flash_bwd_hd256", route="cuda",
+                        source="apex_tpu_torch/csrc/flash_bwd.cu",
+                        replaces="apex_tpu/ops/attention.py:438",
+                        shape=shape, max_abs_err=i_err, ms=ms_i,
+                        plain_ms=plain_i, bound_ms=bms_i, bound_by=by_i,
+                        library_ms=lib_i))
+                    # the main path: flash_attention's autograd, counted
+                    qa, ka, va = (t.detach().clone().requires_grad_()
+                                  for t in (q, k, v))
+                    torch.cuda.synchronize()
+                    reset_launches()
+                    flash_attention(qa, ka, va, causal=True).backward(do)
+                    torch.cuda.synchronize()
+                    launches = dict(LAUNCHES)
+                    if launches["flash_fwd"] != 1 or \
+                            launches["flash_bwd"] != 1:
+                        raise AssertionError(f"flash_hd256 autograd: "
+                                             f"launches {launches}")
+                    if not (torch.equal(qa.grad, got[0])
+                            and torch.equal(ka.grad, got[1])
+                            and torch.equal(va.grad, got[2])):
+                        raise AssertionError("flash_hd256 autograd: grads "
+                                             "differ from the wrapper's")
+                    log("flash_hd256_autograd", shape=shape.replace(" ", "_"),
+                        launches=json.dumps(launches).replace(" ", ""))
+                    del qa, ka, va
+            log("flash_hd256", kernels="b,i", case=name,
+                shape=f"b{b} h{h} kvh{kvh} sq{sq} sk{sk} d{d}",
+                causal=causal, window=window,
+                kv_lengths=None if kvl is None else
+                json.dumps(kvl).replace(" ", ""), dtype=str(dtype)[6:],
+                b_max_abs_err=f"{b_err:.3e}", b_ulps=b_ulps,
+                lse_err=f"{lse_err:.2e}", i_max_abs_err=f"{i_err:.3e}",
+                i_ulps=i_ulps, i_share_past_1_ulp=f"{i_past:.2e}",
+                repeat_bitwise=same, o_sha256=digest(o),
+                sha256=digest(torch.cat([t.reshape(-1) for t in got])),
+                **fields)
+            del q, k, v, do, o, lse, ro, rlse, got, want, slack
+    return recs, launches
+
+
+def phase_flash_hd256(timer: Timer) -> tuple:
+    """Kernels E, F, B and I past head_dim 128 (``[flash_hd256]`` lines):
+    returns (records, the launches of ``flash_attention``'s autograd at
+    Gemma-2B's 4D shape, the main path of ``flash_bwd_hd256``)."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    recs = _hd256_packed(timer, gen)
+    flash_recs, launches = _hd256_flash(timer, gen)
+    torch.cuda.empty_cache()
+    return recs + flash_recs, launches
 
 
 def rel_norm(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -3021,6 +3439,132 @@ def phase_train(profile: bool = False) -> dict:
                        lambda: dict(steps=2, batch=TRAIN_BATCH,
                                     seq=TRAIN_SEQ))
     return launches
+
+
+def phase_gemma2b(profile: bool = False) -> dict:
+    """A GPT at Gemma-2B's widths and depth (:data:`GEMMA`; bf16 compute
+    over fp32 params, weights from a seed) takes 2 + 8 steps of
+    ``make_train_step`` with FusedAdam lr 1e-4 at b 2, s 1024
+    (``[gemma2b_train]``: Kernels A, D, E and F launched 37, 37, 18 and 18
+    times a step, B and I 0; the loss falls), then, with the optimizer's
+    state dropped, serves 8 greedy requests of ``PROMPT_LENS`` prompts and
+    32 new tokens in bf16 through ``InferenceEngine`` (``[gemma2b_serve]``:
+    A, B at head_dim 256 for the prefills, C at head_dim 256 with 8 query
+    rows over one K/V head for the decode steps). Returns the launches of
+    both paths."""
+    from apex_tpu_torch.models import TransformerConfig
+    from apex_tpu_torch.ops import LAUNCHES, reset_launches
+    from apex_tpu_torch.serving import EngineConfig, InferenceEngine
+    torch.cuda.empty_cache()
+    cfg = TransformerConfig(**GEMMA, hidden_dropout=0.0,
+                            attention_dropout=0.0,
+                            params_dtype=torch.float32,
+                            compute_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    model, step = _train_model(cfg, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = _train_batch(cfg, GEMMA_BATCH, GEMMA_SEQ, "cuda")
+    tokens = GEMMA_BATCH * GEMMA_SEQ
+    losses, times, launches, peak = _timed_steps(step, batch)
+    per_step = dict(GEMMA_KERNELS,
+                    **optimizer_launches_per_step(step.optimizer))
+    _report_train("gemma2b_train", "gemma-2b-widths bf16/fp32 random-init",
+                  losses, times, launches, peak, per_step, tokens,
+                  transformer_train_flops(n_params, tokens,
+                                          GEMMA["num_layers"],
+                                          GEMMA["hidden_size"], GEMMA_SEQ,
+                                          causal=True),
+                  batch=GEMMA_BATCH, seq=GEMMA_SEQ, n_params=n_params,
+                  head_dim=256, init_s=f"{init_s:.1f}")
+    report_optimizer("gemma2b_train", step.optimizer)
+    if profile:
+        profile_device("gemma2b_train",
+                       lambda: [step(batch) for _ in range(2)],
+                       lambda: dict(steps=2, batch=GEMMA_BATCH,
+                                    seq=GEMMA_SEQ))
+    paths = {"gemma2b_train": launches}
+    del step, batch
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    ecfg = EngineConfig(max_slots=8, max_len=768, page_size=64,
+                        prefix_cache=False)
+    InferenceEngine(model, ecfg).serve(_requests(2, cfg.vocab_size, 4, 9))
+    engine = InferenceEngine(model, ecfg)
+    requests = _requests(8, cfg.vocab_size, 32, 1)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    results = engine.serve(requests)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    bad = [r.finish_reason for r in results
+           if r.finish_reason not in ("length", "eos")]
+    if len(results) != 8 or bad:
+        raise AssertionError(f"gemma2b_serve: {len(results)} results, bad "
+                             f"finish reasons {bad}")
+    counters = engine.metrics.counters()
+    steps, prefills = counters["decode_steps"], counters["prefills"]
+    want = {k: 0 for k in ALL_KERNELS}
+    want.update(flash_fwd=GEMMA["num_layers"] * prefills,
+                paged_decode=GEMMA["num_layers"] * steps,
+                layer_norm_fwd=launches["layer_norm_fwd"])
+    if launches != want or launches["layer_norm_fwd"] <= 0:
+        raise AssertionError(f"gemma2b_serve: launches {launches}, expected "
+                             f"{want} (A > 0)")
+    n_tok = sum(len(r.tokens) for r in results)
+    ttft = sorted(r.ttft_s for r in results)
+    step_h = engine.metrics.histogram("decode_step_s")
+    log("gemma2b_serve", model="gemma-2b-widths bf16 random-init",
+        requests=8, tokens=n_tok, wall_s=f"{wall:.3f}",
+        tokens_per_s=f"{n_tok / wall:.1f}",
+        ttft_p50_ms=f"{1e3 * ttft[len(ttft) // 2]:.2f}",
+        decode_ms_per_step=f"{1e3 * step_h.sum / step_h.count:.3f}",
+        decode_steps=steps, prefills=prefills,
+        launches=json.dumps(launches).replace(" ", ""))
+    if profile:
+        profile_serve(model, ecfg)
+    paths["gemma2b_serve"] = launches
+    del engine, model
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_hd256_card_vs_cpu() -> None:
+    """The tiny head_dim-256 GPT (:data:`HD256_SMALL`, f32, TF32 off)
+    trains 3 steps on the card (Kernels E and F at DMAX 256 in f32) and on
+    the CPU: losses and step-1 gradients to ``_card_vs_cpu``'s bar; then
+    serves greedy requests through the engine on both (B and C at head_dim
+    256): the tokens are equal."""
+    from apex_tpu_torch.models import GPTModel, TransformerConfig
+    from apex_tpu_torch.serving import EngineConfig, InferenceEngine, Request
+    cfg = TransformerConfig(**HD256_SMALL)
+
+    def build(device):
+        model, step = _train_model(cfg, device, seed=2)
+        return model, step, _train_batch(cfg, 2, 64, device, seed=3)
+
+    _card_vs_cpu("hd256_card_vs_cpu", build, layers=2, hidden=512,
+                 head_dim=256)
+    g = torch.Generator().manual_seed(5)
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = GPTModel(cfg, device=device,
+                         generator=torch.Generator().manual_seed(0))
+        reqs = [Request(prompt=torch.randint(0, cfg.vocab_size, (n,),
+                                             generator=g.manual_seed(n))
+                        .tolist(), max_new_tokens=8) for n in (20, 37, 64)]
+        eng = InferenceEngine(model, EngineConfig(
+            max_slots=4, max_len=128, page_size=16, prefix_cache=False),
+            device=device)
+        out[device] = [r.tokens for r in eng.serve(reqs)]
+    if out["cuda"] != out["cpu"] or any(len(t) != 8 for t in out["cuda"]):
+        raise AssertionError(f"hd256 card vs CPU greedy tokens differ: {out}")
+    log("hd256_card_vs_cpu", serve="greedy", requests=3,
+        tokens=json.dumps(out["cuda"]).replace(" ", ""), equal=True)
 
 
 def _bert_model(cfg, device, seed=0):
@@ -4330,7 +4874,12 @@ MAIN_PATH = {"layer_norm_fwd": "serve", "flash_fwd": "serve",
              "conv1x1_fwd_fp16": "rn50_train_fp16",
              "conv1x1_bwd_fp16": "rn50_train_fp16",
              "conv3x3_fwd_fp16": "rn50_train_fp16",
-             "conv3x3_bwd_fp16": "rn50_train_fp16"}
+             "conv3x3_bwd_fp16": "rn50_train_fp16",
+             "flash_packed_fwd_hd256": "gemma2b_train",
+             "flash_packed_bwd_hd256": "gemma2b_train",
+             "flash_fwd_hd256": "gemma2b_serve",
+             "flash_bwd_hd256": "flash_hd256",
+             "paged_decode_hd256": "gemma2b_serve"}
 #: the launch counter of a record that names a variant of a kernel
 COUNTER = {"paged_decode_int8": "paged_decode",
            "paged_decode_window": "paged_decode",
@@ -4346,7 +4895,12 @@ COUNTER = {"paged_decode_int8": "paged_decode",
            "conv1x1_fwd_fp16": "conv1x1_fwd",
            "conv1x1_bwd_fp16": "conv1x1_bwd",
            "conv3x3_fwd_fp16": "conv3x3_fwd",
-           "conv3x3_bwd_fp16": "conv3x3_bwd"}
+           "conv3x3_bwd_fp16": "conv3x3_bwd",
+           "flash_packed_fwd_hd256": "flash_packed_fwd",
+           "flash_packed_bwd_hd256": "flash_packed_bwd",
+           "flash_fwd_hd256": "flash_fwd",
+           "flash_bwd_hd256": "flash_bwd",
+           "paged_decode_hd256": "paged_decode"}
 
 
 def main() -> int:
@@ -4371,6 +4925,8 @@ def main() -> int:
                *phase_packed(timer), *phase_softmax(timer),
                *phase_flash_bwd(timer), *phase_conv(timer),
                *phase_multi_tensor(timer)]
+    hd256_records, hd256_launches = phase_flash_hd256(timer)
+    records += hd256_records
     paths = {"serve": phase_serve(args.profile)}
     for name, knobs, kind in SERVE_FEATURES:
         paths[name] = phase_serve_feature(name, knobs, kind, args.profile)
@@ -4393,6 +4949,9 @@ def main() -> int:
     paths["rn50_train"] = phase_rn50_train(args.profile)
     paths["rn50_train_fp16"] = phase_rn50_train_fp16(args.profile)
     phase_rn50_card_vs_cpu()
+    paths["flash_hd256"] = hd256_launches
+    paths.update(phase_gemma2b(args.profile))
+    phase_hd256_card_vs_cpu()
     for rec in records:
         name = rec["name"]
         counter = COUNTER.get(name, name)

@@ -60,12 +60,16 @@ from apex_tpu_torch.ops.attention import (
     _visible,
     drop_combo,
     flash_attention_packed,
+    flash_bwd_cuda,
     flash_bwd_factors,
     flash_bwd_plain,
     flash_bwd_rounding_slack,
+    flash_fwd_cuda,
     flash_fwd_plain,
+    flash_packed_bwd_cuda,
     flash_packed_bwd_plain,
     flash_packed_bwd_rounding_slack,
+    flash_packed_fwd_cuda,
     flash_packed_fwd_plain,
     hash_keep,
     packed_attention_supported,
@@ -585,13 +589,31 @@ def test_packed_bwd_plain_matches_autograd_of_plain_fwd(name):
 
 def test_packed_gate_and_errors():
     """The port's gate takes every shape its kernels take (head_dim up to
-    128, any length and group count), where the JAX Pallas gate also needs
-    128-lane cells; the geometry helper is the JAX package's."""
+    256, any length and group count), where the JAX Pallas gate also needs
+    128-lane cells; the geometry helper is the JAX package's. Past 256
+    the gate says no and each kernel wrapper raises before any launch."""
     assert packed_geometry(16, 1, 64) == jatt.packed_geometry(16, 1, 64)
     assert packed_geometry(3, 1, 64) is None
     assert packed_attention_supported(2048, 3, 1, 64)
     assert packed_attention_supported(197, 16, 1, 128)
-    assert not packed_attention_supported(64, 2, 1, 256)
+    assert packed_attention_supported(64, 2, 1, 256)
+    assert packed_attention_supported(64, 1, 8, 256) == \
+        jatt.packed_attention_supported(64, 1, 8, 256)
+    assert not packed_attention_supported(64, 2, 1, 264)
+    d = 264
+    qkv = torch.zeros(8, 1, 3 * d)
+    q, o, lse = torch.zeros(1, 1, 8, d), torch.zeros(8, 1, d), \
+        torch.zeros(1, 1, 8)
+    for call in (
+            lambda: flash_fwd_cuda(q, q, q, None, 0.1, True),
+            lambda: flash_bwd_cuda(q, q, q, q, q, lse[0, None], None, 0.1,
+                                   True),
+            lambda: flash_packed_fwd_cuda(qkv, None, None, None, 0.0, 0.1,
+                                          True, None, 1, d),
+            lambda: flash_packed_bwd_cuda(qkv, o, o, lse, None, None, None,
+                                          0.0, 0.1, True, None, 1, d)):
+        with pytest.raises(ValueError, match="head_dim 264 > 256"):
+            call()
     qkv = torch.zeros(8, 1, 2 * 3 * 16)
     with pytest.raises(ValueError, match="multiple"):
         flash_attention_packed(qkv, queries_per_group=2, head_dim=16)

@@ -186,6 +186,11 @@ FLASH = {
     "head_dim_128": (2, 4, 4, 129, 129, 128, True, None, None),
     # bf16 copies element by element (d % 8 != 0), GQA, a length
     "head_dim_36_gqa": (2, 4, 2, 77, 100, 36, True, [100, 61], None),
+    # past 128 (DMAX 256: two warps a strip): MQA 8:1 with a length, a
+    # 16-byte row whose last pieces lie past d, and the element path
+    "head_dim_256_mqa": (2, 8, 1, 130, 130, 256, True, [100, 130], None),
+    "head_dim_200_window": (1, 4, 2, 150, 150, 200, True, None, 40),
+    "head_dim_196_gqa": (2, 4, 2, 70, 90, 196, False, [90, 33], None),
 }
 
 
@@ -598,6 +603,12 @@ PACKED = {
     # every feature across several of the backward's 64-key blocks
     "s257_gqa_window_rope_dropout": (2, 257, 2, 2, 64, True, None, 100, 64,
                                      0.1),
+    # past 128: Gemma-2B's MQA 8:1 with RoPE over all 256 columns, a
+    # window and dropout; head_dim 160 with a 0 length
+    "d256_mqa_rope_window_dropout": (2, 200, 1, 8, 256, True, None, 64, 256,
+                                     0.1),
+    "d160_gqa_kv_lengths_0": (3, 130, 2, 2, 160, False, [130, 60, 0], None,
+                              160, 0.0),
 }
 
 
