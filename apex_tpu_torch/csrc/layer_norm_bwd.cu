@@ -57,7 +57,20 @@
 // rows' dy * xhat and dy into its own fp32 row of shared memory (a lane
 // touches only its own columns, so no atomics); the block then sums its
 // warps' rows into its partial. Rows past m and columns past h are never
-// read (loop bounds).
+// read (loop bounds). With affine rows the element kernel keeps 2 x h x 4
+// bytes a warp in shared memory, at least one warp a block: past h = 29056
+// that is more than the 227 KB a block may have.
+//
+// Wider rows (the wide path, `wide` = 1 in the plan): one block of 512
+// threads takes `block_rows` consecutive rows, one at a time, thread t
+// the columns t, t + 512, ... c1 and c2 are block sums in a fixed order
+// (ln::block_sum); the second sweep re-reads dy and x from device memory
+// (L2) to form dx. Each block adds its rows' dy * xhat and dy straight
+// into its own fp32 row of `partial` in device memory: the block owns
+// that row and each thread its columns, so no atomics, and a column's
+// sum runs over the block's rows in order. Pass 2 (layer_norm_bwd_reduce)
+// is the element path's. The plan gives about one block an SM, so the
+// partial rows (256 KB each at h = 32768) stay a few tens of MB.
 #include "common.cuh"
 #include "layer_norm_vec.cuh"
 
@@ -136,6 +149,61 @@ layer_norm_bwd_kernel(const TDY* __restrict__ dy, const TX* __restrict__ x,
     }
     out[i] = sw;
     if (has_bias) out[h + i] = sb;
+  }
+}
+
+// the wide path: a block a row at a time, its dw/db partial row in
+// device memory (see the header)
+template <typename TDY, typename TX, typename TW>
+__global__ void __launch_bounds__(ln::kWideThreads)
+layer_norm_bwd_wide_kernel(const TDY* __restrict__ dy,
+                           const TX* __restrict__ x,
+                           const float* __restrict__ mean,
+                           const float* __restrict__ invvar,
+                           const TW* __restrict__ w, TX* __restrict__ dx,
+                           float* __restrict__ partial, int m, int h,
+                           int is_rms, int has_bias, int block_rows) {
+  __shared__ float red[ln::kWideWarps];
+  const int t = threadIdx.x;
+  const bool affine = partial != nullptr;
+  float* pw = affine ? partial + static_cast<size_t>(blockIdx.x) * 2 * h
+                     : nullptr;
+  if (affine) {
+    for (int i = t; i < h; i += ln::kWideThreads) {
+      pw[i] = 0.f;
+      if (has_bias) pw[h + i] = 0.f;
+    }
+  }
+  const float inv_h = 1.f / h;
+  const long long row0 = static_cast<long long>(blockIdx.x) * block_rows;
+  const long long row_end = min(static_cast<long long>(m), row0 + block_rows);
+  for (long long row = row0; row < row_end; ++row) {
+    const TDY* dyr = dy + row * h;
+    const TX* xr = x + row * h;
+    const float mu = is_rms ? 0.f : mean[row];
+    const float iv = invvar[row];
+    float s1 = 0.f;
+    float s2 = 0.f;
+    for (int i = t; i < h; i += ln::kWideThreads) {
+      const float d = apex::to_float(dyr[i]);
+      const float xh = (apex::to_float(xr[i]) - mu) * iv;
+      const float g = w != nullptr ? d * apex::to_float(w[i]) : d;
+      s1 += g;
+      s2 += g * xh;
+    }
+    const float c1 = is_rms ? 0.f : ln::block_sum(s1, red) * inv_h;
+    const float c2 = ln::block_sum(s2, red) * inv_h;
+    TX* dxr = dx + row * h;
+    for (int i = t; i < h; i += ln::kWideThreads) {
+      const float d = apex::to_float(dyr[i]);
+      const float xh = (apex::to_float(xr[i]) - mu) * iv;
+      const float g = w != nullptr ? d * apex::to_float(w[i]) : d;
+      apex::store(&dxr[i], iv * (g - c1 - xh * c2));
+      if (affine) {
+        pw[i] += d * xh;
+        if (has_bias) pw[h + i] += d;
+      }
+    }
   }
 }
 
@@ -421,6 +489,7 @@ struct LnBwdArgs {
   int is_rms;
   int n_blocks;    // pass-1 blocks: the partial rows
   int block_rows;  // consecutive rows a pass-1 block takes
+  int wide;        // the element path: 1 for the wide-row kernel
 };
 
 cudaError_t launch_vec(const LnBwdArgs& a, int x_dtype, int w_dtype,
@@ -452,16 +521,25 @@ inline int warps_for(int h) {
 
 template <typename TDY, typename TX, typename TW>
 cudaError_t launch(const LnBwdArgs& a, cudaStream_t stream) {
-  auto kernel = layer_norm_bwd_kernel<TDY, TX, TW>;
-  const int warps = warps_for(a.h);
   const bool affine = a.partial != nullptr;
-  const size_t smem = affine ? static_cast<size_t>(warps) * 2 * a.h * sizeof(float) : 0;
-  cudaError_t err = apex::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<a.n_blocks, warps * 32, smem, stream>>>(
-      static_cast<const TDY*>(a.dy), static_cast<const TX*>(a.x), a.mean,
-      a.invvar, static_cast<const TW*>(a.w), static_cast<TX*>(a.dx),
-      a.partial, a.m, a.h, a.is_rms, a.db != nullptr, a.block_rows);
+  cudaError_t err;
+  if (a.wide) {
+    layer_norm_bwd_wide_kernel<TDY, TX, TW><<<a.n_blocks, ln::kWideThreads, 0,
+                                              stream>>>(
+        static_cast<const TDY*>(a.dy), static_cast<const TX*>(a.x), a.mean,
+        a.invvar, static_cast<const TW*>(a.w), static_cast<TX*>(a.dx),
+        a.partial, a.m, a.h, a.is_rms, a.db != nullptr, a.block_rows);
+  } else {
+    auto kernel = layer_norm_bwd_kernel<TDY, TX, TW>;
+    const int warps = warps_for(a.h);
+    const size_t smem = affine ? static_cast<size_t>(warps) * 2 * a.h * sizeof(float) : 0;
+    err = apex::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<a.n_blocks, warps * 32, smem, stream>>>(
+        static_cast<const TDY*>(a.dy), static_cast<const TX*>(a.x), a.mean,
+        a.invvar, static_cast<const TW*>(a.w), static_cast<TX*>(a.dx),
+        a.partial, a.m, a.h, a.is_rms, a.db != nullptr, a.block_rows);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess || !affine) return err;
   layer_norm_bwd_reduce<<<(a.h + kPass2Threads - 1) / kPass2Threads,
@@ -492,8 +570,8 @@ cudaError_t launch_dy(const LnBwdArgs& a, int dy_dtype, int w_dtype,
 
 // The plan (ops/layer_norm.py `layer_norm_bwd_plan`) gives the path and
 // the grid: `pieces` > 0 is the 16-byte kernel with `pieces` a lane and
-// `lanes` lanes a row (16-bit dy and x of one type), 0 the element kernel;
-// pass-1 block
+// `lanes` lanes a row (16-bit dy and x of one type), 0 the element kernel
+// (with `wide`, the wide-row kernel); pass-1 block
 // b takes rows [b * block_rows, (b + 1) * block_rows), and the caller
 // sizes `partial` as [n_blocks, 2, h] fp32. w may be null (non-affine:
 // partial, dw and db are null too; w_dtype 0); db is null without a bias.
@@ -505,11 +583,13 @@ extern "C" int apex_layer_norm_bwd(const void* dy, const void* x,
                                    void* dw, void* db, void* stream, int m,
                                    int h, int is_rms, int dy_dtype,
                                    int x_dtype, int w_dtype, int pieces,
-                                   int lanes, int n_blocks, int block_rows) {
+                                   int lanes, int n_blocks, int block_rows,
+                                   int wide) {
   LnBwdArgs a{dy, x, static_cast<const float*>(mean),
               static_cast<const float*>(invvar), w, dx,
               static_cast<float*>(partial), static_cast<float*>(dw),
-              static_cast<float*>(db), m, h, is_rms, n_blocks, block_rows};
+              static_cast<float*>(db), m, h, is_rms, n_blocks, block_rows,
+              wide};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (pieces > 0) {
     if (dy_dtype != x_dtype) return static_cast<int>(cudaErrorInvalidValue);

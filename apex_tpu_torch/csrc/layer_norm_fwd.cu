@@ -34,11 +34,23 @@
 // the models run; y rounds to inf past 65504, as torch's cast does.
 // Another triple is cudaErrorInvalidValue (the wrapper raises first).
 //
-// Other cases (f32 x, other h, unaligned rows): one warp per row, four
-// rows per 128-thread block. The warp stages its row in shared memory as
-// fp32 while summing, so x is read from device memory once; both later
-// passes (centred variance, output) read shared memory. Reductions are
-// warp shuffles, no block barrier.
+// Other cases (f32 x, other h, unaligned rows) up to h = 14336: one warp
+// per row, four rows per 128-thread block. The warp stages its row in
+// shared memory as fp32 while summing, so x is read from device memory
+// once; both later passes (centred variance, output) read shared memory.
+// Reductions are warp shuffles, no block barrier.
+//
+// Wider rows (the wide path, `wide` = 1 in the plan): the element
+// kernel's stage, 4 warps x h x 4 bytes, would pass the 227 KB a block
+// may have near h = 14528. One block of 512 threads takes a row at a time
+// (grid-stride over the rows), thread t the columns t, t + 512, ... The
+// row is not staged: the variance and output passes read x again from
+// device memory, where the block's own first pass left it in L2 (a 32 KB
+// row at h = 16384 bf16), so any width and dtype runs. The sums are
+// shuffles, then the 16 warps in a fixed order through shared memory
+// (ln::block_sum): every thread holds the same mean and invvar, and
+// reruns are bitwise equal. A simple kernel first: its rows are read
+// three times, element by element.
 #include "common.cuh"
 #include "layer_norm_vec.cuh"
 
@@ -65,6 +77,7 @@ struct LnArgs {
   int n_blocks;
   int block_rows;  // the 16-byte path: consecutive rows a block takes
   int lanes;       // the 16-byte path: lanes a row
+  int wide;        // the element path: 1 for the wide-row kernel
 };
 
 template <typename TX, typename TW, typename TY>
@@ -115,6 +128,47 @@ layer_norm_fwd_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
   if (lane == 0) {
     mean_out[row] = mean;
     invvar_out[row] = invvar;
+  }
+}
+
+// the wide path: a block a row, x read from device memory in each pass
+template <typename TX, typename TW, typename TY>
+__global__ void __launch_bounds__(ln::kWideThreads)
+layer_norm_fwd_wide_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
+                           const TW* __restrict__ b, TY* __restrict__ y,
+                           float* __restrict__ mean_out,
+                           float* __restrict__ invvar_out, int m, int h,
+                           float eps, int is_rms) {
+  __shared__ float red[ln::kWideWarps];
+  const int t = threadIdx.x;
+  for (long long row = blockIdx.x; row < m; row += gridDim.x) {
+    const TX* xr = x + row * h;
+    float mean = 0.f;
+    if (!is_rms) {
+      float sum = 0.f;
+      for (int i = t; i < h; i += ln::kWideThreads)
+        sum += apex::to_float(xr[i]);
+      mean = ln::block_sum(sum, red) / h;
+    }
+    // centred variance, as in _fwd_kernel (not Welford); RMSNorm: mean 0
+    float sq = 0.f;
+    for (int i = t; i < h; i += ln::kWideThreads) {
+      const float c = apex::to_float(xr[i]) - mean;
+      sq += c * c;
+    }
+    const float var = ln::block_sum(sq, red) / h;
+    const float invvar = 1.f / sqrtf(var + eps);
+    TY* yr = y + row * h;
+    for (int i = t; i < h; i += ln::kWideThreads) {
+      float v = (apex::to_float(xr[i]) - mean) * invvar;
+      if (w != nullptr) v *= apex::to_float(w[i]);
+      if (b != nullptr) v += apex::to_float(b[i]);
+      apex::store(&yr[i], v);
+    }
+    if (t == 0) {
+      mean_out[row] = mean;
+      invvar_out[row] = invvar;
+    }
   }
 }
 
@@ -266,6 +320,14 @@ VecKernel vec_kernel(int pieces, int x_dtype, int w_dtype, int y_dtype) {
 
 template <typename TX, typename TW, typename TY>
 cudaError_t launch(const LnArgs& a, cudaStream_t stream) {
+  if (a.wide) {
+    layer_norm_fwd_wide_kernel<TX, TW, TY><<<a.n_blocks, ln::kWideThreads, 0,
+                                             stream>>>(
+        static_cast<const TX*>(a.x), static_cast<const TW*>(a.w),
+        static_cast<const TW*>(a.b), static_cast<TY*>(a.y), a.mean, a.invvar,
+        a.m, a.h, a.eps, a.is_rms);
+    return cudaGetLastError();
+  }
   // the plan's blocks hold kWarps rows each, one a warp
   if (a.block_rows != kWarps) return cudaErrorInvalidValue;
   auto kernel = layer_norm_fwd_kernel<TX, TW, TY>;
@@ -303,7 +365,8 @@ cudaError_t launch_w(const LnArgs& a, int w_dtype, int y_dtype,
 // the grid: `pieces` > 0 is the 16-byte kernel (16-bit x) with `pieces` a
 // lane and `lanes` lanes a row, block b taking rows
 // [b * block_rows, (b + 1) * block_rows); 0 is the element kernel, one
-// warp a row and four rows a block. w and b may be null (non-affine /
+// warp a row and four rows a block, or with `wide` the wide-row kernel,
+// n_blocks blocks striding over the rows. w and b may be null (non-affine /
 // bias-free); w_dtype is then 0 (f32). Dtype triples off the list above
 // return cudaErrorInvalidValue.
 extern "C" int apex_layer_norm_fwd(const void* x, const void* w, const void* b,
@@ -311,9 +374,9 @@ extern "C" int apex_layer_norm_fwd(const void* x, const void* w, const void* b,
                                    void* stream, int m, int h, float eps,
                                    int is_rms, int x_dtype, int w_dtype,
                                    int y_dtype, int pieces, int lanes,
-                                   int n_blocks, int block_rows) {
+                                   int n_blocks, int block_rows, int wide) {
   LnArgs a{x, w, b, y, static_cast<float*>(mean), static_cast<float*>(invvar),
-           m, h, eps, is_rms, n_blocks, block_rows, lanes};
+           m, h, eps, is_rms, n_blocks, block_rows, lanes, wide};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (pieces > 0) {
     const VecKernel kernel = vec_kernel(pieces, x_dtype, w_dtype, y_dtype);

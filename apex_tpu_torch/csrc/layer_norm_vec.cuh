@@ -4,7 +4,8 @@
 // power of two; 32 / lanes rows share a warp), lane l holding pieces l,
 // l + lanes, ... up to PPL of them, so one warp-wide load of a slot reads
 // 16 * lanes contiguous bytes. ops/layer_norm.py `layer_norm_fwd_plan` /
-// `layer_norm_bwd_plan` choose PPL and lanes on the host.
+// `layer_norm_bwd_plan` choose PPL and lanes on the host. The wide-row
+// path's block size and block sum live here too.
 #pragma once
 
 #include "common.cuh"
@@ -93,6 +94,27 @@ __device__ __forceinline__ float row_sum(float v, int lanes) {
   for (int off = lanes / 2; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
+}
+
+// The wide-row path of both kernels (rows whose fp32 stage or dw/db rows
+// do not fit a block's shared memory): one block of kWideThreads takes a
+// row at a time, thread t the columns t, t + kWideThreads, ...
+constexpr int kWideThreads = 512;
+constexpr int kWideWarps = kWideThreads / 32;
+
+// v summed over the block: shuffles within each warp, then the warps'
+// sums in warp order through `red` (kWideWarps floats), so every thread
+// gets the same bits and a rerun the same result. Every thread of the
+// block calls it; the closing barrier frees `red` for the next call.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = apex::warp_sum(v);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < kWideWarps; ++k) s += red[k];
+  __syncthreads();
+  return s;
 }
 
 }  // namespace ln

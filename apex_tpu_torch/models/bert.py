@@ -39,6 +39,7 @@ from apex_tpu_torch.transformer.tensor_parallel import (
     linear,
     vocab_parallel_cross_entropy,
 )
+from apex_tpu_torch.utils import prng
 
 __all__ = ["BertModel"]
 
@@ -101,16 +102,22 @@ class BertModel(nn.Module):
                 padding_mask: Optional[torch.Tensor] = None,
                 tokentype_ids: Optional[torch.Tensor] = None,
                 lm_labels: Optional[torch.Tensor] = None, *,
+                rng: Optional[torch.Tensor] = None,
                 deterministic: bool = True):
         """``tokens``, ``padding_mask``, ``tokentype_ids``, ``lm_labels``:
         ``[b, s]``. Returns ``(lm_loss or logits [s, b, V], binary_logits
-        [b, 2] or None)``, the JAX ``apply``'s pair."""
+        [b, 2] or None)``, the JAX ``apply``'s pair. Dropout, with
+        ``deterministic=False`` and an ``rng`` key: the key split into the
+        embedding's and the stack's, as the JAX ``apply`` splits it (the
+        heads drop nothing)."""
         c = self.config
-        c.check_dropout(deterministic)
-        hidden = embed_tokens(self.embedding, tokens, c, tokentype_ids)
+        rngs = (None, None) if rng is None else tuple(prng.split(
+            rng.to(self.embedding.word_embeddings.weight.device)))
+        hidden = embed_tokens(self.embedding, tokens, c, tokentype_ids,
+                              rng=rngs[0], deterministic=deterministic)
         mask = (None if padding_mask is None
                 else self.build_attention_mask(padding_mask))
-        hidden = self.transformer(hidden, attention_mask=mask,
+        hidden = self.transformer(hidden, attention_mask=mask, rng=rngs[1],
                                   deterministic=deterministic)
         binary_logits = None
         if self.add_binary_head:

@@ -30,6 +30,7 @@ from apex_tpu_torch.models.transformer import (
 )
 from apex_tpu_torch.ops._support import resolve_device
 from apex_tpu_torch.transformer.enums import AttnMaskType, LayerType
+from apex_tpu_torch.utils import prng
 
 __all__ = ["EncoderDecoderModel"]
 
@@ -65,24 +66,31 @@ class EncoderDecoderModel(nn.Module):
                 enc_padding_mask: Optional[torch.Tensor] = None,
                 enc_lengths: Optional[torch.Tensor] = None,
                 loss_mask: Optional[torch.Tensor] = None,
+                rng: Optional[torch.Tensor] = None,
                 deterministic: bool = True) -> torch.Tensor:
         """Tokens and labels ``[b, s]``. Returns the scalar LM loss with
         ``labels`` (masked by ``loss_mask``), else decoder logits ``[s_dec,
-        b, V]``. Pass ``enc_padding_mask`` or ``enc_lengths``, not both."""
+        b, V]``. Pass ``enc_padding_mask`` or ``enc_lengths``, not both.
+        Dropout, with ``deterministic=False`` and an ``rng`` key: the key
+        split in 4 (encoder embedding, encoder, decoder embedding,
+        decoder), as the JAX ``apply`` splits it."""
         c = self.config
         if enc_padding_mask is not None and enc_lengths is not None:
             raise ValueError("pass enc_padding_mask or enc_lengths, not both")
-        c.check_dropout(deterministic)
-        enc_hidden = embed_tokens(self.embedding, enc_tokens, self.enc_config)
+        rngs = (None,) * 4 if rng is None else tuple(prng.split(
+            rng.to(self.embedding.word_embeddings.weight.device), 4))
+        enc_hidden = embed_tokens(self.embedding, enc_tokens, self.enc_config,
+                                  rng=rngs[0], deterministic=deterministic)
         enc_mask = (None if enc_padding_mask is None
                     else enc_padding_mask.to(torch.bool)[:, None, None, :])
         enc_out = self.encoder(enc_hidden, attention_mask=enc_mask,
-                               kv_lengths=enc_lengths,
+                               kv_lengths=enc_lengths, rng=rngs[1],
                                deterministic=deterministic)
-        dec_hidden = embed_tokens(self.embedding, dec_tokens, self.dec_config)
+        dec_hidden = embed_tokens(self.embedding, dec_tokens, self.dec_config,
+                                  rng=rngs[2], deterministic=deterministic)
         dec_out = self.decoder(dec_hidden, encoder_output=enc_out,
                                enc_dec_attn_mask=enc_mask,
-                               enc_kv_lengths=enc_lengths,
+                               enc_kv_lengths=enc_lengths, rng=rngs[3],
                                deterministic=deterministic)
         return lm_head_loss(self.embedding.word_embeddings.weight, dec_out,
                             labels, loss_mask, c)

@@ -46,11 +46,14 @@ def cast_decode_params(model: GPTModel, compute_dtype: torch.dtype
     """A copy of ``model`` whose float32 parameters are cast to
     ``compute_dtype`` once, for decoding. ``model`` is left as it was (the
     JAX function likewise returns new parameters); tied parameters stay
-    tied in the copy, and the float32 ones are never copied at full
-    width."""
-    memo = {id(p): nn.Parameter(p.to(compute_dtype),
-                                requires_grad=p.requires_grad)
-            for p in model.parameters() if p.dtype == torch.float32}
+    tied in the copy, the float32 ones are never copied at full width, and
+    the others are shared, not copied (as JAX's cast returns them as they
+    are): a model already in a 16-bit type costs no second copy of its
+    weights."""
+    memo = {id(p): (nn.Parameter(p.to(compute_dtype),
+                                 requires_grad=p.requires_grad)
+                    if p.dtype == torch.float32 else p)
+            for p in model.parameters()}
     return copy.deepcopy(model, memo)
 
 

@@ -41,11 +41,20 @@ What runs here:
   :func:`~apex_tpu_torch.ops.fused_paged_decode_attention`, over bf16/f32
   pools or int8 ``(pages, scales)`` pairs.
 
-Raising ``NotImplementedError`` until their slice: active dropout
-(``deterministic=False`` with a rate > 0: the JAX masks come from
-``jax.random``), a truthy ``recompute``, sequence/context parallelism and
-MoE. ``scan_unroll`` is accepted and has no effect (the layers run as a
-Python loop).
+Dropout (``deterministic=False`` with a rate > 0 and an ``rng`` key) draws
+the JAX package's masks bitwise: keys are :mod:`apex_tpu_torch.utils.prng`
+keys split and folded as the JAX layers split theirs, hidden and
+embedding dropout is ``bernoulli(key, 1 - rate)`` over the tensor, the
+packed attention's in-kernel hash dropout takes one seed a layer (one
+``randint`` base draw plus ``idx * 0x9E3779B9``), and the masked softmax
+path drops the probabilities. ``recompute`` (``True``/``'full'``: the
+whole layer under :func:`~apex_tpu_torch.transformer.tensor_parallel.checkpoint`;
+``'selective'``: the outputs of the non-batched matmuls saved, everything
+else recomputed, JAX's ``dots_with_no_batch_dims_saveable``) gives the
+same masks on recompute, since no mask reads a global generator.
+
+Not ported: sequence/context parallelism and MoE. ``scan_unroll`` is
+accepted and has no effect (the layers run as a Python loop).
 """
 
 from __future__ import annotations
@@ -56,6 +65,10 @@ from typing import Any, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    create_selective_checkpoint_contexts,
+)
 
 from apex_tpu_torch.normalization import FusedLayerNorm, FusedRMSNorm
 from apex_tpu_torch.ops import (
@@ -74,7 +87,10 @@ from apex_tpu_torch.transformer.tensor_parallel import (
     ColumnParallelLinear,
     RowParallelLinear,
     VocabParallelEmbedding,
+    checkpoint,
+    model_parallel_rng_key,
 )
+from apex_tpu_torch.utils import prng
 from apex_tpu_torch.utils.activations import (
     apply_activation,
     is_gated,
@@ -108,11 +124,13 @@ class TransformerConfig:
     normalization: str = "layernorm"
     attn_mask_type: AttnMaskType = AttnMaskType.causal
     sliding_window: Optional[int] = None
-    # False, or True/'full'/'selective' (not ported: raises at forward)
+    # False, or True/'full' (the whole layer recomputed) or 'selective'
+    # (the non-batched matmuls' outputs saved, the rest recomputed)
     recompute: Any = False
     # the JAX layer scan's unroll factor: no effect on the Python loop
     scan_unroll: int = 1
-    # LM-head loss in sequence chunks (not ported: > 1 raises at the loss)
+    # LM-head loss in this many sequence chunks, each recomputed in the
+    # backward (skipped when the sequence does not divide)
     loss_seq_chunks: int = 1
     params_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
@@ -144,17 +162,6 @@ class TransformerConfig:
             raise ValueError(f"num_query_groups ({self.kv_heads}) must "
                              f"divide num_attention_heads "
                              f"({self.num_attention_heads})")
-
-    def check_dropout(self, deterministic: bool) -> None:
-        """Raise when dropout would be active: its masks come from
-        ``jax.random`` (threefry) in the JAX package, not ported yet."""
-        if not deterministic and (self.hidden_dropout > 0.0
-                                  or self.attention_dropout > 0.0):
-            raise NotImplementedError(
-                "dropout (deterministic=False with hidden_dropout or "
-                "attention_dropout > 0) is not ported yet: its masks come "
-                "from jax.random threefry; set the rates to 0 or pass "
-                "deterministic=True")
 
     @property
     def ffn_size(self) -> int:
@@ -212,19 +219,36 @@ class Embedding(nn.Module):
             if num_tokentypes else None)
 
 
+def _dropout(x: torch.Tensor, rate: float, key: Optional[torch.Tensor],
+             deterministic: bool) -> torch.Tensor:
+    """The JAX package's ``_dropout``: keep each element with probability
+    ``1 - rate`` (``jax.random.bernoulli`` over ``x``'s shape, bitwise)
+    and scale the kept ones by ``1 / (1 - rate)`` in ``x``'s dtype; a
+    no-op when deterministic, at rate 0 or without a key. At
+    tensor-parallel size 1 a model-parallel region draws from the key
+    itself."""
+    if deterministic or rate == 0.0 or key is None:
+        return x
+    keep = prng.bernoulli(model_parallel_rng_key(key), 1.0 - rate, x.shape)
+    scale = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
+    return torch.where(keep, x / scale, torch.zeros_like(x))
+
+
 def embed_tokens(embedding: Embedding, tokens: torch.Tensor,
                  config: TransformerConfig,
-                 tokentype_ids: Optional[torch.Tensor] = None
-                 ) -> torch.Tensor:
+                 tokentype_ids: Optional[torch.Tensor] = None, *,
+                 rng: Optional[torch.Tensor] = None,
+                 deterministic: bool = True) -> torch.Tensor:
     """Word + learned position (+ tokentype) lookups in the params' dtype,
-    ``[b, s, h] -> [s, b, h]`` in the compute dtype (the JAX package's
-    ``embed_tokens``; its dropout is not ported)."""
+    ``[b, s, h] -> [s, b, h]`` in the compute dtype, then the embedding
+    dropout with ``hidden_dropout`` (the JAX package's ``embed_tokens``)."""
     emb = embedding.word_embeddings(tokens)
     if config.position_embedding_type == "learned":
         emb = emb + embedding.position_embeddings[:tokens.shape[1]]
     if tokentype_ids is not None:
         emb = emb + embedding.tokentype_embeddings[tokentype_ids]
-    return emb.transpose(0, 1).to(config.compute_dtype)
+    hidden = emb.transpose(0, 1).to(config.compute_dtype)
+    return _dropout(hidden, config.hidden_dropout, rng, deterministic)
 
 
 class ParallelMLP(nn.Module):
@@ -278,29 +302,35 @@ class ParallelAttention(nn.Module):
                             else c.attn_mask_type),
             scaled_masked_softmax_fusion=True, softmax_in_fp32=True)
 
-    def _core_attention(self, q, k, v, attention_mask, kv_lengths, window):
+    def _core_attention(self, q, k, v, attention_mask, kv_lengths, window,
+                        rng=None, deterministic=True):
         """``q [b, heads, sq, dh]``, ``k``/``v [b, kv_heads, sk, dh]`` ->
-        context ``[b, heads, sq, dh]``: flash with no mask, else the unfused
-        scores through the fused masked softmax."""
+        context ``[b, heads, sq, dh]``: flash with no mask and no active
+        dropout, else the unfused scores through the fused masked softmax
+        and dropout on the probabilities (``rng``)."""
         c = self.config
         causal = (self.attn_type == AttnType.self_attn
                   and c.attn_mask_type == AttnMaskType.causal)
-        if attention_mask is None:
+        if attention_mask is None and (deterministic
+                                       or c.attention_dropout == 0.0):
             return flash_attention(q, k, v, causal=causal,
                                    kv_lengths=kv_lengths,
                                    sliding_window=window)
         b, heads, sq, dh = q.shape
         kvh, sk = k.shape[1], k.shape[2]
+
+        def masked(extra):
+            return extra if attention_mask is None else attention_mask | extra
+
         if kv_lengths is not None:
             # varlen lengths folded into the mask (True = masked out)
             col = torch.arange(sk, device=q.device)[None, None, None, :]
-            attention_mask = attention_mask | (
+            attention_mask = masked(
                 col >= kv_lengths.to(q.device)[:, None, None, None])
         if window is not None and causal:
             row = torch.arange(sq, device=q.device)[None, None, :, None]
             col = torch.arange(sk, device=q.device)[None, None, None, :]
-            attention_mask = attention_mask | (col <= row + (sk - sq)
-                                               - window)
+            attention_mask = masked(col <= row + (sk - sq) - window)
         # sqrt(head_dim) in fp32, rounded to the compute dtype
         inv_scale = float(torch.tensor(float(c.head_dim)).sqrt().to(q.dtype))
         if kvh != heads:
@@ -312,11 +342,13 @@ class ParallelAttention(nn.Module):
                 / inv_scale
             probs = self.scale_mask_softmax(
                 scores.reshape(b, heads, sq, sk), attention_mask)
+            probs = _dropout(probs, c.attention_dropout, rng, deterministic)
             ctx = torch.matmul(probs.reshape(b, kvh, g, sq, sk).to(v.dtype),
                                v.unsqueeze(2))
             return ctx.reshape(b, heads, sq, dh)
         scores = torch.matmul(q, k.transpose(-1, -2)) / inv_scale
         probs = self.scale_mask_softmax(scores, attention_mask)
+        probs = _dropout(probs, c.attention_dropout, rng, deterministic)
         return torch.matmul(probs.to(v.dtype), v)
 
     def _offset_causal(self, sk: int, s: int, cache_index, device):
@@ -337,7 +369,8 @@ class ParallelAttention(nn.Module):
         return invalid
 
     def _flat_cache_attention(self, q, k, v, ck, cv, cache_index,
-                              attention_mask, kv_lengths):
+                              attention_mask, kv_lengths, rng=None,
+                              deterministic=True):
         """Cached attention over a FLAT ``[b, S, kv_heads * head_dim]``
         cache pair (the JAX package's ``_flat_cache_attention``), written
         in place. ``q``/``k``/``v`` arrive as ``[b, heads, s, head_dim]``;
@@ -390,9 +423,11 @@ class ParallelAttention(nn.Module):
             sf = sf - sf.amax(dim=-1, keepdim=True)
             e = torch.exp(sf)
             probs = (e / e.sum(dim=-1, keepdim=True)).to(q.dtype)
+            probs = _dropout(probs, c.attention_dropout, rng, deterministic)
             ctx = torch.matmul(probs, v4)              # [b, kvh, g, dh]
             return self.dense(ctx.reshape(1, b, hl * dh)), (ck, cv)
-        ctx = self._core_attention(q, k4, v4, invalid, None, None)
+        ctx = self._core_attention(q, k4, v4, invalid, None, None, rng,
+                                   deterministic)
         out = self.dense(ctx.permute(2, 0, 1, 3).reshape(s, b, hl * dh))
         return out, (ck, cv)
 
@@ -402,12 +437,18 @@ class ParallelAttention(nn.Module):
                 kv_lengths: Optional[torch.Tensor] = None,
                 kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 cache_index=None,
-                paged_state: Optional[torch.Tensor] = None):
+                paged_state: Optional[torch.Tensor] = None,
+                rng: Optional[torch.Tensor] = None,
+                deterministic: bool = True, dropout_seed=None):
         """``hidden [s, b, h] -> [s, b, h]``, or ``(out, cache)`` with a
         ``kv_cache`` (updated in place and returned). Cross-attention reads
         K/V from ``encoder_output [s_enc, b, h]``. ``attention_mask`` is a
         bool broadcastable to ``[b, heads, sq, sk]``, True = masked out;
-        ``kv_lengths [b]`` bounds the keys of each batch row."""
+        ``kv_lengths [b]`` bounds the keys of each batch row. Attention
+        dropout (``deterministic=False``): the packed path's hash seed is
+        ``dropout_seed`` (the stack's per-layer seed) or a ``randint``
+        drawn from ``rng``; the other paths drop the probabilities with
+        masks from ``rng``."""
         c = self.config
         dh = c.head_dim
         if self.attn_type == AttnType.self_attn:
@@ -415,8 +456,10 @@ class ParallelAttention(nn.Module):
             qkv = self.query_key_value(hidden)
             s, b = qkv.shape[0], qkv.shape[1]
             causal = c.attn_mask_type == AttnMaskType.causal
+            drop_active = not deterministic and c.attention_dropout > 0.0
             if (kv_cache is None and cache_index is None
                     and paged_state is None and attention_mask is None
+                    and (not drop_active or rng is not None)
                     and packed_attention_supported(s, c.kv_heads, qpg, dh)):
                 # layout-native: the fused projection goes straight to the
                 # kernel and the context comes back in [s, b, h*dh]
@@ -424,10 +467,17 @@ class ParallelAttention(nn.Module):
                 if c.position_embedding_type == "rope":
                     freqs = rope_freqs(0, s, c.rotary_dim, c.rope_theta,
                                        device=hidden.device)
+                seed = None
+                if drop_active:
+                    seed = (dropout_seed if dropout_seed is not None
+                            else prng.randint(model_parallel_rng_key(rng),
+                                              (1,), -2 ** 31, 2 ** 31 - 1))
                 ctx = flash_attention_packed(
                     qkv, queries_per_group=qpg, head_dim=dh, causal=causal,
                     kv_lengths=kv_lengths, sliding_window=c.sliding_window,
-                    rope_freqs=freqs)
+                    rope_freqs=freqs,
+                    dropout_rate=c.attention_dropout if drop_active else 0.0,
+                    dropout_seed=seed)
                 return self.dense(ctx)
             qkv = qkv.reshape(s, b, c.kv_heads, qpg + 2, dh)
             q = qkv[:, :, :, :qpg].reshape(s, b, c.num_attention_heads, dh)
@@ -485,7 +535,8 @@ class ParallelAttention(nn.Module):
             ck, cv = kv_cache
             if ck.dim() == 3:
                 return self._flat_cache_attention(
-                    q, k, v, ck, cv, cache_index, attention_mask, kv_lengths)
+                    q, k, v, ck, cv, cache_index, attention_mask, kv_lengths,
+                    rng, deterministic)
             if isinstance(cache_index, torch.Tensor) and cache_index.dim():
                 raise NotImplementedError(
                     "per-row cache_index (continuous-batching decode) needs "
@@ -497,7 +548,8 @@ class ParallelAttention(nn.Module):
             ck[:, :, start:start + s] = k.to(ck.dtype)
             cv[:, :, start:start + s] = v.to(cv.dtype)
             if (isinstance(cache_index, int) and cache_index == 0
-                    and attention_mask is None and kv_lengths is None):
+                    and attention_mask is None and kv_lengths is None
+                    and (deterministic or c.attention_dropout == 0.0)):
                 # prefill: queries fill [0, s), so causal flash over the
                 # filled prefix
                 ctx = flash_attention(q, ck[:, :, :s].to(q.dtype),
@@ -515,12 +567,13 @@ class ParallelAttention(nn.Module):
                 if attention_mask is not None:
                     invalid = invalid | attention_mask
                 ctx = self._core_attention(q, ck.to(q.dtype), cv.to(q.dtype),
-                                           invalid, kv_lengths, None)
+                                           invalid, kv_lengths, None, rng,
+                                           deterministic)
         else:
             window = (c.sliding_window if self.attn_type == AttnType.self_attn
                       else None)
             ctx = self._core_attention(q, k, v, attention_mask, kv_lengths,
-                                       window)
+                                       window, rng, deterministic)
         out = self.dense(ctx.permute(2, 0, 1, 3).reshape(s, b, -1))
         return out if kv_cache is None else (out, (ck, cv))
 
@@ -546,32 +599,87 @@ class ParallelTransformerLayer(nn.Module):
     def forward(self, hidden: torch.Tensor, *, encoder_output=None,
                 enc_dec_attn_mask=None, enc_kv_lengths=None,
                 attention_mask=None, kv_lengths=None, kv_cache=None,
-                cache_index=None, paged_state=None):
+                cache_index=None, paged_state=None, rng=None,
+                deterministic: bool = True, attention_seed=None):
         """``encoder_output`` (decoder layers) is the full encoder sequence
         ``[s_enc, b, h]``; ``enc_kv_lengths`` keeps padded cross-attention
         on flash, ``enc_dec_attn_mask`` sends it through the masked
-        softmax."""
+        softmax. Dropout keys: ``rng`` split in 3 (4 in a decoder layer) as
+        the JAX layer splits it: 0 after the attention, 1 after the MLP, 2
+        inside the self-attention, 3 folded with 0 and 1 for the
+        cross-attention and the dropout after it; ``attention_seed`` is the
+        packed path's hash seed."""
         c = self.config
+        decoder = self.layer_type == LayerType.decoder
+        n_keys = 4 if decoder else 3
+        rngs = ((None,) * n_keys if rng is None
+                else tuple(prng.split(rng, n_keys)))
         # out_dtype=x.dtype: the consumers run in the compute dtype
         x = self.input_layernorm(hidden, out_dtype=hidden.dtype)
         attn = self.self_attention(
             x.to(c.compute_dtype), attention_mask=attention_mask,
             kv_lengths=kv_lengths, kv_cache=kv_cache,
-            cache_index=cache_index, paged_state=paged_state)
+            cache_index=cache_index, paged_state=paged_state, rng=rngs[2],
+            deterministic=deterministic, dropout_seed=attention_seed)
         new_cache = None
         if kv_cache is not None:
             attn, new_cache = attn
-        hidden = hidden + attn
+        hidden = hidden + _dropout(attn, c.hidden_dropout, rngs[0],
+                                   deterministic)
         norm = self.post_attention_layernorm
-        if self.layer_type == LayerType.decoder:
+        if decoder:
+            r_attn = r_drop = None
+            if rngs[3] is not None:
+                r_attn, r_drop = (prng.fold_in(rngs[3], i) for i in (0, 1))
             x = self.post_attention_layernorm(hidden, out_dtype=hidden.dtype)
-            hidden = hidden + self.inter_attention(
+            inter = self.inter_attention(
                 x.to(c.compute_dtype), encoder_output=encoder_output,
-                attention_mask=enc_dec_attn_mask, kv_lengths=enc_kv_lengths)
+                attention_mask=enc_dec_attn_mask, kv_lengths=enc_kv_lengths,
+                rng=r_attn, deterministic=deterministic)
+            hidden = hidden + _dropout(inter, c.hidden_dropout, r_drop,
+                                       deterministic)
             norm = self.post_inter_attention_layernorm
         x = norm(hidden, out_dtype=hidden.dtype)
-        out = hidden + self.mlp(x.to(c.compute_dtype))
+        mlp_out = _dropout(self.mlp(x.to(c.compute_dtype)), c.hidden_dropout,
+                           rngs[1], deterministic)
+        out = hidden + mlp_out
         return out if kv_cache is None else (out, new_cache)
+
+
+_GOLDEN = -1640531527  # 0x9E3779B9 as an int32: odd, so injective mod 2**32
+
+
+def _layer_seed(base: Optional[torch.Tensor], idx: int):
+    """Layer ``idx``'s packed-attention seed: ``base + idx * 0x9E3779B9``
+    with int32 wrap-around (structurally distinct masks across layers)."""
+    if base is None:
+        return None
+    v = (base.long() + idx * _GOLDEN) & 0xFFFFFFFF
+    return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(torch.int32)
+
+
+#: the non-batched matmuls whose outputs ``recompute='selective'`` saves
+#: (JAX's ``dots_with_no_batch_dims_saveable``): the projections and the
+#: MLP; attention's batched products and every kernel are recomputed
+_SAVED_MATMULS = frozenset({torch.ops.aten.mm.default,
+                            torch.ops.aten.addmm.default})
+
+
+def _selective_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _recompute(layer, hidden, kw, mode):
+    """``layer(hidden, **kw)`` with its activations recomputed in the
+    backward: the whole layer (``True``/``'full'``) or all but the saved
+    matmul outputs (``'selective'``). Every dropout key is explicit, so the
+    recompute draws the forward's masks."""
+    if mode == "selective":
+        return checkpoint(layer, hidden, context_fn=lambda:
+                          create_selective_checkpoint_contexts(
+                              _selective_policy), **kw)
+    return checkpoint(layer, hidden, **kw)
 
 
 class ParallelTransformer(nn.Module):
@@ -594,16 +702,23 @@ class ParallelTransformer(nn.Module):
                 attention_mask=None, kv_lengths=None,
                 kv_caches: Optional[List] = None, cache_index=None,
                 paged_state=None, final_norm: bool = True,
+                rng: Optional[torch.Tensor] = None,
                 deterministic: bool = True):
         """``hidden``, or ``(hidden, new_caches)`` with ``kv_caches`` — a
         LIST of per-layer ``(k, v)`` pairs (4D caches or page pools),
         updated in place. The masks, lengths and encoder output reach every
-        layer."""
-        self.config.check_dropout(deterministic)
-        if kv_caches is None and self.config.recompute:
-            raise NotImplementedError(
-                f"recompute={self.config.recompute!r} (activation "
-                f"recompute) is not ported yet; use recompute=False")
+        layer. Layer ``idx`` draws its dropout from ``fold_in(rng, idx)``
+        and its packed-attention seed from one base draw (``randint`` of
+        ``fold_in(rng, num_layers)``) plus ``idx * 0x9E3779B9``, as the JAX
+        stack does; without caches, a truthy ``recompute`` recomputes each
+        layer in the backward (``'selective'``: all but the saved
+        non-batched matmul outputs)."""
+        c = self.config
+        seed_base = None
+        if rng is not None and not deterministic and c.attention_dropout > 0:
+            seed_base = prng.randint(model_parallel_rng_key(
+                prng.fold_in(rng, c.num_layers)), (1,), -2 ** 31,
+                2 ** 31 - 1)
         if kv_caches is not None and (
                 not isinstance(kv_caches, list)
                 or len(kv_caches) != len(self.layers)):
@@ -612,18 +727,21 @@ class ParallelTransformer(nn.Module):
                 f"(k, v) pairs")
         new_caches = []
         for idx, layer in enumerate(self.layers):
-            out = layer(hidden, encoder_output=encoder_output,
-                        enc_dec_attn_mask=enc_dec_attn_mask,
-                        enc_kv_lengths=enc_kv_lengths,
-                        attention_mask=attention_mask, kv_lengths=kv_lengths,
-                        kv_cache=None if kv_caches is None
-                        else kv_caches[idx],
-                        cache_index=cache_index, paged_state=paged_state)
-            if kv_caches is None:
-                hidden = out
-            else:
-                hidden, cache = out
+            kw = dict(encoder_output=encoder_output,
+                      enc_dec_attn_mask=enc_dec_attn_mask,
+                      enc_kv_lengths=enc_kv_lengths,
+                      attention_mask=attention_mask, kv_lengths=kv_lengths,
+                      cache_index=cache_index, paged_state=paged_state,
+                      rng=None if rng is None else prng.fold_in(rng, idx),
+                      deterministic=deterministic,
+                      attention_seed=_layer_seed(seed_base, idx))
+            if kv_caches is not None:
+                hidden, cache = layer(hidden, kv_cache=kv_caches[idx], **kw)
                 new_caches.append(cache)
+            elif c.recompute and torch.is_grad_enabled():
+                hidden = _recompute(layer, hidden, kw, c.recompute)
+            else:
+                hidden = layer(hidden, **kw)
         if final_norm:
             hidden = self.final_layernorm(hidden, out_dtype=hidden.dtype)
         return hidden if kv_caches is None else (hidden, new_caches)

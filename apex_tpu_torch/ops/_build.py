@@ -38,14 +38,14 @@ _L = ctypes.c_longlong
 #: C signature of every entry point (see the ``extern "C"`` blocks)
 _SIGNATURES = {
     # x, w, b, y, mean, invvar, stream, m, h, eps, is_rms, x/w/y dtypes,
-    # then the plan: pieces a lane, lanes a row, blocks, rows a block
+    # then the plan: pieces a lane, lanes a row, blocks, rows a block, wide
     "apex_layer_norm_fwd": [_P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _F, _I, _I, _I, _I, _I, _I, _I, _I],
+                            _I, _I, _F, _I, _I, _I, _I, _I, _I, _I, _I, _I],
     # pieces a lane, x/w/y dtypes, out: resident blocks an SM
     "apex_layer_norm_fwd_blocks_per_sm": [_I, _I, _I, _I, _P],
     # dy, x, mean, invvar, w, dx, partial, dw, db, stream, m, h, is_rms,
     # dy/x/w dtypes, then the plan as the forward's
-    "apex_layer_norm_bwd": [_P] * 10 + [_I] * 10,
+    "apex_layer_norm_bwd": [_P] * 10 + [_I] * 11,
     # h, pieces a lane, x/w dtypes, affine (0, 1 weight, 2 and bias), out:
     # resident blocks an SM
     "apex_layer_norm_bwd_blocks_per_sm": [_I, _I, _I, _I, _I, _P],

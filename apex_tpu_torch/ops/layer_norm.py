@@ -16,8 +16,10 @@ rebuilds x from it in plain PyTorch before the backward kernel, as
 kernel's path on the host: bf16 or fp16 rows (dy and x of that one type
 for the backward) of ``h % 8 == 0`` up to 1024 at 16-byte aligned
 addresses take the 16-byte kernels, whose rows live in registers and
-whose grid is the card's resident blocks; every other call takes the
-element kernels.
+whose grid is the card's resident blocks; rows wider than the element
+kernels' shared memory holds (A past h = 14336, D past 29056) take the
+wide-row kernels, a block of 512 threads a row; every other call takes
+the element kernels. No width raises.
 
 Both kernels take x in f32, bf16 or fp16, and w, b, y (and dy) each in
 f32 or the 16-bit type that x pairs with: bf16 beside f32 or bf16 x,
@@ -46,6 +48,13 @@ _VEC_MAX_H = 4 * 8 * 32
 #: of four warps, Kernel D's pass-1 blocks of 32 rows
 _FWD_ELEMENT_ROWS = 4
 _BWD_ELEMENT_ROWS = 32
+#: the widest rows of the element kernels, set by the 227 KB (232,448
+#: bytes) of shared memory a block may have: Kernel A stages four fp32
+#: rows (4 x 4 x 14336 bytes, the width it has been checked at; 14528
+#: fills the 227 KB), Kernel D keeps one warp's fp32 dw and db rows (2 x 4
+#: x 29056 bytes); wider rows take the wide-row kernels
+_FWD_ELEMENT_MAX_H = 14336
+_BWD_ELEMENT_MAX_H = 29056
 #: the row dtypes of the 16-byte kernels
 _VEC_DTYPES = (torch.bfloat16, torch.float16)
 
@@ -60,9 +69,13 @@ class LayerNormPlan(NamedTuple):
     blocks: int
     #: consecutive rows a block takes
     block_rows: int
+    #: 1 on the wide-row path (``pieces`` 0): a block of 512 threads a row
+    wide: int = 0
 
     @property
     def path(self) -> str:
+        if self.wide:
+            return "wide"
         return "vector" if self.pieces else "element"
 
     @property
@@ -101,8 +114,12 @@ def layer_norm_fwd_plan(m: int, h: int, x_dtype: torch.dtype,
     """Kernel A's path and grid for ``x [m, h]``: the 16-byte kernel for
     bf16 or fp16 x whose rows :func:`_vector_rows` takes (``ptrs``: the
     addresses of x, y, w and b, None where absent), else the element
-    kernel. ``blocks_per_sm(pieces)`` is the 16-byte kernel's resident
-    blocks an SM at that many pieces a lane, ``n_sms`` the card's SMs."""
+    kernel, or past ``_FWD_ELEMENT_MAX_H`` the wide-row kernel (a block a
+    row, for any dtype). ``blocks_per_sm(pieces)`` is the 16-byte kernel's
+    resident blocks an SM at that many pieces a lane, ``n_sms`` the card's
+    SMs."""
+    if h > _FWD_ELEMENT_MAX_H:
+        return LayerNormPlan(0, 0, m, 1, 1)
     if x_dtype not in _VEC_DTYPES or not _vector_rows(h, ptrs):
         return LayerNormPlan(0, 0, _support.cdiv(m, _FWD_ELEMENT_ROWS),
                              _FWD_ELEMENT_ROWS)
@@ -115,7 +132,13 @@ def layer_norm_bwd_plan(m: int, h: int, dy_dtype: torch.dtype,
                         n_sms: int) -> LayerNormPlan:
     """Kernel D's path and grid, as :func:`layer_norm_fwd_plan`: the
     16-byte kernel needs dy and x of one 16-bit type (``ptrs``: dy, x, dx
-    and w); its ``blocks`` are also the partial rows pass 2 sums."""
+    and w); its ``blocks`` are also the partial rows pass 2 sums. Past
+    ``_BWD_ELEMENT_MAX_H`` the wide-row kernel: the rows split statically
+    into one run a block, at most one block an SM."""
+    if h > _BWD_ELEMENT_MAX_H:
+        block_rows = _support.cdiv(m, n_sms)
+        return LayerNormPlan(0, 0, _support.cdiv(m, block_rows), block_rows,
+                             1)
     if x_dtype not in _VEC_DTYPES or dy_dtype != x_dtype or \
             not _vector_rows(h, ptrs):
         return LayerNormPlan(0, 0, _support.cdiv(m, _BWD_ELEMENT_ROWS),
@@ -222,9 +245,6 @@ def layer_norm_fwd_cuda(x2, w, b, eps: float, is_rms: bool,
                         f"must match")
     codes = _kernel_dtypes("Kernel A (layer_norm_fwd_cuda)", x2.dtype,
                            w=_dt(w), y=out_dtype)
-    if h > 14336:
-        raise ValueError(f"hidden size {h} exceeds the kernel's "
-                         f"shared-memory row stage (14336)")
     x2 = x2.contiguous()
     w = None if w is None else w.reshape(-1).contiguous()
     b = None if b is None else b.reshape(-1).contiguous()

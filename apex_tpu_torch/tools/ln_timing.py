@@ -16,7 +16,14 @@ and at a bf16 width off the 16-byte path (h = 1020); Kernel A
 (``layer_norm_fwd_cuda``) at [8, 768], [768, 768], [6144, 768] and
 [8192, 768] in the training mix (bf16 x, fp32 w and b, bf16 y) and in
 RMSNorm, in serving's all-bf16 at the first three, and in f32 and at
-h = 1020. Every case is timed with the L2 flushed before each call (cold:
+h = 1020; then the wide rows (past A's element kernel at h 14336 and
+D's at 29056), each case's name starting ``a_wide`` or ``d_wide``: A at
+Llama-3.1-405B's decode step (8 rows of 16384, RMSNorm, all bf16) and at
+2048 rows of 16384 (LayerNorm and RMSNorm), 18432 and 32768 in the
+training mix, D at 2048 rows of 16384 (still the element kernel), and of
+32768 in LayerNorm and RMSNorm (the wide kernel). A checkout without the
+wide paths takes only the cases before them (``--cases``). Every case is
+timed with the L2 flushed before each call (cold:
 the training step finds its operands in device memory) and without
 (warm: dy and x, 25 MB at [8192, 768], fit the 50 MB L2, so a warm time
 can read past the HBM bound), beside one PyTorch call of the same work
@@ -78,6 +85,20 @@ A_CASES = [
       for m in (8, 768, 6144)],
     ("a_f32_6144", 6144, 768, F32, F32, F32, False, True),
     ("a_h1020", 2048, 1020, BF16, F32, BF16, False, True),
+]
+#: the wide rows, timed after every case above (so those keep their
+#: seeded inputs): Kernel D, then Kernel A, in the tuples above
+D_WIDE_CASES = [
+    ("d_wide_16384", 2048, 16384, BF16, False, True),
+    ("d_wide_32768", 2048, 32768, BF16, False, True),
+    ("d_wide_rms_32768", 2048, 32768, BF16, True, False),
+]
+A_WIDE_CASES = [
+    ("a_wide_decode_16384", 8, 16384, BF16, BF16, BF16, True, False),
+    ("a_wide_16384", 2048, 16384, BF16, F32, BF16, False, True),
+    ("a_wide_rms_16384", 2048, 16384, BF16, F32, BF16, True, False),
+    ("a_wide_18432", 2048, 18432, BF16, F32, BF16, False, True),
+    ("a_wide_32768", 2048, 32768, BF16, F32, BF16, False, True),
 ]
 STEP_PHASES = ("train", "bert_train", "t5_train")
 
@@ -334,6 +355,12 @@ def main() -> int:
         if only is None or case[0] in only:
             time_d(ln, timer, gen, case, emit)
     for case in A_CASES:
+        if only is None or case[0] in only:
+            time_a(ln, timer, gen, case, emit)
+    for case in D_WIDE_CASES:
+        if only is None or case[0] in only:
+            time_d(ln, timer, gen, case, emit)
+    for case in A_WIDE_CASES:
         if only is None or case[0] in only:
             time_a(ln, timer, gen, case, emit)
     torch.cuda.empty_cache()

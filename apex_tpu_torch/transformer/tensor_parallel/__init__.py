@@ -1,5 +1,5 @@
-"""Tensor-parallel layers and the vocab-parallel loss at tensor-parallel
-size 1."""
+"""Tensor-parallel layers, the vocab-parallel loss, the model-parallel
+random key and activation recompute at tensor-parallel size 1."""
 
 from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
@@ -10,6 +10,11 @@ from apex_tpu_torch.transformer.tensor_parallel.layers import (
     VocabParallelEmbedding,
     linear,
 )
+from apex_tpu_torch.transformer.tensor_parallel.random import (
+    checkpoint,
+    model_parallel_rng_key,
+)
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
-           "VocabParallelEmbedding", "linear", "vocab_parallel_cross_entropy"]
+           "VocabParallelEmbedding", "linear", "vocab_parallel_cross_entropy",
+           "checkpoint", "model_parallel_rng_key"]

@@ -18,8 +18,8 @@ from typing import Sequence, Union
 
 import torch
 
-__all__ = ["threefry2x32", "prng_key", "fold_in", "random_bits", "uniform",
-           "gumbel", "categorical"]
+__all__ = ["threefry2x32", "prng_key", "fold_in", "split", "random_bits",
+           "uniform", "bernoulli", "randint", "gumbel", "categorical"]
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -84,6 +84,18 @@ def fold_in(key: torch.Tensor, data: Union[int, torch.Tensor]
     return torch.stack(torch.broadcast_tensors(y1, y2), dim=-1)
 
 
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split`` (partitionable layout): ``[num, 2]`` keys, key
+    ``i`` the block function of the counter words ``(0, i)`` under ``key``,
+    so ``split(key, n)[i]`` equals ``fold_in(key, i)``."""
+    if key.dim() != 1:
+        raise ValueError(f"split takes one key [2], got {tuple(key.shape)}")
+    k1, k2 = _words(key)
+    i = torch.arange(num, dtype=torch.int64, device=key.device)
+    y1, y2 = _threefry(k1, k2, torch.zeros_like(i), i)
+    return torch.stack([y1, y2], dim=-1)
+
+
 def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """32 random bits per element (``jax.random.bits``, partitionable
     layout): the counters are the uint64 iota over the flattened ``shape``
@@ -131,6 +143,37 @@ def uniform(key: torch.Tensor, shape: Sequence[int],
     lo = torch.tensor(minval, dtype=dtype, device=key.device)
     hi = torch.tensor(maxval, dtype=dtype, device=key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def bernoulli(key: torch.Tensor, p: float,
+              shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` for a Python float ``p``:
+    ``uniform(key, shape) < p``, both in float32 (a Python float is a
+    weakly typed float32 in JAX without x64, and the uniform takes ``p``'s
+    dtype). A bool tensor."""
+    u = uniform(key, shape, torch.float32)
+    return u < torch.tensor(p, dtype=torch.float32, device=key.device)
+
+
+def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, jnp.int32)``: the
+    key split in two, 32 random bits from each, and ``(hi % span *
+    (2**32 % span) + lo % span) % span`` added to ``minval``, every
+    product and sum wrapping as uint32 and the last add as int32, as JAX's
+    do. Bounds are clipped to int32; ``maxval <= minval`` gives
+    ``minval``. An int32 tensor."""
+    lo_d, hi_d = -2 ** 31, 2 ** 31 - 1
+    minval = min(max(int(minval), lo_d), hi_d)
+    maxval = min(max(int(maxval), lo_d), hi_d)
+    span = (maxval - minval) & _M32 if maxval > minval else 1
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    mult = (2 ** 16) % span
+    mult = ((mult * mult) & _M32) % span
+    offset = ((((higher % span) * mult) & _M32) + lower % span) & _M32
+    out = (minval + offset % span) & _M32
+    return torch.where(out >= 2 ** 31, out - 2 ** 32, out).to(torch.int32)
 
 
 def gumbel(key: torch.Tensor, shape: Sequence[int],

@@ -265,6 +265,47 @@ printing its own lines and raising on failure:
               trains 3 steps on the card and the CPU (losses and
               gradients as phase 12) and serves 3 greedy requests on both
               with the same tokens.
+28. layer_norm_wide — Kernels A and D past their element kernels' shared
+              memory (A's wide path past h 14336, D's past 29056) against
+              their plain versions: h 16384, 18432, 32768 and 16388 (off
+              8), 8 and 2048 rows, f32, bf16 and fp16 (fp16 w and b beside
+              fp16 x, fp32 beside the others), LayerNorm and RMSNorm, to
+              ``[layer_norm]``'s bars, two runs bitwise equal (dx, dw, db
+              too), the paths printed; then A and D timed, warm and cold,
+              at the 405B decode step's [8, 16384] RMSNorm and at 2048
+              rows of 16384 and 32768 beside ``F.layer_norm`` /
+              ``F.rms_norm`` / ``native_layer_norm_backward``;
+29. llama405b_serve — the repo's GPT blocks at Llama-3.1-405B's widths
+              (hidden 16384, 128 query heads of 128 over 8 K/V heads,
+              SwiGLU 53248, RMSNorm, RoPE theta 500000, vocab 128256),
+              depth cut to 2 layers, bf16 weights drawn on the card from a
+              seed, serve 8 greedy requests through ``[serve]``'s engine:
+              every request ends ``length``/``eos``; A launches 5 a
+              forward (the wide path), B 2 a prefill (GQA 16:1), C 2 a
+              decode step (its plan cuts the group of 16 into two chunks),
+              every other kernel 0; tokens/s, TTFT p50, decode ms a step,
+              peak GB, init s, the card's name and power limit;
+30. wide card vs CPU — one layer at hidden 16384 (128 heads over 8
+              groups, ffn 1024, vocab 512, f32, TF32 off) serves 3 greedy
+              requests on the card and the CPU (the same tokens), then
+              trains 3 steps on each (phase 12's bar);
+31. train_features — GPT-2 124M at ``[train]``'s shapes with GPT-2's
+              dropout (0.1 on the embedding, the residuals and the
+              attention: E's and F's hash dropout) takes 2 + 8 steps alone,
+              with ``recompute`` full and selective (A and E launched
+              again for each layer: 49 and 24 a step) and with
+              ``loss_seq_chunks=4``: the loss falls and every kernel
+              launches what a step implies; then one threefry mask over
+              [1024, 8, 768] timed;
+32. train_features card vs CPU — a small f32 GPT (Adam) and BERT
+              (padding mask, LAMB) with dropout 0.1 under no recompute,
+              ``recompute`` True, full and selective, and (GPT)
+              ``loss_seq_chunks=2``: three steps on the card and the CPU
+              (phase 12's bar); each recompute mode's step-1 gradients on
+              the card bitwise those without recompute (a leaf that two
+              runs without recompute do not repeat bitwise is named and
+              left out); ``bernoulli`` masks and the attention seeds
+              bitwise the CPU's.
 
 Then one JSON line of per-kernel numbers (launches from the phase that
 drives each kernel's slice: serve for A-C, serve_int8 and serve_spec for
@@ -274,8 +315,8 @@ and Adam kernels, bert_train for LAMB and the norms, train_fp16 for the
 fp16 records of A, D, E and F, serve_fp16 for those of B and C,
 bert_train_fp16 for those of G and H, t5_train_fp16 for I's,
 rn50_train_fp16 for J-M's, gemma2b_train for E's and F's head_dim-256
-records, gemma2b_serve for B's and C's, flash_hd256 for I's, with every
-path's counts in
+records, gemma2b_serve for B's and C's, flash_hd256 for I's,
+llama405b_serve for A's wide-row record, with every path's counts in
 ``launches_by_path``;
 times from CUDA events in this run; ``bound_ms`` from this run's shapes
 over the H100's published peaks), and last ``{"ok": true, "device":
@@ -477,16 +518,20 @@ def digest(t: torch.Tensor) -> str:
                           .tobytes()).hexdigest()[:16]
 
 
+def _card_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
 def phase_device() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this test "
               "needs an NVIDIA GPU", file=sys.stderr)
         sys.exit(2)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    print(_card_name(), flush=True)
     log("device", name=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda)
@@ -3332,13 +3377,13 @@ def phase_card_vs_cpu() -> None:
     log("card_vs_cpu", prompt_len=64, tokens=out["cuda"], equal=True)
 
 
-def _train_model(cfg, device, seed=0):
+def _train_model(cfg, device, seed=0, lr=1e-4):
     from apex_tpu_torch.models import GPTModel
     from apex_tpu_torch.optimizers import FusedAdam
     from apex_tpu_torch.training import make_train_step
     model = GPTModel(cfg, device=device,
                      generator=torch.Generator().manual_seed(seed))
-    opt = FusedAdam(model.parameters(), lr=1e-4)
+    opt = FusedAdam(model.parameters(), lr=lr)
     step = make_train_step(lambda batch: model(*batch), opt)
     step.optimizer = opt
     return model, step
@@ -3701,15 +3746,18 @@ def _grad_tree(model):
             for name, p in model.named_parameters()}
 
 
-def _card_vs_cpu(phase, build, **fields) -> None:
+def _card_vs_cpu(phase, build, before=None, **fields) -> dict:
     """``build(device) -> (model, step, batch)`` from fixed seeds; three
     steps on the card (TF32 off, set in ``main``) and on the CPU. Losses
     agree to 1e-5 relative; every step-1 gradient leaf to atol 1e-5 + rtol
     1e-4 (fp32 sums in other orders, through the kernels on one side and
-    the plain versions on the other)."""
-    losses, grads = {}, {}
+    the plain versions on the other). ``before(device, model)``, if given,
+    runs on each fresh model first; its results come back by device."""
+    losses, grads, first = {}, {}, {}
     for device in ("cuda", "cpu"):
         model, step, batch = build(device)
+        if before is not None:
+            first[device] = before(device, model)
         losses[device] = [float(step(batch))]
         grads[device] = _grad_tree(model)
         losses[device] += [float(step(batch)) for _ in range(2)]
@@ -3730,6 +3778,7 @@ def _card_vs_cpu(phase, build, **fields) -> None:
         raise AssertionError(
             f"{phase}: loss rel err {rel} (tolerance 1e-5), grad leaf "
             f"{worst_name} off by {worst} past atol 1e-5 + rtol 1e-4")
+    return first
 
 
 SMALL = dict(num_layers=2, hidden_size=128, num_attention_heads=2,
@@ -4848,6 +4897,476 @@ def _amp_fp16_card_vs_cpu(kind: str) -> None:
             f"{hc} {hh}, losses {lc}")
 
 
+#: Kernel A's and D's wide-row checks: every width in each dtype, LayerNorm
+#: and RMSNorm, at a decode step's 8 rows and 2048 rows. 16384 is
+#: Llama-3.1-405B's hidden size, 18432 a wider multiple of 128, 32768 past
+#: D's element limit (29056), 16388 a width off 8 (no 16-byte rows)
+LN_WIDE_H = (16384, 18432, 32768, 16388)
+LN_WIDE_ROWS = (8, 2048)
+#: the timed cases (rows, h, RMSNorm), bf16 x and y: the 405B decode step's
+#: RMSNorm over bf16 w (the kernels line's record), then training rows over
+#: fp32 w and b
+LN_WIDE_TIMED = [(8, 16384, True), (2048, 16384, False), (2048, 16384, True),
+                 (2048, 32768, False)]
+
+
+def _ln_wide_case(x, dy, w, b, is_rms) -> dict:
+    """Kernels A and D on one wide case against their plain versions on the
+    card (``[layer_norm]``'s bars: y and dx ``check_close``, the fp32
+    statistics 1e-4, dw and db 1e-4 of 1 + |value|), two runs bitwise
+    equal; the paths taken."""
+    from apex_tpu_torch.ops.layer_norm import (layer_norm_bwd_cuda,
+                                               layer_norm_bwd_cuda_plan,
+                                               layer_norm_bwd_plain,
+                                               layer_norm_fwd_cuda,
+                                               layer_norm_fwd_cuda_plan,
+                                               layer_norm_fwd_plain)
+    dtype = x.dtype
+    y, mean, iv = layer_norm_fwd_cuda(x, w, b, 1e-5, is_rms, dtype)
+    again = layer_norm_fwd_cuda(x, w, b, 1e-5, is_rms, dtype)
+    ry, rmean, riv = layer_norm_fwd_plain(x.float(), w, b, 1e-5, is_rms,
+                                          torch.float32)
+    dx, dw, db = layer_norm_bwd_cuda(dy, x, mean, iv, w, is_rms,
+                                     b is not None)
+    again_b = layer_norm_bwd_cuda(dy, x, mean, iv, w, is_rms, b is not None)
+    rdx, rdw, rdb = layer_norm_bwd_plain(dy.float(), x.float(), mean, iv, w,
+                                         is_rms, b is not None)
+    torch.cuda.synchronize()
+    y_ulps, y_ok, tol = check_close(y, ry.to(dtype))
+    dx_ulps, dx_ok, _ = check_close(dx, rdx.to(dtype))
+    stat_err = max(float((mean - rmean).abs().max()),
+                   float((iv - riv).abs().max()))
+    dw_err = max(float(((dw - rdw).abs() / (1.0 + rdw.abs())).max()),
+                 0.0 if db is None else
+                 float(((db - rdb).abs() / (1.0 + rdb.abs())).max()))
+    same = all(torch.equal(u, v) for u, v in zip((y, mean, iv), again)) and \
+        all((u is None and v is None) or torch.equal(u, v)
+            for u, v in zip((dx, dw, db), again_b))
+    return dict(
+        fwd_path=layer_norm_fwd_cuda_plan(x, y, w, b).path,
+        bwd_path=layer_norm_bwd_cuda_plan(dy, x, dx, w, b is not None).path,
+        y_err=float((y.float() - ry).abs().max()), y_ulps=y_ulps,
+        dx_err=float((dx.float() - rdx).abs().max()), dx_ulps=dx_ulps,
+        stat_err=stat_err, dw_db_rel_err=dw_err, repeat_bitwise=same,
+        ok=y_ok and dx_ok and stat_err <= 1e-4 and dw_err <= 1e-4 and same,
+        tol=tol.replace(" ", "_"), y_sha256=digest(y), dx_sha256=digest(dx))
+
+
+def _ln_wide_timed(timer: Timer, rows, h, is_rms, g) -> tuple:
+    """A and D at one timed shape (bf16 x, y and dy): ms warm and cold
+    beside the plain versions, the library calls and the byte bounds."""
+    from apex_tpu_torch.ops.layer_norm import (layer_norm_bwd_cuda,
+                                               layer_norm_bwd_plain,
+                                               layer_norm_fwd_cuda,
+                                               layer_norm_fwd_plain)
+    dtype = torch.bfloat16
+    wdt = dtype if rows == 8 else torch.float32
+    x = (2.0 * torch.randn(rows, h, device="cuda", generator=g)
+         + 0.5).to(dtype)
+    dy = torch.randn(rows, h, device="cuda", generator=g).to(dtype)
+    w = (1.0 + 0.1 * torch.randn(h, device="cuda", generator=g)).to(wdt)
+    b = None if is_rms else (0.1 * torch.randn(
+        h, device="cuda", generator=g)).to(wdt)
+    fwd = lambda: layer_norm_fwd_cuda(x, w, b, 1e-5, is_rms, dtype)  # noqa
+    y, mean, iv = fwd()
+    bwd = lambda: layer_norm_bwd_cuda(dy, x, mean, iv, w,  # noqa: E731
+                                      is_rms, b is not None)
+    ry = layer_norm_fwd_plain(x.float(), w, b, 1e-5, is_rms,
+                              torch.float32)[0]
+    err = float((y.float() - ry.to(dtype).float()).abs().max())
+    esz, wsz = x.element_size(), w.element_size()
+    n_w = 1 if is_rms else 2
+    f_bms, f_by = bound_ms(2 * rows * h * esz + n_w * h * wsz + 2 * rows * 4,
+                           8.0 * rows * h, dtype)
+    b_bms, b_by = bound_ms(3 * rows * h * esz + 2 * rows * 4 + h * wsz
+                           + n_w * h * 4, 12.0 * rows * h, dtype)
+    wl, bl = w.to(dtype), None if b is None else b.to(dtype)
+    out = {}
+    for kernel, run, plain, bms, by in (
+            ("A", fwd, lambda: layer_norm_fwd_plain(x, w, b, 1e-5, is_rms,
+                                                    dtype), f_bms, f_by),
+            ("D", bwd, lambda: layer_norm_bwd_plain(dy, x, mean, iv, w,
+                                                    is_rms, b is not None),
+             b_bms, b_by)):
+        lib = None
+        if kernel == "A":
+            if not is_rms:
+                lib = timer(lambda: F.layer_norm(x, (h,), wl, bl, 1e-5))
+            elif hasattr(F, "rms_norm"):
+                lib = timer(lambda: F.rms_norm(x, (h,), wl, 1e-5))
+        elif not is_rms:
+            _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [h], wl, bl,
+                                                               1e-5)
+            lib = timer(lambda: torch.ops.aten.native_layer_norm_backward(
+                dy, x, [h], lmean, lrstd, wl, bl, [True, True, True]))
+        out[kernel] = dict(ms=timer(run), ms_cold=timer(run, cold=True),
+                           plain_ms=timer(plain), library_ms=lib,
+                           bound_ms=bms, bound_by=by)
+        log("layer_norm_wide_timed", kernel=kernel, shape=f"[{rows},{h}]",
+            dtype="bfloat16", w=str(wdt)[6:], rms=is_rms,
+            ms=f"{out[kernel]['ms']:.5f}",
+            ms_cold=f"{out[kernel]['ms_cold']:.5f}",
+            plain_ms=f"{out[kernel]['plain_ms']:.5f}",
+            library_ms=None if lib is None else f"{lib:.5f}",
+            bound_ms=f"{bms:.5f}", bound_by=by)
+    return out, err
+
+
+def phase_layer_norm_wide(timer: Timer) -> dict:
+    """Kernels A and D past their element kernels' shared memory (A's wide
+    path past h 14336, D's past 29056): every case of ``LN_WIDE_H`` x
+    ``LN_WIDE_ROWS`` in f32, bf16 and fp16 (fp32 w and b beside f32 and
+    bf16 x, fp16 beside fp16 x, as amp O2 runs them), LayerNorm and
+    RMSNorm, against the plain versions; then ``LN_WIDE_TIMED``. Returns
+    the record of A's wide path at the 405B decode step's rows."""
+    g = torch.Generator(device="cuda").manual_seed(22)
+    for h in LN_WIDE_H:
+        w32 = 1.0 + 0.1 * torch.randn(h, device="cuda", generator=g)
+        b32 = 0.1 * torch.randn(h, device="cuda", generator=g)
+        for rows in LN_WIDE_ROWS:
+            for dtype in (torch.float32, torch.bfloat16, torch.float16):
+                x = (2.0 * torch.randn(rows, h, device="cuda", generator=g)
+                     + 0.5).to(dtype)
+                dy = torch.randn(rows, h, device="cuda", generator=g).to(
+                    dtype)
+                wdt = torch.float16 if dtype == torch.float16 else \
+                    torch.float32
+                for is_rms in (False, True):
+                    got = _ln_wide_case(x, dy, w32.to(wdt), None if is_rms
+                                        else b32.to(wdt), is_rms)
+                    want_bwd = "wide" if h > 29056 else "element"
+                    ok = got.pop("ok") and got["fwd_path"] == "wide" and \
+                        got["bwd_path"] == want_bwd
+                    log("layer_norm_wide", shape=f"[{rows},{h}]",
+                        dtype=str(dtype)[6:], w=str(wdt)[6:], rms=is_rms,
+                        **{k: (f"{v:.3e}" if isinstance(v, float) else v)
+                           for k, v in got.items()})
+                    if not ok:
+                        raise AssertionError(
+                            f"layer_norm_wide [{rows},{h}] {dtype} "
+                            f"rms={is_rms}: {got} (bwd path expected "
+                            f"{want_bwd})")
+    record = None
+    for rows, h, is_rms in LN_WIDE_TIMED:
+        out, err = _ln_wide_timed(timer, rows, h, is_rms, g)
+        if record is None:
+            record = dict(name="layer_norm_fwd_wide", route="cuda",
+                          source="apex_tpu_torch/csrc/layer_norm_fwd.cu",
+                          replaces="apex_tpu/ops/layer_norm.py:50",
+                          shape=f"x[{rows},{h}] bf16 rms, w bf16 (wide path)",
+                          max_abs_err=err, **{k: out["A"][k] for k in (
+                              "ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")})
+    return record
+
+
+#: Llama-3.1-405B's widths (meta-llama/Llama-3.1-405B config.json: hidden
+#: 16384, 128 query heads of 128 over 8 K/V heads, SwiGLU 53248, RMSNorm
+#: eps 1e-5, RoPE theta 500000, vocab 128256) on the repo's GPT blocks
+#: (their biases, a tied head, no llama3 RoPE scaling), depth cut from 126
+#: layers to 2: A at h 16384 (the wide path), B at GQA 16:1, C with a
+#: group of 16 query rows cut into two chunks of 8
+LLAMA405B = dict(num_layers=2, hidden_size=16384, num_attention_heads=128,
+                 num_query_groups=8, ffn_hidden_size=53248,
+                 activation="swiglu", normalization="rmsnorm",
+                 layernorm_epsilon=1e-5, position_embedding_type="rope",
+                 rope_theta=500000.0, vocab_size=128256,
+                 max_position_embeddings=131072, hidden_dropout=0.0,
+                 attention_dropout=0.0)
+
+
+def phase_llama405b_serve(profile: bool = False) -> dict:
+    """The 2-layer cut of Llama-3.1-405B's widths (:data:`LLAMA405B`, bf16
+    params and compute, weights drawn on the card from a seed) serves 8
+    greedy requests of ``PROMPT_LENS`` prompts and 32 new tokens through
+    ``[serve]``'s engine: every request ends ``length``/``eos``, A
+    launches 5 a forward (2 RMSNorms a layer + the final one, all on the
+    wide path), B 2 a prefill, C 2 a decode step with two head chunks,
+    every other kernel 0. Returns the launches."""
+    from apex_tpu_torch.models import GPTModel, TransformerConfig
+    from apex_tpu_torch.ops import LAUNCHES, reset_launches
+    from apex_tpu_torch.ops.decode_attention import _card_plan
+    from apex_tpu_torch.serving import EngineConfig, InferenceEngine
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = TransformerConfig(**LLAMA405B, params_dtype=torch.bfloat16,
+                            compute_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    model = GPTModel(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # the init's peak holds a layer's fp32 draw beside the bf16 weights
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    n_params = sum(p.numel() for p in model.parameters())
+    ecfg = EngineConfig(max_slots=8, max_len=768, page_size=64,
+                        prefix_cache=False)
+    plan = _card_plan(8, cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim,
+                      64, 768 // 64, torch.bfloat16, True, None, 0)
+    groups = cfg.num_attention_heads // cfg.kv_heads
+    if plan.heads * 2 != groups:
+        raise AssertionError(f"llama405b_serve: C's plan {plan} does not "
+                             f"cut the group of {groups} into two chunks")
+    InferenceEngine(model, ecfg).serve(_requests(2, cfg.vocab_size, 4, 9))
+    engine = InferenceEngine(model, ecfg)
+    requests = _requests(8, cfg.vocab_size, 32, 1)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    results = engine.serve(requests)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    bad = [r.finish_reason for r in results
+           if r.finish_reason not in ("length", "eos")]
+    if len(results) != 8 or bad:
+        raise AssertionError(f"llama405b_serve: {len(results)} results, bad "
+                             f"finish reasons {bad}")
+    counters = engine.metrics.counters()
+    steps, prefills = counters["decode_steps"], counters["prefills"]
+    layers = cfg.num_layers
+    want = {k: 0 for k in ALL_KERNELS}
+    want.update(flash_fwd=layers * prefills, paged_decode=layers * steps,
+                layer_norm_fwd=(2 * layers + 1) * (prefills + steps))
+    if launches != want:
+        raise AssertionError(f"llama405b_serve: launches {launches}, "
+                             f"expected {want}")
+    n_tok = sum(len(r.tokens) for r in results)
+    ttft = sorted(r.ttft_s for r in results)
+    step_h = engine.metrics.histogram("decode_step_s")
+    log("llama405b_serve", model="llama-3.1-405b-widths-2-layers bf16 "
+        "random-init", n_params=n_params, requests=8, tokens=n_tok,
+        wall_s=f"{wall:.3f}", tokens_per_s=f"{n_tok / wall:.1f}",
+        ttft_p50_ms=f"{1e3 * ttft[len(ttft) // 2]:.2f}",
+        decode_ms_per_step=f"{1e3 * step_h.sum / step_h.count:.3f}",
+        decode_steps=steps, prefills=prefills,
+        peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
+        init_peak_gb=f"{init_peak:.3f}", init_s=f"{init_s:.2f}",
+        c_plan=_decode_plan_text(plan),
+        card=_card_name().replace(" ", "_"),
+        launches=json.dumps(launches).replace(" ", ""))
+    if profile:
+        profile_serve(model, ecfg)
+    del engine, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+#: a tiny config that still takes A's wide path (hidden 16384; D runs its
+#: element kernel below 29056): 128 query heads of 128 over 8 groups
+WIDE_SMALL = dict(num_layers=1, hidden_size=16384, num_attention_heads=128,
+                  num_query_groups=8, ffn_hidden_size=1024, vocab_size=512,
+                  max_position_embeddings=128, hidden_dropout=0.0,
+                  attention_dropout=0.0)
+
+
+def phase_wide_card_vs_cpu() -> None:
+    """:data:`WIDE_SMALL` in f32 (TF32 off), on the card and on the CPU
+    from one seed: serves 3 greedy requests (the tokens are equal), then
+    trains 3 steps (``_card_vs_cpu``'s bar)."""
+    from apex_tpu_torch.models import TransformerConfig
+    from apex_tpu_torch.serving import EngineConfig, InferenceEngine, Request
+    cfg = TransformerConfig(**WIDE_SMALL)
+
+    # lr 1e-6: at this width Adam's first steps at 1e-4 move 600 M weights
+    # together far enough to drive the fixed batch's loss to 0
+    def build(device):
+        model, step = _train_model(cfg, device, seed=8, lr=1e-6)
+        return model, step, _train_batch(cfg, 2, 16, device, seed=9)
+
+    def serve(device, model):
+        g = torch.Generator()
+        reqs = [Request(prompt=torch.randint(0, cfg.vocab_size, (n,),
+                                             generator=g.manual_seed(n))
+                        .tolist(), max_new_tokens=6) for n in (9, 20, 33)]
+        eng = InferenceEngine(model, EngineConfig(
+            max_slots=4, max_len=64, page_size=16, prefix_cache=False),
+            device=device)
+        return [r.tokens for r in eng.serve(reqs)]
+
+    # one model a device: it serves, then trains
+    out = _card_vs_cpu("wide_card_vs_cpu", build, before=serve, layers=1,
+                       hidden=16384)
+    if out["cuda"] != out["cpu"] or any(len(t) != 6 for t in out["cuda"]):
+        raise AssertionError(f"wide card vs CPU greedy tokens differ: {out}")
+    log("wide_card_vs_cpu", serve="greedy", requests=3,
+        tokens=json.dumps(out["cuda"]).replace(" ", ""), equal=True)
+    torch.cuda.empty_cache()
+
+
+#: GPT-2's published dropout (attn_pdrop, resid_pdrop, embd_pdrop 0.1) and
+#: the variants ``[train_features]`` runs: (name, config knobs)
+TRAIN_FEATURES = [("dropout", {}), ("dropout_full", dict(recompute="full")),
+                  ("dropout_selective", dict(recompute="selective")),
+                  ("dropout_chunks4", dict(loss_seq_chunks=4))]
+
+
+def _dropout_train_model(cfg, device, seed=0, key_seed=0, bert=False):
+    """A GPT (or BERT) whose steps train with dropout on: step ``i`` draws
+    its masks from ``fold_in(prng_key(key_seed), i)``."""
+    from apex_tpu_torch.models import BertModel, GPTModel
+    from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB
+    from apex_tpu_torch.training import make_train_step
+    from apex_tpu_torch.utils import prng
+    gen = torch.Generator().manual_seed(seed)
+    model = (BertModel if bert else GPTModel)(cfg, device=device,
+                                              generator=gen)
+    opt = (FusedLAMB(model.parameters(), lr=1e-3, weight_decay=0.01) if bert
+           else FusedAdam(model.parameters(), lr=1e-4))
+    base = prng.prng_key(key_seed, device=device)
+    count = [0]
+
+    def loss_fn(batch):
+        key = prng.fold_in(base, count[0])
+        count[0] += 1
+        out = model(*batch, rng=key, deterministic=False)
+        return out[0] if bert else out
+
+    step = make_train_step(loss_fn, opt)
+    step.optimizer = opt
+    return model, step
+
+
+def phase_train_features(profile: bool = False) -> dict:
+    """GPT-2 124M at ``[train]``'s shapes (b 8 x 1024, bf16 over fp32,
+    FusedAdam) with GPT-2's dropout 0.1 takes 2 + 8 steps in each variant
+    of :data:`TRAIN_FEATURES`: the loss falls and every kernel launches
+    what a step implies (E and F with the dropout on; a recomputed layer
+    launches its LayerNorms and E twice). Then the cost of the threefry
+    masks as torch int64 ops: one ``bernoulli`` over ``[s, b, h]``.
+    Returns the launches of each variant."""
+    from apex_tpu_torch.models import TransformerConfig
+    from apex_tpu_torch.utils import prng
+    paths = {}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    layers = GPT2["num_layers"]
+    for name, knobs in TRAIN_FEATURES:
+        torch.cuda.empty_cache()
+        cfg = TransformerConfig(**GPT2, hidden_dropout=0.1,
+                                attention_dropout=0.1, **knobs,
+                                params_dtype=torch.float32,
+                                compute_dtype=torch.bfloat16)
+        model, step = _dropout_train_model(cfg, "cuda")
+        batch = _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, "cuda")
+        n_params = sum(p.numel() for p in model.parameters())
+        losses, times, launches, peak = _timed_steps(step, batch)
+        per_step = dict(TRAIN_KERNELS,
+                        **optimizer_launches_per_step(step.optimizer))
+        if knobs.get("recompute"):
+            per_step["layer_norm_fwd"] += 2 * layers
+            per_step["flash_packed_fwd"] += layers
+        _report_train(f"train_features_{name}",
+                      "gpt2-124m bf16/fp32 random-init dropout 0.1", losses,
+                      times, launches, peak, per_step, tokens,
+                      transformer_train_flops(n_params, tokens, layers,
+                                              GPT2["hidden_size"], TRAIN_SEQ,
+                                              causal=True),
+                      batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                      **{k: v for k, v in knobs.items()})
+        if profile and name == "dropout":
+            profile_device("train_features_dropout",
+                           lambda: [step(batch) for _ in range(2)],
+                           lambda: dict(steps=2, batch=TRAIN_BATCH,
+                                        seq=TRAIN_SEQ))
+        paths[f"train_features_{name}"] = launches
+        del model, step, batch
+    key = prng.prng_key(3, device="cuda")
+    shape = (TRAIN_SEQ, TRAIN_BATCH, GPT2["hidden_size"])
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    prng.bernoulli(key, 0.9, shape)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(10):
+        prng.bernoulli(key, 0.9, shape)
+    end.record()
+    torch.cuda.synchronize()
+    mask_ms = start.elapsed_time(end) / 10
+    _, mask_ms_profiled, _ = device_work(lambda: prng.bernoulli(key, 0.9,
+                                                                shape))
+    # masks a step: embedding, then 2 a layer (after attention and MLP)
+    log("train_features_masks", shape=f"[{TRAIN_SEQ},{TRAIN_BATCH},"
+        f"{GPT2['hidden_size']}]", mask_ms=f"{mask_ms:.3f}",
+        mask_device_ms=mask_ms_profiled if isinstance(mask_ms_profiled, str)
+        else f"{mask_ms_profiled:.3f}", masks_a_step=2 * layers + 1,
+        ms_a_step=f"{mask_ms * (2 * layers + 1):.2f}")
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_train_features_card_vs_cpu() -> None:
+    """A small f32 GPT (Adam) and BERT (padding mask, LAMB) with dropout
+    0.1 train 3 steps on the card and the CPU under no recompute, every
+    recompute mode and ``loss_seq_chunks=2``: ``_card_vs_cpu``'s bar.
+    Then the masks: ``bernoulli`` (hidden and softmax dropout) and the
+    packed attention's ``randint`` seeds bitwise the CPU's; and on the
+    card the step-1 gradients of each recompute mode bitwise those without
+    recompute."""
+    from apex_tpu_torch.models import TransformerConfig
+    from apex_tpu_torch.models.transformer import _layer_seed
+    from apex_tpu_torch.transformer.enums import AttnMaskType
+    from apex_tpu_torch.utils import prng
+    drop = dict(SMALL, hidden_dropout=0.1, attention_dropout=0.1)
+    modes = [("none", {}), ("true", dict(recompute=True)),
+             ("full", dict(recompute="full")),
+             ("selective", dict(recompute="selective")),
+             ("chunks2", dict(loss_seq_chunks=2))]
+    for kind in ("gpt", "bert"):
+        grads = {}
+        for name, knobs in modes:
+            if kind == "bert" and name == "chunks2":
+                continue        # BERT's head has no chunked loss
+            cfg = TransformerConfig(
+                **drop, **knobs, **({} if kind == "gpt" else dict(
+                    attn_mask_type=AttnMaskType.padding)))
+
+            def build(device):
+                model, step = _dropout_train_model(
+                    cfg, device, seed=2, key_seed=4, bert=kind == "bert")
+                batch = (_train_batch(cfg, 4, 96, device, seed=3)
+                         if kind == "gpt" else
+                         _bert_batch(cfg, 4, 96, device, seed=5))
+                return model, step, batch
+
+            _card_vs_cpu("train_features_card_vs_cpu", build, model=kind,
+                         mode=name, layers=2, hidden=128)
+            for run in (name, f"{name}_again") if name == "none" else (name,):
+                model, step, batch = build("cuda")
+                step(batch)
+                grads[run] = _grad_tree(model)
+        # a leaf whose step-1 gradient two runs without recompute do not
+        # repeat bitwise (an order of sums the card does not fix) cannot
+        # hold recompute to bitwise; every other leaf must
+        base = grads.pop("none")
+        again = grads.pop("none_again")
+        unrepeatable = [k for k, g in base.items() if not torch.equal(
+            g, again[k])]
+        differ = {name: [k for k, g in tree.items() if k not in unrepeatable
+                         and not torch.equal(g, base[k])]
+                  for name, tree in grads.items() if name != "chunks2"}
+        log("train_features_recompute_bitwise", model=kind,
+            leaves=len(base), unrepeatable=unrepeatable or None,
+            **{f"{k}_leaves_differing": len(v) for k, v in differ.items()})
+        if any(differ.values()):
+            raise AssertionError(f"train_features_card_vs_cpu {kind}: "
+                                 f"recompute grads differ from no "
+                                 f"recompute on the card: {differ}")
+    for seed in (0, 7, -3):
+        keys = {d: prng.fold_in(prng.prng_key(seed, device=d), 5)
+                for d in ("cuda", "cpu")}
+        masks = {d: prng.bernoulli(k, 0.9, (96, 4, 128)) for d, k in
+                 keys.items()}
+        seeds = {d: [int(_layer_seed(prng.randint(k, (1,), -2 ** 31,
+                                                  2 ** 31 - 1), i))
+                     for i in range(3)] for d, k in keys.items()}
+        if not torch.equal(masks["cuda"].cpu(), masks["cpu"]) or \
+                seeds["cuda"] != seeds["cpu"]:
+            raise AssertionError(f"train_features_card_vs_cpu: masks or "
+                                 f"seeds differ at key seed {seed}")
+    log("train_features_card_vs_cpu", masks="bernoulli_bitwise",
+        attention_seeds="randint_bitwise", keys=3)
+
+
 #: the phase whose run is each kernel's main path
 MAIN_PATH = {"layer_norm_fwd": "serve", "flash_fwd": "serve",
              "paged_decode": "serve", "layer_norm_bwd": "train",
@@ -4879,7 +5398,8 @@ MAIN_PATH = {"layer_norm_fwd": "serve", "flash_fwd": "serve",
              "flash_packed_bwd_hd256": "gemma2b_train",
              "flash_fwd_hd256": "gemma2b_serve",
              "flash_bwd_hd256": "flash_hd256",
-             "paged_decode_hd256": "gemma2b_serve"}
+             "paged_decode_hd256": "gemma2b_serve",
+             "layer_norm_fwd_wide": "llama405b_serve"}
 #: the launch counter of a record that names a variant of a kernel
 COUNTER = {"paged_decode_int8": "paged_decode",
            "paged_decode_window": "paged_decode",
@@ -4900,7 +5420,8 @@ COUNTER = {"paged_decode_int8": "paged_decode",
            "flash_packed_bwd_hd256": "flash_packed_bwd",
            "flash_fwd_hd256": "flash_fwd",
            "flash_bwd_hd256": "flash_bwd",
-           "paged_decode_hd256": "paged_decode"}
+           "paged_decode_hd256": "paged_decode",
+           "layer_norm_fwd_wide": "layer_norm_fwd"}
 
 
 def main() -> int:
@@ -4922,6 +5443,7 @@ def main() -> int:
     records = [phase_layer_norm(timer), phase_layer_norm_fp16(timer),
                *phase_flash(timer), *phase_decode(timer),
                phase_layer_norm_bwd(timer), phase_layer_norm_bwd_fp16(timer),
+               phase_layer_norm_wide(timer),
                *phase_packed(timer), *phase_softmax(timer),
                *phase_flash_bwd(timer), *phase_conv(timer),
                *phase_multi_tensor(timer)]
@@ -4952,6 +5474,10 @@ def main() -> int:
     paths["flash_hd256"] = hd256_launches
     paths.update(phase_gemma2b(args.profile))
     phase_hd256_card_vs_cpu()
+    paths["llama405b_serve"] = phase_llama405b_serve(args.profile)
+    phase_wide_card_vs_cpu()
+    paths.update(phase_train_features(args.profile))
+    phase_train_features_card_vs_cpu()
     for rec in records:
         name = rec["name"]
         counter = COUNTER.get(name, name)

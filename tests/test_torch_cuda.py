@@ -7,6 +7,8 @@ device; run them on a machine with one:
 They reach the corners the smoke test (``chip_smoke.py``) does not:
 RMSNorm and non-affine LayerNorm forward and backward at widths that are
 not a multiple of 32 and row counts over several backward blocks, their
+wide-row paths (A past h 14336 at 16384, 16388 and 32768, D past 29056 at
+32768; f32, bf16 and fp16, bitwise repeatable), their
 16-byte paths at GPT-2's width in bf16 over fp32 weights (8193 rows, one
 row, RMSNorm, rows of 96 two to a warp; two runs bitwise equal), flash
 attention with ``kv_lengths`` (one of them 0), ``sq != sk``, GQA, sliding
@@ -390,6 +392,44 @@ def test_layer_norm_bwd_kernel(gen, rows, h, is_rms, affine, bias, dtype):
             torch.testing.assert_close(db, rdb, atol=1e-4, rtol=1e-5)
         else:
             assert db is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("is_rms", [False, True])
+@pytest.mark.parametrize("rows,h", [(8, 16384), (133, 16388), (3, 32768)])
+def test_layer_norm_wide_kernels(gen, rows, h, is_rms, dtype):
+    """The wide-row paths of Kernels A (past h 14336) and D (past 29056;
+    h 16384 and 16388 still take D's element kernel) against the plain
+    versions, y and dx in x's dtype over fp32 w and b, two runs bitwise
+    equal."""
+    x = (2 * torch.randn(rows, h, device="cuda", generator=gen) + 0.5) \
+        .to(dtype)
+    dy = torch.randn(rows, h, device="cuda", generator=gen).to(dtype)
+    w = 1 + 0.1 * torch.randn(h, device="cuda", generator=gen)
+    b = None if is_rms else 0.1 * torch.randn(h, device="cuda",
+                                              generator=gen)
+    y, mean, iv = layer_norm_fwd_cuda(x, w, b, 1e-5, is_rms, dtype)
+    assert layer_norm_fwd_cuda_plan(x, y, w, b).path == "wide"
+    assert all(torch.equal(u, v) for u, v in zip(
+        (y, mean, iv), layer_norm_fwd_cuda(x, w, b, 1e-5, is_rms, dtype)))
+    ry, rmean, riv = layer_norm_fwd_plain(x.float(), w, b, 1e-5, is_rms,
+                                          torch.float32)
+    assert_close_once_rounded(y, ry.to(dtype))
+    torch.testing.assert_close(mean, rmean, atol=1e-5, rtol=0)
+    torch.testing.assert_close(iv, riv, atol=1e-4, rtol=1e-5)
+    dx, dw, db = layer_norm_bwd_cuda(dy, x, mean, iv, w, is_rms, b is not None)
+    assert layer_norm_bwd_cuda_plan(dy, x, dx, w, b is not None).path == (
+        "wide" if h > 29056 else "element")
+    again = layer_norm_bwd_cuda(dy, x, mean, iv, w, is_rms, b is not None)
+    assert all((u is None and v is None) or torch.equal(u, v)
+               for u, v in zip((dx, dw, db), again))
+    rdx, rdw, rdb = layer_norm_bwd_plain(dy.float(), x.float(), mean, iv, w,
+                                         is_rms, b is not None)
+    assert_close_once_rounded(dx, rdx.to(dtype))
+    torch.testing.assert_close(dw, rdw, atol=1e-4, rtol=1e-5)
+    if b is not None:
+        torch.testing.assert_close(db, rdb, atol=1e-4, rtol=1e-5)
 
 
 #: (rows, h, is_rms, bias) of the training block's norms in bf16 over fp32

@@ -12,7 +12,8 @@ numpy-made tokens and labels. Held here, for learned positions + LayerNorm
   package's ``make_train_step`` on a one-device mesh: matching losses,
   then every parameter to atol 1e-4 (see the test for why absolute);
 - the cache-free forward takes the packed attention path, and the
-  training knobs that are not ported yet raise.
+  training knobs that once raised (dropout, recompute, the chunked loss)
+  run.
 
 The JAX side runs its plain path, pinned per test. Tolerances (f32): the
 loss rtol 1e-5; each gradient leaf atol 1e-5 of its largest magnitude (the
@@ -176,20 +177,30 @@ def test_cache_free_forward_takes_the_packed_path(monkeypatch):
 
 
 def test_unported_training_knobs_raise():
+    """The training knobs that raised before their port (dropout, a
+    truthy ``recompute``, ``loss_seq_chunks`` > 1) now run and raise
+    nothing: without an ``rng`` key dropout draws nothing (as the JAX
+    ``_dropout`` does with no key), and recompute and the chunked loss
+    leave the loss bitwise as it was. Their JAX comparisons are in
+    ``test_torch_dropout.py`` and ``test_torch_recompute.py``."""
     tokens = torch.zeros(1, 4, dtype=torch.long)
-    cfg = dict(TINY, hidden_dropout=0.1)
-    model = GPTModel(TransformerConfig(**cfg), device="cpu")
-    with pytest.raises(NotImplementedError, match="dropout"):
-        model(tokens, tokens, deterministic=False)
-    model(tokens, tokens)                        # deterministic: no dropout
-    GPTModel(TransformerConfig(**TINY), device="cpu")(
-        tokens, tokens, deterministic=False)     # rates 0: nothing to drop
-    with pytest.raises(NotImplementedError, match="recompute"):
-        GPTModel(TransformerConfig(**TINY, recompute=True),
-                 device="cpu")(tokens, tokens)
-    with pytest.raises(NotImplementedError, match="loss_seq_chunks"):
-        GPTModel(TransformerConfig(**TINY, loss_seq_chunks=2),
-                 device="cpu")(tokens, tokens)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)    # CPU GEMMs in one order run to run
+    try:
+        base = GPTModel(TransformerConfig(**TINY), device="cpu",
+                        generator=torch.Generator().manual_seed(0))(
+            tokens, tokens)
+        for knob in (dict(hidden_dropout=0.1, attention_dropout=0.1),
+                     dict(recompute=True), dict(recompute="selective"),
+                     dict(loss_seq_chunks=2)):
+            model = GPTModel(TransformerConfig(**dict(TINY, **knob)),
+                             device="cpu",
+                             generator=torch.Generator().manual_seed(0))
+            loss = model(tokens, tokens, deterministic=False)
+            loss.backward()
+            assert torch.equal(loss.detach(), base.detach()), knob
+    finally:
+        torch.set_num_threads(threads)
 
 
 @pytest.mark.slow
