@@ -62,7 +62,8 @@
 //   mma.sync, then ds rounded to T as A fragments and dq += dS K with K
 //   by ldmatrix.trans from the same tile; dq is scaled and rounded once.
 // Past d 128 (DMAX 256) both passes split each strip's output columns over
-// two warps, as Kernel F does (flash_mma.cuh Cols).
+// two warps, as Kernel F does (flash_mma.cuh Cols); past 256 (DMAX 512)
+// over four, with Kernel F's 32-key and 32-query tiles.
 // Registers are capped at 168 a thread at d <= 64 so that three blocks fit
 // an SM, as in Kernel F. Seven tile products a visible pair (q k^T and
 // do v^T in both passes) in place of the algorithm's five, for no atomics.
@@ -74,7 +75,8 @@
 // f32 (checks only; TF32 would miss their atol of 1e-4), two launches of
 // fp32 tiles in shared memory and fp32 FMA, each thread owning a 4-row x
 // (DMAX / 16)-column accumulator tile (2 rows in 32-row tiles at DMAX
-// 256, to fit the 227 KB of shared memory):
+// 256, to fit the 227 KB of shared memory; 1 row in 16-row tiles walking
+// 32-row tiles at 512):
 // - pass 1, one block per (64-row query tile, head, batch): delta for its
 //   rows (kept in an fp32 [b, H, sq] scratch for pass 2) and dq, walking
 //   the visible key tiles;
@@ -98,32 +100,36 @@ struct Args {
 };
 
 // BR: the rows of the block's own tile (queries in pass 1, keys in pass
-// 2): 64, or 32 at DMAX 256, where 64-row tiles would not fit the 227 KB
-// of shared memory; each thread owns BR / 16 of them.
-template <int DMAX, int BR>
+// 2): 64, 32 at DMAX 256 and 16 at 512, where larger tiles would not fit
+// the 227 KB of shared memory; each thread owns BR / 16 of them. BO: the
+// rows of the tiles it walks (keys in pass 1, queries in pass 2), 64, or
+// 32 at DMAX 512; each thread owns BO / 16 of a score tile's columns.
+template <int DMAX, int BR, int BO>
 struct DqSmem {
   static constexpr int kRS = DMAX + 4;  // rows read by ty (broadcast)
   static constexpr int kCS = DMAX + 1;  // rows read by tx
-  static constexpr int kSS = kBK + 1;
-  static constexpr size_t floats = 2 * BR * kRS + 2 * kBK * kCS + BR * kSS + 2 * BR;
+  static constexpr int kSS = BO + 1;
+  static constexpr size_t floats = 2 * BR * kRS + 2 * BO * kCS + BR * kSS + 2 * BR;
+  static_assert(floats * 4 <= 232448, "one block fits an SM");
 };
 
-template <int DMAX, int BR>
+template <int DMAX, int BR, int BO>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ out,
                     const float* __restrict__ dout, const float* __restrict__ lse,
                     float* __restrict__ delta, float* __restrict__ dq,
                     const Args a) {
-  using S = DqSmem<DMAX, BR>;
+  using S = DqSmem<DMAX, BR, BO>;
   constexpr int kCols = DMAX / 16;
   constexpr int kR = BR / 16;  // rows a thread
+  constexpr int kSC = BO / 16;  // score columns a thread
   extern __shared__ float smem[];
   float* Qs = smem;                    // [BR][kRS]
   float* dOs = Qs + BR * S::kRS;       // [BR][kRS]
-  float* Ks = dOs + BR * S::kRS;       // [kBK][kCS]
-  float* Vs = Ks + kBK * S::kCS;       // [kBK][kCS]
-  float* dSs = Vs + kBK * S::kCS;      // [BR][kSS]
+  float* Ks = dOs + BR * S::kRS;       // [BO][kCS]
+  float* Vs = Ks + BO * S::kCS;        // [BO][kCS]
+  float* dSs = Vs + BO * S::kCS;       // [BR][kSS]
   float* lse_s = dSs + BR * S::kSS;
   float* delta_s = lse_s + BR;
 
@@ -182,12 +188,12 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int kvl = a.kv_lengths != nullptr ? a.kv_lengths[bb] : sk;
   int j_first, j_last;
-  key_tiles(a.mask, kvl, q_start, &j_first, &j_last, BR);
+  key_tiles(a.mask, kvl, q_start, &j_first, &j_last, BR, BO);
   __syncthreads();
 
   for (int jt = j_first; jt <= j_last; ++jt) {
-    const int k_start = jt * kBK;
-    for (int idx = tid; idx < kBK * DMAX; idx += kThreads) {
+    const int k_start = jt * BO;
+    for (int idx = tid; idx < BO * DMAX; idx += kThreads) {
       const int r = idx / DMAX;
       const int c = idx % DMAX;
       const int row = k_start + r;
@@ -203,28 +209,28 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
 
-    float sc[kR][4];
-    float dp[kR][4];
+    float sc[kR][kSC];
+    float dp[kR][kSC];
 #pragma unroll
     for (int i = 0; i < kR; ++i)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) sc[i][jj] = dp[i][jj] = 0.f;
+      for (int jj = 0; jj < kSC; ++jj) sc[i][jj] = dp[i][jj] = 0.f;
     for (int c = 0; c < DMAX; ++c) {
-      float qv[kR], dov[kR], kv[4], vv[4];
+      float qv[kR], dov[kR], kv[kSC], vv[kSC];
 #pragma unroll
       for (int i = 0; i < kR; ++i) {
         qv[i] = Qs[(ty * kR + i) * S::kRS + c];
         dov[i] = dOs[(ty * kR + i) * S::kRS + c];
       }
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < kSC; ++jj) {
         kv[jj] = Ks[(tx + 16 * jj) * S::kCS + c];
         vv[jj] = Vs[(tx + 16 * jj) * S::kCS + c];
       }
 #pragma unroll
       for (int i = 0; i < kR; ++i)
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
+        for (int jj = 0; jj < kSC; ++jj) {
           sc[i][jj] = fmaf(qv[i], kv[jj], sc[i][jj]);
           dp[i][jj] = fmaf(dov[i], vv[jj], dp[i][jj]);
         }
@@ -234,7 +240,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int r = ty * kR + i;
       const int row = q_start + r;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < kSC; ++jj) {
         const int col = k_start + tx + 16 * jj;
         float ds = 0.f;
         if (visible(a.mask, kvl, row, col)) {
@@ -247,7 +253,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
 
     // dq += ds k
-    for (int jj = 0; jj < kBK; ++jj) {
+    for (int jj = 0; jj < BO; ++jj) {
       float dsv[kR];
       float kv[kCols];
 #pragma unroll
@@ -275,33 +281,35 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int DMAX, int BR>
+template <int DMAX, int BR, int BO>
 struct DkvSmem {
   static constexpr int kRS = DMAX + 4;  // K, V: rows read by ty
   static constexpr int kCS = DMAX + 1;  // Q, dO: rows read by tx
-  static constexpr int kSS = kBQ + 1;
-  static constexpr size_t floats = 2 * BR * kRS + 2 * kBQ * kCS + 2 * BR * kSS + 2 * kBQ;
+  static constexpr int kSS = BO + 1;
+  static constexpr size_t floats = 2 * BR * kRS + 2 * BO * kCS + 2 * BR * kSS + 2 * BO;
+  static_assert(floats * 4 <= 232448, "one block fits an SM");
 };
 
-template <int DMAX, int BR>
+template <int DMAX, int BR, int BO>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dk,
                      float* __restrict__ dv, const Args a) {
-  using S = DkvSmem<DMAX, BR>;
+  using S = DkvSmem<DMAX, BR, BO>;
   constexpr int kCols = DMAX / 16;
   constexpr int kR = BR / 16;  // key rows a thread
+  constexpr int kSC = BO / 16;  // query columns a thread
   extern __shared__ float smem[];
   float* Ks = smem;                   // [BR][kRS]
   float* Vs = Ks + BR * S::kRS;       // [BR][kRS]
-  float* Qs = Vs + BR * S::kRS;       // [kBQ][kCS]
-  float* dOs = Qs + kBQ * S::kCS;     // [kBQ][kCS]
-  float* Ps = dOs + kBQ * S::kCS;     // p^T [BR][kSS]
+  float* Qs = Vs + BR * S::kRS;       // [BO][kCS]
+  float* dOs = Qs + BO * S::kCS;      // [BO][kCS]
+  float* Ps = dOs + BO * S::kCS;      // p^T [BR][kSS]
   float* dSs = Ps + BR * S::kSS;      // ds^T [BR][kSS]
   float* lse_s = dSs + BR * S::kSS;
-  float* delta_s = lse_s + kBQ;
+  float* delta_s = lse_s + BO;
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;
@@ -339,16 +347,16 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int kvl = a.kv_lengths != nullptr ? a.kv_lengths[bb] : sk;
   int i_first, i_last;
-  query_tiles(a.mask, kvl, k_start, &i_first, &i_last, BR);
+  query_tiles(a.mask, kvl, k_start, &i_first, &i_last, BR, BO);
 
   for (int jh = 0; jh < group; ++jh) {
     const int hh = kv_head * group + jh;
     const long long row_base = (static_cast<long long>(bb) * a.h + hh) * sq;
     const long long q_base = row_base * d;
     for (int it = i_first; it <= i_last; ++it) {
-      const int q_start = it * kBQ;
+      const int q_start = it * BO;
       __syncthreads();  // the previous tile's readers are done
-      for (int idx = tid; idx < kBQ * DMAX; idx += kThreads) {
+      for (int idx = tid; idx < BO * DMAX; idx += kThreads) {
         const int r = idx / DMAX;
         const int c = idx % DMAX;
         const int row = q_start + r;
@@ -362,7 +370,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         Qs[r * S::kCS + c] = qv;
         dOs[r * S::kCS + c] = dov;
       }
-      if (tid < kBQ) {
+      if (tid < BO) {
         const int row = q_start + tid;
         lse_s[tid] = row < sq ? lse[row_base + row] : 0.f;
         delta_s[tid] = row < sq ? delta[row_base + row] : 0.f;
@@ -370,28 +378,28 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       __syncthreads();
 
       // transposed tile: key rows ty * kR + i, query columns tx + 16 jj
-      float sc[kR][4];
-      float dp[kR][4];
+      float sc[kR][kSC];
+      float dp[kR][kSC];
 #pragma unroll
       for (int i = 0; i < kR; ++i)
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) sc[i][jj] = dp[i][jj] = 0.f;
+        for (int jj = 0; jj < kSC; ++jj) sc[i][jj] = dp[i][jj] = 0.f;
       for (int c = 0; c < DMAX; ++c) {
-        float kv[kR], vv[kR], qv[4], dov[4];
+        float kv[kR], vv[kR], qv[kSC], dov[kSC];
 #pragma unroll
         for (int i = 0; i < kR; ++i) {
           kv[i] = Ks[(ty * kR + i) * S::kRS + c];
           vv[i] = Vs[(ty * kR + i) * S::kRS + c];
         }
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
+        for (int jj = 0; jj < kSC; ++jj) {
           qv[jj] = Qs[(tx + 16 * jj) * S::kCS + c];
           dov[jj] = dOs[(tx + 16 * jj) * S::kCS + c];
         }
 #pragma unroll
         for (int i = 0; i < kR; ++i)
 #pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
+          for (int jj = 0; jj < kSC; ++jj) {
             sc[i][jj] = fmaf(kv[i], qv[jj], sc[i][jj]);
             dp[i][jj] = fmaf(vv[i], dov[jj], dp[i][jj]);
           }
@@ -401,7 +409,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const int kr = ty * kR + i;
         const int col = k_start + kr;
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
+        for (int jj = 0; jj < kSC; ++jj) {
           const int qc = tx + 16 * jj;
           const int row = q_start + qc;
           float pr = 0.f;
@@ -418,7 +426,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       __syncthreads();
 
       // dv += p^T do, dk += ds^T q
-      for (int qc = 0; qc < kBQ; ++qc) {
+      for (int qc = 0; qc < BO; ++qc) {
         float pv[kR], dsv[kR], dov[kCols], qv[kCols];
 #pragma unroll
         for (int i = 0; i < kR; ++i) {
@@ -462,11 +470,13 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v,
                        const float* out, const float* dout, const float* lse,
                        float* delta, float* dq, float* dk, float* dv,
                        const Args& a, cudaStream_t stream) {
-  constexpr int kBR = DMAX <= 128 ? 64 : 32;  // the blocks' own rows
-  auto dq_kernel = flash_bwd_dq_kernel<DMAX, kBR>;
-  auto dkv_kernel = flash_bwd_dkv_kernel<DMAX, kBR>;
-  const size_t dq_smem = DqSmem<DMAX, kBR>::floats * sizeof(float);
-  const size_t dkv_smem = DkvSmem<DMAX, kBR>::floats * sizeof(float);
+  // the blocks' own rows, and the rows of the tiles they walk
+  constexpr int kBR = DMAX <= 128 ? 64 : DMAX <= 256 ? 32 : 16;
+  constexpr int kBO = DMAX <= 256 ? 64 : 32;
+  auto dq_kernel = flash_bwd_dq_kernel<DMAX, kBR, kBO>;
+  auto dkv_kernel = flash_bwd_dkv_kernel<DMAX, kBR, kBO>;
+  const size_t dq_smem = DqSmem<DMAX, kBR, kBO>::floats * sizeof(float);
+  const size_t dkv_smem = DkvSmem<DMAX, kBR, kBO>::floats * sizeof(float);
   cudaError_t err = apex::allow_smem(dq_kernel, dq_smem);
   if (err != cudaSuccess) return err;
   err = apex::allow_smem(dkv_kernel, dkv_smem);
@@ -626,7 +636,7 @@ flash_bwd_dkv_mma(const Args16<T> a) {
       for (int j = 0; j < kNS; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-#pragma unroll
+#pragma unroll (W::kUnroll)
       for (int kk = 0; kk < kKS; ++kk) {
         unsigned fa[1][4];
         ring::load_a<1, false>(fa, kw_s, C::kLd, 16 * kk);
@@ -660,7 +670,7 @@ flash_bwd_dkv_mma(const Args16<T> a) {
         for (int j = 0; j < 2; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
-#pragma unroll
+#pragma unroll (W::kUnroll)
         for (int kk = 0; kk < kKS; ++kk) {
           unsigned fa[1][4];
           ring::load_a<1, false>(fa, vw_s, C::kLd, 16 * kk);
@@ -720,28 +730,28 @@ flash_bwd_dkv_mma(const Args16<T> a) {
   }
 }
 
-// The dq pass: WARPS warps of 16 query rows, 64-key tiles through a ring of
-// STAGES (K, V) stages.
-template <int DMAX, int WARPS, int STAGES>
+// The dq pass: WARPS warps of 16 query rows, BK-key tiles through a ring
+// of STAGES (K, V) stages.
+template <int DMAX, int WARPS, int STAGES, int BK>
 struct DqCfg {
   static constexpr int kThreads = WARPS * 32;
   static constexpr int kRows = WARPS / flash::Cols<DMAX>::kParts * 16;
   static constexpr int kLd = flash::Tile<DMAX>::kLd;
   static constexpr int kQD = 2 * kRows * kLd * 2;  // Q, then dO, bytes
-  static constexpr int kStage = 2 * kBK * kLd * 2;  // K, then V, bytes
+  static constexpr int kStage = 2 * BK * kLd * 2;  // K, then V, bytes
   static constexpr size_t bytes = kQD + STAGES * kStage;
   static constexpr int kMinBlocks = DMAX <= 64 ? 3 : DMAX <= 128 ? 2 : 1;  // dq
   static_assert(bytes <= 232448, "one block fits an SM");
 };
 
-template <typename T, int DMAX, int WARPS, int STAGES, bool VEC>
+template <typename T, int DMAX, int WARPS, int STAGES, int BK, bool VEC>
 __global__ void __launch_bounds__(WARPS * 32,
-                                  (DqCfg<DMAX, WARPS, STAGES>::kMinBlocks))
+                                  (DqCfg<DMAX, WARPS, STAGES, BK>::kMinBlocks))
 flash_bwd_dq_mma(const Args16<T> a) {
-  using C = DqCfg<DMAX, WARPS, STAGES>;
+  using C = DqCfg<DMAX, WARPS, STAGES, BK>;
   using W = flash::Cols<DMAX>;
   constexpr int kKS = DMAX / 16;  // k16 steps over d
-  constexpr int kNS = kBK / 8;    // n8 score tiles (keys) a warp
+  constexpr int kNS = BK / 8;     // n8 score tiles (keys) a warp
   constexpr int kNO = W::kWidth / 8;  // n8 output tiles a warp
   extern __shared__ __align__(16) unsigned char fsmem[];
   T* Qs = reinterpret_cast<T*>(fsmem);
@@ -766,7 +776,7 @@ flash_bwd_dq_mma(const Args16<T> a) {
       (static_cast<long long>(bb) * a.KVH + hh / (a.H / a.KVH)) * mk.sk * d;
   const int kvl = a.kv_lengths != nullptr ? a.kv_lengths[bb] : mk.sk;
   int first, last;
-  key_tiles(mk, kvl, q_start, &first, &last, C::kRows);
+  key_tiles(mk, kvl, q_start, &first, &last, C::kRows, BK);
   const int tiles = last - first + 1;
 
   float dq[kNO][4];
@@ -784,10 +794,10 @@ flash_bwd_dq_mma(const Args16<T> a) {
       delta_r[h] = row < mk.sq ? a.delta[rb + row] : 0.f;
     }
     auto load_kv = [&](int tile, T* stage) {
-      flash::copy_tile<kBK, DMAX, C::kThreads, VEC>(stage, a.k, kv_base, d,
-                                                    tile * kBK, mk.sk, d);
-      flash::copy_tile<kBK, DMAX, C::kThreads, VEC>(
-          stage + kBK * C::kLd, a.v, kv_base, d, tile * kBK, mk.sk, d);
+      flash::copy_tile<BK, DMAX, C::kThreads, VEC>(stage, a.k, kv_base, d,
+                                                   tile * BK, mk.sk, d);
+      flash::copy_tile<BK, DMAX, C::kThreads, VEC>(
+          stage + BK * C::kLd, a.v, kv_base, d, tile * BK, mk.sk, d);
     };
     flash::copy_tile<C::kRows, DMAX, C::kThreads, VEC>(Qs, a.q, rb * d, d,
                                                        q_start, mk.sq, d);
@@ -811,8 +821,8 @@ flash_bwd_dq_mma(const Args16<T> a) {
       ring::cp_async_wait<STAGES - 2>();
       __syncthreads();
       const T* Ks = kv + (it % STAGES) * (C::kStage / 2);
-      const T* Vs = Ks + kBK * C::kLd;
-      const int c0 = (first + it) * kBK;
+      const T* Vs = Ks + BK * C::kLd;
+      const int c0 = (first + it) * BK;
       if (W::kRegA && it == 0) {
 #pragma unroll
         for (int kk = 0; kk < kA; ++kk) {
@@ -825,7 +835,7 @@ flash_bwd_dq_mma(const Args16<T> a) {
         load_kv(first + next, kv + (next % STAGES) * (C::kStage / 2));
       ring::cp_async_commit();
 
-      const flash::Cover cover = flash::tile_cover(mk, kvl, r0, c0, kBK);
+      const flash::Cover cover = flash::tile_cover(mk, kvl, r0, c0, BK);
       if (cover == flash::kNone) continue;
       // S = Q K^T, then p = exp(scale s - lse) (0 where masked)
       float sc[kNS][4];
@@ -833,7 +843,7 @@ flash_bwd_dq_mma(const Args16<T> a) {
       for (int j = 0; j < kNS; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-#pragma unroll
+#pragma unroll (W::kUnroll)
       for (int kk = 0; kk < kKS; ++kk) {
         const int ai = W::kRegA ? kk : 0;
         if (!W::kRegA) ring::load_a<1, false>(qf[ai], qw_s, C::kLd, 16 * kk);
@@ -864,7 +874,7 @@ flash_bwd_dq_mma(const Args16<T> a) {
         for (int j = 0; j < 2; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
-#pragma unroll
+#pragma unroll (W::kUnroll)
         for (int kk = 0; kk < kKS; ++kk) {
           const int ai = W::kRegA ? kk : 0;
           if (!W::kRegA) ring::load_a<1, false>(df[ai], dw_s, C::kLd, 16 * kk);
@@ -904,22 +914,25 @@ flash_bwd_dq_mma(const Args16<T> a) {
 }
 
 // 4 warps a block in both passes (8 at d 256, two warps a strip of 16
-// keys or queries); at d <= 64 query tiles of 64 rows in the dk/dv ring,
-// from 128 on of 32 (the score tiles' registers beside dk and dv), as in
-// Kernel F. The dk/dv ring has 3 stages (F's 2 were 2% slower at
-// the T5 cross-attention, where a block walks only two query tiles), the
-// dq ring 2. 16-byte copies need every row start (a multiple of d past a
-// 16-byte aligned base) on a 16-byte boundary.
+// keys or queries; 8 at 512, four warps a strip), as in Kernel F; at d <=
+// 64 query tiles of 64 rows in the dk/dv ring, from 128 on of 32 (the
+// score tiles' registers beside dk and dv), as in Kernel F; key tiles of
+// 64 in the dq ring, 32 at 512. The dk/dv ring has 3 stages (F's 2 were
+// 2% slower at the T5 cross-attention, where a block walks only two query
+// tiles; 2 at 512, where 3 would need 267,008 bytes), the dq ring 2.
+// 16-byte copies need every row start (a multiple of d past a 16-byte
+// aligned base) on a 16-byte boundary.
 template <typename T, int DMAX>
 cudaError_t launch_16(const Args16<T>& a, int b, const T* out, float* delta,
                       cudaStream_t stream) {
-  constexpr int kDkvWarps = 4 * flash::Cols<DMAX>::kParts;
-  constexpr int kDkvStages = 3;
-  constexpr int kDqWarps = 4 * flash::Cols<DMAX>::kParts;
+  constexpr int kDkvWarps = DMAX <= 128 ? 4 : 8;
+  constexpr int kDkvStages = DMAX <= 256 ? 3 : 2;
+  constexpr int kDqWarps = DMAX <= 128 ? 4 : 8;
   constexpr int kDqStages = 2;
   constexpr int kBQ = DMAX <= 64 ? 64 : 32;
+  constexpr int kKeys = DMAX <= 256 ? kBK : 32;  // the dq ring's key tiles
   using KvC = DkvCfg<DMAX, kDkvWarps, kBQ, kDkvStages>;
-  using QC = DqCfg<DMAX, kDqWarps, kDqStages>;
+  using QC = DqCfg<DMAX, kDqWarps, kDqStages, kKeys>;
   auto aligned = [](const void* p) {
     return reinterpret_cast<unsigned long long>(p) % 16 == 0;
   };
@@ -932,8 +945,8 @@ cudaError_t launch_16(const Args16<T>& a, int b, const T* out, float* delta,
   auto dkv =
       vec ? flash_bwd_dkv_mma<T, DMAX, kDkvWarps, kBQ, kDkvStages, true>
           : flash_bwd_dkv_mma<T, DMAX, kDkvWarps, kBQ, kDkvStages, false>;
-  auto dq = vec ? flash_bwd_dq_mma<T, DMAX, kDqWarps, kDqStages, true>
-                : flash_bwd_dq_mma<T, DMAX, kDqWarps, kDqStages, false>;
+  auto dq = vec ? flash_bwd_dq_mma<T, DMAX, kDqWarps, kDqStages, kKeys, true>
+                : flash_bwd_dq_mma<T, DMAX, kDqWarps, kDqStages, kKeys, false>;
   err = apex::allow_smem(dkv, KvC::bytes);
   if (err != cudaSuccess) return err;
   err = apex::allow_smem(dq, QC::bytes);
@@ -965,7 +978,7 @@ extern "C" int apex_flash_bwd(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  if (d > 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (d > 512) return static_cast<int>(cudaErrorInvalidValue);
   // the 16-bit passes over T (bf16 or fp16), each pointer read as T
   auto run16 = [&](auto* tag) {
     using T = std::remove_pointer_t<decltype(tag)>;
@@ -976,7 +989,8 @@ extern "C" int apex_flash_bwd(const void* q, const void* k, const void* v,
     const auto* o = static_cast<const T*>(out);
     return d <= 64    ? launch_16<T, 64>(a, b, o, dl, st)
            : d <= 128 ? launch_16<T, 128>(a, b, o, dl, st)
-                      : launch_16<T, 256>(a, b, o, dl, st);
+           : d <= 256 ? launch_16<T, 256>(a, b, o, dl, st)
+                      : launch_16<T, 512>(a, b, o, dl, st);
   };
   cudaError_t err;
   if (dtype == apex::kBF16) {
@@ -994,7 +1008,8 @@ extern "C" int apex_flash_bwd(const void* q, const void* k, const void* v,
     };
     err = d <= 64    ? f32(std::integral_constant<int, 64>())
           : d <= 128 ? f32(std::integral_constant<int, 128>())
-                     : f32(std::integral_constant<int, 256>());
+          : d <= 256 ? f32(std::integral_constant<int, 256>())
+                     : f32(std::integral_constant<int, 512>());
   } else {
     return static_cast<int>(cudaErrorInvalidValue);  // no other type
   }

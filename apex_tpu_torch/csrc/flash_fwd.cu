@@ -63,7 +63,9 @@
 // Past d 128 (DMAX 256) two warps share each 16-row strip and own 128
 // columns of o each, Q's fragments read from shared memory at each k16
 // step (Kernel E's split, flash_mma.cuh Cols): 8-warp blocks of 64 rows,
-// one an SM.
+// one an SM. Past 256 (DMAX 512) four warps share a strip: 8-warp blocks
+// of 32 rows over 32-key tiles (166,400 bytes of shared memory), as
+// Kernel E.
 // Blocks of 4 warps (64 rows), three an SM at 168 registers a thread: at
 // the serving prefill (b 1, 12 heads) E's 128-row blocks would give 12-72
 // blocks on 132 SMs, and they were 11-25% slower at every shape measured
@@ -71,10 +73,11 @@
 // atomics: repeated runs are bitwise equal.
 //
 // f32 (checks only; TF32 would miss their atol of 1e-4): one 256-thread
-// block per (64-row query tile, head, batch). The query tile stays in
-// shared memory; the block walks the visible 64-row key/value tiles,
-// computing S = Q K^T and P V with fp32 FMA from shared memory, each
-// thread owning a 4 x (DMAX/16) register tile of the output.
+// block per (64-row query tile, head, batch; 32 rows at DMAX 512). The
+// query tile stays in shared memory; the block walks the visible 64-row
+// key/value tiles (32 at 512), computing S = Q K^T and P V with fp32 FMA
+// from shared memory, each thread owning a 4 x (DMAX/16) register tile of
+// the output (4 x DMAX/32 at 512).
 #include <type_traits>
 
 #include "flash_mma.cuh"
@@ -98,40 +101,49 @@ struct FlashArgs {
   Mask mask;
 };
 
-template <int DMAX>
+// BQ query rows and BK keys a tile: 64 x 64, or 32 x 32 at DMAX 512, where
+// 64-row fp32 tiles would not fit the 227 KB of shared memory. A thread
+// owns 4 query rows, BK / kTX keys of a score tile and DMAX / kTX output
+// columns.
+template <int DMAX, int BQ, int BK>
 struct Smem {
   static constexpr int kQS = DMAX + 4;  // padded strides: no bank conflicts
   static constexpr int kKS = DMAX + 1;
-  static constexpr int kSS = kBK + 1;
+  static constexpr int kSS = BK + 1;
+  static constexpr int kTY = BQ / 4;         // threads down the rows
+  static constexpr int kTX = kThreads / kTY;  // threads across
   static constexpr size_t floats =
-      kBQ * kQS + kBK * kKS + kBK * DMAX + kBQ * kSS + 3 * kBQ;
+      BQ * kQS + BK * kKS + BK * DMAX + BQ * kSS + 3 * BQ;
+  static_assert(floats * 4 <= 232448, "one block fits an SM");
 };
 
-template <int DMAX>
+template <int DMAX, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, const int* __restrict__ kv_lengths,
                  int H, int KVH, int d, float scale, const Mask mk) {
-  using S = Smem<DMAX>;
+  using S = Smem<DMAX, BQ, BK>;
   const int sq = mk.sq;
   const int sk = mk.sk;
-  constexpr int kCols = DMAX / 16;  // output columns per thread
+  constexpr int kTX = S::kTX;
+  constexpr int kSC = BK / kTX;     // score columns per thread
+  constexpr int kCols = DMAX / kTX;  // output columns per thread
   extern __shared__ float smem[];
   float* Qs = smem;
-  float* Ks = Qs + kBQ * S::kQS;
-  float* Vs = Ks + kBK * S::kKS;
-  float* Ss = Vs + kBK * DMAX;
-  float* m_s = Ss + kBQ * S::kSS;
-  float* l_s = m_s + kBQ;
-  float* alpha_s = l_s + kBQ;
+  float* Ks = Qs + BQ * S::kQS;
+  float* Vs = Ks + BK * S::kKS;
+  float* Ss = Vs + BK * DMAX;
+  float* m_s = Ss + BQ * S::kSS;
+  float* l_s = m_s + BQ;
+  float* alpha_s = l_s + BQ;
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  const int tx = tid % kTX;
+  const int ty = tid / kTX;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int q_start = blockIdx.x * kBQ;
+  const int q_start = blockIdx.x * BQ;
   const int hh = blockIdx.y;
   const int bb = blockIdx.z;
   const int kv_head = hh / (H / KVH);
@@ -139,7 +151,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const long long q_base = (static_cast<long long>(bb) * H + hh) * sq * d;
   const long long kv_base = (static_cast<long long>(bb) * KVH + kv_head) * sk * d;
 
-  for (int idx = tid; idx < kBQ * DMAX; idx += kThreads) {
+  for (int idx = tid; idx < BQ * DMAX; idx += kThreads) {
     const int r = idx / DMAX;
     const int c = idx % DMAX;
     float val = 0.f;
@@ -147,7 +159,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       val = apex::to_float(q[q_base + static_cast<long long>(q_start + r) * d + c]);
     Qs[r * S::kQS + c] = val;
   }
-  if (tid < kBQ) {
+  if (tid < BQ) {
     m_s[tid] = kNeg;
     l_s[tid] = 0.f;
   }
@@ -160,12 +172,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int kvl = kv_lengths != nullptr ? kv_lengths[bb] : sk;
   int j_first, j_last;
-  key_tiles(mk, kvl, q_start, &j_first, &j_last);
+  key_tiles(mk, kvl, q_start, &j_first, &j_last, BQ, BK);
   __syncthreads();
 
   for (int jt = j_first; jt <= j_last; ++jt) {
-    const int k_start = jt * kBK;
-    for (int idx = tid; idx < kBK * DMAX; idx += kThreads) {
+    const int k_start = jt * BK;
+    for (int idx = tid; idx < BK * DMAX; idx += kThreads) {
       const int r = idx / DMAX;
       const int c = idx % DMAX;
       float kval = 0.f;
@@ -181,47 +193,55 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
 
     // S = scale * Q K^T, masked
-    float s[4][4];
+    float s[4][kSC];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < kSC; ++j) s[i][j] = 0.f;
     for (int c = 0; c < DMAX; ++c) {
       float qv[4];
-      float kv[4];
+      float kv[kSC];
 #pragma unroll
       for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * S::kQS + c];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * S::kKS + c];
+      for (int j = 0; j < kSC; ++j) kv[j] = Ks[(tx + kTX * j) * S::kKS + c];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+        for (int j = 0; j < kSC; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = q_start + ty * 4 + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k_start + tx + 16 * j;
-        Ss[(ty * 4 + i) * S::kSS + tx + 16 * j] =
+      for (int j = 0; j < kSC; ++j) {
+        const int col = k_start + tx + kTX * j;
+        Ss[(ty * 4 + i) * S::kSS + tx + kTX * j] =
             visible(mk, kvl, row, col) ? s[i][j] * scale : kNeg;
       }
     }
     __syncthreads();
 
-    // online softmax: one warp per row, 8 rows per warp
-    for (int r = warp * (kBQ / 8); r < (warp + 1) * (kBQ / 8); ++r) {
+    // online softmax: one warp per row, BQ / 8 rows per warp, BK / 32 keys
+    // a lane
+    for (int r = warp * (BQ / 8); r < (warp + 1) * (BQ / 8); ++r) {
       float* srow = Ss + r * S::kSS;
-      const float v0 = srow[lane];
-      const float v1 = srow[lane + 32];
+      float v[BK / 32];
+#pragma unroll
+      for (int u = 0; u < BK / 32; ++u) v[u] = srow[lane + 32 * u];
+      float vmax = v[0];
+#pragma unroll
+      for (int u = 1; u < BK / 32; ++u) vmax = fmaxf(vmax, v[u]);
       const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, apex::warp_max(fmaxf(v0, v1)));
-      const float p0 = v0 == kNeg ? 0.f : expf(v0 - m_new);
-      const float p1 = v1 == kNeg ? 0.f : expf(v1 - m_new);
-      srow[lane] = p0;
-      srow[lane + 32] = p1;
-      const float l_blk = apex::warp_sum(p0 + p1);
+      const float m_new = fmaxf(m_prev, apex::warp_max(vmax));
+      float psum = 0.f;
+#pragma unroll
+      for (int u = 0; u < BK / 32; ++u) {
+        const float p = v[u] == kNeg ? 0.f : expf(v[u] - m_new);
+        srow[lane + 32 * u] = p;
+        psum = u == 0 ? p : psum + p;
+      }
+      const float l_blk = apex::warp_sum(psum);
       if (lane == 0) {
         const float alpha = expf(m_prev - m_new);
         alpha_s[r] = alpha;
@@ -238,13 +258,13 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;
     }
-    for (int j = 0; j < kBK; ++j) {
+    for (int j = 0; j < BK; ++j) {
       float pv[4];
       float vv[kCols];
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = Ss[(ty * 4 + i) * S::kSS + j];
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) vv[c] = Vs[j * DMAX + tx + 16 * c];
+      for (int c = 0; c < kCols; ++c) vv[c] = Vs[j * DMAX + tx + kTX * c];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -262,7 +282,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float inv = l > 0.f ? 1.f / l : 0.f;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
-      const int col = tx + 16 * c;
+      const int col = tx + kTX * c;
       if (col < d) apex::store(&o[q_base + static_cast<long long>(row) * d + col], acc[i][c] * inv);
     }
     if (tx == 0)
@@ -273,11 +293,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int DMAX>
 cudaError_t launch_f32(const FlashArgs& a, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<DMAX>;
-  const size_t smem = Smem<DMAX>::floats * sizeof(float);
+  constexpr int kB = DMAX <= 256 ? 64 : 32;  // BQ = BK
+  auto kernel = flash_fwd_kernel<DMAX, kB, kB>;
+  const size_t smem = Smem<DMAX, kB, kB>::floats * sizeof(float);
   cudaError_t err = apex::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.mask.sq + kBQ - 1) / kBQ, a.h, a.b);
+  const dim3 grid((a.mask.sq + kB - 1) / kB, a.h, a.b);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse,
@@ -286,14 +307,17 @@ cudaError_t launch_f32(const FlashArgs& a, cudaStream_t stream) {
 }
 
 // The 16-bit kernel: 4 strips of 16 query rows (a warp each, two at d
-// 256), key tiles of kBK through a ring of STAGES (K, V) stages; three
-// blocks an SM at d <= 64 (168 registers a thread; the ring's shared
-// memory caps it there), two at 128, one at 256.
+// 256; 2 strips of four warps at 512, 8 warps and 255 registers a
+// thread), key tiles of BK (64; 32 at 512) through a ring of STAGES
+// (K, V) stages; three blocks an SM at d <= 64 (168 registers a thread;
+// the ring's shared memory caps it there), two at 128, one from 256 on.
 template <int DMAX, int STAGES>
 struct MmaCfg {
-  static constexpr int kWarps = 4 * flash::Cols<DMAX>::kParts;
+  static constexpr int kStrips = DMAX <= 256 ? 4 : 2;
+  static constexpr int kBK = DMAX <= 256 ? apex::packed::kBK : 32;
+  static constexpr int kWarps = kStrips * flash::Cols<DMAX>::kParts;
   static constexpr int kThreads = kWarps * 32;
-  static constexpr int kRows = 4 * 16;  // query rows a block
+  static constexpr int kRows = kStrips * 16;  // query rows a block
   static constexpr int kLd = flash::Tile<DMAX>::kLd;
   static constexpr int kStage = 2 * kBK * kLd;  // K then V, 16-bit
   static constexpr size_t bytes = (kRows * kLd + STAGES * kStage) * 2;
@@ -309,6 +333,7 @@ flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
               float* __restrict__ lse, const int* __restrict__ kv_lengths,
               int H, int KVH, int d, float scale, const Mask mk) {
   using C = MmaCfg<DMAX, STAGES>;
+  constexpr int kBK = C::kBK;  // keys a tile
   constexpr bool kF16 = std::is_same<T, __half>::value;
   // fp16: p scaled by 2^14 before its split, o by 2^-14 after (above)
   constexpr float kPScale = kF16 ? 16384.f : 1.f;
@@ -335,7 +360,7 @@ flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
       (static_cast<long long>(bb) * KVH + hh / (H / KVH)) * mk.sk * d;
   const int kvl = kv_lengths != nullptr ? kv_lengths[bb] : mk.sk;
   int first, last;
-  key_tiles(mk, kvl, q_start, &first, &last, C::kRows);
+  key_tiles(mk, kvl, q_start, &first, &last, C::kRows, kBK);
   const int tiles = last - first + 1;
 
   float acc[kNO][4];
@@ -503,23 +528,26 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                     static_cast<const int*>(kv_lengths), b, h, kvh, d,
                     scale, mask_4d(sq, sk, causal, window)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d > 256) return static_cast<int>(cudaErrorInvalidValue);
-  // the instance of the head dim: DMAX 64, 128 or 256
-  auto by_d = [d](auto f64, auto f128, auto f256) {
-    return d <= 64 ? f64() : d <= 128 ? f128() : f256();
+  if (d > 512) return static_cast<int>(cudaErrorInvalidValue);
+  // the instance of the head dim: DMAX 64, 128, 256 or 512
+  auto by_d = [d](auto f64, auto f128, auto f256, auto f512) {
+    return d <= 64 ? f64() : d <= 128 ? f128() : d <= 256 ? f256() : f512();
   };
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == apex::kBF16)
     err = by_d([&] { return launch_16<bf16, 64>(a, s); },
                [&] { return launch_16<bf16, 128>(a, s); },
-               [&] { return launch_16<bf16, 256>(a, s); });
+               [&] { return launch_16<bf16, 256>(a, s); },
+               [&] { return launch_16<bf16, 512>(a, s); });
   else if (dtype == apex::kF16)
     err = by_d([&] { return launch_16<__half, 64>(a, s); },
                [&] { return launch_16<__half, 128>(a, s); },
-               [&] { return launch_16<__half, 256>(a, s); });
+               [&] { return launch_16<__half, 256>(a, s); },
+               [&] { return launch_16<__half, 512>(a, s); });
   else if (dtype == apex::kF32)
     err = by_d([&] { return launch_f32<64>(a, s); },
                [&] { return launch_f32<128>(a, s); },
-               [&] { return launch_f32<256>(a, s); });
+               [&] { return launch_f32<256>(a, s); },
+               [&] { return launch_f32<512>(a, s); });
   return static_cast<int>(err);
 }

@@ -35,14 +35,15 @@ using packed::Opts;
 // How the 16-bit kernels lay a warp's work over the head dim. Up to 128
 // columns a warp owns a strip of 16 rows (queries, or keys in the dk/dv
 // passes) and every output column, and holds its Q (and dO) A fragments
-// in registers. At DMAX 256 the fp32 accumulators over all of d (128
-// registers for o or dq, 256 for dk and dv) do not fit beside the score
-// tile, so two warps share each strip: both compute the strip's scores
-// over the whole of d, and each owns half of the output columns; the A
-// fragments of Q and dO are read from shared memory at each k16 step.
+// in registers. At DMAX 256 and 512 the fp32 accumulators over all of d
+// (128 or 256 registers for o or dq, twice that for dk and dv) do not fit
+// beside the score tile, so DMAX / 128 warps share each strip: each
+// computes the strip's scores over the whole of d, and each owns 128 of
+// the output columns; the A fragments of Q and dO are read from shared
+// memory at each k16 step.
 //
 // The backwards' S and dP: up to 128 the tensor cores carry each 128-deep
-// sum; at 256 each 16-deep product is added with an IEEE fp32 add instead
+// sum; past it each 16-deep product is added with an IEEE fp32 add instead
 // (kAddSums, mma_sum below). Carried through 16 products, the tensor
 // cores' sum drifted enough that ds = p (dp - delta), where dp and delta
 // nearly cancel, rounded to a neighbouring fp16 value of the plain
@@ -50,10 +51,14 @@ using packed::Opts;
 // of Kernel I had an element past it; none with the adds, 16% slower).
 template <int DMAX>
 struct Cols {
-  static constexpr int kParts = DMAX > 128 ? 2 : 1;  // warps a strip
+  static constexpr int kParts = DMAX > 128 ? DMAX / 128 : 1;  // warps a strip
   static constexpr int kWidth = DMAX / kParts;       // columns a warp owns
   static constexpr bool kRegA = DMAX <= 128;  // Q / dO fragments in registers
   static constexpr bool kAddSums = DMAX > 128;  // S, dP summed by IEEE adds
+  // k16 steps of the backwards' S and dP unrolled at once: all of them up
+  // to 256; 4 at 512, where every step's fragments in flight spilled
+  // hundreds of bytes a thread
+  static constexpr int kUnroll = DMAX > 256 ? 4 : DMAX / 16;
 };
 
 // Shared-memory row length of a tile of DMAX columns: 8 elements of padding

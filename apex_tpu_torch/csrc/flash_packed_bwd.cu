@@ -75,7 +75,12 @@
 // dP^T (or S and dP) over the whole of d, and each owning 128 columns of
 // dk and dv (or dq); Q's and dO's fragments are read from shared memory
 // at each k16 step. No atomics still: every output column has one owner.
-// The tensor work becomes 22 d a visible pair; one block an SM.
+// The tensor work becomes 22 d a visible pair; one block an SM. Past 256
+// (DMAX 512) four warps share a strip, so the 8-warp blocks own 32 keys
+// (or queries) at up to 255 registers a thread, the dq ring's key tiles
+// are 32 rows (200,192 and 199,680 bytes of shared memory), and the
+// tensor work is 38 d a visible pair; both passes spill (ptxas -v,
+// PERF.md).
 // This is seven tile products a visible pair (q k^T and do v^T in both
 // passes): 14 d of tensor work against the algorithm's 10 d, for no
 // atomics and no cross-block sums. FlashAttention-2's single pass with an
@@ -90,7 +95,8 @@
 // fp32 tiles in shared memory and fp32 FMA as in Kernel E's f32 path;
 // each thread owns a 4-row x (DMAX / 16)-column accumulator tile (2 rows
 // at DMAX 256, where the blocks' own tiles are 32 rows so that they fit
-// the 227 KB of shared memory).
+// the 227 KB of shared memory; 1 row at 512, where they are 16 rows and
+// walk 32-row tiles).
 // - pass 1, one block per (64-row query tile, head, batch): delta for its
 //   rows (written to the [b, H, s] fp32 scratch for pass 2) and dq,
 //   walking the visible key tiles;
@@ -105,31 +111,35 @@ namespace {
 using namespace apex::packed;
 
 // BR: the rows of the block's own tile (queries in pass 1, keys in pass
-// 2): 64, or 32 at DMAX 256, where 64-row tiles would not fit the 227 KB
-// of shared memory; each thread owns BR / 16 of them.
-template <int DMAX, int BR>
+// 2): 64, 32 at DMAX 256 and 16 at 512, where larger tiles would not fit
+// the 227 KB of shared memory; each thread owns BR / 16 of them. BO: the
+// rows of the tiles it walks (keys in pass 1, queries in pass 2), 64, or
+// 32 at DMAX 512; each thread owns BO / 16 of a score tile's columns.
+template <int DMAX, int BR, int BO>
 struct DqSmem {
   static constexpr int kRS = DMAX + 4;  // rows read by ty (broadcast)
   static constexpr int kCS = DMAX + 1;  // rows read by tx
-  static constexpr int kSS = kBK + 1;
-  static constexpr size_t floats = 2 * BR * kRS + 2 * kBK * kCS + BR * kSS + 2 * BR;
+  static constexpr int kSS = BO + 1;
+  static constexpr size_t floats = 2 * BR * kRS + 2 * BO * kCS + BR * kSS + 2 * BR;
+  static_assert(floats * 4 <= 232448, "one block fits an SM");
 };
 
-template <typename T, int DMAX, int BR>
+template <typename T, int DMAX, int BR, int BO>
 __global__ void __launch_bounds__(kThreads)
 flash_packed_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
                        const T* __restrict__ out, const float* __restrict__ lse,
                        float* __restrict__ delta, T* __restrict__ dqkv,
                        const Opts opt) {
-  using S = DqSmem<DMAX, BR>;
+  using S = DqSmem<DMAX, BR, BO>;
   constexpr int kCols = DMAX / 16;
   constexpr int kR = BR / 16;  // rows a thread
+  constexpr int kSC = BO / 16;  // score columns a thread
   extern __shared__ float smem[];
   float* Qs = smem;                    // [BR][kRS], reused for dq at the end
   float* dOs = Qs + BR * S::kRS;       // [BR][kRS]
-  float* Ks = dOs + BR * S::kRS;       // [kBK][kCS]
-  float* Vs = Ks + kBK * S::kCS;       // [kBK][kCS]
-  float* dSs = Vs + kBK * S::kCS;      // [BR][kSS]
+  float* Ks = dOs + BR * S::kRS;       // [BO][kCS]
+  float* Vs = Ks + BO * S::kCS;        // [BO][kCS]
+  float* dSs = Vs + BO * S::kCS;       // [BR][kSS]
   float* lse_s = dSs + BR * S::kSS;
   float* delta_s = lse_s + BR;
 
@@ -189,12 +199,12 @@ flash_packed_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
 
   const int kvl = opt.kv_lengths != nullptr ? opt.kv_lengths[bb] : opt.s;
   int j_first, j_last;
-  key_tiles(opt, kvl, q_start, &j_first, &j_last, BR);
+  key_tiles(opt, kvl, q_start, &j_first, &j_last, BR, BO);
   __syncthreads();
 
   for (int jt = j_first; jt <= j_last; ++jt) {
-    const int k_start = jt * kBK;
-    for (int idx = tid; idx < kBK * DMAX; idx += kThreads) {
+    const int k_start = jt * BO;
+    for (int idx = tid; idx < BO * DMAX; idx += kThreads) {
       const int r = idx / DMAX;
       const int c = idx % DMAX;
       const int row = k_start + r;
@@ -209,28 +219,28 @@ flash_packed_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
     }
     __syncthreads();
 
-    float sc[kR][4];
-    float dp[kR][4];
+    float sc[kR][kSC];
+    float dp[kR][kSC];
 #pragma unroll
     for (int i = 0; i < kR; ++i)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) sc[i][jj] = dp[i][jj] = 0.f;
+      for (int jj = 0; jj < kSC; ++jj) sc[i][jj] = dp[i][jj] = 0.f;
     for (int c = 0; c < DMAX; ++c) {
-      float qv[kR], dov[kR], kv[4], vv[4];
+      float qv[kR], dov[kR], kv[kSC], vv[kSC];
 #pragma unroll
       for (int i = 0; i < kR; ++i) {
         qv[i] = Qs[(ty * kR + i) * S::kRS + c];
         dov[i] = dOs[(ty * kR + i) * S::kRS + c];
       }
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < kSC; ++jj) {
         kv[jj] = Ks[(tx + 16 * jj) * S::kCS + c];
         vv[jj] = Vs[(tx + 16 * jj) * S::kCS + c];
       }
 #pragma unroll
       for (int i = 0; i < kR; ++i)
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
+        for (int jj = 0; jj < kSC; ++jj) {
           sc[i][jj] = fmaf(qv[i], kv[jj], sc[i][jj]);
           dp[i][jj] = fmaf(dov[i], vv[jj], dp[i][jj]);
         }
@@ -240,7 +250,7 @@ flash_packed_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
       const int r = ty * kR + i;
       const int row = q_start + r;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < kSC; ++jj) {
         const int col = k_start + tx + 16 * jj;
         float ds = 0.f;
         if (visible(opt, kvl, row, col)) {
@@ -257,7 +267,7 @@ flash_packed_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
     __syncthreads();
 
     // dq += ds k
-    for (int jj = 0; jj < kBK; ++jj) {
+    for (int jj = 0; jj < BO; ++jj) {
       float dsv[kR];
       float kv[kCols];
 #pragma unroll
@@ -294,32 +304,34 @@ flash_packed_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
   }
 }
 
-template <int DMAX, int BR>
+template <int DMAX, int BR, int BO>
 struct DkvSmem {
   static constexpr int kRS = DMAX + 4;  // K, V: rows read by ty
   static constexpr int kCS = DMAX + 1;  // Q, dO: rows read by tx
-  static constexpr int kSS = kBQ + 1;
-  static constexpr size_t floats = 2 * BR * kRS + 2 * kBQ * kCS + 2 * BR * kSS + 2 * kBQ;
+  static constexpr int kSS = BO + 1;
+  static constexpr size_t floats = 2 * BR * kRS + 2 * BO * kCS + 2 * BR * kSS + 2 * BO;
+  static_assert(floats * 4 <= 232448, "one block fits an SM");
 };
 
-template <typename T, int DMAX, int BR>
+template <typename T, int DMAX, int BR, int BO>
 __global__ void __launch_bounds__(kThreads)
 flash_packed_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dqkv,
                         const Opts opt) {
-  using S = DkvSmem<DMAX, BR>;
+  using S = DkvSmem<DMAX, BR, BO>;
   constexpr int kCols = DMAX / 16;
   constexpr int kR = BR / 16;  // key rows a thread
+  constexpr int kSC = BO / 16;  // query columns a thread
   extern __shared__ float smem[];
   float* Ks = smem;                   // [BR][kRS], reused for dk at the end
   float* Vs = Ks + BR * S::kRS;       // [BR][kRS]
-  float* Qs = Vs + BR * S::kRS;       // [kBQ][kCS]
-  float* dOs = Qs + kBQ * S::kCS;     // [kBQ][kCS]
-  float* Ps = dOs + kBQ * S::kCS;     // dropped p^T [BR][kSS]
+  float* Qs = Vs + BR * S::kRS;       // [BO][kCS]
+  float* dOs = Qs + BO * S::kCS;      // [BO][kCS]
+  float* Ps = dOs + BO * S::kCS;      // dropped p^T [BR][kSS]
   float* dSs = Ps + BR * S::kSS;      // ds^T [BR][kSS]
   float* lse_s = dSs + BR * S::kSS;
-  float* delta_s = lse_s + kBQ;
+  float* delta_s = lse_s + BO;
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;
@@ -356,7 +368,7 @@ flash_packed_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
 
   const int kvl = opt.kv_lengths != nullptr ? opt.kv_lengths[bb] : opt.s;
   int i_first, i_last;
-  query_tiles(opt, kvl, k_start, &i_first, &i_last, BR);
+  query_tiles(opt, kvl, k_start, &i_first, &i_last, BR, BO);
 
   for (int jh = 0; jh < opt.qpg; ++jh) {
     const int hh = g * opt.qpg + jh;
@@ -364,9 +376,9 @@ flash_packed_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
     const long long stat_base =
         (static_cast<long long>(bb) * heads + hh) * opt.s;
     for (int it = i_first; it <= i_last; ++it) {
-      const int q_start = it * kBQ;
+      const int q_start = it * BO;
       __syncthreads();  // the previous tile's readers are done
-      for (int idx = tid; idx < kBQ * DMAX; idx += kThreads) {
+      for (int idx = tid; idx < BO * DMAX; idx += kThreads) {
         const int r = idx / DMAX;
         const int c = idx % DMAX;
         const int row = q_start + r;
@@ -379,7 +391,7 @@ flash_packed_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
         Qs[r * S::kCS + c] = qv;
         dOs[r * S::kCS + c] = dov;
       }
-      if (tid < kBQ) {
+      if (tid < BO) {
         const int row = q_start + tid;
         lse_s[tid] = row < opt.s ? lse[stat_base + row] : 0.f;
         delta_s[tid] = row < opt.s ? delta[stat_base + row] : 0.f;
@@ -387,28 +399,28 @@ flash_packed_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
       __syncthreads();
 
       // transposed tile: key rows ty * kR + i, query columns tx + 16 jj
-      float sc[kR][4];
-      float dp[kR][4];
+      float sc[kR][kSC];
+      float dp[kR][kSC];
 #pragma unroll
       for (int i = 0; i < kR; ++i)
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) sc[i][jj] = dp[i][jj] = 0.f;
+        for (int jj = 0; jj < kSC; ++jj) sc[i][jj] = dp[i][jj] = 0.f;
       for (int c = 0; c < DMAX; ++c) {
-        float kv[kR], vv[kR], qv[4], dov[4];
+        float kv[kR], vv[kR], qv[kSC], dov[kSC];
 #pragma unroll
         for (int i = 0; i < kR; ++i) {
           kv[i] = Ks[(ty * kR + i) * S::kRS + c];
           vv[i] = Vs[(ty * kR + i) * S::kRS + c];
         }
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
+        for (int jj = 0; jj < kSC; ++jj) {
           qv[jj] = Qs[(tx + 16 * jj) * S::kCS + c];
           dov[jj] = dOs[(tx + 16 * jj) * S::kCS + c];
         }
 #pragma unroll
         for (int i = 0; i < kR; ++i)
 #pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
+          for (int jj = 0; jj < kSC; ++jj) {
             sc[i][jj] = fmaf(kv[i], qv[jj], sc[i][jj]);
             dp[i][jj] = fmaf(vv[i], dov[jj], dp[i][jj]);
           }
@@ -418,7 +430,7 @@ flash_packed_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
         const int kr = ty * kR + i;
         const int col = k_start + kr;
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
+        for (int jj = 0; jj < kSC; ++jj) {
           const int qc = tx + 16 * jj;
           const int row = q_start + qc;
           float pd = 0.f;
@@ -441,7 +453,7 @@ flash_packed_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
       __syncthreads();
 
       // dv += drop(p)^T do, dk += ds^T q
-      for (int qc = 0; qc < kBQ; ++qc) {
+      for (int qc = 0; qc < BO; ++qc) {
         float pv[kR], dsv[kR], dov[kCols], qv[kCols];
 #pragma unroll
         for (int i = 0; i < kR; ++i) {
@@ -494,11 +506,13 @@ template <typename T, int DMAX>
 cudaError_t launch(const void* qkv, const void* dout, const void* out,
                    const float* lse, float* delta, void* dqkv, const Opts& opt,
                    cudaStream_t stream) {
-  constexpr int kBR = DMAX <= 128 ? 64 : 32;  // the blocks' own rows
-  auto dq_kernel = flash_packed_dq_kernel<T, DMAX, kBR>;
-  auto dkv_kernel = flash_packed_dkv_kernel<T, DMAX, kBR>;
-  const size_t dq_smem = DqSmem<DMAX, kBR>::floats * sizeof(float);
-  const size_t dkv_smem = DkvSmem<DMAX, kBR>::floats * sizeof(float);
+  // the blocks' own rows, and the rows of the tiles they walk
+  constexpr int kBR = DMAX <= 128 ? 64 : DMAX <= 256 ? 32 : 16;
+  constexpr int kBO = DMAX <= 256 ? 64 : 32;
+  auto dq_kernel = flash_packed_dq_kernel<T, DMAX, kBR, kBO>;
+  auto dkv_kernel = flash_packed_dkv_kernel<T, DMAX, kBR, kBO>;
+  const size_t dq_smem = DqSmem<DMAX, kBR, kBO>::floats * sizeof(float);
+  const size_t dkv_smem = DkvSmem<DMAX, kBR, kBO>::floats * sizeof(float);
   cudaError_t err = apex::allow_smem(dq_kernel, dq_smem);
   if (err != cudaSuccess) return err;
   err = apex::allow_smem(dkv_kernel, dkv_smem);
@@ -523,6 +537,7 @@ cudaError_t launch_d(const void* qkv, const void* dout, const void* out,
   if (opt.d <= 64) return launch<T, 64>(qkv, dout, out, lse, delta, dqkv, opt, stream);
   if (opt.d <= 128) return launch<T, 128>(qkv, dout, out, lse, delta, dqkv, opt, stream);
   if (opt.d <= 256) return launch<T, 256>(qkv, dout, out, lse, delta, dqkv, opt, stream);
+  if (opt.d <= 512) return launch<T, 512>(qkv, dout, out, lse, delta, dqkv, opt, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -671,7 +686,7 @@ flash_packed_dkv_mma(const T* __restrict__ qkv, const T* __restrict__ dout,
       for (int j = 0; j < kNS; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-#pragma unroll
+#pragma unroll (W::kUnroll)
       for (int kk = 0; kk < kKS; ++kk) {
         unsigned a[1][4];
         ring::load_a<1, false>(a, kw_s, C::kLd, 16 * kk);
@@ -705,7 +720,7 @@ flash_packed_dkv_mma(const T* __restrict__ qkv, const T* __restrict__ dout,
         for (int j = 0; j < 2; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
-#pragma unroll
+#pragma unroll (W::kUnroll)
         for (int kk = 0; kk < kKS; ++kk) {
           unsigned a[1][4];
           ring::load_a<1, false>(a, vw_s, C::kLd, 16 * kk);
@@ -801,33 +816,33 @@ flash_packed_dkv_mma(const T* __restrict__ qkv, const T* __restrict__ dout,
   }
 }
 
-// The dq pass: WARPS warps of 16 query rows, 64-key tiles through a ring of
-// STAGES (K, V) stages.
-template <int DMAX, int WARPS, int STAGES>
+// The dq pass: WARPS warps of 16 query rows, BK-key tiles through a ring
+// of STAGES (K, V) stages.
+template <int DMAX, int WARPS, int STAGES, int BK>
 struct DqCfg {
   static constexpr int kThreads = WARPS * 32;
   static constexpr int kRows = WARPS / flash::Cols<DMAX>::kParts * 16;
   static constexpr int kLd = flash::Tile<DMAX>::kLd;
   static constexpr int kOutLd = DMAX + 4;  // fp32 dq rows to un-rotate
   static constexpr int kQD = 2 * kRows * kLd * 2;  // Q, then dO, bytes
-  static constexpr int kStage = 2 * kBK * kLd * 2;  // K, then V, bytes
+  static constexpr int kStage = 2 * BK * kLd * 2;  // K, then V, bytes
   static constexpr size_t bytes = kQD + STAGES * kStage;
   static constexpr int kMinBlocks = DMAX <= 64 ? 3 : DMAX <= 128 ? 2 : 1;  // dq
   static_assert(kRows * kOutLd * 4 <= kQD, "dq tile fits");
   static_assert(bytes <= 232448, "one block fits an SM");
 };
 
-template <typename T, int DMAX, int WARPS, int STAGES, bool VEC>
+template <typename T, int DMAX, int WARPS, int STAGES, int BK, bool VEC>
 __global__ void __launch_bounds__(WARPS * 32,
-                                  (DqCfg<DMAX, WARPS, STAGES>::kMinBlocks))
+                                  (DqCfg<DMAX, WARPS, STAGES, BK>::kMinBlocks))
 flash_packed_dq_mma(const T* __restrict__ qkv, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dqkv,
                     const Opts opt) {
-  using C = DqCfg<DMAX, WARPS, STAGES>;
+  using C = DqCfg<DMAX, WARPS, STAGES, BK>;
   using W = flash::Cols<DMAX>;
   constexpr int kKS = DMAX / 16;  // k16 steps over d
-  constexpr int kNS = kBK / 8;    // n8 score tiles (keys) a warp
+  constexpr int kNS = BK / 8;     // n8 score tiles (keys) a warp
   constexpr int kNO = W::kWidth / 8;  // n8 output tiles a warp
   extern __shared__ __align__(16) unsigned char fsmem[];
   T* Qs = reinterpret_cast<T*>(fsmem);
@@ -851,7 +866,7 @@ flash_packed_dq_mma(const T* __restrict__ qkv, const T* __restrict__ dout,
   const Layout lay(opt, bb);
   const int kvl = opt.kv_lengths != nullptr ? opt.kv_lengths[bb] : opt.s;
   int first, last;
-  key_tiles(opt, kvl, q_start, &first, &last, C::kRows);
+  key_tiles(opt, kvl, q_start, &first, &last, C::kRows, BK);
   const int tiles = last - first + 1;
 
   float dq[kNO][4];
@@ -877,10 +892,10 @@ flash_packed_dq_mma(const T* __restrict__ qkv, const T* __restrict__ dout,
     const long long kcol = lay.k(grp, opt.qpg, 0, d);
     const long long vcol = lay.v(grp, opt.qpg, 0, d);
     auto load_kv = [&](int tile, T* stage) {
-      flash::copy_tile<kBK, DMAX, C::kThreads, VEC>(
-          stage, qkv, kcol, lay.row_stride, tile * kBK, opt.s, d);
-      flash::copy_tile<kBK, DMAX, C::kThreads, VEC>(
-          stage + kBK * C::kLd, qkv, vcol, lay.row_stride, tile * kBK, opt.s,
+      flash::copy_tile<BK, DMAX, C::kThreads, VEC>(
+          stage, qkv, kcol, lay.row_stride, tile * BK, opt.s, d);
+      flash::copy_tile<BK, DMAX, C::kThreads, VEC>(
+          stage + BK * C::kLd, qkv, vcol, lay.row_stride, tile * BK, opt.s,
           d);
     };
     flash::copy_tile<C::kRows, DMAX, C::kThreads, VEC>(
@@ -907,12 +922,12 @@ flash_packed_dq_mma(const T* __restrict__ qkv, const T* __restrict__ dout,
       ring::cp_async_wait<STAGES - 2>();
       __syncthreads();
       T* Ks = kv + (it % STAGES) * (C::kStage / 2);
-      const T* Vs = Ks + kBK * C::kLd;
-      const int c0 = (first + it) * kBK;
+      const T* Vs = Ks + BK * C::kLd;
+      const int c0 = (first + it) * BK;
       if (opt.rot > 0) {
         if (it == 0)
           flash::rope_tile<C::kRows, C::kThreads>(Qs, C::kLd, q_start, opt);
-        flash::rope_tile<kBK, C::kThreads>(Ks, C::kLd, c0, opt);
+        flash::rope_tile<BK, C::kThreads>(Ks, C::kLd, c0, opt);
         __syncthreads();
       }
       if (W::kRegA && it == 0) {
@@ -927,7 +942,7 @@ flash_packed_dq_mma(const T* __restrict__ qkv, const T* __restrict__ dout,
         load_kv(first + next, kv + (next % STAGES) * (C::kStage / 2));
       ring::cp_async_commit();
 
-      const flash::Cover cover = flash::tile_cover(opt, kvl, r0, c0, kBK);
+      const flash::Cover cover = flash::tile_cover(opt, kvl, r0, c0, BK);
       if (cover == flash::kNone) continue;
       // S = Q K^T, then p = exp(scale s - lse) (0 where masked)
       float sc[kNS][4];
@@ -935,7 +950,7 @@ flash_packed_dq_mma(const T* __restrict__ qkv, const T* __restrict__ dout,
       for (int j = 0; j < kNS; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-#pragma unroll
+#pragma unroll (W::kUnroll)
       for (int kk = 0; kk < kKS; ++kk) {
         const int ai = W::kRegA ? kk : 0;
         if (!W::kRegA) ring::load_a<1, false>(qf[ai], qw_s, C::kLd, 16 * kk);
@@ -966,7 +981,7 @@ flash_packed_dq_mma(const T* __restrict__ qkv, const T* __restrict__ dout,
         for (int j = 0; j < 2; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
-#pragma unroll
+#pragma unroll (W::kUnroll)
         for (int kk = 0; kk < kKS; ++kk) {
           const int ai = W::kRegA ? kk : 0;
           if (!W::kRegA) ring::load_a<1, false>(df[ai], dw_s, C::kLd, 16 * kk);
@@ -1041,21 +1056,25 @@ flash_packed_dq_mma(const T* __restrict__ qkv, const T* __restrict__ dout,
 }
 
 // 4 warps a block in both passes (8 at d 256, two warps a strip of 16
-// keys or queries); at d <= 64 query tiles of 64 rows in the dk/dv ring,
-// from 128 on of 32 (the score tiles' registers beside dk and dv).
+// keys or queries; 8 at 512, four warps a strip, so a block owns 32 keys
+// or queries with up to 255 registers a thread); at d <= 64 query tiles
+// of 64 rows in the dk/dv ring, from 128 on of 32 (the score tiles'
+// registers beside dk and dv); key tiles of 64 in the dq ring, 32 at 512
+// (two stages of 64 would need 332,800 bytes beside Q and dO).
 // 16-byte copies need every row start (a multiple of d past a 16-byte
 // aligned base) on a 16-byte boundary.
 template <typename T, int DMAX>
 cudaError_t launch_mma(const void* qkv, const void* dout, const void* out,
                        float* delta, const float* lse, void* dqkv,
                        const Opts& opt, cudaStream_t stream) {
-  constexpr int kDkvWarps = 4 * flash::Cols<DMAX>::kParts;
+  constexpr int kDkvWarps = DMAX <= 128 ? 4 : 8;
   constexpr int kDkvStages = 2;
-  constexpr int kDqWarps = 4 * flash::Cols<DMAX>::kParts;
+  constexpr int kDqWarps = DMAX <= 128 ? 4 : 8;
   constexpr int kDqStages = 2;
   constexpr int kBQ = DMAX <= 64 ? 64 : 32;
+  constexpr int kKeys = DMAX <= 256 ? kBK : 32;  // the dq ring's key tiles
   using KvC = DkvCfg<DMAX, kDkvWarps, kBQ, kDkvStages>;
-  using QC = DqCfg<DMAX, kDqWarps, kDqStages>;
+  using QC = DqCfg<DMAX, kDqWarps, kDqStages, kKeys>;
   const auto* x = static_cast<const T*>(qkv);
   const auto* dy = static_cast<const T*>(dout);
   const auto* y = static_cast<const T*>(out);
@@ -1073,8 +1092,10 @@ cudaError_t launch_mma(const void* qkv, const void* dout, const void* out,
   auto dkv =
       vec ? flash_packed_dkv_mma<T, DMAX, kDkvWarps, kBQ, kDkvStages, true>
           : flash_packed_dkv_mma<T, DMAX, kDkvWarps, kBQ, kDkvStages, false>;
-  auto dq = vec ? flash_packed_dq_mma<T, DMAX, kDqWarps, kDqStages, true>
-                : flash_packed_dq_mma<T, DMAX, kDqWarps, kDqStages, false>;
+  auto dq = vec
+                ? flash_packed_dq_mma<T, DMAX, kDqWarps, kDqStages, kKeys, true>
+                : flash_packed_dq_mma<T, DMAX, kDqWarps, kDqStages, kKeys,
+                                      false>;
   err = apex::allow_smem(dkv, KvC::bytes);
   if (err != cudaSuccess) return err;
   err = apex::allow_smem(dq, QC::bytes);
@@ -1102,6 +1123,8 @@ cudaError_t launch_16(const void* qkv, const void* dout, const void* out,
     return launch_mma<T, 128>(qkv, dout, out, delta, lse, dqkv, opt, stream);
   if (opt.d <= 256)
     return launch_mma<T, 256>(qkv, dout, out, delta, lse, dqkv, opt, stream);
+  if (opt.d <= 512)
+    return launch_mma<T, 512>(qkv, dout, out, delta, lse, dqkv, opt, stream);
   return cudaErrorInvalidValue;
 }
 

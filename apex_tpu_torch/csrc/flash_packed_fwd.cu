@@ -72,6 +72,10 @@
 // P V; Q's fragments are read from shared memory at each k16 step. 8 warps
 // make 64-row blocks, 2 ring stages, 168,960 bytes of shared memory, one
 // block an SM; the tensor work is 8 d a visible pair in place of 6 d.
+// Past 256 (DMAX 512) four warps share each strip, 128 columns each, so 8
+// warps make 32-row blocks; 64-key tiles in two stages would need 299,520
+// bytes, so the ring takes 32-key tiles (166,400 bytes); the tensor work
+// is 12 d a visible pair (S four times over).
 // Registers are capped at 128 a thread at d <= 64 so that two blocks fit
 // an SM: the kernel waits on latency (ldmatrix, mma, exp) more than on
 // any one unit, and 16 resident warps beat the few bytes it spills.
@@ -86,10 +90,11 @@
 //
 // f32 (checks only; TF32 would miss their atol of 1e-4): one 256-thread
 // block per (64-row query tile, head, batch; 215,296 bytes of shared
-// memory at DMAX 256); the rotated query tile stays
-// in shared memory as fp32; the block walks the visible 64-key tiles with
+// memory at DMAX 256; 32-row tiles and 32-key tiles at 512, 201,856
+// bytes); the rotated query tile stays
+// in shared memory as fp32; the block walks the visible key tiles with
 // an online softmax, S = Q K^T and P V in fp32 FMA, each thread owning a
-// 4 x (DMAX / 16) output tile.
+// 4 x (DMAX / 16) output tile (4 x DMAX / 32 at 512).
 #include <type_traits>
 
 #include "flash_mma.cuh"
@@ -101,36 +106,45 @@ using namespace apex::packed;
 namespace flash = apex::flash;
 namespace ring = apex::ring;
 
-template <int DMAX>
+// BQ query rows and BK keys a tile: 64 x 64, or 32 x 32 at DMAX 512, where
+// 64-row fp32 tiles would not fit the 227 KB of shared memory. A thread
+// owns 4 query rows, BK / kTX keys of a score tile and DMAX / kTX output
+// columns.
+template <int DMAX, int BQ, int BK>
 struct Smem {
   static constexpr int kQS = DMAX + 4;
   static constexpr int kKS = DMAX + 1;
-  static constexpr int kSS = kBK + 1;
+  static constexpr int kSS = BK + 1;
+  static constexpr int kTY = BQ / 4;         // threads down the rows
+  static constexpr int kTX = kThreads / kTY;  // threads across
   static constexpr size_t floats =
-      kBQ * kQS + kBK * kKS + kBK * DMAX + kBQ * kSS + 3 * kBQ;
+      BQ * kQS + BK * kKS + BK * DMAX + BQ * kSS + 3 * BQ;
+  static_assert(floats * 4 <= 232448, "one block fits an SM");
 };
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads)
 flash_packed_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ o,
                         float* __restrict__ lse, const Opts opt) {
-  using S = Smem<DMAX>;
-  constexpr int kCols = DMAX / 16;
+  using S = Smem<DMAX, BQ, BK>;
+  constexpr int kTX = S::kTX;
+  constexpr int kSC = BK / kTX;  // score columns a thread
+  constexpr int kCols = DMAX / kTX;
   extern __shared__ float smem[];
   float* Qs = smem;
-  float* Ks = Qs + kBQ * S::kQS;
-  float* Vs = Ks + kBK * S::kKS;
-  float* Ss = Vs + kBK * DMAX;
-  float* m_s = Ss + kBQ * S::kSS;
-  float* l_s = m_s + kBQ;
-  float* alpha_s = l_s + kBQ;
+  float* Ks = Qs + BQ * S::kQS;
+  float* Vs = Ks + BK * S::kKS;
+  float* Ss = Vs + BK * DMAX;
+  float* m_s = Ss + BQ * S::kSS;
+  float* l_s = m_s + BQ;
+  float* alpha_s = l_s + BQ;
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  const int tx = tid % kTX;
+  const int ty = tid / kTX;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int q_start = blockIdx.x * kBQ;
+  const int q_start = blockIdx.x * BQ;
   const int hh = blockIdx.y;
   const int bb = blockIdx.z;
   const int g = hh / opt.qpg;
@@ -141,7 +155,7 @@ flash_packed_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ o,
   const unsigned seed = drop ? static_cast<unsigned>(opt.seed[0]) : 0u;
   const unsigned cmb = combo(bb, hh);
 
-  for (int idx = tid; idx < kBQ * DMAX; idx += kThreads) {
+  for (int idx = tid; idx < BQ * DMAX; idx += kThreads) {
     const int r = idx / DMAX;
     const int c = idx % DMAX;
     const int row = q_start + r;
@@ -150,7 +164,7 @@ flash_packed_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ o,
       val = load_rope(qkv + lay.q(g, j, row, d), opt, row, c);
     Qs[r * S::kQS + c] = val;
   }
-  if (tid < kBQ) {
+  if (tid < BQ) {
     m_s[tid] = kNeg;
     l_s[tid] = 0.f;
   }
@@ -163,12 +177,12 @@ flash_packed_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ o,
 
   const int kvl = opt.kv_lengths != nullptr ? opt.kv_lengths[bb] : opt.s;
   int j_first, j_last;
-  key_tiles(opt, kvl, q_start, &j_first, &j_last);
+  key_tiles(opt, kvl, q_start, &j_first, &j_last, BQ, BK);
   __syncthreads();
 
   for (int jt = j_first; jt <= j_last; ++jt) {
-    const int k_start = jt * kBK;
-    for (int idx = tid; idx < kBK * DMAX; idx += kThreads) {
+    const int k_start = jt * BK;
+    for (int idx = tid; idx < BK * DMAX; idx += kThreads) {
       const int r = idx / DMAX;
       const int c = idx % DMAX;
       const int row = k_start + r;
@@ -184,54 +198,66 @@ flash_packed_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ o,
     __syncthreads();
 
     // S = scale * Q K^T, masked
-    float sc[4][4];
+    float sc[4][kSC];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) sc[i][jj] = 0.f;
+      for (int jj = 0; jj < kSC; ++jj) sc[i][jj] = 0.f;
     for (int c = 0; c < DMAX; ++c) {
       float qv[4];
-      float kv[4];
+      float kv[kSC];
 #pragma unroll
       for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * S::kQS + c];
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) kv[jj] = Ks[(tx + 16 * jj) * S::kKS + c];
+      for (int jj = 0; jj < kSC; ++jj)
+        kv[jj] = Ks[(tx + kTX * jj) * S::kKS + c];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) sc[i][jj] = fmaf(qv[i], kv[jj], sc[i][jj]);
+        for (int jj = 0; jj < kSC; ++jj) sc[i][jj] = fmaf(qv[i], kv[jj], sc[i][jj]);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = q_start + ty * 4 + i;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int col = k_start + tx + 16 * jj;
-        Ss[(ty * 4 + i) * S::kSS + tx + 16 * jj] =
+      for (int jj = 0; jj < kSC; ++jj) {
+        const int col = k_start + tx + kTX * jj;
+        Ss[(ty * 4 + i) * S::kSS + tx + kTX * jj] =
             visible(opt, kvl, row, col) ? sc[i][jj] * opt.scale : kNeg;
       }
     }
     __syncthreads();
 
-    // online softmax over undropped p; P V takes the dropped p
-    for (int r = warp * (kBQ / 8); r < (warp + 1) * (kBQ / 8); ++r) {
+    // online softmax over undropped p; P V takes the dropped p (BK / 32
+    // keys a lane)
+    for (int r = warp * (BQ / 8); r < (warp + 1) * (BQ / 8); ++r) {
       float* srow = Ss + r * S::kSS;
-      const float v0 = srow[lane];
-      const float v1 = srow[lane + 32];
+      float v[BK / 32];
+#pragma unroll
+      for (int u = 0; u < BK / 32; ++u) v[u] = srow[lane + 32 * u];
+      float vmax = v[0];
+#pragma unroll
+      for (int u = 1; u < BK / 32; ++u) vmax = fmaxf(vmax, v[u]);
       const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, apex::warp_max(fmaxf(v0, v1)));
-      float p0 = v0 == kNeg ? 0.f : expf(v0 - m_new);
-      float p1 = v1 == kNeg ? 0.f : expf(v1 - m_new);
-      const float l_blk = apex::warp_sum(p0 + p1);
+      const float m_new = fmaxf(m_prev, apex::warp_max(vmax));
+      float p[BK / 32];
+#pragma unroll
+      for (int u = 0; u < BK / 32; ++u)
+        p[u] = v[u] == kNeg ? 0.f : expf(v[u] - m_new);
+      float psum = p[0];
+#pragma unroll
+      for (int u = 1; u < BK / 32; ++u) psum += p[u];
+      const float l_blk = apex::warp_sum(psum);
       if (drop) {
         const unsigned row = q_start + r;
-        p0 = hash_keep(seed, cmb, row, k_start + lane, opt.keep_thresh)
-                 ? p0 * opt.inv_keep : 0.f;
-        p1 = hash_keep(seed, cmb, row, k_start + lane + 32, opt.keep_thresh)
-                 ? p1 * opt.inv_keep : 0.f;
+#pragma unroll
+        for (int u = 0; u < BK / 32; ++u)
+          p[u] = hash_keep(seed, cmb, row, k_start + lane + 32 * u,
+                           opt.keep_thresh)
+                     ? p[u] * opt.inv_keep : 0.f;
       }
-      srow[lane] = p0;
-      srow[lane + 32] = p1;
+#pragma unroll
+      for (int u = 0; u < BK / 32; ++u) srow[lane + 32 * u] = p[u];
       if (lane == 0) {
         const float alpha = expf(m_prev - m_new);
         alpha_s[r] = alpha;
@@ -248,13 +274,13 @@ flash_packed_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ o,
 #pragma unroll
       for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;
     }
-    for (int jj = 0; jj < kBK; ++jj) {
+    for (int jj = 0; jj < BK; ++jj) {
       float pv[4];
       float vv[kCols];
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = Ss[(ty * 4 + i) * S::kSS + jj];
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) vv[c] = Vs[jj * DMAX + tx + 16 * c];
+      for (int c = 0; c < kCols; ++c) vv[c] = Vs[jj * DMAX + tx + kTX * c];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -274,7 +300,7 @@ flash_packed_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ o,
     T* orow = o + out_index(opt, bb, hh, row);
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
-      const int col = tx + 16 * c;
+      const int col = tx + kTX * c;
       if (col < d) apex::store(&orow[col], acc[i][c] * inv);
     }
     if (tx == 0)
@@ -286,11 +312,12 @@ flash_packed_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ o,
 template <typename T, int DMAX>
 cudaError_t launch(const void* qkv, void* o, float* lse, const Opts& opt,
                    cudaStream_t stream) {
-  auto kernel = flash_packed_fwd_kernel<T, DMAX>;
-  const size_t smem = Smem<DMAX>::floats * sizeof(float);
+  constexpr int kB = DMAX <= 256 ? 64 : 32;  // BQ = BK
+  auto kernel = flash_packed_fwd_kernel<T, DMAX, kB, kB>;
+  const size_t smem = Smem<DMAX, kB, kB>::floats * sizeof(float);
   cudaError_t err = apex::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((opt.s + kBQ - 1) / kBQ, opt.groups * opt.qpg, opt.b);
+  const dim3 grid((opt.s + kB - 1) / kB, opt.groups * opt.qpg, opt.b);
   kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(qkv),
                                            static_cast<T*>(o), lse, opt);
   return cudaGetLastError();
@@ -302,18 +329,19 @@ cudaError_t launch_d(const void* qkv, void* o, float* lse, const Opts& opt,
   if (opt.d <= 64) return launch<T, 64>(qkv, o, lse, opt, stream);
   if (opt.d <= 128) return launch<T, 128>(qkv, o, lse, opt, stream);
   if (opt.d <= 256) return launch<T, 256>(qkv, o, lse, opt, stream);
+  if (opt.d <= 512) return launch<T, 512>(qkv, o, lse, opt, stream);
   return cudaErrorInvalidValue;
 }
 
-// The 16-bit kernel: WARPS warps of 16 query rows, key tiles of kBK
+// The 16-bit kernel: WARPS warps of 16 query rows, key tiles of BK
 // through a ring of STAGES (K, V) stages.
-template <int DMAX, int WARPS, int STAGES>
+template <int DMAX, int WARPS, int STAGES, int BK>
 struct MmaCfg {
   static constexpr int kThreads = WARPS * 32;
   static constexpr int kParts = flash::Cols<DMAX>::kParts;  // warps a strip
   static constexpr int kRows = WARPS / kParts * 16;  // query rows a block
   static constexpr int kLd = flash::Tile<DMAX>::kLd;
-  static constexpr int kStage = 2 * kBK * kLd;  // K then V, 16-bit
+  static constexpr int kStage = 2 * BK * kLd;  // K then V, 16-bit
   static constexpr size_t bytes = (kRows * kLd + STAGES * kStage) * 2;
   // two blocks an SM at d <= 64 (registers capped at 128 a thread): the
   // kernel waits on latency more than on any one unit, so occupancy wins
@@ -322,16 +350,16 @@ struct MmaCfg {
   static_assert(bytes <= 232448, "one block fits an SM");
 };
 
-template <typename T, int DMAX, int WARPS, int STAGES, bool VEC>
+template <typename T, int DMAX, int WARPS, int STAGES, int BK, bool VEC>
 __global__ void __launch_bounds__(WARPS * 32,
-                                  (MmaCfg<DMAX, WARPS, STAGES>::kMinBlocks))
+                                  (MmaCfg<DMAX, WARPS, STAGES, BK>::kMinBlocks))
 flash_packed_fwd_mma(const T* __restrict__ qkv, T* __restrict__ o,
                      float* __restrict__ lse, const Opts opt) {
-  using C = MmaCfg<DMAX, WARPS, STAGES>;
+  using C = MmaCfg<DMAX, WARPS, STAGES, BK>;
   constexpr bool kF16 = std::is_same<T, __half>::value;
   using W = flash::Cols<DMAX>;
   constexpr int kKS = DMAX / 16;  // k16 steps of Q K^T
-  constexpr int kNS = kBK / 8;    // n8 score tiles a warp
+  constexpr int kNS = BK / 8;     // n8 score tiles a warp
   constexpr int kNO = W::kWidth / 8;  // n8 output tiles a warp
   extern __shared__ __align__(16) unsigned char fsmem[];
   T* Qs = reinterpret_cast<T*>(fsmem);
@@ -351,7 +379,7 @@ flash_packed_fwd_mma(const T* __restrict__ qkv, T* __restrict__ o,
   const Layout lay(opt, bb);
   const int kvl = opt.kv_lengths != nullptr ? opt.kv_lengths[bb] : opt.s;
   int first, last;
-  key_tiles(opt, kvl, q_start, &first, &last, C::kRows);
+  key_tiles(opt, kvl, q_start, &first, &last, C::kRows, BK);
   const int tiles = last - first + 1;
 
   float acc[kNO][4];
@@ -374,10 +402,10 @@ flash_packed_fwd_mma(const T* __restrict__ qkv, T* __restrict__ o,
     const long long kcol = lay.k(g, opt.qpg, 0, d);
     const long long vcol = lay.v(g, opt.qpg, 0, d);
     auto load_kv = [&](int tile, T* stage) {
-      flash::copy_tile<kBK, DMAX, C::kThreads, VEC>(
-          stage, qkv, kcol, lay.row_stride, tile * kBK, opt.s, d);
-      flash::copy_tile<kBK, DMAX, C::kThreads, VEC>(
-          stage + kBK * C::kLd, qkv, vcol, lay.row_stride, tile * kBK, opt.s,
+      flash::copy_tile<BK, DMAX, C::kThreads, VEC>(
+          stage, qkv, kcol, lay.row_stride, tile * BK, opt.s, d);
+      flash::copy_tile<BK, DMAX, C::kThreads, VEC>(
+          stage + BK * C::kLd, qkv, vcol, lay.row_stride, tile * BK, opt.s,
           d);
     };
     flash::copy_tile<C::kRows, DMAX, C::kThreads, VEC>(
@@ -400,12 +428,12 @@ flash_packed_fwd_mma(const T* __restrict__ qkv, T* __restrict__ o,
       ring::cp_async_wait<STAGES - 2>();
       __syncthreads();
       T* Ks = kv + (it % STAGES) * C::kStage;
-      T* Vs = Ks + kBK * C::kLd;
-      const int c0 = (first + it) * kBK;
+      T* Vs = Ks + BK * C::kLd;
+      const int c0 = (first + it) * BK;
       if (opt.rot > 0) {
         if (it == 0)
           flash::rope_tile<C::kRows, C::kThreads>(Qs, C::kLd, q_start, opt);
-        flash::rope_tile<kBK, C::kThreads>(Ks, C::kLd, c0, opt);
+        flash::rope_tile<BK, C::kThreads>(Ks, C::kLd, c0, opt);
         __syncthreads();
       }
       if (W::kRegA && it == 0) {
@@ -419,7 +447,7 @@ flash_packed_fwd_mma(const T* __restrict__ qkv, T* __restrict__ o,
         load_kv(first + next, kv + (next % STAGES) * C::kStage);
       ring::cp_async_commit();
 
-      const flash::Cover cover = flash::tile_cover(opt, kvl, r0, c0, kBK);
+      const flash::Cover cover = flash::tile_cover(opt, kvl, r0, c0, BK);
       if (cover == flash::kNone) continue;
       // S = scale * Q K^T, masked where the tile needs it
       float sc[kNS][4];
@@ -467,7 +495,7 @@ flash_packed_fwd_mma(const T* __restrict__ qkv, T* __restrict__ o,
       }
       // acc += p_hi V + p_lo V
 #pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
+      for (int kk = 0; kk < BK / 16; ++kk) {
         unsigned hi[4], lo[4];
         flash::p_fragments<kNS, T>(sc, kk, hi, lo);
         unsigned fb[kNO / 2][4];
@@ -508,11 +536,11 @@ flash_packed_fwd_mma(const T* __restrict__ qkv, T* __restrict__ o,
   }
 }
 
-template <typename T, int DMAX, int WARPS, int STAGES, bool VEC>
+template <typename T, int DMAX, int WARPS, int STAGES, int BK, bool VEC>
 cudaError_t launch_mma(const void* qkv, void* o, float* lse, const Opts& opt,
                        cudaStream_t stream) {
-  using C = MmaCfg<DMAX, WARPS, STAGES>;
-  auto kernel = flash_packed_fwd_mma<T, DMAX, WARPS, STAGES, VEC>;
+  using C = MmaCfg<DMAX, WARPS, STAGES, BK>;
+  auto kernel = flash_packed_fwd_mma<T, DMAX, WARPS, STAGES, BK, VEC>;
   cudaError_t err = apex::allow_smem(kernel, C::bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(opt.groups * opt.qpg, opt.b,
@@ -522,8 +550,10 @@ cudaError_t launch_mma(const void* qkv, void* o, float* lse, const Opts& opt,
   return cudaGetLastError();
 }
 
-// 8 warps (128 query rows a block; 64 at d 256, two warps a strip); 3
-// ring stages at d <= 64, 2 from 128 on.
+// 8 warps (128 query rows a block; 64 at d 256, two warps a strip; 32 at
+// d 512, four warps a strip); 3 ring stages at d <= 64, 2 from 128 on; key
+// tiles of 64, or 32 at d 512 (two stages of 64 keys and the Q tile would
+// need 299,520 bytes, of 32 keys 166,400).
 // 16-byte copies need every row start (a multiple of d past a 16-byte
 // aligned base) on a 16-byte boundary.
 template <typename T, int DMAX>
@@ -531,12 +561,13 @@ cudaError_t launch_mma_vec(const void* qkv, void* o, float* lse,
                            const Opts& opt, cudaStream_t stream) {
   constexpr int kWarps = 8;
   constexpr int kStages = DMAX <= 64 ? 3 : 2;
+  constexpr int kKeys = DMAX <= 256 ? kBK : 32;
   const bool vec = opt.d % 8 == 0 &&
                    reinterpret_cast<unsigned long long>(qkv) % 16 == 0;
-  return vec ? launch_mma<T, DMAX, kWarps, kStages, true>(qkv, o, lse, opt,
-                                                           stream)
-             : launch_mma<T, DMAX, kWarps, kStages, false>(qkv, o, lse, opt,
-                                                            stream);
+  return vec ? launch_mma<T, DMAX, kWarps, kStages, kKeys, true>(
+                   qkv, o, lse, opt, stream)
+             : launch_mma<T, DMAX, kWarps, kStages, kKeys, false>(
+                   qkv, o, lse, opt, stream);
 }
 
 // the bf16 and fp16 paths
@@ -546,6 +577,7 @@ cudaError_t launch_16(const void* qkv, void* o, float* lse, const Opts& opt,
   if (opt.d <= 64) return launch_mma_vec<T, 64>(qkv, o, lse, opt, stream);
   if (opt.d <= 128) return launch_mma_vec<T, 128>(qkv, o, lse, opt, stream);
   if (opt.d <= 256) return launch_mma_vec<T, 256>(qkv, o, lse, opt, stream);
+  if (opt.d <= 512) return launch_mma_vec<T, 512>(qkv, o, lse, opt, stream);
   return cudaErrorInvalidValue;
 }
 

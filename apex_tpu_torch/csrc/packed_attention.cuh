@@ -150,25 +150,27 @@ __device__ __forceinline__ bool visible(const Opts& o, int kvl, int row,
   return visible(mask_of(o), kvl, row, col);
 }
 
-// Key tiles [first, last] of kBK keys holding a visible column for query
+// Key tiles [first, last] of bk keys holding a visible column for query
 // rows [q_start, q_start + rows); last < first when there is none.
 __device__ __forceinline__ void key_tiles(const Mask& m, int kvl,
                                           int q_start, int* first,
-                                          int* last, int rows = kBQ) {
+                                          int* last, int rows = kBQ,
+                                          int bk = kBK) {
   const int q_off = m.q_off;
   const int last_row = min(q_start + rows, m.sq) - 1;
   int k_end = min(m.sk, kvl);
   if (m.causal) k_end = min(k_end, last_row + q_off + 1);
   const int k_begin =
       m.window > 0 ? max(0, q_start + q_off - m.window + 1) : 0;
-  *first = k_begin / kBK;
-  *last = k_end > k_begin ? (k_end - 1) / kBK : *first - 1;
+  *first = k_begin / bk;
+  *last = k_end > k_begin ? (k_end - 1) / bk : *first - 1;
 }
 
 __device__ __forceinline__ void key_tiles(const Opts& o, int kvl,
                                           int q_start, int* first,
-                                          int* last, int rows = kBQ) {
-  key_tiles(mask_of(o), kvl, q_start, first, last, rows);
+                                          int* last, int rows = kBQ,
+                                          int bk = kBK) {
+  key_tiles(mask_of(o), kvl, q_start, first, last, rows, bk);
 }
 
 // Query tiles [first, last] of bq rows holding a row that sees a key of

@@ -34,7 +34,7 @@
 //
 // The vector path (paged_decode_vec_kernel), for bf16/fp16/f32 with
 // head_dim a multiple of one 16-byte piece of q (8 bf16 or fp16, 4 f32) up
-// to 256 and 16-byte aligned q, pools and ctx; pools in q's dtype, or int8
+// to 512 and 16-byte aligned q, pools and ctx; pools in q's dtype, or int8
 // under bf16 or fp16 q, read as 8-byte pieces of 8 elements so that q's
 // map of elements to lanes holds (`Pool<T, int8_t>`). fp16 is bf16's
 // template over the 16-bit type: a piece converts (fp16) where it shifts
@@ -68,8 +68,10 @@
 //   Register cap: a lane holds HMAX x (PPL x piece) fp32 of q and of P V
 //   plus 2 HMAX of softmax state, 144 at HMAX 8 with 8 columns a lane
 //   (head_dim 64 and 128 in bf16, 256 in f32), so the plan keeps `heads`
-//   <= 8 (`_MAX_HEADS`); HMAX 8 builds with up to 255 registers a thread
-//   (one block an SM), the rest with at most 128 (two), every
+//   <= 8 (`_MAX_HEADS`), and <= 4 at 16 columns a lane (two pieces at
+//   head_dim 512 in bf16 and fp16, four in f32, whose ring takes 2
+//   stages); 64 such values a lane build with up to 255 registers a
+//   thread (one block an SM), the rest with at most 128 (two), every
 //   instantiation with 0 spill bytes (ptxas -v in build.log).
 // - Splits merge in the same launch: a split with more than one active
 //   sibling writes its fp32 (m, l, acc) to a workspace, then the last
@@ -92,7 +94,9 @@
 // head_dim off the 16-byte pieces, misaligned bases, int8 pools under f32
 // q. One 128-thread block per (kv head, slot) stages one page of K and V
 // in shared memory as fp32 (int8 dequantized there) and walks the slot's
-// pages in turn.
+// pages in turn; where a page of both does not fit (head_dim 512 with
+// pages of 64: 279,856 bytes), it walks each page in tiles of half (or a
+// quarter, ...) a page, each a step of the online softmax.
 #include <cstdint>
 #include <type_traits>
 
@@ -129,16 +133,34 @@ __device__ __forceinline__ float pool_float(int8_t v, float scale) {
   return static_cast<float>(v) * scale;
 }
 
-inline size_t smem_floats(const DecodeArgs& a) {
+// The element path's shared memory for K/V tiles of `tile` rows of a page
+inline size_t smem_floats(const DecodeArgs& a, int tile) {
   const int g = a.w * a.hl / a.kvh;  // query rows of a kv head
-  return static_cast<size_t>(g) * a.dh * 2        // q, acc
-         + static_cast<size_t>(a.page_size) * (a.dh + 1)  // K page
-         + static_cast<size_t>(a.page_size) * a.dh        // V page
-         + static_cast<size_t>(g) * a.page_size           // scores / P
-         + 3 * static_cast<size_t>(g);                    // m, l, alpha
+  return static_cast<size_t>(g) * a.dh * 2                  // q, acc
+         + static_cast<size_t>(tile) * (a.dh + 1)           // K rows
+         + static_cast<size_t>(tile) * a.dh                 // V rows
+         + static_cast<size_t>(g) * tile                    // scores / P
+         + 3 * static_cast<size_t>(g);                      // m, l, alpha
 }
 
-// T: q and ctx; P: the pools (T, or int8_t with scales)
+constexpr size_t kSmemBytes = 232448;  // an H100 block's shared memory
+
+// The K/V rows the element path stages at once: the first of page_size,
+// page_size / 2, / 4, ... (rounded down) that fits (a whole page at every
+// shape up to head_dim 260 with pages of 64 and 4 query rows; 32 rows at
+// 512); 0 when none fits (ops/decode_attention.py `element_tile` mirrors
+// it).
+inline int element_tile(const DecodeArgs& a) {
+  for (int t = a.page_size; t >= 1; t /= 2)
+    if (smem_floats(a, t) * sizeof(float) <= kSmemBytes) return t;
+  return 0;
+}
+
+// T: q and ctx; P: the pools (T, or int8_t with scales). A page is walked
+// in tiles of `tile` rows (element_tile), each taken as the online
+// softmax's step: K and V rows staged side by side, the tile's scores, its
+// softmax update, then P V. At tile == page_size (every shape whose page
+// fits) each step is one page.
 template <typename T, typename P>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
@@ -148,17 +170,17 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
                     const int* __restrict__ page_table,
                     const int* __restrict__ positions, T* __restrict__ ctx,
                     int w, int hl, int kvh, int dh, int n_pages, int ps,
-                    int pps, int window) {
+                    int pps, int window, int tile) {
   extern __shared__ float smem[];
   constexpr bool kQ8 = std::is_same<P, int8_t>::value;
   const int G = hl / kvh;
-  const int R = w * G;             // query rows: row i is (i / G, i % G)
-  float* qs = smem;                // [R][dh]
-  float* acc = qs + R * dh;        // [R][dh]
-  float* Ks = acc + R * dh;        // [ps][dh + 1]
-  float* Vs = Ks + ps * (dh + 1);  // [ps][dh]
-  float* Ss = Vs + ps * dh;        // [R][ps]
-  float* m_s = Ss + R * ps;
+  const int R = w * G;               // query rows: row i is (i / G, i % G)
+  float* qs = smem;                  // [R][dh]
+  float* acc = qs + R * dh;          // [R][dh]
+  float* Ks = acc + R * dh;          // [tile][dh + 1]
+  float* Vs = Ks + tile * (dh + 1);  // [tile][dh]
+  float* Ss = Vs + tile * dh;        // [R][tile]
+  float* m_s = Ss + R * tile;
   float* l_s = m_s + R;
   float* alpha_s = l_s + R;
 
@@ -194,88 +216,93 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
   for (int j = j_first; j <= j_last; ++j) {
     int page = page_table[static_cast<long long>(r) * pps + j];
     page = min(max(page, 0), n_pages - 1);  // sentinel: clamp, rows masked
-    const long long base = static_cast<long long>(page) * ps * f + kv * dh;
     float ksc = 1.f, vsc = 1.f;
     if (kQ8) {
       ksc = k_scales[static_cast<long long>(page) * kvh + kv];
       vsc = v_scales[static_cast<long long>(page) * kvh + kv];
     }
-    // kLoadBatch independent loads in flight per thread before any store:
-    // the trip count is known only at run time, so a plain loop would wait
-    // out one device-memory latency per element
-    for (int first = tid; first < ps * dh; first += kThreads * kLoadBatch) {
-      P kr[kLoadBatch];
-      P vr[kLoadBatch];
+    for (int t0 = 0; t0 < ps; t0 += tile) {
+      const int n = min(tile, ps - t0);  // rows of this tile
+      const long long base =
+          (static_cast<long long>(page) * ps + t0) * f + kv * dh;
+      // kLoadBatch independent loads in flight per thread before any
+      // store: the trip count is known only at run time, so a plain loop
+      // would wait out one device-memory latency per element
+      for (int first = tid; first < n * dh;
+           first += kThreads * kLoadBatch) {
+        P kr[kLoadBatch];
+        P vr[kLoadBatch];
 #pragma unroll
-      for (int u = 0; u < kLoadBatch; ++u) {
-        const int idx = first + u * kThreads;
-        if (idx < ps * dh) {
-          const long long off =
-              base + static_cast<long long>(idx / dh) * f + idx % dh;
-          kr[u] = k_pages[off];
-          vr[u] = v_pages[off];
+        for (int u = 0; u < kLoadBatch; ++u) {
+          const int idx = first + u * kThreads;
+          if (idx < n * dh) {
+            const long long off =
+                base + static_cast<long long>(idx / dh) * f + idx % dh;
+            kr[u] = k_pages[off];
+            vr[u] = v_pages[off];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kLoadBatch; ++u) {
+          const int idx = first + u * kThreads;
+          if (idx < n * dh) {
+            const int t = idx / dh;
+            const int c = idx % dh;
+            Ks[t * (dh + 1) + c] = pool_float(kr[u], ksc);
+            Vs[t * dh + c] = pool_float(vr[u], vsc);
+          }
         }
       }
-#pragma unroll
-      for (int u = 0; u < kLoadBatch; ++u) {
-        const int idx = first + u * kThreads;
-        if (idx < ps * dh) {
-          const int t = idx / dh;
-          const int c = idx % dh;
-          Ks[t * (dh + 1) + c] = pool_float(kr[u], ksc);
-          Vs[t * dh + c] = pool_float(vr[u], vsc);
+      __syncthreads();
+
+      for (int idx = tid; idx < R * n; idx += kThreads) {
+        const int g = idx / n;
+        const int t = idx % n;
+        const float* qg = qs + g * dh;
+        const float* kt = Ks + t * (dh + 1);
+        float dot = 0.f;
+        for (int c = 0; c < dh; ++c) dot = fmaf(qg[c], kt[c], dot);
+        const int row = j * ps + t0 + t;
+        const int lim = pos + g / G;  // window row g / G
+        bool invalid = row > lim;
+        if (window > 0) invalid = invalid || row <= lim - window;
+        Ss[idx] = invalid ? kNeg : dot / rsq;
+      }
+      __syncthreads();
+
+      for (int g = warp; g < R; g += kThreads / 32) {
+        float* srow = Ss + g * n;
+        float mx = kNeg;
+        for (int t = lane; t < n; t += 32) mx = fmaxf(mx, srow[t]);
+        const float m_prev = m_s[g];
+        const float m_new = fmaxf(m_prev, apex::warp_max(mx));
+        float l_blk = 0.f;
+        for (int t = lane; t < n; t += 32) {
+          const float s = srow[t];
+          const float p = s == kNeg ? 0.f : expf(s - m_new);
+          srow[t] = p;
+          l_blk += p;
+        }
+        l_blk = apex::warp_sum(l_blk);
+        if (lane == 0) {
+          const float alpha = expf(m_prev - m_new);
+          alpha_s[g] = alpha;
+          l_s[g] = l_s[g] * alpha + l_blk;
+          m_s[g] = m_new;
         }
       }
-    }
-    __syncthreads();
+      __syncthreads();
 
-    for (int idx = tid; idx < R * ps; idx += kThreads) {
-      const int g = idx / ps;
-      const int t = idx % ps;
-      const float* qg = qs + g * dh;
-      const float* kt = Ks + t * (dh + 1);
-      float dot = 0.f;
-      for (int c = 0; c < dh; ++c) dot = fmaf(qg[c], kt[c], dot);
-      const int row = j * ps + t;
-      const int lim = pos + g / G;  // window row g / G
-      bool invalid = row > lim;
-      if (window > 0) invalid = invalid || row <= lim - window;
-      Ss[idx] = invalid ? kNeg : dot / rsq;
-    }
-    __syncthreads();
-
-    for (int g = warp; g < R; g += kThreads / 32) {
-      float* srow = Ss + g * ps;
-      float mx = kNeg;
-      for (int t = lane; t < ps; t += 32) mx = fmaxf(mx, srow[t]);
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, apex::warp_max(mx));
-      float l_blk = 0.f;
-      for (int t = lane; t < ps; t += 32) {
-        const float s = srow[t];
-        const float p = s == kNeg ? 0.f : expf(s - m_new);
-        srow[t] = p;
-        l_blk += p;
+      for (int idx = tid; idx < R * dh; idx += kThreads) {
+        const int g = idx / dh;
+        const int c = idx % dh;
+        const float* prow = Ss + g * n;
+        float a = acc[idx] * alpha_s[g];
+        for (int t = 0; t < n; ++t) a = fmaf(prow[t], Vs[t * dh + c], a);
+        acc[idx] = a;
       }
-      l_blk = apex::warp_sum(l_blk);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        alpha_s[g] = alpha;
-        l_s[g] = l_s[g] * alpha + l_blk;
-        m_s[g] = m_new;
-      }
+      __syncthreads();
     }
-    __syncthreads();
-
-    for (int idx = tid; idx < R * dh; idx += kThreads) {
-      const int g = idx / dh;
-      const int c = idx % dh;
-      const float* prow = Ss + g * ps;
-      float a = acc[idx] * alpha_s[g];
-      for (int t = 0; t < ps; ++t) a = fmaf(prow[t], Vs[t * dh + c], a);
-      acc[idx] = a;
-    }
-    __syncthreads();
   }
 
   for (int idx = tid; idx < R * dh; idx += kThreads) {
@@ -288,8 +315,10 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
 
 template <typename T, typename P>
 cudaError_t launch_element(const DecodeArgs& a, cudaStream_t stream) {
+  const int tile = element_tile(a);
+  if (tile < 1) return cudaErrorInvalidValue;
   auto kernel = paged_decode_kernel<T, P>;
-  const size_t smem = smem_floats(a) * sizeof(float);
+  const size_t smem = smem_floats(a, tile) * sizeof(float);
   cudaError_t err = apex::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.kvh, a.b);
@@ -297,7 +326,7 @@ cudaError_t launch_element(const DecodeArgs& a, cudaStream_t stream) {
       static_cast<const T*>(a.q), static_cast<const P*>(a.k_pages),
       static_cast<const P*>(a.v_pages), a.k_scales, a.v_scales,
       a.page_table, a.positions, static_cast<T*>(a.ctx), a.w, a.hl, a.kvh,
-      a.dh, a.n_pages, a.page_size, a.pages_per_slot, a.window);
+      a.dh, a.n_pages, a.page_size, a.pages_per_slot, a.window, tile);
   return cudaGetLastError();
 }
 
@@ -419,10 +448,22 @@ struct VecArgs {
   int lanes, heads, chunks, split_pages, splits;
 };
 
-// the ring's uint4 slots ([kStages][K, V][kTileRows][pieces a lane]
+// the ring's stages at `pieces` 16-byte pieces a lane: kStages, or 2 at 4
+// pieces (f32 at head_dim 512), where 4 would take 256 KB
+__host__ __device__ constexpr int ring_stages(int pieces) {
+  return pieces >= 4 ? 2 : kStages;
+}
+
+// the ring's uint4 slots ([stages][K, V][kTileRows][pieces a lane]
 // [threads])
 __host__ __device__ constexpr int ring_slots(int pieces) {
-  return kStages * 2 * kTileRows * pieces * kVecThreads;
+  return ring_stages(pieces) * 2 * kTileRows * pieces * kVecThreads;
+}
+
+// columns a lane holds of a query row: PPL pieces of T
+template <typename T, int PPL>
+constexpr int lane_cols() {
+  return PPL * Piece<T>::kElems;
 }
 
 // the ring, the split's pool rows (and, for int8 pools, their K and V
@@ -567,15 +608,18 @@ __device__ __forceinline__ void score_tile(
   }
 }
 
-// 8 query rows a block hold 128 fp32 of q and P V a lane: one block an SM
-// may take up to 255 registers; below that, two blocks an SM keep them
-// <= 128. WIN: a w > 1 window (per-row mask limits); without it w is 1 and
-// the query rows are the group's heads.
+// 8 query rows a block hold 128 fp32 of q and P V a lane at 8 columns a
+// lane (4 rows at 16): one block an SM may take up to 255 registers; below
+// that, two blocks an SM keep them <= 128. WIN: a w > 1 window (per-row
+// mask limits); without it w is 1 and the query rows are the group's
+// heads.
 template <typename T, typename P, int PPL, int HMAX, bool WIN>
-__global__ void __launch_bounds__(kVecThreads, HMAX >= 8 ? 1 : 2)
+__global__ void __launch_bounds__(
+    kVecThreads, HMAX >= 8 || HMAX * lane_cols<T, PPL>() > 32 ? 1 : 2)
 paged_decode_vec_kernel(const VecArgs a) {
   constexpr int E = Piece<T>::kElems;
   constexpr int C = PPL * E;  // columns a lane holds
+  constexpr int kStages = ring_stages(PPL);
   constexpr int kStageSlots = kTileRows * PPL * kVecThreads;
   constexpr bool kQ8 = Pool<T, P>::kQ8;
   extern __shared__ uint4 ring[];  // [kStages][K, V][kStageSlots]
@@ -847,7 +891,8 @@ paged_decode_vec_kernel(const VecArgs a) {
 
 using VecKernel = void (*)(VecArgs);
 
-// a window's rows are at least 2 a block (heads >= w >= 2)
+// a window's rows are at least 2 a block (heads >= w >= 2); 8 rows only at
+// 8 columns a lane or fewer (the register cap: 4 at 16, head_dim 512)
 template <typename T, typename P, int PPL, bool WIN>
 VecKernel vec_kernel_heads(int hmax) {
   switch (hmax) {
@@ -855,7 +900,10 @@ VecKernel vec_kernel_heads(int hmax) {
       return WIN ? nullptr : paged_decode_vec_kernel<T, P, PPL, 1, false>;
     case 2: return paged_decode_vec_kernel<T, P, PPL, 2, WIN>;
     case 4: return paged_decode_vec_kernel<T, P, PPL, 4, WIN>;
-    case 8: return paged_decode_vec_kernel<T, P, PPL, 8, WIN>;
+    case 8:
+      if constexpr (lane_cols<T, PPL>() <= 8)
+        return paged_decode_vec_kernel<T, P, PPL, 8, WIN>;
+      return nullptr;
     default: return nullptr;
   }
 }
@@ -874,18 +922,27 @@ VecKernel vec_kernel(int dtype, int pool_int8, int pieces, int heads,
   const int hmax = heads <= 1 ? 1 : heads <= 2 ? 2 : heads <= 4 ? 4 : 8;
   if (heads < 1 || heads > 8) return nullptr;
   if (dtype == apex::kBF16) {
-    if (pieces != 1) return nullptr;
-    return pool_int8 ? vec_kernel_win<bf16, int8_t, 1>(hmax, win)
-                     : vec_kernel_win<bf16, bf16, 1>(hmax, win);
+    if (pieces == 1)
+      return pool_int8 ? vec_kernel_win<bf16, int8_t, 1>(hmax, win)
+                       : vec_kernel_win<bf16, bf16, 1>(hmax, win);
+    if (pieces == 2)
+      return pool_int8 ? vec_kernel_win<bf16, int8_t, 2>(hmax, win)
+                       : vec_kernel_win<bf16, bf16, 2>(hmax, win);
+    return nullptr;
   }
   if (dtype == apex::kF16) {
-    if (pieces != 1) return nullptr;
-    return pool_int8 ? vec_kernel_win<__half, int8_t, 1>(hmax, win)
-                     : vec_kernel_win<__half, __half, 1>(hmax, win);
+    if (pieces == 1)
+      return pool_int8 ? vec_kernel_win<__half, int8_t, 1>(hmax, win)
+                       : vec_kernel_win<__half, __half, 1>(hmax, win);
+    if (pieces == 2)
+      return pool_int8 ? vec_kernel_win<__half, int8_t, 2>(hmax, win)
+                       : vec_kernel_win<__half, __half, 2>(hmax, win);
+    return nullptr;
   }
   if (pool_int8 || dtype != apex::kF32) return nullptr;
   if (pieces == 1) return vec_kernel_win<float, float, 1>(hmax, win);
   if (pieces == 2) return vec_kernel_win<float, float, 2>(hmax, win);
+  if (pieces == 4) return vec_kernel_win<float, float, 4>(hmax, win);
   return nullptr;
 }
 

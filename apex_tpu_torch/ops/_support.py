@@ -10,11 +10,13 @@ here the choice follows the tensors alone:
   switch that forces the plain path on the card.
 
 Every kernel wrapper counts its launches in :data:`LAUNCHES`, so a run
-can show that its main path went through the kernels.
+can show that its main path went through the kernels; Kernel C's also
+counts them by launch plan in :data:`DECODE_PLANS`.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import Dict, Optional, Union
@@ -23,7 +25,7 @@ import torch
 
 from apex_tpu_torch.ops import _build
 
-__all__ = ["LAUNCHES", "reset_launches", "count_launch", "resolve_device",
+__all__ = ["LAUNCHES", "DECODE_PLANS", "reset_launches", "count_launch", "resolve_device",
            "is_cpu", "forward_only", "cdiv", "round_up", "dtype_code",
            "sm_count", "blocks_per_sm"]
 
@@ -38,11 +40,16 @@ LAUNCHES: Dict[str, int] = {"layer_norm_fwd": 0, "layer_norm_bwd": 0,
                             "conv3x3_bwd": 0, "multi_tensor_scale": 0,
                             "multi_tensor_l2norm": 0, "multi_tensor_adam": 0,
                             "multi_tensor_lamb": 0, "multi_tensor_sgd": 0}
+#: Kernel C's launches since the last :func:`reset_launches`, by the
+#: ``DecodePlan`` each took (ops/decode_attention.py), so a run can show
+#: which of its paths (vector or element) it went through
+DECODE_PLANS: collections.Counter = collections.Counter()
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    DECODE_PLANS.clear()
 
 
 def count_launch(name: str, n: int = 1) -> None:

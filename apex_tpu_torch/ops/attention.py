@@ -36,9 +36,12 @@ __all__ = ["flash_attention", "flash_fwd_plain",
            "packed_geometry", "drop_combo", "hash_keep",
            "flash_packed_fwd_plain", "flash_packed_bwd_plain",
            "flash_packed_bwd_rounding_slack", "flash_packed_fwd_cuda",
-           "flash_packed_bwd_cuda", "rounding_step"]
+           "flash_packed_bwd_cuda", "rounding_step", "backward_floor"]
 
 _NEG_INF = -1e30
+#: the widest head the kernels take (B, I, E and F instantiate DMAX 64,
+#: 128, 256 and 512)
+_MAX_HEAD_DIM = 512
 #: lse of a query row that sees no key (attention.py ``_LSE_PAD``)
 _LSE_PAD = 1e30
 
@@ -51,6 +54,17 @@ def rounding_step(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     it. Non-negative fp32."""
     fi = torch.finfo(dtype)
     return torch.clamp_min(t.abs() * (fi.eps / 2), fi.tiny * fi.eps)
+
+
+def backward_floor(d: int) -> float:
+    """The magnitude floor of the 1-ulp bar that holds a bf16 or fp16
+    flash backward to its plain version at head_dim ``d``: 2^-8, times
+    d / 256 past 256. A row that sees one key has p = 1 and o = v, so
+    ds = p (dp - delta) cancels to the fp32 summation noise of two d-long
+    sums, which grows with d: at d 512 in fp16 a dq element landed 0.95e-6
+    past the 2^-18 floor's bound, both on an H100 and with JAX's
+    interpret-mode kernel on the CPU."""
+    return 2.0 ** -8 * max(1.0, d / 256)
 
 
 def _visible(sq: int, sk: int, kv_lengths, causal: bool, window, device):
@@ -98,8 +112,9 @@ def flash_fwd_cuda(q, k, v, kv_lengths, scale: float, causal: bool,
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v dtypes differ: {q.dtype} {k.dtype} {v.dtype}")
     code = _support.dtype_code(q.dtype, "Kernel B (flash_fwd_cuda)")
-    if d > 256:
-        raise ValueError(f"head_dim {d} > 256 is not supported by the kernel")
+    if d > _MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} > {_MAX_HEAD_DIM} is not supported "
+                         f"by the kernel")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if kv_lengths is not None:
         kv_lengths = kv_lengths.to(device=q.device,
@@ -199,8 +214,9 @@ def flash_bwd_cuda(q, k, v, do, o, lse, kv_lengths, scale: float,
         raise TypeError(f"q/k/v/o dtypes differ: {q.dtype} {k.dtype} "
                         f"{v.dtype} {o.dtype}")
     code = _support.dtype_code(q.dtype, "Kernel I (flash_bwd_cuda)")
-    if d > 256:
-        raise ValueError(f"head_dim {d} > 256 is not supported by the kernel")
+    if d > _MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} > {_MAX_HEAD_DIM} is not supported "
+                         f"by the kernel")
     q, k, v, o = q.contiguous(), k.contiguous(), v.contiguous(), \
         o.contiguous()
     do = do.contiguous().to(q.dtype)
@@ -310,10 +326,10 @@ def packed_attention_supported(s: int, num_groups: int,
                                queries_per_group: int,
                                head_dim: int) -> bool:
     """Whether :func:`flash_attention_packed` takes this shape: True for
-    every shape the port's kernels take (head_dim up to 256, any length,
+    every shape the port's kernels take (head_dim up to 512, any length,
     any group count), on any device — as the JAX package's plain path
     takes any shape."""
-    return 0 < head_dim <= 256 and s > 0 and num_groups > 0 \
+    return 0 < head_dim <= _MAX_HEAD_DIM and s > 0 and num_groups > 0 \
         and queries_per_group > 0
 
 
@@ -577,8 +593,9 @@ def flash_packed_fwd_cuda(qkv, kv_lengths, rope, seed, rate: float,
     s, b, w = qkv.shape
     g = w // ((qpg + 2) * d)
     code = _support.dtype_code(qkv.dtype, "Kernel E (flash_packed_fwd_cuda)")
-    if d > 256:
-        raise ValueError(f"head_dim {d} > 256 is not supported by the kernel")
+    if d > _MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} > {_MAX_HEAD_DIM} is not supported "
+                         f"by the kernel")
     qkv = qkv.contiguous()
     o = torch.empty((s, b, g * qpg * d), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b, g * qpg, s), dtype=torch.float32,
@@ -607,8 +624,9 @@ def flash_packed_bwd_cuda(qkv, do, o, lse, kv_lengths, rope, seed,
     code = _support.dtype_code(qkv.dtype, "Kernel F (flash_packed_bwd_cuda)")
     if o.dtype != qkv.dtype:
         raise TypeError(f"o ({o.dtype}) and qkv ({qkv.dtype}) dtypes differ")
-    if d > 256:
-        raise ValueError(f"head_dim {d} > 256 is not supported by the kernel")
+    if d > _MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} > {_MAX_HEAD_DIM} is not supported "
+                         f"by the kernel")
     qkv, do, o = qkv.contiguous(), do.contiguous().to(qkv.dtype), \
         o.contiguous()
     lse = lse.contiguous()

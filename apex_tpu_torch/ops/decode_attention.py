@@ -46,20 +46,23 @@ from apex_tpu_torch.ops import _build, _support
 __all__ = ["fused_paged_decode_attention", "paged_pages_for", "append_rows",
            "paged_quant_scatter", "paged_quant_fill", "decode_plain",
            "paged_decode_cuda", "page_pool", "scale_pool", "spare_page_view",
-           "DecodePlan", "paged_decode_plan", "paged_decode_cuda_plan"]
+           "DecodePlan", "paged_decode_plan", "paged_decode_cuda_plan",
+           "element_tile", "paged_decode_smem"]
 
 #: masked-score floor, shared with the flat decode formulation
 _NEG = -1e30
 #: int8 quantization range: symmetric, -127..127 (as the JAX package)
 _QMAX = 127.0
 #: query rows (heads x window rows) one block of the vector path holds in
-#: registers (its cap)
+#: registers (its cap at 8 columns a lane; 4 at 16)
 _MAX_HEADS = 8
 #: head_dim the vector path takes at most (one 16-byte piece a lane at 256
-#: bf16 or fp16, two at 256 f32)
-_MAX_HEAD_DIM = 256
+#: bf16 or fp16, two at 512; two at 256 f32, four at 512)
+_MAX_HEAD_DIM = 512
 #: pages a split may hold (``kMaxSplitPages`` in csrc/paged_decode.cu)
 _MAX_SPLIT_PAGES = 64
+#: an H100 block's shared memory (``kSmemBytes`` in csrc/paged_decode.cu)
+_SMEM_BYTES = 232448
 #: elements of a 16-byte piece of q, for the dtypes the vector path takes
 _PIECE_ELEMS = {torch.bfloat16: 8, torch.float16: 8, torch.float32: 4}
 
@@ -320,15 +323,17 @@ def paged_decode_plan(b: int, hl: int, kvh: int, dh: int, page_size: int,
     shapes alone: it never reads the positions.
 
     The vector path takes bf16/fp16/f32 q with ``dh`` a multiple of one
-    16-byte piece of q (8 bf16 or fp16, 4 f32) up to 256, pools in q's
+    16-byte piece of q (8 bf16 or fp16, 4 f32) up to 512, pools in q's
     dtype or int8 under 16-bit q (read as 8-byte pieces of 8 elements, so
     q's map of elements to lanes holds), with q, the pools and ctx at
     16-byte aligned addresses (``aligned``); the rest takes the element
     path. A
     row's ``dh / piece`` pieces spread over the power of two of lanes that
-    covers them (at most 32, two pieces a lane at 256 f32). A kv head's
-    ``window x group`` query rows fold together; a block holds at most
-    ``_MAX_HEADS`` of them, and more are cut into equal chunks. The grid
+    covers them, at most 32, each lane holding a power of two of pieces
+    (two at 512 bf16 or 256 f32, four at 512 f32). A kv head's ``window x
+    group`` query rows fold together; a block holds at most ``_MAX_HEADS``
+    of them at 8 columns a lane or fewer, 4 at 16 (the registers of q and
+    P V), and more are cut into equal chunks. The grid
     is one wave of the card's resident blocks (``blocks_per_sm(pieces,
     heads)`` an SM, ``n_sms`` SMs) over (kv head, chunk, slot) triples,
     counted as if every slot were full: the pages a slot may read
@@ -347,8 +352,9 @@ def paged_decode_plan(b: int, hl: int, kvh: int, dh: int, page_size: int,
         return DecodePlan(0, 0, rows, pages_per_slot, 1, (kvh, b, 1))
     n = dh // elems
     lanes = 1 << (min(n, 32) - 1).bit_length()
-    pieces = _support.cdiv(n, 32)
-    chunks = _support.cdiv(rows, _MAX_HEADS)
+    pieces = 1 << (_support.cdiv(n, 32) - 1).bit_length()
+    max_heads = _MAX_HEADS if pieces * elems <= 8 else _MAX_HEADS // 2
+    chunks = _support.cdiv(rows, max_heads)
     heads = _support.cdiv(rows, chunks)
     reach = pages_per_slot
     if sliding_window:
@@ -361,6 +367,42 @@ def paged_decode_plan(b: int, hl: int, kvh: int, dh: int, page_size: int,
     splits = _support.cdiv(pages_per_slot, split_pages)
     return DecodePlan(pieces, lanes, heads, split_pages, splits,
                       (kvh * chunks, b, splits))
+
+
+def element_tile(rows: int, dh: int, page_size: int) -> int:
+    """The K/V rows the element path stages at once for ``rows`` query
+    rows (a kv head's ``window x group``): the first of ``page_size``,
+    ``page_size // 2``, ``// 4``, ... whose K and V rows fit side by side
+    in an H100 block's shared memory, 0 when none does (``element_tile`` in
+    csrc/paged_decode.cu)."""
+    t = page_size
+    while t >= 1:
+        if _element_floats(rows, dh, t) * 4 <= _SMEM_BYTES:
+            return t
+        t //= 2
+    return 0
+
+
+def _element_floats(rows: int, dh: int, tile: int) -> int:
+    """The element path's shared floats: q and acc, ``tile`` rows of K and
+    of V, the tile's scores and the softmax state (``smem_floats`` in
+    csrc/paged_decode.cu)."""
+    return rows * dh * 2 + tile * (2 * dh + 1) + rows * tile + 3 * rows
+
+
+def paged_decode_smem(plan: DecodePlan, dh: int, page_size: int,
+                      pool_int8: bool = False) -> int:
+    """The shared memory in bytes a block of Kernel C takes under
+    ``plan``: the vector path's cp.async ring (4 stages, 2 at 4 pieces a
+    lane), the split's page entries (and int8 scales) and the warps'
+    partials; the element path's :func:`element_tile` rows."""
+    if plan.path == "element":
+        tile = element_tile(plan.heads, dh, page_size)
+        return 4 * _element_floats(plan.heads, dh, tile)
+    stages = 2 if plan.pieces >= 4 else 4
+    ring = stages * 2 * 2 * plan.pieces * 256 * 16
+    return ring + 4 * (_MAX_SPLIT_PAGES * (3 if pool_int8 else 1)
+                       + 8 * plan.heads * (dh + 2))
 
 
 def paged_decode_cuda_plan(q, k_pages, v_pages, page_table, group: int,
@@ -479,6 +521,7 @@ def paged_decode_cuda(q, k_pages, v_pages, page_table, positions, group: int,
         plan.split_pages, plan.splits)
     _build.check("apex_paged_decode", status)
     _support.count_launch("paged_decode")
+    _support.DECODE_PLANS[plan] += 1
     return ctx
 
 

@@ -21,7 +21,8 @@ its own process. ``paged_decode_cuda`` is timed at:
   slot at 2047 (32 pages each), and ``gqa_window`` with a sliding window of
   512 (8 pages a slot read);
 - ``element_dh60``: the table in bf16 at head_dim 60, off the 16-byte
-  pieces (the element path, whose sha256 two versions share);
+  pieces (the element path, whose sha256 two versions share), and
+  ``element_dh260``: 8 query heads over 2 K/V heads at head_dim 260;
 - ``int8``, ``w2``, ``w4``, ``int8_w4``: the table in bf16 over int8
   pools (quantized page by page, then the step's rows appended with the
   rescale-on-append) and with 2- and 4-row query windows (a checkout
@@ -103,6 +104,7 @@ CASES = [
     ("gqa_window", 8, 32, 4, 128, 64, 32, (2047,) * 8, 512, BF16),
     ("element_dh60", 8, 12, 1, 60, 64, 12, (63, 64, 200, 700) * 2, None,
      BF16),
+    ("element_dh260", 8, 8, 4, 260, 64, 12, TABLE, None, BF16),
     ("int8", 8, 12, 1, 64, 64, 12, TABLE, None, BF16, 1, True),
     ("w2", 8, 12, 1, 64, 64, 12, TABLE, None, BF16, 2, False),
     ("w4", 8, 12, 1, 64, 64, 12, TABLE, None, BF16, 4, False),

@@ -28,8 +28,8 @@ the training step finds its operands in device memory) and without
 (warm: dy and x, 25 MB at [8192, 768], fit the 50 MB L2, so a warm time
 can read past the HBM bound), beside one PyTorch call of the same work
 where there is one (``native_layer_norm_backward``, ``F.layer_norm``,
-``F.rms_norm``; their w and b in x's dtype, as ``chip_smoke.py`` times
-them) and beside its bound (each input read and each output written once
+``F.rms_norm``, and for D's RMSNorm the backward of ``F.rms_norm`` under
+autograd; their w and b in x's dtype, as ``chip_smoke.py`` times them) and beside its bound (each input read and each output written once
 at 3.35 TB/s). The profiler's kernel records give each kernel's device
 time without the event floor, cold and warm (D split into its passes);
 the case ``floor`` times a one-element fill, the least a timed call
@@ -202,21 +202,31 @@ def time_d(ln, timer, gen, case, emit) -> None:
                                    else dx_ulps <= 1e-4)
     esz = x.element_size()
     n_bytes = 3 * m * h * esz + 2 * m * 4 + h * 4 + (2 if bias else 1) * h * 4
-    lib = None
+    lib, lib_name = None, None
     if not is_rms:
         wd, bd = w.to(dtype), b.to(dtype)
         _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [h], wd, bd,
                                                            1e-5)
+        lib_name = "native_layer_norm_backward"
         lib = both(timer, lambda: torch.ops.aten.native_layer_norm_backward(
             dy, x, [h], lmean, lrstd, wd, bd, [True, True, True]))
+    elif hasattr(F, "rms_norm"):
+        # the backward of F.rms_norm under autograd: dx and dw from the
+        # graph one forward call records (w in x's dtype)
+        xr = x.detach().requires_grad_()
+        wr = w.to(dtype).requires_grad_()
+        yr = F.rms_norm(xr, (h,), wr, 1e-5)
+        lib_name = "F.rms_norm backward (autograd)"
+        lib = both(timer, lambda: torch.autograd.grad(
+            yr, (xr, wr), dy, retain_graph=True))
     plan = plan_of(ln, "bwd", dy, x, got[0], w, bias)
     emit(kernel="layer_norm_bwd", case=name, m=m, h=h, dtype=str(dtype)[6:],
          rms=is_rms, plan=plan,
          ms=both(timer, run),
-         library="native_layer_norm_backward" if lib else None,
+         library=lib_name,
          library_ms=lib,
          library_null_reason=None if lib else
-         "no single PyTorch call computes the RMSNorm backward here",
+         "this PyTorch has no F.rms_norm",
          bound_ms=n_bytes / HBM_BYTES_S * 1e3, ok=ok, dx_ulps=dx_ulps,
          dw_db_rel_err=dwb, repeat_bitwise=same,
          kernel_ms=kernel_ms(timer, run),

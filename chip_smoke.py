@@ -305,7 +305,42 @@ printing its own lines and raising on failure:
               the card bitwise those without recompute (a leaf that two
               runs without recompute do not repeat bitwise is named and
               left out); ``bernoulli`` masks and the attention seeds
-              bitwise the CPU's.
+              bitwise the CPU's;
+33. flash_hd512 — Kernels E, F, B and I past head_dim 256 (DMAX 512)
+              against their plain versions in f32, bf16 and fp16 (phase
+              25's bars, the backwards' 1-ulp magnitude floor scaled by d /
+              256: ``ops.attention.backward_floor``): E and F at HD512's training shape
+              (qkv [1024, 2, 6144], 8 query heads of 512 over 2 K/V heads,
+              causal, RoPE over 512; timed beside SDPA, its backend named),
+              MQA 8:1 with a window and dropout, d 384 (half the columns
+              rotated, a 0 length), 320 (GQA 4:1, dropout), 392 (a window)
+              and 260 (the element copies); B and I at q [2, 8, 1024, 512]
+              over 2 K/V heads (timed; driven once through
+              ``flash_attention``'s autograd, ``[flash_hd512_autograd]``),
+              MQA with a 0 length, d 384 (a window), 320 (sq < sk), 392
+              (sq > sk) and 260;
+34. kernel_c (hd512) — Kernel C at HD512's decode (b 8, 8 query heads
+              over 2 K/V heads, head_dim 512, pages of 64) on the vector
+              path, two 16-byte pieces a lane in bf16 and fp16 (four in
+              f32), over int8 pools and with a w = 4 window, then f32 q
+              over int8 pools on the element path (32-row tiles at pages
+              of 64 and 128) and head_dim 260 in bf16 and fp16 (the
+              element path, whole pages); bf16 timed cold beside its
+              plain version and bound;
+35. hd512_train — a GPT at HD512 (Llama-2-7B's widths with 8 query heads
+              of 512 over 2 K/V heads, SwiGLU 11008, RMSNorm, RoPE, vocab
+              32000; 32 layers cut to 4; bf16 over fp32 params, weights
+              from a seed) takes 2 + 8 steps at b 2 x 1024 with FusedAdam:
+              the loss falls and Kernels A, D, E and F launch 9, 9, 4 and
+              4 times a step, B and I 0;
+    hd512_serve — the same model serves 8 greedy requests in bf16 (pages
+              of 64): every request ends ``length``/``eos``, A > 0, B 4 a
+              prefill (GQA 4:1 at head_dim 512), C 4 a decode step on its
+              vector path (plan printed), every other kernel 0;
+36. hd512 card vs CPU — a tiny f32 GPT with 512-wide heads (2 layers,
+              hidden 1024, 2 query heads over one K/V head) trains 3 steps
+              on the card and the CPU (phase 12's bar) and serves 3 greedy
+              requests with pages of 64 on both with the same tokens.
 
 Then one JSON line of per-kernel numbers (launches from the phase that
 drives each kernel's slice: serve for A-C, serve_int8 and serve_spec for
@@ -316,8 +351,9 @@ fp16 records of A, D, E and F, serve_fp16 for those of B and C,
 bert_train_fp16 for those of G and H, t5_train_fp16 for I's,
 rn50_train_fp16 for J-M's, gemma2b_train for E's and F's head_dim-256
 records, gemma2b_serve for B's and C's, flash_hd256 for I's,
-llama405b_serve for A's wide-row record, with every path's counts in
-``launches_by_path``;
+llama405b_serve for A's wide-row record, hd512_train for E's and F's
+head_dim-512 records, hd512_serve for B's and C's, flash_hd512 for I's,
+with every path's counts in ``launches_by_path``;
 times from CUDA events in this run; ``bound_ms`` from this run's shapes
 over the H100's published peaks), and last ``{"ok": true, "device":
 {...}}``.
@@ -489,7 +525,8 @@ def check_close(got: torch.Tensor, want: torch.Tensor) -> tuple:
 
 
 def check_rounded_factors(got: torch.Tensor, want: torch.Tensor,
-                          slack: torch.Tensor) -> tuple:
+                          slack: torch.Tensor,
+                          floor: float = 2.0 ** -8) -> tuple:
     """A bf16 or fp16 flash backward that rounds ds and p to that type
     where the JAX kernels do, against its plain version on the same
     inputs: every element within 1 ulp plus ``slack``, one rounding step of
@@ -499,16 +536,17 @@ def check_rounded_factors(got: torch.Tensor, want: torch.Tensor,
     fp16 (against the same fp32 differences, fp16's 2^3 times finer
     spacing puts 2^3 times as many ds on a boundary); one ulp is 2^-7
     (bf16) or 2^-10 (fp16) of the magnitude, floored at the magnitude
-    2^-8. Returns (max abs err, ulps, share past 1 ulp, excess over the
-    bound, ok)."""
+    ``floor`` (2^-8; ``ops.attention.backward_floor`` past head_dim 256).
+    Returns (max abs err, ulps, share past 1 ulp, the largest share of its
+    bound an element's error takes (past 1 where it fails), ok)."""
     e = (got.float() - want.float()).abs()
     bits = FRACTION_BITS[got.dtype]
     eps = 2.0 ** -bits
-    one = 2.0 ** -8 * eps + eps * want.float().abs()
+    one = floor * eps + eps * want.float().abs()
     past = float((e > one).float().mean())
     ok = bool((e <= one + slack).all()) and past <= 1e-3 * 2.0 ** (bits - 7)
     return (float(e.max()), ulps16(got, want), past,
-            float((e - one - slack).max()), ok)
+            float((e / (one + slack)).max()), ok)
 
 
 def digest(t: torch.Tensor) -> str:
@@ -1583,18 +1621,18 @@ def phase_packed(timer: Timer) -> list:
             if kname == "f" and dtype in HALF_DTYPES:
                 slack = flash_packed_bwd_rounding_slack(qkv, do, ro, rlse,
                                                         *args)
-                err, ulps, past, excess, ok = check_rounded_factors(
+                err, ulps, past, use, ok = check_rounded_factors(
                     got, want, slack)
                 tol = f"1 {str(dtype)[6:]} ulp+factor rounding"
                 del slack
             else:
                 ulps, ok, tol = check_close(got, want)
-                excess = None
+                use = None
             if not ok or not torch.isfinite(got).all():
                 raise AssertionError(
                     f"kernel {kname} {name} {dtype}: max err {err} "
-                    f"({ulps} ulp, share past 1 ulp {past}, excess "
-                    f"{excess}) — tolerance {tol}")
+                    f"({ulps} ulp, share past 1 ulp {past}, bound use "
+                    f"{use}) — tolerance {tol}")
             errs[kname] = (err, ulps, tol, past)
         lse_err = float((lse - rlse).abs().max())
         if lse_err > 1e-4:
@@ -1906,7 +1944,8 @@ def _flash_bwd_timed(timer, q, k, v, do, o, lse, kvl, kvl_t, args, err,
     """Kernel I and Kernel B at the T5 cross-attention (kv_lengths
     ``kvl``), each beside its plain version, SDPA (its backward) with a
     bool key mask and its bound: ``(log fields, record)``."""
-    from apex_tpu_torch.ops.attention import (flash_bwd_cuda,
+    from apex_tpu_torch.ops.attention import (backward_floor,
+                                              flash_bwd_cuda,
                                               flash_bwd_plain,
                                               flash_fwd_cuda)
     b, h, sq, d = q.shape
@@ -2013,14 +2052,14 @@ def phase_flash_bwd(timer: Timer) -> list:
                 if half:
                     tol = (f"1_{'fp16' if dtype == torch.float16 else 'bf16'}"
                            "_ulp+factor_rounding")
-                    e_, u_, p_, excess, ok = check_rounded_factors(g_, w_, sl)
+                    e_, u_, p_, use, ok = check_rounded_factors(g_, w_, sl)
                     err, ulps, past = max(err, e_), max(ulps, u_), \
                         max(past, p_)
                     if not ok:
                         raise AssertionError(
                             f"kernel i {name} {dtype}: {ulps} ulp, "
-                            f"{past:.2e} of elements past 1 ulp, excess "
-                            f"{excess} — tolerance {tol}")
+                            f"{past:.2e} of elements past 1 ulp, bound use "
+                            f"{use} — tolerance {tol}")
                     continue
                 err = max(err, float((g_.float() - w_.float()).abs().max()))
                 if err > 1e-4:
@@ -2096,47 +2135,94 @@ HD256_FLASH = [
 ]
 
 
-def _half_check(kname, case, got, want, slack) -> tuple:
+def _half_check(kname, case, got, want, slack,
+                floor: float = 2.0 ** -8) -> tuple:
     """One output of a 16-bit flash kernel against its plain version:
     ``check_close`` (1 ulp) for a forward (``slack`` None), else
-    ``check_rounded_factors``; f32 atol 1e-4. Raises on failure; returns
-    (max abs err, ulps, share past 1 ulp)."""
+    ``check_rounded_factors`` over the magnitude ``floor``; f32 atol 1e-4.
+    Raises on failure; returns (max abs err, ulps, share past 1 ulp, the
+    backward's largest share of its bound used at ``floor`` and at 2^-8),
+    those shares None for a forward or f32."""
+    use = use_2m8 = None
     if got.dtype == torch.float32 or slack is None:
         ulps, ok, tol = check_close(got, want)
         err, past = float((got.float() - want.float()).abs().max()), 0.0
     else:
-        err, ulps, past, excess, ok = check_rounded_factors(got, want, slack)
-        tol = f"1 ulp + factor rounding (excess {excess:.3e})"
+        err, ulps, past, use, ok = check_rounded_factors(got, want, slack,
+                                                         floor)
+        use_2m8 = check_rounded_factors(got, want, slack)[3]
+        tol = (f"1 ulp + factor rounding (bound use {use:.4f} at floor "
+               f"{floor:.3e}, {use_2m8:.4f} at 2^-8)")
     if not ok or not torch.isfinite(got).all():
         raise AssertionError(f"kernel {kname} {case} {got.dtype}: max err "
                              f"{err} ({ulps} ulp, {past:.2e} past 1 ulp) — "
                              f"tolerance {tol}")
-    return err, ulps, past
+    return err, ulps, past, use, use_2m8
 
 
-def _hd256_packed(timer: Timer, gen) -> list:
-    """:data:`HD256_PACKED` in f32, bf16 and fp16: E (o 1 ulp, lse 1e-4)
-    and F (1 ulp plus the rounding slack, at most 0.1% / 0.8% past 1 ulp)
-    against the plain versions, a kv_length-0 row zero, every 16-bit case
-    two runs bitwise equal, sha256 of o and dqkv printed; Gemma-2B's
-    shape timed in bf16 and fp16 beside SDPA (E: its forward; F: its
-    backward, and forward + backward). Returns the bf16 records."""
+def _bound_use_fields(kname: str, use, use_2m8) -> dict:
+    """A backward's largest share of its 1-ulp bound used, as log fields:
+    at its floor, and at 2^-8 where the floor differs (past head_dim
+    256)."""
+    if use is None:
+        return {}
+    fields = {f"{kname}_bound_use": f"{use:.4f}"}
+    if use_2m8 != use:
+        fields[f"{kname}_bound_use_at_2m8"] = f"{use_2m8:.4f}"
+    return fields
+
+
+def _sdpa_backend(fn) -> str:
+    """The backend ``scaled_dot_product_attention`` takes in ``fn``, read
+    off the kernels torch.profiler sees: flash, efficient (the CUTLASS
+    memory-efficient kernels), cudnn, else math (its GEMMs and softmax),
+    with the longest kernel's name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kernels[e.name] = kernels.get(e.name, 0) + \
+                e.time_range.elapsed_us()
+    if not kernels:
+        return "not_measured"
+    names = " ".join(kernels).lower()
+    kind = ("flash" if "flash" in names else
+            "efficient" if "fmha" in names or "efficient" in names else
+            "cudnn" if "cudnn" in names else "math")
+    top = max(kernels, key=kernels.get)
+    return f"{kind}:{top[:60].replace(' ', '_')}"
+
+
+def _wide_packed(timer: Timer, gen, phase: str, cases, timed: str) -> list:
+    """``cases`` (:data:`HD256_PACKED`, :data:`HD512_PACKED`) in f32, bf16
+    and fp16: E (o 1 ulp, lse 1e-4) and F (1 ulp plus the rounding slack
+    over :func:`backward_floor`, at most 0.1% / 0.8% past 1 ulp) against
+    the plain versions, a kv_length-0 row zero, every 16-bit case two runs
+    bitwise equal, sha256 of o and dqkv printed as ``[phase]`` lines; the
+    case ``timed`` timed in bf16 and fp16 beside SDPA (its backward, and
+    forward + backward; its backend named). Returns the bf16 records,
+    named ``flash_packed_{fwd,bwd}`` with the phase's ``_hd*`` suffix."""
     from apex_tpu_torch.ops.attention import (
-        flash_packed_bwd_cuda, flash_packed_bwd_plain,
+        backward_floor, flash_packed_bwd_cuda, flash_packed_bwd_plain,
         flash_packed_bwd_rounding_slack, flash_packed_fwd_cuda,
         flash_packed_fwd_plain)
     from apex_tpu_torch.ops.rope import rope_freqs, rope_tables
     recs = []
     for (name, b, s, groups, qpg, d, causal, kvl, window, rot,
-         rate) in HD256_PACKED:
+         rate) in cases:
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
             qkv = torch.randn(s, b, groups * (qpg + 2) * d, device="cuda",
                               generator=gen).to(dtype)
             do = torch.randn(s, b, groups * qpg * d, device="cuda",
                              generator=gen).to(dtype)
             kvl_t = None if kvl is None else torch.tensor(kvl, device="cuda")
-            rope = rope_tables(rope_freqs(0, s, rot, 10000.0,
-                                          device="cuda"), s, d)
+            rope = None if not rot else rope_tables(rope_freqs(
+                0, s, rot, 10000.0, device="cuda"), s, d)
             args = (kvl_t, rope, DROPOUT_SEED if rate else None, rate,
                     1.0 / math.sqrt(d), causal, window, qpg, d)
             o, lse = flash_packed_fwd_cuda(qkv, *args)
@@ -2147,9 +2233,9 @@ def _hd256_packed(timer: Timer, gen) -> list:
             slack = (flash_packed_bwd_rounding_slack(qkv, do, ro, rlse, *args)
                      if half else None)
             torch.cuda.synchronize()
-            e_err, e_ulps, _ = _half_check("e", name, o, ro, None)
-            f_err, f_ulps, f_past = _half_check("f", name, dqkv, rdqkv,
-                                                slack)
+            e_err, e_ulps, *_ = _half_check("e", name, o, ro, None)
+            f_err, f_ulps, f_past, *f_use = _half_check(
+                "f", name, dqkv, rdqkv, slack, backward_floor(d))
             lse_err = float((lse - rlse).abs().max())
             if lse_err > 1e-4:
                 raise AssertionError(f"kernel e {name} {dtype}: lse err "
@@ -2168,7 +2254,7 @@ def _hd256_packed(timer: Timer, gen) -> list:
                     raise AssertionError(f"kernel e/f {name} {dtype}: two "
                                          f"runs differ")
             fields = {}
-            if name == "gemma2b_train" and half:
+            if name == timed and half:
                 heads = groups * qpg
                 esz = qkv.element_size()
                 pairs = b * _visible_pairs(s, s, causal, window, s)
@@ -2188,8 +2274,10 @@ def _hd256_packed(timer: Timer, gen) -> list:
                     qkv, do, ro, rlse, *args), iters=5, warmup=1)
                 q4, k4, v4 = _packed_unpacked(qkv, b, s, groups, qpg, d)
                 gqa = dict(enable_gqa=True)
-                lib_e = timer(lambda: F.scaled_dot_product_attention(
-                    q4, k4, v4, is_causal=True, **gqa))
+                sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    q4, k4, v4, is_causal=True, **gqa)
+                lib_e = timer(sdpa)
+                backend = _sdpa_backend(sdpa)
                 q4, k4, v4 = (t.requires_grad_() for t in (q4, k4, v4))
                 out4 = F.scaled_dot_product_attention(q4, k4, v4,
                                                       is_causal=True, **gqa)
@@ -2207,25 +2295,27 @@ def _hd256_packed(timer: Timer, gen) -> list:
                               f_ms=f"{ms_f:.5f}", f_plain_ms=f"{plain_f:.5f}",
                               f_library_ms=f"{lib_f:.5f}",
                               f_library_fwd_bwd_ms=f"{lib_fb:.5f}",
-                              f_bound_ms=f"{bms_f:.5f}", f_bound_by=by_f)
+                              f_bound_ms=f"{bms_f:.5f}", f_bound_by=by_f,
+                              sdpa_backend=backend)
                 if dtype == torch.bfloat16:
-                    shape = f"qkv[{s},{b},{qkv.shape[-1]}] bf16 causal rot{rot}"
+                    shape = (f"qkv[{s},{b},{qkv.shape[-1]}] bf16 causal "
+                             f"rot{rot}")
                     recs.append(dict(
-                        name="flash_packed_fwd_hd256", route="cuda",
+                        name="flash_packed_fwd" + phase[5:], route="cuda",
                         source="apex_tpu_torch/csrc/flash_packed_fwd.cu",
                         replaces="apex_tpu/ops/attention.py:832",
                         shape=shape, max_abs_err=e_err, ms=ms_e,
                         plain_ms=plain_e, bound_ms=bms_e, bound_by=by_e,
                         library_ms=lib_e))
                     recs.append(dict(
-                        name="flash_packed_bwd_hd256", route="cuda",
+                        name="flash_packed_bwd" + phase[5:], route="cuda",
                         source="apex_tpu_torch/csrc/flash_packed_bwd.cu",
                         replaces="apex_tpu/ops/attention.py:885",
                         shape=shape, max_abs_err=f_err, ms=ms_f,
                         plain_ms=plain_f, bound_ms=bms_f, bound_by=by_f,
                         library_ms=lib_f))
                 del q4, k4, v4, out4, do4
-            log("flash_hd256", kernels="e,f", case=name,
+            log(phase, kernels="e,f", case=name,
                 shape=f"b{b} s{s} groups{groups} qpg{qpg} d{d}",
                 causal=causal, window=window,
                 kv_lengths=None if kvl is None else
@@ -2233,28 +2323,33 @@ def _hd256_packed(timer: Timer, gen) -> list:
                 dtype=str(dtype)[6:], e_max_abs_err=f"{e_err:.3e}",
                 e_ulps=e_ulps, lse_err=f"{lse_err:.2e}",
                 f_max_abs_err=f"{f_err:.3e}", f_ulps=f_ulps,
-                f_share_past_1_ulp=f"{f_past:.2e}", repeat_bitwise=same,
+                f_share_past_1_ulp=f"{f_past:.2e}",
+                **_bound_use_fields("f", *f_use), repeat_bitwise=same,
                 o_sha256=digest(o), dqkv_sha256=digest(dqkv), **fields)
             del qkv, do, o, lse, ro, rlse, dqkv, rdqkv, slack
     return recs
 
 
-def _hd256_flash(timer: Timer, gen) -> tuple:
-    """:data:`HD256_FLASH` in f32, bf16 and fp16 through the wrappers of
-    Kernels B and I, each against its plain version (B's o 1 ulp and lse
-    1e-4, I 1 ulp plus the rounding slack), every 16-bit case two runs
-    bitwise equal, sha256 printed; Gemma-2B's 4D shape timed in bf16 and
-    fp16 beside SDPA (its forward; its backward), and driven once through
-    ``flash_attention``'s autograd with the launch counts read around it.
-    Returns (the bf16 records, those counts)."""
+def _wide_flash(timer: Timer, gen, phase: str, cases, timed: str) -> tuple:
+    """``cases`` (:data:`HD256_FLASH`, :data:`HD512_FLASH`) in f32, bf16
+    and fp16 through the wrappers of Kernels B and I, each against its
+    plain version (B's o 1 ulp and lse 1e-4, I 1 ulp plus the rounding
+    slack over :func:`backward_floor`), a kv_length-0 row zero, every
+    16-bit case two runs bitwise equal, sha256 printed as ``[phase]``
+    lines; the case ``timed`` timed in bf16 and fp16 beside SDPA (its
+    backend named), and driven once through ``flash_attention``'s autograd
+    with the launch counts read around it (``[phase_autograd]``: I's main
+    path at these widths). Returns (the bf16 records, named ``flash_fwd``
+    and ``flash_bwd`` with the phase's ``_hd*`` suffix, those counts)."""
     from apex_tpu_torch.ops import LAUNCHES, flash_attention, reset_launches
-    from apex_tpu_torch.ops.attention import (flash_bwd_cuda,
+    from apex_tpu_torch.ops.attention import (backward_floor,
+                                              flash_bwd_cuda,
                                               flash_bwd_plain,
                                               flash_bwd_rounding_slack,
                                               flash_fwd_cuda,
                                               flash_fwd_plain)
     recs, launches = [], None
-    for name, b, h, kvh, sq, sk, d, causal, kvl, window in HD256_FLASH:
+    for name, b, h, kvh, sq, sk, d, causal, kvl, window in cases:
         kvl_t = None if kvl is None else torch.tensor(kvl, device="cuda")
         args = (kvl_t, 1.0 / math.sqrt(d), causal, window)
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
@@ -2272,16 +2367,27 @@ def _hd256_flash(timer: Timer, gen) -> tuple:
             slack = (flash_bwd_rounding_slack(q, k, v, do, o, lse, *args)
                      if half else (None,) * 3)
             torch.cuda.synchronize()
-            b_err, b_ulps, _ = _half_check("b", name, o, ro.to(dtype), None)
+            b_err, b_ulps, *_ = _half_check("b", name, o, ro.to(dtype),
+                                            None)
             lse_err = float((lse - rlse).abs().max())
             if lse_err > 1e-4:
                 raise AssertionError(f"kernel b {name} {dtype}: lse err "
                                      f"{lse_err}")
             i_err = i_ulps = i_past = 0.0
+            i_use = None
             for g_, w_, sl in zip(got, want, slack):
-                e_, u_, p_ = _half_check("i", name, g_, w_, sl)
+                e_, u_, p_, *x_ = _half_check("i", name, g_, w_, sl,
+                                              backward_floor(d))
                 i_err, i_ulps, i_past = (max(i_err, e_), max(i_ulps, u_),
                                          max(i_past, p_))
+                if x_[0] is not None:
+                    i_use = x_ if i_use is None else [
+                        max(a, b_) for a, b_ in zip(i_use, x_)]
+            if kvl is not None and 0 in kvl:
+                row = kvl.index(0)
+                if o[row].any() or any(g_[row].any() for g_ in got):
+                    raise AssertionError(f"kernel b/i {name}: the batch row "
+                                         f"with kv_length 0 is not zero")
             same = None
             if half:
                 same = torch.equal(o, flash_fwd_cuda(q, k, v, *args)[0]) and \
@@ -2291,7 +2397,7 @@ def _hd256_flash(timer: Timer, gen) -> tuple:
                     raise AssertionError(f"kernel b/i {name} {dtype}: two "
                                          f"runs differ")
             fields = {}
-            if name == "gemma2b_4d" and half:
+            if name == timed and half:
                 esz = q.element_size()
                 pairs = b * _visible_pairs(sq, sk, causal, window, sk)
                 bms_b, by_b = bound_ms((2 * q.numel() + 2 * k.numel()) * esz
@@ -2310,8 +2416,10 @@ def _hd256_flash(timer: Timer, gen) -> tuple:
                                                         *args),
                                 iters=5, warmup=1)
                 gqa = dict(enable_gqa=True)
-                lib_b = timer(lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, **gqa))
+                sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    q, k, v, is_causal=True, **gqa)
+                lib_b = timer(sdpa)
+                backend = _sdpa_backend(sdpa)
                 q4, k4, v4 = (t.detach().clone().requires_grad_()
                               for t in (q, k, v))
                 out4 = F.scaled_dot_product_attention(q4, k4, v4,
@@ -2323,20 +2431,21 @@ def _hd256_flash(timer: Timer, gen) -> tuple:
                               b_bound_ms=f"{bms_b:.5f}", b_bound_by=by_b,
                               i_ms=f"{ms_i:.5f}", i_plain_ms=f"{plain_i:.5f}",
                               i_library_ms=f"{lib_i:.5f}",
-                              i_bound_ms=f"{bms_i:.5f}", i_bound_by=by_i)
+                              i_bound_ms=f"{bms_i:.5f}", i_bound_by=by_i,
+                              sdpa_backend=backend)
                 del q4, k4, v4, out4
                 if dtype == torch.bfloat16:
                     shape = (f"q[{b},{h},{sq},{d}] k,v[{b},{kvh},{sk},{d}] "
                              "bf16 causal")
                     recs.append(dict(
-                        name="flash_fwd_hd256", route="cuda",
+                        name="flash_fwd" + phase[5:], route="cuda",
                         source="apex_tpu_torch/csrc/flash_fwd.cu",
                         replaces="apex_tpu/ops/attention.py:266",
                         shape=shape, max_abs_err=b_err, ms=ms_b,
                         plain_ms=plain_b, bound_ms=bms_b, bound_by=by_b,
                         library_ms=lib_b))
                     recs.append(dict(
-                        name="flash_bwd_hd256", route="cuda",
+                        name="flash_bwd" + phase[5:], route="cuda",
                         source="apex_tpu_torch/csrc/flash_bwd.cu",
                         replaces="apex_tpu/ops/attention.py:438",
                         shape=shape, max_abs_err=i_err, ms=ms_i,
@@ -2352,17 +2461,17 @@ def _hd256_flash(timer: Timer, gen) -> tuple:
                     launches = dict(LAUNCHES)
                     if launches["flash_fwd"] != 1 or \
                             launches["flash_bwd"] != 1:
-                        raise AssertionError(f"flash_hd256 autograd: "
+                        raise AssertionError(f"{phase} autograd: "
                                              f"launches {launches}")
                     if not (torch.equal(qa.grad, got[0])
                             and torch.equal(ka.grad, got[1])
                             and torch.equal(va.grad, got[2])):
-                        raise AssertionError("flash_hd256 autograd: grads "
+                        raise AssertionError(f"{phase} autograd: grads "
                                              "differ from the wrapper's")
-                    log("flash_hd256_autograd", shape=shape.replace(" ", "_"),
+                    log(f"{phase}_autograd", shape=shape.replace(" ", "_"),
                         launches=json.dumps(launches).replace(" ", ""))
                     del qa, ka, va
-            log("flash_hd256", kernels="b,i", case=name,
+            log(phase, kernels="b,i", case=name,
                 shape=f"b{b} h{h} kvh{kvh} sq{sq} sk{sk} d{d}",
                 causal=causal, window=window,
                 kv_lengths=None if kvl is None else
@@ -2370,6 +2479,7 @@ def _hd256_flash(timer: Timer, gen) -> tuple:
                 b_max_abs_err=f"{b_err:.3e}", b_ulps=b_ulps,
                 lse_err=f"{lse_err:.2e}", i_max_abs_err=f"{i_err:.3e}",
                 i_ulps=i_ulps, i_share_past_1_ulp=f"{i_past:.2e}",
+                **_bound_use_fields("i", *(i_use or (None, None))),
                 repeat_bitwise=same, o_sha256=digest(o),
                 sha256=digest(torch.cat([t.reshape(-1) for t in got])),
                 **fields)
@@ -2382,8 +2492,10 @@ def phase_flash_hd256(timer: Timer) -> tuple:
     returns (records, the launches of ``flash_attention``'s autograd at
     Gemma-2B's 4D shape, the main path of ``flash_bwd_hd256``)."""
     gen = torch.Generator(device="cuda").manual_seed(21)
-    recs = _hd256_packed(timer, gen)
-    flash_recs, launches = _hd256_flash(timer, gen)
+    recs = _wide_packed(timer, gen, "flash_hd256", HD256_PACKED,
+                        "gemma2b_train")
+    flash_recs, launches = _wide_flash(timer, gen, "flash_hd256",
+                                       HD256_FLASH, "gemma2b_4d")
     torch.cuda.empty_cache()
     return recs + flash_recs, launches
 
@@ -3486,22 +3598,27 @@ def phase_train(profile: bool = False) -> dict:
     return launches
 
 
-def phase_gemma2b(profile: bool = False) -> dict:
-    """A GPT at Gemma-2B's widths and depth (:data:`GEMMA`; bf16 compute
-    over fp32 params, weights from a seed) takes 2 + 8 steps of
-    ``make_train_step`` with FusedAdam lr 1e-4 at b 2, s 1024
-    (``[gemma2b_train]``: Kernels A, D, E and F launched 37, 37, 18 and 18
-    times a step, B and I 0; the loss falls), then, with the optimizer's
-    state dropped, serves 8 greedy requests of ``PROMPT_LENS`` prompts and
-    32 new tokens in bf16 through ``InferenceEngine`` (``[gemma2b_serve]``:
-    A, B at head_dim 256 for the prefills, C at head_dim 256 with 8 query
-    rows over one K/V head for the decode steps). Returns the launches of
+def _train_then_serve(prefix: str, widths: dict, batch_size: int, seq: int,
+                      kernels: dict, model_name: str, profile: bool,
+                      **fields) -> dict:
+    """A GPT at ``widths`` (bf16 compute over fp32 params, weights from a
+    seed; the init's seconds printed) takes 2 + 8 steps of
+    ``make_train_step`` with FusedAdam lr 1e-4 at ``batch_size`` x ``seq``
+    (``[{prefix}_train]``: the kernels launched ``kernels`` times a step,
+    the rest 0; the loss falls), then, with the optimizer's state dropped,
+    serves 8 greedy requests of ``PROMPT_LENS`` prompts and 32 new tokens
+    in bf16 through ``InferenceEngine`` with pages of 64
+    (``[{prefix}_serve]``: every request ends ``length``/``eos``, A > 0, B
+    a layer a prefill, C a layer a decode step, every one of its launches
+    on the vector path by the plans it took (``DECODE_PLANS``, printed
+    with their counts), every other kernel 0). Returns the launches of
     both paths."""
     from apex_tpu_torch.models import TransformerConfig
     from apex_tpu_torch.ops import LAUNCHES, reset_launches
+    from apex_tpu_torch.ops._support import DECODE_PLANS
     from apex_tpu_torch.serving import EngineConfig, InferenceEngine
     torch.cuda.empty_cache()
-    cfg = TransformerConfig(**GEMMA, hidden_dropout=0.0,
+    cfg = TransformerConfig(**widths, hidden_dropout=0.0,
                             attention_dropout=0.0,
                             params_dtype=torch.float32,
                             compute_dtype=torch.bfloat16)
@@ -3510,26 +3627,26 @@ def phase_gemma2b(profile: bool = False) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
-    batch = _train_batch(cfg, GEMMA_BATCH, GEMMA_SEQ, "cuda")
-    tokens = GEMMA_BATCH * GEMMA_SEQ
+    batch = _train_batch(cfg, batch_size, seq, "cuda")
+    tokens = batch_size * seq
     losses, times, launches, peak = _timed_steps(step, batch)
-    per_step = dict(GEMMA_KERNELS,
-                    **optimizer_launches_per_step(step.optimizer))
-    _report_train("gemma2b_train", "gemma-2b-widths bf16/fp32 random-init",
+    per_step = dict(kernels, **optimizer_launches_per_step(step.optimizer))
+    card = _card_name().replace(" ", "_")
+    _report_train(f"{prefix}_train", f"{model_name} bf16/fp32 random-init",
                   losses, times, launches, peak, per_step, tokens,
                   transformer_train_flops(n_params, tokens,
-                                          GEMMA["num_layers"],
-                                          GEMMA["hidden_size"], GEMMA_SEQ,
+                                          widths["num_layers"],
+                                          widths["hidden_size"], seq,
                                           causal=True),
-                  batch=GEMMA_BATCH, seq=GEMMA_SEQ, n_params=n_params,
-                  head_dim=256, init_s=f"{init_s:.1f}")
-    report_optimizer("gemma2b_train", step.optimizer)
+                  batch=batch_size, seq=seq, n_params=n_params,
+                  head_dim=cfg.head_dim, init_s=f"{init_s:.1f}", card=card,
+                  **fields)
+    report_optimizer(f"{prefix}_train", step.optimizer)
     if profile:
-        profile_device("gemma2b_train",
+        profile_device(f"{prefix}_train",
                        lambda: [step(batch) for _ in range(2)],
-                       lambda: dict(steps=2, batch=GEMMA_BATCH,
-                                    seq=GEMMA_SEQ))
-    paths = {"gemma2b_train": launches}
+                       lambda: dict(steps=2, batch=batch_size, seq=seq))
+    paths = {f"{prefix}_train": launches}
     del step, batch
     model.zero_grad(set_to_none=True)
     torch.cuda.empty_cache()
@@ -3540,60 +3657,85 @@ def phase_gemma2b(profile: bool = False) -> dict:
     engine = InferenceEngine(model, ecfg)
     requests = _requests(8, cfg.vocab_size, 32, 1)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
     results = engine.serve(requests)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
+    launches, plans = dict(LAUNCHES), dict(DECODE_PLANS)
     bad = [r.finish_reason for r in results
            if r.finish_reason not in ("length", "eos")]
     if len(results) != 8 or bad:
-        raise AssertionError(f"gemma2b_serve: {len(results)} results, bad "
+        raise AssertionError(f"{prefix}_serve: {len(results)} results, bad "
                              f"finish reasons {bad}")
     counters = engine.metrics.counters()
     steps, prefills = counters["decode_steps"], counters["prefills"]
     want = {k: 0 for k in ALL_KERNELS}
-    want.update(flash_fwd=GEMMA["num_layers"] * prefills,
-                paged_decode=GEMMA["num_layers"] * steps,
+    want.update(flash_fwd=widths["num_layers"] * prefills,
+                paged_decode=widths["num_layers"] * steps,
                 layer_norm_fwd=launches["layer_norm_fwd"])
     if launches != want or launches["layer_norm_fwd"] <= 0:
-        raise AssertionError(f"gemma2b_serve: launches {launches}, expected "
-                             f"{want} (A > 0)")
+        raise AssertionError(f"{prefix}_serve: launches {launches}, "
+                             f"expected {want} (A > 0)")
+    # the plans C's launches took in this run: all on the vector path
+    vector = sum(n for p, n in plans.items() if p.path == "vector")
+    if vector != launches["paged_decode"]:
+        raise AssertionError(f"{prefix}_serve: {vector} of C's "
+                             f"{launches['paged_decode']} launches on the "
+                             f"vector path, plans {plans}")
     n_tok = sum(len(r.tokens) for r in results)
     ttft = sorted(r.ttft_s for r in results)
     step_h = engine.metrics.histogram("decode_step_s")
-    log("gemma2b_serve", model="gemma-2b-widths bf16 random-init",
-        requests=8, tokens=n_tok, wall_s=f"{wall:.3f}",
+    log(f"{prefix}_serve", model=f"{model_name} bf16 random-init",
+        requests=8,
+        tokens=n_tok, wall_s=f"{wall:.3f}",
         tokens_per_s=f"{n_tok / wall:.1f}",
         ttft_p50_ms=f"{1e3 * ttft[len(ttft) // 2]:.2f}",
         decode_ms_per_step=f"{1e3 * step_h.sum / step_h.count:.3f}",
         decode_steps=steps, prefills=prefills,
+        peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
+        c_vector=vector, c_pieces=",".join(sorted({str(p.pieces)
+                                                   for p in plans})),
+        c_plans=",".join(f"{_decode_plan_text(p)}x{n}"
+                         for p, n in sorted(plans.items())), card=card,
         launches=json.dumps(launches).replace(" ", ""))
     if profile:
         profile_serve(model, ecfg)
-    paths["gemma2b_serve"] = launches
+    paths[f"{prefix}_serve"] = launches
     del engine, model
     torch.cuda.empty_cache()
     return paths
 
 
-def phase_hd256_card_vs_cpu() -> None:
-    """The tiny head_dim-256 GPT (:data:`HD256_SMALL`, f32, TF32 off)
-    trains 3 steps on the card (Kernels E and F at DMAX 256 in f32) and on
-    the CPU: losses and step-1 gradients to ``_card_vs_cpu``'s bar; then
-    serves greedy requests through the engine on both (B and C at head_dim
-    256): the tokens are equal."""
+def phase_gemma2b(profile: bool = False) -> dict:
+    """A GPT at Gemma-2B's widths and depth (:data:`GEMMA`) trains at b 2,
+    s 1024 (``[gemma2b_train]``: Kernels A, D, E and F launched 37, 37, 18
+    and 18 times a step, B and I 0) and serves 8 requests
+    (``[gemma2b_serve]``: A, B at head_dim 256 for the prefills, C at
+    head_dim 256 with 8 query rows over one K/V head for the decode
+    steps), as :func:`_train_then_serve` says. Returns the launches of
+    both paths."""
+    return _train_then_serve("gemma2b", GEMMA, GEMMA_BATCH, GEMMA_SEQ,
+                             GEMMA_KERNELS, "gemma-2b-widths", profile)
+
+
+def _small_card_vs_cpu(phase: str, widths: dict, page_size: int,
+                       prompts: tuple) -> None:
+    """A tiny f32 GPT at ``widths`` (TF32 off) trains 3 steps on the card
+    and on the CPU: losses and step-1 gradients to ``_card_vs_cpu``'s bar;
+    then serves greedy requests of ``prompts`` tokens through the engine
+    on both with pages of ``page_size``: the tokens are equal."""
     from apex_tpu_torch.models import GPTModel, TransformerConfig
     from apex_tpu_torch.serving import EngineConfig, InferenceEngine, Request
-    cfg = TransformerConfig(**HD256_SMALL)
+    cfg = TransformerConfig(**widths)
 
     def build(device):
         model, step = _train_model(cfg, device, seed=2)
         return model, step, _train_batch(cfg, 2, 64, device, seed=3)
 
-    _card_vs_cpu("hd256_card_vs_cpu", build, layers=2, hidden=512,
-                 head_dim=256)
+    _card_vs_cpu(phase, build, layers=cfg.num_layers,
+                 hidden=cfg.hidden_size, head_dim=cfg.head_dim)
     g = torch.Generator().manual_seed(5)
     out = {}
     for device in ("cuda", "cpu"):
@@ -3601,15 +3743,22 @@ def phase_hd256_card_vs_cpu() -> None:
                          generator=torch.Generator().manual_seed(0))
         reqs = [Request(prompt=torch.randint(0, cfg.vocab_size, (n,),
                                              generator=g.manual_seed(n))
-                        .tolist(), max_new_tokens=8) for n in (20, 37, 64)]
+                        .tolist(), max_new_tokens=8) for n in prompts]
         eng = InferenceEngine(model, EngineConfig(
-            max_slots=4, max_len=128, page_size=16, prefix_cache=False),
-            device=device)
+            max_slots=4, max_len=128, page_size=page_size,
+            prefix_cache=False), device=device)
         out[device] = [r.tokens for r in eng.serve(reqs)]
     if out["cuda"] != out["cpu"] or any(len(t) != 8 for t in out["cuda"]):
-        raise AssertionError(f"hd256 card vs CPU greedy tokens differ: {out}")
-    log("hd256_card_vs_cpu", serve="greedy", requests=3,
+        raise AssertionError(f"{phase}: greedy tokens differ: {out}")
+    log(phase, serve="greedy", requests=len(prompts), page_size=page_size,
         tokens=json.dumps(out["cuda"]).replace(" ", ""), equal=True)
+
+
+def phase_hd256_card_vs_cpu() -> None:
+    """The tiny head_dim-256 GPT (:data:`HD256_SMALL`, f32) on the card
+    (Kernels E and F at DMAX 256 in f32; B and C at head_dim 256 serving
+    with pages of 16) and the CPU (:func:`_small_card_vs_cpu`)."""
+    _small_card_vs_cpu("hd256_card_vs_cpu", HD256_SMALL, 16, (20, 37, 64))
 
 
 def _bert_model(cfg, device, seed=0):
@@ -5367,6 +5516,200 @@ def phase_train_features_card_vs_cpu() -> None:
         attention_seeds="randint_bitwise", keys=3)
 
 
+# ---------------------------------------------------------------------------
+# Head dims up to 512: Kernels B, I, E, F and C at DMAX 512, a GPT with
+# 512-wide heads
+# ---------------------------------------------------------------------------
+
+#: HD512: the repo's GPT blocks at meta-llama/Llama-2-7b config.json's
+#: widths (hidden 4096, SwiGLU 11008, vocab 32000, RMSNorm eps 1e-5, RoPE
+#: theta 10000) with 8 query heads of 512 over 2 K/V heads in place of its
+#: 32 heads of 128 (no public model has heads past 256), 32 layers cut to 4;
+#: unlike Llama, biases on the QKV, output and down projections and a tied
+#: head. Launches a training step: 2 RMSNorms a layer + the final one, one
+#: packed attention a layer (Kernels E and F at DMAX 512)
+HD512 = dict(num_layers=4, hidden_size=4096, num_attention_heads=8,
+             num_query_groups=2, ffn_hidden_size=11008, activation="swiglu",
+             normalization="rmsnorm", layernorm_epsilon=1e-5,
+             position_embedding_type="rope", rope_theta=10000.0,
+             vocab_size=32000, max_position_embeddings=4096)
+HD512_BATCH, HD512_SEQ = 2, 1024
+HD512_KERNELS = {"layer_norm_fwd": 9, "layer_norm_bwd": 9,
+                 "flash_packed_fwd": 4, "flash_packed_bwd": 4}
+#: the tiny 512-wide-head GPT of tests/test_torch_hd512.py's widths (2
+#: query heads of 512 over one K/V head, SwiGLU, RMSNorm, RoPE)
+HD512_SMALL = dict(num_layers=2, hidden_size=1024, num_attention_heads=2,
+                   num_query_groups=1, ffn_hidden_size=256,
+                   activation="swiglu", normalization="rmsnorm",
+                   position_embedding_type="rope", vocab_size=128,
+                   max_position_embeddings=128, hidden_dropout=0.0,
+                   attention_dropout=0.0)
+
+#: Kernels E and F past 256: (name, b, s, groups, qpg, d, causal,
+#: kv_lengths, window, rot, rate) — HD512's training shape (timed; GQA
+#: 4:1, RoPE over 512), MQA 8:1 with a window and dropout, and widths off
+#: 64 (384 with half the columns rotated and a 0 length, 320 under GQA 4:1
+#: with dropout, 392 with a window) and off 8 (260: the element copies)
+HD512_PACKED = [
+    ("hd512_train", HD512_BATCH, HD512_SEQ, 2, 4, 512, True, None, None, 512,
+     0.0),
+    ("mqa_window_dropout", 1, 512, 1, 8, 512, True, None, 128, 512, 0.1),
+    ("d384_rope_half_kv_lengths_0", 3, 256, 2, 2, 384, False, [256, 100, 0],
+     None, 192, 0.0),
+    ("d320_gqa4_dropout", 2, 256, 1, 4, 320, True, None, None, 0, 0.2),
+    ("d392_window", 1, 300, 2, 1, 392, True, None, 64, 0, 0.0),
+    ("d260_rope_half_kv_lengths", 2, 200, 1, 2, 260, True, [200, 77], None,
+     130, 0.0),
+]
+#: Kernels B and I past 256: (name, b, h, kvh, sq, sk, d, causal,
+#: kv_lengths, window) — HD512's heads over [b, h, s, d] (timed; GQA 4:1),
+#: MQA 8:1 with a 0 length, and widths off 64 and 8 with a window, sq < sk
+#: and sq > sk
+HD512_FLASH = [
+    ("hd512_4d", HD512_BATCH, 8, 2, HD512_SEQ, HD512_SEQ, 512, True, None,
+     None),
+    ("mqa_kv_lengths_0", 3, 8, 1, 256, 256, 512, False, [256, 90, 0], None),
+    ("d384_window", 1, 4, 2, 300, 300, 384, True, None, 64),
+    ("d320_sq_lt_sk", 2, 4, 4, 100, 333, 320, True, [333, 200], None),
+    ("d392_gqa_sq_gt_sk", 1, 8, 2, 200, 150, 392, True, None, None),
+    ("d260_gqa_kv_lengths", 2, 4, 2, 150, 150, 260, True, [150, 61], None),
+]
+
+
+def phase_flash_hd512(timer: Timer) -> tuple:
+    """Kernels E, F, B and I past head_dim 256 (``[flash_hd512]`` lines):
+    returns (records, the launches of ``flash_attention``'s autograd at
+    HD512's 4D shape, the main path of ``flash_bwd_hd512``)."""
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    recs = _wide_packed(timer, gen, "flash_hd512", HD512_PACKED,
+                        "hd512_train")
+    flash_recs, launches = _wide_flash(timer, gen, "flash_hd512",
+                                       HD512_FLASH, "hd512_4d")
+    torch.cuda.empty_cache()
+    return recs + flash_recs, launches
+
+
+#: Kernel C at head_dim 512 (HD512's decode: 8 query heads over 2 K/V
+#: heads): (name, dtype, pool dtype, w, sliding window, page, path) — the
+#: vector path in bf16, fp16 and f32, over int8 pools, a w = 4 window (16
+#: query rows a kv head: four chunks of 4) with a sliding window, at pages
+#: of 64; the element path (f32 q over int8 pools) in 32-row tiles at
+#: pages of 64 and 128
+DECODE_HD512_CASES = [
+    ("gqa_dh512", torch.bfloat16, torch.bfloat16, 1, None, 64, "vector"),
+    ("gqa_dh512", torch.float16, torch.float16, 1, None, 64, "vector"),
+    ("gqa_dh512", torch.float32, torch.float32, 1, None, 64, "vector"),
+    ("gqa_dh512_int8", torch.bfloat16, torch.int8, 1, None, 64, "vector"),
+    ("gqa_dh512_int8", torch.float16, torch.int8, 1, None, 64, "vector"),
+    ("gqa_dh512_w4_window", torch.bfloat16, torch.bfloat16, 4, 300, 64,
+     "vector"),
+    ("gqa_dh512_element_f32_int8", torch.float32, torch.int8, 1, None, 64,
+     "element"),
+    ("gqa_dh512_element_f32_int8_page128", torch.float32, torch.int8, 1,
+     None, 128, "element"),
+]
+
+
+def phase_decode_hd512(timer: Timer) -> dict:
+    """Kernel C past head_dim 256 (``[kernel_c] case=gqa_dh512``):
+    :data:`DECODE_HD512_CASES` at b 8, 8 query heads over 2 K/V heads,
+    positions 63-700, each against its plain version (``_decode_check``:
+    1 ulp, f32 atol 1e-4, two runs bitwise equal) on the path named, with
+    the element path's tile (``element_tile``: 32 rows); the element path
+    at head_dim 260 (bf16 and fp16, pages of 64, whole pages); the element
+    path's cases timed cold; then HD512's bf16
+    decode timed cold beside its plain version and bound (the record
+    ``paged_decode_hd512``)."""
+    from apex_tpu_torch.ops.decode_attention import (
+        decode_plain, element_tile, paged_decode_cuda, paged_decode_smem)
+    g = torch.Generator(device="cuda").manual_seed(24)
+    b, hl, group, dh, ps, pps = 8, 8, 4, 512, 64, 12
+    positions = (63, 64, 200, 700) * 2
+    for name, dtype, pool, w, window, page, path in DECODE_HD512_CASES:
+        q, kp, vp, pt, pos, ks, vs = _decode_window_inputs(
+            b, hl, group, dh, page, ps * pps // page, positions, dtype, g,
+            w, pool == torch.int8)
+        if w == 1:
+            q = q[:, 0].contiguous()
+        _, plan, _ = _decode_check(name, q, kp, vp, pt, pos, group, window,
+                                   ks, vs)
+        smem = paged_decode_smem(plan, dh, page, pool == torch.int8)
+        tile = element_tile(w * group, dh, page) if path == "element" \
+            else None
+        if plan.path != path or (path == "vector" and plan.pieces !=
+                                 (4 if dtype == torch.float32 else 2)) or \
+                (path == "element" and tile != 32):
+            raise AssertionError(f"paged_decode {name} {dtype}: plan {plan}"
+                                 f", tile {tile}")
+        ms = None
+        if path == "element":
+            ms = timer(lambda: paged_decode_cuda(q, kp, vp, pt, pos, group,
+                                                 window, ks, vs),
+                       cold=True, iters=10)
+        log("kernel_c", case=name, dtype=str(dtype)[6:],
+            pool=str(pool)[6:], w=w, window=window, page=page,
+            pieces=plan.pieces, smem_bytes=smem, element_tile=tile,
+            plan=_decode_plan_text(plan),
+            ms=None if ms is None else f"{ms:.5f}")
+        del q, kp, vp, ks, vs
+    for dtype in (torch.bfloat16, torch.float16):
+        q, kp, vp, pt, pos = _decode_inputs(b, hl, group, 260, ps, pps,
+                                            positions, dtype, g)
+        _, plan, _ = _decode_check("element_dh260", q, kp, vp, pt, pos,
+                                   group, None)
+        if plan.path != "element" or element_tile(group, 260, ps) != ps:
+            raise AssertionError(f"paged_decode element_dh260: plan {plan}")
+        ms = timer(lambda: paged_decode_cuda(q, kp, vp, pt, pos, group,
+                                             None), cold=True, iters=10)
+        log("kernel_c", case="element_dh260", dtype=str(dtype)[6:],
+            smem_bytes=paged_decode_smem(plan, 260, ps),
+            element_tile=ps, plan=_decode_plan_text(plan), ms=f"{ms:.5f}")
+        del q, kp, vp
+    dtype = torch.bfloat16
+    q, kp, vp, pt, pos = _decode_inputs(b, hl, group, dh, ps, pps, positions,
+                                        dtype, g)
+    err, plan, _ = _decode_check("gqa_dh512_timed", q, kp, vp, pt, pos,
+                                 group, None)
+    rows = _decode_rows(positions, ps, pps, None)
+    bms, by = bound_ms(_decode_bytes(q, pt, positions, ps, hl // group,
+                                     None), 4.0 * dh * hl * rows, dtype)
+    ms = timer(lambda: paged_decode_cuda(q, kp, vp, pt, pos, group, None),
+               cold=True)
+    plain = timer(lambda: decode_plain(q, kp, vp, pt, pos, group, None),
+                  cold=True, iters=10)
+    log("kernel_c", case="gqa_dh512", shape=f"b{b} heads{hl} kvh2 dh{dh} "
+        f"page{ps}", positions=list(positions[:4]), dtype="bfloat16",
+        max_abs_err=f"{err:.3e}", ms=f"{ms:.5f}", plain_ms=f"{plain:.5f}",
+        library_ms=None, bound_ms=f"{bms:.5f}", bound_by=by, rows_read=rows,
+        plan=_decode_plan_text(plan))
+    torch.cuda.empty_cache()
+    return dict(name="paged_decode_hd512", route="cuda",
+                source="apex_tpu_torch/csrc/paged_decode.cu",
+                replaces="apex_tpu/ops/decode_attention.py:272",
+                shape=f"b{b} heads{hl} kvh2 dh{dh} page{ps} bfloat16 cold L2",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=None)
+
+
+def phase_hd512(profile: bool = False) -> dict:
+    """A GPT at :data:`HD512` trains at b 2, s 1024 (``[hd512_train]``:
+    Kernels A, D, E and F launched 9, 9, 4 and 4 times a step, B and I 0;
+    the loss falls) and serves 8 requests (``[hd512_serve]``: A, B at
+    head_dim 512 with GQA 4:1 for the prefills, C on its vector path for
+    the decode steps), as :func:`_train_then_serve` says. Returns the
+    launches of both paths."""
+    return _train_then_serve("hd512", HD512, HD512_BATCH, HD512_SEQ,
+                             HD512_KERNELS,
+                             "llama-2-7b-widths-hd512-4-layers", profile)
+
+
+def phase_hd512_card_vs_cpu() -> None:
+    """The tiny 512-wide-head GPT (:data:`HD512_SMALL`, f32) on the card
+    (Kernels E and F at DMAX 512 in f32; B and C at head_dim 512 serving
+    with pages of 64) and the CPU (:func:`_small_card_vs_cpu`)."""
+    _small_card_vs_cpu("hd512_card_vs_cpu", HD512_SMALL, 64, (20, 37, 70))
+
+
 #: the phase whose run is each kernel's main path
 MAIN_PATH = {"layer_norm_fwd": "serve", "flash_fwd": "serve",
              "paged_decode": "serve", "layer_norm_bwd": "train",
@@ -5399,7 +5742,12 @@ MAIN_PATH = {"layer_norm_fwd": "serve", "flash_fwd": "serve",
              "flash_fwd_hd256": "gemma2b_serve",
              "flash_bwd_hd256": "flash_hd256",
              "paged_decode_hd256": "gemma2b_serve",
-             "layer_norm_fwd_wide": "llama405b_serve"}
+             "layer_norm_fwd_wide": "llama405b_serve",
+             "flash_packed_fwd_hd512": "hd512_train",
+             "flash_packed_bwd_hd512": "hd512_train",
+             "flash_fwd_hd512": "hd512_serve",
+             "flash_bwd_hd512": "flash_hd512",
+             "paged_decode_hd512": "hd512_serve"}
 #: the launch counter of a record that names a variant of a kernel
 COUNTER = {"paged_decode_int8": "paged_decode",
            "paged_decode_window": "paged_decode",
@@ -5421,7 +5769,12 @@ COUNTER = {"paged_decode_int8": "paged_decode",
            "flash_fwd_hd256": "flash_fwd",
            "flash_bwd_hd256": "flash_bwd",
            "paged_decode_hd256": "paged_decode",
-           "layer_norm_fwd_wide": "layer_norm_fwd"}
+           "layer_norm_fwd_wide": "layer_norm_fwd",
+           "flash_packed_fwd_hd512": "flash_packed_fwd",
+           "flash_packed_bwd_hd512": "flash_packed_bwd",
+           "flash_fwd_hd512": "flash_fwd",
+           "flash_bwd_hd512": "flash_bwd",
+           "paged_decode_hd512": "paged_decode"}
 
 
 def main() -> int:
@@ -5449,6 +5802,9 @@ def main() -> int:
                *phase_multi_tensor(timer)]
     hd256_records, hd256_launches = phase_flash_hd256(timer)
     records += hd256_records
+    hd512_records, hd512_launches = phase_flash_hd512(timer)
+    records += hd512_records
+    records.append(phase_decode_hd512(timer))
     paths = {"serve": phase_serve(args.profile)}
     for name, knobs, kind in SERVE_FEATURES:
         paths[name] = phase_serve_feature(name, knobs, kind, args.profile)
@@ -5478,6 +5834,9 @@ def main() -> int:
     phase_wide_card_vs_cpu()
     paths.update(phase_train_features(args.profile))
     phase_train_features_card_vs_cpu()
+    paths["flash_hd512"] = hd512_launches
+    paths.update(phase_hd512(args.profile))
+    phase_hd512_card_vs_cpu()
     for rec in records:
         name = rec["name"]
         counter = COUNTER.get(name, name)

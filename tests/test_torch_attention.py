@@ -589,8 +589,8 @@ def test_packed_bwd_plain_matches_autograd_of_plain_fwd(name):
 
 def test_packed_gate_and_errors():
     """The port's gate takes every shape its kernels take (head_dim up to
-    256, any length and group count), where the JAX Pallas gate also needs
-    128-lane cells; the geometry helper is the JAX package's. Past 256
+    512, any length and group count), where the JAX Pallas gate also needs
+    128-lane cells; the geometry helper is the JAX package's. Past 512
     the gate says no and each kernel wrapper raises before any launch."""
     assert packed_geometry(16, 1, 64) == jatt.packed_geometry(16, 1, 64)
     assert packed_geometry(3, 1, 64) is None
@@ -599,8 +599,12 @@ def test_packed_gate_and_errors():
     assert packed_attention_supported(64, 2, 1, 256)
     assert packed_attention_supported(64, 1, 8, 256) == \
         jatt.packed_attention_supported(64, 1, 8, 256)
-    assert not packed_attention_supported(64, 2, 1, 264)
-    d = 264
+    assert packed_attention_supported(64, 2, 1, 264)
+    assert packed_attention_supported(64, 2, 4, 512)
+    assert packed_attention_supported(64, 1, 8, 512) == \
+        jatt.packed_attention_supported(64, 1, 8, 512)
+    assert not packed_attention_supported(64, 2, 1, 520)
+    d = 520
     qkv = torch.zeros(8, 1, 3 * d)
     q, o, lse = torch.zeros(1, 1, 8, d), torch.zeros(8, 1, d), \
         torch.zeros(1, 1, 8)
@@ -612,7 +616,7 @@ def test_packed_gate_and_errors():
                                           True, None, 1, d),
             lambda: flash_packed_bwd_cuda(qkv, o, o, lse, None, None, None,
                                           0.0, 0.1, True, None, 1, d)):
-        with pytest.raises(ValueError, match="head_dim 264 > 256"):
+        with pytest.raises(ValueError, match="head_dim 520 > 512"):
             call()
     qkv = torch.zeros(8, 1, 2 * 3 * 16)
     with pytest.raises(ValueError, match="multiple"):

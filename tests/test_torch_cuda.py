@@ -62,6 +62,7 @@ import torch
 from apex_tpu_torch.ops import _support
 from apex_tpu_torch.ops import multi_tensor as mt
 from apex_tpu_torch.ops.attention import (
+    backward_floor,
     drop_combo,
     flash_attention,
     flash_attention_packed,
@@ -118,13 +119,13 @@ from apex_tpu_torch.ops.softmax import (
 pytestmark = pytest.mark.cuda
 
 
-def one_ulp(want, dtype):
+def one_ulp(want, dtype, floor=2.0 ** -8):
     """One rounding step of ``dtype`` at ``want`` (fp32): eps of the
     magnitude (2^-7 in bf16, 2^-10 in fp16), with an absolute floor at the
-    magnitude 2^-8 where an output that cancels to near zero carries fp32
-    summation noise larger than its own ulp."""
+    magnitude ``floor`` (2^-8) where an output that cancels to near zero
+    carries fp32 summation noise larger than its own ulp."""
     eps = torch.finfo(dtype).eps
-    return 2.0 ** -8 * eps + eps * want.float().abs()
+    return floor * eps + eps * want.float().abs()
 
 
 def assert_close_once_rounded(got, want, floor=None):
@@ -193,6 +194,14 @@ FLASH = {
     "head_dim_256_mqa": (2, 8, 1, 130, 130, 256, True, [100, 130], None),
     "head_dim_200_window": (1, 4, 2, 150, 150, 200, True, None, 40),
     "head_dim_196_gqa": (2, 4, 2, 70, 90, 196, False, [90, 33], None),
+    # past 256 (DMAX 512: four warps a strip, 32-key tiles): GQA 4:1 with
+    # a length, a window, sq < sk with a 0 length, a row off 64 (392) and
+    # the element-by-element copies (260)
+    "head_dim_512_gqa4": (2, 8, 2, 130, 130, 512, True, [100, 130], None),
+    "head_dim_384_window": (1, 4, 2, 100, 100, 384, True, None, 40),
+    "head_dim_320_sq_lt_sk": (2, 4, 4, 40, 97, 320, True, [97, 0], None),
+    "head_dim_392_mqa": (1, 8, 1, 70, 70, 392, False, None, None),
+    "head_dim_260_gqa": (2, 4, 2, 50, 66, 260, True, [66, 21], None),
 }
 
 
@@ -224,6 +233,11 @@ PAGED = {
     "one_slot_at_table_end": (1, 12, 1, 64, None),
     "head_dim_128_gqa4": (6, 16, 4, 128, None),
     "head_dim_60_element_path": (6, 12, 4, 60, None),
+    # head_dim 512: two 16-byte pieces a lane (bf16, fp16), four (f32),
+    # at most 4 query rows a block; 260: the element path in bf16 and fp16
+    "head_dim_512_gqa4": (6, 8, 4, 512, None),
+    "head_dim_512_window": (6, 8, 2, 512, 20),
+    "head_dim_260_gqa4": (6, 8, 4, 260, None),
 }
 #: a slot at 0, at a page's last and next row, inside the table, at its
 #: last row (127 = 8 pages of 16), and one with a sentinel inside its range
@@ -325,7 +339,8 @@ def _paged_window_case(gen, name, dtype, w, int8):
 @pytest.mark.parametrize("int8", [False, True], ids=["pool", "int8"])
 @pytest.mark.parametrize("w", [2, 4])
 @pytest.mark.parametrize("name", ["mha", "gqa4", "gqa3_window",
-                                  "head_dim_60_element_path"])
+                                  "head_dim_60_element_path",
+                                  "head_dim_512_gqa4"])
 def test_paged_decode_kernel_windows_and_int8(gen, name, w, int8, dtype):
     """Windows fold in as more query rows (row t masked to pos + t); int8
     pools are dequantized as int8 * scale in fp32. Held to the plain
@@ -649,6 +664,16 @@ PACKED = {
                                      0.1),
     "d160_gqa_kv_lengths_0": (3, 130, 2, 2, 160, False, [130, 60, 0], None,
                               160, 0.0),
+    # past 256 (DMAX 512): MQA 8:1 with RoPE over all 512 columns, a window
+    # and dropout; GQA with half the columns rotated and a 0 length; rows
+    # off 64 (392, 320) and the element-by-element copies (260)
+    "d512_mqa_rope_window_dropout": (2, 100, 1, 8, 512, True, None, 40, 512,
+                                     0.1),
+    "d384_gqa_rope_half_kv_lengths_0": (3, 70, 2, 2, 384, False,
+                                        [70, 33, 0], None, 192, 0.0),
+    "d392_causal": (1, 80, 2, 1, 392, True, None, None, 0, 0.0),
+    "d320_gqa4_dropout": (2, 66, 1, 4, 320, True, None, None, 0, 0.2),
+    "d260_rope": (1, 66, 1, 2, 260, True, None, None, 130, 0.0),
 }
 
 
@@ -691,7 +716,8 @@ def test_flash_packed_kernels(gen, name, dtype):
     else:
         assert_close_up_to_factor_rounding(
             dqkv, rdqkv,
-            flash_packed_bwd_rounding_slack(qkv, do, ro, rlse, *args))
+            flash_packed_bwd_rounding_slack(qkv, do, ro, rlse, *args),
+            backward_floor(d))
     assert _support.LAUNCHES["flash_packed_fwd"] == \
         before["flash_packed_fwd"] + 1
     assert _support.LAUNCHES["flash_packed_bwd"] == \
@@ -857,7 +883,7 @@ FLASH_BWD = dict(FLASH, cross_t5=(2, 4, 4, 114, 512, 64, False, [512, 300],
                                     None))
 
 
-def assert_close_up_to_factor_rounding(got, want, slack):
+def assert_close_up_to_factor_rounding(got, want, slack, floor=2.0 ** -8):
     """bf16 or fp16: every element within 1 ulp plus ``slack``
     (:func:`flash_bwd_rounding_slack`: the JAX backward rounds ds and p to
     the input dtype before its products, and a ds on a rounding boundary
@@ -866,10 +892,11 @@ def assert_close_up_to_factor_rounding(got, want, slack):
     tile would move many elements): 0.1% in bf16, and in fp16 eight times
     that, 0.8%, since against the same fp32 differences (the kernel's exp2
     approximation, tensor-core sums) fp16's 2^3 times finer spacing puts
-    2^3 times as many ds on a boundary."""
+    2^3 times as many ds on a boundary. ``floor``: :func:`one_ulp`'s
+    (:func:`backward_floor` past head_dim 256)."""
     g, w = got.float(), want.float()
     err = (g - w).abs()
-    ulp = one_ulp(w, got.dtype)
+    ulp = one_ulp(w, got.dtype, floor)
     assert bool((err <= ulp + slack).all()), float((err - ulp
                                                     - slack).max())
     share = 1e-3 * 2.0 ** -7 / torch.finfo(got.dtype).eps
@@ -903,7 +930,7 @@ def test_flash_bwd_kernel(gen, name, dtype):
         slack = flash_bwd_rounding_slack(q, k, v, do, o, lse, kvl, scale,
                                          causal, window)
         for g, w, sl in zip(got, want, slack):
-            assert_close_up_to_factor_rounding(g, w, sl)
+            assert_close_up_to_factor_rounding(g, w, sl, backward_floor(d))
     again = flash_bwd_cuda(q, k, v, do, o, lse, kvl, scale, causal, window)
     assert all(torch.equal(a, g) for a, g in zip(again, got))
     if kvl is not None and int(kvl.min()) == 0:
@@ -1315,3 +1342,95 @@ def test_optimizers_take_the_kernels_on_the_card(gen):
                 assert torch.equal(p, q)
             else:
                 torch.testing.assert_close(p, q, rtol=1e-5, atol=1e-7)
+
+
+def _element_case(gen, dh, dtype, int8, misaligned, ps):
+    """Kernel C's element path (head_dim off the 16-byte pieces, int8
+    pools under f32 q, a q one element past a 16-byte boundary) at pages
+    of ``ps``, 8 query heads over 2 K/V heads, held to the plain version
+    and run twice (bitwise equal). Returns ``element_tile``'s rows."""
+    from apex_tpu_torch.ops.decode_attention import element_tile
+    b, hl, group, n_pages = 4, 8, 4, 24
+    pps = 256 // ps
+    f = hl // group * dh
+    positions = torch.tensor([0, 63, 130, 255], dtype=torch.int32)
+    table = torch.randperm(n_pages, generator=torch.Generator().manual_seed(
+        2))[:b * pps].reshape(b, pps).to(torch.int32)
+    pt, pos = table.cuda(), positions.cuda()
+    q = torch.randn(b * hl * dh + 1, device="cuda", generator=gen).to(dtype)
+    q = q[1:].view(b, hl, dh) if misaligned else q[:-1].view(b, hl, dh)
+    ks = vs = None
+    if int8:
+        kp, vp = (page_pool(n_pages, ps, f, torch.int8, "cuda")
+                  for _ in range(2))
+        ks, vs = (scale_pool(n_pages, hl // group, "cuda") for _ in range(2))
+        rows = torch.randn(2, b, 1, f, device="cuda", generator=gen)
+        for pool, sc in ((kp, ks), (vp, vs)):
+            pool.copy_(torch.randint(-127, 128, pool.shape, device="cuda",
+                                     generator=gen))
+            sc.copy_(torch.rand(sc.shape, device="cuda", generator=gen)
+                     * (4 / 127))
+        _quant_append(kp, ks, rows[0], pt, pos, ps)
+        _quant_append(vp, vs, rows[1], pt, pos, ps)
+    else:
+        kp, vp = (page_pool(n_pages, ps, f, dtype, "cuda") for _ in range(2))
+        kp.copy_(torch.randn(kp.shape, device="cuda", generator=gen))
+        vp.copy_(torch.randn(vp.shape, device="cuda", generator=gen))
+    plan = paged_decode_cuda_plan(q, kp, vp, pt, group)
+    assert plan.path == "element"
+    ctx = paged_decode_cuda(q, kp, vp, pt, pos, group, None, ks, vs)
+    ref = decode_plain(q.float(), kp if int8 else kp.float(),
+                       vp if int8 else vp.float(), pt, pos, group, None,
+                       ks, vs).to(dtype)
+    assert_close_once_rounded(ctx, ref)
+    assert torch.equal(ctx, paged_decode_cuda(q, kp, vp, pt, pos, group,
+                                              None, ks, vs))
+    return element_tile(group, dh, ps)
+
+
+@pytest.mark.parametrize("dh,dtype,int8,misaligned", [
+    (260, torch.bfloat16, False, False), (260, torch.float16, False, False),
+    (512, torch.float32, True, False), (512, torch.bfloat16, False, True),
+    (512, torch.float16, False, True)],
+    ids=["260_bf16", "260_fp16", "512_f32_int8", "512_bf16_misaligned",
+         "512_fp16_misaligned"])
+def test_paged_decode_element_path_at_pages_of_64(gen, dh, dtype, int8,
+                                                  misaligned):
+    """At the engine's pages of 64 a page of K and V at head_dim 512 takes
+    279,856 bytes of fp32, past the 232,448 a block has, so the element
+    path walks each page in 32-row tiles (``element_tile``); at 260 whole
+    pages fit."""
+    tile = _element_case(gen, dh, dtype, int8, misaligned, 64)
+    assert tile == (64 if dh == 260 else 32)
+
+
+@pytest.mark.parametrize("dh,dtype,int8,misaligned", [
+    (512, torch.float32, True, False), (260, torch.bfloat16, False, True)],
+    ids=["512_f32_int8", "260_bf16_misaligned"])
+def test_paged_decode_element_path_in_sub_page_tiles(gen, dh, dtype, int8,
+                                                     misaligned):
+    """At pages of 128 the element path walks each page in tiles: 32 rows
+    at head_dim 512, 64 at 260."""
+    tile = _element_case(gen, dh, dtype, int8, misaligned, 128)
+    assert tile == (32 if dh == 512 else 64)
+
+
+def test_head_dim_past_512_raises_before_any_launch(gen):
+    """Past head_dim 512 the wrappers of Kernels B, I, E and F raise on
+    CUDA tensors, naming 512: no launch and no fallback."""
+    d = 520
+    q = torch.zeros(1, 1, 8, d, device="cuda", dtype=torch.bfloat16)
+    qkv = torch.zeros(8, 1, 3 * d, device="cuda", dtype=torch.bfloat16)
+    o = torch.zeros(8, 1, d, device="cuda", dtype=torch.bfloat16)
+    lse = torch.zeros(1, 1, 8, device="cuda")
+    before = dict(_support.LAUNCHES)
+    for call in (
+            lambda: flash_fwd_cuda(q, q, q, None, 0.1, True),
+            lambda: flash_bwd_cuda(q, q, q, q, q, lse, None, 0.1, True),
+            lambda: flash_packed_fwd_cuda(qkv, None, None, None, 0.0, 0.1,
+                                          True, None, 1, d),
+            lambda: flash_packed_bwd_cuda(qkv, o, o, lse, None, None, None,
+                                          0.0, 0.1, True, None, 1, d)):
+        with pytest.raises(ValueError, match="head_dim 520 > 512"):
+            call()
+    assert dict(_support.LAUNCHES) == before

@@ -498,13 +498,21 @@ _PLANS = [
     # more triples than a wave: one split of at most 64 pages
     ((64, 32, 32, 64, 16, 4096, BF16, True, None),
      ("vector", 1, 8, 1, 64, 64, (32, 64, 64))),
+    # past 256: two pieces a lane (bf16) or four (f32), at most 4 query
+    # rows a block (16 columns a lane); head_dim 264 covers 33 of bf16's 64
+    ((2, 8, 2, 264, 16, 4, BF16, True, None),
+     ("vector", 2, 32, 4, 1, 4, (2, 2, 4))),
+    ((8, 8, 2, 512, 64, 12, BF16, True, None),
+     ("vector", 2, 32, 4, 1, 12, (2, 8, 12))),
+    ((8, 8, 2, 512, 64, 12, F32, True, None),
+     ("vector", 4, 32, 4, 1, 12, (2, 8, 12))),
     # the element path: head_dim 60 in bf16 (off the 8-element pieces), a
-    # misaligned base, head_dim past 256
+    # misaligned base, head_dim past 512
     ((8, 12, 12, 60, 64, 12, BF16, True, None),
      ("element", 0, 0, 1, 12, 1, (12, 8, 1))),
     ((8, 12, 12, 64, 64, 12, BF16, False, None),
      ("element", 0, 0, 1, 12, 1, (12, 8, 1))),
-    ((2, 8, 2, 264, 16, 4, BF16, True, None),
+    ((2, 8, 2, 520, 16, 4, BF16, True, None),
      ("element", 0, 0, 4, 4, 1, (2, 2, 1))),
 ]
 
