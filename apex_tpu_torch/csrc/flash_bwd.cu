@@ -16,10 +16,15 @@
 // stored (:1494); dp = do v^T; ds = p * (dp - delta); dq = scale * ds k with
 // ds rounded to k's type, dk = scale * ds^T q with ds rounded to q's type,
 // dv = p^T do with p rounded to do's type; fp32 accumulation and one
-// rounding at the store. Masks exactly as `_mask_block` (:77): keys below
-// the batch row's kv_length, causal with the query offset sk - sq, and the
-// sliding window. Query head h reads key/value head h / (H / KVH); dk and dv
-// sum the group's query heads in fp32 before the one rounding.
+// rounding at the store. Masks exactly as `_mask_block` (:77), at global
+// positions as Kernel B's (flash_fwd.cu): keys below the batch row's
+// kv_length, causal with the query offset q_start - k_start (sk - sq by
+// default), and the sliding window. A chunk of a context-parallel ring
+// (`flash_chunk_bwd` :1616) passes its offsets and the global lse and
+// delta (delta_given: rowsum(do * o) of the ring's merged o, which the
+// chunk's own o would not give), and the delta prep is skipped. Query
+// head h reads key/value head h / (H / KVH); dk and dv sum the group's
+// query heads in fp32 before the one rounding.
 //
 // What does not carry over: the TPU kernels carry dq or dk/dv in scratch
 // across sequential grid steps, or read-modify-write dq through an aliased
@@ -41,7 +46,8 @@
 // (flash_packed_bwd.cu) over the 4D layout, on the pieces of
 // flash_mma.cuh:
 // - delta prep: delta = rowsum(do * o) in fp32 into the [b, H, sq]
-//   scratch (flash::delta_kernel, 16-byte loads);
+//   scratch (flash::delta_kernel, 16-byte loads); none where the caller
+//   gives delta;
 // - dk/dv pass, one block of 4 warps per (kv head, batch, 64-key tile).
 //   Each warp owns 16 keys: K and V come in once by cp.async and stay in
 //   shared memory. The group's H / KVH query heads (their own [sq, d]
@@ -49,8 +55,8 @@
 //   cp.async ring with their lse and delta rows. S^T = K Q^T and dP^T =
 //   V dO^T on mma.sync m16n8k16 (T in, fp32 out), p = exp(scale s -
 //   lse) on the SFU, masks only on tiles that cross the diagonal, a
-//   length, the window's edge, sq or sk (flash::tile_cover with the sk -
-//   sq offset), tiles a warp sees nothing of skipped. p and ds are
+//   length, the window's edge, sq or sk (flash::tile_cover with the
+//   q_off offset), tiles a warp sees nothing of skipped. p and ds are
 //   rounded to T straight into A fragments (flash::fragment16), and
 //   dV += P^T dO, dK += dS^T Q take dO and Q as B fragments by
 //   ldmatrix.trans from the same stage. dk and dv are summed in fp32
@@ -97,6 +103,7 @@ struct Args {
   int b, h, kvh, d;
   float scale;
   Mask mask;
+  int delta_given;  // pass 1 reads delta instead of forming it from o
 };
 
 // BR: the rows of the block's own tile (queries in pass 1, keys in pass
@@ -163,20 +170,24 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     Qs[r * S::kRS + c] = qv;
     dOs[r * S::kRS + c] = dov;
   }
-  // delta = rowsum(do * o): one warp per row
+  // delta = rowsum(do * o): one warp per row, or the caller's delta
   for (int r = warp; r < BR; r += kThreads / 32) {
     const int row = q_start + r;
     float part = 0.f;
-    if (row < sq) {
-      const long long base = q_base + static_cast<long long>(row) * d;
-      for (int c = lane; c < d; c += 32)
-        part += apex::to_float(dout[base + c]) * apex::to_float(out[base + c]);
+    if (a.delta_given) {
+      if (row < sq) part = delta[row_base + row];
+    } else {
+      if (row < sq) {
+        const long long base = q_base + static_cast<long long>(row) * d;
+        for (int c = lane; c < d; c += 32)
+          part += apex::to_float(dout[base + c]) * apex::to_float(out[base + c]);
+      }
+      part = apex::warp_sum(part);
     }
-    part = apex::warp_sum(part);
     if (lane == 0) {
       delta_s[r] = part;
       lse_s[r] = row < sq ? lse[row_base + row] : 0.f;
-      if (row < sq) delta[row_base + row] = part;
+      if (row < sq && !a.delta_given) delta[row_base + row] = part;
     }
   }
 
@@ -186,7 +197,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
 
-  const int kvl = a.kv_lengths != nullptr ? a.kv_lengths[bb] : sk;
+  const int kvl = local_kvl(a.mask, a.kv_lengths, bb);
   int j_first, j_last;
   key_tiles(a.mask, kvl, q_start, &j_first, &j_last, BR, BO);
   __syncthreads();
@@ -345,7 +356,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < kCols; ++c) dka[i][c] = dva[i][c] = 0.f;
 
-  const int kvl = a.kv_lengths != nullptr ? a.kv_lengths[bb] : sk;
+  const int kvl = local_kvl(a.mask, a.kv_lengths, bb);
   int i_first, i_last;
   query_tiles(a.mask, kvl, k_start, &i_first, &i_last, BR, BO);
 
@@ -564,7 +575,7 @@ flash_bwd_dkv_mma(const Args16<T> a) {
   const int group = a.H / a.KVH;
   const long long kv_base =
       (static_cast<long long>(bb) * a.KVH + kvh) * mk.sk * d;
-  const int kvl = a.kv_lengths != nullptr ? a.kv_lengths[bb] : mk.sk;
+  const int kvl = local_kvl(mk, a.kv_lengths, bb);
   int first, last;
   query_tiles(mk, kvl, k_start, &first, &last, C::kKeys, BQ);
   const int nt = last - first + 1;
@@ -774,7 +785,7 @@ flash_bwd_dq_mma(const Args16<T> a) {
   const long long rb = (static_cast<long long>(bb) * a.H + hh) * mk.sq;
   const long long kv_base =
       (static_cast<long long>(bb) * a.KVH + hh / (a.H / a.KVH)) * mk.sk * d;
-  const int kvl = a.kv_lengths != nullptr ? a.kv_lengths[bb] : mk.sk;
+  const int kvl = local_kvl(mk, a.kv_lengths, bb);
   int first, last;
   key_tiles(mk, kvl, q_start, &first, &last, C::kRows, BK);
   const int tiles = last - first + 1;
@@ -924,7 +935,7 @@ flash_bwd_dq_mma(const Args16<T> a) {
 // aligned base) on a 16-byte boundary.
 template <typename T, int DMAX>
 cudaError_t launch_16(const Args16<T>& a, int b, const T* out, float* delta,
-                      cudaStream_t stream) {
+                      bool delta_given, cudaStream_t stream) {
   constexpr int kDkvWarps = DMAX <= 128 ? 4 : 8;
   constexpr int kDkvStages = DMAX <= 256 ? 3 : 2;
   constexpr int kDqWarps = DMAX <= 128 ? 4 : 8;
@@ -938,10 +949,13 @@ cudaError_t launch_16(const Args16<T>& a, int b, const T* out, float* delta,
   };
   const bool vec = a.d % 8 == 0 && aligned(a.q) && aligned(a.k) &&
                    aligned(a.v) && aligned(a.dout);
-  cudaError_t err = flash::launch_delta<KernelI>(
-      a.dout, out, delta, static_cast<long long>(b) * a.H * a.mask.sq, 1,
-      a.mask.sq, a.d, vec && aligned(out), stream);
-  if (err != cudaSuccess) return err;
+  cudaError_t err = cudaSuccess;
+  if (!delta_given) {
+    err = flash::launch_delta<KernelI>(
+        a.dout, out, delta, static_cast<long long>(b) * a.H * a.mask.sq, 1,
+        a.mask.sq, a.d, vec && aligned(out), stream);
+    if (err != cudaSuccess) return err;
+  }
   auto dkv =
       vec ? flash_bwd_dkv_mma<T, DMAX, kDkvWarps, kBQ, kDkvStages, true>
           : flash_bwd_dkv_mma<T, DMAX, kDkvWarps, kBQ, kDkvStages, false>;
@@ -963,17 +977,22 @@ cudaError_t launch_16(const Args16<T>& a, int b, const T* out, float* delta,
 }  // namespace
 
 // q, o, do and dq [b, h, sq, d]; k, v, dk and dv [b, kvh, sk, d]; lse and
-// the delta scratch [b, h, sq] fp32; all contiguous, one element type.
-// kv_lengths [b] int32 or null; window 0 = none. lse is the forward's
-// (Kernel B), 1e30 on a row that sees no key.
+// delta [b, h, sq] fp32; all contiguous, one element type. kv_lengths [b]
+// int32 (global lengths) or null; window 0 = none; q_start and k_start the
+// global positions of the first query and key (sk - sq and 0 for plain
+// attention). lse is the forward's (Kernel B), 1e30 on a row that sees no
+// key. delta_given 0: delta is scratch that the kernel fills with
+// rowsum(do * o); else it holds the caller's delta (a ring's, from the
+// merged o) and o is not read (may be null).
 extern "C" int apex_flash_bwd(const void* q, const void* k, const void* v,
                               const void* out, const void* dout,
                               const void* lse, void* delta, void* dq,
                               void* dk, void* dv, const void* kv_lengths,
                               void* stream, int b, int h, int kvh, int sq,
                               int sk, int d, float scale, int causal,
-                              int window, int dtype) {
-  const Mask mask = mask_4d(sq, sk, causal, window);
+                              int window, int q_start, int k_start,
+                              int delta_given, int dtype) {
+  const Mask mask = mask_4d(sq, sk, causal, window, q_start, k_start);
   const int* kvl = static_cast<const int*>(kv_lengths);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
@@ -987,10 +1006,11 @@ extern "C" int apex_flash_bwd(const void* q, const void* k, const void* v,
                       l, dl, static_cast<T*>(dq), static_cast<T*>(dk),
                       static_cast<T*>(dv), kvl, h, kvh, d, scale, mask};
     const auto* o = static_cast<const T*>(out);
-    return d <= 64    ? launch_16<T, 64>(a, b, o, dl, st)
-           : d <= 128 ? launch_16<T, 128>(a, b, o, dl, st)
-           : d <= 256 ? launch_16<T, 256>(a, b, o, dl, st)
-                      : launch_16<T, 512>(a, b, o, dl, st);
+    const bool given = delta_given != 0;
+    return d <= 64    ? launch_16<T, 64>(a, b, o, dl, given, st)
+           : d <= 128 ? launch_16<T, 128>(a, b, o, dl, given, st)
+           : d <= 256 ? launch_16<T, 256>(a, b, o, dl, given, st)
+                      : launch_16<T, 512>(a, b, o, dl, given, st);
   };
   cudaError_t err;
   if (dtype == apex::kBF16) {
@@ -998,7 +1018,7 @@ extern "C" int apex_flash_bwd(const void* q, const void* k, const void* v,
   } else if (dtype == apex::kF16) {
     err = run16(static_cast<__half*>(nullptr));
   } else if (dtype == apex::kF32) {
-    const Args a{kvl, b, h, kvh, d, scale, mask};
+    const Args a{kvl, b, h, kvh, d, scale, mask, delta_given};
     auto f = [](const void* p) { return static_cast<const float*>(p); };
     auto w = [](void* p) { return static_cast<float*>(p); };
     auto f32 = [&](auto dmax) {

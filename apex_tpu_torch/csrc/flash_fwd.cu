@@ -8,11 +8,15 @@
 // function, so one kernel with a loop over key tiles covers both.
 //
 // Semantics kept: online softmax in fp32; masks exactly as `_mask_block`
-// (:77; packed::Mask) — causal with the query offset q_off = sk - sq
-// (with sq > sk the first sq - sk rows see no key), per-batch kv_lengths
-// (0 included), sliding window (keep keys with col > row + q_off -
-// window), and the key-padding bound; key tiles with no unmasked column
-// are skipped, as `_causal_block_skip` does (:101); query head h reads
+// (:77; packed::Mask) at global positions — query row r at q_start + r,
+// key c at k_start + c (`_offsets` :326: q_start = sk - sq, k_start = 0
+// unless a chunk of a context-parallel ring gives them), so causal with
+// the query offset q_off = q_start - k_start (with sq > sk the first sq -
+// sk rows see no key; a chunk wholly in the causal future sees none),
+// per-batch global kv_lengths (0 included; less k_start in the chunk's
+// columns), sliding window (keep keys with col > row + q_off - window),
+// and the key-padding bound; key tiles with no unmasked column are
+// skipped, as `_causal_block_skip` does (:101); query head h reads
 // key/value head h / (H / KVH) (GQA); rows with no visible key give o = 0
 // and lse = 1e30 (`_LSE_PAD`). Masked scores hold the finite -1e30
 // (`_NEG_INF`), and their probabilities are 0, so the running max never
@@ -42,7 +46,7 @@
 //   cp.async ring (3 stages at d <= 64, 2 at 128), one barrier a tile;
 // - S = Q K^T on mma.sync m16n8k16 (T in, fp32 out), scaled in fp32;
 //   masks only on tiles that cross the causal diagonal, kv_length, the
-//   window's edge, sq or sk (flash::tile_cover with the sk - sq offset),
+//   window's edge, sq or sk (flash::tile_cover with the q_off offset),
 //   and tiles a warp sees nothing of are skipped, so a warp whose rows
 //   all precede the first key (sq > sk) stores o = 0 and lse = 1e30;
 // - the online softmax in registers (row max and sum over a quad's lanes,
@@ -170,7 +174,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
 
-  const int kvl = kv_lengths != nullptr ? kv_lengths[bb] : sk;
+  const int kvl = local_kvl(mk, kv_lengths, bb);
   int j_first, j_last;
   key_tiles(mk, kvl, q_start, &j_first, &j_last, BQ, BK);
   __syncthreads();
@@ -358,7 +362,7 @@ flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
   const long long q_base = (static_cast<long long>(bb) * H + hh) * mk.sq * d;
   const long long kv_base =
       (static_cast<long long>(bb) * KVH + hh / (H / KVH)) * mk.sk * d;
-  const int kvl = kv_lengths != nullptr ? kv_lengths[bb] : mk.sk;
+  const int kvl = local_kvl(mk, kv_lengths, bb);
   int first, last;
   key_tiles(mk, kvl, q_start, &first, &last, C::kRows, kBK);
   const int tiles = last - first + 1;
@@ -517,16 +521,19 @@ cudaError_t launch_16(const FlashArgs& a, cudaStream_t stream) {
 }  // namespace
 
 // q [b, h, sq, d], k/v [b, kvh, sk, d] (f32, bf16 or fp16, one dtype), o
-// like q, lse [b, h, sq] fp32; all contiguous. kv_lengths [b] int32 or
-// null; window 0 = none.
+// like q, lse [b, h, sq] fp32; all contiguous. kv_lengths [b] int32
+// (global lengths) or null; window 0 = none; q_start and k_start the
+// global positions of the first query and key (sk - sq and 0 for plain
+// attention).
 extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, const void* kv_lengths,
                               void* stream, int b, int h, int kvh, int sq,
                               int sk, int d, float scale, int causal,
-                              int window, int dtype) {
+                              int window, int q_start, int k_start,
+                              int dtype) {
   const FlashArgs a{q, k, v, o, static_cast<float*>(lse),
                     static_cast<const int*>(kv_lengths), b, h, kvh, d,
-                    scale, mask_4d(sq, sk, causal, window)};
+                    scale, mask_4d(sq, sk, causal, window, q_start, k_start)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d > 512) return static_cast<int>(cudaErrorInvalidValue);
   // the instance of the head dim: DMAX 64, 128, 256 or 512

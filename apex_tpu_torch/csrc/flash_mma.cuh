@@ -4,7 +4,7 @@
 // hash, visibility): the copy of a 16-bit tile into padded shared-memory
 // rows, RoPE applied to a landed tile in place, the test of which key
 // tiles a warp's rows see whole, in part or not at all (under the
-// packed::Mask of `_mask_block`, with the sk - sq offset), the online
+// packed::Mask of `_mask_block`, with its q_off offset), the online
 // softmax step over the scores a warp holds in mma accumulators, p split
 // into 16-bit hi + lo A fragments, a factor rounded once to the 16-bit
 // type into A fragments, and the backward's delta prep pass. The bf16

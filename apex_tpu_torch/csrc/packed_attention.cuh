@@ -114,26 +114,42 @@ __device__ __forceinline__ unsigned combo(int bb, int h) {
 }
 
 // `_mask_block` over sq query rows and sk keys: query row r sits at
-// position r + q_off, q_off = sk - sq (a query block that ends the key
-// sequence), and sees key c when c < sk, c < kvl (the batch row's
-// kv_length), r < sq, c <= r + q_off (causal) and c > r + q_off - window
-// (window > 0). The packed kernels have sq == sk == s and q_off a literal
-// 0 (mask_of), which the compiler folds away; with sq > sk under causal,
-// the first sq - sk rows see no key.
+// position r + q_off relative to the first key and sees key c when c < sk,
+// c < kvl (the batch row's kv_length in the chunk's own columns, local_kvl),
+// r < sq, c <= r + q_off (causal) and c > r + q_off - window (window > 0).
+// A plain launch has q_off = sk - sq (a query block that ends the key
+// sequence) and k_off = 0; a chunk pair of a context-parallel ring places
+// its queries at global positions q_start + r and its keys at k_start + c,
+// so q_off = q_start - k_start (any sign: a chunk in the causal future has
+// q_off <= -sq, a far-past chunk under a window q_off >= sk + window - 1,
+// and every tile is skipped) and k_off = k_start. The packed kernels have
+// sq == sk == s and q_off a literal 0 (mask_of), which the compiler folds
+// away; with sq > sk under causal, the first sq - sk rows see no key.
 struct Mask {
   int sq, sk;
-  int q_off;   // sk - sq
+  int q_off;   // q_start - k_start (sk - sq by default)
   int causal;
   int window;  // 0 = no sliding window
+  int k_off;   // the first key's global position (kv_lengths are global)
 };
 
 __host__ __device__ __forceinline__ Mask mask_4d(int sq, int sk, int causal,
-                                                 int window) {
-  return Mask{sq, sk, sk - sq, causal, window};
+                                                 int window, int q_start,
+                                                 int k_start) {
+  return Mask{sq, sk, q_start - k_start, causal, window, k_start};
 }
 
 __device__ __forceinline__ Mask mask_of(const Opts& o) {
-  return Mask{o.s, o.s, 0, o.causal, o.window};
+  return Mask{o.s, o.s, 0, o.causal, o.window, 0};
+}
+
+// The batch row's key bound in the chunk's own columns: its global
+// kv_length less k_off, clamped to [0, sk] (a length that ends before the
+// chunk leaves no key, one past it every key); sk without kv_lengths.
+__device__ __forceinline__ int local_kvl(const Mask& m, const int* kv_lengths,
+                                         int bb) {
+  if (kv_lengths == nullptr) return m.sk;
+  return min(max(kv_lengths[bb] - m.k_off, 0), m.sk);
 }
 
 __device__ __forceinline__ bool visible(const Mask& m, int kvl, int row,

@@ -23,6 +23,7 @@ from apex_tpu_torch.ops.rope import (
     fused_rope_thd,
     rope_freqs,
 )
+from apex_tpu_torch.ops.ring_attention import ring_attention
 from apex_tpu_torch.ops.softmax import (
     generic_scaled_masked_softmax,
     scaled_masked_softmax,
@@ -39,4 +40,4 @@ __all__ = ["LAUNCHES", "reset_launches", "flash_attention",
            "scaled_softmax", "scaled_masked_softmax",
            "scaled_upper_triang_masked_softmax",
            "generic_scaled_masked_softmax", "conv1x1_bn_act",
-           "conv3x3_bn_act"]
+           "conv3x3_bn_act", "ring_attention"]

@@ -50,12 +50,12 @@ _SIGNATURES = {
     # resident blocks an SM
     "apex_layer_norm_bwd_blocks_per_sm": [_I, _I, _I, _I, _I, _P],
     # q, k, v, o, lse, kv_lengths, stream, b, h, kvh, sq, sk, d, scale,
-    # causal, window, dtype
+    # causal, window, q_start, k_start, dtype
     "apex_flash_fwd": [_P, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _I, _F, _I, _I, _I],
+                       _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I],
     # q, k, v, o, do, lse, delta, dq, dk, dv, kv_lengths, stream, b, h, kvh,
-    # sq, sk, d, scale, causal, window, dtype
-    "apex_flash_bwd": [_P] * 12 + [_I] * 6 + [_F, _I, _I, _I],
+    # sq, sk, d, scale, causal, window, q_start, k_start, delta_given, dtype
+    "apex_flash_bwd": [_P] * 12 + [_I] * 6 + [_F] + [_I] * 6,
     # q, k_pages, v_pages, page_table, positions, ctx, workspace, counters,
     # stream, b, hl, kvh, dh, n_pages, page_size, pages_per_slot, window,
     # dtype, then the plan: pieces a lane, lanes a row, query heads a block,

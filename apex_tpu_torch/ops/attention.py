@@ -11,6 +11,14 @@ Counterpart of ``apex_tpu/ops/attention.py``:
   :func:`flash_bwd_plain`. ``kv_heads`` may divide ``heads`` (GQA/MQA);
   masks: ``causal`` with the ``seq_k - seq_q`` offset, ``kv_lengths`` per
   batch, ``sliding_window``.
+- :func:`flash_chunk_fwd` and :func:`flash_chunk_bwd` are the JAX
+  package's chunk API (ring attention's building blocks, not
+  differentiable): one (q chunk, kv chunk) pair whose first query and key
+  sit at the global positions ``q_start`` and ``k_start``, so that causal,
+  window and (global) ``kv_lengths`` masks are exact across chunks. A CUDA
+  tensor runs Kernels B and I with those offsets, the backward on the
+  caller's global lse and delta; a CPU tensor runs
+  :func:`flash_chunk_fwd_plain` and :func:`flash_chunk_bwd_plain`.
 - :func:`flash_attention_packed` takes the fused QKV projection
   ``[s, b, G*(qpg+2)*d]`` as it comes out of ``ParallelAttention`` and is
   differentiable: the forward is ``csrc/flash_packed_fwd.cu`` (Kernel E),
@@ -31,7 +39,9 @@ from apex_tpu_torch.ops.rope import rope_tables
 
 __all__ = ["flash_attention", "flash_fwd_plain",
            "flash_fwd_cuda", "flash_bwd_factors", "flash_bwd_plain",
-           "flash_bwd_rounding_slack", "flash_bwd_cuda",
+           "flash_bwd_rounding_slack", "flash_bwd_cuda", "flash_chunk_fwd",
+           "flash_chunk_bwd", "flash_chunk_fwd_plain",
+           "flash_chunk_bwd_plain",
            "flash_attention_packed", "packed_attention_supported",
            "packed_geometry", "drop_combo", "hash_keep",
            "flash_packed_fwd_plain", "flash_packed_bwd_plain",
@@ -67,33 +77,43 @@ def backward_floor(d: int) -> float:
     return 2.0 ** -8 * max(1.0, d / 256)
 
 
-def _visible(sq: int, sk: int, kv_lengths, causal: bool, window, device):
+def _offsets(sq: int, sk: int, q_start, k_start) -> tuple:
+    """The global positions of the first query row and key column
+    (``_offsets``): ``sk - sq`` and 0 unless given (a ring's chunk pair)."""
+    return (sk - sq if q_start is None else int(q_start),
+            0 if k_start is None else int(k_start))
+
+
+def _visible(sq: int, sk: int, kv_lengths, causal: bool, window, device,
+             q_start=None, k_start=None):
     """``[b or 1, 1, sq, sk]`` visibility of (query row, key col), as
-    ``_mask_block`` with the query offset ``sk - sq``."""
-    col = torch.arange(sk, device=device)[None, None, None, :]
-    row = torch.arange(sq, device=device)[None, None, :, None]
+    ``_mask_block`` at global positions: row r at ``q_start + r``, column c
+    at ``k_start + c`` (:func:`_offsets`); ``kv_lengths`` are global."""
+    q_start, k_start = _offsets(sq, sk, q_start, k_start)
+    col = torch.arange(sk, device=device)[None, None, None, :] + k_start
+    row = torch.arange(sq, device=device)[None, None, :, None] + q_start
     valid = torch.ones((1, 1, sq, sk), dtype=torch.bool, device=device)
     if kv_lengths is not None:
         valid = valid & (col < kv_lengths.to(device)[:, None, None, None])
     if causal:
-        valid = valid & (col <= row + (sk - sq))
+        valid = valid & (col <= row)
     if window is not None:
-        valid = valid & (col > row + (sk - sq) - window)
+        valid = valid & (col > row - window)
     return valid
 
 
 def flash_fwd_plain(q, k, v, kv_lengths, scale: float, causal: bool,
-                    window: Optional[int] = None):
+                    window: Optional[int] = None, q_start=None, k_start=None):
     """Plain PyTorch forward (``_mha_reference``) with the lse the
     backward reads: fp32 scores and softmax, output in ``q.dtype``, lse
     ``[b, h, sq]`` fp32. A row that sees no key gives o = 0 and lse = 1e30
-    (``_LSE_PAD``)."""
+    (``_LSE_PAD``). ``q_start``, ``k_start``: :func:`_visible`."""
     group = q.shape[1] // k.shape[1]
     k = k.repeat_interleave(group, dim=1)
     v = v.repeat_interleave(group, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     valid = _visible(q.shape[2], k.shape[2], kv_lengths, causal, window,
-                     q.device)
+                     q.device, q_start, k_start)
     s = torch.where(valid, s, torch.full_like(s, _NEG_INF))
     any_valid = valid.any(dim=-1, keepdim=True)
     lse = torch.where(any_valid, torch.logsumexp(s, dim=-1, keepdim=True),
@@ -104,9 +124,18 @@ def flash_fwd_plain(q, k, v, kv_lengths, scale: float, causal: bool,
     return o, lse[..., 0]
 
 
+def _check_offsets(q_start, k_start) -> tuple:
+    """``(q_start, k_start)`` as C ints (the kernels' positions are int32)."""
+    for x in (q_start, k_start):
+        if not -2 ** 30 <= x < 2 ** 30:
+            raise ValueError(f"chunk offset {x} out of the kernels' range")
+    return q_start, k_start
+
+
 def flash_fwd_cuda(q, k, v, kv_lengths, scale: float, causal: bool,
-                   window: Optional[int] = None):
-    """Launch Kernel B; returns ``(o, lse)`` with ``lse [b, h, sq]`` fp32."""
+                   window: Optional[int] = None, q_start=None, k_start=None):
+    """Launch Kernel B; returns ``(o, lse)`` with ``lse [b, h, sq]`` fp32.
+    ``q_start``, ``k_start``: the chunk's global offsets (:func:`_offsets`)."""
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -115,6 +144,7 @@ def flash_fwd_cuda(q, k, v, kv_lengths, scale: float, causal: bool,
     if d > _MAX_HEAD_DIM:
         raise ValueError(f"head_dim {d} > {_MAX_HEAD_DIM} is not supported "
                          f"by the kernel")
+    q_start, k_start = _check_offsets(*_offsets(sq, sk, q_start, k_start))
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if kv_lengths is not None:
         kv_lengths = kv_lengths.to(device=q.device,
@@ -129,34 +159,38 @@ def flash_fwd_cuda(q, k, v, kv_lengths, scale: float, causal: bool,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), None if kv_lengths is None else kv_lengths.data_ptr(),
         stream, b, h, kvh, sq, sk, d, float(scale), int(causal),
-        int(window or 0), code)
+        int(window or 0), q_start, k_start, code)
     _build.check("apex_flash_fwd", status)
     _support.count_launch("flash_fwd")
     return o, lse
 
 
 def flash_bwd_factors(q, k, v, do, o, lse, kv_lengths, scale: float,
-                      causal: bool, window: Optional[int] = None):
+                      causal: bool, window: Optional[int] = None,
+                      q_start=None, k_start=None, delta=None):
     """The fp32 factors of the plain backward (``_recompute_p_ds`` over
     whole matrices): ``p [b, h, sq, sk]`` from lse with masked scores at
-    -1e30, and ``ds = p * (dp - delta)`` with ``delta = rowsum(do * o)``.
-    Returns ``(p, ds)``."""
+    -1e30, and ``ds = p * (dp - delta)`` with ``delta = rowsum(do * o)``,
+    or the given fp32 ``delta [b, h, sq]`` (a ring's, from its merged o;
+    o is not read then). Returns ``(p, ds)``."""
     group = q.shape[1] // k.shape[1]
     kr = k.repeat_interleave(group, dim=1)
     vr = v.repeat_interleave(group, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr.float()) * scale
     valid = _visible(q.shape[2], k.shape[2], kv_lengths, causal, window,
-                     q.device)
+                     q.device, q_start, k_start)
     s = torch.where(valid, s, torch.full_like(s, _NEG_INF))
     p = torch.exp(s - lse[..., None])
     dof = do.float()
-    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    if delta is None:
+        delta = (dof * o.float()).sum(dim=-1)
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, vr.float())
-    return p, p * (dp - delta)
+    return p, p * (dp - delta.float()[..., None])
 
 
 def flash_bwd_plain(q, k, v, do, o, lse, kv_lengths, scale: float,
-                    causal: bool, window: Optional[int] = None):
+                    causal: bool, window: Optional[int] = None,
+                    q_start=None, k_start=None, delta=None):
     """Plain PyTorch backward, the algebra of ``_dq_kernel`` and
     ``_dkv_kernel`` over whole matrices on :func:`flash_bwd_factors`:
     ``dq = scale * ds k`` with ds rounded to k's dtype,
@@ -168,7 +202,7 @@ def flash_bwd_plain(q, k, v, do, o, lse, kv_lengths, scale: float,
     kvh, sk = k.shape[1], k.shape[2]
     group = h // kvh
     p, ds = flash_bwd_factors(q, k, v, do, o, lse, kv_lengths, scale,
-                              causal, window)
+                              causal, window, q_start, k_start, delta)
     kr = k.repeat_interleave(group, dim=1)
     dq = scale * torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(),
                               kr.float())
@@ -181,7 +215,8 @@ def flash_bwd_plain(q, k, v, do, o, lse, kv_lengths, scale: float,
 
 
 def flash_bwd_rounding_slack(q, k, v, do, o, lse, kv_lengths, scale: float,
-                             causal: bool, window: Optional[int] = None):
+                             causal: bool, window: Optional[int] = None,
+                             q_start=None, k_start=None, delta=None):
     """How far one rounding step of every factor the backward rounds to the
     input dtype (ds before ``ds k`` and ``ds^T q``, p before ``p^T do``) can
     move dq, dk and dv: ``step(ds) * scale * |k|`` and so on, in fp32, with
@@ -190,7 +225,7 @@ def flash_bwd_rounding_slack(q, k, v, do, o, lse, kv_lengths, scale: float,
     a ds on a rounding boundary to neighbouring values; this bounds what
     that does to each output element."""
     p, ds = flash_bwd_factors(q, k, v, do, o, lse, kv_lengths, scale,
-                              causal, window)
+                              causal, window, q_start, k_start, delta)
     b, kvh, sk, d = k.shape
     group = q.shape[1] // kvh
     ds_step = rounding_step(ds, q.dtype)
@@ -204,21 +239,27 @@ def flash_bwd_rounding_slack(q, k, v, do, o, lse, kv_lengths, scale: float,
 
 
 def flash_bwd_cuda(q, k, v, do, o, lse, kv_lengths, scale: float,
-                   causal: bool, window: Optional[int] = None):
+                   causal: bool, window: Optional[int] = None,
+                   q_start=None, k_start=None, delta=None):
     """Launch Kernel I (bf16 and fp16: delta prep, dk/dv pass, dq pass;
     f32: dq pass, then dk/dv pass); returns ``(dq, dk, dv)`` in the
-    inputs' dtype."""
+    inputs' dtype. ``q_start``, ``k_start``: the chunk's global offsets
+    (:func:`_offsets`). With an fp32 ``delta [b, h, sq]`` the kernel reads
+    it in place of rowsum(do * o), and o (which may be None) is not read."""
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
-    if k.dtype != q.dtype or v.dtype != q.dtype or o.dtype != q.dtype:
+    if k.dtype != q.dtype or v.dtype != q.dtype or (
+            o is not None and o.dtype != q.dtype):
         raise TypeError(f"q/k/v/o dtypes differ: {q.dtype} {k.dtype} "
-                        f"{v.dtype} {o.dtype}")
+                        f"{v.dtype} {None if o is None else o.dtype}")
     code = _support.dtype_code(q.dtype, "Kernel I (flash_bwd_cuda)")
     if d > _MAX_HEAD_DIM:
         raise ValueError(f"head_dim {d} > {_MAX_HEAD_DIM} is not supported "
                          f"by the kernel")
-    q, k, v, o = q.contiguous(), k.contiguous(), v.contiguous(), \
-        o.contiguous()
+    if o is None and delta is None:
+        raise ValueError("flash_bwd_cuda needs o or delta")
+    q_start, k_start = _check_offsets(*_offsets(sq, sk, q_start, k_start))
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     do = do.contiguous().to(q.dtype)
     lse = lse.contiguous()
     if kv_lengths is not None:
@@ -227,16 +268,22 @@ def flash_bwd_cuda(q, k, v, do, o, lse, kv_lengths, scale: float,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    if delta is None:
+        o = o.contiguous()
+        delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+        given = 0
+    else:
+        delta = delta.to(dtype=torch.float32).contiguous()
+        given = 1
     lib = _build.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = lib.apex_flash_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if given else o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         None if kv_lengths is None else kv_lengths.data_ptr(), stream, b, h,
         kvh, sq, sk, d, float(scale), int(causal), int(window or 0),
-        code)
+        q_start, k_start, given, code)
     _build.check("apex_flash_bwd", status)
     _support.count_launch("flash_bwd")
     return dq, dk, dv
@@ -299,6 +346,84 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = float(softmax_scale if softmax_scale is not None
                   else 1.0 / math.sqrt(q.shape[-1]))
     return _Flash.apply(q, k, v, kv_lengths, scale, causal, sliding_window)
+
+
+# ---------------------------------------------------------------------------
+# chunk API (ring attention's building blocks)
+# ---------------------------------------------------------------------------
+
+def flash_chunk_fwd_plain(q, k, v, kv_lengths, scale: float, causal: bool,
+                          window: Optional[int], q_start: int, k_start: int):
+    """Plain version of one chunk pair's forward (``_chunk_reference_fwd``):
+    fp32 scores and p, o in q's dtype, the fp32 lse; a row that sees no key
+    of this chunk (wholly in its causal future, past its window, or past
+    its kv_length) gives o = 0 and lse = 1e30. Returns ``(o, lse)``."""
+    return flash_fwd_plain(q, k, v, kv_lengths, scale, causal, window,
+                           q_start, k_start)
+
+
+def flash_chunk_bwd_plain(q, k, v, do, lse, delta, kv_lengths, scale: float,
+                          causal: bool, window: Optional[int], q_start: int,
+                          k_start: int):
+    """Plain version of one chunk pair's backward (``_chunk_reference_bwd``)
+    from the GLOBAL fp32 ``lse`` and ``delta``: p = exp(scale s - lse) and
+    ds = p (dp - delta) in fp32, rounded to the input dtype before their
+    products where the JAX kernels (and Kernel I) round them
+    (:func:`flash_bwd_plain`; a no-op in f32); grads in the inputs' dtype.
+    Returns ``(dq, dk, dv)``."""
+    return flash_bwd_plain(q, k, v, do, None, lse, kv_lengths, scale, causal,
+                           window, q_start, k_start, delta)
+
+
+def _chunk_args(q, k, v, softmax_scale):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash chunks expect [batch, heads, seq, dim]")
+    if k.shape[1] != v.shape[1] or q.shape[1] % k.shape[1]:
+        raise ValueError(
+            f"kv_heads ({k.shape[1]}) must divide query heads "
+            f"({q.shape[1]}) for GQA/MQA")
+    return float(softmax_scale if softmax_scale is not None
+                 else 1.0 / math.sqrt(q.shape[-1]))
+
+
+def flash_chunk_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    q_start: int, k_start: int, causal: bool = False,
+                    window: Optional[int] = None,
+                    kv_lengths: Optional[torch.Tensor] = None,
+                    softmax_scale: Optional[float] = None):
+    """One flash forward over a (q chunk, kv chunk) pair -> ``(o, lse)``.
+
+    ``q_start``/``k_start`` place the chunks at GLOBAL sequence positions,
+    so causal masks, sliding windows and ``kv_lengths`` (global valid
+    lengths) are exact across chunk boundaries; a chunk wholly in the
+    causal future costs only the launch (every key tile is skipped) and
+    gives ``lse = 1e30`` rows that merge with weight zero. Not
+    differentiable: ring attention composes it per hop with its own
+    backward. A CUDA tensor launches Kernel B, a CPU tensor runs
+    :func:`flash_chunk_fwd_plain`."""
+    scale = _chunk_args(q, k, v, softmax_scale)
+    args = (kv_lengths, scale, causal, window, q_start, k_start)
+    if _support.is_cpu(q, k, v):
+        return flash_chunk_fwd_plain(q, k, v, *args)
+    return flash_fwd_cuda(q, k, v, *args)
+
+
+def flash_chunk_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                    *, q_start: int, k_start: int, causal: bool = False,
+                    window: Optional[int] = None,
+                    kv_lengths: Optional[torch.Tensor] = None,
+                    softmax_scale: Optional[float] = None):
+    """Flash backward over one chunk pair with the GLOBAL fp32 ``lse`` and
+    ``delta [b, h, sq]`` -> ``(dq, dk, dv)``: with the global log-sum-exp,
+    the chunk pairs' contributions sum to the whole sequence's gradients.
+    A CUDA tensor launches Kernel I (its delta prep skipped), a CPU tensor
+    runs :func:`flash_chunk_bwd_plain`."""
+    scale = _chunk_args(q, k, v, softmax_scale)
+    args = (kv_lengths, scale, causal, window, q_start, k_start)
+    if _support.is_cpu(q, k, v, do):
+        return flash_chunk_bwd_plain(q, k, v, do, lse, delta, *args)
+    return flash_bwd_cuda(q, k, v, do, None, lse, *args, delta=delta)
 
 
 # ---------------------------------------------------------------------------

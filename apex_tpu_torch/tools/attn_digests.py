@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Digests of the attention kernels' outputs at head dims up to 256, so
-that two versions of Kernels B, I, E, F and C can be compared bit for bit.
+"""Digests of the attention kernels' outputs, so that two versions of
+Kernels B, I, E, F and C can be compared bit for bit.
 
 Usage (from a checkout's root, on a machine with one GPU)::
 
@@ -9,8 +9,8 @@ Usage (from a checkout's root, on a machine with one GPU)::
 
 ``--root`` names the checkout whose ``apex_tpu_torch`` is imported and
 built (default: the one holding this file). The cases are those of
-``tests/test_torch_cuda.py`` up to head_dim 256, read from its tables
-(``FLASH_BWD``, ``PACKED``, ``PAGED``) in this tool's checkout. Every
+``tests/test_torch_cuda.py``, read from its tables (``FLASH_BWD``,
+``PACKED``, ``PAGED``) in this tool's checkout. Every
 case draws its inputs from a generator seeded by its name and dtype,
 runs the kernel's wrapper once and prints one JSON line with the sha256
 (16 hex digits) of its outputs: Kernels E and F
@@ -184,15 +184,12 @@ def main() -> int:
                 fh.write(json.dumps(row) + "\n")
 
     tables = _tables()
-    flash = {k: v for k, v in tables["FLASH_BWD"].items() if v[5] <= 256}
-    packed = {k: v for k, v in tables["PACKED"].items() if v[4] <= 256}
-    paged = {k: v for k, v in tables["PAGED"].items() if v[3] <= 256}
     for dtype in DTYPES:
-        for name, case in packed.items():
+        for name, case in tables["PACKED"].items():
             emit(name, dtype, packed_case(att, rope_mod, name, case, dtype))
-        for name, case in flash.items():
+        for name, case in tables["FLASH_BWD"].items():
             emit(name, dtype, flash_case(att, name, case, dtype))
-        for name, case in paged.items():
+        for name, case in tables["PAGED"].items():
             for w, int8, ps in PAGED_RUNS:
                 emit(f"{name}_w{w}{'_int8' if int8 else ''}_page{ps}",
                      dtype, paged_case(da, name, case,

@@ -340,7 +340,33 @@ printing its own lines and raising on failure:
 36. hd512 card vs CPU — a tiny f32 GPT with 512-wide heads (2 layers,
               hidden 1024, 2 query heads over one K/V head) trains 3 steps
               on the card and the CPU (phase 12's bar) and serves 3 greedy
-              requests with pages of 64 on both with the same tokens.
+              requests with pages of 64 on both with the same tokens;
+37. flash_chunk — Kernels B and I at global offsets, launched through
+              ``flash_chunk_fwd`` / ``flash_chunk_bwd`` (the backward on a
+              given lse and delta) against their plain chunk versions at
+              every corner of ``CHUNK_CASES`` (before, on and straddling
+              the diagonal, wholly in the future, a far past that a window
+              cuts and one it skips, global kv_lengths ending inside,
+              before and after the chunk, positions past 12288, GQA, head
+              dims 64 to 512) in f32, bf16 and fp16: o f32 atol 2e-5 or 1
+              ulp, lse 1e-4, grads phase 25's bars; a chunk that sees no
+              key gives lse 1e30 and zeros; two runs bitwise equal; B and
+              I launched twice a case, every other kernel 0;
+38. ring    — a 4-chunk ring at Mistral-7B's attention widths (32 query
+              heads over 8 K/V heads, head_dim 128, window 4096; s 16384
+              in chunks of 4096, b 2, global kv_lengths 16384 and 10000,
+              causal), all four ranks on the card
+              (``_ring_attention_local``), forward and backward under
+              autograd: B and I launched 16 times each, every other kernel
+              0; f32 held to the non-ring ``flash_attention`` (o 2e-5,
+              every grad element within 1e-5 of its grad's largest
+              |value|) and, on one K/V head group, to exact float64
+              attention (``_ring_exact_check``), bf16 to the same
+              schedule over the plain chunk versions
+              (``ring_vs_plain_ring``'s derived bars); then, in bf16, the
+              ring's forward and backward timed beside the non-ring flash
+              and each kind of chunk call alone (diagonal, window-cut,
+              far past, future), with the card's name and power limit.
 
 Then one JSON line of per-kernel numbers (launches from the phase that
 drives each kernel's slice: serve for A-C, serve_int8 and serve_spec for
@@ -353,7 +379,8 @@ rn50_train_fp16 for J-M's, gemma2b_train for E's and F's head_dim-256
 records, gemma2b_serve for B's and C's, flash_hd256 for I's,
 llama405b_serve for A's wide-row record, hd512_train for E's and F's
 head_dim-512 records, hd512_serve for B's and C's, flash_hd512 for I's,
-with every path's counts in ``launches_by_path``;
+ring for B's and I's offset records (``flash_fwd_ring``,
+``flash_bwd_ring``: the diagonal chunk call), with every path's counts in ``launches_by_path``;
 times from CUDA events in this run; ``bound_ms`` from this run's shapes
 over the H100's published peaks), and last ``{"ok": true, "device":
 {...}}``.
@@ -3015,8 +3042,8 @@ def _with_sampling(requests, seed):
 
 
 def device_work(fn) -> tuple:
-    """``(device operations, their device ms, {name: count})`` of what
-    ``fn`` enqueues (kernels and copies), read by torch.profiler;
+    """``(device operations, their device ms, {name: (count, ms)})`` of
+    what ``fn`` enqueues (kernels and copies), read by torch.profiler;
     "not_measured" for the first two when the profiler sees no device."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3025,15 +3052,16 @@ def device_work(fn) -> tuple:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)]
-    names = {}
-    for e in events:
-        names[e.name] = names.get(e.name, 0) + 1
-    if not events:
-        return "not_measured", "not_measured", names
-    return (len(events), sum(e.time_range.elapsed_us() for e in events) / 1e3,
-            names)
+    by = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
+            c, ms = by.get(e.name, (0, 0.0))
+            by[e.name] = (c + 1, ms + e.time_range.elapsed_us() / 1e3)
+    if not by:
+        return "not_measured", "not_measured", by
+    return (sum(c for c, _ in by.values()),
+            sum(ms for _, ms in by.values()), by)
 
 
 def count_device_launches(fn):
@@ -4606,7 +4634,7 @@ def report_optimizer(phase: str, opt, found_inf=None) -> None:
     torch.cuda.synchronize()
     fmt = lambda x: x if isinstance(x, str) else f"{x:.3f}"  # noqa: E731
     kernels = {}
-    for name, count in names.items():
+    for name, (count, _) in names.items():
         short = name.replace("(anonymous namespace)::", "").replace(
             "void ", "").split("(")[0].split("<")[0].split("::")[-1]
         kernels[short] = kernels.get(short, 0) + count
@@ -5710,6 +5738,540 @@ def phase_hd512_card_vs_cpu() -> None:
     _small_card_vs_cpu("hd512_card_vs_cpu", HD512_SMALL, 64, (20, 37, 70))
 
 
+# ---------------------------------------------------------------------------
+# Global offsets in Kernels B and I: the chunk functions, and a 4-chunk ring
+# at Mistral-7B's attention widths
+# ---------------------------------------------------------------------------
+
+#: Kernels B and I through ``flash_chunk_fwd/bwd`` at global offsets:
+#: (name, b, h, kvh, sq, sk, d, causal, window, global kv_lengths, q_start,
+#: k_start) — a chunk before the diagonal, on it (GQA, a window, lengths
+#: ending inside), straddling it (q_off -100: the first rows see no key),
+#: wholly in the future (q_off <= -sq: every tile skipped), a far past that
+#: a window cuts and one it skips (q_off past sk), global lengths ending
+#: inside, before and after the chunk, chunk 3 of a 16k ring (positions
+#: past 12288, a window of 4096 that leaves row r the keys past r) and a
+#: non-causal pair whose second length ends before the chunk; every DMAX
+CHUNK_CASES = [
+    ("before_diagonal", 2, 4, 4, 256, 256, 64, True, None, None, 1024, 512),
+    ("diagonal_gqa_window", 2, 8, 2, 300, 300, 128, True, 200, [2400, 2200],
+     2100, 2100),
+    ("straddling_gqa", 1, 8, 2, 256, 320, 256, True, None, None, 1000, 1100),
+    ("future", 2, 4, 4, 256, 256, 64, True, None, None, 0, 1024),
+    ("far_past_window_cuts", 1, 4, 2, 256, 256, 128, True, 500, None, 1000,
+     600),
+    ("far_past_window_skips", 1, 4, 4, 256, 256, 512, True, 300, None, 8192,
+     0),
+    ("kv_lengths_inside_before_after", 3, 4, 2, 200, 256, 64, True, None,
+     [600, 300, 2000], 1024, 512),
+    ("ring_chunk3_of_16k", 2, 4, 2, 256, 256, 128, True, 4096,
+     [16384, 10000], 12288, 8192),
+    ("full_kv_lengths_end_before", 2, 4, 4, 128, 192, 512, False, None,
+     [4200, 1000], 0, 4096),
+]
+#: the cases whose chunk sees no key at all
+CHUNK_EMPTY = ("future", "far_past_window_skips")
+
+
+def phase_flash_chunk() -> dict:
+    """Kernels B and I at global offsets (``[flash_chunk]`` lines), each
+    launched through ``flash_chunk_fwd`` / ``flash_chunk_bwd`` and held to
+    its plain chunk version (:data:`CHUNK_CASES`, f32, bf16 and fp16): o
+    f32 atol 2e-5 or 1 ulp of the plain version run in fp32, lse 1e-4 (the
+    1e30 rows equal), grads on a given lse and delta (the plain lse + 0.25
+    and 0.75 rowsum(do o): not the chunk's own) f32 atol 1e-4 or 1 ulp plus
+    the rounding slack over ``backward_floor(d)``; a chunk that sees no key
+    gives lse 1e30 and zeros; two runs bitwise equal. Returns the phase's
+    launch counts."""
+    from apex_tpu_torch.ops import LAUNCHES, reset_launches
+    from apex_tpu_torch.ops.attention import (
+        backward_floor, flash_bwd_rounding_slack, flash_chunk_bwd,
+        flash_chunk_bwd_plain, flash_chunk_fwd, flash_chunk_fwd_plain)
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    torch.cuda.synchronize()
+    reset_launches()
+    calls = 0
+    for (name, b, h, kvh, sq, sk, d, causal, window, kvl, q_start,
+         k_start) in CHUNK_CASES:
+        kvl_t = None if kvl is None else torch.tensor(kvl, device="cuda")
+        args = (kvl_t, 1.0 / math.sqrt(d), causal, window, q_start, k_start)
+        kw = dict(q_start=q_start, k_start=k_start, causal=causal,
+                  window=window, kv_lengths=kvl_t, softmax_scale=args[1])
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            q, do = (torch.randn(b, h, sq, d, device="cuda",
+                                 generator=gen).to(dtype) for _ in range(2))
+            k, v = (torch.randn(b, kvh, sk, d, device="cuda",
+                                generator=gen).to(dtype) for _ in range(2))
+            o, lse = flash_chunk_fwd(q, k, v, **kw)
+            ro, rlse = flash_chunk_fwd_plain(q.float(), k.float(), v.float(),
+                                             *args)
+            pad = rlse > 1e29
+            lse_g = torch.where(pad, torch.zeros_like(rlse), rlse + 0.25)
+            delta_g = 0.75 * (do.float() * ro.to(dtype).float()).sum(-1)
+            got = flash_chunk_bwd(q, k, v, do, lse_g, delta_g, **kw)
+            want = flash_chunk_bwd_plain(q, k, v, do, lse_g, delta_g, *args)
+            calls += 1
+            half = dtype != torch.float32
+            if half:
+                b_err, b_ulps, *_ = _half_check("b", name, o, ro.to(dtype),
+                                                None)
+            else:
+                b_err, b_ulps = float((o - ro).abs().max()), 0.0
+                if b_err > 2e-5:
+                    raise AssertionError(f"flash_chunk {name} f32: o err "
+                                         f"{b_err} > 2e-5")
+            lse_err = float((lse - rlse).abs().max())
+            if lse_err > 1e-4 or not torch.equal(lse > 1e29, pad):
+                raise AssertionError(f"flash_chunk {name} {dtype}: lse err "
+                                     f"{lse_err}")
+            slack = (flash_bwd_rounding_slack(q, k, v, do, None, lse_g,
+                                              *args, delta=delta_g)
+                     if half else (None,) * 3)
+            i_err = i_ulps = i_past = 0.0
+            for g_, w_, sl in zip(got, want, slack):
+                e_, u_, p_, *_ = _half_check("i", name, g_, w_, sl,
+                                             backward_floor(d))
+                i_err, i_ulps, i_past = (max(i_err, e_), max(i_ulps, u_),
+                                         max(i_past, p_))
+            if name in CHUNK_EMPTY and (not bool(pad.all()) or o.any() or
+                                        any(g_.any() for g_ in got)):
+                raise AssertionError(f"flash_chunk {name}: a chunk that "
+                                     f"sees no key is not lse 1e30 and 0")
+            same = torch.equal(o, flash_chunk_fwd(q, k, v, **kw)[0]) and all(
+                torch.equal(a, g_) for a, g_ in zip(
+                    flash_chunk_bwd(q, k, v, do, lse_g, delta_g, **kw), got))
+            if not same:
+                raise AssertionError(f"flash_chunk {name} {dtype}: two runs "
+                                     f"differ")
+            log("flash_chunk", kernels="b,i", case=name,
+                shape=f"b{b}_h{h}_kvh{kvh}_sq{sq}_sk{sk}_d{d}",
+                q_start=q_start, k_start=k_start, causal=causal,
+                window=window, kv_lengths=None if kvl is None else
+                json.dumps(kvl).replace(" ", ""), dtype=str(dtype)[6:],
+                empty_rows=int(pad.sum()), b_max_abs_err=f"{b_err:.3e}",
+                b_ulps=b_ulps, lse_err=f"{lse_err:.2e}",
+                i_max_abs_err=f"{i_err:.3e}", i_ulps=i_ulps,
+                i_share_past_1_ulp=f"{i_past:.2e}", repeat_bitwise=same,
+                o_sha256=digest(o),
+                sha256=digest(torch.cat([t.reshape(-1) for t in got])))
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    want_counts = {n: 2 * calls if n in ("flash_fwd", "flash_bwd") else 0
+                   for n in launches}
+    if launches != want_counts:
+        raise AssertionError(f"flash_chunk: launches {launches}, expected "
+                             f"{want_counts}")
+    log("flash_chunk_launches", card=_card_name().replace(" ", "_"),
+        launches=json.dumps(launches).replace(" ", ""))
+    return launches
+
+
+#: Mistral-7B-v0.1's attention (its config.json: 32 query heads over 8 K/V
+#: heads, head_dim 128, sliding window 4096) over a global sequence of
+#: 16384 in 4 chunks of 4096, b 2, global kv_lengths (16384, 10000), causal
+RING = dict(b=2, h=32, kvh=8, d=128, window=4096, s=16384, cp=4,
+            kv_lengths=(16384, 10000))
+#: every f32 ring grad element, every head, within this share of the
+#: grad's largest |value| from the non-ring flash: both sum up to 4096 x 4
+#: terms in fp32 in different orders; sound runs read at most 2.80e-6 (dk)
+RING_F32_GRAD_BAR = 1e-5
+
+
+class _PlainChunks:
+    """The plain chunk versions with ``flash_chunk_fwd``'s and
+    ``flash_chunk_bwd``'s signatures, set as a ``_LocalRing``'s ``fwd``
+    and ``bwd`` (:func:`_plain_ring`) on any device: the schedule a 16-bit
+    ring is held to (over the kernels on the card, or the JAX package's
+    ring on the CPU). The backward also sums, for each output chunk (keys
+    ``("q", q_start)``, ``("k", k_start)``, ``("v", k_start)``), every
+    call's |grad| and rounding slack (``flash_bwd_rounding_slack``), the
+    terms of :meth:`grad_bar`."""
+
+    def __init__(self):
+        self.abs, self.slack, self.calls = {}, {}, {}
+
+    def fwd(self, q, k, v, *, q_start, k_start, causal, window, kv_lengths,
+            softmax_scale):
+        from apex_tpu_torch.ops.attention import flash_chunk_fwd_plain
+        return flash_chunk_fwd_plain(q, k, v, kv_lengths, softmax_scale,
+                                     causal, window, q_start, k_start)
+
+    def bwd(self, q, k, v, do, lse, delta, *, q_start, k_start, causal,
+            window, kv_lengths, softmax_scale):
+        from apex_tpu_torch.ops.attention import (flash_bwd_rounding_slack,
+                                                  flash_chunk_bwd_plain)
+        args = (kv_lengths, softmax_scale, causal, window, q_start, k_start)
+        grads = flash_chunk_bwd_plain(q, k, v, do, lse, delta, *args)
+        slack = flash_bwd_rounding_slack(q, k, v, do, None, lse, *args,
+                                         delta=delta)
+        for key, g, sl in zip((("q", q_start), ("k", k_start),
+                               ("v", k_start)), grads, slack):
+            self.abs[key] = self.abs.get(key, 0.0) + g.float().abs()
+            self.slack[key] = self.slack.get(key, 0.0) + sl
+            self.calls[key] = self.calls.get(key, 0) + 1
+        return grads
+
+    def grad_bar(self, name: str, start: int, want: torch.Tensor):
+        """How far another 16-bit ring's grad of output chunk ``(name,
+        start)`` may lie from ``want``, this schedule's, on the same
+        residuals: each chunk call's grads within 1 ulp (eps of the
+        magnitude, floored at ``backward_floor(d)``) plus its rounding
+        slack, summed in fp32 in one order by both, then one rounding:
+        ``eps (|want| + A + n floor) (1 + 2^-6) + S``, A and S the calls'
+        |grad| and slack, n the calls."""
+        from apex_tpu_torch.ops.attention import backward_floor
+        key = (name, start)
+        eps = torch.finfo(want.dtype).eps
+        floor = backward_floor(want.shape[-1]) * eps
+        return (eps * (want.float().abs() + self.abs[key])
+                + self.calls[key] * floor) * (1 + 2.0 ** -6) \
+            + self.slack[key]
+
+
+def _plain_ring(cp: int, plain: _PlainChunks):
+    """``_LocalRing``'s schedule for ``cp`` ranks over ``plain``'s chunk
+    calls."""
+    from apex_tpu_torch.ops.ring_attention import _LocalRing
+    ring = _LocalRing(cp)
+    ring.fwd, ring.bwd = plain.fwd, plain.bwd
+    return ring
+
+
+def _o_bar(want: torch.Tensor, m_abs: torch.Tensor) -> torch.Tensor:
+    """How far another 16-bit ring's o may lie from ``want`` (a ring's o
+    over the same chunks): each chunk's o within 1 ulp (eps (|o_j| +
+    2^-8)) and its lse within 1e-4 (each merge weight within 2e-4
+    relative), merged in fp32 with weights w_j <= 1 and rounded once:
+    ``eps (|want| + M + 2^-8) (1 + 2^-6) + 2e-4 M``, ``m_abs`` = M =
+    attention(q, k, |v|) >= sum_j w_j |o_j|."""
+    eps = torch.finfo(want.dtype).eps
+    return eps * (want.float().abs() + m_abs + 2.0 ** -8) * (1 + 2.0 ** -6) \
+        + 2e-4 * m_abs
+
+
+def ring_vs_plain_ring(qs, ks, vs, dos, kv_lengths, window) -> dict:
+    """A 16-bit kernel ring (``_LocalRing``'s schedule over Kernels B and
+    I, causal) against the same schedule over the plain chunk versions
+    (``_PlainChunks``) on the same chunks, with bars derived from the
+    chunk bars: o within ``_o_bar`` (each chunk's o 1 ulp and lse 1e-4,
+    merged in fp32; M = attention(q, k, |v|) from Kernel B in f32 over
+    the whole sequence), and, both backwards on the kernel ring's o and
+    lse, each grad within ``_PlainChunks.grad_bar`` (each chunk call's 1
+    ulp plus rounding slack, summed). Raises past a bar; returns each
+    output's largest share of its bar."""
+    from apex_tpu_torch.ops.attention import flash_fwd_cuda
+    from apex_tpu_torch.ops.ring_attention import (_LocalRing, _ring_bwd,
+                                                   _ring_fwd)
+    cp, sc, d = len(qs), qs[0].shape[2], qs[0].shape[3]
+    scale = 1.0 / math.sqrt(d)
+    plain = _PlainChunks()
+    kernel_ring, plain_ring = _LocalRing(cp), _plain_ring(cp, plain)
+    args = (kv_lengths, True, window, scale)
+    with torch.no_grad():
+        os, lses = _ring_fwd(kernel_ring, qs, ks, vs, *args)
+        want_os, _ = _ring_fwd(plain_ring, qs, ks, vs, *args)
+        grads = _ring_bwd(kernel_ring, qs, ks, vs, kv_lengths, os, lses,
+                          dos, True, window, scale)
+        want_grads = _ring_bwd(plain_ring, qs, ks, vs, kv_lengths, os, lses,
+                               dos, True, window, scale)
+        m_abs = flash_fwd_cuda(*(torch.cat(t, dim=2).float()
+                                 for t in (qs, ks)),
+                               torch.cat(vs, dim=2).float().abs(), kv_lengths,
+                               scale, True, window)[0].chunk(cp, dim=2)
+    use = {}
+    for r in range(cp):
+        use[f"o{r}"] = float(((os[r].float() - want_os[r].float()).abs()
+                              / _o_bar(want_os[r], m_abs[r])).max())
+        for name, got_l, want_l in zip("qkv", grads, want_grads):
+            bar = plain.grad_bar(name, r * sc, want_l[r])
+            use[f"d{name}{r}"] = float(((got_l[r].float()
+                                         - want_l[r].float()).abs()
+                                        / bar).max())
+    worst = max(use, key=use.get)
+    if use[worst] > 1.0 or not all(torch.isfinite(t).all() for t in
+                                   (*os, *grads[0], *grads[1], *grads[2])):
+        raise AssertionError(f"ring vs plain ring {qs[0].dtype}: {worst} at "
+                             f"{use[worst]:.4f} of its bar")
+    return use
+
+
+def _chunk_bytes_ops(q, k, v, kvl, window, q_start, k_start, bwd) -> tuple:
+    """The bytes a chunk call must move and its visible (query, key) pairs
+    times the head count (each (b, h) row counted by the mask at its
+    offsets)."""
+    from apex_tpu_torch.ops.attention import _visible
+    sq, sk = q.shape[2], k.shape[2]
+    pairs = int(_visible(sq, sk, kvl, True, window, "cuda", q_start,
+                         k_start).expand(q.shape[0], 1, sq, sk).sum())
+    esz = q.element_size()
+    lse = q.shape[0] * q.shape[1] * sq * 4
+    if bwd:    # q, do, dq; k, v, dk, dv; lse and the given delta
+        return (3 * q.numel() + 4 * k.numel()) * esz + 2 * lse, \
+            10.0 * q.shape[3] * q.shape[1] * pairs
+    return (2 * q.numel() + 2 * k.numel()) * esz + lse, \
+        4.0 * q.shape[3] * q.shape[1] * pairs
+
+
+def _exact_head_group(q, k, v, do, kv_len: int, window: int) -> tuple:
+    """Exact (float64) attention of one batch row over one K/V head's
+    query heads, a query head at a time: q, do ``[hq, s, d]``, k, v ``[s,
+    d]``, causal with a window and a length. Returns (dq ``[hq, s, d]``,
+    dk, dv ``[s, d]``); a row that sees no key gives zeros."""
+    s, d = k.shape
+    scale = 1.0 / math.sqrt(d)
+    idx = torch.arange(s, device=q.device)
+    valid = (idx[None, :] <= idx[:, None]) & (
+        idx[None, :] > idx[:, None] - window) & (idx[None, :] < kv_len)
+    k64, v64 = k.double(), v.double()
+    dk, dv, dqs = torch.zeros_like(k64), torch.zeros_like(v64), []
+    for hq in range(q.shape[0]):
+        q64, do64 = q[hq].double(), do[hq].double()
+        p = (q64 @ k64.T).mul_(scale).masked_fill_(~valid, float("-inf"))
+        p = torch.softmax(p, dim=-1).nan_to_num_(0.0)
+        delta = (do64 * (p @ v64)).sum(-1, keepdim=True)
+        ds = (do64 @ v64.T).sub_(delta).mul_(p)
+        dqs.append(scale * (ds @ k64))
+        dk += scale * (ds.T @ q64)
+        dv += p.T @ do64
+        del p, ds
+    return torch.stack(dqs), dk, dv
+
+
+def _ring_exact_check(q, k, v, do, ring_grads, flash_grads, kvl,
+                      window) -> dict:
+    """The f32 ring's and the non-ring flash's grads against exact
+    (float64) attention, for each batch row's first K/V head and its
+    query heads: each error as a share of that grad's largest |value|.
+    The ring passes when its share is at most 1e-6 or twice the non-ring
+    flash's, whose sums run in one fp32 order over up to 4096 keys (the
+    ring's only adds a merge and a sum over chunks). Raises past that;
+    returns the shares as log fields."""
+    group = q.shape[1] // k.shape[1]
+    err = {}
+    for bb in range(q.shape[0]):
+        exact = _exact_head_group(q[bb, :group], k[bb, 0], v[bb, 0],
+                                  do[bb, :group], int(kvl[bb]), window)
+        for name, ex, rg, fg in zip("qkv", exact, ring_grads, flash_grads):
+            sel = slice(0, group) if name == "q" else 0
+            rg, fg = rg[bb, sel].double(), fg[bb, sel].double()
+            top = float(ex.abs().max())
+            for who, g_ in (("ring", rg), ("flash", fg)):
+                key = f"d{name}_{who}_vs_exact_over_max"
+                err[key] = max(err.get(key, 0.0),
+                               float((g_ - ex).abs().max()) / top)
+        del exact
+    for name in "qkv":
+        ring, flash = (err[f"d{name}_{w}_vs_exact_over_max"]
+                       for w in ("ring", "flash"))
+        if ring > max(1e-6, 2 * flash):
+            raise AssertionError(f"ring f32: d{name} {ring:.3e} of its "
+                                 f"largest |value| from exact attention, "
+                                 f"non-ring flash {flash:.3e}")
+    return {k_: f"{e:.3e}" for k_, e in err.items()}
+
+
+def phase_ring(timer: Timer) -> tuple:
+    """A 4-chunk ring at Mistral-7B's attention widths (:data:`RING`)
+    through ``_ring_attention_local``, all four ranks on one card (the
+    same chunk calls in the same order as a 4-rank group ring), forward
+    and backward under autograd, in f32 and bf16 (``[ring]`` lines). Each
+    rank meets its diagonal chunk, one the window cuts, a far past the
+    window skips (q_off past sk + window) and future chunks. The launches
+    are read around the bf16 run (the main path of the offset records):
+    B and I 16 each (cp x cp chunk calls), every other kernel 0.
+
+    - f32: o against the non-ring ``flash_attention`` over the whole
+      sequence (Kernels B and I at the default offsets) rtol and atol
+      2e-5; every grad element, every head, within
+      :data:`RING_F32_GRAD_BAR` of that grad's largest |value| from
+      non-ring flash; and both held to exact (float64) attention on one
+      K/V head group by :func:`_ring_exact_check`;
+    - bf16: :func:`ring_vs_plain_ring`'s derived bars;
+    - rows that see no key (batch row 1 past 14095: the window ends
+      before its length) give o = 0.
+
+    Then, in bf16, the ring's forward and forward + backward timed beside
+    the non-ring flash, and rank 3's chunk calls (diagonal, window-cut,
+    the two far-past ones) and rank 0's future ones timed alone, B's and
+    I's diagonal call beside its plain version, its bound and SDPA with a
+    boolean mask: the records ``flash_fwd_ring`` and ``flash_bwd_ring``.
+    Returns (records, launches)."""
+    from apex_tpu_torch.ops import LAUNCHES, flash_attention, reset_launches
+    from apex_tpu_torch.ops.attention import (
+        _visible, flash_chunk_bwd, flash_chunk_bwd_plain, flash_chunk_fwd,
+        flash_chunk_fwd_plain, flash_fwd_cuda)
+    from apex_tpu_torch.ops.ring_attention import _ring_attention_local
+    card = _card_name().replace(" ", "_")
+    b, h, kvh, d, w, s, cp = (RING[n] for n in ("b", "h", "kvh", "d",
+                                                "window", "s", "cp"))
+    sc = s // cp
+    kvl = torch.tensor(RING["kv_lengths"], device="cuda")
+    kw = dict(causal=True, sliding_window=w, kv_lengths=kvl)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    lengths = ",".join(str(n) for n in RING["kv_lengths"])
+    shape = (f"q[{b},{h},{s},{d}]_k,v[{b},{kvh},{s},{d}]_cp{cp}_window{w}_"
+             f"kv_lengths[{lengths}]")
+    launches, recs = None, []
+    for dtype in (torch.float32, torch.bfloat16):
+        q, do = (torch.randn(b, h, s, d, device="cuda", generator=gen).to(
+            dtype) for _ in range(2))
+        k, v = (torch.randn(b, kvh, s, d, device="cuda", generator=gen).to(
+            dtype) for _ in range(2))
+        qs, ks, vs, dos = ([c.contiguous() for c in t.chunk(cp, dim=2)]
+                           for t in (q, k, v, do))
+        leaves = [[c.clone().requires_grad_() for c in chunks]
+                  for chunks in (qs, ks, vs)]
+        torch.cuda.synchronize()
+        reset_launches()
+        outs = _ring_attention_local(*leaves, **kw)
+        torch.autograd.backward(outs, dos)
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        want = {n: cp * cp if n in ("flash_fwd", "flash_bwd") else 0
+                for n in counts}
+        if counts != want:
+            raise AssertionError(f"ring {dtype}: launches {counts}, "
+                                 f"expected {want}")
+        o = torch.cat([t.detach() for t in outs], dim=2)
+        grads = [torch.cat([c.grad for c in chunks], dim=2)
+                 for chunks in leaves]
+        empty = int(RING["kv_lengths"][1]) + w
+        if o[1, :, empty:].any():
+            raise AssertionError("ring: rows that see no key are not 0")
+        fields = {}
+        if dtype == torch.float32:
+            fl = [t.clone().requires_grad_() for t in (q, k, v)]
+            fo = flash_attention(*fl, **kw)
+            fo.backward(do)
+            fo = fo.detach()
+            o_err = float(((o - fo).abs() - 2e-5 * fo.abs()).max())
+            if o_err > 2e-5:
+                raise AssertionError(f"ring f32: o past rtol/atol 2e-5 "
+                                     f"({o_err})")
+            fields["o_err"] = f"{float((o - fo).abs().max()):.3e}"
+            for name, g_, f_ in zip("qkv", grads, fl):
+                share = float((g_ - f_.grad).abs().max()
+                              / f_.grad.abs().max())
+                if share > RING_F32_GRAD_BAR:
+                    raise AssertionError(
+                        f"ring f32: d{name} {share:.3e} of its largest "
+                        f"|value| from non-ring flash (bar "
+                        f"{RING_F32_GRAD_BAR:.0e})")
+                fields[f"d{name}_vs_flash_over_max"] = f"{share:.3e}"
+            fields.update(_ring_exact_check(q, k, v, do, grads,
+                                            [f_.grad for f_ in fl], kvl, w))
+            del fl, fo
+        else:
+            launches = counts
+            use = ring_vs_plain_ring(qs, ks, vs, dos, kvl, w)
+            fields = {f"{n}_bar_use": f"{u:.4f}" for n, u in use.items()}
+        log("ring", card=card, shape=shape, dtype=str(dtype)[6:],
+            launches=json.dumps(counts).replace(" ", ""),
+            o_sha256=digest(o),
+            sha256=digest(torch.cat([g_.reshape(-1) for g_ in grads])),
+            **fields)
+        del outs, leaves, grads, o
+        torch.cuda.empty_cache()
+    # times (bf16): the ring against the non-ring flash
+    with torch.no_grad():
+        ring_fwd = timer(lambda: _ring_attention_local(qs, ks, vs, **kw),
+                         iters=5, warmup=1)
+        flash_fwd = timer(lambda: flash_attention(q, k, v, **kw), iters=5,
+                          warmup=1)
+    leaves = [[c.clone().requires_grad_() for c in chunks]
+              for chunks in (qs, ks, vs)]
+
+    def ring_step():
+        torch.autograd.backward(_ring_attention_local(*leaves, **kw), dos)
+
+    fl = [t.clone().requires_grad_() for t in (q, k, v)]
+    ring_both = timer(ring_step, iters=5, warmup=1)
+    flash_both = timer(lambda: flash_attention(*fl, **kw).backward(do),
+                       iters=5, warmup=1)
+    log("ring_timed", card=card, shape=shape, dtype="bfloat16",
+        ring_fwd_ms=f"{ring_fwd:.5f}", ring_bwd_ms=f"{ring_both - ring_fwd:.5f}",
+        ring_fwd_bwd_ms=f"{ring_both:.5f}", flash_fwd_ms=f"{flash_fwd:.5f}",
+        flash_bwd_ms=f"{flash_both - flash_fwd:.5f}",
+        flash_fwd_bwd_ms=f"{flash_both:.5f}")
+    # one forward + backward of the ring, device ms by kernel
+    ops, dev_ms, by_kernel = device_work(ring_step)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:8]
+    log("ring_profile", card=card, device_ops=ops, device_ms=dev_ms,
+        top=json.dumps({n[:48]: [c, round(ms, 5)] for n, (c, ms) in top})
+        .replace(" ", ""))
+    del leaves, fl
+    # rank 3's chunk calls and rank 0's future ones, alone, on the global
+    # lse and delta
+    o_full, lse_full = flash_fwd_cuda(q, k, v, kvl, 1.0 / math.sqrt(d), True,
+                                      w)
+    delta = (do.float() * o_full.float()).sum(-1)
+    lse_c, delta_c = ([t[:, :, r * sc:(r + 1) * sc].contiguous()
+                       for r in range(cp)] for t in (lse_full, delta))
+    for r, j, kind in ((3, 3, "diagonal"), (3, 2, "window_cuts"),
+                       (3, 1, "far_past_skipped"), (3, 0, "far_past_skipped"),
+                       (0, 1, "future"), (0, 3, "future")):
+        ckw = dict(q_start=r * sc, k_start=j * sc, causal=True, window=w,
+                   kv_lengths=kvl, softmax_scale=1.0 / math.sqrt(d))
+        args = (qs[r], ks[j], vs[j])
+        bargs = (*args, dos[r], lse_c[r], delta_c[r])
+        ms_b = timer(lambda: flash_chunk_fwd(*args, **ckw), iters=10)
+        ms_i = timer(lambda: flash_chunk_bwd(*bargs, **ckw), iters=10)
+        fields = {}
+        if kind == "diagonal":
+            pargs = (kvl, ckw["softmax_scale"], True, w, r * sc, j * sc)
+            plain_b = timer(lambda: flash_chunk_fwd_plain(*args, *pargs),
+                            iters=3, warmup=1)
+            plain_i = timer(lambda: flash_chunk_bwd_plain(*bargs, *pargs),
+                            iters=3, warmup=1)
+            mask = _visible(sc, sc, kvl, True, w, "cuda", r * sc, j * sc)
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qs[r], ks[j], vs[j], attn_mask=mask, enable_gqa=True)
+            lib_b = timer(sdpa, iters=10)
+            q4, k4, v4 = (t.detach().clone().requires_grad_()
+                          for t in args)
+            out4 = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                                  enable_gqa=True)
+            lib_i = timer(lambda: torch.autograd.grad(
+                out4, (q4, k4, v4), dos[r], retain_graph=True), iters=10)
+            del q4, k4, v4, out4, mask
+            o_c, lse_o = flash_chunk_fwd(*args, **ckw)
+            ro, _ = flash_chunk_fwd_plain(*(t.float() for t in args), *pargs)
+            b_err = float((o_c.float() - ro.to(o_c.dtype).float()).abs().max())
+            i_got = flash_chunk_bwd(*bargs, **ckw)
+            i_want = flash_chunk_bwd_plain(*bargs, *pargs)
+            i_err = max(float((g_.float() - w_.float()).abs().max())
+                        for g_, w_ in zip(i_got, i_want))
+            bb, ob = _chunk_bytes_ops(*args, kvl, w, r * sc, j * sc, False)
+            bms_b, by_b = bound_ms(bb, ob, torch.bfloat16)
+            bb, ob = _chunk_bytes_ops(*args, kvl, w, r * sc, j * sc, True)
+            bms_i, by_i = bound_ms(bb, ob, torch.bfloat16)
+            cshape = (f"q[{b},{h},{sc},{d}] k,v[{b},{kvh},{sc},{d}] bf16 "
+                      f"q_start{r * sc} k_start{j * sc} window{w}")
+            recs.append(dict(
+                name="flash_fwd_ring", route="cuda",
+                source="apex_tpu_torch/csrc/flash_fwd.cu",
+                replaces="apex_tpu/ops/attention.py:266", shape=cshape,
+                max_abs_err=b_err, ms=ms_b, plain_ms=plain_b,
+                bound_ms=bms_b, bound_by=by_b, library_ms=lib_b))
+            recs.append(dict(
+                name="flash_bwd_ring", route="cuda",
+                source="apex_tpu_torch/csrc/flash_bwd.cu",
+                replaces="apex_tpu/ops/attention.py:438", shape=cshape,
+                max_abs_err=i_err, ms=ms_i, plain_ms=plain_i,
+                bound_ms=bms_i, bound_by=by_i, library_ms=lib_i))
+            fields = dict(b_plain_ms=f"{plain_b:.5f}",
+                          b_library_ms=f"{lib_b:.5f}",
+                          b_bound_ms=f"{bms_b:.5f}", b_bound_by=by_b,
+                          i_plain_ms=f"{plain_i:.5f}",
+                          i_library_ms=f"{lib_i:.5f}",
+                          i_bound_ms=f"{bms_i:.5f}", i_bound_by=by_i)
+        log("ring_chunk_timed", card=card, rank=r, chunk=j, kind=kind,
+            b_ms=f"{ms_b:.5f}", i_ms=f"{ms_i:.5f}", **fields)
+    del q, k, v, do, qs, ks, vs, dos, o_full, lse_full, delta
+    torch.cuda.empty_cache()
+    return recs, launches
+
+
 #: the phase whose run is each kernel's main path
 MAIN_PATH = {"layer_norm_fwd": "serve", "flash_fwd": "serve",
              "paged_decode": "serve", "layer_norm_bwd": "train",
@@ -5747,7 +6309,8 @@ MAIN_PATH = {"layer_norm_fwd": "serve", "flash_fwd": "serve",
              "flash_packed_bwd_hd512": "hd512_train",
              "flash_fwd_hd512": "hd512_serve",
              "flash_bwd_hd512": "flash_hd512",
-             "paged_decode_hd512": "hd512_serve"}
+             "paged_decode_hd512": "hd512_serve",
+             "flash_fwd_ring": "ring", "flash_bwd_ring": "ring"}
 #: the launch counter of a record that names a variant of a kernel
 COUNTER = {"paged_decode_int8": "paged_decode",
            "paged_decode_window": "paged_decode",
@@ -5774,7 +6337,8 @@ COUNTER = {"paged_decode_int8": "paged_decode",
            "flash_packed_bwd_hd512": "flash_packed_bwd",
            "flash_fwd_hd512": "flash_fwd",
            "flash_bwd_hd512": "flash_bwd",
-           "paged_decode_hd512": "paged_decode"}
+           "paged_decode_hd512": "paged_decode",
+           "flash_fwd_ring": "flash_fwd", "flash_bwd_ring": "flash_bwd"}
 
 
 def main() -> int:
@@ -5837,6 +6401,9 @@ def main() -> int:
     paths["flash_hd512"] = hd512_launches
     paths.update(phase_hd512(args.profile))
     phase_hd512_card_vs_cpu()
+    paths["flash_chunk"] = phase_flash_chunk()
+    ring_records, paths["ring"] = phase_ring(timer)
+    records += ring_records
     for rec in records:
         name = rec["name"]
         counter = COUNTER.get(name, name)
