@@ -69,7 +69,8 @@
 //   by ldmatrix.trans from the same tile; dq is scaled and rounded once.
 // Past d 128 (DMAX 256) both passes split each strip's output columns over
 // two warps, as Kernel F does (flash_mma.cuh Cols); past 256 (DMAX 512)
-// over four, with Kernel F's 32-key and 32-query tiles.
+// over four, with Kernel F's 32-key and 32-query tiles. Past 512, any d:
+// the entry hands the call to the wide instance (flash_wide_bwd.cu).
 // Registers are capped at 168 a thread at d <= 64 so that three blocks fit
 // an SM, as in Kernel F. Seven tile products a visible pair (q k^T and
 // do v^T in both passes) in place of the algorithm's five, for no atomics.
@@ -91,6 +92,7 @@
 #include <type_traits>
 
 #include "flash_mma.cuh"
+#include "flash_wide.cuh"
 
 namespace {
 
@@ -983,7 +985,8 @@ cudaError_t launch_16(const Args16<T>& a, int b, const T* out, float* delta,
 // attention). lse is the forward's (Kernel B), 1e30 on a row that sees no
 // key. delta_given 0: delta is scratch that the kernel fills with
 // rowsum(do * o); else it holds the caller's delta (a ring's, from the
-// merged o) and o is not read (may be null).
+// merged o) and o is not read (may be null). Any d > 0: past 512 the wide
+// instance (flash_wide_bwd.cu).
 extern "C" int apex_flash_bwd(const void* q, const void* k, const void* v,
                               const void* out, const void* dout,
                               const void* lse, void* delta, void* dq,
@@ -997,7 +1000,11 @@ extern "C" int apex_flash_bwd(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  if (d > 512) return static_cast<int>(cudaErrorInvalidValue);
+  if (d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (d > apex::wide::kMaxTiled)
+    return static_cast<int>(apex::wide::bwd_4d(
+        q, k, v, out, dout, l, dl, dq, dk, dv, kvl, b, h, kvh, d, scale,
+        mask, delta_given, dtype, st));
   // the 16-bit passes over T (bf16 or fp16), each pointer read as T
   auto run16 = [&](auto* tag) {
     using T = std::remove_pointer_t<decltype(tag)>;

@@ -69,7 +69,9 @@
 // step (Kernel E's split, flash_mma.cuh Cols): 8-warp blocks of 64 rows,
 // one an SM. Past 256 (DMAX 512) four warps share a strip: 8-warp blocks
 // of 32 rows over 32-key tiles (166,400 bytes of shared memory), as
-// Kernel E.
+// Kernel E. Past 512, any d: the entry hands the call to the wide
+// instance (flash_wide_fwd.cu: 512-column parts on a grid axis, Q and K
+// streamed through shared memory in slices).
 // Blocks of 4 warps (64 rows), three an SM at 168 registers a thread: at
 // the serving prefill (b 1, 12 heads) E's 128-row blocks would give 12-72
 // blocks on 132 SMs, and they were 11-25% slower at every shape measured
@@ -85,6 +87,7 @@
 #include <type_traits>
 
 #include "flash_mma.cuh"
+#include "flash_wide.cuh"
 
 namespace {
 
@@ -524,7 +527,7 @@ cudaError_t launch_16(const FlashArgs& a, cudaStream_t stream) {
 // like q, lse [b, h, sq] fp32; all contiguous. kv_lengths [b] int32
 // (global lengths) or null; window 0 = none; q_start and k_start the
 // global positions of the first query and key (sk - sq and 0 for plain
-// attention).
+// attention). Any d > 0: past 512 the wide instance (flash_wide_fwd.cu).
 extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, const void* kv_lengths,
                               void* stream, int b, int h, int kvh, int sq,
@@ -535,7 +538,11 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                     static_cast<const int*>(kv_lengths), b, h, kvh, d,
                     scale, mask_4d(sq, sk, causal, window, q_start, k_start)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d > 512) return static_cast<int>(cudaErrorInvalidValue);
+  if (d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (d > apex::wide::kMaxTiled)
+    return static_cast<int>(apex::wide::fwd_4d(q, k, v, o, a.lse,
+                                               a.kv_lengths, b, h, kvh, d,
+                                               scale, a.mask, dtype, s));
   // the instance of the head dim: DMAX 64, 128, 256 or 512
   auto by_d = [d](auto f64, auto f128, auto f256, auto f512) {
     return d <= 64 ? f64() : d <= 128 ? f128() : d <= 256 ? f256() : f512();

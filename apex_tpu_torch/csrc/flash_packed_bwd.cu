@@ -80,7 +80,8 @@
 // (or queries) at up to 255 registers a thread, the dq ring's key tiles
 // are 32 rows (200,192 and 199,680 bytes of shared memory), and the
 // tensor work is 38 d a visible pair; both passes spill (ptxas -v,
-// PERF.md).
+// PERF.md). Past 512, any d: the entry hands the call to the wide
+// instance (flash_wide_bwd.cu), dq and dk un-rotated in a last pass.
 // This is seven tile products a visible pair (q k^T and do v^T in both
 // passes): 14 d of tensor work against the algorithm's 10 d, for no
 // atomics and no cross-block sums. FlashAttention-2's single pass with an
@@ -104,6 +105,7 @@
 //   accumulate in fp32 over the group's qpg query heads and their visible
 //   query tiles.
 #include "flash_mma.cuh"
+#include "flash_wide.cuh"
 #include "packed_attention.cuh"
 
 namespace {
@@ -1134,12 +1136,16 @@ cudaError_t launch_16(const void* qkv, const void* dout, const void* out,
 // [s, b, groups * qpg * d], all four of one dtype (f32, bf16 or fp16;
 // another code is cudaErrorInvalidValue); lse and the delta scratch
 // [b, groups * qpg, s] fp32; all contiguous. kv_lengths, cos/sin and seed as in
-// apex_flash_packed_fwd, and the same values the forward was given.
+// apex_flash_packed_fwd, and the same values the forward was given. Any
+// d > 0: past 512 the wide instance (flash_wide_bwd.cu), which needs
+// grad32, fp32 scratch [s, b, groups * (qpg + 1), d], and with RoPE rot_qkv,
+// scratch like qkv (both null at d <= 512).
 extern "C" int apex_flash_packed_bwd(const void* qkv, const void* dout,
                                      const void* out, const void* lse,
                                      void* delta, void* dqkv,
                                      const void* kv_lengths, const void* cos,
                                      const void* sin, const void* seed,
+                                     void* grad32, void* rot_qkv,
                                      void* stream, int s, int b, int groups,
                                      int qpg, int d, float scale, int causal,
                                      int window, int rot,
@@ -1152,6 +1158,11 @@ extern "C" int apex_flash_packed_bwd(const void* qkv, const void* dout,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
+  if (d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (d > apex::wide::kMaxTiled)
+    return static_cast<int>(apex::wide::bwd_packed(
+        qkv, dout, out, l, dl, dqkv, static_cast<float*>(grad32), rot_qkv,
+        opt, dtype, st));
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == apex::kBF16)
     err = launch_16<__nv_bfloat16>(qkv, dout, out, l, dl, dqkv, opt, st);

@@ -75,7 +75,9 @@
 // Past 256 (DMAX 512) four warps share each strip, 128 columns each, so 8
 // warps make 32-row blocks; 64-key tiles in two stages would need 299,520
 // bytes, so the ring takes 32-key tiles (166,400 bytes); the tensor work
-// is 12 d a visible pair (S four times over).
+// is 12 d a visible pair (S four times over). Past 512, any d: the entry
+// hands the call to the wide instance (flash_wide_fwd.cu), RoPE applied
+// first into a scratch copy of qkv.
 // Registers are capped at 128 a thread at d <= 64 so that two blocks fit
 // an SM: the kernel waits on latency (ldmatrix, mma, exp) more than on
 // any one unit, and 16 resident warps beat the few bytes it spills.
@@ -98,6 +100,7 @@
 #include <type_traits>
 
 #include "flash_mma.cuh"
+#include "flash_wide.cuh"
 #include "packed_attention.cuh"
 
 namespace {
@@ -587,10 +590,12 @@ cudaError_t launch_16(const void* qkv, void* o, float* lse, const Opts& opt,
 // dtype (f32, bf16 or fp16; another code is cudaErrorInvalidValue),
 // lse [b, groups * qpg, s] fp32, all contiguous. kv_lengths [b] int32,
 // cos/sin [s, d] fp32 and seed [1] int32 may each be null (feature off).
+// Any d > 0: past 512 the wide instance (flash_wide_fwd.cu), which with
+// RoPE (rot > 0) needs rot_qkv, scratch like qkv (else null).
 extern "C" int apex_flash_packed_fwd(const void* qkv, void* o, void* lse,
                                      const void* kv_lengths, const void* cos,
                                      const void* sin, const void* seed,
-                                     void* stream, int s, int b, int groups,
+                                     void* rot_qkv, void* stream, int s, int b, int groups,
                                      int qpg, int d, float scale, int causal,
                                      int window, int rot,
                                      unsigned keep_thresh, float inv_keep,
@@ -601,6 +606,10 @@ extern "C" int apex_flash_packed_fwd(const void* qkv, void* o, void* lse,
                  causal, window, rot, keep_thresh, inv_keep};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  if (d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (d > apex::wide::kMaxTiled)
+    return static_cast<int>(
+        apex::wide::fwd_packed(qkv, o, l, rot_qkv, opt, dtype, st));
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == apex::kBF16)
     err = launch_16<__nv_bfloat16>(qkv, o, l, opt, st);

@@ -92,11 +92,17 @@
 // The element path (paged_decode_kernel, the first port's kernel, bitwise
 // at w = 1 on bf16/f32 pools; fp16 as bf16) takes everything else:
 // head_dim off the 16-byte pieces, misaligned bases, int8 pools under f32
-// q. One 128-thread block per (kv head, slot) stages one page of K and V
-// in shared memory as fp32 (int8 dequantized there) and walks the slot's
-// pages in turn; where a page of both does not fit (head_dim 512 with
-// pages of 64: 279,856 bytes), it walks each page in tiles of half (or a
-// quarter, ...) a page, each a step of the online softmax.
+// q. One 128-thread block per (kv head x row chunk, slot) stages one page
+// of K and V in shared memory as fp32 (int8 dequantized there) beside its
+// query rows' q and accumulators, and walks the slot's pages in turn;
+// where a page of both does not fit (head_dim 512 with pages of 64:
+// 279,856 bytes), it walks each page in tiles of half (or a quarter, ...)
+// a page, each a step of the online softmax. Where even one K/V row leaves
+// no room beside a kv head's w x group query rows (head_dim 1024 at 32
+// rows, 2048 at 16), the rows are cut into equal chunks across blocks, as
+// on the vector path (the plan's `heads`: all of them wherever a tile
+// fits, so those shapes keep their bits). One query row and one K/V row
+// fit up to head_dim 14526.
 #include <cstdint>
 #include <type_traits>
 
@@ -119,6 +125,7 @@ struct DecodeArgs {
   const int* positions;
   void* ctx;
   int b, w, hl, kvh, dh, n_pages, page_size, pages_per_slot, window;
+  int heads;  // the element path's query rows a block (a chunk)
 };
 
 // A pool element as fp32: bf16/fp16/f32 as they are; int8 times its scale.
@@ -134,8 +141,9 @@ __device__ __forceinline__ float pool_float(int8_t v, float scale) {
 }
 
 // The element path's shared memory for K/V tiles of `tile` rows of a page
+// beside a chunk of `heads` query rows
 inline size_t smem_floats(const DecodeArgs& a, int tile) {
-  const int g = a.w * a.hl / a.kvh;  // query rows of a kv head
+  const int g = a.heads;
   return static_cast<size_t>(g) * a.dh * 2                  // q, acc
          + static_cast<size_t>(tile) * (a.dh + 1)           // K rows
          + static_cast<size_t>(tile) * a.dh                 // V rows
@@ -146,21 +154,23 @@ inline size_t smem_floats(const DecodeArgs& a, int tile) {
 constexpr size_t kSmemBytes = 232448;  // an H100 block's shared memory
 
 // The K/V rows the element path stages at once: the first of page_size,
-// page_size / 2, / 4, ... (rounded down) that fits (a whole page at every
-// shape up to head_dim 260 with pages of 64 and 4 query rows; 32 rows at
-// 512); 0 when none fits (ops/decode_attention.py `element_tile` mirrors
-// it).
+// page_size / 2, / 4, ... (rounded down) that fits beside the block's
+// `heads` query rows (a whole page at every shape up to head_dim 260 with
+// pages of 64 and 4 query rows; 32 rows at 512; 16 at 1024); 0 when none
+// fits (ops/decode_attention.py `element_tile` mirrors it, and its
+// `paged_decode_plan` cuts the rows into chunks until one does).
 inline int element_tile(const DecodeArgs& a) {
   for (int t = a.page_size; t >= 1; t /= 2)
     if (smem_floats(a, t) * sizeof(float) <= kSmemBytes) return t;
   return 0;
 }
 
-// T: q and ctx; P: the pools (T, or int8_t with scales). A page is walked
-// in tiles of `tile` rows (element_tile), each taken as the online
-// softmax's step: K and V rows staged side by side, the tile's scores, its
-// softmax update, then P V. At tile == page_size (every shape whose page
-// fits) each step is one page.
+// T: q and ctx; P: the pools (T, or int8_t with scales). A block serves
+// the query rows [chunk * heads, + heads) of its kv head's w x group. A
+// page is walked in tiles of `tile` rows (element_tile), each taken as the
+// online softmax's step: K and V rows staged side by side, the tile's
+// scores, its softmax update, then P V. At tile == page_size (every shape
+// whose page fits) each step is one page.
 template <typename T, typename P>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
@@ -170,32 +180,38 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
                     const int* __restrict__ page_table,
                     const int* __restrict__ positions, T* __restrict__ ctx,
                     int w, int hl, int kvh, int dh, int n_pages, int ps,
-                    int pps, int window, int tile) {
+                    int pps, int window, int tile, int heads) {
   extern __shared__ float smem[];
   constexpr bool kQ8 = std::is_same<P, int8_t>::value;
   const int G = hl / kvh;
-  const int R = w * G;               // query rows: row i is (i / G, i % G)
-  float* qs = smem;                  // [R][dh]
-  float* acc = qs + R * dh;          // [R][dh]
-  float* Ks = acc + R * dh;          // [tile][dh + 1]
-  float* Vs = Ks + tile * (dh + 1);  // [tile][dh]
-  float* Ss = Vs + tile * dh;        // [R][tile]
-  float* m_s = Ss + R * tile;
-  float* l_s = m_s + R;
-  float* alpha_s = l_s + R;
+  const int chunks = (w * G + heads - 1) / heads;
+  const int i0 = blockIdx.x % chunks * heads;  // the block's first row
+  // the block's query rows: row i0 + i is (window row, head) ((i0 + i) /
+  // G, (i0 + i) % G)
+  const int R = min(heads, w * G - i0);
+  float* qs = smem;                      // [heads][dh]
+  float* acc = qs + heads * dh;          // [heads][dh]
+  float* Ks = acc + heads * dh;          // [tile][dh + 1]
+  float* Vs = Ks + tile * (dh + 1);      // [tile][dh]
+  float* Ss = Vs + tile * dh;            // [heads][tile]
+  float* m_s = Ss + heads * tile;
+  float* l_s = m_s + heads;
+  float* alpha_s = l_s + heads;
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int kv = blockIdx.x;
+  const int kv = blockIdx.x / chunks;
   const int r = blockIdx.y;
   const int f = kvh * dh;
   const int pos = positions[r];
   const float rsq = sqrtf(static_cast<float>(dh));
-  // q / ctx row of query row i: window row i / G of head kv * G + i % G
+  // q / ctx row of the block's row i: window row (i0 + i) / G of head
+  // kv * G + (i0 + i) % G
   auto out_row = [&](int i) {
-    const int t = i / G;
-    return (static_cast<long long>(r) * w + t) * hl + kv * G + (i - t * G);
+    const int t = (i0 + i) / G;
+    return (static_cast<long long>(r) * w + t) * hl + kv * G +
+           (i0 + i - t * G);
   };
 
   for (int idx = tid; idx < R * dh; idx += kThreads) {
@@ -263,7 +279,7 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
         float dot = 0.f;
         for (int c = 0; c < dh; ++c) dot = fmaf(qg[c], kt[c], dot);
         const int row = j * ps + t0 + t;
-        const int lim = pos + g / G;  // window row g / G
+        const int lim = pos + (i0 + g) / G;  // its window row
         bool invalid = row > lim;
         if (window > 0) invalid = invalid || row <= lim - window;
         Ss[idx] = invalid ? kNeg : dot / rsq;
@@ -315,18 +331,21 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
 
 template <typename T, typename P>
 cudaError_t launch_element(const DecodeArgs& a, cudaStream_t stream) {
+  const int rows = a.w * (a.hl / a.kvh);
+  if (a.heads < 1 || a.heads > rows) return cudaErrorInvalidValue;
   const int tile = element_tile(a);
   if (tile < 1) return cudaErrorInvalidValue;
   auto kernel = paged_decode_kernel<T, P>;
   const size_t smem = smem_floats(a, tile) * sizeof(float);
   cudaError_t err = apex::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.kvh, a.b);
+  const dim3 grid(a.kvh * ((rows + a.heads - 1) / a.heads), a.b);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const P*>(a.k_pages),
       static_cast<const P*>(a.v_pages), a.k_scales, a.v_scales,
       a.page_table, a.positions, static_cast<T*>(a.ctx), a.w, a.hl, a.kvh,
-      a.dh, a.n_pages, a.page_size, a.pages_per_slot, a.window, tile);
+      a.dh, a.n_pages, a.page_size, a.pages_per_slot, a.window, tile,
+      a.heads);
   return cudaGetLastError();
 }
 
@@ -968,7 +987,8 @@ cudaError_t launch_vec(const VecArgs& a, int dtype, int pool_int8,
 // fp32 [n_pages, kvh]; page_table [b, pages_per_slot] int32; positions [b]
 // int32; ctx [b, w, hl * dh]; all contiguous. window 0 = no sliding
 // window. The plan (ops/decode_attention.py `paged_decode_plan`): pieces 0
-// takes the element path (ws, counters and the rest of the plan unused);
+// takes the element path with `heads` query rows a block (ws, counters and
+// the rest of the plan unused);
 // else 16-byte pieces of q a lane, lanes a row, query rows a block (at
 // most 8), pages a split and splits. ws: fp32 [b * w * hl * splits * (dh
 // + 2)] (null when splits is 1); counters: int32 [b * kvh * chunks], zero,
@@ -994,7 +1014,7 @@ extern "C" int apex_paged_decode(const void* q, const void* k_pages,
     DecodeArgs a{q, k_pages, v_pages, ks, vs,
                  static_cast<const int*>(page_table),
                  static_cast<const int*>(positions), ctx, b, w, hl, kvh, dh,
-                 n_pages, page_size, pages_per_slot, window};
+                 n_pages, page_size, pages_per_slot, window, heads};
     cudaError_t err;
     if (dtype == apex::kBF16)
       err = pool_int8 ? launch_element<bf16, int8_t>(a, s)

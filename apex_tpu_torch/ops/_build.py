@@ -64,13 +64,14 @@ _SIGNATURES = {
     # dtype, pieces a lane, query heads a block, head_dim, out: resident
     # blocks an SM
     "apex_paged_decode_blocks_per_sm": [_I] * 6 + [_P],
-    # qkv, o, lse, kv_lengths, cos, sin, seed, stream, s, b, groups, qpg,
-    # d, scale, causal, window, rot, keep_thresh, inv_keep, dtype
-    "apex_flash_packed_fwd": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _I, _U, _F,
+    # qkv, o, lse, kv_lengths, cos, sin, seed, rot_qkv (scratch), stream,
+    # s, b, groups, qpg, d, scale, causal, window, rot, keep_thresh,
+    # inv_keep, dtype
+    "apex_flash_packed_fwd": [_P] * 9 + [_I] * 5 + [_F, _I, _I, _I, _U, _F,
                                                     _I],
-    # qkv, do, o, lse, delta, dqkv, kv_lengths, cos, sin, seed, stream,
-    # then as the forward
-    "apex_flash_packed_bwd": [_P] * 11 + [_I] * 5 + [_F, _I, _I, _I, _U, _F,
+    # qkv, do, o, lse, delta, dqkv, kv_lengths, cos, sin, seed, grad32 and
+    # rot_qkv (scratch), stream, then as the forward
+    "apex_flash_packed_bwd": [_P] * 13 + [_I] * 5 + [_F, _I, _I, _I, _U, _F,
                                                      _I],
     # x, mask, y, stream, rows, k, d1, d2, mask strides (4), scale, sq,
     # causal, dtype, pieces a lane, lanes a row

@@ -19,6 +19,8 @@ Counterpart of ``apex_tpu/ops/attention.py``:
   tensor runs Kernels B and I with those offsets, the backward on the
   caller's global lse and delta; a CPU tensor runs
   :func:`flash_chunk_fwd_plain` and :func:`flash_chunk_bwd_plain`.
+- Every kernel takes any head dim: past 512 Kernels B, I, E and F walk it
+  in parts of 512 output columns (``csrc/flash_wide.cuh``).
 - :func:`flash_attention_packed` takes the fused QKV projection
   ``[s, b, G*(qpg+2)*d]`` as it comes out of ``ParallelAttention`` and is
   differentiable: the forward is ``csrc/flash_packed_fwd.cu`` (Kernel E),
@@ -46,12 +48,14 @@ __all__ = ["flash_attention", "flash_fwd_plain",
            "packed_geometry", "drop_combo", "hash_keep",
            "flash_packed_fwd_plain", "flash_packed_bwd_plain",
            "flash_packed_bwd_rounding_slack", "flash_packed_fwd_cuda",
-           "flash_packed_bwd_cuda", "rounding_step", "backward_floor"]
+           "flash_packed_bwd_cuda", "rounding_step", "backward_floor",
+           "forward_floor"]
 
 _NEG_INF = -1e30
-#: the widest head the kernels take (B, I, E and F instantiate DMAX 64,
-#: 128, 256 and 512)
-_MAX_HEAD_DIM = 512
+#: the widest head of the kernels' DMAX 64, 128, 256 and 512 instances;
+#: past it B, I, E and F walk the head dim in parts of 512 columns
+#: (csrc/flash_wide.cuh), and E and F take scratch
+_TILED_HEAD_DIM = 512
 #: lse of a query row that sees no key (attention.py ``_LSE_PAD``)
 _LSE_PAD = 1e30
 
@@ -73,8 +77,21 @@ def backward_floor(d: int) -> float:
     ds = p (dp - delta) cancels to the fp32 summation noise of two d-long
     sums, which grows with d: at d 512 in fp16 a dq element landed 0.95e-6
     past the 2^-18 floor's bound, both on an H100 and with JAX's
-    interpret-mode kernel on the CPU."""
+    interpret-mode kernel on the CPU. The same line holds past 512 (d
+    840 to 2048 against JAX's interpret kernels on the CPU,
+    tests/test_torch_hd1024.py)."""
     return 2.0 ** -8 * max(1.0, d / 256)
+
+
+def forward_floor(d: int) -> float:
+    """The magnitude floor of the 1-ulp bar that holds a bf16 or fp16
+    flash forward to its plain version at head_dim ``d``: 2^-8 up to 512,
+    :func:`backward_floor` past it. An output that cancels to near zero
+    carries the fp32 noise of its d-long score sums on both sides: at d
+    2048 in fp16 the plain version and the wide kernel each lie more than
+    one 2^-8-floored ulp from float64 attention there, and up to two from
+    each other (on an H100, ``tools/flash_f64.py``)."""
+    return 2.0 ** -8 if d <= 512 else backward_floor(d)
 
 
 def _offsets(sq: int, sk: int, q_start, k_start) -> tuple:
@@ -141,9 +158,6 @@ def flash_fwd_cuda(q, k, v, kv_lengths, scale: float, causal: bool,
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v dtypes differ: {q.dtype} {k.dtype} {v.dtype}")
     code = _support.dtype_code(q.dtype, "Kernel B (flash_fwd_cuda)")
-    if d > _MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {d} > {_MAX_HEAD_DIM} is not supported "
-                         f"by the kernel")
     q_start, k_start = _check_offsets(*_offsets(sq, sk, q_start, k_start))
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if kv_lengths is not None:
@@ -253,9 +267,6 @@ def flash_bwd_cuda(q, k, v, do, o, lse, kv_lengths, scale: float,
         raise TypeError(f"q/k/v/o dtypes differ: {q.dtype} {k.dtype} "
                         f"{v.dtype} {None if o is None else o.dtype}")
     code = _support.dtype_code(q.dtype, "Kernel I (flash_bwd_cuda)")
-    if d > _MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {d} > {_MAX_HEAD_DIM} is not supported "
-                         f"by the kernel")
     if o is None and delta is None:
         raise ValueError("flash_bwd_cuda needs o or delta")
     q_start, k_start = _check_offsets(*_offsets(sq, sk, q_start, k_start))
@@ -451,10 +462,10 @@ def packed_attention_supported(s: int, num_groups: int,
                                queries_per_group: int,
                                head_dim: int) -> bool:
     """Whether :func:`flash_attention_packed` takes this shape: True for
-    every shape the port's kernels take (head_dim up to 512, any length,
-    any group count), on any device — as the JAX package's plain path
-    takes any shape."""
-    return 0 < head_dim <= _MAX_HEAD_DIM and s > 0 and num_groups > 0 \
+    every shape the port's kernels take (any head_dim, length and group
+    count), on any device — as the JAX package's plain path takes any
+    shape."""
+    return head_dim > 0 and s > 0 and num_groups > 0 \
         and queries_per_group > 0
 
 
@@ -711,6 +722,17 @@ def _packed_args(qkv, kv_lengths, rope, seed, rate):
     return ptrs, rot, _keep_threshold(rate), float(1.0 / (1.0 - rate)), held
 
 
+def _rot_scratch(qkv, d: int, rot: int):
+    """Past :data:`_TILED_HEAD_DIM` with RoPE, E and F first write q and k
+    rotated into a copy of qkv's layout (csrc/flash_wide.cuh): that
+    scratch, else None."""
+    return torch.empty_like(qkv) if d > _TILED_HEAD_DIM and rot else None
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def flash_packed_fwd_cuda(qkv, kv_lengths, rope, seed, rate: float,
                           scale: float, causal: bool, window, qpg: int,
                           d: int):
@@ -718,9 +740,6 @@ def flash_packed_fwd_cuda(qkv, kv_lengths, rope, seed, rate: float,
     s, b, w = qkv.shape
     g = w // ((qpg + 2) * d)
     code = _support.dtype_code(qkv.dtype, "Kernel E (flash_packed_fwd_cuda)")
-    if d > _MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {d} > {_MAX_HEAD_DIM} is not supported "
-                         f"by the kernel")
     qkv = qkv.contiguous()
     o = torch.empty((s, b, g * qpg * d), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b, g * qpg, s), dtype=torch.float32,
@@ -729,12 +748,13 @@ def flash_packed_fwd_cuda(qkv, kv_lengths, rope, seed, rate: float,
         return o, lse
     ptrs, rot, thresh, inv_keep, _held = _packed_args(qkv, kv_lengths, rope,
                                                       seed, rate)
+    rot_qkv = _rot_scratch(qkv, d, rot)
     lib = _build.library()
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     status = lib.apex_flash_packed_fwd(
-        qkv.data_ptr(), o.data_ptr(), lse.data_ptr(), *ptrs, stream, s, b, g,
-        qpg, d, float(scale), int(causal), int(window or 0), rot, thresh,
-        inv_keep, code)
+        qkv.data_ptr(), o.data_ptr(), lse.data_ptr(), *ptrs, _ptr(rot_qkv),
+        stream, s, b, g, qpg, d, float(scale), int(causal), int(window or 0),
+        rot, thresh, inv_keep, code)
     _build.check("apex_flash_packed_fwd", status)
     _support.count_launch("flash_packed_fwd")
     return o, lse
@@ -749,9 +769,6 @@ def flash_packed_bwd_cuda(qkv, do, o, lse, kv_lengths, rope, seed,
     code = _support.dtype_code(qkv.dtype, "Kernel F (flash_packed_bwd_cuda)")
     if o.dtype != qkv.dtype:
         raise TypeError(f"o ({o.dtype}) and qkv ({qkv.dtype}) dtypes differ")
-    if d > _MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {d} > {_MAX_HEAD_DIM} is not supported "
-                         f"by the kernel")
     qkv, do, o = qkv.contiguous(), do.contiguous().to(qkv.dtype), \
         o.contiguous()
     lse = lse.contiguous()
@@ -762,13 +779,17 @@ def flash_packed_bwd_cuda(qkv, do, o, lse, kv_lengths, rope, seed,
                         device=qkv.device)
     ptrs, rot, thresh, inv_keep, _held = _packed_args(qkv, kv_lengths, rope,
                                                       seed, rate)
+    # past the DMAX instances: dq and dk in fp32 before their un-rotation
+    grad32 = None if d <= _TILED_HEAD_DIM else torch.empty(
+        (s, b, g * (qpg + 1), d), dtype=torch.float32, device=qkv.device)
+    rot_qkv = _rot_scratch(qkv, d, rot)
     lib = _build.library()
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     status = lib.apex_flash_packed_bwd(
         qkv.data_ptr(), do.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dqkv.data_ptr(), *ptrs, stream, s, b, g, qpg, d,
-        float(scale), int(causal), int(window or 0), rot, thresh, inv_keep,
-        code)
+        delta.data_ptr(), dqkv.data_ptr(), *ptrs, _ptr(grad32),
+        _ptr(rot_qkv), stream, s, b, g, qpg, d, float(scale), int(causal),
+        int(window or 0), rot, thresh, inv_keep, code)
     _build.check("apex_flash_packed_bwd", status)
     _support.count_launch("flash_packed_bwd")
     return dqkv

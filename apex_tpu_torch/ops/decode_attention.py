@@ -47,7 +47,7 @@ __all__ = ["fused_paged_decode_attention", "paged_pages_for", "append_rows",
            "paged_quant_scatter", "paged_quant_fill", "decode_plain",
            "paged_decode_cuda", "page_pool", "scale_pool", "spare_page_view",
            "DecodePlan", "paged_decode_plan", "paged_decode_cuda_plan",
-           "element_tile", "paged_decode_smem"]
+           "element_tile", "element_chunks", "paged_decode_smem"]
 
 #: masked-score floor, shared with the flat decode formulation
 _NEG = -1e30
@@ -65,6 +65,10 @@ _MAX_SPLIT_PAGES = 64
 _SMEM_BYTES = 232448
 #: elements of a 16-byte piece of q, for the dtypes the vector path takes
 _PIECE_ELEMS = {torch.bfloat16: 8, torch.float16: 8, torch.float32: 4}
+#: the widest head the element path takes: one query row and one K/V row
+#: (``_element_floats(1, dh, 1) = 4 dh + 5`` floats) in a block's shared
+#: memory
+ELEMENT_MAX_HEAD_DIM = (_SMEM_BYTES // 4 - 5) // 4
 
 
 def paged_pages_for(tokens: int, page_size: int) -> int:
@@ -295,7 +299,8 @@ class DecodePlan(NamedTuple):
     #: lanes a row (0 on the element path)
     lanes: int
     #: query rows (heads x window rows) a block serves, at most
-    #: ``_MAX_HEADS`` (all of a kv head's rows on the element path)
+    #: ``_MAX_HEADS`` (on the element path all of a kv head's rows, or an
+    #: equal chunk of them where all leave no K/V tile)
     heads: int
     #: logical pages a split holds
     split_pages: int
@@ -327,7 +332,11 @@ def paged_decode_plan(b: int, hl: int, kvh: int, dh: int, page_size: int,
     dtype or int8 under 16-bit q (read as 8-byte pieces of 8 elements, so
     q's map of elements to lanes holds), with q, the pools and ctx at
     16-byte aligned addresses (``aligned``); the rest takes the element
-    path. A
+    path, whose blocks take all of a kv head's ``window x group`` query
+    rows, or where those leave no K/V tile in shared memory
+    (:func:`element_tile`) the fewest equal chunks of them that do
+    (:func:`element_chunks`; ``ValueError`` past
+    :data:`ELEMENT_MAX_HEAD_DIM`). A
     row's ``dh / piece`` pieces spread over the power of two of lanes that
     covers them, at most 32, each lane holding a power of two of pieces
     (two at 512 bf16 or 256 f32, four at 512 f32). A kv head's ``window x
@@ -349,7 +358,15 @@ def paged_decode_plan(b: int, hl: int, kvh: int, dh: int, page_size: int,
                                       and elems == 8)
     if not elems or dh % elems or not 0 < dh <= _MAX_HEAD_DIM or \
             not aligned or not pool_ok:
-        return DecodePlan(0, 0, rows, pages_per_slot, 1, (kvh, b, 1))
+        chunks = element_chunks(rows, dh, page_size)
+        if not chunks:
+            raise ValueError(
+                f"head_dim {dh} leaves Kernel C's element path no room for "
+                f"one query row and one K/V row (at most "
+                f"{ELEMENT_MAX_HEAD_DIM})")
+        heads = _support.cdiv(rows, chunks)
+        return DecodePlan(0, 0, heads, pages_per_slot, 1,
+                          (kvh * _support.cdiv(rows, heads), b, 1))
     n = dh // elems
     lanes = 1 << (min(n, 32) - 1).bit_length()
     pieces = 1 << (_support.cdiv(n, 32) - 1).bit_length()
@@ -380,6 +397,18 @@ def element_tile(rows: int, dh: int, page_size: int) -> int:
         if _element_floats(rows, dh, t) * 4 <= _SMEM_BYTES:
             return t
         t //= 2
+    return 0
+
+
+def element_chunks(rows: int, dh: int, page_size: int) -> int:
+    """How many equal chunks, across blocks, the element path cuts a kv
+    head's ``rows`` query rows into: 1 wherever :func:`element_tile` finds
+    a tile for all of them (those shapes keep their plan and bits), else the
+    fewest whose ``cdiv(rows, chunks)`` rows leave a tile; 0 when one row
+    leaves none (head_dim past :data:`ELEMENT_MAX_HEAD_DIM`)."""
+    for chunks in range(1, rows + 1):
+        if element_tile(_support.cdiv(rows, chunks), dh, page_size):
+            return chunks
     return 0
 
 

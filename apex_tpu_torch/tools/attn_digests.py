@@ -10,7 +10,11 @@ Usage (from a checkout's root, on a machine with one GPU)::
 ``--root`` names the checkout whose ``apex_tpu_torch`` is imported and
 built (default: the one holding this file). The cases are those of
 ``tests/test_torch_cuda.py``, read from its tables (``FLASH_BWD``,
-``PACKED``, ``PAGED``) in this tool's checkout. Every
+``PACKED``, ``PAGED``) in this tool's checkout, then those of
+``tests/test_torch_cuda_hd1024.py`` (``WIDE_PACKED``, ``WIDE_FLASH``,
+``WIDE_PAGED``: head dims past 512) where this checkout has it; a case
+that the imported checkout refuses (a parent without them) prints its
+error in place of digests. Every
 case draws its inputs from a generator seeded by its name and dtype,
 runs the kernel's wrapper once and prints one JSON line with the sha256
 (16 hex digits) of its outputs: Kernels E and F
@@ -38,6 +42,7 @@ import torch
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 #: the card tests whose case tables this tool runs
 TESTS = Path(__file__).resolve().parents[2] / "tests" / "test_torch_cuda.py"
+WIDE_TESTS = TESTS.with_name("test_torch_cuda_hd1024.py")
 #: Kernel C's cases run at each (w, int8 pools, page size)
 PAGED_RUNS = [(w, int8, ps) for ps in (16, 64) for int8 in (False, True)
               for w in (1, 4)]
@@ -61,7 +66,8 @@ def _tables(path: Path = TESTS) -> dict:
             table.update({k.arg: ast.literal_eval(k.value)
                           for k in value.keywords})
             values[name] = table
-        elif name in ("FLASH", "PACKED", "PAGED", "PAGED_POSITIONS"):
+        elif name in ("FLASH", "PACKED", "PAGED", "PAGED_POSITIONS",
+                      "WIDE_PACKED", "WIDE_FLASH", "WIDE_PAGED"):
             values[name] = ast.literal_eval(value)
     return values
 
@@ -175,7 +181,11 @@ def main() -> int:
         timeout=60).stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    def emit(case, dtype, fields):
+    def emit(case, dtype, run):
+        try:
+            fields = run()
+        except (RuntimeError, ValueError) as exc:
+            fields = dict(error=str(exc).splitlines()[0][:120])
         row = dict(tag=args.tag, card=card, case=f"{case}/{str(dtype)[6:]}",
                    **fields)
         print(json.dumps(row), flush=True)
@@ -184,17 +194,24 @@ def main() -> int:
                 fh.write(json.dumps(row) + "\n")
 
     tables = _tables()
+    if WIDE_TESTS.exists():
+        wide = _tables(WIDE_TESTS)
+        for key, wide_key in (("PACKED", "WIDE_PACKED"),
+                              ("FLASH_BWD", "WIDE_FLASH"),
+                              ("PAGED", "WIDE_PAGED")):
+            tables[key] = dict(tables[key], **wide[wide_key])
     for dtype in DTYPES:
         for name, case in tables["PACKED"].items():
-            emit(name, dtype, packed_case(att, rope_mod, name, case, dtype))
+            emit(name, dtype, lambda: packed_case(att, rope_mod, name, case,
+                                                  dtype))
         for name, case in tables["FLASH_BWD"].items():
-            emit(name, dtype, flash_case(att, name, case, dtype))
+            emit(name, dtype, lambda: flash_case(att, name, case, dtype))
         for name, case in tables["PAGED"].items():
             for w, int8, ps in PAGED_RUNS:
                 emit(f"{name}_w{w}{'_int8' if int8 else ''}_page{ps}",
-                     dtype, paged_case(da, name, case,
-                                       tables["PAGED_POSITIONS"], dtype, w,
-                                       int8, ps))
+                     dtype, lambda: paged_case(
+                         da, name, case, tables["PAGED_POSITIONS"], dtype, w,
+                         int8, ps))
         torch.cuda.empty_cache()
     return 0
 

@@ -537,14 +537,17 @@ def same_nonfinite(got: torch.Tensor, want: torch.Tensor) -> bool:
     return torch.equal(torch.isfinite(got), torch.isfinite(want))
 
 
-def check_close(got: torch.Tensor, want: torch.Tensor) -> tuple:
+def check_close(got: torch.Tensor, want: torch.Tensor,
+                floor: float = 2.0 ** -8) -> tuple:
     """A kernel's output against its plain version's: both compute in
     fp32 and round once to the output dtype (the plain version is run on
     the inputs cast to fp32), so bf16 and fp16 may differ by one rounding
-    step, 1 ulp of that type, and must overflow to inf at the same
-    elements; f32 by summation order only, atol 1e-4."""
+    step, 1 ulp of that type (its magnitude floored at ``floor``:
+    ``ops.attention.forward_floor`` for a flash forward past head_dim
+    512), and must overflow to inf at the same elements; f32 by summation
+    order only, atol 1e-4."""
     if got.dtype in FRACTION_BITS:
-        ulps = ulps16(got, want)
+        ulps = ulps16(got, want, floor)
         name = "bf16" if got.dtype == torch.bfloat16 else "fp16"
         return (ulps, ulps <= 1.0 and same_nonfinite(got, want),
                 f"1 {name} ulp")
@@ -2166,13 +2169,14 @@ def _half_check(kname, case, got, want, slack,
                 floor: float = 2.0 ** -8) -> tuple:
     """One output of a 16-bit flash kernel against its plain version:
     ``check_close`` (1 ulp) for a forward (``slack`` None), else
-    ``check_rounded_factors`` over the magnitude ``floor``; f32 atol 1e-4.
+    ``check_rounded_factors``, either over the magnitude ``floor``; f32
+    atol 1e-4.
     Raises on failure; returns (max abs err, ulps, share past 1 ulp, the
     backward's largest share of its bound used at ``floor`` and at 2^-8),
     those shares None for a forward or f32."""
     use = use_2m8 = None
     if got.dtype == torch.float32 or slack is None:
-        ulps, ok, tol = check_close(got, want)
+        ulps, ok, tol = check_close(got, want, floor)
         err, past = float((got.float() - want.float()).abs().max()), 0.0
     else:
         err, ulps, past, use, ok = check_rounded_factors(got, want, slack,
@@ -2237,7 +2241,7 @@ def _wide_packed(timer: Timer, gen, phase: str, cases, timed: str) -> list:
     from apex_tpu_torch.ops.attention import (
         backward_floor, flash_packed_bwd_cuda, flash_packed_bwd_plain,
         flash_packed_bwd_rounding_slack, flash_packed_fwd_cuda,
-        flash_packed_fwd_plain)
+        flash_packed_fwd_plain, forward_floor)
     from apex_tpu_torch.ops.rope import rope_freqs, rope_tables
     recs = []
     for (name, b, s, groups, qpg, d, causal, kvl, window, rot,
@@ -2260,7 +2264,8 @@ def _wide_packed(timer: Timer, gen, phase: str, cases, timed: str) -> list:
             slack = (flash_packed_bwd_rounding_slack(qkv, do, ro, rlse, *args)
                      if half else None)
             torch.cuda.synchronize()
-            e_err, e_ulps, *_ = _half_check("e", name, o, ro, None)
+            e_err, e_ulps, *_ = _half_check("e", name, o, ro, None,
+                                            forward_floor(d))
             f_err, f_ulps, f_past, *f_use = _half_check(
                 "f", name, dqkv, rdqkv, slack, backward_floor(d))
             lse_err = float((lse - rlse).abs().max())
@@ -2374,7 +2379,8 @@ def _wide_flash(timer: Timer, gen, phase: str, cases, timed: str) -> tuple:
                                               flash_bwd_plain,
                                               flash_bwd_rounding_slack,
                                               flash_fwd_cuda,
-                                              flash_fwd_plain)
+                                              flash_fwd_plain,
+                                              forward_floor)
     recs, launches = [], None
     for name, b, h, kvh, sq, sk, d, causal, kvl, window in cases:
         kvl_t = None if kvl is None else torch.tensor(kvl, device="cuda")
@@ -2395,7 +2401,7 @@ def _wide_flash(timer: Timer, gen, phase: str, cases, timed: str) -> tuple:
                      if half else (None,) * 3)
             torch.cuda.synchronize()
             b_err, b_ulps, *_ = _half_check("b", name, o, ro.to(dtype),
-                                            None)
+                                            None, forward_floor(d))
             lse_err = float((lse - rlse).abs().max())
             if lse_err > 1e-4:
                 raise AssertionError(f"kernel b {name} {dtype}: lse err "
@@ -3628,7 +3634,7 @@ def phase_train(profile: bool = False) -> dict:
 
 def _train_then_serve(prefix: str, widths: dict, batch_size: int, seq: int,
                       kernels: dict, model_name: str, profile: bool,
-                      **fields) -> dict:
+                      c_path: str = "vector", **fields) -> dict:
     """A GPT at ``widths`` (bf16 compute over fp32 params, weights from a
     seed; the init's seconds printed) takes 2 + 8 steps of
     ``make_train_step`` with FusedAdam lr 1e-4 at ``batch_size`` x ``seq``
@@ -3638,9 +3644,9 @@ def _train_then_serve(prefix: str, widths: dict, batch_size: int, seq: int,
     in bf16 through ``InferenceEngine`` with pages of 64
     (``[{prefix}_serve]``: every request ends ``length``/``eos``, A > 0, B
     a layer a prefill, C a layer a decode step, every one of its launches
-    on the vector path by the plans it took (``DECODE_PLANS``, printed
-    with their counts), every other kernel 0). Returns the launches of
-    both paths."""
+    on ``c_path`` by the plans it took (``DECODE_PLANS``, printed with
+    their counts), every other kernel 0). Returns the launches of both
+    paths."""
     from apex_tpu_torch.models import TransformerConfig
     from apex_tpu_torch.ops import LAUNCHES, reset_launches
     from apex_tpu_torch.ops._support import DECODE_PLANS
@@ -3706,12 +3712,12 @@ def _train_then_serve(prefix: str, widths: dict, batch_size: int, seq: int,
     if launches != want or launches["layer_norm_fwd"] <= 0:
         raise AssertionError(f"{prefix}_serve: launches {launches}, "
                              f"expected {want} (A > 0)")
-    # the plans C's launches took in this run: all on the vector path
-    vector = sum(n for p, n in plans.items() if p.path == "vector")
-    if vector != launches["paged_decode"]:
-        raise AssertionError(f"{prefix}_serve: {vector} of C's "
+    # the plans C's launches took in this run: all on c_path
+    on_path = sum(n for p, n in plans.items() if p.path == c_path)
+    if on_path != launches["paged_decode"]:
+        raise AssertionError(f"{prefix}_serve: {on_path} of C's "
                              f"{launches['paged_decode']} launches on the "
-                             f"vector path, plans {plans}")
+                             f"{c_path} path, plans {plans}")
     n_tok = sum(len(r.tokens) for r in results)
     ttft = sorted(r.ttft_s for r in results)
     step_h = engine.metrics.histogram("decode_step_s")
@@ -3723,8 +3729,8 @@ def _train_then_serve(prefix: str, widths: dict, batch_size: int, seq: int,
         decode_ms_per_step=f"{1e3 * step_h.sum / step_h.count:.3f}",
         decode_steps=steps, prefills=prefills,
         peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
-        c_vector=vector, c_pieces=",".join(sorted({str(p.pieces)
-                                                   for p in plans})),
+        **{f"c_{c_path}": on_path},
+        c_pieces=",".join(sorted({str(p.pieces) for p in plans})),
         c_plans=",".join(f"{_decode_plan_text(p)}x{n}"
                          for p, n in sorted(plans.items())), card=card,
         launches=json.dumps(launches).replace(" ", ""))
@@ -5768,6 +5774,8 @@ CHUNK_CASES = [
      [16384, 10000], 12288, 8192),
     ("full_kv_lengths_end_before", 2, 4, 4, 128, 192, 512, False, None,
      [4200, 1000], 0, 4096),
+    ("d1024_diagonal_gqa_window", 2, 4, 2, 200, 200, 1024, True, 100,
+     [2250, 2200], 2100, 2100),
 ]
 #: the cases whose chunk sees no key at all
 CHUNK_EMPTY = ("future", "far_past_window_skips")
@@ -5786,7 +5794,8 @@ def phase_flash_chunk() -> dict:
     from apex_tpu_torch.ops import LAUNCHES, reset_launches
     from apex_tpu_torch.ops.attention import (
         backward_floor, flash_bwd_rounding_slack, flash_chunk_bwd,
-        flash_chunk_bwd_plain, flash_chunk_fwd, flash_chunk_fwd_plain)
+        flash_chunk_bwd_plain, flash_chunk_fwd, flash_chunk_fwd_plain,
+        forward_floor)
     gen = torch.Generator(device="cuda").manual_seed(25)
     torch.cuda.synchronize()
     reset_launches()
@@ -5814,7 +5823,7 @@ def phase_flash_chunk() -> dict:
             half = dtype != torch.float32
             if half:
                 b_err, b_ulps, *_ = _half_check("b", name, o, ro.to(dtype),
-                                                None)
+                                                None, forward_floor(d))
             else:
                 b_err, b_ulps = float((o - ro).abs().max()), 0.0
                 if b_err > 2e-5:
@@ -6272,6 +6281,180 @@ def phase_ring(timer: Timer) -> tuple:
     return recs, launches
 
 
+# ---------------------------------------------------------------------------
+# Head dims past 512: Kernels B, I, E and F walk d in parts of 512 columns;
+# Kernel C's element path cuts its query rows into chunks
+# ---------------------------------------------------------------------------
+
+#: meta-llama/Llama-2-7b's widths (hidden 4096, SwiGLU 11008, RMSNorm, RoPE
+#: theta 10000, vocab 32000) with 4 query heads of 1024 over one K/V head
+#: (MQA 4:1; the repo's own head width: no public model has heads past
+#: 512), 4 of its 32 layers
+HD1024 = dict(num_layers=4, hidden_size=4096, num_attention_heads=4,
+              num_query_groups=1, ffn_hidden_size=11008, activation="swiglu",
+              normalization="rmsnorm", layernorm_epsilon=1e-5,
+              position_embedding_type="rope", rope_theta=10000.0,
+              vocab_size=32000, max_position_embeddings=4096)
+HD1024_BATCH, HD1024_SEQ = 2, 1024
+HD1024_KERNELS = {"layer_norm_fwd": 9, "layer_norm_bwd": 9,
+                  "flash_packed_fwd": 4, "flash_packed_bwd": 4}
+#: the tiny 1024-wide-head GPT of tests/test_torch_hd1024.py's widths (2
+#: query heads of 1024 over one K/V head, SwiGLU, RMSNorm, RoPE)
+HD1024_SMALL = dict(num_layers=2, hidden_size=2048, num_attention_heads=2,
+                    num_query_groups=1, ffn_hidden_size=256,
+                    activation="swiglu", normalization="rmsnorm",
+                    position_embedding_type="rope", vocab_size=128,
+                    max_position_embeddings=128, hidden_dropout=0.0,
+                    attention_dropout=0.0)
+
+#: Kernels E and F past 512: (name, b, s, groups, qpg, d, causal,
+#: kv_lengths, window, rot, rate) — HD1024's training shape (timed; MQA
+#: 4:1, RoPE over 1024), RoPE at rot 640 (rot / 2 = 320, off the 512-column
+#: parts) with a window and dropout, a width off 64 (840, RoPE over all of
+#: it, a 0 length), one off 8 (1030: the element copies; rot / 2 = 515)
+#: with a window, and one past 1024 (2048 under GQA 2:1 with a 0 length
+#: and dropout)
+HD1024_PACKED = [
+    ("hd1024_train", HD1024_BATCH, HD1024_SEQ, 1, 4, 1024, True, None, None,
+     1024, 0.0),
+    ("rot640_window_dropout", 1, 300, 1, 4, 1024, True, None, 64, 640, 0.1),
+    ("d840_rope_kv_lengths_0", 3, 200, 2, 2, 840, False, [200, 90, 0], None,
+     840, 0.0),
+    ("d1030_rope_window", 1, 150, 1, 2, 1030, True, None, 50, 1030, 0.0),
+    ("d2048_gqa_kv_lengths_0_dropout", 2, 128, 2, 2, 2048, True, [128, 0],
+     None, 0, 0.2),
+]
+#: Kernels B and I past 512: (name, b, h, kvh, sq, sk, d, causal,
+#: kv_lengths, window) — HD1024's heads over [b, h, s, d] (timed; MQA
+#: 4:1), 840 with a window, 1030 with sq < sk and kv_lengths, 1024 with
+#: sq > sk, 2048 under GQA with a 0 length
+HD1024_FLASH = [
+    ("hd1024_4d", HD1024_BATCH, 4, 1, HD1024_SEQ, HD1024_SEQ, 1024, True,
+     None, None),
+    ("d840_window", 1, 4, 2, 300, 300, 840, True, None, 64),
+    ("d1030_sq_lt_sk", 2, 4, 4, 100, 333, 1030, True, [333, 200], None),
+    ("d1024_gqa_sq_gt_sk", 1, 4, 2, 200, 150, 1024, True, None, None),
+    ("d2048_gqa_kv_lengths_0", 3, 4, 2, 128, 128, 2048, False, [128, 60, 0],
+     None),
+]
+
+
+def phase_flash_hd1024(timer: Timer) -> tuple:
+    """Kernels E, F, B and I past head_dim 512 (``[flash_hd1024]`` lines,
+    :data:`HD1024_PACKED` and :data:`HD1024_FLASH` in f32, bf16 and fp16):
+    returns (records, the launches of ``flash_attention``'s autograd at
+    HD1024's 4D shape, the main path of ``flash_bwd_hd1024``)."""
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    recs = _wide_packed(timer, gen, "flash_hd1024", HD1024_PACKED,
+                        "hd1024_train")
+    flash_recs, launches = _wide_flash(timer, gen, "flash_hd1024",
+                                       HD1024_FLASH, "hd1024_4d")
+    torch.cuda.empty_cache()
+    return recs + flash_recs, launches
+
+
+#: Kernel C past head_dim 512 (its element path): (name, dtype, pool
+#: dtype, heads, group, w, head_dim, page, row chunks) — HD1024's decode
+#: (4 query heads over one K/V head: one chunk, 16-row tiles), d 1024 at 32
+#: rows (GQA 8:1 under a w = 4 window: two chunks of 16) over bf16 and int8
+#: pools, and d 2048 at 16 rows (16 query heads over one: two chunks of 8)
+DECODE_HD1024_CASES = [
+    ("gqa8_w4_dh1024", torch.bfloat16, torch.bfloat16, 16, 8, 4, 1024, 64,
+     2),
+    ("gqa8_w4_dh1024", torch.float16, torch.int8, 16, 8, 4, 1024, 64, 2),
+    ("gqa8_w4_dh1024", torch.float32, torch.float32, 16, 8, 4, 1024, 64, 2),
+    ("mqa16_dh2048", torch.bfloat16, torch.bfloat16, 16, 16, 1, 2048, 64, 2),
+    ("mqa16_dh2048", torch.float32, torch.float32, 16, 16, 1, 2048, 64, 2),
+]
+
+
+def phase_decode_hd1024(timer: Timer) -> dict:
+    """Kernel C past head_dim 512 (``[kernel_c] case=...``):
+    :data:`DECODE_HD1024_CASES` at b 8, positions 63-700, each against its
+    plain version (``_decode_check``: 1 ulp, f32 atol 1e-4, two runs
+    bitwise equal) on the element path with the row chunks named; then
+    HD1024's bf16 decode (``mqa_dh1024``) timed cold beside its plain
+    version and bound (the record ``paged_decode_hd1024``)."""
+    from apex_tpu_torch.ops._support import cdiv
+    from apex_tpu_torch.ops.decode_attention import (
+        decode_plain, element_tile, paged_decode_cuda, paged_decode_smem)
+    g = torch.Generator(device="cuda").manual_seed(27)
+    b, pps_rows = 8, 768
+    positions = (63, 64, 200, 700) * 2
+    for name, dtype, pool, hl, group, w, dh, page, chunks in \
+            DECODE_HD1024_CASES:
+        q, kp, vp, pt, pos, ks, vs = _decode_window_inputs(
+            b, hl, group, dh, page, pps_rows // page, positions, dtype, g,
+            w, pool == torch.int8)
+        if w == 1:
+            q = q[:, 0].contiguous()
+        _, plan, _ = _decode_check(name, q, kp, vp, pt, pos, group, None,
+                                   ks, vs)
+        rows = w * group
+        tile = element_tile(plan.heads, dh, page)
+        if plan.path != "element" or \
+                plan.grid[0] != hl // group * chunks or \
+                plan.heads != cdiv(rows, chunks) or \
+                element_tile(rows, dh, page) != 0 or tile < 1:
+            raise AssertionError(f"paged_decode {name} {dtype}: plan {plan}"
+                                 f", tile {tile}")
+        ms = timer(lambda: paged_decode_cuda(q, kp, vp, pt, pos, group, None,
+                                             ks, vs), cold=True, iters=10)
+        log("kernel_c", case=name, dtype=str(dtype)[6:],
+            pool=str(pool)[6:], w=w, rows=rows, row_chunks=chunks,
+            element_tile=tile,
+            smem_bytes=paged_decode_smem(plan, dh, page, pool == torch.int8),
+            plan=_decode_plan_text(plan), ms=f"{ms:.5f}")
+        del q, kp, vp, ks, vs
+    hl, group, dh, ps = 4, 4, 1024, 64
+    dtype = torch.bfloat16
+    q, kp, vp, pt, pos = _decode_inputs(b, hl, group, dh, ps, pps_rows // ps,
+                                        positions, dtype, g)
+    err, plan, _ = _decode_check("mqa_dh1024", q, kp, vp, pt, pos, group,
+                                 None)
+    if plan.path != "element" or plan.heads != hl:
+        raise AssertionError(f"paged_decode mqa_dh1024: plan {plan}")
+    rows = _decode_rows(positions, ps, pps_rows // ps, None)
+    bms, by = bound_ms(_decode_bytes(q, pt, positions, ps, hl // group,
+                                     None), 4.0 * dh * hl * rows, dtype)
+    ms = timer(lambda: paged_decode_cuda(q, kp, vp, pt, pos, group, None),
+               cold=True)
+    plain = timer(lambda: decode_plain(q, kp, vp, pt, pos, group, None),
+                  cold=True, iters=10)
+    log("kernel_c", case="mqa_dh1024", shape=f"b{b} heads{hl} kvh1 dh{dh} "
+        f"page{ps}", positions=list(positions[:4]), dtype="bfloat16",
+        max_abs_err=f"{err:.3e}", ms=f"{ms:.5f}", plain_ms=f"{plain:.5f}",
+        library_ms=None, bound_ms=f"{bms:.5f}", bound_by=by, rows_read=rows,
+        element_tile=element_tile(hl, dh, ps), plan=_decode_plan_text(plan))
+    torch.cuda.empty_cache()
+    return dict(name="paged_decode_hd1024", route="cuda",
+                source="apex_tpu_torch/csrc/paged_decode.cu",
+                replaces="apex_tpu/ops/decode_attention.py:272",
+                shape=f"b{b} heads{hl} kvh1 dh{dh} page{ps} bfloat16 cold L2",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=None)
+
+
+def phase_hd1024(profile: bool = False) -> dict:
+    """A GPT at :data:`HD1024` trains at b 2, s 1024 (``[hd1024_train]``:
+    Kernels A, D, E and F launched 9, 9, 4 and 4 times a step, B and I 0;
+    the loss falls) and serves 8 requests (``[hd1024_serve]``: A, B at
+    head_dim 1024 with MQA 4:1 for the prefills, C on its element path for
+    the decode steps), as :func:`_train_then_serve` says. Returns the
+    launches of both paths."""
+    return _train_then_serve("hd1024", HD1024, HD1024_BATCH, HD1024_SEQ,
+                             HD1024_KERNELS,
+                             "llama-2-7b-widths-hd1024-4-layers", profile,
+                             c_path="element")
+
+
+def phase_hd1024_card_vs_cpu() -> None:
+    """The tiny 1024-wide-head GPT (:data:`HD1024_SMALL`, f32) on the card
+    (Kernels E and F past 512 in f32; B past 512 and C's element path
+    serving with pages of 64) and the CPU (:func:`_small_card_vs_cpu`)."""
+    _small_card_vs_cpu("hd1024_card_vs_cpu", HD1024_SMALL, 64, (20, 37, 70))
+
+
 #: the phase whose run is each kernel's main path
 MAIN_PATH = {"layer_norm_fwd": "serve", "flash_fwd": "serve",
              "paged_decode": "serve", "layer_norm_bwd": "train",
@@ -6310,7 +6493,12 @@ MAIN_PATH = {"layer_norm_fwd": "serve", "flash_fwd": "serve",
              "flash_fwd_hd512": "hd512_serve",
              "flash_bwd_hd512": "flash_hd512",
              "paged_decode_hd512": "hd512_serve",
-             "flash_fwd_ring": "ring", "flash_bwd_ring": "ring"}
+             "flash_fwd_ring": "ring", "flash_bwd_ring": "ring",
+             "flash_packed_fwd_hd1024": "hd1024_train",
+             "flash_packed_bwd_hd1024": "hd1024_train",
+             "flash_fwd_hd1024": "hd1024_serve",
+             "flash_bwd_hd1024": "flash_hd1024",
+             "paged_decode_hd1024": "hd1024_serve"}
 #: the launch counter of a record that names a variant of a kernel
 COUNTER = {"paged_decode_int8": "paged_decode",
            "paged_decode_window": "paged_decode",
@@ -6338,7 +6526,12 @@ COUNTER = {"paged_decode_int8": "paged_decode",
            "flash_fwd_hd512": "flash_fwd",
            "flash_bwd_hd512": "flash_bwd",
            "paged_decode_hd512": "paged_decode",
-           "flash_fwd_ring": "flash_fwd", "flash_bwd_ring": "flash_bwd"}
+           "flash_fwd_ring": "flash_fwd", "flash_bwd_ring": "flash_bwd",
+           "flash_packed_fwd_hd1024": "flash_packed_fwd",
+           "flash_packed_bwd_hd1024": "flash_packed_bwd",
+           "flash_fwd_hd1024": "flash_fwd",
+           "flash_bwd_hd1024": "flash_bwd",
+           "paged_decode_hd1024": "paged_decode"}
 
 
 def main() -> int:
@@ -6404,6 +6597,11 @@ def main() -> int:
     paths["flash_chunk"] = phase_flash_chunk()
     ring_records, paths["ring"] = phase_ring(timer)
     records += ring_records
+    hd1024_records, paths["flash_hd1024"] = phase_flash_hd1024(timer)
+    records += hd1024_records
+    records.append(phase_decode_hd1024(timer))
+    paths.update(phase_hd1024(args.profile))
+    phase_hd1024_card_vs_cpu()
     for rec in records:
         name = rec["name"]
         counter = COUNTER.get(name, name)

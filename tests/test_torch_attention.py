@@ -55,7 +55,7 @@ import jax
 from apex_tpu.ops import _support as jax_support
 from apex_tpu.ops import attention as jatt
 from apex_tpu.ops import flash_attention as jax_flash
-from apex_tpu_torch.ops import LAUNCHES, flash_attention
+from apex_tpu_torch.ops import LAUNCHES, _build, flash_attention
 from apex_tpu_torch.ops.attention import (
     _visible,
     drop_combo,
@@ -587,11 +587,13 @@ def test_packed_bwd_plain_matches_autograd_of_plain_fwd(name):
                                rtol=0)
 
 
-def test_packed_gate_and_errors():
-    """The port's gate takes every shape its kernels take (head_dim up to
-    512, any length and group count), where the JAX Pallas gate also needs
-    128-lane cells; the geometry helper is the JAX package's. Past 512
-    the gate says no and each kernel wrapper raises before any launch."""
+def test_packed_gate_and_errors(monkeypatch):
+    """The port's gate takes every shape its kernels take (any head_dim,
+    length and group count), where the JAX Pallas gate also needs 128-lane
+    cells; the geometry helper is the JAX package's. Past 512 the gate
+    says yes and each kernel wrapper hands the head dim to its C entry (a
+    stand-in library records the calls); the errors left are the
+    layout's."""
     assert packed_geometry(16, 1, 64) == jatt.packed_geometry(16, 1, 64)
     assert packed_geometry(3, 1, 64) is None
     assert packed_attention_supported(2048, 3, 1, 64)
@@ -603,21 +605,31 @@ def test_packed_gate_and_errors():
     assert packed_attention_supported(64, 2, 4, 512)
     assert packed_attention_supported(64, 1, 8, 512) == \
         jatt.packed_attention_supported(64, 1, 8, 512)
-    assert not packed_attention_supported(64, 2, 1, 520)
+    assert packed_attention_supported(64, 2, 1, 520)
     d = 520
     qkv = torch.zeros(8, 1, 3 * d)
     q, o, lse = torch.zeros(1, 1, 8, d), torch.zeros(8, 1, d), \
         torch.zeros(1, 1, 8)
-    for call in (
-            lambda: flash_fwd_cuda(q, q, q, None, 0.1, True),
-            lambda: flash_bwd_cuda(q, q, q, q, q, lse[0, None], None, 0.1,
-                                   True),
-            lambda: flash_packed_fwd_cuda(qkv, None, None, None, 0.0, 0.1,
-                                          True, None, 1, d),
-            lambda: flash_packed_bwd_cuda(qkv, o, o, lse, None, None, None,
-                                          0.0, 0.1, True, None, 1, d)):
-        with pytest.raises(ValueError, match="head_dim 520 > 512"):
-            call()
+    calls = {}
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: calls.setdefault(name, args) and 0
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(_build, "library", Lib)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: Stream())
+    flash_fwd_cuda(q, q, q, None, 0.1, True)
+    flash_bwd_cuda(q, q, q, q, q, lse[0, None], None, 0.1, True)
+    flash_packed_fwd_cuda(qkv, None, None, None, 0.0, 0.1, True, None, 1, d)
+    flash_packed_bwd_cuda(qkv, o, o, lse, None, None, None, 0.0, 0.1, True,
+                          None, 1, d)
+    assert [calls[n][i] for n, i in (
+        ("apex_flash_fwd", 12), ("apex_flash_bwd", 17),
+        ("apex_flash_packed_fwd", 13), ("apex_flash_packed_bwd", 17))] == \
+        [d] * 4
     qkv = torch.zeros(8, 1, 2 * 3 * 16)
     with pytest.raises(ValueError, match="multiple"):
         flash_attention_packed(qkv, queries_per_group=2, head_dim=16)

@@ -1416,21 +1416,25 @@ def test_paged_decode_element_path_in_sub_page_tiles(gen, dh, dtype, int8,
 
 
 def test_head_dim_past_512_raises_before_any_launch(gen):
-    """Past head_dim 512 the wrappers of Kernels B, I, E and F raise on
-    CUDA tensors, naming 512: no launch and no fallback."""
+    """Past head_dim 512 the wrappers of Kernels B, I, E and F no longer
+    raise on CUDA tensors: each launches its kernel once (the parts of
+    csrc/flash_wide.cuh) and gives its plain version's result (zero
+    inputs: o and every gradient 0, lse log(8) on rows that see 8 keys)."""
     d = 520
     q = torch.zeros(1, 1, 8, d, device="cuda", dtype=torch.bfloat16)
     qkv = torch.zeros(8, 1, 3 * d, device="cuda", dtype=torch.bfloat16)
     o = torch.zeros(8, 1, d, device="cuda", dtype=torch.bfloat16)
-    lse = torch.zeros(1, 1, 8, device="cuda")
     before = dict(_support.LAUNCHES)
-    for call in (
-            lambda: flash_fwd_cuda(q, q, q, None, 0.1, True),
-            lambda: flash_bwd_cuda(q, q, q, q, q, lse, None, 0.1, True),
-            lambda: flash_packed_fwd_cuda(qkv, None, None, None, 0.0, 0.1,
-                                          True, None, 1, d),
-            lambda: flash_packed_bwd_cuda(qkv, o, o, lse, None, None, None,
-                                          0.0, 0.1, True, None, 1, d)):
-        with pytest.raises(ValueError, match="head_dim 520 > 512"):
-            call()
-    assert dict(_support.LAUNCHES) == before
+    o4, lse4 = flash_fwd_cuda(q, q, q, None, 0.1, False)
+    grads = flash_bwd_cuda(q, q, q, q, o4, lse4, None, 0.1, False)
+    op, lsep = flash_packed_fwd_cuda(qkv, None, None, None, 0.0, 0.1, False,
+                                     None, 1, d)
+    dqkv = flash_packed_bwd_cuda(qkv, o, op, lsep, None, None, None, 0.0,
+                                 0.1, False, None, 1, d)
+    for name in ("flash_fwd", "flash_bwd", "flash_packed_fwd",
+                 "flash_packed_bwd"):
+        assert _support.LAUNCHES[name] == before[name] + 1
+    for t in (o4, op, dqkv, *grads):
+        assert not t.any()
+    for t in (lse4, lsep):
+        torch.testing.assert_close(t, torch.full_like(t, math.log(8)))
