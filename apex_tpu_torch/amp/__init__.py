@@ -3,7 +3,7 @@ policy applied at function boundaries, a dynamic loss scaler whose state
 stays on the device, the O0-O3 frontend and the loss-scaling flow. On the
 card the unscale is the ``multi_tensor_scale`` kernel and the optimizers'
 steps are multi-tensor kernels that take its ``found_inf``. ``amp.fp8``
-is not ported yet."""
+is fp8 delayed scaling and ``fp8_dense``."""
 
 from apex_tpu_torch.amp.frontend import (
     OPT_LEVELS,
@@ -30,8 +30,9 @@ from apex_tpu_torch.amp.policy import (
     register_promote_function,
 )
 from apex_tpu_torch.amp.scaler import LossScaler, LossScalerState, all_finite
+from apex_tpu_torch.amp import fp8
 
-__all__ = ["Policy", "disable_casts", "half_function", "float_function",
+__all__ = ["fp8", "Policy", "disable_casts", "half_function", "float_function",
            "master_params", "promote_function", "register_float_function",
            "register_half_function", "register_promote_function",
            "LossScaler", "LossScalerState", "all_finite", "AmpState",

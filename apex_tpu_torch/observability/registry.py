@@ -1,12 +1,32 @@
 """The metrics registry: counters, gauges, bounded histograms, sinks.
 
-Copy of ``apex_tpu/observability/registry.py`` (stdlib only), trimmed to
-what the serving engine uses, so the port never imports the JAX package.
-Producers call :meth:`MetricsRegistry.inc` / :meth:`set_gauge` /
-:meth:`observe` / :meth:`event` / :meth:`emit_record`; sinks (any object
-with ``write(record)`` and ``flush()``) receive plain-dict records. Histograms keep exact running aggregates plus a bounded ring of
-recent values for percentiles. One re-entrant lock serializes state and
-sink writes.
+The hub of :mod:`apex_tpu_torch.observability`. Producers (the resilience
+driver's step loop, the retrace watchdog, span timers — some on other
+threads) call :meth:`MetricsRegistry.inc` / :meth:`set_gauge` /
+:meth:`observe` / :meth:`event`; consumers are pluggable sinks
+(:mod:`apex_tpu_torch.observability.sinks`) that receive a stream of plain-dict
+records:
+
+- ``{"kind": "event", "event": <name>, "seq": n, "ts": <monotonic>,
+  "wall": <epoch>, ...fields}`` — one per incident, emitted immediately;
+- ``{"kind": "step", "step": i, ...}`` — one per training step
+  (:class:`~apex_tpu_torch.observability.step_metrics.StepMetrics` builds these);
+- ``{"kind": "counters"|"gauges"|"histograms", "wall": ...,
+  "values": {...}}`` — full snapshots, emitted on :meth:`flush`.
+
+Everything is host-side Python — nothing here touches a device, so it
+is safe to call from watchdog threads and from inside the step loop. Histograms keep running aggregates
+(count/sum/min/max) exactly plus a **bounded** ring buffer of recent
+values for percentiles, so registry memory does not grow with step count.
+
+A single re-entrant lock serializes state mutation *and* sink writes:
+sinks need not be thread-safe, and a snapshot never interleaves with a
+half-applied update. Like ``log_event``, every event carries a strictly
+increasing ``seq`` plus monotonic ``ts`` and epoch ``wall`` stamps so
+incidents totally order and correlate across hosts.
+
+Copied from ``apex_tpu/observability/registry.py`` (stdlib only), so the
+port never imports the JAX package.
 """
 
 from __future__ import annotations
@@ -53,6 +73,14 @@ class HistogramSnapshot:
     def mean(self) -> float:
         return self.sum / self.count if self.count else 0.0
 
+    @property
+    def recent(self) -> List[float]:
+        """The bounded window of recent observations (a copy) — what
+        percentiles are computed over, and what a fleet's
+        ``merge_histograms`` concatenates when combining per-replica
+        snapshots (the fleet is not ported yet)."""
+        return list(self._recent)
+
     def percentile(self, p: float) -> float:
         return percentile(self._recent, p)
 
@@ -93,7 +121,8 @@ class MetricsRegistry:
     """Thread-safe counters/gauges/histograms with pluggable sinks.
 
     Args:
-      sinks: objects with ``write(record)`` and ``flush()``.
+      sinks: initial sinks (see :mod:`apex_tpu_torch.observability.sinks`);
+        more can be attached with :meth:`add_sink`.
       histogram_bound: ring-buffer size per histogram — the memory bound
         behind percentile estimates.
     """
@@ -106,6 +135,10 @@ class MetricsRegistry:
         self._gauges: Dict[str, float] = {}
         self._histograms: Dict[str, _Histogram] = {}
         self._seq = 0
+
+    def add_sink(self, sink) -> None:
+        with self._lock:
+            self._sinks.append(sink)
 
     # -- producers ---------------------------------------------------------
 
@@ -150,10 +183,15 @@ class MetricsRegistry:
             return record
 
     def emit_record(self, record: dict) -> None:
-        """Forward one pre-built record to the sinks — serving uses it
-        for its per-request ``kind="request"`` rows."""
+        """Forward one pre-built record to the sinks — the generic form
+        behind :meth:`emit_step`; serving uses it for its per-request
+        ``kind="request"`` rows."""
         with self._lock:
             self._write(record)
+
+    def emit_step(self, record: dict) -> None:
+        """Forward one per-step record (``kind="step"``) to the sinks."""
+        self.emit_record(record)
 
     # -- consumers ---------------------------------------------------------
 
@@ -170,11 +208,17 @@ class MetricsRegistry:
             hist = self._histograms.get(name)
             return None if hist is None else hist.snapshot(name)
 
+    def histograms(self) -> Dict[str, HistogramSnapshot]:
+        with self._lock:
+            return {n: h.snapshot(n) for n, h in self._histograms.items()}
+
     # -- lifecycle ---------------------------------------------------------
 
     def flush(self) -> None:
         """Write counter/gauge/histogram snapshots to every sink and flush
-        the sinks. Call at poll boundaries and at end of run."""
+        the sinks. Call at poll boundaries and at end of run — the final
+        counters snapshot is what ``python -m apex_tpu_torch.monitor`` reconciles
+        against ``TrainingResult.telemetry``."""
         with self._lock:
             wall = time.time()
             self._write({"kind": "counters", "wall": wall,
@@ -186,6 +230,13 @@ class MetricsRegistry:
                                     for n, h in self._histograms.items()}})
             for sink in self._sinks:
                 sink.flush()
+
+    def close(self) -> None:
+        """Flush, then close every attached sink."""
+        with self._lock:
+            self.flush()
+            for sink in self._sinks:
+                sink.close()
 
     def _write(self, record: dict) -> None:
         for sink in self._sinks:

@@ -56,6 +56,13 @@ counterpart; caches are updated in place (no donation).
 first call pays the one-time costs: kernel build, library handles), which
 the supervisor's hung-tick check exempts as the JAX one exempts compiles.
 LoRA ``adapters`` raise ``NotImplementedError``.
+
+Telemetry is the JAX engine's: each terminal request writes its
+``kind="request"`` record, the ``request_*`` histograms
+(``request_tokens_per_s`` among them) and its span timeline
+(``queued``, ``prefill`` — one span a chunk under chunked prefill — and
+``decode``), with the ``preempt``, ``quarantine`` and ``spec_verify``
+marks (:mod:`apex_tpu_torch.observability.trace`).
 """
 
 from __future__ import annotations
@@ -76,6 +83,13 @@ from apex_tpu_torch.models.generation import (
     init_paged_kv_caches,
 )
 from apex_tpu_torch.observability.registry import MetricsRegistry
+from apex_tpu_torch.observability.trace import (
+    SPAN_PREEMPT,
+    SPAN_QUARANTINE,
+    SPAN_SPEC_VERIFY,
+    emit_request_spans,
+    emit_span,
+)
 from apex_tpu_torch.ops._support import cdiv, resolve_device
 from apex_tpu_torch.ops.decode_attention import (
     paged_quant_fill,
@@ -218,8 +232,9 @@ class _Active:
                  "submit_ts", "prefill_start", "prefill_end",
                  "first_token_ts", "last_token_ts", "cancelled",
                  "reserved_pages", "spec_proposed", "spec_accepted",
-                 "prefill_pos", "prefill_chunks", "page_row", "chain",
-                 "shared_used", "skip_first", "finite_ok")
+                 "prefill_pos", "prefill_chunks", "chunk_marks",
+                 "page_row", "chain", "shared_used", "skip_first",
+                 "finite_ok")
 
     def __init__(self, request: Request, slot: int, submit_ts: float):
         self.request = request
@@ -239,6 +254,7 @@ class _Active:
         # chunked-prefill progress, carried across ticks as host data
         self.prefill_pos = 0     # prompt tokens whose K/V are written
         self.prefill_chunks = 0  # chunk programs run so far
+        self.chunk_marks: List[float] = []  # interior chunk-end stamps
         self.page_row = None     # the slot's REAL page row while chunking
         self.chain = ()          # prefix hash chain (interned at the end)
         self.shared_used = 0     # prefix-hit pages mapped at admission
@@ -770,6 +786,13 @@ class InferenceEngine:
                            request_id=rec.request.request_id, cause=cause,
                            priority=rec.request.sampling.priority,
                            tokens_parked=len(rec.tokens))
+        emit_span(self.metrics, SPAN_PREEMPT,
+                  trace_id=rec.request.trace_id,
+                  request_id=rec.request.request_id,
+                  start_s=now, end_s=now, wall=clock.wall(),
+                  replica_id=self.replica_id, detail=cause,
+                  tokens_parked=len(rec.tokens),
+                  priority=rec.request.sampling.priority)
 
     def park_class(self, priority: str, *, cause: str = "brownout") -> int:
         """Park EVERY active slot of ``priority``; returns the number
@@ -1282,6 +1305,8 @@ class InferenceEngine:
         self._chunk_tokens_tick += chunk_len
         if last:
             self._complete_chunked_prefill(rec, first, finished)
+        else:
+            rec.chunk_marks.append(clock.now())
         return chunk_len
 
     def _complete_chunked_prefill(self, rec: _Active, first: int,
@@ -1327,6 +1352,7 @@ class InferenceEngine:
         return self._finish(
             rec.request, [], reason, submit_ts=rec.submit_ts, now=now,
             prefill_start=rec.prefill_start, prefill_end=now,
+            prefill_segments=tuple(rec.chunk_marks),
             prefill_chunks=rec.prefill_chunks or None)
 
     def _build_windows(self) -> None:
@@ -1529,6 +1555,13 @@ class InferenceEngine:
         self.metrics.inc("slots_quarantined")
         self.metrics.event("slot_quarantined", slot=rec.slot,
                            request_id=rec.request.request_id, cause=cause)
+        # mark span (zero-width): annotates the timeline with the scrub —
+        # excluded from the phase-span conservation sum
+        emit_span(self.metrics, SPAN_QUARANTINE,
+                  trace_id=rec.request.trace_id,
+                  request_id=rec.request.request_id,
+                  start_s=now, end_s=now, wall=clock.wall(),
+                  replica_id=self.replica_id, detail=cause)
         return self._retire(rec, FINISH_ERROR, now, scrub=True)
 
     def _finish_reason(self, rec: _Active, token: int) -> Optional[str]:
@@ -1570,22 +1603,28 @@ class InferenceEngine:
                 self._scrub_pages(freed)
         self._clear_slot(rec.slot)
         if rec.spec_proposed:
-            # lifetime speculation totals of the request
-            self.metrics.event("spec_verify",
-                               request_id=rec.request.request_id,
-                               proposed=rec.spec_proposed,
-                               accepted=rec.spec_accepted)
+            # mark span over the decode stretch the verify windows rode:
+            # lifetime speculation totals, for the --trace timeline
+            emit_span(self.metrics, SPAN_SPEC_VERIFY,
+                      trace_id=rec.request.trace_id,
+                      request_id=rec.request.request_id,
+                      start_s=rec.prefill_end, end_s=now,
+                      wall=clock.wall(), replica_id=self.replica_id,
+                      proposed=rec.spec_proposed,
+                      accepted=rec.spec_accepted)
         return self._finish(
             rec.request, rec.tokens, reason, submit_ts=rec.submit_ts,
             now=now, prefill_start=rec.prefill_start,
             prefill_end=rec.prefill_end, first_token_ts=rec.first_token_ts,
             last_token_ts=rec.last_token_ts,
+            prefill_segments=tuple(rec.chunk_marks),
             prefill_chunks=rec.prefill_chunks or None)
 
     def _finish(self, request: Request, tokens: List[int], reason: str, *,
                 submit_ts: float, now: float, prefill_start: float = 0.0,
                 prefill_end: float = 0.0, first_token_ts: float = 0.0,
                 last_token_ts: float = 0.0,
+                prefill_segments: Sequence[float] = (),
                 prefill_chunks: Optional[int] = None,
                 detail: Optional[str] = None) -> RequestResult:
         if prefill_start:
@@ -1608,11 +1647,25 @@ class InferenceEngine:
             priority=request.sampling.priority)
         self.completed[request.request_id] = result
         self.metrics.inc(f"requests_{reason}")
+        # the span timeline, stamped at the same terminal choke point and
+        # from the same timestamps as the queue/prefill/decode
+        # decomposition above — so span-sum == total_s by construction,
+        # and restarts stay exactly-once (a dead incarnation emits
+        # neither a record nor spans)
+        emit_request_spans(
+            self.metrics, trace_id=request.trace_id,
+            request_id=request.request_id, submit_ts=submit_ts, now=now,
+            wall=clock.wall(), prefill_start=prefill_start,
+            prefill_end=prefill_end, replica_id=self.replica_id,
+            prefill_segments=prefill_segments, detail=detail)
         for name, value in (("request_queue_s", result.queue_s),
                             ("request_prefill_s", result.prefill_s),
                             ("request_decode_s", result.decode_s),
                             ("request_total_s", result.total_s)):
             self.metrics.observe(name, value)
+        tps = result.tokens_per_s
+        if tps is not None:
+            self.metrics.observe("request_tokens_per_s", tps)
         if result.ttft_s is not None:
             self.metrics.observe("request_ttft_s", result.ttft_s)
         if result.tpot_s is not None:

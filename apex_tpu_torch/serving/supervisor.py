@@ -243,6 +243,13 @@ class EngineSupervisor:
         return len(self._tracked)
 
     @property
+    def inflight_ids(self) -> List[int]:
+        """Ids of admitted-or-queued requests not yet terminal — what a
+        driver must cancel to drain the supervisor early (the loadtest
+        wall-budget abort path)."""
+        return sorted(self._tracked)
+
+    @property
     def service_estimate_s(self) -> Optional[float]:
         """The deadline-shedding EWMA of observed per-request service
         time (None until the first completion)."""

@@ -366,7 +366,29 @@ printing its own lines and raising on failure:
               (``ring_vs_plain_ring``'s derived bars); then, in bf16, the
               ring's forward and backward timed beside the non-ring flash
               and each kind of chunk call alone (diagonal, window-cut,
-              far past, future), with the card's name and power limit.
+              far past, future), with the card's name and power limit;
+39. fp8     — ``amp.fp8.fp8_dense`` on the card: ``native_fp8_dot_supported``
+              True; at ``benchmarks/fp8_bench.py``'s GEMM (M, K, N = 8192,
+              1024, 4096, bf16, the loss ``sum(y^2)``) and a ragged one
+              ([3, 100, 1000] x [1000, 520]) the native path's
+              ``torch._scaled_mm`` products within ``FP8_PRODUCT_BAR`` of
+              their sums of |products| from the plain fp32 products, y, dx
+              and dw within 1 bf16 ulp of the plain version plus that bar
+              carried through the scales, the qdq path within 1 bf16 ulp
+              of the CPU's plus ``FP32_SUM_BAR`` of each sum of
+              |products| (fp32 summation order); a 16-step delayed-scaling walk with an inf
+              step bitwise the CPU's; native, qdq and bf16 fwd+bwd timed
+              (``[fp8_timed]``, TFLOP/s of ``3 * 2 M K N``);
+40. loadtest — a scenario built in code (GPT-2 124M at full widths, 8
+              slots of 768, pages of 64, the prefix cache on; 4 warmup
+              requests then 28, prompts 64-700, 32 new tokens, half
+              sampled) through ``python -m apex_tpu_torch.loadtest ...
+              --dtype bf16 --out run.jsonl --json`` (its ``main``):
+              every request ``length``/``eos``, spans conserved,
+              ``--from-log`` re-scoring equal, A, B and C launched and no
+              other kernel; tokens/s, TTFT and TPOT p50/p99, the busy
+              share; then the same schedule in f32, whose greedy tokens
+              equal ``serve()``'s (``[loadtest_f32]``).
 
 Then one JSON line of per-kernel numbers (launches from the phase that
 drives each kernel's slice: serve for A-C, serve_int8 and serve_spec for
@@ -380,7 +402,8 @@ records, gemma2b_serve for B's and C's, flash_hd256 for I's,
 llama405b_serve for A's wide-row record, hd512_train for E's and F's
 head_dim-512 records, hd512_serve for B's and C's, flash_hd512 for I's,
 ring for B's and I's offset records (``flash_fwd_ring``,
-``flash_bwd_ring``: the diagonal chunk call), with every path's counts in ``launches_by_path``;
+``flash_bwd_ring``: the diagonal chunk call), with every path's counts
+(the loadtest's too) in ``launches_by_path``;
 times from CUDA events in this run; ``bound_ms`` from this run's shapes
 over the H100's published peaks), and last ``{"ok": true, "device":
 {...}}``.
@@ -1019,6 +1042,14 @@ def _decode_rows(positions, ps, pps, window, w=1) -> int:
     """The K/V rows Kernel C must read (see :func:`_decode_spans`)."""
     return sum(hi - lo + 1 for lo, hi in
                filter(None, _decode_spans(positions, ps, pps, window, w)))
+
+
+def _window_keys(positions, ps, pps, w) -> int:
+    """The keys the query rows of ``w``-row windows attend to, summed over
+    the slots and rows: row ``j`` of a window at position ``p`` sees ``p +
+    j + 1`` keys (no sliding window), at most the table's rows."""
+    last = pps * ps - 1
+    return sum(min(p + j, last) + 1 for p in positions for j in range(w))
 
 
 def _decode_bytes(q, pt, positions, ps, kvh, window, pool_bytes=None,
@@ -6400,11 +6431,18 @@ def phase_decode_hd1024(timer: Timer) -> dict:
                                  f", tile {tile}")
         ms = timer(lambda: paged_decode_cuda(q, kp, vp, pt, pos, group, None,
                                              ks, vs), cold=True, iters=10)
+        int8 = pool == torch.int8
+        bms, by = bound_ms(
+            _decode_bytes(q, pt, positions, page, hl // group, None,
+                          1 if int8 else None, int8),
+            4.0 * dh * hl * _window_keys(positions, page, pps_rows // page,
+                                         w), dtype)
         log("kernel_c", case=name, dtype=str(dtype)[6:],
             pool=str(pool)[6:], w=w, rows=rows, row_chunks=chunks,
             element_tile=tile,
-            smem_bytes=paged_decode_smem(plan, dh, page, pool == torch.int8),
-            plan=_decode_plan_text(plan), ms=f"{ms:.5f}")
+            smem_bytes=paged_decode_smem(plan, dh, page, int8),
+            plan=_decode_plan_text(plan), ms=f"{ms:.5f}",
+            bound_ms=f"{bms:.5f}", bound_by=by)
         del q, kp, vp, ks, vs
     hl, group, dh, ps = 4, 4, 1024, 64
     dtype = torch.bfloat16
@@ -6534,6 +6572,450 @@ COUNTER = {"paged_decode_int8": "paged_decode",
            "paged_decode_hd1024": "paged_decode"}
 
 
+#: the GEMM of ``benchmarks/fp8_bench.py:26`` (GPT-355M-sized), and a
+#: ragged one whose K and N are not multiples of 16
+FP8_SHAPE = (8192, 1024, 4096)
+FP8_RAGGED = ((3, 100, 1000), 520)
+#: ``torch._scaled_mm``'s fp32 products against the plain fp32 products:
+#: each element within this share of its sum of |products|. Hopper's fp8
+#: MMA keeps about 13 fraction bits in its accumulator between its fp32
+#: promotions: on the card its products lie up to 1.6e-4 (2^-12.6) of
+#: their sums of |products| from float64 at K 128 and 6.3e-5 at K 1024,
+#: where a bf16 GEMM with fp32 output stays within 8.1e-8
+#: (``apex_tpu_torch/tools/fp8_products.py``; PERF.md, PR 27)
+FP8_PRODUCT_BAR = 2.0 ** -11
+#: the qdq path's bf16 GEMMs on the card against the CPU's: both sum in
+#: fp32 in other orders, so each element may differ by this share of its
+#: sum of |products| before the bf16 rounding (a bf16 GEMM with fp32
+#: output on the card stays within 8.1e-8 of float64,
+#: ``apex_tpu_torch/tools/fp8_products.py``; PERF.md, PR 27)
+FP32_SUM_BAR = 2.0 ** -20
+#: the share of the qdq path's dx and dw elements that may lie one e5m2
+#: step from the CPU's (their products straddled a rounding boundary)
+FP8_E5M2_FLIP_SHARE = 0.01
+
+
+def _fp8_plain_native(x, w, xs, ws, g, recipe):
+    """The native path's plain version on the same inputs: the fp8
+    operands upcast, fp32 products (TF32 off), the scales divided in the
+    native path's order; returns (y, dx, dw), the three products' fp8
+    operands, their fp32 products and the scale products they are divided
+    by."""
+    from apex_tpu_torch.amp import fp8
+    xq = fp8.quantize(x, xs, recipe.fwd_dtype).reshape(-1, x.shape[-1])
+    wq = fp8.quantize(w, ws, recipe.fwd_dtype)
+    amax = g.abs().max().float()
+    gs = torch.where((amax > 0) & torch.isfinite(amax),
+                     torch.full_like(amax, fp8.fp8_max(recipe.bwd_dtype))
+                     / amax, torch.ones_like(amax))
+    gq = fp8.quantize(g, gs, recipe.bwd_dtype).reshape(-1, g.shape[-1])
+    pairs = {"y": (xq, wq), "dx": (gq, wq.t()), "dw": (xq.t(), gq)}
+    prods = {k: fp8.fp8_matmul_plain(a, b) for k, (a, b) in pairs.items()}
+    y = (prods["y"] / (xs * ws)).to(x.dtype).reshape(*x.shape[:-1], -1)
+    dx = (prods["dx"] / (gs * ws)).to(x.dtype).reshape(x.shape)
+    dw = (prods["dw"] / (xs * gs)).to(w.dtype)
+    divs = {"y": xs * ws, "dx": gs * ws, "dw": xs * gs}
+    return (y, dx, dw), pairs, prods, divs
+
+
+def _fp8_products_check(pairs, prods) -> tuple:
+    """``torch._scaled_mm`` (through ``fp8_matmul``) against the plain
+    fp32 products on the same fp8 operands: the largest |difference| over
+    the element's sum of |products|, which must stay within
+    :data:`FP8_PRODUCT_BAR`. Returns it and each product's sums of
+    |products|."""
+    from apex_tpu_torch.amp import fp8
+    worst, sums = 0.0, {}
+    for name, (a, b) in pairs.items():
+        got = fp8.fp8_matmul(a, b)
+        scale = fp8.fp8_matmul_plain(a.float().abs().to(a.dtype),
+                                     b.float().abs().to(b.dtype))
+        ratio = float(((got - prods[name]).abs()
+                       / scale.clamp_min(1e-30)).max())
+        if not ratio <= FP8_PRODUCT_BAR:
+            raise AssertionError(f"fp8: _scaled_mm's {name} product lies "
+                                 f"{ratio:.3e} of its sum of |products| "
+                                 f"from the plain version")
+        worst = max(worst, ratio)
+        sums[name] = scale
+    return worst, sums
+
+
+def _fp8_inputs(m, k, n, lead, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(*lead, m, k, generator=g).to(torch.bfloat16)
+    w = torch.randn(k, n, generator=g).to(torch.bfloat16)
+    return x.to(device), w.to(device)
+
+
+def _fp8_step(x, w, state, native, g=None):
+    """One ``fp8_dense`` forward, and a backward on ``g`` (default the
+    cotangent of ``sum(y^2)``): (y, dx, dw, g, new state)."""
+    from apex_tpu_torch.amp import fp8
+    x = x.detach().requires_grad_(True)
+    w = w.detach().requires_grad_(True)
+    y, new = fp8.fp8_dense(x, w, state, native=native)
+    if g is None:
+        g = (2.0 * y.detach().float()).to(y.dtype)
+    dx, dw = torch.autograd.grad(y, (x, w), g)
+    return y.detach(), dx, dw, g, new
+
+
+def _state_to(state, device):
+    return {n: {k: t.to(device) for k, t in s.items()}
+            for n, s in state.items()}
+
+
+def _fp8_native_check(label, x, w, state, recipe) -> tuple:
+    """The native path (``torch._scaled_mm``) against its plain version on
+    the card, on the cotangent of ``sum(y^2)``: every element of y, dx and
+    dw within 1 bf16 ulp of the plain version's plus the products' bar
+    carried through the scale division (:data:`FP8_PRODUCT_BAR` of the
+    element's sum of |products| over its scales). Returns (the products'
+    worst share of their sums of |products|, the largest share of its
+    bound an element takes, the cotangent)."""
+    y, dx, dw, g, _ = _fp8_step(x, w, state, native=True)
+    want, pairs, prods, divs = _fp8_plain_native(
+        x, w, state["x"]["scale"], state["w"]["scale"], g, recipe)
+    ratio, sums = _fp8_products_check(pairs, prods)
+    use = 0.0
+    for name, got, ref in zip(("y", "dx", "dw"), (y, dx, dw), want):
+        slack = (FP8_PRODUCT_BAR * sums[name] / divs[name]).reshape(ref.shape)
+        r = ref.float().abs()
+        one = 2.0 ** -7 * (r + 2.0 ** -8)
+        share = float(((got.float() - ref.float()).abs()
+                       / (one + slack)).max())
+        if not share <= 1.0:
+            raise AssertionError(f"fp8 {label}: native {name} lies {share} "
+                                 f"of its bound (1 bf16 ulp plus the "
+                                 f"products' bar) from the plain version")
+        use = max(use, share)
+    return ratio, use, g
+
+
+def _qdq_sums(x, w, g, state, recipe) -> dict:
+    """The sums of |products| of the qdq path's three bf16 GEMMs on the
+    card, in fp32: y = q(x) q(w), and the products dx and dw are qdq'd
+    from, g q(w)^T and q(x)^T g."""
+    from apex_tpu_torch.amp import fp8
+    k, n = w.shape
+    xq = fp8.qdq(x, state["x"]["scale"], recipe.fwd_dtype).float().abs()
+    wq = fp8.qdq(w, state["w"]["scale"], recipe.fwd_dtype).float().abs()
+    ga = g.float().abs().reshape(-1, n)
+    xq = xq.reshape(-1, k)
+    return {"y": xq @ wq, "dx": ga @ wq.t(), "dw": xq.t() @ ga}
+
+
+def _fp8_case(label, x, w, state, recipe) -> dict:
+    """:func:`_fp8_native_check`, and the qdq path on the card against the
+    same computation on the CPU, on the same cotangent: within 1 bf16 ulp
+    (the CPU test's bar) plus :data:`FP32_SUM_BAR` of the element's sum of
+    |products|, for the two fp32 summation orders. dx and dw are rounded
+    once more after their products, to e5m2 under their own amax (the
+    straight-through backward), so where the card's and the CPU's
+    products straddle an e5m2 rounding boundary they may differ by that
+    step: an element of dx or dw may carry one e5m2 step of its value,
+    and, where the two sides' amaxes agree, at most
+    :data:`FP8_E5M2_FLIP_SHARE` of them may lie past the bound without
+    it."""
+    from apex_tpu_torch.amp import fp8
+    ratio, native_use, g = _fp8_native_check(label, x, w, state, recipe)
+    qy, qdx, qdw, _, _ = _fp8_step(x, w, state, native=False, g=g)
+    cy, cdx, cdw, _, _ = _fp8_step(x.cpu(), w.cpu(), _state_to(state, "cpu"),
+                                   native=False, g=g.cpu())
+    sums = _qdq_sums(x, w, g, state, recipe)
+    use, flips = 0.0, 0.0
+    for name, got, ref in zip(("y", "dx", "dw"), (qy, qdx, qdw),
+                              (cy, cdx, cdw)):
+        ref = ref.to(got.device).float()
+        err = (got.float() - ref).abs()
+        bound = (2.0 ** -7 * (ref.abs() + 2.0 ** -8)
+                 + FP32_SUM_BAR * sums[name].reshape(ref.shape))
+        past = err > bound
+        if name != "y":
+            # one e5m2 step of the element: 2^-2 of its value in the
+            # normal range, the subnormal step below it (scale from amax)
+            amax = ref.abs().max()
+            bound = bound + torch.maximum(
+                0.25 * ref.abs(),
+                amax * 2.0 ** -16 / fp8.fp8_max(recipe.bwd_dtype))
+            # where the two amaxes differ (their largest products rounded
+            # apart), the whole e5m2 grid moves and any element may step
+            if torch.equal(got.float().abs().max(), amax):
+                flips = max(flips, float(past.float().mean()))
+        share = float((err / bound).max())
+        if not share <= 1.0 or (name != "y" and
+                                flips > FP8_E5M2_FLIP_SHARE):
+            raise AssertionError(
+                f"fp8 {label}: qdq {name} lies {share} of its bound from "
+                f"the CPU's, {float(past.float().mean()):.3e} of its "
+                f"elements past 1 bf16 ulp plus fp32 summation order")
+        use = max(use, share)
+    return {"product_ratio": f"{ratio:.3e}", "native_bound_use":
+            round(native_use, 3), "qdq_bound_use": round(use, 3),
+            "qdq_e5m2_flips": f"{flips:.3e}"}
+
+
+def _fp8_walk(recipe, steps=16, inf_step=7) -> None:
+    """16 ``fp8_dense`` steps on the card and on the CPU from the same
+    seeded inputs, one with an inf: the amax histories and scales must be
+    bitwise equal."""
+    from apex_tpu_torch.amp import fp8
+    (m, k, n_), lead = (8, 256, 96), (2,)
+    states = {dev: fp8.init_fp8_state(["x", "w"], recipe, device=dev)
+              for dev in ("cuda", "cpu")}
+    gen = torch.Generator().manual_seed(11)
+    for step in range(steps):
+        x = torch.randn(*lead, m, k, generator=gen) * 2.0 ** (step % 5 - 2)
+        w = torch.randn(k, n_, generator=gen) * 0.5
+        if step == inf_step:
+            x[0, 0, 0] = float("inf")
+        for dev in states:
+            _, states[dev] = fp8.fp8_dense(
+                x.to(dev, torch.bfloat16), w.to(dev, torch.bfloat16),
+                states[dev], recipe=recipe, native=True)
+    for name in ("x", "w"):
+        for key in ("amax_history", "scale"):
+            a = states["cuda"][name][key].cpu()
+            if not torch.equal(a.view(torch.int32),
+                               states["cpu"][name][key].view(torch.int32)):
+                raise AssertionError(f"fp8 walk: {name} {key} differs "
+                                     f"card {a} cpu "
+                                     f"{states['cpu'][name][key]}")
+
+
+def phase_fp8(timer: Timer) -> None:
+    """``fp8_dense`` on the card (``[fp8]``): ``native_fp8_dot_supported``
+    True; at :data:`FP8_SHAPE` (bf16 x and w, the loss ``sum(y^2)``, on
+    delayed-scaling scales from one step before) and at the ragged
+    :data:`FP8_RAGGED`, the native path's three ``torch._scaled_mm``
+    products within :data:`FP8_PRODUCT_BAR` of their sums of |products|
+    from the plain fp32 products and y, dx, dw within 1 bf16 ulp of the
+    plain version plus that bar carried through the scales
+    (:func:`_fp8_native_check`), and the qdq path's within 1 bf16 ulp of
+    the CPU's plus :data:`FP32_SUM_BAR` of each sum of |products| (at
+    the ragged shape and 256 rows of the GEMM); a 16-step delayed-scaling
+    walk with an inf step bitwise the CPU's; then native fwd+bwd, qdq
+    fwd+bwd and the same three products in bf16 timed, with TFLOP/s of
+    ``3 * 2 * M * K * N``."""
+    from apex_tpu_torch.amp import fp8
+    if not fp8.native_fp8_dot_supported():
+        raise AssertionError("fp8: native_fp8_dot_supported() is False on "
+                             "the card")
+    recipe = fp8.Fp8Recipe()
+    card = _card_name().replace(" ", "_")
+    start = time.perf_counter()
+    m, k, n_ = FP8_SHAPE
+    x, w = _fp8_inputs(m, k, n_, (), 21, "cuda")
+    state = fp8.init_fp8_state(["x", "w"], recipe)
+    # one step first, so the checked step runs on delayed-scaling scales
+    _, _, _, _, state = _fp8_step(x, w, state, native=True)
+    ratio, ulps, _ = _fp8_native_check("gemm", x, w, state, recipe)
+    # the qdq path against the CPU at 256 rows of the GEMM (the CPU's
+    # bf16 products at all 8192 rows would take most of the phase)
+    rows = _fp8_case("gemm_256_rows", x[:256], w, state, recipe)
+    (rm, rk), rn = FP8_RAGGED[0][1:], FP8_RAGGED[1]
+    rx, rw = _fp8_inputs(rm, rk, rn, FP8_RAGGED[0][:1], 22, "cuda")
+    rstate = fp8.init_fp8_state(["x", "w"], recipe)
+    _, _, _, _, rstate = _fp8_step(rx, rw, rstate, native=True)
+    ragged = _fp8_case("ragged", rx, rw, rstate, recipe)
+    _fp8_walk(recipe)
+    log("fp8", card=card, supported=True, shape=f"{m}x{k}x{n_}",
+        product_ratio=f"{ratio:.3e}", product_bar=f"{FP8_PRODUCT_BAR:.3e}",
+        native_bound_use=f"{ulps:.3f}",
+        rows256=json.dumps(rows).replace(" ", ""),
+        ragged=json.dumps(ragged).replace(" ", ""), walk="bitwise")
+
+    xg = x.detach().requires_grad_(True)
+    wg = w.detach().requires_grad_(True)
+
+    def fwd_bwd(native):
+        def run():
+            y, _ = fp8.fp8_dense(xg, wg, state, recipe=recipe, native=native)
+            loss = y.float().square().sum()
+            torch.autograd.grad(loss, (xg, wg))
+        return run
+
+    def bf16():
+        y = xg @ wg
+        torch.autograd.grad(y.float().square().sum(), (xg, wg))
+
+    flop = 3 * 2 * m * k * n_
+    times = {"native": timer(fwd_bwd(True), iters=20),
+             "qdq": timer(fwd_bwd(False), iters=20),
+             "bf16": timer(bf16, iters=20)}
+    log("fp8_timed", card=card, shape=f"{m}x{k}x{n_}",
+        **{f"{k_}_ms": f"{t:.5f}" for k_, t in times.items()},
+        **{f"{k_}_tflops": f"{flop / t / 1e9:.1f}"
+           for k_, t in times.items()},
+        phase_s=f"{time.perf_counter() - start:.1f}")
+
+
+#: the ``[loadtest]`` scenario, built in code: GPT-2 124M at its full
+#: widths served as ``benchmarks/generation_bench.py:61-69`` sizes the
+#: engine (8 slots of 768, pages of 64, prefix cache on), a warmup of 4
+#: requests then 28 at a rate the card sustains, prompts of 64-700 tokens,
+#: 32 new tokens each, half greedy and half sampled; generous SLOs
+LOADTEST_SCENARIO = {
+    "name": "gpt2_124m_card", "seed": 3,
+    "model": {"num_layers": 12, "hidden_size": 768,
+              "num_attention_heads": 12, "vocab_size": 50257,
+              "max_position_embeddings": 1024, "param_seed": 0},
+    "engine": {"max_slots": 8, "max_len": 768, "max_queue": 64,
+               "max_prefills_per_tick": 1, "kv_layout": "paged",
+               "page_size": 64, "prefix_cache": True},
+    "phases": [
+        {"name": "warmup", "n_requests": 4, "rate_rps": 4.0,
+         "prompt_lens": {"64": 1, "128": 1}, "max_new_tokens": {"32": 1}},
+        {"name": "steady", "n_requests": 28, "rate_rps": 8.0,
+         "prompt_lens": {"64": 1, "128": 1, "256": 1, "512": 1, "700": 1},
+         "max_new_tokens": {"32": 1}, "greedy_fraction": 0.5,
+         "temperatures": [0.7, 1.0], "top_ks": [0, 50]}],
+    "slo": {"ttft_p99_s": 30.0, "tpot_p99_s": 2.0, "latency_p99_s": 60.0,
+            "goodput": 0.99, "error_budget": 0.0},
+    "tolerance": 1.0, "max_wall_s": 300.0,
+}
+
+
+def _device_union(prof) -> tuple:
+    """(device operations, seconds the device was busy) of a finished
+    ``torch.profiler`` capture, from its raw events (kernels and copies;
+    overlapping intervals counted once), without building the profiler's
+    per-event Python objects, which costs a minute over a serving run."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.start_ns(), e.end_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA
+                   and not e.is_user_annotation())
+    busy, end = 0, None
+    for lo, hi in spans:
+        if end is None or lo > end:
+            busy += hi - lo
+            end = hi
+        elif hi > end:
+            busy += hi - end
+            end = hi
+    return len(spans), busy / 1e9
+
+
+def _loadtest_cli(*argv) -> tuple:
+    """``python -m apex_tpu_torch.loadtest`` in this process (its
+    ``main``), its ``--json`` verdict parsed from standard output."""
+    import contextlib
+    import io
+
+    from apex_tpu_torch.loadtest.__main__ import main as cli
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = cli(list(argv))
+    return code, json.loads(out.getvalue())
+
+
+def phase_loadtest() -> dict:
+    """``[loadtest]``: :data:`LOADTEST_SCENARIO` in bf16 through ``python
+    -m apex_tpu_torch.loadtest ... --dtype bf16 --out run.jsonl --json``
+    (its ``main``, in this process) under torch.profiler's CUDA activity
+    alone: not aborted, every request ends ``length`` or
+    ``eos``, the log's spans conserved, ``--from-log`` re-scoring it to the
+    same SLO numbers, Kernels A, B and C launched and no other; tokens/s,
+    TTFT and TPOT p50/p99 and the device's busy share (the union of its
+    kernels' and copies' intervals over the replay's wall) printed. Then the
+    same schedule in f32: every greedy request's tokens equal those of the
+    port's engine given the same requests through ``serve()``. Returns
+    the bf16 run's launches."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from apex_tpu_torch.loadtest import Scenario, TrafficGenerator, \
+        build_model, run_scenario
+    from apex_tpu_torch.observability import check_span_conservation, \
+        read_records
+    from apex_tpu_torch.ops import LAUNCHES, reset_launches
+    from apex_tpu_torch.serving import EngineConfig, InferenceEngine
+    card = _card_name().replace(" ", "_")
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="apex-loadtest-") as tmp:
+        path = f"{tmp}/scenario.json"
+        log_path = f"{tmp}/run.jsonl"
+        with open(path, "w") as f:
+            json.dump(LOADTEST_SCENARIO, f)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run_code, verdict = _loadtest_cli(
+                path, "--dtype", "bf16", "--out", log_path, "--json")
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        ops, device_s = _device_union(prof)
+        records = read_records(log_path)
+        code, again = _loadtest_cli(path, "--from-log", log_path, "--json")
+    reqs = [r for r in records if r.get("kind") == "request"]
+    bad = [r["finish_reason"] for r in reqs
+           if r["finish_reason"] not in ("length", "eos")]
+    if run_code != 0 or verdict["aborted"] or bad or len(reqs) != 32:
+        raise AssertionError(f"loadtest: exit {run_code}, aborted "
+                             f"{verdict['aborted']}, {len(reqs)} requests, "
+                             f"bad finish reasons {bad}")
+    violations = check_span_conservation(records)
+    if violations:
+        raise AssertionError(f"loadtest: span conservation: "
+                             f"{violations[:5]}")
+    if code != 0 or again["metrics"] != verdict["metrics"]:
+        raise AssertionError(f"loadtest: --from-log gave exit {code}, "
+                             f"{again['metrics']} against "
+                             f"{verdict['metrics']}")
+    others = {k: v for k, v in launches.items()
+              if v and k not in SERVE_KERNELS}
+    missing = [k for k in SERVE_KERNELS if launches[k] <= 0]
+    if missing or others:
+        raise AssertionError(f"loadtest: kernels never launched {missing}, "
+                             f"other kernels launched {others}")
+    met = verdict["metrics"]
+    tokens = sum(r["new_tokens"] for r in reqs)
+    busy = (f"{device_s / verdict['wall_s']:.4f}" if ops
+            else "not_measured")
+    log("loadtest", card=card, scenario=LOADTEST_SCENARIO["name"],
+        dtype="bf16", requests=len(reqs), new_tokens=tokens,
+        run_wall_s=f"{verdict['wall_s']:.3f}",
+        tokens_per_s=f"{tokens / verdict['wall_s']:.1f}",
+        ttft_p50_ms=f"{1e3 * met['ttft_p50_s']:.2f}",
+        ttft_p99_ms=f"{1e3 * met['ttft_p99_s']:.2f}",
+        tpot_p50_ms=f"{1e3 * met['tpot_p50_s']:.3f}",
+        tpot_p99_ms=f"{1e3 * met['tpot_p99_s']:.3f}",
+        goodput=met["goodput"], slo_ok=verdict["slo"]["ok"],
+        busy_share=busy, device_ops=ops,
+        device_busy_s=f"{device_s:.4f}", cli_wall_s=f"{wall:.3f}",
+        profiled="cuda_activity", spans="conserved", rescored="equal",
+        launches=json.dumps(launches).replace(" ", ""))
+
+    scenario = Scenario.from_dict(json.loads(json.dumps(LOADTEST_SCENARIO)))
+    model = build_model(scenario.model, compute_dtype=torch.float32)
+    run = run_scenario(scenario, model=model)
+    knobs = scenario.engine
+    engine = InferenceEngine(model, EngineConfig(
+        max_slots=knobs.max_slots, max_len=knobs.max_len,
+        page_size=knobs.page_size, prefix_cache=knobs.prefix_cache))
+    fresh = TrafficGenerator(scenario).requests()
+    greedy = [i for i, r in enumerate(fresh) if r.sampling.temperature == 0]
+    served = engine.serve([fresh[i] for i in greedy])
+    ran = [run.results[run.schedule[i].request.request_id] for i in greedy]
+    differ = [i for i, a, b in zip(greedy, ran, served)
+              if a.tokens != b.tokens]
+    if run.aborted or differ:
+        raise AssertionError(f"loadtest f32: aborted {run.aborted}; greedy "
+                             f"requests {differ} differ from serve()")
+    log("loadtest_f32", card=card, requests=len(run.results),
+        greedy=len(greedy), greedy_equal_serve=True,
+        run_wall_s=f"{run.wall_s:.3f}",
+        phase_s=f"{time.perf_counter() - start:.1f}")
+    del engine, model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -6602,6 +7084,8 @@ def main() -> int:
     records.append(phase_decode_hd1024(timer))
     paths.update(phase_hd1024(args.profile))
     phase_hd1024_card_vs_cpu()
+    phase_fp8(timer)
+    paths["loadtest"] = phase_loadtest()
     for rec in records:
         name = rec["name"]
         counter = COUNTER.get(name, name)
