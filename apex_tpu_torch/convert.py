@@ -26,7 +26,10 @@ and :func:`grads_to_jax` lays a model's ``.grad`` tensors out the same way,
 so they compare leaf by leaf with the JAX gradient tree.
 :func:`state_from_jax` / :func:`state_to_jax` do the same for a ResNet's
 batch-norm running statistics (the JAX ``state`` tree, the port's
-buffers).
+buffers). :func:`adapter_from_jax` / :func:`adapter_to_jax` carry a LoRA
+adapter's factor tree (``{target: {"A": [L, in, r], "B": [L, r, out]}}``,
+the same layout in both packages, or a stacked ``[n_jobs, L, ...]`` one)
+across.
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ import numpy as np
 import torch
 
 __all__ = ["params_from_jax", "params_to_jax", "grads_to_jax",
-           "load_jax_params", "state_from_jax", "state_to_jax"]
+           "load_jax_params", "state_from_jax", "state_to_jax",
+           "adapter_from_jax", "adapter_to_jax"]
 
 
 def _stacked(path) -> bool:
@@ -164,3 +168,18 @@ def load_jax_params(model: torch.nn.Module, tree: Mapping[str, Any],
         raise RuntimeError(f"load_jax_params: missing keys {missing}, "
                            f"unexpected keys {unexpected}")
     return model
+
+
+def adapter_from_jax(factors: Mapping[str, Any]
+                     ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A JAX adapter's factor tree (numpy leaves) -> the port's, CPU
+    tensors in the leaves' dtypes (:meth:`AdapterStore.load` moves them to
+    the bank's device)."""
+    return {t: {k: _to_tensor(v) for k, v in f.items()}
+            for t, f in factors.items()}
+
+
+def adapter_to_jax(factors: Mapping[str, Any]) -> Dict[str, Dict[str, Any]]:
+    """The inverse of :func:`adapter_from_jax`: numpy leaves."""
+    return {t: {k: _to_numpy(v) for k, v in f.items()}
+            for t, f in factors.items()}

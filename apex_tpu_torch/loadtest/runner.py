@@ -28,10 +28,16 @@ Where the port differs from the JAX runner:
   ``param_seed``: the same seed gives the same weights on any device, but
   not the JAX package's) and :func:`run_scenario` takes ``model=`` alone —
   a comparison with the JAX runner loads converted weights into it;
+- ``lora_adapters``: the seeded :class:`~apex_tpu_torch.lora.AdapterStore`
+  (ids ``"0"`` .. ``"n-1"``, rank ``lora_rank``) draws its factors from a
+  ``torch.Generator`` seeded with the scenario's ``seed``, as
+  :func:`build_model` draws weights, so they are not the JAX runner's;
+  :func:`run_scenario` takes ``adapters=`` too (converted JAX adapters for
+  a comparison);
 - one engine only: a scenario with a ``fleet``, ``autoscale``, ``deploy``,
-  ``sentinel``, ``quotas`` or ``brownout`` block or with
-  ``lora_adapters`` raises ``NotImplementedError`` before anything runs,
-  naming the ROADMAP item that brings it;
+  ``sentinel``, ``quotas`` or ``brownout`` block raises
+  ``NotImplementedError`` before anything runs, naming the ROADMAP item
+  that brings it;
 - ``ScenarioRun.retraces`` reads the ``retraces`` counter as the JAX
   runner does; the port's engines compile nothing, so it stays 0.
 """
@@ -67,6 +73,7 @@ from apex_tpu_torch.serving import (
     RequestResult,
     SchedulerConfig,
     SupervisorConfig,
+    UnknownAdapterError,
 )
 from apex_tpu_torch.serving import clock
 from apex_tpu_torch.utils.logging import get_logger, log_event
@@ -111,6 +118,28 @@ def build_model(spec: ModelSpec, *,
         params_dtype=torch.float32, compute_dtype=compute_dtype),
         device=device,
         generator=torch.Generator().manual_seed(spec.param_seed))
+
+
+def _build_adapters(scenario: Scenario, model):
+    """The scenario's seeded adapter store on the model's device (None
+    without ``lora_adapters``): ids ``"0"`` .. ``"n-1"``, each a
+    :func:`~apex_tpu_torch.lora.random_adapter` of rank ``lora_rank``
+    drawn in turn from a ``torch.Generator`` seeded with the scenario's
+    ``seed`` — reproducible per-tenant weights, as :func:`build_model`
+    seeds the base model."""
+    from apex_tpu_torch.lora import AdapterStore, random_adapter
+
+    knobs = scenario.engine
+    if not knobs.lora_adapters:
+        return None
+    store = AdapterStore(model.config, knobs.lora_rank,
+                         max_adapters=knobs.lora_adapters,
+                         device=model.device)
+    g = torch.Generator().manual_seed(scenario.seed)
+    for ix in range(knobs.lora_adapters):
+        store.load(str(ix), random_adapter(model.config, knobs.lora_rank, g,
+                                           device=model.device))
+    return store
 
 
 @dataclass
@@ -162,18 +191,14 @@ def _check_ported(scenario: Scenario) -> None:
             raise NotImplementedError(
                 f"scenario {scenario.name!r} has a {block!r} block: "
                 f"{what} is not ported yet")
-    if scenario.engine.lora_adapters:
-        raise NotImplementedError(
-            f"scenario {scenario.name!r} serves LoRA adapters "
-            f"(engine.lora_adapters={scenario.engine.lora_adapters}): "
-            f"multi-LoRA, ROADMAP §1 item 3, is not ported yet")
 
 
-def _build_serving(scenario: Scenario, model,
-                   metrics: MetricsRegistry) -> EngineSupervisor:
+def _build_serving(scenario: Scenario, model, metrics: MetricsRegistry,
+                   adapters=None) -> EngineSupervisor:
     """The serving tier under test: one
     :class:`~apex_tpu_torch.serving.EngineSupervisor` on the model's
-    device, the scenario's fault schedule driving its injector."""
+    device, the scenario's fault schedule driving its injector and
+    ``adapters`` its adapter store."""
     from apex_tpu_torch.testing_faults import ServingFaultInjector
 
     knobs = scenario.engine
@@ -195,17 +220,20 @@ def _build_serving(scenario: Scenario, model,
         faults = ServingFaultInjector(**scenario.faults.injector_kwargs())
     return EngineSupervisor(model, engine_cfg, supervisor=sup_cfg,
                             metrics=metrics, faults=faults,
-                            device=model.device)
+                            adapters=adapters, device=model.device)
 
 
-def run_scenario(scenario: Scenario, *, model=None,
+def run_scenario(scenario: Scenario, *, model=None, adapters=None,
                  metrics: Optional[MetricsRegistry] = None,
                  log_path: Optional[str] = None) -> ScenarioRun:
     """Execute ``scenario`` and score it against its declared SLOs.
 
     ``model`` defaults to :func:`build_model` of the scenario's model spec
     on the card (pass one to run another device, dtype or set of weights,
-    e.g. converted JAX weights on the CPU). ``metrics`` defaults to a
+    e.g. converted JAX weights on the CPU). ``adapters`` defaults, for a
+    scenario with ``lora_adapters``, to the seeded store on the
+    model's device (pass a store to serve other factors, e.g. converted
+    JAX adapters). ``metrics`` defaults to a
     fresh registry; ``log_path`` attaches a JSONL sink so the run is
     ``python -m apex_tpu_torch.monitor``-able afterwards. An
     :class:`~apex_tpu_torch.observability.InMemorySink` is always
@@ -247,7 +275,9 @@ def run_scenario(scenario: Scenario, *, model=None,
         "slo": dict(scenario.slo), "wall": clock.wall()})
 
     schedule = TrafficGenerator(scenario).schedule()
-    sup = _build_serving(scenario, model, registry)
+    if adapters is None:
+        adapters = _build_adapters(scenario, model)
+    sup = _build_serving(scenario, model, registry, adapters)
     if recorder is not None:
         recorder.attach(sup, registry)
     run = ScenarioRun(scenario=scenario, schedule=schedule, results={},
@@ -272,7 +302,7 @@ def run_scenario(scenario: Scenario, *, model=None,
                 try:
                     sup.submit(req)
                 except (EngineUnavailableError, QueueFullError,
-                        DeadlineExpiredError):
+                        DeadlineExpiredError, UnknownAdapterError):
                     pass        # recorded terminally by the supervisor
             if sup.inflight_count:
                 sup.tick()

@@ -112,13 +112,15 @@ def init_paged_kv_caches(model: GPTModel, n_pages: int, page_size: int,
 @torch.no_grad()
 def _cached_forward(model: GPTModel, caches: Caches, tokens: torch.Tensor,
                     index, last_only: bool = False, last_index=None,
-                    paged_state=None):
+                    paged_state=None, lora=None):
     """Run ``tokens [b, s]`` at cache offset ``index`` -> (fp32 logits
     ``[s, b, V]``, caches). ``index`` is an int (prefill at 0) or a
     ``[b]`` tensor of per-slot positions (paged decode). ``last_only`` /
     ``last_index`` compute the LM head for one position only — the
     bucketed prefill reads row ``prompt_len - 1`` of a right-padded
-    prompt."""
+    prompt. ``lora`` is the per-slot adapter factors ``[L, b, ...]`` the
+    serving engine gathers (see :class:`~apex_tpu_torch.models.transformer.\
+ParallelTransformer`)."""
     c = model.config
     s = tokens.shape[1]
     emb = model.embedding.word_embeddings(tokens)                # [b, s, h]
@@ -138,7 +140,7 @@ def _cached_forward(model: GPTModel, caches: Caches, tokens: torch.Tensor,
     hidden = emb.transpose(0, 1).to(c.compute_dtype)             # [s, b, h]
     hidden, caches = model.transformer(hidden, kv_caches=caches,
                                        cache_index=index,
-                                       paged_state=paged_state)
+                                       paged_state=paged_state, lora=lora)
     if last_only:
         hidden = hidden[-1:]
     elif last_index is not None:
@@ -147,13 +149,14 @@ def _cached_forward(model: GPTModel, caches: Caches, tokens: torch.Tensor,
 
 
 def decode_step(model: GPTModel, caches: Caches, tokens: torch.Tensor,
-                index, paged_state=None):
+                index, paged_state=None, lora=None):
     """One step: ``tokens [b]`` at positions ``index`` -> (fp32 logits
     ``[b, V]``, caches). With ``paged_state`` (``[b, pages_per_slot]``
     page table) ``caches`` are the page pools (``(pages, scales)`` pairs
-    when quantized) and ``index`` the ``[b]`` position vector."""
+    when quantized) and ``index`` the ``[b]`` position vector; ``lora``
+    as :func:`_cached_forward` takes it."""
     logits, caches = _cached_forward(model, caches, tokens[:, None], index,
-                                     paged_state=paged_state)
+                                     paged_state=paged_state, lora=lora)
     return logits[0], caches
 
 

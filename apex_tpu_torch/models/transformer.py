@@ -251,6 +251,18 @@ def embed_tokens(embedding: Embedding, tokens: torch.Tensor,
     return _dropout(hidden, config.hidden_dropout, rng, deterministic)
 
 
+def _lora_delta(x: torch.Tensor, lora) -> torch.Tensor:
+    """Per-slot low-rank delta of one target projection, ``(x @ A) @ B``
+    with per-batch-element factors: ``x [s, b, h]``, ``A [b, h, r]``, ``B
+    [b, r, out]`` -> fp32 ``[s, b, out]`` (the JAX package's
+    ``_lora_delta``). The serving engine gathers each slot's factors from
+    the adapter bank (:mod:`apex_tpu_torch.lora`; the null row is all
+    zeros, so a base-traffic slot adds an exact 0). Both products run in
+    fp32 and the caller rounds once, to the projection's dtype."""
+    d = torch.bmm(x.float().transpose(0, 1), lora["A"].float())  # [b, s, r]
+    return torch.bmm(d, lora["B"].float()).transpose(0, 1)
+
+
 class ParallelMLP(nn.Module):
     """h -> ffn (column) -> activation -> h (row); gated activations widen
     the column projection to ``2*ffn``, unit-interleaved and bias-free."""
@@ -267,10 +279,13 @@ class ParallelMLP(nn.Module):
         self.dense_4h_to_h = RowParallelLinear(c.ffn_size, c.hidden_size,
                                                **kw)
 
-    def forward(self, hidden: torch.Tensor) -> torch.Tensor:
-        x = apply_activation(self.dense_h_to_4h(hidden),
-                             self.config.activation)
-        return self.dense_4h_to_h(x)
+    def forward(self, hidden: torch.Tensor, *, lora=None) -> torch.Tensor:
+        """``lora``: this layer's per-slot ``dense_h_to_4h`` factors (see
+        :func:`_lora_delta`), added before the activation."""
+        x = self.dense_h_to_4h(hidden)
+        if lora is not None:
+            x = x + _lora_delta(hidden, lora).to(x.dtype)
+        return self.dense_4h_to_h(apply_activation(x, self.config.activation))
 
 
 class ParallelAttention(nn.Module):
@@ -439,7 +454,7 @@ class ParallelAttention(nn.Module):
                 cache_index=None,
                 paged_state: Optional[torch.Tensor] = None,
                 rng: Optional[torch.Tensor] = None,
-                deterministic: bool = True, dropout_seed=None):
+                deterministic: bool = True, dropout_seed=None, lora=None):
         """``hidden [s, b, h] -> [s, b, h]``, or ``(out, cache)`` with a
         ``kv_cache`` (updated in place and returned). Cross-attention reads
         K/V from ``encoder_output [s_enc, b, h]``. ``attention_mask`` is a
@@ -448,12 +463,16 @@ class ParallelAttention(nn.Module):
         dropout (``deterministic=False``): the packed path's hash seed is
         ``dropout_seed`` (the stack's per-layer seed) or a ``randint``
         drawn from ``rng``; the other paths drop the probabilities with
-        masks from ``rng``."""
+        masks from ``rng``. ``lora`` (self-attention): this layer's
+        per-slot ``query_key_value`` factors, whose delta is added to the
+        fused projection before any split, on every path."""
         c = self.config
         dh = c.head_dim
         if self.attn_type == AttnType.self_attn:
             qpg = c.num_attention_heads // c.kv_heads
             qkv = self.query_key_value(hidden)
+            if lora is not None:
+                qkv = qkv + _lora_delta(hidden, lora).to(qkv.dtype)
             s, b = qkv.shape[0], qkv.shape[1]
             causal = c.attn_mask_type == AttnMaskType.causal
             drop_active = not deterministic and c.attention_dropout > 0.0
@@ -600,7 +619,7 @@ class ParallelTransformerLayer(nn.Module):
                 enc_dec_attn_mask=None, enc_kv_lengths=None,
                 attention_mask=None, kv_lengths=None, kv_cache=None,
                 cache_index=None, paged_state=None, rng=None,
-                deterministic: bool = True, attention_seed=None):
+                deterministic: bool = True, attention_seed=None, lora=None):
         """``encoder_output`` (decoder layers) is the full encoder sequence
         ``[s_enc, b, h]``; ``enc_kv_lengths`` keeps padded cross-attention
         on flash, ``enc_dec_attn_mask`` sends it through the masked
@@ -608,7 +627,8 @@ class ParallelTransformerLayer(nn.Module):
         the JAX layer splits it: 0 after the attention, 1 after the MLP, 2
         inside the self-attention, 3 folded with 0 and 1 for the
         cross-attention and the dropout after it; ``attention_seed`` is the
-        packed path's hash seed."""
+        packed path's hash seed. ``lora``: this layer's per-slot factors
+        ``{target: {"A", "B"}}`` (:mod:`apex_tpu_torch.lora`)."""
         c = self.config
         decoder = self.layer_type == LayerType.decoder
         n_keys = 4 if decoder else 3
@@ -620,7 +640,8 @@ class ParallelTransformerLayer(nn.Module):
             x.to(c.compute_dtype), attention_mask=attention_mask,
             kv_lengths=kv_lengths, kv_cache=kv_cache,
             cache_index=cache_index, paged_state=paged_state, rng=rngs[2],
-            deterministic=deterministic, dropout_seed=attention_seed)
+            deterministic=deterministic, dropout_seed=attention_seed,
+            lora=None if lora is None else lora.get("query_key_value"))
         new_cache = None
         if kv_cache is not None:
             attn, new_cache = attn
@@ -640,8 +661,10 @@ class ParallelTransformerLayer(nn.Module):
                                        deterministic)
             norm = self.post_inter_attention_layernorm
         x = norm(hidden, out_dtype=hidden.dtype)
-        mlp_out = _dropout(self.mlp(x.to(c.compute_dtype)), c.hidden_dropout,
-                           rngs[1], deterministic)
+        mlp_out = _dropout(
+            self.mlp(x.to(c.compute_dtype),
+                     lora=None if lora is None else lora.get("dense_h_to_4h")),
+            c.hidden_dropout, rngs[1], deterministic)
         out = hidden + mlp_out
         return out if kv_cache is None else (out, new_cache)
 
@@ -703,7 +726,7 @@ class ParallelTransformer(nn.Module):
                 kv_caches: Optional[List] = None, cache_index=None,
                 paged_state=None, final_norm: bool = True,
                 rng: Optional[torch.Tensor] = None,
-                deterministic: bool = True):
+                deterministic: bool = True, lora=None):
         """``hidden``, or ``(hidden, new_caches)`` with ``kv_caches`` — a
         LIST of per-layer ``(k, v)`` pairs (4D caches or page pools),
         updated in place. The masks, lengths and encoder output reach every
@@ -712,8 +735,22 @@ class ParallelTransformer(nn.Module):
         ``fold_in(rng, num_layers)``) plus ``idx * 0x9E3779B9``, as the JAX
         stack does; without caches, a truthy ``recompute`` recomputes each
         layer in the backward (``'selective'``: all but the saved
-        non-batched matmul outputs)."""
+        non-batched matmul outputs). ``lora`` (serving): per-slot adapter
+        factors ``{target: {"A": [L, b, in, r], "B": [L, b, r, out]}}``,
+        gathered by the engine from the bank; layer ``idx`` reads the
+        ``[idx]`` views. They need the per-layer cache list, as in JAX: a
+        cache-free or training forward merges adapters into the weights
+        (:func:`apex_tpu_torch.lora.merge_adapter`) instead."""
         c = self.config
+        if lora is not None and kv_caches is None:
+            raise NotImplementedError(
+                "lora (per-slot adapter factors) needs the per-layer LIST "
+                "kv_caches form — merge adapters into the weights for "
+                "cache-free forwards")
+        if lora is not None and getattr(c, "sequence_parallel", False):
+            raise NotImplementedError(
+                "lora deltas read the layer input pre-gather; sequence "
+                "parallelism is not supported on the adapter path")
         seed_base = None
         if rng is not None and not deterministic and c.attention_dropout > 0:
             seed_base = prng.randint(model_parallel_rng_key(
@@ -736,7 +773,11 @@ class ParallelTransformer(nn.Module):
                       deterministic=deterministic,
                       attention_seed=_layer_seed(seed_base, idx))
             if kv_caches is not None:
-                hidden, cache = layer(hidden, kv_cache=kv_caches[idx], **kw)
+                layer_lora = (None if lora is None else
+                              {t: {k: v[idx] for k, v in f.items()}
+                               for t, f in lora.items()})
+                hidden, cache = layer(hidden, kv_cache=kv_caches[idx],
+                                      lora=layer_lora, **kw)
                 new_caches.append(cache)
             elif c.recompute and torch.is_grad_enabled():
                 hidden = _recompute(layer, hidden, kw, c.recompute)

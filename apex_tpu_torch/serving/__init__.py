@@ -1,6 +1,7 @@
 """Continuous-batching serving over the paged or flat KV layout, and the
 engine supervisor (counterpart of ``apex_tpu.serving``)."""
 
+from apex_tpu_torch.lora import UnknownAdapterError
 from apex_tpu_torch.serving.engine import EngineConfig, InferenceEngine
 from apex_tpu_torch.serving.request import (
     FINISH_CANCELLED,
@@ -37,4 +38,4 @@ __all__ = ["EngineConfig", "InferenceEngine", "Request", "RequestResult",
            "QueueFullError", "SchedulerConfig", "bucket_for",
            "prefill_buckets", "PageError", "PagePool", "SlotError",
            "SlotPool", "EngineSupervisor", "EngineUnavailableError",
-           "SupervisorConfig"]
+           "SupervisorConfig", "UnknownAdapterError"]

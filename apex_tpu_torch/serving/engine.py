@@ -49,13 +49,20 @@ decode step over one batched step across all slots:
   higher-class queued head blocked on slots or pages parks the
   lowest-class running slot; its host cursor (request, tokens) waits in
   :meth:`take_parked` for a continuation that resumes token-exact.
+- **Multi-LoRA** (``adapters=``, an
+  :class:`~apex_tpu_torch.lora.AdapterStore`): a request's ``adapter_id``
+  selects a bank row; each tick gathers every slot's factors once (null
+  row for base traffic and idle slots) and each layer adds the per-slot
+  low-rank delta to its QKV and MLP up-projections, on every prefill,
+  chunk, decode and verify-window path. The bank is read on every step,
+  so a hot ``load``/``unload`` lands on the next one. The prefix cache
+  salts each chain with the adapter, so tenants never share pages.
 
 Eager PyTorch has no retrace, so the JAX engine's retrace watchdog has no
 counterpart; caches are updated in place (no donation).
 ``prefill_compiles``/``decode_compiles`` count the shapes first run (their
 first call pays the one-time costs: kernel build, library handles), which
 the supervisor's hung-tick check exempts as the JAX one exempts compiles.
-LoRA ``adapters`` raise ``NotImplementedError``.
 
 Telemetry is the JAX engine's: each terminal request writes its
 ``kind="request"`` record, the ``request_*`` histograms
@@ -74,6 +81,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from apex_tpu_torch.lora.adapter import UnknownAdapterError
 from apex_tpu_torch.models.generation import (
     _cached_forward,
     cast_decode_params,
@@ -97,7 +105,8 @@ from apex_tpu_torch.ops.decode_attention import (
     spare_page_view,
 )
 from apex_tpu_torch.serving import clock
-from apex_tpu_torch.serving.prefix import prefix_hash_chain, prefix_salt
+from apex_tpu_torch.serving.prefix import adapter_salt, prefix_hash_chain, \
+    prefix_salt
 from apex_tpu_torch.serving.request import (
     FINISH_CANCELLED,
     FINISH_EOS,
@@ -119,15 +128,22 @@ from apex_tpu_torch.serving.scheduler import (
 )
 from apex_tpu_torch.serving.slots import PagePool, SlotPool
 from apex_tpu_torch.serving.speculation import propose_draft
+from apex_tpu_torch.utils.logging import get_logger, log_event
 from apex_tpu_torch.utils.prng import categorical, fold_in, prng_key
 
 __all__ = ["EngineConfig", "InferenceEngine"]
+
+_LOG = get_logger(__name__)
 
 #: declared up front so final counter snapshots carry every key
 _COUNTERS = ("requests_submitted", "requests_eos", "requests_length",
              "requests_cancelled", "requests_timeout", "requests_rejected",
              "requests_error", "prefills", "decode_steps",
              "tokens_generated", "slots_quarantined", "requests_shed_pages",
+             # multi-LoRA: submits whose adapter_id the AdapterStore does
+             # not know, fast-failed at submit as request_shed
+             # reason="unknown_adapter"
+             "requests_shed_adapter",
              # prefix cache: hits + misses == prefills when it is on;
              # pages_shared counts prefill pages NOT recomputed
              "prefix_hits", "prefix_misses", "prefix_pages_shared",
@@ -231,7 +247,8 @@ class _Active:
     __slots__ = ("request", "slot", "tokens", "last_token", "position",
                  "submit_ts", "prefill_start", "prefill_end",
                  "first_token_ts", "last_token_ts", "cancelled",
-                 "reserved_pages", "spec_proposed", "spec_accepted",
+                 "reserved_pages", "adapter_ix", "spec_proposed",
+                 "spec_accepted",
                  "prefill_pos", "prefill_chunks", "chunk_marks",
                  "page_row", "chain", "shared_used", "skip_first",
                  "finite_ok")
@@ -243,6 +260,7 @@ class _Active:
         self.last_token = 0
         self.position = 0        # cache rows written for this slot
         self.reserved_pages = 0  # worst-case pages minus shared-prefix hit
+        self.adapter_ix = 0      # bank row (the null row without adapter)
         self.spec_proposed = 0   # draft positions offered over the lifetime
         self.spec_accepted = 0   # draft positions the model agreed with
         self.submit_ts = submit_ts
@@ -297,7 +315,8 @@ class InferenceEngine:
     caller's model keeps its fp32 parameters. ``faults`` takes a
     :class:`~apex_tpu_torch.testing_faults.ServingFaultInjector`, whose
     hooks run before each prefill (and chunk), before each decode step and
-    on its host outputs.
+    on its host outputs. ``adapters`` takes an
+    :class:`~apex_tpu_torch.lora.AdapterStore` on the engine's device.
     """
 
     def __init__(self, model, config: Optional[EngineConfig] = None, *,
@@ -305,8 +324,13 @@ class InferenceEngine:
                  replica_id: Optional[int] = None, adapters=None,
                  device="cuda"):
         self.device = resolve_device(device)
-        if adapters is not None:
-            raise NotImplementedError("LoRA adapters are not ported yet")
+        if adapters is not None and adapters.device != self.device:
+            raise ValueError(f"the adapter bank lives on {adapters.device} "
+                             f"but the engine runs on {self.device}")
+        #: optional AdapterStore (apex_tpu_torch.lora): a request's
+        #: adapter_id selects a bank row; the bank is re-read every step,
+        #: so a host-side load/unload between ticks applies on the next
+        self.adapters = adapters
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device} but the engine "
                              f"runs on {self.device}; build the model with "
@@ -324,6 +348,13 @@ class InferenceEngine:
                 f"max_position_embeddings ({c.max_position_embeddings})")
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.metrics.declare_counters(*_COUNTERS)
+        if self.adapters is not None:
+            # per-adapter submit counters, declared up front so final
+            # snapshots carry every key; the monitor reconciles them
+            # against the adapter_request events key for key
+            self.metrics.declare_counters(
+                *(f"adapter{ix}_requests"
+                  for ix in range(self.adapters.max_adapters)))
         self.scheduler = FCFSScheduler(self.config.scheduler)
         self.slots = SlotPool(self.config.max_slots)
         self.buckets = prefill_buckets(self.config.max_len)
@@ -358,7 +389,9 @@ class InferenceEngine:
                 n_pages, self.config.page_size, pps,
                 lru_capacity=(self.config.prefix_lru_capacity
                               if self.config.prefix_cache else 0))
-            #: salt of the prompt-prefix hash chains: the model's fingerprint
+            #: salt of the prompt-prefix hash chains: the model's
+            #: fingerprint, with each request's adapter_id folded in at hash
+            #: time (adapter deltas write adapter-specific K/V)
             self._prefix_salt = prefix_salt(c)
             self._evictions_seen = 0
             self._caches = init_paged_kv_caches(model, n_pages,
@@ -384,6 +417,10 @@ class InferenceEngine:
         self._temps_h = np.zeros(n, np.float32)
         self._topks_h = np.full(n, self._vocab, np.int32)
         self._seeds_h = np.zeros(n, np.int32)
+        #: per-slot adapter bank row; idle and base slots hold the null row
+        self._null_adapter = (0 if self.adapters is None
+                              else self.adapters.null_index)
+        self._adapter_ix_h = np.full(n, self._null_adapter, np.int64)
         #: speculation: per-slot verify window (row 0 the token the
         #: sequential step would feed, rows 1.. the n-gram draft, padded by
         #: repeating the last real feed) and its valid length
@@ -391,6 +428,44 @@ class InferenceEngine:
         if self._spec:
             self._window_h = np.zeros((n, self._spec), np.int64)
             self._wlen_h = np.ones(n, np.int32)
+
+    @property
+    def _bank(self):
+        """The current adapter bank (None without an AdapterStore), read
+        on every step so a hot load or unload lands on the next."""
+        return None if self.adapters is None else self.adapters.bank
+
+    def _adapter_index(self, adapter_id, *, strict: bool) -> int:
+        """An ``adapter_id``'s bank row. ``strict`` raises
+        :class:`~apex_tpu_torch.lora.UnknownAdapterError` (submit
+        validation); non-strict falls back to the null row — the prefill
+        and decode path of a request whose adapter was unloaded after
+        admission, which degrades to base-model output instead of failing
+        the batch."""
+        if self.adapters is None:
+            if adapter_id is not None and strict:
+                raise UnknownAdapterError(
+                    f"adapter {adapter_id!r}: engine has no AdapterStore")
+            return self._null_adapter
+        try:
+            return self.adapters.index_of(adapter_id)
+        except UnknownAdapterError:
+            if strict:
+                raise
+            return self._null_adapter
+
+    def _lora(self, adapter_ix) -> Optional[dict]:
+        """Per-slot LoRA factors from the adapter bank (the JAX engine's
+        ``_select_adapters``): leaves ``[L, max_adapters + 1, ...]`` at
+        bank rows ``adapter_ix`` (host ints, one a slot) -> ``[L, b,
+        ...]``, the layout the transformer's layer loop slices, one gather
+        a factor. None without an AdapterStore: no delta runs at all."""
+        if self.adapters is None:
+            return None
+        ix = torch.as_tensor(np.asarray(adapter_ix, np.int64),
+                             device=self.device)
+        return {t: {k: v.index_select(1, ix) for k, v in f.items()}
+                for t, f in self._bank.items()}
 
     # -- introspection ----------------------------------------------------
 
@@ -475,7 +550,12 @@ class InferenceEngine:
         :class:`~apex_tpu_torch.serving.scheduler.DeadlineExpiredError`
         after recording a ``rejected`` result. ``resubmission=True`` is the
         supervisor's continuation path: the request was counted at its
-        original submit, so ``requests_submitted`` is not counted again."""
+        original submit, so ``requests_submitted`` is not counted again.
+        An ``adapter_id`` the AdapterStore does not hold (or any, without
+        one) raises :class:`~apex_tpu_torch.lora.UnknownAdapterError` after
+        counting ``requests_shed_adapter`` and recording a ``rejected``
+        result; a continuation whose adapter was unloaded since serves on
+        the null row instead."""
         if self._closed:
             raise RuntimeError("engine is closed")
         if request.request_id in self.completed:
@@ -486,11 +566,35 @@ class InferenceEngine:
                 f"prompt ({request.prompt_len}) + max_new_tokens "
                 f"({request.max_new_tokens}) exceeds the engine's max_len "
                 f"({self.config.max_len})")
-        if request.sampling.adapter_id is not None:
-            raise NotImplementedError("LoRA adapters are not ported yet")
         now = clock.now()
         if not resubmission:
             self.metrics.inc("requests_submitted")
+        aid = request.sampling.adapter_id
+        try:
+            # restart continuations were validated at their original
+            # submit; if the adapter vanished since, they degrade to the
+            # null row (base output) instead of failing the restart
+            ix = self._adapter_index(aid, strict=not resubmission)
+        except UnknownAdapterError:
+            # fast-fail before the queue: an unknown or unloaded adapter
+            # can never give the tenant's output, so it sheds with its own
+            # counter, a request_shed event and a terminal rejected record
+            self.metrics.inc("requests_shed_adapter")
+            log_event(_LOG, "request_shed", request_id=request.request_id,
+                      reason="unknown_adapter", adapter_id=aid)
+            self.metrics.event("request_shed",
+                               request_id=request.request_id,
+                               reason="unknown_adapter", adapter_id=aid)
+            self._finish(request, [], FINISH_REJECTED, submit_ts=now,
+                         now=now, detail="unknown_adapter")
+            raise
+        if aid is not None and not resubmission:
+            # the per-adapter arrival ledger (the monitor reconciles the
+            # counter against these events key for key)
+            self.metrics.inc(f"adapter{ix}_requests")
+            self.metrics.event("adapter_request",
+                               request_id=request.request_id,
+                               adapter_id=aid, adapter_ix=ix)
         try:
             self.scheduler.submit(request, now)
         except QueueFullError:
@@ -680,7 +784,11 @@ class InferenceEngine:
         when its suffix bucket would overrun ``max_len``, so the bucket
         set keeps holding."""
         ps = self.config.page_size
-        chain = prefix_hash_chain(request.prompt, ps, self._prefix_salt)
+        # the request's adapter folded into the salt: adapter deltas make
+        # K/V adapter-specific, so same-prompt tenants under different
+        # adapters never share a chain (base traffic keeps the model salt)
+        salt = adapter_salt(self._prefix_salt, request.sampling.adapter_id)
+        chain = prefix_hash_chain(request.prompt, ps, salt)
         if not self.config.prefix_cache or not chain:
             return chain, [], False
         pages, matched = self.pages.match_prefix(chain)
@@ -920,7 +1028,7 @@ class InferenceEngine:
     def _note_shape(self, program: str, bucket: int) -> None:
         self._shapes[program].add(bucket)
 
-    def _paged_prefill(self, page_row: np.ndarray, prompt: np.ndarray,
+    def _paged_prefill(self, lora, page_row: np.ndarray, prompt: np.ndarray,
                        prompt_len: int) -> torch.Tensor:
         """Prefill one bucket-padded prompt ``[1, bucket]`` and land its
         K/V rows in the slot's pages (``page_row``); returns the logits of
@@ -928,14 +1036,16 @@ class InferenceEngine:
         padding past the mapped pages) are dropped; garbage rows inside the
         last mapped page stay causally masked by the slot's position. An
         int8 pool takes each chunk as a whole page at its own scale
-        (:func:`paged_quant_fill`)."""
+        (:func:`paged_quant_fill`). ``lora`` (here and in the other
+        prefill and chunk programs): the request's gathered adapter
+        factors (``b = 1``), or None."""
         model = self.model
         bucket = prompt.shape[1]
         self._note_shape("prefill", bucket)
         small = init_kv_caches(model, 1, bucket)
         logits, small = _cached_forward(
             model, small, torch.as_tensor(prompt, device=self.device), 0,
-            last_index=prompt_len - 1)
+            last_index=prompt_len - 1, lora=lora)
         ps = self.config.page_size
         n_chunks = cdiv(bucket, ps)
         pad = n_chunks * ps - bucket
@@ -963,7 +1073,7 @@ class InferenceEngine:
                                  chunks.index_select(0, sel).to(pool.dtype))
         return logits
 
-    def _flat_prefill(self, slot: int, prompt: np.ndarray,
+    def _flat_prefill(self, lora, slot: int, prompt: np.ndarray,
                       prompt_len: int) -> torch.Tensor:
         """Prefill one bucket-padded prompt into the slot's flat row (rows
         ``[0, bucket)``; pad rows land past the live length and are never
@@ -974,15 +1084,15 @@ class InferenceEngine:
         small = init_kv_caches(model, 1, bucket)
         logits, small = _cached_forward(
             model, small, torch.as_tensor(prompt, device=self.device), 0,
-            last_index=prompt_len - 1)
+            last_index=prompt_len - 1, lora=lora)
         for (bk, bv), (fk, fv) in zip(self._caches,
                                       flatten_decode_caches(small)):
             bk[slot, :bucket] = fk[0].to(bk.dtype)
             bv[slot, :bucket] = fv[0].to(bv.dtype)
         return logits
 
-    def _suffix_prefill(self, page_row: np.ndarray, suffix: np.ndarray,
-                        start: int, suffix_len: int,
+    def _suffix_prefill(self, lora, page_row: np.ndarray,
+                        suffix: np.ndarray, start: int, suffix_len: int,
                         skip_first: bool) -> torch.Tensor:
         """Prefill ONLY the suffix of a prefix-cache hit, or one paged
         prefill chunk; returns the logits of its last token ``[1, 1,
@@ -1036,7 +1146,7 @@ class InferenceEngine:
                 place(cache[1], sv)
         logits, small = _cached_forward(
             model, small, torch.as_tensor(suffix, device=dev),
-            torch.tensor(start), last_index=suffix_len - 1)
+            torch.tensor(start), last_index=suffix_len - 1, lora=lora)
         # the suffix rows' destinations: pad rows and a skipped first row
         # go to the spare page
         idx = np.arange(bucket)
@@ -1063,7 +1173,7 @@ class InferenceEngine:
                         (dest, off), rows(f).to(pool.dtype))
         return logits
 
-    def _flat_chunk(self, slot: int, chunk: np.ndarray, start: int,
+    def _flat_chunk(self, lora, slot: int, chunk: np.ndarray, start: int,
                     chunk_len: int) -> torch.Tensor:
         """Prefill ONE bucketed chunk of a prompt into a flat slot row;
         returns the logits of its last token ``[1, 1, V]``. The slot's dense row
@@ -1086,7 +1196,7 @@ class InferenceEngine:
                     .transpose(0, 1).to(sm.dtype)
         logits, small = _cached_forward(
             model, small, torch.as_tensor(chunk, device=dev),
-            torch.tensor(start), last_index=chunk_len - 1)
+            torch.tensor(start), last_index=chunk_len - 1, lora=lora)
         for (bk, bv), (fk, fv) in zip(self._caches, small):
             for big, f in ((bk, fk), (bv, fv)):
                 big[slot, start:start + chunk_len] = \
@@ -1136,6 +1246,11 @@ class InferenceEngine:
                       finished: List[RequestResult]) -> None:
         rec = _Active(request, slot, submit_ts)
         rec.prefill_start = clock.now()
+        # resolve the adapter row now (non-strict: an id unloaded while
+        # queued degrades to the null row, base output, rather than
+        # failing admission; submit() already validated it existed)
+        rec.adapter_ix = self._adapter_index(request.sampling.adapter_id,
+                                             strict=False)
         chain, shared_used, skip_first = (), 0, False
         if self.pages is not None:
             planned = self._map_pages(request, slot, submit_ts)
@@ -1160,17 +1275,19 @@ class InferenceEngine:
                 bucket = bucket_for(suffix_len, self.config.max_len)
                 suffix = np.zeros((1, bucket), np.int64)
                 suffix[0, :suffix_len] = request.prompt[start:]
-                logits = self._suffix_prefill(row, suffix, start, suffix_len,
-                                              skip_first)
+                logits = self._suffix_prefill(
+                    self._lora([rec.adapter_ix]), row, suffix, start,
+                    suffix_len, skip_first)
             else:
                 bucket = bucket_for(request.prompt_len, self.config.max_len)
                 padded = np.zeros((1, bucket), np.int64)
                 padded[0, :request.prompt_len] = request.prompt
+                lora = self._lora([rec.adapter_ix])
                 if self.pages is not None:
-                    logits = self._paged_prefill(row, padded,
+                    logits = self._paged_prefill(lora, row, padded,
                                                  request.prompt_len)
                 else:
-                    logits = self._flat_prefill(slot, padded,
+                    logits = self._flat_prefill(lora, slot, padded,
                                                 request.prompt_len)
             first, finite = self._first_token(logits, request)
         except Exception:
@@ -1223,6 +1340,8 @@ class InferenceEngine:
         intern-eviction race requeued the request."""
         rec = _Active(request, slot, submit_ts)
         rec.prefill_start = clock.now()
+        rec.adapter_ix = self._adapter_index(request.sampling.adapter_id,
+                                             strict=False)
         if self.pages is not None:
             planned = self._map_pages(request, slot, submit_ts)
             if planned is None:
@@ -1279,12 +1398,14 @@ class InferenceEngine:
         try:
             if self._faults is not None:
                 self._faults.before_prefill()
+            lora = self._lora([rec.adapter_ix])
             if self.pages is not None:
                 logits = self._suffix_prefill(
-                    rec.page_row, chunk, start, chunk_len,
+                    lora, rec.page_row, chunk, start, chunk_len,
                     rec.skip_first and rec.prefill_chunks == 0)
             else:
-                logits = self._flat_chunk(rec.slot, chunk, start, chunk_len)
+                logits = self._flat_chunk(lora, rec.slot, chunk, start,
+                                          chunk_len)
             first, finite = self._first_token(logits, request, sample=last)
             rec.finite_ok = rec.finite_ok and finite
         except Exception:
@@ -1395,12 +1516,15 @@ class InferenceEngine:
                 sum(len(self.pages.slot_pages(s)) for s in self._active)
                 * self._page_read_bytes)
             table = torch.as_tensor(self._page_table_h, device=dev)
+        # every slot's factors, gathered once this tick (idle slots hold
+        # the null row)
+        lora = self._lora(self._adapter_ix_h)
         if self._spec:
             k = self._spec
             logits, self._caches = _cached_forward(
                 self.model, self._caches,
                 torch.as_tensor(self._window_h, device=dev), positions,
-                paged_state=table)                           # [k, n, V]
+                paged_state=table, lora=lora)                # [k, n, V]
             logits = logits.transpose(0, 1).reshape(n * k, -1)
             # row j of a slot's window samples with the key of the
             # sequential step at position + 1 + j
@@ -1413,7 +1537,8 @@ class InferenceEngine:
             logits, self._caches = decode_step(
                 self.model, self._caches,
                 torch.as_tensor(self._tokens_h, device=dev), positions,
-                paged_state=table if self.pages is not None else None)
+                paged_state=table if self.pages is not None else None,
+                lora=lora)
             nxt = self._pick(logits, self._temps_h, self._topks_h,
                              self._seeds_h,
                              self._positions_h.astype(np.int64) + 1)
@@ -1578,6 +1703,7 @@ class InferenceEngine:
         self._positions_h[i] = rec.position
         self._temps_h[i], self._topks_h[i], self._seeds_h[i] = \
             self._sampling(rec.request)
+        self._adapter_ix_h[i] = rec.adapter_ix
 
     def _clear_slot(self, slot: int) -> None:
         self._tokens_h[slot] = 0
@@ -1585,6 +1711,7 @@ class InferenceEngine:
         self._temps_h[slot] = 0.0
         self._topks_h[slot] = self._vocab
         self._seeds_h[slot] = 0
+        self._adapter_ix_h[slot] = self._null_adapter
         if self._spec:
             self._window_h[slot] = 0
             self._wlen_h[slot] = 1
@@ -1642,7 +1769,9 @@ class InferenceEngine:
             tokens=list(tokens), finish_reason=reason, queue_s=queue_s,
             prefill_s=prefill_s, decode_s=decode_s,
             total_s=now - submit_ts, ttft_s=ttft_s, tpot_s=tpot_s,
-            replica_id=self.replica_id, trace_id=request.trace_id,
+            replica_id=self.replica_id,
+            adapter_id=request.sampling.adapter_id,
+            trace_id=request.trace_id,
             prefill_chunks=prefill_chunks,
             priority=request.sampling.priority)
         self.completed[request.request_id] = result

@@ -60,8 +60,10 @@ class SamplingParams:
     ``top_k``-truncated) softmax, keyed by ``seed`` folded with the
     absolute position of each generated token — one request's stream is
     deterministic in (seed, prompt) and independent of what else shares
-    the batch, and equal to the JAX engine's. A LoRA ``adapter_id`` raises
-    ``NotImplementedError`` at ``submit()`` until its slice lands.
+    the batch, and equal to the JAX engine's. ``adapter_id`` selects a
+    LoRA adapter loaded in the engine's
+    :class:`~apex_tpu_torch.lora.AdapterStore` (``None``: the base
+    model).
 
     ``priority`` is the request's scheduling class (one of
     :data:`PRIORITIES`). It orders dispatch under contention; it never
@@ -159,8 +161,9 @@ class RequestResult:
     ``ttft_s`` for a request that produced no token, ``tpot_s`` below two
     tokens.
 
-    ``replica_id``, ``trace_id`` and ``priority`` echo the engine's
-    replica id and the request's trace id and scheduling class;
+    ``replica_id``, ``adapter_id``, ``trace_id`` and ``priority`` echo the
+    engine's replica id and the request's LoRA adapter (``None`` for base
+    traffic), trace id and scheduling class;
     ``prefill_chunks`` counts the chunk programs a token-budgeted (chunked)
     prefill ran for the request (``None`` on the monolithic path). Each is
     omitted from the JSONL record when ``None``, as in the JAX package's
@@ -178,6 +181,7 @@ class RequestResult:
     ttft_s: Optional[float] = None
     tpot_s: Optional[float] = None
     replica_id: Optional[int] = None
+    adapter_id: Optional[str] = None
     trace_id: Optional[str] = None
     prefill_chunks: Optional[int] = None
     priority: Optional[str] = None
@@ -211,6 +215,8 @@ class RequestResult:
             rec["trace_id"] = self.trace_id
         if self.replica_id is not None:
             rec["replica_id"] = self.replica_id
+        if self.adapter_id is not None:
+            rec["adapter_id"] = self.adapter_id
         if self.ttft_s is not None:
             rec["ttft_s"] = self.ttft_s
         if self.tpot_s is not None:

@@ -182,9 +182,14 @@ class EngineSupervisor:
                  supervisor: Optional[SupervisorConfig] = None,
                  metrics: Optional[MetricsRegistry] = None,
                  faults=None, replica_id: Optional[int] = None,
-                 device="cuda"):
+                 adapters=None, device="cuda"):
         self._model = model
         self._device = device
+        #: LoRA :class:`~apex_tpu_torch.lora.AdapterStore`, handed to every
+        #: engine incarnation — the store (and its device bank) is
+        #: supervisor state, so loaded adapters survive engine rebuilds
+        #: and restart continuations keep their per-tenant deltas
+        self._adapters = adapters
         self.config = config or EngineConfig()
         self.supervisor = supervisor or SupervisorConfig()
         self.metrics = metrics if metrics is not None else MetricsRegistry()
@@ -221,7 +226,7 @@ class EngineSupervisor:
     def _build_engine(self) -> InferenceEngine:
         eng = InferenceEngine(self._model, self.config, metrics=self.metrics,
                               faults=self._faults, replica_id=self.replica_id,
-                              device=self._device)
+                              adapters=self._adapters, device=self._device)
         # this supervisor drains take_parked() every tick, so the engine
         # may preempt: a parked request is guaranteed a resume path
         eng.resume_consumer = True
@@ -336,6 +341,7 @@ class EngineSupervisor:
             tokens=[], finish_reason=FINISH_REJECTED,
             queue_s=now - start, total_s=now - start,
             replica_id=self.replica_id,
+            adapter_id=request.sampling.adapter_id,
             trace_id=request.trace_id,
             priority=request.sampling.priority)
         self.completed[request.request_id] = result
@@ -607,6 +613,7 @@ class EngineSupervisor:
             request_id=rid, prompt_len=tr.request.prompt_len,
             tokens=list(tr.prefix), finish_reason=reason,
             total_s=now - tr.first_submit_ts, replica_id=self.replica_id,
+            adapter_id=tr.request.sampling.adapter_id,
             trace_id=tr.request.trace_id,
             priority=tr.request.sampling.priority)
         self.completed[rid] = result
@@ -680,6 +687,7 @@ class EngineSupervisor:
                     total_s=now - tr.first_submit_ts,
                     ttft_s=None if tr.prefix else res.ttft_s,
                     tpot_s=res.tpot_s, replica_id=res.replica_id,
+                    adapter_id=tr.request.sampling.adapter_id,
                     trace_id=tr.request.trace_id,
                     prefill_chunks=res.prefill_chunks,
                     priority=tr.request.sampling.priority)

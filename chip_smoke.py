@@ -388,7 +388,38 @@ printing its own lines and raising on failure:
               ``--from-log`` re-scoring equal, A, B and C launched and no
               other kernel; tokens/s, TTFT and TPOT p50/p99, the busy
               share; then the same schedule in f32, whose greedy tokens
-              equal ``serve()``'s (``[loadtest_f32]``).
+              equal ``serve()``'s (``[loadtest_f32]``);
+41. lora_serve — GPT-2 124M at full widths in bf16 with an
+              ``AdapterStore`` of three rank-8 adapters (a bank of 4,
+              drawn from a fixed generator) serves ``[serve]``'s 16
+              requests, half sampled, 8 slots of 768, pages of 64, the
+              prefix cache on, in ``multi_tenant.json``'s tenant mix
+              (30/25/25/20 over "0", "1", "2" and base); beside it the
+              same requests with no store, all-base through the store and
+              every slot on an adapter, the runs that should agree giving
+              the same tokens; only A, B and C launched, as the traffic
+              implies; tokens/s, decode ms a step and device operations a
+              decode tick with and without the store
+              (``[lora_serve_nostore]``); the f32 twin's greedy tokens
+              equal the CPU engine's and, per tenant, an engine's on the
+              merged weights (``[lora_serve_f32]``; the first step's
+              top-2 logit gap where they part); a prompt under two
+              adapters shares no prefix page, base requests share; TF32
+              off and the fp32 matmul precision at PyTorch's defaults;
+42. lora_finetune — ``lora_finetune`` at GPT-2 124M's widths (bf16
+              base): 2 jobs of 4 x 1024, rank 8, 5 steps: both losses fall,
+              the base bitwise unchanged, A, D, E, F launched 25, 24, 12,
+              12 times a job a step and ``multi_tensor_adam`` once a step
+              over the one flat factor buffer; step ms; then a 2-layer,
+              64-wide f32 model on the card and the CPU, losses within
+              ``LORA_LOSS_RTOL`` (``[lora_finetune_card_vs_cpu]``);
+43. loadtest_lora — ``benchmarks/scenarios/multi_tenant.json`` as
+              committed through ``python -m apex_tpu_torch.loadtest ...
+              --out run.jsonl --json``: every request ``length``/``eos``,
+              spans conserved, ``--from-log`` re-scoring equal, the
+              report's adapter counters equal to its ``adapter_request``
+              events key for key, ``slo_by_adapter`` over the four
+              tenants, only A, B and C launched.
 
 Then one JSON line of per-kernel numbers (launches from the phase that
 drives each kernel's slice: serve for A-C, serve_int8 and serve_spec for
@@ -403,7 +434,7 @@ llama405b_serve for A's wide-row record, hd512_train for E's and F's
 head_dim-512 records, hd512_serve for B's and C's, flash_hd512 for I's,
 ring for B's and I's offset records (``flash_fwd_ring``,
 ``flash_bwd_ring``: the diagonal chunk call), with every path's counts
-(the loadtest's too) in ``launches_by_path``;
+(the loadtest's and the LoRA phases' too) in ``launches_by_path``;
 times from CUDA events in this run; ``bound_ms`` from this run's shapes
 over the H100's published peaks), and last ``{"ok": true, "device":
 {...}}``.
@@ -7016,6 +7047,507 @@ def phase_loadtest() -> dict:
     return launches
 
 
+#: Multi-LoRA at GPT-2 124M (``[lora_serve]``): three adapters of rank 8
+#: in a bank of 4, drawn from a fixed generator (``random_adapter``'s scale
+#: 0.02), serving ``[serve]``'s requests in
+#: ``benchmarks/scenarios/multi_tenant.json``'s mix: 30/25/25/20 over
+#: "0", "1", "2" and base (None)
+LORA_RANK, LORA_MAX = 8, 4
+LORA_IDS = ("0", "1", "2")
+LORA_MIX = {"0": 30, "1": 25, "2": 25, None: 20}
+#: ``[lora_finetune]``: 2 jobs of 4 x 1024 at GPT-2 124M's widths, 5 steps
+LORA_JOBS, LORA_BATCH, LORA_STEPS = 2, 4, 5
+#: the card's f32 fine-tuning losses against the CPU's, relative: each
+#: step's loss sums the same products in other orders (TF32 off), and
+#: Adam carries that noise into the next step's factors
+LORA_LOSS_RTOL = 1e-4
+#: the small f32 model of the fine-tuning comparison: 2 layers, 64 wide
+LORA_SMALL = dict(num_layers=2, hidden_size=64, num_attention_heads=2,
+                  vocab_size=512, max_position_embeddings=128,
+                  hidden_dropout=0.0, attention_dropout=0.0)
+
+
+def _fp32_matmul_defaults(phase: str) -> None:
+    """The LoRA delta's fp32 products must not run in TF32: the phase runs
+    with PyTorch's defaults, and says so."""
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError(
+            f"{phase}: fp32 matmuls are not at PyTorch's defaults "
+            f"(allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
+            f"precision={torch.get_float32_matmul_precision()})")
+
+
+def _tenant_ids(n: int, seed: int) -> list:
+    """``n`` adapter ids in :data:`LORA_MIX`'s shares (largest remainder),
+    in an order drawn from ``seed``."""
+    quota = {a: n * w / 100 for a, w in LORA_MIX.items()}
+    counts = {a: int(q) for a, q in quota.items()}
+    short = n - sum(counts.values())
+    for a in sorted(quota, key=lambda a: counts[a] - quota[a])[:short]:
+        counts[a] += 1
+    ids = [a for a in LORA_MIX for _ in range(counts[a])]
+    order = torch.randperm(n, generator=torch.Generator().manual_seed(seed))
+    return [ids[i] for i in order.tolist()]
+
+
+def _with_adapters(requests, ids) -> list:
+    """Fresh requests with the same prompts and sampling, each under its
+    adapter id."""
+    import dataclasses
+
+    from apex_tpu_torch.serving import Request
+    return [Request(prompt=list(r.prompt), max_new_tokens=r.max_new_tokens,
+                    sampling=dataclasses.replace(r.sampling, adapter_id=a))
+            for r, a in zip(requests, ids)]
+
+
+def _lora_store(cfg, device) -> tuple:
+    """The three adapters of ``[lora_serve]`` (drawn on the CPU from one
+    generator, so the same on either device) in a store on ``device``."""
+    from apex_tpu_torch.lora import AdapterStore, random_adapter
+    store = AdapterStore(cfg, LORA_RANK, max_adapters=LORA_MAX,
+                         device=device)
+    g = torch.Generator().manual_seed(7)
+    factors = {}
+    for aid in LORA_IDS:
+        factors[aid] = random_adapter(cfg, LORA_RANK, g, device=device)
+        store.load(aid, factors[aid])
+    return store, factors
+
+
+def _tick_device_ops(model, ecfg, requests, adapters=None):
+    """Device operations of one decode tick with 8 slots decoding (no
+    admission in the tick)."""
+    from apex_tpu_torch.serving import InferenceEngine
+    engine = InferenceEngine(model, ecfg, adapters=adapters)
+    for r in requests[:8]:
+        engine.submit(r)
+    while engine.queued_count:
+        engine.tick()
+    engine.tick()                       # a warm decode-only tick
+    return count_device_launches(engine.tick)
+
+
+def _top2_gap(model, prompt, tokens) -> float:
+    """The top-2 logit gap at the step after ``prompt + tokens`` (the
+    cache-free forward)."""
+    with torch.no_grad():
+        logits = model(torch.tensor([list(prompt) + list(tokens)],
+                                    device="cuda"))[-1, 0].float()
+    top = torch.topk(logits, 2).values
+    return float(top[0] - top[1])
+
+
+def _lora_pages_check(model, store, ecfg) -> dict:
+    """One prompt of 4 full pages under "0", "1" and base, then under "0"
+    and base again: the repeats hit their own tenant's interned pages, and
+    no prefix page is mapped under two tenants."""
+    from apex_tpu_torch.serving import InferenceEngine, Request, \
+        SamplingParams
+    g = torch.Generator().manual_seed(11)
+    prompt = torch.randint(0, model.config.vocab_size, (256,),
+                           generator=g).tolist()
+    engine = InferenceEngine(model, ecfg, adapters=store)
+    seen = {}
+
+    def on_tick(eng, _):
+        for rec in eng._active.values():
+            seen[rec.request.request_id] = (
+                rec.request.sampling.adapter_id,
+                tuple(eng.pages.slot_pages(rec.slot)[:4]))
+
+    for ids in (("0", "1", None), ("0", None)):
+        engine.serve([Request(prompt=list(prompt), max_new_tokens=4,
+                              sampling=SamplingParams(adapter_id=a))
+                      for a in ids], on_tick=on_tick)
+    counters = engine.metrics.counters()
+    by = {}
+    for aid, pages in seen.values():
+        by.setdefault(aid, set()).add(pages)
+    tenants = sorted(by, key=str)
+    shared = [(a, b) for i, a in enumerate(tenants) for b in tenants[i + 1:]
+              if set(sum(by[a], ())) & set(sum(by[b], ()))]
+    if len(seen) != 5 or any(len(v) != 1 for v in by.values()) or shared \
+            or counters["prefix_hits"] != 2 \
+            or counters["prefix_pages_shared"] != 8:
+        raise AssertionError(f"lora_serve pages: {by}, shared across "
+                             f"tenants {shared}, counters {counters}")
+    return dict(prefix_hits=counters["prefix_hits"],
+                prefix_pages_shared=counters["prefix_pages_shared"],
+                tenants_with_own_pages=len(by))
+
+
+def phase_lora_serve(seed: int) -> dict:
+    """``[lora_serve]``: GPT-2 124M at full widths (bf16, weights from
+    seed 0) with an ``AdapterStore`` of three rank-8 adapters serves
+    ``[serve]``'s 16 requests (prompts 64-700, 32 new tokens, half of them
+    sampled as ``[serve_sampled]``), 8 slots of 768, pages of 64, the prefix
+    cache on, in ``multi_tenant.json``'s tenant mix. In bf16, beside the
+    same requests with no store, all-base through the store and every slot
+    on an adapter: the runs that should agree give the same tokens, and
+    only Kernels A, B and C launch, as the traffic implies. In f32: the
+    card's greedy tokens equal the CPU engine's with the same weights and
+    adapters, and each tenant's equal an engine's on its merged weights
+    (the first step's top-2 gap printed where they part). Then the prefix
+    pages by tenant, and the device operations of a decode tick with and
+    without the store. Returns the bf16 tenant run's launches."""
+    import copy
+
+    from apex_tpu_torch.lora import merge_adapter
+    from apex_tpu_torch.models import GPTModel, TransformerConfig
+    from apex_tpu_torch.serving import EngineConfig, InferenceEngine
+    _fp32_matmul_defaults("lora_serve")
+    card = _card_name().replace(" ", "_")
+    start = time.perf_counter()
+    layers = GPT2["num_layers"]
+    ecfg = EngineConfig(max_slots=8, max_len=768, page_size=64)
+    cfg = TransformerConfig(**GPT2, params_dtype=torch.float32,
+                            compute_dtype=torch.bfloat16)
+    model = GPTModel(cfg, device="cuda",
+                     generator=torch.Generator().manual_seed(0))
+    store, _ = _lora_store(cfg, "cuda")
+    reqs = _with_sampling(_requests(16, cfg.vocab_size, 32, 1), seed)
+    ids = _tenant_ids(len(reqs), seed)
+    mixed = _with_adapters(reqs, ids)
+    on_all = [a if a is not None else "0" for a in ids]
+
+    def timed(name, requests, adapters):
+        return _serve_timed(name, lambda: InferenceEngine(
+            model, ecfg, adapters=adapters), requests)
+
+    base_res, base_wall, base_launches, base_eng = timed(
+        "lora_serve_nostore", _with_adapters(reqs, [None] * len(reqs)), None)
+    results, wall, launches, engine = timed("lora_serve", mixed, store)
+    all_base, _, _, _ = timed("lora_serve_all_base",
+                              _with_adapters(reqs, [None] * len(reqs)),
+                              store)
+    all_on, _, _, _ = timed("lora_serve_all_adapters",
+                            _with_adapters(reqs, on_all), store)
+    tokens = [r.tokens for r in results]
+    base_tokens = [r.tokens for r in base_res]
+    agree = {
+        # the null row adds an exact zero
+        "all_base_vs_nostore": [r.tokens for r in all_base] == base_tokens,
+        "mix_base_vs_nostore": all(
+            tokens[i] == base_tokens[i] for i, a in enumerate(ids)
+            if a is None),
+        # a slot's rows never read another slot's
+        "all_adapters_vs_mix": all(
+            all_on[i].tokens == tokens[i] for i, a in enumerate(ids)
+            if a is not None)}
+    tenant_differs = sum(tokens[i] != base_tokens[i]
+                         for i, a in enumerate(ids) if a is not None)
+    if not all(agree.values()) or not tenant_differs:
+        raise AssertionError(f"lora_serve: runs that should agree differ "
+                             f"{agree}; tenant streams off base "
+                             f"{tenant_differs}")
+    c = engine.metrics.counters()
+    want = {k: 0 for k in ALL_KERNELS}
+    want.update(layer_norm_fwd=(2 * layers + 1) * (c["prefills"]
+                                                   + c["decode_steps"]),
+                flash_fwd=layers * (c["prefills"] - c["prefix_hits"]),
+                paged_decode=layers * c["decode_steps"])
+    if launches != want:
+        raise AssertionError(f"lora_serve: launches {launches}, the "
+                             f"traffic implies {want}")
+    ledger = {k: v for k, v in c.items()
+              if k.startswith("adapter") and k.endswith("_requests")}
+    _serve_line("lora_serve_nostore", base_res, base_wall,
+                base_eng.metrics, base_launches, card=card,
+                decode_tick_device_ops=_tick_device_ops(
+                    model, ecfg, _with_adapters(reqs, [None] * len(reqs))))
+    _serve_line("lora_serve", results, wall, engine.metrics, launches,
+                card=card, tenants=json.dumps(
+                    {a or "base": ids.count(a) for a in LORA_MIX}).replace(
+                        " ", ""),
+                ledger=json.dumps(ledger).replace(" ", ""),
+                decode_tick_device_ops=_tick_device_ops(
+                    model, ecfg, _with_adapters(reqs, on_all), store),
+                tenant_streams_off_base=tenant_differs,
+                agree=json.dumps(agree).replace(" ", ""))
+    # the store's cost in turns (no store, store, store, no store), the
+    # host clock moving between runs
+    turns = [_serve_metrics(base_res, base_wall, base_eng.metrics),
+             _serve_metrics(results, wall, engine.metrics)]
+    for adapters, requests in ((store, mixed), (None, _with_adapters(
+            reqs, [None] * len(reqs)))):
+        r, w, _, e = timed("lora_serve_turn", requests, adapters)
+        turns.append(_serve_metrics(r, w, e.metrics))
+    log("lora_serve_turns", card=card, order="nostore,store,store,nostore",
+        tokens_per_s=",".join(f"{t[0]:.1f}" for t in turns),
+        decode_ms_per_step=",".join(f"{t[2]:.3f}" for t in turns))
+    pages = _lora_pages_check(model, store, ecfg)
+    bf16_s = time.perf_counter() - start
+    del model, store, engine, base_eng
+    torch.cuda.empty_cache()
+
+    # f32: the card's tenant mix against the CPU's greedy requests (a
+    # slot's rows never read another's, so the CPU serves those alone),
+    # and each tenant's greedy requests against its merged weights
+    cfg32 = TransformerConfig(**GPT2)
+    greedy = [i for i, r in enumerate(reqs) if r.sampling.temperature == 0]
+    out, models, factors = {}, {}, {}
+    for device, sel in (("cuda", range(len(reqs))), ("cpu", greedy)):
+        models[device] = GPTModel(cfg32, device=device,
+                                  generator=torch.Generator().manual_seed(0))
+        store32, factors[device] = _lora_store(cfg32, device)
+        eng = InferenceEngine(models[device], ecfg, adapters=store32,
+                              device=device)
+        got = eng.serve(_with_adapters([reqs[i] for i in sel],
+                                       [ids[i] for i in sel]))
+        out[device] = {i: r.tokens for i, r in zip(sel, got)}
+        del eng, store32
+    differ = [i for i in greedy if out["cuda"][i] != out["cpu"][i]]
+    if differ:
+        raise AssertionError(f"lora_serve f32: greedy requests {differ} "
+                             f"differ between the card and the CPU")
+    cpu_s = time.perf_counter() - start - bf16_s
+    model32 = models.pop("cuda")
+    del models
+    merged_checked = 0
+    for aid in LORA_IDS:
+        merged = copy.deepcopy(model32)
+        merged.load_state_dict(merge_adapter(
+            dict(model32.named_parameters()), factors["cuda"][aid]))
+        mine = [i for i in greedy if ids[i] == aid]
+        got = InferenceEngine(merged, ecfg).serve(
+            _with_adapters([reqs[i] for i in mine], [None] * len(mine)))
+        for i, res in zip(mine, got):
+            merged_checked += 1
+            a, b = out["cuda"][i], res.tokens
+            if a != b:
+                k = next(j for j in range(len(a)) if a[j] != b[j])
+                gap = _top2_gap(merged, reqs[i].prompt, b[:k])
+                raise AssertionError(
+                    f"lora_serve f32: request {i} under adapter {aid!r} "
+                    f"parts from merged weights at step {k} ({a[k]} vs "
+                    f"{b[k]}); merged top-2 logit gap there {gap:.3e}")
+        del merged
+    log("lora_serve_f32", card=card, requests=len(reqs), greedy=len(greedy),
+        greedy_equal_cpu=True, greedy_equal_merged=merged_checked, **pages,
+        tf32=torch.backends.cuda.matmul.allow_tf32,
+        fp32_precision=torch.get_float32_matmul_precision(),
+        bf16_s=f"{bf16_s:.1f}", f32_and_cpu_s=f"{cpu_s:.1f}",
+        phase_s=f"{time.perf_counter() - start:.1f}")
+    del model32
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_lora_finetune() -> dict:
+    """``[lora_finetune]``: ``lora_finetune`` at GPT-2 124M's widths (12
+    layers, bf16 base from seed 0) fine-tunes 2 jobs of 4 x 1024 at rank
+    8 for 5 steps (after a 1-step warm-up): both jobs' losses fall, the
+    base parameters stay bitwise unchanged, Kernels A, D, E and F launch
+    25, 24, 12 and 12 times a job a step and ``multi_tensor_adam`` once
+    a step over the one flat factor buffer (no other kernel); step ms
+    printed. Then a 2-layer, 64-wide f32 model fine-tunes 5 steps on the
+    card and the CPU: losses within :data:`LORA_LOSS_RTOL`. Returns the
+    timed run's launches."""
+    from apex_tpu_torch.lora import lora_finetune
+    from apex_tpu_torch.models import GPTModel, TransformerConfig
+    from apex_tpu_torch.ops import LAUNCHES, reset_launches
+    from apex_tpu_torch.ops import multi_tensor as mt
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    class TimedAdam(FusedAdam):
+        """Stamps the host clock after each step and a synchronise."""
+
+        def __init__(self, params, lr):
+            super().__init__(params, lr=lr)
+            self.stamps = []
+
+        def step(self, *args, **kwargs):
+            out = super().step(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.stamps.append(time.perf_counter())
+            return out
+
+    _fp32_matmul_defaults("lora_finetune")
+    card = _card_name().replace(" ", "_")
+    cfg = TransformerConfig(**GPT2, hidden_dropout=0.0, attention_dropout=0.0,
+                            params_dtype=torch.bfloat16,
+                            compute_dtype=torch.bfloat16)
+    model = GPTModel(cfg, device="cuda",
+                     generator=torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(3)
+    shape = (LORA_JOBS, LORA_BATCH, TRAIN_SEQ)
+    tokens = torch.randint(0, cfg.vocab_size, shape, generator=g).cuda()
+    labels = torch.randint(0, cfg.vocab_size, shape, generator=g).cuda()
+    base = [p.detach().clone() for p in model.parameters()]
+    lora_finetune(model, tokens, labels, rank=LORA_RANK, steps=1)
+    opts = []
+
+    def make(params):
+        opts.append(TimedAdam(params, lr=1e-2))
+        return opts[-1]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    factors, losses = lora_finetune(
+        model, tokens, labels, rank=LORA_RANK, steps=LORA_STEPS,
+        optimizer=make, generator=torch.Generator().manual_seed(4))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = losses.float().cpu()
+    flat = opts[0].param_groups[0]["params"]
+    stamps = [t0] + opts[0].stamps
+    step_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    # a job's launches a step: [train]'s, but layer 0's input norm runs no
+    # backward (neither its input, the embedding, nor the frozen base
+    # needs a gradient)
+    layers = GPT2["num_layers"]
+    per_job = {"layer_norm_fwd": 2 * layers + 1,
+               "layer_norm_bwd": 2 * layers,
+               "flash_packed_fwd": layers, "flash_packed_bwd": layers}
+    want = {k: 0 for k in ALL_KERNELS}
+    for k, v in per_job.items():
+        want[k] = v * LORA_JOBS * LORA_STEPS
+    for k, v in mt.optimizer_launches([flat[0].numel()],
+                                      "multi_tensor_adam").items():
+        want[k] = v * LORA_STEPS
+    unchanged = all(torch.equal(p, b) for p, b in zip(model.parameters(),
+                                                      base))
+    # one more one-step call under the profiler: the device's share of a
+    # step (its factor draw and flattening included)
+    dev_ops, dev_ms, _ = device_work(lambda: lora_finetune(
+        model, tokens, labels, rank=LORA_RANK, steps=1,
+        generator=torch.Generator().manual_seed(4)))
+    fell = bool((losses[-1] < losses[0]).all()) and \
+        bool(torch.isfinite(losses).all())
+    timed = sorted(step_ms[1:])
+    median_ms = timed[len(timed) // 2]
+    step_tokens = LORA_JOBS * LORA_BATCH * TRAIN_SEQ
+    log("lora_finetune", card=card, model="gpt2-124m widths bf16 base",
+        jobs=LORA_JOBS, batch=LORA_BATCH, seq=TRAIN_SEQ, rank=LORA_RANK,
+        steps=LORA_STEPS,
+        losses=json.dumps([[round(x, 5) for x in row]
+                           for row in losses.tolist()]).replace(" ", ""),
+        step_ms=json.dumps([round(x, 2) for x in step_ms]).replace(" ", ""),
+        step_ms_median=f"{median_ms:.2f}",
+        tokens_per_s=f"{step_tokens / median_ms * 1e3:.1f}",
+        wall_s=f"{wall:.3f}", peak_mem_gb=f"{peak:.3f}",
+        one_step_device_ops=dev_ops,
+        one_step_device_ms=(dev_ms if isinstance(dev_ms, str)
+                            else f"{dev_ms:.3f}"),
+        flat_buffers=len(flat), flat_numel=flat[0].numel(),
+        factor_leaves=sum(len(f) for f in factors.values()),
+        base_unchanged=unchanged,
+        launches=json.dumps(launches).replace(" ", ""))
+    if not fell or not unchanged or len(flat) != 1 or launches != want:
+        raise AssertionError(f"lora_finetune: losses fell {fell}, base "
+                             f"unchanged {unchanged}, {len(flat)} flat "
+                             f"buffers, launches {launches} against "
+                             f"{want}")
+    del model, base, opts, factors
+    torch.cuda.empty_cache()
+
+    small = TransformerConfig(**LORA_SMALL)
+    g = torch.Generator().manual_seed(5)
+    tok = torch.randint(0, small.vocab_size, (2, 2, 32), generator=g)
+    lab = torch.randint(0, small.vocab_size, (2, 2, 32), generator=g)
+    out = {}
+    for device in ("cuda", "cpu"):
+        m = GPTModel(small, device=device,
+                     generator=torch.Generator().manual_seed(0))
+        _, out[device] = lora_finetune(
+            m, tok, lab, rank=4, steps=5,
+            generator=torch.Generator().manual_seed(2))
+    card_l, cpu_l = out["cuda"].cpu(), out["cpu"]
+    rel = float(((card_l - cpu_l).abs() / cpu_l.abs()).max())
+    log("lora_finetune_card_vs_cpu", model="2 layers x 64 f32", steps=5,
+        max_rel_loss_diff=f"{rel:.3e}", bar=LORA_LOSS_RTOL,
+        losses=json.dumps([round(x, 6) for x in card_l[:, 0].tolist()])
+        .replace(" ", ""))
+    if not rel <= LORA_LOSS_RTOL or not bool((card_l[-1] < card_l[0]).all()):
+        raise AssertionError(f"lora_finetune: card losses {card_l} vs CPU "
+                             f"{cpu_l}")
+    return launches
+
+
+def phase_loadtest_lora() -> dict:
+    """``[loadtest_lora]``: ``benchmarks/scenarios/multi_tenant.json`` as
+    committed (three seeded rank-4 adapters and base traffic, 30/25/25/20)
+    through ``python -m apex_tpu_torch.loadtest ... --out run.jsonl
+    --json`` (its ``main``, in this process) on the card: not aborted,
+    every request ``length``/``eos``, spans conserved, ``--from-log``
+    re-scoring equal, the monitor report's adapter counters equal to its
+    ``adapter_request`` events key for key, ``slo_by_adapter`` over the
+    four tenants, Kernels A, B and C launched and no other. Returns its
+    launches."""
+    import os
+    import tempfile
+
+    from apex_tpu_torch.observability import build_report, \
+        check_span_conservation, read_records
+    from apex_tpu_torch.observability.slo import measure_slo_metrics
+    from apex_tpu_torch.ops import LAUNCHES, reset_launches
+    card = _card_name().replace(" ", "_")
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "benchmarks", "scenarios", "multi_tenant.json")
+    with open(path) as f:
+        total = sum(p["n_requests"] for p in json.load(f)["phases"])
+    with tempfile.TemporaryDirectory(prefix="apex-loadtest-lora-") as tmp:
+        log_path = f"{tmp}/run.jsonl"
+        torch.cuda.synchronize()
+        reset_launches()
+        run_code, verdict = _loadtest_cli(path, "--out", log_path, "--json")
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        records = read_records(log_path)
+        code, again = _loadtest_cli(path, "--from-log", log_path, "--json")
+        report = build_report(log_path)
+    reqs = [r for r in records if r.get("kind") == "request"]
+    bad = [r["finish_reason"] for r in reqs
+           if r["finish_reason"] not in ("length", "eos")]
+    if run_code != 0 or verdict["aborted"] or bad or len(reqs) != total:
+        raise AssertionError(f"loadtest_lora: exit {run_code}, aborted "
+                             f"{verdict['aborted']}, {len(reqs)} requests, "
+                             f"bad finish reasons {bad}")
+    violations = check_span_conservation(records)
+    if violations or code != 0 or again["metrics"] != verdict["metrics"]:
+        raise AssertionError(f"loadtest_lora: span conservation "
+                             f"{violations[:5]}; --from-log exit {code}, "
+                             f"{again['metrics']} against "
+                             f"{verdict['metrics']}")
+    sec = report["adapters"]
+    by_counter = {name[len("adapter"):-len("_requests")]: n
+                  for name, n in sec["counters"].items()}
+    by_adapter = measure_slo_metrics(records, by_adapter=True)
+    if not sec["counters"] or by_counter != sec["admitted_by_index"] or \
+            set(sec["admitted_by_adapter"]) != set(LORA_IDS) or \
+            set(by_adapter) != {*LORA_IDS, "base"}:
+        raise AssertionError(f"loadtest_lora: adapter ledger {sec}, "
+                             f"tenants {sorted(by_adapter)}")
+    others = {k: v for k, v in launches.items()
+              if v and k not in SERVE_KERNELS}
+    missing = [k for k in SERVE_KERNELS if launches[k] <= 0]
+    if missing or others:
+        raise AssertionError(f"loadtest_lora: kernels never launched "
+                             f"{missing}, other kernels launched {others}")
+    met = verdict["metrics"]
+    log("loadtest_lora", card=card, scenario=verdict["scenario"],
+        dtype="f32", requests=len(reqs),
+        new_tokens=sum(r["new_tokens"] for r in reqs),
+        run_wall_s=f"{verdict['wall_s']:.3f}", goodput=met["goodput"],
+        slo_ok=verdict["slo"]["ok"],
+        admitted_by_adapter=json.dumps(sec["admitted_by_adapter"],
+                                       sort_keys=True).replace(" ", ""),
+        counters=json.dumps(sec["counters"], sort_keys=True).replace(
+            " ", ""),
+        requests_by_tenant=json.dumps(
+            {k: v["requests"] for k, v in by_adapter.items()},
+            sort_keys=True).replace(" ", ""),
+        spans="conserved", rescored="equal", ledger="reconciled",
+        launches=json.dumps(launches).replace(" ", ""))
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -7086,6 +7618,9 @@ def main() -> int:
     phase_hd1024_card_vs_cpu()
     phase_fp8(timer)
     paths["loadtest"] = phase_loadtest()
+    paths["lora_serve"] = phase_lora_serve(args.seed)
+    paths["lora_finetune"] = phase_lora_finetune()
+    paths["loadtest_lora"] = phase_loadtest_lora()
     for rec in records:
         name = rec["name"]
         counter = COUNTER.get(name, name)

@@ -29,6 +29,7 @@ from apex_tpu.serving import EngineConfig as JaxEngineConfig
 from apex_tpu.serving import InferenceEngine as JaxEngine
 from apex_tpu.serving import Request as JaxRequest
 from apex_tpu_torch.convert import load_jax_params
+from apex_tpu_torch.lora import AdapterStore, UnknownAdapterError
 from apex_tpu_torch.models import GPTModel, TransformerConfig
 from apex_tpu_torch.models import generation as tgen
 from apex_tpu_torch.ops import LAUNCHES
@@ -177,11 +178,12 @@ class TestEngine:
         assert engine.metrics.counters()["decode_steps"] > 0
 
     def test_engine_refuses_unported_knobs(self):
-        """Only LoRA adapters are still to port. Every other knob
-        constructs — the flat layout, chunked prefill, the prefix cache (on
-        by default, as in apex_tpu), int8 pools, speculation — and the
-        config raises ``ValueError`` wherever the JAX ``EngineConfig``
-        does."""
+        """No knob is left to port. Every knob constructs — the flat
+        layout, chunked prefill, the prefix cache (on by default, as in
+        apex_tpu), int8 pools, speculation, LoRA adapters — and the config
+        raises ``ValueError`` wherever the JAX ``EngineConfig`` does; an
+        ``adapter_id`` on an engine without an adapter store raises
+        ``UnknownAdapterError``, as in apex_tpu."""
         for knobs in (dict(prefix_cache=True), dict(kv_dtype="int8"),
                       dict(speculation=2),
                       dict(kv_dtype="int8", speculation=4),
@@ -198,10 +200,10 @@ class TestEngine:
             with pytest.raises(ValueError):
                 JaxEngineConfig(**knobs)
         _, _, tm = _pair("learned")
-        with pytest.raises(NotImplementedError):
-            InferenceEngine(tm, device="cpu", adapters=object())
+        InferenceEngine(tm, EngineConfig(max_len=48), device="cpu",
+                        adapters=AdapterStore(tm.config, 4, device="cpu"))
         engine = InferenceEngine(tm, EngineConfig(max_len=48), device="cpu")
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(UnknownAdapterError):
             engine.submit(Request(prompt=[1, 2], max_new_tokens=2,
                                   sampling=SamplingParams(adapter_id="a")))
         assert EngineConfig().prefix_cache is True

@@ -16,14 +16,17 @@ Held here:
   conserved, ``--from-log`` re-scoring to the same numbers, ``--check``
   exiting 3 without a baseline entry and 0 after ``--update-baseline``;
 - a scenario with a fleet, autoscale, deploy, sentinel, quotas or
-  brownout block, or with LoRA adapters, raises ``NotImplementedError``
-  before anything runs; the eight one-engine scenarios pass that gate;
+  brownout block raises ``NotImplementedError`` before anything runs; the
+  nine one-engine scenarios (``multi_tenant``'s LoRA adapters among them)
+  pass that gate; ``multi_tenant``'s schedule carries JAX's adapter ids
+  request for request;
 - the engine's telemetry repair: for the same requests and converted
   weights, the port's engine writes the JAX engine's span timelines
   (``queued``, one ``prefill`` span a chunk, ``decode``) and
   ``request_tokens_per_s`` observations, monolithic and chunked;
 - slow tier: the same tiny scenario through JAX's runner and the port's,
-  converted f32 weights: equal tokens for every request.
+  converted f32 weights: equal tokens for every request; and
+  ``multi_tenant`` with converted weights and converted adapters.
 """
 
 import copy
@@ -37,6 +40,8 @@ from apex_tpu.loadtest import Scenario as JScenario
 from apex_tpu.loadtest import TrafficGenerator as JGenerator
 from apex_tpu.loadtest import run_scenario as jrun_scenario
 from apex_tpu.loadtest.runner import build_model as jbuild_model
+from apex_tpu.lora import AdapterStore as JStore
+from apex_tpu.lora import random_adapter as jrandom_adapter
 from apex_tpu.observability import InMemorySink as JSink
 from apex_tpu.observability import MetricsRegistry as JRegistry
 from apex_tpu.ops import _support as jax_support
@@ -44,11 +49,12 @@ from apex_tpu.serving import EngineConfig as JEngineConfig
 from apex_tpu.serving import InferenceEngine as JEngine
 from apex_tpu.serving import Request as JRequest
 from apex_tpu.serving import SamplingParams as JSampling
-from apex_tpu_torch.convert import load_jax_params
+from apex_tpu_torch.convert import adapter_from_jax, load_jax_params
 from apex_tpu_torch.loadtest import Scenario, TrafficGenerator, build_model, \
     run_scenario
 from apex_tpu_torch.loadtest.__main__ import main as cli_main
 from apex_tpu_torch.loadtest.runner import _check_ported
+from apex_tpu_torch.lora import AdapterStore
 from apex_tpu_torch.observability import (InMemorySink, MetricsRegistry,
                                           check_span_conservation,
                                           read_records)
@@ -229,7 +235,8 @@ SCENARIOS = {
 
 #: the scenarios one engine runs whole
 ONE_ENGINE = ("smoke", "bimodal_burst", "crash_recovery", "long_context",
-              "overload", "priority_storm", "shared_prefix", "spec_decode")
+              "multi_tenant", "overload", "priority_storm", "shared_prefix",
+              "spec_decode")
 
 
 @pytest.fixture(autouse=True)
@@ -338,10 +345,22 @@ def test_one_engine_scenarios_are_ported(name):
     _check_ported(Scenario.from_dict(copy.deepcopy(SCENARIOS[name])))
 
 
+def test_multi_tenant_schedule_carries_jax_adapters():
+    port, ref = _both(SCENARIOS["multi_tenant"])
+    mine = TrafficGenerator(port).schedule()
+    want = JGenerator(ref).schedule()
+    ids = [s.request.sampling.adapter_id for s in mine]
+    assert ids == [s.request.sampling.adapter_id for s in want]
+    assert set(ids) == {"0", "1", "2", None}
+    assert [(s.at_s, s.request.prompt, s.request.sampling.seed,
+             s.request.sampling.temperature) for s in mine] == \
+        [(s.at_s, s.request.prompt, s.request.sampling.seed,
+          s.request.sampling.temperature) for s in want]
+
+
 @pytest.mark.parametrize("name", ["fleet_smoke", "canary_rollback",
                                   "latency_drift", "traffic_ramp",
-                                  "noisy_neighbor", "brownout_ladder",
-                                  "multi_tenant"])
+                                  "noisy_neighbor", "brownout_ladder"])
 def test_unported_block_raises_before_running(name):
     scenario = Scenario.from_dict(copy.deepcopy(SCENARIOS[name]))
     registry = MetricsRegistry()
@@ -462,4 +481,35 @@ def test_tiny_scenario_tokens_equal_jax_runner():
             for s in jrun.schedule]
     got = [run.results[s.request.request_id].tokens for s in run.schedule]
     assert got == want
+    assert check_span_conservation(run.records) == []
+
+
+@pytest.mark.slow
+def test_multi_tenant_tokens_equal_jax_runner():
+    """The multi_tenant scenario on both runners with converted weights
+    and the JAX runner's own seeded adapters, converted: equal tokens for
+    every request, every tenant's adapter echoed on its result."""
+    d = copy.deepcopy(SCENARIOS["multi_tenant"])
+    jm, params, tm = _engine_pair()
+    jscenario = JScenario.from_dict(copy.deepcopy(d))
+    jrun = jrun_scenario(jscenario, model=jm, params=params)
+    knobs = jscenario.engine
+    keys = jax.random.split(jax.random.PRNGKey(jscenario.seed),
+                            knobs.lora_adapters)
+    store = AdapterStore(tm.config, knobs.lora_rank,
+                         max_adapters=knobs.lora_adapters, device="cpu")
+    jstore = JStore(jm.config, knobs.lora_rank,
+                    max_adapters=knobs.lora_adapters)
+    for ix in range(knobs.lora_adapters):
+        jf = jrandom_adapter(jm.config, knobs.lora_rank, keys[ix])
+        jstore.load(str(ix), jf)
+        store.load(str(ix), adapter_from_jax(jax.tree.map(np.asarray, jf)))
+    run = run_scenario(Scenario.from_dict(copy.deepcopy(d)), model=tm,
+                       adapters=store)
+    assert not run.aborted and not jrun.aborted
+    want = [jrun.results[s.request.request_id] for s in jrun.schedule]
+    got = [run.results[s.request.request_id] for s in run.schedule]
+    assert [r.tokens for r in got] == [r.tokens for r in want]
+    assert [r.adapter_id for r in got] == [r.adapter_id for r in want]
+    assert set(run.slo_by_adapter) == set(jrun.slo_by_adapter)
     assert check_span_conservation(run.records) == []
