@@ -11,8 +11,15 @@ Entry points run on ``device="cuda"`` unless the caller asks for the CPU.
 This package imports neither ``jax`` nor ``apex_tpu``.
 """
 
-from apex_tpu_torch import amp, fp16_utils, multi_tensor_apply
+from apex_tpu_torch import (
+    amp,
+    checkpoint,
+    fp16_utils,
+    multi_tensor_apply,
+    resilience,
+)
 
 __version__ = "0.1.0"
 
-__all__ = ["amp", "fp16_utils", "multi_tensor_apply", "__version__"]
+__all__ = ["amp", "checkpoint", "fp16_utils", "multi_tensor_apply",
+           "resilience", "__version__"]

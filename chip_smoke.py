@@ -419,7 +419,33 @@ printing its own lines and raising on failure:
               spans conserved, ``--from-log`` re-scoring equal, the
               report's adapter counters equal to its ``adapter_request``
               events key for key, ``slo_by_adapter`` over the four
-              tenants, only A, B and C launched.
+              tenants, only A, B and C launched;
+44. resilience — GPT-2 124M at full widths in ``[train_amp]``'s
+              configuration (bf16 params over fp32 masters, FusedAdam lr
+              1e-4, a dynamic scale from 2^16, b 8 x s 1024) under
+              ``run_training``, after its temp directory's free space
+              (``[resilience_disk]``): R, 16 steps with no manager; F1,
+              the same seed with a sharded checkpoint directory on the
+              async writer, NaN grads at calls 9-10 (a rollback to step 8
+              at the halved scale) and a preemption at call 14 (an
+              emergency save at step 10); F2, another seed resuming from
+              it to 16. F2's end state equals R's bitwise (every bf16
+              param, fp32 master, Adam slot and step counter) and F1's
+              losses R's at steps 1-9 and the replayed 9-10; the
+              telemetry and step directories are the walk-through's;
+              every step verifies ok, through ``python -m
+              apex_tpu_torch.checkpoint verify`` too; a bit flip in step
+              16 makes that CLI exit 1 and ``restore_latest`` fall back
+              to 12, the live tensors then holding step 12's bytes; A, D,
+              E, F, the unscale, the global norm and Adam launched as a
+              step implies in each run, every other kernel 0; step ms with
+              and without a snapshot, snapshot-blocked and write seconds,
+              the writer's queue at each save, a step's bytes and files,
+              one restore's seconds;
+45. resilience_card_vs_cpu — the three runs with a small f32 GPT (2
+              layers, hidden 64, TF32 off) on the card and the CPU: the
+              same statuses, telemetry and history flags, losses and end
+              states within atol 1e-5 + rtol 1e-4.
 
 Then one JSON line of per-kernel numbers (launches from the phase that
 drives each kernel's slice: serve for A-C, serve_int8 and serve_spec for
@@ -434,7 +460,8 @@ llama405b_serve for A's wide-row record, hd512_train for E's and F's
 head_dim-512 records, hd512_serve for B's and C's, flash_hd512 for I's,
 ring for B's and I's offset records (``flash_fwd_ring``,
 ``flash_bwd_ring``: the diagonal chunk call), with every path's counts
-(the loadtest's and the LoRA phases' too) in ``launches_by_path``;
+(the loadtest's, the LoRA phases' and resilience's R, F1 and F2 summed,
+too) in ``launches_by_path``;
 times from CUDA events in this run; ``bound_ms`` from this run's shapes
 over the H100's published peaks), and last ``{"ok": true, "device":
 {...}}``.
@@ -7548,6 +7575,424 @@ def phase_loadtest_lora() -> dict:
     return launches
 
 
+#: [resilience]: ResilienceConfig knobs, steps and the fault schedule of
+#: the faulted run F1 (NaN grads at calls 9 and 10: steps 10 and 11 skip,
+#: the flush at 12 rolls back to 8; preempted at call 14, after steps 9
+#: and 10 are replayed)
+RES_CFG = dict(save_interval_steps=4, poll_interval_steps=4,
+               max_consecutive_skips=2, max_to_keep=3, checkpoint_async=True,
+               handle_sigterm=False)
+RES_STEPS = 16
+RES_FAULTS = dict(nan_grad_calls={9, 10}, preempt_at_call=14)
+#: what F1's telemetry must hold, and the step directories each run leaves
+RES_F1_TELEMETRY = dict(steps=14, skips=2, verdicts=1, rollbacks=1,
+                        preemptions=1, emergency_saves=1, resumes=0,
+                        retraces=0, ckpt_save_failures=0)
+RES_F1_STEPS, RES_F2_STEPS = [4, 8, 10], [10, 12, 16]
+#: [resilience_card_vs_cpu]'s small f32 GPT
+RES_SMALL = dict(num_layers=2, hidden_size=64, num_attention_heads=4,
+                 vocab_size=128, max_position_embeddings=64,
+                 hidden_dropout=0.0, attention_dropout=0.0)
+
+
+class _TimedStep:
+    """Wraps a resilient step: synchronizes before each call and records
+    when it started, so the gaps between starts are whole loop iterations
+    (the step, the flush, a save's snapshot)."""
+
+    def __init__(self, step):
+        self.step = step
+        self.starts = []
+
+    def __call__(self, state, batch, rng):
+        if state["step"].is_cuda:
+            torch.cuda.synchronize()
+        self.starts.append(time.perf_counter())
+        return self.step(state, batch, rng)
+
+
+def _res_model(cfg, seed, device, half):
+    """A GPT from ``seed`` with FusedAdam (lr 1e-4), a dynamic scaler from
+    2^16 and the resilient step over them; ``half``: amp O2 (``half``
+    params over fp32 masters). Returns ``(model, optimizer, step,
+    live state)``."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.amp.scaler import LossScaler
+    from apex_tpu_torch.models import GPTModel
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.resilience import (make_resilient_train_step,
+                                           make_train_state)
+    model = GPTModel(cfg, device=device,
+                     generator=torch.Generator().manual_seed(seed))
+    if half is not None:
+        amp.initialize("O2", half_dtype=half,
+                       device=device).policy.cast_to_param(model)
+    opt = FusedAdam(model.parameters(), lr=1e-4,
+                    master_weights=half is not None)
+    scaler = LossScaler("dynamic")
+    step = make_resilient_train_step(
+        lambda b, r: model(b["tokens"], b["labels"],
+                           loss_mask=b["loss_mask"]), opt, scaler)
+    return model, opt, step, make_train_state(model, opt,
+                                              scaler.init(device))
+
+
+def _res_batches(cfg, b, s, device):
+    """``batch_fn(step)``: seeded tokens and labels, fp32 ones as the loss
+    mask (a poisoned batch NaNs it)."""
+    def batch_fn(step):
+        g = torch.Generator().manual_seed(1000 + step)
+        tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=g)
+        labels = torch.randint(0, cfg.vocab_size, (b, s), generator=g)
+        return {"tokens": tokens.to(device), "labels": labels.to(device),
+                "loss_mask": torch.ones(b, s, device=device)}
+    return batch_fn
+
+
+def _live_leaves(state) -> list:
+    """``(path, host copy)`` of every leaf of a train state but the scaler
+    (which a rollback decays by design)."""
+    from apex_tpu_torch.checkpoint.sharded import tree_items
+    return [(k, v.detach().to("cpu", copy=True))
+            for k, v in tree_items(state) if not k.startswith("['scaler']")]
+
+
+def _bits_equal(a, b) -> bool:
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _res_runs(cfg, device, half, b, s, directory, timed=False) -> dict:
+    """The three runs of ``[resilience]`` on ``device``: R (no manager, no
+    faults), F1 (the same init, a checkpoint directory, RES_FAULTS) and F2
+    (another init, the same directory, no faults: it resumes). Each run's
+    launches are read over that run alone. Returns the results, the
+    launches, the host copies of R's and F2's end states, F2's live state
+    and the timings."""
+    from apex_tpu_torch.checkpoint import (RetryingCheckpointManager,
+                                           ShardedCheckpointManager)
+    from apex_tpu_torch.observability import MetricsRegistry
+    from apex_tpu_torch.ops import LAUNCHES, reset_launches
+    from apex_tpu_torch.resilience import ResilienceConfig, run_training
+    from apex_tpu_torch.testing_faults import FaultInjector
+    batch_fn = _res_batches(cfg, b, s, device)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    out = {"launches": {}, "starts": {}, "saves": [], "depth": []}
+
+    def go(name, seed, manager=None, faults=None):
+        model, opt, step, state = _res_model(cfg, seed, device, half)
+        step = _TimedStep(step) if timed else step
+        reg = MetricsRegistry()
+        sync()
+        reset_launches()
+        res = run_training(step, state, batch_fn, RES_STEPS,
+                           checkpoint_manager=manager,
+                           config=ResilienceConfig(**RES_CFG, metrics=reg),
+                           fault_injector=faults)
+        sync()
+        out["launches"][name] = dict(LAUNCHES)
+        out[name] = res
+        out["starts"][name] = step.starts if timed else []
+        out[f"{name}_reg"] = reg
+        out["params"] = [p.numel() for p in model.parameters()]
+        out["optimizer"] = opt
+        return state
+
+    def manager(faults=None):
+        base = ShardedCheckpointManager(directory, max_to_keep=3)
+        mgr = RetryingCheckpointManager(
+            base, backoff_base=0.0, drain_on_force=True,
+            before_save=None if faults is None else
+            faults.before_checkpoint_save)
+        save = mgr.save
+
+        def counted(step, state, **kw):     # the writer's queue at a save
+            out["depth"].append((step, len(mgr.pending_saves)))
+            out["saves"].append(time.perf_counter())
+            return save(step, state, **kw)
+
+        mgr.save = counted
+        return base, mgr
+
+    out["R_end"] = _live_leaves(go("R", 0))
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    faults = FaultInjector(**RES_FAULTS)
+    base, mgr = manager(faults)
+    go("F1", 0, mgr, faults)
+    mgr.close()
+    out["F1_steps"] = base.all_steps()
+    base, mgr = manager()
+    state = go("F2", 1, mgr)
+    mgr.close()
+    out["F2_steps"] = base.all_steps()
+    out["F2_state"], out["base"] = state, base
+    out["F2_end"] = _live_leaves(state)
+    return out
+
+
+def _res_check(phase, runs) -> None:
+    """The walk-through of ``[resilience]``, on either device: statuses,
+    F1's telemetry, the directories' steps, F2's resume, history flags."""
+    r, f1, f2 = runs["R"], runs["F1"], runs["F2"]
+    tel = {k: f1.telemetry.get(k) for k in RES_F1_TELEMETRY}
+    skipped = [h["step"] for h in f1.history if h["skipped"]]
+    steps = [h["step"] for h in f1.history]
+    problems = []
+    if (r.status, r.steps_completed, r.telemetry["steps"]) != \
+            ("completed", RES_STEPS, RES_STEPS):
+        problems.append(f"R {r.status} {r.steps_completed} {r.telemetry}")
+    if (f1.status, f1.steps_completed) != ("preempted", 10) or \
+            tel != RES_F1_TELEMETRY:
+        problems.append(f"F1 {f1.status} at {f1.steps_completed}, "
+                        f"telemetry {f1.telemetry}")
+    if steps != list(range(1, 13)) + [9, 10] or skipped != [10, 11]:
+        problems.append(f"F1 history steps {steps}, skipped {skipped}")
+    if runs["F1_steps"] != RES_F1_STEPS or runs["F2_steps"] != RES_F2_STEPS:
+        problems.append(f"step directories {runs['F1_steps']} after F1, "
+                        f"{runs['F2_steps']} after F2")
+    if (f2.status, f2.steps_completed, f2.telemetry["resumes"],
+            f2.telemetry["steps"]) != ("completed", RES_STEPS, 1, 6):
+        problems.append(f"F2 {f2.status} at {f2.steps_completed}, "
+                        f"telemetry {f2.telemetry}")
+    if problems:
+        raise AssertionError(f"{phase}: " + "; ".join(problems))
+
+
+def _verify_cli(directory) -> tuple:
+    """``python -m apex_tpu_torch.checkpoint verify <dir>`` as a
+    subprocess: ``(exit code, adoptable steps line)``."""
+    import os
+    out = subprocess.run(
+        [sys.executable, "-m", "apex_tpu_torch.checkpoint", "verify",
+         directory], cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=600)
+    lines = [x for x in out.stdout.splitlines()
+             if x.startswith("adoptable steps:")]
+    return out.returncode, (lines[0] if lines else out.stderr[-400:])
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else float("nan")
+
+
+def phase_resilience() -> dict:
+    """``[resilience]``: GPT-2 124M at full width in ``[train_amp]``'s
+    configuration (bf16 params over fp32 masters, FusedAdam lr 1e-4, a
+    dynamic scaler from 2^16, b 8 x s 1024, dropout 0) driven by
+    ``run_training`` three times: R (no manager, no faults), F1 (the same
+    seed, a sharded checkpoint directory on the async writer, NaN grads at
+    calls 9-10 and a preemption at call 14) and F2 (another seed, the same
+    directory: it resumes from F1's emergency save). F2's end state must
+    equal R's bitwise (every bf16 param, fp32 master, Adam slot and step
+    counter), F1's losses R's at the same steps (its replay of 9 and 10
+    included); every step verifies ok, through the CLI too; a bit flip in
+    step 16 makes the CLI exit 1 and ``restore_latest`` fall back to 12,
+    after which the live tensors hold step 12's bytes; A, D, E, F, the
+    unscale, the global norm and Adam launch as a step implies in each
+    run, every other kernel 0. Returns the launches of the three runs."""
+    import os
+    import shutil
+    import tempfile
+
+    from apex_tpu_torch.checkpoint import (RetryingCheckpointManager,
+                                           ShardedCheckpointManager,
+                                           verify_directory)
+    from apex_tpu_torch.checkpoint.manifest import load_manifest
+    from apex_tpu_torch.models import TransformerConfig
+    from apex_tpu_torch.ops import multi_tensor as mt
+    from apex_tpu_torch.testing_faults import corrupt_shard
+    card = _card_name().replace(" ", "_")
+    cfg = TransformerConfig(**GPT2, hidden_dropout=0.0,
+                            attention_dropout=0.0,
+                            compute_dtype=torch.bfloat16)
+    tmp = tempfile.mkdtemp(prefix="apex-resilience-")
+    try:
+        usage = shutil.disk_usage(tmp)
+        log("resilience_disk", card=card, dir=tmp,
+            free_gb=f"{usage.free / 1e9:.1f}",
+            total_gb=f"{usage.total / 1e9:.1f}")
+        ckdir = os.path.join(tmp, "run")
+        t0 = time.perf_counter()
+        runs = _res_runs(cfg, "cuda", torch.bfloat16, TRAIN_BATCH,
+                         TRAIN_SEQ, ckdir, timed=True)
+        runs_s = time.perf_counter() - t0
+        _res_check("resilience", runs)
+        r, f1, f2 = runs["R"], runs["F1"], runs["F2"]
+        diff = [k for (k, a), (_, b) in zip(runs["R_end"], runs["F2_end"])
+                if not _bits_equal(a, b)]
+        # F1's steps before the bad window (1-9) and its replay (9, 10);
+        # steps 10-12 of the first pass lie in the discarded window
+        r_loss = {h["step"]: h["loss"] for h in r.history}
+        kept = f1.history[:9] + f1.history[12:]
+        loss_diff = [(h["step"], h["loss"], r_loss[h["step"]]) for h in kept
+                     if h["loss"] != r_loss[h["step"]]]
+        sizes = runs["params"]
+        per_step = dict(TRAIN_KERNELS,
+                        **mt.optimizer_launches(sizes, "multi_tensor_scale"),
+                        **mt.optimizer_launches(sizes, "multi_tensor_l2norm"),
+                        **optimizer_launches_per_step(runs["optimizer"]))
+        bad_launches = {}
+        total = {k: 0 for k in ALL_KERNELS}
+        for name in ("R", "F1", "F2"):
+            n = runs[name].telemetry["steps"]
+            want = {k: per_step.get(k, 0) * n for k in ALL_KERNELS}
+            got = {k: runs["launches"][name][k] for k in ALL_KERNELS}
+            if got != want:
+                bad_launches[name] = (got, want)
+            for k in ALL_KERNELS:
+                total[k] += got[k]
+        reports = verify_directory(ckdir)
+        statuses = [(x.step, x.status) for x in reports]
+        cli_ok = _verify_cli(ckdir)
+        base = runs["base"]
+        step_dir = os.path.join(ckdir, "16")
+        files = os.listdir(step_dir)
+        step_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                         for f in files)
+        state = runs["F2_state"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        base.restore_step(16, state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same_after_restore = all(
+            _bits_equal(a, b) for (_, a), (_, b) in
+            zip(runs["R_end"], _live_leaves(state)))
+        corrupt_shard(ckdir, 16, kind="bitflip")
+        cli_bad = _verify_cli(ckdir)
+        mgr = RetryingCheckpointManager(base)
+        t0 = time.perf_counter()
+        fell_to, _ = mgr.restore_latest(state)
+        torch.cuda.synchronize()
+        fallback_s = time.perf_counter() - t0
+        mgr.close()
+        # the live tensors now hold step 12's bytes: write them as a step
+        # of their own and compare every shard's sha256 with step 12's
+        echo = ShardedCheckpointManager(os.path.join(tmp, "echo"), fsync=False)
+        echo.save(12, state, force=True)
+        want = load_manifest(os.path.join(ckdir, "12"))["leaves"]
+        got = load_manifest(os.path.join(tmp, "echo", "12"))["leaves"]
+        mismatched = [k for k in want
+                      if [x["sha256"] for x in want[k]["shards"]]
+                      != [x["sha256"] for x in got[k]["shards"]]]
+        ok = (not diff and not loss_diff and not bad_launches
+              and statuses == [(s, "ok") for s in RES_F2_STEPS]
+              and cli_ok == (0, f"adoptable steps: {RES_F2_STEPS}")
+              and same_after_restore and cli_bad[0] == 1 and fell_to == 12
+              and mgr.telemetry["verify_failures"] == 1
+              and mgr.telemetry["deleted_corrupt"] == 1
+              and base.all_steps() == [10, 12] and not mismatched
+              and set(got) == set(want))
+        # timings: R's loop iterations; F1's with and without a snapshot
+        def gaps(starts):
+            return [(a, b - a) for a, b in zip(starts, starts[1:])]
+        r_ms = [1e3 * d for _, d in gaps(runs["starts"]["R"])]
+        saves = runs["saves"]
+        f_save, f_plain = [], []
+        for a, d in gaps(runs["starts"]["F1"]):
+            (f_save if any(a <= t < a + d for t in saves)
+             else f_plain).append(1e3 * d)
+        f1_reg = runs["F1_reg"]
+        snap = f1_reg.histogram("ckpt_snapshot_blocked_s")
+        write = f1_reg.histogram("ckpt_write_s")
+        f2_reg = runs["F2_reg"]
+        snap2 = f2_reg.histogram("ckpt_snapshot_blocked_s")
+        write2 = f2_reg.histogram("ckpt_write_s")
+        fmt = lambda xs: json.dumps([round(x, 4) for x in xs]).replace(  # noqa
+            " ", "")
+        log("resilience", card=card,
+            model="gpt2-124m amp O2 bf16 params fp32 masters",
+            batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=RES_STEPS,
+            f1_status=f1.status, f1_steps=f1.steps_completed,
+            f2_status=f2.status, resumes=f2.telemetry["resumes"],
+            f1_telemetry=json.dumps(f1.telemetry).replace(" ", ""),
+            f2_telemetry=json.dumps(f2.telemetry).replace(" ", ""),
+            end_state_vs_R="bitwise" if not diff else f"differs:{diff[:4]}",
+            leaves=len(runs["R_end"]),
+            replayed_losses_vs_R="bitwise" if not loss_diff else
+            f"differs:{loss_diff[:4]}",
+            r_step_ms_median=f"{_median(r_ms):.2f}",
+            f1_step_ms_median_snapshot=f"{_median(f_save):.2f}",
+            f1_step_ms_median_plain=f"{_median(f_plain):.2f}",
+            f1_snapshot_step_ms=fmt(f_save),
+            snapshot_blocked_s=fmt(snap.recent + snap2.recent),
+            write_s=fmt(write.recent + write2.recent),
+            writer_queue_at_save=json.dumps(runs["depth"]).replace(" ", ""),
+            step_bytes=step_bytes, step_files=len(files),
+            restore_s=f"{restore_s:.3f}",
+            fallback_restore_s=f"{fallback_s:.3f}",
+            runs_s=f"{runs_s:.1f}",
+            verify=json.dumps(statuses).replace(" ", ""),
+            cli_exit=cli_ok[0], cli_exit_damaged=cli_bad[0],
+            fallback_to=fell_to,
+            ckpt_telemetry=json.dumps(mgr.telemetry).replace(" ", ""),
+            live_equals_step12="bitwise" if not mismatched else
+            f"differs:{mismatched[:4]}",
+            launches=json.dumps(total).replace(" ", ""))
+        if not ok:
+            raise AssertionError(
+                f"resilience: end state diff {diff[:8]}, loss diff "
+                f"{loss_diff[:8]}, launches {bad_launches}, verify "
+                f"{statuses}, cli {cli_ok} / {cli_bad}, restore no-op "
+                f"{same_after_restore}, fallback to {fell_to} "
+                f"{mgr.telemetry} steps {base.all_steps()}, step-12 "
+                f"mismatch {mismatched[:8]}")
+        return total
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_resilience_card_vs_cpu() -> None:
+    """``[resilience_card_vs_cpu]``: ``[resilience]``'s three runs with a
+    small f32 GPT (2 layers, hidden 64, TF32 off, b 2 x s 64) on the card
+    and on the CPU: the same statuses and telemetry key for key, the same
+    history steps and skipped flags, losses and end states within atol
+    1e-5 + rtol 1e-4 (``[train_card_vs_cpu]``'s f32 bars)."""
+    import tempfile
+
+    from apex_tpu_torch.models import TransformerConfig
+    cfg = TransformerConfig(**RES_SMALL)
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="apex-resilience-small-") as tmp:
+        for device in ("cuda", "cpu"):
+            runs[device] = _res_runs(cfg, device, None, 2, 64,
+                                     f"{tmp}/{device}")
+            _res_check(f"resilience_card_vs_cpu {device}", runs[device])
+    card, cpu = runs["cuda"], runs["cpu"]
+    problems, worst = [], 0.0
+    for name in ("R", "F1", "F2"):
+        a, b = card[name], cpu[name]
+        if (a.status, a.steps_completed, a.telemetry) != \
+                (b.status, b.steps_completed, b.telemetry):
+            problems.append(f"{name}: {a.status} {a.telemetry} vs "
+                            f"{b.status} {b.telemetry}")
+        if [(h["step"], h["skipped"]) for h in a.history] != \
+                [(h["step"], h["skipped"]) for h in b.history]:
+            problems.append(f"{name}: history flags differ")
+        for ha, hb in zip(a.history, b.history):
+            if hb["skipped"]:
+                continue
+            excess = abs(ha["loss"] - hb["loss"]) - 1e-4 * abs(hb["loss"])
+            worst = max(worst, excess)
+    for (k, x), (_, y) in zip(card["F2_end"], cpu["F2_end"]):
+        if x.is_floating_point():
+            excess = float(((x - y).abs() - 1e-4 * y.abs()).max())
+        else:
+            excess = 0.0 if torch.equal(x, y) else float("inf")
+        if excess > worst:
+            worst = excess
+    log("resilience_card_vs_cpu", layers=2, hidden=64,
+        f1_telemetry=json.dumps(card["F1"].telemetry).replace(" ", ""),
+        f2_telemetry=json.dumps(card["F2"].telemetry).replace(" ", ""),
+        worst_excess=f"{worst:.2e}", leaves=len(card["F2_end"]))
+    if problems or worst > 1e-5:
+        raise AssertionError(f"resilience_card_vs_cpu: {problems}, worst "
+                             f"excess {worst} past atol 1e-5 + rtol 1e-4")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -7621,6 +8066,8 @@ def main() -> int:
     paths["lora_serve"] = phase_lora_serve(args.seed)
     paths["lora_finetune"] = phase_lora_finetune()
     paths["loadtest_lora"] = phase_loadtest_lora()
+    paths["resilience"] = phase_resilience()
+    phase_resilience_card_vs_cpu()
     for rec in records:
         name = rec["name"]
         counter = COUNTER.get(name, name)
