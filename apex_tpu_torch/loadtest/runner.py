@@ -1,13 +1,16 @@
-"""Scenario execution: generator -> supervised engine -> JSONL -> SLOs
-(counterpart of ``apex_tpu/loadtest/runner.py``).
+"""Scenario execution: generator -> supervised engine or fleet -> JSONL ->
+SLOs (counterpart of ``apex_tpu/loadtest/runner.py``).
 
 :func:`run_scenario` materializes the scenario's arrival schedule
 (:mod:`~apex_tpu_torch.loadtest.generator`), builds the model under test,
 wraps an :class:`~apex_tpu_torch.serving.InferenceEngine` in an
-:class:`~apex_tpu_torch.serving.EngineSupervisor` (with the scenario's
-fault schedule driving a :class:`~apex_tpu_torch.testing_faults.\
-ServingFaultInjector`), and replays the schedule **open-loop** against
-wall clock: a request is submitted the moment its arrival time passes,
+:class:`~apex_tpu_torch.serving.EngineSupervisor` — or, for a scenario
+with a ``fleet`` block, a :class:`~apex_tpu_torch.serving.ReplicaFleet`
+with the scenario's autoscale, sentinel, quotas and brownout blocks —
+(with the scenario's fault schedule driving a
+:class:`~apex_tpu_torch.testing_faults.ServingFaultInjector`), and
+replays the schedule **open-loop** against wall clock, with the fleet's
+scheduled draining restarts and its one ``deploy``: a request is submitted the moment its arrival time passes,
 whether or not the engine kept up — queue growth, shedding, and
 deadline misses are the signal, not an error.
 
@@ -34,10 +37,12 @@ Where the port differs from the JAX runner:
   :func:`build_model` draws weights, so they are not the JAX runner's;
   :func:`run_scenario` takes ``adapters=`` too (converted JAX adapters for
   a comparison);
-- one engine only: a scenario with a ``fleet``, ``autoscale``, ``deploy``,
-  ``sentinel``, ``quotas`` or ``brownout`` block raises
-  ``NotImplementedError`` before anything runs, naming the ROADMAP item
-  that brings it;
+- a ``deploy`` block's checkpoint is the model's parameters in the JAX
+  package's tree (:func:`~apex_tpu_torch.serving.fleet.deploy.\
+model_params_tree`), so the step directory is the one the JAX runner
+  writes for the same weights; its adapter canary draws its factors from
+  a ``torch.Generator`` seeded with ``seed + 7919`` (the JAX runner's
+  offset, not its draws);
 - ``ScenarioRun.retraces`` reads the ``retraces`` counter as the JAX
   runner does; the port's engines compile nothing, so it stays 0.
 """
@@ -45,8 +50,9 @@ Where the port differs from the JAX runner:
 from __future__ import annotations
 
 import os
+import tempfile
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Union
 
 import torch
 
@@ -54,6 +60,7 @@ from apex_tpu_torch.loadtest.generator import ScheduledRequest, \
     TrafficGenerator
 from apex_tpu_torch.loadtest.scenario import ModelSpec, Scenario
 from apex_tpu_torch.observability import (
+    FleetMetrics,
     InMemorySink,
     JsonlSink,
     MetricsRegistry,
@@ -86,16 +93,6 @@ _LOG = get_logger(__name__)
 #: long per wait slice (keeps the loop responsive to the next arrival
 #: without busy-spinning)
 _IDLE_SLEEP_S = 0.005
-
-#: scenario blocks the port cannot run yet, each with the ROADMAP §1 item
-#: that brings it
-_UNPORTED = (("fleet", "the fleet, ROADMAP §1 item 4"),
-             ("autoscale", "the fleet's autoscaler, ROADMAP §1 item 4"),
-             ("deploy", "fleet deployments and checkpoints, ROADMAP §1 "
-                        "items 4-5"),
-             ("sentinel", "the fleet's drift sentinel, ROADMAP §1 item 4"),
-             ("quotas", "the fleet's tenant quotas, ROADMAP §1 item 4"),
-             ("brownout", "the fleet's brownout ladder, ROADMAP §1 item 4"))
 
 
 def build_model(spec: ModelSpec, *,
@@ -164,7 +161,8 @@ class ScenarioRun:
     #: apart from metrics_by_name — never part of the baseline payload
     slo_by_adapter: Dict[str, Dict[str, Optional[float]]] = field(
         default_factory=dict)
-    #: the final fleet signals poll: always None (one engine)
+    #: the final FleetMetrics.signals() poll (fleet scenarios only) —
+    #: also stamped into the log as the kind="signals" record
     signals: Optional[dict] = None
     #: the ``retraces`` counter; must be 0 (the port compiles nothing)
     retraces: int = 0
@@ -183,22 +181,15 @@ class ScenarioRun:
         return slo_ok and self.retraces == 0
 
 
-def _check_ported(scenario: Scenario) -> None:
-    """Raise for a scenario the port cannot run whole — before anything
-    is built, so no such scenario runs partly."""
-    for block, what in _UNPORTED:
-        if getattr(scenario, block) is not None:
-            raise NotImplementedError(
-                f"scenario {scenario.name!r} has a {block!r} block: "
-                f"{what} is not ported yet")
-
-
 def _build_serving(scenario: Scenario, model, metrics: MetricsRegistry,
-                   adapters=None) -> EngineSupervisor:
-    """The serving tier under test: one
-    :class:`~apex_tpu_torch.serving.EngineSupervisor` on the model's
-    device, the scenario's fault schedule driving its injector and
-    ``adapters`` its adapter store."""
+                   adapters=None):
+    """The serving tier under test on the model's device: one
+    :class:`~apex_tpu_torch.serving.EngineSupervisor`, or — when the
+    scenario declares a ``fleet`` block — a
+    :class:`~apex_tpu_torch.serving.ReplicaFleet` (the fault schedule then
+    drives replica 0's injector); ``adapters`` is the adapter store. Both
+    expose the same driving surface, so the replay loop is
+    tier-agnostic."""
     from apex_tpu_torch.testing_faults import ServingFaultInjector
 
     knobs = scenario.engine
@@ -218,9 +209,88 @@ def _build_serving(scenario: Scenario, model, metrics: MetricsRegistry,
     faults = None
     if not scenario.faults.empty:
         faults = ServingFaultInjector(**scenario.faults.injector_kwargs())
+    if scenario.fleet is not None:
+        from apex_tpu_torch.serving.fleet import (
+            AutoscaleConfig,
+            BrownoutConfig,
+            FleetConfig,
+            QuotaConfig,
+            ReplicaFleet,
+            TenantQuota,
+        )
+        from apex_tpu_torch.observability.sentinel import SentinelConfig
+
+        fl = scenario.fleet
+        autoscale = AutoscaleConfig(**scenario.autoscale.config_kwargs()) \
+            if scenario.autoscale is not None else None
+        sentinel = SentinelConfig(**scenario.sentinel.config_kwargs()) \
+            if scenario.sentinel is not None else None
+        quotas = None
+        if scenario.quotas is not None:
+            quotas = QuotaConfig(
+                tenants={k: TenantQuota(**v)
+                         for k, v in scenario.quotas.tenants.items()},
+                default=(TenantQuota(**scenario.quotas.default)
+                         if scenario.quotas.default is not None else None))
+        brownout = BrownoutConfig(**scenario.brownout.config_kwargs()) \
+            if scenario.brownout is not None else None
+        return ReplicaFleet(
+            model, engine_cfg, supervisor=sup_cfg,
+            fleet=FleetConfig(n_replicas=fl.n_replicas,
+                              migrate_on_drain=fl.migrate_on_drain,
+                              probe_on_rebuild=fl.probe_on_rebuild),
+            metrics=metrics, faults=faults, adapters=adapters,
+            autoscale=autoscale, sentinel=sentinel, quotas=quotas,
+            brownout=brownout, device=model.device)
     return EngineSupervisor(model, engine_cfg, supervisor=sup_cfg,
                             metrics=metrics, faults=faults,
                             adapters=adapters, device=model.device)
+
+
+def _prepare_deploy(scenario: Scenario, model,
+                    scratch: str) -> Dict[str, Any]:
+    """Materialize the scenario's ``deploy`` artifact and return the
+    kwargs for :meth:`~apex_tpu_torch.serving.ReplicaFleet.deploy`.
+
+    ``kind="checkpoint"`` saves the model's own parameters, in the JAX
+    package's tree (:func:`~apex_tpu_torch.serving.fleet.deploy.\
+model_params_tree`), at step 1 through a
+    :class:`~apex_tpu_torch.checkpoint.ShardedCheckpointManager` (a
+    happy-path deploy is weight-identical, so it must be token-exact);
+    ``poison=true`` then value-corrupts the committed step with
+    :func:`~apex_tpu_torch.testing_faults.corrupt_checkpoint_weights` —
+    fsck stays green, the live canary score is the only detector.
+    ``kind="adapter"`` builds a seeded LoRA canary tenant (NaN factors
+    when poisoned)."""
+    from apex_tpu_torch.serving.fleet import CanaryConfig
+
+    spec = scenario.deploy
+    canary = CanaryConfig(**{
+        k: (int(v) if k == "min_requests" else float(v))
+        for k, v in spec.canary.items()})
+    if spec.kind == "adapter":
+        from apex_tpu_torch.lora import random_adapter
+
+        # offset keeps the canary tenant's weights distinct from the
+        # runner-preloaded ids "0".."n-1" (same seed stream)
+        factors = random_adapter(
+            model.config, scenario.engine.lora_rank,
+            torch.Generator().manual_seed(scenario.seed + 7919),
+            device=model.device)
+        if spec.poison:
+            factors = {t: {k: v * float("nan") for k, v in f.items()}
+                       for t, f in factors.items()}
+        return {"adapter": (spec.adapter_id, factors), "canary": canary}
+    from apex_tpu_torch.checkpoint import ShardedCheckpointManager
+    from apex_tpu_torch.serving.fleet.deploy import model_params_tree
+
+    ShardedCheckpointManager(scratch, max_to_keep=1).save(
+        1, model_params_tree(model))
+    if spec.poison:
+        from apex_tpu_torch.testing_faults import corrupt_checkpoint_weights
+
+        corrupt_checkpoint_weights(scratch, 1)
+    return {"checkpoint_dir": scratch, "step": 1, "canary": canary}
 
 
 def run_scenario(scenario: Scenario, *, model=None, adapters=None,
@@ -240,7 +310,6 @@ def run_scenario(scenario: Scenario, *, model=None, adapters=None,
     attached: the SLO verdict is computed from the very records the sinks
     saw.
     """
-    _check_ported(scenario)
     if model is None:
         model = build_model(scenario.model)
     registry = metrics if metrics is not None else MetricsRegistry()
@@ -283,15 +352,72 @@ def run_scenario(scenario: Scenario, *, model=None, adapters=None,
     run = ScenarioRun(scenario=scenario, schedule=schedule, results={},
                       records=mem.records, counters={}, wall_s=0.0,
                       log_path=log_path)
+    # the fleet-level fault schedule: draining restarts at fixed offsets
+    drains = sorted(scenario.fleet.drain_restarts) \
+        if scenario.fleet is not None else []
+    d = 0
+    # the continuous-deployment schedule: one rollout at a fixed offset
+    # (artifact materialized up front — a poisoned checkpoint must be
+    # committed and fsck-green BEFORE the first drain)
+    deploy_fired = scenario.deploy is None
+    deploy_kwargs: Optional[Dict[str, Any]] = None
+    scratch = None
+    if scenario.deploy is not None:
+        scratch = tempfile.TemporaryDirectory(prefix="apex-deploy-")
+        deploy_kwargs = _prepare_deploy(scenario, model, scratch.name)
+
+    def _deploy_active() -> bool:
+        dep = getattr(sup, "deployment", None)
+        return dep is not None and not dep.done
+
+    def _autoscale_settling() -> bool:
+        # after traffic drains, keep polling until the autoscaler has
+        # retired back to min_replicas — an idle fleet always meets the
+        # scale-down bands, so this converges (max_wall_s still guards)
+        scaler = getattr(sup, "autoscaler", None)
+        return (scaler is not None
+                and len(sup.replicas) > scaler.config.min_replicas)
+
+    autoscaling = getattr(sup, "autoscaler", None) is not None
     t0 = clock.now()
     i = 0
     try:
-        while i < len(schedule) or sup.inflight_count:
+        while (i < len(schedule) or sup.inflight_count or d < len(drains)
+               or not deploy_fired or _deploy_active()
+               or _autoscale_settling()):
             now = clock.now() - t0
             if now > scenario.max_wall_s:
                 run.aborted = True
                 _abort(sup, scenario, registry, now)
                 break
+            while d < len(drains) and drains[d][0] <= now:
+                at_s, replica = drains[d]
+                d += 1
+                try:
+                    sup.drain_restart(replica)
+                except RuntimeError as exc:
+                    # another drain still in progress (or replica not
+                    # active): skip rather than stack — N-1 capacity is
+                    # the invariant; the skip is stamped into the log
+                    log_event(_LOG, "drain_restart_skipped",
+                              replica_id=replica, at_s=at_s,
+                              reason=str(exc))
+                    registry.event("drain_restart_skipped",
+                                   replica_id=replica, at_s=at_s,
+                                   reason=str(exc))
+            if not deploy_fired and scenario.deploy.at_s <= now:
+                deploy_fired = True
+                try:
+                    sup.deploy(**deploy_kwargs)
+                except Exception as exc:
+                    # pre-flight rejection (fsck failure) or a topology
+                    # race: the fleet already stamped deploy_rejected
+                    # when it could; the skip itself is logged too
+                    log_event(_LOG, "deploy_skipped",
+                              at_s=scenario.deploy.at_s, reason=str(exc))
+                    registry.event("deploy_skipped",
+                                   at_s=scenario.deploy.at_s,
+                                   reason=str(exc))
             while i < len(schedule) and schedule[i].at_s <= now:
                 req = schedule[i].request
                 # open-loop contract: the deadline clock starts at the
@@ -304,16 +430,38 @@ def run_scenario(scenario: Scenario, *, model=None, adapters=None,
                 except (EngineUnavailableError, QueueFullError,
                         DeadlineExpiredError, UnknownAdapterError):
                     pass        # recorded terminally by the supervisor
-            if sup.inflight_count:
+            if sup.inflight_count or _deploy_active():
                 sup.tick()
                 run.ticks += 1
             elif i < len(schedule):
                 gap = (t0 + schedule[i].at_s) - clock.now()
                 if gap > 0:
                     clock.sleep(min(gap, _IDLE_SLEEP_S))
+                if autoscaling:
+                    # idle ticks keep the autoscaler's poll clock alive
+                    # through traffic gaps (scale-down happens here)
+                    sup.tick()
+                    run.ticks += 1
+            elif d < len(drains) or not deploy_fired \
+                    or _autoscale_settling():
+                # waiting on a scheduled drain/deploy, or for the
+                # autoscaler to retire back to min_replicas
+                clock.sleep(_IDLE_SLEEP_S)
+                if autoscaling:
+                    sup.tick()
+                    run.ticks += 1
     finally:
         run.wall_s = clock.now() - t0
+        if hasattr(sup, "replica_metrics"):
+            # final fleet poll, stamped into the log before the
+            # close-time snapshots so signals precede the counters they
+            # must reconcile with
+            run.signals = FleetMetrics(sup).signals()
+            registry.emit_record({"kind": "signals", "wall": clock.wall(),
+                                  "values": run.signals})
         sup.close()             # flushes the final counter snapshot
+        if scratch is not None:
+            scratch.cleanup()   # the deployed weights live in the fleet
     run.results = dict(sup.completed)
     run.counters = registry.counters()
     if recorder is not None:

@@ -18,11 +18,19 @@
 - :mod:`~apex_tpu_torch.observability.trace` — request-level span
   timelines whose phase durations sum to each request's latency
   (:func:`check_span_conservation`).
+- :class:`FleetMetrics` / :class:`ReplicaRegistry`
+  (:mod:`~apex_tpu_torch.observability.fleet_metrics`) — per-replica
+  metric views merged into one fleet snapshot plus the polled
+  ``signals()`` dict (goodput window, queue depth, p99 TTFT/TPOT,
+  occupancy, per-adapter share) that feeds the autoscaler, the brownout
+  ladder and the drift sentinel.
 - :class:`FlightRecorder` — bounded rings of recent telemetry that dump a
   postmortem bundle on an incident-class event.
-
-The JAX package's ``fleet_metrics`` and ``sentinel`` serve only the fleet
-and come with it (ROADMAP §1 item 4).
+- :class:`DriftSentinel` / :class:`SentinelConfig`
+  (:mod:`~apex_tpu_torch.observability.sentinel`) — online EWMA + robust
+  z-score drift detection over ``FleetMetrics.signals()``, emitting typed
+  ``kind="anomaly"`` records with paired ``anomalies_*`` counters from the
+  fleet tick.
 """
 
 from apex_tpu_torch.observability.registry import (
@@ -60,9 +68,18 @@ from apex_tpu_torch.observability.trace import (
     format_timeline,
     new_trace_id,
 )
+from apex_tpu_torch.observability.fleet_metrics import (
+    FleetMetrics,
+    ReplicaRegistry,
+    merge_histograms,
+)
 from apex_tpu_torch.observability.recorder import (
     TRIGGER_EVENTS,
     FlightRecorder,
+)
+from apex_tpu_torch.observability.sentinel import (
+    DriftSentinel,
+    SentinelConfig,
 )
 
 __all__ = [
@@ -93,6 +110,11 @@ __all__ = [
     "build_timelines",
     "format_timeline",
     "check_span_conservation",
+    "FleetMetrics",
+    "ReplicaRegistry",
+    "merge_histograms",
     "FlightRecorder",
     "TRIGGER_EVENTS",
+    "DriftSentinel",
+    "SentinelConfig",
 ]

@@ -76,9 +76,9 @@ class HistogramSnapshot:
     @property
     def recent(self) -> List[float]:
         """The bounded window of recent observations (a copy) — what
-        percentiles are computed over, and what a fleet's
-        ``merge_histograms`` concatenates when combining per-replica
-        snapshots (the fleet is not ported yet)."""
+        percentiles are computed over, and what
+        :func:`~apex_tpu_torch.observability.fleet_metrics.merge_histograms`
+        concatenates when combining per-replica snapshots."""
         return list(self._recent)
 
     def percentile(self, p: float) -> float:

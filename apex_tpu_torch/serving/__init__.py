@@ -1,5 +1,7 @@
-"""Continuous-batching serving over the paged or flat KV layout, and the
-engine supervisor (counterpart of ``apex_tpu.serving``)."""
+"""Continuous-batching serving over the paged or flat KV layout, the
+engine supervisor, and the replica fleet (counterpart of
+``apex_tpu.serving``; the fleet's controllers live in
+:mod:`apex_tpu_torch.serving.fleet`)."""
 
 from apex_tpu_torch.lora import UnknownAdapterError
 from apex_tpu_torch.serving.engine import EngineConfig, InferenceEngine
@@ -30,6 +32,12 @@ from apex_tpu_torch.serving.supervisor import (
     EngineUnavailableError,
     SupervisorConfig,
 )
+from apex_tpu_torch.serving.fleet import (
+    FleetConfig,
+    FleetUnavailableError,
+    ReplicaFleet,
+    Router,
+)
 
 __all__ = ["EngineConfig", "InferenceEngine", "Request", "RequestResult",
            "SamplingParams", "FINISH_CANCELLED", "FINISH_EOS", "FINISH_ERROR",
@@ -38,4 +46,5 @@ __all__ = ["EngineConfig", "InferenceEngine", "Request", "RequestResult",
            "QueueFullError", "SchedulerConfig", "bucket_for",
            "prefill_buckets", "PageError", "PagePool", "SlotError",
            "SlotPool", "EngineSupervisor", "EngineUnavailableError",
-           "SupervisorConfig", "UnknownAdapterError"]
+           "SupervisorConfig", "UnknownAdapterError", "ReplicaFleet",
+           "Router", "FleetConfig", "FleetUnavailableError"]

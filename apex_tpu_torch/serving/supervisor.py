@@ -44,12 +44,18 @@ with ``resubmission=True``) and produces exactly one terminal
 whether it finishes in the engine, is shed at admission, or is retired
 by the supervisor itself.
 
-The JAX supervisor's fleet-facing surface — migration
-(``detach_for_migration``, ``submit(resubmission=)``), the brownout
-passthroughs (``preempt_class``, ``set_admission_floor``), the router's
-load reads (``queued_token_excess_s[_for]``, ``queued_prompt_tokens``,
-``inflight_ids``), a custom ``engine_factory`` and the ``service_s=``
-seed of a rebuilt replica — comes with the fleet's slice.
+The fleet-facing surface is the JAX supervisor's:
+:class:`~apex_tpu_torch.serving.fleet.ReplicaFleet` migrates a draining
+replica's work through :meth:`EngineSupervisor.detach_for_migration` and
+``submit(resubmission=True)``, the brownout ladder reaches the engine
+through :meth:`~EngineSupervisor.preempt_class` and
+:meth:`~EngineSupervisor.set_admission_floor`, the router prices a
+replica with :attr:`~EngineSupervisor.queued_token_excess_s` and
+:attr:`~EngineSupervisor.queued_prompt_tokens`, ``service_s=`` seeds a
+rebuilt replica's EWMA, and ``engine_factory=`` builds another engine
+under the same supervision. :meth:`~EngineSupervisor.release_device_memory`
+drops a closed supervisor's KV pools, so a replica rebuilt beside
+serving peers never holds two sets on the card.
 """
 
 from __future__ import annotations
@@ -182,7 +188,8 @@ class EngineSupervisor:
                  supervisor: Optional[SupervisorConfig] = None,
                  metrics: Optional[MetricsRegistry] = None,
                  faults=None, replica_id: Optional[int] = None,
-                 adapters=None, device="cuda"):
+                 service_s: Optional[float] = None,
+                 engine_factory=None, adapters=None, device="cuda"):
         self._model = model
         self._device = device
         #: LoRA :class:`~apex_tpu_torch.lora.AdapterStore`, handed to every
@@ -213,20 +220,28 @@ class EngineSupervisor:
         self._breaker_opened_ts = 0.0
         self._consecutive_failures = 0
         # the deadline-shedding EWMA is SUPERVISOR state: it survives
-        # engine rebuilds
-        self._service_s: Optional[float] = None
+        # engine rebuilds, and a fleet replica rebuild seeds the fresh
+        # supervisor with the old one's estimate (``service_s=``) so the
+        # first post-restart submits are not admitted blind
+        self._service_s: Optional[float] = service_s
         # token-aware companion EWMAs (same alpha): per-token prefill
-        # cost and typical prompt length, so the shed projection can
-        # price a backlog of LONG prompts above the same depth of short
-        # ones. None until the first completion measures them.
+        # cost and typical prompt length, so the shed projection and the
+        # fleet Router can price a backlog of LONG prompts above the
+        # same depth of short ones. None until the first completion
+        # measures them.
         self._prefill_s_per_token: Optional[float] = None
         self._avg_prompt_tokens: Optional[float] = None
+        #: engine constructor, ``(model, config, *, metrics, faults,
+        #: replica_id, adapters, device) -> InferenceEngine`` — how a fleet
+        #: runs another engine under the same supervision
+        self._engine_factory = engine_factory or InferenceEngine
         self.engine = self._build_engine()
 
     def _build_engine(self) -> InferenceEngine:
-        eng = InferenceEngine(self._model, self.config, metrics=self.metrics,
-                              faults=self._faults, replica_id=self.replica_id,
-                              adapters=self._adapters, device=self._device)
+        eng = self._engine_factory(
+            self._model, self.config, metrics=self.metrics,
+            faults=self._faults, replica_id=self.replica_id,
+            adapters=self._adapters, device=self._device)
         # this supervisor drains take_parked() every tick, so the engine
         # may preempt: a parked request is guaranteed a resume path
         eng.resume_consumer = True
@@ -257,8 +272,34 @@ class EngineSupervisor:
     @property
     def service_estimate_s(self) -> Optional[float]:
         """The deadline-shedding EWMA of observed per-request service
-        time (None until the first completion)."""
+        time (None until the first completion) — also the fleet router's
+        per-replica load weight, and the value carried into a rebuilt
+        replica so it never restarts blind."""
         return self._service_s
+
+    @property
+    def queued_prompt_tokens(self) -> int:
+        """Total prompt tokens waiting in line (engine queue + restart
+        backlog) — the token-denominated companion to
+        :attr:`queued_count`."""
+        return (self.engine.queued_tokens
+                + sum(r.prompt_len for r in self._backlog))
+
+    @property
+    def queued_token_excess_s(self) -> float:
+        """Extra prefill seconds the queued PROMPT TOKENS represent
+        beyond what ``depth x EWMA(service_s)`` already prices in: the
+        queued tokens in EXCESS of ``depth x EWMA(prompt_tokens)``, at the
+        observed per-token prefill rate. Non-negative by construction (a
+        backlog of SHORT prompts never discounts the estimate below the
+        depth-based one), and 0.0 until both token EWMAs have been
+        measured."""
+        if self._prefill_s_per_token is None \
+                or self._avg_prompt_tokens is None:
+            return 0.0
+        waiting = self.engine.queued_count + len(self._backlog)
+        excess = self.queued_prompt_tokens - waiting * self._avg_prompt_tokens
+        return max(0.0, excess) * self._prefill_s_per_token
 
     def _queued_ahead(self, priority: str):
         """``(depth, token_excess_s)`` of the queued work that would
@@ -281,22 +322,51 @@ class EngineSupervisor:
         excess = tokens - waiting * self._avg_prompt_tokens
         return waiting, max(0.0, excess) * self._prefill_s_per_token
 
+    def queued_token_excess_s_for(self, priority: str) -> float:
+        """Class-aware :attr:`queued_token_excess_s`: only the queued
+        tokens of same-or-higher classes count (a batch backlog must not
+        inflate the shed estimate for an interactive submit)."""
+        return self._queued_ahead(priority)[1]
+
+    # -- priority control (brownout ladder / fleet passthroughs) ----------
+
+    def set_admission_floor(self, priority: Optional[str]) -> None:
+        """Pause dispatch of classes below ``priority`` (engine/scheduler
+        passthrough); ``None`` restores all classes."""
+        self.engine.set_admission_floor(priority)
+
+    def preempt_class(self, priority: str, *, cause: str = "brownout") -> int:
+        """Park every active slot of ``priority`` and immediately queue
+        their resume continuations (the brownout ladder's "preempt batch
+        slots" rung). Returns the number parked."""
+        n = self.engine.park_class(priority, cause=cause)
+        if n:
+            self._drain_parked(clock.now())
+            self._drain_backlog()
+        return n
+
     # -- admission --------------------------------------------------------
 
-    def submit(self, request: Request) -> int:
+    def submit(self, request: Request, *, resubmission: bool = False) -> int:
         """Admit one request through the overload gates: circuit breaker
         first, then the deadline-aware shed estimate, then the engine's
         own queue bound and expired-deadline fast-fail. Raises
         :class:`EngineUnavailableError` /
         :class:`~apex_tpu_torch.serving.scheduler.QueueFullError` /
         :class:`~apex_tpu_torch.serving.scheduler.DeadlineExpiredError`; every
-        rejection is recorded terminally."""
+        rejection is recorded terminally.
+
+        ``resubmission=True`` is the fleet's migration path (a request
+        handed over from a draining peer): it was already counted at its
+        ORIGINAL submit, so ``requests_submitted`` is not incremented
+        again — one arrival == one count == one terminal record, however
+        many replicas the request visited."""
         if self._closed:
             raise RuntimeError("supervisor is closed")
         now = clock.now()
         self._poll_breaker(now)
         if self.breaker_state == BREAKER_OPEN:
-            self._shed(request, "breaker", now)
+            self._shed(request, "breaker", now, resubmission=resubmission)
         if (self.supervisor.shed_deadlines
                 and request.deadline_s is not None
                 and self._service_s is not None):
@@ -312,12 +382,13 @@ class EngineSupervisor:
             remaining = request.deadline_s - (now - start)
             if projected > remaining:
                 self._shed(request, "deadline", now,
+                           resubmission=resubmission,
                            projected_s=projected, remaining_s=remaining)
         tr = _Tracked(request, now, self._order)
         self._order += 1
         self._tracked[request.request_id] = tr
         try:
-            self.engine.submit(request)
+            self.engine.submit(request, resubmission=resubmission)
         except Exception:
             # QueueFull/DeadlineExpired were recorded terminally by the
             # engine and harvest below; validation errors recorded
@@ -327,11 +398,12 @@ class EngineSupervisor:
             raise
         return request.request_id
 
-    def _shed(self, request: Request, why: str, now: float,
-              **fields) -> None:
+    def _shed(self, request: Request, why: str, now: float, *,
+              resubmission: bool = False, **fields) -> None:
         """Reject at admission: terminal ``rejected`` record + counters +
         ``request_shed`` incident event, then raise."""
-        self.metrics.inc("requests_submitted")
+        if not resubmission:
+            self.metrics.inc("requests_submitted")
         self.metrics.inc(f"requests_shed_{why}")
         self.metrics.inc(f"requests_{FINISH_REJECTED}")
         start = request.arrival_ts if request.arrival_ts is not None \
@@ -717,6 +789,38 @@ class EngineSupervisor:
 
     # -- lifecycle --------------------------------------------------------
 
+    # -- migration (the fleet's draining-restart path) --------------------
+
+    def detach_for_migration(self) -> List:
+        """Hand every non-terminal request over to the caller as
+        ``(continuation, recovered_tokens)`` pairs, in arrival order —
+        the fleet's draining-restart path: a peer replica re-prefills
+        each continuation (prompt + tokens already generated) TOKEN-EXACT,
+        exactly like this supervisor's own restart recovery.
+
+        A request with nothing left to do (budget fully generated,
+        deadline already expired) is retired terminally here instead of
+        being handed over. After this call the supervisor tracks nothing;
+        the caller is expected to :meth:`close` and rebuild it. Migration
+        is not a failure: per-request restart budgets are NOT charged."""
+        now = clock.now()
+        self._harvest(now)
+        inflight = {req.request_id: toks
+                    for req, toks, _ in self.engine.inflight()}
+        out: List = []
+        for rid in sorted(self._tracked,
+                          key=lambda r: self._tracked[r].order):
+            tr = self._tracked[rid]
+            tr.prefix += inflight.get(rid, [])
+            cont = self._continuation(tr, now)
+            if cont is None:
+                continue        # retired (length/timeout) terminally
+            self._tracked.pop(rid)
+            out.append((cont, list(tr.prefix)))
+        self._backlog = []
+        self._resuming.clear()
+        return out
+
     def close(self) -> None:
         """Close the underlying engine (releases slots, flushes the
         registry). Idempotent."""
@@ -724,6 +828,16 @@ class EngineSupervisor:
             return
         self._closed = True
         self.engine.close()
+
+    def release_device_memory(self) -> None:
+        """Close, then drop the engine's KV pools and its cast model copy
+        (:meth:`InferenceEngine.release_device_memory`): what a fleet does
+        to a drained replica's supervisor before it builds the
+        replacement, so the card never holds two sets of pools for one
+        replica. Host state (:attr:`completed`, :attr:`restarts`, the
+        service estimate) stays readable."""
+        self.close()
+        self.engine.release_device_memory()
 
     def __enter__(self) -> "EngineSupervisor":
         return self

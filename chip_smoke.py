@@ -446,6 +446,37 @@ printing its own lines and raising on failure:
               layers, hidden 64, TF32 off) on the card and the CPU: the
               same statuses, telemetry and history flags, losses and end
               states within atol 1e-5 + rtol 1e-4.
+46. fleet   — ``[loadtest]``'s model, engine and schedule in bf16 on a
+              ``ReplicaFleet`` of two replicas through ``python -m
+              apex_tpu_torch.loadtest``, replica 0 drained partway through
+              the steady phase: every arrival one terminal record and no
+              error, at least one request migrated, the log's contract
+              whole (spans, the monitor's fleet section key for key), only
+              A, B and C launched, the allocated bytes after the rebuild
+              within one engine's pools of those before the drain;
+              tokens/s, TTFT/TPOT p50/p99, the busy share and the
+              rebuild-plus-probe seconds beside ``[loadtest]``'s; then the
+              f32 twin (``[fleet_f32]``): every request's tokens, greedy
+              and sampled, the migrated ones among them, equal the single
+              engine's ``serve()``;
+47. fleet_deploy — the same fleet in bf16: a checkpoint deploy of its own
+              weights (saved as the loadtest runner saves them) promotes
+              both replicas with the greedy tokens unchanged; then the
+              step poisoned by ``corrupt_checkpoint_weights`` on a fresh
+              fleet: fsck green, the canary's probe passes (token 0, the
+              argmax of NaN logits), its window errors, the deploy rolls
+              back (started 1, rolled back 1), the log's contract whole,
+              only A, B and C launched, the incumbent's parameters bitwise
+              unchanged; each deploy's seconds;
+48. fleet_scenarios — ``fleet_smoke``, ``canary_rollback``,
+              ``traffic_ramp``, ``latency_drift`` and ``noisy_neighbor`` as
+              committed, and a brownout scenario built in code, through
+              ``python -m apex_tpu_torch.loadtest`` on the card: exit 0,
+              the log's contract whole, only A, B and C launched, and each
+              one's outcome (the drain, the rollback, a scale-up and back
+              down, the anomaly and its one bundle, the quota sheds with
+              undegraded neighbours); then the whole script's seconds
+              (``[total]``).
 
 Then one JSON line of per-kernel numbers (launches from the phase that
 drives each kernel's slice: serve for A-C, serve_int8 and serve_spec for
@@ -6969,6 +7000,79 @@ def _loadtest_cli(*argv) -> tuple:
     return code, json.loads(out.getvalue())
 
 
+def fleet_log_problems(path: str) -> list:
+    """What a fleet run's JSONL log breaks of the serving contract, as
+    the monitor reads it (``build_report``): every counted arrival one
+    terminal ``kind="request"`` record (no request id twice, the
+    ``requests_<reason>`` counters summing to ``requests_submitted``);
+    spans conserved; the fleet section's incident counts equal their
+    counters key for key (:data:`FLEET_INCIDENT_COUNTERS`, the anomaly
+    counter), the per-replica dispatch split summing to
+    ``fleet_dispatches``; the deploy, autoscale and brownout records
+    equal their counters action for action. An empty list is a clean
+    log; the report must also render."""
+    from collections import Counter
+
+    from apex_tpu_torch.observability import (build_report,
+                                              check_span_conservation,
+                                              read_records, render_report)
+    from apex_tpu_torch.observability.report import (
+        AUTOSCALE_ACTION_COUNTERS, DEPLOY_ACTION_COUNTERS,
+        FLEET_INCIDENT_COUNTERS, SENTINEL_INCIDENT_COUNTERS)
+    from apex_tpu_torch.serving import FINISH_REASONS
+
+    records = read_records(path)
+    report = build_report(path)
+    render_report(report)
+    counters = report["counters"]
+    problems = []
+    reqs = [r for r in records if r.get("kind") == "request"]
+    ids = [r["request_id"] for r in reqs]
+    if len(ids) != len(set(ids)):
+        problems.append(f"{len(ids) - len(set(ids))} duplicate terminal "
+                        f"records")
+    terminal = sum(counters.get(f"requests_{r}", 0) for r in FINISH_REASONS)
+    if not counters.get("requests_submitted") == terminal == len(reqs):
+        problems.append(f"submitted {counters.get('requests_submitted')}, "
+                        f"terminal counters {terminal}, records {len(reqs)}")
+    problems += check_span_conservation(records)[:5]
+    fleet = report["fleet"] or {"counts": {}, "dispatches": {}}
+    events = Counter(r["event"] for r in records if r.get("kind") == "event")
+    for event, counter in {**FLEET_INCIDENT_COUNTERS,
+                           **SENTINEL_INCIDENT_COUNTERS}.items():
+        seen = (fleet["counts"].get(event, 0)
+                if event in FLEET_INCIDENT_COUNTERS else events[event])
+        if seen != counters.get(counter, 0):
+            problems.append(f"{event} x{seen} != {counter} "
+                            f"{counters.get(counter, 0)}")
+    split = sum(v for k, v in fleet["dispatches"].items()
+                if k != "fleet_dispatches")
+    if split != counters.get("fleet_dispatches", 0):
+        problems.append(f"dispatch split {split} != fleet_dispatches "
+                        f"{counters.get('fleet_dispatches', 0)}")
+    for kind, table in (("deploy", DEPLOY_ACTION_COUNTERS),
+                        ("autoscale", AUTOSCALE_ACTION_COUNTERS),
+                        ("brownout", {"escalate": "brownouts_escalated",
+                                      "recover": "brownouts_recovered"})):
+        actions = Counter(r.get("action") for r in records
+                          if r.get("kind") == kind)
+        for action, counter in table.items():
+            if actions[action] != counters.get(counter, 0):
+                problems.append(f"{kind} {action} x{actions[action]} != "
+                                f"{counter} {counters.get(counter, 0)}")
+    return problems
+
+
+def only_serve_kernels(phase: str, launches: dict) -> None:
+    """Raise unless Kernels A, B and C each launched and no other did."""
+    others = {k: v for k, v in launches.items()
+              if v and k not in SERVE_KERNELS}
+    missing = [k for k in SERVE_KERNELS if launches[k] <= 0]
+    if missing or others:
+        raise AssertionError(f"{phase}: kernels never launched {missing}, "
+                             f"other kernels launched {others}")
+
+
 def phase_loadtest() -> dict:
     """``[loadtest]``: :data:`LOADTEST_SCENARIO` in bf16 through ``python
     -m apex_tpu_torch.loadtest ... --dtype bf16 --out run.jsonl --json``
@@ -7025,12 +7129,7 @@ def phase_loadtest() -> dict:
         raise AssertionError(f"loadtest: --from-log gave exit {code}, "
                              f"{again['metrics']} against "
                              f"{verdict['metrics']}")
-    others = {k: v for k, v in launches.items()
-              if v and k not in SERVE_KERNELS}
-    missing = [k for k in SERVE_KERNELS if launches[k] <= 0]
-    if missing or others:
-        raise AssertionError(f"loadtest: kernels never launched {missing}, "
-                             f"other kernels launched {others}")
+    only_serve_kernels("loadtest", launches)
     met = verdict["metrics"]
     tokens = sum(r["new_tokens"] for r in reqs)
     busy = (f"{device_s / verdict['wall_s']:.4f}" if ops
@@ -7048,6 +7147,11 @@ def phase_loadtest() -> dict:
         device_busy_s=f"{device_s:.4f}", cli_wall_s=f"{wall:.3f}",
         profiled="cuda_activity", spans="conserved", rescored="equal",
         launches=json.dumps(launches).replace(" ", ""))
+    RUN_NOTES["loadtest"] = {
+        "tokens_per_s": f"{tokens / verdict['wall_s']:.1f}",
+        "ttft_p50_ms": f"{1e3 * met['ttft_p50_s']:.2f}",
+        "tpot_p50_ms": f"{1e3 * met['tpot_p50_s']:.3f}",
+        "busy_share": busy}
 
     scenario = Scenario.from_dict(json.loads(json.dumps(LOADTEST_SCENARIO)))
     model = build_model(scenario.model, compute_dtype=torch.float32)
@@ -7551,12 +7655,7 @@ def phase_loadtest_lora() -> dict:
             set(by_adapter) != {*LORA_IDS, "base"}:
         raise AssertionError(f"loadtest_lora: adapter ledger {sec}, "
                              f"tenants {sorted(by_adapter)}")
-    others = {k: v for k, v in launches.items()
-              if v and k not in SERVE_KERNELS}
-    missing = [k for k in SERVE_KERNELS if launches[k] <= 0]
-    if missing or others:
-        raise AssertionError(f"loadtest_lora: kernels never launched "
-                             f"{missing}, other kernels launched {others}")
+    only_serve_kernels("loadtest_lora", launches)
     met = verdict["metrics"]
     log("loadtest_lora", card=card, scenario=verdict["scenario"],
         dtype="f32", requests=len(reqs),
@@ -7993,6 +8092,515 @@ def phase_resilience_card_vs_cpu() -> None:
                              f"excess {worst} past atol 1e-5 + rtol 1e-4")
 
 
+#: ``[fleet]``: ``[loadtest]``'s model, engine and schedule served by a
+#: ReplicaFleet of two such engines, replica 0 drained (its in-flight
+#: requests migrated to replica 1) partway through the steady phase: the
+#: schedule's steady arrivals run from 1.4 to 5.9 s, six of them in the
+#: half second before the drain (at 2.5 s, four arrivals in two seconds
+#: left one request in flight on replica 0)
+FLEET_SCENARIO = {**LOADTEST_SCENARIO, "name": "gpt2_124m_fleet",
+                  "fleet": {"n_replicas": 2, "drain_restarts": [
+                      {"at_s": 3.5, "replica": 0}]}}
+#: ``[fleet_deploy]``'s canary window: 0.5 s and at least 3 scored
+#: requests (at most 60 s), no error allowed
+FLEET_CANARY = dict(window_s=0.5, min_requests=3, max_window_s=60.0,
+                    max_error_rate=0.0)
+#: the committed scenarios ``[fleet_scenarios]`` runs as committed
+FLEET_SCENARIO_FILES = ("fleet_smoke", "canary_rollback", "traffic_ramp",
+                        "latency_drift", "noisy_neighbor")
+#: ``[fleet_scenarios]``' in-code brownout scenario, shaped as
+#: ``tests/test_torch_loadtest.py``'s ``brownout_ladder``
+BROWNOUT_SCENARIO = {
+    "name": "brownout_ladder", "seed": 5,
+    "model": {"num_layers": 2, "hidden_size": 32, "num_attention_heads": 4,
+              "vocab_size": 64, "max_position_embeddings": 64,
+              "param_seed": 0},
+    "engine": {"max_slots": 4, "max_len": 32, "max_queue": 32,
+               "max_prefills_per_tick": 2},
+    "fleet": {"n_replicas": 1},
+    "brownout": {"poll_interval_s": 0.1, "queue_depth_high": 6.0,
+                 "queue_depth_low": 1.0, "hot_polls": 3, "cool_polls": 2,
+                 "clamp_max_new_tokens": 4, "max_rung": 3},
+    "phases": [{"name": "steady", "n_requests": 20, "rate_rps": 200.0,
+                "prompt_lens": {"4": 2, "8": 2, "12": 1},
+                "max_new_tokens": {"3": 1, "5": 2, "8": 1},
+                "greedy_fraction": 0.5, "temperatures": [0.7, 1.0],
+                "top_ks": [0, 8], "priority": "standard",
+                "deadline_fraction": 0.5, "deadline_min_s": 2.0,
+                "deadline_max_s": 4.0}],
+    "slo": {"ttft_p99_s": 60.0, "tpot_p99_s": 10.0, "latency_p99_s": 120.0,
+            "goodput": 0.99, "error_budget": 0.0},
+    "tolerance": 0.5, "max_wall_s": 300.0,
+}
+#: numbers a phase leaves for a later one to print beside its own
+RUN_NOTES: dict = {}
+
+
+def _storage_bytes(tree) -> int:
+    """Bytes of the storages under a nest of tensors (each counted once)."""
+    seen, total, stack = set(), 0, [tree]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, torch.Tensor):
+            st = node.untyped_storage()
+            if st.data_ptr() not in seen:
+                seen.add(st.data_ptr())
+                total += st.nbytes()
+        elif isinstance(node, (list, tuple)):
+            stack.extend(node)
+    return total
+
+
+class FleetWatch:
+    """Wraps ``ReplicaFleet``'s ``drain_restart``, ``_rebuild`` and
+    ``_check_probe`` (class attributes, restored on exit) to read the
+    card's allocated bytes just before each drain and just after each
+    rebuild, the rebuilt engine's KV pool bytes, and the seconds from a
+    rebuild's start to its replica's return to the dispatch set (rebuild
+    plus probe)."""
+
+    NAMES = ("drain_restart", "_rebuild", "_check_probe")
+
+    def __enter__(self):
+        from apex_tpu_torch.serving.fleet import REPLICA_ACTIVE, ReplicaFleet
+        self.cls = ReplicaFleet
+        self.saved = {n: getattr(ReplicaFleet, n) for n in self.NAMES}
+        self.before, self.after, self.pools, self.rejoin_s = [], [], [], []
+        started = {}
+        watch = self
+
+        def drain_restart(fleet, replica_id):
+            torch.cuda.synchronize()
+            watch.before.append(torch.cuda.memory_allocated())
+            return watch.saved["drain_restart"](fleet, replica_id)
+
+        def _rebuild(fleet, replica):
+            started[replica.replica_id] = time.perf_counter()
+            out = watch.saved["_rebuild"](fleet, replica)
+            torch.cuda.synchronize()
+            watch.after.append(torch.cuda.memory_allocated())
+            watch.pools.append(
+                _storage_bytes(replica.supervisor.engine._caches))
+            return out
+
+        def _check_probe(fleet, replica):
+            out = watch.saved["_check_probe"](fleet, replica)
+            if replica.state == REPLICA_ACTIVE \
+                    and replica.replica_id in started:
+                torch.cuda.synchronize()
+                watch.rejoin_s.append(
+                    time.perf_counter() - started.pop(replica.replica_id))
+            return out
+
+        for name, fn in (("drain_restart", drain_restart),
+                         ("_rebuild", _rebuild),
+                         ("_check_probe", _check_probe)):
+            setattr(ReplicaFleet, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.cls, name, fn)
+        return False
+
+    def memory_problems(self) -> list:
+        """Each rebuild's allocated bytes against the value before its
+        drain: within one engine's pools."""
+        return [f"drain {i}: {b} B before, {a} B after the rebuild, pools "
+                f"{p} B" for i, (b, a, p) in enumerate(
+                    zip(self.before, self.after, self.pools))
+                if abs(a - b) > p]
+
+
+def phase_fleet() -> dict:
+    """``[fleet]``: :data:`FLEET_SCENARIO` in bf16 through ``python -m
+    apex_tpu_torch.loadtest ... --dtype bf16 --out run.jsonl --json`` (in
+    this process) under torch.profiler's CUDA activity: not aborted, every
+    arrival one terminal record and none an error, the drain migrating at
+    least one in-flight request, the log's contract whole
+    (:func:`fleet_log_problems`: spans, the monitor's fleet section key for
+    key), only Kernels A, B and C launched, and the allocated bytes after
+    the rebuild within one engine's pools of those before the drain;
+    tokens/s, TTFT and TPOT p50/p99, the busy share, drains, rebuilds,
+    migrations and the rebuild-plus-probe seconds printed beside
+    ``[loadtest]``'s single engine. Then the f32 twin (``[fleet_f32]``,
+    TF32 off): every request's tokens, greedy and sampled, equal the
+    port's single engine's ``serve()`` of the same requests, the migrated
+    ones among them. Returns the bf16 run's launches."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from apex_tpu_torch.loadtest import Scenario, TrafficGenerator, \
+        build_model, run_scenario
+    from apex_tpu_torch.observability import read_records
+    from apex_tpu_torch.ops import LAUNCHES, reset_launches
+    from apex_tpu_torch.serving import EngineConfig, InferenceEngine
+    card = _card_name().replace(" ", "_")
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="apex-fleet-") as tmp:
+        path = f"{tmp}/scenario.json"
+        log_path = f"{tmp}/run.jsonl"
+        with open(path, "w") as f:
+            json.dump(FLEET_SCENARIO, f)
+        torch.cuda.synchronize()
+        reset_launches()
+        with FleetWatch() as watch, \
+                profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run_code, verdict = _loadtest_cli(
+                path, "--dtype", "bf16", "--out", log_path, "--json")
+            torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        ops, device_s = _device_union(prof)
+        records = read_records(log_path)
+        problems = fleet_log_problems(log_path)
+    counters = [r for r in records if r.get("kind") == "counters"][-1][
+        "values"]
+    reqs = [r for r in records if r.get("kind") == "request"]
+    bad = [r["finish_reason"] for r in reqs
+           if r["finish_reason"] not in ("length", "eos")]
+    if run_code != 0 or verdict["aborted"] or bad or problems or \
+            len(reqs) != 32 + counters["replica_rebuilds"]:
+        raise AssertionError(f"fleet: exit {run_code}, aborted "
+                             f"{verdict['aborted']}, {len(reqs)} records, "
+                             f"bad finish reasons {bad}, {problems}")
+    if counters["replica_drains"] != 1 or \
+            counters["requests_migrated"] < 1:
+        raise AssertionError(f"fleet: drains {counters['replica_drains']}, "
+                             f"migrated {counters['requests_migrated']}")
+    only_serve_kernels("fleet", launches)
+    if watch.memory_problems() or len(watch.after) != 1:
+        raise AssertionError(f"fleet: device memory across the rebuild: "
+                             f"{watch.memory_problems()}, "
+                             f"{len(watch.after)} rebuilds")
+    met = verdict["metrics"]
+    client = [r for r in reqs if r["prompt_len"] > 1]
+    tokens = sum(r["new_tokens"] for r in client)
+    busy = (f"{device_s / verdict['wall_s']:.4f}" if ops
+            else "not_measured")
+    single = RUN_NOTES.get("loadtest", {})
+    log("fleet", card=card, scenario=FLEET_SCENARIO["name"], dtype="bf16",
+        replicas=2, requests=len(client), new_tokens=tokens,
+        run_wall_s=f"{verdict['wall_s']:.3f}",
+        tokens_per_s=f"{tokens / verdict['wall_s']:.1f}",
+        ttft_p50_ms=f"{1e3 * met['ttft_p50_s']:.2f}",
+        ttft_p99_ms=f"{1e3 * met['ttft_p99_s']:.2f}",
+        tpot_p50_ms=f"{1e3 * met['tpot_p50_s']:.3f}",
+        tpot_p99_ms=f"{1e3 * met['tpot_p99_s']:.3f}",
+        goodput=met["goodput"], slo_ok=verdict["slo"]["ok"],
+        busy_share=busy, device_ops=ops, device_busy_s=f"{device_s:.4f}",
+        drains=counters["replica_drains"],
+        rebuilds=counters["replica_rebuilds"],
+        migrated=counters["requests_migrated"],
+        dispatches=f"{counters['replica0_dispatches']}+"
+                   f"{counters['replica1_dispatches']}",
+        rebuild_probe_s=",".join(f"{s:.3f}" for s in watch.rejoin_s),
+        alloc_before_drain_mb=f"{watch.before[0] / 2**20:.1f}",
+        alloc_after_rebuild_mb=f"{watch.after[0] / 2**20:.1f}",
+        engine_pools_mb=f"{watch.pools[0] / 2**20:.1f}",
+        single_engine_tokens_per_s=single.get("tokens_per_s", "not_run"),
+        single_engine_ttft_p50_ms=single.get("ttft_p50_ms", "not_run"),
+        single_engine_tpot_p50_ms=single.get("tpot_p50_ms", "not_run"),
+        single_engine_busy_share=single.get("busy_share", "not_run"),
+        log_contract="whole", launches=json.dumps(launches).replace(" ", ""))
+
+    scenario = Scenario.from_dict(json.loads(json.dumps(FLEET_SCENARIO)))
+    model = build_model(scenario.model, compute_dtype=torch.float32)
+    run = run_scenario(scenario, model=model)
+    knobs = scenario.engine
+    engine = InferenceEngine(model, EngineConfig(
+        max_slots=knobs.max_slots, max_len=knobs.max_len,
+        page_size=knobs.page_size, prefix_cache=knobs.prefix_cache),
+        device=model.device)
+    fresh = TrafficGenerator(scenario).requests()
+    served = engine.serve(fresh)
+    ran = [run.results[s.request.request_id] for s in run.schedule]
+    differ = [i for i, (a, b) in enumerate(zip(ran, served))
+              if a.tokens != b.tokens]
+    moved = {r["request_id"] for r in run.records
+             if r.get("kind") == "event" and r["event"] == "request_migrated"}
+    sampled = sum(1 for r in fresh if r.sampling.temperature > 0)
+    if run.aborted or differ or not moved:
+        raise AssertionError(f"fleet f32: aborted {run.aborted}; requests "
+                             f"{differ} differ from serve(); migrated "
+                             f"{sorted(moved)}")
+    log("fleet_f32", card=card, requests=len(ran), sampled=sampled,
+        greedy=len(ran) - sampled, migrated=len(moved),
+        tokens_equal_serve=True, run_wall_s=f"{run.wall_s:.3f}",
+        phase_s=f"{time.perf_counter() - start:.1f}")
+    del engine, model, run
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _feed_deploy(fleet, dep, make, max_inflight=4) -> list:
+    """Tick ``fleet`` until ``dep`` ends, submitting ``make(i)``'s
+    requests while the rollout can use live traffic (at most
+    ``max_inflight`` in flight); then drain. Returns the submitted ids."""
+    from apex_tpu_torch.serving.fleet import (DEPLOY_CANARY, DEPLOY_DRAINING,
+                                              DEPLOY_ROLLING)
+    ids = []
+    while not dep.done:
+        fleet.tick()
+        if dep.state in (DEPLOY_ROLLING, DEPLOY_DRAINING, DEPLOY_CANARY) \
+                and fleet.inflight_count < max_inflight:
+            ids.append(fleet.submit(make(len(ids))))
+    while fleet.inflight_count:
+        fleet.tick()
+    return ids
+
+
+def phase_fleet_deploy() -> dict:
+    """``[fleet_deploy]``: GPT-2 124M in bf16 on ``[fleet]``'s two
+    replicas, in two deploys of its own weights saved as the port's
+    runner saves them (``model_params_tree``: the JAX package's tree):
+    a happy checkpoint deploy promotes both replicas, and the greedy
+    tokens of 8 requests after it equal those before; then, on a fresh
+    fleet and registry, the step poisoned by
+    ``corrupt_checkpoint_weights``: fsck stays green, the canary's
+    one-token probe passes (the argmax of its NaN logits: token 0, the
+    index JAX's argmax picks), its window errors and the deploy rolls back
+    (``deploys_started`` 1, ``deploys_rolled_back`` 1), the log's contract
+    whole (every arrival one terminal record; deploy records, events and
+    counters reconciled), only Kernels A, B and C launched, and the
+    incumbent's parameters bitwise unchanged. Prints each deploy's seconds
+    from start to completion or rollback and the step's save seconds.
+    Returns both deploys' launches."""
+    import tempfile
+
+    from apex_tpu_torch.checkpoint import ShardedCheckpointManager
+    from apex_tpu_torch.loadtest import Scenario, build_model
+    from apex_tpu_torch.observability import JsonlSink, MetricsRegistry
+    from apex_tpu_torch.ops import LAUNCHES, reset_launches
+    from apex_tpu_torch.serving import (EngineConfig, FleetConfig,
+                                        ReplicaFleet, Request)
+    from apex_tpu_torch.serving.fleet import (DEPLOY_CANARY, DEPLOY_COMPLETE,
+                                              DEPLOY_ROLLED_BACK,
+                                              CanaryConfig)
+    from apex_tpu_torch.serving.fleet.deploy import model_params_tree
+    from apex_tpu_torch.testing_faults import corrupt_checkpoint_weights
+    card = _card_name().replace(" ", "_")
+    start = time.perf_counter()
+    scenario = Scenario.from_dict(json.loads(json.dumps(FLEET_SCENARIO)))
+    model = build_model(scenario.model, compute_dtype=torch.bfloat16)
+    vocab = model.config.vocab_size
+    nan_rows = torch.full((2, vocab), float("nan"), device=model.device)
+    if torch.argmax(nan_rows, dim=-1).tolist() != [0, 0]:
+        raise AssertionError("fleet_deploy: torch.argmax over a NaN row is "
+                             "not index 0 (JAX's)")
+    knobs = scenario.engine
+    ecfg = EngineConfig(max_slots=knobs.max_slots, max_len=knobs.max_len,
+                        page_size=knobs.page_size,
+                        prefix_cache=knobs.prefix_cache)
+    canary = CanaryConfig(**FLEET_CANARY)
+    probe_prompts = _requests(8, vocab, 16, 21)
+
+    def traffic(i):
+        return _requests(1, vocab, 16, 1000 + i)[0]
+
+    def greedy(fleet):
+        reqs = [Request(prompt=list(r.prompt), max_new_tokens=16)
+                for r in probe_prompts]
+        return [r.tokens for r in fleet.serve(reqs)]
+
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="apex-fleet-deploy-") as tmp:
+        t0 = time.perf_counter()
+        ShardedCheckpointManager(f"{tmp}/ckpt", max_to_keep=1).save(
+            1, model_params_tree(model))
+        save_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        reset_launches()
+        fleet = ReplicaFleet(model, ecfg, fleet=FleetConfig(n_replicas=2),
+                             device=model.device)
+        before = greedy(fleet)
+        t0 = time.perf_counter()
+        dep = fleet.deploy(f"{tmp}/ckpt", step=1, canary=canary)
+        ids = _feed_deploy(fleet, dep, traffic)
+        happy_s = time.perf_counter() - t0
+        after = greedy(fleet)
+        counters = fleet.metrics.counters()
+        fleet.close()
+        del fleet
+        torch.cuda.synchronize()
+        for k, v in LAUNCHES.items():
+            launches[k] = launches.get(k, 0) + v
+        if dep.state != DEPLOY_COMPLETE or dep.promoted != [0, 1] or \
+                after != before or counters["deploys_completed"] != 1:
+            raise AssertionError(
+                f"fleet_deploy happy: state {dep.state}, promoted "
+                f"{dep.promoted}, tokens equal {after == before}, "
+                f"counters {counters}")
+        only_serve_kernels("fleet_deploy", launches)
+        log("fleet_deploy_happy", card=card, state=dep.state,
+            promoted=dep.promoted, canary_scores=[s["requests"]
+                                                 for s in dep.scores],
+            live_requests=len(ids), tokens_equal_before=True,
+            step_save_s=f"{save_s:.3f}", deploy_s=f"{happy_s:.3f}")
+
+        corrupt_checkpoint_weights(f"{tmp}/ckpt", 1)
+        ShardedCheckpointManager(f"{tmp}/ckpt").verify_step(1, deep=True)
+        snap = {n: p.detach().cpu().clone()
+                for n, p in model.named_parameters()}
+        log_path = f"{tmp}/poisoned.jsonl"
+        registry = MetricsRegistry([JsonlSink(log_path)])
+        reset_launches()
+        fleet = ReplicaFleet(model, ecfg, fleet=FleetConfig(n_replicas=2),
+                             metrics=registry, device=model.device)
+        t0 = time.perf_counter()
+        dep = fleet.deploy(f"{tmp}/ckpt", step=1, canary=canary)
+        probe = None
+        while dep.state != DEPLOY_CANARY and not dep.done:
+            fleet.tick()
+            rep = fleet._replica(dep.canary_replica) \
+                if dep.canary_replica is not None else None
+            if rep is not None and rep.probe_id is not None:
+                probe = (rep, rep.probe_id)
+        probe_res = probe[0].supervisor.completed[probe[1]] \
+            if probe is not None else None
+        ids = _feed_deploy(fleet, dep, traffic)
+        poison_s = time.perf_counter() - t0
+        fleet.close()
+        counters = registry.counters()
+        problems = fleet_log_problems(log_path)
+        torch.cuda.synchronize()
+        poisoned = dict(LAUNCHES)
+        for k, v in poisoned.items():
+            launches[k] = launches.get(k, 0) + v
+        unchanged = all(torch.equal(p.detach().cpu(), snap[n])
+                        for n, p in model.named_parameters())
+        score = dep.scores[-1] if dep.scores else {}
+        if (dep.state != DEPLOY_ROLLED_BACK
+                or dep.rollback_reason != "error_rate"
+                or probe_res is None or probe_res.finish_reason != "length"
+                or probe_res.tokens != [0] or not score.get("errors")
+                or counters["deploys_started"] != 1
+                or counters["deploys_rolled_back"] != 1
+                or counters["deploys_completed"] != 0 or problems
+                or not unchanged or fleet._model is not model):
+            raise AssertionError(
+                f"fleet_deploy poisoned: state {dep.state}, reason "
+                f"{dep.rollback_reason}, probe {probe_res}, score {score}, "
+                f"counters {counters}, problems {problems}, incumbent "
+                f"unchanged {unchanged}")
+        only_serve_kernels("fleet_deploy", poisoned)
+        del fleet
+    log("fleet_deploy_poisoned", card=card, state=dep.state,
+        reason=dep.rollback_reason, fsck="green",
+        probe_tokens=probe_res.tokens, canary_requests=score["requests"],
+        canary_errors=score["errors"], live_requests=len(ids),
+        deploys_started=counters["deploys_started"],
+        deploys_rolled_back=counters["deploys_rolled_back"],
+        requests_error=counters["requests_error"],
+        incumbent_bitwise_unchanged=True, log_contract="whole",
+        deploy_s=f"{poison_s:.3f}",
+        phase_s=f"{time.perf_counter() - start:.1f}",
+        launches=json.dumps(launches).replace(" ", ""))
+    del model, snap
+    torch.cuda.empty_cache()
+    return launches
+
+
+#: what each committed fleet scenario must show on the card, besides the
+#: gate's exit and the log's contract: (counter, least value) pairs
+FLEET_SCENARIO_CHECKS = {
+    "fleet_smoke": {"replica_drains": 1, "replica_rebuilds": 1},
+    "canary_rollback": {"deploys_started": 1, "deploys_rolled_back": 1},
+    "traffic_ramp": {"replica_scale_ups": 1, "replica_scale_downs": 1},
+    "latency_drift": {"anomalies_queue_depth": 1},
+    "noisy_neighbor": {"requests_shed_quota": 1},
+    "brownout_ladder": {},
+}
+
+
+def phase_fleet_scenarios() -> dict:
+    """``[fleet_scenarios]``: ``fleet_smoke``, ``canary_rollback``,
+    ``traffic_ramp``, ``latency_drift`` and ``noisy_neighbor`` as
+    committed, and :data:`BROWNOUT_SCENARIO`, each through ``python -m
+    apex_tpu_torch.loadtest <file> --out run.jsonl --json`` on the card (in
+    this process): exit 0 with the SLO verdict ok (what the JAX CLI gives
+    a passing run), not aborted, the log's contract whole
+    (:func:`fleet_log_problems`), only Kernels A, B and C launched, and each
+    scenario's own outcome (:data:`FLEET_SCENARIO_CHECKS`): the drain and
+    rebuild, the rollback, a scale-up then a scale-down back to one
+    replica, the anomaly with exactly one bundle, the quota sheds with
+    every other tenant's goodput 1.0. Returns the summed launches."""
+    import os
+    import tempfile
+
+    from apex_tpu_torch.observability import read_records
+    from apex_tpu_torch.ops import LAUNCHES, reset_launches
+    card = _card_name().replace(" ", "_")
+    start = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="apex-fleet-scn-") as tmp:
+        paths = {n: os.path.join(here, "benchmarks", "scenarios",
+                                 f"{n}.json") for n in FLEET_SCENARIO_FILES}
+        paths["brownout_ladder"] = f"{tmp}/brownout_ladder.json"
+        with open(paths["brownout_ladder"], "w") as f:
+            json.dump(BROWNOUT_SCENARIO, f)
+        for name, path in paths.items():
+            log_path = f"{tmp}/{name}.jsonl"
+            torch.cuda.synchronize()
+            reset_launches()
+            code, verdict = _loadtest_cli(path, "--out", log_path, "--json")
+            torch.cuda.synchronize()
+            mine = dict(LAUNCHES)
+            for k, v in mine.items():
+                launches[k] = launches.get(k, 0) + v
+            records = read_records(log_path)
+            counters = [r for r in records if r.get("kind") == "counters"][
+                -1]["values"]
+            problems = fleet_log_problems(log_path)
+            short = {k: counters.get(k, 0)
+                     for k, least in FLEET_SCENARIO_CHECKS[name].items()
+                     if counters.get(k, 0) < least}
+            signals = [r for r in records if r.get("kind") == "signals"][-1][
+                "values"]
+            bundles = [r for r in records if r.get("kind") == "event"
+                       and r["event"] == "bundle_dumped"]
+            extra = []
+            if name == "traffic_ramp" and signals["replicas_total"] != 1:
+                extra.append(f"ended on {signals['replicas_total']} replicas")
+            if name == "latency_drift" and (
+                    len(bundles) != 1
+                    or not os.path.exists(f"{tmp}/{name}-bundle-1.json")):
+                extra.append(f"{len(bundles)} bundles")
+            if name == "noisy_neighbor":
+                from apex_tpu_torch.observability.slo import \
+                    measure_slo_metrics
+                by = measure_slo_metrics(records, by_adapter=True)
+                low = {k: v["goodput"] for k, v in by.items()
+                       if k != "0" and v["goodput"] != 1.0}
+                if low or len(by) < 2:
+                    extra.append(f"neighbours' goodput {low} of {sorted(by)}")
+            if code != 0 or verdict["aborted"] or not verdict["slo"]["ok"] \
+                    or problems or short or extra:
+                raise AssertionError(
+                    f"fleet_scenarios {name}: exit {code}, aborted "
+                    f"{verdict['aborted']}, slo {verdict['slo']['ok']}, "
+                    f"{problems}, short {short}, {extra}")
+            only_serve_kernels(f"fleet_scenarios {name}", mine)
+            keys = ("replica_drains", "requests_migrated", "deploys_started",
+                    "deploys_rolled_back", "replica_scale_ups",
+                    "replica_scale_downs", "anomalies_total",
+                    "requests_shed_quota", "brownouts_escalated",
+                    "requests_error")
+            log("fleet_scenarios", card=card, scenario=name, exit=code,
+                requests=verdict["requests"],
+                run_wall_s=f"{verdict['wall_s']:.3f}",
+                goodput=verdict["metrics"]["goodput"],
+                ttft_p99_ms=f"{1e3 * verdict['metrics']['ttft_p99_s']:.2f}",
+                bundles=len(bundles), log_contract="whole",
+                counters=json.dumps({k: counters.get(k, 0) for k in keys
+                                     if counters.get(k, 0)}).replace(" ", ""))
+    log("fleet_scenarios_total", card=card, scenarios=len(paths),
+        phase_s=f"{time.perf_counter() - start:.1f}",
+        launches=json.dumps(launches).replace(" ", ""))
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -8003,6 +8611,7 @@ def main() -> int:
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the sampled requests' seeds")
     args = parser.parse_args()
+    started = time.perf_counter()
     phase_device()
     # fp32 comparisons hold to fp32 GEMMs, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -8068,12 +8677,17 @@ def main() -> int:
     paths["loadtest_lora"] = phase_loadtest_lora()
     paths["resilience"] = phase_resilience()
     phase_resilience_card_vs_cpu()
+    paths["fleet"] = phase_fleet()
+    paths["fleet_deploy"] = phase_fleet_deploy()
+    paths["fleet_scenarios"] = phase_fleet_scenarios()
     for rec in records:
         name = rec["name"]
         counter = COUNTER.get(name, name)
         rec["launches"] = paths[MAIN_PATH[name]][counter]
         rec["launches_by_path"] = {path: counts[counter]
                                    for path, counts in paths.items()}
+    log("total", card=_card_name().replace(" ", "_"),
+        seconds=f"{time.perf_counter() - started:.1f}")
     kernels = [{k: rec[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",

@@ -15,11 +15,19 @@ Held here:
   apex_tpu_torch.loadtest`` on the CPU: every request terminal, its spans
   conserved, ``--from-log`` re-scoring to the same numbers, ``--check``
   exiting 3 without a baseline entry and 0 after ``--update-baseline``;
-- a scenario with a fleet, autoscale, deploy, sentinel, quotas or
-  brownout block raises ``NotImplementedError`` before anything runs; the
-  nine one-engine scenarios (``multi_tenant``'s LoRA adapters among them)
-  pass that gate; ``multi_tenant``'s schedule carries JAX's adapter ids
-  request for request;
+- the nine one-engine scenarios (``multi_tenant``'s LoRA adapters among
+  them) build one ``EngineSupervisor``; ``multi_tenant``'s schedule
+  carries JAX's adapter ids request for request;
+- every fleet block runs on the CPU port: ``fleet_smoke``,
+  ``canary_rollback``, ``latency_drift``, ``traffic_ramp`` and
+  ``noisy_neighbor`` as committed under ``benchmarks/scenarios``, and the
+  ``brownout_ladder`` dict: every arrival one terminal record, spans
+  conserved, the fleet, deploy, autoscale, brownout and anomaly records
+  reconciling with their counters key for key, the JAX package's monitor
+  folding the log into the port's report, and each scenario's own
+  outcome (the drain, the rollback, one bundle per anomaly up to the
+  recorder's one, the ramp settled back to one replica, the quota sheds with undegraded
+  neighbours);
 - the engine's telemetry repair: for the same requests and converted
   weights, the port's engine writes the JAX engine's span timelines
   (``queued``, one ``prefill`` span a chunk, ``decode``) and
@@ -31,10 +39,12 @@ Held here:
 
 import copy
 import json
+import os
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 from apex_tpu.loadtest import Scenario as JScenario
 from apex_tpu.loadtest import TrafficGenerator as JGenerator
@@ -43,6 +53,7 @@ from apex_tpu.loadtest.runner import build_model as jbuild_model
 from apex_tpu.lora import AdapterStore as JStore
 from apex_tpu.lora import random_adapter as jrandom_adapter
 from apex_tpu.observability import InMemorySink as JSink
+from apex_tpu.observability import build_report as jbuild_report
 from apex_tpu.observability import MetricsRegistry as JRegistry
 from apex_tpu.ops import _support as jax_support
 from apex_tpu.serving import EngineConfig as JEngineConfig
@@ -53,14 +64,19 @@ from apex_tpu_torch.convert import adapter_from_jax, load_jax_params
 from apex_tpu_torch.loadtest import Scenario, TrafficGenerator, build_model, \
     run_scenario
 from apex_tpu_torch.loadtest.__main__ import main as cli_main
-from apex_tpu_torch.loadtest.runner import _check_ported
+from apex_tpu_torch.loadtest.runner import _build_serving
 from apex_tpu_torch.lora import AdapterStore
 from apex_tpu_torch.observability import (InMemorySink, MetricsRegistry,
+                                          build_report,
                                           check_span_conservation,
                                           read_records)
-from apex_tpu_torch.serving import EngineConfig, InferenceEngine, Request, \
-    SamplingParams
+from apex_tpu_torch.serving import EngineConfig, EngineSupervisor, \
+    InferenceEngine, Request, SamplingParams
 
+from chip_smoke import fleet_log_problems
+
+SCENARIO_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "benchmarks", "scenarios")
 MODEL = {"num_layers": 2, "hidden_size": 32, "num_attention_heads": 4,
          "vocab_size": 64, "max_position_embeddings": 64, "param_seed": 0}
 SLO = {"ttft_p99_s": 60.0, "tpot_p99_s": 10.0, "latency_p99_s": 120.0,
@@ -342,7 +358,11 @@ def test_schedule_equals_jax_request_for_request(name):
 
 @pytest.mark.parametrize("name", ONE_ENGINE)
 def test_one_engine_scenarios_are_ported(name):
-    _check_ported(Scenario.from_dict(copy.deepcopy(SCENARIOS[name])))
+    scenario = Scenario.from_dict(copy.deepcopy(SCENARIOS[name]))
+    model = build_model(scenario.model, device="cpu")
+    sup = _build_serving(scenario, model, MetricsRegistry())
+    assert type(sup) is EngineSupervisor
+    sup.close()
 
 
 def test_multi_tenant_schedule_carries_jax_adapters():
@@ -358,15 +378,96 @@ def test_multi_tenant_schedule_carries_jax_adapters():
           s.request.sampling.temperature) for s in want]
 
 
-@pytest.mark.parametrize("name", ["fleet_smoke", "canary_rollback",
-                                  "latency_drift", "traffic_ramp",
-                                  "noisy_neighbor", "brownout_ladder"])
-def test_unported_block_raises_before_running(name):
-    scenario = Scenario.from_dict(copy.deepcopy(SCENARIOS[name]))
-    registry = MetricsRegistry()
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item"):
-        run_scenario(scenario, model=object(), metrics=registry)
-    assert registry.counters() == {}
+def _fleet_smoke_outcome(run, counters):
+    assert counters["replica_drains"] == 1
+    assert counters["replica_rebuilds"] == 1
+
+
+def _canary_rollback_outcome(run, counters):
+    assert counters["deploys_started"] == 1
+    assert counters["deploys_rolled_back"] == 1
+    assert counters["deploys_completed"] == 0
+    assert counters["requests_error"] >= 1     # the canary's window
+
+
+def _latency_drift_outcome(run, counters):
+    # the anomaly is the run's only incident-class event, and the
+    # recorder keeps one bundle (whether the hang band lands in the surge
+    # is the host's timing; test_torch_fleet_controllers.py holds the
+    # sentinel's firing on recorded signals)
+    assert counters["anomalies_total"] == counters["anomalies_queue_depth"]
+    assert len(run.bundles) == len(run.bundle_paths) == \
+        min(1, counters["anomalies_total"])
+
+
+def _traffic_ramp_outcome(run, counters):
+    # whether the ramp outruns two 0.1 s polls depends on the host's
+    # speed; the runner settles back to min_replicas either way
+    # (tests/test_torch_fleet.py scales a live fleet up and down)
+    assert counters["replica_scale_ups"] == counters["replica_scale_downs"]
+    assert run.signals["replicas_total"] == 1
+
+
+def _noisy_neighbor_outcome(run, counters):
+    assert counters["requests_shed_quota"] > 0
+    neighbours = {k: v for k, v in run.slo_by_adapter.items() if k != "0"}
+    assert neighbours and all(m["goodput"] == 1.0
+                              for m in neighbours.values())
+
+
+def _brownout_ladder_outcome(run, counters):
+    # on the CPU port the tiny model drains the 0.1 s burst within the
+    # ladder's three hot polls; tests/test_torch_fleet.py climbs it
+    assert counters["brownouts_escalated"] >= counters["brownouts_recovered"]
+    assert "brownouts_escalated" in counters and \
+        run.signals["replicas_total"] == 1
+
+
+#: the fleet scenarios: the committed file (or the dict above), and what
+#: each run must show besides conservation and reconciliation
+FLEET_RUNS = {
+    "fleet_smoke": ("fleet_smoke.json", _fleet_smoke_outcome),
+    "canary_rollback": ("canary_rollback.json", _canary_rollback_outcome),
+    "latency_drift": ("latency_drift.json", _latency_drift_outcome),
+    "traffic_ramp": ("traffic_ramp.json", _traffic_ramp_outcome),
+    "noisy_neighbor": ("noisy_neighbor.json", _noisy_neighbor_outcome),
+    "brownout_ladder": (None, _brownout_ladder_outcome),
+}
+
+
+@pytest.fixture
+def one_torch_thread():
+    # the tiny model's ops gain nothing from threads, and beside busy
+    # test workers an oversubscribed pool stretches the timed scenarios
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("name", sorted(FLEET_RUNS))
+def test_fleet_block_runs(name, tmp_path, one_torch_thread):
+    committed, outcome = FLEET_RUNS[name]
+    if committed is None:
+        d = copy.deepcopy(SCENARIOS[name])
+    else:
+        with open(os.path.join(SCENARIO_DIR, committed)) as f:
+            d = json.load(f)
+    scenario = Scenario.from_dict(d)
+    log = str(tmp_path / f"{name}.jsonl")
+    run = run_scenario(scenario, model=build_model(scenario.model,
+                                                   device="cpu"),
+                       log_path=log)
+    # the SLO verdict rides on this host's speed (deadlines, TTFT); the
+    # gate's exit is held on the card (chip_smoke.py [fleet_scenarios])
+    assert not run.aborted and run.slo is not None
+    assert run.submitted == scenario.total_requests
+    assert all(s.request.request_id in run.results for s in run.schedule)
+    assert run.signals is not None
+    assert fleet_log_problems(log) == []
+    # the JAX package's monitor reads the port's fleet log as the port's
+    assert jbuild_report(log) == build_report(log)
+    outcome(run, run.counters)
 
 
 def _tiny(tmp_path):
